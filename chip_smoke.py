@@ -16,19 +16,37 @@ raises, so the exit code is non-zero:
    masks and background bit-equal;
 4. K2 (CCL + stats) against its plain version on the card, on K1's masks
    and random masks of density 0.05 and 0.3: every stats field bit-equal;
-5. the slice: bench config at 1080p, batch 256, max_components 32, a
-   512-frame six-blob clip through tpuva_torch.graph.pipeline.process_clip
-   on cuda, with the launch counts of both kernels read around it; its
-   CSV bytes equal the OpenCV reference's (REF_CSV_SHA256) and most rows
-   lie within 1 px of the clip's truth; a 48-frame sub-clip run on the
-   CPU (plain versions) and on the card gives identical rows, masks,
-   background and CSV bytes;
-6. timing with CUDA events after warm-up: slice frames/s, ms per batch of
-   K1, K2 and the tracker, K1 and K2 against their plain versions.
+5. K3 (dense root-key labels) against its plain version on the card, bit
+   for bit, 8- and 4-connected, on the masks of phase 4, the U shape and
+   mixed scene of the kernel tests and odd sizes; then
+   connected_components_with_stats (labels, bbox, every field) on the card
+   against the CPU on a (2, 1080, 1920) batch;
+6. the staged route: bench config at 1080p, batch 256, max_components 32,
+   a 512-frame six-blob clip through process_clip(use_pallas=True) on
+   cuda (K1 + K2), with the launch counts read around it; its CSV bytes
+   equal the OpenCV reference's (REF_CSV_SHA256) and most rows lie within
+   1 px of the clip's truth; a 48-frame sub-clip run on the CPU (plain
+   versions) and on the card gives identical rows, masks, background and
+   CSV bytes;
+7. the streamed default route: the same clip through
+   StreamingPipeline(cfg, max_components=32).run(VideoMemory(clip)) on
+   cuda (torch front end, K3, stats), launch counts read around it: K3
+   launched, K1 and K2 not, CSV sha256 == REF_CSV_SHA256; the same with
+   use_pallas=True (K1 + K2, no K3); a run stopped after its first
+   checkpointed batch and resumed on the whole clip gives the same bytes;
+   K3 against its plain version on the route's own batch-256 masks;
+8. timing with CUDA events after warm-up at batch 256 and 1080p: K1, K2,
+   K3 (8- and 4-connected) and connected_components_with_stats against
+   their plain versions, the torch front end, the tracker, BatchStager's
+   pinned staging per batch beside a pageable copy, and frames/s of
+   process_clip and of both streamed routes (in turns, twice each), with
+   the peak device memory of each streamed route.
 
-Then one JSON line of the kernels, the card line again, and last
-{"ok": true, "device": {...}}. Long output (the compiler's register and
-shared-memory report, the sub-clip CSVs) goes to build/chip_smoke/.
+Then one JSON line of the kernels (each with its least time on the card,
+bound_ms, from the bytes and operations of this run's inputs), the card
+line again, and last {"ok": true, "device": {...}}. Long output (the
+compiler's register and shared-memory report, CSVs, checkpoints) goes to
+build/chip_smoke/.
 """
 
 from __future__ import annotations
@@ -43,12 +61,15 @@ import time
 import numpy as np
 import torch
 
-OUT_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "chip_smoke")
+ROOT = os.path.dirname(os.path.abspath(__file__))
+OUT_DIR = os.path.join(ROOT, "build", "chip_smoke")
 REPLACES = {
     "fused_segment": ("tpuva_torch/csrc/fused_segment.cu",
                       "tpuva/ops/pallas/fused_segment.py:145"),
     "ccl_stats": ("tpuva_torch/csrc/ccl.cu",
                   "tpuva/ops/pallas/ccl.py:623"),
+    "ccl_labels": ("tpuva_torch/csrc/ccl.cu",
+                   "tpuva/ops/pallas/ccl.py:220"),
 }
 BENCH_KW = dict(
     alpha=0.02, threshold=35.0, blur_ksize=5, blur_sigma=0.0,
@@ -69,6 +90,15 @@ MAX_COMPONENTS = 32
 # 79.8% of its rows within 1 px of the analytic truth; the port is held
 # to the reference, row for row. Recipe: README.md, "PyTorch / H100 port".
 REF_CSV_SHA256 = "192715d242a4867c8ac98eb277c4e9d8f5d7abebdcf4b41b21740e540c131d5c"
+
+# Published H100 SXM peaks (NVIDIA's data sheet): HBM3 bytes/s, and the
+# float32 rate outside the tensor cores, taken for the scalar integer and
+# float32 operations of these kernels (none uses the tensor cores).
+PEAK_BYTES_S = 3.35e12
+PEAK_OPS_S = 67e12
+# Least scalar operations per pixel of K2 and K3: block flags and link
+# tests of the union-find, the stats adds (K2) or the label write (K3).
+CCL_OPS_PER_PX = 5
 
 
 def say(phase, **kv):
@@ -109,7 +139,39 @@ def cuda_ms(fn, reps):
     return start.elapsed_time(end) / reps
 
 
+def bound(nbytes, nops):
+    """(least ms on the card, what bounds it): the larger of the bytes
+    over the memory rate and the operations over the scalar peak."""
+    t_bytes = nbytes / PEAK_BYTES_S * 1e3
+    t_ops = nops / PEAK_OPS_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def k1_ops_per_px(kw):
+    """Least scalar operations per pixel of K1 for a config: the separable
+    integer blur (a multiply and an add per tap and axis, the rounding
+    shift), the background update, |F - B| and the threshold (6), and each
+    erode or dilate (separable for a rect SE, 2(k-1) min/max; one per SE
+    point past the first otherwise)."""
+    from tpuva_torch.ops.filters import structuring_element
+
+    k = kw.get("blur_ksize", 0)
+    ops = (2 * (2 * k - 1) + 2 if k > 1 else 0) + 6
+    ops += 38 if kw.get("median_ksize", 0) == 3 else 0  # 19 exchanges
+    for shape, key, iters in (("open_shape", "open_ksize", "open_iters"),
+                              ("close_shape", "close_ksize", "close_iters")):
+        ks = kw.get(key, 0)
+        if ks > 1:
+            if kw.get(shape) == "rect":
+                per = 2 * (ks - 1)
+            else:
+                per = int(structuring_element(kw[shape], ks).sum()) - 1
+            ops += 2 * kw.get(iters, 1) * per
+    return ops
+
+
 STAT_KEYS = ("count", "area", "centroid", "centroid_sum")
+CC_KEYS = ("labels", "count", "area", "bbox", "centroid", "centroid_sum", "overflow")
 
 
 def check_equal(err, kernel, pairs, where):
@@ -134,11 +196,19 @@ def main():
     from tpuva_torch.export.csvio import format_rows, write_tracks_csv
     from tpuva_torch.graph import config
     from tpuva_torch.graph.pipeline import (
-        _finish_batch, _front_end_kwargs, init_carry, process_clip,
+        _finish_batch, _front_end_kwargs, init_carry, process_batch, process_clip,
+        torch_front_end,
     )
-    from tpuva_torch.ops.ccl import label_stats, label_sums_plain
+    from tpuva_torch.graph.streaming import StreamingPipeline
+    from tpuva_torch.io.memory import VideoMemory
+    from tpuva_torch.io.staging import BatchStager
+    from tpuva_torch.ops import connected_components_with_stats
+    from tpuva_torch.ops.ccl import label_components_tiled, label_stats, label_sums_plain
     from tpuva_torch.ops.fused_segment import fused_segment, fused_segment_plain
-    from tpuva_torch.ops.label import _assemble_stats
+    from tpuva_torch.ops.label import _assemble_stats, label_components
+    # the kernel tests' scenes (that module imports no JAX)
+    sys.path.insert(0, os.path.join(ROOT, "tests"))
+    from test_torch_kernels import mixed_scene, u_shape
 
     os.makedirs(OUT_DIR, exist_ok=True)
     dev = torch.device("cuda")
@@ -158,13 +228,22 @@ def main():
         fh.write(log)
     say("build", seconds=round(time.time() - t0, 2), library=str(lib_path.name))
 
-    # the slice's clip, made once (its first frames also feed phases 3-4)
+    # the slice's clip, made once (its first frames also feed phases 3-5)
     t0 = time.time()
     clip, _alive, truth, plate = multi_blob_clip(
         1080, 1920, 512, n_blobs=6, radius=16, births_deaths=False, noise_sigma=2.0
     )
     say("clip", seconds=round(time.time() - t0, 2), shape=list(clip.shape))
-    err = {"fused_segment": 0.0, "ccl_stats": 0.0}
+    err = {name: 0.0 for name in REPLACES}
+    counters = {"fused_segment": fused_segment, "ccl_stats": label_stats,
+                "ccl_labels": label_components_tiled}
+
+    def reset_counts():
+        for fn in counters.values():
+            fn.launches = 0
+
+    def read_counts():
+        return {name: fn.launches for name, fn in counters.items()}
 
     # 3. K1 against its plain version, bit for bit
     rng = np.random.default_rng(0)
@@ -201,18 +280,44 @@ def main():
         check_equal(err, "ccl_stats", ((k, got[k], ref[k]) for k in STAT_KEYS), name)
     say("k2_vs_plain", scenes=[n for n, _ in masks_k2], bit_equal=True)
 
-    # 5. the slice through the entry point
+    # 5. K3 against its plain version, bit for bit, 8- and 4-connected
+    rng = np.random.default_rng(5)
+    masks_k3 = masks_k2 + [
+        ("u_shape", torch.from_numpy(u_shape(130, 280)[None]).to(dev)),
+        ("mixed_scene", torch.from_numpy(mixed_scene()).to(dev)),
+        ("odd_5x250x333", torch.from_numpy(((rng.random((5, 250, 333)) < 0.3) * 255)
+                                           .astype(np.uint8)).to(dev)),
+        ("odd_2x7x9", torch.from_numpy(((rng.random((2, 7, 9)) < 0.5) * 255)
+                                       .astype(np.uint8)).to(dev)),
+    ]
+    for name, m in masks_k3:
+        for conn in (8, 4):
+            got = label_components_tiled(m, conn)
+            check_equal(err, "ccl_labels", [("labels", got, label_components(m, conn))],
+                        f"{name}, connectivity {conn}")
+    cc_batch = k1_masks[:2]
+    for conn in (8, 4):
+        got = connected_components_with_stats(cc_batch, MAX_COMPONENTS, conn)
+        ref = connected_components_with_stats(cc_batch.cpu(), MAX_COMPONENTS, conn)
+        for k in CC_KEYS:
+            if not torch.equal(got[k].cpu(), ref[k]):
+                raise AssertionError(f"connected_components_with_stats {k} differs "
+                                     f"between card and CPU (connectivity {conn})")
+    say("k3_vs_plain", scenes=[n for n, _ in masks_k3], connectivity=[8, 4], bit_equal=True,
+        cc_stats_cuda_equals_cpu=list(CC_KEYS), cc_stats_shape=list(cc_batch.shape))
+    del masks_k2, masks_k3
+
+    # 6. the staged route through the entry point
     cfg = bench_cfg(config, 256)
-    fused_segment.launches = 0
-    label_stats.launches = 0
+    reset_counts()
     t0 = time.time()
     rows, _carry, _ = process_clip(clip, cfg, background0=plate,
-                                  max_components=MAX_COMPONENTS, device="cuda")
+                                  max_components=MAX_COMPONENTS, use_pallas=True, device="cuda")
     torch.cuda.synchronize()
     slice_s = time.time() - t0
-    launches = {"fused_segment": fused_segment.launches, "ccl_stats": label_stats.launches}
-    if min(launches.values()) < 1:
-        raise AssertionError(f"a kernel of the path was not launched: {launches}")
+    staged_counts = read_counts()
+    if staged_counts["fused_segment"] < 1 or staged_counts["ccl_stats"] < 1:
+        raise AssertionError(f"a kernel of the staged route was not launched: {staged_counts}")
     csv_full = format_rows(rows).encode()
     if hashlib.sha256(csv_full).hexdigest() != REF_CSV_SHA256:
         with open(os.path.join(OUT_DIR, "tracks_512_gpu.csv"), "wb") as fh:
@@ -233,10 +338,10 @@ def main():
     sub_cfg = bench_cfg(config, 16)
     rows_cpu, carry_cpu, masks_cpu = process_clip(
         clip[:48], sub_cfg, background0=plate, max_components=MAX_COMPONENTS,
-        device="cpu", return_masks=True)
+        use_pallas=True, device="cpu", return_masks=True)
     rows_gpu, carry_gpu, masks_gpu = process_clip(
         clip[:48], sub_cfg, background0=plate, max_components=MAX_COMPONENTS,
-        device="cuda", return_masks=True)
+        use_pallas=True, device="cuda", return_masks=True)
     csv = {}
     for name, r in (("cpu", rows_cpu), ("gpu", rows_gpu)):
         path = os.path.join(OUT_DIR, f"tracks_48_{name}.csv")
@@ -249,27 +354,86 @@ def main():
         raise AssertionError("48-frame sub-clip: CPU and GPU backgrounds differ")
     if [r for r in rows if r[1] < 48] != rows_gpu:
         raise AssertionError("first 48 frames of the batch-256 run differ from the batch-16 run")
-    say("slice", frames=int(clip.shape[0]), rows=len(rows), track_ids=len(ids),
-        rows_equal_opencv_reference=True,
+    say("slice", route="process_clip(use_pallas=True): K1 + K2", frames=int(clip.shape[0]),
+        rows=len(rows), track_ids=len(ids), rows_equal_opencv_reference=True,
         rows_within_1px_of_truth=float((d < 1.0).mean()),
         blob_frames_found_within_1px=float(found.mean()),
-        seconds=round(slice_s, 3), launches=launches,
+        seconds=round(slice_s, 3), launches=staged_counts,
         sub_clip_cpu_gpu_rows_equal=True, sub_clip_csv_bytes_equal=True,
         sub_clip_csv_bytes=len(csv["gpu"]))
 
-    # 6. at the main path's shapes (batch 256, 1080p): kernel vs plain
-    # once more, then timing
+    # 7. the streamed default route (torch front end, K3, stats), the
+    # streamed staged route, and a stopped-and-resumed run
+    def stream(what, **kw):
+        """One StreamingPipeline run of the whole clip on cuda: (CSV bytes,
+        seconds, launch counts read around it, peak device GiB)."""
+        sp = StreamingPipeline(cfg, max_components=MAX_COMPONENTS, **kw)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        t0 = time.time()
+        out = sp.run(VideoMemory(clip), background0=plate)
+        torch.cuda.synchronize()
+        s = time.time() - t0
+        counts = read_counts()
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        data = format_rows(out).encode()
+        if hashlib.sha256(data).hexdigest() != REF_CSV_SHA256:
+            with open(os.path.join(OUT_DIR, f"tracks_512_{what}.csv"), "wb") as fh:
+                fh.write(data)
+            raise AssertionError(f"streamed {what} rows differ from the OpenCV reference's")
+        return data, s, counts, peak
+
+    _csv, stream_s, default_counts, default_peak = stream("default")
+    if (default_counts["ccl_labels"] < 2 or default_counts["fused_segment"]
+            or default_counts["ccl_stats"]):
+        raise AssertionError(f"streamed default route launches: {default_counts}")
+    _csv, stream_staged_s, stream_staged_counts, staged_peak = stream("staged", use_pallas=True)
+    if (stream_staged_counts["ccl_labels"] or stream_staged_counts["fused_segment"] < 2
+            or stream_staged_counts["ccl_stats"] < 2):
+        raise AssertionError(f"streamed use_pallas route launches: {stream_staged_counts}")
+    ckpt = os.path.join(OUT_DIR, "stream_ckpt.npz")
+    if os.path.exists(ckpt):
+        os.unlink(ckpt)
+    first = StreamingPipeline(cfg, max_components=MAX_COMPONENTS, checkpoint_path=ckpt,
+                              checkpoint_every=1)
+    first.run(VideoMemory(clip[:256]), background0=plate)
+    resumed = StreamingPipeline(cfg, max_components=MAX_COMPONENTS, checkpoint_path=ckpt,
+                                checkpoint_every=1).run(VideoMemory(clip), background0=plate)
+    if hashlib.sha256(format_rows(resumed).encode()).hexdigest() != REF_CSV_SHA256:
+        raise AssertionError("stopped-and-resumed streamed run differs from the reference")
+    # K3 against its plain version on the route's own batch-256 masks
     N = 256
     frames = torch.from_numpy(clip[:N]).to(dev)
     bg0 = torch.from_numpy(plate.astype(np.float32)).to(dev)
+    _c, out = process_batch(cfg, init_carry(cfg, 1080, 1920, plate, device=dev), frames,
+                            return_masks=True, max_components=MAX_COMPONENTS)
+    route_masks = out["masks"]
+    del out
+    for conn in (8, 4):
+        check_equal(err, "ccl_labels",
+                    [("labels", label_components_tiled(route_masks, conn),
+                      label_components(route_masks, conn))],
+                    f"streamed route masks, batch 256, connectivity {conn}")
+    say("stream", route="StreamingPipeline.run -> process_batch -> K3", frames=int(clip.shape[0]),
+        csv_sha256_equals_reference=True, seconds=round(stream_s, 3), launches=default_counts,
+        peak_device_gib=default_peak, staged_seconds=round(stream_staged_s, 3),
+        staged_launches=stream_staged_counts, staged_peak_device_gib=staged_peak,
+        resumed_csv_bytes_equal=True, k3_bit_equal_on_route_masks=True)
+
+    # 8. at the main path's shapes (batch 256, 1080p): kernel vs plain
+    # once more, then timing
     kw = _front_end_kwargs(cfg)
     masks, bg_last = fused_segment(frames, bg0, **kw)
     check_equal(err, "fused_segment",
                 zip(("masks", "bg"), (masks, bg_last), fused_segment_plain(frames, bg0, **kw)),
                 "main path, batch 256")
+    if not torch.equal(masks, route_masks):
+        raise AssertionError("K1's masks differ from the torch front end's at batch 256")
     got = label_stats(masks, MAX_COMPONENTS)
     ref = _assemble_stats(*label_sums_plain(masks, MAX_COMPONENTS), 1080, 1920)
     check_equal(err, "ccl_stats", ((k, got[k], ref[k]) for k in STAT_KEYS), "main path, batch 256")
+    del route_masks, got, ref
     reps = 5
     t = {}
     t["k1_ms"] = cuda_ms(lambda: fused_segment(frames, bg0, **kw), reps)
@@ -277,26 +441,76 @@ def main():
     t["k2_ms"] = cuda_ms(lambda: label_stats(masks, MAX_COMPONENTS), reps)
     t["k2_plain_ms"] = cuda_ms(
         lambda: _assemble_stats(*label_sums_plain(masks, MAX_COMPONENTS), 1080, 1920), 2)
-    stats = label_stats(masks, MAX_COMPONENTS)
+    t["k3_ms"] = cuda_ms(lambda: label_components_tiled(masks, 8), reps)
+    t["k3_plain_ms"] = cuda_ms(lambda: label_components(masks, 8), 2)
+    t["k3_conn4_ms"] = cuda_ms(lambda: label_components_tiled(masks, 4), reps)
+    t["k3_conn4_plain_ms"] = cuda_ms(lambda: label_components(masks, 4), 2)
+    t["cc_stats_ms"] = cuda_ms(lambda: connected_components_with_stats(
+        masks, MAX_COMPONENTS, compute_bbox=False, compute_labels=False), reps)
     carry0 = init_carry(cfg, 1080, 1920, plate, device=dev)
+    t["torch_front_end_ms"] = cuda_ms(lambda: torch_front_end(cfg, carry0, frames), 2)
+    stats = label_stats(masks, MAX_COMPONENTS)
     t["tracker_ms"] = cuda_ms(
         lambda: _finish_batch(cfg, carry0, stats, masks, bg_last, False), 2)
-    process_clip(clip, cfg, background0=plate, max_components=MAX_COMPONENTS, device="cuda")
+    # staging: pinned ring + side stream (BatchStager) over six batches,
+    # the interval between consecutive batches ready on the card; and a
+    # pageable copy of one batch
+    long_clip = np.concatenate([clip] * 3)
+    stager = BatchStager(VideoMemory(long_clip), N, queue_depth=3, device=dev)
+    ready = [time.perf_counter()]
+    try:
+        for _n, _b in stager:
+            torch.cuda.current_stream().synchronize()
+            ready.append(time.perf_counter())
+    finally:
+        stager.close()
+    del long_clip
+    t["staging_pinned_ms_per_batch"] = [round(1e3 * (b - a), 3) for a, b in zip(ready, ready[1:])]
+    pageable = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        torch.from_numpy(clip[:N]).to(dev)
+        torch.cuda.synchronize()
+        pageable.append(round(1e3 * (time.perf_counter() - t0), 3))
+    t["staging_pageable_ms_per_batch"] = pageable
+    process_clip(clip, cfg, background0=plate, max_components=MAX_COMPONENTS,
+                 use_pallas=True, device="cuda")
     torch.cuda.synchronize()
     t0 = time.time()
-    process_clip(clip, cfg, background0=plate, max_components=MAX_COMPONENTS, device="cuda")
+    process_clip(clip, cfg, background0=plate, max_components=MAX_COMPONENTS,
+                 use_pallas=True, device="cuda")
     torch.cuda.synchronize()
     t["slice_s"] = time.time() - t0
     t["slice_fps"] = clip.shape[0] / t["slice_s"]
+    # both streamed routes in turns: default, staged, staged, default
+    t["stream_default_fps"], t["stream_staged_fps"] = [], []
+    for route in ("default", "staged", "staged", "default"):
+        s = stream(route, use_pallas=route == "staged")[1]
+        t[f"stream_{route}_fps"].append(clip.shape[0] / s)
     say("timing", card=card, batch=N, shape=[1080, 1920], kernels_bit_equal_at_batch_256=True, **t)
 
+    px = masks.numel()
+    bounds = {
+        # frames read, masks written, background read and written once
+        "fused_segment": bound(frames.numel() + px + 2 * 4 * bg0.numel(),
+                               k1_ops_per_px(kw) * px),
+        # the mask read; the stats are a few KB
+        "ccl_stats": bound(px, CCL_OPS_PER_PX * px),
+        # the mask read and the int32 labels written
+        "ccl_labels": bound(px + 4 * px, CCL_OPS_PER_PX * px),
+    }
+    timed = {"fused_segment": ("k1_ms", "k1_plain_ms"), "ccl_stats": ("k2_ms", "k2_plain_ms"),
+             "ccl_labels": ("k3_ms", "k3_plain_ms")}
+    launches = {"fused_segment": staged_counts["fused_segment"],
+                "ccl_stats": staged_counts["ccl_stats"],
+                "ccl_labels": default_counts["ccl_labels"]}
     kernels = []
-    for name, ms, plain in (("fused_segment", t["k1_ms"], t["k1_plain_ms"]),
-                            ("ccl_stats", t["k2_ms"], t["k2_plain_ms"])):
-        src, rep = REPLACES[name]
+    for name, (src, rep) in REPLACES.items():
+        ms, plain = timed[name]
         kernels.append({"name": name, "route": "cuda", "source": src, "replaces": rep,
                         "launches": launches[name], "max_abs_err": err[name],
-                        "ms": ms, "plain_ms": plain})
+                        "ms": t[ms], "plain_ms": t[plain], "bound_ms": bounds[name][0],
+                        "bound_by": bounds[name][1], "library_ms": None})
     say("done", seconds=round(time.time() - t_all, 1))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)

@@ -16,6 +16,8 @@ import tpuva_torch
 import tpuva_torch.graph.pipeline, tpuva_torch.graph.config, tpuva_torch.export.csvio
 import tpuva_torch.ops.fused_segment, tpuva_torch.ops.ccl, tpuva_torch.ops.filters
 import tpuva_torch.track.table, tpuva_torch.track.assign
+import tpuva_torch.graph.streaming, tpuva_torch.io.staging, tpuva_torch.io.memory
+import tpuva_torch.ops.label, tpuva_torch.device, tpuva_torch.utils
 import torch
 after = sorted(p.name for p in _build.BUILD_DIR.glob("*")) if _build.BUILD_DIR.exists() else None
 print(json.dumps({

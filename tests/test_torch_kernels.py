@@ -7,8 +7,9 @@ conftest.py imports JAX, so skip it there):
 
 Without a CUDA device every test here skips: a CUDA kernel has no CPU
 mode. Kernel and plain version are compared bit for bit (masks, float32
-background, every stats field): both are the same integer and IEEE
-float32 operation sequences. The scene builders are shared with the
+background, every stats field, dense labels): both are the same integer
+and IEEE float32 operation sequences. Also BatchStager's pinned-buffer
+copies to the card, byte for byte. The scene builders are shared with the
 CPU tests that hold the plain versions against tpuva.
 """
 
@@ -16,8 +17,12 @@ import numpy as np
 import pytest
 import torch
 
-from tpuva_torch.ops.ccl import label_stats
+from tpuva_torch.io.memory import VideoMemory
+from tpuva_torch.io.staging import BatchStager
+from tpuva_torch.ops import connected_components_with_stats
+from tpuva_torch.ops.ccl import label_components_tiled, label_stats
 from tpuva_torch.ops.fused_segment import fused_segment, fused_segment_plain
+from tpuva_torch.ops.label import label_components
 
 BENCH = dict(
     alpha=0.02, threshold=35.0, blur_ksize=5, blur_sigma=0.0,
@@ -135,3 +140,62 @@ def test_ccl_kernel_matches_plain(cuda_device):
             assert label_stats.launches == before + 1
             for k in ("count", "area", "centroid", "centroid_sum", "overflow"):
                 np.testing.assert_array_equal(got[k].cpu().numpy(), ref[k].numpy(), err_msg=k)
+
+
+def label_scenes():
+    """Masks for K3: the CCL scenes above, random masks of three densities,
+    odd sizes (the ragged last 2x2-block row and column) and a full frame."""
+    rng = np.random.default_rng(5)
+    scenes = [mixed_scene(), u_shape(192, 768)[None], np.zeros((2, 9, 11), np.uint8),
+              np.full((1, 33, 65), 255, np.uint8)]
+    for p in (0.05, 0.3, 0.45):
+        scenes.append(((rng.random((4, 250, 333)) < p) * 255).astype(np.uint8))
+    for shape in ((2, 7, 9), (3, 1, 1), (2, 1, 33), (2, 40, 1)):
+        scenes.append(((rng.random(shape) < 0.5) * 255).astype(np.uint8))
+    return scenes
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("connectivity", [4, 8])
+def test_dense_label_kernel_matches_plain(cuda_device, connectivity):
+    for mask in label_scenes():
+        ref = label_components(torch.from_numpy(mask), connectivity)
+        before = label_components_tiled.launches
+        got = label_components_tiled(torch.from_numpy(mask).to(cuda_device), connectivity)
+        torch.cuda.synchronize()
+        assert label_components_tiled.launches == before + 1
+        np.testing.assert_array_equal(got.cpu().numpy(), ref.numpy(), err_msg=f"{mask.shape}")
+    # 2-D and bool input
+    m = u_shape(40, 60)
+    got = label_components_tiled(torch.from_numpy(m != 0).to(cuda_device), connectivity)
+    np.testing.assert_array_equal(got.cpu().numpy(),
+                                  label_components(torch.from_numpy(m), connectivity).numpy())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("connectivity", [4, 8])
+def test_connected_components_with_stats_cuda_matches_cpu(cuda_device, connectivity):
+    for mask in (mixed_scene(), label_scenes()[5], u_shape(64, 96)):
+        for C in (8, 64):
+            ref = connected_components_with_stats(torch.from_numpy(mask), C, connectivity)
+            got = connected_components_with_stats(torch.from_numpy(mask).to(cuda_device), C,
+                                                  connectivity)
+            assert got["ccl_converged"] is True
+            for k in ("labels", "count", "area", "bbox", "centroid", "centroid_sum", "overflow"):
+                np.testing.assert_array_equal(got[k].cpu().numpy(), ref[k].numpy(), err_msg=k)
+
+
+@pytest.mark.gpu
+def test_batch_stager_cuda_yields_source_batches(cuda_device):
+    rng = np.random.default_rng(1)
+    clip = rng.integers(0, 256, (37, 30, 50), dtype=np.uint8)
+    stager = BatchStager(VideoMemory(clip), 8, queue_depth=2, device=cuda_device)
+    try:
+        got = [(n, b.clone()) for n, b in stager]
+    finally:
+        stager.close()
+    assert [n for n, _ in got] == [8, 8, 8, 8, 5]
+    for k, (n, b) in enumerate(got):
+        assert b.device.type == "cuda" and b.dtype == torch.uint8 and b.shape == (8, 30, 50)
+        np.testing.assert_array_equal(b[:n].cpu().numpy(), clip[8 * k:8 * k + n])
+    np.testing.assert_array_equal(got[-1][1][5:].cpu().numpy(), np.repeat(clip[-1:], 3, axis=0))

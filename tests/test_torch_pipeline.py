@@ -1,8 +1,11 @@
-"""The port's slice end to end (tpuva_torch.graph.pipeline) against
+"""The port's pipeline (tpuva_torch.graph.pipeline) against
 tpuva.graph.pipeline on the CPU: same clip, same config, rows and CSV
-bytes identical. Also the resume path (a JAX carry continued in the port),
-and the copies the port carries of jax-free modules (config dataclasses,
-CSV writer, collect_rows_array), each pinned to its original."""
+bytes identical, through the one-dispatch process_batch (torch front end
+or K1's plain version, with a sequential or scanned background; K3's plain
+version) and the staged process_batch_staged (K1 + K2 plain). Also the
+resume path (a JAX carry continued in the port), and the copies the port
+carries of jax-free modules (config dataclasses, CSV writer,
+collect_rows_array), each pinned to its original."""
 
 import dataclasses
 import io
@@ -83,14 +86,15 @@ def test_seeded_background_matches_tpuva(clip):
     rows_j, _c, masks_j = jp.process_clip(frames, bench_cfg(), max_components=MAX_COMPONENTS,
                                           return_masks=True)
     rows, _c, masks = tp.process_clip(frames, bench_cfg(), max_components=MAX_COMPONENTS,
-                                      return_masks=True)
+                                      return_masks=True, device="cpu")
     np.testing.assert_array_equal(masks, masks_j)
     assert rows == rows_j and rows
 
 
 def test_resume_from_jax_carry(clip, jax_run):
-    """One batch in JAX, carry_from_numpy, the rest in the port: rows
-    equal a full JAX run (the carry is the system's whole state)."""
+    """One batch in JAX, carry_from_numpy, the rest in the port's staged
+    route: rows equal a full JAX run (the carry is the system's whole
+    state)."""
     frames, _alive, _truth, plate = clip
     cfg = bench_cfg()
     N = cfg.batch
@@ -98,7 +102,7 @@ def test_resume_from_jax_carry(clip, jax_run):
     carry_j, out = jp.process_batch(cfg, carry_j, jnp.asarray(frames[:N]),
                                     max_components=MAX_COMPONENTS)
     rows = jp.collect_rows(out["rows"], out["row_valid"], row_sums=out["row_sums"])
-    carry = tp.carry_from_numpy(carry_j)
+    carry = tp.carry_from_numpy(carry_j, device="cpu")
     back = tp.carry_to_numpy(carry)
     np.testing.assert_array_equal(back.bg, np.asarray(carry_j.bg))
     assert back.track.next_id == np.asarray(carry_j.track.next_id)
@@ -106,8 +110,8 @@ def test_resume_from_jax_carry(clip, jax_run):
         chunk = frames[start:start + N]
         n = chunk.shape[0]
         chunk = np.concatenate([chunk, np.repeat(chunk[-1:], N - n, axis=0)])
-        carry, out = tp.process_batch(cfg, carry, torch.from_numpy(chunk),
-                                      max_components=MAX_COMPONENTS)
+        carry, out = tp.process_batch_staged(cfg, carry, torch.from_numpy(chunk),
+                                             max_components=MAX_COMPONENTS)
         rows += tp.collect_rows(out["rows"].numpy(), out["row_valid"].numpy(),
                                 max_frame=frames.shape[0],
                                 row_sums=out["row_sums"].numpy())
@@ -162,10 +166,80 @@ def test_csv_writer_copy_matches_original(tmp_path):
 
 def test_not_yet_ported_options_raise(clip):
     frames = torch.from_numpy(clip[0][:2])
-    carry = tp.init_carry(bench_cfg(tcfg), 96, 256)
+    carry = tp.init_carry(bench_cfg(tcfg), 96, 256, device="cpu")
     otsu = dataclasses.replace(bench_cfg(tcfg), segment=tcfg.SegmentConfig(threshold="otsu"))
-    with pytest.raises(NotImplementedError):
-        tp.process_batch(otsu, carry, frames)
     med5 = dataclasses.replace(bench_cfg(tcfg), median=tcfg.MedianConfig(5))
-    with pytest.raises(NotImplementedError):
-        tp.process_batch(med5, carry, frames)
+    for step in (tp.process_batch, tp.process_batch_staged):
+        with pytest.raises(NotImplementedError):
+            step(otsu, carry, frames)
+        with pytest.raises(NotImplementedError):
+            step(med5, carry, frames)
+        with pytest.raises(NotImplementedError):
+            step(bench_cfg(tcfg), carry, frames, ccl_single_pass=True)
+
+
+@pytest.mark.parametrize("parallel_bg", [False, True], ids=["seq_bg", "parallel_bg"])
+@pytest.mark.parametrize("use_pallas", [False, True], ids=["torch_front", "k1_front"])
+def test_process_batch_matches_tpuva(clip, use_pallas, parallel_bg):
+    """tpuva's process_batch (its jnp front end, or the Pallas K1 in
+    interpret mode) against the port's, batch by batch from the same
+    carry: masks and rows equal.
+
+    Background tolerance: rtol 1e-5 (XLA:CPU contracts tpuva's update
+    into an FMA, see above). The scanned background (parallel_bg, the
+    torch front end only; tpuva ignores it under use_pallas) takes the
+    same combination tree as jax.lax.associative_scan, but XLA may
+    contract its s2 * o1 + o2 as well; measured on this clip: max
+    relative difference 2.45e-7 over the three batches (the sequential
+    form: 1.66e-6), so rtol 1e-6 holds it."""
+    frames, _alive, _truth, plate = clip
+    cfg = bench_cfg(tcfg)
+    N = cfg.batch
+    carry_j = jp.init_carry(bench_cfg(), 96, 256, plate)
+    carry = tp.init_carry(cfg, 96, 256, plate, device="cpu")
+    rtol = 1e-6 if parallel_bg and not use_pallas else 1e-5
+    for start in range(0, 48, N):
+        chunk = frames[start:start + N]
+        chunk = np.concatenate([chunk, np.repeat(chunk[-1:], N - len(chunk), axis=0)])
+        carry_j, out_j = jp.process_batch(
+            bench_cfg(), carry_j, jnp.asarray(chunk), parallel_bg=parallel_bg,
+            return_masks=True, max_components=MAX_COMPONENTS, use_pallas=use_pallas)
+        carry, out = tp.process_batch(
+            cfg, carry, torch.from_numpy(chunk), parallel_bg=parallel_bg,
+            return_masks=True, max_components=MAX_COMPONENTS, use_pallas=use_pallas)
+        np.testing.assert_array_equal(out["masks"].numpy(), np.asarray(out_j["masks"]))
+        for k in ("rows", "row_valid", "row_sums", "n_det", "active_tracks"):
+            np.testing.assert_array_equal(out[k].numpy(), np.asarray(out_j[k]), err_msg=k)
+        np.testing.assert_allclose(carry.bg.numpy(), np.asarray(carry_j.bg), rtol=rtol)
+        assert out["ccl_converged"] is True and not out["stats_overflow"].any()
+    assert int(out["n_det"].sum()) > 0
+
+
+def test_background_trajectory_parallel_matches_sequential():
+    """The scanned trajectory against the port's own sequential one on
+    random float32 frames, N in {1, 2, 7, 16} (odd and even recursion
+    steps). Tolerance rtol 1e-5: the scan multiplies (1 - a) up to N times
+    before applying it, a few float32 roundings of relative size 6e-8."""
+    rng = np.random.default_rng(2)
+    for n in (1, 2, 7, 16):
+        f = torch.from_numpy(rng.uniform(0, 255, (n, 5, 7)).astype(np.float32))
+        bg0 = torch.from_numpy(rng.uniform(0, 255, (5, 7)).astype(np.float32))
+        seq = tp.background_trajectory(bg0, f, 0.02)
+        par = tp.background_trajectory(bg0, f, 0.02, parallel=True)
+        assert par.shape == seq.shape == (n, 5, 7)
+        np.testing.assert_allclose(par.numpy(), seq.numpy(), rtol=1e-5)
+
+
+def test_entry_points_default_to_the_card(monkeypatch):
+    """Without a card, the entry points raise unless given device="cpu"."""
+    from tpuva_torch.track.table import init_track_state
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = bench_cfg(tcfg)
+    plate = np.zeros((8, 8), np.float32)
+    for call in (lambda: tp.init_carry(cfg, 8, 8),
+                 lambda: tp.carry_from_numpy(tp.init_carry(cfg, 8, 8, plate, device="cpu")),
+                 lambda: tp.process_clip(np.zeros((2, 8, 8), np.uint8), cfg),
+                 lambda: init_track_state(4)):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            call()

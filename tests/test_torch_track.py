@@ -96,7 +96,7 @@ def test_track_update_matches_tpuva(kind, assigner):
     D, T = 5, 6
     dets, valid = det_sequence(kind, D, seed=len(kind))
     js = jax_init(T)
-    ts = init_track_state(T)
+    ts = init_track_state(T, "cpu")
     kw = dict(max_dist=25.0, death_patience=3, assigner=assigner)
     n_rows = 0
     for t in range(dets.shape[0]):

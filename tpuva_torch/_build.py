@@ -1,6 +1,7 @@
 """Build and bind the port's CUDA kernels (``tpuva_torch/csrc/*.cu``).
 
-nvcc compiles every source into one shared library with a plain C
+nvcc compiles each source into an object file, all of them at once in
+parallel processes, and links them into one shared library with a plain C
 interface, loaded with ctypes: no ``torch/extension.h``, so a build takes
 seconds rather than minutes. It happens at the first kernel call (or an
 explicit ``build()``), never on import. The library lands in
@@ -28,7 +29,7 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "tpuva_torch"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "--fmad=false", "-shared", "-Xcompiler", "-fPIC",
+    "--fmad=false", "-Xcompiler", "-fPIC",
 )
 
 _P = ctypes.c_void_p
@@ -50,6 +51,11 @@ _SIGNATURES = {
     "tpuva_ccl_stats": [
         _P, _I, _I, _I, _I,  # mask, N, H, W, C
         _P, _P, _P, _P, _P,  # parent, bits, table, count, sums
+        _P,  # stream
+    ],
+    "tpuva_ccl_labels": [
+        _P, _I, _I, _I, _I,  # mask, N, H, W, connectivity
+        _P, _P, _P,  # parent, bits, labels
         _P,  # stream
     ],
 }
@@ -91,16 +97,28 @@ def build(verbose: bool = False) -> tuple[Path, str]:
         if lib.exists():
             return lib, ""
         tmp = lib.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [nvcc(), *NVCC_FLAGS, *(["-Xptxas", "-v"] if verbose else []),
-               "-o", str(tmp), *map(str, sources())]
-        res = subprocess.run(cmd, capture_output=True, text=True)
-        if res.returncode != 0:
-            raise RuntimeError(
-                f"nvcc failed ({res.returncode}):\n{' '.join(cmd)}\n"
-                f"{res.stdout}{res.stderr}"
-            )
+        ptxas = ["-Xptxas", "-v"] if verbose else []
+        objs = [tmp.with_name(f"{tmp.name}.{src.stem}.o") for src in sources()]
+        cmds = [[nvcc(), *NVCC_FLAGS, *ptxas, "-c", "-o", str(obj), str(src)]
+                for src, obj in zip(sources(), objs)]
+        cmds.append([nvcc(), *NVCC_FLAGS, "-shared", "-o", str(tmp), *map(str, objs)])
+        log = []
+        try:
+            procs = [subprocess.Popen(c, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                                      text=True) for c in cmds[:-1]]
+            results = [(c, p.communicate()[0], p.returncode) for c, p in zip(cmds, procs)]
+            if all(rc == 0 for _c, _out, rc in results):
+                res = subprocess.run(cmds[-1], capture_output=True, text=True)
+                results.append((cmds[-1], res.stdout + res.stderr, res.returncode))
+            for cmd, out, rc in results:
+                if rc != 0:
+                    raise RuntimeError(f"nvcc failed ({rc}):\n{' '.join(cmd)}\n{out}")
+                log.append(out)
+        finally:
+            for obj in objs:
+                obj.unlink(missing_ok=True)
         os.replace(tmp, lib)
-        return lib, res.stdout + res.stderr
+        return lib, "".join(log)
 
 
 @functools.lru_cache(maxsize=1)

@@ -1,29 +1,33 @@
-"""Batched segmentation + tracking driver — port of the main path of
+"""Batched segmentation + tracking pipeline — port of
 ``tpuva/graph/pipeline.py``.
 
-``process_batch`` runs an (N, H, W) uint8 batch on the carry's device:
+Two routes over an (N, H, W) uint8 batch on the carry's device, under the
+JAX package's names:
 
-1. ``fused_segment`` (kernel K1): blur -> background -> threshold ->
-   open -> close, the background seeded from the filtered first frame
-   while the carry has none;
-2. ``label_stats`` (kernel K2): 8-connected CCL + per-component stats in
-   cv2 id order;
-3. ``extract_detections``;
-4. ``_finish_batch``: one ``track_update`` per frame, in order.
+- ``process_batch`` — the default, one-dispatch route: the front end as
+  torch ops (``filter_batch`` -> ``background_trajectory`` -> |F - B| ->
+  threshold -> open -> close), or kernel K1 (``fused_segment``) with
+  ``use_pallas``; then ``connected_components_with_stats`` (kernel K3 +
+  integer stats) and ``_finish_batch``.
+- ``process_batch_staged`` — kernel K1, then kernel K2 (``label_stats``:
+  8-connected CCL + stats in one launch sequence), then ``_finish_batch``.
 
-CUDA tensors launch the hand-written kernels in steps 1-2; CPU tensors run
-the same calls through their plain versions. On the host,
+``_finish_batch`` runs ``extract_detections`` and one ``track_update`` per
+frame, in order. CUDA tensors launch the hand-written kernels; CPU tensors
+run the same calls through their plain versions. On the host,
 ``collect_rows_array`` (a copy of the original) divides the exact integer
-centroid sums in float64, and ``process_clip`` drives a whole clip.
+centroid sums in float64, and ``process_clip`` drives a whole clip,
+dispatching as tpuva's does: the staged route for ``use_pallas`` on the
+card, the one-dispatch route otherwise.
 
 The carry holds the system's state between batches — the background
 (float32), whether it is seeded, the track table and the global frame
 index; ``carry_from_numpy`` / ``carry_to_numpy`` move it to and from
-tpuva's ``PipelineCarry`` (or any object with the same fields).
+tpuva's ``PipelineCarry`` (or any object with the same fields). Entry
+points run on the card unless they are given ``device="cpu"``.
 
-Ported so far: the fused (non-Otsu) front-end with median 0 or 3. Otsu
-thresholding, median k > 3, streaming and dense labels are still to port
-(ROADMAP.md).
+Not ported yet (ROADMAP.md): Otsu thresholding, median k > 3 and
+``ccl_single_pass``, which raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -33,9 +37,19 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
+from tpuva_torch.device import resolve_device
+from tpuva_torch.ops.background import background_coeffs, background_update
 from tpuva_torch.ops.ccl import label_stats
+from tpuva_torch.ops.filters import (
+    gaussian_blur_u8,
+    median_blur,
+    morph_close,
+    morph_open,
+    structuring_element,
+    threshold,
+)
 from tpuva_torch.ops.fused_segment import fused_segment
-from tpuva_torch.ops.label import extract_detections
+from tpuva_torch.ops.label import connected_components_with_stats, extract_detections
 from tpuva_torch.track.table import TrackState, init_track_state, track_update
 
 
@@ -47,7 +61,8 @@ class PipelineCarry(NamedTuple):
 
 
 def init_carry(cfg, H: int, W: int, background0: Optional[np.ndarray] = None,
-               device="cpu") -> PipelineCarry:
+               device="cuda") -> PipelineCarry:
+    device = resolve_device(device)
     if background0 is not None:
         bg = torch.as_tensor(np.asarray(background0, np.float32), device=device)
     else:
@@ -60,9 +75,11 @@ def init_carry(cfg, H: int, W: int, background0: Optional[np.ndarray] = None,
     )
 
 
-def carry_from_numpy(carry, device="cpu") -> PipelineCarry:
+def carry_from_numpy(carry, device="cuda") -> PipelineCarry:
     """A carry from any object with PipelineCarry's fields holding arrays
     (numpy, tpuva's JAX PipelineCarry, or tensors)."""
+    device = resolve_device(device)
+
     def t(x, dtype):
         return torch.as_tensor(np.array(x), dtype=dtype, device=device)
 
@@ -111,9 +128,117 @@ def _front_end_kwargs(cfg) -> dict:
     )
 
 
+def _check_ported(cfg, ccl_single_pass: bool = False) -> None:
+    if cfg.segment.threshold == "otsu":
+        raise NotImplementedError("Otsu thresholding is not ported yet")
+    if cfg.median is not None and cfg.median.ksize not in (1, 3):
+        raise NotImplementedError("median ksize > 3 is not ported yet")
+    if ccl_single_pass:
+        raise NotImplementedError("ccl_single_pass is not ported")
+
+
+def filter_batch(cfg, frames: torch.Tensor) -> torch.Tensor:
+    """The stateless filter prefix (blur, median) on a float32 batch of
+    integer values, as tpuva's filter_batch: the blur re-quantizes to u8
+    (cv2's fixed point), so the median sees the same values cv2's does."""
+    f = frames
+    if cfg.blur is not None:
+        f = gaussian_blur_u8(f, cfg.blur.ksize, cfg.blur.sigma)
+    if cfg.median is not None:
+        f = median_blur(f, cfg.median.ksize)
+    return f
+
+
+def _affine_scan(s: torch.Tensor, o: torch.Tensor):
+    """Inclusive scan of the affine maps x -> s_t x + o_t along axis 0, in
+    the combination tree of jax.lax.associative_scan (pairs, recursion on
+    the odd elements, then the even ones), so that the float32 products
+    and sums are taken in the reference's order."""
+    n = s.shape[0]
+    if n < 2:
+        return s, o
+
+    def combine(s1, o1, s2, o2):  # apply (s1, o1) first, then (s2, o2)
+        return s1 * s2, s2 * o1 + o2
+
+    odd_s, odd_o = _affine_scan(*combine(s[0:-1:2], o[0:-1:2], s[1::2], o[1::2]))
+    if n % 2 == 0:
+        ev_s, ev_o = combine(odd_s[:-1], odd_o[:-1], s[2::2], o[2::2])
+    else:
+        ev_s, ev_o = combine(odd_s, odd_o, s[2::2], o[2::2])
+    out = []
+    for first, ev, od in ((s, ev_s, odd_s), (o, ev_o, odd_o)):
+        x = torch.empty_like(first)
+        x[0::2] = torch.cat([first[:1], ev])
+        x[1::2] = od
+        out.append(x)
+    return out[0], out[1]
+
+
+def background_trajectory(bg0: torch.Tensor, frames: torch.Tensor, alpha: float,
+                          parallel: bool = False) -> torch.Tensor:
+    """All post-update backgrounds B_1..B_N of a batch, (N, H, W) float32.
+
+    sequential: one background_update per frame, refimpl's two roundings.
+    parallel: an associative scan over the affine maps (s, o) with
+    B_t = s_t * B_0 + o_t, O(log N) depth; it reorders the float32 work,
+    so it is not bit-equal to the sequential form."""
+    if not parallel:
+        bgs = torch.empty_like(frames)
+        b = bg0
+        for t in range(frames.shape[0]):
+            b = background_update(b, frames[t], alpha)
+            bgs[t] = b
+        return bgs
+    c1, a = background_coeffs(alpha)
+    s = torch.full((frames.shape[0], 1, 1), c1, dtype=torch.float32, device=frames.device)
+    S, O = _affine_scan(s, a * frames)
+    return S * bg0[None] + O
+
+
+def _can_fuse(cfg) -> bool:
+    """Configs the fused front-end kernel K1 covers: median 0/1/3, no Otsu."""
+    return (cfg.median is None or cfg.median.ksize in (1, 3)) and cfg.segment.threshold != "otsu"
+
+
+def _can_stage(cfg) -> bool:
+    """Configs the staged route covers (tpuva's: _can_fuse plus Otsu, which
+    the port does not have yet and rejects)."""
+    return cfg.median is None or cfg.median.ksize in (1, 3)
+
+
+def torch_front_end(cfg, carry: PipelineCarry, frames: torch.Tensor,
+                    parallel_bg: bool = False):
+    """process_batch's front end as torch ops: filter_batch ->
+    background_trajectory -> |F - B| -> threshold -> open -> close.
+    Returns (mask (N, H, W) uint8, post-batch background (H, W) float32)."""
+    f = filter_batch(cfg, frames.to(torch.float32))
+    bg0 = carry.bg if bool(carry.bg_valid) else f[0]
+    bgs = background_trajectory(bg0, f, cfg.background.alpha, parallel_bg)
+    bg_last = bgs[-1].clone()  # not a view that keeps the batch alive
+    mask = threshold((f - bgs).abs(), cfg.segment.threshold)
+    del f, bgs
+    if cfg.morph_open is not None:
+        se = structuring_element(cfg.morph_open.shape, cfg.morph_open.ksize)
+        mask = morph_open(mask, se, cfg.morph_open.iterations)
+    if cfg.morph_close is not None:
+        se = structuring_element(cfg.morph_close.shape, cfg.morph_close.ksize)
+        mask = morph_close(mask, se, cfg.morph_close.iterations)
+    return mask, bg_last
+
+
 def process_batch(cfg, carry: PipelineCarry, frames: torch.Tensor,
-                  max_components: int = 64, return_masks: bool = False):
-    """One N-frame batch. frames: (N, H, W) uint8 on the carry's device.
+                  parallel_bg: bool = False, return_masks: bool = False,
+                  max_components: int = 64, use_pallas: bool = False,
+                  ccl_single_pass: bool = False):
+    """One N-frame batch through the one-dispatch route. frames: (N, H, W)
+    uint8 on the carry's device.
+
+    use_pallas (and a config K1 covers) runs the front end as kernel K1;
+    otherwise it is torch ops, with the background as a sequential or
+    (parallel_bg) scanned trajectory. The CCL is
+    connected_components_with_stats, whose root-key labels come from
+    kernel K3 on the card.
 
     Returns (new_carry, out) with out:
       rows           (N, max_blobs, 5) float32 — (track_id, frame, x, y, area)
@@ -124,10 +249,29 @@ def process_batch(cfg, carry: PipelineCarry, frames: torch.Tensor,
       stats_overflow (N,) int32, ccl_converged bool — strictness fields
       masks          (N, H, W) uint8, only if return_masks
     """
-    if cfg.segment.threshold == "otsu":
-        raise NotImplementedError("Otsu thresholding is not ported yet")
-    if cfg.median is not None and cfg.median.ksize not in (1, 3):
-        raise NotImplementedError("median ksize > 3 is not ported yet")
+    _check_ported(cfg, ccl_single_pass)
+    if use_pallas and _can_fuse(cfg):
+        mask, bg_last = fused_segment(
+            frames, carry.bg, seed_bg=not bool(carry.bg_valid), **_front_end_kwargs(cfg)
+        )
+    else:
+        mask, bg_last = torch_front_end(cfg, carry, frames, parallel_bg)
+    stats = connected_components_with_stats(
+        mask, max_components=max_components, compute_bbox=False, compute_labels=False
+    )
+    new_carry, out = _finish_batch(cfg, carry, stats, mask, bg_last, return_masks)
+    out["stats_overflow"] = stats["overflow"]
+    out["ccl_converged"] = stats["ccl_converged"]
+    return new_carry, out
+
+
+def process_batch_staged(cfg, carry: PipelineCarry, frames: torch.Tensor,
+                         return_masks: bool = False, max_components: int = 64,
+                         ccl_single_pass: bool = False):
+    """One N-frame batch through the staged route: kernel K1 (the
+    background seeded from the filtered first frame while the carry has
+    none), then kernel K2's CCL + stats. Same outputs as process_batch."""
+    _check_ported(cfg, ccl_single_pass)
     masks, bg_last = fused_segment(
         frames, carry.bg, seed_bg=not bool(carry.bg_valid), **_front_end_kwargs(cfg)
     )
@@ -206,19 +350,24 @@ def collect_rows(rows, row_valid, max_frame=None, row_sums=None):
 
 
 def process_clip(clip: np.ndarray, cfg, background0: Optional[np.ndarray] = None,
-                 return_masks: bool = False, max_components: int = 64,
-                 device="cpu"):
+                 parallel_bg: bool = False, return_masks: bool = False,
+                 max_components: int = 64, use_pallas: bool = False,
+                 ccl_single_pass: bool = False, device="cuda"):
     """Run a whole (T, H, W) uint8 clip through batched processing on
     `device`. Returns (rows, final_carry, masks-or-None), rows as
     tpuva.graph.pipeline.process_clip returns them.
 
-    The final partial batch is padded by repeating the last frame; padded
-    frames' rows are dropped. A frame whose component stats overflowed, or
-    a CCL that did not converge, raises: accuracy is never lost silently.
+    use_pallas with a config the staged route covers takes
+    process_batch_staged on the card (K1 + K2); everything else takes
+    process_batch (K3, and K1 with use_pallas). The final partial batch is
+    padded by repeating the last frame; padded frames' rows are dropped. A
+    frame whose component stats overflowed, or a CCL that did not
+    converge, raises: accuracy is never lost silently.
     """
     T, H, W = clip.shape
     N = cfg.batch
     carry = init_carry(cfg, H, W, background0, device)
+    staged = use_pallas and _can_stage(cfg) and carry.bg.device.type == "cuda"
     all_rows = []
     masks = [] if return_masks else None
     for start in range(0, T, N):
@@ -226,11 +375,18 @@ def process_clip(clip: np.ndarray, cfg, background0: Optional[np.ndarray] = None
         n = chunk.shape[0]
         if n < N:
             chunk = np.concatenate([chunk, np.repeat(chunk[-1:], N - n, axis=0)], axis=0)
-        frames = torch.from_numpy(np.ascontiguousarray(chunk)).to(device)
-        carry, out = process_batch(
-            cfg, carry, frames, max_components=max_components,
-            return_masks=return_masks,
-        )
+        frames = torch.from_numpy(np.ascontiguousarray(chunk)).to(carry.bg.device)
+        if staged:
+            carry, out = process_batch_staged(
+                cfg, carry, frames, return_masks=return_masks,
+                max_components=max_components, ccl_single_pass=ccl_single_pass,
+            )
+        else:
+            carry, out = process_batch(
+                cfg, carry, frames, parallel_bg=parallel_bg, return_masks=return_masks,
+                max_components=max_components, use_pallas=use_pallas,
+                ccl_single_pass=ccl_single_pass,
+            )
         ov = out["stats_overflow"][:n].cpu().numpy()
         if (ov > 0).any():
             raise RuntimeError(

@@ -1,4 +1,6 @@
-"""8-connected CCL + per-component stats — kernel K2 and its plain version.
+"""Connected-component kernels K2 and K3 and their plain versions.
+
+K2, ``label_stats``: 8-connected CCL + per-component stats.
 
 Replaces the Pallas kernel ``tpuva/ops/pallas/ccl.py::
 label_components_tiled_raw`` together with the XLA stats step
@@ -15,6 +17,10 @@ Both give (count, int64 sums) and share the ``_assemble_stats`` epilogue.
 ``overflow`` is all zeros (no slot capacity here: components past
 ``max_components`` are cut exactly as ``_assemble_stats`` cuts them) and
 ``ccl_converged`` is always True (union-find has no round cap).
+
+K3, ``label_components_tiled``: dense root-key labels, 4- or 8-connected
+(see its docstring); ``ops.label.connected_components_with_stats`` turns
+them into dense cv2 ids and stats.
 """
 
 from __future__ import annotations
@@ -22,7 +28,9 @@ from __future__ import annotations
 import torch
 
 from tpuva_torch import _build
-from tpuva_torch.ops.label import _assemble_stats, component_sums, label_components
+from tpuva_torch.ops.label import (
+    _assemble_stats, _check_connectivity, component_sums, label_components,
+)
 
 MAX_COMPONENTS_KERNEL = 1024  # per-CTA shared-memory accumulators in ccl.cu
 
@@ -85,3 +93,64 @@ def label_stats(mask: torch.Tensor, max_components: int = 64) -> dict:
 
 
 label_stats.launches = 0
+
+
+def label_components_tiled(mask: torch.Tensor, connectivity: int = 8,
+                           return_converged: bool = False):
+    """Dense root-key labels — kernel K3, replacing the Pallas kernel
+    ``tpuva/ops/pallas/ccl.py::label_components_tiled``.
+
+    mask: (N, H, W) or (H, W) uint8/bool. Returns int32 labels of the same
+    shape (each component pixel its component's minimum scan key + 1,
+    background 0) — bit-equal to ``ops.label.label_components`` — and with
+    return_converged=True also ``converged``, always True: union-find has
+    no round cap (the Pallas kernel's max_rounds can run out).
+
+    CUDA tensors launch ``tpuva_ccl_labels`` in ``csrc/ccl.cu`` (2x2-block
+    union-find for 8-connectivity, pixel union-find for 4); CPU tensors take
+    the plain ``label_components``. The Pallas knobs ``tile``,
+    ``max_rounds``, ``frames_per_step`` and ``max_run`` size TPU grid steps
+    and VMEM windows; the kernel here has none of those to size."""
+    _check_connectivity(connectivity)
+    squeeze = mask.dim() == 2
+    if squeeze:
+        mask = mask[None]
+    if mask.dim() != 3 or mask.dtype not in (torch.uint8, torch.bool):
+        raise ValueError("label_components_tiled: mask must be (N, H, W) uint8 or bool")
+    if mask.device.type == "cpu":
+        labels = label_components(mask, connectivity)
+    elif mask.device.type == "cuda":
+        labels = _labels_cuda(mask.to(torch.uint8).contiguous(), connectivity)
+    else:
+        raise ValueError(f"label_components_tiled: unsupported device {mask.device}")
+    if squeeze:
+        labels = labels[0]
+    return (labels, True) if return_converged else labels
+
+
+def _labels_cuda(mask: torch.Tensor, connectivity: int) -> torch.Tensor:
+    N, H, W = mask.shape
+    dev = mask.device
+    labels = torch.empty((N, H, W), dtype=torch.int32, device=dev)
+    if N == 0 or H == 0 or W == 0:
+        return labels
+    Hb, Wb = (H + 1) // 2, (W + 1) // 2
+    if N >= 1 << 16 or 4 * Hb * Wb >= 1 << 31:
+        raise ValueError("label_components_tiled kernel: N < 65536 and 4*ceil(H/2)*ceil(W/2) < 2^31")
+    parent = bits = None
+    if connectivity == 8:
+        parent = torch.empty((N, Hb * Wb), dtype=torch.int32, device=dev)
+        bits = torch.empty((N, Hb * Wb), dtype=torch.uint8, device=dev)
+    lib = _build.load()
+    err = lib.tpuva_ccl_labels(
+        mask.data_ptr(), N, H, W, connectivity,
+        None if parent is None else parent.data_ptr(),
+        None if bits is None else bits.data_ptr(),
+        labels.data_ptr(), torch.cuda.current_stream(dev).cuda_stream,
+    )
+    _build.check(lib, err, "ccl labels kernel")
+    label_components_tiled.launches += 1
+    return labels
+
+
+label_components_tiled.launches = 0

@@ -2,16 +2,24 @@
 ``tpuva/ops/label.py``.
 
 cv2 label-id semantics, as in the JAX package: 8-connectivity orders ids
-by each component's first 2x2 block in block raster order (BBDT). Both
-packages realise that order as the minimum of a scan key K per component
+by each component's first 2x2 block in block raster order (BBDT),
+4-connectivity by its first pixel in raster order (SAUF). Both packages
+realise that order as the minimum of a scan key K per component
 (``_scan_key``, a copy of the original), ranked ascending.
 
-This module holds the plain pieces: ``label_components`` (iterated 3x3
-neighbour-min over int32 keys until nothing changes — the plain version
-kernel K2 is held against), ``component_sums`` (rank the roots, integer
-``index_add`` of area, sum x, sum y), the stats epilogue
-``_assemble_stats`` and ``extract_detections``. The kernel lives in
-``ops/ccl.py``.
+This module holds the plain pieces: ``label_components`` (iterated 3x3 or
+4-neighbour min over int32 keys until nothing changes — the plain version
+kernels K2 and K3 are held against), the root table (``_root_table``: the
+first C root keys per frame, ascending = cv2 id order), integer sums,
+``relabel_dense``, the stats epilogue ``_assemble_stats``,
+``connected_components_with_stats`` and ``extract_detections``. The
+kernels live in ``ops/ccl.py``.
+
+tpuva contracts bf16 6-bit limbs of a (N, H*W, C) one-hot on the MXU; the
+port finds each foreground pixel's component by a sorted search in the
+root table and takes exact integer ``index_add_`` / ``scatter_reduce_``
+(amin/amax for the bbox) over those pixels only: deterministic, and no
+(N, H*W, C) tensor, which would not fit at 1080p and batch 256.
 """
 
 from __future__ import annotations
@@ -57,51 +65,124 @@ def _neighbor_min_8(label: torch.Tensor, sent: int) -> torch.Tensor:
     return out
 
 
-def label_components(mask: torch.Tensor) -> torch.Tensor:
-    """8-connected root-key labels of an (N, H, W) mask, the convention of
+def _neighbor_min_4(label: torch.Tensor, sent: int) -> torch.Tensor:
+    """Min over self and the 4 edge neighbours (outside = sent)."""
+    H, W = label.shape[-2], label.shape[-1]
+    lp = F.pad(label, (1, 1, 1, 1), value=sent)
+    out = label
+    for dy, dx in ((-1, 0), (1, 0), (0, -1), (0, 1)):
+        out = torch.minimum(out, lp[..., 1 + dy:1 + dy + H, 1 + dx:1 + dx + W])
+    return out
+
+
+def _check_connectivity(connectivity: int) -> None:
+    if connectivity not in (4, 8):
+        raise ValueError(f"connectivity must be 4 or 8, got {connectivity}")
+
+
+def label_components(mask: torch.Tensor, connectivity: int = 8) -> torch.Tensor:
+    """Root-key labels of an (N, H, W) or (H, W) mask, the convention of
     tpuva.ops.label.label_components: each component pixel holds its
     component's minimum scan key + 1, background 0."""
+    _check_connectivity(connectivity)
     H, W = mask.shape[-2:]
-    kmap, _inv, S = _scan_key(H, W, 8)
+    kmap, _inv, S = _scan_key(H, W, connectivity)
+    nb_min = _neighbor_min_8 if connectivity == 8 else _neighbor_min_4
     fg = mask != 0
     sent = torch.tensor(S, dtype=torch.int32, device=mask.device)
     lab = torch.where(fg, torch.from_numpy(kmap).to(mask.device), sent)
     while True:
-        new = torch.where(fg, _neighbor_min_8(lab, S), sent)
+        new = torch.where(fg, nb_min(lab, S), sent)
         if torch.equal(new, lab):
             break
         lab = new
     return torch.where(fg, lab + 1, 0)
 
 
-def component_sums(root: torch.Tensor, max_components: int):
+def _root_table(root: torch.Tensor, connectivity: int, max_components: int):
+    """The first `max_components` root keys of each frame in cv2 id order.
+
+    root: (N, H, W) int32 root-key labels. Returns (table (N, C) int32 of
+    root-label values K + 1, ascending, the sentinel S + 2 where absent, as
+    tpuva's _root_table; n_roots (N,) int32, the uncapped component
+    count). A root is a pixel whose label is its own key + 1; the roots are
+    few, so they are ranked by one sort of (frame, key)."""
+    N, H, W = root.shape
+    C = max_components
+    dev = root.device
+    kmap, _inv, S = _scan_key(H, W, connectivity)
+    k = torch.from_numpy(kmap).to(dev)
+    is_root = (root > 0) & (root == k + 1)
+    n_idx, p_idx = is_root.reshape(N, -1).nonzero(as_tuple=True)
+    keys = k.reshape(-1)[p_idx].long()
+    order = torch.argsort(n_idx * (S + 1) + keys)
+    n_sorted, key_sorted = n_idx[order], keys[order]
+    n_roots = torch.bincount(n_idx, minlength=N)
+    first = torch.cumsum(n_roots, 0) - n_roots
+    rank = torch.arange(n_sorted.numel(), device=dev) - first[n_sorted]
+    sel = rank < C
+    table = torch.full((N, C), S + 2, dtype=torch.int32, device=dev)
+    table[n_sorted[sel], rank[sel]] = (key_sorted[sel] + 1).to(torch.int32)
+    return table, n_roots.to(torch.int32)
+
+
+def _component_pixels(root: torch.Tensor, connectivity: int, max_components: int):
+    """Foreground pixels of each frame's first C components in cv2 id order.
+
+    Returns (count (N,) int32 = min(n_roots, C), n_idx, p_idx, rank), the
+    last three (M,) int64 — frame, raster index and cv2 id - 1; pixels of
+    later components are left out. One sorted search of (frame, label) in
+    the root table, whose rows are ascending and whose sentinel exceeds
+    every label."""
+    table, n_roots = _root_table(root, connectivity, max_components)
+    count = torch.clamp(n_roots, max=max_components).to(torch.int32)
+    N, C = table.shape
+    flat_root = root.reshape(N, -1)
+    n_idx, p_idx = (flat_root > 0).nonzero(as_tuple=True)
+    stride = 1 << 32  # above every label and the sentinel: frames stay sorted
+    frame_base = torch.arange(N, device=root.device)[:, None] * stride
+    flat_table = (table.long() + frame_base).reshape(-1)
+    q = flat_root[n_idx, p_idx].long() + n_idx * stride
+    pos = torch.searchsorted(flat_table, q).clamp(max=N * C - 1)
+    hit = flat_table[pos] == q
+    return count, n_idx[hit], p_idx[hit], (pos - n_idx * C)[hit]
+
+
+def _pixel_sums(shape, C: int, n_idx, p_idx, rank) -> torch.Tensor:
+    """(N, C, 3) int64 sums of (area, x, y) over _component_pixels."""
+    N, _H, W = shape
+    vals = torch.stack([torch.ones_like(p_idx), p_idx % W, p_idx // W], dim=1)
+    sums = torch.zeros((N * C, 3), dtype=torch.int64, device=p_idx.device)
+    sums.index_add_(0, n_idx * C + rank, vals)
+    return sums.reshape(N, C, 3)
+
+
+def component_sums(root: torch.Tensor, max_components: int, connectivity: int = 8):
     """Per-component integer sums from root-key labels.
 
     root: (N, H, W) int32 as label_components returns it. Returns
     (count (N,) int32 = min(n_roots, C), sums (N, C, 3) int64 of
     (area, sum x, sum y) for the first C components in cv2 id order;
     later components are dropped, as _assemble_stats drops them)."""
+    count, n_idx, p_idx, rank = _component_pixels(root, connectivity, max_components)
+    return count, _pixel_sums(root.shape, max_components, n_idx, p_idx, rank)
+
+
+def relabel_dense(root_label: torch.Tensor, max_components: int = 64,
+                  connectivity: int = 8):
+    """Root-key labels (from label_components) to cv2's dense scan-order
+    ids 1..n, 0 background, components past max_components -> 0 — port of
+    tpuva.ops.label.relabel_dense. (N, H, W) or (H, W) int32.
+
+    Returns (dense (N, H, W) int32, count (N,) int32 = min(n, C))."""
+    squeeze = root_label.dim() == 2
+    root = root_label[None] if squeeze else root_label
     N, H, W = root.shape
-    C = max_components
-    dev = root.device
-    kmap, _inv, S = _scan_key(H, W, 8)
-    k = torch.from_numpy(kmap).to(dev)
-    fg = root > 0
-    is_root = fg & (root == k + 1)
-    flags = torch.zeros((N, S), dtype=torch.int32, device=dev)
-    flags[:, k.reshape(-1).long()] = is_root.reshape(N, -1).to(torch.int32)
-    n_roots = flags.sum(1)
-    rank_by_key = torch.cumsum(flags, 1, dtype=torch.int32) - flags
-    key = (root - 1).clamp(min=0).reshape(N, -1).long()
-    rank = torch.gather(rank_by_key, 1, key)
-    n_idx, p_idx = (fg.reshape(N, -1) & (rank < C)).nonzero(as_tuple=True)
-    vals = torch.stack(
-        [torch.ones_like(p_idx), p_idx % W, p_idx // W], dim=1
-    )
-    sums = torch.zeros((N * C, 3), dtype=torch.int64, device=dev)
-    sums.index_add_(0, n_idx * C + rank[n_idx, p_idx].long(), vals)
-    count = torch.clamp(n_roots, max=C).to(torch.int32)
-    return count, sums.reshape(N, C, 3)
+    count, n_idx, p_idx, rank = _component_pixels(root, connectivity, max_components)
+    dense = torch.zeros((N, H * W), dtype=torch.int32, device=root.device)
+    dense[n_idx, p_idx] = (rank + 1).to(torch.int32)
+    dense = dense.reshape(N, H, W)
+    return (dense[0], count[0]) if squeeze else (dense, count)
 
 
 def _assemble_stats(count: torch.Tensor, sums: torch.Tensor, H: int, W: int):
@@ -144,6 +225,85 @@ def _assemble_stats(count: torch.Tensor, sums: torch.Tensor, H: int, W: int):
         "centroid": centroid,
         "centroid_sum": csum,
     }
+
+
+def _stats_from_root(root: torch.Tensor, max_components: int = 64,
+                     connectivity: int = 8, compute_bbox: bool = True,
+                     compute_labels: bool = True) -> dict:
+    """Stats of root-key labels (N, H, W) int32 — the dense branch of
+    tpuva.ops.label._stats_from_root; see connected_components_with_stats
+    for the output contract."""
+    N, H, W = root.shape
+    C = max_components
+    dev = root.device
+    count, n_idx, p_idx, rank = _component_pixels(root, connectivity, C)
+    out = _assemble_stats(count, _pixel_sums(root.shape, C, n_idx, p_idx, rank), H, W)
+    present = out["area"] > 0
+    labels = torch.zeros((N, H * W), dtype=torch.int32, device=dev)
+    if compute_labels:
+        labels[n_idx, p_idx] = (rank + 1).to(torch.int32)
+    bbox = torch.zeros((N, C + 1, 4), dtype=torch.int32, device=dev)
+    if compute_bbox:
+        xy = torch.stack([p_idx % W, p_idx // W], dim=1)
+        idx = (n_idx * C + rank)[:, None].expand(-1, 2)
+        lo = torch.full((N * C, 2), 2**30, dtype=torch.int64, device=dev)
+        hi = torch.full((N * C, 2), -1, dtype=torch.int64, device=dev)
+        lo.scatter_reduce_(0, idx, xy, "amin")
+        hi.scatter_reduce_(0, idx, xy, "amax")
+        bbox_c = torch.cat([lo, hi - lo + 1], dim=1).reshape(N, C, 4)
+        # background row: the full image, as tpuva's (its reference scenes
+        # always have background at the image borders)
+        bbox0 = torch.tensor([0, 0, W, H], dtype=torch.int64, device=dev).expand(N, 1, 4)
+        bbox = torch.cat([bbox0, bbox_c], dim=1)
+        bbox = torch.where(present[:, :, None], bbox, 0).to(torch.int32)
+    out["labels"] = labels.reshape(N, H, W)
+    out["bbox"] = bbox
+    out["overflow"] = torch.zeros((N,), dtype=torch.int32, device=dev)
+    return out
+
+
+def connected_components_with_stats(
+    mask: torch.Tensor,
+    max_components: int = 64,
+    connectivity: int = 8,
+    compute_bbox: bool = True,
+    compute_labels: bool = True,
+    strict: bool = True,
+) -> dict:
+    """Batched cv2.connectedComponentsWithStats — port of
+    tpuva.ops.label.connected_components_with_stats.
+
+    mask: (N, H, W) or (H, W) uint8/bool. Returns a dict of
+      labels       (N, H, W) int32 — dense cv2-order ids, 0 = background
+                   (all zeros when compute_labels=False)
+      count        (N,) int32 — components, capped at C
+      area         (N, C+1) int32 — row 0 the background, rows 1..C blobs
+      bbox         (N, C+1, 4) int32 — (x, y, w, h), zeros for absent ids
+                   (all zeros when compute_bbox=False)
+      centroid     (N, C+1, 2) float32 — (x, y), (0, 0) for absent ids
+      centroid_sum (N, C+1, 2) int32 — exact coordinate sums
+      overflow     (N,) int32 — zeros (no capacity but C)
+      ccl_converged bool
+    C = max_components. The root-key labels come from kernel K3
+    (ops.ccl.label_components_tiled) on a CUDA tensor and from its plain
+    version on a CPU tensor. Union-find has no round cap, so
+    ccl_converged is always True and strict (raise if not converged, as
+    tpuva) never fires."""
+    from tpuva_torch.ops.ccl import label_components_tiled
+
+    squeeze = mask.dim() == 2
+    if squeeze:
+        mask = mask[None]
+    root, converged = label_components_tiled(
+        mask, connectivity=connectivity, return_converged=True
+    )
+    out = _stats_from_root(root, max_components, connectivity, compute_bbox, compute_labels)
+    out["ccl_converged"] = converged
+    if strict and not converged:
+        raise RuntimeError("CCL did not converge: component stats would be split")
+    if squeeze:
+        out = {k: v if k == "ccl_converged" else v[0] for k, v in out.items()}
+    return out
 
 
 def extract_detections(stats: dict, min_area: int, max_blobs: int = 8):

@@ -15,6 +15,7 @@ from typing import NamedTuple
 
 import torch
 
+from tpuva_torch.device import resolve_device
 from tpuva_torch.track.assign import BIG, greedy_assign, hungarian_assign
 
 
@@ -26,7 +27,8 @@ class TrackState(NamedTuple):
     next_id: torch.Tensor  # () int32 — next id to assign (ids start at 1)
 
 
-def init_track_state(max_tracks: int, device="cpu") -> TrackState:
+def init_track_state(max_tracks: int, device="cuda") -> TrackState:
+    device = resolve_device(device)
     return TrackState(
         pos=torch.zeros((max_tracks, 2), dtype=torch.float32, device=device),
         tid=torch.zeros((max_tracks,), dtype=torch.int32, device=device),
