@@ -18,7 +18,7 @@ raises, so the exit code is non-zero:
    and random masks of density 0.05 and 0.3: every stats field bit-equal;
 5. K3 (dense root-key labels) against its plain version on the card, bit
    for bit, 8- and 4-connected, on the masks of phase 4, the U shape and
-   mixed scene of the kernel tests and odd sizes; then
+   mixed scene of tpuva_torch.scenes and odd sizes; then
    connected_components_with_stats (labels, bbox, every field) on the card
    against the CPU on a (2, 1080, 1920) batch;
 6. the staged route: bench config at 1080p, batch 256, max_components 32,
@@ -30,14 +30,16 @@ raises, so the exit code is non-zero:
    CSV bytes;
 7. the streamed default route: the same clip through
    StreamingPipeline(cfg, max_components=32).run(VideoMemory(clip)) on
-   cuda (torch front end, K3, stats), launch counts read around it: K3
+   cuda (torch front end = K1's plain version, K3, stats), launch counts
+   read around it: K3
    launched, K1 and K2 not, CSV sha256 == REF_CSV_SHA256; the same with
    use_pallas=True (K1 + K2, no K3); a run stopped after its first
    checkpointed batch and resumed on the whole clip gives the same bytes;
    K3 against its plain version on the route's own batch-256 masks;
 8. timing with CUDA events after warm-up at batch 256 and 1080p: K1, K2,
    K3 (8- and 4-connected) and connected_components_with_stats against
-   their plain versions, the torch front end, the tracker, BatchStager's
+   their plain versions (K1's plain version is the default route's front
+   end), the tracker, BatchStager's
    pinned staging per batch beside a pageable copy, and frames/s of
    process_clip and of both streamed routes (in turns, twice each), with
    the peak device memory of each streamed route.
@@ -197,7 +199,6 @@ def main():
     from tpuva_torch.graph import config
     from tpuva_torch.graph.pipeline import (
         _finish_batch, _front_end_kwargs, init_carry, process_batch, process_clip,
-        torch_front_end,
     )
     from tpuva_torch.graph.streaming import StreamingPipeline
     from tpuva_torch.io.memory import VideoMemory
@@ -206,9 +207,7 @@ def main():
     from tpuva_torch.ops.ccl import label_components_tiled, label_stats, label_sums_plain
     from tpuva_torch.ops.fused_segment import fused_segment, fused_segment_plain
     from tpuva_torch.ops.label import _assemble_stats, label_components
-    # the kernel tests' scenes (that module imports no JAX)
-    sys.path.insert(0, os.path.join(ROOT, "tests"))
-    from test_torch_kernels import mixed_scene, u_shape
+    from tpuva_torch.scenes import mixed_scene, u_shape
 
     os.makedirs(OUT_DIR, exist_ok=True)
     dev = torch.device("cuda")
@@ -428,8 +427,6 @@ def main():
     check_equal(err, "fused_segment",
                 zip(("masks", "bg"), (masks, bg_last), fused_segment_plain(frames, bg0, **kw)),
                 "main path, batch 256")
-    if not torch.equal(masks, route_masks):
-        raise AssertionError("K1's masks differ from the torch front end's at batch 256")
     got = label_stats(masks, MAX_COMPONENTS)
     ref = _assemble_stats(*label_sums_plain(masks, MAX_COMPONENTS), 1080, 1920)
     check_equal(err, "ccl_stats", ((k, got[k], ref[k]) for k in STAT_KEYS), "main path, batch 256")
@@ -448,7 +445,6 @@ def main():
     t["cc_stats_ms"] = cuda_ms(lambda: connected_components_with_stats(
         masks, MAX_COMPONENTS, compute_bbox=False, compute_labels=False), reps)
     carry0 = init_carry(cfg, 1080, 1920, plate, device=dev)
-    t["torch_front_end_ms"] = cuda_ms(lambda: torch_front_end(cfg, carry0, frames), 2)
     stats = label_stats(masks, MAX_COMPONENTS)
     t["tracker_ms"] = cuda_ms(
         lambda: _finish_batch(cfg, carry0, stats, masks, bg_last, False), 2)

@@ -26,7 +26,8 @@ from tpuva.ops.label import (
 from tpuva.ops.pallas.ccl import label_components_tiled_raw
 from tpuva_torch.ops.ccl import label_stats
 from tpuva_torch.ops.label import _scan_key, label_components
-from test_torch_kernels import mixed_scene, one_torch_thread, u_shape  # noqa: F401
+from test_torch_kernels import one_torch_thread  # noqa: F401
+from tpuva_torch.scenes import mixed_scene, u_shape
 
 KEYS = ("count", "area", "centroid", "centroid_sum", "overflow")
 

@@ -25,7 +25,8 @@ from tpuva.ops.pallas.ccl import label_components_tiled as pallas_labels
 from tpuva_torch.ops import connected_components_with_stats
 from tpuva_torch.ops.ccl import label_components_tiled
 from tpuva_torch.ops.label import label_components, relabel_dense
-from test_torch_kernels import mixed_scene, one_torch_thread, u_shape  # noqa: F401
+from test_torch_kernels import one_torch_thread  # noqa: F401
+from tpuva_torch.scenes import mixed_scene, u_shape
 
 STATS = ("labels", "count", "area", "bbox", "centroid", "centroid_sum", "overflow")
 

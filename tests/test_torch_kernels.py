@@ -9,8 +9,8 @@ Without a CUDA device every test here skips: a CUDA kernel has no CPU
 mode. Kernel and plain version are compared bit for bit (masks, float32
 background, every stats field, dense labels): both are the same integer
 and IEEE float32 operation sequences. Also BatchStager's pinned-buffer
-copies to the card, byte for byte. The scene builders are shared with the
-CPU tests that hold the plain versions against tpuva.
+copies to the card, byte for byte. The CCL scenes (tpuva_torch.scenes)
+are shared with the CPU tests that hold the plain versions against tpuva.
 """
 
 import numpy as np
@@ -23,6 +23,7 @@ from tpuva_torch.ops import connected_components_with_stats
 from tpuva_torch.ops.ccl import label_components_tiled, label_stats
 from tpuva_torch.ops.fused_segment import fused_segment, fused_segment_plain
 from tpuva_torch.ops.label import label_components
+from tpuva_torch.scenes import mixed_scene, u_shape
 
 BENCH = dict(
     alpha=0.02, threshold=35.0, blur_ksize=5, blur_sigma=0.0,
@@ -57,31 +58,6 @@ def scene(N, H, W, seed):
     frames[:, -2:, -3:] = 0
     bg0 = (plate + rng.random((H, W))).astype(np.float32)
     return frames, bg0
-
-
-def u_shape(H, W):
-    """One component running right, down and back left across tiles."""
-    m = np.zeros((H, W), np.uint8)
-    m[10:14, 20:W - 10] = 255
-    m[10:H - 10, W - 20:W - 10] = 255
-    m[H - 20:H - 10, 30:W - 10] = 255
-    return m
-
-
-def mixed_scene():
-    """One batch, one shape: random, empty, tile-straddling blobs, a U
-    across tiles, and more components than C."""
-    rng = np.random.default_rng(3)
-    H, W = 130, 280
-    m = np.zeros((5, H, W), np.uint8)
-    m[0] = (rng.random((H, W)) < 0.25) * 255
-    m[2, 60:70, 250:265] = 255  # crosses a 256-column border
-    m[2, 62:66, 10:30] = 255
-    m[2, 126:130, 0:8] = 255  # image edge, unaligned H
-    m[2, 63:65, 120:200] = 255  # crosses a 64-row border
-    m[3] = u_shape(H, W)
-    m[4, 5:H:6, 5:W:7] = 255  # 21 x 40 isolated dots
-    return m
 
 
 @pytest.fixture(autouse=True, scope="module")

@@ -5,9 +5,10 @@ Two routes over an (N, H, W) uint8 batch on the carry's device, under the
 JAX package's names:
 
 - ``process_batch`` — the default, one-dispatch route: the front end as
-  torch ops (``filter_batch`` -> ``background_trajectory`` -> |F - B| ->
-  threshold -> open -> close), or kernel K1 (``fused_segment``) with
-  ``use_pallas``; then ``connected_components_with_stats`` (kernel K3 +
+  torch ops (``torch_front_end``: blur, median, background, |F - B| >
+  threshold, open, close — K1's plain version for the sequential
+  background, ``background_trajectory``'s scan for ``parallel_bg``), or
+  kernel K1 (``fused_segment``) with ``use_pallas``; then ``connected_components_with_stats`` (kernel K3 +
   integer stats) and ``_finish_batch``.
 - ``process_batch_staged`` — kernel K1, then kernel K2 (``label_stats``:
   8-connected CCL + stats in one launch sequence), then ``_finish_batch``.
@@ -48,7 +49,7 @@ from tpuva_torch.ops.filters import (
     structuring_element,
     threshold,
 )
-from tpuva_torch.ops.fused_segment import fused_segment
+from tpuva_torch.ops.fused_segment import fused_segment, fused_segment_plain
 from tpuva_torch.ops.label import connected_components_with_stats, extract_detections
 from tpuva_torch.track.table import TrackState, init_track_state, track_update
 
@@ -211,10 +212,17 @@ def torch_front_end(cfg, carry: PipelineCarry, frames: torch.Tensor,
                     parallel_bg: bool = False):
     """process_batch's front end as torch ops: filter_batch ->
     background_trajectory -> |F - B| -> threshold -> open -> close.
-    Returns (mask (N, H, W) uint8, post-batch background (H, W) float32)."""
+    Returns (mask (N, H, W) uint8, post-batch background (H, W) float32).
+
+    The sequential background is K1's plain version, which walks the
+    frames without keeping the (N, H, W) trajectory; only the scanned
+    background (parallel_bg) needs the trajectory and is built here."""
+    seed_bg = not bool(carry.bg_valid)
+    if not parallel_bg:
+        return fused_segment_plain(frames, carry.bg, seed_bg=seed_bg, **_front_end_kwargs(cfg))
     f = filter_batch(cfg, frames.to(torch.float32))
-    bg0 = carry.bg if bool(carry.bg_valid) else f[0]
-    bgs = background_trajectory(bg0, f, cfg.background.alpha, parallel_bg)
+    bgs = background_trajectory(f[0] if seed_bg else carry.bg, f, cfg.background.alpha,
+                                parallel=True)
     bg_last = bgs[-1].clone()  # not a view that keeps the batch alive
     mask = threshold((f - bgs).abs(), cfg.segment.threshold)
     del f, bgs

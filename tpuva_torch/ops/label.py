@@ -53,6 +53,13 @@ def _scan_key(H: int, W: int, connectivity: int):
     return kmap, inv, S
 
 
+@lru_cache(maxsize=8)
+def _kmap_on(H: int, W: int, connectivity: int, device: torch.device) -> torch.Tensor:
+    """_scan_key's kmap as an (H, W) int32 tensor on `device`, copied there
+    once per shape (read only)."""
+    return torch.from_numpy(_scan_key(H, W, connectivity)[0]).to(device)
+
+
 def _neighbor_min_8(label: torch.Tensor, sent: int) -> torch.Tensor:
     """Min over the 3x3 neighbourhood (self included; outside = sent)."""
     H, W = label.shape[-2], label.shape[-1]
@@ -86,11 +93,11 @@ def label_components(mask: torch.Tensor, connectivity: int = 8) -> torch.Tensor:
     component's minimum scan key + 1, background 0."""
     _check_connectivity(connectivity)
     H, W = mask.shape[-2:]
-    kmap, _inv, S = _scan_key(H, W, connectivity)
+    S = _scan_key(H, W, connectivity)[2]
     nb_min = _neighbor_min_8 if connectivity == 8 else _neighbor_min_4
     fg = mask != 0
     sent = torch.tensor(S, dtype=torch.int32, device=mask.device)
-    lab = torch.where(fg, torch.from_numpy(kmap).to(mask.device), sent)
+    lab = torch.where(fg, _kmap_on(H, W, connectivity, mask.device), sent)
     while True:
         new = torch.where(fg, nb_min(lab, S), sent)
         if torch.equal(new, lab):
@@ -110,8 +117,8 @@ def _root_table(root: torch.Tensor, connectivity: int, max_components: int):
     N, H, W = root.shape
     C = max_components
     dev = root.device
-    kmap, _inv, S = _scan_key(H, W, connectivity)
-    k = torch.from_numpy(kmap).to(dev)
+    S = _scan_key(H, W, connectivity)[2]
+    k = _kmap_on(H, W, connectivity, dev)
     is_root = (root > 0) & (root == k + 1)
     n_idx, p_idx = is_root.reshape(N, -1).nonzero(as_tuple=True)
     keys = k.reshape(-1)[p_idx].long()
@@ -239,9 +246,12 @@ def _stats_from_root(root: torch.Tensor, max_components: int = 64,
     count, n_idx, p_idx, rank = _component_pixels(root, connectivity, C)
     out = _assemble_stats(count, _pixel_sums(root.shape, C, n_idx, p_idx, rank), H, W)
     present = out["area"] > 0
-    labels = torch.zeros((N, H * W), dtype=torch.int32, device=dev)
     if compute_labels:
+        labels = torch.zeros((N, H * W), dtype=torch.int32, device=dev)
         labels[n_idx, p_idx] = (rank + 1).to(torch.int32)
+        labels = labels.reshape(N, H, W)
+    else:  # a broadcast zero: nothing is allocated or written
+        labels = torch.zeros((), dtype=torch.int32, device=dev).expand(N, H, W)
     bbox = torch.zeros((N, C + 1, 4), dtype=torch.int32, device=dev)
     if compute_bbox:
         xy = torch.stack([p_idx % W, p_idx // W], dim=1)
@@ -256,7 +266,7 @@ def _stats_from_root(root: torch.Tensor, max_components: int = 64,
         bbox0 = torch.tensor([0, 0, W, H], dtype=torch.int64, device=dev).expand(N, 1, 4)
         bbox = torch.cat([bbox0, bbox_c], dim=1)
         bbox = torch.where(present[:, :, None], bbox, 0).to(torch.int32)
-    out["labels"] = labels.reshape(N, H, W)
+    out["labels"] = labels
     out["bbox"] = bbox
     out["overflow"] = torch.zeros((N,), dtype=torch.int32, device=dev)
     return out
@@ -275,7 +285,7 @@ def connected_components_with_stats(
 
     mask: (N, H, W) or (H, W) uint8/bool. Returns a dict of
       labels       (N, H, W) int32 — dense cv2-order ids, 0 = background
-                   (all zeros when compute_labels=False)
+                   (when compute_labels=False, a read-only broadcast zero)
       count        (N,) int32 — components, capped at C
       area         (N, C+1) int32 — row 0 the background, rows 1..C blobs
       bbox         (N, C+1, 4) int32 — (x, y, w, h), zeros for absent ids
