@@ -14,6 +14,10 @@ raises, so the exit code is non-zero:
 3. K1 (fused_segment) against its plain version on the card, at
    (16, 1080, 1920) and a ragged (5, 250, 333), over four configs:
    masks and background bit-equal;
+3b. K1's emit="diff" against its plain version at the same shapes over
+   three configs, and a tie case (alpha 0, bg0 = k + 0.5: every magnitude
+   a .5 tie), magnitudes and background bit-equal; K4 (histogram_u8)
+   against its plain version on those magnitudes and on random bytes;
 4. K2 (CCL + stats) against its plain version on the card, on K1's masks
    and random masks of density 0.05 and 0.3: every stats field bit-equal;
 5. K3 (dense root-key labels) against its plain version on the card, bit
@@ -36,13 +40,20 @@ raises, so the exit code is non-zero:
    use_pallas=True (K1 + K2, no K3); a run stopped after its first
    checkpointed batch and resumed on the whole clip gives the same bytes;
    K3 against its plain version on the route's own batch-256 masks;
+7b. the Otsu routes: the bench config with threshold="otsu" on the same
+   clip through process_clip(use_pallas=True) (K1's diff emit, K4, K2; no
+   K3) and the streamed default route (K1's plain diff emit, K4, K3; no
+   K1 or K2 launch), each run's CSV sha256 equal to REF_OTSU_CSV_SHA256;
+   a 48-frame sub-clip on the CPU (plain versions) and on the card gives
+   identical rows, masks and background;
 8. timing with CUDA events after warm-up at batch 256 and 1080p: K1, K2,
-   K3 (8- and 4-connected) and connected_components_with_stats against
-   their plain versions (K1's plain version is the default route's front
-   end), the tracker, BatchStager's
-   pinned staging per batch beside a pageable copy, and frames/s of
-   process_clip and of both streamed routes (in turns, twice each), with
-   the peak device memory of each streamed route.
+   K3 (8- and 4-connected), connected_components_with_stats, K1's diff
+   emit and K4 against their plain versions (K1's plain version is the
+   default route's front end), K4 against torch.bincount over
+   frame-offset keys, the tracker, BatchStager's pinned staging per batch
+   beside a pageable copy, and frames/s of process_clip, of both streamed
+   routes (in turns, twice each) and of both Otsu routes, with the peak
+   device memory of each streamed route.
 
 Then one JSON line of the kernels (each with its least time on the card,
 bound_ms, from the bytes and operations of this run's inputs), the card
@@ -72,6 +83,10 @@ REPLACES = {
                   "tpuva/ops/pallas/ccl.py:623"),
     "ccl_labels": ("tpuva_torch/csrc/ccl.cu",
                    "tpuva/ops/pallas/ccl.py:220"),
+    "fused_segment_diff": ("tpuva_torch/csrc/fused_segment.cu",
+                           "tpuva/ops/pallas/fused_segment.py:145"),
+    "histogram_u8": ("tpuva_torch/csrc/otsu.cu",
+                     "tpuva/ops/filters.py:268"),
 }
 BENCH_KW = dict(
     alpha=0.02, threshold=35.0, blur_ksize=5, blur_sigma=0.0,
@@ -92,6 +107,14 @@ MAX_COMPONENTS = 32
 # 79.8% of its rows within 1 px of the analytic truth; the port is held
 # to the reference, row for row. Recipe: README.md, "PyTorch / H100 port".
 REF_CSV_SHA256 = "192715d242a4867c8ac98eb277c4e9d8f5d7abebdcf4b41b21740e540c131d5c"
+# The same for the bench config with threshold="otsu": 3069 rows, 6 track
+# ids. The reference is refimpl.pipeline.run_pipeline with each frame's
+# threshold taken by tpuva's float32 otsu_from_histogram instead of cv2's
+# double-precision THRESH_OTSU, the rule the port carries bit for bit. On
+# this clip cv2's rule picks another threshold (87 vs 88) on 5 of the 512
+# frames, and tpuva's own run differs by its FMA-contracted background;
+# both are ROADMAP Queue 3 faults of the reference. Recipe: README.md.
+REF_OTSU_CSV_SHA256 = "cab7f8b6247d373a23eb8f50831221d025ee95866fc75ae197b76b9045867ed9"
 
 # Published H100 SXM peaks (NVIDIA's data sheet): HBM3 bytes/s, and the
 # float32 rate outside the tensor cores, taken for the scalar integer and
@@ -114,13 +137,13 @@ def card_line():
     ).stdout.strip().splitlines()[0]
 
 
-def bench_cfg(config, batch):
+def bench_cfg(config, batch, threshold=35.0):
     return config.PipelineConfig(
         background=config.BackgroundConfig(alpha=0.02),
         blur=config.BlurConfig(ksize=5, sigma=0.0),
         morph_open=config.MorphConfig(ksize=3, shape="rect"),
         morph_close=config.MorphConfig(ksize=3, shape="ellipse"),
-        segment=config.SegmentConfig(threshold=35.0, min_area=50, max_blobs=8),
+        segment=config.SegmentConfig(threshold=threshold, min_area=50, max_blobs=8),
         track=config.TrackConfig(max_dist=80.0, death_patience=5,
                                  max_tracks=16, assigner="hungarian"),
         batch=batch,
@@ -149,10 +172,18 @@ def bound(nbytes, nops):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+def diff_kwargs(kw):
+    """K1's emit="diff" options from a mask-emit config: no threshold, no
+    morphology."""
+    keep = ("alpha", "blur_ksize", "blur_sigma", "median_ksize")
+    return dict({k: v for k, v in kw.items() if k in keep}, threshold=0.0, emit="diff")
+
+
 def k1_ops_per_px(kw):
     """Least scalar operations per pixel of K1 for a config: the separable
     integer blur (a multiply and an add per tap and axis, the rounding
-    shift), the background update, |F - B| and the threshold (6), and each
+    shift), the background update, |F - B| and the threshold or the
+    rounding (6), and each
     erode or dilate (separable for a rect SE, 2(k-1) min/max; one per SE
     point past the first otherwise)."""
     from tpuva_torch.ops.filters import structuring_element
@@ -198,13 +229,14 @@ def main():
     from tpuva_torch.export.csvio import format_rows, write_tracks_csv
     from tpuva_torch.graph import config
     from tpuva_torch.graph.pipeline import (
-        _finish_batch, _front_end_kwargs, init_carry, process_batch, process_clip,
+        _diff_kwargs, _finish_batch, _front_end_kwargs, init_carry, process_batch, process_clip,
     )
     from tpuva_torch.graph.streaming import StreamingPipeline
     from tpuva_torch.io.memory import VideoMemory
     from tpuva_torch.io.staging import BatchStager
     from tpuva_torch.ops import connected_components_with_stats
     from tpuva_torch.ops.ccl import label_components_tiled, label_stats, label_sums_plain
+    from tpuva_torch.ops.filters import histogram_u8, histogram_u8_plain
     from tpuva_torch.ops.fused_segment import fused_segment, fused_segment_plain
     from tpuva_torch.ops.label import _assemble_stats, label_components
     from tpuva_torch.scenes import mixed_scene, u_shape
@@ -235,7 +267,7 @@ def main():
     say("clip", seconds=round(time.time() - t0, 2), shape=list(clip.shape))
     err = {name: 0.0 for name in REPLACES}
     counters = {"fused_segment": fused_segment, "ccl_stats": label_stats,
-                "ccl_labels": label_components_tiled}
+                "ccl_labels": label_components_tiled, "histogram_u8": histogram_u8}
 
     def reset_counts():
         for fn in counters.values():
@@ -266,6 +298,38 @@ def main():
                     k1_masks = got[0]
     say("k1_vs_plain", comparisons=n_cmp, bit_equal=True,
         foreground_px=int((k1_masks > 0).sum()))
+
+    # 3b. K1's diff emit and K4 against their plain versions, bit for bit
+    diff_cases = []
+    for name, kw in K1_CONFIGS.items():
+        if name == "iters2":  # the diff emit has no morphology
+            continue
+        for frames, bg0 in cases:
+            for seed_bg in ((False, True) if name == "bench" else (False,)):
+                diff_cases.append((name, frames, bg0, diff_kwargs(kw), seed_bg))
+    # alpha 0 keeps the background at bg0 = k + 0.5: every magnitude a tie
+    ties_bg = (np.floor(plate) + 0.5).astype(np.float32)
+    diff_cases.append(("ties", clip[:16], ties_bg, dict(diff_kwargs(BENCH_KW), alpha=0.0), False))
+    magnitudes = []
+    for name, frames, bg0, dkw, seed_bg in diff_cases:
+        f_gpu = torch.from_numpy(frames).to(dev)
+        b_gpu = torch.from_numpy(bg0).to(dev)
+        got = fused_segment(f_gpu, b_gpu, seed_bg=seed_bg, **dkw)
+        ref = fused_segment_plain(f_gpu, b_gpu, seed_bg=seed_bg, **dkw)
+        where = f"{name}, {tuple(frames.shape)}, seed_bg={seed_bg}"
+        check_equal(err, "fused_segment_diff", zip(("magnitudes", "bg"), got, ref), where)
+        magnitudes.append((where, got[0]))
+    gen = torch.Generator().manual_seed(3)
+    for shape in ((16, 1080, 1920), (5, 250, 333)):
+        x = torch.randint(0, 256, shape, generator=gen, dtype=torch.uint8)
+        magnitudes.append((f"random {shape}", x.to(dev)))
+    for where, x in magnitudes:
+        check_equal(err, "histogram_u8",
+                    [("counts", histogram_u8(x), histogram_u8_plain(x).to(torch.float32))], where)
+    say("k1_diff_and_k4_vs_plain", k1_diff_comparisons=len(diff_cases),
+        k4_comparisons=len(magnitudes), bit_equal=True,
+        tie_case_max_magnitude=int(magnitudes[len(diff_cases) - 1][1].max()))
+    del magnitudes
 
     # 4. K2 against its plain version, every stats field bit for bit
     masks_k2 = [("k1_masks", k1_masks)]
@@ -420,6 +484,64 @@ def main():
         staged_launches=stream_staged_counts, staged_peak_device_gib=staged_peak,
         resumed_csv_bytes_equal=True, k3_bit_equal_on_route_masks=True)
 
+    # 7b. the Otsu routes: staged (K1's diff emit, K4, K2) and streamed
+    # default (K1's plain diff emit, K4, K3)
+    otsu_cfg = bench_cfg(config, 256, "otsu")
+
+    def otsu_run(what, run):
+        """One run of the whole clip on cuda: (rows, seconds, launch counts
+        read around it); raises unless the CSV is REF_OTSU_CSV_SHA256's."""
+        torch.cuda.synchronize()
+        reset_counts()
+        t0 = time.time()
+        rows = run()
+        torch.cuda.synchronize()
+        s = time.time() - t0
+        counts = read_counts()
+        data = format_rows(rows).encode()
+        if hashlib.sha256(data).hexdigest() != REF_OTSU_CSV_SHA256:
+            with open(os.path.join(OUT_DIR, f"tracks_512_{what}.csv"), "wb") as fh:
+                fh.write(data)
+            raise AssertionError(f"{what} rows differ from the reference's Otsu rows")
+        return rows, s, counts
+
+    def otsu_staged():
+        return process_clip(clip, otsu_cfg, background0=plate, max_components=MAX_COMPONENTS,
+                            use_pallas=True, device="cuda")[0]
+
+    def otsu_stream():
+        return StreamingPipeline(otsu_cfg, max_components=MAX_COMPONENTS).run(
+            VideoMemory(clip), background0=plate)
+
+    otsu_rows, otsu_staged_s, otsu_staged_counts = otsu_run("otsu_staged", otsu_staged)
+    if (min(otsu_staged_counts["fused_segment"], otsu_staged_counts["histogram_u8"],
+            otsu_staged_counts["ccl_stats"]) < 2 or otsu_staged_counts["ccl_labels"]):
+        raise AssertionError(f"staged Otsu route launches: {otsu_staged_counts}")
+    _rows, otsu_stream_s, otsu_stream_counts = otsu_run("otsu_stream", otsu_stream)
+    if (min(otsu_stream_counts["histogram_u8"], otsu_stream_counts["ccl_labels"]) < 2
+            or otsu_stream_counts["fused_segment"] or otsu_stream_counts["ccl_stats"]):
+        raise AssertionError(f"streamed Otsu route launches: {otsu_stream_counts}")
+    sub_otsu = bench_cfg(config, 16, "otsu")
+    rows_cpu, carry_cpu, masks_cpu = process_clip(
+        clip[:48], sub_otsu, background0=plate, max_components=MAX_COMPONENTS,
+        use_pallas=True, device="cpu", return_masks=True)
+    rows_gpu, carry_gpu, masks_gpu = process_clip(
+        clip[:48], sub_otsu, background0=plate, max_components=MAX_COMPONENTS,
+        use_pallas=True, device="cuda", return_masks=True)
+    if rows_cpu != rows_gpu or not np.array_equal(masks_cpu, masks_gpu):
+        raise AssertionError("48-frame Otsu sub-clip: CPU and GPU rows/masks differ")
+    if not torch.equal(carry_cpu.bg, carry_gpu.bg.cpu()):
+        raise AssertionError("48-frame Otsu sub-clip: CPU and GPU backgrounds differ")
+    if [r for r in otsu_rows if r[1] < 48] != rows_gpu:
+        raise AssertionError("first 48 frames of the batch-256 Otsu run differ from the batch-16 run")
+    say("otsu", routes=["process_clip(use_pallas=True): K1 diff + K4 + K2",
+                        "StreamingPipeline.run -> process_batch: K1 plain diff + K4 + K3"],
+        frames=int(clip.shape[0]), rows=len(otsu_rows),
+        track_ids=len({int(r[0]) for r in otsu_rows}), csv_sha256_equals_reference=True,
+        staged_seconds=round(otsu_staged_s, 3), staged_launches=otsu_staged_counts,
+        stream_seconds=round(otsu_stream_s, 3), stream_launches=otsu_stream_counts,
+        sub_clip_cpu_gpu_rows_masks_bg_equal=True, sub_clip_rows=len(rows_gpu))
+
     # 8. at the main path's shapes (batch 256, 1080p): kernel vs plain
     # once more, then timing
     kw = _front_end_kwargs(cfg)
@@ -430,6 +552,14 @@ def main():
     got = label_stats(masks, MAX_COMPONENTS)
     ref = _assemble_stats(*label_sums_plain(masks, MAX_COMPONENTS), 1080, 1920)
     check_equal(err, "ccl_stats", ((k, got[k], ref[k]) for k in STAT_KEYS), "main path, batch 256")
+    diff_kw = _diff_kwargs(otsu_cfg)
+    du8, bg_diff = fused_segment(frames, bg0, **diff_kw)
+    check_equal(err, "fused_segment_diff",
+                zip(("magnitudes", "bg"), (du8, bg_diff), fused_segment_plain(frames, bg0, **diff_kw)),
+                "main path, batch 256")
+    check_equal(err, "histogram_u8",
+                [("counts", histogram_u8(du8), histogram_u8_plain(du8).to(torch.float32))],
+                "main path, batch 256")
     del route_masks, got, ref
     reps = 5
     t = {}
@@ -444,6 +574,18 @@ def main():
     t["k3_conn4_plain_ms"] = cuda_ms(lambda: label_components(masks, 4), 2)
     t["cc_stats_ms"] = cuda_ms(lambda: connected_components_with_stats(
         masks, MAX_COMPONENTS, compute_bbox=False, compute_labels=False), reps)
+    t["k1_diff_ms"] = cuda_ms(lambda: fused_segment(frames, bg0, **diff_kw), reps)
+    t["k1_diff_plain_ms"] = cuda_ms(lambda: fused_segment_plain(frames, bg0, **diff_kw), 2)
+    t["k4_ms"] = cuda_ms(lambda: histogram_u8(du8), reps)
+    t["k4_plain_ms"] = cuda_ms(lambda: histogram_u8_plain(du8), 2)
+    # the library yardstick: one torch.bincount over frame-offset keys
+    keys = (du8.reshape(N, -1).to(torch.int32)
+            + 256 * torch.arange(N, dtype=torch.int32, device=dev)[:, None]).reshape(-1)
+    if not torch.equal(torch.bincount(keys, minlength=256 * N).reshape(N, 256).to(torch.float32),
+                       histogram_u8(du8)):
+        raise AssertionError("torch.bincount over frame-offset keys differs from K4")
+    t["k4_library_ms"] = cuda_ms(lambda: torch.bincount(keys, minlength=256 * N), reps)
+    del keys
     carry0 = init_carry(cfg, 1080, 1920, plate, device=dev)
     stats = label_stats(masks, MAX_COMPONENTS)
     t["tracker_ms"] = cuda_ms(
@@ -483,6 +625,11 @@ def main():
     for route in ("default", "staged", "staged", "default"):
         s = stream(route, use_pallas=route == "staged")[1]
         t[f"stream_{route}_fps"].append(clip.shape[0] / s)
+    # the Otsu routes: the runs of phase 7b, then one more each
+    t["otsu_staged_fps"] = [clip.shape[0] / otsu_staged_s,
+                            clip.shape[0] / otsu_run("otsu_staged", otsu_staged)[1]]
+    t["otsu_stream_fps"] = [clip.shape[0] / otsu_stream_s,
+                            clip.shape[0] / otsu_run("otsu_stream", otsu_stream)[1]]
     say("timing", card=card, batch=N, shape=[1080, 1920], kernels_bit_equal_at_batch_256=True, **t)
 
     px = masks.numel()
@@ -494,19 +641,30 @@ def main():
         "ccl_stats": bound(px, CCL_OPS_PER_PX * px),
         # the mask read and the int32 labels written
         "ccl_labels": bound(px + 4 * px, CCL_OPS_PER_PX * px),
+        # frames read, magnitudes written, background read and written once
+        "fused_segment_diff": bound(frames.numel() + du8.numel() + 2 * 4 * bg0.numel(),
+                                    k1_ops_per_px(diff_kw) * du8.numel()),
+        # the magnitudes read, the int32 counts written; one add a pixel
+        "histogram_u8": bound(du8.numel() + 4 * 256 * N, du8.numel()),
     }
     timed = {"fused_segment": ("k1_ms", "k1_plain_ms"), "ccl_stats": ("k2_ms", "k2_plain_ms"),
-             "ccl_labels": ("k3_ms", "k3_plain_ms")}
+             "ccl_labels": ("k3_ms", "k3_plain_ms"),
+             "fused_segment_diff": ("k1_diff_ms", "k1_diff_plain_ms"),
+             "histogram_u8": ("k4_ms", "k4_plain_ms")}
     launches = {"fused_segment": staged_counts["fused_segment"],
                 "ccl_stats": staged_counts["ccl_stats"],
-                "ccl_labels": default_counts["ccl_labels"]}
+                "ccl_labels": default_counts["ccl_labels"],
+                # the staged Otsu run launches K1 only with emit="diff"
+                "fused_segment_diff": otsu_staged_counts["fused_segment"],
+                "histogram_u8": otsu_staged_counts["histogram_u8"]}
+    library = {"histogram_u8": t["k4_library_ms"]}
     kernels = []
     for name, (src, rep) in REPLACES.items():
         ms, plain = timed[name]
         kernels.append({"name": name, "route": "cuda", "source": src, "replaces": rep,
                         "launches": launches[name], "max_abs_err": err[name],
                         "ms": t[ms], "plain_ms": t[plain], "bound_ms": bounds[name][0],
-                        "bound_by": bounds[name][1], "library_ms": None})
+                        "bound_by": bounds[name][1], "library_ms": library.get(name)})
     say("done", seconds=round(time.time() - t_all, 1))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)

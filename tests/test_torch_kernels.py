@@ -8,8 +8,10 @@ conftest.py imports JAX, so skip it there):
 Without a CUDA device every test here skips: a CUDA kernel has no CPU
 mode. Kernel and plain version are compared bit for bit (masks, float32
 background, every stats field, dense labels): both are the same integer
-and IEEE float32 operation sequences. Also BatchStager's pinned-buffer
-copies to the card, byte for byte. The CCL scenes (tpuva_torch.scenes)
+and IEEE float32 operation sequences. K1's emit="diff" (rounded
+magnitudes, rint half to even) and the histogram kernel K4 (integer
+counts) likewise. Also BatchStager's pinned-buffer copies to the card,
+byte for byte. The CCL scenes (tpuva_torch.scenes)
 are shared with the CPU tests that hold the plain versions against tpuva.
 """
 
@@ -21,6 +23,7 @@ from tpuva_torch.io.memory import VideoMemory
 from tpuva_torch.io.staging import BatchStager
 from tpuva_torch.ops import connected_components_with_stats
 from tpuva_torch.ops.ccl import label_components_tiled, label_stats
+from tpuva_torch.ops.filters import histogram_u8, histogram_u8_plain
 from tpuva_torch.ops.fused_segment import fused_segment, fused_segment_plain
 from tpuva_torch.ops.label import label_components
 from tpuva_torch.scenes import mixed_scene, u_shape
@@ -99,6 +102,52 @@ def test_fused_segment_kernel_matches_plain(cuda_device, name):
             assert fused_segment.launches == before + 1
             for r, g in zip(ref, got):
                 np.testing.assert_array_equal(g.cpu().numpy(), r.numpy(), err_msg=f"{shape}")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", sorted(CONFIGS))
+def test_fused_segment_diff_kernel_matches_plain(cuda_device, name):
+    """emit="diff" (no morphology), and alpha 0 with bg0 = k + 0.5, where
+    every magnitude is a .5 tie that rint takes to the even neighbour."""
+    kw = {k: v for k, v in CONFIGS[name].items()
+          if k in ("alpha", "blur_ksize", "blur_sigma", "median_ksize")}
+    cases = []
+    for shape in [(5, 64, 256), (3, 250, 333), (2, 7, 5)]:
+        frames, bg0 = scene(*shape, seed=2)
+        cases += [(frames, bg0, kw, False), (frames, bg0, kw, True)]
+    frames, _ = scene(3, 40, 70, seed=4)
+    ties = (np.random.default_rng(4).integers(0, 255, (40, 70)) + 0.5).astype(np.float32)
+    cases.append((frames, ties, dict(kw, alpha=0.0), False))
+    for frames, bg0, k, seed_bg in cases:
+        args = dict(threshold=0.0, seed_bg=seed_bg, emit="diff", **k)
+        ref = fused_segment_plain(torch.from_numpy(frames), torch.from_numpy(bg0), **args)
+        before = fused_segment.launches
+        got = fused_segment(torch.from_numpy(frames).to(cuda_device),
+                            torch.from_numpy(bg0).to(cuda_device), **args)
+        torch.cuda.synchronize()
+        assert fused_segment.launches == before + 1
+        for r, g in zip(ref, got):
+            np.testing.assert_array_equal(g.cpu().numpy(), r.numpy(), err_msg=f"{frames.shape}")
+
+
+@pytest.mark.gpu
+def test_histogram_kernel_matches_plain(cuda_device):
+    """Odd sizes (frames that start off 16-byte alignment), a single
+    pixel, a frame spanning several CTAs, one heavy bin, leading dims."""
+    rng = np.random.default_rng(3)
+    for shape in [(5, 250, 333), (3, 1, 1), (2, 7, 9), (2, 600, 700), (4, 64, 256)]:
+        x = rng.integers(0, 256, shape, dtype=np.uint8)
+        x[:, : shape[1] // 2] = 1
+        before = histogram_u8.launches
+        got = histogram_u8(torch.from_numpy(x).to(cuda_device))
+        torch.cuda.synchronize()
+        assert histogram_u8.launches == before + 1
+        ref = histogram_u8_plain(torch.from_numpy(x)).to(torch.float32)
+        np.testing.assert_array_equal(got.cpu().numpy(), ref.numpy(), err_msg=f"{shape}")
+    x = rng.integers(0, 256, (2, 3, 20, 30), dtype=np.uint8)
+    got = histogram_u8(torch.from_numpy(x).to(cuda_device))
+    assert got.shape == (2, 3, 256)
+    np.testing.assert_array_equal(got.cpu().numpy(), histogram_u8(torch.from_numpy(x)).numpy())
 
 
 @pytest.mark.gpu

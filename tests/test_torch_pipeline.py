@@ -22,6 +22,8 @@ from tpuva.export.csvio import format_rows as jax_format_rows
 from tpuva_torch.export.csvio import format_rows, write_tracks_csv
 from tpuva_torch.graph import config as tcfg
 from tpuva_torch.graph import pipeline as tp
+from tpuva_torch.graph.streaming import StreamingPipeline
+from tpuva_torch.io.memory import VideoMemory
 from test_torch_kernels import one_torch_thread  # noqa: F401
 
 MAX_COMPONENTS = 32
@@ -165,17 +167,71 @@ def test_csv_writer_copy_matches_original(tmp_path):
 
 
 def test_not_yet_ported_options_raise(clip):
+    """Median k > 3 is the one option left unported (Otsu and
+    ccl_single_pass are ported: tests/test_torch_otsu.py and below)."""
     frames = torch.from_numpy(clip[0][:2])
     carry = tp.init_carry(bench_cfg(tcfg), 96, 256, device="cpu")
-    otsu = dataclasses.replace(bench_cfg(tcfg), segment=tcfg.SegmentConfig(threshold="otsu"))
     med5 = dataclasses.replace(bench_cfg(tcfg), median=tcfg.MedianConfig(5))
     for step in (tp.process_batch, tp.process_batch_staged):
         with pytest.raises(NotImplementedError):
-            step(otsu, carry, frames)
-        with pytest.raises(NotImplementedError):
             step(med5, carry, frames)
-        with pytest.raises(NotImplementedError):
-            step(bench_cfg(tcfg), carry, frames, ccl_single_pass=True)
+
+
+@pytest.mark.parametrize("route", ["default", "staged"])
+def test_ccl_single_pass_rows_match_tpuva(clip, jax_run, route):
+    """ccl_single_pass maps onto K2: the rows of tpuva's single-pass
+    process_clip (its single-pass Pallas CCL and reconcile, interpret
+    mode), on the one-dispatch route (process_batch takes K2 for its
+    stats) and on the staged one (StreamingPipeline, force_staged)."""
+    frames, _alive, _truth, plate = clip
+    rows_j, _c, _m = jp.process_clip(frames, bench_cfg(), background0=plate,
+                                     max_components=MAX_COMPONENTS, ccl_single_pass=True)
+    if route == "default":
+        rows, _c, _m = tp.process_clip(frames, bench_cfg(), background0=plate,
+                                       max_components=MAX_COMPONENTS, ccl_single_pass=True,
+                                       device="cpu")
+    else:
+        rows = StreamingPipeline(bench_cfg(), max_components=MAX_COMPONENTS, use_pallas=True,
+                                 force_staged=True, ccl_single_pass=True, device="cpu").run(
+            VideoMemory(frames), background0=plate)
+    assert rows == rows_j == jax_run[0]
+
+
+def blob_scene(N=2, H=64, W=96, n=10, seed=8):
+    """N frames of n small disks: more components than max_components."""
+    rng = np.random.default_rng(seed)
+    yy, xx = np.mgrid[:H, :W]
+    frames = np.full((N, H, W), 20, np.uint8)
+    for t in range(N):
+        for _ in range(n):
+            cy, cx, r = rng.integers(4, H - 4), rng.integers(4, W - 4), rng.integers(2, 4)
+            frames[t][(yy - cy) ** 2 + (xx - cx) ** 2 <= r * r] = 200
+    return frames
+
+
+def test_return_labels_matches_tpuva():
+    """out["labels"] of process_batch_staged against tpuva's
+    labels_from_raw (interpret mode) with max_components=4 on ~10 blobs a
+    frame: ids 1..4 for the first four components, 0 for the rest; and
+    tpuva's warning when ccl_single_pass comes with it."""
+    frames = blob_scene()
+    cfg = dataclasses.replace(bench_cfg(), blur=None, morph_open=None, morph_close=None,
+                              segment=jcfg.SegmentConfig(50.0, 1, 4), batch=2)
+    plate = np.full((64, 96), 20, np.float32)
+    _c, out_j = jp.process_batch_staged(cfg, jp.init_carry(cfg, 64, 96, plate),
+                                        jnp.asarray(frames), max_components=4,
+                                        return_labels=True)
+    _c, out = tp.process_batch_staged(cfg, tp.init_carry(cfg, 64, 96, plate, device="cpu"),
+                                      torch.from_numpy(frames), max_components=4,
+                                      return_labels=True)
+    labels = out["labels"].numpy()
+    np.testing.assert_array_equal(labels, np.asarray(out_j["labels"]))
+    assert labels.dtype == np.int32 and labels.max() == 4
+    assert ((frames > 100) & (labels == 0)).any()  # later components are 0
+    with pytest.warns(UserWarning, match="ccl_single_pass is ignored"):
+        tp.process_batch_staged(cfg, tp.init_carry(cfg, 64, 96, plate, device="cpu"),
+                                torch.from_numpy(frames), max_components=4,
+                                return_labels=True, ccl_single_pass=True)
 
 
 @pytest.mark.parametrize("parallel_bg", [False, True], ids=["seq_bg", "parallel_bg"])

@@ -203,8 +203,6 @@ def test_check_capacity_strict_and_warn():
         sp._check_capacity({"ccl_converged": False}, 3)
     assert sp.overflow_frames == 1 and sp.ccl_unconverged_batches == 1 and len(w) == 2
     sp._check_capacity(rec, 1)  # the overflowing frame is padding
-    with pytest.raises(NotImplementedError):
-        StreamingPipeline(CFG, ccl_single_pass=True, **CPU)
 
 
 def test_streaming_warmup_compiles_without_state():

@@ -7,12 +7,14 @@ pieces it needs (the config dataclasses, the CSV writer, numpy helpers)
 are copies that those tests pin to their originals.
 
 Layout (counterparts in ``tpuva/``):
-  ops/background.py, ops/filters.py  plain front-end ops
+  ops/background.py, ops/filters.py  plain front-end ops, Otsu threshold,
+                                     kernel K4 (csrc/otsu.cu: histogram)
   ops/fused_segment.py               kernel K1 (csrc/fused_segment.cu)
   ops/label.py                       scan keys, plain CCL, stats epilogue
-  ops/ccl.py                         kernel K2 (csrc/ccl.cu) + stats
+  ops/ccl.py                         kernels K2 and K3 (csrc/ccl.cu)
   track/assign.py, track/table.py    the tracker
-  graph/pipeline.py                  process_batch / process_clip
+  graph/pipeline.py                  process_batch(_staged) / process_clip
+  graph/streaming.py, io/            StreamingPipeline, BatchStager
   graph/config.py, export/csvio.py   pinned copies
 
 Kernels are compiled by nvcc at the first call on a CUDA tensor

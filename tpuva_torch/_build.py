@@ -35,6 +35,7 @@ NVCC_FLAGS = (
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
+_LL = ctypes.c_longlong
 
 # C signatures of the entry points in csrc/*.cu
 _SIGNATURES = {
@@ -45,7 +46,7 @@ _SIGNATURES = {
         _P, _I, _I,  # taps, ntaps, shift
         _I,  # median
         _P, _P, _P,  # stage_k, stage_iters, stage_se
-        _I, _I, _I,  # seed_bg, tile_h, tile_w
+        _I, _I, _I, _I,  # seed_bg, emit_diff, tile_h, tile_w
         _P,  # stream
     ],
     "tpuva_ccl_stats": [
@@ -56,6 +57,10 @@ _SIGNATURES = {
     "tpuva_ccl_labels": [
         _P, _I, _I, _I, _I,  # mask, N, H, W, connectivity
         _P, _P, _P,  # parent, bits, labels
+        _P,  # stream
+    ],
+    "tpuva_histogram_u8": [
+        _P, _I, _LL, _P,  # x, L, P (pixels per image), hist
         _P,  # stream
     ],
 }

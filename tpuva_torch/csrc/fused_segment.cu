@@ -1,13 +1,19 @@
 // Fused segmentation front-end (kernel K1) for Hopper, sm_90a.
 //
 // Replaces the Pallas TPU kernel tpuva/ops/pallas/fused_segment.py::
-// fused_segment (emit="mask", without padded_occ). Per frame and pixel:
+// fused_segment (emit="mask" and emit="diff", without padded_occ). Per
+// frame and pixel:
 //   cv2's u8 Gaussian blur: REFLECT_101, integer taps, (acc + 2^(s-1)) >> s
 //   -> optional median 3x3 (BORDER_REPLICATE)
 //   -> B <- (1-a)*B + a*F in float32 (two products, one add, no FMA)
+//   emit="mask":
 //   -> |F - B| > thr
 //   -> open (erode, dilate) -> close (dilate, erode), cv2 constant borders:
 //      erode reads outside pixels as foreground, dilate as background.
+//   emit="diff" (the staged Otsu route's front end; the threshold is a
+//   per-frame statistic no tile can see):
+//   -> min(rint(|F - B|), 255) as uint8, rint half to even (rintf, never
+//      roundf); no threshold, no morphology (the caller has none: Rm = 0).
 // The plain PyTorch version is tpuva_torch/ops/fused_segment.py::
 // fused_segment_plain; the two are bit-equal.
 //
@@ -58,6 +64,7 @@ struct SegParams {
   unsigned stage_se[4][kMaxSE];   // per-row SE bitmask (bit dx)
   int P, Rm, TH, TW;
   int seed_bg;
+  int emit_diff;                  // 1: write rint(|F - B|), not the mask
 };
 
 // Shared-memory layout, shared by host (size) and device (carving).
@@ -215,7 +222,7 @@ fused_segment_kernel(const uint8_t* __restrict__ frames,
       }
       __syncthreads();
     }
-    // 5. background update and strict threshold
+    // 5. background update and strict threshold (or the rounded magnitude)
     int any = 0;
     for (int i = threadIdx.x; i < MN; i += blockDim.x) {
       const int gy = my0 + i / L.MW, gx = mx0 + i % L.MW;
@@ -225,12 +232,16 @@ fused_segment_kernel(const uint8_t* __restrict__ frames,
         float b = (p.seed_bg && t == 0) ? f : bg[i];
         b = __fadd_rn(__fmul_rn(p.c1, b), __fmul_rn(p.a, f));
         bg[i] = b;
-        m = fabsf(__fsub_rn(f, b)) > p.thr ? 1 : 0;
+        const float d = fabsf(__fsub_rn(f, b));
+        if (p.emit_diff)
+          m = (uint8_t)fminf(rintf(d), 255.f);
+        else
+          m = d > p.thr ? 1 : 0;
       }
       mbuf[0][i] = m;
       any |= m;
     }
-    any = __syncthreads_or(any);
+    any = __syncthreads_or(any) && !p.emit_diff;
     // 6. morphology, ping-pong over the M region
     int cur = 0;
     if (any) {
@@ -245,14 +256,15 @@ fused_segment_kernel(const uint8_t* __restrict__ frames,
         }
       }
     }
-    // 7. owned pixels out, 0/255
+    // 7. owned pixels out: 0/255, or the magnitudes (cur == 0, Rm == 0)
     uint8_t* out = masks + size_t(t) * HW;
     for (int i = threadIdx.x; i < TH * TW; i += blockDim.x) {
       const int r = i / TW, c = i % TW;
       const int gy = y0 + r, gx = x0 + c;
-      if (gy < H && gx < W)
-        out[size_t(gy) * W + gx] =
-            (any && mbuf[cur][(r + Rm) * L.MW + c + Rm]) ? 255 : 0;
+      if (gy < H && gx < W) {
+        const uint8_t m = mbuf[cur][(r + Rm) * L.MW + c + Rm];
+        out[size_t(gy) * W + gx] = p.emit_diff ? m : ((any && m) ? 255 : 0);
+      }
     }
     __syncthreads();
   }
@@ -270,7 +282,8 @@ extern "C" const char* tpuva_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }
 
-// frames (N,H,W) u8, bg0 (H,W) f32 -> masks (N,H,W) u8 0/255, bg_out (H,W).
+// frames (N,H,W) u8, bg0 (H,W) f32 -> masks (N,H,W) u8 0/255 (emit_diff:
+// the rounded magnitudes), bg_out (H,W).
 // Host arrays: taps[ntaps]; stage_k[4], stage_iters[4], stage_se[4][31].
 // Returns cudaGetLastError() after the launch (0 = launched).
 extern "C" int tpuva_fused_segment(
@@ -278,7 +291,7 @@ extern "C" int tpuva_fused_segment(
     int N, int H, int W, float c1, float a, float thr,
     const int* taps, int ntaps, int shift, int median,
     const int* stage_k, const int* stage_iters, const unsigned* stage_se,
-    int seed_bg, int tile_h, int tile_w, void* stream) {
+    int seed_bg, int emit_diff, int tile_h, int tile_w, void* stream) {
   if (N <= 0 || H <= 0 || W <= 0 || ntaps < 1 || ntaps > kMaxTaps ||
       ntaps % 2 == 0 || tile_h <= 0 || tile_w <= 0)
     return static_cast<int>(cudaErrorInvalidValue);
@@ -297,9 +310,11 @@ extern "C" int tpuva_fused_segment(
     for (int r = 0; r < kMaxSE; ++r) p.stage_se[s][r] = stage_se[s * kMaxSE + r];
     p.Rm += (stage_k[s] / 2) * p.stage_iters[s];
   }
+  if (emit_diff && p.Rm) return static_cast<int>(cudaErrorInvalidValue);
   p.P = ntaps / 2 + p.rm + p.Rm;  // blur + median + morphology reach
   p.TH = tile_h; p.TW = tile_w;
   p.seed_bg = seed_bg;
+  p.emit_diff = emit_diff ? 1 : 0;
   const Layout L(tile_h, tile_w, p.P, p.Rm, p.rm);
   if (L.total > size_t(kMaxSmem)) return static_cast<int>(cudaErrorInvalidConfiguration);
   cudaError_t err = cudaFuncSetAttribute(

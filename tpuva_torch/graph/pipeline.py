@@ -8,10 +8,25 @@ JAX package's names:
   torch ops (``torch_front_end``: blur, median, background, |F - B| >
   threshold, open, close — K1's plain version for the sequential
   background, ``background_trajectory``'s scan for ``parallel_bg``), or
-  kernel K1 (``fused_segment``) with ``use_pallas``; then ``connected_components_with_stats`` (kernel K3 +
-  integer stats) and ``_finish_batch``.
+  kernel K1 (``fused_segment``) with ``use_pallas``; then
+  ``connected_components_with_stats`` (kernel K3 + integer stats), or
+  kernel K2 with ``ccl_single_pass``; then ``_finish_batch``.
 - ``process_batch_staged`` — kernel K1, then kernel K2 (``label_stats``:
   8-connected CCL + stats in one launch sequence), then ``_finish_batch``.
+
+Otsu thresholding (``SegmentConfig(threshold="otsu")``) takes every route:
+the front end emits the rounded magnitudes ``clip(rint(|F - B|), 0, 255)``
+(K1 with ``emit="diff"`` on the staged route, ``_otsu_mask_stage``; its
+plain version or the scanned background in ``torch_front_end``), each
+frame's threshold comes from its 256-bin histogram (kernel K4 in
+``ops.filters.histogram_u8``), then the strict integer compare and the
+torch open and close.
+
+``ccl_single_pass`` exists in tpuva because its multi-pass TPU CCL pays
+for sequential grid passes. K2's union-find converges in one launch
+sequence and gives exact stats, so the flag maps onto K2: the staged
+route ignores it and ``process_batch`` takes K2 for its stats, as tpuva's
+single-pass tail does.
 
 ``_finish_batch`` runs ``extract_detections`` and one ``track_update`` per
 frame, in order. CUDA tensors launch the hand-written kernels; CPU tensors
@@ -27,12 +42,13 @@ index; ``carry_from_numpy`` / ``carry_to_numpy`` move it to and from
 tpuva's ``PipelineCarry`` (or any object with the same fields). Entry
 points run on the card unless they are given ``device="cpu"``.
 
-Not ported yet (ROADMAP.md): Otsu thresholding, median k > 3 and
-``ccl_single_pass``, which raise ``NotImplementedError``.
+Not ported yet (ROADMAP.md): median k > 3, which raises
+``NotImplementedError``.
 """
 
 from __future__ import annotations
 
+import warnings
 from typing import NamedTuple, Optional
 
 import numpy as np
@@ -40,17 +56,22 @@ import torch
 
 from tpuva_torch.device import resolve_device
 from tpuva_torch.ops.background import background_coeffs, background_update
-from tpuva_torch.ops.ccl import label_stats
+from tpuva_torch.ops.ccl import label_components_tiled, label_stats
 from tpuva_torch.ops.filters import (
     gaussian_blur_u8,
     median_blur,
     morph_close,
     morph_open,
+    otsu_threshold,
     structuring_element,
     threshold,
 )
 from tpuva_torch.ops.fused_segment import fused_segment, fused_segment_plain
-from tpuva_torch.ops.label import connected_components_with_stats, extract_detections
+from tpuva_torch.ops.label import (
+    connected_components_with_stats,
+    extract_detections,
+    relabel_dense,
+)
 from tpuva_torch.track.table import TrackState, init_track_state, track_update
 
 
@@ -112,14 +133,24 @@ def carry_to_numpy(carry: PipelineCarry) -> PipelineCarry:
     )
 
 
-def _front_end_kwargs(cfg) -> dict:
-    """fused_segment's options from a config (as tpuva's _fused_mask_stage)."""
+def _diff_kwargs(cfg) -> dict:
+    """fused_segment's options for emit="diff" (as tpuva's _otsu_mask_stage)."""
     return dict(
         alpha=cfg.background.alpha,
-        threshold=cfg.segment.threshold,
+        threshold=0.0,
         blur_ksize=cfg.blur.ksize if cfg.blur else 0,
         blur_sigma=cfg.blur.sigma if cfg.blur else 0.0,
         median_ksize=cfg.median.ksize if cfg.median and cfg.median.ksize > 1 else 0,
+        emit="diff",
+    )
+
+
+def _front_end_kwargs(cfg) -> dict:
+    """fused_segment's options from a config (as tpuva's _fused_mask_stage)."""
+    return dict(
+        _diff_kwargs(cfg),
+        emit="mask",
+        threshold=cfg.segment.threshold,
         open_shape=cfg.morph_open.shape if cfg.morph_open else "rect",
         open_ksize=cfg.morph_open.ksize if cfg.morph_open else 0,
         open_iters=cfg.morph_open.iterations if cfg.morph_open else 1,
@@ -129,13 +160,9 @@ def _front_end_kwargs(cfg) -> dict:
     )
 
 
-def _check_ported(cfg, ccl_single_pass: bool = False) -> None:
-    if cfg.segment.threshold == "otsu":
-        raise NotImplementedError("Otsu thresholding is not ported yet")
+def _check_ported(cfg) -> None:
     if cfg.median is not None and cfg.median.ksize not in (1, 3):
         raise NotImplementedError("median ksize > 3 is not ported yet")
-    if ccl_single_pass:
-        raise NotImplementedError("ccl_single_pass is not ported")
 
 
 def filter_batch(cfg, frames: torch.Tensor) -> torch.Tensor:
@@ -198,41 +225,75 @@ def background_trajectory(bg0: torch.Tensor, frames: torch.Tensor, alpha: float,
 
 
 def _can_fuse(cfg) -> bool:
-    """Configs the fused front-end kernel K1 covers: median 0/1/3, no Otsu."""
+    """Configs the fused front-end kernel K1 covers in one pass: median
+    0/1/3 and a fixed threshold. Otsu needs each frame's histogram, a
+    statistic no tile sees, so it takes the staged Otsu route instead
+    (_otsu_mask_stage); see _can_stage."""
     return (cfg.median is None or cfg.median.ksize in (1, 3)) and cfg.segment.threshold != "otsu"
 
 
 def _can_stage(cfg) -> bool:
-    """Configs the staged route covers (tpuva's: _can_fuse plus Otsu, which
-    the port does not have yet and rejects)."""
+    """Configs the staged route covers: everything _can_fuse does, plus
+    Otsu through K1's diff emit."""
     return cfg.median is None or cfg.median.ksize in (1, 3)
 
 
-def torch_front_end(cfg, carry: PipelineCarry, frames: torch.Tensor,
-                    parallel_bg: bool = False):
-    """process_batch's front end as torch ops: filter_batch ->
-    background_trajectory -> |F - B| -> threshold -> open -> close.
-    Returns (mask (N, H, W) uint8, post-batch background (H, W) float32).
-
-    The sequential background is K1's plain version, which walks the
-    frames without keeping the (N, H, W) trajectory; only the scanned
-    background (parallel_bg) needs the trajectory and is built here."""
-    seed_bg = not bool(carry.bg_valid)
-    if not parallel_bg:
-        return fused_segment_plain(frames, carry.bg, seed_bg=seed_bg, **_front_end_kwargs(cfg))
-    f = filter_batch(cfg, frames.to(torch.float32))
-    bgs = background_trajectory(f[0] if seed_bg else carry.bg, f, cfg.background.alpha,
-                                parallel=True)
-    bg_last = bgs[-1].clone()  # not a view that keeps the batch alive
-    mask = threshold((f - bgs).abs(), cfg.segment.threshold)
-    del f, bgs
+def _morphology(cfg, mask: torch.Tensor) -> torch.Tensor:
+    """The config's open, then close, as torch ops."""
     if cfg.morph_open is not None:
         se = structuring_element(cfg.morph_open.shape, cfg.morph_open.ksize)
         mask = morph_open(mask, se, cfg.morph_open.iterations)
     if cfg.morph_close is not None:
         se = structuring_element(cfg.morph_close.shape, cfg.morph_close.ksize)
         mask = morph_close(mask, se, cfg.morph_close.iterations)
-    return mask, bg_last
+    return mask
+
+
+def _otsu_mask(cfg, du8: torch.Tensor) -> torch.Tensor:
+    """Rounded magnitudes (N, H, W) uint8 -> mask: each frame's Otsu
+    threshold (K4's histogram), the strict integer compare, open, close."""
+    thr = otsu_threshold(du8)  # (N,) float32
+    zero = torch.zeros((), dtype=torch.uint8, device=du8.device)
+    mask = torch.where(du8.to(torch.int32) > thr.to(torch.int32)[:, None, None], zero + 255, zero)
+    return _morphology(cfg, mask)
+
+
+def _otsu_mask_stage(cfg, carry: PipelineCarry, frames: torch.Tensor):
+    """The staged Otsu front end, as tpuva's: kernel K1 emits the rounded
+    |F - B| (blur, median and background in one pass), then _otsu_mask.
+    Returns (mask (N, H, W) uint8, post-batch background (H, W) float32)."""
+    du8, bg_last = fused_segment(frames, carry.bg, seed_bg=not bool(carry.bg_valid),
+                                 **_diff_kwargs(cfg))
+    return _otsu_mask(cfg, du8), bg_last
+
+
+def torch_front_end(cfg, carry: PipelineCarry, frames: torch.Tensor,
+                    parallel_bg: bool = False):
+    """process_batch's front end as torch ops: filter_batch ->
+    background_trajectory -> |F - B| -> threshold (fixed, or each frame's
+    Otsu threshold of the rounded magnitudes) -> open -> close.
+    Returns (mask (N, H, W) uint8, post-batch background (H, W) float32).
+
+    The sequential background is K1's plain version, which walks the
+    frames without keeping the (N, H, W) trajectory; only the scanned
+    background (parallel_bg) needs the trajectory and is built here."""
+    seed_bg = not bool(carry.bg_valid)
+    otsu = cfg.segment.threshold == "otsu"
+    if not parallel_bg:
+        if otsu:
+            du8, bg_last = fused_segment_plain(frames, carry.bg, seed_bg=seed_bg,
+                                               **_diff_kwargs(cfg))
+            return _otsu_mask(cfg, du8), bg_last
+        return fused_segment_plain(frames, carry.bg, seed_bg=seed_bg, **_front_end_kwargs(cfg))
+    f = filter_batch(cfg, frames.to(torch.float32))
+    bgs = background_trajectory(f[0] if seed_bg else carry.bg, f, cfg.background.alpha,
+                                parallel=True)
+    bg_last = bgs[-1].clone()  # not a view that keeps the batch alive
+    diff = (f - bgs).abs()
+    del f, bgs
+    if otsu:  # torch.round is rint: half to even
+        return _otsu_mask(cfg, torch.clamp(torch.round(diff), 0, 255).to(torch.uint8)), bg_last
+    return _morphology(cfg, threshold(diff, cfg.segment.threshold)), bg_last
 
 
 def process_batch(cfg, carry: PipelineCarry, frames: torch.Tensor,
@@ -246,7 +307,8 @@ def process_batch(cfg, carry: PipelineCarry, frames: torch.Tensor,
     otherwise it is torch ops, with the background as a sequential or
     (parallel_bg) scanned trajectory. The CCL is
     connected_components_with_stats, whose root-key labels come from
-    kernel K3 on the card.
+    kernel K3 on the card; with ccl_single_pass it is K2 (label_stats), as
+    tpuva's single-pass tail, with the same rows.
 
     Returns (new_carry, out) with out:
       rows           (N, max_blobs, 5) float32 — (track_id, frame, x, y, area)
@@ -257,16 +319,19 @@ def process_batch(cfg, carry: PipelineCarry, frames: torch.Tensor,
       stats_overflow (N,) int32, ccl_converged bool — strictness fields
       masks          (N, H, W) uint8, only if return_masks
     """
-    _check_ported(cfg, ccl_single_pass)
+    _check_ported(cfg)
     if use_pallas and _can_fuse(cfg):
         mask, bg_last = fused_segment(
             frames, carry.bg, seed_bg=not bool(carry.bg_valid), **_front_end_kwargs(cfg)
         )
     else:
         mask, bg_last = torch_front_end(cfg, carry, frames, parallel_bg)
-    stats = connected_components_with_stats(
-        mask, max_components=max_components, compute_bbox=False, compute_labels=False
-    )
+    if ccl_single_pass:
+        stats = label_stats(mask, max_components)
+    else:
+        stats = connected_components_with_stats(
+            mask, max_components=max_components, compute_bbox=False, compute_labels=False
+        )
     new_carry, out = _finish_batch(cfg, carry, stats, mask, bg_last, return_masks)
     out["stats_overflow"] = stats["overflow"]
     out["ccl_converged"] = stats["ccl_converged"]
@@ -275,18 +340,36 @@ def process_batch(cfg, carry: PipelineCarry, frames: torch.Tensor,
 
 def process_batch_staged(cfg, carry: PipelineCarry, frames: torch.Tensor,
                          return_masks: bool = False, max_components: int = 64,
-                         ccl_single_pass: bool = False):
+                         return_labels: bool = False, ccl_single_pass: bool = False):
     """One N-frame batch through the staged route: kernel K1 (the
     background seeded from the filtered first frame while the carry has
-    none), then kernel K2's CCL + stats. Same outputs as process_batch."""
-    _check_ported(cfg, ccl_single_pass)
-    masks, bg_last = fused_segment(
-        frames, carry.bg, seed_bg=not bool(carry.bg_valid), **_front_end_kwargs(cfg)
-    )
+    none; for Otsu its diff emit, then _otsu_mask), then kernel K2's CCL +
+    stats. Same outputs as process_batch.
+
+    return_labels adds out["labels"], (N, H, W) int32, as tpuva's
+    labels_from_raw: dense cv2 ids 1..C of the first C = max_components
+    components in cv2 order, 0 for the background and every later
+    component (K3's root keys through relabel_dense). ccl_single_pass
+    changes nothing here: K2 is exact in one launch sequence."""
+    _check_ported(cfg)
+    if ccl_single_pass and return_labels:
+        warnings.warn(  # tpuva's warning: its single-pass kernel leaves no label buffer
+            "return_labels=True takes the multi-pass CCL: ccl_single_pass is "
+            "ignored for this call; stats/tracking outputs are identical either way.",
+            stacklevel=2,
+        )
+    if cfg.segment.threshold == "otsu":
+        masks, bg_last = _otsu_mask_stage(cfg, carry, frames)
+    else:
+        masks, bg_last = fused_segment(
+            frames, carry.bg, seed_bg=not bool(carry.bg_valid), **_front_end_kwargs(cfg)
+        )
     stats = label_stats(masks, max_components)
     new_carry, out = _finish_batch(cfg, carry, stats, masks, bg_last, return_masks)
     out["stats_overflow"] = stats["overflow"]
     out["ccl_converged"] = stats["ccl_converged"]
+    if return_labels:
+        out["labels"] = relabel_dense(label_components_tiled(masks, 8), max_components)[0]
     return new_carry, out
 
 

@@ -302,7 +302,9 @@ class StreamingPipeline:
     Each batch takes process_batch (the one-dispatch route: K3, and K1
     with use_pallas), or process_batch_staged (K1 + K2) when use_pallas,
     a config the staged route covers and a CUDA device (or force_staged)
-    come together — tpuva's dispatch.
+    come together — tpuva's dispatch. Otsu configs take either route (K4
+    for the per-frame histograms); ccl_single_pass makes process_batch
+    take K2 for its stats (graph/pipeline.py).
 
     parallel_bg defaults to False: the scanned background reorders float
     work and is not bit-identical to the sequential/refimpl ordering, so
@@ -334,8 +336,6 @@ class StreamingPipeline:
         force_staged: bool = False,
         device="cuda",
     ):
-        if ccl_single_pass:
-            raise NotImplementedError("ccl_single_pass is not ported")
         self.cfg = cfg
         self.checkpoint_path = checkpoint_path
         self.checkpoint_every = checkpoint_every
@@ -343,6 +343,7 @@ class StreamingPipeline:
         self.max_components = max_components
         self.queue_depth = queue_depth
         self.use_pallas = use_pallas
+        self.ccl_single_pass = ccl_single_pass
         self.strict = strict
         self.row_log_path = row_log_path
         # take the staged route on the CPU too (its plain versions), so
@@ -360,10 +361,12 @@ class StreamingPipeline:
             and _can_stage(cfg)
             and (self.device.type == "cuda" or self.force_staged)
         ):
-            return process_batch_staged(cfg, carry, batch, max_components=self.max_components)
+            return process_batch_staged(cfg, carry, batch, max_components=self.max_components,
+                                        ccl_single_pass=self.ccl_single_pass)
         return process_batch(
             cfg, carry, batch, parallel_bg=self.parallel_bg,
             max_components=self.max_components, use_pallas=self.use_pallas,
+            ccl_single_pass=self.ccl_single_pass,
         )
 
     def warmup(self, H: int, W: int) -> None:

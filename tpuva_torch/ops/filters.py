@@ -15,6 +15,12 @@ CPU tensors take. Pinned semantics, as in the JAX package:
 - ``threshold``: strict ``x > float32(thresh)`` (cv2 THRESH_BINARY).
 - ``erode``/``dilate``: min/max over the structuring element, with cv2's
   constant borders: erode reads outside pixels as 255, dilate as 0.
+- ``histogram_u8``: exact integer counts per image — kernel K4
+  (``csrc/otsu.cu``) on a CUDA tensor, ``histogram_u8_plain`` on a CPU
+  one. tpuva's bf16 one-hot matmul and its chunk padding are TPU
+  workarounds and are not carried over.
+- ``otsu_from_histogram``: tpuva's float32 arithmetic, with its cumulative
+  sums taken in XLA:CPU's order (``_cumsum256``).
 
 The numpy helpers ``_SMALL_GAUSSIAN``, ``_gaussian_kernel_1d_f64``,
 ``u8_gaussian_taps``, ``is_binomial_blur`` and ``structuring_element`` are
@@ -27,6 +33,8 @@ import functools
 
 import numpy as np
 import torch
+
+from tpuva_torch import _build
 
 # OpenCV's fixed kernels for sigma <= 0 (copy of tpuva/ops/filters.py)
 _SMALL_GAUSSIAN = {
@@ -185,6 +193,98 @@ def threshold(x: torch.Tensor, thresh: float, maxval: float = 255.0) -> torch.Te
         torch.tensor(int(maxval), dtype=torch.uint8, device=x.device),
         torch.tensor(0, dtype=torch.uint8, device=x.device),
     )
+
+
+def histogram_u8_plain(x: torch.Tensor) -> torch.Tensor:
+    """Plain version of kernel K4: (L, H, W) uint8 -> (L, 256) int32 counts."""
+    L = x.shape[0]
+    flat = x.reshape(L, -1).long()
+    ones = torch.ones((), dtype=torch.int32, device=x.device).expand(flat.shape)
+    return torch.zeros((L, 256), dtype=torch.int32, device=x.device).scatter_add_(1, flat, ones)
+
+
+def _histogram_u8_cuda(x: torch.Tensor) -> torch.Tensor:
+    L, H, W = x.shape
+    if H * W >= 1 << 31 or L > 65535:
+        raise ValueError("histogram kernel: H * W < 2^31 and at most 65535 images")
+    hist = torch.zeros((L, 256), dtype=torch.int32, device=x.device)
+    lib = _build.load()
+    err = lib.tpuva_histogram_u8(
+        x.data_ptr(), L, H * W, hist.data_ptr(),
+        torch.cuda.current_stream(x.device).cuda_stream,
+    )
+    _build.check(lib, err, "histogram kernel")
+    histogram_u8.launches += 1
+    return hist
+
+
+def histogram_u8(x: torch.Tensor) -> torch.Tensor:
+    """256-bin histogram of each uint8 image of a batch, port of tpuva's
+    histogram_u8: x (..., H, W) uint8 -> (..., 256) float32 counts, bin v =
+    pixel value; exact below 2^24 pixels an image.
+
+    CUDA tensors launch kernel K4 (csrc/otsu.cu); CPU tensors take
+    histogram_u8_plain. Counts are int32 in both, cast to float32 here."""
+    if x.dtype != torch.uint8 or x.dim() < 2:
+        raise ValueError("histogram_u8: x must be (..., H, W) uint8")
+    lead, (H, W) = x.shape[:-2], x.shape[-2:]
+    x3 = x.reshape((-1, H, W))
+    if x3.device.type == "cpu":
+        hist = histogram_u8_plain(x3)
+    elif x3.device.type == "cuda":
+        if x3.numel() == 0:
+            hist = torch.zeros((x3.shape[0], 256), dtype=torch.int32, device=x3.device)
+        else:
+            hist = _histogram_u8_cuda(x3.contiguous())
+    else:
+        raise ValueError(f"histogram_u8: unsupported device {x.device}")
+    return hist.to(torch.float32).reshape(lead + (256,))
+
+
+histogram_u8.launches = 0
+
+
+def _cumsum256(v: torch.Tensor) -> torch.Tensor:
+    """Inclusive float32 cumulative sum over the last axis (256), in the
+    order XLA:CPU gives jnp.cumsum there: sequential sums inside 16 blocks
+    of 16, a sequential prefix of the block totals, then block prefix +
+    in-block sum. At 1080p the partial sums of tpuva's Otsu pass 2^24 and
+    round, so the order decides the threshold; torch.cumsum takes another
+    order (on the card a parallel scan)."""
+    b = v.reshape(v.shape[:-1] + (16, 16))
+    cols = [b[..., 0]]
+    for j in range(1, 16):
+        cols.append(cols[-1] + b[..., j])
+    within = torch.stack(cols, dim=-1)  # (..., 16 blocks, 16)
+    prefix = [torch.zeros_like(within[..., 0, -1])]
+    for k in range(1, 16):
+        prefix.append(prefix[-1] + within[..., k - 1, -1])
+    return (torch.stack(prefix, dim=-1)[..., None] + within).reshape(v.shape)
+
+
+def otsu_from_histogram(hist: torch.Tensor) -> torch.Tensor:
+    """Otsu threshold from a 256-bin histogram (cv2.THRESH_OTSU semantics:
+    maximise the between-class variance; ties take the lowest threshold),
+    tpuva's float32 arithmetic op for op. hist: (..., 256) float32 counts
+    -> (...) float32 threshold."""
+    total = hist.sum(-1, keepdim=True)  # integer counts: exact in any order
+    bins = torch.arange(256, dtype=torch.float32, device=hist.device)
+    w0 = _cumsum256(hist)
+    sum0 = _cumsum256(hist * bins)
+    sum_all = sum0[..., -1:]
+    w1 = total - w0
+    mu0 = sum0 / w0.clamp(min=1.0)
+    mu1 = (sum_all - sum0) / w1.clamp(min=1.0)
+    d = mu0 - mu1
+    var_between = w0 * w1 * (d * d)
+    valid = (w0 > 0) & (w1 > 0)
+    var_between = torch.where(valid, var_between, -1.0)
+    return torch.argmax(var_between, dim=-1).to(torch.float32)
+
+
+def otsu_threshold(x: torch.Tensor) -> torch.Tensor:
+    """Otsu threshold of each uint8 image of x (..., H, W) -> (...) float32."""
+    return otsu_from_histogram(histogram_u8(x))
 
 
 def _morph(x: torch.Tensor, se: np.ndarray, is_erode: bool) -> torch.Tensor:

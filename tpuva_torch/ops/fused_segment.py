@@ -1,10 +1,14 @@
 """Fused segmentation front-end — kernel K1 and its plain version.
 
 Replaces the Pallas kernel ``tpuva/ops/pallas/fused_segment.py::
-fused_segment`` (``emit="mask"``, without ``padded_occ``). Per frame:
-u8 Gaussian blur (REFLECT_101) -> optional median 3x3 (REPLICATE) ->
-``B <- (1-a)B + aF`` (float32) -> ``|F - B| > thr`` -> open -> close
-(cv2 constant borders).
+fused_segment`` (without ``padded_occ``). Per frame: u8 Gaussian blur
+(REFLECT_101) -> optional median 3x3 (REPLICATE) -> ``B <- (1-a)B + aF``
+(float32), then by ``emit``:
+
+- ``"mask"``: ``|F - B| > thr`` -> open -> close (cv2 constant borders);
+- ``"diff"``: ``clip(rint(|F - B|), 0, 255)`` as uint8, no threshold and
+  no morphology — the staged Otsu route's front end, whose threshold is a
+  per-frame statistic of these magnitudes.
 
 - CUDA tensors launch ``csrc/fused_segment.cu``: one CTA per spatial tile
   walks the N frames in order with the tile's background in shared
@@ -56,9 +60,11 @@ def fused_segment_plain(
     close_ksize: int = 0,
     close_iters: int = 1,
     seed_bg: bool = False,
+    emit: str = "mask",
 ):
     """Plain PyTorch version of the kernel (same arguments, same results;
     N >= 1)."""
+    _check_emit(emit, open_ksize, close_ksize)
     f = gaussian_blur_u8(frames, blur_ksize, blur_sigma) if blur_ksize else frames.to(torch.float32)
     if median_ksize:
         f = median_blur(f, median_ksize)
@@ -67,12 +73,24 @@ def fused_segment_plain(
     masks = torch.empty((N, H, W), dtype=torch.uint8, device=frames.device)
     for t in range(N):
         bg = background_update(bg, f[t], alpha)
-        masks[t] = threshold_op((f[t] - bg).abs(), threshold)
+        d = (f[t] - bg).abs()
+        if emit == "diff":  # torch.round is rint: half to even
+            masks[t] = torch.clamp(torch.round(d), 0, 255).to(torch.uint8)
+        else:
+            masks[t] = threshold_op(d, threshold)
     if open_ksize:
         masks = morph_open(masks, structuring_element(open_shape, open_ksize), open_iters)
     if close_ksize:
         masks = morph_close(masks, structuring_element(close_shape, close_ksize), close_iters)
     return masks, bg
+
+
+def _check_emit(emit: str, open_ksize: int, close_ksize: int) -> None:
+    if emit not in ("mask", "diff"):
+        raise ValueError(f"fused_segment: emit must be 'mask' or 'diff', got {emit!r}")
+    if emit == "diff" and (open_ksize or close_ksize):
+        raise ValueError("fused_segment: emit='diff' writes pre-threshold magnitudes, "
+                         "so it takes no morphology")
 
 
 def _se_rows(shape: str, ksize: int) -> list[int]:
@@ -97,18 +115,22 @@ def fused_segment(
     close_ksize: int = 0,
     close_iters: int = 1,
     seed_bg: bool = False,
+    emit: str = "mask",
 ):
     """frames (N, H, W) uint8, bg0 (H, W) float32 -> (masks (N, H, W)
-    uint8 0/255, final background (H, W) float32).
+    uint8 0/255, final background (H, W) float32); with emit="diff" the
+    first output is clip(rint(|F - B|), 0, 255) instead, threshold is
+    ignored and open/close must be off.
 
     blur_ksize 0 = no blur; median_ksize 0 or 3; open/close ksize 0 = off.
     CPU tensors run fused_segment_plain; CUDA tensors launch the kernel."""
+    _check_emit(emit, open_ksize, close_ksize)
     kw = dict(
         alpha=alpha, threshold=threshold, blur_ksize=blur_ksize,
         blur_sigma=blur_sigma, median_ksize=median_ksize,
         open_shape=open_shape, open_ksize=open_ksize, open_iters=open_iters,
         close_shape=close_shape, close_ksize=close_ksize,
-        close_iters=close_iters, seed_bg=seed_bg,
+        close_iters=close_iters, seed_bg=seed_bg, emit=emit,
     )
     if frames.dim() != 3 or frames.dtype != torch.uint8:
         raise ValueError("fused_segment: frames must be (N, H, W) uint8")
@@ -128,7 +150,7 @@ def fused_segment(
 
 def _fused_segment_cuda(frames, bg0, *, alpha, threshold, blur_ksize, blur_sigma,
                         median_ksize, open_shape, open_ksize, open_iters,
-                        close_shape, close_ksize, close_iters, seed_bg):
+                        close_shape, close_ksize, close_iters, seed_bg, emit):
     N, H, W = frames.shape
     taps, shift = blur_taps(blur_ksize, blur_sigma) if blur_ksize else ((1,), 0)
     stages = [  # erode+dilate (open), then dilate+erode (close)
@@ -156,7 +178,7 @@ def _fused_segment_cuda(frames, bg0, *, alpha, threshold, blur_ksize, blur_sigma
         N, H, W, c1, a, float(np.float32(threshold)),
         taps_np.ctypes.data, len(taps), shift, 1 if median_ksize else 0,
         stage_k.ctypes.data, stage_iters.ctypes.data, stage_se.ctypes.data,
-        1 if seed_bg else 0, TILE[0], TILE[1],
+        1 if seed_bg else 0, 1 if emit == "diff" else 0, TILE[0], TILE[1],
         torch.cuda.current_stream(frames.device).cuda_stream,
     )
     _build.check(lib, err, "fused_segment kernel")
