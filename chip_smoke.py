@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (tpuva_torch) on one NVIDIA GPU.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py          # every phase below
+    python3 chip_smoke.py --k1     # phases 1-3b, then K1's timings only
 
 Run from the repository root on a machine with one CUDA card and nvcc; it
 builds the kernels into build/tpuva_torch/ first. It imports no JAX and
@@ -12,8 +13,9 @@ raises, so the exit code is non-zero:
    torch and CUDA versions;
 2. build: nvcc compiles tpuva_torch/csrc/*.cu;
 3. K1 (fused_segment) against its plain version on the card, at
-   (16, 1080, 1920) and a ragged (5, 250, 333), over four configs:
-   masks and background bit-equal;
+   (16, 1080, 1920), a ragged (5, 250, 333) and a one-column (4, 120, 1),
+   over six configs (blur 3, 5, 7 and 9 taps: the unrolled and the
+   generic instantiations): masks and background bit-equal;
 3b. K1's emit="diff" against its plain version at the same shapes over
    three configs, and a tie case (alpha 0, bg0 = k + 0.5: every magnitude
    a .5 tie), magnitudes and background bit-equal; K4 (histogram_u8)
@@ -34,22 +36,24 @@ raises, so the exit code is non-zero:
    CSV bytes;
 7. the streamed default route: the same clip through
    StreamingPipeline(cfg, max_components=32).run(VideoMemory(clip)) on
-   cuda (torch front end = K1's plain version, K3, stats), launch counts
-   read around it: K3
-   launched, K1 and K2 not, CSV sha256 == REF_CSV_SHA256; the same with
+   cuda (front end K1, then K3 and the dense stats), launch counts read
+   around it: K1 and K3 launched, K2 not, CSV sha256 == REF_CSV_SHA256;
+   the same with
    use_pallas=True (K1 + K2, no K3); a run stopped after its first
    checkpointed batch and resumed on the whole clip gives the same bytes;
    K3 against its plain version on the route's own batch-256 masks;
 7b. the Otsu routes: the bench config with threshold="otsu" on the same
    clip through process_clip(use_pallas=True) (K1's diff emit, K4, K2; no
-   K3) and the streamed default route (K1's plain diff emit, K4, K3; no
-   K1 or K2 launch), each run's CSV sha256 equal to REF_OTSU_CSV_SHA256;
+   K3) and the streamed default route (K1's diff emit, K4, K3; no K2
+   launch), each run's CSV sha256 equal to REF_OTSU_CSV_SHA256;
    a 48-frame sub-clip on the CPU (plain versions) and on the card gives
    identical rows, masks and background;
 8. timing with CUDA events after warm-up at batch 256 and 1080p: K1, K2,
    K3 (8- and 4-connected), connected_components_with_stats, K1's diff
-   emit and K4 against their plain versions (K1's plain version is the
-   default route's front end), K4 against torch.bincount over
+   emit and K4 against their plain versions (K1's plain version runs on
+   no route: it is the kernels' yardstick of correctness), K1's launch
+   plan (tile, grid, CTAs resident per SM from the occupancy query,
+   waves), K4 against torch.bincount over
    frame-offset keys, the tracker, BatchStager's pinned staging per batch
    beside a pageable copy, and frames/s of process_clip, of both streamed
    routes (in turns, twice each) and of both Otsu routes, with the peak
@@ -67,6 +71,7 @@ from __future__ import annotations
 import hashlib
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -97,7 +102,12 @@ K1_CONFIGS = {
     "blur7_sigma1.5": dict(BENCH_KW, blur_ksize=7, blur_sigma=1.5),
     "median3": dict(BENCH_KW, median_ksize=3),
     "iters2": dict(BENCH_KW, open_iters=2, close_iters=2),
+    "blur3": dict(BENCH_KW, blur_ksize=3),
+    "blur9": dict(BENCH_KW, blur_ksize=9),
 }
+# owned tiles K1's timing forces beside the plan's (the one-wave
+# candidates at 1080p and a two-wave one), to show which way the clip goes
+K1_TIMED_TILES = ((64, 64), (32, 128), (64, 128), (32, 64))
 MAX_COMPONENTS = 32
 # sha256 of format_rows(rows) that the OpenCV reference pipeline
 # (refimpl.pipeline.run_pipeline, bench config, max_dist 80, Hungarian)
@@ -219,7 +229,73 @@ def check_equal(err, kernel, pairs, where):
                 f"max abs err {e}")
 
 
+def ptxas_summary(log):
+    """{kernel: {"registers": n, "spill_stores": b, "spill_loads": b}} of the
+    K1 instantiations in nvcc's -Xptxas -v report."""
+    out, name = {}, None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            k = re.search(r"fused_segment_kernelILi(\d+)E", m.group(1))
+            name = f"fused_segment_kernel<{k.group(1)}>" if k else None
+            continue
+        if name is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m:
+            out.setdefault(name, {}).update(spill_stores=int(m.group(1)),
+                                            spill_loads=int(m.group(2)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            out.setdefault(name, {})["registers"] = int(m.group(1))
+    return out
+
+
+def k1_plans(H, W, configs):
+    """K1's launch plan on the card for each (name, options): tile, grid,
+    CTAs resident per SM (cudaOccupancyMaxActiveBlocksPerMultiprocessor),
+    waves over the card's SMs, shared memory per CTA."""
+    from tpuva_torch.ops.fused_segment import card_blocks_per_sm, fused_segment_plan
+
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    out = {}
+    for name, kw in configs:
+        p = fused_segment_plan(H, W, blocks_per_sm=card_blocks_per_sm, **kw)
+        out[name] = dict(tile=list(p.tile), grid=list(p.grid), blocks_per_sm=p.blocks_per_sm,
+                         waves=p.waves, smem_bytes=p.smem, sms=sms)
+    return out
+
+
+def k1_timing(clip, plate, card):
+    """--k1: K1 and K1-diff at batch 256 and 1080p with the plan's tile
+    and with each of K1_TIMED_TILES forced, bit-equal to the plain version
+    first, CUDA events; one JSON line. For iterating on K1 alone."""
+    from tpuva_torch.ops.fused_segment import _fused_segment_cuda, fused_segment, fused_segment_plain
+
+    dev = torch.device("cuda")
+    frames = torch.from_numpy(clip[:256]).to(dev)
+    bg0 = torch.from_numpy(plate.astype(np.float32)).to(dev)
+    configs = (("k1", BENCH_KW), ("k1_diff", diff_kwargs(BENCH_KW)))
+    t = {"plans": k1_plans(1080, 1920, configs)}
+    for name, kw in configs:
+        ref = fused_segment_plain(frames, bg0, **kw)
+        for r, g in zip(ref, fused_segment(frames, bg0, **kw)):
+            if not torch.equal(r, g):
+                raise AssertionError(f"{name} differs from its plain version at batch 256")
+        del ref
+        t[f"{name}_ms"] = cuda_ms(lambda: fused_segment(frames, bg0, **kw), 5)
+        for tile in K1_TIMED_TILES:
+            t[f"{name}_ms_tile_{tile[0]}x{tile[1]}"] = cuda_ms(
+                lambda: _fused_segment_cuda(frames, bg0, tile=tile, **kw), 5)
+    say("k1_timing", card=card, batch=256, shape=[1080, 1920], bit_equal=True, **t)
+    return 0
+
+
 def main():
+    k1_only = sys.argv[1:] == ["--k1"]
+    if sys.argv[1:] and not k1_only:
+        print("usage: chip_smoke.py [--k1]", file=sys.stderr)
+        return 2
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)",
               file=sys.stderr)
@@ -257,13 +333,14 @@ def main():
     _build.load()
     with open(os.path.join(OUT_DIR, "ptxas.txt"), "w") as fh:
         fh.write(log)
-    say("build", seconds=round(time.time() - t0, 2), library=str(lib_path.name))
+    say("build", seconds=round(time.time() - t0, 2), library=str(lib_path.name),
+        k1_ptxas=ptxas_summary(log))
 
     # the slice's clip, made once (its first frames also feed phases 3-5)
     t0 = time.time()
     clip, _alive, truth, plate = multi_blob_clip(
-        1080, 1920, 512, n_blobs=6, radius=16, births_deaths=False, noise_sigma=2.0
-    )
+        1080, 1920, 256 if k1_only else 512, n_blobs=6, radius=16, births_deaths=False,
+        noise_sigma=2.0)
     say("clip", seconds=round(time.time() - t0, 2), shape=list(clip.shape))
     err = {name: 0.0 for name in REPLACES}
     counters = {"fused_segment": fused_segment, "ccl_stats": label_stats,
@@ -280,8 +357,11 @@ def main():
     rng = np.random.default_rng(0)
     ragged = rng.integers(0, 256, (5, 250, 333), dtype=np.uint8)
     ragged[:, 100:140, 50:120] = 230
+    one_col = rng.integers(0, 256, (4, 120, 1), dtype=np.uint8)
+    one_col[:, 40:70] = 240
     cases = [(clip[:16], plate.astype(np.float32)),
-             (ragged, rng.uniform(0, 255, (250, 333)).astype(np.float32))]
+             (ragged, rng.uniform(0, 255, (250, 333)).astype(np.float32)),
+             (one_col, rng.uniform(0, 255, (120, 1)).astype(np.float32))]
     k1_masks = None
     n_cmp = 0
     for name, kw in K1_CONFIGS.items():
@@ -330,6 +410,8 @@ def main():
         k4_comparisons=len(magnitudes), bit_equal=True,
         tie_case_max_magnitude=int(magnitudes[len(diff_cases) - 1][1].max()))
     del magnitudes
+    if k1_only:
+        return k1_timing(clip, plate, card)
 
     # 4. K2 against its plain version, every stats field bit for bit
     masks_k2 = [("k1_masks", k1_masks)]
@@ -448,7 +530,7 @@ def main():
         return data, s, counts, peak
 
     _csv, stream_s, default_counts, default_peak = stream("default")
-    if (default_counts["ccl_labels"] < 2 or default_counts["fused_segment"]
+    if (min(default_counts["ccl_labels"], default_counts["fused_segment"]) < 2
             or default_counts["ccl_stats"]):
         raise AssertionError(f"streamed default route launches: {default_counts}")
     _csv, stream_staged_s, stream_staged_counts, staged_peak = stream("staged", use_pallas=True)
@@ -478,14 +560,15 @@ def main():
                     [("labels", label_components_tiled(route_masks, conn),
                       label_components(route_masks, conn))],
                     f"streamed route masks, batch 256, connectivity {conn}")
-    say("stream", route="StreamingPipeline.run -> process_batch -> K3", frames=int(clip.shape[0]),
+    say("stream", route="StreamingPipeline.run -> process_batch: K1 + K3",
+        frames=int(clip.shape[0]),
         csv_sha256_equals_reference=True, seconds=round(stream_s, 3), launches=default_counts,
         peak_device_gib=default_peak, staged_seconds=round(stream_staged_s, 3),
         staged_launches=stream_staged_counts, staged_peak_device_gib=staged_peak,
         resumed_csv_bytes_equal=True, k3_bit_equal_on_route_masks=True)
 
     # 7b. the Otsu routes: staged (K1's diff emit, K4, K2) and streamed
-    # default (K1's plain diff emit, K4, K3)
+    # default (K1's diff emit, K4, K3)
     otsu_cfg = bench_cfg(config, 256, "otsu")
 
     def otsu_run(what, run):
@@ -518,8 +601,8 @@ def main():
             otsu_staged_counts["ccl_stats"]) < 2 or otsu_staged_counts["ccl_labels"]):
         raise AssertionError(f"staged Otsu route launches: {otsu_staged_counts}")
     _rows, otsu_stream_s, otsu_stream_counts = otsu_run("otsu_stream", otsu_stream)
-    if (min(otsu_stream_counts["histogram_u8"], otsu_stream_counts["ccl_labels"]) < 2
-            or otsu_stream_counts["fused_segment"] or otsu_stream_counts["ccl_stats"]):
+    if (min(otsu_stream_counts["fused_segment"], otsu_stream_counts["histogram_u8"],
+            otsu_stream_counts["ccl_labels"]) < 2 or otsu_stream_counts["ccl_stats"]):
         raise AssertionError(f"streamed Otsu route launches: {otsu_stream_counts}")
     sub_otsu = bench_cfg(config, 16, "otsu")
     rows_cpu, carry_cpu, masks_cpu = process_clip(
@@ -535,7 +618,7 @@ def main():
     if [r for r in otsu_rows if r[1] < 48] != rows_gpu:
         raise AssertionError("first 48 frames of the batch-256 Otsu run differ from the batch-16 run")
     say("otsu", routes=["process_clip(use_pallas=True): K1 diff + K4 + K2",
-                        "StreamingPipeline.run -> process_batch: K1 plain diff + K4 + K3"],
+                        "StreamingPipeline.run -> process_batch: K1 diff + K4 + K3"],
         frames=int(clip.shape[0]), rows=len(otsu_rows),
         track_ids=len({int(r[0]) for r in otsu_rows}), csv_sha256_equals_reference=True,
         staged_seconds=round(otsu_staged_s, 3), staged_launches=otsu_staged_counts,
@@ -563,6 +646,7 @@ def main():
     del route_masks, got, ref
     reps = 5
     t = {}
+    t["k1_plans"] = k1_plans(1080, 1920, (("k1", kw), ("k1_diff", diff_kw)))
     t["k1_ms"] = cuda_ms(lambda: fused_segment(frames, bg0, **kw), reps)
     t["k1_plain_ms"] = cuda_ms(lambda: fused_segment_plain(frames, bg0, **kw), 2)
     t["k2_ms"] = cuda_ms(lambda: label_stats(masks, MAX_COMPONENTS), reps)

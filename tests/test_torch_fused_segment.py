@@ -23,7 +23,20 @@ import jax.numpy as jnp
 from tpuva.graph.config import BlurConfig, MedianConfig, PipelineConfig
 from tpuva.graph.pipeline import filter_batch
 from tpuva.ops.pallas.fused_segment import fused_segment as jax_fused
-from tpuva_torch.ops.fused_segment import fused_segment
+from tpuva_torch.ops.fused_segment import (
+    MAX_TAPS,
+    SMEM_LIMIT,
+    SMS,
+    THREADS,
+    TILES,
+    UNROLLED_TAPS,
+    Plan,
+    fused_segment,
+    fused_segment_plan,
+    launch_plan,
+    modelled_blocks_per_sm,
+    smem_bytes,
+)
 from test_torch_kernels import BENCH, CONFIGS, one_torch_thread, scene  # noqa: F401
 
 
@@ -99,3 +112,46 @@ def test_wrapper_rejects_what_the_kernel_does_not_take():
         fused_segment(frames, torch.zeros(8, 8), median_ksize=5, **BENCH)
     with pytest.raises(ValueError):  # neither CPU nor CUDA: no silent fallback
         fused_segment(frames.to("meta"), torch.zeros(8, 8, device="meta"), **BENCH)
+
+
+@pytest.mark.parametrize("H, W", [(1080, 1920), (2160, 3840), (250, 333), (64, 256), (7, 5),
+                                  (1, 1), (1, 333), (250, 1)])
+def test_launch_plan_fits_every_accepted_config(H, W):
+    """For every tap count, median and morphology reach the wrapper
+    accepts: the plan picks an instantiation the kernel has, its grid
+    covers the image with no empty row or column of CTAs, its shared
+    memory stays within a CTA's and equals smem_bytes, and its waves
+    follow from the occupancy; where it refuses, no tile fits."""
+    for ntaps in range(1, MAX_TAPS + 1, 2):
+        for median in (False, True):
+            for reach in (0, 1, 2, 4, 8, 30, 60, 90, 120):
+                try:
+                    plan = launch_plan(H, W, ntaps, median, reach)
+                except ValueError:
+                    assert all(smem_bytes(th, tw, ntaps, median, reach) > SMEM_LIMIT
+                               for th, tw in TILES)
+                    continue
+                assert plan.variant == (ntaps if ntaps in UNROLLED_TAPS else 0)
+                assert plan.variant in (0, *UNROLLED_TAPS) and plan.tile in TILES
+                th, tw = plan.tile
+                assert tw in (32, 64, 128) and THREADS % (tw // 16) == 0
+                gx, gy = plan.grid
+                assert (gx - 1) * tw < W <= gx * tw and (gy - 1) * th < H <= gy * th
+                assert plan.smem == smem_bytes(th, tw, ntaps, median, reach) <= SMEM_LIMIT
+                bps = modelled_blocks_per_sm(ntaps, median, reach, th, tw, plan.smem)
+                assert plan.blocks_per_sm == bps >= 1
+                assert plan.waves == -(-(gx * gy) // (bps * SMS))
+
+
+def test_launch_plan_follows_the_occupancy_it_is_given():
+    """The bench config at 1080p fits one wave of 64x64 tiles at the
+    modelled four CTAs an SM; told that only three fit (more registers),
+    the plan takes a wider tile that still fits one wave."""
+    kw = dict(BENCH)
+    plan = fused_segment_plan(1080, 1920, **kw)
+    assert plan == Plan(5, (64, 64), (30, 17), plan.smem, 4, 1)
+    fewer = fused_segment_plan(1080, 1920, blocks_per_sm=lambda *a: min(3, modelled_blocks_per_sm(*a)),
+                               **kw)
+    assert fewer.waves == 1 and fewer.tile == (64, 128)
+    diff = fused_segment_plan(1080, 1920, blur_ksize=5)
+    assert diff.tile == (64, 64) and diff.waves == 1 and diff.smem < plan.smem

@@ -24,7 +24,12 @@ from tpuva_torch.io.staging import BatchStager
 from tpuva_torch.ops import connected_components_with_stats
 from tpuva_torch.ops.ccl import label_components_tiled, label_stats
 from tpuva_torch.ops.filters import histogram_u8, histogram_u8_plain
-from tpuva_torch.ops.fused_segment import fused_segment, fused_segment_plain
+from tpuva_torch.ops.fused_segment import (
+    TILES,
+    _fused_segment_cuda,
+    fused_segment,
+    fused_segment_plain,
+)
 from tpuva_torch.ops.label import label_components
 from tpuva_torch.scenes import mixed_scene, u_shape
 
@@ -41,6 +46,24 @@ CONFIGS = {
         close_shape="rect", close_ksize=3, close_iters=2,
     ),
 }
+
+# K1's instantiations (blur 0 and 1..7 taps unrolled, 9 and 63 taps generic)
+# and edge paths (median, SE 31 with iterations: a reach wider than the
+# small images, so the reflect tables reflect more than once)
+K1_CONFIGS = dict(
+    CONFIGS,
+    blur0=dict(BENCH, blur_ksize=0),
+    blur3=dict(BENCH, blur_ksize=3),
+    blur9=dict(BENCH, blur_ksize=9),
+    blur63_median3=dict(BENCH, blur_ksize=63, blur_sigma=4.0, median_ksize=3),
+    se31=dict(BENCH, open_shape="ellipse", open_ksize=31, close_shape="rect",
+              close_ksize=5, close_iters=2),
+)
+# N = 1 and an image smaller than one tile; one row; one column; W % 16
+# != 0 (rows start unaligned: byte stores) and W % 4 == 0 (4-byte stores);
+# W % 16 == 0 (16-byte stores)
+K1_SHAPES = [(5, 64, 256), (4, 50, 100), (3, 250, 333), (2, 7, 5), (1, 9, 13), (2, 1, 40),
+             (2, 40, 1)]
 
 
 def scene(N, H, W, seed):
@@ -84,10 +107,10 @@ def cuda_device():
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("name", sorted(CONFIGS))
+@pytest.mark.parametrize("name", sorted(K1_CONFIGS))
 def test_fused_segment_kernel_matches_plain(cuda_device, name):
-    kw = CONFIGS[name]
-    for shape in [(5, 64, 256), (4, 50, 100), (3, 250, 333), (2, 7, 5)]:
+    kw = K1_CONFIGS[name]
+    for shape in K1_SHAPES:
         frames, bg0 = scene(*shape, seed=1)
         for seed_bg in (False, True):
             ref = fused_segment_plain(
@@ -105,14 +128,33 @@ def test_fused_segment_kernel_matches_plain(cuda_device, name):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("name", sorted(CONFIGS))
+@pytest.mark.parametrize("tile", TILES, ids=[f"{h}x{w}" for h, w in TILES])
+def test_fused_segment_kernel_tiles_match_plain(cuda_device, tile):
+    """Every tile launch_plan weighs, forced, with both emits: interior
+    tiles (the straight window load), edge tiles (the reflect tables) and
+    ragged last tiles, on 16-byte (W = 256) and byte (W = 333) rows."""
+    diff_kw = dict(alpha=0.02, threshold=0.0, blur_ksize=5, emit="diff")
+    for shape in [(3, 200, 256), (2, 150, 333), (2, 7, 5)]:
+        frames, bg0 = scene(*shape, seed=6)
+        for kw in (BENCH, diff_kw):
+            ref = fused_segment_plain(torch.from_numpy(frames), torch.from_numpy(bg0), **kw)
+            got = _fused_segment_cuda(torch.from_numpy(frames).to(cuda_device),
+                                      torch.from_numpy(bg0).to(cuda_device), tile=tile, **kw)
+            torch.cuda.synchronize()
+            for r, g in zip(ref, got):
+                np.testing.assert_array_equal(g.cpu().numpy(), r.numpy(),
+                                              err_msg=f"{shape}, {kw.get('emit', 'mask')}")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", sorted(K1_CONFIGS))
 def test_fused_segment_diff_kernel_matches_plain(cuda_device, name):
     """emit="diff" (no morphology), and alpha 0 with bg0 = k + 0.5, where
     every magnitude is a .5 tie that rint takes to the even neighbour."""
-    kw = {k: v for k, v in CONFIGS[name].items()
+    kw = {k: v for k, v in K1_CONFIGS[name].items()
           if k in ("alpha", "blur_ksize", "blur_sigma", "median_ksize")}
     cases = []
-    for shape in [(5, 64, 256), (3, 250, 333), (2, 7, 5)]:
+    for shape in K1_SHAPES:
         frames, bg0 = scene(*shape, seed=2)
         cases += [(frames, bg0, kw, False), (frames, bg0, kw, True)]
     frames, _ = scene(3, 40, 70, seed=4)

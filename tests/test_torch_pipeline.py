@@ -299,3 +299,35 @@ def test_entry_points_default_to_the_card(monkeypatch):
                  lambda: init_track_state(4)):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             call()
+
+
+@pytest.mark.parametrize("threshold", [35.0, "otsu"], ids=["mask", "otsu_diff"])
+def test_sequential_front_end_goes_through_fused_segment(monkeypatch, threshold):
+    """process_batch(parallel_bg=False) takes its front end from the K1
+    wrapper (which launches the kernel on a card) for both emits, and
+    reaches the plain version only through that wrapper."""
+    import tpuva_torch.ops.fused_segment as fs
+
+    calls = {"wrapper": [], "plain": 0}
+    real_wrapper, real_plain = tp.fused_segment, fs.fused_segment_plain
+
+    def wrapper(*args, **kw):
+        calls["wrapper"].append(kw["emit"])
+        return real_wrapper(*args, **kw)
+
+    def plain(*args, **kw):
+        calls["plain"] += 1
+        return real_plain(*args, **kw)
+
+    monkeypatch.setattr(tp, "fused_segment", wrapper)
+    monkeypatch.setattr(fs, "fused_segment_plain", plain)
+    assert not hasattr(tp, "fused_segment_plain")
+    frames, _alive, _truth, plate = multi_blob_clip(48, 64, 8, n_blobs=2, radius=5.0, seed=1)
+    cfg = dataclasses.replace(
+        bench_cfg(tcfg, batch=8),
+        segment=tcfg.SegmentConfig(threshold=threshold, min_area=10, max_blobs=8))
+    carry = tp.init_carry(cfg, 48, 64, plate, device="cpu")
+    _carry, out = tp.process_batch(cfg, carry, torch.from_numpy(frames),
+                                   max_components=MAX_COMPONENTS)
+    assert calls == {"wrapper": ["diff" if threshold == "otsu" else "mask"], "plain": 1}
+    assert out["rows"].shape[0] == 8

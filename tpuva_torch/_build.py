@@ -49,6 +49,10 @@ _SIGNATURES = {
         _I, _I, _I, _I,  # seed_bg, emit_diff, tile_h, tile_w
         _P,  # stream
     ],
+    "tpuva_fused_segment_occupancy": [
+        _I, _I, _I, _I, _I,  # ntaps, median, Rm, tile_h, tile_w
+        _P, _P,  # smem_bytes, blocks_per_sm (int32 out)
+    ],
     "tpuva_ccl_stats": [
         _P, _I, _I, _I, _I,  # mask, N, H, W, C
         _P, _P, _P, _P, _P,  # parent, bits, table, count, sums

@@ -10,33 +10,51 @@
 //   -> |F - B| > thr
 //   -> open (erode, dilate) -> close (dilate, erode), cv2 constant borders:
 //      erode reads outside pixels as foreground, dilate as background.
-//   emit="diff" (the staged Otsu route's front end; the threshold is a
-//   per-frame statistic no tile can see):
+//   emit="diff" (the Otsu routes' front end; the threshold is a per-frame
+//   statistic no tile can see):
 //   -> min(rint(|F - B|), 255) as uint8, rint half to even (rintf, never
 //      roundf); no threshold, no morphology (the caller has none: Rm = 0).
 // The plain PyTorch version is tpuva_torch/ops/fused_segment.py::
 // fused_segment_plain; the two are bit-equal.
 //
-// Design. The TPU kernel relies on a grid that runs in order on one core;
+// Order. The TPU kernel relies on a grid that runs in order on one core;
 // here one CTA owns a TH x TW tile and walks the N frames in order itself
 // (the background recurrence is the only sequential dependency), keeping
 // the background of its owned region plus the morphology reach Rm in
 // shared memory for the whole batch. Each frame it loads the u8 window
 // (owned + P on each side, P = blur_r + median_r + Rm) and runs every stage
-// in shared memory on a region that shrinks by that stage's reach, so the
-// owned pixels come out exact. Background halo pixels are updated
-// redundantly by neighbouring CTAs with identical arithmetic; only owned
-// pixels are written. Tiles with no foreground skip morphology: open and
-// close of an all-zero tile are zero under cv2's borders.
+// on a region that shrinks by that stage's reach, so the owned pixels come
+// out exact. Background halo pixels are updated redundantly by
+// neighbouring CTAs with identical arithmetic; only owned pixels are
+// written. Tiles with no foreground skip morphology: open and close of an
+// all-zero tile are zero under cv2's borders.
 //
 // What bounds it on an H100: the data moved is 1 B read + 1 B written per
 // pixel per frame (1.06 GB per 256-frame 1080p batch, 0.32 ms at
-// 3.35 TB/s), so its speed of light is memory. This first version loads
-// each window halo again per frame, runs every stage through shared memory
-// with one thread per element and an integer division per index, so it is
-// bound by instruction issue and shared-memory traffic well above that
-// line. Registers for the per-thread rows and cp.async/TMA double buffering
-// of the next frame are the later work.
+// 3.35 TB/s); the bench config's ~42 scalar operations a pixel take about
+// as long at 67 T/s. So issue slots are the budget, and the design spends
+// few of them outside the blur and the update:
+// - 32 x 8 threads; every index inside the frame loop comes from
+//   threadIdx and loop counters (no division or modulo by a runtime value
+//   there). The REFLECT_101 row offsets and column indices of the window,
+//   with as many reflections as the reach needs, are built once per CTA
+//   into shared-memory tables; interior tiles take a CTA-uniform straight
+//   path without them.
+// - The tap count is a template parameter (1, 3, 5, 7, and a generic
+//   instantiation for 9..63): the tap loops unroll and read the taps as
+//   constant-bank operands. The row pass writes uint16 sums (at most 255 * 256); the
+//   column pass slides down a column segment per thread with a ring of
+//   ntaps row sums in registers, and without a median it updates the
+//   background and thresholds the pixel in the same pass.
+// - Owned pixels leave 16 (or 4) bytes a store when the image rows are
+//   16- (or 4-) byte aligned, a byte at a time otherwise: the mask buffer
+//   is laid out so that the owned region starts 16-byte aligned.
+// - The tile is chosen on the host (ops/fused_segment.py::launch_plan) from
+//   cudaOccupancyMaxActiveBlocksPerMultiprocessor for the instantiation,
+//   so that the grid fits in as few waves of the 132 SMs as it can
+//   (PERF.md gives the choice at 1080p with ptxas's registers).
+// Morphology keeps its algorithm: erode and dilate in shared memory over
+// the M region, one thread per element, only in tiles with foreground.
 //
 // Exactness: built with --fmad=false and never with fast math; the
 // background update uses __fmul_rn/__fadd_rn; the blur is integer code (a
@@ -50,7 +68,9 @@ namespace {
 
 constexpr int kMaxTaps = 63;
 constexpr int kMaxSE = 31;
-constexpr int kThreads = 256;
+constexpr int kTX = 32;  // threads along a row
+constexpr int kTY = 8;   // rows of threads
+constexpr int kThreads = kTX * kTY;
 constexpr int kMaxSmem = 227 * 1024;
 
 struct SegParams {
@@ -65,13 +85,16 @@ struct SegParams {
   int P, Rm, TH, TW;
   int seed_bg;
   int emit_diff;                  // 1: write rint(|F - B|), not the mask
+  int vec;                        // bytes per output store: 16, 4 or 1
 };
 
-// Shared-memory layout, shared by host (size) and device (carving).
+__host__ __device__ constexpr size_t up16(size_t v) { return (v + 15) & ~size_t(15); }
+
+// Shared-memory layout, shared by host (size) and device (carving). Mirrored
+// by ops/fused_segment.py::smem_bytes; keep the two in step.
 struct Layout {
-  int WH, WW, BH, BW, MH, MW;
-  size_t raw, hs, blur, filt, bg, m0, m1, total;
-  __host__ __device__ static size_t up16(size_t v) { return (v + 15) & ~size_t(15); }
+  int WH, WW, BH, BW, MH, MW, MP, ox;
+  size_t raw, hs, blur, bg, m0, m1, rowoff, colidx, total;
   __host__ __device__ Layout(int TH, int TW, int P, int Rm, int rm) {
     WH = TH + 2 * P;          // raw window
     WW = TW + 2 * P;
@@ -79,28 +102,29 @@ struct Layout {
     BW = TW + 2 * (Rm + rm);
     MH = TH + 2 * Rm;         // background / mask region
     MW = TW + 2 * Rm;
+    ox = (16 - Rm % 16) % 16;  // mask column x sits at ox + x: owned x = Rm aligned
+    MP = static_cast<int>(up16(size_t(ox) + MW));
     size_t off = 0;
-    raw = off;  off += up16(size_t(WH) * WW);
-    hs = off;   off += up16(size_t(WH) * BW * 4);
-    blur = off; off += up16(size_t(BH) * BW);
-    filt = off; off += rm ? up16(size_t(MH) * MW) : 0;
-    bg = off;   off += up16(size_t(MH) * MW * 4);
-    m0 = off;   off += up16(size_t(MH) * MW);
-    m1 = off;   off += up16(size_t(MH) * MW);
+    raw = off;    off += up16(size_t(WH) * WW);
+    hs = off;     off += up16(size_t(WH) * BW * 2);
+    blur = off;   off += rm ? up16(size_t(BH) * BW) : 0;
+    bg = off;     off += up16(size_t(MH) * MW * 4);
+    m0 = off;     off += up16(size_t(MH) * MP);
+    m1 = off;     off += up16(size_t(MH) * MP);
+    rowoff = off; off += up16(size_t(WH) * 4);
+    colidx = off; off += up16(size_t(WW) * 4);
     total = off;
   }
 };
 
-__device__ __forceinline__ int reflect101(int i, int n) {
+// Source index of position i on an axis of length n under REFLECT_101,
+// repeated for reaches wider than the axis. Called before the frame loop.
+__device__ int reflect101(int i, int n) {
   if (n == 1) return 0;
   const int period = 2 * (n - 1);
   i %= period;
   if (i < 0) i += period;
   return i >= n ? period - i : i;
-}
-
-__device__ __forceinline__ bool in_image(int gy, int gx, int H, int W) {
-  return gy >= 0 && gy < H && gx >= 0 && gx < W;
 }
 
 __device__ __forceinline__ void sort2(int* p, int i, int j) {
@@ -119,34 +143,78 @@ __device__ __forceinline__ int median9(int* p) {
   return p[4];
 }
 
-// One erode or dilate over the M region. Reads outside the image see the
-// op's identity (cv2's constant border); reads outside the M region see it
-// too, which only disturbs the band that the reach bookkeeping discards.
-__device__ void morph_step(const uint8_t* in, uint8_t* out, int MH, int MW,
+// One row of the row pass: out[c] = sum_k taps[k] * in[c + k].
+template <int NT>
+__device__ __forceinline__ int row_sum(const uint8_t* in, const SegParams& p) {
+  int acc = 0;
+  if constexpr (NT > 0) {
+#pragma unroll
+    for (int k = 0; k < NT; ++k) acc += p.taps[k] * int(in[k]);
+  } else {
+    for (int k = 0; k < p.ntaps; ++k) acc += p.taps[k] * int(in[k]);
+  }
+  return acc;
+}
+
+__device__ __forceinline__ int round_shift(int acc, int shift) {
+  return shift ? (acc + (1 << (shift - 1))) >> shift : acc;
+}
+
+// One erode or dilate over the M region (pitch MP, column origin ox).
+// Reads outside the image see the op's identity (cv2's constant border);
+// reads outside the M region see it too, which only disturbs the band that
+// the reach bookkeeping discards.
+__device__ void morph_step(const uint8_t* in, uint8_t* out, const Layout& L,
                            int oy, int ox, int H, int W, int k,
                            const unsigned* se, bool erode) {
-  const int r = k / 2;
+  const int r = k >> 1;
   const int fill = erode ? 1 : 0;
-  for (int i = threadIdx.x; i < MH * MW; i += blockDim.x) {
-    const int y = i / MW, x = i % MW;
-    int acc = fill;
-    for (int dy = -r; dy <= r; ++dy) {
-      const unsigned row = se[dy + r];
-      const int yy = y + dy;
-      for (int dx = -r; dx <= r; ++dx) {
-        if (!((row >> (dx + r)) & 1u)) continue;
-        const int xx = x + dx;
-        int v = fill;
-        if (yy >= 0 && yy < MH && xx >= 0 && xx < MW &&
-            in_image(oy + yy, ox + xx, H, W))
-          v = in[yy * MW + xx];
-        acc = erode ? min(acc, v) : max(acc, v);
+  for (int y = threadIdx.y; y < L.MH; y += kTY) {
+    for (int x = threadIdx.x; x < L.MW; x += kTX) {
+      int acc = fill;
+      for (int dy = -r; dy <= r; ++dy) {
+        const unsigned row = se[dy + r];
+        const int yy = y + dy;
+        const bool yin = yy >= 0 && yy < L.MH && oy + yy >= 0 && oy + yy < H;
+        for (int dx = -r; dx <= r; ++dx) {
+          if (!((row >> (dx + r)) & 1u)) continue;
+          const int xx = x + dx;
+          int v = fill;
+          if (yin && xx >= 0 && xx < L.MW && ox + xx >= 0 && ox + xx < W)
+            v = in[yy * L.MP + L.ox + xx];
+          acc = erode ? min(acc, v) : max(acc, v);
+        }
       }
+      out[y * L.MP + L.ox + x] = (uint8_t)acc;
     }
-    out[i] = (uint8_t)acc;
   }
 }
 
+// Owned pixels out, V bytes a store. The caller's thread split (orow,
+// ostep, ocol) covers a TH x TW tile with TW / V stores a row.
+template <int V>
+__device__ __forceinline__ void write_owned(uint8_t* out, const uint8_t* mo, int MP,
+                                            int y0, int x0, int TH, int H, int W,
+                                            int orow, int ostep, int ocol, bool scale) {
+  const int gx = x0 + ocol * V;
+  if (gx >= W) return;
+  for (int r = orow; r < TH && y0 + r < H; r += ostep) {
+    const uint8_t* s = mo + r * MP + ocol * V;
+    uint8_t* d = out + size_t(y0 + r) * W + gx;
+    if (V == 16) {
+      uint4 w = *reinterpret_cast<const uint4*>(s);
+      if (scale) { w.x *= 255u; w.y *= 255u; w.z *= 255u; w.w *= 255u; }  // bytes 0/1
+      *reinterpret_cast<uint4*>(d) = w;
+    } else if (V == 4) {
+      uint32_t w = *reinterpret_cast<const uint32_t*>(s);
+      *reinterpret_cast<uint32_t*>(d) = scale ? w * 255u : w;
+    } else {
+      *d = scale ? uint8_t(*s * 255) : *s;
+    }
+  }
+}
+
+template <int NT>
 __global__ void __launch_bounds__(kThreads)
 fused_segment_kernel(const uint8_t* __restrict__ frames,
                      const float* __restrict__ bg0,
@@ -157,123 +225,188 @@ fused_segment_kernel(const uint8_t* __restrict__ frames,
   const int TH = p.TH, TW = p.TW;
   const Layout L(TH, TW, P, Rm, rm);
   uint8_t* raw = smem + L.raw;
-  int* hs = reinterpret_cast<int*>(smem + L.hs);
+  uint16_t* hs = reinterpret_cast<uint16_t*>(smem + L.hs);
   uint8_t* blur = smem + L.blur;
-  uint8_t* filt = rm ? smem + L.filt : blur;  // without median B == M
   float* bg = reinterpret_cast<float*>(smem + L.bg);
   uint8_t* mbuf[2] = {smem + L.m0, smem + L.m1};
+  int* rowoff = reinterpret_cast<int*>(smem + L.rowoff);
+  int* colidx = reinterpret_cast<int*>(smem + L.colidx);
 
+  const int tx = threadIdx.x, ty = threadIdx.y, tid = ty * kTX + tx;
   const int y0 = blockIdx.y * TH, x0 = blockIdx.x * TW;
+  const int wy0 = y0 - P, wx0 = x0 - P;           // window origin
   const int my0 = y0 - Rm, mx0 = x0 - Rm;         // M region origin
   const int by0 = my0 - rm, bx0 = mx0 - rm;       // B region origin
-  const int MN = L.MH * L.MW;
   const size_t HW = size_t(H) * W;
+  const int nt = NT ? NT : p.ntaps;
+  const int shift = p.shift;
+  const float c1 = p.c1, a = p.a, thr = p.thr;
+  const bool diff = p.emit_diff;
 
+  // once per CTA: the window's reflected rows and columns, the column
+  // segment of the column pass, the output thread split, the background
+  for (int i = tid; i < L.WH; i += kThreads) rowoff[i] = reflect101(wy0 + i, H) * W;
+  for (int i = tid; i < L.WW; i += kThreads) colidx[i] = reflect101(wx0 + i, W);
+  const bool interior = wy0 >= 0 && wx0 >= 0 && wy0 + L.WH <= H && wx0 + L.WW <= W;
+  const int seg = (L.BH + kTY - 1) / kTY;
+  const int vr0 = min(ty * seg, L.BH), vr1 = min(vr0 + seg, L.BH);
+  const int ocols = TW / p.vec;  // stores per owned row; divides kThreads
+  const int ocol = tid % ocols, orow = tid / ocols, ostep = kThreads / ocols;
   if (!p.seed_bg) {
-    for (int i = threadIdx.x; i < MN; i += blockDim.x) {
-      const int gy = my0 + i / L.MW, gx = mx0 + i % L.MW;
-      bg[i] = in_image(gy, gx, H, W) ? bg0[size_t(gy) * W + gx] : 0.f;
-    }
+    for (int y = ty; y < L.MH; y += kTY)
+      for (int x = tx; x < L.MW; x += kTX) {
+        const int gy = my0 + y, gx = mx0 + x;
+        const bool in = gy >= 0 && gy < H && gx >= 0 && gx < W;
+        bg[y * L.MW + x] = in ? bg0[size_t(gy) * W + gx] : 0.f;
+      }
   }
+  __syncthreads();
 
   for (int t = 0; t < p.N; ++t) {
     const uint8_t* fr = frames + size_t(t) * HW;
-    // 1. u8 window with REFLECT_101 coordinates
-    for (int i = threadIdx.x; i < L.WH * L.WW; i += blockDim.x) {
-      const int gy = reflect101(y0 - P + i / L.WW, H);
-      const int gx = reflect101(x0 - P + i % L.WW, W);
-      raw[i] = fr[size_t(gy) * W + gx];
-    }
-    __syncthreads();
-    // 2. row pass: window rows, B columns (B col c is window col c + ntaps/2)
-    for (int i = threadIdx.x; i < L.WH * L.BW; i += blockDim.x) {
-      const int r = i / L.BW, c = i % L.BW;
-      const uint8_t* src = raw + r * L.WW + c;
-      int acc = 0;
-      for (int k = 0; k < p.ntaps; ++k) acc += p.taps[k] * int(src[k]);
-      hs[i] = acc;
-    }
-    __syncthreads();
-    // 3. column pass + cv2's single rounding
-    for (int i = threadIdx.x; i < L.BH * L.BW; i += blockDim.x) {
-      const int r = i / L.BW, c = i % L.BW;
-      int acc = 0;
-      for (int k = 0; k < p.ntaps; ++k) acc += p.taps[k] * hs[(r + k) * L.BW + c];
-      blur[i] = (uint8_t)(p.shift ? (acc + (1 << (p.shift - 1))) >> p.shift : acc);
-    }
-    __syncthreads();
-    // 4. median 3x3 at clamped (replicated) coordinates
-    if (rm) {
-      for (int i = threadIdx.x; i < MN; i += blockDim.x) {
-        const int gy = my0 + i / L.MW, gx = mx0 + i % L.MW;
-        int v = 0;
-        if (in_image(gy, gx, H, W)) {
-          int win[9];
-          int k = 0;
-          for (int dy = -1; dy <= 1; ++dy)
-            for (int dx = -1; dx <= 1; ++dx) {
-              const int yy = min(max(gy + dy, 0), H - 1) - by0;
-              const int xx = min(max(gx + dx, 0), W - 1) - bx0;
-              win[k++] = blur[yy * L.BW + xx];
-            }
-          v = median9(win);
-        }
-        filt[i] = (uint8_t)v;
+    const bool first = p.seed_bg && t == 0;
+    // 1. u8 window
+    if (interior) {
+      const uint8_t* src = fr + size_t(wy0) * W + wx0;
+      for (int r = ty; r < L.WH; r += kTY)
+        for (int c = tx; c < L.WW; c += kTX) raw[r * L.WW + c] = src[size_t(r) * W + c];
+    } else {
+      for (int r = ty; r < L.WH; r += kTY) {
+        const uint8_t* src = fr + rowoff[r];
+        for (int c = tx; c < L.WW; c += kTX) raw[r * L.WW + c] = src[colidx[c]];
       }
-      __syncthreads();
     }
-    // 5. background update and strict threshold (or the rounded magnitude)
-    int any = 0;
-    for (int i = threadIdx.x; i < MN; i += blockDim.x) {
-      const int gy = my0 + i / L.MW, gx = mx0 + i % L.MW;
-      uint8_t m = 0;
-      if (in_image(gy, gx, H, W)) {
-        const float f = float(filt[i]);
-        float b = (p.seed_bg && t == 0) ? f : bg[i];
-        b = __fadd_rn(__fmul_rn(p.c1, b), __fmul_rn(p.a, f));
-        bg[i] = b;
+    __syncthreads();
+    // 2. row pass: window rows, B columns (B col c is window col c + nt/2)
+    for (int r = ty; r < L.WH; r += kTY)
+      for (int c = tx; c < L.BW; c += kTX)
+        hs[r * L.BW + c] = (uint16_t)row_sum<NT>(raw + r * L.WW + c, p);
+    __syncthreads();
+
+    // background update and threshold (or the rounded magnitude) of M
+    // pixel (y, x) with filtered value f; returns the mask byte
+    auto update = [&](int y, int x, int f_int) -> int {
+      const int gy = my0 + y, gx = mx0 + x;
+      int m = 0;
+      if (gy >= 0 && gy < H && gx >= 0 && gx < W) {
+        const float f = float(f_int);
+        float* bp = bg + y * L.MW + x;
+        float b = first ? f : *bp;
+        b = __fadd_rn(__fmul_rn(c1, b), __fmul_rn(a, f));
+        *bp = b;
         const float d = fabsf(__fsub_rn(f, b));
-        if (p.emit_diff)
-          m = (uint8_t)fminf(rintf(d), 255.f);
-        else
-          m = d > p.thr ? 1 : 0;
+        m = diff ? int(fminf(rintf(d), 255.f)) : (d > thr ? 1 : 0);
       }
-      mbuf[0][i] = m;
-      any |= m;
+      mbuf[0][y * L.MP + L.ox + x] = (uint8_t)m;
+      return m;
+    };
+
+    // 3. column pass + cv2's single rounding: each thread slides down rows
+    // [vr0, vr1) of its columns; without a median B == M and the pixel is
+    // updated here
+    int any = 0;
+    for (int c = tx; c < L.BW; c += kTX) {
+      if (vr0 >= vr1) break;
+      const uint16_t* col = hs + c;
+      if constexpr (NT > 0) {
+        int ring[NT];
+#pragma unroll
+        for (int k = 1; k < NT; ++k) ring[k] = col[(vr0 + k - 1) * L.BW];
+        for (int r = vr0; r < vr1; ++r) {
+#pragma unroll
+          for (int k = 0; k + 1 < NT; ++k) ring[k] = ring[k + 1];
+          ring[NT - 1] = col[(r + NT - 1) * L.BW];
+          int acc = 0;
+#pragma unroll
+          for (int k = 0; k < NT; ++k) acc += p.taps[k] * ring[k];
+          const int v = round_shift(acc, shift);
+          if (rm) blur[r * L.BW + c] = (uint8_t)v;
+          else any |= update(r, c, v);
+        }
+      } else {
+        for (int r = vr0; r < vr1; ++r) {
+          int acc = 0;
+          for (int k = 0; k < nt; ++k) acc += p.taps[k] * col[(r + k) * L.BW];
+          const int v = round_shift(acc, shift);
+          if (rm) blur[r * L.BW + c] = (uint8_t)v;
+          else any |= update(r, c, v);
+        }
+      }
     }
-    any = __syncthreads_or(any) && !p.emit_diff;
-    // 6. morphology, ping-pong over the M region
+    // 4. median 3x3 at clamped (replicated) coordinates, then the update
+    if (rm) {
+      __syncthreads();
+      for (int y = ty; y < L.MH; y += kTY)
+        for (int x = tx; x < L.MW; x += kTX) {
+          const int gy = my0 + y, gx = mx0 + x;
+          int v = 0;
+          if (gy >= 0 && gy < H && gx >= 0 && gx < W) {
+            int win[9];
+            int k = 0;
+#pragma unroll
+            for (int dy = -1; dy <= 1; ++dy)
+#pragma unroll
+              for (int dx = -1; dx <= 1; ++dx) {
+                const int yy = min(max(gy + dy, 0), H - 1) - by0;
+                const int xx = min(max(gx + dx, 0), W - 1) - bx0;
+                win[k++] = blur[yy * L.BW + xx];
+              }
+            v = median9(win);
+          }
+          any |= update(y, x, v);
+        }
+    }
+    any = __syncthreads_or(any) && !diff;
+    // 5. morphology, ping-pong over the M region
     int cur = 0;
     if (any) {
       for (int s = 0; s < 4; ++s) {
         if (!p.stage_k[s]) continue;
         const bool erode = (s == 0 || s == 3);
         for (int it = 0; it < p.stage_iters[s]; ++it) {
-          morph_step(mbuf[cur], mbuf[cur ^ 1], L.MH, L.MW, my0, mx0, H, W,
+          morph_step(mbuf[cur], mbuf[cur ^ 1], L, my0, mx0, H, W,
                      p.stage_k[s], p.stage_se[s], erode);
           __syncthreads();
           cur ^= 1;
         }
       }
     }
-    // 7. owned pixels out: 0/255, or the magnitudes (cur == 0, Rm == 0)
+    // 6. owned pixels out: 0/255 from the 0/1 mask, or the magnitudes. The
+    // next frame writes no buffer these reads use before its first barrier.
     uint8_t* out = masks + size_t(t) * HW;
-    for (int i = threadIdx.x; i < TH * TW; i += blockDim.x) {
-      const int r = i / TW, c = i % TW;
-      const int gy = y0 + r, gx = x0 + c;
-      if (gy < H && gx < W) {
-        const uint8_t m = mbuf[cur][(r + Rm) * L.MW + c + Rm];
-        out[size_t(gy) * W + gx] = p.emit_diff ? m : ((any && m) ? 255 : 0);
-      }
-    }
-    __syncthreads();
+    const uint8_t* mo = mbuf[cur] + Rm * L.MP + L.ox + Rm;
+    if (p.vec == 16)
+      write_owned<16>(out, mo, L.MP, y0, x0, TH, H, W, orow, ostep, ocol, !diff);
+    else if (p.vec == 4)
+      write_owned<4>(out, mo, L.MP, y0, x0, TH, H, W, orow, ostep, ocol, !diff);
+    else
+      write_owned<1>(out, mo, L.MP, y0, x0, TH, H, W, orow, ostep, ocol, !diff);
   }
+  __syncthreads();  // the last frame's background, written by its updaters
 
-  for (int i = threadIdx.x; i < TH * TW; i += blockDim.x) {
-    const int r = i / TW, c = i % TW;
-    const int gy = y0 + r, gx = x0 + c;
-    if (gy < H && gx < W) bg_out[size_t(gy) * W + gx] = bg[(r + Rm) * L.MW + c + Rm];
+  for (int r = ty; r < TH; r += kTY)
+    for (int c = tx; c < TW; c += kTX) {
+      const int gy = y0 + r, gx = x0 + c;
+      if (gy < H && gx < W) bg_out[size_t(gy) * W + gx] = bg[(r + Rm) * L.MW + c + Rm];
+    }
+}
+
+using KernelFn = void (*)(const uint8_t*, const float*, uint8_t*, float*, const SegParams);
+
+// The instantiation for a tap count: unrolled for 1, 3, 5 and 7, generic
+// (runtime loops) for 9..63.
+KernelFn kernel_for(int ntaps) {
+  switch (ntaps) {
+    case 1: return fused_segment_kernel<1>;
+    case 3: return fused_segment_kernel<3>;
+    case 5: return fused_segment_kernel<5>;
+    case 7: return fused_segment_kernel<7>;
+    default: return fused_segment_kernel<0>;
   }
+}
+
+bool tile_ok(int tile_h, int tile_w) {
+  return tile_h > 0 && (tile_w == 32 || tile_w == 64 || tile_w == 128);
 }
 
 }  // namespace
@@ -282,10 +415,31 @@ extern "C" const char* tpuva_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }
 
+// Shared memory of one CTA and CTAs resident per SM for the instantiation
+// of ntaps at a tile, from cudaOccupancyMaxActiveBlocksPerMultiprocessor.
+extern "C" int tpuva_fused_segment_occupancy(int ntaps, int median, int Rm,
+                                             int tile_h, int tile_w,
+                                             int* smem_bytes, int* blocks_per_sm) {
+  if (ntaps < 1 || ntaps > kMaxTaps || ntaps % 2 == 0 || Rm < 0 || !tile_ok(tile_h, tile_w))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int rm = median ? 1 : 0;
+  const Layout L(tile_h, tile_w, ntaps / 2 + rm + Rm, Rm, rm);
+  *smem_bytes = static_cast<int>(L.total);
+  *blocks_per_sm = 0;
+  if (L.total > size_t(kMaxSmem)) return 0;
+  const KernelFn k = kernel_for(ntaps);
+  cudaError_t err = cudaFuncSetAttribute(k, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         static_cast<int>(L.total));
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks_per_sm, k, kThreads, L.total);
+  return static_cast<int>(err);
+}
+
 // frames (N,H,W) u8, bg0 (H,W) f32 -> masks (N,H,W) u8 0/255 (emit_diff:
 // the rounded magnitudes), bg_out (H,W).
 // Host arrays: taps[ntaps]; stage_k[4], stage_iters[4], stage_se[4][31].
-// Returns cudaGetLastError() after the launch (0 = launched).
+// tile_w is 32, 64 or 128. Returns cudaGetLastError() after the launch
+// (0 = launched).
 extern "C" int tpuva_fused_segment(
     const uint8_t* frames, const float* bg0, uint8_t* masks, float* bg_out,
     int N, int H, int W, float c1, float a, float thr,
@@ -293,13 +447,19 @@ extern "C" int tpuva_fused_segment(
     const int* stage_k, const int* stage_iters, const unsigned* stage_se,
     int seed_bg, int emit_diff, int tile_h, int tile_w, void* stream) {
   if (N <= 0 || H <= 0 || W <= 0 || ntaps < 1 || ntaps > kMaxTaps ||
-      ntaps % 2 == 0 || tile_h <= 0 || tile_w <= 0)
+      ntaps % 2 == 0 || !tile_ok(tile_h, tile_w))
     return static_cast<int>(cudaErrorInvalidValue);
   SegParams p{};
   p.N = N; p.H = H; p.W = W;
   p.c1 = c1; p.a = a; p.thr = thr;
   p.ntaps = ntaps; p.shift = shift;
-  for (int k = 0; k < ntaps; ++k) p.taps[k] = taps[k];
+  int tap_sum = 0;
+  for (int k = 0; k < ntaps; ++k) {
+    if (taps[k] < 0) return static_cast<int>(cudaErrorInvalidValue);
+    p.taps[k] = taps[k];
+    tap_sum += taps[k];
+  }
+  if (tap_sum * 255 > 0xffff) return static_cast<int>(cudaErrorInvalidValue);  // uint16 row sums
   p.rm = median ? 1 : 0;
   p.Rm = 0;
   for (int s = 0; s < 4; ++s) {
@@ -315,15 +475,16 @@ extern "C" int tpuva_fused_segment(
   p.TH = tile_h; p.TW = tile_w;
   p.seed_bg = seed_bg;
   p.emit_diff = emit_diff ? 1 : 0;
+  const bool out16 = reinterpret_cast<uintptr_t>(masks) % 16 == 0;
+  p.vec = (out16 && W % 16 == 0) ? 16 : (out16 && W % 4 == 0) ? 4 : 1;
   const Layout L(tile_h, tile_w, p.P, p.Rm, p.rm);
   if (L.total > size_t(kMaxSmem)) return static_cast<int>(cudaErrorInvalidConfiguration);
-  cudaError_t err = cudaFuncSetAttribute(
-      fused_segment_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(L.total));
+  const KernelFn k = kernel_for(ntaps);
+  cudaError_t err = cudaFuncSetAttribute(k, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         static_cast<int>(L.total));
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid((W + tile_w - 1) / tile_w, (H + tile_h - 1) / tile_h);
-  fused_segment_kernel<<<grid, kThreads, L.total,
-                         static_cast<cudaStream_t>(stream)>>>(
+  k<<<grid, dim3(kTX, kTY), L.total, static_cast<cudaStream_t>(stream)>>>(
       frames, bg0, masks, bg_out, p);
   return static_cast<int>(cudaGetLastError());
 }

@@ -4,11 +4,11 @@
 Two routes over an (N, H, W) uint8 batch on the carry's device, under the
 JAX package's names:
 
-- ``process_batch`` — the default, one-dispatch route: the front end as
-  torch ops (``torch_front_end``: blur, median, background, |F - B| >
-  threshold, open, close — K1's plain version for the sequential
-  background, ``background_trajectory``'s scan for ``parallel_bg``), or
-  kernel K1 (``fused_segment``) with ``use_pallas``; then
+- ``process_batch`` — the default, one-dispatch route: the front end
+  (``torch_front_end``: blur, median, background, |F - B| > threshold,
+  open, close — kernel K1, ``fused_segment``, for the sequential
+  background, ``background_trajectory``'s scan as torch ops for
+  ``parallel_bg``); then
   ``connected_components_with_stats`` (kernel K3 + integer stats), or
   kernel K2 with ``ccl_single_pass``; then ``_finish_batch``.
 - ``process_batch_staged`` — kernel K1, then kernel K2 (``label_stats``:
@@ -16,8 +16,9 @@ JAX package's names:
 
 Otsu thresholding (``SegmentConfig(threshold="otsu")``) takes every route:
 the front end emits the rounded magnitudes ``clip(rint(|F - B|), 0, 255)``
-(K1 with ``emit="diff"`` on the staged route, ``_otsu_mask_stage``; its
-plain version or the scanned background in ``torch_front_end``), each
+(K1 with ``emit="diff"``: ``_otsu_mask_stage`` on the staged route, the
+sequential background of ``torch_front_end``; the scanned background as
+torch ops), each
 frame's threshold comes from its 256-bin histogram (kernel K4 in
 ``ops.filters.histogram_u8``), then the strict integer compare and the
 torch open and close.
@@ -66,7 +67,7 @@ from tpuva_torch.ops.filters import (
     structuring_element,
     threshold,
 )
-from tpuva_torch.ops.fused_segment import fused_segment, fused_segment_plain
+from tpuva_torch.ops.fused_segment import fused_segment
 from tpuva_torch.ops.label import (
     connected_components_with_stats,
     extract_detections,
@@ -269,22 +270,23 @@ def _otsu_mask_stage(cfg, carry: PipelineCarry, frames: torch.Tensor):
 
 def torch_front_end(cfg, carry: PipelineCarry, frames: torch.Tensor,
                     parallel_bg: bool = False):
-    """process_batch's front end as torch ops: filter_batch ->
-    background_trajectory -> |F - B| -> threshold (fixed, or each frame's
-    Otsu threshold of the rounded magnitudes) -> open -> close.
+    """process_batch's front end: filter_batch -> background_trajectory ->
+    |F - B| -> threshold (fixed, or each frame's Otsu threshold of the
+    rounded magnitudes) -> open -> close.
     Returns (mask (N, H, W) uint8, post-batch background (H, W) float32).
 
-    The sequential background is K1's plain version, which walks the
-    frames without keeping the (N, H, W) trajectory; only the scanned
-    background (parallel_bg) needs the trajectory and is built here."""
+    The sequential background is kernel K1 (fused_segment; its plain
+    version on CPU tensors): the mask emit for a fixed threshold, the diff
+    emit then _otsu_mask for Otsu. Only the scanned background
+    (parallel_bg) is torch code here: tpuva's associative scan takes
+    another float32 order, which no kernel carries."""
     seed_bg = not bool(carry.bg_valid)
     otsu = cfg.segment.threshold == "otsu"
     if not parallel_bg:
         if otsu:
-            du8, bg_last = fused_segment_plain(frames, carry.bg, seed_bg=seed_bg,
-                                               **_diff_kwargs(cfg))
+            du8, bg_last = fused_segment(frames, carry.bg, seed_bg=seed_bg, **_diff_kwargs(cfg))
             return _otsu_mask(cfg, du8), bg_last
-        return fused_segment_plain(frames, carry.bg, seed_bg=seed_bg, **_front_end_kwargs(cfg))
+        return fused_segment(frames, carry.bg, seed_bg=seed_bg, **_front_end_kwargs(cfg))
     f = filter_batch(cfg, frames.to(torch.float32))
     bgs = background_trajectory(f[0] if seed_bg else carry.bg, f, cfg.background.alpha,
                                 parallel=True)
@@ -303,9 +305,11 @@ def process_batch(cfg, carry: PipelineCarry, frames: torch.Tensor,
     """One N-frame batch through the one-dispatch route. frames: (N, H, W)
     uint8 on the carry's device.
 
-    use_pallas (and a config K1 covers) runs the front end as kernel K1;
-    otherwise it is torch ops, with the background as a sequential or
-    (parallel_bg) scanned trajectory. The CCL is
+    The front end is torch_front_end: kernel K1 for the sequential
+    background (the mask emit, or for Otsu the diff emit), torch ops for
+    the scanned one (parallel_bg). use_pallas changes only the CCL here:
+    with it, and a config K1 covers, the front end is K1 whatever
+    parallel_bg says, as tpuva's fused stage. The CCL is
     connected_components_with_stats, whose root-key labels come from
     kernel K3 on the card; with ccl_single_pass it is K2 (label_stats), as
     tpuva's single-pass tail, with the same rows.

@@ -12,7 +12,9 @@ fused_segment`` (without ``padded_occ``). Per frame: u8 Gaussian blur
 
 - CUDA tensors launch ``csrc/fused_segment.cu``: one CTA per spatial tile
   walks the N frames in order with the tile's background in shared
-  memory (see the source for the design and what bounds it).
+  memory (see the source for the design and what bounds it). The tile and
+  the kernel's instantiation come from ``launch_plan``, a pure function of
+  the shapes and options, fed the card's occupancy for each candidate.
 - CPU tensors take the plain version, ``fused_segment_plain``: the op
   chain of tpuva's ``process_batch`` jnp branch (graph/pipeline.py).
 
@@ -22,6 +24,10 @@ background plate — so seeding runs through the kernel too.
 """
 
 from __future__ import annotations
+
+import ctypes
+import functools
+from typing import Callable, NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -41,7 +47,113 @@ from tpuva_torch.ops.filters import (
 # limits of csrc/fused_segment.cu's parameter block
 MAX_TAPS = 63
 MAX_SE = 31
-TILE = (32, 64)  # owned (rows, cols) per CTA
+# the kernel's instantiations: tap counts with unrolled loops; 0 is the
+# generic one (9..63 taps)
+UNROLLED_TAPS = (1, 3, 5, 7)
+# owned (rows, cols) per CTA that launch_plan weighs; the kernel takes
+# widths 32, 64 and 128 (its output stores split a row over the threads)
+TILES = ((64, 64), (32, 128), (32, 64), (64, 128), (16, 128), (16, 64),
+         (16, 32), (8, 32), (4, 32), (2, 32), (1, 32))
+SMEM_LIMIT = 232_448  # dynamic shared memory a CTA may use on an H100
+SMS = 132  # streaming multiprocessors of an H100 SXM
+THREADS = 256  # threads per CTA
+# CTAs resident per SM below which a plan counts as thin on warps: each
+# CTA waits on its own frame loads, and only other CTAs hide that
+MIN_BLOCKS = 4
+
+
+def _up16(v: int) -> int:
+    return (v + 15) & ~15
+
+
+def smem_bytes(tile_h: int, tile_w: int, ntaps: int, median: bool, rm_reach: int) -> int:
+    """Dynamic shared memory of one CTA: csrc/fused_segment.cu's Layout
+    (raw window, uint16 row sums, blurred region with a median, float32
+    background, two mask buffers, the reflect tables)."""
+    rm = 1 if median else 0
+    P = ntaps // 2 + rm + rm_reach
+    WH, WW = tile_h + 2 * P, tile_w + 2 * P
+    BH, BW = tile_h + 2 * (rm_reach + rm), tile_w + 2 * (rm_reach + rm)
+    MH, MW = tile_h + 2 * rm_reach, tile_w + 2 * rm_reach
+    MP = _up16((16 - rm_reach % 16) % 16 + MW)
+    return (_up16(WH * WW) + _up16(WH * BW * 2) + (_up16(BH * BW) if rm else 0)
+            + _up16(MH * MW * 4) + 2 * _up16(MH * MP) + _up16(WH * 4) + _up16(WW * 4))
+
+
+def variant(ntaps: int) -> int:
+    """The kernel instantiation for a tap count (0: the generic one)."""
+    return ntaps if ntaps in UNROLLED_TAPS else 0
+
+
+def modelled_blocks_per_sm(ntaps: int, median: bool, rm_reach: int, tile_h: int,
+                           tile_w: int, smem: int) -> int:
+    """CTAs per SM from shared memory and threads alone (228 KB an SM, 1 KB
+    of it reserved per CTA; 2048 threads): the occupancy the plan assumes
+    where it cannot ask a card."""
+    return min(2048 // THREADS, (228 * 1024) // (smem + 1024))
+
+
+class Plan(NamedTuple):
+    variant: int  # tap count of the instantiation, 0 = generic
+    tile: tuple  # owned (rows, cols) per CTA
+    grid: tuple  # CTAs (along x, along y)
+    smem: int  # dynamic shared memory per CTA, bytes
+    blocks_per_sm: int  # resident CTAs per SM for this instantiation and smem
+    waves: int  # ceil(CTAs / (blocks_per_sm * SMs))
+
+
+def launch_plan(H: int, W: int, ntaps: int, median: bool, rm_reach: int,
+                blocks_per_sm: Optional[Callable[..., int]] = None,
+                sms: int = SMS) -> Plan:
+    """The tile for an (H, W) image: fewest waves over the SMs first, then a
+    plan with at least MIN_BLOCKS resident CTAs an SM, then the least
+    window work on the busiest SM (CTAs it runs in turn x window area).
+
+    blocks_per_sm(ntaps, median, rm_reach, tile_h, tile_w, smem) is the
+    card's occupancy (the wrapper passes card_blocks_per_sm);
+    without one the plan models it from shared memory. Raises ValueError
+    when no tile fits in shared memory."""
+    v = variant(ntaps)
+    occupancy = blocks_per_sm or modelled_blocks_per_sm
+    P = ntaps // 2 + (1 if median else 0) + rm_reach
+    best = None
+    for th, tw in TILES:
+        smem = smem_bytes(th, tw, ntaps, median, rm_reach)
+        if smem > SMEM_LIMIT:
+            continue
+        bps = occupancy(ntaps, bool(median), rm_reach, th, tw, smem)
+        if bps < 1:
+            continue
+        grid = (-(-W // tw), -(-H // th))
+        ctas = grid[0] * grid[1]
+        waves = -(-ctas // (bps * sms))
+        busiest = -(-ctas // (waves * sms)) * (th + 2 * P) * (tw + 2 * P)
+        key = (waves, bps < MIN_BLOCKS, busiest)
+        if best is None or key < best[0]:
+            best = (key, Plan(v, (th, tw), grid, smem, bps, waves))
+    if best is None:
+        raise ValueError(
+            f"fused_segment kernel: blur {ntaps} taps, median {bool(median)} and "
+            f"morphology reach {rm_reach} need more shared memory than a CTA has"
+        )
+    return best[1]
+
+
+@functools.lru_cache(maxsize=256)
+def card_blocks_per_sm(ntaps: int, median: bool, rm_reach: int, tile_h: int, tile_w: int,
+                       smem: int) -> int:
+    """cudaOccupancyMaxActiveBlocksPerMultiprocessor on the current card
+    for the instantiation of ntaps at a tile. Raises unless the kernel's
+    own shared-memory size is smem_bytes'."""
+    lib = _build.load()
+    out_smem, out_bps = ctypes.c_int(0), ctypes.c_int(0)
+    err = lib.tpuva_fused_segment_occupancy(ntaps, int(median), rm_reach, tile_h, tile_w,
+                                            ctypes.addressof(out_smem), ctypes.addressof(out_bps))
+    _build.check(lib, err, "fused_segment occupancy")
+    if out_smem.value != smem:
+        raise RuntimeError(f"fused_segment: the kernel's shared memory ({out_smem.value} B) "
+                           f"is not smem_bytes' ({smem} B)")
+    return out_bps.value
 
 
 def fused_segment_plain(
@@ -145,23 +257,52 @@ def fused_segment(
         return fused_segment_plain(frames, bg0, **kw)
     if frames.device.type != "cuda":
         raise ValueError(f"fused_segment: unsupported device {frames.device}")
-    return _fused_segment_cuda(frames.contiguous(), bg0.contiguous(), **kw)
+    out = _fused_segment_cuda(frames.contiguous(), bg0.contiguous(), **kw)
+    fused_segment.launches += 1
+    return out
 
 
-def _fused_segment_cuda(frames, bg0, *, alpha, threshold, blur_ksize, blur_sigma,
-                        median_ksize, open_shape, open_ksize, open_iters,
-                        close_shape, close_ksize, close_iters, seed_bg, emit):
+def _stages(open_shape, open_ksize, open_iters, close_shape, close_ksize, close_iters):
+    """The kernel's four morphology stages, (shape, ksize, iterations):
+    erode+dilate (open), then dilate+erode (close)."""
+    return [(open_shape, open_ksize, open_iters), (open_shape, open_ksize, open_iters),
+            (close_shape, close_ksize, close_iters), (close_shape, close_ksize, close_iters)]
+
+
+def fused_segment_plan(H: int, W: int, *, blur_ksize: int = 0, blur_sigma: float = 0.0,
+                       median_ksize: int = 0, open_ksize: int = 0, open_iters: int = 1,
+                       close_ksize: int = 0, close_iters: int = 1,
+                       blocks_per_sm: Optional[Callable[..., int]] = None, **_unused) -> Plan:
+    """launch_plan for fused_segment's options on an (H, W) image; pass
+    blocks_per_sm=card_blocks_per_sm for the card's occupancy (the
+    wrapper does), or nothing for the shared-memory model."""
+    ntaps = len(blur_taps(blur_ksize, blur_sigma)[0]) if blur_ksize else 1
+    reach = sum((k // 2) * it for k, it in ((open_ksize, open_iters), (close_ksize, close_iters))
+                if k) * 2
+    return launch_plan(H, W, ntaps, bool(median_ksize), reach, blocks_per_sm)
+
+
+def _fused_segment_cuda(frames, bg0, *, alpha, threshold, blur_ksize=0, blur_sigma=0.0,
+                        median_ksize=0, open_shape="rect", open_ksize=0, open_iters=1,
+                        close_shape="rect", close_ksize=0, close_iters=1, seed_bg=False,
+                        emit="mask", tile=None):
+    """The launch, on contiguous CUDA tensors that fused_segment checked;
+    tile (rows, cols) overrides launch_plan's (the tests and the smoke's
+    timing force each candidate). Does not count a launch of the main
+    path: fused_segment does, around it."""
     N, H, W = frames.shape
     taps, shift = blur_taps(blur_ksize, blur_sigma) if blur_ksize else ((1,), 0)
-    stages = [  # erode+dilate (open), then dilate+erode (close)
-        (open_shape, open_ksize, open_iters), (open_shape, open_ksize, open_iters),
-        (close_shape, close_ksize, close_iters), (close_shape, close_ksize, close_iters),
-    ]
+    stages = _stages(open_shape, open_ksize, open_iters, close_shape, close_ksize, close_iters)
     if len(taps) > MAX_TAPS or max(k for _, k, _ in stages) > MAX_SE:
         raise ValueError(
             f"fused_segment kernel: blur ksize <= {MAX_TAPS} and morphology "
             f"ksize <= {MAX_SE}"
         )
+    if tile is None:
+        tile = fused_segment_plan(
+            H, W, blur_ksize=blur_ksize, blur_sigma=blur_sigma, median_ksize=median_ksize,
+            open_ksize=open_ksize, open_iters=open_iters, close_ksize=close_ksize,
+            close_iters=close_iters, blocks_per_sm=card_blocks_per_sm).tile
     stage_k = np.array([k for _, k, _ in stages], np.int32)
     stage_iters = np.array([it if k else 0 for _, k, it in stages], np.int32)
     stage_se = np.zeros((4, MAX_SE), np.uint32)
@@ -178,11 +319,10 @@ def _fused_segment_cuda(frames, bg0, *, alpha, threshold, blur_ksize, blur_sigma
         N, H, W, c1, a, float(np.float32(threshold)),
         taps_np.ctypes.data, len(taps), shift, 1 if median_ksize else 0,
         stage_k.ctypes.data, stage_iters.ctypes.data, stage_se.ctypes.data,
-        1 if seed_bg else 0, 1 if emit == "diff" else 0, TILE[0], TILE[1],
+        1 if seed_bg else 0, 1 if emit == "diff" else 0, tile[0], tile[1],
         torch.cuda.current_stream(frames.device).cuda_stream,
     )
     _build.check(lib, err, "fused_segment kernel")
-    fused_segment.launches += 1
     return masks, bg_out
 
 
