@@ -107,7 +107,7 @@ K1_CONFIGS = {
 }
 # owned tiles K1's timing forces beside the plan's (the one-wave
 # candidates at 1080p and a two-wave one), to show which way the clip goes
-K1_TIMED_TILES = ((64, 64), (32, 128), (64, 128), (32, 64))
+K1_TIMED_TILES = ((64, 64), (32, 128), (64, 128), (32, 64), (16, 64), (16, 128), (32, 32))
 MAX_COMPONENTS = 32
 # sha256 of format_rows(rows) that the OpenCV reference pipeline
 # (refimpl.pipeline.run_pipeline, bench config, max_dist 80, Hungarian)
@@ -236,8 +236,8 @@ def ptxas_summary(log):
     for line in log.splitlines():
         m = re.search(r"Compiling entry function '([^']+)'", line)
         if m:
-            k = re.search(r"fused_segment_kernelILi(\d+)E", m.group(1))
-            name = f"fused_segment_kernel<{k.group(1)}>" if k else None
+            k = re.search(r"fused_segment_kernelILi(\d+)ELi(\d+)ELi(\d+)E", m.group(1))
+            name = f"fused_segment_kernel<{', '.join(k.groups())}>" if k else None
             continue
         if name is None:
             continue

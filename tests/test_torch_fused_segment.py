@@ -30,7 +30,7 @@ from tpuva_torch.ops.fused_segment import (
     THREADS,
     TILES,
     UNROLLED_TAPS,
-    Plan,
+    bg_regs_kind,
     fused_segment,
     fused_segment_plan,
     launch_plan,
@@ -141,17 +141,28 @@ def test_launch_plan_fits_every_accepted_config(H, W):
                 bps = modelled_blocks_per_sm(ntaps, median, reach, th, tw, plan.smem)
                 assert plan.blocks_per_sm == bps >= 1
                 assert plan.waves == -(-(gx * gy) // (bps * SMS))
+                kind = plan.bg_regs
+                assert kind == bg_regs_kind(th, tw, reach) and kind in (0, 1, 2)
+                cx, seg = -(-(tw + 2 * reach) // 32), -(-(th + 2 * reach) // 8)
+                lim = {0: (cx, seg), 1: (2, 8), 2: (3, 5)}[kind]
+                assert cx <= lim[0] and seg <= lim[1]
 
 
 def test_launch_plan_follows_the_occupancy_it_is_given():
-    """The bench config at 1080p fits one wave of 64x64 tiles at the
-    modelled four CTAs an SM; told that only three fit (more registers),
-    the plan takes a wider tile that still fits one wave."""
-    kw = dict(BENCH)
-    plan = fused_segment_plan(1080, 1920, **kw)
-    assert plan == Plan(5, (64, 64), (30, 17), plan.smem, 4, 1)
-    fewer = fused_segment_plan(1080, 1920, blocks_per_sm=lambda *a: min(3, modelled_blocks_per_sm(*a)),
-                               **kw)
-    assert fewer.waves == 1 and fewer.tile == (64, 128)
+    """The plan weighs rounds x window area, with morphology at least two
+    rounds. Bench config at 1080p: at 3 CTAs an SM (the card's, PERF.md)
+    32 x 64 tiles in three waves, background in registers; at the
+    shared-memory model's 8 CTAs an SM, 16 x 64 tiles in two waves; told
+    that one CTA fits an SM, the largest tile, whose fewer waves outweigh
+    its halo. Without morphology one wave counts as one round."""
+    three = fused_segment_plan(1080, 1920, blocks_per_sm=lambda *a: 3, **BENCH)
+    assert three.tile == (32, 64) and three.grid == (30, 34) and three.waves == 3
+    assert three.variant == 5 and three.bg_regs == 2
+    model = fused_segment_plan(1080, 1920, **BENCH)
+    assert model.tile == (16, 64) and model.waves == 2 and model.blocks_per_sm == 8
+    one = fused_segment_plan(1080, 1920, blocks_per_sm=lambda *a: 1, **BENCH)
+    assert one.tile == (64, 128) and one.waves == 2 and one.bg_regs == 0
     diff = fused_segment_plan(1080, 1920, blur_ksize=5)
-    assert diff.tile == (64, 64) and diff.waves == 1 and diff.smem < plan.smem
+    assert diff.tile == (32, 64) and diff.waves == 1 and diff.bg_regs == 1
+    diff3 = fused_segment_plan(1080, 1920, blur_ksize=5, blocks_per_sm=lambda *a: 3)
+    assert diff3.tile == (32, 64) and diff3.waves == 3

@@ -71,6 +71,7 @@ constexpr int kMaxSE = 31;
 constexpr int kTX = 32;  // threads along a row
 constexpr int kTY = 8;   // rows of threads
 constexpr int kThreads = kTX * kTY;
+constexpr int kMinBlocks = 4;  // CTAs an SM the register budget must allow (64 registers)
 constexpr int kMaxSmem = 227 * 1024;
 
 struct SegParams {
@@ -86,18 +87,33 @@ struct SegParams {
   int seed_bg;
   int emit_diff;                  // 1: write rint(|F - B|), not the mask
   int vec;                        // bytes per output store: 16, 4 or 1
+  int vin;                        // bytes per cp.async of the window: 16 or 4; 1 = no cp.async
 };
 
 __host__ __device__ constexpr size_t up16(size_t v) { return (v + 15) & ~size_t(15); }
+__host__ __device__ constexpr int cdiv(int a, int b) { return (a + b - 1) / b; }
+
+// Background registers a thread owns: the M region is cut into kTY row
+// segments of ceil(MH / kTY) rows; thread (tx, ty) owns columns tx + kTX j
+// of segment ty. A kernel instantiated with <CX, SEG> keeps them in
+// registers when ceil(MW / kTX) <= CX and ceil(MH / kTY) <= SEG: kind 1 is
+// <2, 8> (64 x 64 tiles without morphology), kind 2 <3, 5> (32 x 64 tiles
+// with a reach up to 4); kind 0, <0, 0>, keeps the background in shared
+// memory. Larger register sets spill under the kMinBlocks budget.
+__host__ __device__ inline int bg_regs_kind(int MH, int MW) {
+  const int cx = cdiv(MW, kTX), seg = cdiv(MH, kTY);
+  return (cx <= 2 && seg <= 8) ? 1 : (cx <= 3 && seg <= 5) ? 2 : 0;
+}
 
 // Shared-memory layout, shared by host (size) and device (carving). Mirrored
 // by ops/fused_segment.py::smem_bytes; keep the two in step.
 struct Layout {
-  int WH, WW, BH, BW, MH, MW, MP, ox;
-  size_t raw, hs, blur, bg, m0, m1, rowoff, colidx, total;
+  int WH, WW, RP, BH, BW, MH, MW, MP, ox;
+  size_t raw0, raw1, hs, blur, bg, m0, m1, rowoff, colidx, total;
   __host__ __device__ Layout(int TH, int TW, int P, int Rm, int rm) {
     WH = TH + 2 * P;          // raw window
     WW = TW + 2 * P;
+    RP = static_cast<int>(up16(size_t(WW) + 15));  // window row pitch: 16-byte chunks
     BH = TH + 2 * (Rm + rm);  // blurred region
     BW = TW + 2 * (Rm + rm);
     MH = TH + 2 * Rm;         // background / mask region
@@ -105,10 +121,11 @@ struct Layout {
     ox = (16 - Rm % 16) % 16;  // mask column x sits at ox + x: owned x = Rm aligned
     MP = static_cast<int>(up16(size_t(ox) + MW));
     size_t off = 0;
-    raw = off;    off += up16(size_t(WH) * WW);
+    raw0 = off;   off += up16(size_t(WH) * RP);
+    raw1 = off;   off += up16(size_t(WH) * RP);
     hs = off;     off += up16(size_t(WH) * BW * 2);
     blur = off;   off += rm ? up16(size_t(BH) * BW) : 0;
-    bg = off;     off += up16(size_t(MH) * MW * 4);
+    bg = off;     off += bg_regs_kind(MH, MW) ? 0 : up16(size_t(MH) * MW * 4);
     m0 = off;     off += up16(size_t(MH) * MP);
     m1 = off;     off += up16(size_t(MH) * MP);
     rowoff = off; off += up16(size_t(WH) * 4);
@@ -125,6 +142,21 @@ __device__ int reflect101(int i, int n) {
   i %= period;
   if (i < 0) i += period;
   return i >= n ? period - i : i;
+}
+
+template <int V>
+__device__ __forceinline__ void cp_async(void* dst, const void* src) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  if (V == 16)
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d), "l"(src) : "memory");
+  else
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(d), "l"(src) : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+__device__ __forceinline__ void cp_async_wait_prev() {  // all groups but the newest
+  asm volatile("cp.async.wait_group 1;\n" ::: "memory");
 }
 
 __device__ __forceinline__ void sort2(int* p, int i, int j) {
@@ -173,12 +205,10 @@ __device__ void morph_step(const uint8_t* in, uint8_t* out, const Layout& L,
     for (int x = threadIdx.x; x < L.MW; x += kTX) {
       int acc = fill;
       for (int dy = -r; dy <= r; ++dy) {
-        const unsigned row = se[dy + r];
         const int yy = y + dy;
         const bool yin = yy >= 0 && yy < L.MH && oy + yy >= 0 && oy + yy < H;
-        for (int dx = -r; dx <= r; ++dx) {
-          if (!((row >> (dx + r)) & 1u)) continue;
-          const int xx = x + dx;
+        for (unsigned bits = se[dy + r]; bits; bits &= bits - 1) {
+          const int xx = x + __ffs(bits) - 1 - r;
           int v = fill;
           if (yin && xx >= 0 && xx < L.MW && ox + xx >= 0 && ox + xx < W)
             v = in[yy * L.MP + L.ox + xx];
@@ -186,6 +216,35 @@ __device__ void morph_step(const uint8_t* in, uint8_t* out, const Layout& L,
         }
       }
       out[y * L.MP + L.ox + x] = (uint8_t)acc;
+    }
+  }
+}
+
+// The same step where the whole M region lies inside the image: no border
+// to see, so each thread takes four neighbouring mask bytes at once (one
+// 32-bit word, __vminu4/__vmaxu4 over the SE's shifted words, read as two
+// aligned words and a funnel shift). It computes the rows whose SE window
+// lies in the region and whole words of the row pitch; what it leaves or
+// writes outside the region less its radius is in the band the reach
+// bookkeeping discards, and every read stays inside the shared memory that
+// precedes and follows the buffer.
+__device__ void morph_step_inside(const uint8_t* in, uint8_t* out, const Layout& L, int k,
+                                  const unsigned* se, bool erode) {
+  const int r = k >> 1;
+  const int ng = L.MP >> 2;  // words a row
+  for (int y = threadIdx.y + r; y < L.MH - r; y += kTY) {
+    for (int g = threadIdx.x; g < ng; g += kTX) {
+      unsigned acc = erode ? 0x01010101u : 0u;
+      for (int dy = -r; dy <= r; ++dy) {
+        const uint8_t* row = in + (y + dy) * L.MP;
+        for (unsigned bits = se[dy + r]; bits; bits &= bits - 1) {
+          const int off = 4 * g + __ffs(bits) - 1 - r;  // first of the four bytes
+          const unsigned* w = reinterpret_cast<const unsigned*>(row + (off & ~3));
+          const unsigned v = __funnelshift_r(w[0], w[1], 8 * (off & 3));
+          acc = erode ? __vminu4(acc, v) : __vmaxu4(acc, v);
+        }
+      }
+      *reinterpret_cast<unsigned*>(out + y * L.MP + 4 * g) = acc;
     }
   }
 }
@@ -214,8 +273,11 @@ __device__ __forceinline__ void write_owned(uint8_t* out, const uint8_t* mo, int
   }
 }
 
-template <int NT>
-__global__ void __launch_bounds__(kThreads)
+// The kernel for NT taps (0: any odd count up to 63, runtime loops) with
+// the background in registers (CX x SEG a thread, see bg_regs_kind) or, for
+// CX == 0, in shared memory.
+template <int NT, int CX, int SEG>
+__global__ void __launch_bounds__(kThreads, kMinBlocks)
 fused_segment_kernel(const uint8_t* __restrict__ frames,
                      const float* __restrict__ bg0,
                      uint8_t* __restrict__ masks,
@@ -224,7 +286,7 @@ fused_segment_kernel(const uint8_t* __restrict__ frames,
   const int H = p.H, W = p.W, P = p.P, Rm = p.Rm, rm = p.rm;
   const int TH = p.TH, TW = p.TW;
   const Layout L(TH, TW, P, Rm, rm);
-  uint8_t* raw = smem + L.raw;
+  uint8_t* raws[2] = {smem + L.raw0, smem + L.raw1};
   uint16_t* hs = reinterpret_cast<uint16_t*>(smem + L.hs);
   uint8_t* blur = smem + L.blur;
   float* bg = reinterpret_cast<float*>(smem + L.bg);
@@ -243,57 +305,119 @@ fused_segment_kernel(const uint8_t* __restrict__ frames,
   const float c1 = p.c1, a = p.a, thr = p.thr;
   const bool diff = p.emit_diff;
 
-  // once per CTA: the window's reflected rows and columns, the column
-  // segment of the column pass, the output thread split, the background
+  // Once per CTA, before the frame loop (the only divisions and modulos):
+  // the window's reflected row offsets and column indices, the window's
+  // copy plan, the row segments, the output thread split, the background.
   for (int i = tid; i < L.WH; i += kThreads) rowoff[i] = reflect101(wy0 + i, H) * W;
   for (int i = tid; i < L.WW; i += kThreads) colidx[i] = reflect101(wx0 + i, W);
   const bool interior = wy0 >= 0 && wx0 >= 0 && wy0 + L.WH <= H && wx0 + L.WW <= W;
-  const int seg = (L.BH + kTY - 1) / kTY;
+  const bool m_inside = my0 >= 0 && mx0 >= 0 && my0 + L.MH <= H && mx0 + L.MW <= W;
+  // cp.async of the window (vin bytes a copy): each window row copies the
+  // aligned chunks of the image that cover its in-image columns, from the
+  // row that REFLECT_101 maps it to; raw column xoff + c is window column
+  // c. Out-of-image columns are copied from their in-window sources after
+  // the wait (colfix); columns whose source lies outside the window feed
+  // no in-image pixel and are left as they are.
+  const int vin = p.vin;
+  const int wx0a = (vin > 1) ? (wx0 >= 0 ? wx0 - wx0 % vin : -cdiv(-wx0, vin) * vin) : wx0;
+  const int xoff = wx0 - wx0a;
+  const int cs = max(wx0a, 0);
+  const int ce = (vin > 1) ? min(cdiv(wx0 + L.WW, vin) * vin, W) : 0;
+  const int nch = (vin > 1) ? max(cdiv(ce - cs, vin), 0) : 0;  // chunks a row
+  const int lanes = max(min(nch, kThreads), 1);
+  const int chrs = kThreads / lanes;  // window rows copied at once
+  const int ch0 = tid % lanes, chr0 = tid < lanes * chrs ? tid / lanes : L.WH;
+  const bool colfix = vin > 1 && (wx0 < 0 || wx0 + L.WW > W);
+  const int seg = cdiv(L.BH, kTY);  // column pass rows a thread, over B
   const int vr0 = min(ty * seg, L.BH), vr1 = min(vr0 + seg, L.BH);
+  const int segm = cdiv(L.MH, kTY);  // owned background rows a thread, over M
+  const int mr0 = min(ty * segm, L.MH), mr1 = min(mr0 + segm, L.MH);
   const int ocols = TW / p.vec;  // stores per owned row; divides kThreads
   const int ocol = tid % ocols, orow = tid / ocols, ostep = kThreads / ocols;
+  float bgr[CX ? CX : 1][SEG ? SEG : 1];
   if (!p.seed_bg) {
-    for (int y = ty; y < L.MH; y += kTY)
-      for (int x = tx; x < L.MW; x += kTX) {
-        const int gy = my0 + y, gx = mx0 + x;
-        const bool in = gy >= 0 && gy < H && gx >= 0 && gx < W;
-        bg[y * L.MW + x] = in ? bg0[size_t(gy) * W + gx] : 0.f;
-      }
+    if constexpr (CX > 0) {
+#pragma unroll
+      for (int j = 0; j < CX; ++j)
+#pragma unroll
+        for (int i = 0; i < SEG; ++i) {
+          const int gy = my0 + mr0 + i, gx = mx0 + tx + kTX * j;
+          const bool in = mr0 + i < mr1 && tx + kTX * j < L.MW && gy >= 0 && gy < H &&
+                          gx >= 0 && gx < W;
+          bgr[j][i] = in ? bg0[size_t(gy) * W + gx] : 0.f;
+        }
+    } else {
+      for (int y = ty; y < L.MH; y += kTY)
+        for (int x = tx; x < L.MW; x += kTX) {
+          const int gy = my0 + y, gx = mx0 + x;
+          const bool in = gy >= 0 && gy < H && gx >= 0 && gx < W;
+          bg[y * L.MW + x] = in ? bg0[size_t(gy) * W + gx] : 0.f;
+        }
+    }
   }
   __syncthreads();
 
+  // copies of frame t's window into raw (cp.async; one commit group)
+  auto issue = [&](uint8_t* raw, int t) {
+    const uint8_t* fr = frames + size_t(t) * HW + cs;
+    uint8_t* dst = raw + (cs - wx0a);
+    for (int r = chr0; r < L.WH; r += chrs) {
+      const uint8_t* src = fr + rowoff[r];
+      uint8_t* d = dst + r * L.RP;
+      for (int j = ch0; j < nch; j += lanes) {
+        if (vin == 16) cp_async<16>(d + 16 * j, src + 16 * j);
+        else cp_async<4>(d + 4 * j, src + 4 * j);
+      }
+    }
+    cp_async_commit();
+  };
+  if (vin > 1) issue(raws[0], 0);
+
   for (int t = 0; t < p.N; ++t) {
-    const uint8_t* fr = frames + size_t(t) * HW;
     const bool first = p.seed_bg && t == 0;
-    // 1. u8 window
-    if (interior) {
-      const uint8_t* src = fr + size_t(wy0) * W + wx0;
-      for (int r = ty; r < L.WH; r += kTY)
-        for (int c = tx; c < L.WW; c += kTX) raw[r * L.WW + c] = src[size_t(r) * W + c];
+    uint8_t* raw = raws[t & 1];
+    // 1. u8 window: frame t + 1's copies go out while frame t computes
+    if (vin > 1) {
+      if (t + 1 < p.N) issue(raws[(t + 1) & 1], t + 1);
+      else cp_async_commit();  // an empty group keeps wait_group 1 exact
+      cp_async_wait_prev();
     } else {
-      for (int r = ty; r < L.WH; r += kTY) {
-        const uint8_t* src = fr + rowoff[r];
-        for (int c = tx; c < L.WW; c += kTX) raw[r * L.WW + c] = src[colidx[c]];
+      const uint8_t* fr = frames + size_t(t) * HW;
+      if (interior) {
+        const uint8_t* src = fr + size_t(wy0) * W + wx0;
+        for (int r = ty; r < L.WH; r += kTY)
+          for (int c = tx; c < L.WW; c += kTX) raw[r * L.RP + c] = src[size_t(r) * W + c];
+      } else {
+        for (int r = ty; r < L.WH; r += kTY) {
+          const uint8_t* src = fr + rowoff[r];
+          for (int c = tx; c < L.WW; c += kTX) raw[r * L.RP + c] = src[colidx[c]];
+        }
       }
     }
     __syncthreads();
+    const uint8_t* win = raw + xoff;
+    if (colfix) {
+      for (int r = ty; r < L.WH; r += kTY)
+        for (int c = tx; c < L.WW; c += kTX) {
+          const int gx = wx0 + c, s = colidx[c] - wx0;
+          if ((gx < 0 || gx >= W) && s >= 0 && s < L.WW) raw[r * L.RP + xoff + c] = win[r * L.RP + s];
+        }
+      __syncthreads();
+    }
     // 2. row pass: window rows, B columns (B col c is window col c + nt/2)
     for (int r = ty; r < L.WH; r += kTY)
       for (int c = tx; c < L.BW; c += kTX)
-        hs[r * L.BW + c] = (uint16_t)row_sum<NT>(raw + r * L.WW + c, p);
+        hs[r * L.BW + c] = (uint16_t)row_sum<NT>(win + r * L.RP + c, p);
     __syncthreads();
 
-    // background update and threshold (or the rounded magnitude) of M
-    // pixel (y, x) with filtered value f; returns the mask byte
-    auto update = [&](int y, int x, int f_int) -> int {
+    // background update of M pixel (y, x), background b, filtered value f,
+    // and its threshold (or rounded magnitude); returns the mask byte
+    auto update = [&](int y, int x, float& b, int f_int) -> int {
       const int gy = my0 + y, gx = mx0 + x;
       int m = 0;
       if (gy >= 0 && gy < H && gx >= 0 && gx < W) {
         const float f = float(f_int);
-        float* bp = bg + y * L.MW + x;
-        float b = first ? f : *bp;
-        b = __fadd_rn(__fmul_rn(c1, b), __fmul_rn(a, f));
-        *bp = b;
+        b = __fadd_rn(__fmul_rn(c1, first ? f : b), __fmul_rn(a, f));
         const float d = fabsf(__fsub_rn(f, b));
         m = diff ? int(fminf(rintf(d), 255.f)) : (d > thr ? 1 : 0);
       }
@@ -302,59 +426,100 @@ fused_segment_kernel(const uint8_t* __restrict__ frames,
     };
 
     // 3. column pass + cv2's single rounding: each thread slides down rows
-    // [vr0, vr1) of its columns; without a median B == M and the pixel is
-    // updated here
+    // [vr0, vr1) of its columns with a ring of the last nt row sums; without
+    // a median B == M ([vr0, vr1) is the thread's own segment) and the
+    // pixel's background is updated here
     int any = 0;
-    for (int c = tx; c < L.BW; c += kTX) {
-      if (vr0 >= vr1) break;
-      const uint16_t* col = hs + c;
-      if constexpr (NT > 0) {
-        int ring[NT];
+    if constexpr (CX > 0) {
+      if (!rm) {
 #pragma unroll
-        for (int k = 1; k < NT; ++k) ring[k] = col[(vr0 + k - 1) * L.BW];
-        for (int r = vr0; r < vr1; ++r) {
+        for (int j = 0; j < CX; ++j) {
+          const int c = tx + kTX * j;
+          if (c < L.BW && vr0 < vr1) {
+            const uint16_t* col = hs + c;
+            int ring[NT ? NT : 1];
+            if constexpr (NT > 0) {
 #pragma unroll
-          for (int k = 0; k + 1 < NT; ++k) ring[k] = ring[k + 1];
-          ring[NT - 1] = col[(r + NT - 1) * L.BW];
-          int acc = 0;
+              for (int k = 1; k < NT; ++k) ring[k] = col[(vr0 + k - 1) * L.BW];
+            }
 #pragma unroll
-          for (int k = 0; k < NT; ++k) acc += p.taps[k] * ring[k];
-          const int v = round_shift(acc, shift);
-          if (rm) blur[r * L.BW + c] = (uint8_t)v;
-          else any |= update(r, c, v);
-        }
-      } else {
-        for (int r = vr0; r < vr1; ++r) {
-          int acc = 0;
-          for (int k = 0; k < nt; ++k) acc += p.taps[k] * col[(r + k) * L.BW];
-          const int v = round_shift(acc, shift);
-          if (rm) blur[r * L.BW + c] = (uint8_t)v;
-          else any |= update(r, c, v);
+            for (int i = 0; i < SEG; ++i) {
+              const int r = vr0 + i;
+              if (r < vr1) {
+                int acc = 0;
+                if constexpr (NT > 0) {
+#pragma unroll
+                  for (int k = 0; k + 1 < NT; ++k) ring[k] = ring[k + 1];
+                  ring[NT - 1] = col[(r + NT - 1) * L.BW];
+#pragma unroll
+                  for (int k = 0; k < NT; ++k) acc += p.taps[k] * ring[k];
+                } else {
+                  for (int k = 0; k < nt; ++k) acc += p.taps[k] * col[(r + k) * L.BW];
+                }
+                any |= update(r, c, bgr[j][i], round_shift(acc, shift));
+              }
+            }
+          }
         }
       }
     }
-    // 4. median 3x3 at clamped (replicated) coordinates, then the update
+    if (CX == 0 || rm) {  // into blur (median), or the shared-memory background
+      for (int c = tx; c < L.BW; c += kTX) {
+        if (vr0 >= vr1) break;
+        const uint16_t* col = hs + c;
+        int ring[NT ? NT : 1];
+        if constexpr (NT > 0) {
+#pragma unroll
+          for (int k = 1; k < NT; ++k) ring[k] = col[(vr0 + k - 1) * L.BW];
+        }
+        for (int r = vr0; r < vr1; ++r) {
+          int acc = 0;
+          if constexpr (NT > 0) {
+#pragma unroll
+            for (int k = 0; k + 1 < NT; ++k) ring[k] = ring[k + 1];
+            ring[NT - 1] = col[(r + NT - 1) * L.BW];
+#pragma unroll
+            for (int k = 0; k < NT; ++k) acc += p.taps[k] * ring[k];
+          } else {
+            for (int k = 0; k < nt; ++k) acc += p.taps[k] * col[(r + k) * L.BW];
+          }
+          const int v = round_shift(acc, shift);
+          if (rm) blur[r * L.BW + c] = (uint8_t)v;
+          else any |= update(r, c, bg[r * L.MW + c], v);
+        }
+      }
+    }
+    // 4. median 3x3 at clamped (replicated) coordinates, then the update,
+    // over each thread's own background segment
     if (rm) {
       __syncthreads();
-      for (int y = ty; y < L.MH; y += kTY)
-        for (int x = tx; x < L.MW; x += kTX) {
-          const int gy = my0 + y, gx = mx0 + x;
-          int v = 0;
-          if (gy >= 0 && gy < H && gx >= 0 && gx < W) {
-            int win[9];
-            int k = 0;
+      auto median_at = [&](int y, int x) -> int {
+        const int gy = my0 + y, gx = mx0 + x;
+        if (gy < 0 || gy >= H || gx < 0 || gx >= W) return 0;
+        int w9[9];
+        int k = 0;
 #pragma unroll
-            for (int dy = -1; dy <= 1; ++dy)
+        for (int dy = -1; dy <= 1; ++dy)
 #pragma unroll
-              for (int dx = -1; dx <= 1; ++dx) {
-                const int yy = min(max(gy + dy, 0), H - 1) - by0;
-                const int xx = min(max(gx + dx, 0), W - 1) - bx0;
-                win[k++] = blur[yy * L.BW + xx];
-              }
-            v = median9(win);
+          for (int dx = -1; dx <= 1; ++dx) {
+            const int yy = min(max(gy + dy, 0), H - 1) - by0;
+            const int xx = min(max(gx + dx, 0), W - 1) - bx0;
+            w9[k++] = blur[yy * L.BW + xx];
           }
-          any |= update(y, x, v);
-        }
+        return median9(w9);
+      };
+      if constexpr (CX > 0) {
+#pragma unroll
+        for (int j = 0; j < CX; ++j)
+#pragma unroll
+          for (int i = 0; i < SEG; ++i) {
+            const int y = mr0 + i, x = tx + kTX * j;
+            if (y < mr1 && x < L.MW) any |= update(y, x, bgr[j][i], median_at(y, x));
+          }
+      } else {
+        for (int x = tx; x < L.MW; x += kTX)
+          for (int y = mr0; y < mr1; ++y) any |= update(y, x, bg[y * L.MW + x], median_at(y, x));
+      }
     }
     any = __syncthreads_or(any) && !diff;
     // 5. morphology, ping-pong over the M region
@@ -364,8 +529,11 @@ fused_segment_kernel(const uint8_t* __restrict__ frames,
         if (!p.stage_k[s]) continue;
         const bool erode = (s == 0 || s == 3);
         for (int it = 0; it < p.stage_iters[s]; ++it) {
-          morph_step(mbuf[cur], mbuf[cur ^ 1], L, my0, mx0, H, W,
-                     p.stage_k[s], p.stage_se[s], erode);
+          if (m_inside)
+            morph_step_inside(mbuf[cur], mbuf[cur ^ 1], L, p.stage_k[s], p.stage_se[s], erode);
+          else
+            morph_step(mbuf[cur], mbuf[cur ^ 1], L, my0, mx0, H, W, p.stage_k[s],
+                       p.stage_se[s], erode);
           __syncthreads();
           cur ^= 1;
         }
@@ -382,26 +550,47 @@ fused_segment_kernel(const uint8_t* __restrict__ frames,
     else
       write_owned<1>(out, mo, L.MP, y0, x0, TH, H, W, orow, ostep, ocol, !diff);
   }
-  __syncthreads();  // the last frame's background, written by its updaters
 
-  for (int r = ty; r < TH; r += kTY)
-    for (int c = tx; c < TW; c += kTX) {
-      const int gy = y0 + r, gx = x0 + c;
-      if (gy < H && gx < W) bg_out[size_t(gy) * W + gx] = bg[(r + Rm) * L.MW + c + Rm];
-    }
+  // the owned background out, once
+  if constexpr (CX > 0) {
+#pragma unroll
+    for (int j = 0; j < CX; ++j)
+#pragma unroll
+      for (int i = 0; i < SEG; ++i) {
+        const int r = mr0 + i - Rm, c = tx + kTX * j - Rm;
+        const int gy = y0 + r, gx = x0 + c;
+        if (mr0 + i < mr1 && r >= 0 && r < TH && c >= 0 && c < TW && gy < H && gx < W)
+          bg_out[size_t(gy) * W + gx] = bgr[j][i];
+      }
+  } else {
+    __syncthreads();  // the last frame's background, written by its owners
+    for (int r = ty; r < TH; r += kTY)
+      for (int c = tx; c < TW; c += kTX) {
+        const int gy = y0 + r, gx = x0 + c;
+        if (gy < H && gx < W) bg_out[size_t(gy) * W + gx] = bg[(r + Rm) * L.MW + c + Rm];
+      }
+  }
 }
 
 using KernelFn = void (*)(const uint8_t*, const float*, uint8_t*, float*, const SegParams);
 
-// The instantiation for a tap count: unrolled for 1, 3, 5 and 7, generic
-// (runtime loops) for 9..63.
-KernelFn kernel_for(int ntaps) {
+template <int NT>
+KernelFn kernel_with(int bg_kind) {
+  return bg_kind == 1 ? fused_segment_kernel<NT, 2, 8>
+       : bg_kind == 2 ? fused_segment_kernel<NT, 3, 5>
+                      : fused_segment_kernel<NT, 0, 0>;
+}
+
+// The instantiation for a tap count (unrolled for 1, 3, 5 and 7, generic
+// for 9..63) and the background's home at this layout (bg_regs_kind).
+KernelFn kernel_for(int ntaps, const Layout& L) {
+  const int kind = bg_regs_kind(L.MH, L.MW);
   switch (ntaps) {
-    case 1: return fused_segment_kernel<1>;
-    case 3: return fused_segment_kernel<3>;
-    case 5: return fused_segment_kernel<5>;
-    case 7: return fused_segment_kernel<7>;
-    default: return fused_segment_kernel<0>;
+    case 1: return kernel_with<1>(kind);
+    case 3: return kernel_with<3>(kind);
+    case 5: return kernel_with<5>(kind);
+    case 7: return kernel_with<7>(kind);
+    default: return kernel_with<0>(kind);
   }
 }
 
@@ -427,7 +616,7 @@ extern "C" int tpuva_fused_segment_occupancy(int ntaps, int median, int Rm,
   *smem_bytes = static_cast<int>(L.total);
   *blocks_per_sm = 0;
   if (L.total > size_t(kMaxSmem)) return 0;
-  const KernelFn k = kernel_for(ntaps);
+  const KernelFn k = kernel_for(ntaps, L);
   cudaError_t err = cudaFuncSetAttribute(k, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(L.total));
   if (err == cudaSuccess)
@@ -475,11 +664,14 @@ extern "C" int tpuva_fused_segment(
   p.TH = tile_h; p.TW = tile_w;
   p.seed_bg = seed_bg;
   p.emit_diff = emit_diff ? 1 : 0;
+  // widest stores and copies the rows' alignment allows
   const bool out16 = reinterpret_cast<uintptr_t>(masks) % 16 == 0;
   p.vec = (out16 && W % 16 == 0) ? 16 : (out16 && W % 4 == 0) ? 4 : 1;
+  const uintptr_t in_addr = reinterpret_cast<uintptr_t>(frames);
+  p.vin = (in_addr % 16 == 0 && W % 16 == 0) ? 16 : (in_addr % 4 == 0 && W % 4 == 0) ? 4 : 1;
   const Layout L(tile_h, tile_w, p.P, p.Rm, p.rm);
   if (L.total > size_t(kMaxSmem)) return static_cast<int>(cudaErrorInvalidConfiguration);
-  const KernelFn k = kernel_for(ntaps);
+  const KernelFn k = kernel_for(ntaps, L);
   cudaError_t err = cudaFuncSetAttribute(k, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(L.total));
   if (err != cudaSuccess) return static_cast<int>(err);

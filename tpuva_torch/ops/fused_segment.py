@@ -57,27 +57,36 @@ TILES = ((64, 64), (32, 128), (32, 64), (64, 128), (16, 128), (16, 64),
 SMEM_LIMIT = 232_448  # dynamic shared memory a CTA may use on an H100
 SMS = 132  # streaming multiprocessors of an H100 SXM
 THREADS = 256  # threads per CTA
-# CTAs resident per SM below which a plan counts as thin on warps: each
-# CTA waits on its own frame loads, and only other CTAs hide that
-MIN_BLOCKS = 4
 
 
 def _up16(v: int) -> int:
     return (v + 15) & ~15
 
 
+def bg_regs_kind(tile_h: int, tile_w: int, rm_reach: int) -> int:
+    """Where the kernel keeps the background (csrc/fused_segment.cu's
+    bg_regs_kind): 1 and 2 in registers, 2 x 8 or 3 x 5 a thread (the M
+    region in column groups of 32 and row segments of an eighth), 0 in
+    shared memory where the region is larger."""
+    cx, seg = -(-(tile_w + 2 * rm_reach) // 32), -(-(tile_h + 2 * rm_reach) // 8)
+    return 1 if cx <= 2 and seg <= 8 else 2 if cx <= 3 and seg <= 5 else 0
+
+
 def smem_bytes(tile_h: int, tile_w: int, ntaps: int, median: bool, rm_reach: int) -> int:
     """Dynamic shared memory of one CTA: csrc/fused_segment.cu's Layout
-    (raw window, uint16 row sums, blurred region with a median, float32
-    background, two mask buffers, the reflect tables)."""
+    (two raw windows, uint16 row sums, blurred region with a median, the
+    float32 background unless it lives in registers, two mask buffers, the
+    reflect tables)."""
     rm = 1 if median else 0
     P = ntaps // 2 + rm + rm_reach
     WH, WW = tile_h + 2 * P, tile_w + 2 * P
+    RP = _up16(WW + 15)
     BH, BW = tile_h + 2 * (rm_reach + rm), tile_w + 2 * (rm_reach + rm)
     MH, MW = tile_h + 2 * rm_reach, tile_w + 2 * rm_reach
     MP = _up16((16 - rm_reach % 16) % 16 + MW)
-    return (_up16(WH * WW) + _up16(WH * BW * 2) + (_up16(BH * BW) if rm else 0)
-            + _up16(MH * MW * 4) + 2 * _up16(MH * MP) + _up16(WH * 4) + _up16(WW * 4))
+    bg = 0 if bg_regs_kind(tile_h, tile_w, rm_reach) else _up16(MH * MW * 4)
+    return (2 * _up16(WH * RP) + _up16(WH * BW * 2) + (_up16(BH * BW) if rm else 0)
+            + bg + 2 * _up16(MH * MP) + _up16(WH * 4) + _up16(WW * 4))
 
 
 def variant(ntaps: int) -> int:
@@ -100,19 +109,25 @@ class Plan(NamedTuple):
     smem: int  # dynamic shared memory per CTA, bytes
     blocks_per_sm: int  # resident CTAs per SM for this instantiation and smem
     waves: int  # ceil(CTAs / (blocks_per_sm * SMs))
+    bg_regs: int  # bg_regs_kind: 1, 2 background in registers, 0 in shared memory
 
 
 def launch_plan(H: int, W: int, ntaps: int, median: bool, rm_reach: int,
                 blocks_per_sm: Optional[Callable[..., int]] = None,
                 sms: int = SMS) -> Plan:
-    """The tile for an (H, W) image: fewest waves over the SMs first, then a
-    plan with at least MIN_BLOCKS resident CTAs an SM, then the least
-    window work on the busiest SM (CTAs it runs in turn x window area).
+    """The tile for an (H, W) image: the least rounds x window area, then
+    the fewest CTAs.
 
-    blocks_per_sm(ntaps, median, rm_reach, tile_h, tile_w, smem) is the
-    card's occupancy (the wrapper passes card_blocks_per_sm);
-    without one the plan models it from shared memory. Raises ValueError
-    when no tile fits in shared memory."""
+    A CTA's frame loop is a chain of dependent steps behind barriers, so a
+    wave lasts about as long as one CTA's window takes a frame, times the
+    frames; an SM runs `waves` such rounds in turn. With morphology a CTA
+    whose tile holds foreground in every frame runs it on top, about twice
+    a background CTA's time (PERF.md), so it counts as two rounds at
+    least: large tiles in one wave lose to smaller ones in two. blocks_per_sm(ntaps,
+    median, rm_reach, tile_h, tile_w, smem) is the card's occupancy (the
+    wrapper passes card_blocks_per_sm); without one the plan models it
+    from shared memory. Raises ValueError when no tile fits in shared
+    memory."""
     v = variant(ntaps)
     occupancy = blocks_per_sm or modelled_blocks_per_sm
     P = ntaps // 2 + (1 if median else 0) + rm_reach
@@ -127,10 +142,11 @@ def launch_plan(H: int, W: int, ntaps: int, median: bool, rm_reach: int,
         grid = (-(-W // tw), -(-H // th))
         ctas = grid[0] * grid[1]
         waves = -(-ctas // (bps * sms))
-        busiest = -(-ctas // (waves * sms)) * (th + 2 * P) * (tw + 2 * P)
-        key = (waves, bps < MIN_BLOCKS, busiest)
+        rounds = max(waves, 2 if rm_reach else 1)
+        key = (rounds * (th + 2 * P) * (tw + 2 * P), ctas)
         if best is None or key < best[0]:
-            best = (key, Plan(v, (th, tw), grid, smem, bps, waves))
+            best = (key, Plan(v, (th, tw), grid, smem, bps, waves,
+                              bg_regs_kind(th, tw, rm_reach)))
     if best is None:
         raise ValueError(
             f"fused_segment kernel: blur {ntaps} taps, median {bool(median)} and "
