@@ -287,6 +287,13 @@ def k1_timing(clip, plate, card):
         for tile in K1_TIMED_TILES:
             t[f"{name}_ms_tile_{tile[0]}x{tile[1]}"] = cuda_ms(
                 lambda: _fused_segment_cuda(frames, bg0, tile=tile, **kw), 5)
+    # a static scene (every frame the plate): no foreground, so no tile runs
+    # the morphology; the difference to k1_ms is what the clip's
+    # foreground tiles add
+    static = torch.from_numpy(np.rint(plate).astype(np.uint8)).to(dev).expand(256, -1, -1)
+    static = static.contiguous()
+    t["static_scene_foreground_px"] = int(fused_segment(static, bg0, **BENCH_KW)[0].count_nonzero())
+    t["k1_ms_static_scene"] = cuda_ms(lambda: fused_segment(static, bg0, **BENCH_KW), 5)
     say("k1_timing", card=card, batch=256, shape=[1080, 1920], bit_equal=True, **t)
     return 0
 

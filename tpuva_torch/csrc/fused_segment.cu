@@ -74,22 +74,6 @@ constexpr int kThreads = kTX * kTY;
 constexpr int kMinBlocks = 4;  // CTAs an SM the register budget must allow (64 registers)
 constexpr int kMaxSmem = 227 * 1024;
 
-struct SegParams {
-  int N, H, W;
-  float c1, a, thr;
-  int ntaps, shift;
-  int taps[kMaxTaps];
-  int rm;                         // median radius: 0 or 1
-  int stage_k[4];                 // SE size per stage, 0 = skip
-  int stage_iters[4];
-  unsigned stage_se[4][kMaxSE];   // per-row SE bitmask (bit dx)
-  int P, Rm, TH, TW;
-  int seed_bg;
-  int emit_diff;                  // 1: write rint(|F - B|), not the mask
-  int vec;                        // bytes per output store: 16, 4 or 1
-  int vin;                        // bytes per cp.async of the window: 16 or 4; 1 = no cp.async
-};
-
 __host__ __device__ constexpr size_t up16(size_t v) { return (v + 15) & ~size_t(15); }
 __host__ __device__ constexpr int cdiv(int a, int b) { return (a + b - 1) / b; }
 
@@ -105,33 +89,53 @@ __host__ __device__ inline int bg_regs_kind(int MH, int MW) {
   return (cx <= 2 && seg <= 8) ? 1 : (cx <= 3 && seg <= 5) ? 2 : 0;
 }
 
-// Shared-memory layout, shared by host (size) and device (carving). Mirrored
+// Shared-memory layout, computed on the host (size) and passed to the
+// kernel in its parameters (carving). Mirrored
 // by ops/fused_segment.py::smem_bytes; keep the two in step.
 struct Layout {
-  int WH, WW, RP, BH, BW, MH, MW, MP, ox;
-  size_t raw0, raw1, hs, blur, bg, m0, m1, rowoff, colidx, total;
-  __host__ __device__ Layout(int TH, int TW, int P, int Rm, int rm) {
+  int WH, WW, RP, BH, BW, HP, MH, MW, MP, ox;
+  int raw0, raw1, hs, blur, bg, m0, m1, rowoff, colidx, total;  // byte offsets
+  Layout() = default;
+  Layout(int TH, int TW, int P, int Rm, int rm) {
     WH = TH + 2 * P;          // raw window
     WW = TW + 2 * P;
     RP = static_cast<int>(up16(size_t(WW) + 15));  // window row pitch: 16-byte chunks
     BH = TH + 2 * (Rm + rm);  // blurred region
     BW = TW + 2 * (Rm + rm);
+    HP = (BW + 3) & ~3;       // row-sum pitch: whole 4-column groups
     MH = TH + 2 * Rm;         // background / mask region
     MW = TW + 2 * Rm;
     ox = (16 - Rm % 16) % 16;  // mask column x sits at ox + x: owned x = Rm aligned
     MP = static_cast<int>(up16(size_t(ox) + MW));
     size_t off = 0;
-    raw0 = off;   off += up16(size_t(WH) * RP);
-    raw1 = off;   off += up16(size_t(WH) * RP);
-    hs = off;     off += up16(size_t(WH) * BW * 2);
-    blur = off;   off += rm ? up16(size_t(BH) * BW) : 0;
-    bg = off;     off += bg_regs_kind(MH, MW) ? 0 : up16(size_t(MH) * MW * 4);
-    m0 = off;     off += up16(size_t(MH) * MP);
-    m1 = off;     off += up16(size_t(MH) * MP);
-    rowoff = off; off += up16(size_t(WH) * 4);
-    colidx = off; off += up16(size_t(WW) * 4);
-    total = off;
+    raw0 = static_cast<int>(off);   off += up16(size_t(WH) * RP);
+    raw1 = static_cast<int>(off);   off += up16(size_t(WH) * RP);
+    hs = static_cast<int>(off);     off += up16(size_t(WH) * HP * 2);
+    blur = static_cast<int>(off);   off += rm ? up16(size_t(BH) * BW) : 0;
+    bg = static_cast<int>(off);     off += bg_regs_kind(MH, MW) ? 0 : up16(size_t(MH) * MW * 4);
+    m0 = static_cast<int>(off);     off += up16(size_t(MH) * MP);
+    m1 = static_cast<int>(off);     off += up16(size_t(MH) * MP);
+    rowoff = static_cast<int>(off); off += up16(size_t(WH) * 4);
+    colidx = static_cast<int>(off); off += up16(size_t(WW) * 4);
+    total = static_cast<int>(off);
   }
+};
+
+struct SegParams {
+  int N, H, W;
+  float c1, a, thr;
+  int ntaps, shift;
+  int taps[kMaxTaps];
+  int rm;                         // median radius: 0 or 1
+  int stage_k[4];                 // SE size per stage, 0 = skip
+  int stage_iters[4];
+  unsigned stage_se[4][kMaxSE];   // per-row SE bitmask (bit dx)
+  int P, Rm, TH, TW;
+  int seed_bg;
+  int emit_diff;                  // 1: write rint(|F - B|), not the mask
+  int vec;                        // bytes per output store: 16, 4 or 1
+  int vin;                        // bytes per cp.async of the window: 16 or 4; 1 = no cp.async
+  Layout L;                       // from the host: read from the constant bank, no registers
 };
 
 // Source index of position i on an axis of length n under REFLECT_101,
@@ -196,7 +200,7 @@ __device__ __forceinline__ int round_shift(int acc, int shift) {
 // Reads outside the image see the op's identity (cv2's constant border);
 // reads outside the M region see it too, which only disturbs the band that
 // the reach bookkeeping discards.
-__device__ void morph_step(const uint8_t* in, uint8_t* out, const Layout& L,
+__device__ __forceinline__ void morph_step(const uint8_t* in, uint8_t* out, const Layout& L,
                            int oy, int ox, int H, int W, int k,
                            const unsigned* se, bool erode) {
   const int r = k >> 1;
@@ -228,7 +232,7 @@ __device__ void morph_step(const uint8_t* in, uint8_t* out, const Layout& L,
 // writes outside the region less its radius is in the band the reach
 // bookkeeping discards, and every read stays inside the shared memory that
 // precedes and follows the buffer.
-__device__ void morph_step_inside(const uint8_t* in, uint8_t* out, const Layout& L, int k,
+__device__ __forceinline__ void morph_step_inside(const uint8_t* in, uint8_t* out, const Layout& L, int k,
                                   const unsigned* se, bool erode) {
   const int r = k >> 1;
   const int ng = L.MP >> 2;  // words a row
@@ -285,7 +289,7 @@ fused_segment_kernel(const uint8_t* __restrict__ frames,
   extern __shared__ __align__(16) unsigned char smem[];
   const int H = p.H, W = p.W, P = p.P, Rm = p.Rm, rm = p.rm;
   const int TH = p.TH, TW = p.TW;
-  const Layout L(TH, TW, P, Rm, rm);
+  const Layout& L = p.L;
   uint8_t* raws[2] = {smem + L.raw0, smem + L.raw1};
   uint16_t* hs = reinterpret_cast<uint16_t*>(smem + L.hs);
   uint8_t* blur = smem + L.blur;
@@ -405,9 +409,42 @@ fused_segment_kernel(const uint8_t* __restrict__ frames,
       __syncthreads();
     }
     // 2. row pass: window rows, B columns (B col c is window col c + nt/2)
-    for (int r = ty; r < L.WH; r += kTY)
-      for (int c = tx; c < L.BW; c += kTX)
-        hs[r * L.BW + c] = (uint16_t)row_sum<NT>(win + r * L.RP + c, p);
+    if constexpr (NT > 0) {
+      // four columns a thread: the window bytes they need as aligned words,
+      // funnel-shifted by the window's offset in its word, then unpacked
+      constexpr int NQ = (NT + 6) / 4;  // shifted words: bytes 0 .. NT + 2
+      const int s8 = 8 * (xoff & 3);
+      const int groups = L.HP >> 2;
+      for (int r = ty; r < L.WH; r += kTY) {
+        const uint32_t* rw = reinterpret_cast<const uint32_t*>(raw + r * L.RP + (xoff & ~3));
+        uint32_t* hw = reinterpret_cast<uint32_t*>(hs + r * L.HP);
+        for (int g = tx; g < groups; g += kTX) {
+          uint32_t w[NQ + 1];
+#pragma unroll
+          for (int q = 0; q <= NQ; ++q) w[q] = rw[g + q];
+          int b[4 * NQ];
+#pragma unroll
+          for (int q = 0; q < NQ; ++q) {
+            const uint32_t v = __funnelshift_r(w[q], w[q + 1], s8);
+#pragma unroll
+            for (int e = 0; e < 4; ++e) b[4 * q + e] = (v >> (8 * e)) & 0xffu;
+          }
+          int o[4];
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            o[i] = 0;
+#pragma unroll
+            for (int k = 0; k < NT; ++k) o[i] += p.taps[k] * b[i + k];
+          }
+          hw[2 * g] = uint32_t(o[0]) | (uint32_t(o[1]) << 16);
+          hw[2 * g + 1] = uint32_t(o[2]) | (uint32_t(o[3]) << 16);
+        }
+      }
+    } else {
+      for (int r = ty; r < L.WH; r += kTY)
+        for (int c = tx; c < L.BW; c += kTX)
+          hs[r * L.HP + c] = (uint16_t)row_sum<NT>(win + r * L.RP + c, p);
+    }
     __syncthreads();
 
     // background update of M pixel (y, x), background b, filtered value f,
@@ -440,7 +477,7 @@ fused_segment_kernel(const uint8_t* __restrict__ frames,
             int ring[NT ? NT : 1];
             if constexpr (NT > 0) {
 #pragma unroll
-              for (int k = 1; k < NT; ++k) ring[k] = col[(vr0 + k - 1) * L.BW];
+              for (int k = 1; k < NT; ++k) ring[k] = col[(vr0 + k - 1) * L.HP];
             }
 #pragma unroll
             for (int i = 0; i < SEG; ++i) {
@@ -450,11 +487,11 @@ fused_segment_kernel(const uint8_t* __restrict__ frames,
                 if constexpr (NT > 0) {
 #pragma unroll
                   for (int k = 0; k + 1 < NT; ++k) ring[k] = ring[k + 1];
-                  ring[NT - 1] = col[(r + NT - 1) * L.BW];
+                  ring[NT - 1] = col[(r + NT - 1) * L.HP];
 #pragma unroll
                   for (int k = 0; k < NT; ++k) acc += p.taps[k] * ring[k];
                 } else {
-                  for (int k = 0; k < nt; ++k) acc += p.taps[k] * col[(r + k) * L.BW];
+                  for (int k = 0; k < nt; ++k) acc += p.taps[k] * col[(r + k) * L.HP];
                 }
                 any |= update(r, c, bgr[j][i], round_shift(acc, shift));
               }
@@ -470,18 +507,18 @@ fused_segment_kernel(const uint8_t* __restrict__ frames,
         int ring[NT ? NT : 1];
         if constexpr (NT > 0) {
 #pragma unroll
-          for (int k = 1; k < NT; ++k) ring[k] = col[(vr0 + k - 1) * L.BW];
+          for (int k = 1; k < NT; ++k) ring[k] = col[(vr0 + k - 1) * L.HP];
         }
         for (int r = vr0; r < vr1; ++r) {
           int acc = 0;
           if constexpr (NT > 0) {
 #pragma unroll
             for (int k = 0; k + 1 < NT; ++k) ring[k] = ring[k + 1];
-            ring[NT - 1] = col[(r + NT - 1) * L.BW];
+            ring[NT - 1] = col[(r + NT - 1) * L.HP];
 #pragma unroll
             for (int k = 0; k < NT; ++k) acc += p.taps[k] * ring[k];
           } else {
-            for (int k = 0; k < nt; ++k) acc += p.taps[k] * col[(r + k) * L.BW];
+            for (int k = 0; k < nt; ++k) acc += p.taps[k] * col[(r + k) * L.HP];
           }
           const int v = round_shift(acc, shift);
           if (rm) blur[r * L.BW + c] = (uint8_t)v;
@@ -613,12 +650,12 @@ extern "C" int tpuva_fused_segment_occupancy(int ntaps, int median, int Rm,
     return static_cast<int>(cudaErrorInvalidValue);
   const int rm = median ? 1 : 0;
   const Layout L(tile_h, tile_w, ntaps / 2 + rm + Rm, Rm, rm);
-  *smem_bytes = static_cast<int>(L.total);
+  *smem_bytes = L.total;
   *blocks_per_sm = 0;
-  if (L.total > size_t(kMaxSmem)) return 0;
+  if (L.total > kMaxSmem) return 0;
   const KernelFn k = kernel_for(ntaps, L);
   cudaError_t err = cudaFuncSetAttribute(k, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         static_cast<int>(L.total));
+                                         L.total);
   if (err == cudaSuccess)
     err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks_per_sm, k, kThreads, L.total);
   return static_cast<int>(err);
@@ -669,11 +706,12 @@ extern "C" int tpuva_fused_segment(
   p.vec = (out16 && W % 16 == 0) ? 16 : (out16 && W % 4 == 0) ? 4 : 1;
   const uintptr_t in_addr = reinterpret_cast<uintptr_t>(frames);
   p.vin = (in_addr % 16 == 0 && W % 16 == 0) ? 16 : (in_addr % 4 == 0 && W % 4 == 0) ? 4 : 1;
-  const Layout L(tile_h, tile_w, p.P, p.Rm, p.rm);
-  if (L.total > size_t(kMaxSmem)) return static_cast<int>(cudaErrorInvalidConfiguration);
+  p.L = Layout(tile_h, tile_w, p.P, p.Rm, p.rm);
+  const Layout& L = p.L;
+  if (L.total > kMaxSmem) return static_cast<int>(cudaErrorInvalidConfiguration);
   const KernelFn k = kernel_for(ntaps, L);
   cudaError_t err = cudaFuncSetAttribute(k, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         static_cast<int>(L.total));
+                                         L.total);
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid((W + tile_w - 1) / tile_w, (H + tile_h - 1) / tile_h);
   k<<<grid, dim3(kTX, kTY), L.total, static_cast<cudaStream_t>(stream)>>>(

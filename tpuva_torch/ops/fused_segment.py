@@ -82,10 +82,11 @@ def smem_bytes(tile_h: int, tile_w: int, ntaps: int, median: bool, rm_reach: int
     WH, WW = tile_h + 2 * P, tile_w + 2 * P
     RP = _up16(WW + 15)
     BH, BW = tile_h + 2 * (rm_reach + rm), tile_w + 2 * (rm_reach + rm)
+    HP = (BW + 3) & ~3
     MH, MW = tile_h + 2 * rm_reach, tile_w + 2 * rm_reach
     MP = _up16((16 - rm_reach % 16) % 16 + MW)
     bg = 0 if bg_regs_kind(tile_h, tile_w, rm_reach) else _up16(MH * MW * 4)
-    return (2 * _up16(WH * RP) + _up16(WH * BW * 2) + (_up16(BH * BW) if rm else 0)
+    return (2 * _up16(WH * RP) + _up16(WH * HP * 2) + (_up16(BH * BW) if rm else 0)
             + bg + 2 * _up16(MH * MP) + _up16(WH * 4) + _up16(WW * 4))
 
 
