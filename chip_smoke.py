@@ -260,7 +260,7 @@ def k1_plans(H, W, configs):
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     out = {}
     for name, kw in configs:
-        p = fused_segment_plan(H, W, blocks_per_sm=card_blocks_per_sm, **kw)
+        p = fused_segment_plan(H, W, blocks_per_sm=card_blocks_per_sm, sms=sms, **kw)
         out[name] = dict(tile=list(p.tile), grid=list(p.grid), blocks_per_sm=p.blocks_per_sm,
                          waves=p.waves, smem_bytes=p.smem, sms=sms)
     return out

@@ -20,41 +20,60 @@
 // Order. The TPU kernel relies on a grid that runs in order on one core;
 // here one CTA owns a TH x TW tile and walks the N frames in order itself
 // (the background recurrence is the only sequential dependency), keeping
-// the background of its owned region plus the morphology reach Rm in
-// shared memory for the whole batch. Each frame it loads the u8 window
-// (owned + P on each side, P = blur_r + median_r + Rm) and runs every stage
-// on a region that shrinks by that stage's reach, so the owned pixels come
-// out exact. Background halo pixels are updated redundantly by
-// neighbouring CTAs with identical arithmetic; only owned pixels are
-// written. Tiles with no foreground skip morphology: open and close of an
-// all-zero tile are zero under cv2's borders.
+// the background of its owned region plus the morphology reach Rm for the
+// whole batch. Each frame it takes the u8 window (owned + P on each side,
+// P = blur_r + median_r + Rm) and runs every stage on a region that
+// shrinks by that stage's reach, so the owned pixels come out exact.
+// Background halo pixels are updated redundantly by neighbouring CTAs with
+// identical arithmetic; only owned pixels are written. Tiles with no
+// foreground skip morphology: open and close of an all-zero tile are zero
+// under cv2's borders.
 //
 // What bounds it on an H100: the data moved is 1 B read + 1 B written per
 // pixel per frame (1.06 GB per 256-frame 1080p batch, 0.32 ms at
 // 3.35 TB/s); the bench config's ~42 scalar operations a pixel take about
-// as long at 67 T/s. So issue slots are the budget, and the design spends
-// few of them outside the blur and the update:
+// as long at 67 T/s. Neither binds: a CTA's frame is a chain of stages
+// behind three barriers, and the kernel is bound by that latency with 32
+// warps an SM. The design:
 // - 32 x 8 threads; every index inside the frame loop comes from
 //   threadIdx and loop counters (no division or modulo by a runtime value
 //   there). The REFLECT_101 row offsets and column indices of the window,
 //   with as many reflections as the reach needs, are built once per CTA
 //   into shared-memory tables; interior tiles take a CTA-uniform straight
-//   path without them.
+//   path without them. The layout of shared memory is computed on
+//   the host and read from the kernel's parameters (no registers).
+// - The window is double-buffered: frame t + 1's rows go out as cp.async
+//   copies (16 bytes where the rows are 16-byte aligned, else 4, else
+//   plain byte loads without prefetch) while frame t computes, one
+//   wait_group and one barrier a frame. Each window row copies the aligned
+//   chunks of its REFLECT_101 source row that cover the window's in-image
+//   columns; tiles at the left or right edge then copy their reflected
+//   columns from inside the window (TMA would fill them with zeros).
 // - The tap count is a template parameter (1, 3, 5, 7, and a generic
 //   instantiation for 9..63): the tap loops unroll and read the taps as
-//   constant-bank operands. The row pass writes uint16 sums (at most 255 * 256); the
-//   column pass slides down a column segment per thread with a ring of
-//   ntaps row sums in registers, and without a median it updates the
-//   background and thresholds the pixel in the same pass.
+//   constant-bank operands. The row pass makes four uint16 sums (at most
+//   255 * 256) a thread from aligned words of the window; the column pass
+//   slides down a column segment per thread with a ring of ntaps row sums
+//   in registers, and without a median it updates the background and
+//   thresholds the pixel in the same pass.
+// - The background lives in registers where a thread's share of the M
+//   region fits <CX, SEG> (bg_regs_kind: 32 x 64 tiles with morphology,
+//   64 x 64 without): each thread owns the same pixels for the whole
+//   batch, updates them in place and writes the owned ones out once at
+//   the end. Larger regions keep it in shared memory.
 // - Owned pixels leave 16 (or 4) bytes a store when the image rows are
 //   16- (or 4-) byte aligned, a byte at a time otherwise: the mask buffer
 //   is laid out so that the owned region starts 16-byte aligned.
-// - The tile is chosen on the host (ops/fused_segment.py::launch_plan) from
-//   cudaOccupancyMaxActiveBlocksPerMultiprocessor for the instantiation,
-//   so that the grid fits in as few waves of the 132 SMs as it can
-//   (PERF.md gives the choice at 1080p with ptxas's registers).
+// - Registers are capped at 64 (four CTAs an SM); the tile is chosen on
+//   the host (ops/fused_segment.py::launch_plan) from
+//   cudaOccupancyMaxActiveBlocksPerMultiprocessor for the instantiation:
+//   the least rounds x window area. At 1080p the diff emit takes 64 x 64
+//   tiles in one wave; the mask emit 32 x 64 in two, since a tile holding
+//   foreground runs the morphology in every frame and a 64 x 64 one made
+//   that CTA the kernel's longest (PERF.md has the times per tile).
 // Morphology keeps its algorithm: erode and dilate in shared memory over
-// the M region, one thread per element, only in tiles with foreground.
+// the M region, only in tiles with foreground; where the M region lies
+// inside the image a thread takes four mask bytes at once (__vminu4).
 //
 // Exactness: built with --fmad=false and never with fast math; the
 // background update uses __fmul_rn/__fadd_rn; the blur is integer code (a
@@ -179,16 +198,10 @@ __device__ __forceinline__ int median9(int* p) {
   return p[4];
 }
 
-// One row of the row pass: out[c] = sum_k taps[k] * in[c + k].
-template <int NT>
+// One sum of the generic row pass: sum_k taps[k] * in[k].
 __device__ __forceinline__ int row_sum(const uint8_t* in, const SegParams& p) {
   int acc = 0;
-  if constexpr (NT > 0) {
-#pragma unroll
-    for (int k = 0; k < NT; ++k) acc += p.taps[k] * int(in[k]);
-  } else {
-    for (int k = 0; k < p.ntaps; ++k) acc += p.taps[k] * int(in[k]);
-  }
+  for (int k = 0; k < p.ntaps; ++k) acc += p.taps[k] * int(in[k]);
   return acc;
 }
 
@@ -366,7 +379,7 @@ fused_segment_kernel(const uint8_t* __restrict__ frames,
     const uint8_t* fr = frames + size_t(t) * HW + cs;
     uint8_t* dst = raw + (cs - wx0a);
     for (int r = chr0; r < L.WH; r += chrs) {
-      const uint8_t* src = fr + rowoff[r];
+      const uint8_t* src = fr + (interior ? (wy0 + r) * W : rowoff[r]);
       uint8_t* d = dst + r * L.RP;
       for (int j = ch0; j < nch; j += lanes) {
         if (vin == 16) cp_async<16>(d + 16 * j, src + 16 * j);
@@ -443,7 +456,7 @@ fused_segment_kernel(const uint8_t* __restrict__ frames,
     } else {
       for (int r = ty; r < L.WH; r += kTY)
         for (int c = tx; c < L.BW; c += kTX)
-          hs[r * L.HP + c] = (uint16_t)row_sum<NT>(win + r * L.RP + c, p);
+          hs[r * L.HP + c] = (uint16_t)row_sum(win + r * L.RP + c, p);
     }
     __syncthreads();
 

@@ -7,14 +7,16 @@ fused_segment`` (without ``padded_occ``). Per frame: u8 Gaussian blur
 
 - ``"mask"``: ``|F - B| > thr`` -> open -> close (cv2 constant borders);
 - ``"diff"``: ``clip(rint(|F - B|), 0, 255)`` as uint8, no threshold and
-  no morphology — the staged Otsu route's front end, whose threshold is a
+  no morphology — the Otsu routes' front end, whose threshold is a
   per-frame statistic of these magnitudes.
 
 - CUDA tensors launch ``csrc/fused_segment.cu``: one CTA per spatial tile
-  walks the N frames in order with the tile's background in shared
-  memory (see the source for the design and what bounds it). The tile and
-  the kernel's instantiation come from ``launch_plan``, a pure function of
-  the shapes and options, fed the card's occupancy for each candidate.
+  walks the N frames in order with the tile's background in registers or
+  shared memory, the next frame's window copied in while a frame computes
+  (see the source for the design and what bounds it). The tile and the
+  kernel's instantiation come from ``launch_plan``, a pure function of the
+  shapes and options, fed the card's occupancy for each candidate
+  (``card_blocks_per_sm``).
 - CPU tensors take the plain version, ``fused_segment_plain``: the op
   chain of tpuva's ``process_batch`` jnp branch (graph/pipeline.py).
 
@@ -289,14 +291,16 @@ def _stages(open_shape, open_ksize, open_iters, close_shape, close_ksize, close_
 def fused_segment_plan(H: int, W: int, *, blur_ksize: int = 0, blur_sigma: float = 0.0,
                        median_ksize: int = 0, open_ksize: int = 0, open_iters: int = 1,
                        close_ksize: int = 0, close_iters: int = 1,
-                       blocks_per_sm: Optional[Callable[..., int]] = None, **_unused) -> Plan:
+                       blocks_per_sm: Optional[Callable[..., int]] = None, sms: int = SMS,
+                       **_unused) -> Plan:
     """launch_plan for fused_segment's options on an (H, W) image; pass
-    blocks_per_sm=card_blocks_per_sm for the card's occupancy (the
-    wrapper does), or nothing for the shared-memory model."""
+    blocks_per_sm=card_blocks_per_sm and the card's SM count for the card
+    (the wrapper does), or nothing for the shared-memory model of an H100
+    SXM. Options that do not shape the launch are ignored."""
     ntaps = len(blur_taps(blur_ksize, blur_sigma)[0]) if blur_ksize else 1
     reach = sum((k // 2) * it for k, it in ((open_ksize, open_iters), (close_ksize, close_iters))
                 if k) * 2
-    return launch_plan(H, W, ntaps, bool(median_ksize), reach, blocks_per_sm)
+    return launch_plan(H, W, ntaps, bool(median_ksize), reach, blocks_per_sm, sms)
 
 
 def _fused_segment_cuda(frames, bg0, *, alpha, threshold, blur_ksize=0, blur_sigma=0.0,
@@ -319,7 +323,8 @@ def _fused_segment_cuda(frames, bg0, *, alpha, threshold, blur_ksize=0, blur_sig
         tile = fused_segment_plan(
             H, W, blur_ksize=blur_ksize, blur_sigma=blur_sigma, median_ksize=median_ksize,
             open_ksize=open_ksize, open_iters=open_iters, close_ksize=close_ksize,
-            close_iters=close_iters, blocks_per_sm=card_blocks_per_sm).tile
+            close_iters=close_iters, blocks_per_sm=card_blocks_per_sm,
+            sms=torch.cuda.get_device_properties(frames.device).multi_processor_count).tile
     stage_k = np.array([k for _, k, _ in stages], np.int32)
     stage_iters = np.array([it if k else 0 for _, k, it in stages], np.int32)
     stage_se = np.zeros((4, MAX_SE), np.uint32)
