@@ -33,8 +33,9 @@
 // pixel per frame (1.06 GB per 256-frame 1080p batch, 0.32 ms at
 // 3.35 TB/s); the bench config's ~42 scalar operations a pixel take about
 // as long at 67 T/s. Neither binds: a CTA's frame is a chain of stages
-// behind three barriers, and the kernel is bound by that latency with 32
-// warps an SM. The design:
+// behind two barriers (row sums ready, the foreground vote; more in tiles
+// at an edge or with foreground), and the kernel is bound by that latency
+// with 32 warps an SM. The design:
 // - 32 x 8 threads; every index inside the frame loop comes from
 //   threadIdx and loop counters (no division or modulo by a runtime value
 //   there). The REFLECT_101 row offsets and column indices of the window,
@@ -44,8 +45,9 @@
 //   the host and read from the kernel's parameters (no registers).
 // - The window is double-buffered: frame t + 1's rows go out as cp.async
 //   copies (16 bytes where the rows are 16-byte aligned, else 4, else
-//   plain byte loads without prefetch) while frame t computes, one
-//   wait_group and one barrier a frame. Each window row copies the aligned
+//   plain byte loads without prefetch) while frame t computes; one
+//   wait_group a frame, before the foreground vote, whose barrier also
+//   serves as the window's. Each window row copies the aligned
 //   chunks of its REFLECT_101 source row that cover the window's in-image
 //   columns; tiles at the left or right edge then copy their reflected
 //   columns from inside the window (TMA would fill them with zeros).
@@ -178,8 +180,8 @@ __device__ __forceinline__ void cp_async(void* dst, const void* src) {
 __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;\n" ::: "memory");
 }
-__device__ __forceinline__ void cp_async_wait_prev() {  // all groups but the newest
-  asm volatile("cp.async.wait_group 1;\n" ::: "memory");
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
 }
 
 __device__ __forceinline__ void sort2(int* p, int i, int j) {
@@ -372,7 +374,6 @@ fused_segment_kernel(const uint8_t* __restrict__ frames,
         }
     }
   }
-  __syncthreads();
 
   // copies of frame t's window into raw (cp.async; one commit group)
   auto issue = [&](uint8_t* raw, int t) {
@@ -388,16 +389,19 @@ fused_segment_kernel(const uint8_t* __restrict__ frames,
     }
     cp_async_commit();
   };
-  if (vin > 1) issue(raws[0], 0);
+  if (vin > 1) {
+    issue(raws[0], 0);
+    cp_async_wait_all();
+  }
+  __syncthreads();
 
   for (int t = 0; t < p.N; ++t) {
     const bool first = p.seed_bg && t == 0;
     uint8_t* raw = raws[t & 1];
-    // 1. u8 window: frame t + 1's copies go out while frame t computes
+    // 1. u8 window: frame t's copies landed before the last frame's vote
+    // barrier; frame t + 1's go out now, into the buffer frame t - 1 read
     if (vin > 1) {
       if (t + 1 < p.N) issue(raws[(t + 1) & 1], t + 1);
-      else cp_async_commit();  // an empty group keeps wait_group 1 exact
-      cp_async_wait_prev();
     } else {
       const uint8_t* fr = frames + size_t(t) * HW;
       if (interior) {
@@ -410,8 +414,8 @@ fused_segment_kernel(const uint8_t* __restrict__ frames,
           for (int c = tx; c < L.WW; c += kTX) raw[r * L.RP + c] = src[colidx[c]];
         }
       }
+      __syncthreads();
     }
-    __syncthreads();
     const uint8_t* win = raw + xoff;
     if (colfix) {
       for (int r = ty; r < L.WH; r += kTY)
@@ -571,6 +575,8 @@ fused_segment_kernel(const uint8_t* __restrict__ frames,
           for (int y = mr0; y < mr1; ++y) any |= update(y, x, bg[y * L.MW + x], median_at(y, x));
       }
     }
+    // the foreground vote; its barrier also publishes frame t + 1's window
+    if (vin > 1) cp_async_wait_all();
     any = __syncthreads_or(any) && !diff;
     // 5. morphology, ping-pong over the M region
     int cur = 0;
