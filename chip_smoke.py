@@ -27,25 +27,38 @@ raises, so the exit code is non-zero:
    mixed scene of tpuva_torch.scenes and odd sizes; then
    connected_components_with_stats (labels, bbox, every field) on the card
    against the CPU on a (2, 1080, 1920) batch;
+5b. K5 (track_scan) against its plain version (on the CPU), bit for bit
+   (rows, row_valid, every state tensor): on the route's own batch-256
+   detections (the bench front end and K2 on the clip's two batches, the
+   second from the state the first leaves) and on the synthetic streams of
+   tpuva_torch.scenes.det_sequence (churn, empty, contested, crowd, cloud)
+   at three table shapes, both assigners, frames near 2^24, and one table
+   too large for shared memory (the global-scratch instantiation);
+5c. configs K1 does not take (open and close 7 x 10, median 3 with 5 x 10,
+   a 33-wide close, median 5, median 7 with Otsu) through process_clip on
+   both use_pallas values and StreamingPipeline on the card: no K1 launch,
+   one K5 launch a batch, rows, masks and background equal to the CPU run;
+   then a 1080p batch of 64 frames with median 7 through process_batch
+   on the card (the chunked median's sort), timed;
 6. the staged route: bench config at 1080p, batch 256, max_components 32,
    a 512-frame six-blob clip through process_clip(use_pallas=True) on
-   cuda (K1 + K2), with the launch counts read around it; its CSV bytes
+   cuda (K1 + K2 + K5), with the launch counts read around it; its CSV bytes
    equal the OpenCV reference's (REF_CSV_SHA256) and most rows lie within
    1 px of the clip's truth; a 48-frame sub-clip run on the CPU (plain
    versions) and on the card gives identical rows, masks, background and
    CSV bytes;
 7. the streamed default route: the same clip through
    StreamingPipeline(cfg, max_components=32).run(VideoMemory(clip)) on
-   cuda (front end K1, then K3 and the dense stats), launch counts read
-   around it: K1 and K3 launched, K2 not, CSV sha256 == REF_CSV_SHA256;
+   cuda (front end K1, then K3 and the dense stats, K5), launch counts read
+   around it: K1, K3 and K5 launched, K2 not, CSV sha256 == REF_CSV_SHA256;
    the same with
-   use_pallas=True (K1 + K2, no K3); a run stopped after its first
+   use_pallas=True (K1 + K2 + K5, no K3); a run stopped after its first
    checkpointed batch and resumed on the whole clip gives the same bytes;
    K3 against its plain version on the route's own batch-256 masks;
 7b. the Otsu routes: the bench config with threshold="otsu" on the same
    clip through process_clip(use_pallas=True) (K1's diff emit, K4, K2; no
    K3) and the streamed default route (K1's diff emit, K4, K3; no K2
-   launch), each run's CSV sha256 equal to REF_OTSU_CSV_SHA256;
+   launch), K5 on both, each run's CSV sha256 equal to REF_OTSU_CSV_SHA256;
    a 48-frame sub-clip on the CPU (plain versions) and on the card gives
    identical rows, masks and background;
 8. timing with CUDA events after warm-up at batch 256 and 1080p: K1, K2,
@@ -54,7 +67,9 @@ raises, so the exit code is non-zero:
    no route: it is the kernels' yardstick of correctness), K1's launch
    plan (tile, grid, CTAs resident per SM from the occupancy query,
    waves), K4 against torch.bincount over
-   frame-offset keys, the tracker, BatchStager's pinned staging per batch
+   frame-offset keys, K5 against its plain version on the route's
+   batch-256 detections, the whole tracker stage (_finish_batch:
+   extract_detections and K5), BatchStager's pinned staging per batch
    beside a pageable copy, and frames/s of process_clip, of both streamed
    routes (in turns, twice each) and of both Otsu routes, with the peak
    device memory of each streamed route.
@@ -68,6 +83,7 @@ build/chip_smoke/.
 
 from __future__ import annotations
 
+import dataclasses
 import hashlib
 import json
 import os
@@ -92,6 +108,8 @@ REPLACES = {
                            "tpuva/ops/pallas/fused_segment.py:145"),
     "histogram_u8": ("tpuva_torch/csrc/otsu.cu",
                      "tpuva/ops/filters.py:268"),
+    "track_scan": ("tpuva_torch/csrc/track.cu",
+                   "tpuva/graph/pipeline.py:341"),
 }
 BENCH_KW = dict(
     alpha=0.02, threshold=35.0, blur_ksize=5, blur_sigma=0.0,
@@ -109,6 +127,10 @@ K1_CONFIGS = {
 # candidates at 1080p and a two-wave one), to show which way the clip goes
 K1_TIMED_TILES = ((64, 64), (32, 128), (64, 128), (32, 64), (16, 64), (16, 128), (32, 32))
 MAX_COMPONENTS = 32
+# table shapes (max_tracks, max_blobs) of phase 5b's synthetic streams, and
+# the one whose arrays exceed a CTA's shared memory
+K5_SHAPES = ((16, 8), (3, 8), (64, 16))
+K5_GLOBAL_SHAPE = (600, 100)
 # sha256 of format_rows(rows) that the OpenCV reference pipeline
 # (refimpl.pipeline.run_pipeline, bench config, max_dist 80, Hungarian)
 # gives on the slice's clip with its plate: 3115 rows, 17 track ids. The
@@ -213,6 +235,16 @@ def k1_ops_per_px(kw):
     return ops
 
 
+def k5_ops(T, D, N):
+    """Least scalar operations of K5 for N frames of a (T, D) table: the
+    cost (two differences, two products, a sum, a root and a select an
+    entry), the fast path's column minimum and equality count (two an
+    entry), and about ten a slot and a detection for the update and the
+    row. Frames that take the Jonker-Volgenant search do more: this is the
+    least that every frame needs."""
+    return N * (9 * T * D + 10 * (T + D))
+
+
 STAT_KEYS = ("count", "area", "centroid", "centroid_sum")
 CC_KEYS = ("labels", "count", "area", "bbox", "centroid", "centroid_sum", "overflow")
 
@@ -227,6 +259,28 @@ def check_equal(err, kernel, pairs, where):
             raise AssertionError(
                 f"{kernel} {what} differs from its plain version ({where}): "
                 f"max abs err {e}")
+
+
+def check_track_scan(err, state, dets, valid, frame0, where, **kw):
+    """K5 on the card against track_scan_plain on the CPU from the same
+    state: rows, row_valid and every state tensor equal, float bits
+    included (so -0.0 is not +0.0). Returns the card's (state, rows,
+    row_valid)."""
+    from tpuva_torch.track.scan import track_scan, track_scan_plain
+    from tpuva_torch.track.table import TrackState
+
+    dev = torch.device("cuda")
+    ref = track_scan_plain(TrackState(*(x.cpu() for x in state)), dets.cpu(), valid.cpu(),
+                           frame0.cpu(), **kw)
+    got = track_scan(TrackState(*(x.to(dev) for x in state)), dets.to(dev), valid.to(dev),
+                     frame0.to(dev), **kw)
+    pairs = [(f"state.{n}", g.cpu(), r) for n, g, r in zip(TrackState._fields, got[0], ref[0])]
+    pairs += [("rows", got[1].cpu(), ref[1]), ("row_valid", got[2].cpu(), ref[2])]
+    check_equal(err, "track_scan", pairs, where)
+    for what, g, r in pairs:
+        if g.dtype == torch.float32 and not torch.equal(g.view(torch.int32), r.view(torch.int32)):
+            raise AssertionError(f"track_scan {what}: the sign of a zero differs ({where})")
+    return got
 
 
 def ptxas_summary(log):
@@ -321,8 +375,12 @@ def main():
     from tpuva_torch.ops.ccl import label_components_tiled, label_stats, label_sums_plain
     from tpuva_torch.ops.filters import histogram_u8, histogram_u8_plain
     from tpuva_torch.ops.fused_segment import fused_segment, fused_segment_plain
-    from tpuva_torch.ops.label import _assemble_stats, label_components
-    from tpuva_torch.scenes import mixed_scene, u_shape
+    from tpuva_torch.ops.label import _assemble_stats, extract_detections, label_components
+    from tpuva_torch.scenes import (
+        DET_KINDS, K1_REFUSED, det_sequence, k1_refused_config, mixed_scene, u_shape,
+    )
+    from tpuva_torch.track.scan import track_scan, track_scan_plain
+    from tpuva_torch.track.table import init_track_state
 
     os.makedirs(OUT_DIR, exist_ok=True)
     dev = torch.device("cuda")
@@ -351,7 +409,8 @@ def main():
     say("clip", seconds=round(time.time() - t0, 2), shape=list(clip.shape))
     err = {name: 0.0 for name in REPLACES}
     counters = {"fused_segment": fused_segment, "ccl_stats": label_stats,
-                "ccl_labels": label_components_tiled, "histogram_u8": histogram_u8}
+                "ccl_labels": label_components_tiled, "histogram_u8": histogram_u8,
+                "track_scan": track_scan}
 
     def reset_counts():
         for fn in counters.values():
@@ -459,8 +518,88 @@ def main():
         cc_stats_cuda_equals_cpu=list(CC_KEYS), cc_stats_shape=list(cc_batch.shape))
     del masks_k2, masks_k3
 
-    # 6. the staged route through the entry point
+    # 5b. K5 against its plain version, bit for bit: the route's own
+    # detections (bench front end and K2, two batches of 256), then the
+    # synthetic streams
     cfg = bench_cfg(config, 256)
+    t_kw = dict(max_dist=cfg.track.max_dist, death_patience=cfg.track.death_patience,
+                assigner=cfg.track.assigner)
+    state = init_track_state(cfg.track.max_tracks, dev)
+    bg = torch.from_numpy(plate.astype(np.float32)).to(dev)
+    route_rows = 0
+    for b in range(clip.shape[0] // 256):
+        masks_b, bg = fused_segment(torch.from_numpy(clip[256 * b:256 * (b + 1)]).to(dev), bg,
+                                    **_front_end_kwargs(cfg))
+        dets, _n, valid, _s = extract_detections(label_stats(masks_b, MAX_COMPONENTS),
+                                                 cfg.segment.min_area, cfg.segment.max_blobs)
+        if b == 0:
+            route_dets = (dets, valid)
+        state, _rows, rv = check_track_scan(err, state, dets, valid,
+                                            torch.tensor(256 * b, dtype=torch.int32),
+                                            f"route batch {b}", **t_kw)
+        route_rows += int(rv.sum())
+    del masks_b, bg
+    n_k5 = 0
+    for kind in DET_KINDS:
+        shapes = K5_SHAPES + ((K5_GLOBAL_SHAPE,) if kind == "cloud" else ())
+        for T, D in shapes:
+            n = 8 if (T, D) == K5_GLOBAL_SHAPE else 48
+            dets, valid = det_sequence(kind, D, frames=n, seed=T + D)
+            for assigner in ("greedy", "hungarian"):
+                check_track_scan(err, init_track_state(T, "cpu"), torch.from_numpy(dets),
+                                 torch.from_numpy(valid), torch.tensor(2**24 - 20, dtype=torch.int32),
+                                 f"{kind}, T={T}, D={D}, {assigner}", max_dist=40.0,
+                                 death_patience=3, assigner=assigner)
+                n_k5 += 1
+    say("k5_vs_plain", route_batches=clip.shape[0] // 256, route_rows=route_rows,
+        synthetic_scans=n_k5, kinds=list(DET_KINDS), shapes=[list(x) for x in K5_SHAPES],
+        global_scratch_shape=list(K5_GLOBAL_SHAPE), bit_equal=True)
+
+    # 5c. configs K1 does not take: the torch front end on the card, against
+    # the CPU; then a 1080p batch with median 7
+    small, _a, _t, small_plate = multi_blob_clip(160, 240, 16, n_blobs=2, radius=46.0,
+                                                 noise_sigma=2.0, seed=7)
+    refused = {}
+    for name in K1_REFUSED:
+        fcfg = k1_refused_config(bench_cfg(config, 8), name)
+        ref = process_clip(small, fcfg, background0=small_plate, max_components=MAX_COMPONENTS,
+                           return_masks=True, device="cpu")
+        for route in ("process_clip", "process_clip(use_pallas=True)", "StreamingPipeline"):
+            reset_counts()
+            if route == "StreamingPipeline":
+                rows = StreamingPipeline(fcfg, max_components=MAX_COMPONENTS).run(
+                    VideoMemory(small), background0=small_plate)
+                same = rows == ref[0]
+            else:
+                rows, c_gpu, m_gpu = process_clip(
+                    small, fcfg, background0=small_plate, max_components=MAX_COMPONENTS,
+                    return_masks=True, use_pallas=route.endswith("True)"), device="cuda")
+                same = (rows == ref[0] and np.array_equal(m_gpu, ref[2])
+                        and torch.equal(c_gpu.bg.cpu(), ref[1].bg))
+            torch.cuda.synchronize()
+            counts = read_counts()
+            if counts["fused_segment"] or counts["track_scan"] < 2:
+                raise AssertionError(f"{name} through {route}: launches {counts}")
+            if not same:
+                raise AssertionError(f"{name} through {route}: the card's run differs from the CPU's")
+        refused[name] = len(ref[0])
+    med7 = dataclasses.replace(cfg, median=config.MedianConfig(7), batch=64)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.time()
+    _c, out = process_batch(med7, init_carry(med7, 1080, 1920, plate, device=dev),
+                            torch.from_numpy(clip[:64]).to(dev), max_components=MAX_COMPONENTS)
+    med7_rows = int(out["row_valid"].sum())
+    med7_s = time.time() - t0
+    if not (out["rows"].shape == (64, 8, 5) and torch.isfinite(out["rows"]).all() and med7_rows):
+        raise AssertionError("median 7 at 1080p: no rows, or rows not finite")
+    say("k1_refused_configs", configs=refused, routes_equal_cpu=True, k1_launches=0,
+        median7_1080p_frames=64, median7_1080p_rows=med7_rows,
+        median7_1080p_seconds=round(med7_s, 3),
+        median7_1080p_peak_device_gib=torch.cuda.max_memory_allocated() / 2**30)
+    del out
+
+    # 6. the staged route through the entry point
     reset_counts()
     t0 = time.time()
     rows, _carry, _ = process_clip(clip, cfg, background0=plate,
@@ -468,7 +607,8 @@ def main():
     torch.cuda.synchronize()
     slice_s = time.time() - t0
     staged_counts = read_counts()
-    if staged_counts["fused_segment"] < 1 or staged_counts["ccl_stats"] < 1:
+    if min(staged_counts["fused_segment"], staged_counts["ccl_stats"],
+           staged_counts["track_scan"]) < 2:
         raise AssertionError(f"a kernel of the staged route was not launched: {staged_counts}")
     csv_full = format_rows(rows).encode()
     if hashlib.sha256(csv_full).hexdigest() != REF_CSV_SHA256:
@@ -537,12 +677,13 @@ def main():
         return data, s, counts, peak
 
     _csv, stream_s, default_counts, default_peak = stream("default")
-    if (min(default_counts["ccl_labels"], default_counts["fused_segment"]) < 2
-            or default_counts["ccl_stats"]):
+    if (min(default_counts["ccl_labels"], default_counts["fused_segment"],
+            default_counts["track_scan"]) < 2 or default_counts["ccl_stats"]):
         raise AssertionError(f"streamed default route launches: {default_counts}")
     _csv, stream_staged_s, stream_staged_counts, staged_peak = stream("staged", use_pallas=True)
-    if (stream_staged_counts["ccl_labels"] or stream_staged_counts["fused_segment"] < 2
-            or stream_staged_counts["ccl_stats"] < 2):
+    if (stream_staged_counts["ccl_labels"] or min(stream_staged_counts["fused_segment"],
+                                                  stream_staged_counts["ccl_stats"],
+                                                  stream_staged_counts["track_scan"]) < 2):
         raise AssertionError(f"streamed use_pallas route launches: {stream_staged_counts}")
     ckpt = os.path.join(OUT_DIR, "stream_ckpt.npz")
     if os.path.exists(ckpt):
@@ -605,11 +746,13 @@ def main():
 
     otsu_rows, otsu_staged_s, otsu_staged_counts = otsu_run("otsu_staged", otsu_staged)
     if (min(otsu_staged_counts["fused_segment"], otsu_staged_counts["histogram_u8"],
-            otsu_staged_counts["ccl_stats"]) < 2 or otsu_staged_counts["ccl_labels"]):
+            otsu_staged_counts["ccl_stats"], otsu_staged_counts["track_scan"]) < 2
+            or otsu_staged_counts["ccl_labels"]):
         raise AssertionError(f"staged Otsu route launches: {otsu_staged_counts}")
     _rows, otsu_stream_s, otsu_stream_counts = otsu_run("otsu_stream", otsu_stream)
     if (min(otsu_stream_counts["fused_segment"], otsu_stream_counts["histogram_u8"],
-            otsu_stream_counts["ccl_labels"]) < 2 or otsu_stream_counts["ccl_stats"]):
+            otsu_stream_counts["ccl_labels"], otsu_stream_counts["track_scan"]) < 2
+            or otsu_stream_counts["ccl_stats"]):
         raise AssertionError(f"streamed Otsu route launches: {otsu_stream_counts}")
     sub_otsu = bench_cfg(config, 16, "otsu")
     rows_cpu, carry_cpu, masks_cpu = process_clip(
@@ -680,7 +823,13 @@ def main():
     carry0 = init_carry(cfg, 1080, 1920, plate, device=dev)
     stats = label_stats(masks, MAX_COMPONENTS)
     t["tracker_ms"] = cuda_ms(
-        lambda: _finish_batch(cfg, carry0, stats, masks, bg_last, False), 2)
+        lambda: _finish_batch(cfg, carry0, stats, masks, bg_last, False), reps)
+    # K5 on the route's first batch of detections (phase 5b), from the
+    # empty table, against the loop of torch ops the route ran before it
+    k5_args = (carry0.track, *route_dets, carry0.frame_idx)
+    t["k5_ms"] = cuda_ms(lambda: track_scan(*k5_args, **t_kw), reps)
+    t["k5_us_per_frame"] = 1e3 * t["k5_ms"] / N
+    t["k5_plain_ms"] = cuda_ms(lambda: track_scan_plain(*k5_args, **t_kw), 2)
     # staging: pinned ring + side stream (BatchStager) over six batches,
     # the interval between consecutive batches ready on the card; and a
     # pageable copy of one batch
@@ -721,8 +870,6 @@ def main():
                             clip.shape[0] / otsu_run("otsu_staged", otsu_staged)[1]]
     t["otsu_stream_fps"] = [clip.shape[0] / otsu_stream_s,
                             clip.shape[0] / otsu_run("otsu_stream", otsu_stream)[1]]
-    say("timing", card=card, batch=N, shape=[1080, 1920], kernels_bit_equal_at_batch_256=True, **t)
-
     px = masks.numel()
     bounds = {
         # frames read, masks written, background read and written once
@@ -737,17 +884,28 @@ def main():
                                     k1_ops_per_px(diff_kw) * du8.numel()),
         # the magnitudes read, the int32 counts written; one add a pixel
         "histogram_u8": bound(du8.numel() + 4 * 256 * N, du8.numel()),
+        # detections (12 B) and valid flags read, rows (20 B) and flags
+        # written, the state read and written once
+        "track_scan": bound(route_dets[0].numel() * 4 + route_dets[1].numel()
+                            + route_dets[1].numel() * (20 + 1)
+                            + 2 * (cfg.track.max_tracks * 17 + 4),
+                            k5_ops(cfg.track.max_tracks, cfg.segment.max_blobs, N)),
     }
+    t["k5_bound_ms"] = bounds["track_scan"][0]
+    say("timing", card=card, batch=N, shape=[1080, 1920], kernels_bit_equal_at_batch_256=True, **t)
+
     timed = {"fused_segment": ("k1_ms", "k1_plain_ms"), "ccl_stats": ("k2_ms", "k2_plain_ms"),
              "ccl_labels": ("k3_ms", "k3_plain_ms"),
              "fused_segment_diff": ("k1_diff_ms", "k1_diff_plain_ms"),
-             "histogram_u8": ("k4_ms", "k4_plain_ms")}
+             "histogram_u8": ("k4_ms", "k4_plain_ms"),
+             "track_scan": ("k5_ms", "k5_plain_ms")}
     launches = {"fused_segment": staged_counts["fused_segment"],
                 "ccl_stats": staged_counts["ccl_stats"],
                 "ccl_labels": default_counts["ccl_labels"],
                 # the staged Otsu run launches K1 only with emit="diff"
                 "fused_segment_diff": otsu_staged_counts["fused_segment"],
-                "histogram_u8": otsu_staged_counts["histogram_u8"]}
+                "histogram_u8": otsu_staged_counts["histogram_u8"],
+                "track_scan": staged_counts["track_scan"]}
     library = {"histogram_u8": t["k4_library_ms"]}
     kernels = []
     for name, (src, rep) in REPLACES.items():

@@ -76,13 +76,34 @@ def test_blur_taps_regimes():
 
 
 def test_median3_matches_tpuva():
+    """k = 3 (the 19-op network) on every shape; k = 5, which median_blur
+    refused before it sorted window stacks, on one."""
     for i, shape in enumerate(SHAPES):
         x = _frames(shape, 7 + i).astype(np.float32)
         ref = np.asarray(jf.median_blur(jnp.asarray(x), 3))
         got = tf.median_blur(torch.from_numpy(x), 3).numpy()
         np.testing.assert_array_equal(got, ref)
-    with pytest.raises(NotImplementedError):
-        tf.median_blur(torch.zeros(1, 8, 8), 5)
+    x = _frames((1, 8, 8), 3).astype(np.float32)
+    np.testing.assert_array_equal(tf.median_blur(torch.from_numpy(x), 5).numpy(),
+                                  np.asarray(jf.median_blur(jnp.asarray(x), 5)))
+
+
+@pytest.mark.parametrize("ksize", [5, 7, 9])
+def test_median_large_k_matches_tpuva(ksize, monkeypatch):
+    """k > 3 sorts the k*k window stack (tpuva's form), over chunks of
+    frames: with the chunk budget cut to one frame's sort, and with the
+    default (one chunk here). float32 and uint8 inputs keep their dtype."""
+    for i, shape in enumerate(SHAPES + [(5, 12, 10)]):
+        x = _frames(shape, 70 + i)
+        ref = np.asarray(jf.median_blur(jnp.asarray(x.astype(np.float32)), ksize))
+        for budget in (tf.MEDIAN_SORT_BYTES, 1):
+            monkeypatch.setattr(tf, "MEDIAN_SORT_BYTES", budget)
+            got = tf.median_blur(torch.from_numpy(x.astype(np.float32)), ksize)
+            assert got.dtype == torch.float32
+            np.testing.assert_array_equal(got.numpy(), ref, err_msg=f"{shape} budget={budget}")
+            got_u8 = tf.median_blur(torch.from_numpy(x), ksize)
+            assert got_u8.dtype == torch.uint8
+            np.testing.assert_array_equal(got_u8.numpy(), ref.astype(np.uint8))
 
 
 def test_threshold_strict_at_the_edge():

@@ -10,8 +10,10 @@ mode. Kernel and plain version are compared bit for bit (masks, float32
 background, every stats field, dense labels): both are the same integer
 and IEEE float32 operation sequences. K1's emit="diff" (rounded
 magnitudes, rint half to even) and the histogram kernel K4 (integer
-counts) likewise. Also BatchStager's pinned-buffer copies to the card,
-byte for byte. The CCL scenes (tpuva_torch.scenes)
+counts) likewise, and the tracker scan K5 (rows and every state tensor,
+float bits included). Also BatchStager's pinned-buffer copies to the card,
+byte for byte, and configs K1 does not take run on the card with the
+CPU's rows. The CCL scenes (tpuva_torch.scenes)
 are shared with the CPU tests that hold the plain versions against tpuva.
 """
 
@@ -31,7 +33,11 @@ from tpuva_torch.ops.fused_segment import (
     fused_segment_plain,
 )
 from tpuva_torch.ops.label import label_components
-from tpuva_torch.scenes import mixed_scene, u_shape
+from tpuva_torch.scenes import (
+    DET_KINDS, K1_REFUSED, det_sequence, k1_refused_config, mixed_scene, u_shape,
+)
+from tpuva_torch.track.scan import track_scan, track_scan_plain
+from tpuva_torch.track.table import TrackState, init_track_state
 
 BENCH = dict(
     alpha=0.02, threshold=35.0, blur_ksize=5, blur_sigma=0.0,
@@ -266,3 +272,94 @@ def test_batch_stager_cuda_yields_source_batches(cuda_device):
         assert b.device.type == "cuda" and b.dtype == torch.uint8 and b.shape == (8, 30, 50)
         np.testing.assert_array_equal(b[:n].cpu().numpy(), clip[8 * k:8 * k + n])
     np.testing.assert_array_equal(got[-1][1][5:].cpu().numpy(), np.repeat(clip[-1:], 3, axis=0))
+
+
+def _bits(x):
+    """A tensor's bits, so that -0.0 and +0.0 differ."""
+    x = x.cpu()
+    return x.view(torch.int32) if x.dtype == torch.float32 else x
+
+
+def check_track_scan(state, dets, valid, frame0, device, **kw):
+    """K5 on the card against track_scan_plain on the CPU, bit for bit;
+    the input state stays as it was. Returns the plain run's outputs."""
+    ref = track_scan_plain(TrackState(*(x.cpu() for x in state)), torch.from_numpy(dets),
+                           torch.from_numpy(valid), torch.tensor(frame0, dtype=torch.int32), **kw)
+    gpu_state = TrackState(*(x.to(device) for x in state))
+    before = [x.clone() for x in gpu_state]
+    launches = track_scan.launches
+    got = track_scan(gpu_state, torch.from_numpy(dets).to(device), torch.from_numpy(valid).to(device),
+                     torch.tensor(frame0, dtype=torch.int32, device=device), **kw)
+    torch.cuda.synchronize()
+    assert track_scan.launches == launches + 1
+    for name, g, r in zip(TrackState._fields, got[0], ref[0]):
+        np.testing.assert_array_equal(_bits(g).numpy(), _bits(r).numpy(), err_msg=name)
+    np.testing.assert_array_equal(_bits(got[1]).numpy(), _bits(ref[1]).numpy(), err_msg="rows")
+    np.testing.assert_array_equal(got[2].cpu().numpy(), ref[2].numpy(), err_msg="row_valid")
+    assert all(torch.equal(a, b) for a, b in zip(gpu_state, before))
+    return ref
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("assigner", ["greedy", "hungarian"])
+@pytest.mark.parametrize("kind", DET_KINDS)
+def test_track_scan_kernel_matches_plain(cuda_device, kind, assigner):
+    """Every detection stream at T in {1, 3, 16, 64}, D in {1, 8, 16}: 48
+    frames from an empty table, then 48 more from the state they leave,
+    the second batch's frames from 2^24 - 20 (float32 frames round)."""
+    kw = dict(max_dist=40.0, death_patience=3, assigner=assigner)
+    for T in (1, 3, 16, 64):
+        for D in (1, 8, 16):
+            dets, valid = det_sequence(kind, D, frames=96, seed=T * 5 + D)
+            where = dict(T=T, D=D)
+            ts, _rows, rv = check_track_scan(init_track_state(T, "cpu"), dets[:48], valid[:48], 7,
+                                             cuda_device, **kw)
+            _ts, _rows, rv2 = check_track_scan(ts, dets[48:], valid[48:], 2**24 - 20, cuda_device,
+                                               **kw)
+            assert int(rv.sum()) + int(rv2.sum()) > 0 or not valid.any(), where
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("assigner", ["greedy", "hungarian"])
+def test_track_scan_kernel_global_scratch_matches_plain(cuda_device, assigner):
+    """A table too large for a CTA's shared memory (T = 600, D = 100: the
+    kernel's arrays take about 280 KB) takes the global-scratch
+    instantiation; random clouds keep the Hungarian search on its slow
+    path, transposed (T > D)."""
+    kw = dict(max_dist=30.0, death_patience=2, assigner=assigner)
+    dets, valid = det_sequence("cloud", 100, frames=8, seed=3)
+    ts, _rows, rv = check_track_scan(init_track_state(600, "cpu"), dets, valid, 0, cuda_device, **kw)
+    assert int(ts.active.sum()) > 100 and int(rv.sum()) > 100
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", K1_REFUSED)
+def test_configs_k1_refuses_run_on_the_card(cuda_device, name):
+    """process_batch (through process_clip) and process_clip(use_pallas=True)
+    on the card: the torch front end, no K1 launch, one K5 launch a batch,
+    and the CPU run's rows and masks."""
+    from refimpl.synthetic import multi_blob_clip
+    from tpuva_torch.graph.pipeline import process_clip
+
+    frames, _alive, _truth, plate = multi_blob_clip(160, 240, 16, n_blobs=2, radius=46.0,
+                                                    noise_sigma=2.0, seed=7)
+    from tpuva_torch.graph import config as c
+
+    cfg = k1_refused_config(c.PipelineConfig(
+        background=c.BackgroundConfig(alpha=0.02), blur=c.BlurConfig(ksize=5, sigma=0.0),
+        morph_open=c.MorphConfig(ksize=3, shape="rect"),
+        morph_close=c.MorphConfig(ksize=3, shape="ellipse"),
+        segment=c.SegmentConfig(threshold=35.0, min_area=50, max_blobs=8),
+        track=c.TrackConfig(max_dist=80.0, death_patience=5, max_tracks=16, assigner="hungarian"),
+        batch=8), name)
+    ref = process_clip(frames, cfg, background0=plate, max_components=32, return_masks=True,
+                       device="cpu")
+    assert len(ref[0]) > 10
+    for use_pallas in (False, True):
+        k1, k5 = fused_segment.launches, track_scan.launches
+        rows, carry, masks = process_clip(frames, cfg, background0=plate, max_components=32,
+                                          return_masks=True, use_pallas=use_pallas, device="cuda")
+        assert fused_segment.launches == k1 and track_scan.launches == k5 + 2
+        assert rows == ref[0]
+        np.testing.assert_array_equal(masks, ref[2])
+        assert torch.equal(carry.bg.cpu(), ref[1].bg)

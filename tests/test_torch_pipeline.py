@@ -24,6 +24,7 @@ from tpuva_torch.graph import config as tcfg
 from tpuva_torch.graph import pipeline as tp
 from tpuva_torch.graph.streaming import StreamingPipeline
 from tpuva_torch.io.memory import VideoMemory
+from tpuva_torch.scenes import K1_REFUSED, k1_refused_config
 from test_torch_kernels import one_torch_thread  # noqa: F401
 
 MAX_COMPONENTS = 32
@@ -167,14 +168,111 @@ def test_csv_writer_copy_matches_original(tmp_path):
 
 
 def test_not_yet_ported_options_raise(clip):
-    """Median k > 3 is the one option left unported (Otsu and
-    ccl_single_pass are ported: tests/test_torch_otsu.py and below)."""
-    frames = torch.from_numpy(clip[0][:2])
-    carry = tp.init_carry(bench_cfg(tcfg), 96, 256, device="cpu")
+    """Median k > 3 was the one option left unported. It now runs on the
+    one-dispatch route (masks and rows equal tpuva's), and only the staged
+    route refuses it, as tpuva's staged route does."""
+    frames = clip[0][:2]
     med5 = dataclasses.replace(bench_cfg(tcfg), median=tcfg.MedianConfig(5))
-    for step in (tp.process_batch, tp.process_batch_staged):
+    med5_j = dataclasses.replace(bench_cfg(), median=jcfg.MedianConfig(5))
+    _c, out = tp.process_batch(med5, tp.init_carry(med5, 96, 256, device="cpu"),
+                               torch.from_numpy(frames), return_masks=True,
+                               max_components=MAX_COMPONENTS)
+    _cj, out_j = jp.process_batch(med5_j, jp.init_carry(med5_j, 96, 256), jnp.asarray(frames),
+                                  return_masks=True, max_components=MAX_COMPONENTS)
+    for k in ("masks", "rows", "row_valid", "row_sums"):
+        np.testing.assert_array_equal(out[k].numpy(), np.asarray(out_j[k]), err_msg=k)
+    with pytest.raises(NotImplementedError):
+        tp.process_batch_staged(med5, tp.init_carry(med5, 96, 256, device="cpu"),
+                                torch.from_numpy(frames))
+    with pytest.raises(AssertionError):
+        jp.process_batch_staged(med5_j, jp.init_carry(med5_j, 96, 256), jnp.asarray(frames))
+
+
+def f1_cfg(name, module=tcfg, batch=8):
+    """The bench config changed so that kernel K1 does not take it."""
+    return k1_refused_config(bench_cfg(module, batch=batch), name, module)
+
+
+F1_NAMES = list(K1_REFUSED)
+
+
+def test_k1_takes():
+    """The predicate the routes take K1 on: true for the bench config (both
+    emits) and the kernel's limits, false past them; it agrees with the
+    launch plan wherever that has a tile to offer, for every tap count,
+    median and morphology reach."""
+    from tpuva_torch.ops.fused_segment import MAX_SE, fused_segment_plan, k1_takes
+
+    otsu = dataclasses.replace(bench_cfg(tcfg), segment=tcfg.SegmentConfig(threshold="otsu"))
+    assert k1_takes(1080, 1920, **tp._front_end_kwargs(bench_cfg(tcfg)))
+    assert k1_takes(1080, 1920, **tp._diff_kwargs(otsu))
+    assert k1_takes(1080, 1920, **dict(tp._front_end_kwargs(bench_cfg(tcfg)), open_ksize=MAX_SE))
+    assert k1_takes(1080, 1920, blur_ksize=63, blur_sigma=4.0, median_ksize=3)
+    assert not k1_takes(1080, 1920, blur_ksize=65)
+    for name in F1_NAMES:
+        for H, W in ((1080, 1920), (64, 96)):
+            assert not k1_takes(H, W, **tp._front_end_kwargs(f1_cfg(name))), name
+            assert not tp._can_stage(f1_cfg(name), H, W) and not tp._can_fuse(f1_cfg(name), H, W)
+    for blur in (0, 3, 5, 9, 31, 63):
+        for median in (0, 3):
+            for k, iters in ((0, 1), (3, 1), (5, 4), (7, 6), (9, 10), (15, 4)):
+                kw = dict(blur_ksize=blur, median_ksize=median, open_ksize=k, open_iters=iters,
+                          close_ksize=k, close_iters=iters)
+                try:
+                    fused_segment_plan(1080, 1920, **kw)
+                    planned = True
+                except ValueError:
+                    planned = False
+                assert k1_takes(1080, 1920, **kw) == planned, kw
+
+
+def _staged_rows(cfg, frames, plate):
+    """process_batch_staged batch by batch over a clip whose length is a
+    multiple of the batch."""
+    T, H, W = frames.shape
+    carry = tp.init_carry(cfg, H, W, plate, device="cpu")
+    rows = []
+    for start in range(0, T, cfg.batch):
+        carry, out = tp.process_batch_staged(cfg, carry, torch.from_numpy(frames[start:start + cfg.batch]),
+                                             max_components=MAX_COMPONENTS)
+        rows += tp.collect_rows(out["rows"].numpy(), out["row_valid"].numpy(),
+                                row_sums=out["row_sums"].numpy())
+    return rows
+
+
+@pytest.mark.parametrize("name", F1_NAMES)
+def test_configs_k1_refuses_match_tpuva(monkeypatch, name):
+    """Configs K1 does not take run the torch front end (never the K1
+    wrapper) through process_clip on both values of use_pallas (both reach
+    process_batch on the CPU) and through process_batch_staged, with
+    tpuva's masks and rows; tpuva runs them through its jnp front end.
+    median5 starts without a plate (the background seeded from the filtered
+    first frame). Both staged routes refuse a median k > 3."""
+    # blobs wide enough to survive an open that erodes 30 px deep
+    frames, _alive, _truth, plate = multi_blob_clip(160, 240, 16, n_blobs=2, radius=46.0,
+                                                    noise_sigma=2.0, seed=7)
+    if name == "median5":
+        plate = None
+    rows_j, carry_j, masks_j = jp.process_clip(frames, f1_cfg(name, jcfg), background0=plate,
+                                               max_components=MAX_COMPONENTS, return_masks=True)
+    assert len(rows_j) > 10
+
+    def no_k1(*args, **kw):
+        raise AssertionError("K1's wrapper called for a config it does not take")
+
+    monkeypatch.setattr(tp, "fused_segment", no_k1)
+    for use_pallas in (False, True):
+        rows, carry, masks = tp.process_clip(frames, f1_cfg(name), background0=plate,
+                                             max_components=MAX_COMPONENTS, return_masks=True,
+                                             use_pallas=use_pallas, device="cpu")
+        np.testing.assert_array_equal(masks, masks_j)
+        assert rows == rows_j
+        np.testing.assert_allclose(carry.bg.numpy(), np.asarray(carry_j.bg), rtol=1e-5)
+    if f1_cfg(name).median is not None and f1_cfg(name).median.ksize > 3:
         with pytest.raises(NotImplementedError):
-            step(med5, carry, frames)
+            _staged_rows(f1_cfg(name), frames, plate)
+    else:
+        assert _staged_rows(f1_cfg(name), frames, plate) == rows_j
 
 
 @pytest.mark.parametrize("route", ["default", "staged"])

@@ -14,6 +14,7 @@ from tpuva.track.assign import greedy_assign as jax_greedy
 from tpuva.track.assign import hungarian_assign as jax_hungarian
 from tpuva_torch.track.assign import greedy_assign, hungarian_assign
 from tpuva_torch.track.table import init_track_state, track_update
+from tpuva_torch.scenes import det_sequence
 from test_torch_kernels import one_torch_thread  # noqa: F401
 
 BIG = np.float32(1e30)
@@ -56,40 +57,6 @@ def test_contested_cases_match_tpuva():
             np.testing.assert_array_equal(got, np.asarray(jax_hungarian(jnp.asarray(cost), md)))
 
 
-def det_sequence(kind, D, frames=60, seed=0):
-    """(dets (F, D, 3) float32, valid (F, D) bool) detection streams."""
-    rng = np.random.default_rng(seed)
-    dets = np.zeros((frames, D, 3), np.float32)
-    valid = np.zeros((frames, D), bool)
-    objs = {}
-    nxt = 0
-    for t in range(frames):
-        if kind == "churn":
-            if rng.random() < 0.3 and len(objs) < D + 2:
-                objs[nxt] = rng.uniform(20, 200, 2)
-                nxt += 1
-            if rng.random() < 0.2 and objs:
-                del objs[list(objs)[rng.integers(len(objs))]]
-            if t % 11 in (5, 6, 7, 8):  # dropouts longer than the patience
-                continue
-        elif kind == "empty":
-            if t % 3:
-                continue
-            objs = {0: np.array([50.0 + t, 60.0]), 1: np.array([150.0, 30.0 + t])}
-        elif kind == "contested":
-            base = np.array([100.0, 100.0])
-            objs = {k: base + rng.uniform(-4, 4, 2) for k in range(min(D, 3 + t % 3))}
-        k = 0
-        for key in sorted(objs):
-            if kind == "churn":
-                objs[key] = objs[key] + rng.uniform(-6, 6, 2)
-            if k < D:
-                dets[t, k] = (objs[key][0], objs[key][1], rng.integers(30, 90))
-                valid[t, k] = True
-                k += 1
-    return dets, valid
-
-
 @pytest.mark.parametrize("assigner", ["greedy", "hungarian"])
 @pytest.mark.parametrize("kind", ["churn", "empty", "contested"])
 def test_track_update_matches_tpuva(kind, assigner):
@@ -110,3 +77,66 @@ def test_track_update_matches_tpuva(kind, assigner):
             )
         n_rows += int(rv.sum())
     assert n_rows > 0
+
+
+# (kind, T, D): T > D and T < D; "crowd" with a small table fills it, so
+# births are refused for want of a slot; "contested" and "cloud" take the
+# Hungarian search's slow path on both sides of the square
+SCAN_CASES = [("churn", 6, 4), ("empty", 3, 8), ("contested", 6, 4), ("contested", 3, 8),
+              ("crowd", 3, 8), ("crowd", 6, 4), ("cloud", 8, 5), ("cloud", 4, 7)]
+
+
+@pytest.mark.parametrize("assigner", ["greedy", "hungarian"])
+@pytest.mark.parametrize("kind,T,D", SCAN_CASES, ids=[f"{k}-T{t}-D{d}" for k, t, d in SCAN_CASES])
+def test_track_scan_plain_matches_tpuva_finish_batch(kind, T, D, assigner):
+    """track_scan_plain against tpuva's _finish_batch (its lax.scan of
+    track_update) over a whole 64-frame batch, from a state carried out of
+    an earlier batch and at a frame index near 2^24 (where float32 frames
+    round): rows, row_valid and the final state, exactly. The detections
+    reach tpuva's scan through its extract_detections, fed stats that hold
+    them as components."""
+    import tpuva.graph.config as jcfg
+    from tpuva.graph.pipeline import PipelineCarry, _finish_batch
+    from tpuva_torch.track.scan import track_scan, track_scan_plain
+
+    dets, valid = det_sequence(kind, D, frames=96, seed=T * 7 + D)
+    cfg = jcfg.PipelineConfig(
+        segment=jcfg.SegmentConfig(threshold=35.0, min_area=0, max_blobs=D),
+        track=jcfg.TrackConfig(max_dist=40.0, death_patience=3, max_tracks=T, assigner=assigner),
+    )
+    kw = dict(max_dist=40.0, death_patience=3, assigner=assigner)
+
+    # tpuva: one batch of 96 frames
+    frame0 = 2**24 - 40
+    n = valid.sum(1).astype(np.int32)
+    area = np.zeros((96, D + 1), np.int32)
+    cent = np.zeros((96, D + 1, 2), np.float32)
+    area[:, 1:] = dets[:, :, 2]
+    cent[:, 1:] = dets[:, :, :2]
+    stats = {"area": jnp.asarray(area), "centroid": jnp.asarray(cent), "count": jnp.asarray(n),
+             "centroid_sum": jnp.zeros((96, D + 1, 2), jnp.int32)}
+    carry = PipelineCarry(bg=jnp.zeros((1, 1)), bg_valid=jnp.bool_(True), track=jax_init(T),
+                          frame_idx=jnp.int32(frame0))
+    jcarry, out = _finish_batch(cfg, carry, stats, jnp.zeros((96, 1, 1), jnp.uint8), carry.bg, False)
+    jrows, jrv = np.asarray(out["rows"]), np.asarray(out["row_valid"])
+    # the port: the first 32 frames give a lived-in table, then the scan of
+    # the other 64 from it
+    ts, rows0, rv0 = track_scan_plain(init_track_state(T, "cpu"), torch.from_numpy(dets[:32]),
+                                      torch.from_numpy(valid[:32]),
+                                      torch.tensor(frame0, dtype=torch.int32), **kw)
+    before = [x.clone() for x in ts]
+    args = (torch.from_numpy(dets[32:]), torch.from_numpy(valid[32:]),
+            torch.tensor(frame0 + 32, dtype=torch.int32))
+    got_ts, rows, rv = track_scan_plain(ts, *args, **kw)
+    np.testing.assert_array_equal(torch.cat([rv0, rv]).numpy(), jrv)
+    np.testing.assert_array_equal(torch.cat([rows0, rows]).numpy().view(np.int32),
+                                  jrows.view(np.int32))
+    for field in ("pos", "tid", "missed", "active", "next_id"):
+        np.testing.assert_array_equal(getattr(got_ts, field).numpy(),
+                                      np.asarray(getattr(jcarry.track, field)), err_msg=field)
+    assert int(rv.sum()) > 0 and len(set(rows.numpy()[..., 1].ravel())) < 64  # frames rounded
+    # the wrapper takes the plain version for CPU tensors, and leaves its input alone
+    w_ts, w_rows, w_rv = track_scan(ts, *args, **kw)
+    assert torch.equal(w_rows, rows) and torch.equal(w_rv, rv)
+    assert all(torch.equal(a, b) for a, b in zip(w_ts, got_ts))
+    assert all(torch.equal(a, b) for a, b in zip(ts, before))

@@ -67,6 +67,18 @@ _SIGNATURES = {
         _P, _I, _LL, _P,  # x, L, P (pixels per image), hist
         _P,  # stream
     ],
+    "tpuva_track_scan_scratch": [
+        _I, _I, _P,  # T, D, bytes (int64 out)
+    ],
+    "tpuva_track_scan": [
+        _P, _P, _I, _I, _I,  # dets, det_valid, N, T, D
+        _P, _P, _P, _P, _P, _P,  # pos0, tid0, missed0, active0, next_id0, frame0
+        _P, _P, _P, _P, _P,  # pos1, tid1, missed1, active1, next_id1
+        _P, _P,  # rows, row_valid
+        _F, _I, _I,  # max_dist, death_patience, hungarian
+        _P, _LL,  # scratch, scratch bytes
+        _P,  # stream
+    ],
 }
 
 

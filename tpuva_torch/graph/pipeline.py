@@ -14,12 +14,20 @@ JAX package's names:
 - ``process_batch_staged`` — kernel K1, then kernel K2 (``label_stats``:
   8-connected CCL + stats in one launch sequence), then ``_finish_batch``.
 
+A config that K1 does not take (``ops.fused_segment.k1_takes``: a median
+k > 3, more than 63 blur taps, a structuring element wider than 31, or a
+morphology reach whose tile overflows a CTA's shared memory) runs the
+front end as torch ops on the frames' device, as tpuva's jnp branch does:
+``filter_batch``, the sequential ``background_trajectory``, |F - B|, the
+threshold (or Otsu) and ``_morphology``. The staged route takes these
+configs too, with K2 after them, except a median k > 3, which it refuses
+as tpuva's does.
+
 Otsu thresholding (``SegmentConfig(threshold="otsu")``) takes every route:
 the front end emits the rounded magnitudes ``clip(rint(|F - B|), 0, 255)``
-(K1 with ``emit="diff"``: ``_otsu_mask_stage`` on the staged route, the
-sequential background of ``torch_front_end``; the scanned background as
-torch ops), each
-frame's threshold comes from its 256-bin histogram (kernel K4 in
+(K1 with ``emit="diff"`` for the sequential background of
+``torch_front_end``, on both routes; the scanned background as torch
+ops), each frame's threshold comes from its 256-bin histogram (kernel K4 in
 ``ops.filters.histogram_u8``), then the strict integer compare and the
 torch open and close.
 
@@ -29,8 +37,9 @@ sequence and gives exact stats, so the flag maps onto K2: the staged
 route ignores it and ``process_batch`` takes K2 for its stats, as tpuva's
 single-pass tail does.
 
-``_finish_batch`` runs ``extract_detections`` and one ``track_update`` per
-frame, in order. CUDA tensors launch the hand-written kernels; CPU tensors
+``_finish_batch`` runs ``extract_detections`` and the tracker scan over the
+batch's frames (kernel K5, ``track.scan.track_scan``: one launch a batch,
+no host read). CUDA tensors launch the hand-written kernels; CPU tensors
 run the same calls through their plain versions. On the host,
 ``collect_rows_array`` (a copy of the original) divides the exact integer
 centroid sums in float64, and ``process_clip`` drives a whole clip,
@@ -42,9 +51,6 @@ The carry holds the system's state between batches — the background
 index; ``carry_from_numpy`` / ``carry_to_numpy`` move it to and from
 tpuva's ``PipelineCarry`` (or any object with the same fields). Entry
 points run on the card unless they are given ``device="cpu"``.
-
-Not ported yet (ROADMAP.md): median k > 3, which raises
-``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -67,13 +73,14 @@ from tpuva_torch.ops.filters import (
     structuring_element,
     threshold,
 )
-from tpuva_torch.ops.fused_segment import fused_segment
+from tpuva_torch.ops.fused_segment import fused_segment, k1_takes
 from tpuva_torch.ops.label import (
     connected_components_with_stats,
     extract_detections,
     relabel_dense,
 )
-from tpuva_torch.track.table import TrackState, init_track_state, track_update
+from tpuva_torch.track.scan import track_scan
+from tpuva_torch.track.table import TrackState, init_track_state
 
 
 class PipelineCarry(NamedTuple):
@@ -161,11 +168,6 @@ def _front_end_kwargs(cfg) -> dict:
     )
 
 
-def _check_ported(cfg) -> None:
-    if cfg.median is not None and cfg.median.ksize not in (1, 3):
-        raise NotImplementedError("median ksize > 3 is not ported yet")
-
-
 def filter_batch(cfg, frames: torch.Tensor) -> torch.Tensor:
     """The stateless filter prefix (blur, median) on a float32 batch of
     integer values, as tpuva's filter_batch: the blur re-quantizes to u8
@@ -225,18 +227,19 @@ def background_trajectory(bg0: torch.Tensor, frames: torch.Tensor, alpha: float,
     return S * bg0[None] + O
 
 
-def _can_fuse(cfg) -> bool:
-    """Configs the fused front-end kernel K1 covers in one pass: median
-    0/1/3 and a fixed threshold. Otsu needs each frame's histogram, a
-    statistic no tile sees, so it takes the staged Otsu route instead
-    (_otsu_mask_stage); see _can_stage."""
-    return (cfg.median is None or cfg.median.ksize in (1, 3)) and cfg.segment.threshold != "otsu"
+def _can_stage(cfg, H: int, W: int) -> bool:
+    """Whether kernel K1 takes the config's front end on (H, W) frames:
+    the mask emit for a fixed threshold, the diff emit for Otsu
+    (k1_takes)."""
+    otsu = cfg.segment.threshold == "otsu"
+    return k1_takes(H, W, **(_diff_kwargs(cfg) if otsu else _front_end_kwargs(cfg)))
 
 
-def _can_stage(cfg) -> bool:
-    """Configs the staged route covers: everything _can_fuse does, plus
-    Otsu through K1's diff emit."""
-    return cfg.median is None or cfg.median.ksize in (1, 3)
+def _can_fuse(cfg, H: int, W: int) -> bool:
+    """Configs K1 covers in one pass: those of _can_stage with a fixed
+    threshold. Otsu needs each frame's histogram, a statistic no tile
+    sees, so K1 only emits its magnitudes (_otsu_mask)."""
+    return cfg.segment.threshold != "otsu" and _can_stage(cfg, H, W)
 
 
 def _morphology(cfg, mask: torch.Tensor) -> torch.Tensor:
@@ -259,15 +262,6 @@ def _otsu_mask(cfg, du8: torch.Tensor) -> torch.Tensor:
     return _morphology(cfg, mask)
 
 
-def _otsu_mask_stage(cfg, carry: PipelineCarry, frames: torch.Tensor):
-    """The staged Otsu front end, as tpuva's: kernel K1 emits the rounded
-    |F - B| (blur, median and background in one pass), then _otsu_mask.
-    Returns (mask (N, H, W) uint8, post-batch background (H, W) float32)."""
-    du8, bg_last = fused_segment(frames, carry.bg, seed_bg=not bool(carry.bg_valid),
-                                 **_diff_kwargs(cfg))
-    return _otsu_mask(cfg, du8), bg_last
-
-
 def torch_front_end(cfg, carry: PipelineCarry, frames: torch.Tensor,
                     parallel_bg: bool = False):
     """process_batch's front end: filter_batch -> background_trajectory ->
@@ -275,21 +269,23 @@ def torch_front_end(cfg, carry: PipelineCarry, frames: torch.Tensor,
     rounded magnitudes) -> open -> close.
     Returns (mask (N, H, W) uint8, post-batch background (H, W) float32).
 
-    The sequential background is kernel K1 (fused_segment; its plain
-    version on CPU tensors): the mask emit for a fixed threshold, the diff
-    emit then _otsu_mask for Otsu. Only the scanned background
-    (parallel_bg) is torch code here: tpuva's associative scan takes
-    another float32 order, which no kernel carries."""
+    The sequential background of a config K1 takes (_can_stage) is kernel
+    K1 (fused_segment; its plain version on CPU tensors): the mask emit for
+    a fixed threshold, the diff emit then _otsu_mask for Otsu. The scanned
+    background (parallel_bg: tpuva's associative scan takes another float32
+    order, which no kernel carries) and the configs K1 refuses are torch
+    code here, seeded as K1 is: from the filtered first frame while the
+    carry has no background."""
     seed_bg = not bool(carry.bg_valid)
     otsu = cfg.segment.threshold == "otsu"
-    if not parallel_bg:
+    if not parallel_bg and _can_stage(cfg, *frames.shape[1:]):
         if otsu:
             du8, bg_last = fused_segment(frames, carry.bg, seed_bg=seed_bg, **_diff_kwargs(cfg))
             return _otsu_mask(cfg, du8), bg_last
         return fused_segment(frames, carry.bg, seed_bg=seed_bg, **_front_end_kwargs(cfg))
     f = filter_batch(cfg, frames.to(torch.float32))
     bgs = background_trajectory(f[0] if seed_bg else carry.bg, f, cfg.background.alpha,
-                                parallel=True)
+                                parallel=parallel_bg)
     bg_last = bgs[-1].clone()  # not a view that keeps the batch alive
     diff = (f - bgs).abs()
     del f, bgs
@@ -307,9 +303,9 @@ def process_batch(cfg, carry: PipelineCarry, frames: torch.Tensor,
 
     The front end is torch_front_end: kernel K1 for the sequential
     background (the mask emit, or for Otsu the diff emit), torch ops for
-    the scanned one (parallel_bg). use_pallas changes only the CCL here:
-    with it, and a config K1 covers, the front end is K1 whatever
-    parallel_bg says, as tpuva's fused stage. The CCL is
+    the scanned one (parallel_bg) and for configs K1 does not take. With
+    use_pallas and a config K1 covers in one pass (_can_fuse), the front
+    end is K1 whatever parallel_bg says, as tpuva's fused stage. The CCL is
     connected_components_with_stats, whose root-key labels come from
     kernel K3 on the card; with ccl_single_pass it is K2 (label_stats), as
     tpuva's single-pass tail, with the same rows.
@@ -323,13 +319,8 @@ def process_batch(cfg, carry: PipelineCarry, frames: torch.Tensor,
       stats_overflow (N,) int32, ccl_converged bool — strictness fields
       masks          (N, H, W) uint8, only if return_masks
     """
-    _check_ported(cfg)
-    if use_pallas and _can_fuse(cfg):
-        mask, bg_last = fused_segment(
-            frames, carry.bg, seed_bg=not bool(carry.bg_valid), **_front_end_kwargs(cfg)
-        )
-    else:
-        mask, bg_last = torch_front_end(cfg, carry, frames, parallel_bg)
+    fuse = use_pallas and _can_fuse(cfg, *frames.shape[1:])
+    mask, bg_last = torch_front_end(cfg, carry, frames, parallel_bg and not fuse)
     if ccl_single_pass:
         stats = label_stats(mask, max_components)
     else:
@@ -345,29 +336,27 @@ def process_batch(cfg, carry: PipelineCarry, frames: torch.Tensor,
 def process_batch_staged(cfg, carry: PipelineCarry, frames: torch.Tensor,
                          return_masks: bool = False, max_components: int = 64,
                          return_labels: bool = False, ccl_single_pass: bool = False):
-    """One N-frame batch through the staged route: kernel K1 (the
-    background seeded from the filtered first frame while the carry has
-    none; for Otsu its diff emit, then _otsu_mask), then kernel K2's CCL +
-    stats. Same outputs as process_batch.
+    """One N-frame batch through the staged route: torch_front_end with the
+    sequential background (kernel K1, seeded from the filtered first frame
+    while the carry has none; for Otsu its diff emit, then _otsu_mask; the
+    torch ops for a config K1 does not take), then kernel K2's CCL + stats.
+    Same outputs as process_batch. A median k > 3 raises
+    NotImplementedError, as tpuva's staged route refuses it.
 
     return_labels adds out["labels"], (N, H, W) int32, as tpuva's
     labels_from_raw: dense cv2 ids 1..C of the first C = max_components
     components in cv2 order, 0 for the background and every later
     component (K3's root keys through relabel_dense). ccl_single_pass
     changes nothing here: K2 is exact in one launch sequence."""
-    _check_ported(cfg)
+    if cfg.median is not None and cfg.median.ksize not in (1, 3):
+        raise NotImplementedError("process_batch_staged: median ksize must be 1 or 3")
     if ccl_single_pass and return_labels:
         warnings.warn(  # tpuva's warning: its single-pass kernel leaves no label buffer
             "return_labels=True takes the multi-pass CCL: ccl_single_pass is "
             "ignored for this call; stats/tracking outputs are identical either way.",
             stacklevel=2,
         )
-    if cfg.segment.threshold == "otsu":
-        masks, bg_last = _otsu_mask_stage(cfg, carry, frames)
-    else:
-        masks, bg_last = fused_segment(
-            frames, carry.bg, seed_bg=not bool(carry.bg_valid), **_front_end_kwargs(cfg)
-        )
+    masks, bg_last = torch_front_end(cfg, carry, frames)
     stats = label_stats(masks, max_components)
     new_carry, out = _finish_batch(cfg, carry, stats, masks, bg_last, return_masks)
     out["stats_overflow"] = stats["overflow"]
@@ -382,17 +371,12 @@ def _finish_batch(cfg, carry: PipelineCarry, stats, mask, bg_last, return_masks)
         stats, cfg.segment.min_area, cfg.segment.max_blobs
     )
     N = mask.shape[0]
-    ts = carry.track
-    rows, row_valid = [], []
-    for t in range(N):
-        ts, r, rv = track_update(
-            ts, dets[t], det_valid[t], carry.frame_idx + t,
-            max_dist=cfg.track.max_dist,
-            death_patience=cfg.track.death_patience,
-            assigner=cfg.track.assigner,
-        )
-        rows.append(r)
-        row_valid.append(rv)
+    ts, rows, row_valid = track_scan(
+        carry.track, dets, det_valid, carry.frame_idx,
+        max_dist=cfg.track.max_dist,
+        death_patience=cfg.track.death_patience,
+        assigner=cfg.track.assigner,
+    )
     new_carry = PipelineCarry(
         bg=bg_last,
         bg_valid=torch.ones((), dtype=torch.bool, device=mask.device),
@@ -400,8 +384,8 @@ def _finish_batch(cfg, carry: PipelineCarry, stats, mask, bg_last, return_masks)
         frame_idx=(carry.frame_idx + N).to(torch.int32),
     )
     out = {
-        "rows": torch.stack(rows),
-        "row_valid": torch.stack(row_valid),
+        "rows": rows,
+        "row_valid": row_valid,
         "n_det": n_det,
         "row_sums": det_sums,
         "active_tracks": ts.active.to(torch.int32).sum().to(torch.int32),
@@ -452,7 +436,7 @@ def process_clip(clip: np.ndarray, cfg, background0: Optional[np.ndarray] = None
     `device`. Returns (rows, final_carry, masks-or-None), rows as
     tpuva.graph.pipeline.process_clip returns them.
 
-    use_pallas with a config the staged route covers takes
+    use_pallas with a config K1 takes (_can_stage) takes
     process_batch_staged on the card (K1 + K2); everything else takes
     process_batch (K3, and K1 with use_pallas). The final partial batch is
     padded by repeating the last frame; padded frames' rows are dropped. A
@@ -462,7 +446,7 @@ def process_clip(clip: np.ndarray, cfg, background0: Optional[np.ndarray] = None
     T, H, W = clip.shape
     N = cfg.batch
     carry = init_carry(cfg, H, W, background0, device)
-    staged = use_pallas and _can_stage(cfg) and carry.bg.device.type == "cuda"
+    staged = use_pallas and _can_stage(cfg, H, W) and carry.bg.device.type == "cuda"
     all_rows = []
     masks = [] if return_masks else None
     for start in range(0, T, N):

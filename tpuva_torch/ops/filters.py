@@ -11,7 +11,8 @@ CPU tensors take. Pinned semantics, as in the JAX package:
   ``(sum_y t_y sum_x t_x x + 2^(s-1)) >> s`` with integer taps ``t``
   (``blur_taps``); every partial sum is below 2^24, so int32 is exact.
   No float convolution: cuDNN would run it in TF32.
-- ``median_blur``: k=3 only (BORDER_REPLICATE, the 19-op network).
+- ``median_blur``: BORDER_REPLICATE; the 19-op network for k=3, the
+  middle of the sorted k*k window stack for a larger k.
 - ``threshold``: strict ``x > float32(thresh)`` (cv2 THRESH_BINARY).
 - ``erode``/``dilate``: min/max over the structuring element, with cv2's
   constant borders: erode reads outside pixels as 255, dilate as 0.
@@ -169,20 +170,40 @@ def _median9(p):
     return p[4]
 
 
+# bytes of one chunk's sort in median_blur for ksize > 3: the window stack
+# (1 B an element), the sorted values (1 B) and their int64 indices (8 B)
+MEDIAN_SORT_BYTES = 2 << 30
+
+
 def median_blur(x: torch.Tensor, ksize: int) -> torch.Tensor:
-    """cv2.medianBlur, BORDER_REPLICATE. Only ksize 1 and 3 are ported."""
+    """cv2.medianBlur, BORDER_REPLICATE, for any odd ksize. k = 3 is the
+    19-op network; a larger k takes the middle element of the sorted
+    k*k window stack, as tpuva's. That stack is k*k times the input, so it
+    is sorted as uint8 (x holds integer values in [0, 255], as filter_batch
+    gives it) and over chunks of the leading axis that keep one sort near
+    MEDIAN_SORT_BYTES."""
     if ksize == 1:
         return x
-    if ksize != 3:
-        raise NotImplementedError("median_blur: only ksize 3 is ported")
+    if ksize < 1 or ksize % 2 == 0:
+        raise ValueError(f"median_blur: ksize must be odd and positive, got {ksize}")
     H, W = x.shape[-2], x.shape[-1]
-    ri = torch.from_numpy(np.clip(np.arange(-1, H + 1), 0, H - 1)).to(x.device)
-    ci = torch.from_numpy(np.clip(np.arange(-1, W + 1), 0, W - 1)).to(x.device)
-    xp = x.index_select(x.ndim - 2, ri).index_select(x.ndim - 1, ci)
-    p = [
-        xp[..., dy:dy + H, dx:dx + W] for dy in range(3) for dx in range(3)
-    ]
-    return _median9(p)
+    r = ksize // 2
+    ri = torch.from_numpy(np.clip(np.arange(-r, H + r), 0, H - 1)).to(x.device)
+    ci = torch.from_numpy(np.clip(np.arange(-r, W + r), 0, W - 1)).to(x.device)
+
+    def windows(xp):
+        return [xp[..., dy:dy + H, dx:dx + W] for dy in range(ksize) for dx in range(ksize)]
+
+    if ksize == 3:
+        return _median9(windows(x.index_select(x.ndim - 2, ri).index_select(x.ndim - 1, ci)))
+    lead = x.reshape(-1, H, W)
+    step = max(1, MEDIAN_SORT_BYTES // (10 * ksize * ksize * H * W))
+    out = torch.empty_like(lead)
+    for i in range(0, lead.shape[0], step):
+        xp = lead[i:i + step].to(torch.uint8).index_select(1, ri).index_select(2, ci)
+        stack = torch.stack(windows(xp), dim=-1)
+        out[i:i + step] = torch.sort(stack, dim=-1).values[..., ksize * ksize // 2]
+    return out.reshape(x.shape)
 
 
 def threshold(x: torch.Tensor, thresh: float, maxval: float = 255.0) -> torch.Tensor:

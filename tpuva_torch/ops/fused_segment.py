@@ -288,6 +288,36 @@ def _stages(open_shape, open_ksize, open_iters, close_shape, close_ksize, close_
             (close_shape, close_ksize, close_iters), (close_shape, close_ksize, close_iters)]
 
 
+def _ntaps(blur_ksize: int, blur_sigma: float) -> int:
+    return len(blur_taps(blur_ksize, blur_sigma)[0]) if blur_ksize else 1
+
+
+def _reach(open_ksize: int, open_iters: int, close_ksize: int, close_iters: int) -> int:
+    """The morphology's reach: erode + dilate of the open, then of the close."""
+    return sum((k // 2) * it for k, it in ((open_ksize, open_iters), (close_ksize, close_iters))
+               if k) * 2
+
+
+def k1_takes(H: int, W: int, *, blur_ksize: int = 0, blur_sigma: float = 0.0,
+             median_ksize: int = 0, open_ksize: int = 0, open_iters: int = 1,
+             close_ksize: int = 0, close_iters: int = 1, **_unused) -> bool:
+    """True exactly when the kernel takes fused_segment's options on an
+    (H, W) image: median 0 or 3, at most MAX_TAPS blur taps, structuring
+    elements at most MAX_SE wide, and a candidate tile whose shared memory
+    fits a CTA (launch_plan's fit test; no tile's size depends on H and W
+    today). A pure function of the shapes and options that queries no
+    card, so CPU and CUDA tensors take the same route on it. Options that
+    do not shape the launch are ignored."""
+    if median_ksize not in (0, 3):
+        return False
+    ntaps = _ntaps(blur_ksize, blur_sigma)
+    if ntaps > MAX_TAPS or max(open_ksize, close_ksize) > MAX_SE:
+        return False
+    reach = _reach(open_ksize, open_iters, close_ksize, close_iters)
+    return any(smem_bytes(th, tw, ntaps, bool(median_ksize), reach) <= SMEM_LIMIT
+               for th, tw in TILES)
+
+
 def fused_segment_plan(H: int, W: int, *, blur_ksize: int = 0, blur_sigma: float = 0.0,
                        median_ksize: int = 0, open_ksize: int = 0, open_iters: int = 1,
                        close_ksize: int = 0, close_iters: int = 1,
@@ -297,10 +327,9 @@ def fused_segment_plan(H: int, W: int, *, blur_ksize: int = 0, blur_sigma: float
     blocks_per_sm=card_blocks_per_sm and the card's SM count for the card
     (the wrapper does), or nothing for the shared-memory model of an H100
     SXM. Options that do not shape the launch are ignored."""
-    ntaps = len(blur_taps(blur_ksize, blur_sigma)[0]) if blur_ksize else 1
-    reach = sum((k // 2) * it for k, it in ((open_ksize, open_iters), (close_ksize, close_iters))
-                if k) * 2
-    return launch_plan(H, W, ntaps, bool(median_ksize), reach, blocks_per_sm, sms)
+    return launch_plan(H, W, _ntaps(blur_ksize, blur_sigma), bool(median_ksize),
+                       _reach(open_ksize, open_iters, close_ksize, close_iters),
+                       blocks_per_sm, sms)
 
 
 def _fused_segment_cuda(frames, bg0, *, alpha, threshold, blur_ksize=0, blur_sigma=0.0,

@@ -1,8 +1,15 @@
-"""Synthetic (H, W) and (N, H, W) uint8 masks (0/255) that exercise the
-CCL kernels' tile borders, ragged edges and component caps. The kernel
-tests and ``chip_smoke.py`` hold the kernels against their plain versions
-on them; numpy only.
+"""Synthetic inputs that the kernel tests and ``chip_smoke.py`` hold the
+kernels against their plain versions on; numpy only:
+
+- (H, W) and (N, H, W) uint8 masks (0/255) that exercise the CCL
+  kernels' tile borders, ragged edges and component caps;
+- detection streams for the tracker (``det_sequence``): churn, empty
+  frames, contested frames (the Hungarian search's slow path), more
+  detections than free slots, and random clouds;
+- configs that kernel K1 does not take (``k1_refused_config``).
 """
+
+import dataclasses
 
 import numpy as np
 
@@ -30,3 +37,86 @@ def mixed_scene():
     m[3] = u_shape(H, W)
     m[4, 5:H:6, 5:W:7] = 255  # 21 x 40 isolated dots
     return m
+
+
+DET_KINDS = ("churn", "empty", "contested", "crowd", "cloud")
+
+
+def det_sequence(kind, D, frames=60, seed=0):
+    """(dets (F, D, 3) float32 of (x, y, area), valid (F, D) bool), the
+    valid detections first in each frame, as extract_detections packs them:
+    - churn: objects born and removed at random, moving, with dropouts
+      longer than a death patience of 3;
+    - empty: two objects seen every third frame only;
+    - contested: 3 to 5 detections within 4 px of one point, so columns
+      share their nearest track;
+    - crowd: D persistent objects, one of them replaced most frames, so
+      births outrun a small table's free slots;
+    - cloud: D detections at new random points of a 200 px square every
+      frame."""
+    rng = np.random.default_rng(seed)
+    dets = np.zeros((frames, D, 3), np.float32)
+    valid = np.zeros((frames, D), bool)
+    objs = {}
+    nxt = 0
+    for t in range(frames):
+        if kind == "churn":
+            if rng.random() < 0.3 and len(objs) < D + 2:
+                objs[nxt] = rng.uniform(20, 200, 2)
+                nxt += 1
+            if rng.random() < 0.2 and objs:
+                del objs[list(objs)[rng.integers(len(objs))]]
+            if t % 11 in (5, 6, 7, 8):  # dropouts longer than the patience
+                continue
+        elif kind == "empty":
+            if t % 3:
+                continue
+            objs = {0: np.array([50.0 + t, 60.0]), 1: np.array([150.0, 30.0 + t])}
+        elif kind == "contested":
+            base = np.array([100.0, 100.0])
+            objs = {k: base + rng.uniform(-4, 4, 2) for k in range(min(D, 3 + t % 3))}
+        elif kind == "crowd":
+            objs = {k: objs[k] + rng.uniform(-3, 3, 2) if k in objs else rng.uniform(20, 400, 2)
+                    for k in range(D)}
+            if rng.random() < 0.7:
+                objs[int(rng.integers(D))] = rng.uniform(20, 400, 2)
+        elif kind == "cloud":
+            objs = {k: rng.uniform(100, 300, 2) for k in range(D)}
+        else:
+            raise ValueError(f"unknown detection stream {kind!r}")
+        k = 0
+        for key in sorted(objs):
+            if kind == "churn":
+                objs[key] = objs[key] + rng.uniform(-6, 6, 2)
+            if k < D:
+                dets[t, k] = (objs[key][0], objs[key][1], rng.integers(30, 90))
+                valid[t, k] = True
+                k += 1
+    return dets, valid
+
+
+K1_REFUSED = ("open_close_7x10", "median3_5x10", "se33", "median5", "median7_otsu")
+
+
+def k1_refused_config(cfg, name, config=None):
+    """cfg (a PipelineConfig of the config module `config`, the port's by
+    default) changed so that kernel K1 does not take it (k1_takes):
+    open and close 7 x 10 (morphology reach 120), median 3 with open and
+    close 5 x 10 (reach 80), a 33-wide close, median 5, or median 7 with
+    Otsu."""
+    if config is None:
+        from tpuva_torch.graph import config
+    M = config.MorphConfig
+    replace = dataclasses.replace
+    return {
+        "open_close_7x10": lambda: replace(
+            cfg, morph_open=M(ksize=7, iterations=10), morph_close=M(ksize=7, iterations=10)),
+        "median3_5x10": lambda: replace(
+            cfg, median=config.MedianConfig(3), morph_open=M(ksize=5, iterations=10),
+            morph_close=M(ksize=5, iterations=10)),
+        "se33": lambda: replace(cfg, morph_close=M(ksize=33)),
+        "median5": lambda: replace(cfg, median=config.MedianConfig(5)),
+        "median7_otsu": lambda: replace(
+            cfg, median=config.MedianConfig(7),
+            segment=replace(cfg.segment, threshold="otsu")),
+    }[name]()
