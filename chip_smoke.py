@@ -34,12 +34,17 @@ raises, so the exit code is non-zero:
    tpuva_torch.scenes.det_sequence (churn, empty, contested, crowd, cloud)
    at three table shapes, both assigners, frames near 2^24, and one table
    too large for shared memory (the global-scratch instantiation);
-5c. configs K1 does not take (open and close 7 x 10, median 3 with 5 x 10,
-   a 33-wide close, median 5, median 7 with Otsu) through process_clip on
-   both use_pallas values and StreamingPipeline on the card: no K1 launch,
-   one K5 launch a batch, rows, masks and background equal to the CPU run;
-   then a 1080p batch of 64 frames with median 7 through process_batch
-   on the card (the chunked median's sort), timed;
+5c. configs one K1 launch does not take (open and close 7 x 10, median 3
+   with 5 x 10, a 33-wide close, a 65-tap blur, median 5, median 7 with
+   Otsu) through process_clip on both use_pallas values and
+   StreamingPipeline on the card: K1 a batch with K1b (blur_u8) or K1m
+   (morph_u8) where k1_split takes the blur or the morphology out of its
+   launch, no K1 launch for a median k > 3, one K5 launch a batch, rows,
+   masks and background equal to the CPU run; K1b and K1m against their
+   plain versions on that path's frames and masks; then a 1080p batch of
+   64 frames with median 7 through process_batch on the card (the chunked
+   median's sort), timed, its filtered frames on either side of a chunk
+   boundary equal to the CPU's;
 6. the staged route: bench config at 1080p, batch 256, max_components 32,
    a 512-frame six-blob clip through process_clip(use_pallas=True) on
    cuda (K1 + K2 + K5), with the launch counts read around it; its CSV bytes
@@ -64,7 +69,9 @@ raises, so the exit code is non-zero:
 8. timing with CUDA events after warm-up at batch 256 and 1080p: K1, K2,
    K3 (8- and 4-connected), connected_components_with_stats, K1's diff
    emit and K4 against their plain versions (K1's plain version runs on
-   no route: it is the kernels' yardstick of correctness), K1's launch
+   no route: it is the kernels' yardstick of correctness), K1b (65 taps)
+   and K1m (a 7 x 7 dilate, beside max_pool2d) against theirs, the split
+   front end of open and close 7 x 10, K1's launch
    plan (tile, grid, CTAs resident per SM from the occupancy query,
    waves), K4 against torch.bincount over
    frame-offset keys, K5 against its plain version on the route's
@@ -110,6 +117,11 @@ REPLACES = {
                      "tpuva/ops/filters.py:268"),
     "track_scan": ("tpuva_torch/csrc/track.cu",
                    "tpuva/graph/pipeline.py:341"),
+    # K1's blur and morphology where one K1 launch cannot hold them
+    "blur_u8": ("tpuva_torch/csrc/wide.cu",
+                "tpuva/ops/pallas/fused_segment.py:145"),
+    "morph_u8": ("tpuva_torch/csrc/wide.cu",
+                 "tpuva/ops/pallas/fused_segment.py:145"),
 }
 BENCH_KW = dict(
     alpha=0.02, threshold=35.0, blur_ksize=5, blur_sigma=0.0,
@@ -366,15 +378,19 @@ def main():
     from tpuva_torch.export.csvio import format_rows, write_tracks_csv
     from tpuva_torch.graph import config
     from tpuva_torch.graph.pipeline import (
-        _diff_kwargs, _finish_batch, _front_end_kwargs, init_carry, process_batch, process_clip,
+        _diff_kwargs, _finish_batch, _front_end_kwargs, filter_batch, init_carry, process_batch,
+        process_clip,
     )
     from tpuva_torch.graph.streaming import StreamingPipeline
     from tpuva_torch.io.memory import VideoMemory
     from tpuva_torch.io.staging import BatchStager
     from tpuva_torch.ops import connected_components_with_stats
     from tpuva_torch.ops.ccl import label_components_tiled, label_stats, label_sums_plain
-    from tpuva_torch.ops.filters import histogram_u8, histogram_u8_plain
-    from tpuva_torch.ops.fused_segment import fused_segment, fused_segment_plain
+    from tpuva_torch.ops.filters import (
+        _morph, gaussian_blur_u8, histogram_u8, histogram_u8_plain, structuring_element,
+    )
+    from tpuva_torch.ops.fused_segment import fused_segment, fused_segment_plain, k1_split
+    from tpuva_torch.ops.wide import blur_u8, morph_u8
     from tpuva_torch.ops.label import _assemble_stats, extract_detections, label_components
     from tpuva_torch.scenes import (
         DET_KINDS, K1_REFUSED, det_sequence, k1_refused_config, mixed_scene, u_shape,
@@ -410,7 +426,7 @@ def main():
     err = {name: 0.0 for name in REPLACES}
     counters = {"fused_segment": fused_segment, "ccl_stats": label_stats,
                 "ccl_labels": label_components_tiled, "histogram_u8": histogram_u8,
-                "track_scan": track_scan}
+                "track_scan": track_scan, "blur_u8": blur_u8, "morph_u8": morph_u8}
 
     def reset_counts():
         for fn in counters.values():
@@ -559,9 +575,11 @@ def main():
     # the CPU; then a 1080p batch with median 7
     small, _a, _t, small_plate = multi_blob_clip(160, 240, 16, n_blobs=2, radius=46.0,
                                                  noise_sigma=2.0, seed=7)
-    refused = {}
+    refused, split_launches = {}, {"blur_u8": 0, "morph_u8": 0}
     for name in K1_REFUSED:
         fcfg = k1_refused_config(bench_cfg(config, 8), name)
+        median_k1 = fcfg.median is None or fcfg.median.ksize <= 3
+        parts = k1_split(*small.shape[1:], **_front_end_kwargs(fcfg)) if median_k1 else None
         ref = process_clip(small, fcfg, background0=small_plate, max_components=MAX_COMPONENTS,
                            return_masks=True, device="cpu")
         for route in ("process_clip", "process_clip(use_pallas=True)", "StreamingPipeline"):
@@ -578,26 +596,55 @@ def main():
                         and torch.equal(c_gpu.bg.cpu(), ref[1].bg))
             torch.cuda.synchronize()
             counts = read_counts()
-            if counts["fused_segment"] or counts["track_scan"] < 2:
+            for k in split_launches:
+                split_launches[k] += counts[k]
+            if median_k1:  # K1 a batch, and K1b or K1m where k1_split says
+                ok = (counts["fused_segment"] >= 2 and bool(counts["blur_u8"]) == parts[0]
+                      and bool(counts["morph_u8"]) == parts[1])
+            else:  # the torch front end, as tpuva's jnp branch
+                ok = not (counts["fused_segment"] or counts["blur_u8"] or counts["morph_u8"])
+            if not ok or counts["track_scan"] < 2:
                 raise AssertionError(f"{name} through {route}: launches {counts}")
             if not same:
                 raise AssertionError(f"{name} through {route}: the card's run differs from the CPU's")
-        refused[name] = len(ref[0])
+        refused[name] = dict(rows=len(ref[0]), k1_split=parts)
+    # K1b and K1m against their plain versions on that path's inputs: the
+    # small clip's frames at 65 taps, and its K1 masks under the 7 x 7 and
+    # 33 SEs
+    f_small = torch.from_numpy(small[:8]).to(dev)
+    check_equal(err, "blur_u8", [("blurred", blur_u8(f_small, 65),
+                                  gaussian_blur_u8(f_small, 65).to(torch.uint8))], "65 taps")
+    m_small = fused_segment(f_small, torch.from_numpy(small_plate.astype(np.float32)).to(dev),
+                            **dict(BENCH_KW, open_ksize=0, close_ksize=0))[0]
+    for shape, k in (("rect", 7), ("ellipse", 33), ("rect", 33)):
+        se = structuring_element(shape, k)
+        for erode in (True, False):
+            check_equal(err, "morph_u8", [("mask", morph_u8(m_small, se, erode),
+                                           _morph(m_small, se, erode))],
+                        f"{shape} {k}, erode={erode}")
     med7 = dataclasses.replace(cfg, median=config.MedianConfig(7), batch=64)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.time()
-    _c, out = process_batch(med7, init_carry(med7, 1080, 1920, plate, device=dev),
-                            torch.from_numpy(clip[:64]).to(dev), max_components=MAX_COMPONENTS)
+    f_med7 = torch.from_numpy(clip[:64]).to(dev)
+    _c, out = process_batch(med7, init_carry(med7, 1080, 1920, plate, device=dev), f_med7,
+                            max_components=MAX_COMPONENTS)
     med7_rows = int(out["row_valid"].sum())
     med7_s = time.time() - t0
+    med7_peak = torch.cuda.max_memory_allocated() / 2**30
     if not (out["rows"].shape == (64, 8, 5) and torch.isfinite(out["rows"]).all() and med7_rows):
         raise AssertionError("median 7 at 1080p: no rows, or rows not finite")
-    say("k1_refused_configs", configs=refused, routes_equal_cpu=True, k1_launches=0,
-        median7_1080p_frames=64, median7_1080p_rows=med7_rows,
-        median7_1080p_seconds=round(med7_s, 3),
-        median7_1080p_peak_device_gib=torch.cuda.max_memory_allocated() / 2**30)
-    del out
+    # the card's chunked sort against the CPU's on frames either side of a
+    # chunk boundary and the last frame
+    med7_frames = [0, 1, 2, 3, 63]
+    got = filter_batch(med7, f_med7.to(torch.float32))[med7_frames].cpu()
+    if not torch.equal(got, filter_batch(med7, torch.from_numpy(clip[med7_frames]).to(torch.float32))):
+        raise AssertionError("median 7 at 1080p: the card's filtered frames differ from the CPU's")
+    say("k1_refused_configs", configs=refused, routes_equal_cpu=True, launches=split_launches,
+        k1b_k1m_bit_equal=True, median7_1080p_frames=64, median7_1080p_rows=med7_rows,
+        median7_1080p_seconds=round(med7_s, 3), median7_1080p_peak_device_gib=med7_peak,
+        median7_frames_equal_cpu=med7_frames)
+    del out, f_med7
 
     # 6. the staged route through the entry point
     reset_counts()
@@ -830,6 +877,31 @@ def main():
     t["k5_ms"] = cuda_ms(lambda: track_scan(*k5_args, **t_kw), reps)
     t["k5_us_per_frame"] = 1e3 * t["k5_ms"] / N
     t["k5_plain_ms"] = cuda_ms(lambda: track_scan_plain(*k5_args, **t_kw), 2)
+    # K1b at 65 taps on the batch's frames, K1m as one 7 x 7 dilate of its
+    # masks beside max_pool2d (the same function on 0/255 masks: its -inf
+    # padding is dilate's 0 border), each checked first; then the split
+    # front end of open and close 7 x 10 (K1 + 40 K1m steps)
+    check_equal(err, "blur_u8", [("blurred", blur_u8(frames, 65),
+                                  gaussian_blur_u8(frames, 65).to(torch.uint8))],
+                "main path frames, batch 256")
+    t["k1b_ms"] = cuda_ms(lambda: blur_u8(frames, 65), reps)
+    t["k1b_plain_ms"] = cuda_ms(lambda: gaussian_blur_u8(frames, 65).to(torch.uint8), 2)
+    se7 = structuring_element("rect", 7)
+    check_equal(err, "morph_u8", [("mask", morph_u8(masks, se7, False), _morph(masks, se7, False))],
+                "main path masks, batch 256")
+    masks_f = masks[:, None].to(torch.float32)
+    pooled = torch.nn.functional.max_pool2d(masks_f, 7, stride=1, padding=3)
+    if not torch.equal(pooled[:, 0].to(torch.uint8), morph_u8(masks, se7, False)):
+        raise AssertionError("max_pool2d differs from K1m's 7 x 7 dilate")
+    del pooled
+    t["k1m_ms"] = cuda_ms(lambda: morph_u8(masks, se7, False), reps)
+    t["k1m_plain_ms"] = cuda_ms(lambda: _morph(masks, se7, False), 2)
+    t["k1m_library_ms"] = cuda_ms(
+        lambda: torch.nn.functional.max_pool2d(masks_f, 7, stride=1, padding=3), reps)
+    del masks_f
+    reach120_kw = dict(kw, open_ksize=7, open_iters=10, close_ksize=7, close_iters=10)
+    t["k1_split_reach120_parts"] = list(k1_split(1080, 1920, **reach120_kw))
+    t["k1_split_reach120_ms"] = cuda_ms(lambda: fused_segment(frames, bg0, **reach120_kw), 2)
     # staging: pinned ring + side stream (BatchStager) over six batches,
     # the interval between consecutive batches ready on the card; and a
     # pageable copy of one batch
@@ -891,6 +963,11 @@ def main():
                             + 2 * (cfg.track.max_tracks * 17 + 4),
                             k5_ops(cfg.track.max_tracks, cfg.segment.max_blobs, N)),
     }
+    # K1b: frames read, blurred frames written, the separable blur's
+    # operations as k1_ops_per_px counts them; K1m: the mask read and
+    # written, a separable 7 x 7 max (2 x 6 a pixel)
+    bounds["blur_u8"] = bound(2 * px, (2 * (2 * 65 - 1) + 2) * px)
+    bounds["morph_u8"] = bound(2 * px, 2 * (7 - 1) * px)
     t["k5_bound_ms"] = bounds["track_scan"][0]
     say("timing", card=card, batch=N, shape=[1080, 1920], kernels_bit_equal_at_batch_256=True, **t)
 
@@ -898,15 +975,19 @@ def main():
              "ccl_labels": ("k3_ms", "k3_plain_ms"),
              "fused_segment_diff": ("k1_diff_ms", "k1_diff_plain_ms"),
              "histogram_u8": ("k4_ms", "k4_plain_ms"),
-             "track_scan": ("k5_ms", "k5_plain_ms")}
+             "track_scan": ("k5_ms", "k5_plain_ms"),
+             "blur_u8": ("k1b_ms", "k1b_plain_ms"), "morph_u8": ("k1m_ms", "k1m_plain_ms")}
     launches = {"fused_segment": staged_counts["fused_segment"],
                 "ccl_stats": staged_counts["ccl_stats"],
                 "ccl_labels": default_counts["ccl_labels"],
                 # the staged Otsu run launches K1 only with emit="diff"
                 "fused_segment_diff": otsu_staged_counts["fused_segment"],
                 "histogram_u8": otsu_staged_counts["histogram_u8"],
-                "track_scan": staged_counts["track_scan"]}
-    library = {"histogram_u8": t["k4_library_ms"]}
+                "track_scan": staged_counts["track_scan"],
+                # the configs one K1 launch does not take (phase 5c)
+                "blur_u8": split_launches["blur_u8"],
+                "morph_u8": split_launches["morph_u8"]}
+    library = {"histogram_u8": t["k4_library_ms"], "morph_u8": t["k1m_library_ms"]}
     kernels = []
     for name, (src, rep) in REPLACES.items():
         ms, plain = timed[name]

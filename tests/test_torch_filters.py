@@ -92,10 +92,14 @@ def test_median3_matches_tpuva():
 def test_median_large_k_matches_tpuva(ksize, monkeypatch):
     """k > 3 sorts the k*k window stack (tpuva's form), over chunks of
     frames: with the chunk budget cut to one frame's sort, and with the
-    default (one chunk here). float32 and uint8 inputs keep their dtype."""
+    default (one chunk here). float32 and uint8 inputs keep their dtype,
+    and floats that are not whole numbers sort as they are."""
     for i, shape in enumerate(SHAPES + [(5, 12, 10)]):
         x = _frames(shape, 70 + i)
         ref = np.asarray(jf.median_blur(jnp.asarray(x.astype(np.float32)), ksize))
+        frac = x.astype(np.float32) + np.random.default_rng(i).uniform(-0.5, 0.5, shape).astype(
+            np.float32)
+        ref_frac = np.asarray(jf.median_blur(jnp.asarray(frac), ksize))
         for budget in (tf.MEDIAN_SORT_BYTES, 1):
             monkeypatch.setattr(tf, "MEDIAN_SORT_BYTES", budget)
             got = tf.median_blur(torch.from_numpy(x.astype(np.float32)), ksize)
@@ -104,6 +108,8 @@ def test_median_large_k_matches_tpuva(ksize, monkeypatch):
             got_u8 = tf.median_blur(torch.from_numpy(x), ksize)
             assert got_u8.dtype == torch.uint8
             np.testing.assert_array_equal(got_u8.numpy(), ref.astype(np.uint8))
+            np.testing.assert_array_equal(tf.median_blur(torch.from_numpy(frac), ksize).numpy(),
+                                          ref_frac, err_msg=f"fractions {shape}")
 
 
 def test_threshold_strict_at_the_edge():

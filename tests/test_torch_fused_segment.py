@@ -30,13 +30,19 @@ from tpuva_torch.ops.fused_segment import (
     THREADS,
     TILES,
     UNROLLED_TAPS,
+    _fused_segment_cuda,
     bg_regs_kind,
     fused_segment,
+    fused_segment_plain,
     fused_segment_plan,
+    k1_split,
     launch_plan,
     modelled_blocks_per_sm,
+    run_split,
     smem_bytes,
 )
+from tpuva_torch.ops.filters import structuring_element
+from tpuva_torch.ops.wide import blur_u8, morph_u8, se_runs
 from test_torch_kernels import BENCH, CONFIGS, one_torch_thread, scene  # noqa: F401
 
 
@@ -112,6 +118,55 @@ def test_wrapper_rejects_what_the_kernel_does_not_take():
         fused_segment(frames, torch.zeros(8, 8), median_ksize=5, **BENCH)
     with pytest.raises(ValueError):  # neither CPU nor CUDA: no silent fallback
         fused_segment(frames.to("meta"), torch.zeros(8, 8, device="meta"), **BENCH)
+    # one launch refuses what k1_takes refuses, before it touches a card
+    for wide in (dict(blur_ksize=65), dict(close_ksize=33), dict(open_ksize=7, open_iters=10,
+                                                                  close_ksize=7, close_iters=10)):
+        with pytest.raises(ValueError, match="k1_takes"):
+            _fused_segment_cuda(frames, torch.zeros(8, 8), **dict(BENCH, **wide))
+    for op in (lambda x: blur_u8(x, 65), lambda x: morph_u8(x, np.ones((3, 3), bool), True)):
+        with pytest.raises(ValueError):
+            op(frames.float())
+        with pytest.raises(ValueError):
+            op(frames.to("meta"))
+
+
+# options one K1 launch does not take, with the stages k1_split takes out
+# of it at 1080p, and two it takes whole
+SPLIT_CONFIGS = {
+    "bench": (BENCH, (False, False)),
+    "reach120": (dict(BENCH, open_ksize=7, open_iters=10, close_ksize=7, close_iters=10),
+                 (False, True)),
+    "se33_median3": (dict(BENCH, median_ksize=3, close_shape="ellipse", close_ksize=33),
+                     (False, True)),
+    "blur65": (dict(BENCH, blur_ksize=65), (True, False)),
+    "blur65_se33": (dict(BENCH, blur_ksize=65, close_ksize=33), (True, True)),
+    "blur65_diff": (dict(alpha=0.02, threshold=0.0, blur_ksize=65, median_ksize=3,
+                         emit="diff"), (True, False)),
+}
+
+
+@pytest.mark.parametrize("parts", [(False, False), (True, False), (False, True), (True, True)])
+@pytest.mark.parametrize("name", sorted(SPLIT_CONFIGS))
+def test_split_matches_one_pass(name, parts):
+    """run_split, the form fused_segment takes on the card (blur_u8 before
+    K1, open_close_u8 after it, K1 on the stages that stay), with the plain
+    versions in place of the kernels: masks and background bit-equal to
+    one pass over every option, for every split, seeded from the first
+    frame or from bg0. k1_split picks the split the table says."""
+    kw, split = SPLIT_CONFIGS[name]
+    assert k1_split(1080, 1920, **kw) == split
+    full = dict(blur_ksize=0, blur_sigma=0.0, median_ksize=0, open_shape="rect", open_ksize=0,
+                open_iters=1, close_shape="rect", close_ksize=0, close_iters=1, emit="mask")
+    full.update(kw)
+    frames, bg0 = scene(4, 100, 160, seed=11)
+    frames[1:, 10:95, 20:140] = 220  # a patch wider than reach120's erosion
+    frames, bg0 = torch.from_numpy(frames), torch.from_numpy(bg0)
+    for seed_bg in (False, True):
+        ref = fused_segment_plain(frames, bg0, seed_bg=seed_bg, **full)
+        got = run_split(frames, bg0, parts, fused_segment_plain, seed_bg=seed_bg, **full)
+        for r, g in zip(ref, got):
+            assert torch.equal(r, g), (name, parts, seed_bg)
+    assert ref[0].any()
 
 
 @pytest.mark.parametrize("H, W", [(1080, 1920), (2160, 3840), (250, 333), (64, 256), (7, 5),
@@ -166,3 +221,21 @@ def test_launch_plan_follows_the_occupancy_it_is_given():
     assert diff.tile == (32, 64) and diff.waves == 1 and diff.bg_regs == 1
     diff3 = fused_segment_plan(1080, 1920, blur_ksize=5, blocks_per_sm=lambda *a: 3)
     assert diff3.tile == (32, 64) and diff3.waves == 3
+
+
+def test_se_runs_cover_the_structuring_element():
+    """K1m's form of an SE: its runs, laid back on a grid from the anchor,
+    give the SE pixel for pixel; one run a row for cv2's rect and ellipse."""
+    rng = np.random.default_rng(1)
+    ses = [structuring_element(shape, k) for shape in ("rect", "ellipse") for k in (1, 3, 7, 33)]
+    ses += [rng.random((k, k + 2)) < 0.4 for k in (1, 3, 5, 9)]
+    for i, se in enumerate(ses):
+        kh, kw = se.shape
+        runs = np.array(se_runs(se), np.int64).reshape(-1, 3)
+        grid = np.zeros_like(se)
+        for dy, lo, hi in runs:
+            assert lo <= hi and not grid[dy + kh // 2, lo + kw // 2:hi + kw // 2 + 1].any()
+            grid[dy + kh // 2, lo + kw // 2:hi + kw // 2 + 1] = True
+        np.testing.assert_array_equal(grid, se)
+        if i < 8:
+            assert len(runs) == (se.any(axis=1)).sum()

@@ -11,9 +11,10 @@ background, every stats field, dense labels): both are the same integer
 and IEEE float32 operation sequences. K1's emit="diff" (rounded
 magnitudes, rint half to even) and the histogram kernel K4 (integer
 counts) likewise, and the tracker scan K5 (rows and every state tensor,
-float bits included). Also BatchStager's pinned-buffer copies to the card,
-byte for byte, and configs K1 does not take run on the card with the
-CPU's rows. The CCL scenes (tpuva_torch.scenes)
+float bits included). K1's stages past shared memory (K1b blur_u8, K1m
+morph_u8) and the split fused_segment runs with them likewise. Also
+BatchStager's pinned-buffer copies to the card, byte for byte, and configs
+one K1 launch does not take run on the card with the CPU's rows. The CCL scenes (tpuva_torch.scenes)
 are shared with the CPU tests that hold the plain versions against tpuva.
 """
 
@@ -25,7 +26,9 @@ from tpuva_torch.io.memory import VideoMemory
 from tpuva_torch.io.staging import BatchStager
 from tpuva_torch.ops import connected_components_with_stats
 from tpuva_torch.ops.ccl import label_components_tiled, label_stats
-from tpuva_torch.ops.filters import histogram_u8, histogram_u8_plain
+from tpuva_torch.ops.filters import (
+    _morph, gaussian_blur_u8, histogram_u8, histogram_u8_plain, structuring_element,
+)
 from tpuva_torch.ops.fused_segment import (
     TILES,
     _fused_segment_cuda,
@@ -33,6 +36,7 @@ from tpuva_torch.ops.fused_segment import (
     fused_segment_plain,
 )
 from tpuva_torch.ops.label import label_components
+from tpuva_torch.ops.wide import blur_u8, morph_u8
 from tpuva_torch.scenes import (
     DET_KINDS, K1_REFUSED, det_sequence, k1_refused_config, mixed_scene, u_shape,
 )
@@ -176,6 +180,91 @@ def test_fused_segment_diff_kernel_matches_plain(cuda_device, name):
         assert fused_segment.launches == before + 1
         for r, g in zip(ref, got):
             np.testing.assert_array_equal(g.cpu().numpy(), r.numpy(), err_msg=f"{frames.shape}")
+
+
+# blur sizes for K1b: K1's own range, and past its 63 taps (sigma 0 and a
+# wide sigma: the u8_gaussian_taps quantizer)
+WIDE_BLURS = [(3, 0.0), (5, 0.0), (9, 0.0), (63, 4.0), (65, 0.0), (101, 30.0)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("ksize, sigma", WIDE_BLURS)
+def test_blur_u8_kernel_matches_plain(cuda_device, ksize, sigma):
+    """K1b against gaussian_blur_u8 on every K1 shape: a tap reach wider
+    than the image (one row, one column, 7 x 5) reflects many times."""
+    for shape in K1_SHAPES:
+        frames, _ = scene(*shape, seed=12)
+        ref = gaussian_blur_u8(torch.from_numpy(frames), ksize, sigma).to(torch.uint8)
+        before = blur_u8.launches
+        got = blur_u8(torch.from_numpy(frames).to(cuda_device), ksize, sigma)
+        torch.cuda.synchronize()
+        assert blur_u8.launches == before + 1
+        np.testing.assert_array_equal(got.cpu().numpy(), ref.numpy(), err_msg=f"{shape}")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape_name", ["rect", "ellipse", "random"])
+@pytest.mark.parametrize("ksize", [1, 3, 7, 33, 45])
+def test_morph_u8_kernel_matches_plain(cuda_device, shape_name, ksize):
+    """K1m, one erode and one dilate step, against filters._morph on every
+    K1 shape, on 0/255 masks and on arbitrary bytes (the early exit at 0
+    or 255 must not change a result); SEs wider than the image included,
+    and random ones with several runs a row."""
+    rng = np.random.default_rng(ksize)
+    if shape_name == "random":
+        se = rng.random((ksize, ksize)) < 0.5
+        se[ksize // 2, ksize // 2] = True
+    else:
+        se = structuring_element(shape_name, ksize)
+    for shape in K1_SHAPES:
+        frames, _ = scene(*shape, seed=13)
+        for x in (np.where(frames > 100, 255, 0).astype(np.uint8),
+                  rng.integers(0, 256, shape, dtype=np.uint8)):
+            for erode in (True, False):
+                ref = _morph(torch.from_numpy(x), se, erode)
+                before = morph_u8.launches
+                got = morph_u8(torch.from_numpy(x).to(cuda_device), se, erode)
+                torch.cuda.synchronize()
+                assert morph_u8.launches == before + 1
+                np.testing.assert_array_equal(got.cpu().numpy(), ref.numpy(),
+                                              err_msg=f"{shape}, erode={erode}")
+
+
+# options one K1 launch does not take: (options, blur_u8 and morph_u8
+# launches a call on a (N, 100, 160) batch)
+SPLIT_CONFIGS = {
+    "reach120": (dict(BENCH, open_ksize=7, open_iters=10, close_ksize=7, close_iters=10),
+                 0, 40),
+    "se33_median3": (dict(BENCH, median_ksize=3, close_shape="ellipse", close_ksize=33), 0, 4),
+    "blur65": (dict(BENCH, blur_ksize=65), 1, 0),
+    "blur65_se33": (dict(BENCH, blur_ksize=65, close_ksize=33), 1, 4),
+    "blur101_diff": (dict(alpha=0.02, threshold=0.0, blur_ksize=101, blur_sigma=30.0,
+                          median_ksize=3, emit="diff"), 1, 0),
+}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", sorted(SPLIT_CONFIGS))
+def test_fused_segment_split_matches_plain(cuda_device, name):
+    """fused_segment on the card for options one K1 launch does not take:
+    K1b before K1 and K1m steps after it as k1_split says, one K1 launch,
+    masks (or magnitudes) and background bit-equal to the one-pass plain
+    version, seeded or not."""
+    kw, n_blur, n_morph = SPLIT_CONFIGS[name]
+    frames, bg0 = scene(4, 100, 160, seed=11)
+    frames[1:, 10:95, 20:140] = 220  # a patch wider than reach120's erosion
+    for seed_bg in (False, True):
+        ref = fused_segment_plain(torch.from_numpy(frames), torch.from_numpy(bg0),
+                                  seed_bg=seed_bg, **kw)
+        before = fused_segment.launches, blur_u8.launches, morph_u8.launches
+        got = fused_segment(torch.from_numpy(frames).to(cuda_device),
+                            torch.from_numpy(bg0).to(cuda_device), seed_bg=seed_bg, **kw)
+        torch.cuda.synchronize()
+        after = fused_segment.launches, blur_u8.launches, morph_u8.launches
+        assert tuple(a - b for a, b in zip(after, before)) == (1, n_blur, n_morph)
+        for r, g in zip(ref, got):
+            np.testing.assert_array_equal(g.cpu().numpy(), r.numpy(), err_msg=f"{seed_bg}")
+        assert ref[0].any()
 
 
 @pytest.mark.gpu
@@ -336,10 +425,13 @@ def test_track_scan_kernel_global_scratch_matches_plain(cuda_device, assigner):
 @pytest.mark.parametrize("name", K1_REFUSED)
 def test_configs_k1_refuses_run_on_the_card(cuda_device, name):
     """process_batch (through process_clip) and process_clip(use_pallas=True)
-    on the card: the torch front end, no K1 launch, one K5 launch a batch,
-    and the CPU run's rows and masks."""
+    on the card, one K5 launch a batch, and the CPU run's rows and masks:
+    K1 a batch with K1b or K1m beside it where k1_split takes the blur or
+    the morphology out of its launch; no K1 launch for a median k > 3
+    (the torch front end, as tpuva's jnp branch)."""
+    from tpuva_torch.ops.fused_segment import k1_split
     from refimpl.synthetic import multi_blob_clip
-    from tpuva_torch.graph.pipeline import process_clip
+    from tpuva_torch.graph.pipeline import _front_end_kwargs, process_clip
 
     frames, _alive, _truth, plate = multi_blob_clip(160, 240, 16, n_blobs=2, radius=46.0,
                                                     noise_sigma=2.0, seed=7)
@@ -355,11 +447,18 @@ def test_configs_k1_refuses_run_on_the_card(cuda_device, name):
     ref = process_clip(frames, cfg, background0=plate, max_components=32, return_masks=True,
                        device="cpu")
     assert len(ref[0]) > 10
+    median_k1 = cfg.median is None or cfg.median.ksize <= 3
+    blur_apart, morph_apart = (k1_split(160, 240, **_front_end_kwargs(cfg)) if median_k1
+                               else (False, False))
     for use_pallas in (False, True):
         k1, k5 = fused_segment.launches, track_scan.launches
+        wide = blur_u8.launches, morph_u8.launches
         rows, carry, masks = process_clip(frames, cfg, background0=plate, max_components=32,
                                           return_masks=True, use_pallas=use_pallas, device="cuda")
-        assert fused_segment.launches == k1 and track_scan.launches == k5 + 2
+        assert fused_segment.launches == k1 + (2 if median_k1 else 0)
+        assert track_scan.launches == k5 + 2
+        assert (blur_u8.launches > wide[0]) == blur_apart
+        assert (morph_u8.launches > wide[1]) == morph_apart
         assert rows == ref[0]
         np.testing.assert_array_equal(masks, ref[2])
         assert torch.equal(carry.bg.cpu(), ref[1].bg)

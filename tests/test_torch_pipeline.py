@@ -189,19 +189,26 @@ def test_not_yet_ported_options_raise(clip):
 
 
 def f1_cfg(name, module=tcfg, batch=8):
-    """The bench config changed so that kernel K1 does not take it."""
+    """The bench config changed so that one launch of kernel K1 does not
+    take it."""
     return k1_refused_config(bench_cfg(module, batch=batch), name, module)
 
 
 F1_NAMES = list(K1_REFUSED)
+# the F1 configs fused_segment takes by splitting K1 (median 0 or 3), and
+# the stages it takes out of K1's launch for each (k1_split)
+F1_SPLITS = {"open_close_7x10": (False, True), "median3_5x10": (False, True),
+             "se33": (False, True), "blur65": (True, False)}
 
 
 def test_k1_takes():
-    """The predicate the routes take K1 on: true for the bench config (both
-    emits) and the kernel's limits, false past them; it agrees with the
-    launch plan wherever that has a tile to offer, for every tap count,
-    median and morphology reach."""
-    from tpuva_torch.ops.fused_segment import MAX_SE, fused_segment_plan, k1_takes
+    """The predicate one K1 launch is decided on: true for the bench config
+    (both emits) and the kernel's limits, false past them; it agrees with
+    the launch plan wherever that has a tile to offer, for every tap count,
+    median and morphology reach. The routes take K1 wherever tpuva takes its
+    Pallas K1 (_can_stage, _can_fuse), and k1_split says which stages leave
+    the launch."""
+    from tpuva_torch.ops.fused_segment import MAX_SE, fused_segment_plan, k1_split, k1_takes
 
     otsu = dataclasses.replace(bench_cfg(tcfg), segment=tcfg.SegmentConfig(threshold="otsu"))
     assert k1_takes(1080, 1920, **tp._front_end_kwargs(bench_cfg(tcfg)))
@@ -212,7 +219,11 @@ def test_k1_takes():
     for name in F1_NAMES:
         for H, W in ((1080, 1920), (64, 96)):
             assert not k1_takes(H, W, **tp._front_end_kwargs(f1_cfg(name))), name
-            assert not tp._can_stage(f1_cfg(name), H, W) and not tp._can_fuse(f1_cfg(name), H, W)
+            if name in F1_SPLITS:
+                assert k1_split(H, W, **tp._front_end_kwargs(f1_cfg(name))) == F1_SPLITS[name]
+        assert tp._can_stage(f1_cfg(name)) == jp._can_stage(f1_cfg(name, jcfg)) == (
+            name in F1_SPLITS)
+        assert tp._can_fuse(f1_cfg(name)) == jp._can_fuse(f1_cfg(name, jcfg))
     for blur in (0, 3, 5, 9, 31, 63):
         for median in (0, 3):
             for k, iters in ((0, 1), (3, 1), (5, 4), (7, 6), (9, 10), (15, 4)):
@@ -242,12 +253,17 @@ def _staged_rows(cfg, frames, plate):
 
 @pytest.mark.parametrize("name", F1_NAMES)
 def test_configs_k1_refuses_match_tpuva(monkeypatch, name):
-    """Configs K1 does not take run the torch front end (never the K1
-    wrapper) through process_clip on both values of use_pallas (both reach
-    process_batch on the CPU) and through process_batch_staged, with
-    tpuva's masks and rows; tpuva runs them through its jnp front end.
-    median5 starts without a plate (the background seeded from the filtered
-    first frame). Both staged routes refuse a median k > 3."""
+    """Configs one K1 launch does not take, through process_clip on both
+    values of use_pallas (both reach process_batch on the CPU) and through
+    process_batch_staged, with tpuva's masks and rows (tpuva runs them
+    through its jnp front end). Those with a median 0 or 3 take the K1
+    wrapper, here made to run the card's split on the CPU (run_split with
+    k1_split's parts: blur_u8, K1's plain version on the stages that stay,
+    open_close_u8); a median k > 3 runs the torch front end and never the
+    wrapper. median5 starts without a plate (the background seeded from
+    the filtered first frame). Both staged routes refuse a median k > 3."""
+    from tpuva_torch.ops import fused_segment as fs
+
     # blobs wide enough to survive an open that erodes 30 px deep
     frames, _alive, _truth, plate = multi_blob_clip(160, 240, 16, n_blobs=2, radius=46.0,
                                                     noise_sigma=2.0, seed=7)
@@ -257,10 +273,17 @@ def test_configs_k1_refuses_match_tpuva(monkeypatch, name):
                                                max_components=MAX_COMPONENTS, return_masks=True)
     assert len(rows_j) > 10
 
-    def no_k1(*args, **kw):
-        raise AssertionError("K1's wrapper called for a config it does not take")
+    calls = []
 
-    monkeypatch.setattr(tp, "fused_segment", no_k1)
+    def split_k1(frames, bg0, **kw):
+        parts = fs.k1_split(*frames.shape[1:], **kw)
+        calls.append(parts)
+        kw = dict(dict(blur_ksize=0, blur_sigma=0.0, median_ksize=0, open_shape="rect",
+                       open_ksize=0, open_iters=1, close_shape="rect", close_ksize=0,
+                       close_iters=1, seed_bg=False), **kw)
+        return fs.run_split(frames, bg0, parts, fs.fused_segment_plain, **kw)
+
+    monkeypatch.setattr(tp, "fused_segment", split_k1)
     for use_pallas in (False, True):
         rows, carry, masks = tp.process_clip(frames, f1_cfg(name), background0=plate,
                                              max_components=MAX_COMPONENTS, return_masks=True,
@@ -273,6 +296,7 @@ def test_configs_k1_refuses_match_tpuva(monkeypatch, name):
             _staged_rows(f1_cfg(name), frames, plate)
     else:
         assert _staged_rows(f1_cfg(name), frames, plate) == rows_j
+    assert set(calls) == ({F1_SPLITS[name]} if name in F1_SPLITS else set())
 
 
 @pytest.mark.parametrize("route", ["default", "staged"])

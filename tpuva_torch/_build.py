@@ -67,6 +67,16 @@ _SIGNATURES = {
         _P, _I, _LL, _P,  # x, L, P (pixels per image), hist
         _P,  # stream
     ],
+    "tpuva_blur_u8": [
+        _P, _P, _P, _I, _I, _I,  # x, rows, out, N, H, W
+        _P, _I, _I,  # taps (device), ntaps, shift
+        _P,  # stream
+    ],
+    "tpuva_morph_u8": [
+        _P, _P, _I, _I, _I,  # x, out, N, H, W
+        _P, _I, _I,  # runs (device), n, erode
+        _P,  # stream
+    ],
     "tpuva_track_scan_scratch": [
         _I, _I, _P,  # T, D, bytes (int64 out)
     ],

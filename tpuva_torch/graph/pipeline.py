@@ -14,14 +14,15 @@ JAX package's names:
 - ``process_batch_staged`` — kernel K1, then kernel K2 (``label_stats``:
   8-connected CCL + stats in one launch sequence), then ``_finish_batch``.
 
-A config that K1 does not take (``ops.fused_segment.k1_takes``: a median
-k > 3, more than 63 blur taps, a structuring element wider than 31, or a
-morphology reach whose tile overflows a CTA's shared memory) runs the
-front end as torch ops on the frames' device, as tpuva's jnp branch does:
-``filter_batch``, the sequential ``background_trajectory``, |F - B|, the
-threshold (or Otsu) and ``_morphology``. The staged route takes these
-configs too, with K2 after them, except a median k > 3, which it refuses
-as tpuva's does.
+K1 takes every config tpuva's Pallas kernel does (median 0 or 3): where
+one launch cannot hold more than 63 blur taps, a structuring element wider
+than 31 or a morphology reach whose tile overflows a CTA's shared memory
+(``ops.fused_segment.k1_takes``), ``fused_segment`` runs that blur or that
+open and close in kernels of their own around it (``k1_split``). A median
+k > 3 is where tpuva runs its jnp branch, and so does the port: the front
+end as torch ops on the frames' device (``filter_batch``, the sequential
+``background_trajectory``, |F - B|, the threshold or Otsu, ``_morphology``);
+the staged route refuses it, as tpuva's does.
 
 Otsu thresholding (``SegmentConfig(threshold="otsu")``) takes every route:
 the front end emits the rounded magnitudes ``clip(rint(|F - B|), 0, 255)``
@@ -73,7 +74,7 @@ from tpuva_torch.ops.filters import (
     structuring_element,
     threshold,
 )
-from tpuva_torch.ops.fused_segment import fused_segment, k1_takes
+from tpuva_torch.ops.fused_segment import fused_segment
 from tpuva_torch.ops.label import (
     connected_components_with_stats,
     extract_detections,
@@ -175,8 +176,8 @@ def filter_batch(cfg, frames: torch.Tensor) -> torch.Tensor:
     f = frames
     if cfg.blur is not None:
         f = gaussian_blur_u8(f, cfg.blur.ksize, cfg.blur.sigma)
-    if cfg.median is not None:
-        f = median_blur(f, cfg.median.ksize)
+    if cfg.median is not None:  # u8 values: a k > 3 median sorts them as uint8
+        f = median_blur(f.to(torch.uint8), cfg.median.ksize).to(torch.float32)
     return f
 
 
@@ -227,19 +228,18 @@ def background_trajectory(bg0: torch.Tensor, frames: torch.Tensor, alpha: float,
     return S * bg0[None] + O
 
 
-def _can_stage(cfg, H: int, W: int) -> bool:
-    """Whether kernel K1 takes the config's front end on (H, W) frames:
-    the mask emit for a fixed threshold, the diff emit for Otsu
-    (k1_takes)."""
-    otsu = cfg.segment.threshold == "otsu"
-    return k1_takes(H, W, **(_diff_kwargs(cfg) if otsu else _front_end_kwargs(cfg)))
+def _can_stage(cfg) -> bool:
+    """Whether kernel K1 takes the config's front end, as tpuva's
+    _can_stage: median off or 3 (the mask emit for a fixed threshold, the
+    diff emit for Otsu; fused_segment splits what one launch cannot hold)."""
+    return cfg.median is None or cfg.median.ksize in (1, 3)
 
 
-def _can_fuse(cfg, H: int, W: int) -> bool:
+def _can_fuse(cfg) -> bool:
     """Configs K1 covers in one pass: those of _can_stage with a fixed
     threshold. Otsu needs each frame's histogram, a statistic no tile
     sees, so K1 only emits its magnitudes (_otsu_mask)."""
-    return cfg.segment.threshold != "otsu" and _can_stage(cfg, H, W)
+    return cfg.segment.threshold != "otsu" and _can_stage(cfg)
 
 
 def _morphology(cfg, mask: torch.Tensor) -> torch.Tensor:
@@ -273,12 +273,12 @@ def torch_front_end(cfg, carry: PipelineCarry, frames: torch.Tensor,
     K1 (fused_segment; its plain version on CPU tensors): the mask emit for
     a fixed threshold, the diff emit then _otsu_mask for Otsu. The scanned
     background (parallel_bg: tpuva's associative scan takes another float32
-    order, which no kernel carries) and the configs K1 refuses are torch
-    code here, seeded as K1 is: from the filtered first frame while the
-    carry has no background."""
+    order, which no kernel carries) and a median k > 3 are torch code here,
+    as in tpuva's jnp branch, seeded as K1 is: from the filtered first
+    frame while the carry has no background."""
     seed_bg = not bool(carry.bg_valid)
     otsu = cfg.segment.threshold == "otsu"
-    if not parallel_bg and _can_stage(cfg, *frames.shape[1:]):
+    if not parallel_bg and _can_stage(cfg):
         if otsu:
             du8, bg_last = fused_segment(frames, carry.bg, seed_bg=seed_bg, **_diff_kwargs(cfg))
             return _otsu_mask(cfg, du8), bg_last
@@ -303,7 +303,7 @@ def process_batch(cfg, carry: PipelineCarry, frames: torch.Tensor,
 
     The front end is torch_front_end: kernel K1 for the sequential
     background (the mask emit, or for Otsu the diff emit), torch ops for
-    the scanned one (parallel_bg) and for configs K1 does not take. With
+    the scanned one (parallel_bg) and for a median k > 3. With
     use_pallas and a config K1 covers in one pass (_can_fuse), the front
     end is K1 whatever parallel_bg says, as tpuva's fused stage. The CCL is
     connected_components_with_stats, whose root-key labels come from
@@ -319,7 +319,7 @@ def process_batch(cfg, carry: PipelineCarry, frames: torch.Tensor,
       stats_overflow (N,) int32, ccl_converged bool — strictness fields
       masks          (N, H, W) uint8, only if return_masks
     """
-    fuse = use_pallas and _can_fuse(cfg, *frames.shape[1:])
+    fuse = use_pallas and _can_fuse(cfg)
     mask, bg_last = torch_front_end(cfg, carry, frames, parallel_bg and not fuse)
     if ccl_single_pass:
         stats = label_stats(mask, max_components)
@@ -338,8 +338,8 @@ def process_batch_staged(cfg, carry: PipelineCarry, frames: torch.Tensor,
                          return_labels: bool = False, ccl_single_pass: bool = False):
     """One N-frame batch through the staged route: torch_front_end with the
     sequential background (kernel K1, seeded from the filtered first frame
-    while the carry has none; for Otsu its diff emit, then _otsu_mask; the
-    torch ops for a config K1 does not take), then kernel K2's CCL + stats.
+    while the carry has none; for Otsu its diff emit, then _otsu_mask),
+    then kernel K2's CCL + stats.
     Same outputs as process_batch. A median k > 3 raises
     NotImplementedError, as tpuva's staged route refuses it.
 
@@ -348,7 +348,7 @@ def process_batch_staged(cfg, carry: PipelineCarry, frames: torch.Tensor,
     components in cv2 order, 0 for the background and every later
     component (K3's root keys through relabel_dense). ccl_single_pass
     changes nothing here: K2 is exact in one launch sequence."""
-    if cfg.median is not None and cfg.median.ksize not in (1, 3):
+    if not _can_stage(cfg):
         raise NotImplementedError("process_batch_staged: median ksize must be 1 or 3")
     if ccl_single_pass and return_labels:
         warnings.warn(  # tpuva's warning: its single-pass kernel leaves no label buffer
@@ -446,7 +446,7 @@ def process_clip(clip: np.ndarray, cfg, background0: Optional[np.ndarray] = None
     T, H, W = clip.shape
     N = cfg.batch
     carry = init_carry(cfg, H, W, background0, device)
-    staged = use_pallas and _can_stage(cfg, H, W) and carry.bg.device.type == "cuda"
+    staged = use_pallas and _can_stage(cfg) and carry.bg.device.type == "cuda"
     all_rows = []
     masks = [] if return_masks else None
     for start in range(0, T, N):

@@ -358,7 +358,7 @@ class StreamingPipeline:
     def _step(self, cfg, carry, batch):
         if (
             self.use_pallas
-            and _can_stage(cfg, *batch.shape[1:])
+            and _can_stage(cfg)
             and (self.device.type == "cuda" or self.force_staged)
         ):
             return process_batch_staged(cfg, carry, batch, max_components=self.max_components,

@@ -171,17 +171,17 @@ def _median9(p):
 
 
 # bytes of one chunk's sort in median_blur for ksize > 3: the window stack
-# (1 B an element), the sorted values (1 B) and their int64 indices (8 B)
+# and the sorted values (x's element size each) and their int64 indices
 MEDIAN_SORT_BYTES = 2 << 30
 
 
 def median_blur(x: torch.Tensor, ksize: int) -> torch.Tensor:
     """cv2.medianBlur, BORDER_REPLICATE, for any odd ksize. k = 3 is the
     19-op network; a larger k takes the middle element of the sorted
-    k*k window stack, as tpuva's. That stack is k*k times the input, so it
-    is sorted as uint8 (x holds integer values in [0, 255], as filter_batch
-    gives it) and over chunks of the leading axis that keep one sort near
-    MEDIAN_SORT_BYTES."""
+    k*k window stack, as tpuva's, in x's dtype. That stack is k*k times the
+    input, so it is sorted over chunks of the leading axis that keep one
+    sort near MEDIAN_SORT_BYTES; filter_batch passes its u8 values as
+    uint8, the smallest stack."""
     if ksize == 1:
         return x
     if ksize < 1 or ksize % 2 == 0:
@@ -197,10 +197,10 @@ def median_blur(x: torch.Tensor, ksize: int) -> torch.Tensor:
     if ksize == 3:
         return _median9(windows(x.index_select(x.ndim - 2, ri).index_select(x.ndim - 1, ci)))
     lead = x.reshape(-1, H, W)
-    step = max(1, MEDIAN_SORT_BYTES // (10 * ksize * ksize * H * W))
+    step = max(1, MEDIAN_SORT_BYTES // ((2 * x.element_size() + 8) * ksize * ksize * H * W))
     out = torch.empty_like(lead)
     for i in range(0, lead.shape[0], step):
-        xp = lead[i:i + step].to(torch.uint8).index_select(1, ri).index_select(2, ci)
+        xp = lead[i:i + step].index_select(1, ri).index_select(2, ci)
         stack = torch.stack(windows(xp), dim=-1)
         out[i:i + step] = torch.sort(stack, dim=-1).values[..., ksize * ksize // 2]
     return out.reshape(x.shape)

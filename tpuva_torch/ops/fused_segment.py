@@ -17,6 +17,14 @@ fused_segment`` (without ``padded_occ``). Per frame: u8 Gaussian blur
   kernel's instantiation come from ``launch_plan``, a pure function of the
   shapes and options, fed the card's occupancy for each candidate
   (``card_blocks_per_sm``).
+- One launch takes at most 63 blur taps, structuring elements at most 31
+  wide and a morphology reach whose tile fits a CTA's shared memory
+  (``k1_takes``, the one place that says so). Past that, ``k1_split``
+  takes the blur, the open and close, or both out of the launch:
+  ``ops.wide.blur_u8`` blurs the frames before K1 and ``ops.wide.
+  open_close_u8`` runs the morphology after it, hand-written kernels over
+  global memory, so the wrapper takes every option tpuva's Pallas kernel
+  does (median 0 or 3).
 - CPU tensors take the plain version, ``fused_segment_plain``: the op
   chain of tpuva's ``process_batch`` jnp branch (graph/pipeline.py).
 
@@ -45,6 +53,7 @@ from tpuva_torch.ops.filters import (
     structuring_element,
     threshold as threshold_op,
 )
+from tpuva_torch.ops.wide import blur_u8, open_close_u8
 
 # limits of csrc/fused_segment.cu's parameter block
 MAX_TAPS = 63
@@ -254,7 +263,9 @@ def fused_segment(
     ignored and open/close must be off.
 
     blur_ksize 0 = no blur; median_ksize 0 or 3; open/close ksize 0 = off.
-    CPU tensors run fused_segment_plain; CUDA tensors launch the kernel."""
+    CPU tensors run fused_segment_plain; CUDA tensors launch the kernel,
+    with the blur or the morphology in kernels of their own where one
+    launch does not take them (k1_split)."""
     _check_emit(emit, open_ksize, close_ksize)
     kw = dict(
         alpha=alpha, threshold=threshold, blur_ksize=blur_ksize,
@@ -276,9 +287,62 @@ def fused_segment(
         return fused_segment_plain(frames, bg0, **kw)
     if frames.device.type != "cuda":
         raise ValueError(f"fused_segment: unsupported device {frames.device}")
-    out = _fused_segment_cuda(frames.contiguous(), bg0.contiguous(), **kw)
+    return run_split(frames.contiguous(), bg0.contiguous(), k1_split(H, W, **kw),
+                     _k1_launch, **kw)
+
+
+def _k1_launch(frames, bg0, **kw):
+    out = _fused_segment_cuda(frames, bg0, **kw)
     fused_segment.launches += 1
     return out
+
+
+def _k1_options(kw: dict, blur_apart: bool, morph_apart: bool) -> dict:
+    """fused_segment's options less the stages taken out of K1."""
+    kw = dict(kw)
+    if blur_apart:
+        kw.update(blur_ksize=0, blur_sigma=0.0)
+    if morph_apart:
+        kw.update(open_ksize=0, close_ksize=0)
+    return kw
+
+
+def k1_split(H: int, W: int, **kw) -> tuple[bool, bool]:
+    """(blur apart, morphology apart): the stages fused_segment takes out of
+    K1's launch on an (H, W) image so that k1_takes takes the rest — none,
+    then the blur, then the open and close, then both; a stage is only
+    taken out where the options have it. With both out, one launch holds a
+    median 3 and no morphology, which every candidate tile fits. A pure
+    function of the shapes and options, as k1_takes."""
+    if kw.get("median_ksize", 0) not in (0, 3):
+        raise NotImplementedError("fused_segment: median_ksize must be 0 or 3")
+    has_blur = kw.get("blur_ksize", 0) > 1
+    has_morph = bool(kw.get("open_ksize", 0) or kw.get("close_ksize", 0))
+    for parts in ((False, False), (True, False), (False, True), (True, True)):
+        if (parts[0] and not has_blur) or (parts[1] and not has_morph):
+            continue
+        if k1_takes(H, W, **_k1_options(kw, *parts)):
+            return parts
+    raise ValueError("fused_segment: no split of these options fits the kernel")
+
+
+def run_split(frames, bg0, parts, k1, **kw):
+    """fused_segment's options as parts = (blur apart, morphology apart)
+    say: blur_u8 on the frames, k1(frames, bg0, **options) with the stages
+    that stay (the kernel's launch on the card; the CPU tests pass
+    fused_segment_plain), then open_close_u8 on its masks. Bit-equal to one
+    pass over all the options: the blur's output is u8, as the median and
+    the background see it inside K1, and the morphology follows the
+    threshold."""
+    blur_apart, morph_apart = parts
+    if blur_apart:
+        frames = blur_u8(frames, kw["blur_ksize"], kw["blur_sigma"])
+    masks, bg = k1(frames, bg0, **_k1_options(kw, blur_apart, morph_apart))
+    if morph_apart:
+        masks = open_close_u8(masks, (
+            (kw["open_shape"], kw["open_ksize"], kw["open_iters"]),
+            (kw["close_shape"], kw["close_ksize"], kw["close_iters"])))
+    return masks, bg
 
 
 def _stages(open_shape, open_ksize, open_iters, close_shape, close_ksize, close_iters):
@@ -301,13 +365,13 @@ def _reach(open_ksize: int, open_iters: int, close_ksize: int, close_iters: int)
 def k1_takes(H: int, W: int, *, blur_ksize: int = 0, blur_sigma: float = 0.0,
              median_ksize: int = 0, open_ksize: int = 0, open_iters: int = 1,
              close_ksize: int = 0, close_iters: int = 1, **_unused) -> bool:
-    """True exactly when the kernel takes fused_segment's options on an
-    (H, W) image: median 0 or 3, at most MAX_TAPS blur taps, structuring
-    elements at most MAX_SE wide, and a candidate tile whose shared memory
-    fits a CTA (launch_plan's fit test; no tile's size depends on H and W
-    today). A pure function of the shapes and options that queries no
-    card, so CPU and CUDA tensors take the same route on it. Options that
-    do not shape the launch are ignored."""
+    """True exactly when one launch of the kernel takes fused_segment's
+    options on an (H, W) image: median 0 or 3, at most MAX_TAPS blur taps,
+    structuring elements at most MAX_SE wide, and a candidate tile whose
+    shared memory fits a CTA (launch_plan's fit test; no tile's size
+    depends on H and W today). The launch refuses through it and k1_split
+    splits on it. A pure function of the shapes and options that queries
+    no card. Options that do not shape the launch are ignored."""
     if median_ksize not in (0, 3):
         return False
     ntaps = _ntaps(blur_ksize, blur_sigma)
@@ -341,13 +405,13 @@ def _fused_segment_cuda(frames, bg0, *, alpha, threshold, blur_ksize=0, blur_sig
     timing force each candidate). Does not count a launch of the main
     path: fused_segment does, around it."""
     N, H, W = frames.shape
+    if not k1_takes(H, W, blur_ksize=blur_ksize, blur_sigma=blur_sigma,
+                    median_ksize=median_ksize, open_ksize=open_ksize, open_iters=open_iters,
+                    close_ksize=close_ksize, close_iters=close_iters):
+        raise ValueError("fused_segment kernel: one launch does not take these options "
+                         "(k1_takes; fused_segment splits them with k1_split)")
     taps, shift = blur_taps(blur_ksize, blur_sigma) if blur_ksize else ((1,), 0)
     stages = _stages(open_shape, open_ksize, open_iters, close_shape, close_ksize, close_iters)
-    if len(taps) > MAX_TAPS or max(k for _, k, _ in stages) > MAX_SE:
-        raise ValueError(
-            f"fused_segment kernel: blur ksize <= {MAX_TAPS} and morphology "
-            f"ksize <= {MAX_SE}"
-        )
     if tile is None:
         tile = fused_segment_plan(
             H, W, blur_ksize=blur_ksize, blur_sigma=blur_sigma, median_ksize=median_ksize,

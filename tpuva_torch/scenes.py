@@ -6,7 +6,7 @@ kernels against their plain versions on; numpy only:
 - detection streams for the tracker (``det_sequence``): churn, empty
   frames, contested frames (the Hungarian search's slow path), more
   detections than free slots, and random clouds;
-- configs that kernel K1 does not take (``k1_refused_config``).
+- configs that one launch of kernel K1 does not take (``k1_refused_config``).
 """
 
 import dataclasses
@@ -95,15 +95,16 @@ def det_sequence(kind, D, frames=60, seed=0):
     return dets, valid
 
 
-K1_REFUSED = ("open_close_7x10", "median3_5x10", "se33", "median5", "median7_otsu")
+K1_REFUSED = ("open_close_7x10", "median3_5x10", "se33", "blur65", "median5", "median7_otsu")
 
 
 def k1_refused_config(cfg, name, config=None):
     """cfg (a PipelineConfig of the config module `config`, the port's by
-    default) changed so that kernel K1 does not take it (k1_takes):
-    open and close 7 x 10 (morphology reach 120), median 3 with open and
-    close 5 x 10 (reach 80), a 33-wide close, median 5, or median 7 with
-    Otsu."""
+    default) changed so that one launch of kernel K1 does not take it
+    (k1_takes): open and close 7 x 10 (morphology reach 120), median 3 with
+    open and close 5 x 10 (reach 80), a 33-wide close, a 65-tap blur (the
+    first four: fused_segment splits them, k1_split), median 5, or median 7
+    with Otsu (tpuva's jnp branch)."""
     if config is None:
         from tpuva_torch.graph import config
     M = config.MorphConfig
@@ -115,6 +116,7 @@ def k1_refused_config(cfg, name, config=None):
             cfg, median=config.MedianConfig(3), morph_open=M(ksize=5, iterations=10),
             morph_close=M(ksize=5, iterations=10)),
         "se33": lambda: replace(cfg, morph_close=M(ksize=33)),
+        "blur65": lambda: replace(cfg, blur=config.BlurConfig(ksize=65)),
         "median5": lambda: replace(cfg, median=config.MedianConfig(5)),
         "median7_otsu": lambda: replace(
             cfg, median=config.MedianConfig(7),
