@@ -3,6 +3,7 @@
 
     python3 chip_smoke.py          # every phase below
     python3 chip_smoke.py --k1     # phases 1-3b, then K1's timings only
+    python3 chip_smoke.py --k2     # phases 1-2, then K2's and K3's timings only
 
 Run from the repository root on a machine with one CUDA card and nvcc; it
 builds the kernels into build/tpuva_torch/ first. It imports no JAX and
@@ -20,8 +21,16 @@ raises, so the exit code is non-zero:
    three configs, and a tie case (alpha 0, bg0 = k + 0.5: every magnitude
    a .5 tie), magnitudes and background bit-equal; K4 (histogram_u8)
    against its plain version on those magnitudes and on random bytes;
+3c. K1's padded_occ mode against its plain version: the padded mask (its
+   zero padding included), occ128 and the background bit-equal at
+   (16, 1080, 1920), a ragged (5, 250, 333) and on phase 5c's 160 x 240
+   clip for the configs one K1 launch does not take (K1m's last step
+   writing the padded mask and occ128 where the open and close leave K1);
 4. K2 (CCL + stats) against its plain version on the card, on K1's masks
    and random masks of density 0.05 and 0.3: every stats field bit-equal;
+   K2 given the strip occupancy (from K1's occ128 on K1's padded masks, of
+   the mask padded to 64 x 256 on the random ones, and on an all-empty
+   batch) against K2 deriving it and against the plain version;
 5. K3 (dense root-key labels) against its plain version on the card, bit
    for bit, 8- and 4-connected, on the masks of phase 4, the U shape and
    mixed scene of tpuva_torch.scenes and odd sizes; then
@@ -49,25 +58,32 @@ raises, so the exit code is non-zero:
    a 512-frame six-blob clip through process_clip(use_pallas=True) on
    cuda (K1 + K2 + K5), with the launch counts read around it; its CSV bytes
    equal the OpenCV reference's (REF_CSV_SHA256) and most rows lie within
-   1 px of the clip's truth; a 48-frame sub-clip run on the CPU (plain
-   versions) and on the card gives identical rows, masks, background and
-   CSV bytes;
+   1 px of the clip's truth; K1 ran in padded_occ mode and K2 took its
+   occupancy (the padded handoff at 1080p); a 48-frame sub-clip run on the
+   CPU (plain versions) and on the card gives identical rows, masks,
+   background and CSV bytes;
 7. the streamed default route: the same clip through
    StreamingPipeline(cfg, max_components=32).run(VideoMemory(clip)) on
    cuda (front end K1, then K3 and the dense stats, K5), launch counts read
    around it: K1, K3 and K5 launched, K2 not, CSV sha256 == REF_CSV_SHA256;
    the same with
-   use_pallas=True (K1 + K2 + K5, no K3); a run stopped after its first
+   use_pallas=True (K1 in padded_occ mode + K2 given its occupancy + K5,
+   no K3); a run stopped after its first
    checkpointed batch and resumed on the whole clip gives the same bytes;
    K3 against its plain version on the route's own batch-256 masks;
 7b. the Otsu routes: the bench config with threshold="otsu" on the same
-   clip through process_clip(use_pallas=True) (K1's diff emit, K4, K2; no
-   K3) and the streamed default route (K1's diff emit, K4, K3; no K2
+   clip through process_clip(use_pallas=True) (K1's diff emit, K4, K2
+   deriving its occupancy; no K3, no padded K1) and the streamed default
+   route (K1's diff emit, K4, K3; no K2
    launch), K5 on both, each run's CSV sha256 equal to REF_OTSU_CSV_SHA256;
    a 48-frame sub-clip on the CPU (plain versions) and on the card gives
    identical rows, masks and background;
-8. timing with CUDA events after warm-up at batch 256 and 1080p: K1, K2,
-   K3 (8- and 4-connected), connected_components_with_stats, K1's diff
+8. timing with CUDA events after warm-up at batch 256 and 1080p: K1, K1
+   in padded_occ mode, K2 given K1's occupancy, deriving it and given
+   every strip (the walk of every strip the kernels made before they
+   skipped), on the clip's masks and on a random mask of density 0.3, K3
+   (8- and 4-connected), the dense stats alone (K6's torch ops, on K3's
+   labels), connected_components_with_stats, K1's diff
    emit and K4 against their plain versions (K1's plain version runs on
    no route: it is the kernels' yardstick of correctness), K1b (65 taps)
    and K1m (a 7 x 7 dilate, beside max_pool2d) against theirs, the split
@@ -82,7 +98,9 @@ raises, so the exit code is non-zero:
    device memory of each streamed route.
 
 Then one JSON line of the kernels (each with its least time on the card,
-bound_ms, from the bytes and operations of this run's inputs), the card
+bound_ms, from the bytes and operations of this run's inputs; the timing
+line adds the bounds of the TPU micro-probes P1-P4 under bench/, which no
+path runs), the card
 line again, and last {"ok": true, "device": {...}}. Long output (the
 compiler's register and shared-memory report, CSVs, checkpoints) goes to
 build/chip_smoke/.
@@ -107,8 +125,15 @@ OUT_DIR = os.path.join(ROOT, "build", "chip_smoke")
 REPLACES = {
     "fused_segment": ("tpuva_torch/csrc/fused_segment.cu",
                       "tpuva/ops/pallas/fused_segment.py:145"),
+    # K1's padded_occ mode, the staged route's handoff to K2
+    "fused_segment_padded_occ": ("tpuva_torch/csrc/fused_segment.cu",
+                                 "tpuva/ops/pallas/fused_segment.py:145"),
+    # K2 deriving the strip occupancy from the mask
     "ccl_stats": ("tpuva_torch/csrc/ccl.cu",
                   "tpuva/ops/pallas/ccl.py:623"),
+    # K2 given the strip occupancy (from K1's occ128)
+    "ccl_stats_occ": ("tpuva_torch/csrc/ccl.cu",
+                      "tpuva/ops/pallas/ccl.py:623"),
     "ccl_labels": ("tpuva_torch/csrc/ccl.cu",
                    "tpuva/ops/pallas/ccl.py:220"),
     "fused_segment_diff": ("tpuva_torch/csrc/fused_segment.cu",
@@ -168,6 +193,8 @@ PEAK_OPS_S = 67e12
 # Least scalar operations per pixel of K2 and K3: block flags and link
 # tests of the union-find, the stats adds (K2) or the label write (K3).
 CCL_OPS_PER_PX = 5
+# K2's strip: 2 rows x 256 columns of the mask
+STRIP_PX = 512
 
 
 def say(phase, **kv):
@@ -245,6 +272,42 @@ def k1_ops_per_px(kw):
                 per = int(structuring_element(kw[shape], ks).sum()) - 1
             ops += 2 * kw.get(iters, 1) * per
     return ops
+
+
+def probe_bounds():
+    """Least time on the card (ms, and what bounds it) of one call of each
+    TPU micro-probe's heaviest case, the work its file under bench/ defines:
+    an (rows, cols) tile read and written once, reps x ops_per_rep scalar
+    operations an element (a roll counted as one)."""
+    probes = {
+        # repos_probe.py: (152, 1920) u8 -> uint8, 65,536 reps, the f32
+        # cast-hop case's 3 ops a rep
+        "P1": (152, 1920, 1, 1, 65536, 3),
+        # roll_probe.py: (112, 1152), 65,536 reps, a roll + add pair and
+        # the loop's own add of 1e-7: 3 ops a rep
+        "P2": (112, 1152, 1, 1, 65536, 3),
+        # i16_probe.py: (112, 1152), 512 reps of the 16-op k=5 cascade and
+        # its rescale: 17 ops a rep
+        "P3": (112, 1152, 1, 1, 512, 17),
+        # cell_probe.py: (80, 512) int32, 256 reps of baseline_sweepish's
+        # 32 roll + min pairs: 64 ops a rep
+        "P4": (80, 512, 4, 4, 256, 64),
+    }
+    return {name: bound(r * c * (b_in + b_out), r * c * reps * ops)
+            for name, (r, c, b_in, b_out, reps, ops) in probes.items()}
+
+
+def padded_stats(mask):
+    """(the mask zero-padded to 64 x 256, its strip occupancy on the mask's
+    device): the handoff tpuva's staged route builds where no occ128 is
+    given."""
+    from tpuva_torch.ops.ccl import strip_occupancy_plain
+
+    N, H, W = mask.shape
+    padded = torch.zeros((N, -(-H // 64) * 64, -(-W // 256) * 256), dtype=torch.uint8,
+                         device=mask.device)
+    padded[:, :H, :W] = mask
+    return padded, strip_occupancy_plain(padded.cpu()).to(mask.device)
 
 
 def k5_ops(T, D, N):
@@ -364,10 +427,74 @@ def k1_timing(clip, plate, card):
     return 0
 
 
+def kernel_breakdown(fn, reps=3):
+    """{CUDA kernel name: mean device ms a call} of fn() under
+    torch.profiler (empty where the profiler sees no device time)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for ev in prof.key_averages():
+        ms = getattr(ev, "device_time_total", getattr(ev, "cuda_time_total", 0)) / 1e3 / reps
+        if ms > 0:
+            out[ev.key[:60]] = round(ms, 4)
+    return dict(sorted(out.items(), key=lambda kv: -kv[1]))
+
+
+def k2_timing(clip, plate, card):
+    """--k2: K2 (label_stats) and K3 (label_components_tiled) at batch 256
+    and 1080p on the clip's K1 masks and a random mask of density 0.3, CUDA
+    events, with each call's kernels by name (torch.profiler); one JSON
+    line. K2 with the caller's strip occupancy (K1's occ128, every strip)
+    where label_stats takes strip_occ: the calls that exist in both this
+    tree and its parent run first, so that this file, copied into a
+    checkout of the parent, times the parent's kernels the same way."""
+    import inspect
+
+    from tpuva_torch.ops.ccl import label_components_tiled, label_stats
+    from tpuva_torch.ops.fused_segment import fused_segment
+
+    dev = torch.device("cuda")
+    frames = torch.from_numpy(clip[:256]).to(dev)
+    bg0 = torch.from_numpy(plate.astype(np.float32)).to(dev)
+    masks = fused_segment(frames, bg0, **BENCH_KW)[0]
+    dense = torch.rand((256, 1080, 1920), device=dev,
+                       generator=torch.Generator(device=dev).manual_seed(30)) < 0.3
+    dense = dense.to(torch.uint8) * 255
+    calls = {"k2_clip": lambda: label_stats(masks, MAX_COMPONENTS),
+             "k2_dense": lambda: label_stats(dense, MAX_COMPONENTS),
+             "k3_clip": lambda: label_components_tiled(masks, 8),
+             "k3_dense": lambda: label_components_tiled(dense, 8)}
+    if "strip_occ" in inspect.signature(label_stats).parameters:
+        padded, _bg, occ128 = fused_segment(frames, bg0, padded_occ=True, **BENCH_KW)
+        strip_occ = occ128.reshape(256, 576, 8, 2).amax(dim=3)
+        dense_padded, dense_occ = padded_stats(dense)
+        occ_kw = dict(H=1080, W=1920)
+        calls.update({
+            "k2_occ_clip": lambda: label_stats(padded, MAX_COMPONENTS, strip_occ=strip_occ,
+                                               **occ_kw),
+            "k2_every_strip_clip": lambda: label_stats(
+                padded, MAX_COMPONENTS, strip_occ=torch.ones_like(strip_occ), **occ_kw),
+            "k2_occ_dense": lambda: label_stats(dense_padded, MAX_COMPONENTS,
+                                                strip_occ=dense_occ, **occ_kw)})
+    t = {}
+    for name, fn in calls.items():
+        t[f"{name}_ms"] = cuda_ms(fn, 10)
+        t[f"{name}_kernels"] = kernel_breakdown(fn)
+    say("k2_timing", card=card, batch=256, shape=[1080, 1920], **t)
+    return 0
+
+
 def main():
-    k1_only = sys.argv[1:] == ["--k1"]
-    if sys.argv[1:] and not k1_only:
-        print("usage: chip_smoke.py [--k1]", file=sys.stderr)
+    mode = sys.argv[1] if sys.argv[1:] in (["--k1"], ["--k2"]) else None
+    k1_only = mode == "--k1"
+    if sys.argv[1:] and mode is None:
+        print("usage: chip_smoke.py [--k1 | --k2]", file=sys.stderr)
         return 2
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)",
@@ -391,7 +518,9 @@ def main():
     )
     from tpuva_torch.ops.fused_segment import fused_segment, fused_segment_plain, k1_split
     from tpuva_torch.ops.wide import blur_u8, morph_u8
-    from tpuva_torch.ops.label import _assemble_stats, extract_detections, label_components
+    from tpuva_torch.ops.label import (
+        _assemble_stats, _stats_from_root, extract_detections, label_components,
+    )
     from tpuva_torch.scenes import (
         DET_KINDS, K1_REFUSED, det_sequence, k1_refused_config, mixed_scene, u_shape,
     )
@@ -416,6 +545,10 @@ def main():
         fh.write(log)
     say("build", seconds=round(time.time() - t0, 2), library=str(lib_path.name),
         k1_ptxas=ptxas_summary(log))
+    if mode == "--k2":
+        clip, _alive, _truth, plate = multi_blob_clip(1080, 1920, 256, n_blobs=6, radius=16,
+                                                      births_deaths=False, noise_sigma=2.0)
+        return k2_timing(clip, plate, card)
 
     # the slice's clip, made once (its first frames also feed phases 3-5)
     t0 = time.time()
@@ -424,16 +557,21 @@ def main():
         noise_sigma=2.0)
     say("clip", seconds=round(time.time() - t0, 2), shape=list(clip.shape))
     err = {name: 0.0 for name in REPLACES}
-    counters = {"fused_segment": fused_segment, "ccl_stats": label_stats,
-                "ccl_labels": label_components_tiled, "histogram_u8": histogram_u8,
-                "track_scan": track_scan, "blur_u8": blur_u8, "morph_u8": morph_u8}
+    counters = {"fused_segment": (fused_segment, "launches"),
+                "fused_segment_padded_occ": (fused_segment, "padded_launches"),
+                "ccl_stats": (label_stats, "launches"),
+                "ccl_stats_occ": (label_stats, "occ_launches"),
+                "ccl_labels": (label_components_tiled, "launches"),
+                "histogram_u8": (histogram_u8, "launches"),
+                "track_scan": (track_scan, "launches"), "blur_u8": (blur_u8, "launches"),
+                "morph_u8": (morph_u8, "launches")}
 
     def reset_counts():
-        for fn in counters.values():
-            fn.launches = 0
+        for fn, attr in counters.values():
+            setattr(fn, attr, 0)
 
     def read_counts():
-        return {name: fn.launches for name, fn in counters.items()}
+        return {name: getattr(fn, attr) for name, (fn, attr) in counters.items()}
 
     # 3. K1 against its plain version, bit for bit
     rng = np.random.default_rng(0)
@@ -495,6 +633,36 @@ def main():
     if k1_only:
         return k1_timing(clip, plate, card)
 
+    # 3c. K1's padded_occ mode against its plain version, bit for bit: the
+    # padded mask (zeros outside the image), occ128 and the background
+    small, _a, _t, small_plate = multi_blob_clip(160, 240, 16, n_blobs=2, radius=46.0,
+                                                 noise_sigma=2.0, seed=7)
+    padded_cases = [("bench", BENCH_KW, clip[:16], plate.astype(np.float32)),
+                    ("median3", K1_CONFIGS["median3"], clip[:16], plate.astype(np.float32)),
+                    ("bench", BENCH_KW, cases[1][0], cases[1][1]),
+                    ("iters2", K1_CONFIGS["iters2"], cases[1][0], cases[1][1])]
+    for name in K1_REFUSED:
+        fkw = _front_end_kwargs(k1_refused_config(bench_cfg(config, 8), name))
+        if fkw["median_ksize"] in (0, 3):  # K1 takes it, split as k1_split says
+            padded_cases.append((name, fkw, small, small_plate.astype(np.float32)))
+    k1_padded = None
+    for name, kw, frames, bg0 in padded_cases:
+        f_gpu = torch.from_numpy(frames).to(dev)
+        b_gpu = torch.from_numpy(bg0).to(dev)
+        got = fused_segment(f_gpu, b_gpu, padded_occ=True, **kw)
+        ref = fused_segment_plain(f_gpu, b_gpu, padded_occ=True, **kw)
+        where = f"{name}, {tuple(frames.shape)}"
+        check_equal(err, "fused_segment_padded_occ",
+                    zip(("padded masks", "bg", "occ128"), got, ref), where)
+        H, W = frames.shape[1:]
+        if got[0][:, H:].any() or got[0][:, :, W:].any() or not got[2].any():
+            raise AssertionError(f"K1 padded_occ: padding not zero or no occupancy ({where})")
+        if name == "bench" and frames.shape[0] == 16:
+            k1_padded = got
+    say("k1_padded_occ_vs_plain", cases=[f"{n} {list(f.shape)}" for n, _k, f, _b in padded_cases],
+        bit_equal=True, padded_shape=list(k1_padded[0].shape),
+        occ128_shape=list(k1_padded[2].shape), occupied_blocks=int(k1_padded[2].sum()))
+
     # 4. K2 against its plain version, every stats field bit for bit
     masks_k2 = [("k1_masks", k1_masks)]
     for p in (0.05, 0.3):
@@ -505,7 +673,25 @@ def main():
         got = label_stats(m, MAX_COMPONENTS)
         ref = _assemble_stats(*label_sums_plain(m, MAX_COMPONENTS), 1080, 1920)
         check_equal(err, "ccl_stats", ((k, got[k], ref[k]) for k in STAT_KEYS), name)
-    say("k2_vs_plain", scenes=[n for n, _ in masks_k2], bit_equal=True)
+    # K2 given the strip occupancy: of K1's padded masks from occ128 (the
+    # staged route's handoff), of the random masks padded to 64 x 256, and
+    # of an all-empty batch; against K2 deriving it and the plain version
+    occ_cases = [("k1_padded_occ", k1_padded[0],
+                  k1_padded[2].reshape(16, 576, 8, 2).amax(dim=3), masks_k2[0][1])]
+    for name, m in masks_k2[1:] + [("empty", torch.zeros((4, 1080, 1920), dtype=torch.uint8,
+                                                           device=dev))]:
+        occ_cases.append((name, *padded_stats(m), m))
+    for name, padded, occ, m in occ_cases:
+        got = label_stats(padded, MAX_COMPONENTS, strip_occ=occ, H=1080, W=1920)
+        derived = label_stats(m, MAX_COMPONENTS)
+        ref = _assemble_stats(*label_sums_plain(m, MAX_COMPONENTS), 1080, 1920)
+        check_equal(err, "ccl_stats_occ", ((k, got[k], ref[k]) for k in STAT_KEYS), name)
+        check_equal(err, "ccl_stats_occ", ((f"{k} vs derived", got[k], derived[k])
+                                           for k in STAT_KEYS), name)
+    say("k2_vs_plain", scenes=[n for n, _ in masks_k2], bit_equal=True,
+        strip_occ_scenes=[n for n, *_ in occ_cases],
+        strip_occ_occupied=[round(float(o.float().mean()), 4) for _n, _p, o, _m in occ_cases])
+    del occ_cases
 
     # 5. K3 against its plain version, bit for bit, 8- and 4-connected
     rng = np.random.default_rng(5)
@@ -573,8 +759,6 @@ def main():
 
     # 5c. configs K1 does not take: the torch front end on the card, against
     # the CPU; then a 1080p batch with median 7
-    small, _a, _t, small_plate = multi_blob_clip(160, 240, 16, n_blobs=2, radius=46.0,
-                                                 noise_sigma=2.0, seed=7)
     refused, split_launches = {}, {"blur_u8": 0, "morph_u8": 0}
     for name in K1_REFUSED:
         fcfg = k1_refused_config(bench_cfg(config, 8), name)
@@ -657,6 +841,10 @@ def main():
     if min(staged_counts["fused_segment"], staged_counts["ccl_stats"],
            staged_counts["track_scan"]) < 2:
         raise AssertionError(f"a kernel of the staged route was not launched: {staged_counts}")
+    # the padded handoff at 1080p: K1 in padded_occ mode, K2 given occ128's strips
+    if (min(staged_counts["fused_segment_padded_occ"], staged_counts["ccl_stats_occ"]) < 2
+            or staged_counts["fused_segment_padded_occ"] != staged_counts["fused_segment"]):
+        raise AssertionError(f"the staged route did not take the padded handoff: {staged_counts}")
     csv_full = format_rows(rows).encode()
     if hashlib.sha256(csv_full).hexdigest() != REF_CSV_SHA256:
         with open(os.path.join(OUT_DIR, "tracks_512_gpu.csv"), "wb") as fh:
@@ -730,8 +918,12 @@ def main():
     _csv, stream_staged_s, stream_staged_counts, staged_peak = stream("staged", use_pallas=True)
     if (stream_staged_counts["ccl_labels"] or min(stream_staged_counts["fused_segment"],
                                                   stream_staged_counts["ccl_stats"],
+                                                  stream_staged_counts["fused_segment_padded_occ"],
+                                                  stream_staged_counts["ccl_stats_occ"],
                                                   stream_staged_counts["track_scan"]) < 2):
         raise AssertionError(f"streamed use_pallas route launches: {stream_staged_counts}")
+    if default_counts["fused_segment_padded_occ"] or default_counts["ccl_stats_occ"]:
+        raise AssertionError(f"streamed default route launches: {default_counts}")
     ckpt = os.path.join(OUT_DIR, "stream_ckpt.npz")
     if os.path.exists(ckpt):
         os.unlink(ckpt)
@@ -794,7 +986,8 @@ def main():
     otsu_rows, otsu_staged_s, otsu_staged_counts = otsu_run("otsu_staged", otsu_staged)
     if (min(otsu_staged_counts["fused_segment"], otsu_staged_counts["histogram_u8"],
             otsu_staged_counts["ccl_stats"], otsu_staged_counts["track_scan"]) < 2
-            or otsu_staged_counts["ccl_labels"]):
+            or otsu_staged_counts["ccl_labels"] or otsu_staged_counts["ccl_stats_occ"]
+            or otsu_staged_counts["fused_segment_padded_occ"]):
         raise AssertionError(f"staged Otsu route launches: {otsu_staged_counts}")
     _rows, otsu_stream_s, otsu_stream_counts = otsu_run("otsu_stream", otsu_stream)
     if (min(otsu_stream_counts["fused_segment"], otsu_stream_counts["histogram_u8"],
@@ -832,6 +1025,31 @@ def main():
     got = label_stats(masks, MAX_COMPONENTS)
     ref = _assemble_stats(*label_sums_plain(masks, MAX_COMPONENTS), 1080, 1920)
     check_equal(err, "ccl_stats", ((k, got[k], ref[k]) for k in STAT_KEYS), "main path, batch 256")
+    # the padded handoff at batch 256: K1's padded masks and occ128, K2 on
+    # their strips; a random mask of density 0.3 (every strip occupied)
+    padded, bg_padded, occ128 = fused_segment(frames, bg0, padded_occ=True, **kw)
+    check_equal(err, "fused_segment_padded_occ",
+                zip(("padded masks", "bg", "occ128"), (padded, bg_padded, occ128),
+                    fused_segment_plain(frames, bg0, padded_occ=True, **kw)),
+                "main path, batch 256")
+    strip_occ = occ128.reshape(N, 576, 8, 2).amax(dim=3)
+    check_equal(err, "ccl_stats_occ",
+                ((k, label_stats(padded, MAX_COMPONENTS, strip_occ=strip_occ, H=1080,
+                                 W=1920)[k], ref[k]) for k in STAT_KEYS), "main path, batch 256")
+    dense = torch.rand((N, 1080, 1920), device=dev,
+                       generator=torch.Generator(device=dev).manual_seed(30)) < 0.3
+    dense = dense.to(torch.uint8) * 255
+    dense_padded, dense_occ = padded_stats(dense)
+    every_strip = torch.ones_like(strip_occ)
+    dense_ref = label_stats(dense, MAX_COMPONENTS)
+    for what, got in (
+            ("given", label_stats(dense_padded, MAX_COMPONENTS, strip_occ=dense_occ, H=1080,
+                                  W=1920)),
+            ("every strip", label_stats(padded, MAX_COMPONENTS, strip_occ=every_strip, H=1080,
+                                        W=1920))):
+        base = dense_ref if what == "given" else ref
+        check_equal(err, "ccl_stats_occ", ((k, got[k], base[k]) for k in STAT_KEYS),
+                    f"density 0.3 / clip, batch 256, strips {what}")
     diff_kw = _diff_kwargs(otsu_cfg)
     du8, bg_diff = fused_segment(frames, bg0, **diff_kw)
     check_equal(err, "fused_segment_diff",
@@ -846,15 +1064,40 @@ def main():
     t["k1_plans"] = k1_plans(1080, 1920, (("k1", kw), ("k1_diff", diff_kw)))
     t["k1_ms"] = cuda_ms(lambda: fused_segment(frames, bg0, **kw), reps)
     t["k1_plain_ms"] = cuda_ms(lambda: fused_segment_plain(frames, bg0, **kw), 2)
+    t["k1_padded_occ_ms"] = cuda_ms(lambda: fused_segment(frames, bg0, padded_occ=True, **kw),
+                                    reps)
+    t["k1_padded_occ_plain_ms"] = cuda_ms(
+        lambda: fused_segment_plain(frames, bg0, padded_occ=True, **kw), 2)
+    # K2: given K1's occupancy, deriving it from the cropped mask, and given
+    # every strip (the walk of every strip before the kernels skipped); on
+    # the clip and on density 0.3
+    t["k2_occ_ms"] = cuda_ms(lambda: label_stats(padded, MAX_COMPONENTS, strip_occ=strip_occ,
+                                                 H=1080, W=1920), reps)
     t["k2_ms"] = cuda_ms(lambda: label_stats(masks, MAX_COMPONENTS), reps)
+    t["k2_every_strip_ms"] = cuda_ms(lambda: label_stats(
+        padded, MAX_COMPONENTS, strip_occ=every_strip, H=1080, W=1920), reps)
     t["k2_plain_ms"] = cuda_ms(
         lambda: _assemble_stats(*label_sums_plain(masks, MAX_COMPONENTS), 1080, 1920), 2)
+    t["k2_dense_occ_ms"] = cuda_ms(lambda: label_stats(
+        dense_padded, MAX_COMPONENTS, strip_occ=dense_occ, H=1080, W=1920), reps)
+    t["k2_dense_ms"] = cuda_ms(lambda: label_stats(dense, MAX_COMPONENTS), reps)
+    t["k2_dense_every_strip_ms"] = cuda_ms(lambda: label_stats(
+        dense_padded, MAX_COMPONENTS, strip_occ=torch.ones_like(dense_occ), H=1080, W=1920),
+        reps)
+    t["clip_strips_occupied"] = float(strip_occ.float().mean())
+    t["dense_strips_occupied"] = float(dense_occ.float().mean())
+    del dense, dense_padded
     t["k3_ms"] = cuda_ms(lambda: label_components_tiled(masks, 8), reps)
     t["k3_plain_ms"] = cuda_ms(lambda: label_components(masks, 8), 2)
     t["k3_conn4_ms"] = cuda_ms(lambda: label_components_tiled(masks, 4), reps)
     t["k3_conn4_plain_ms"] = cuda_ms(lambda: label_components(masks, 4), 2)
     t["cc_stats_ms"] = cuda_ms(lambda: connected_components_with_stats(
         masks, MAX_COMPONENTS, compute_bbox=False, compute_labels=False), reps)
+    # K6, the dense stats alone: the torch ops on K3's root-key labels
+    root = label_components_tiled(masks, 8)
+    t["k6_torch_ms"] = cuda_ms(lambda: _stats_from_root(
+        root, MAX_COMPONENTS, 8, compute_bbox=False, compute_labels=False), reps)
+    del root
     t["k1_diff_ms"] = cuda_ms(lambda: fused_segment(frames, bg0, **diff_kw), reps)
     t["k1_diff_plain_ms"] = cuda_ms(lambda: fused_segment_plain(frames, bg0, **diff_kw), 2)
     t["k4_ms"] = cuda_ms(lambda: histogram_u8(du8), reps)
@@ -943,12 +1186,19 @@ def main():
     t["otsu_stream_fps"] = [clip.shape[0] / otsu_stream_s,
                             clip.shape[0] / otsu_run("otsu_stream", otsu_stream)[1]]
     px = masks.numel()
+    occupied_px = int(strip_occ.sum()) * STRIP_PX
     bounds = {
         # frames read, masks written, background read and written once
         "fused_segment": bound(frames.numel() + px + 2 * 4 * bg0.numel(),
                                k1_ops_per_px(kw) * px),
-        # the mask read; the stats are a few KB
+        # frames read, the padded masks and occ128 written, background
+        # read and written once
+        "fused_segment_padded_occ": bound(frames.numel() + padded.numel() + occ128.numel()
+                                          + 2 * 4 * bg0.numel(), k1_ops_per_px(kw) * px),
+        # the mask read (to derive the occupancy); the stats are a few KB
         "ccl_stats": bound(px, CCL_OPS_PER_PX * px),
+        # the occupancy read, the mask of the occupied strips read
+        "ccl_stats_occ": bound(strip_occ.numel() + occupied_px, CCL_OPS_PER_PX * occupied_px),
         # the mask read and the int32 labels written
         "ccl_labels": bound(px + 4 * px, CCL_OPS_PER_PX * px),
         # frames read, magnitudes written, background read and written once
@@ -969,16 +1219,29 @@ def main():
     bounds["blur_u8"] = bound(2 * px, (2 * (2 * 65 - 1) + 2) * px)
     bounds["morph_u8"] = bound(2 * px, 2 * (7 - 1) * px)
     t["k5_bound_ms"] = bounds["track_scan"][0]
+    # K2 on density 0.3, given its occupancy: every strip occupied
+    t["k2_dense_occ_bound_ms"] = bound(strip_occ.numel() + int(dense_occ.sum()) * STRIP_PX,
+                                       CCL_OPS_PER_PX * int(dense_occ.sum()) * STRIP_PX)[0]
+    # K6: K3's int32 labels and the mask read
+    t["k6_bound"] = bound(4 * px + px, CCL_OPS_PER_PX * px)
+    t["probe_bounds"] = probe_bounds()
     say("timing", card=card, batch=N, shape=[1080, 1920], kernels_bit_equal_at_batch_256=True, **t)
 
     timed = {"fused_segment": ("k1_ms", "k1_plain_ms"), "ccl_stats": ("k2_ms", "k2_plain_ms"),
+             "fused_segment_padded_occ": ("k1_padded_occ_ms", "k1_padded_occ_plain_ms"),
+             "ccl_stats_occ": ("k2_occ_ms", "k2_plain_ms"),
              "ccl_labels": ("k3_ms", "k3_plain_ms"),
              "fused_segment_diff": ("k1_diff_ms", "k1_diff_plain_ms"),
              "histogram_u8": ("k4_ms", "k4_plain_ms"),
              "track_scan": ("k5_ms", "k5_plain_ms"),
              "blur_u8": ("k1b_ms", "k1b_plain_ms"), "morph_u8": ("k1m_ms", "k1m_plain_ms")}
-    launches = {"fused_segment": staged_counts["fused_segment"],
-                "ccl_stats": staged_counts["ccl_stats"],
+    launches = {
+                # the streamed default route's K1 (the staged route's is padded)
+                "fused_segment": default_counts["fused_segment"],
+                "fused_segment_padded_occ": staged_counts["fused_segment_padded_occ"],
+                # K2 deriving the occupancy: the staged Otsu route
+                "ccl_stats": otsu_staged_counts["ccl_stats"] - otsu_staged_counts["ccl_stats_occ"],
+                "ccl_stats_occ": staged_counts["ccl_stats_occ"],
                 "ccl_labels": default_counts["ccl_labels"],
                 # the staged Otsu run launches K1 only with emit="diff"
                 "fused_segment_diff": otsu_staged_counts["fused_segment"],

@@ -24,7 +24,7 @@ from tpuva.ops.label import (
     label_components as jax_label_components,
 )
 from tpuva.ops.pallas.ccl import label_components_tiled_raw
-from tpuva_torch.ops.ccl import label_stats
+from tpuva_torch.ops.ccl import label_stats, strip_occupancy_plain, strip_shape
 from tpuva_torch.ops.label import _scan_key, label_components
 from test_torch_kernels import one_torch_thread  # noqa: F401
 from tpuva_torch.scenes import mixed_scene, u_shape
@@ -107,3 +107,76 @@ def test_odd_sizes_and_single_pixels():
             compute_labels=False,
         )
         assert_stats_equal(ref, label_stats(torch.from_numpy(mask), 8))
+
+
+def tpuva_strip_occ(mask_padded):
+    """tpuva's _post_mask_stage occupancy of a mask padded to 64 x 256."""
+    o1 = lax.reduce_window(jnp.asarray(mask_padded), jnp.uint8(0), lax.max, (1, 1, 256),
+                           (1, 1, 256), "VALID")
+    return lax.reduce_window(o1, jnp.uint8(0), lax.max, (1, 2, 1), (1, 2, 1), "VALID")
+
+
+def padded_scene(shape, p, seed):
+    """Random blobs in an (N, H, W) mask, its zero padding to 64 x 256
+    (tpuva's CCL grid) and the strip occupancy of that padding."""
+    rng = np.random.default_rng(seed)
+    N, H, W = shape
+    mask = ((rng.random(shape) < p) * 255).astype(np.uint8)
+    mask[:, : H // 3] = 0  # empty strips
+    mask[-1] = 0
+    Hp, Wp = -(-H // 64) * 64, -(-W // 256) * 256
+    padded = np.zeros((N, Hp, Wp), np.uint8)
+    padded[:, :H, :W] = mask
+    return mask, padded, np.array(tpuva_strip_occ(padded))
+
+
+@pytest.mark.parametrize("shape", [(3, 120, 256), (3, 96, 300), (2, 37, 513)],
+                         ids=["aligned", "unaligned", "odd"])
+def test_strip_occupancy_matches_tpuva(shape):
+    """The derived occupancy the kernels take where no strip_occ is given:
+    tpuva's two reduce_windows over the padded mask (which keep the mask's
+    255 where the port keeps 1)."""
+    mask, padded, occ = padded_scene(shape, 0.01, seed=sum(shape))
+    occ = (occ != 0).astype(np.uint8)
+    got = strip_occupancy_plain(torch.from_numpy(mask)).numpy()
+    R, S = strip_shape(*shape[1:])
+    assert got.shape == (shape[0], R, S)
+    np.testing.assert_array_equal(got, occ[:, :R, :S])
+    assert not occ[:, R:].any() and not occ[:, :, S:].any()
+    np.testing.assert_array_equal(strip_occupancy_plain(torch.from_numpy(padded)).numpy(), occ)
+    assert occ.any() and not occ.all()
+
+
+@pytest.mark.parametrize("shape, p, ref_kind", [((3, 120, 256), 0.05, "pallas"),
+                                                ((3, 96, 300), 0.3, "xla"),
+                                                ((2, 37, 513), 0.45, "cropped")],
+                         ids=["aligned_sparse", "unaligned_dense", "odd_dense"])
+def test_label_stats_strip_occ_matches_tpuva(shape, p, ref_kind):
+    """label_stats on the padded mask with its strip occupancy, as
+    _post_mask_stage hands them to label_components_tiled_raw: against
+    that Pallas kernel and _stats_from_compact (interpret mode), or
+    tpuva's XLA connected_components_with_stats, and always against
+    label_stats of the cropped mask: every field equal. The plain version
+    computes the stats of the (H, W) image whatever the occupancy says: an
+    all-empty and an all-occupied one give the same."""
+    mask, padded, occ = padded_scene(shape, p, seed=7)
+    N, H, W = shape
+    C = 16
+    ref = label_stats(torch.from_numpy(mask), C)
+    if ref_kind == "pallas":
+        _lab, cbuf, conv = label_components_tiled_raw(
+            jnp.asarray(padded), jnp.asarray(occ), H, W, frames_per_step=4, compact_slots=64)
+        assert bool(conv)
+        assert_stats_equal(_stats_from_compact(cbuf, jnp.asarray(occ), H, W, max_components=C),
+                           ref)
+    elif ref_kind == "xla":
+        assert_stats_equal(connected_components_with_stats(
+            jnp.asarray(mask), max_components=C, compute_bbox=False, compute_labels=False), ref)
+    ref = {k: v.numpy() for k, v in ref.items() if k in KEYS}
+    for so in (occ, np.zeros_like(occ), np.ones_like(occ)):
+        got = label_stats(torch.from_numpy(padded), C, strip_occ=torch.from_numpy(so), H=H, W=W)
+        assert_stats_equal(ref, got)
+    with pytest.raises(ValueError):
+        label_stats(torch.from_numpy(padded), C, strip_occ=torch.from_numpy(occ[:, :1]), H=H, W=W)
+    with pytest.raises(ValueError):
+        label_stats(torch.from_numpy(padded), C, strip_occ=torch.from_numpy(occ))

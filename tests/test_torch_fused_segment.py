@@ -22,7 +22,7 @@ import jax.numpy as jnp
 
 from tpuva.graph.config import BlurConfig, MedianConfig, PipelineConfig
 from tpuva.graph.pipeline import filter_batch
-from tpuva.ops.pallas.fused_segment import fused_segment as jax_fused
+from tpuva.ops.pallas.fused_segment import fused_segment as jax_fused, fused_tile as jax_fused_tile
 from tpuva_torch.ops.fused_segment import (
     MAX_TAPS,
     SMEM_LIMIT,
@@ -35,6 +35,7 @@ from tpuva_torch.ops.fused_segment import (
     fused_segment,
     fused_segment_plain,
     fused_segment_plan,
+    fused_tile,
     k1_split,
     launch_plan,
     modelled_blocks_per_sm,
@@ -42,7 +43,7 @@ from tpuva_torch.ops.fused_segment import (
     smem_bytes,
 )
 from tpuva_torch.ops.filters import structuring_element
-from tpuva_torch.ops.wide import blur_u8, morph_u8, se_runs
+from tpuva_torch.ops.wide import blur_u8, morph_u8, occ128_plain, se_runs
 from test_torch_kernels import BENCH, CONFIGS, one_torch_thread, scene  # noqa: F401
 
 
@@ -106,6 +107,67 @@ def test_no_blur_no_morph_and_empty_batch():
     )
     assert m0.shape == (0, 40, 70)
     np.testing.assert_array_equal(b0.numpy(), bg0)
+
+
+# padded_occ cases: tests/test_pallas_fused.py's (6, 120, 200) scene and
+# config, a median-3 config on a ragged shape, and an empty batch
+PADDED_CASES = {
+    "moving_disk_120x200": ((6, 120, 200), dict(alpha=0.05, threshold=35.0, blur_ksize=5,
+                                                blur_sigma=0.0, open_ksize=3,
+                                                open_shape="rect")),
+    "median3_50x100": ((4, 50, 100), CONFIGS["median3"]),
+    "empty_batch": ((0, 40, 70), BENCH),
+}
+
+
+@pytest.mark.parametrize("name", sorted(PADDED_CASES))
+def test_padded_occ_matches_pallas(name):
+    """fused_segment(padded_occ=True) against tpuva's Pallas kernel in
+    interpret mode: the padded mask (zero outside the image) and occ128
+    bit-equal, both shaped by fused_tile; the background bit-equal to the
+    port's cropped emit (and so to the two-rounding contract) and within
+    1e-5 of tpuva's FMA-contracted one (R1, as above); the cropped mask
+    equal to the cropped emit."""
+    shape, kw = PADDED_CASES[name]
+    if name == "moving_disk_120x200":
+        from refimpl.synthetic import moving_disk_clip
+
+        frames, _, plate = moving_disk_clip(h=120, w=200, frames=6, radius=9,
+                                            noise_sigma=4.0, seed=13)
+        bg0 = plate.astype(np.float32)
+    else:
+        frames, bg0 = scene(max(shape[0], 1), *shape[1:], seed=4)
+        frames = frames[:shape[0]]
+    N, H, W = shape
+    Hp, Wp = fused_tile(H, W)[2:]
+    m_ref, bg_ref, occ_ref = jax_fused(jnp.asarray(frames), jnp.asarray(bg0), padded_occ=True,
+                                       **kw)
+    m, bg, occ = fused_segment(torch.from_numpy(frames), torch.from_numpy(bg0),
+                               padded_occ=True, **kw)
+    assert m.shape == (N, Hp, Wp) and occ.shape == (N, Hp // 2, Wp // 128)
+    assert occ.dtype == torch.uint8
+    np.testing.assert_array_equal(m.numpy(), np.asarray(m_ref))
+    np.testing.assert_array_equal(occ.numpy(), np.asarray(occ_ref))
+    assert not m[:, H:].any() and not m[:, :, W:].any()
+    np.testing.assert_array_equal(occ.numpy(), occ128_plain(m).numpy())
+    crop, bg_crop = fused_segment(torch.from_numpy(frames), torch.from_numpy(bg0), **kw)
+    assert torch.equal(m[:, :H, :W], crop) and torch.equal(bg, bg_crop)
+    np.testing.assert_allclose(bg.numpy(), np.asarray(bg_ref), rtol=1e-5)
+    if N:
+        assert occ.any() and not occ.all()
+
+
+def test_fused_tile_copy_matches_original():
+    for H in (1, 2, 31, 32, 33, 96, 97, 120, 128, 129, 192, 250, 1080, 2160):
+        for W in (1, 5, 127, 128, 129, 200, 256, 333, 1000, 1024, 1025, 1920, 3840):
+            assert fused_tile(H, W) == jax_fused_tile(H, W), (H, W)
+
+
+def test_padded_occ_refuses_the_diff_emit():
+    frames = torch.zeros((2, 8, 8), dtype=torch.uint8)
+    with pytest.raises(ValueError, match="occupancy"):
+        fused_segment(frames, torch.zeros(8, 8), alpha=0.1, threshold=0.0, emit="diff",
+                      padded_occ=True)
 
 
 def test_wrapper_rejects_what_the_kernel_does_not_take():
@@ -239,3 +301,24 @@ def test_se_runs_cover_the_structuring_element():
         np.testing.assert_array_equal(grid, se)
         if i < 8:
             assert len(runs) == (se.any(axis=1)).sum()
+
+
+@pytest.mark.parametrize("parts", [(False, False), (True, False), (False, True), (True, True)])
+@pytest.mark.parametrize("name", sorted(n for n in SPLIT_CONFIGS if n != "blur65_diff"))
+def test_split_padded_occ_matches_one_pass(name, parts):
+    """run_split with padded_occ, the form the card takes for the staged
+    route's padded handoff: where the morphology leaves K1, the last K1m
+    step writes the padded mask and occ128, so that they describe the final
+    mask. Padded mask, background and occ128 bit-equal to one plain pass."""
+    kw, _split = SPLIT_CONFIGS[name]
+    full = dict(blur_ksize=0, blur_sigma=0.0, median_ksize=0, open_shape="rect", open_ksize=0,
+                open_iters=1, close_shape="rect", close_ksize=0, close_iters=1, emit="mask")
+    full.update(kw)
+    frames, bg0 = scene(3, 100, 160, seed=11)
+    frames[1:, 10:95, 20:140] = 220
+    frames, bg0 = torch.from_numpy(frames), torch.from_numpy(bg0)
+    ref = fused_segment_plain(frames, bg0, padded_occ=True, **full)
+    got = run_split(frames, bg0, parts, fused_segment_plain, padded_occ=True, **full)
+    assert ref[0].shape == (3, 128, 256) and ref[2].any()
+    for r, g in zip(ref, got):
+        assert torch.equal(r, g), (name, parts)

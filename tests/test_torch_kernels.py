@@ -12,7 +12,10 @@ and IEEE float32 operation sequences. K1's emit="diff" (rounded
 magnitudes, rint half to even) and the histogram kernel K4 (integer
 counts) likewise, and the tracker scan K5 (rows and every state tensor,
 float bits included). K1's stages past shared memory (K1b blur_u8, K1m
-morph_u8) and the split fused_segment runs with them likewise. Also
+morph_u8) and the split fused_segment runs with them likewise, and K1's
+padded_occ emit (padded mask, zero padding, occ128) with and without the
+split. K2 given the strip occupancy against K2 deriving it and against
+its plain version, on sparse, dense and empty masks. Also
 BatchStager's pinned-buffer copies to the card, byte for byte, and configs
 one K1 launch does not take run on the card with the CPU's rows. The CCL scenes (tpuva_torch.scenes)
 are shared with the CPU tests that hold the plain versions against tpuva.
@@ -25,7 +28,9 @@ import torch
 from tpuva_torch.io.memory import VideoMemory
 from tpuva_torch.io.staging import BatchStager
 from tpuva_torch.ops import connected_components_with_stats
-from tpuva_torch.ops.ccl import label_components_tiled, label_stats
+from tpuva_torch.ops.ccl import (
+    label_components_tiled, label_stats, strip_occupancy_plain, strip_shape,
+)
 from tpuva_torch.ops.filters import (
     _morph, gaussian_blur_u8, histogram_u8, histogram_u8_plain, structuring_element,
 )
@@ -34,6 +39,7 @@ from tpuva_torch.ops.fused_segment import (
     _fused_segment_cuda,
     fused_segment,
     fused_segment_plain,
+    fused_tile,
 )
 from tpuva_torch.ops.label import label_components
 from tpuva_torch.ops.wide import blur_u8, morph_u8
@@ -265,6 +271,101 @@ def test_fused_segment_split_matches_plain(cuda_device, name):
         for r, g in zip(ref, got):
             np.testing.assert_array_equal(g.cpu().numpy(), r.numpy(), err_msg=f"{seed_bg}")
         assert ref[0].any()
+
+
+# padded_occ: configs of one K1 launch, and splits whose open and close
+# leave K1 (the last K1m step writes the padded mask and occ128)
+PADDED_CONFIGS = {
+    "bench": BENCH,
+    "median3": CONFIGS["median3"],
+    "k7_sigma_iters2": CONFIGS["k7_sigma_iters2"],
+    "split_reach120": SPLIT_CONFIGS["reach120"][0],
+    "split_blur65_se33": SPLIT_CONFIGS["blur65_se33"][0],
+}
+# aligned to 64 x 256 (the staged route's handoff), ragged, one row, and an
+# image smaller than one tile
+PADDED_SHAPES = [(3, 120, 200), (2, 250, 333), (2, 1, 40), (2, 9, 13), (3, 160, 240)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", sorted(PADDED_CONFIGS))
+def test_fused_segment_padded_occ_kernel_matches_plain(cuda_device, name):
+    """K1 with padded_occ on the card against its plain version: the
+    (N, Hp, Wp) mask with its zero padding, occ128 and the background bit
+    for bit, seeded or not; one padded K1 launch where the morphology stays
+    in K1."""
+    from tpuva_torch.ops.fused_segment import k1_split
+
+    kw = PADDED_CONFIGS[name]
+    for shape in PADDED_SHAPES:
+        frames, bg0 = scene(*shape, seed=2)
+        frames[1:, shape[1] // 4: shape[1] // 2 + 1, shape[2] // 4: shape[2] // 2 + 1] = 220
+        for seed_bg in (False, True):
+            ref = fused_segment_plain(torch.from_numpy(frames), torch.from_numpy(bg0),
+                                      seed_bg=seed_bg, padded_occ=True, **kw)
+            before = fused_segment.padded_launches
+            got = fused_segment(torch.from_numpy(frames).to(cuda_device),
+                                torch.from_numpy(bg0).to(cuda_device), seed_bg=seed_bg,
+                                padded_occ=True, **kw)
+            torch.cuda.synchronize()
+            in_k1 = not k1_split(*shape[1:], **kw)[1]
+            assert fused_segment.padded_launches == before + in_k1
+            assert got[0].shape == (shape[0], *fused_tile(*shape[1:])[2:])
+            for what, r, g in zip(("masks", "bg", "occ128"), ref, got):
+                np.testing.assert_array_equal(g.cpu().numpy(), r.numpy(),
+                                              err_msg=f"{what}, {shape}, seed_bg={seed_bg}")
+
+
+def strip_occ_scenes():
+    """(name, mask (N, H, W) uint8): six blobs at 1080p, random masks of
+    density 0.05, 0.3 and 0.45 (long chains in the union-find), an
+    all-empty batch, the CCL scenes, odd sizes."""
+    rng = np.random.default_rng(9)
+    scenes = [("mixed", mixed_scene()), ("u_shape", u_shape(192, 768)[None]),
+              ("empty", np.zeros((3, 120, 512), np.uint8)),
+              ("random_0.45", ((rng.random((4, 250, 333)) < 0.45) * 255).astype(np.uint8))]
+    for p in (0.05, 0.3):
+        scenes.append((f"random_{p}", ((rng.random((4, 250, 333)) < p) * 255).astype(np.uint8)))
+        scenes.append((f"random_{p}_1080p", ((rng.random((2, 1080, 1920)) < p) * 255)
+                       .astype(np.uint8)))
+    blobs = np.zeros((3, 1080, 1920), np.uint8)
+    yy, xx = np.mgrid[:1080, :1920]
+    for t in range(3):
+        for k in range(6):
+            cy, cx = 90 + 170 * k + 7 * t, 150 + 300 * k
+            blobs[t][(yy - cy) ** 2 + (xx - cx) ** 2 <= 16 ** 2] = 255
+    scenes.append(("six_blobs_1080p", blobs))
+    for shape in ((2, 7, 9), (3, 1, 1), (2, 1, 600), (2, 600, 1)):
+        scenes.append((f"odd_{shape}", ((rng.random(shape) < 0.5) * 255).astype(np.uint8)))
+    return scenes
+
+
+@pytest.mark.gpu
+def test_ccl_strip_occ_kernel_matches_plain(cuda_device):
+    """K2 on the card given the strip occupancy of the mask padded to
+    64 x 256 (the staged route's handoff), against K2 deriving the
+    occupancy from the cropped mask and against the plain version: every
+    stats field bit for bit, on sparse, dense and empty masks."""
+    for name, mask in strip_occ_scenes():
+        N, H, W = mask.shape
+        Hp, Wp = -(-H // 64) * 64, -(-W // 256) * 256
+        padded = np.zeros((N, Hp, Wp), np.uint8)
+        padded[:, :H, :W] = mask
+        occ = strip_occupancy_plain(torch.from_numpy(padded))
+        assert occ.shape == (N, *strip_shape(Hp, Wp))
+        padded_gpu, occ = torch.from_numpy(padded).to(cuda_device), occ.to(cuda_device)
+        for C in (8, 32):
+            ref = label_stats(torch.from_numpy(mask), C)
+            before = label_stats.launches, label_stats.occ_launches
+            derived = label_stats(torch.from_numpy(mask).to(cuda_device), C)
+            given = label_stats(padded_gpu, C, strip_occ=occ, H=H, W=W)
+            torch.cuda.synchronize()
+            assert (label_stats.launches, label_stats.occ_launches) == (before[0] + 2,
+                                                                       before[1] + 1)
+            for k in ("count", "area", "centroid", "centroid_sum", "overflow"):
+                for what, got in (("derived", derived), ("given", given)):
+                    np.testing.assert_array_equal(got[k].cpu().numpy(), ref[k].numpy(),
+                                                  err_msg=f"{name}, C={C}, {what}, {k}")
 
 
 @pytest.mark.gpu

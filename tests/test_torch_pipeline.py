@@ -453,3 +453,127 @@ def test_sequential_front_end_goes_through_fused_segment(monkeypatch, threshold)
                                    max_components=MAX_COMPONENTS)
     assert calls == {"wrapper": ["diff" if threshold == "otsu" else "mask"], "plain": 1}
     assert out["rows"].shape[0] == 8
+
+
+def _staged_batches(run, frames, N, carry):
+    """run(carry, batch) over a clip in batches of N, the last padded by
+    repeating its last frame (process_clip's rule): (rows, carry, outs)."""
+    T = frames.shape[0]
+    rows, outs = [], []
+    for start in range(0, T, N):
+        chunk = frames[start:start + N]
+        chunk = np.concatenate([chunk, np.repeat(chunk[-1:], N - len(chunk), axis=0)])
+        carry, out = run(carry, chunk)
+        rows += tp.collect_rows(np.asarray(out["rows"]), np.asarray(out["row_valid"]),
+                                max_frame=T, row_sums=np.asarray(out["row_sums"]))
+        outs.append(out)
+    return rows, carry, outs
+
+
+# (H, W, config name): fused_tile's grid aligns to 64 x 256 at 120 x 200 and
+# 160 x 240 (the padded handoff), not at 96 x 300; open_close_7x10 is a
+# K1_REFUSED config whose open and close leave K1 for K1m steps
+HANDOFF_CASES = {"aligned_120x200": (120, 200, None), "unaligned_96x300": (96, 300, None),
+                 "split_open_close_7x10_160x240": (160, 240, "open_close_7x10")}
+
+
+@pytest.mark.parametrize("name", sorted(HANDOFF_CASES))
+def test_staged_padded_handoff_matches_tpuva(monkeypatch, name):
+    """process_batch_staged takes K1's padded mask and occupancy exactly
+    where tpuva's staged route does (padded_handoff, tpuva's fused_tile
+    predicate), and gives tpuva's rows and masks, the background within
+    1e-5 (R1): on the aligned shape against tpuva's staged route (Pallas,
+    interpret mode, one batch) on the moving-disk scene of
+    tests/test_pallas_fused.py; elsewhere against tpuva's jnp process_batch,
+    which tpuva's own tests hold equal to its staged route (its Pallas
+    kernels in interpret mode take most of a minute a batch here); the
+    split config with fused_segment replaced by the card's split form
+    run_split on the plain versions."""
+    from refimpl.synthetic import moving_disk_clip
+    from tpuva.ops.pallas.fused_segment import fused_tile as jax_fused_tile
+    from tpuva_torch.ops import fused_segment as fs
+
+    H, W, f1 = HANDOFF_CASES[name]
+    if f1 is None:
+        frames, _, plate = moving_disk_clip(h=H, w=W, frames=16, radius=8, noise_sigma=2.0,
+                                            seed=21)
+        cfgs = [dataclasses.replace(bench_cfg(m, batch=8), morph_close=None,
+                                    background=m.BackgroundConfig(alpha=0.05),
+                                    segment=m.SegmentConfig(35.0, 20, 4))
+                for m in (jcfg, tcfg)]
+        if name == "aligned_120x200":
+            frames = frames[8:]
+            jax_step = jp.process_batch_staged
+        else:
+            jax_step = jp.process_batch
+    else:
+        frames, _alive, _truth, plate = multi_blob_clip(H, W, 16, n_blobs=2, radius=46.0,
+                                                        noise_sigma=2.0, seed=7)
+        cfgs = [f1_cfg(f1, jcfg), f1_cfg(f1)]
+        jax_step = jp.process_batch
+    _th, _tw, Hp, Wp = jax_fused_tile(H, W)
+    aligned = Hp % 64 == 0 and Wp % 256 == 0
+    assert tp.padded_handoff(cfgs[1], H, W) == aligned == (name != "unaligned_96x300")
+    calls = []
+    real = tp.fused_segment
+
+    def spy(frames, bg0, **kw):
+        calls.append(kw.get("padded_occ", False))
+        if f1 is None:
+            return real(frames, bg0, **kw)
+        parts = fs.k1_split(*frames.shape[1:], **kw)
+        return fs.run_split(frames, bg0, parts, fs.fused_segment_plain, **kw)
+
+    monkeypatch.setattr(tp, "fused_segment", spy)
+    rows_j, carry_j, outs_j = _staged_batches(
+        lambda c, b: jax_step(cfgs[0], c, jnp.asarray(b), return_masks=True,
+                              max_components=MAX_COMPONENTS),
+        frames, 8, jp.init_carry(cfgs[0], H, W, plate))
+    rows, carry, outs = _staged_batches(
+        lambda c, b: tp.process_batch_staged(cfgs[1], c, torch.from_numpy(b), return_masks=True,
+                                             max_components=MAX_COMPONENTS),
+        frames, 8, tp.init_carry(cfgs[1], H, W, plate, device="cpu"))
+    assert calls == [aligned] * len(outs)
+    assert rows == rows_j and len(rows) >= 8
+    for o, o_j in zip(outs, outs_j):
+        assert o["masks"].shape == (8, H, W)
+        np.testing.assert_array_equal(o["masks"].numpy(), np.asarray(o_j["masks"]))
+        assert not o["stats_overflow"].any()
+    np.testing.assert_allclose(carry.bg.numpy(), np.asarray(carry_j.bg), rtol=1e-5)
+
+
+def test_padded_handoff_where_tpuva_takes_it():
+    """The branch, over a grid of shapes and both thresholds: fused_tile's
+    grid aligned to 64 x 256 and a fixed threshold, as tpuva's staged
+    route decides (Otsu takes the cropped mask there)."""
+    from tpuva.ops.pallas.fused_segment import fused_tile as jax_fused_tile
+
+    otsu = dataclasses.replace(bench_cfg(tcfg), segment=tcfg.SegmentConfig(threshold="otsu"))
+    for H in (8, 64, 96, 120, 128, 129, 160, 250, 1080, 2160):
+        for W in (8, 200, 256, 300, 1000, 1024, 1025, 1920, 3840):
+            _th, _tw, Hp, Wp = jax_fused_tile(H, W)
+            assert tp.padded_handoff(bench_cfg(tcfg), H, W) == (Hp % 64 == 0 and Wp % 256 == 0)
+            assert not tp.padded_handoff(otsu, H, W)
+
+
+def test_capacity_keywords_pass_through(clip, jax_run):
+    """tpuva's sparse_strips / compact_slots, with small values, through
+    every entry point that takes them (process_batch, process_batch_staged,
+    StreamingPipeline on both routes): K2 has no capacity, so the rows are
+    tpuva's and stats_overflow stays zero."""
+    frames, _alive, _truth, plate = clip
+    cfg = bench_cfg(tcfg)
+    knobs = dict(sparse_strips=4, compact_slots=2)
+    for run in (lambda c, b: tp.process_batch(cfg, c, torch.from_numpy(b),
+                                              max_components=MAX_COMPONENTS, compact_slots=2),
+                lambda c, b: tp.process_batch_staged(cfg, c, torch.from_numpy(b),
+                                                     max_components=MAX_COMPONENTS, **knobs)):
+        rows, _c, outs = _staged_batches(run, frames, cfg.batch,
+                                         tp.init_carry(cfg, 96, 256, plate, device="cpu"))
+        assert rows == jax_run[0]
+        assert not any(o["stats_overflow"].any() for o in outs)
+    for use_pallas in (False, True):
+        rows = StreamingPipeline(cfg, max_components=MAX_COMPONENTS, use_pallas=use_pallas,
+                                 force_staged=use_pallas, device="cpu", **knobs).run(
+            VideoMemory(frames), background0=plate)
+        assert rows == jax_run[0]

@@ -47,6 +47,7 @@ _SIGNATURES = {
         _I,  # median
         _P, _P, _P,  # stage_k, stage_iters, stage_se
         _I, _I, _I, _I,  # seed_bg, emit_diff, tile_h, tile_w
+        _I, _I, _P,  # Hp, Wp, occ (padded_occ; H, W, null otherwise)
         _P,  # stream
     ],
     "tpuva_fused_segment_occupancy": [
@@ -55,6 +56,7 @@ _SIGNATURES = {
     ],
     "tpuva_ccl_stats": [
         _P, _I, _I, _I, _I,  # mask, N, H, W, C
+        _P, _I, _P, _P,  # strip_occ, derive, tiles, ntiles
         _P, _P, _P, _P, _P,  # parent, bits, table, count, sums
         _P,  # stream
     ],
@@ -75,6 +77,7 @@ _SIGNATURES = {
     "tpuva_morph_u8": [
         _P, _P, _I, _I, _I,  # x, out, N, H, W
         _P, _I, _I,  # runs (device), n, erode
+        _I, _I, _P,  # Hp, Wp, occ (padded_occ's last step; H, W, null otherwise)
         _P,  # stream
     ],
     "tpuva_track_scan_scratch": [

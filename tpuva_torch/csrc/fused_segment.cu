@@ -1,8 +1,8 @@
 // Fused segmentation front-end (kernel K1) for Hopper, sm_90a.
 //
 // Replaces the Pallas TPU kernel tpuva/ops/pallas/fused_segment.py::
-// fused_segment (emit="mask" and emit="diff", without padded_occ). Per
-// frame and pixel:
+// fused_segment (emit="mask" and emit="diff", and the mask emit's
+// padded_occ mode). Per frame and pixel:
 //   cv2's u8 Gaussian blur: REFLECT_101, integer taps, (acc + 2^(s-1)) >> s
 //   -> optional median 3x3 (BORDER_REPLICATE)
 //   -> B <- (1-a)*B + a*F in float32 (two products, one add, no FMA)
@@ -16,6 +16,18 @@
 //      roundf); no threshold, no morphology (the caller has none: Rm = 0).
 // The plain PyTorch version is tpuva_torch/ops/fused_segment.py::
 // fused_segment_plain; the two are bit-equal.
+//
+// padded_occ (the staged route's handoff to K2, mask emit only): the masks
+// go to an (N, Hp, Wp) buffer of row pitch Wp, Hp x Wp the grid cover
+// tpuva's fused_tile gives, with every pixel outside the H x W image 0,
+// and occ (N, Hp/2, Wp/128) gets a 1 for every 2-row x 128-column block
+// that holds foreground. The grid then covers Hp x Wp: CTAs whose tile
+// lies outside the image only write zeros; the others zero the bytes of
+// their stores that fall outside it. occ is cleared before the launch and
+// written from the stores themselves: a thread whose store holds
+// foreground sets its block's byte to 1. Tiles are narrower than 128
+// columns, so two CTAs may set one byte; every writer stores the same
+// value, so no atomic is needed and no second pass reads the mask.
 //
 // Order. The TPU kernel relies on a grid that runs in order on one core;
 // here one CTA owns a TH x TW tile and walks the N frames in order itself
@@ -156,6 +168,8 @@ struct SegParams {
   int emit_diff;                  // 1: write rint(|F - B|), not the mask
   int vec;                        // bytes per output store: 16, 4 or 1
   int vin;                        // bytes per cp.async of the window: 16 or 4; 1 = no cp.async
+  int Hp, Wp;                     // output rows and row pitch (H, W unless padded)
+  int occ_w;                      // occ bytes a block row: Wp / 128 (padded_occ)
   Layout L;                       // from the host: read from the constant bank, no registers
 };
 
@@ -268,27 +282,57 @@ __device__ __forceinline__ void morph_step_inside(const uint8_t* in, uint8_t* ou
   }
 }
 
-// Owned pixels out, V bytes a store. The caller's thread split (orow,
-// ostep, ocol) covers a TH x TW tile with TW / V stores a row.
+// Owned pixels out, V bytes a store, to an image of Hp rows and pitch Wp
+// (the caller's thread split (orow, ostep, ocol) covers a TH x TW tile
+// with TW / V stores a row). Bytes outside the H x W image are written as
+// 0; with occ (the frame's (Hp/2, Wp/128) occupancy) a store that holds
+// foreground sets its 2 x 128 block's byte (a store never crosses one:
+// V divides 128 and x0). A tile outside the image (zeros = true) writes
+// zeros alone.
 template <int V>
-__device__ __forceinline__ void write_owned(uint8_t* out, const uint8_t* mo, int MP,
-                                            int y0, int x0, int TH, int H, int W,
-                                            int orow, int ostep, int ocol, bool scale) {
+__device__ __forceinline__ void write_owned(uint8_t* out, uint8_t* occ, const uint8_t* mo,
+                                            const SegParams& p, int y0, int x0,
+                                            int orow, int ostep, int ocol, bool scale,
+                                            bool zeros) {
   const int gx = x0 + ocol * V;
-  if (gx >= W) return;
-  for (int r = orow; r < TH && y0 + r < H; r += ostep) {
-    const uint8_t* s = mo + r * MP + ocol * V;
-    uint8_t* d = out + size_t(y0 + r) * W + gx;
+  if (gx >= p.Wp) return;
+  // in-image bytes of the store, as a keep mask a 32-bit word
+  const int nin = min(max(p.W - gx, 0), V);
+  unsigned keep[V >= 4 ? V / 4 : 1];
+#pragma unroll
+  for (int k = 0; k < (V >= 4 ? V / 4 : 1); ++k) {
+    const int b = min(max(nin - 4 * k, 0), 4);
+    keep[k] = b == 4 ? 0xffffffffu : (1u << (8 * b)) - 1u;
+  }
+  for (int r = orow; r < p.TH && y0 + r < p.Hp; r += ostep) {
+    const int gy = y0 + r;
+    const bool in = !zeros && gy < p.H;
+    const uint8_t* s = mo + r * p.L.MP + ocol * V;
+    uint8_t* d = out + size_t(gy) * p.Wp + gx;
+    bool fg;
     if (V == 16) {
-      uint4 w = *reinterpret_cast<const uint4*>(s);
-      if (scale) { w.x *= 255u; w.y *= 255u; w.z *= 255u; w.w *= 255u; }  // bytes 0/1
+      uint4 w = make_uint4(0, 0, 0, 0);
+      if (in) {
+        w = *reinterpret_cast<const uint4*>(s);
+        if (scale) { w.x *= 255u; w.y *= 255u; w.z *= 255u; w.w *= 255u; }  // bytes 0/1
+        w.x &= keep[0]; w.y &= keep[1]; w.z &= keep[2]; w.w &= keep[3];
+      }
       *reinterpret_cast<uint4*>(d) = w;
+      fg = (w.x | w.y | w.z | w.w) != 0;
     } else if (V == 4) {
-      uint32_t w = *reinterpret_cast<const uint32_t*>(s);
-      *reinterpret_cast<uint32_t*>(d) = scale ? w * 255u : w;
+      uint32_t w = 0;
+      if (in) {
+        w = *reinterpret_cast<const uint32_t*>(s);
+        w = (scale ? w * 255u : w) & keep[0];
+      }
+      *reinterpret_cast<uint32_t*>(d) = w;
+      fg = w != 0;
     } else {
-      *d = scale ? uint8_t(*s * 255) : *s;
+      const uint8_t v = (in && nin) ? (scale ? uint8_t(*s * 255) : *s) : 0;
+      *d = v;
+      fg = v != 0;
     }
+    if (occ && fg) occ[(gy >> 1) * p.occ_w + (gx >> 7)] = 1;
   }
 }
 
@@ -300,7 +344,8 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks)
 fused_segment_kernel(const uint8_t* __restrict__ frames,
                      const float* __restrict__ bg0,
                      uint8_t* __restrict__ masks,
-                     float* __restrict__ bg_out, const SegParams p) {
+                     float* __restrict__ bg_out, uint8_t* __restrict__ occ,
+                     const SegParams p) {
   extern __shared__ __align__(16) unsigned char smem[];
   const int H = p.H, W = p.W, P = p.P, Rm = p.Rm, rm = p.rm;
   const int TH = p.TH, TW = p.TW;
@@ -323,6 +368,22 @@ fused_segment_kernel(const uint8_t* __restrict__ frames,
   const int shift = p.shift;
   const float c1 = p.c1, a = p.a, thr = p.thr;
   const bool diff = p.emit_diff;
+  const size_t out_frame = size_t(p.Hp) * p.Wp;
+  const size_t occ_frame = size_t(p.Hp / 2) * p.occ_w;
+  const int ocols = TW / p.vec;  // stores per owned row; divides kThreads
+  const int ocol = tid % ocols, orow = tid / ocols, ostep = kThreads / ocols;
+  if (y0 >= H || x0 >= W) {  // a tile of the padding alone (padded_occ's grid)
+    for (int t = 0; t < p.N; ++t) {
+      uint8_t* out = masks + size_t(t) * out_frame;
+      if (p.vec == 16)
+        write_owned<16>(out, nullptr, nullptr, p, y0, x0, orow, ostep, ocol, false, true);
+      else if (p.vec == 4)
+        write_owned<4>(out, nullptr, nullptr, p, y0, x0, orow, ostep, ocol, false, true);
+      else
+        write_owned<1>(out, nullptr, nullptr, p, y0, x0, orow, ostep, ocol, false, true);
+    }
+    return;
+  }
 
   // Once per CTA, before the frame loop (the only divisions and modulos):
   // the window's reflected row offsets and column indices, the window's
@@ -351,8 +412,6 @@ fused_segment_kernel(const uint8_t* __restrict__ frames,
   const int vr0 = min(ty * seg, L.BH), vr1 = min(vr0 + seg, L.BH);
   const int segm = cdiv(L.MH, kTY);  // owned background rows a thread, over M
   const int mr0 = min(ty * segm, L.MH), mr1 = min(mr0 + segm, L.MH);
-  const int ocols = TW / p.vec;  // stores per owned row; divides kThreads
-  const int ocol = tid % ocols, orow = tid / ocols, ostep = kThreads / ocols;
   float bgr[CX ? CX : 1][SEG ? SEG : 1];
   if (!p.seed_bg) {
     if constexpr (CX > 0) {
@@ -597,14 +656,15 @@ fused_segment_kernel(const uint8_t* __restrict__ frames,
     }
     // 6. owned pixels out: 0/255 from the 0/1 mask, or the magnitudes. The
     // next frame writes no buffer these reads use before its first barrier.
-    uint8_t* out = masks + size_t(t) * HW;
+    uint8_t* out = masks + size_t(t) * out_frame;
+    uint8_t* occ_t = occ ? occ + size_t(t) * occ_frame : nullptr;
     const uint8_t* mo = mbuf[cur] + Rm * L.MP + L.ox + Rm;
     if (p.vec == 16)
-      write_owned<16>(out, mo, L.MP, y0, x0, TH, H, W, orow, ostep, ocol, !diff);
+      write_owned<16>(out, occ_t, mo, p, y0, x0, orow, ostep, ocol, !diff, false);
     else if (p.vec == 4)
-      write_owned<4>(out, mo, L.MP, y0, x0, TH, H, W, orow, ostep, ocol, !diff);
+      write_owned<4>(out, occ_t, mo, p, y0, x0, orow, ostep, ocol, !diff, false);
     else
-      write_owned<1>(out, mo, L.MP, y0, x0, TH, H, W, orow, ostep, ocol, !diff);
+      write_owned<1>(out, occ_t, mo, p, y0, x0, orow, ostep, ocol, !diff, false);
   }
 
   // the owned background out, once
@@ -628,7 +688,8 @@ fused_segment_kernel(const uint8_t* __restrict__ frames,
   }
 }
 
-using KernelFn = void (*)(const uint8_t*, const float*, uint8_t*, float*, const SegParams);
+using KernelFn = void (*)(const uint8_t*, const float*, uint8_t*, float*, uint8_t*,
+                          const SegParams);
 
 template <int NT>
 KernelFn kernel_with(int bg_kind) {
@@ -680,8 +741,11 @@ extern "C" int tpuva_fused_segment_occupancy(int ntaps, int median, int Rm,
   return static_cast<int>(err);
 }
 
-// frames (N,H,W) u8, bg0 (H,W) f32 -> masks (N,H,W) u8 0/255 (emit_diff:
-// the rounded magnitudes), bg_out (H,W).
+// frames (N,H,W) u8, bg0 (H,W) f32 -> masks (N,Hp,Wp) u8 0/255 (emit_diff:
+// the rounded magnitudes), bg_out (H,W). Unpadded, Hp = H and Wp = W and
+// occ is null; padded_occ (mask emit only) passes Hp >= H even, Wp >= W a
+// multiple of 128 and occ (N, Hp/2, Wp/128) u8, which the launch clears
+// and the kernel sets (see the top of this file).
 // Host arrays: taps[ntaps]; stage_k[4], stage_iters[4], stage_se[4][31].
 // tile_w is 32, 64 or 128. Returns cudaGetLastError() after the launch
 // (0 = launched).
@@ -690,9 +754,12 @@ extern "C" int tpuva_fused_segment(
     int N, int H, int W, float c1, float a, float thr,
     const int* taps, int ntaps, int shift, int median,
     const int* stage_k, const int* stage_iters, const unsigned* stage_se,
-    int seed_bg, int emit_diff, int tile_h, int tile_w, void* stream) {
+    int seed_bg, int emit_diff, int tile_h, int tile_w,
+    int Hp, int Wp, uint8_t* occ, void* stream) {
   if (N <= 0 || H <= 0 || W <= 0 || ntaps < 1 || ntaps > kMaxTaps ||
-      ntaps % 2 == 0 || !tile_ok(tile_h, tile_w))
+      ntaps % 2 == 0 || !tile_ok(tile_h, tile_w) || Hp < H || Wp < W ||
+      (occ == nullptr && (Hp != H || Wp != W)) ||
+      (occ != nullptr && (Hp % 2 || Wp % 128 || emit_diff)))
     return static_cast<int>(cudaErrorInvalidValue);
   SegParams p{};
   p.N = N; p.H = H; p.W = W;
@@ -720,9 +787,11 @@ extern "C" int tpuva_fused_segment(
   p.TH = tile_h; p.TW = tile_w;
   p.seed_bg = seed_bg;
   p.emit_diff = emit_diff ? 1 : 0;
+  p.Hp = Hp; p.Wp = Wp;
+  p.occ_w = occ ? Wp / 128 : 0;
   // widest stores and copies the rows' alignment allows
   const bool out16 = reinterpret_cast<uintptr_t>(masks) % 16 == 0;
-  p.vec = (out16 && W % 16 == 0) ? 16 : (out16 && W % 4 == 0) ? 4 : 1;
+  p.vec = (out16 && Wp % 16 == 0) ? 16 : (out16 && Wp % 4 == 0) ? 4 : 1;
   const uintptr_t in_addr = reinterpret_cast<uintptr_t>(frames);
   p.vin = (in_addr % 16 == 0 && W % 16 == 0) ? 16 : (in_addr % 4 == 0 && W % 4 == 0) ? 4 : 1;
   p.L = Layout(tile_h, tile_w, p.P, p.Rm, p.rm);
@@ -732,8 +801,11 @@ extern "C" int tpuva_fused_segment(
   cudaError_t err = cudaFuncSetAttribute(k, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          L.total);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid((W + tile_w - 1) / tile_w, (H + tile_h - 1) / tile_h);
-  k<<<grid, dim3(kTX, kTY), L.total, static_cast<cudaStream_t>(stream)>>>(
-      frames, bg0, masks, bg_out, p);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (occ != nullptr &&
+      (err = cudaMemsetAsync(occ, 0, size_t(N) * (Hp / 2) * (Wp / 128), s)) != cudaSuccess)
+    return static_cast<int>(err);
+  const dim3 grid((Wp + tile_w - 1) / tile_w, (Hp + tile_h - 1) / tile_h);
+  k<<<grid, dim3(kTX, kTY), L.total, s>>>(frames, bg0, masks, bg_out, occ, p);
   return static_cast<int>(cudaGetLastError());
 }

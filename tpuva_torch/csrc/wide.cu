@@ -17,7 +17,11 @@
 //     (as runs: a row offset and the column offsets lo..hi it covers),
 //     cv2's constant borders (erode reads outside pixels as 255, dilate as
 //     0, so they are skipped), after K1 runs without morphology: open and
-//     close are one launch a step.
+//     close are one launch a step. For K1's padded_occ mode the last step
+//     writes the (N, Hp, Wp) padded mask (0 outside the H x W image) and
+//     sets the (N, Hp/2, Wp/128) occupancy of its foreground, as K1 does
+//     where it runs the morphology itself: the occupancy is that of the
+//     final mask.
 // Both are exact integer code; the plain PyTorch versions are
 // tpuva_torch/ops/filters.py::gaussian_blur_u8 and its _morph, and the
 // kernels are bit-equal to them.
@@ -84,13 +88,21 @@ blur_cols_kernel(const uint16_t* __restrict__ rows, uint8_t* __restrict__ out,
       static_cast<uint8_t>((acc + (1 << (shift - 1))) >> shift);
 }
 
+// One thread an output pixel of an (Hp, Wp) image (H, W unless padded):
+// pixels outside the H x W input are 0; with occ, foreground sets its
+// 2-row x 128-column block's byte.
 template <bool kErode>
 __global__ void __launch_bounds__(kThreads)
 morph_kernel(const uint8_t* __restrict__ x, uint8_t* __restrict__ out, int H, int W,
-             const int* __restrict__ runs, int n) {
+             const int* __restrict__ runs, int n, int Hp, int Wp, uint8_t* __restrict__ occ) {
   const int col = blockIdx.x * kThreads + threadIdx.x;
-  if (col >= W) return;
+  if (col >= Wp) return;
   const int y = blockIdx.y;
+  uint8_t* dst = out + (size_t(blockIdx.z) * Hp + y) * Wp + col;
+  if (y >= H || col >= W) {
+    *dst = 0;
+    return;
+  }
   const uint8_t* src = x + size_t(blockIdx.z) * H * W;
   // erode: the minimum, from 255 (outside pixels); dilate: the maximum, from 0
   constexpr int kStop = kErode ? 0 : 255;
@@ -102,7 +114,8 @@ morph_kernel(const uint8_t* __restrict__ x, uint8_t* __restrict__ out, int H, in
     const int a = max(col + runs[3 * k + 1], 0), b = min(col + runs[3 * k + 2], W - 1);
     for (int xx = a; xx <= b; ++xx) v = kErode ? min(v, int(row[xx])) : max(v, int(row[xx]));
   }
-  out[(size_t(blockIdx.z) * H + y) * W + col] = static_cast<uint8_t>(v);
+  *dst = static_cast<uint8_t>(v);
+  if (occ && v) occ[(size_t(blockIdx.z) * (Hp / 2) + (y >> 1)) * (Wp / 128) + (col >> 7)] = 1;
 }
 
 bool shape_ok(int N, int H, int W) {
@@ -127,18 +140,28 @@ extern "C" int tpuva_blur_u8(const uint8_t* x, uint16_t* rows, uint8_t* out, int
   return static_cast<int>(cudaGetLastError());
 }
 
-// x (N,H,W) u8 -> out (N,H,W) u8: one erode (erode != 0) or dilate step
+// x (N,H,W) u8 -> out (N,Hp,Wp) u8: one erode (erode != 0) or dilate step
 // over the structuring element's n runs on the device, int32 triples
 // (dy, lo, hi): the pixels (dy, lo..hi) from the anchor. out must not
-// alias x. Returns cudaGetLastError() after the launch (0 = launched).
+// alias x. Unpadded, Hp = H, Wp = W and occ is null; K1's padded_occ mode
+// passes Hp >= H even, Wp >= W a multiple of 128 and occ (N, Hp/2, Wp/128)
+// u8, which the launch clears and the kernel sets. Returns
+// cudaGetLastError() after the launch (0 = launched).
 extern "C" int tpuva_morph_u8(const uint8_t* x, uint8_t* out, int N, int H, int W,
-                              const int* runs, int n, int erode, void* stream) {
-  if (!shape_ok(N, H, W) || n < 1 || x == out) return static_cast<int>(cudaErrorInvalidValue);
-  const dim3 grid((W + kThreads - 1) / kThreads, H, N);
+                              const int* runs, int n, int erode, int Hp, int Wp,
+                              uint8_t* occ, void* stream) {
+  if (!shape_ok(N, Hp, Wp) || n < 1 || x == out || H <= 0 || W <= 0 || Hp < H || Wp < W ||
+      (occ == nullptr && (Hp != H || Wp != W)) || (occ != nullptr && (Hp % 2 || Wp % 128)))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const dim3 grid((Wp + kThreads - 1) / kThreads, Hp, N);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  cudaError_t err;
+  if (occ != nullptr &&
+      (err = cudaMemsetAsync(occ, 0, size_t(N) * (Hp / 2) * (Wp / 128), s)) != cudaSuccess)
+    return static_cast<int>(err);
   if (erode)
-    morph_kernel<true><<<grid, kThreads, 0, s>>>(x, out, H, W, runs, n);
+    morph_kernel<true><<<grid, kThreads, 0, s>>>(x, out, H, W, runs, n, Hp, Wp, occ);
   else
-    morph_kernel<false><<<grid, kThreads, 0, s>>>(x, out, H, W, runs, n);
+    morph_kernel<false><<<grid, kThreads, 0, s>>>(x, out, H, W, runs, n, Hp, Wp, occ);
   return static_cast<int>(cudaGetLastError());
 }

@@ -13,6 +13,16 @@ JAX package's names:
   kernel K2 with ``ccl_single_pass``; then ``_finish_batch``.
 - ``process_batch_staged`` — kernel K1, then kernel K2 (``label_stats``:
   8-connected CCL + stats in one launch sequence), then ``_finish_batch``.
+  Where the Pallas tile grid (``fused_tile``) aligns to 64 x 256, as at
+  1080p, K1 hands K2 its uncropped padded mask and the strip occupancy
+  (``padded_occ``), and K2 visits only the occupied strips; elsewhere, and
+  for Otsu, K2 derives the occupancy from the cropped mask — tpuva's two
+  handoffs.
+
+tpuva's capacity knobs ``sparse_strips`` and ``compact_slots`` size its
+TPU stats buffers; K2 has no capacity (union-find with exact sums), so
+the entry points take them and change nothing by them, and
+``stats_overflow`` stays zero.
 
 K1 takes every config tpuva's Pallas kernel does (median 0 or 3): where
 one launch cannot hold more than 63 blur taps, a structuring element wider
@@ -74,7 +84,7 @@ from tpuva_torch.ops.filters import (
     structuring_element,
     threshold,
 )
-from tpuva_torch.ops.fused_segment import fused_segment
+from tpuva_torch.ops.fused_segment import fused_segment, fused_tile
 from tpuva_torch.ops.label import (
     connected_components_with_stats,
     extract_detections,
@@ -297,7 +307,7 @@ def torch_front_end(cfg, carry: PipelineCarry, frames: torch.Tensor,
 def process_batch(cfg, carry: PipelineCarry, frames: torch.Tensor,
                   parallel_bg: bool = False, return_masks: bool = False,
                   max_components: int = 64, use_pallas: bool = False,
-                  ccl_single_pass: bool = False):
+                  ccl_single_pass: bool = False, compact_slots: int = 48):
     """One N-frame batch through the one-dispatch route. frames: (N, H, W)
     uint8 on the carry's device.
 
@@ -308,7 +318,9 @@ def process_batch(cfg, carry: PipelineCarry, frames: torch.Tensor,
     end is K1 whatever parallel_bg says, as tpuva's fused stage. The CCL is
     connected_components_with_stats, whose root-key labels come from
     kernel K3 on the card; with ccl_single_pass it is K2 (label_stats), as
-    tpuva's single-pass tail, with the same rows.
+    tpuva's single-pass tail, with the same rows. compact_slots, the
+    capacity of tpuva's compact stats buffer, changes nothing here: K2
+    and the dense stats have no capacity to run out of.
 
     Returns (new_carry, out) with out:
       rows           (N, max_blobs, 5) float32 — (track_id, frame, x, y, area)
@@ -333,21 +345,38 @@ def process_batch(cfg, carry: PipelineCarry, frames: torch.Tensor,
     return new_carry, out
 
 
+def padded_handoff(cfg, H: int, W: int) -> bool:
+    """Whether process_batch_staged hands K2 K1's padded mask and
+    occupancy, as tpuva's staged route decides: a fixed threshold and a
+    fused_tile grid that aligns to 64 x 256 (true at 1080p)."""
+    _th, _tw, Hp, Wp = fused_tile(H, W)
+    return cfg.segment.threshold != "otsu" and Hp % 64 == 0 and Wp % 256 == 0
+
+
 def process_batch_staged(cfg, carry: PipelineCarry, frames: torch.Tensor,
                          return_masks: bool = False, max_components: int = 64,
+                         sparse_strips: int = 256, compact_slots: int = 48,
                          return_labels: bool = False, ccl_single_pass: bool = False):
-    """One N-frame batch through the staged route: torch_front_end with the
-    sequential background (kernel K1, seeded from the filtered first frame
-    while the carry has none; for Otsu its diff emit, then _otsu_mask),
-    then kernel K2's CCL + stats.
-    Same outputs as process_batch. A median k > 3 raises
-    NotImplementedError, as tpuva's staged route refuses it.
+    """One N-frame batch through the staged route: kernel K1 with the
+    sequential background (seeded from the filtered first frame while the
+    carry has none; for Otsu its diff emit, then _otsu_mask), then kernel
+    K2's CCL + stats.
+
+    Where padded_handoff holds, K1 runs with padded_occ: K2 takes the
+    uncropped (N, Hp, Wp) mask and its strip occupancy, the pairwise max of
+    K1's 2 x 128 occ128 over 2 x 256 strips, and visits only the occupied
+    strips. Otherwise (and for Otsu) K2 takes the (N, H, W) mask and
+    derives the occupancy itself. Same outputs as process_batch; masks
+    are the (N, H, W) crop. A median k > 3 raises NotImplementedError, as
+    tpuva's staged route refuses it.
 
     return_labels adds out["labels"], (N, H, W) int32, as tpuva's
     labels_from_raw: dense cv2 ids 1..C of the first C = max_components
     components in cv2 order, 0 for the background and every later
-    component (K3's root keys through relabel_dense). ccl_single_pass
-    changes nothing here: K2 is exact in one launch sequence."""
+    component (K3's root keys of the cropped mask through relabel_dense).
+    ccl_single_pass changes nothing here: K2 is exact in one launch
+    sequence. sparse_strips and compact_slots size tpuva's TPU stats
+    buffers; K2 has none, so they change nothing either."""
     if not _can_stage(cfg):
         raise NotImplementedError("process_batch_staged: median ksize must be 1 or 3")
     if ccl_single_pass and return_labels:
@@ -356,8 +385,18 @@ def process_batch_staged(cfg, carry: PipelineCarry, frames: torch.Tensor,
             "ignored for this call; stats/tracking outputs are identical either way.",
             stacklevel=2,
         )
-    masks, bg_last = torch_front_end(cfg, carry, frames)
-    stats = label_stats(masks, max_components)
+    N, H, W = frames.shape
+    if padded_handoff(cfg, H, W):
+        padded, bg_last, occ128 = fused_segment(
+            frames, carry.bg, seed_bg=not bool(carry.bg_valid), padded_occ=True,
+            **_front_end_kwargs(cfg))
+        _n, Hp, Wp = padded.shape
+        strip_occ = occ128.reshape(N, Hp // 2, Wp // 256, 2).amax(dim=3)
+        stats = label_stats(padded, max_components, strip_occ=strip_occ, H=H, W=W)
+        masks = padded[:, :H, :W]
+    else:
+        masks, bg_last = torch_front_end(cfg, carry, frames)
+        stats = label_stats(masks, max_components)
     new_carry, out = _finish_batch(cfg, carry, stats, masks, bg_last, return_masks)
     out["stats_overflow"] = stats["overflow"]
     out["ccl_converged"] = stats["ccl_converged"]

@@ -330,6 +330,8 @@ class StreamingPipeline:
         queue_depth: int = 3,
         log: bool = False,
         use_pallas: bool = False,
+        sparse_strips: int = 256,
+        compact_slots: int = 48,
         strict: bool = True,
         row_log_path: Optional[str] = None,
         ccl_single_pass: bool = False,
@@ -343,6 +345,10 @@ class StreamingPipeline:
         self.max_components = max_components
         self.queue_depth = queue_depth
         self.use_pallas = use_pallas
+        # tpuva's TPU stats capacities, passed on as tpuva passes them; K2
+        # and the dense stats have no capacity, so they change nothing
+        self.sparse_strips = sparse_strips
+        self.compact_slots = compact_slots
         self.ccl_single_pass = ccl_single_pass
         self.strict = strict
         self.row_log_path = row_log_path
@@ -362,11 +368,13 @@ class StreamingPipeline:
             and (self.device.type == "cuda" or self.force_staged)
         ):
             return process_batch_staged(cfg, carry, batch, max_components=self.max_components,
+                                        sparse_strips=self.sparse_strips,
+                                        compact_slots=self.compact_slots,
                                         ccl_single_pass=self.ccl_single_pass)
         return process_batch(
             cfg, carry, batch, parallel_bg=self.parallel_bg,
             max_components=self.max_components, use_pallas=self.use_pallas,
-            ccl_single_pass=self.ccl_single_pass,
+            ccl_single_pass=self.ccl_single_pass, compact_slots=self.compact_slots,
         )
 
     def warmup(self, H: int, W: int) -> None:

@@ -10,8 +10,13 @@ dict that the pipeline's ``_finish_batch`` reads, not a label buffer.
 - CUDA tensors launch ``csrc/ccl.cu``: block-based union-find over 2x2
   blocks with min-index roots (root order == cv2's id order), a per-frame
   root scan, integer atomics of area / sum x / sum y (see the source).
+  Every stage visits only the occupied strips (1 block row x 128 blocks,
+  2 x 256 pixels) of a strip occupancy: the caller's ``strip_occ``, as
+  the Pallas kernel takes it (the staged route's, from K1's
+  ``padded_occ`` emit), or one the kernels derive from the mask.
 - CPU tensors take the plain version: ``ops.label.label_components``
-  (iterated 3x3 neighbour-min) + ``ops.label.component_sums``.
+  (iterated 3x3 neighbour-min) + ``ops.label.component_sums`` over the
+  whole image, whatever the occupancy says.
 
 Both give (count, int64 sums) and share the ``_assemble_stats`` epilogue.
 ``overflow`` is all zeros (no slot capacity here: components past
@@ -35,20 +40,49 @@ from tpuva_torch.ops.label import (
 MAX_COMPONENTS_KERNEL = 1024  # per-CTA shared-memory accumulators in ccl.cu
 
 
+STRIP_BLOCKS = 128  # a strip: one 2x2-block row x 128 blocks (2 x 256 pixels)
+
+
+def strip_shape(Hm: int, Wm: int) -> tuple:
+    """(rows, columns) of the strip occupancy of an (Hm, Wm) mask:
+    (ceil(Hm / 2), ceil(ceil(Wm / 2) / 128)); tpuva's (Hp/2, Wp/256) for a
+    padded mask."""
+    return (Hm + 1) // 2, -(-((Wm + 1) // 2) // STRIP_BLOCKS)
+
+
+def strip_occupancy_plain(mask: torch.Tensor) -> torch.Tensor:
+    """(N, Hm, Wm) mask -> (N, *strip_shape(Hm, Wm)) uint8, 1 where the
+    strip holds foreground: the occupancy tpuva's staged route reduces from
+    a cropped mask (two reduce_windows over it, zero-padded)."""
+    N, Hm, Wm = mask.shape
+    R, S = strip_shape(Hm, Wm)
+    padded = torch.zeros((N, 2 * R, 256 * S), dtype=torch.bool, device=mask.device)
+    padded[:, :Hm, :Wm] = mask != 0
+    return padded.reshape(N, R, 2, S, 256).any(dim=4).any(dim=2).to(torch.uint8)
+
+
 def label_sums_plain(mask: torch.Tensor, max_components: int):
     """Plain version of the kernel: (count (N,) int32, sums (N, C, 3) int64)."""
     return component_sums(label_components(mask), max_components)
 
 
-def _label_sums_cuda(mask: torch.Tensor, max_components: int):
+def _label_sums_cuda(mask: torch.Tensor, max_components: int, strip_occ=None):
+    """The launch sequence of tpuva_ccl_stats on an (N, Hm, Wm) mask, over
+    the occupied strips of strip_occ (N, *strip_shape(Hm, Wm)) uint8, or of
+    the occupancy its first kernel derives from the mask."""
     N, H, W = mask.shape
     C = max_components
     if not 1 <= C <= MAX_COMPONENTS_KERNEL:
         raise ValueError(f"max_components must be in [1, {MAX_COMPONENTS_KERNEL}]")
-    if H >= 1 << 16 or W >= 1 << 16:
-        raise ValueError("ccl kernel: H and W must be < 65536")
+    if H >= 1 << 16 or W >= 1 << 16 or N >= 1 << 16:
+        raise ValueError("ccl kernel: N, H and W must be < 65536")
     dev = mask.device
     Hb, Wb = (H + 1) // 2, (W + 1) // 2
+    R, S = strip_shape(H, W)
+    derive = strip_occ is None
+    occ = torch.empty((N, R, S), dtype=torch.uint8, device=dev) if derive else strip_occ
+    tiles = torch.empty((N, -(-Hb // 16) * -(-Wb // 32)), dtype=torch.int32, device=dev)
+    ntiles = torch.empty((N,), dtype=torch.int32, device=dev)
     parent = torch.empty((N, Hb * Wb), dtype=torch.int32, device=dev)
     bits = torch.empty((N, Hb * Wb), dtype=torch.uint8, device=dev)
     table = torch.empty((N, C), dtype=torch.int32, device=dev)
@@ -57,17 +91,29 @@ def _label_sums_cuda(mask: torch.Tensor, max_components: int):
     lib = _build.load()
     err = lib.tpuva_ccl_stats(
         mask.data_ptr(), N, H, W, C,
+        occ.data_ptr(), int(derive), tiles.data_ptr(), ntiles.data_ptr(),
         parent.data_ptr(), bits.data_ptr(), table.data_ptr(),
         count.data_ptr(), sums.data_ptr(),
         torch.cuda.current_stream(dev).cuda_stream,
     )
     _build.check(lib, err, "ccl kernel")
     label_stats.launches += 1
+    label_stats.occ_launches += not derive
     return count, sums
 
 
-def label_stats(mask: torch.Tensor, max_components: int = 64) -> dict:
+def label_stats(mask: torch.Tensor, max_components: int = 64, strip_occ=None,
+                H=None, W=None) -> dict:
     """Stats of the 8-connected components of an (N, H, W) uint8 mask.
+
+    With strip_occ and (H, W), as tpuva's label_components_tiled_raw takes
+    them, mask is a padded (N, Hm, Wm) mask, zero outside its (H, W) image,
+    and strip_occ (N, *strip_shape(Hm, Wm)) — (N, Hp/2, Wp/256) — says
+    which strips of 2 rows x 256 columns hold foreground: the kernels visit
+    only those (a strip it calls empty must hold none). Without them the
+    kernels derive the occupancy from the mask, as tpuva's staged route
+    reduces it. The plain version computes the stats of the (H, W) image
+    whatever the occupancy says.
 
     Returns {count (N,) int32, area (N,C+1) int32, centroid (N,C+1,2)
     float32, centroid_sum (N,C+1,2) int32, overflow (N,) int32,
@@ -75,15 +121,27 @@ def label_stats(mask: torch.Tensor, max_components: int = 64) -> dict:
     in cv2 id order — the contract of tpuva's stats dict."""
     if mask.dim() != 3 or mask.dtype != torch.uint8:
         raise ValueError("label_stats: mask must be (N, H, W) uint8")
-    N, H, W = mask.shape
+    N, Hm, Wm = mask.shape
+    if (strip_occ is None) != (H is None) or (H is None) != (W is None):
+        raise ValueError("label_stats: give strip_occ with H and W, or none of them")
+    if strip_occ is None:
+        H, W = Hm, Wm
+    else:
+        if not (0 < H <= Hm and 0 < W <= Wm):
+            raise ValueError(f"label_stats: image ({H}, {W}) outside the mask ({Hm}, {Wm})")
+        if tuple(strip_occ.shape) != (N, *strip_shape(Hm, Wm)) or strip_occ.dtype not in (
+                torch.uint8, torch.bool) or strip_occ.device != mask.device:
+            raise ValueError(f"label_stats: strip_occ must be (N, {strip_shape(Hm, Wm)}) "
+                             "uint8 or bool on the mask's device")
     if mask.device.type == "cpu":
-        count, sums = label_sums_plain(mask, max_components)
+        count, sums = label_sums_plain(mask[:, :H, :W], max_components)
     elif mask.device.type == "cuda":
         if N == 0:
             count = torch.zeros((0,), dtype=torch.int32, device=mask.device)
             sums = torch.zeros((0, max_components, 3), dtype=torch.int64, device=mask.device)
         else:
-            count, sums = _label_sums_cuda(mask.contiguous(), max_components)
+            occ = None if strip_occ is None else strip_occ.to(torch.uint8).contiguous()
+            count, sums = _label_sums_cuda(mask.contiguous(), max_components, occ)
     else:
         raise ValueError(f"label_stats: unsupported device {mask.device}")
     stats = _assemble_stats(count, sums, H, W)
@@ -92,7 +150,8 @@ def label_stats(mask: torch.Tensor, max_components: int = 64) -> dict:
     return stats
 
 
-label_stats.launches = 0
+label_stats.launches = 0  # every K2 launch sequence
+label_stats.occ_launches = 0  # those given the caller's strip_occ
 
 
 def label_components_tiled(mask: torch.Tensor, connectivity: int = 8,

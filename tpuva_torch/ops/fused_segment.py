@@ -1,7 +1,7 @@
 """Fused segmentation front-end — kernel K1 and its plain version.
 
 Replaces the Pallas kernel ``tpuva/ops/pallas/fused_segment.py::
-fused_segment`` (without ``padded_occ``). Per frame: u8 Gaussian blur
+fused_segment``, both emits and ``padded_occ``. Per frame: u8 Gaussian blur
 (REFLECT_101) -> optional median 3x3 (REPLICATE) -> ``B <- (1-a)B + aF``
 (float32), then by ``emit``:
 
@@ -28,6 +28,14 @@ fused_segment`` (without ``padded_occ``). Per frame: u8 Gaussian blur
 - CPU tensors take the plain version, ``fused_segment_plain``: the op
   chain of tpuva's ``process_batch`` jnp branch (graph/pipeline.py).
 
+``padded_occ=True`` (mask emit only) is the staged route's handoff to
+kernel K2: the masks come back uncropped, (N, Hp, Wp) with (Hp, Wp) the
+grid cover of ``fused_tile`` (a pinned copy of tpuva's), zero outside the
+image, with ``occ128`` (N, Hp/2, Wp/128) uint8, 1 where a 2-row x
+128-column block of the final mask holds foreground. The kernel writes
+both from the tile it just computed; where ``k1_split`` takes the open and
+close out of K1, the last K1m step writes them.
+
 ``seed_bg=True`` starts the background from the filtered (blur, median)
 first frame instead of ``bg0`` — the pipeline's first batch without a
 background plate — so seeding runs through the kernel too.
@@ -53,7 +61,7 @@ from tpuva_torch.ops.filters import (
     structuring_element,
     threshold as threshold_op,
 )
-from tpuva_torch.ops.wide import blur_u8, open_close_u8
+from tpuva_torch.ops.wide import blur_u8, open_close_u8, pad_occ_plain
 
 # limits of csrc/fused_segment.cu's parameter block
 MAX_TAPS = 63
@@ -68,6 +76,21 @@ TILES = ((64, 64), (32, 128), (32, 64), (64, 128), (16, 128), (16, 64),
 SMEM_LIMIT = 232_448  # dynamic shared memory a CTA may use on an H100
 SMS = 132  # streaming multiprocessors of an H100 SXM
 THREADS = 256  # threads per CTA
+
+
+def _ceil_to(v: int, m: int) -> int:
+    return -(-v // m) * m
+
+
+def fused_tile(H: int, W: int) -> tuple:
+    """(TH, TW, Hp, Wp): the Pallas kernel's default tile and its padded
+    grid over an (H, W) image — a copy of tpuva/ops/pallas/fused_segment.py::
+    fused_tile, pinned to it by a CPU test. (Hp, Wp) is padded_occ's output
+    shape, and the staged route takes the padded handoff where it aligns to
+    64 x 256, as tpuva's does."""
+    TH = 96 if H > 128 else _ceil_to(H, 32)
+    TW = 1024 if W > 1024 else _ceil_to(W, 128)
+    return TH, TW, -(-H // TH) * TH, -(-W // TW) * TW
 
 
 def _up16(v: int) -> int:
@@ -201,10 +224,11 @@ def fused_segment_plain(
     close_iters: int = 1,
     seed_bg: bool = False,
     emit: str = "mask",
+    padded_occ: bool = False,
 ):
     """Plain PyTorch version of the kernel (same arguments, same results;
     N >= 1)."""
-    _check_emit(emit, open_ksize, close_ksize)
+    _check_emit(emit, open_ksize, close_ksize, padded_occ)
     f = gaussian_blur_u8(frames, blur_ksize, blur_sigma) if blur_ksize else frames.to(torch.float32)
     if median_ksize:
         f = median_blur(f, median_ksize)
@@ -222,15 +246,18 @@ def fused_segment_plain(
         masks = morph_open(masks, structuring_element(open_shape, open_ksize), open_iters)
     if close_ksize:
         masks = morph_close(masks, structuring_element(close_shape, close_ksize), close_iters)
+    if padded_occ:
+        padded, occ = pad_occ_plain(masks, fused_tile(H, W)[2:])
+        return padded, bg, occ
     return masks, bg
 
 
-def _check_emit(emit: str, open_ksize: int, close_ksize: int) -> None:
+def _check_emit(emit: str, open_ksize: int, close_ksize: int, padded_occ: bool = False) -> None:
     if emit not in ("mask", "diff"):
         raise ValueError(f"fused_segment: emit must be 'mask' or 'diff', got {emit!r}")
-    if emit == "diff" and (open_ksize or close_ksize):
+    if emit == "diff" and (open_ksize or close_ksize or padded_occ):
         raise ValueError("fused_segment: emit='diff' writes pre-threshold magnitudes, "
-                         "so it takes no morphology")
+                         "so it takes no morphology and no occupancy")
 
 
 def _se_rows(shape: str, ksize: int) -> list[int]:
@@ -256,17 +283,21 @@ def fused_segment(
     close_iters: int = 1,
     seed_bg: bool = False,
     emit: str = "mask",
+    padded_occ: bool = False,
 ):
     """frames (N, H, W) uint8, bg0 (H, W) float32 -> (masks (N, H, W)
     uint8 0/255, final background (H, W) float32); with emit="diff" the
     first output is clip(rint(|F - B|), 0, 255) instead, threshold is
-    ignored and open/close must be off.
+    ignored and open/close must be off. With padded_occ (mask emit only)
+    -> (masks (N, Hp, Wp), background, occ128 (N, Hp/2, Wp/128) uint8),
+    (Hp, Wp) = fused_tile(H, W)[2:]: the masks zero outside the image,
+    occ128 1 where a 2-row x 128-column block holds foreground.
 
     blur_ksize 0 = no blur; median_ksize 0 or 3; open/close ksize 0 = off.
     CPU tensors run fused_segment_plain; CUDA tensors launch the kernel,
     with the blur or the morphology in kernels of their own where one
     launch does not take them (k1_split)."""
-    _check_emit(emit, open_ksize, close_ksize)
+    _check_emit(emit, open_ksize, close_ksize, padded_occ)
     kw = dict(
         alpha=alpha, threshold=threshold, blur_ksize=blur_ksize,
         blur_sigma=blur_sigma, median_ksize=median_ksize,
@@ -282,18 +313,24 @@ def fused_segment(
     if median_ksize not in (0, 3):
         raise NotImplementedError("fused_segment: median_ksize must be 0 or 3")
     if N == 0:
+        if padded_occ:
+            Hp, Wp = fused_tile(H, W)[2:]
+            return (torch.zeros((0, Hp, Wp), dtype=torch.uint8, device=frames.device),
+                    bg0.clone(),
+                    torch.zeros((0, Hp // 2, Wp // 128), dtype=torch.uint8, device=frames.device))
         return torch.empty_like(frames), bg0.clone()
     if frames.device.type == "cpu":
-        return fused_segment_plain(frames, bg0, **kw)
+        return fused_segment_plain(frames, bg0, padded_occ=padded_occ, **kw)
     if frames.device.type != "cuda":
         raise ValueError(f"fused_segment: unsupported device {frames.device}")
     return run_split(frames.contiguous(), bg0.contiguous(), k1_split(H, W, **kw),
-                     _k1_launch, **kw)
+                     _k1_launch, padded_occ=padded_occ, **kw)
 
 
-def _k1_launch(frames, bg0, **kw):
-    out = _fused_segment_cuda(frames, bg0, **kw)
+def _k1_launch(frames, bg0, padded_occ=False, **kw):
+    out = _fused_segment_cuda(frames, bg0, padded_occ=padded_occ, **kw)
     fused_segment.launches += 1
+    fused_segment.padded_launches += bool(padded_occ)
     return out
 
 
@@ -326,23 +363,29 @@ def k1_split(H: int, W: int, **kw) -> tuple[bool, bool]:
     raise ValueError("fused_segment: no split of these options fits the kernel")
 
 
-def run_split(frames, bg0, parts, k1, **kw):
+def run_split(frames, bg0, parts, k1, padded_occ=False, **kw):
     """fused_segment's options as parts = (blur apart, morphology apart)
     say: blur_u8 on the frames, k1(frames, bg0, **options) with the stages
     that stay (the kernel's launch on the card; the CPU tests pass
     fused_segment_plain), then open_close_u8 on its masks. Bit-equal to one
     pass over all the options: the blur's output is u8, as the median and
     the background see it inside K1, and the morphology follows the
-    threshold."""
+    threshold. With padded_occ, k1 writes the padded mask and occ128 where
+    the morphology stays in it, and the last open_close_u8 step where it
+    does not, so that the occupancy is the final mask's."""
     blur_apart, morph_apart = parts
     if blur_apart:
         frames = blur_u8(frames, kw["blur_ksize"], kw["blur_sigma"])
-    masks, bg = k1(frames, bg0, **_k1_options(kw, blur_apart, morph_apart))
-    if morph_apart:
-        masks = open_close_u8(masks, (
-            (kw["open_shape"], kw["open_ksize"], kw["open_iters"]),
-            (kw["close_shape"], kw["close_ksize"], kw["close_iters"])))
-    return masks, bg
+    options = _k1_options(kw, blur_apart, morph_apart)
+    if not morph_apart:
+        return k1(frames, bg0, padded_occ=padded_occ, **options)
+    masks, bg = k1(frames, bg0, **options)
+    stages = ((kw["open_shape"], kw["open_ksize"], kw["open_iters"]),
+              (kw["close_shape"], kw["close_ksize"], kw["close_iters"]))
+    if padded_occ:
+        padded, occ = open_close_u8(masks, stages, pad_to=fused_tile(*masks.shape[1:])[2:])
+        return padded, bg, occ
+    return open_close_u8(masks, stages), bg
 
 
 def _stages(open_shape, open_ksize, open_iters, close_shape, close_ksize, close_iters):
@@ -399,11 +442,12 @@ def fused_segment_plan(H: int, W: int, *, blur_ksize: int = 0, blur_sigma: float
 def _fused_segment_cuda(frames, bg0, *, alpha, threshold, blur_ksize=0, blur_sigma=0.0,
                         median_ksize=0, open_shape="rect", open_ksize=0, open_iters=1,
                         close_shape="rect", close_ksize=0, close_iters=1, seed_bg=False,
-                        emit="mask", tile=None):
+                        emit="mask", tile=None, padded_occ=False):
     """The launch, on contiguous CUDA tensors that fused_segment checked;
     tile (rows, cols) overrides launch_plan's (the tests and the smoke's
     timing force each candidate). Does not count a launch of the main
     path: fused_segment does, around it."""
+    _check_emit(emit, open_ksize, close_ksize, padded_occ)
     N, H, W = frames.shape
     if not k1_takes(H, W, blur_ksize=blur_ksize, blur_sigma=blur_sigma,
                     median_ksize=median_ksize, open_ksize=open_ksize, open_iters=open_iters,
@@ -426,7 +470,10 @@ def _fused_segment_cuda(frames, bg0, *, alpha, threshold, blur_ksize=0, blur_sig
             stage_se[s, :k] = _se_rows(shape, k)
     taps_np = np.array(taps, np.int32)
     c1, a = background_coeffs(alpha)
-    masks = torch.empty((N, H, W), dtype=torch.uint8, device=frames.device)
+    Hp, Wp = fused_tile(H, W)[2:] if padded_occ else (H, W)
+    masks = torch.empty((N, Hp, Wp), dtype=torch.uint8, device=frames.device)
+    occ = (torch.empty((N, Hp // 2, Wp // 128), dtype=torch.uint8, device=frames.device)
+           if padded_occ else None)
     bg_out = torch.empty((H, W), dtype=torch.float32, device=frames.device)
     lib = _build.load()
     err = lib.tpuva_fused_segment(
@@ -435,10 +482,12 @@ def _fused_segment_cuda(frames, bg0, *, alpha, threshold, blur_ksize=0, blur_sig
         taps_np.ctypes.data, len(taps), shift, 1 if median_ksize else 0,
         stage_k.ctypes.data, stage_iters.ctypes.data, stage_se.ctypes.data,
         1 if seed_bg else 0, 1 if emit == "diff" else 0, tile[0], tile[1],
+        Hp, Wp, None if occ is None else occ.data_ptr(),
         torch.cuda.current_stream(frames.device).cuda_stream,
     )
     _build.check(lib, err, "fused_segment kernel")
-    return masks, bg_out
+    return (masks, bg_out, occ) if padded_occ else (masks, bg_out)
 
 
-fused_segment.launches = 0
+fused_segment.launches = 0  # every K1 launch
+fused_segment.padded_launches = 0  # those with padded_occ

@@ -206,8 +206,12 @@ def _assemble_stats(count: torch.Tensor, sums: torch.Tensor, H: int, W: int):
     sy_c = sums[..., 2].to(torch.int32)
     # int32 sums (wrapping, as jnp.sum of int32 does)
     area0 = (H * W - area_c.sum(1).to(torch.int32)).to(torch.int32)
-    sx_tot = torch.tensor(np.float32(float(H) * (W - 1) * W / 2.0), device=dev)
-    sy_tot = torch.tensor(np.float32(float(W) * (H - 1) * H / 2.0), device=dev)
+    # filled on the device: a tensor made from a host value on the card
+    # would be a copy that waits for the stream
+    sx_tot = torch.full((), float(np.float32(float(H) * (W - 1) * W / 2.0)),
+                        dtype=torch.float32, device=dev)
+    sy_tot = torch.full((), float(np.float32(float(W) * (H - 1) * H / 2.0)),
+                        dtype=torch.float32, device=dev)
     sx0 = sx_tot - sx_c.sum(1).to(torch.int32).to(torch.float32)
     sy0 = sy_tot - sy_c.sum(1).to(torch.int32).to(torch.float32)
 
