@@ -163,6 +163,28 @@ def test_fused_segment_kernel_tiles_match_plain(cuda_device, tile):
 
 
 @pytest.mark.gpu
+def test_fused_segment_kernel_repeats_across_layouts(cuda_device):
+    """Launches of different shared-memory layouts in turn, on 16-byte rows
+    (the cp.async window copies, whose edge tiles read the reflect tables):
+    a CTA's shared memory starts with the last CTA's bytes, so every launch
+    must equal the plain version, the tenth as the first."""
+    diff_kw = dict(alpha=0.02, threshold=0.0, blur_ksize=5, emit="diff")
+    frames, bg0 = scene(4, 256, 512, seed=8)
+    runs = [(kw, False) for kw in (diff_kw, K1_CONFIGS["blur9"], K1_CONFIGS["median3"])]
+    runs += [(BENCH, True)]
+    refs = [fused_segment_plain(torch.from_numpy(frames), torch.from_numpy(bg0),
+                                padded_occ=padded, **kw) for kw, padded in runs]
+    f_gpu, b_gpu = torch.from_numpy(frames).to(cuda_device), torch.from_numpy(bg0).to(cuda_device)
+    for i in range(10):
+        for (kw, padded), ref in zip(runs, refs):
+            got = fused_segment(f_gpu, b_gpu, padded_occ=padded, **kw)
+            torch.cuda.synchronize()
+            for r, g in zip(ref, got):
+                np.testing.assert_array_equal(g.cpu().numpy(), r.numpy(),
+                                              err_msg=f"repeat {i}, {kw}, padded={padded}")
+
+
+@pytest.mark.gpu
 @pytest.mark.parametrize("name", sorted(K1_CONFIGS))
 def test_fused_segment_diff_kernel_matches_plain(cuda_device, name):
     """emit="diff" (no morphology), and alpha 0 with bg0 = k + 0.5, where

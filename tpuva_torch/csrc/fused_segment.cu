@@ -448,6 +448,9 @@ fused_segment_kernel(const uint8_t* __restrict__ frames,
     }
     cp_async_commit();
   };
+  // rowoff is read by other threads than its writers: frame 0's copies
+  // wait for the tables (shared memory holds the last CTA's bytes before)
+  __syncthreads();
   if (vin > 1) {
     issue(raws[0], 0);
     cp_async_wait_all();
