@@ -4,6 +4,7 @@
     python3 chip_smoke.py          # every phase below
     python3 chip_smoke.py --k1     # phases 1-3b, then K1's timings only
     python3 chip_smoke.py --k2     # phases 1-2, then K2's and K3's timings only
+    python3 chip_smoke.py --probes # phases 1-2, then phase 9 (the micro-probes) only
 
 Run from the repository root on a machine with one CUDA card and nvcc; it
 builds the kernels into build/tpuva_torch/ first. It imports no JAX and
@@ -12,7 +13,8 @@ raises, so the exit code is non-zero:
 
 1. card: nvidia-smi's name and power limit (on a line of their own), the
    torch and CUDA versions;
-2. build: nvcc compiles tpuva_torch/csrc/*.cu;
+2. build: nvcc compiles tpuva_torch/csrc/*.cu (registers and spills of
+   K1's and the micro-probes' instantiations in the build line);
 3. K1 (fused_segment) against its plain version on the card, at
    (16, 1080, 1920), a ragged (5, 250, 333) and a one-column (4, 120, 1),
    over six configs (blur 3, 5, 7 and 9 taps: the unrolled and the
@@ -95,12 +97,19 @@ raises, so the exit code is non-zero:
    extract_detections and K5), BatchStager's pinned staging per batch
    beside a pageable copy, and frames/s of process_clip, of both streamed
    routes (in turns, twice each) and of both Otsu routes, with the peak
-   device memory of each streamed route.
+   device memory of each streamed route;
+9. the micro-probes P1-P4 (tpuva_torch.probes, the counterparts of
+   bench/{repos,roll,i16,cell}_probe.py; kernels in csrc/probes.cu): every
+   case's kernel bit-equal to its plain version at the probe's own tile
+   (reps 1 and 3; 140 for P2, past float32 overflow; the file's own count
+   for P3 and P4); then each probe's own measuring path (measure(), what
+   its main() prints) with its launch count set to 0 before and read
+   after: every case slope-timed at the file's rep counts, the slope
+   positive; its heaviest case beside its plain version, one call each.
+   One "probes" line: ns/op, Telem/s, Telem/s a SM and the cluster.
 
 Then one JSON line of the kernels (each with its least time on the card,
-bound_ms, from the bytes and operations of this run's inputs; the timing
-line adds the bounds of the TPU micro-probes P1-P4 under bench/, which no
-path runs), the card
+bound_ms, from the bytes and operations of this run's inputs), the card
 line again, and last {"ok": true, "device": {...}}. Long output (the
 compiler's register and shared-memory report, CSVs, checkpoints) goes to
 build/chip_smoke/.
@@ -147,7 +156,18 @@ REPLACES = {
                 "tpuva/ops/pallas/fused_segment.py:145"),
     "morph_u8": ("tpuva_torch/csrc/wide.cu",
                  "tpuva/ops/pallas/fused_segment.py:145"),
+    # the micro-probes P1-P4, phase 9
+    "repos_probe": ("tpuva_torch/csrc/probes.cu", "bench/repos_probe.py:51"),
+    "roll_probe": ("tpuva_torch/csrc/probes.cu", "bench/roll_probe.py:50"),
+    "i16_probe": ("tpuva_torch/csrc/probes.cu", "bench/i16_probe.py:40"),
+    "cell_probe": ("tpuva_torch/csrc/probes.cu", "bench/cell_probe.py:62"),
 }
+# the largest rep count each probe file runs (its heaviest call), and the
+# reps phase 9 holds each case at against its plain version
+PROBE_FILE_REPS = {"repos_probe": 65536, "roll_probe": 65536, "i16_probe": 512,
+                   "cell_probe": 256}
+PROBE_CHECK_REPS = {"repos_probe": (1, 3), "roll_probe": (1, 3, 140), "i16_probe": (1, 3, 512),
+                    "cell_probe": (1, 3, 256)}
 BENCH_KW = dict(
     alpha=0.02, threshold=35.0, blur_ksize=5, blur_sigma=0.0,
     open_shape="rect", open_ksize=3, close_shape="ellipse", close_ksize=3,
@@ -274,27 +294,113 @@ def k1_ops_per_px(kw):
     return ops
 
 
+def probe_modules():
+    from tpuva_torch.probes import cell_probe, i16_probe, repos_probe, roll_probe
+
+    return {"repos_probe": repos_probe, "roll_probe": roll_probe, "i16_probe": i16_probe,
+            "cell_probe": cell_probe}
+
+
+def probe_heaviest(mod):
+    """The case of a probe with the most operations a rep (the first of
+    equals)."""
+    return max(mod.CASES, key=lambda c: c.n_ops)
+
+
 def probe_bounds():
     """Least time on the card (ms, and what bounds it) of one call of each
-    TPU micro-probe's heaviest case, the work its file under bench/ defines:
-    an (rows, cols) tile read and written once, reps x ops_per_rep scalar
-    operations an element (a roll counted as one)."""
-    probes = {
-        # repos_probe.py: (152, 1920) u8 -> uint8, 65,536 reps, the f32
-        # cast-hop case's 3 ops a rep
-        "P1": (152, 1920, 1, 1, 65536, 3),
-        # roll_probe.py: (112, 1152), 65,536 reps, a roll + add pair and
-        # the loop's own add of 1e-7: 3 ops a rep
-        "P2": (112, 1152, 1, 1, 65536, 3),
-        # i16_probe.py: (112, 1152), 512 reps of the 16-op k=5 cascade and
-        # its rescale: 17 ops a rep
-        "P3": (112, 1152, 1, 1, 512, 17),
-        # cell_probe.py: (80, 512) int32, 256 reps of baseline_sweepish's
-        # 32 roll + min pairs: 64 ops a rep
-        "P4": (80, 512, 4, 4, 256, 64),
-    }
-    return {name: bound(r * c * (b_in + b_out), r * c * reps * ops)
-            for name, (r, c, b_in, b_out, reps, ops) in probes.items()}
+    micro-probe's heaviest case at its file's largest rep count: the tile
+    read and written once (u8; int32 for P4), and reps x n_ops scalar
+    operations an element, as the file counts them (a roll one op)."""
+    out = {}
+    for name, mod in probe_modules().items():
+        x = mod.make_tile()
+        nbytes = 2 * x.numel() * x.element_size()
+        ops = x.numel() * PROBE_FILE_REPS[name] * probe_heaviest(mod).n_ops
+        out[name] = bound(nbytes, ops)
+    return out
+
+
+def probe_sass():
+    """{case: {opcode: count}} of the arithmetic in the SASS of the probes'
+    cases that keep their words in registers (cuobjdump of the built
+    library): one add (and the cast-hop's two conversions) a word in the
+    rep loop, so that no rep is folded into another."""
+    from collections import Counter
+
+    from tpuva_torch import _build
+
+    cuobjdump = os.path.join(os.path.dirname(_build.nvcc()), "cuobjdump")
+    text = subprocess.run([cuobjdump, "-sass", str(_build.library_path())], capture_output=True,
+                          text=True, check=True).stdout
+    out = {}
+    for fn in re.split(r"\n\s*Function : ", text)[1:]:
+        k = re.search(r"\d(repos|roll)6kernelILi(\d)E", fn.split("\n", 1)[0])
+        if k and (k.group(1), k.group(2)) in (("repos", "0"), ("repos", "4"), ("roll", "0"),
+                                              ("roll", "1")):
+            ops = Counter(re.findall(r"/\*[0-9a-f]{4}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9]*)", fn))
+            out[f"{k.group(1)}_probe<{k.group(2)}>"] = {
+                op: ops[op] for op in ("VIADD", "IADD3", "F2I", "I2FP", "FADD", "FMUL", "FFMA")
+                if ops[op]}
+    return out
+
+
+def once_ms(fn):
+    """ms of one call of fn(), CUDA events, no warm-up."""
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end)
+
+
+def probes_phase(card):
+    """Phase 9: every case of the micro-probes P1-P4 bit-equal to its plain
+    version on the card, then each probe's measure() path with its launch
+    count read around it; one "probes" line. Returns the probes' entries
+    of the kernels line."""
+    t_phase = time.time()
+    dev = torch.device("cuda")
+    bounds = probe_bounds()
+    entries, lines = {}, {}
+    for name, mod in probe_modules().items():
+        x = mod.make_tile().to(dev)
+        err = 0.0
+        for case in mod.CASES:
+            for reps in PROBE_CHECK_REPS[name]:
+                got, ref = mod.run(x, case.name, reps), mod.plain(x, case.name, reps)
+                err = max(err, float((got.double() - ref.double()).abs().max()))
+                if not torch.equal(got, ref):
+                    raise AssertionError(f"{name} {case.name} at {reps} reps differs from its "
+                                         f"plain version: max abs err {err}")
+        mod.run.launches = 0
+        rows = mod.measure(dev, iters=1)
+        launches = mod.run.launches
+        if launches == 0:
+            raise AssertionError(f"{name}: measure() launched no kernel")
+        flat = [r["case"] for r in rows if not r["ns_per_op"] > 0]
+        if flat:
+            raise AssertionError(f"{name}: the time does not grow with the reps: {flat}")
+        heavy, reps = probe_heaviest(mod), PROBE_FILE_REPS[name]
+        row = next(r for r in rows if r["case"] == heavy.name)
+        ms = row["t1_ms"] if row["r1"] == reps else row["t2_ms"]
+        plain_ms = once_ms(lambda: mod.plain(x, heavy.name, reps))
+        entries[name] = {"name": name, "route": "cuda", "source": REPLACES[name][0],
+                         "replaces": REPLACES[name][1], "launches": launches,
+                         "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                         "bound_ms": bounds[name][0], "bound_by": bounds[name][1],
+                         "library_ms": None}
+        lines[name] = {"cluster": f"{mod.CTAS} CTA(s) x 1024 threads, one an SM",
+                       "heaviest": heavy.name, "heaviest_reps": reps,
+                       "cases": {r["case"]: {k: r[k] for k in (
+                           "n_ops", "r1", "r2", "t1_ms", "t2_ms", "ns_per_op", "telem_s",
+                           "telem_s_per_sm")} for r in rows}}
+    say("probes", card=card, bit_equal=True, seconds=round(time.time() - t_phase, 1),
+        probes=lines, elementwise_sass=probe_sass(), kernels=list(entries.values()))
+    return entries
 
 
 def padded_stats(mask):
@@ -358,15 +464,20 @@ def check_track_scan(err, state, dets, valid, frame0, where, **kw):
     return got
 
 
-def ptxas_summary(log):
+def ptxas_summary(log, probes=False):
     """{kernel: {"registers": n, "spill_stores": b, "spill_loads": b}} of the
-    K1 instantiations in nvcc's -Xptxas -v report."""
+    K1 instantiations (probes: of the micro-probes' cases, csrc/probes.cu)
+    in nvcc's -Xptxas -v report."""
     out, name = {}, None
     for line in log.splitlines():
         m = re.search(r"Compiling entry function '([^']+)'", line)
         if m:
-            k = re.search(r"fused_segment_kernelILi(\d+)ELi(\d+)ELi(\d+)E", m.group(1))
-            name = f"fused_segment_kernel<{', '.join(k.groups())}>" if k else None
+            if probes:
+                k = re.search(r"\d(repos|roll|i16|cell)6kernelILi(\d+)E", m.group(1))
+                name = f"{k.group(1)}_probe<{k.group(2)}>" if k else None
+            else:
+                k = re.search(r"fused_segment_kernelILi(\d+)ELi(\d+)ELi(\d+)E", m.group(1))
+                name = f"fused_segment_kernel<{', '.join(k.groups())}>" if k else None
             continue
         if name is None:
             continue
@@ -491,10 +602,10 @@ def k2_timing(clip, plate, card):
 
 
 def main():
-    mode = sys.argv[1] if sys.argv[1:] in (["--k1"], ["--k2"]) else None
+    mode = sys.argv[1] if sys.argv[1:] in (["--k1"], ["--k2"], ["--probes"]) else None
     k1_only = mode == "--k1"
     if sys.argv[1:] and mode is None:
-        print("usage: chip_smoke.py [--k1 | --k2]", file=sys.stderr)
+        print("usage: chip_smoke.py [--k1 | --k2 | --probes]", file=sys.stderr)
         return 2
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)",
@@ -544,7 +655,10 @@ def main():
     with open(os.path.join(OUT_DIR, "ptxas.txt"), "w") as fh:
         fh.write(log)
     say("build", seconds=round(time.time() - t0, 2), library=str(lib_path.name),
-        k1_ptxas=ptxas_summary(log))
+        k1_ptxas=ptxas_summary(log), probes_ptxas=ptxas_summary(log, probes=True))
+    if mode == "--probes":
+        probes_phase(card)
+        return 0
     if mode == "--k2":
         clip, _alive, _truth, plate = multi_blob_clip(1080, 1920, 256, n_blobs=6, radius=16,
                                                       births_deaths=False, noise_sigma=2.0)
@@ -1224,8 +1338,10 @@ def main():
                                        CCL_OPS_PER_PX * int(dense_occ.sum()) * STRIP_PX)[0]
     # K6: K3's int32 labels and the mask read
     t["k6_bound"] = bound(4 * px + px, CCL_OPS_PER_PX * px)
-    t["probe_bounds"] = probe_bounds()
     say("timing", card=card, batch=N, shape=[1080, 1920], kernels_bit_equal_at_batch_256=True, **t)
+
+    # 9. the micro-probes
+    probe_entries = probes_phase(card)
 
     timed = {"fused_segment": ("k1_ms", "k1_plain_ms"), "ccl_stats": ("k2_ms", "k2_plain_ms"),
              "fused_segment_padded_occ": ("k1_padded_occ_ms", "k1_padded_occ_plain_ms"),
@@ -1253,6 +1369,9 @@ def main():
     library = {"histogram_u8": t["k4_library_ms"], "morph_u8": t["k1m_library_ms"]}
     kernels = []
     for name, (src, rep) in REPLACES.items():
+        if name in probe_entries:
+            kernels.append(probe_entries[name])
+            continue
         ms, plain = timed[name]
         kernels.append({"name": name, "route": "cuda", "source": src, "replaces": rep,
                         "launches": launches[name], "max_abs_err": err[name],

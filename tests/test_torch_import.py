@@ -1,5 +1,5 @@
-"""Importing the port loads no JAX, does not initialise CUDA and builds no
-kernel (the twin of test_aux.py's import-purity test for tpuva)."""
+"""Importing the port (the micro-probes included) loads no JAX, nothing of
+bench/, does not initialise CUDA and builds no kernel (the twin of test_aux.py's import-purity test for tpuva)."""
 
 import json
 import os
@@ -18,11 +18,14 @@ import tpuva_torch.ops.fused_segment, tpuva_torch.ops.ccl, tpuva_torch.ops.filte
 import tpuva_torch.track.table, tpuva_torch.track.assign
 import tpuva_torch.graph.streaming, tpuva_torch.io.staging, tpuva_torch.io.memory
 import tpuva_torch.ops.label, tpuva_torch.device, tpuva_torch.utils
+import tpuva_torch.probes, tpuva_torch.probes._timing, tpuva_torch.probes.repos_probe
+import tpuva_torch.probes.roll_probe, tpuva_torch.probes.i16_probe, tpuva_torch.probes.cell_probe
 import torch
 after = sorted(p.name for p in _build.BUILD_DIR.glob("*")) if _build.BUILD_DIR.exists() else None
 print(json.dumps({
     "jax": any(m == "jax" or m.startswith("jax.") for m in sys.modules),
     "tpuva": sorted(m for m in sys.modules if m == "tpuva" or m.startswith("tpuva.")),
+    "bench": sorted(m for m in sys.modules if m.split(".")[0] == "bench"),
     "cuda_initialized": torch.cuda.is_initialized(),
     "loaded": _build.load.cache_info().currsize,
     "build_dir_unchanged": before == after,
@@ -41,6 +44,7 @@ def test_import_is_pure():
     assert got == {
         "jax": False,
         "tpuva": [],
+        "bench": [],
         "cuda_initialized": False,
         "loaded": 0,
         "build_dir_unchanged": True,

@@ -16,7 +16,9 @@ morph_u8) and the split fused_segment runs with them likewise, and K1's
 padded_occ emit (padded mask, zero padding, occ128) with and without the
 split. K2 given the strip occupancy against K2 deriving it and against
 its plain version, on sparse, dense and empty masks. Also
-BatchStager's pinned-buffer copies to the card, byte for byte, and configs
+the micro-probes' kernels (tpuva_torch.probes, csrc/probes.cu) bit for
+bit on every case at the probe's tile shape, and their time grows with
+the reps. Also BatchStager's pinned-buffer copies to the card, byte for byte, and configs
 one K1 launch does not take run on the card with the CPU's rows. The CCL scenes (tpuva_torch.scenes)
 are shared with the CPU tests that hold the plain versions against tpuva.
 """
@@ -43,6 +45,8 @@ from tpuva_torch.ops.fused_segment import (
 )
 from tpuva_torch.ops.label import label_components
 from tpuva_torch.ops.wide import blur_u8, morph_u8
+from tpuva_torch.probes import cell_probe, i16_probe, repos_probe, roll_probe
+from tpuva_torch.probes._timing import timeit
 from tpuva_torch.scenes import (
     DET_KINDS, K1_REFUSED, det_sequence, k1_refused_config, mixed_scene, u_shape,
 )
@@ -585,3 +589,37 @@ def test_configs_k1_refuses_run_on_the_card(cuda_device, name):
         assert rows == ref[0]
         np.testing.assert_array_equal(masks, ref[2])
         assert torch.equal(carry.bg.cpu(), ref[1].bg)
+
+
+PROBES = {m.__name__.rsplit(".", 1)[1]: m for m in (repos_probe, roll_probe, i16_probe, cell_probe)}
+# reps each probe case is held at: 1 and 3; 140 for P2 (past float32
+# overflow); the JAX file's own count for P3 (512) and P4 (256)
+PROBE_REPS = {"repos_probe": (1, 3), "roll_probe": (1, 3, 140), "i16_probe": (1, 3, 512),
+              "cell_probe": (1, 3, 256)}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("probe, case", [(p, c.name) for p, m in PROBES.items() for c in m.CASES])
+def test_probe_kernel_matches_plain(cuda_device, probe, case):
+    mod = PROBES[probe]
+    x = mod.make_tile().to(cuda_device)
+    for reps in PROBE_REPS[probe]:
+        before = mod.run.launches
+        got = mod.run(x, case, reps)
+        torch.cuda.synchronize()
+        assert mod.run.launches == before + 1
+        assert torch.equal(got, mod.plain(x, case, reps)), f"{probe} {case} at {reps} reps"
+        if probe == "roll_probe" and reps == 140 and case in ("add f+f", "roll0 + add"):
+            assert (got == 255).any()  # the doubling cases passed float32 overflow
+        if probe == "i16_probe" and case == "int16" and reps > 1:
+            assert not torch.equal(got, mod.run(x, "int32", reps))  # the int16 sums wrapped
+
+
+@pytest.mark.gpu
+def test_probe_kernel_time_grows_with_reps(cuda_device):
+    """Every rep does its work: at counts where the launch is a small share,
+    four times the reps take more than twice the time."""
+    x = roll_probe.make_tile().to(cuda_device)
+    t = {reps: timeit(lambda: roll_probe.run(x, "roll0 + add", reps), cuda_device)[0]
+         for reps in (4096, 16384)}
+    assert t[16384] > 2 * t[4096], t

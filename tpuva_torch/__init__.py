@@ -16,6 +16,8 @@ Layout (counterparts in ``tpuva/``):
   graph/pipeline.py                  process_batch(_staged) / process_clip
   graph/streaming.py, io/            StreamingPipeline, BatchStager
   graph/config.py, export/csvio.py   pinned copies
+  probes/                            the micro-probes P1-P4 of bench/
+                                     (csrc/probes.cu)
 
 Kernels are compiled by nvcc at the first call on a CUDA tensor
 (``tpuva_torch._build``). Importing the package neither initialises CUDA

@@ -93,6 +93,10 @@ _SIGNATURES = {
         _P,  # stream
     ],
 }
+# the micro-probes P1-P4 (csrc/probes.cu): x, out, reps, case, stream
+_SIGNATURES.update({
+    f"tpuva_probe_{name}": [_P, _P, _I, _I, _P] for name in ("repos", "roll", "i16", "cell")
+})
 
 
 def nvcc() -> str:
