@@ -101,12 +101,15 @@ raises, so the exit code is non-zero:
 9. the micro-probes P1-P4 (tpuva_torch.probes, the counterparts of
    bench/{repos,roll,i16,cell}_probe.py; kernels in csrc/probes.cu): every
    case's kernel bit-equal to its plain version at the probe's own tile
-   (reps 1 and 3; 140 for P2, past float32 overflow; the file's own count
-   for P3 and P4); then each probe's own measuring path (measure(), what
-   its main() prints) with its launch count set to 0 before and read
-   after: every case slope-timed at the file's rep counts, the slope
-   positive; its heaviest case beside its plain version, one call each.
-   One "probes" line: ns/op, Telem/s, Telem/s a SM and the cluster.
+   (each module's CHECK_REPS: 1 and 3; 140 for P2, past float32
+   overflow; the file's own count for P3 and P4); then each probe's own
+   measuring path (measure(), what its main() prints) with its launch
+   count set to 0 before and read after: every case slope-timed at the
+   module's REPS, the slope positive; its heaviest case beside its plain
+   version, one call each. The rep loop of each case that keeps its
+   words in registers must do one add a word in the SASS (no rep folded
+   into another). One "probes" line: ns/op, Telem/s, Telem/s a SM, the
+   cluster, and those rep loops' arithmetic.
 
 Then one JSON line of the kernels (each with its least time on the card,
 bound_ms, from the bytes and operations of this run's inputs), the card
@@ -162,12 +165,6 @@ REPLACES = {
     "i16_probe": ("tpuva_torch/csrc/probes.cu", "bench/i16_probe.py:40"),
     "cell_probe": ("tpuva_torch/csrc/probes.cu", "bench/cell_probe.py:62"),
 }
-# the largest rep count each probe file runs (its heaviest call), and the
-# reps phase 9 holds each case at against its plain version
-PROBE_FILE_REPS = {"repos_probe": 65536, "roll_probe": 65536, "i16_probe": 512,
-                   "cell_probe": 256}
-PROBE_CHECK_REPS = {"repos_probe": (1, 3), "roll_probe": (1, 3, 140), "i16_probe": (1, 3, 512),
-                    "cell_probe": (1, 3, 256)}
 BENCH_KW = dict(
     alpha=0.02, threshold=35.0, blur_ksize=5, blur_sigma=0.0,
     open_shape="rect", open_ksize=3, close_shape="ellipse", close_ksize=3,
@@ -316,16 +313,30 @@ def probe_bounds():
     for name, mod in probe_modules().items():
         x = mod.make_tile()
         nbytes = 2 * x.numel() * x.element_size()
-        ops = x.numel() * PROBE_FILE_REPS[name] * probe_heaviest(mod).n_ops
+        ops = x.numel() * mod.FILE_REPS * probe_heaviest(mod).n_ops
         out[name] = bound(nbytes, ops)
     return out
 
 
+# the micro-probes' cases that keep their words in registers, and the
+# arithmetic one rep does to a word: "IADD" counts VIADD and IADD3
+PROBE_REGISTER_CASES = {
+    ("repos_probe", 0): {"IADD": 1},  # i32 add
+    ("repos_probe", 4): {"F2I": 1, "I2FP": 1, "FADD": 1},  # the cast-hop
+    ("roll_probe", 0): {"FADD": 2},  # f + f + 1e-7
+    ("roll_probe", 1): {"FMUL": 1, "FADD": 1},  # f * 1.0001 + 1e-7
+}
+SASS_INSN = re.compile(r"/\*([0-9a-f]{4,})\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9]*)\S*\s*([^;]*);")
+
+
 def probe_sass():
-    """{case: {opcode: count}} of the arithmetic in the SASS of the probes'
-    cases that keep their words in registers (cuobjdump of the built
-    library): one add (and the cast-hop's two conversions) a word in the
-    rep loop, so that no rep is folded into another."""
+    """Hold the rep loop of each probe case that keeps its words in
+    registers (PROBE_REGISTER_CASES) to its arithmetic, from the SASS of
+    the built library (cuobjdump): the one loop, a backward branch, does
+    each word's operations once, so that no rep is folded into another
+    (ptxas merged the adds of unrolled reps once, and such a case ran
+    faster than the SM's lanes allow). Returns {case: {opcode: count in
+    the loop}}; raises where a count is not words a thread x the rep's."""
     from collections import Counter
 
     from tpuva_torch import _build
@@ -333,15 +344,29 @@ def probe_sass():
     cuobjdump = os.path.join(os.path.dirname(_build.nvcc()), "cuobjdump")
     text = subprocess.run([cuobjdump, "-sass", str(_build.library_path())], capture_output=True,
                           text=True, check=True).stdout
-    out = {}
+    mods, out = probe_modules(), {}
     for fn in re.split(r"\n\s*Function : ", text)[1:]:
         k = re.search(r"\d(repos|roll)6kernelILi(\d)E", fn.split("\n", 1)[0])
-        if k and (k.group(1), k.group(2)) in (("repos", "0"), ("repos", "4"), ("roll", "0"),
-                                              ("roll", "1")):
-            ops = Counter(re.findall(r"/\*[0-9a-f]{4}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9]*)", fn))
-            out[f"{k.group(1)}_probe<{k.group(2)}>"] = {
-                op: ops[op] for op in ("VIADD", "IADD3", "F2I", "I2FP", "FADD", "FMUL", "FFMA")
-                if ops[op]}
+        per_rep = k and PROBE_REGISTER_CASES.get((f"{k.group(1)}_probe", int(k.group(2))))
+        if not per_rep:
+            continue
+        name = f"{k.group(1)}_probe<{k.group(2)}>"
+        insns = [(int(a, 16), op, args) for a, op, args in SASS_INSN.findall(fn)]
+        loops = [(int(to, 16), at) for at, op, args in insns if op == "BRA"
+                 for to in re.findall(r"^0x([0-9a-f]+)", args.strip()) if int(to, 16) < at]
+        if len(loops) != 1:
+            raise AssertionError(f"{name}: {len(loops)} loops in its SASS, not the rep loop alone")
+        ops = Counter("IADD" if op in ("VIADD", "IADD3") else op for at, op, _ in insns
+                      if loops[0][0] <= at <= loops[0][1])
+        mod = mods[f"{k.group(1)}_probe"]
+        words = -(-mod.make_tile().numel() // (mod.CTAS * 1024))  # a thread, 1024 a CTA
+        out[name] = {op: ops[op] for op in per_rep}
+        want = {op: words * n for op, n in per_rep.items()}
+        if out[name] != want:
+            raise AssertionError(f"{name}: its rep loop does {out[name]}, not {want} "
+                                 f"({words} words a thread): reps are folded or lost")
+    if len(out) != len(PROBE_REGISTER_CASES):
+        raise AssertionError(f"the SASS holds {sorted(out)} of the probes' register cases")
     return out
 
 
@@ -370,7 +395,7 @@ def probes_phase(card):
         x = mod.make_tile().to(dev)
         err = 0.0
         for case in mod.CASES:
-            for reps in PROBE_CHECK_REPS[name]:
+            for reps in mod.CHECK_REPS:
                 got, ref = mod.run(x, case.name, reps), mod.plain(x, case.name, reps)
                 err = max(err, float((got.double() - ref.double()).abs().max()))
                 if not torch.equal(got, ref):
@@ -384,7 +409,7 @@ def probes_phase(card):
         flat = [r["case"] for r in rows if not r["ns_per_op"] > 0]
         if flat:
             raise AssertionError(f"{name}: the time does not grow with the reps: {flat}")
-        heavy, reps = probe_heaviest(mod), PROBE_FILE_REPS[name]
+        heavy, reps = probe_heaviest(mod), mod.FILE_REPS
         row = next(r for r in rows if r["case"] == heavy.name)
         ms = row["t1_ms"] if row["r1"] == reps else row["t2_ms"]
         plain_ms = once_ms(lambda: mod.plain(x, heavy.name, reps))
@@ -399,7 +424,7 @@ def probes_phase(card):
                            "n_ops", "r1", "r2", "t1_ms", "t2_ms", "ns_per_op", "telem_s",
                            "telem_s_per_sm")} for r in rows}}
     say("probes", card=card, bit_equal=True, seconds=round(time.time() - t_phase, 1),
-        probes=lines, elementwise_sass=probe_sass(), kernels=list(entries.values()))
+        probes=lines, register_rep_loops=probe_sass(), kernels=list(entries.values()))
     return entries
 
 

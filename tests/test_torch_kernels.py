@@ -592,10 +592,6 @@ def test_configs_k1_refuses_run_on_the_card(cuda_device, name):
 
 
 PROBES = {m.__name__.rsplit(".", 1)[1]: m for m in (repos_probe, roll_probe, i16_probe, cell_probe)}
-# reps each probe case is held at: 1 and 3; 140 for P2 (past float32
-# overflow); the JAX file's own count for P3 (512) and P4 (256)
-PROBE_REPS = {"repos_probe": (1, 3), "roll_probe": (1, 3, 140), "i16_probe": (1, 3, 512),
-              "cell_probe": (1, 3, 256)}
 
 
 @pytest.mark.gpu
@@ -603,7 +599,7 @@ PROBE_REPS = {"repos_probe": (1, 3), "roll_probe": (1, 3, 140), "i16_probe": (1,
 def test_probe_kernel_matches_plain(cuda_device, probe, case):
     mod = PROBES[probe]
     x = mod.make_tile().to(cuda_device)
-    for reps in PROBE_REPS[probe]:
+    for reps in mod.CHECK_REPS:
         before = mod.run.launches
         got = mod.run(x, case, reps)
         torch.cuda.synchronize()

@@ -27,27 +27,31 @@
 // A tile of 32-bit words is too large for one CTA's 227 KB (P1 1,167,360
 // B, P2 and P3 516,096 B), so it lives in the distributed shared memory of
 // one thread-block cluster, its rows banded over the CTAs (8 for P1, the
-// portable maximum, 145,920 B each; 4 for P2 and P3, 129,024 B, or 64,512
-// B packed; 1 for P4, 163,840 B), one CTA an SM. An axis-0 roll reads the
-// neighbouring band through DSMEM (map_shared_rank); an axis-1 roll stays
-// in its row, so in its CTA. A step reads every word it needs into
+// portable maximum, 145,920 B each; 4 for P2, 129,024 B; 8 for P3, 64,512
+// B, or 32,256 B packed; P4's 163,840 B fit one CTA), one CTA an SM. An
+// axis-0 roll reads the neighbouring band through DSMEM; an axis-1 roll
+// stays in its row, so in its CTA. A step reads every word it needs into
 // registers, waits at a barrier (no reader may see a new word), writes its
 // band and waits again (every writer done before the next reads): the
 // cluster's barrier for a step that reads across CTAs, the CTA's for one
 // that does not; the last in-row step before a step across publishes its
 // writes at the cluster's barrier, since a CTA's own barrier does not hold
-// back a neighbour that would read its band. There is room for one buffer only (P1 at 8 CTAs), so a
-// step costs two barriers; a cooperative grid-wide sync instead would wait
-// for the whole grid through global memory, where the cluster's barrier
-// is in hardware among its SMs. The cases with no exchange (i32 add, the
-// cast-hop, f+f, the multiply) keep their words in registers for all reps.
+// back a neighbour that would read its band. There is room for one
+// buffer only (P1 at 8 CTAs), so a step costs two barriers; a cooperative
+// grid-wide sync instead would wait for the whole grid through global
+// memory, where the cluster's barrier is in hardware among its SMs. The
+// cases with no exchange (i32 add, the cast-hop, f+f, the multiply) keep
+// their words in registers for all reps.
 // The 16-bit cases of P3 run packed, two halfwords a 32-bit register:
 // wrapping per-halfword adds (__vadd2), an axis-1 roll by one element as
 // a funnel shift of two neighbouring words, and the rescale
 // (f.astype(int32) >> 8).astype(dtype) as one byte permute that takes each
 // halfword's high byte, sign-replicated for i16 and zero-filled for u16.
 // P4's 2-row cells are a change of index in shared memory, not a copy:
-// the top rows of the cells are the even rows of the tile.
+// the top rows of the cells are the even rows of the tile. The compared
+// cases keep their words in registers across a step's barrier without
+// spilling in the rep loop (P3's 32-bit and packed cascades, P4's sweeps),
+// so that a ratio of their times is one of words and barriers alone.
 //
 // Bound: the operations (reps x ops x elements) on 1-8 SMs; the time is
 // the steps' barriers and shared-memory traffic. PERF.md has the times.
@@ -84,8 +88,12 @@ __device__ __forceinline__ uint32_t permute(uint32_t a, uint32_t b, uint32_t sel
 
 // An H x W tile of 32-bit words banded over the C CTAs of a cluster: CTA
 // q holds the words [q * kBand, (q + 1) * kBand) of the flat tile in its
-// shared memory, whole rows.
-template <int H, int W, int C, typename T>
+// shared memory, whole rows. kMapa: read other CTAs' words through 32-bit
+// shared::cluster addresses (mapa), half the registers of the generic
+// pointers map_shared_rank gives, which the cascades need to hold their
+// words without spilling; P1's and P2's single steps spilled more with
+// it, so only P3 uses it (PERF.md).
+template <int H, int W, int C, typename T, bool kMapa = false>
 struct Band {
   static constexpr int kN = H * W;
   static constexpr int kBand = kN / C;
@@ -101,8 +109,15 @@ struct Band {
   // rows too: a branch to read those locally made the steps 1.3-2.7x
   // slower, PERF.md)
   __device__ __forceinline__ T at(int g) const {
-    if constexpr (C == 1) {
-      return s[g];
+    if constexpr (kMapa) {
+      const int q = g / kBand;
+      const uint32_t a = static_cast<uint32_t>(__cvta_generic_to_shared(s + (g - q * kBand)));
+      uint32_t r, v;
+      asm("mapa.shared::cluster.u32 %0, %1, %2;" : "=r"(r) : "r"(a), "r"(q));
+      // volatile: kept in order with the cluster's barriers
+      asm volatile("ld.shared::cluster.b32 %0, [%1];" : "=r"(v) : "r"(r));
+      if constexpr (std::is_same_v<T, float>) return __uint_as_float(v);
+      else return static_cast<T>(v);
     } else {
       const int q = g / kBand;
       return cg::this_cluster().map_shared_rank(s, q)[g - q * kBand];
@@ -121,56 +136,45 @@ struct Band {
     if (c < 0) c += W;
     return s[row + c];
   }
-  __device__ __forceinline__ void sync_cluster() const {
-    if constexpr (C == 1) __syncthreads();
-    else cg::this_cluster().sync();
-  }
+  __device__ __forceinline__ void sync_cluster() const { cg::this_cluster().sync(); }
 };
 
-// One step over N words: word e becomes fn(e), computed from the tile as
-// it stood, and store(e, value) writes it. The first barrier keeps every
-// read ahead of the writes, the second publishes them.
+// A step of the band in place: word e becomes fn(e), computed from the
+// tile as it stood. The first barrier keeps every read ahead of the
+// writes: `across`, fn reads other CTAs' bands, so no CTA may write before
+// all have read. The second publishes them: `publish`, the next step reads
+// across, so every CTA's writes must be done before any CTA goes on (a
+// CTA's own barrier does not hold the others back).
 //
-// A thread holds up to 40 words across the first barrier, of the 64
+// A thread holds up to 36 words across the first barrier (P1), of the 64
 // registers 1024 threads have. The compiler hoists a step's addresses out
 // of the rep loop; where a rep has several steps (kRecompute: the
 // cascades) they do not fit beside the words and spilled to local memory,
 // so there the thread's index is made opaque each step and the addresses
 // are recomputed instead (PERF.md has both).
-template <int N, bool kRecompute = false, typename Fn, typename Store, typename Sync,
-          typename Publish>
-__device__ __forceinline__ void step(Fn fn, Store store, Sync sync, Publish publish) {
-  constexpr int kPer = (N + kThreads - 1) / kThreads;
-  int tid = threadIdx.x;
-  if constexpr (kRecompute) asm volatile("" : "+r"(tid));
-  decltype(fn(0)) v[kPer];
-#pragma unroll
-  for (int k = 0; k < kPer; ++k) {
-    const int e = tid + k * kThreads;
-    if (N % kThreads == 0 || e < N) v[k] = fn(e);
-  }
-  sync();
-#pragma unroll
-  for (int k = 0; k < kPer; ++k) {
-    const int e = tid + k * kThreads;
-    if (N % kThreads == 0 || e < N) store(e, v[k]);
-  }
-  publish();
-}
-
-// A step of the band in place: word e becomes fn(e). `across`: fn reads
-// other CTAs' bands, so no CTA may write before all have read. `publish`:
-// the next step reads across, so every CTA's writes must be done before
-// any CTA goes on (a CTA's own barrier does not hold the others back).
 template <bool kRecompute = false, typename B, typename Fn>
 __device__ __forceinline__ void band_step(B& b, bool across, Fn fn, bool publish) {
   auto barrier = [&](bool cluster) {
     if (cluster) b.sync_cluster();
     else __syncthreads();
   };
-  step<B::kBand, kRecompute>(fn, [&](int e, auto v) { b.s[e] = v; }, [&] { barrier(across); },
-                 [&] { barrier(publish); });
+  int tid = threadIdx.x;
+  if constexpr (kRecompute) asm volatile("" : "+r"(tid));
+  decltype(fn(0)) v[B::kPer];
+#pragma unroll
+  for (int k = 0; k < B::kPer; ++k) {
+    const int e = tid + k * kThreads;
+    if (B::kBand % kThreads == 0 || e < B::kBand) v[k] = fn(e);
+  }
+  barrier(across);
+#pragma unroll
+  for (int k = 0; k < B::kPer; ++k) {
+    const int e = tid + k * kThreads;
+    if (B::kBand % kThreads == 0 || e < B::kBand) b.s[e] = v[k];
+  }
+  barrier(publish);
 }
+
 template <typename B, typename Fn>
 __device__ __forceinline__ void band_step(B& b, bool across, Fn fn) {
   band_step(b, across, fn, across);
@@ -322,14 +326,19 @@ kernel(const uint8_t* __restrict__ x, uint8_t* __restrict__ out, int reps) {
 
 // ---------------------------------------------------------------- P3
 namespace i16 {
-constexpr int H = 112, W = 1152, C = 4;
+// 8 CTAs: 16 words a thread at 32 bits, 8 packed, so that the two spill
+// alike (8 B and 0 B a thread; at 4 CTAs, 32 and 16 words a thread, they
+// spilled 108 B and 28 B: PERF.md)
+constexpr int H = 112, W = 1152, C = 8;
+template <typename T>
+using Tile = Band<H, W, C, T, true>;
 
 template <int CASE>
 __global__ void __launch_bounds__(kThreads, 1)
 kernel(const uint8_t* __restrict__ x, uint8_t* __restrict__ out, int reps) {
   extern __shared__ __align__(16) unsigned char smem[];
   if constexpr (CASE == 0) {  // float32
-    Band<H, W, C, float> b(reinterpret_cast<float*>(smem));
+    Tile<float> b(reinterpret_cast<float*>(smem));
     load_band(b, x, ToFloat{});
     for (int r = 0; r < reps; ++r)
       cascade(
@@ -338,7 +347,7 @@ kernel(const uint8_t* __restrict__ x, uint8_t* __restrict__ out, int reps) {
           [](float v) { return __fmul_rn(v, 0.00390625f); });
     store_band(b, out);
   } else if constexpr (CASE == 1) {  // int32
-    Band<H, W, C, int> b(reinterpret_cast<int*>(smem));
+    Tile<int> b(reinterpret_cast<int*>(smem));
     load_band(b, x, ToInt{});
     for (int r = 0; r < reps; ++r)
       cascade(
@@ -346,7 +355,7 @@ kernel(const uint8_t* __restrict__ x, uint8_t* __restrict__ out, int reps) {
           [&](int e) { return b.left(e, W - 1); }, [](int v) { return v >> 8; });
     store_band(b, out);
   } else {  // int16 (2), uint16 (3): word w holds columns 2w (low) and 2w + 1
-    using B = Band<H, W / 2, C, uint32_t>;
+    using B = Band<H, W / 2, C, uint32_t, true>;
     B b(reinterpret_cast<uint32_t*>(smem));
     const uint8_t* x2 = x + 2 * b.base;
     for (int e = threadIdx.x; e < B::kBand; e += kThreads)
@@ -373,61 +382,74 @@ kernel(const uint8_t* __restrict__ x, uint8_t* __restrict__ out, int reps) {
 
 // ---------------------------------------------------------------- P4
 namespace cell {
-constexpr int H = 80, W = 512;
-using B = Band<H, W, 1, int>;
-constexpr int kHalf = B::kN / 2;  // the cells' words, one plane
+constexpr int H = 80, W = 512, kN = H * W;
+static_assert(kThreads == 2 * W && (W & (W - 1)) == 0, "two rows a pass, W a power of 2");
+
+// One roll + min step on a plane of R rows of the tile, plane row i at
+// tile row S * i (S = 1: the tile; S = 2: the top rows of the 2-row
+// cells): word (i, c) becomes min(it, word ((i - DR) mod R, (c - DC) mod
+// W)), i.e. min(f, roll(f, (DR, DC))). Thread (ty, tx) = (tid / W, tid % W)
+// holds rows ty + 2j of column tx, so every address is the thread's row
+// and column plus a constant and no step spills (through Band's flat
+// index, the sweeps' addresses spilled 332-556 B: PERF.md).
+template <int R, int S, int DR, int DC>
+__device__ __forceinline__ void roll_min(int* s) {
+  static_assert(R % 2 == 0 && S * R == H && 0 <= DR && DR < R && 0 <= DC && DC < W, "");
+  const unsigned tid = threadIdx.x;
+  const int ty = (tid / W) & 1, tx = tid & (W - 1);
+  const int cs = (tx - DC) & (W - 1);
+  int v[R / 2];
+#pragma unroll
+  for (int j = 0; j < R / 2; ++j) {
+    const int i = ty + 2 * j;
+    const int is = i >= DR ? i - DR : i - DR + R;
+    v[j] = min(s[S * i * W + tx], s[S * is * W + cs]);
+  }
+  __syncthreads();
+#pragma unroll
+  for (int j = 0; j < R / 2; ++j) s[S * (ty + 2 * j) * W + tx] = v[j];
+  __syncthreads();
+}
+
+// roll(f, 1) + min, roll(f, R - 1) + min on axis 0 and the same on axis 1
+template <int R, int S>
+__device__ __forceinline__ void sweep(int* s) {
+  roll_min<R, S, 1, 0>(s);
+  roll_min<R, S, R - 1, 0>(s);
+  roll_min<R, S, 0, 1>(s);
+  roll_min<R, S, 0, W - 1>(s);
+}
 
 template <int CASE>
 __global__ void __launch_bounds__(kThreads, 1)
 kernel(const int* __restrict__ x, int* __restrict__ out, int reps) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  B b(reinterpret_cast<int*>(smem));
-  for (int e = threadIdx.x; e < B::kN; e += kThreads) b.s[e] = x[e];
+  extern __shared__ __align__(16) int s[];
+  for (int e = threadIdx.x; e < kN; e += kThreads) s[e] = x[e];
   __syncthreads();
-  auto min_step = [&](auto src) {
-    band_step(b, false, [&](int e) { return min(b.s[e], src(e)); });
-  };
-  // word e of the cell plane is at tile row 2 (e / W), column e % W
-  auto at = [](int e) { return e + e / W * W; };
   for (int r = 0; r < reps; ++r) {
     if constexpr (CASE == 0) {  // baseline_min: 8 x roll(1, axis 0) + min
-      for (int k = 0; k < 8; ++k) min_step([&](int e) { return b.up(e, 1); });
+      for (int k = 0; k < 8; ++k) roll_min<H, 1, 1, 0>(s);
     } else if constexpr (CASE == 1) {  // extract_roundtrip: each row plane
       // rolled by one of its rows is the tile rolled by two
-      for (int k = 0; k < 4; ++k) min_step([&](int e) { return b.up(e, 2); });
+      for (int k = 0; k < 4; ++k) roll_min<H, 1, 2, 0>(s);
     } else if constexpr (CASE == 2) {  // baseline_sweepish
-      for (int k = 0; k < 16; ++k) {
-        min_step([&](int e) { return b.up(e, 1); });
-        min_step([&](int e) { return b.up(e, H - 1); });
-        min_step([&](int e) { return b.left(e, 1); });
-        min_step([&](int e) { return b.left(e, W - 1); });
-      }
+      for (int k = 0; k < 16; ++k) sweep<H, 1>(s);
     } else {  // cell_sweepish: v = min(top, bottom) in the top rows
-      for (int e = threadIdx.x; e < kHalf; e += kThreads) {
-        const int p = at(e);
-        b.s[p] = min(b.s[p], b.s[p + W]);
+      for (int e = threadIdx.x; e < kN / 2; e += kThreads) {
+        const int p = e + e / W * W;  // row 2 (e / W), column e % W
+        s[p] = min(s[p], s[p + W]);
       }
       __syncthreads();
-      auto cell_step = [&](auto src) {
-        step<kHalf>([&](int e) { return min(b.s[at(e)], src(at(e))); },
-                    [&](int e, int v) { b.s[at(e)] = v; }, [] { __syncthreads(); },
-                    [] { __syncthreads(); });
-      };
-      for (int k = 0; k < 16; ++k) {
-        cell_step([&](int p) { return b.up(p, 2); });
-        cell_step([&](int p) { return b.up(p, H - 2); });
-        cell_step([&](int p) { return b.left(p, 1); });
-        cell_step([&](int p) { return b.left(p, W - 1); });
-      }
+      for (int k = 0; k < 16; ++k) sweep<H / 2, 2>(s);
       // the bottom rows become max(v, bottom); each thread its own words
-      for (int e = threadIdx.x; e < kHalf; e += kThreads) {
-        const int p = at(e);
-        b.s[p + W] = max(b.s[p], b.s[p + W]);
+      for (int e = threadIdx.x; e < kN / 2; e += kThreads) {
+        const int p = e + e / W * W;
+        s[p + W] = max(s[p], s[p + W]);
       }
     }
   }
   __syncthreads();
-  for (int e = threadIdx.x; e < B::kN; e += kThreads) out[e] = b.s[e];
+  for (int e = threadIdx.x; e < kN; e += kThreads) out[e] = s[e];
 }
 }  // namespace cell
 
@@ -488,7 +510,7 @@ extern "C" int tpuva_probe_i16(const void* x, void* out, int reps, int which,
   using namespace i16;
   static const ProbeKernel<uint8_t, uint8_t> ks[] = {kernel<0>, kernel<1>, kernel<2>, kernel<3>};
   if (which < 0 || which >= 4) return static_cast<int>(cudaErrorInvalidValue);
-  const size_t smem = which < 2 ? Band<H, W, C, int>::kBytes : Band<H, W / 2, C, uint32_t>::kBytes;
+  const size_t smem = which < 2 ? Tile<int>::kBytes : Band<H, W / 2, C, uint32_t, true>::kBytes;
   return launch(ks[which], C, smem, x, out, reps, stream);
 }
 
@@ -497,5 +519,5 @@ extern "C" int tpuva_probe_cell(const void* x, void* out, int reps, int which,
   using namespace cell;
   static const ProbeKernel<int, int> ks[] = {kernel<0>, kernel<1>, kernel<2>, kernel<3>};
   if (which < 0 || which >= 4) return static_cast<int>(cudaErrorInvalidValue);
-  return launch(ks[which], 1, B::kBytes, x, out, reps, stream);
+  return launch(ks[which], 1, kN * sizeof(int), x, out, reps, stream);
 }

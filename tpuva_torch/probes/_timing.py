@@ -57,15 +57,12 @@ def slope(call, device: torch.device, r1: int, r2: int, n_ops: int, elements: in
             "telem_s": rate, "telem_s_per_sm": rate / sms, "sms": sms}
 
 
-def parse_args(doc: str, reps: tuple, argv=None):
-    """The probes' command line: --device (cuda unless cpu is asked for),
-    --reps R1 R2 (the slope's rep counts), --iters."""
+def parse_args(doc: str, argv=None):
+    """The probes' command line: --device, cuda unless cpu is asked for."""
     import argparse
 
     p = argparse.ArgumentParser(description=doc.splitlines()[0])
     p.add_argument("--device", default="cuda", help="cuda (default) or cpu (the plain versions)")
-    p.add_argument("--reps", type=int, nargs=2, default=list(reps), metavar=("R1", "R2"))
-    p.add_argument("--iters", type=int, default=3)
     return p.parse_args(argv)
 
 

@@ -10,7 +10,7 @@ on v, then rows v and max(v, bottom)). Kernel: ``csrc/probes.cu``
 ``tpuva_probe_cell``, the tile in one CTA's shared memory, where the
 stride-2 extract and the interleave are a change of index.
 
-    python -m tpuva_torch.probes.cell_probe [--device cpu] [--reps R1 R2]
+    python -m tpuva_torch.probes.cell_probe [--device cpu]
 
 The first count is the JAX file's 256 reps, whose time a rep it prints;
 the second gives the slope.
@@ -33,7 +33,9 @@ CASES = (
     Case("baseline_sweepish", 128),
     Case("cell_sweepish", 65),
 )
-REPS = (256, 4096)
+REPS = (256, 4096)  # the slope's rep counts: the JAX file's, and a second
+FILE_REPS = REPS[0]  # the JAX file's call
+CHECK_REPS = (1, 3, FILE_REPS)  # the reps a kernel is held at against its plain version
 CTAS = 1
 
 
@@ -95,17 +97,17 @@ def run(x: torch.Tensor, case: str, reps: int) -> torch.Tensor:
 run.launches = 0
 
 
-def measure(device="cuda", reps=REPS, iters=3) -> list:
-    """Slope-time every case on the device (the kernel on a CUDA device,
+def measure(device="cuda", iters=3) -> list:
+    """Slope-time every case at REPS on the device (the kernel on a CUDA device,
     plain on the CPU); one dict a case."""
-    return measure_cases(run, CASES, make_tile(), CTAS, resolve_device(device), reps, iters)
+    return measure_cases(run, CASES, make_tile(), CTAS, resolve_device(device), REPS, iters)
 
 
 def main(argv=None) -> None:
-    args = parse_args(__doc__, REPS, argv)
+    args = parse_args(__doc__, argv)
     dev = resolve_device(args.device)
     print(device_line(dev), flush=True)
-    for row in measure(dev, args.reps, args.iters):
+    for row in measure(dev):
         print(f"{row['case']:18s}: {row['t1_ms'] * 1e3 / row['r1']:8.2f} us/rep; slope "
               f"{(row['t2_ms'] - row['t1_ms']) * 1e3 / (row['r2'] - row['r1']):8.3f} us/rep, "
               f"{row['ns_per_op']:7.1f} ns/op", flush=True)

@@ -8,10 +8,10 @@ Each case runs `reps` reps of the 16-op cascade (for axis 1 then 0, two f
 (112, 1152) tile, u8 in and the low byte out. The 16-bit types wrap: the
 int16 column pass overflows (255 * 256 > 32767), as on the TPU. Kernel:
 ``csrc/probes.cu`` ``tpuva_probe_i16``, the tile in the distributed shared
-memory of a 4-CTA cluster; int16 and uint16 run packed, two halfwords a
+memory of an 8-CTA cluster; int16 and uint16 run packed, two halfwords a
 32-bit word.
 
-    python -m tpuva_torch.probes.i16_probe [--device cpu] [--reps R1 R2]
+    python -m tpuva_torch.probes.i16_probe [--device cpu]
 
 The first count is the JAX file's 512 reps, whose time a call it prints;
 the second gives the slope.
@@ -28,8 +28,10 @@ from tpuva_torch.probes.roll_probe import cascade
 
 SH, SW = 112, 1152
 CASES = (Case("float32", 16), Case("int32", 16), Case("int16", 16), Case("uint16", 16))
-REPS = (512, 8192)
-CTAS = 4  # the cluster: one CTA an SM, 28 rows each
+REPS = (512, 8192)  # the slope's rep counts: the JAX file's, and a second
+FILE_REPS = REPS[0]  # the JAX file's call
+CHECK_REPS = (1, 3, FILE_REPS)  # the reps a kernel is held at against its plain version
+CTAS = 8  # the cluster: one CTA an SM, 14 rows each
 # int32 sums wrapped to the 16-bit type after every op
 WRAP = {
     "int16": lambda v: ((v + 0x8000) & 0xFFFF) - 0x8000,
@@ -71,17 +73,17 @@ def run(x: torch.Tensor, case: str, reps: int) -> torch.Tensor:
 run.launches = 0
 
 
-def measure(device="cuda", reps=REPS, iters=3) -> list:
-    """Slope-time every case on the device (the kernel on a CUDA device,
+def measure(device="cuda", iters=3) -> list:
+    """Slope-time every case at REPS on the device (the kernel on a CUDA device,
     plain on the CPU); one dict a case."""
-    return measure_cases(run, CASES, make_tile(), CTAS, resolve_device(device), reps, iters)
+    return measure_cases(run, CASES, make_tile(), CTAS, resolve_device(device), REPS, iters)
 
 
 def main(argv=None) -> None:
-    args = parse_args(__doc__, REPS, argv)
+    args = parse_args(__doc__, argv)
     dev = resolve_device(args.device)
     print(device_line(dev), flush=True)
-    for row in measure(dev, args.reps, args.iters):
+    for row in measure(dev):
         t, ops = row["t1_ms"] / 1e3, row["n_ops"] * row["r1"]
         print(f"{row['case']:8s}: {t*1e3:8.2f} ms/call  {t/ops*1e9:7.1f} ns/full-tile-op  "
               f"({SH*SW*ops/t/1e12:.2f} Telem/s); slope {row['ns_per_op']:7.1f} ns/op, "

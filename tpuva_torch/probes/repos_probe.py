@@ -9,7 +9,7 @@ amount the compiler cannot see, each + 1; the float32 cast-hop f -> int32
 ``tpuva_probe_repos``, the tile in the distributed shared memory of an
 8-CTA cluster (the rolls) or in registers (the add and the cast-hop).
 
-    python -m tpuva_torch.probes.repos_probe [--device cpu] [--reps R1 R2]
+    python -m tpuva_torch.probes.repos_probe [--device cpu]
 """
 
 from __future__ import annotations
@@ -29,7 +29,9 @@ CASES = (
     Case("f32 cast-hop f->i->f + add", 3),
     Case("f32 static roll + add", 2),
 )
-REPS = (4096, 65536)
+REPS = (4096, 65536)  # the slope's rep counts, the JAX file's two
+FILE_REPS = REPS[1]  # the JAX file's heaviest call
+CHECK_REPS = (1, 3)  # the reps a kernel is held at against its plain version
 CTAS = 8  # the cluster: one CTA an SM, 19 rows each
 FLOAT_CASES = (4, 5)
 
@@ -74,17 +76,17 @@ def run(x: torch.Tensor, case: str, reps: int) -> torch.Tensor:
 run.launches = 0
 
 
-def measure(device="cuda", reps=REPS, iters=3) -> list:
-    """Slope-time every case on the device (the kernel on a CUDA device,
+def measure(device="cuda", iters=3) -> list:
+    """Slope-time every case at REPS on the device (the kernel on a CUDA device,
     plain on the CPU); one dict a case."""
-    return measure_cases(run, CASES, make_tile(), CTAS, resolve_device(device), reps, iters)
+    return measure_cases(run, CASES, make_tile(), CTAS, resolve_device(device), REPS, iters)
 
 
 def main(argv=None) -> None:
-    args = parse_args(__doc__, REPS, argv)
+    args = parse_args(__doc__, argv)
     dev = resolve_device(args.device)
     print(device_line(dev), flush=True)
-    for row in measure(dev, args.reps, args.iters):
+    for row in measure(dev):
         print(f"{row['case']:34s}: {row['ns_per_op']:8.1f} ns/op ({row['telem_s']:5.2f} Telem/s, "
               f"{row['telem_s_per_sm']:6.3f} a SM, {row['ctas']} CTAs)", flush=True)
 

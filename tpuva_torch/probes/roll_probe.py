@@ -9,7 +9,7 @@ out. Kernel: ``csrc/probes.cu`` ``tpuva_probe_roll``, the tile in the
 distributed shared memory of a 4-CTA cluster (the rolls and shifts) or in
 registers (the add and the multiply).
 
-    python -m tpuva_torch.probes.roll_probe [--device cpu] [--reps R1 R2]
+    python -m tpuva_torch.probes.roll_probe [--device cpu]
 """
 
 from __future__ import annotations
@@ -32,7 +32,11 @@ CASES = (
     Case("slice1+add (unaligned)", 2),
     Case("k5 cascade (17 ops)", 17),
 )
-REPS = (4096, 65536)
+REPS = (4096, 65536)  # the slope's rep counts, the JAX file's two
+FILE_REPS = REPS[1]  # the JAX file's heaviest call
+# the reps a kernel is held at against its plain version: 140 is past
+# float32 overflow in the doubling cases
+CHECK_REPS = (1, 3, 140)
 CTAS = 4  # the cluster: one CTA an SM, 28 rows each
 
 
@@ -90,17 +94,17 @@ def run(x: torch.Tensor, case: str, reps: int) -> torch.Tensor:
 run.launches = 0
 
 
-def measure(device="cuda", reps=REPS, iters=3) -> list:
-    """Slope-time every case on the device (the kernel on a CUDA device,
+def measure(device="cuda", iters=3) -> list:
+    """Slope-time every case at REPS on the device (the kernel on a CUDA device,
     plain on the CPU); one dict a case."""
-    return measure_cases(run, CASES, make_tile(), CTAS, resolve_device(device), reps, iters)
+    return measure_cases(run, CASES, make_tile(), CTAS, resolve_device(device), REPS, iters)
 
 
 def main(argv=None) -> None:
-    args = parse_args(__doc__, REPS, argv)
+    args = parse_args(__doc__, argv)
     dev = resolve_device(args.device)
     print(device_line(dev), flush=True)
-    for row in measure(dev, args.reps, args.iters):
+    for row in measure(dev):
         print(f"{row['case']:26s}: {row['ns_per_op']:8.1f} ns/op  ({row['telem_s']:5.2f} Telem/s, "
               f"{row['telem_s_per_sm']:6.3f} a SM, {row['ctas']} CTAs)", flush=True)
 
