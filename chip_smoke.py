@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py          # every phase below
     python3 chip_smoke.py --k1     # phases 1-3b, then K1's timings only
-    python3 chip_smoke.py --k2     # phases 1-2, then K2's and K3's timings only
+    python3 chip_smoke.py --k2     # phases 1-2, then K2's, K3's and K6's timings only
     python3 chip_smoke.py --probes # phases 1-2, then phase 9 (the micro-probes) only
 
 Run from the repository root on a machine with one CUDA card and nvcc; it
@@ -35,9 +35,21 @@ raises, so the exit code is non-zero:
    batch) against K2 deriving it and against the plain version;
 5. K3 (dense root-key labels) against its plain version on the card, bit
    for bit, 8- and 4-connected, on the masks of phase 4, the U shape and
-   mixed scene of tpuva_torch.scenes and odd sizes; then
-   connected_components_with_stats (labels, bbox, every field) on the card
-   against the CPU on a (2, 1080, 1920) batch;
+   mixed scene of tpuva_torch.scenes, odd sizes and the edge-strip scenes
+   (one occupied strip at each ragged edge, components across tile and
+   strip borders, every pixel, none), with the strip occupancy K3 hands
+   back equal to the labels'; then connected_components_with_stats
+   (labels, bbox, every field) on the card against the CPU on a
+   (2, 1080, 1920) batch;
+5a. K6 (root_stats, the dense stats of root-key labels) against its plain
+   version on the card, bit for bit (count, sums, bbox extremes, dense
+   ids), on phase 5's labels, 8- and 4-connected, at every option (sums;
+   with the bbox; with the ids; both; the ids alone, as relabel_dense),
+   given the occupancy (K3's, or the labels' for 4-connectivity) and
+   deriving it, C = 1, 32, 2000 and 13000 (the global-memory paths) on the
+   small scenes, 32 at 1080p; process_batch_staged(return_labels=True)
+   launches K3 and K6 given K3's occupancy once, its ids equal to the
+   plain version's;
 5b. K5 (track_scan) against its plain version (on the CPU), bit for bit
    (rows, row_valid, every state tensor): on the route's own batch-256
    detections (the bench front end and K2 on the clip's two batches, the
@@ -66,8 +78,9 @@ raises, so the exit code is non-zero:
    background and CSV bytes;
 7. the streamed default route: the same clip through
    StreamingPipeline(cfg, max_components=32).run(VideoMemory(clip)) on
-   cuda (front end K1, then K3 and the dense stats, K5), launch counts read
-   around it: K1, K3 and K5 launched, K2 not, CSV sha256 == REF_CSV_SHA256;
+   cuda (front end K1, then K3 and K6 given K3's occupancy, K5), launch
+   counts read around it: K1, K3, K6 (as often as K3, each given K3's
+   occupancy) and K5 launched, K2 not, CSV sha256 == REF_CSV_SHA256;
    the same with
    use_pallas=True (K1 in padded_occ mode + K2 given its occupancy + K5,
    no K3); a run stopped after its first
@@ -76,7 +89,7 @@ raises, so the exit code is non-zero:
 7b. the Otsu routes: the bench config with threshold="otsu" on the same
    clip through process_clip(use_pallas=True) (K1's diff emit, K4, K2
    deriving its occupancy; no K3, no padded K1) and the streamed default
-   route (K1's diff emit, K4, K3; no K2
+   route (K1's diff emit, K4, K3, K6; no K2
    launch), K5 on both, each run's CSV sha256 equal to REF_OTSU_CSV_SHA256;
    a 48-frame sub-clip on the CPU (plain versions) and on the card gives
    identical rows, masks and background;
@@ -84,8 +97,10 @@ raises, so the exit code is non-zero:
    in padded_occ mode, K2 given K1's occupancy, deriving it and given
    every strip (the walk of every strip the kernels made before they
    skipped), on the clip's masks and on a random mask of density 0.3, K3
-   (8- and 4-connected), the dense stats alone (K6's torch ops, on K3's
-   labels), connected_components_with_stats, K1's diff
+   (8- and 4-connected; 8 on density 0.3 too), K6 alone on K3's labels
+   (given K3's occupancy, deriving it, with the dense ids, and its plain
+   version, the torch ops the route ran before K6),
+   connected_components_with_stats (the route's K3 + K6), K1's diff
    emit and K4 against their plain versions (K1's plain version runs on
    no route: it is the kernels' yardstick of correctness), K1b (65 taps)
    and K1m (a 7 x 7 dilate, beside max_pool2d) against theirs, the split
@@ -148,6 +163,9 @@ REPLACES = {
                       "tpuva/ops/pallas/ccl.py:623"),
     "ccl_labels": ("tpuva_torch/csrc/ccl.cu",
                    "tpuva/ops/pallas/ccl.py:220"),
+    # K6, the dense stats of K3's labels, given K3's strip occupancy
+    "root_stats": ("tpuva_torch/csrc/ccl.cu",
+                   "tpuva/ops/label.py:554"),
     "fused_segment_diff": ("tpuva_torch/csrc/fused_segment.cu",
                            "tpuva/ops/pallas/fused_segment.py:145"),
     "histogram_u8": ("tpuva_torch/csrc/otsu.cu",
@@ -583,15 +601,21 @@ def kernel_breakdown(fn, reps=3):
 
 
 def k2_timing(clip, plate, card):
-    """--k2: K2 (label_stats) and K3 (label_components_tiled) at batch 256
-    and 1080p on the clip's K1 masks and a random mask of density 0.3, CUDA
-    events, with each call's kernels by name (torch.profiler); one JSON
-    line. K2 with the caller's strip occupancy (K1's occ128, every strip)
-    where label_stats takes strip_occ: the calls that exist in both this
-    tree and its parent run first, so that this file, copied into a
-    checkout of the parent, times the parent's kernels the same way."""
+    """--k2: K2 (label_stats), K3 (label_components_tiled), K6 (the dense
+    stats, ops.label._stats_from_root, on K3's labels) and the default
+    route's call of both (connected_components_with_stats, no bbox, no
+    labels) at batch 256 and 1080p on the clip's K1 masks and a random mask
+    of density 0.3, CUDA events, with each call's kernels by name
+    (torch.profiler); one JSON line. The calls that exist in both this tree
+    and its parent run first, so that this file, copied into a checkout of
+    the parent, times the parent's kernels the same way (there K6 is the
+    torch ops); then those only this tree has: K2 with the caller's strip
+    occupancy (K1's occ128, every strip), K6 given K3's occupancy, with the
+    dense ids, and its plain version."""
     import inspect
 
+    from tpuva_torch.ops import ccl
+    from tpuva_torch.ops import label as lb
     from tpuva_torch.ops.ccl import label_components_tiled, label_stats
     from tpuva_torch.ops.fused_segment import fused_segment
 
@@ -602,10 +626,17 @@ def k2_timing(clip, plate, card):
     dense = torch.rand((256, 1080, 1920), device=dev,
                        generator=torch.Generator(device=dev).manual_seed(30)) < 0.3
     dense = dense.to(torch.uint8) * 255
+    root = label_components_tiled(masks, 8)
+    root_dense = label_components_tiled(dense, 8)
+    k6_kw = dict(compute_bbox=False, compute_labels=False)
     calls = {"k2_clip": lambda: label_stats(masks, MAX_COMPONENTS),
              "k2_dense": lambda: label_stats(dense, MAX_COMPONENTS),
              "k3_clip": lambda: label_components_tiled(masks, 8),
-             "k3_dense": lambda: label_components_tiled(dense, 8)}
+             "k3_dense": lambda: label_components_tiled(dense, 8),
+             "k6_clip": lambda: lb._stats_from_root(root, MAX_COMPONENTS, 8, **k6_kw),
+             "k6_dense": lambda: lb._stats_from_root(root_dense, MAX_COMPONENTS, 8, **k6_kw),
+             "cc_stats_clip": lambda: lb.connected_components_with_stats(
+                 masks, MAX_COMPONENTS, **k6_kw)}
     if "strip_occ" in inspect.signature(label_stats).parameters:
         padded, _bg, occ128 = fused_segment(frames, bg0, padded_occ=True, **BENCH_KW)
         strip_occ = occ128.reshape(256, 576, 8, 2).amax(dim=3)
@@ -618,6 +649,19 @@ def k2_timing(clip, plate, card):
                 padded, MAX_COMPONENTS, strip_occ=torch.ones_like(strip_occ), **occ_kw),
             "k2_occ_dense": lambda: label_stats(dense_padded, MAX_COMPONENTS,
                                                 strip_occ=dense_occ, **occ_kw)})
+    if hasattr(ccl, "root_labels"):
+        root_occ = ccl.root_labels(masks, 8)[1]
+        dense_root_occ = ccl.root_labels(dense, 8)[1]
+        calls.update({
+            "k6_occ_clip": lambda: lb._stats_from_root(root, MAX_COMPONENTS, 8,
+                                                       strip_occ=root_occ, **k6_kw),
+            "k6_occ_dense": lambda: lb._stats_from_root(root_dense, MAX_COMPONENTS, 8,
+                                                        strip_occ=dense_root_occ, **k6_kw),
+            "k6_labels_occ_clip": lambda: lb._stats_from_root(
+                root, MAX_COMPONENTS, 8, compute_bbox=False, compute_labels=True,
+                strip_occ=root_occ),
+            "k6_plain_clip": lambda: lb._stats_from_root_plain(root, MAX_COMPONENTS, 8,
+                                                               **k6_kw)})
     t = {}
     for name, fn in calls.items():
         t[f"{name}_ms"] = cuda_ms(fn, 10)
@@ -642,7 +686,7 @@ def main():
     from tpuva_torch.graph import config
     from tpuva_torch.graph.pipeline import (
         _diff_kwargs, _finish_batch, _front_end_kwargs, filter_batch, init_carry, process_batch,
-        process_clip,
+        process_batch_staged, process_clip,
     )
     from tpuva_torch.graph.streaming import StreamingPipeline
     from tpuva_torch.io.memory import VideoMemory
@@ -654,9 +698,7 @@ def main():
     )
     from tpuva_torch.ops.fused_segment import fused_segment, fused_segment_plain, k1_split
     from tpuva_torch.ops.wide import blur_u8, morph_u8
-    from tpuva_torch.ops.label import (
-        _assemble_stats, _stats_from_root, extract_detections, label_components,
-    )
+    from tpuva_torch.ops.label import _assemble_stats, extract_detections, label_components
     from tpuva_torch.scenes import (
         DET_KINDS, K1_REFUSED, det_sequence, k1_refused_config, mixed_scene, u_shape,
     )
@@ -688,6 +730,11 @@ def main():
         clip, _alive, _truth, plate = multi_blob_clip(1080, 1920, 256, n_blobs=6, radius=16,
                                                       births_deaths=False, noise_sigma=2.0)
         return k2_timing(clip, plate, card)
+    # after --k2: a copy of this file in an earlier checkout times K2, K3
+    # and the dense stats with the names that checkout has
+    from tpuva_torch.ops.ccl import root_labels, root_occupancy_plain, root_stats
+    from tpuva_torch.ops.label import _stats_from_root, _stats_from_root_plain, root_stats_plain
+    from tpuva_torch.scenes import ROOT_STATS_OPTIONS, edge_strip_scene
 
     # the slice's clip, made once (its first frames also feed phases 3-5)
     t0 = time.time()
@@ -701,6 +748,8 @@ def main():
                 "ccl_stats": (label_stats, "launches"),
                 "ccl_stats_occ": (label_stats, "occ_launches"),
                 "ccl_labels": (label_components_tiled, "launches"),
+                "root_stats": (root_stats, "launches"),
+                "root_stats_occ": (root_stats, "occ_launches"),
                 "histogram_u8": (histogram_u8, "launches"),
                 "track_scan": (track_scan, "launches"), "blur_u8": (blur_u8, "launches"),
                 "morph_u8": (morph_u8, "launches")}
@@ -847,6 +896,18 @@ def main():
             got = label_components_tiled(m, conn)
             check_equal(err, "ccl_labels", [("labels", got, label_components(m, conn))],
                         f"{name}, connectivity {conn}")
+    # K3's occupancy skip: one occupied strip at each ragged edge,
+    # components across tile and strip borders, every pixel, none
+    for H, W in ((71, 601), (70, 600)):
+        m = torch.from_numpy(edge_strip_scene(H, W)).to(dev)
+        masks_k3.append((f"edge_strips_{H}x{W}", m))
+        for conn in (8, 4):
+            check_equal(err, "ccl_labels", [("labels", label_components_tiled(m, conn),
+                                             label_components(m, conn))],
+                        f"edge strips {H}x{W}, connectivity {conn}")
+        got, occ = root_labels(m, 8)
+        check_equal(err, "ccl_labels", [("occupancy", occ, root_occupancy_plain(got, 8))],
+                    f"edge strips {H}x{W}")
     cc_batch = k1_masks[:2]
     for conn in (8, 4):
         got = connected_components_with_stats(cc_batch, MAX_COMPONENTS, conn)
@@ -857,7 +918,49 @@ def main():
                                      f"between card and CPU (connectivity {conn})")
     say("k3_vs_plain", scenes=[n for n, _ in masks_k3], connectivity=[8, 4], bit_equal=True,
         cc_stats_cuda_equals_cpu=list(CC_KEYS), cc_stats_shape=list(cc_batch.shape))
-    del masks_k2, masks_k3
+
+    # 5a. K6 (root_stats) against its plain version, bit for bit: every
+    # option (sums, with the bbox, with the dense ids, the ids alone as
+    # relabel_dense), both connectivities, given K3's occupancy (8) or the
+    # labels' (4) and deriving it; C = 1, 32 and past shared memory on the
+    # small scenes, 32 on the 1080p ones
+    n_k6 = 0
+    for name, m in masks_k3:
+        small_scene = m.shape[-1] < 1000
+        for conn in (8, 4):
+            root, occ = root_labels(m, conn)
+            if occ is None:
+                occ = root_occupancy_plain(root, conn)
+            for C in ((1, MAX_COMPONENTS, 2000, 13000) if small_scene else (MAX_COMPONENTS,)):
+                for sums, bbox, labels in ROOT_STATS_OPTIONS:
+                    ref = root_stats_plain(root, C, conn, sums, bbox, labels)
+                    for given in (occ, None):
+                        got = root_stats(root, C, conn, sums, bbox, labels, strip_occ=given)
+                        check_equal(err, "root_stats", ((k, g, r) for k, g, r in zip(
+                            ("count", "sums", "bbox extremes", "dense ids"), got, ref)
+                            if r is not None),
+                            f"{name}, connectivity {conn}, C={C}, options {(sums, bbox, labels)}, "
+                            f"{'given' if given is not None else 'deriving'} the occupancy")
+                        n_k6 += 1
+    # the staged route's return_labels: K3's labels and occupancy through
+    # relabel_dense (K6)
+    cfg16 = bench_cfg(config, 16)
+    reset_counts()
+    _c, out = process_batch_staged(cfg16, init_carry(cfg16, 1080, 1920, plate, device=dev),
+                                   torch.from_numpy(clip[:16]).to(dev), return_masks=True,
+                                   return_labels=True, max_components=MAX_COMPONENTS)
+    torch.cuda.synchronize()
+    counts = read_counts()
+    if counts["root_stats"] != 1 or counts["root_stats_occ"] != 1 or counts["ccl_labels"] != 1:
+        raise AssertionError(f"process_batch_staged(return_labels=True) launches: {counts}")
+    ref = root_stats_plain(label_components(out["masks"], 8), MAX_COMPONENTS, 8, False, False,
+                           True)[3]
+    check_equal(err, "root_stats", [("staged return_labels", out["labels"], ref)],
+                "process_batch_staged, batch 16")
+    say("k6_vs_plain", comparisons=n_k6, scenes=[n for n, _ in masks_k3], connectivity=[8, 4],
+        options=[list(o) for o in ROOT_STATS_OPTIONS], bit_equal=True,
+        staged_return_labels_bit_equal=True, staged_return_labels_launches=counts)
+    del masks_k2, masks_k3, out
 
     # 5b. K5 against its plain version, bit for bit: the route's own
     # detections (bench front end and K2, two batches of 256), then the
@@ -1051,11 +1154,15 @@ def main():
         return data, s, counts, peak
 
     _csv, stream_s, default_counts, default_peak = stream("default")
+    # K3, then K6 given K3's occupancy, a batch
     if (min(default_counts["ccl_labels"], default_counts["fused_segment"],
-            default_counts["track_scan"]) < 2 or default_counts["ccl_stats"]):
+            default_counts["root_stats_occ"], default_counts["track_scan"]) < 2
+            or default_counts["ccl_stats"]
+            or default_counts["root_stats"] != default_counts["ccl_labels"]):
         raise AssertionError(f"streamed default route launches: {default_counts}")
     _csv, stream_staged_s, stream_staged_counts, staged_peak = stream("staged", use_pallas=True)
-    if (stream_staged_counts["ccl_labels"] or min(stream_staged_counts["fused_segment"],
+    if (stream_staged_counts["ccl_labels"] or stream_staged_counts["root_stats"]
+            or min(stream_staged_counts["fused_segment"],
                                                   stream_staged_counts["ccl_stats"],
                                                   stream_staged_counts["fused_segment_padded_occ"],
                                                   stream_staged_counts["ccl_stats_occ"],
@@ -1126,12 +1233,13 @@ def main():
     if (min(otsu_staged_counts["fused_segment"], otsu_staged_counts["histogram_u8"],
             otsu_staged_counts["ccl_stats"], otsu_staged_counts["track_scan"]) < 2
             or otsu_staged_counts["ccl_labels"] or otsu_staged_counts["ccl_stats_occ"]
+            or otsu_staged_counts["root_stats"]
             or otsu_staged_counts["fused_segment_padded_occ"]):
         raise AssertionError(f"staged Otsu route launches: {otsu_staged_counts}")
     _rows, otsu_stream_s, otsu_stream_counts = otsu_run("otsu_stream", otsu_stream)
     if (min(otsu_stream_counts["fused_segment"], otsu_stream_counts["histogram_u8"],
-            otsu_stream_counts["ccl_labels"], otsu_stream_counts["track_scan"]) < 2
-            or otsu_stream_counts["ccl_stats"]):
+            otsu_stream_counts["ccl_labels"], otsu_stream_counts["root_stats_occ"],
+            otsu_stream_counts["track_scan"]) < 2 or otsu_stream_counts["ccl_stats"]):
         raise AssertionError(f"streamed Otsu route launches: {otsu_stream_counts}")
     sub_otsu = bench_cfg(config, 16, "otsu")
     rows_cpu, carry_cpu, masks_cpu = process_clip(
@@ -1225,6 +1333,7 @@ def main():
         reps)
     t["clip_strips_occupied"] = float(strip_occ.float().mean())
     t["dense_strips_occupied"] = float(dense_occ.float().mean())
+    t["k3_dense_ms"] = cuda_ms(lambda: label_components_tiled(dense, 8), reps)
     del dense, dense_padded
     t["k3_ms"] = cuda_ms(lambda: label_components_tiled(masks, 8), reps)
     t["k3_plain_ms"] = cuda_ms(lambda: label_components(masks, 8), 2)
@@ -1232,10 +1341,24 @@ def main():
     t["k3_conn4_plain_ms"] = cuda_ms(lambda: label_components(masks, 4), 2)
     t["cc_stats_ms"] = cuda_ms(lambda: connected_components_with_stats(
         masks, MAX_COMPONENTS, compute_bbox=False, compute_labels=False), reps)
-    # K6, the dense stats alone: the torch ops on K3's root-key labels
-    root = label_components_tiled(masks, 8)
-    t["k6_torch_ms"] = cuda_ms(lambda: _stats_from_root(
-        root, MAX_COMPONENTS, 8, compute_bbox=False, compute_labels=False), reps)
+    # K6 alone on K3's root-key labels, as the route calls it (no bbox, no
+    # labels): given K3's occupancy, deriving it, with the dense ids, and
+    # its plain version (the torch ops the route ran before K6)
+    root, root_occ = root_labels(masks, 8)
+    k6_kw = dict(compute_bbox=False, compute_labels=False)
+    check_equal(err, "root_stats", ((k, _stats_from_root(root, MAX_COMPONENTS, 8, strip_occ=root_occ,
+                                                         **k6_kw)[k],
+                                     _stats_from_root_plain(root, MAX_COMPONENTS, 8, **k6_kw)[k])
+                                    for k in STAT_KEYS), "main path, batch 256")
+    t["k6_occ_ms"] = cuda_ms(lambda: _stats_from_root(root, MAX_COMPONENTS, 8,
+                                                      strip_occ=root_occ, **k6_kw), reps)
+    t["k6_ms"] = cuda_ms(lambda: _stats_from_root(root, MAX_COMPONENTS, 8, **k6_kw), reps)
+    t["k6_labels_occ_ms"] = cuda_ms(lambda: _stats_from_root(
+        root, MAX_COMPONENTS, 8, compute_bbox=False, compute_labels=True, strip_occ=root_occ),
+        reps)
+    t["k6_plain_ms"] = cuda_ms(lambda: _stats_from_root_plain(root, MAX_COMPONENTS, 8, **k6_kw),
+                               reps)
+    root_occupied_px = int(root_occ.sum()) * STRIP_PX
     del root
     t["k1_diff_ms"] = cuda_ms(lambda: fused_segment(frames, bg0, **diff_kw), reps)
     t["k1_diff_plain_ms"] = cuda_ms(lambda: fused_segment_plain(frames, bg0, **diff_kw), 2)
@@ -1361,8 +1484,16 @@ def main():
     # K2 on density 0.3, given its occupancy: every strip occupied
     t["k2_dense_occ_bound_ms"] = bound(strip_occ.numel() + int(dense_occ.sum()) * STRIP_PX,
                                        CCL_OPS_PER_PX * int(dense_occ.sum()) * STRIP_PX)[0]
-    # K6: K3's int32 labels and the mask read
-    t["k6_bound"] = bound(4 * px + px, CCL_OPS_PER_PX * px)
+    # K6 as the route calls it (no bbox, no labels), given K3's occupancy:
+    # the occupancy read, the occupied strips' int32 labels read, the
+    # count and sums written (the work of this run's data); deriving it:
+    # every label read once; with the dense ids: their int32 write besides
+    k6_out = N * 4 + N * MAX_COMPONENTS * 3 * 8
+    bounds["root_stats"] = bound(root_occ.numel() + 4 * root_occupied_px + k6_out,
+                                 CCL_OPS_PER_PX * root_occupied_px)
+    t["k6_deriving_bound"] = bound(4 * px + k6_out, CCL_OPS_PER_PX * px)
+    t["k6_labels_occ_bound"] = bound(root_occ.numel() + 4 * root_occupied_px + k6_out + 4 * px,
+                                     CCL_OPS_PER_PX * root_occupied_px)
     say("timing", card=card, batch=N, shape=[1080, 1920], kernels_bit_equal_at_batch_256=True, **t)
 
     # 9. the micro-probes
@@ -1372,6 +1503,7 @@ def main():
              "fused_segment_padded_occ": ("k1_padded_occ_ms", "k1_padded_occ_plain_ms"),
              "ccl_stats_occ": ("k2_occ_ms", "k2_plain_ms"),
              "ccl_labels": ("k3_ms", "k3_plain_ms"),
+             "root_stats": ("k6_occ_ms", "k6_plain_ms"),
              "fused_segment_diff": ("k1_diff_ms", "k1_diff_plain_ms"),
              "histogram_u8": ("k4_ms", "k4_plain_ms"),
              "track_scan": ("k5_ms", "k5_plain_ms"),
@@ -1384,6 +1516,8 @@ def main():
                 "ccl_stats": otsu_staged_counts["ccl_stats"] - otsu_staged_counts["ccl_stats_occ"],
                 "ccl_stats_occ": staged_counts["ccl_stats_occ"],
                 "ccl_labels": default_counts["ccl_labels"],
+                # K6 given K3's occupancy: the streamed default route
+                "root_stats": default_counts["root_stats_occ"],
                 # the staged Otsu run launches K1 only with emit="diff"
                 "fused_segment_diff": otsu_staged_counts["fused_segment"],
                 "histogram_u8": otsu_staged_counts["histogram_u8"],

@@ -15,7 +15,10 @@ float bits included). K1's stages past shared memory (K1b blur_u8, K1m
 morph_u8) and the split fused_segment runs with them likewise, and K1's
 padded_occ emit (padded mask, zero padding, occ128) with and without the
 split. K2 given the strip occupancy against K2 deriving it and against
-its plain version, on sparse, dense and empty masks. Also
+its plain version, on sparse, dense and empty masks. K3's occupancy skip
+on masks with one occupied strip at each ragged edge. K6 (root_stats, the
+dense stats) at every option, given K3's occupancy and deriving it, in
+shared and in global memory. Also
 the micro-probes' kernels (tpuva_torch.probes, csrc/probes.cu) bit for
 bit on every case at the probe's tile shape, and their time grows with
 the reps. Also BatchStager's pinned-buffer copies to the card, byte for byte, and configs
@@ -31,7 +34,8 @@ from tpuva_torch.io.memory import VideoMemory
 from tpuva_torch.io.staging import BatchStager
 from tpuva_torch.ops import connected_components_with_stats
 from tpuva_torch.ops.ccl import (
-    label_components_tiled, label_stats, strip_occupancy_plain, strip_shape,
+    label_components_tiled, label_stats, root_labels, root_occupancy_plain, root_stats,
+    strip_occupancy_plain, strip_shape,
 )
 from tpuva_torch.ops.filters import (
     _morph, gaussian_blur_u8, histogram_u8, histogram_u8_plain, structuring_element,
@@ -43,12 +47,13 @@ from tpuva_torch.ops.fused_segment import (
     fused_segment_plain,
     fused_tile,
 )
-from tpuva_torch.ops.label import label_components
+from tpuva_torch.ops.label import label_components, relabel_dense, root_stats_plain
 from tpuva_torch.ops.wide import blur_u8, morph_u8
 from tpuva_torch.probes import cell_probe, i16_probe, repos_probe, roll_probe
 from tpuva_torch.probes._timing import timeit
 from tpuva_torch.scenes import (
-    DET_KINDS, K1_REFUSED, det_sequence, k1_refused_config, mixed_scene, u_shape,
+    DET_KINDS, K1_REFUSED, ROOT_STATS_OPTIONS, det_sequence, edge_strip_scene, k1_refused_config,
+    mixed_scene, u_shape,
 )
 from tpuva_torch.track.scan import track_scan, track_scan_plain
 from tpuva_torch.track.table import TrackState, init_track_state
@@ -462,16 +467,84 @@ def test_dense_label_kernel_matches_plain(cuda_device, connectivity):
 
 
 @pytest.mark.gpu
+def test_dense_label_kernel_skips_empty_strips(cuda_device):
+    """K3 8-connected visits only occupied strips: on the edge-strip scenes
+    (one occupied strip at each ragged edge, components across tile and
+    strip borders, every pixel, none, density 0.3), odd and with W % 4 == 0
+    (16-byte stores), bit-equal to its plain version; the occupancy it
+    hands back is strip_occupancy_plain's."""
+    for H, W in ((71, 601), (70, 600), (72, 1024)):
+        mask = edge_strip_scene(H, W)
+        before = label_components_tiled.launches
+        got, occ = root_labels(torch.from_numpy(mask).to(cuda_device), 8)
+        torch.cuda.synchronize()
+        assert label_components_tiled.launches == before + 1
+        np.testing.assert_array_equal(got.cpu().numpy(),
+                                      label_components(torch.from_numpy(mask), 8).numpy(),
+                                      err_msg=f"{mask.shape}")
+        np.testing.assert_array_equal(occ.cpu().numpy(),
+                                      strip_occupancy_plain(torch.from_numpy(mask)).numpy())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("connectivity", [4, 8])
+def test_root_stats_kernel_matches_plain(cuda_device, connectivity):
+    """K6 against its plain version, bit for bit, at every option, C = 1,
+    8 and 64 (frames with more components than C), 2000 (the sums with a
+    bbox past shared memory) and 13000 (the table too), deriving the
+    occupancy and given one (K3's for 8-connectivity): count, sums, bbox
+    extremes and dense ids."""
+    for mask in (edge_strip_scene(), edge_strip_scene(70, 600), mixed_scene(), label_scenes()[5]):
+        root_cpu = label_components(torch.from_numpy(mask), connectivity)
+        root, occ = root_labels(torch.from_numpy(mask).to(cuda_device), connectivity)
+        if connectivity == 4:
+            occ = root_occupancy_plain(root, 4)
+        np.testing.assert_array_equal(root.cpu().numpy(), root_cpu.numpy())
+        for C in (1, 8, 64, 2000, 13000):
+            for sums, bbox, labels in ROOT_STATS_OPTIONS:
+                ref = root_stats_plain(root_cpu, C, connectivity, sums, bbox, labels)
+                for given in (None, occ):
+                    before = root_stats.launches, root_stats.occ_launches
+                    got = root_stats(root, C, connectivity, sums, bbox, labels, strip_occ=given)
+                    torch.cuda.synchronize()
+                    assert (root_stats.launches, root_stats.occ_launches) == (
+                        before[0] + 1, before[1] + (given is not None))
+                    for name, g, r in zip(("count", "sums", "lohi", "dense"), got, ref):
+                        assert (g is None) == (r is None), name
+                        if g is not None:
+                            np.testing.assert_array_equal(
+                                g.cpu().numpy(), r.numpy(),
+                                err_msg=f"{mask.shape}, C={C}, {(sums, bbox, labels)}, "
+                                        f"given={given is not None}, {name}")
+
+
+@pytest.mark.gpu
 @pytest.mark.parametrize("connectivity", [4, 8])
 def test_connected_components_with_stats_cuda_matches_cpu(cuda_device, connectivity):
-    for mask in (mixed_scene(), label_scenes()[5], u_shape(64, 96)):
+    """K3 then K6 (given K3's occupancy, 8-connected) on the card against
+    the plain versions on the CPU: every field at every option; and
+    relabel_dense likewise."""
+    for mask in (mixed_scene(), label_scenes()[5], u_shape(64, 96), edge_strip_scene()):
         for C in (8, 64):
-            ref = connected_components_with_stats(torch.from_numpy(mask), C, connectivity)
-            got = connected_components_with_stats(torch.from_numpy(mask).to(cuda_device), C,
-                                                  connectivity)
-            assert got["ccl_converged"] is True
-            for k in ("labels", "count", "area", "bbox", "centroid", "centroid_sum", "overflow"):
-                np.testing.assert_array_equal(got[k].cpu().numpy(), ref[k].numpy(), err_msg=k)
+            for bbox, labels in ((True, True), (False, False), (True, False), (False, True)):
+                ref = connected_components_with_stats(torch.from_numpy(mask), C, connectivity,
+                                                      compute_bbox=bbox, compute_labels=labels)
+                before = root_stats.launches, root_stats.occ_launches
+                got = connected_components_with_stats(torch.from_numpy(mask).to(cuda_device), C,
+                                                      connectivity, compute_bbox=bbox,
+                                                      compute_labels=labels)
+                assert (root_stats.launches, root_stats.occ_launches) == (
+                    before[0] + 1, before[1] + (connectivity == 8))
+                assert got["ccl_converged"] is True
+                for k in ("labels", "count", "area", "bbox", "centroid", "centroid_sum",
+                          "overflow"):
+                    np.testing.assert_array_equal(got[k].cpu().numpy(), ref[k].numpy(),
+                                                  err_msg=f"{k}, C={C}, {bbox}, {labels}")
+            root = label_components(torch.from_numpy(mask), connectivity)
+            ref = relabel_dense(root, C, connectivity)
+            got = relabel_dense(root.to(cuda_device), C, connectivity)
+            for g, r in zip(got, ref):
+                np.testing.assert_array_equal(g.cpu().numpy(), r.numpy())
 
 
 @pytest.mark.gpu

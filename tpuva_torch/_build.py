@@ -62,7 +62,14 @@ _SIGNATURES = {
     ],
     "tpuva_ccl_labels": [
         _P, _I, _I, _I, _I,  # mask, N, H, W, connectivity
+        _P, _P, _P,  # strip_occ, tiles, ntiles
         _P, _P, _P,  # parent, bits, labels
+        _P,  # stream
+    ],
+    "tpuva_root_stats": [
+        _P, _I, _I, _I, _I, _I,  # root, N, H, W, connectivity, C
+        _P, _I, _P, _P, _P,  # strip_occ, derive, rcnt, list, nlist
+        _P, _P, _P, _P, _P,  # table, count, sums, bbox, labels (the last three may be null)
         _P,  # stream
     ],
     "tpuva_histogram_u8": [

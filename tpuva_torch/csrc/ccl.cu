@@ -1,4 +1,5 @@
-// 8-connected CCL + per-component stats (kernel K2) for Hopper, sm_90a.
+// 8-connected CCL + per-component stats (kernel K2), dense root-key labels
+// (K3) and the dense stats of root-key labels (K6) for Hopper, sm_90a.
 //
 // Replaces the Pallas TPU kernel tpuva/ops/pallas/ccl.py::
 // label_components_tiled_raw together with the XLA stats step
@@ -28,8 +29,8 @@
 // once), skipping the rows of empty strips inside a tile: no mask byte,
 // parent or flag of an empty strip is read or written. A block of an
 // empty strip has no foreground, so every read of a neighbour's flags
-// first checks the neighbour's strip. K3 calls ccl_local and ccl_border
-// with no list and no occupancy: one CTA a tile, every strip occupied.
+// first checks the neighbour's strip. K3 (8-connected) takes the same
+// route: ccl_occ derives the occupancy, ccl_tiles lists the tiles.
 //
 // Kernels, in launch order, all on the caller's stream:
 //   ccl_occ     (strip_occ not given) one warp a strip: any foreground;
@@ -64,13 +65,20 @@
 // label_components_tiled: per pixel, its component's minimum scan key + 1
 // (tpuva's _scan_key), 0 for background. The plain PyTorch version is
 // tpuva_torch/ops/label.py::label_components; the two are bit-equal.
-//   8-connectivity: ccl_local and ccl_border as above (one CTA a tile, no
-//     list), ccl_flatten (every foreground block points at its root), then
-//     ccl_labels8 writes 4 * root_block + ctz(bits[root_block]) + 1 to each
-//     foreground pixel. The scan key is K = 4 * block + within (within =
-//     2 * (y & 1) + (x & 1), the bit order of the block flags), the root is
-//     the component's minimum block, and every set pixel of that block
-//     belongs to the component, so its lowest set bit is the minimum key.
+//   8-connectivity: ccl_occ derives the strip occupancy (one read of the
+//     mask, 16 bytes a lane), ccl_tiles lists the occupied tiles, and
+//     ccl_local, ccl_border and ccl_flatten_tiles run over that list only,
+//     as K2's do. ccl_labels8 then gives each thread a 2 x 4 pixel group
+//     (two blocks of one block row) and writes it as two 16-byte stores:
+//     zeros where the occupancy calls the strip empty, with no read of its
+//     mask, parents or flags; else, from the two blocks' flags (a block's
+//     four mask bits) and one parent a foreground block, the label
+//     4 * root_block + ctz(bits[root_block]) + 1 of each set pixel. The
+//     scan key is K = 4 * block + within (within = 2 * (y & 1) + (x & 1),
+//     the bit order of the block flags), the root is the component's
+//     minimum block, and every set pixel of that block belongs to the
+//     component, so its lowest set bit is the minimum key. The occupancy
+//     is handed back to the caller: K6 (below) reads only its strips.
 //   4-connectivity: diagonal pixels of a 2x2 block are not 4-adjacent, so
 //     union-find runs on pixels: ccl4_local (a 16x32-pixel tile in shared
 //     memory), ccl4_border (tile borders in global memory), ccl4_flatten
@@ -79,10 +87,47 @@
 //     turns it into root + 1 or 0 in place.
 // What bounds it on an H100: memory. The floor is the mask read (1 B/px)
 // and the int32 label write (4 B/px), 2.65 GB per 256-frame 1080p batch,
-// 0.79 ms at 3.35 TB/s; the label write dominates. These kernels read and
-// write the parent array several times more (8-conn: 1.25 B/px of block
-// scratch; 4-conn: the 4 B/px labels three or four times). Coalesced
-// vector stores and TMA are later work.
+// 0.79 ms at 3.35 TB/s; the label write dominates. 8-connected, ccl_occ's
+// read is that mask read, the union-find touches only occupied strips,
+// and the label write is 16-byte stores, coalesced along each row. The
+// 4-connected kernels read and write the labels three or four times and
+// ccl4_border launches a thread a pixel (later work).
+//
+// Dense stats of root-key labels (kernel K6), entry point tpuva_root_stats.
+//
+// Replaces tpuva/ops/label.py::_stats_from_root (its dense branch; its
+// sparse_strips branch already gates the stats on strip occupancy) and
+// relabel_dense, XLA on the TPU. The plain PyTorch version is
+// tpuva_torch/ops/label.py::root_stats_plain (a root compare, nonzero,
+// searchsorted and index_add_/scatter_reduce_); the two are bit-equal.
+// Input: root-key labels (N, H, W) int32, as K3 or label_components give
+// them. Strips follow the scan-key order, 512 keys each: 8-connected a
+// strip is 2 rows x 256 columns (128 blocks, K3's strips), 4-connected
+// 512 columns of one row. A warp takes a strip, 16 labels a lane (16-byte
+// loads where W % 4 == 0), in key order. The kernels:
+//   k6_count   a warp 32 strips, one at a time: a strip's roots (label ==
+//              key + 1, the key from (y, x), no key map read) and,
+//              deriving the occupancy, whether it holds foreground; given
+//              the occupancy (K3's), one ballot picks the occupied strips
+//              and an empty strip is not read;
+//   k6_roots   one CTA a frame: the occupied strips in order (a list for
+//              k6_sums), a block scan of their root counts, and the first C
+//              root keys + 1, ascending, from only the strips that hold
+//              them; count = min(roots, C); zeroes the sums, seeds the bbox;
+//   k6_sums    over the listed strips only: each foreground pixel's rank by
+//              binary search in the table (shared memory), runs of one
+//              label summed in registers, then area, sum x, sum y (and with
+//              a bbox min/max x and y) into 32-bit shared sums, once a CTA
+//              and component into the int64 sums. Components past C are
+//              cut. Where the table and sums do not fit 48 KB of shared
+//              memory the same kernel adds straight into global memory;
+//   k6_labels  (labels asked for) every strip: rank + 1 or 0 in 16-byte
+//              stores, zeros for an empty strip without a read.
+// Integer atomics make every sum independent of its order. What bounds it
+// on an H100: memory. Given K3's occupancy, the labels of the occupied
+// strips (3% of the bench clip's) and the outputs; deriving it, one read
+// of the labels (2.12 GB a 256-frame 1080p batch, 0.634 ms at 3.35
+// TB/s); with labels, the 2.12 GB write besides. No host sync anywhere.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -356,16 +401,7 @@ ccl_border(Geom g, const uint8_t* __restrict__ occ, const int* __restrict__ tile
   }
 }
 
-// K3: every foreground block points at its root (after the last union).
-__global__ void __launch_bounds__(kFlatThreads)
-ccl_flatten(int nb, int* __restrict__ parent, const uint8_t* __restrict__ bits_g) {
-  const int b = blockIdx.x * blockDim.x + threadIdx.x;
-  if (b >= nb) return;
-  int* par = parent + size_t(blockIdx.y) * nb;
-  if (bits_g[size_t(blockIdx.y) * nb + b]) par[b] = find_root(par, b);
-}
-
-// K2: every foreground block of the listed tiles' occupied strips points
+// Every foreground block of the listed tiles' occupied strips points
 // at its root (after the last union).
 __global__ void __launch_bounds__(kTileThreads)
 ccl_flatten_tiles(Geom g, const uint8_t* __restrict__ occ, const int* __restrict__ tiles,
@@ -476,23 +512,48 @@ ccl_stats(Geom g, int C, const uint8_t* __restrict__ occ, const int* __restrict_
     if (acc[i]) atomicAdd(&sums[size_t(n) * 3 * C + i], (unsigned long long)acc[i]);
 }
 
-// One thread per pixel: 4 * root block + lowest set bit of its flags + 1,
-// or 0 for background.
+// One thread a 2 x 4 pixel group, blocks (by, 2q) and (by, 2q + 1) of
+// frame blockIdx.y: 4 * root block + lowest set bit of its flags + 1 for
+// each set pixel, 0 for background, as one 16-byte store a row (scalar
+// stores where W % 4 != 0 or the group passes the image's edge). A group
+// of an empty strip is written as zeros with no other read; in an occupied
+// strip the blocks' flags (their mask bits) say which pixels are set, and
+// a foreground block reads its parent and its root's flags.
 __global__ void __launch_bounds__(kFlatThreads)
-ccl_labels8(const uint8_t* __restrict__ mask, int H, int W, int Wb,
-            const int* __restrict__ parent, const uint8_t* __restrict__ bits_g,
-            int* __restrict__ labels) {
-  const int p = blockIdx.x * blockDim.x + threadIdx.x;
-  if (p >= H * W) return;
-  const size_t g = size_t(blockIdx.y) * H * W + p;
-  int out = 0;
-  if (mask[g]) {
-    const int y = p / W, x = p - y * W;
-    const size_t f = size_t(blockIdx.y) * ((H + 1) / 2) * Wb;
-    const int r = parent[f + (y >> 1) * Wb + (x >> 1)];
-    out = 4 * r + (__ffs(bits_g[f + r]) - 1) + 1;
+ccl_labels8(Geom g, const uint8_t* __restrict__ occ, const int* __restrict__ parent,
+            const uint8_t* __restrict__ bits_g, int* __restrict__ labels) {
+  const int Q = (g.W + 3) / 4;  // groups a block row
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= g.Hb * Q) return;
+  const int n = blockIdx.y, by = i / Q, q = i - by * Q;
+  const int x = 4 * q, y = 2 * by, bx = 2 * q;
+  int4 row[2] = {make_int4(0, 0, 0, 0), make_int4(0, 0, 0, 0)};
+  if (occ[(size_t(n) * g.Hb + by) * g.S + bx / SW]) {
+    const size_t f = size_t(n) * g.Hb * g.Wb;
+    int lab[2][4] = {};
+    for (int k = 0; k < 2 && bx + k < g.Wb; ++k) {
+      const int b = by * g.Wb + bx + k;
+      const int bb = bits_g[f + b];
+      if (!bb) continue;
+      const int r = parent[f + b];
+      const int v = 4 * r + __ffs(bits_g[f + r]);  // 4 * r + ctz + 1
+      lab[0][2 * k] = (bb & 1) ? v : 0;
+      lab[0][2 * k + 1] = (bb & 2) ? v : 0;
+      lab[1][2 * k] = (bb & 4) ? v : 0;
+      lab[1][2 * k + 1] = (bb & 8) ? v : 0;
+    }
+    row[0] = make_int4(lab[0][0], lab[0][1], lab[0][2], lab[0][3]);
+    row[1] = make_int4(lab[1][0], lab[1][1], lab[1][2], lab[1][3]);
   }
-  labels[g] = out;
+  for (int k = 0; k < 2 && y + k < g.H; ++k) {
+    int* p = labels + (size_t(n) * g.H + y + k) * g.W + x;
+    if ((g.W & 3) == 0) {  // x + 4 <= W, and the row starts 16-byte aligned
+      *reinterpret_cast<int4*>(p) = row[k];
+    } else {
+      const int v[4] = {row[k].x, row[k].y, row[k].z, row[k].w};
+      for (int j = 0; j < 4 && x + j < g.W; ++j) p[j] = v[j];
+    }
+  }
 }
 
 // Pixel-level union-find inside one T4Y x T4X tile; every pixel's parent
@@ -555,38 +616,446 @@ ccl4_finish(const uint8_t* __restrict__ mask, int HW, int* __restrict__ labels) 
   labels[g] = mask[g] ? labels[g] + 1 : 0;
 }
 
+// ---- K6: the dense stats of root-key labels ----
+
+constexpr int kK6Warps = 8;          // strips a CTA of k6_count, k6_sums, k6_labels
+// listed strips a warp of k6_sums takes at most: a CTA sums at most 64 x 512
+// pixels, so its 32-bit x and y sums hold for H, W < 65536
+constexpr int kK6StripsPerWarp = 8;
+constexpr int kK6Big = 1 << 30;      // a bbox minimum not yet set (the plain version's)
+constexpr int kSmemBytes = 48 * 1024;
+
+// K6's strips: R rows of S strips, 512 scan keys each, in key order.
+// 8-connected: rows 2r, 2r + 1 x columns 256c .. 256c + 255 (K3's strips);
+// 4-connected: row r x columns 512c .. 512c + 511.
+struct SGeom {
+  int H, W, Wb, R, S;
+  int vec;  // W % 4 == 0 and the buffers 16-byte aligned: 16-byte accesses
+  __host__ __device__ int strips() const { return R * S; }
+};
+
+SGeom sgeom(int H, int W, int conn, bool aligned) {
+  SGeom g;
+  g.H = H; g.W = W; g.Wb = (W + 1) / 2;
+  g.R = conn == 8 ? (H + 1) / 2 : H;
+  g.S = conn == 8 ? (g.Wb + SW - 1) / SW : (W + 511) / 512;
+  g.vec = aligned && (W & 3) == 0;
+  return g;
+}
+
+// Element e (0..15) of lane `lane` in strip (r, c): its (x, y) and scan key.
+// 8-connected: lane l holds blocks 4l .. 4l + 3 of the strip, each block's
+// pixels in the order of its flag bits; 4-connected: columns 16l .. 16l + 15.
+template <int kConn>
+__device__ __forceinline__ void strip_px(const SGeom& g, int r, int c, int lane, int e,
+                                         int& x, int& y, int& key) {
+  if (kConn == 8) {
+    const int j = e >> 2, w = e & 3;
+    y = 2 * r + (w >> 1);
+    x = 2 * (SW * c + 4 * lane + j) + (w & 1);
+    key = 4 * (r * g.Wb + SW * c + 4 * lane + j) + w;
+  } else {
+    y = r;
+    x = 512 * c + 16 * lane + e;
+    key = y * g.W + x;
+  }
+}
+
+// n consecutive int32 of row y from column x0 (0 outside the image).
+template <int kN>
+__device__ __forceinline__ void load_row(const int* frame, const SGeom& g, int y, int x0,
+                                         int* v) {
+  if (y >= g.H) {
+    for (int i = 0; i < kN; ++i) v[i] = 0;
+    return;
+  }
+  const int* p = frame + size_t(y) * g.W + x0;
+  if (g.vec && x0 + kN <= g.W) {
+    for (int i = 0; i < kN; i += 4) {
+      const int4 q = *reinterpret_cast<const int4*>(p + i);
+      v[i] = q.x; v[i + 1] = q.y; v[i + 2] = q.z; v[i + 3] = q.w;
+    }
+  } else {
+    for (int i = 0; i < kN; ++i) v[i] = x0 + i < g.W ? p[i] : 0;
+  }
+}
+
+template <int kN>
+__device__ __forceinline__ void store_row(int* frame, const SGeom& g, int y, int x0,
+                                          const int* v) {
+  if (y >= g.H) return;
+  int* p = frame + size_t(y) * g.W + x0;
+  if (g.vec && x0 + kN <= g.W) {
+    for (int i = 0; i < kN; i += 4)
+      *reinterpret_cast<int4*>(p + i) = make_int4(v[i], v[i + 1], v[i + 2], v[i + 3]);
+  } else {
+    for (int i = 0; i < kN && x0 + i < g.W; ++i) p[i] = v[i];
+  }
+}
+
+// The 16 labels of a lane in strip (r, c), in key order.
+template <int kConn>
+__device__ __forceinline__ void load_strip(const int* frame, const SGeom& g, int r, int c,
+                                           int lane, int* v) {
+  if (kConn == 8) {
+    int a[8], b[8];
+    const int x0 = 256 * c + 8 * lane;
+    load_row<8>(frame, g, 2 * r, x0, a);
+    load_row<8>(frame, g, 2 * r + 1, x0, b);
+    for (int j = 0; j < 4; ++j) {
+      v[4 * j] = a[2 * j]; v[4 * j + 1] = a[2 * j + 1];
+      v[4 * j + 2] = b[2 * j]; v[4 * j + 3] = b[2 * j + 1];
+    }
+  } else {
+    load_row<16>(frame, g, r, 512 * c + 16 * lane, v);
+  }
+}
+
+template <int kConn>
+__device__ __forceinline__ void store_strip(int* frame, const SGeom& g, int r, int c,
+                                            int lane, const int* v) {
+  if (kConn == 8) {
+    int a[8], b[8];
+    for (int j = 0; j < 4; ++j) {
+      a[2 * j] = v[4 * j]; a[2 * j + 1] = v[4 * j + 1];
+      b[2 * j] = v[4 * j + 2]; b[2 * j + 1] = v[4 * j + 3];
+    }
+    const int x0 = 256 * c + 8 * lane;
+    store_row<8>(frame, g, 2 * r, x0, a);
+    store_row<8>(frame, g, 2 * r + 1, x0, b);
+  } else {
+    store_row<16>(frame, g, r, 512 * c + 16 * lane, v);
+  }
+}
+
+// Index of v in the ascending tab[0, cnt), or -1 (a component past C).
+__device__ __forceinline__ int rank_of(const int* tab, int cnt, int v) {
+  int lo = 0, hi = cnt;
+  while (lo < hi) {
+    const int mid = (lo + hi) >> 1;
+    if (tab[mid] < v) lo = mid + 1; else hi = mid;
+  }
+  return lo < cnt && tab[lo] == v ? lo : -1;
+}
+
+// Exclusive prefix sum of v over the CTA's threads in thread order, and the
+// total; every thread of the CTA calls it (barriers inside).
+__device__ int2 block_scan(int v, int* warp_incl) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, nw = blockDim.x >> 5;
+  int incl = v;
+  for (int o = 1; o < 32; o <<= 1) {
+    const int t = __shfl_up_sync(0xffffffffu, incl, o);
+    if (lane >= o) incl += t;
+  }
+  if (lane == 31) warp_incl[warp] = incl;
+  __syncthreads();
+  if (warp == 0) {
+    int w = lane < nw ? warp_incl[lane] : 0;
+    for (int o = 1; o < 32; o <<= 1) {
+      const int t = __shfl_up_sync(0xffffffffu, w, o);
+      if (lane >= o) w += t;
+    }
+    if (lane < nw) warp_incl[lane] = w;
+  }
+  __syncthreads();
+  const int2 r = make_int2((warp ? warp_incl[warp - 1] : 0) + incl - v, warp_incl[nw - 1]);
+  __syncthreads();  // warp_incl is reused by the next call
+  return r;
+}
+
+// A: a warp takes 32 consecutive strips (of the flattened N x R x S),
+// one at a time: rcnt = its roots; deriving, occ = any foreground. Given
+// the occupancy, one ballot over the 32 strips' bytes picks the occupied
+// ones; an empty strip is not read (nor its count written: k6_roots reads
+// the counts of occupied strips only).
+template <int kConn>
+__global__ void __launch_bounds__(32 * kK6Warps)
+k6_count(const int* __restrict__ root, int N, SGeom g, uint8_t* __restrict__ occ, int derive,
+         int* __restrict__ rcnt) {
+  const int Q = g.strips();
+  const int lane = threadIdx.x & 31;
+  const int s0 = 32 * (blockIdx.x * kK6Warps + (threadIdx.x >> 5));
+  if (s0 >= N * Q) return;
+  const int mine = s0 + lane;
+  unsigned todo = __ballot_sync(0xffffffffu, mine < N * Q && (derive || occ[mine]));
+  while (todo) {
+    const int s = s0 + __ffs(todo) - 1;
+    todo &= todo - 1;
+    const int n = s / Q, q = s - n * Q, r = q / g.S, c = q - r * g.S;
+    int v[16];
+    load_strip<kConn>(root + size_t(n) * g.H * g.W, g, r, c, lane, v);
+    int cnt = 0;
+    bool fg = false;
+    for (int e = 0; e < 16; ++e) {
+      int x, y, key;
+      strip_px<kConn>(g, r, c, lane, e, x, y, key);
+      fg |= v[e] != 0;
+      cnt += v[e] == key + 1;
+    }
+    cnt = __reduce_add_sync(0xffffffffu, cnt);
+    fg = __any_sync(0xffffffffu, fg);
+    if (lane == 0) {
+      rcnt[s] = cnt;
+      if (derive) occ[s] = fg;
+    }
+  }
+}
+
+// B: one CTA a frame. The occupied strips in order into list (N, Q) and
+// nlist; their root counts scanned in order, and each strip that holds one
+// of the first C roots read by a warp, which writes those roots' keys + 1
+// to table (N, C) in key order; count = min(roots, C). Zeroes the sums
+// (N, C, 3) and seeds the bbox (N, C, 4) of (min x, min y, max x, max y).
+template <int kConn>
+__global__ void __launch_bounds__(kScanThreads)
+k6_roots(const int* __restrict__ root, SGeom g, int C, const uint8_t* __restrict__ occ,
+         const int* __restrict__ rcnt, int* __restrict__ list, int* __restrict__ nlist,
+         int* __restrict__ table, int* __restrict__ count, long long* __restrict__ sums,
+         int* __restrict__ bbox) {
+  __shared__ int warp_incl[32];
+  __shared__ int work[kScanThreads], work_rank[kScanThreads];
+  const int n = blockIdx.x, Q = g.strips();
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const uint8_t* o = occ + size_t(n) * Q;
+  const int* frame = root + size_t(n) * g.H * g.W;
+  if (sums)
+    for (int i = threadIdx.x; i < 3 * C; i += blockDim.x) sums[size_t(n) * 3 * C + i] = 0;
+  if (bbox)
+    for (int i = threadIdx.x; i < 4 * C; i += blockDim.x)
+      bbox[size_t(n) * 4 * C + i] = (i & 3) < 2 ? kK6Big : -1;
+  int running = 0, listed = 0;
+  for (int base = 0; base < Q; base += kScanThreads) {
+    const int s = base + threadIdx.x;
+    const bool occupied = s < Q && o[s];
+    const int2 l = block_rank(occupied, warp_incl);
+    if (occupied) list[size_t(n) * Q + listed + l.x] = s;
+    listed += l.y;
+    if (running >= C) continue;  // block-uniform: later roots are cut
+    const int cnt = occupied ? rcnt[size_t(n) * Q + s] : 0;
+    const int2 p = block_scan(cnt, warp_incl);
+    const bool holds = cnt > 0 && running + p.x < C;
+    const int2 w = block_rank(holds, warp_incl);
+    if (holds) {
+      work[w.x] = s;
+      work_rank[w.x] = running + p.x;
+    }
+    __syncthreads();
+    for (int k = warp; k < w.y; k += kScanThreads / 32) {
+      const int st = work[k], r = st / g.S, c = st - r * g.S;
+      int v[16];
+      load_strip<kConn>(frame, g, r, c, lane, v);
+      unsigned roots = 0;
+      for (int e = 0; e < 16; ++e) {
+        int x, y, key;
+        strip_px<kConn>(g, r, c, lane, e, x, y, key);
+        roots |= unsigned(v[e] == key + 1) << e;
+      }
+      int pos = __popc(roots);  // this lane's rank: a warp scan of the counts
+      for (int d = 1; d < 32; d <<= 1) {
+        const int t = __shfl_up_sync(0xffffffffu, pos, d);
+        if (lane >= d) pos += t;
+      }
+      pos = work_rank[k] + pos - __popc(roots);
+      for (int e = 0; e < 16 && pos < C; ++e) {
+        if (!(roots >> e & 1)) continue;
+        int x, y, key;
+        strip_px<kConn>(g, r, c, lane, e, x, y, key);
+        table[size_t(n) * C + pos++] = key + 1;
+      }
+    }
+    __syncthreads();  // work is the next chunk's
+    running += p.y;
+  }
+  if (threadIdx.x == 0) {
+    count[n] = min(running, C);
+    nlist[n] = listed;
+  }
+}
+
+// Add one run of pixels of component i into the sums (and the bbox).
+template <bool kShared>
+__device__ __forceinline__ void k6_flush(int i, unsigned area, unsigned sx, unsigned sy,
+                                         int x0, int y0, int x1, int y1, unsigned* acc,
+                                         int* box, unsigned long long* gsums, int* gbox,
+                                         bool with_bbox) {
+  if (kShared) {
+    atomicAdd(&acc[3 * i], area);
+    atomicAdd(&acc[3 * i + 1], sx);
+    atomicAdd(&acc[3 * i + 2], sy);
+  } else {
+    atomicAdd(&gsums[3 * i], (unsigned long long)area);
+    atomicAdd(&gsums[3 * i + 1], (unsigned long long)sx);
+    atomicAdd(&gsums[3 * i + 2], (unsigned long long)sy);
+  }
+  if (with_bbox) {
+    int* b = kShared ? box : gbox;
+    atomicMin(&b[4 * i], x0);
+    atomicMin(&b[4 * i + 1], y0);
+    atomicMax(&b[4 * i + 2], x1);
+    atomicMax(&b[4 * i + 3], y1);
+  }
+}
+
+// C: the sums over the listed (occupied) strips of frame blockIdx.y, a warp
+// a strip, strip k = blockIdx.x * kK6Warps + warp, + gridDim.x * kK6Warps.
+// kShared: the table and 32-bit sums (and bbox) in shared memory, added
+// once a CTA and component into global memory; else straight into it.
+template <int kConn, bool kShared>
+__global__ void __launch_bounds__(32 * kK6Warps)
+k6_sums(const int* __restrict__ root, SGeom g, int C, const int* __restrict__ list,
+        const int* __restrict__ nlist, const int* __restrict__ table,
+        const int* __restrict__ count, unsigned long long* __restrict__ sums,
+        int* __restrict__ bbox) {
+  extern __shared__ int smem[];  // table[C], sums[3C], bbox[4C]
+  const int n = blockIdx.y, Q = g.strips();
+  const int nl = nlist[n], cnt = count[n];
+  if (cnt == 0 || int(blockIdx.x) * kK6Warps >= nl) return;  // CTA-uniform
+  const bool with_bbox = bbox != nullptr;
+  const int* tab = table + size_t(n) * C;
+  unsigned* acc = reinterpret_cast<unsigned*>(smem + C);
+  int* box = smem + 4 * C;
+  unsigned long long* gsums = sums + size_t(n) * 3 * C;
+  int* gbox = with_bbox ? bbox + size_t(n) * 4 * C : nullptr;
+  if (kShared) {
+    for (int i = threadIdx.x; i < cnt; i += blockDim.x) smem[i] = tab[i];
+    for (int i = threadIdx.x; i < 3 * cnt; i += blockDim.x) acc[i] = 0;
+    if (with_bbox)
+      for (int i = threadIdx.x; i < 4 * cnt; i += blockDim.x) box[i] = (i & 3) < 2 ? kK6Big : -1;
+    __syncthreads();
+    tab = smem;
+  }
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int* frame = root + size_t(n) * g.H * g.W;
+  for (int k = blockIdx.x * kK6Warps + warp; k < nl; k += gridDim.x * kK6Warps) {
+    const int s = list[size_t(n) * Q + k], r = s / g.S, c = s - r * g.S;
+    int v[16];
+    load_strip<kConn>(frame, g, r, c, lane, v);
+    int last_v = 0, last_i = -1, cur = -1;
+    unsigned area = 0, sx = 0, sy = 0;
+    int x0 = kK6Big, y0 = kK6Big, x1 = -1, y1 = -1;
+    for (int e = 0; e < 16; ++e) {
+      if (!v[e]) continue;
+      if (v[e] != last_v) {
+        last_v = v[e];
+        last_i = rank_of(tab, cnt, v[e]);
+      }
+      if (last_i < 0) continue;
+      if (last_i != cur) {
+        if (cur >= 0)
+          k6_flush<kShared>(cur, area, sx, sy, x0, y0, x1, y1, acc, box, gsums, gbox, with_bbox);
+        cur = last_i;
+        area = sx = sy = 0;
+        x0 = y0 = kK6Big;
+        x1 = y1 = -1;
+      }
+      int x, y, key;
+      strip_px<kConn>(g, r, c, lane, e, x, y, key);
+      area += 1;
+      sx += unsigned(x);
+      sy += unsigned(y);
+      x0 = min(x0, x); y0 = min(y0, y); x1 = max(x1, x); y1 = max(y1, y);
+    }
+    if (cur >= 0)
+      k6_flush<kShared>(cur, area, sx, sy, x0, y0, x1, y1, acc, box, gsums, gbox, with_bbox);
+  }
+  if (kShared) {
+    __syncthreads();
+    for (int i = threadIdx.x; i < 3 * cnt; i += blockDim.x)
+      if (acc[i]) atomicAdd(&gsums[i], (unsigned long long)acc[i]);
+    if (with_bbox)
+      for (int i = threadIdx.x; i < 4 * cnt; i += blockDim.x) {
+        if ((i & 3) < 2) {
+          if (box[i] != kK6Big) atomicMin(&gbox[i], box[i]);
+        } else if (box[i] != -1) {
+          atomicMax(&gbox[i], box[i]);
+        }
+      }
+  }
+}
+
+// D: dense ids, every strip of frame blockIdx.y, a warp a strip: rank + 1
+// or 0 for each label of an occupied strip, zeros for an empty one (not
+// read); 16-byte stores.
+template <int kConn, bool kShared>
+__global__ void __launch_bounds__(32 * kK6Warps)
+k6_labels(const int* __restrict__ root, SGeom g, int C, const uint8_t* __restrict__ occ,
+          const int* __restrict__ table, const int* __restrict__ count,
+          int* __restrict__ labels) {
+  extern __shared__ int smem[];  // table[C]
+  const int n = blockIdx.y, Q = g.strips();
+  const int s = blockIdx.x * kK6Warps + (threadIdx.x >> 5);
+  const bool occupied = s < Q && occ[size_t(n) * Q + s];
+  const int cnt = count[n];
+  const int* tab = table + size_t(n) * C;
+  if (kShared) {
+    if (__syncthreads_or(occupied)) {
+      for (int i = threadIdx.x; i < cnt; i += blockDim.x) smem[i] = tab[i];
+      __syncthreads();
+    }
+    tab = smem;
+  }
+  if (s >= Q) return;
+  const int lane = threadIdx.x & 31, r = s / g.S, c = s - r * g.S;
+  int v[16] = {};
+  if (occupied) {
+    load_strip<kConn>(root + size_t(n) * g.H * g.W, g, r, c, lane, v);
+    int last_v = 0, last_i = -1;
+    for (int e = 0; e < 16; ++e) {
+      if (!v[e]) continue;
+      if (v[e] != last_v) {
+        last_v = v[e];
+        last_i = rank_of(tab, cnt, v[e]);
+      }
+      v[e] = last_i + 1;  // 0 for a component past C
+    }
+  }
+  store_strip<kConn>(labels + size_t(n) * g.H * g.W, g, r, c, lane, v);
+}
+
 }  // namespace
 
 // mask (N,H,W) u8 (nonzero = foreground) -> labels (N,H,W) int32 root-key
 // labels: the component's minimum scan key + 1, 0 for background, for
-// connectivity 8 or 4. Scratch for connectivity 8: parent (N, Hb*Wb) int32
-// and bits (N, Hb*Wb) u8 with Hb = ceil(H/2), Wb = ceil(W/2); connectivity 4
-// uses the labels buffer as its parent array and takes no scratch (parent
-// and bits may be null). Needs N < 65536 and 4*Hb*Wb < 2^31. Returns
+// connectivity 8 or 4. Connectivity 8 writes the strip occupancy it
+// derives to strip_occ (N, Hb, S) u8 and takes scratch tiles
+// (N, ceil(Hb/16) * ceil(Wb/32)) int32, ntiles (N,) int32, parent
+// (N, Hb*Wb) int32 and bits (N, Hb*Wb) u8, with Hb = ceil(H/2),
+// Wb = ceil(W/2), S = ceil(Wb/128); connectivity 4 uses the labels buffer
+// as its parent array and takes none of them (they may be null). labels
+// must be 16-byte aligned. Needs N < 65536 and 4*Hb*Wb < 2^31. Returns
 // cudaGetLastError() after the launches (0 = launched).
-extern "C" int tpuva_ccl_labels(const uint8_t* mask, int N, int H, int W,
-                                int connectivity, int* parent, uint8_t* bits,
-                                int* labels, void* stream) {
+extern "C" int tpuva_ccl_labels(const uint8_t* mask, int N, int H, int W, int connectivity,
+                                uint8_t* strip_occ, int* tiles, int* ntiles, int* parent,
+                                uint8_t* bits, int* labels, void* stream) {
   if (N <= 0 || N >= 65536 || H <= 0 || W <= 0 ||
       4LL * ((H + 1) / 2) * ((W + 1) / 2) >= (1LL << 31) ||
       (connectivity != 4 && connectivity != 8) ||
-      (connectivity == 8 && (parent == nullptr || bits == nullptr)))
+      (reinterpret_cast<uintptr_t>(labels) & 15) != 0 ||
+      (connectivity == 8 && (strip_occ == nullptr || tiles == nullptr || ntiles == nullptr ||
+                             parent == nullptr || bits == nullptr)))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int HW = H * W;
   const dim3 g_px((HW + kFlatThreads - 1) / kFlatThreads, N);
   cudaError_t err;
-  if (connectivity == 8) {  // the tile kernels with no list: every strip occupied
+  if (connectivity == 8) {  // K2's route: the occupancy, then only occupied strips' tiles
     const Geom g = geom(H, W);
-    const dim3 g_tiles(g.tiles(), N);
-    ccl_local<<<g_tiles, kTileThreads, 0, s>>>(mask, g, nullptr, nullptr, nullptr, parent, bits);
+    const size_t strips = size_t(N) * g.Hb * g.S;
+    ccl_occ<<<unsigned((strips + kOccWarps - 1) / kOccWarps), 32 * kOccWarps, 0, s>>>(
+        mask, N, g, strip_occ);
     if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
-    ccl_border<<<g_tiles, kBorderThreads, 0, s>>>(g, nullptr, nullptr, nullptr, parent, bits);
+    ccl_tiles<<<N, kScanThreads, 0, s>>>(g, strip_occ, tiles, ntiles);
     if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
-    const dim3 g_flat((g.Hb * g.Wb + kFlatThreads - 1) / kFlatThreads, N);
-    ccl_flatten<<<g_flat, kFlatThreads, 0, s>>>(g.Hb * g.Wb, parent, bits);
+    const dim3 g_list((g.tiles() + kTilesPerCta - 1) / kTilesPerCta, N);
+    ccl_local<<<g_list, kTileThreads, 0, s>>>(mask, g, strip_occ, tiles, ntiles, parent, bits);
     if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
-    ccl_labels8<<<g_px, kFlatThreads, 0, s>>>(mask, H, W, g.Wb, parent, bits, labels);
+    ccl_border<<<g_list, kBorderThreads, 0, s>>>(g, strip_occ, tiles, ntiles, parent, bits);
+    if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
+    ccl_flatten_tiles<<<g_list, kTileThreads, 0, s>>>(g, strip_occ, tiles, ntiles, parent, bits);
+    if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
+    const int groups = g.Hb * ((W + 3) / 4);
+    ccl_labels8<<<dim3((groups + kFlatThreads - 1) / kFlatThreads, N), kFlatThreads, 0, s>>>(
+        g, strip_occ, parent, bits, labels);
     return static_cast<int>(cudaGetLastError());
   }
   const dim3 g_local((W + T4X - 1) / T4X, (H + T4Y - 1) / T4Y, N);
@@ -642,4 +1111,84 @@ extern "C" int tpuva_ccl_stats(const uint8_t* mask, int N, int H, int W, int C,
       g, C, strip_occ, tiles, ntiles, parent, bits, table, count,
       reinterpret_cast<unsigned long long*>(sums));
   return static_cast<int>(cudaGetLastError());
+}
+
+namespace {
+
+template <int kConn>
+cudaError_t root_stats_launch(const int* root, int N, const SGeom& g, int C, uint8_t* occ,
+                              int derive, int* rcnt, int* list, int* nlist, int* table,
+                              int* count, long long* sums, int* bbox, int* labels,
+                              cudaStream_t s) {
+  cudaError_t err;
+  const int Q = g.strips();
+  k6_count<kConn><<<(N * Q + 32 * kK6Warps - 1) / (32 * kK6Warps), 32 * kK6Warps, 0, s>>>(
+      root, N, g, occ, derive, rcnt);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  k6_roots<kConn><<<N, kScanThreads, 0, s>>>(root, g, C, occ, rcnt, list, nlist, table, count,
+                                             sums, bbox);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  if (sums) {
+    // kK6StripsPerWarp listed strips a warp at most; CTAs past a frame's list return
+    const dim3 grid((Q + kK6Warps * kK6StripsPerWarp - 1) / (kK6Warps * kK6StripsPerWarp), N);
+    const size_t smem = size_t(4) * C * (bbox ? 8 : 4);
+    auto* usums = reinterpret_cast<unsigned long long*>(sums);
+    if (smem <= kSmemBytes)
+      k6_sums<kConn, true><<<grid, 32 * kK6Warps, smem, s>>>(root, g, C, list, nlist, table,
+                                                             count, usums, bbox);
+    else
+      k6_sums<kConn, false><<<grid, 32 * kK6Warps, 0, s>>>(root, g, C, list, nlist, table,
+                                                           count, usums, bbox);
+    if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  }
+  if (labels) {
+    const dim3 grid((Q + kK6Warps - 1) / kK6Warps, N);
+    const size_t smem = size_t(4) * C;
+    if (smem <= kSmemBytes)
+      k6_labels<kConn, true><<<grid, 32 * kK6Warps, smem, s>>>(root, g, C, occ, table, count,
+                                                               labels);
+    else
+      k6_labels<kConn, false><<<grid, 32 * kK6Warps, 0, s>>>(root, g, C, occ, table, count,
+                                                             labels);
+    if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  }
+  return cudaSuccess;
+}
+
+}  // namespace
+
+// K6: root-key labels root (N,H,W) int32 (K3's, or label_components') ->
+// count (N,) int32 = min(#components, C); with sums non-null, sums (N,C,3)
+// int64 of (area, sum x, sum y) in cv2 id order, and with bbox non-null
+// too, bbox (N,C,4) int32 of (min x, min y, max x, max y) (2^30, 2^30, -1,
+// -1 for an absent component); with labels non-null, labels (N,H,W) int32
+// dense ids 1..C, 0 for background and later components. strip_occ
+// (N, R, S) u8 is K6's strips' occupancy (8-connected R = ceil(H/2),
+// S = ceil(ceil(W/2)/128), K3's; 4-connected R = H, S = ceil(W/512)):
+// with derive != 0 k6_count writes it, else the caller gives it and a strip
+// it calls empty must hold no foreground. Scratch: rcnt and list (N, R*S)
+// int32, nlist (N,) int32, table (N, C) int32. 16-byte loads and stores
+// where W % 4 == 0 and root and labels are 16-byte aligned. Needs N < 65536, H, W < 65536 (the 32-bit per-CTA
+// sums), N*R*S < 2^31 and C >= 0. Returns cudaGetLastError() after the
+// launches (0 = launched).
+extern "C" int tpuva_root_stats(const int* root, int N, int H, int W, int connectivity, int C,
+                                uint8_t* strip_occ, int derive, int* rcnt, int* list,
+                                int* nlist, int* table, int* count, long long* sums,
+                                int* bbox, int* labels, void* stream) {
+  if (N <= 0 || N >= 65536 || H <= 0 || W <= 0 || H >= 65536 || W >= 65536 || C < 0 ||
+      (connectivity != 4 && connectivity != 8) || strip_occ == nullptr || rcnt == nullptr ||
+      list == nullptr || nlist == nullptr || count == nullptr || (bbox && !sums))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const bool aligned = ((reinterpret_cast<uintptr_t>(root) |
+                         reinterpret_cast<uintptr_t>(labels)) & 15) == 0;
+  const SGeom g = sgeom(H, W, connectivity, aligned);
+  if (size_t(N) * g.strips() >= (size_t(1) << 31)) return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const cudaError_t err =
+      connectivity == 8
+          ? root_stats_launch<8>(root, N, g, C, strip_occ, derive, rcnt, list, nlist, table,
+                                 count, sums, bbox, labels, s)
+          : root_stats_launch<4>(root, N, g, C, strip_occ, derive, rcnt, list, nlist, table,
+                                 count, sums, bbox, labels, s);
+  return static_cast<int>(err);
 }

@@ -74,7 +74,7 @@ import torch
 
 from tpuva_torch.device import resolve_device
 from tpuva_torch.ops.background import background_coeffs, background_update
-from tpuva_torch.ops.ccl import label_components_tiled, label_stats
+from tpuva_torch.ops.ccl import label_stats, root_labels
 from tpuva_torch.ops.filters import (
     gaussian_blur_u8,
     median_blur,
@@ -373,7 +373,8 @@ def process_batch_staged(cfg, carry: PipelineCarry, frames: torch.Tensor,
     return_labels adds out["labels"], (N, H, W) int32, as tpuva's
     labels_from_raw: dense cv2 ids 1..C of the first C = max_components
     components in cv2 order, 0 for the background and every later
-    component (K3's root keys of the cropped mask through relabel_dense).
+    component (K3's root keys of the cropped mask and its strip occupancy
+    through relabel_dense, K6 on the card).
     ccl_single_pass changes nothing here: K2 is exact in one launch
     sequence. sparse_strips and compact_slots size tpuva's TPU stats
     buffers; K2 has none, so they change nothing either."""
@@ -401,7 +402,8 @@ def process_batch_staged(cfg, carry: PipelineCarry, frames: torch.Tensor,
     out["stats_overflow"] = stats["overflow"]
     out["ccl_converged"] = stats["ccl_converged"]
     if return_labels:
-        out["labels"] = relabel_dense(label_components_tiled(masks, 8), max_components)[0]
+        root, occ = root_labels(masks, 8)
+        out["labels"] = relabel_dense(root, max_components, strip_occ=occ)[0]
     return new_carry, out
 
 

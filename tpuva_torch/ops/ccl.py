@@ -24,8 +24,17 @@ Both give (count, int64 sums) and share the ``_assemble_stats`` epilogue.
 ``ccl_converged`` is always True (union-find has no round cap).
 
 K3, ``label_components_tiled``: dense root-key labels, 4- or 8-connected
-(see its docstring); ``ops.label.connected_components_with_stats`` turns
-them into dense cv2 ids and stats.
+(see its docstring); 8-connected it visits only the occupied strips, and
+``root_labels`` hands that occupancy on with the labels.
+
+K6, ``root_stats``: the dense stats of root-key labels — counts, integer
+sums, bbox extremes and dense cv2 ids — replacing the XLA
+``tpuva/ops/label.py::_stats_from_root`` and ``relabel_dense``. CUDA
+tensors launch ``tpuva_root_stats`` (``csrc/ccl.cu``), given K3's strip
+occupancy or deriving one; CPU tensors take its plain version
+``ops.label.root_stats_plain``, the torch ops the port ran before.
+``ops.label.connected_components_with_stats`` runs K3, then K6 with K3's
+occupancy, and shares the stats epilogue with the plain path.
 """
 
 from __future__ import annotations
@@ -34,7 +43,7 @@ import torch
 
 from tpuva_torch import _build
 from tpuva_torch.ops.label import (
-    _assemble_stats, _check_connectivity, component_sums, label_components,
+    _assemble_stats, _check_connectivity, component_sums, label_components, root_stats_plain,
 )
 
 MAX_COMPONENTS_KERNEL = 1024  # per-CTA shared-memory accumulators in ccl.cu
@@ -166,10 +175,20 @@ def label_components_tiled(mask: torch.Tensor, connectivity: int = 8,
     no round cap (the Pallas kernel's max_rounds can run out).
 
     CUDA tensors launch ``tpuva_ccl_labels`` in ``csrc/ccl.cu`` (2x2-block
-    union-find for 8-connectivity, pixel union-find for 4); CPU tensors take
-    the plain ``label_components``. The Pallas knobs ``tile``,
-    ``max_rounds``, ``frames_per_step`` and ``max_run`` size TPU grid steps
-    and VMEM windows; the kernel here has none of those to size."""
+    union-find over the occupied strips for 8-connectivity, pixel
+    union-find for 4); CPU tensors take the plain ``label_components``. The
+    Pallas knobs ``tile``, ``max_rounds``, ``frames_per_step`` and
+    ``max_run`` size TPU grid steps and VMEM windows; the kernel here has
+    none of those to size."""
+    labels, _occ = root_labels(mask, connectivity)
+    return (labels, True) if return_converged else labels
+
+
+def root_labels(mask: torch.Tensor, connectivity: int = 8):
+    """K3 with its strip occupancy: (labels, strip_occ). labels as
+    label_components_tiled returns them; strip_occ the (N, *strip_shape(H,
+    W)) uint8 occupancy that K3 derived on the card for 8-connectivity (K6
+    reads only its strips), None for 4-connectivity and on the CPU."""
     _check_connectivity(connectivity)
     squeeze = mask.dim() == 2
     if squeeze:
@@ -177,39 +196,148 @@ def label_components_tiled(mask: torch.Tensor, connectivity: int = 8,
     if mask.dim() != 3 or mask.dtype not in (torch.uint8, torch.bool):
         raise ValueError("label_components_tiled: mask must be (N, H, W) uint8 or bool")
     if mask.device.type == "cpu":
-        labels = label_components(mask, connectivity)
+        labels, occ = label_components(mask, connectivity), None
     elif mask.device.type == "cuda":
-        labels = _labels_cuda(mask.to(torch.uint8).contiguous(), connectivity)
+        labels, occ = _labels_cuda(mask.to(torch.uint8).contiguous(), connectivity)
     else:
         raise ValueError(f"label_components_tiled: unsupported device {mask.device}")
     if squeeze:
-        labels = labels[0]
-    return (labels, True) if return_converged else labels
+        labels, occ = labels[0], None if occ is None else occ[0]
+    return labels, occ
 
 
-def _labels_cuda(mask: torch.Tensor, connectivity: int) -> torch.Tensor:
+def _labels_cuda(mask: torch.Tensor, connectivity: int):
+    """The launch sequence of tpuva_ccl_labels: (labels, the strip
+    occupancy it derived for 8-connectivity, else None)."""
     N, H, W = mask.shape
     dev = mask.device
     labels = torch.empty((N, H, W), dtype=torch.int32, device=dev)
     if N == 0 or H == 0 or W == 0:
-        return labels
+        occ = None if connectivity == 4 else torch.zeros(
+            (N, *strip_shape(H, W)), dtype=torch.uint8, device=dev)
+        return labels, occ
     Hb, Wb = (H + 1) // 2, (W + 1) // 2
     if N >= 1 << 16 or 4 * Hb * Wb >= 1 << 31:
         raise ValueError("label_components_tiled kernel: N < 65536 and 4*ceil(H/2)*ceil(W/2) < 2^31")
-    parent = bits = None
+    occ = tiles = ntiles = parent = bits = None
     if connectivity == 8:
+        occ = torch.empty((N, *strip_shape(H, W)), dtype=torch.uint8, device=dev)
+        tiles = torch.empty((N, -(-Hb // 16) * -(-Wb // 32)), dtype=torch.int32, device=dev)
+        ntiles = torch.empty((N,), dtype=torch.int32, device=dev)
         parent = torch.empty((N, Hb * Wb), dtype=torch.int32, device=dev)
         bits = torch.empty((N, Hb * Wb), dtype=torch.uint8, device=dev)
+    ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
     lib = _build.load()
     err = lib.tpuva_ccl_labels(
-        mask.data_ptr(), N, H, W, connectivity,
-        None if parent is None else parent.data_ptr(),
-        None if bits is None else bits.data_ptr(),
-        labels.data_ptr(), torch.cuda.current_stream(dev).cuda_stream,
+        mask.data_ptr(), N, H, W, connectivity, ptr(occ), ptr(tiles), ptr(ntiles),
+        ptr(parent), ptr(bits), labels.data_ptr(), torch.cuda.current_stream(dev).cuda_stream,
     )
     _build.check(lib, err, "ccl labels kernel")
     label_components_tiled.launches += 1
-    return labels
+    return labels, occ
 
 
 label_components_tiled.launches = 0
+
+
+def root_strip_shape(H: int, W: int, connectivity: int) -> tuple:
+    """(rows, columns) of K6's strips of an (H, W) frame, 512 scan keys
+    each: 8-connected strip_shape(H, W) (2 rows x 256 columns, K3's
+    strips), 4-connected (H, ceil(W / 512)) (512 columns of one row)."""
+    return strip_shape(H, W) if connectivity == 8 else (H, -(-W // 512))
+
+
+def root_occupancy_plain(root: torch.Tensor, connectivity: int = 8) -> torch.Tensor:
+    """(N, *root_strip_shape(H, W, connectivity)) uint8, 1 where one of K6's
+    strips of root-key labels (N, H, W) holds foreground: the occupancy
+    K6 derives, and K3's for 8-connectivity."""
+    if connectivity == 8:
+        return strip_occupancy_plain(root)
+    N, H, W = root.shape
+    S = root_strip_shape(H, W, 4)[1]
+    fg = torch.nn.functional.pad((root != 0).to(torch.uint8), (0, 512 * S - W))
+    return fg.reshape(N, H, S, 512).amax(dim=3)
+
+
+def root_stats(root: torch.Tensor, max_components: int, connectivity: int = 8,
+               sums: bool = True, bbox: bool = False, labels: bool = False,
+               strip_occ=None):
+    """Kernel K6: the dense stats of root-key labels (N, H, W) int32, as
+    K3 or label_components gives them.
+
+    Returns (count (N,) int32 = min(components, C), sums (N, C, 3) int64 of
+    (area, sum x, sum y), lohi (N, C, 4) int32 of (min x, min y, max x,
+    max y), dense (N, H, W) int32 cv2 ids 1..C, 0 for background and later
+    components), C = max_components, the first C components in cv2 id
+    order; an output not asked for (sums, bbox, labels) is None, and bbox
+    needs sums. strip_occ, (N, *root_strip_shape(H, W, connectivity))
+    uint8 or bool (K3's for 8-connectivity), says which strips hold
+    foreground: on the card only those are read (a strip it calls empty
+    must hold none); without it the kernel derives it from the labels.
+
+    CUDA tensors launch tpuva_root_stats (csrc/ccl.cu) once, with no host
+    sync; CPU tensors take the plain version ops.label.root_stats_plain
+    (whatever strip_occ says); both are bit-equal."""
+    _check_connectivity(connectivity)
+    if root.dim() != 3 or root.dtype != torch.int32:
+        raise ValueError("root_stats: root must be (N, H, W) int32")
+    if bbox and not sums:
+        raise ValueError("root_stats: bbox needs sums")
+    N, H, W = root.shape
+    if strip_occ is not None and (
+            tuple(strip_occ.shape) != (N, *root_strip_shape(H, W, connectivity))
+            or strip_occ.dtype not in (torch.uint8, torch.bool)
+            or strip_occ.device != root.device):
+        raise ValueError(f"root_stats: strip_occ must be (N, {root_strip_shape(H, W, connectivity)}) "
+                         "uint8 or bool on the labels' device")
+    if root.device.type == "cpu":
+        return root_stats_plain(root, max_components, connectivity, sums, bbox, labels)
+    if root.device.type != "cuda":
+        raise ValueError(f"root_stats: unsupported device {root.device}")
+    return _root_stats_cuda(root.contiguous(), max_components, connectivity, sums, bbox, labels,
+                            None if strip_occ is None else strip_occ.to(torch.uint8).contiguous())
+
+
+def _root_stats_cuda(root, C, connectivity, sums, bbox, labels, strip_occ):
+    N, H, W = root.shape
+    dev = root.device
+    if C < 0:
+        raise ValueError("root_stats: max_components must be >= 0")
+    if N == 0 or H == 0 or W == 0:
+        lohi = torch.tensor([1 << 30, 1 << 30, -1, -1], dtype=torch.int32, device=dev)
+        return (torch.zeros((N,), dtype=torch.int32, device=dev),
+                torch.zeros((N, C, 3), dtype=torch.int64, device=dev) if sums else None,
+                lohi.repeat(N, C, 1) if bbox else None,
+                torch.zeros((N, H, W), dtype=torch.int32, device=dev) if labels else None)
+    # every output is written by the kernels: k6_roots the count and the
+    # zeroed sums and seeded bbox, k6_labels every pixel
+    if N >= 1 << 16 or H >= 1 << 16 or W >= 1 << 16:
+        raise ValueError("root_stats kernel: N, H and W must be < 65536")
+    out_sums = torch.empty((N, C, 3), dtype=torch.int64, device=dev) if sums else None
+    lohi = torch.empty((N, C, 4), dtype=torch.int32, device=dev) if bbox else None
+    dense = torch.empty((N, H, W), dtype=torch.int32, device=dev) if labels else None
+    R, S = root_strip_shape(H, W, connectivity)
+    Q, Ct = R * S, max(C, 1)
+    derive = strip_occ is None
+    occ = torch.empty((N, R, S), dtype=torch.uint8, device=dev) if derive else strip_occ
+    # one int32 buffer (each allocation is host time): count (N), the
+    # scratch nlist (N), rcnt and list (N, Q), table (N, C)
+    buf = torch.empty((N * (2 + 2 * Q + Ct),), dtype=torch.int32, device=dev)
+    count = buf[:N]
+    ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
+    at = lambda i: buf.data_ptr() + 4 * i  # noqa: E731
+    lib = _build.load()
+    err = lib.tpuva_root_stats(
+        root.data_ptr(), N, H, W, connectivity, C, occ.data_ptr(), int(derive),
+        at(2 * N), at(2 * N + N * Q), at(N), at(2 * N + 2 * N * Q),
+        count.data_ptr(), ptr(out_sums), ptr(lohi), ptr(dense),
+        torch.cuda.current_stream(dev).cuda_stream,
+    )
+    _build.check(lib, err, "root stats kernel")
+    root_stats.launches += 1
+    root_stats.occ_launches += not derive
+    return count, out_sums, lohi, dense
+
+
+root_stats.launches = 0  # every K6 launch sequence
+root_stats.occ_launches = 0  # those given the caller's strip_occ (K3's)

@@ -11,15 +11,18 @@ This module holds the plain pieces: ``label_components`` (iterated 3x3 or
 4-neighbour min over int32 keys until nothing changes — the plain version
 kernels K2 and K3 are held against), the root table (``_root_table``: the
 first C root keys per frame, ascending = cv2 id order), integer sums,
-``relabel_dense``, the stats epilogue ``_assemble_stats``,
-``connected_components_with_stats`` and ``extract_detections``. The
-kernels live in ``ops/ccl.py``.
+``root_stats_plain`` (the plain version of kernel K6), the stats epilogue
+``_assemble_stats``, and the entry points ``relabel_dense``,
+``_stats_from_root``, ``connected_components_with_stats`` (K3, then K6 on
+a CUDA tensor) and ``extract_detections``. The kernels live in
+``ops/ccl.py``.
 
 tpuva contracts bf16 6-bit limbs of a (N, H*W, C) one-hot on the MXU; the
-port finds each foreground pixel's component by a sorted search in the
-root table and takes exact integer ``index_add_`` / ``scatter_reduce_``
-(amin/amax for the bbox) over those pixels only: deterministic, and no
-(N, H*W, C) tensor, which would not fit at 1080p and batch 256.
+plain version finds each foreground pixel's component by a sorted search
+in the root table and takes exact integer ``index_add_`` /
+``scatter_reduce_`` (amin/amax for the bbox) over those pixels only;
+kernel K6 takes integer atomics keyed by the same table: deterministic,
+and no (N, H*W, C) tensor, which would not fit at 1080p and batch 256.
 """
 
 from __future__ import annotations
@@ -175,61 +178,90 @@ def component_sums(root: torch.Tensor, max_components: int, connectivity: int = 
     return count, _pixel_sums(root.shape, max_components, n_idx, p_idx, rank)
 
 
+def root_stats_plain(root: torch.Tensor, max_components: int, connectivity: int = 8,
+                     sums: bool = True, bbox: bool = False, labels: bool = False):
+    """Plain version of kernel K6 (ops.ccl.root_stats), the torch ops: a
+    root compare, a sort of the roots, nonzero, searchsorted, index_add_
+    and scatter_reduce_. Any device (CPU tensors reach it through
+    root_stats; chip_smoke.py runs it on the card as K6's yardstick).
+
+    Returns (count (N,) int32, sums (N, C, 3) int64, lohi (N, C, 4) int32
+    of (min x, min y, max x, max y), 2^30 / -1 where absent, dense
+    (N, H, W) int32 ids), an output not asked for None."""
+    N, H, W = root.shape
+    C = max_components
+    dev = root.device
+    count, n_idx, p_idx, rank = _component_pixels(root, connectivity, C)
+    out_sums = _pixel_sums(root.shape, C, n_idx, p_idx, rank) if sums else None
+    lohi = dense = None
+    if bbox:
+        xy = torch.stack([p_idx % W, p_idx // W], dim=1)
+        idx = (n_idx * C + rank)[:, None].expand(-1, 2)
+        lo = torch.full((N * C, 2), 2**30, dtype=torch.int64, device=dev)
+        hi = torch.full((N * C, 2), -1, dtype=torch.int64, device=dev)
+        lo.scatter_reduce_(0, idx, xy, "amin")
+        hi.scatter_reduce_(0, idx, xy, "amax")
+        lohi = torch.cat([lo, hi], dim=1).reshape(N, C, 4).to(torch.int32)
+    if labels:
+        dense = torch.zeros((N, H * W), dtype=torch.int32, device=dev)
+        dense[n_idx, p_idx] = (rank + 1).to(torch.int32)
+        dense = dense.reshape(N, H, W)
+    return count, out_sums, lohi, dense
+
+
 def relabel_dense(root_label: torch.Tensor, max_components: int = 64,
-                  connectivity: int = 8):
+                  connectivity: int = 8, strip_occ=None):
     """Root-key labels (from label_components) to cv2's dense scan-order
     ids 1..n, 0 background, components past max_components -> 0 — port of
     tpuva.ops.label.relabel_dense. (N, H, W) or (H, W) int32.
 
-    Returns (dense (N, H, W) int32, count (N,) int32 = min(n, C))."""
+    Kernel K6 (ops.ccl.root_stats, labels only) on a CUDA tensor, given
+    strip_occ (K3's, ops.ccl.root_labels) or deriving it; its plain
+    version on a CPU tensor. Returns (dense (N, H, W) int32, count (N,)
+    int32 = min(n, C))."""
+    from tpuva_torch.ops.ccl import root_stats
+
     squeeze = root_label.dim() == 2
     root = root_label[None] if squeeze else root_label
-    N, H, W = root.shape
-    count, n_idx, p_idx, rank = _component_pixels(root, connectivity, max_components)
-    dense = torch.zeros((N, H * W), dtype=torch.int32, device=root.device)
-    dense[n_idx, p_idx] = (rank + 1).to(torch.int32)
-    dense = dense.reshape(N, H, W)
+    if squeeze and strip_occ is not None:
+        strip_occ = strip_occ[None]
+    count, _sums, _lohi, dense = root_stats(root, max_components, connectivity, sums=False,
+                                            labels=True, strip_occ=strip_occ)
     return (dense[0], count[0]) if squeeze else (dense, count)
 
 
 def _assemble_stats(count: torch.Tensor, sums: torch.Tensor, H: int, W: int):
     """Stats epilogue of tpuva/ops/label.py::_assemble_stats on the integer
     sums: background row by subtraction from static image totals, float32
-    centroid = float32 sum / float32 area, int32 centroid_sum.
+    centroid = float32 sum / float32 area, int32 centroid_sum. The three
+    columns go through each op together: about 20 torch ops a call (each a
+    launch on the card).
 
     count: (N,) int32; sums: (N, C, 3) int64 (area, sum x, sum y).
     Returns the stats dict {count, area (N,C+1) int32, centroid
     (N,C+1,2) float32, centroid_sum (N,C+1,2) int32}."""
-    dev = sums.device
-    area_c = sums[..., 0].to(torch.int32)
-    sx_c = sums[..., 1].to(torch.int32)
-    sy_c = sums[..., 2].to(torch.int32)
+    N = sums.shape[0]
+    s32 = sums.to(torch.int32)
     # int32 sums (wrapping, as jnp.sum of int32 does)
-    area0 = (H * W - area_c.sum(1).to(torch.int32)).to(torch.int32)
-    # filled on the device: a tensor made from a host value on the card
-    # would be a copy that waits for the stream
-    sx_tot = torch.full((), float(np.float32(float(H) * (W - 1) * W / 2.0)),
-                        dtype=torch.float32, device=dev)
-    sy_tot = torch.full((), float(np.float32(float(W) * (H - 1) * H / 2.0)),
-                        dtype=torch.float32, device=dev)
-    sx0 = sx_tot - sx_c.sum(1).to(torch.int32).to(torch.float32)
-    sy0 = sy_tot - sy_c.sum(1).to(torch.int32).to(torch.float32)
+    tot = s32.sum(1).to(torch.int32)
+    area0 = H * W - tot[:, 0]
+    # the image totals of x and y, filled on the device: a tensor made from
+    # a host value on the card would be a copy that waits for the stream
+    xy0 = torch.full((N, 2), float(np.float32(float(H) * (W - 1) * W / 2.0)),
+                     dtype=torch.float32, device=sums.device)
+    xy0[:, 1] = float(np.float32(float(W) * (H - 1) * H / 2.0))
+    xy0 -= tot[:, 1:].to(torch.float32)
 
-    area = torch.cat([area0[:, None], area_c], dim=1)
+    area = torch.cat([area0[:, None], s32[..., 0]], dim=1)
     present = area > 0
     safe_area = torch.clamp(area, min=1).to(torch.float32)
-    sx_f = torch.cat([sx0[:, None], sx_c.to(torch.float32)], dim=1)
-    sy_f = torch.cat([sy0[:, None], sy_c.to(torch.float32)], dim=1)
-    zero = torch.zeros((), dtype=torch.float32, device=dev)
-    cx = torch.where(present, sx_f / safe_area, zero)
-    cy = torch.where(present, sy_f / safe_area, zero)
-    centroid = torch.stack([cx, cy], dim=-1)
-    csum_c = torch.stack([sx_c, sy_c], dim=-1)
+    xy = torch.cat([xy0[:, None], s32[..., 1:].to(torch.float32)], dim=1)
+    centroid = torch.where(present[..., None], xy / safe_area[..., None], 0.0)
     # the background row's sums exceed int32 at large sizes: clamp the cast
     imax = float(np.float32(2**31 - 128))
-    csum0 = torch.clamp(torch.stack([sx0, sy0], dim=-1), -imax, imax)
-    csum = torch.cat([csum0.to(torch.int32)[:, None], csum_c], dim=1)
-    csum = torch.where(present[:, :, None], csum, 0)
+    csum0 = torch.clamp(xy0, -imax, imax).to(torch.int32)
+    csum = torch.cat([csum0[:, None], s32[..., 1:]], dim=1)
+    csum = torch.where(present[..., None], csum, 0)
     return {
         "count": count.to(torch.int32),
         "area": area,
@@ -238,42 +270,55 @@ def _assemble_stats(count: torch.Tensor, sums: torch.Tensor, H: int, W: int):
     }
 
 
-def _stats_from_root(root: torch.Tensor, max_components: int = 64,
-                     connectivity: int = 8, compute_bbox: bool = True,
-                     compute_labels: bool = True) -> dict:
-    """Stats of root-key labels (N, H, W) int32 — the dense branch of
-    tpuva.ops.label._stats_from_root; see connected_components_with_stats
-    for the output contract."""
-    N, H, W = root.shape
-    C = max_components
-    dev = root.device
-    count, n_idx, p_idx, rank = _component_pixels(root, connectivity, C)
-    out = _assemble_stats(count, _pixel_sums(root.shape, C, n_idx, p_idx, rank), H, W)
+def _stats_dict(count, sums, lohi, dense, H: int, W: int) -> dict:
+    """The stats dict of _stats_from_root from K6's outputs (the kernel's
+    or the plain version's): _assemble_stats, then the bbox (x, y, w, h)
+    from the extremes, the labels (a broadcast zero where dense is None),
+    overflow."""
+    N, C = sums.shape[:2]
+    dev = sums.device
+    out = _assemble_stats(count, sums, H, W)
     present = out["area"] > 0
-    if compute_labels:
-        labels = torch.zeros((N, H * W), dtype=torch.int32, device=dev)
-        labels[n_idx, p_idx] = (rank + 1).to(torch.int32)
-        labels = labels.reshape(N, H, W)
-    else:  # a broadcast zero: nothing is allocated or written
-        labels = torch.zeros((), dtype=torch.int32, device=dev).expand(N, H, W)
+    if dense is None:  # a broadcast zero: nothing is allocated or written
+        dense = torch.zeros((), dtype=torch.int32, device=dev).expand(N, H, W)
     bbox = torch.zeros((N, C + 1, 4), dtype=torch.int32, device=dev)
-    if compute_bbox:
-        xy = torch.stack([p_idx % W, p_idx // W], dim=1)
-        idx = (n_idx * C + rank)[:, None].expand(-1, 2)
-        lo = torch.full((N * C, 2), 2**30, dtype=torch.int64, device=dev)
-        hi = torch.full((N * C, 2), -1, dtype=torch.int64, device=dev)
-        lo.scatter_reduce_(0, idx, xy, "amin")
-        hi.scatter_reduce_(0, idx, xy, "amax")
-        bbox_c = torch.cat([lo, hi - lo + 1], dim=1).reshape(N, C, 4)
+    if lohi is not None:
+        lo, hi = lohi[..., :2].long(), lohi[..., 2:].long()
         # background row: the full image, as tpuva's (its reference scenes
         # always have background at the image borders)
-        bbox0 = torch.tensor([0, 0, W, H], dtype=torch.int64, device=dev).expand(N, 1, 4)
-        bbox = torch.cat([bbox0, bbox_c], dim=1)
+        bbox0 = torch.zeros((N, 1, 4), dtype=torch.int64, device=dev)
+        bbox0[..., 2], bbox0[..., 3] = W, H
+        bbox = torch.cat([bbox0, torch.cat([lo, hi - lo + 1], dim=2)], dim=1)
         bbox = torch.where(present[:, :, None], bbox, 0).to(torch.int32)
-    out["labels"] = labels
+    out["labels"] = dense
     out["bbox"] = bbox
     out["overflow"] = torch.zeros((N,), dtype=torch.int32, device=dev)
     return out
+
+
+def _stats_from_root(root: torch.Tensor, max_components: int = 64,
+                     connectivity: int = 8, compute_bbox: bool = True,
+                     compute_labels: bool = True, strip_occ=None) -> dict:
+    """Stats of root-key labels (N, H, W) int32 — the dense branch of
+    tpuva.ops.label._stats_from_root; see connected_components_with_stats
+    for the output contract. Kernel K6 (ops.ccl.root_stats) on a CUDA
+    tensor, given strip_occ (K3's) or deriving it; its plain version on a
+    CPU tensor."""
+    from tpuva_torch.ops.ccl import root_stats
+
+    H, W = root.shape[1:]
+    return _stats_dict(*root_stats(root, max_components, connectivity, True, compute_bbox,
+                                   compute_labels, strip_occ), H, W)
+
+
+def _stats_from_root_plain(root: torch.Tensor, max_components: int = 64,
+                           connectivity: int = 8, compute_bbox: bool = True,
+                           compute_labels: bool = True) -> dict:
+    """_stats_from_root through K6's plain version (the torch ops) on any
+    device: the yardstick chip_smoke.py times and checks K6 against."""
+    H, W = root.shape[1:]
+    return _stats_dict(*root_stats_plain(root, max_components, connectivity, True, compute_bbox,
+                                         compute_labels), H, W)
 
 
 def connected_components_with_stats(
@@ -298,23 +343,22 @@ def connected_components_with_stats(
       centroid_sum (N, C+1, 2) int32 — exact coordinate sums
       overflow     (N,) int32 — zeros (no capacity but C)
       ccl_converged bool
-    C = max_components. The root-key labels come from kernel K3
-    (ops.ccl.label_components_tiled) on a CUDA tensor and from its plain
-    version on a CPU tensor. Union-find has no round cap, so
-    ccl_converged is always True and strict (raise if not converged, as
-    tpuva) never fires."""
-    from tpuva_torch.ops.ccl import label_components_tiled
+    C = max_components. On a CUDA tensor kernel K3 (ops.ccl.root_labels)
+    gives the root-key labels and, 8-connected, its strip occupancy, and
+    kernel K6 (ops.ccl.root_stats) the stats from them, reading only that
+    occupancy's strips (4-connected it derives its own); on a CPU tensor
+    their plain versions. Union-find has no round cap, so ccl_converged is
+    always True and strict (raise if not converged, as tpuva) never
+    fires."""
+    from tpuva_torch.ops.ccl import root_labels
 
     squeeze = mask.dim() == 2
     if squeeze:
         mask = mask[None]
-    root, converged = label_components_tiled(
-        mask, connectivity=connectivity, return_converged=True
-    )
-    out = _stats_from_root(root, max_components, connectivity, compute_bbox, compute_labels)
-    out["ccl_converged"] = converged
-    if strict and not converged:
-        raise RuntimeError("CCL did not converge: component stats would be split")
+    root, occ = root_labels(mask, connectivity)
+    out = _stats_from_root(root, max_components, connectivity, compute_bbox, compute_labels,
+                           strip_occ=occ)
+    out["ccl_converged"] = True
     if squeeze:
         out = {k: v if k == "ccl_converged" else v[0] for k, v in out.items()}
     return out

@@ -6,7 +6,8 @@ kernels against their plain versions on; numpy only:
 - detection streams for the tracker (``det_sequence``): churn, empty
   frames, contested frames (the Hungarian search's slow path), more
   detections than free slots, and random clouds;
-- configs that one launch of kernel K1 does not take (``k1_refused_config``).
+- configs that one launch of kernel K1 does not take (``k1_refused_config``);
+- kernel K6's options (``ROOT_STATS_OPTIONS``).
 """
 
 import dataclasses
@@ -38,6 +39,37 @@ def mixed_scene():
     m[4, 5:H:6, 5:W:7] = 255  # 21 x 40 isolated dots
     return m
 
+
+def edge_strip_scene(H=71, W=601):
+    """One batch for the strip-occupancy skip of K3 and K6 (strips of 2
+    rows x 256 columns; tiles of 32 x 64 pixels): odd H and W, so the last
+    strip row holds one pixel row and the last strip column is ragged.
+    Frames: one pixel in the last strip of the last strip row; one
+    occupied strip at the right edge; one at the bottom edge; a diagonal
+    and a ring that cross tile and strip borders (8-connected only across
+    a strip's corner); every pixel; none; a random mask of density 0.3."""
+    rng = np.random.default_rng(9)
+    m = np.zeros((7, H, W), np.uint8)
+    m[0, H - 1, W - 1] = 255
+    m[1, 3:H - 3:2, W - 40:W - 2] = 255  # one strip column, rows apart
+    m[2, H - 1, 100:230] = 255  # the last strip row, one pixel row high
+    m[2, H - 2, 200:240:3] = 255
+    for k in range(min(H, W - 300)):  # a diagonal across strips 0-2
+        m[3, k, 220 + k] = 255
+    m[3, 30:34, 250:262] = 255  # a ring over a tile and a strip border
+    m[3, 30:46, 250] = m[3, 30:46, 261] = 255
+    m[3, 42:46, 250:262] = 255
+    m[3, 31, 255] = m[3, 32, 256] = 0  # a 4-connected break, 8-linked
+    m[3, 63, 511] = m[3, 64, 512] = 255  # touching only at a strip corner
+    m[4] = 255
+    m[6] = (rng.random((H, W)) < 0.3) * 255
+    return m
+
+
+# kernel K6's options (sums, bbox, labels): the stats alone, with the bbox,
+# with the dense ids, with both, and the ids alone (relabel_dense)
+ROOT_STATS_OPTIONS = ((True, False, False), (True, True, False), (True, False, True),
+                      (True, True, True), (False, False, True))
 
 DET_KINDS = ("churn", "empty", "contested", "crowd", "cloud")
 
