@@ -4,6 +4,7 @@
     python3 chip_smoke.py          # every phase below
     python3 chip_smoke.py --k1     # phases 1-3b, then K1's timings only
     python3 chip_smoke.py --k2     # phases 1-2, then K2's, K3's and K6's timings only
+    python3 chip_smoke.py --wide   # phases 1-2, then K1m's and K1b's timings only
     python3 chip_smoke.py --probes # phases 1-2, then phase 9 (the micro-probes) only
 
 Run from the repository root on a machine with one CUDA card and nvcc; it
@@ -60,9 +61,10 @@ raises, so the exit code is non-zero:
 5c. configs one K1 launch does not take (open and close 7 x 10, median 3
    with 5 x 10, a 33-wide close, a 65-tap blur, median 5, median 7 with
    Otsu) through process_clip on both use_pallas values and
-   StreamingPipeline on the card: K1 a batch with K1b (blur_u8) or K1m
-   (morph_u8) where k1_split takes the blur or the morphology out of its
-   launch, no K1 launch for a median k > 3, one K5 launch a batch, rows,
+   StreamingPipeline on the card: K1 a batch with K1b (blur_u8, one launch)
+   or K1m (morph_u8, a launch a morph_plan group) where k1_split takes the
+   blur or the morphology out of its launch, no K1 launch for a median
+   k > 3, one K5 launch a batch, rows,
    masks and background equal to the CPU run; K1b and K1m against their
    plain versions on that path's frames and masks; then a 1080p batch of
    64 frames with median 7 through process_batch on the card (the chunked
@@ -102,9 +104,11 @@ raises, so the exit code is non-zero:
    version, the torch ops the route ran before K6),
    connected_components_with_stats (the route's K3 + K6), K1's diff
    emit and K4 against their plain versions (K1's plain version runs on
-   no route: it is the kernels' yardstick of correctness), K1b (65 taps)
-   and K1m (a 7 x 7 dilate, beside max_pool2d) against theirs, the split
-   front end of open and close 7 x 10, K1's launch
+   no route: it is the kernels' yardstick of correctness), K1b (65 taps,
+   its plan) and K1m (7 x 7 rect and ellipse steps, erode and dilate, the
+   rect dilate beside max_pool2d and on density 0.3; a 10-step group, one
+   launch) against theirs, the split front ends of open and close 7 x 10
+   (K1 + K1m's morph_plan launches) and of a 65-tap blur, K1's launch
    plan (tile, grid, CTAs resident per SM from the occupancy query,
    waves), K4 against torch.bincount over
    frame-offset keys, K5 against its plain version on the route's
@@ -278,6 +282,15 @@ def bound(nbytes, nops):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+def near_share(mask, R):
+    """Share of the pixels of an (N, H, W) mask within R rows and columns
+    of its foreground (separable max pooling, in float16)."""
+    f = mask[:, None].to(torch.float16)
+    f = torch.nn.functional.max_pool2d(f, (1, 2 * R + 1), stride=1, padding=(0, R))
+    f = torch.nn.functional.max_pool2d(f, (2 * R + 1, 1), stride=1, padding=(R, 0))
+    return int(f.count_nonzero()) / f.numel()
+
+
 def diff_kwargs(kw):
     """K1's emit="diff" options from a mask-emit config: no threshold, no
     morphology."""
@@ -285,17 +298,23 @@ def diff_kwargs(kw):
     return dict({k: v for k, v in kw.items() if k in keep}, threshold=0.0, emit="diff")
 
 
+def blur_ops_per_px(ksize):
+    """Least scalar operations a pixel of the separable integer blur of
+    ksize taps, which are symmetric (cv2's; tests/test_torch_wide.py holds
+    blur_taps to it): per axis t[k](a + b) for each of the (ksize - 1) / 2
+    pairs (an add and a multiply-add) and the centre tap's multiply, then
+    the rounding add and shift."""
+    return 2 * (3 * (ksize - 1) // 2 + 1) + 2 if ksize > 1 else 0
+
+
 def k1_ops_per_px(kw):
-    """Least scalar operations per pixel of K1 for a config: the separable
-    integer blur (a multiply and an add per tap and axis, the rounding
-    shift), the background update, |F - B| and the threshold or the
-    rounding (6), and each
-    erode or dilate (separable for a rect SE, 2(k-1) min/max; one per SE
+    """Least scalar operations per pixel of K1 for a config: the blur
+    (blur_ops_per_px), the background update, |F - B| and the threshold or
+    the rounding (6), and each erode or dilate (separable for a rect SE, 2(k-1) min/max; one per SE
     point past the first otherwise)."""
     from tpuva_torch.ops.filters import structuring_element
 
-    k = kw.get("blur_ksize", 0)
-    ops = (2 * (2 * k - 1) + 2 if k > 1 else 0) + 6
+    ops = blur_ops_per_px(kw.get("blur_ksize", 0)) + 6
     ops += 38 if kw.get("median_ksize", 0) == 3 else 0  # 19 exchanges
     for shape, key, iters in (("open_shape", "open_ksize", "open_iters"),
                               ("close_shape", "close_ksize", "close_iters")):
@@ -509,8 +528,8 @@ def check_track_scan(err, state, dets, valid, frame0, where, **kw):
 
 def ptxas_summary(log, probes=False):
     """{kernel: {"registers": n, "spill_stores": b, "spill_loads": b}} of the
-    K1 instantiations (probes: of the micro-probes' cases, csrc/probes.cu)
-    in nvcc's -Xptxas -v report."""
+    K1 instantiations and K1m's and K1b's tiled kernels (probes: of the
+    micro-probes' cases, csrc/probes.cu) in nvcc's -Xptxas -v report."""
     out, name = {}, None
     for line in log.splitlines():
         m = re.search(r"Compiling entry function '([^']+)'", line)
@@ -520,7 +539,10 @@ def ptxas_summary(log, probes=False):
                 name = f"{k.group(1)}_probe<{k.group(2)}>" if k else None
             else:
                 k = re.search(r"fused_segment_kernelILi(\d+)ELi(\d+)ELi(\d+)E", m.group(1))
-                name = f"fused_segment_kernel<{', '.join(k.groups())}>" if k else None
+                w = re.search(r"(morph_group_kernel|blur_tile_kernelILb([01])E)", m.group(1))
+                name = (f"fused_segment_kernel<{', '.join(k.groups())}>" if k
+                        else "morph_group_kernel" if w and w.group(2) is None
+                        else f"blur_tile_kernel<{w.group(2)}>" if w else None)
             continue
         if name is None:
             continue
@@ -670,11 +692,120 @@ def k2_timing(clip, plate, card):
     return 0
 
 
+def wide_calls(frames, bg0, masks, kw):
+    """The K1m (morph_u8) and K1b (blur_u8) calls that the timing phase and
+    --wide both time at batch 256 and 1080p: name -> (kernel, call, plain
+    version), the plain version None for a front end. K1m: one 7 x 7 step
+    of the clip's K1 masks (rect and ellipse, erode and dilate), a rect
+    dilate of a random mask of density 0.3, and ten steps (open 7 x 5) as
+    ten one-step calls; K1b: a 65-tap blur of the frames; then the split
+    front ends of open and close 7 x 10 (K1 + K1m's launches) and of a
+    65-tap blur (K1b + K1). These exist in this tree and its parent, so
+    that this file, copied into a checkout of the parent, times the
+    parent's kernels the same way. Then those only this tree has: the ten
+    steps as one morph_steps group, and a 7 x 7 rect dilate and the group
+    on the masks as bytes 0/254, which take K1m's general min/max path
+    where 0/255 tiles take AND/OR."""
+    from tpuva_torch.ops import wide
+    from tpuva_torch.ops.filters import _morph, gaussian_blur_u8, structuring_element
+    from tpuva_torch.ops.fused_segment import fused_segment
+
+    dev = frames.device
+    dense = torch.rand(masks.shape, device=dev,
+                       generator=torch.Generator(device=dev).manual_seed(31)) < 0.3
+    dense = dense.to(torch.uint8) * 255
+    se7 = structuring_element("rect", 7)
+    steps10 = [(se7, True)] * 5 + [(se7, False)] * 5
+
+    def chain(step, x):  # the ten steps, one call each
+        for se, erode in steps10:
+            x = step(x, se, erode)
+        return x
+
+    calls = {}
+    for shape in ("rect", "ellipse"):
+        se = structuring_element(shape, 7)
+        for erode in (False, True):
+            calls[f"k1m_{shape}7_{'erode' if erode else 'dilate'}"] = (
+                "morph_u8", lambda se=se, erode=erode: wide.morph_u8(masks, se, erode),
+                lambda se=se, erode=erode: _morph(masks, se, erode))
+    calls["k1m_dense_rect7_dilate"] = ("morph_u8", lambda: wide.morph_u8(dense, se7, False),
+                                       lambda: _morph(dense, se7, False))
+    calls["k1m_10_calls"] = ("morph_u8", lambda: chain(wide.morph_u8, masks),
+                             lambda: chain(_morph, masks))
+    calls["k1b_65"] = ("blur_u8", lambda: wide.blur_u8(frames, 65),
+                       lambda: gaussian_blur_u8(frames, 65).to(torch.uint8))
+    calls["k1_split_reach120"] = (None, lambda: fused_segment(frames, bg0, **dict(
+        kw, open_ksize=7, open_iters=10, close_ksize=7, close_iters=10)), None)
+    calls["k1_split_blur65"] = (None, lambda: fused_segment(frames, bg0, **dict(kw, blur_ksize=65)),
+                                None)
+    if hasattr(wide, "morph_steps"):
+        m254 = masks // 255 * 254
+        calls["k1m_group10"] = ("morph_u8", lambda: wide.morph_steps(masks, steps10),
+                                lambda: chain(_morph, masks))
+        calls["k1m_rect7_dilate_0_254"] = ("morph_u8", lambda: wide.morph_u8(m254, se7, False),
+                                           lambda: _morph(m254, se7, False))
+        calls["k1m_group10_0_254"] = ("morph_u8", lambda: wide.morph_steps(m254, steps10),
+                                      lambda: chain(_morph, m254))
+    return calls
+
+
+def time_wide_calls(calls, err, reps):
+    """Each of wide_calls' calls checked bit for bit against its plain
+    version (check_equal into err), then timed over reps launches (a front
+    end over 2): ms by name."""
+    t = {}
+    for name, (kernel, fn, plain) in calls.items():
+        if plain is not None:
+            check_equal(err, kernel, [(name, fn(), plain())], "batch 256, 1080p")
+        t[f"{name}_ms"] = cuda_ms(fn, reps if plain is not None else 2)
+    return t
+
+
+def wide_timing(clip, plate, card):
+    """--wide: wide_calls through their entry points, K1 alone, and, where
+    this tree has blur_plan, K1b at 65 taps on other tiles than
+    blur_plan's and without __dp4a/__dp2a_lo; one JSON line."""
+    from tpuva_torch.ops import wide
+    from tpuva_torch.ops.filters import gaussian_blur_u8
+    from tpuva_torch.ops.fused_segment import fused_segment
+
+    dev = torch.device("cuda")
+    frames = torch.from_numpy(clip[:256]).to(dev)
+    bg0 = torch.from_numpy(plate.astype(np.float32)).to(dev)
+    masks = fused_segment(frames, bg0, **BENCH_KW)[0]
+    calls = wide_calls(frames, bg0, masks, BENCH_KW)
+    calls["k1"] = (None, lambda: fused_segment(frames, bg0, **BENCH_KW), None)
+    if hasattr(wide, "blur_plan"):
+        from tpuva_torch import _build
+        from tpuva_torch.ops.filters import blur_taps
+
+        taps, shift = blur_taps(65)
+
+        def k1b_forced(tile, dp):
+            out = torch.empty_like(frames)
+            err = _build.load().tpuva_blur_u8(
+                frames.data_ptr(), out.data_ptr(), *frames.shape,
+                wide._device_ints(taps, dev).data_ptr(), len(taps), shift, *tile, dp,
+                wide.blur_smem(*tile, len(taps)), torch.cuda.current_stream().cuda_stream)
+            _build.check(_build.load(), err, "blur_u8 kernel")
+            return out
+
+        blurred = lambda: gaussian_blur_u8(frames, 65).to(torch.uint8)  # noqa: E731
+        for tile, dp in (((128, 64), 0), ((128, 128), 1), ((64, 64), 1), ((256, 32), 1)):
+            calls[f"k1b_65_{tile[0]}x{tile[1]}_dp{dp}"] = (
+                "blur_u8", lambda tile=tile, dp=dp: k1b_forced(tile, dp), blurred)
+    t = time_wide_calls(calls, {"morph_u8": 0.0, "blur_u8": 0.0}, 5)
+    say("wide_timing", card=card, batch=256, shape=[1080, 1920], bit_equal=True, **t)
+    return 0
+
+
 def main():
-    mode = sys.argv[1] if sys.argv[1:] in (["--k1"], ["--k2"], ["--probes"]) else None
+    mode = (sys.argv[1] if sys.argv[1:] in (["--k1"], ["--k2"], ["--wide"], ["--probes"])
+            else None)
     k1_only = mode == "--k1"
     if sys.argv[1:] and mode is None:
-        print("usage: chip_smoke.py [--k1 | --k2 | --probes]", file=sys.stderr)
+        print("usage: chip_smoke.py [--k1 | --k2 | --wide | --probes]", file=sys.stderr)
         return 2
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)",
@@ -694,7 +825,8 @@ def main():
     from tpuva_torch.ops import connected_components_with_stats
     from tpuva_torch.ops.ccl import label_components_tiled, label_stats, label_sums_plain
     from tpuva_torch.ops.filters import (
-        _morph, gaussian_blur_u8, histogram_u8, histogram_u8_plain, structuring_element,
+        _morph, blur_taps, gaussian_blur_u8, histogram_u8, histogram_u8_plain,
+        structuring_element,
     )
     from tpuva_torch.ops.fused_segment import fused_segment, fused_segment_plain, k1_split
     from tpuva_torch.ops.wide import blur_u8, morph_u8
@@ -726,13 +858,15 @@ def main():
     if mode == "--probes":
         probes_phase(card)
         return 0
-    if mode == "--k2":
+    if mode in ("--k2", "--wide"):
         clip, _alive, _truth, plate = multi_blob_clip(1080, 1920, 256, n_blobs=6, radius=16,
                                                       births_deaths=False, noise_sigma=2.0)
-        return k2_timing(clip, plate, card)
-    # after --k2: a copy of this file in an earlier checkout times K2, K3
-    # and the dense stats with the names that checkout has
+        return (k2_timing if mode == "--k2" else wide_timing)(clip, plate, card)
+    # after --k2 and --wide: a copy of this file in an earlier checkout
+    # times K2, K3, the dense stats, K1m and K1b with the names that
+    # checkout has
     from tpuva_torch.ops.ccl import root_labels, root_occupancy_plain, root_stats
+    from tpuva_torch.ops.wide import blur_plan, morph_plan, morph_steps, open_close_steps
     from tpuva_torch.ops.label import _stats_from_root, _stats_from_root_plain, root_stats_plain
     from tpuva_torch.scenes import ROOT_STATS_OPTIONS, edge_strip_scene
 
@@ -1005,7 +1139,13 @@ def main():
     for name in K1_REFUSED:
         fcfg = k1_refused_config(bench_cfg(config, 8), name)
         median_k1 = fcfg.median is None or fcfg.median.ksize <= 3
-        parts = k1_split(*small.shape[1:], **_front_end_kwargs(fcfg)) if median_k1 else None
+        fkw = _front_end_kwargs(fcfg)
+        parts = k1_split(*small.shape[1:], **fkw) if median_k1 else None
+        # K1m's launches a batch: morph_plan's groups of the open and close
+        n_morph = len(morph_plan(*small.shape[1:], open_close_steps(
+            ((fkw["open_shape"], fkw["open_ksize"], fkw["open_iters"]),
+             (fkw["close_shape"], fkw["close_ksize"], fkw["close_iters"])))))
+        n_batches = -(-small.shape[0] // fcfg.batch)
         ref = process_clip(small, fcfg, background0=small_plate, max_components=MAX_COMPONENTS,
                            return_masks=True, device="cpu")
         for route in ("process_clip", "process_clip(use_pallas=True)", "StreamingPipeline"):
@@ -1024,16 +1164,18 @@ def main():
             counts = read_counts()
             for k in split_launches:
                 split_launches[k] += counts[k]
-            if median_k1:  # K1 a batch, and K1b or K1m where k1_split says
-                ok = (counts["fused_segment"] >= 2 and bool(counts["blur_u8"]) == parts[0]
-                      and bool(counts["morph_u8"]) == parts[1])
+            if median_k1:  # K1 a batch, and K1b (one launch) or K1m where k1_split says
+                ok = (counts["fused_segment"] >= 2
+                      and counts["blur_u8"] == n_batches * parts[0]
+                      and counts["morph_u8"] == n_batches * n_morph * parts[1])
             else:  # the torch front end, as tpuva's jnp branch
                 ok = not (counts["fused_segment"] or counts["blur_u8"] or counts["morph_u8"])
             if not ok or counts["track_scan"] < 2:
                 raise AssertionError(f"{name} through {route}: launches {counts}")
             if not same:
                 raise AssertionError(f"{name} through {route}: the card's run differs from the CPU's")
-        refused[name] = dict(rows=len(ref[0]), k1_split=parts)
+        refused[name] = dict(rows=len(ref[0]), k1_split=parts,
+                             k1m_launches_a_batch=n_morph if parts and parts[1] else 0)
     # K1b and K1m against their plain versions on that path's inputs: the
     # small clip's frames at 65 taps, and its K1 masks under the 7 x 7 and
     # 33 SEs
@@ -1382,31 +1524,30 @@ def main():
     t["k5_ms"] = cuda_ms(lambda: track_scan(*k5_args, **t_kw), reps)
     t["k5_us_per_frame"] = 1e3 * t["k5_ms"] / N
     t["k5_plain_ms"] = cuda_ms(lambda: track_scan_plain(*k5_args, **t_kw), 2)
-    # K1b at 65 taps on the batch's frames, K1m as one 7 x 7 dilate of its
-    # masks beside max_pool2d (the same function on 0/255 masks: its -inf
-    # padding is dilate's 0 border), each checked first; then the split
-    # front end of open and close 7 x 10 (K1 + 40 K1m steps)
-    check_equal(err, "blur_u8", [("blurred", blur_u8(frames, 65),
-                                  gaussian_blur_u8(frames, 65).to(torch.uint8))],
-                "main path frames, batch 256")
-    t["k1b_ms"] = cuda_ms(lambda: blur_u8(frames, 65), reps)
+    # K1m and K1b: wide_calls (--wide times them too), each checked bit for
+    # bit first; beside them the plan, the 10-step group's launches, the
+    # plain versions and max_pool2d against the 7 x 7 rect dilate
+    t["k1b_plan"] = blur_plan(1080, 1920, blur_taps(65)[0])._asdict()
+    t.update(time_wide_calls(wide_calls(frames, bg0, masks, kw), err, reps))
     t["k1b_plain_ms"] = cuda_ms(lambda: gaussian_blur_u8(frames, 65).to(torch.uint8), 2)
     se7 = structuring_element("rect", 7)
-    check_equal(err, "morph_u8", [("mask", morph_u8(masks, se7, False), _morph(masks, se7, False))],
-                "main path masks, batch 256")
+    before = morph_u8.launches
+    morph_steps(masks, [(se7, True)] * 5 + [(se7, False)] * 5)
+    t["k1m_group10_launches"] = morph_u8.launches - before
     masks_f = masks[:, None].to(torch.float32)
     pooled = torch.nn.functional.max_pool2d(masks_f, 7, stride=1, padding=3)
     if not torch.equal(pooled[:, 0].to(torch.uint8), morph_u8(masks, se7, False)):
         raise AssertionError("max_pool2d differs from K1m's 7 x 7 dilate")
     del pooled
-    t["k1m_ms"] = cuda_ms(lambda: morph_u8(masks, se7, False), reps)
     t["k1m_plain_ms"] = cuda_ms(lambda: _morph(masks, se7, False), 2)
     t["k1m_library_ms"] = cuda_ms(
         lambda: torch.nn.functional.max_pool2d(masks_f, 7, stride=1, padding=3), reps)
     del masks_f
     reach120_kw = dict(kw, open_ksize=7, open_iters=10, close_ksize=7, close_iters=10)
+    reach120_steps = open_close_steps((("rect", 7, 10), ("rect", 7, 10)))
     t["k1_split_reach120_parts"] = list(k1_split(1080, 1920, **reach120_kw))
-    t["k1_split_reach120_ms"] = cuda_ms(lambda: fused_segment(frames, bg0, **reach120_kw), 2)
+    t["k1_split_reach120_k1m_launches"] = len(morph_plan(1080, 1920, reach120_steps))
+    t["k1_split_blur65_parts"] = list(k1_split(1080, 1920, **dict(kw, blur_ksize=65)))
     # staging: pinned ring + side stream (BatchStager) over six batches,
     # the interval between consecutive batches ready on the card; and a
     # pageable copy of one batch
@@ -1475,11 +1616,20 @@ def main():
                             + 2 * (cfg.track.max_tracks * 17 + 4),
                             k5_ops(cfg.track.max_tracks, cfg.segment.max_blobs, N)),
     }
-    # K1b: frames read, blurred frames written, the separable blur's
-    # operations as k1_ops_per_px counts them; K1m: the mask read and
-    # written, a separable 7 x 7 max (2 x 6 a pixel)
-    bounds["blur_u8"] = bound(2 * px, (2 * (2 * 65 - 1) + 2) * px)
+    # K1b: frames read, blurred frames written, blur_ops_per_px(65); K1m:
+    # the mask read and written once a launch, a separable 7 x 7 min or max
+    # (2 x 6 a pixel) a step: one step, the 10-step group, and reach 120's
+    # launches (10 steps each)
+    bounds["blur_u8"] = bound(2 * px, blur_ops_per_px(65) * px)
     bounds["morph_u8"] = bound(2 * px, 2 * (7 - 1) * px)
+    # (the groups' operations only where this run's data needs them: at the
+    # pixels within a launch's summed reach, 30, of the masks' foreground;
+    # farther ones stay 0)
+    t["k1m_near_share_30"] = near_share(masks, 30)
+    t["k1m_group10_bound"] = bound(2 * px * t["k1m_group10_launches"],
+                                   10 * 2 * (7 - 1) * px * t["k1m_near_share_30"])
+    t["k1m_reach120_bound"] = bound(2 * px * t["k1_split_reach120_k1m_launches"],
+                                    40 * 2 * (7 - 1) * px * t["k1m_near_share_30"])
     t["k5_bound_ms"] = bounds["track_scan"][0]
     # K2 on density 0.3, given its occupancy: every strip occupied
     t["k2_dense_occ_bound_ms"] = bound(strip_occ.numel() + int(dense_occ.sum()) * STRIP_PX,
@@ -1507,7 +1657,8 @@ def main():
              "fused_segment_diff": ("k1_diff_ms", "k1_diff_plain_ms"),
              "histogram_u8": ("k4_ms", "k4_plain_ms"),
              "track_scan": ("k5_ms", "k5_plain_ms"),
-             "blur_u8": ("k1b_ms", "k1b_plain_ms"), "morph_u8": ("k1m_ms", "k1m_plain_ms")}
+             "blur_u8": ("k1b_65_ms", "k1b_plain_ms"),
+             "morph_u8": ("k1m_rect7_dilate_ms", "k1m_plain_ms")}
     launches = {
                 # the streamed default route's K1 (the staged route's is padded)
                 "fused_segment": default_counts["fused_segment"],

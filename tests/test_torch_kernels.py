@@ -38,7 +38,7 @@ from tpuva_torch.ops.ccl import (
     strip_occupancy_plain, strip_shape,
 )
 from tpuva_torch.ops.filters import (
-    _morph, gaussian_blur_u8, histogram_u8, histogram_u8_plain, structuring_element,
+    _morph, blur_taps, gaussian_blur_u8, histogram_u8, histogram_u8_plain, structuring_element,
 )
 from tpuva_torch.ops.fused_segment import (
     TILES,
@@ -220,22 +220,68 @@ def test_fused_segment_diff_kernel_matches_plain(cuda_device, name):
 
 
 # blur sizes for K1b: K1's own range, and past its 63 taps (sigma 0 and a
-# wide sigma: the u8_gaussian_taps quantizer)
-WIDE_BLURS = [(3, 0.0), (5, 0.0), (9, 0.0), (63, 4.0), (65, 0.0), (101, 30.0)]
+# wide sigma: the u8_gaussian_taps quantizer), up to 255 taps
+WIDE_BLURS = [(3, 0.0), (5, 0.0), (9, 0.0), (63, 4.0), (65, 0.0), (101, 30.0), (255, 0.0)]
+
+
+def unaligned(x: np.ndarray, device) -> torch.Tensor:
+    """x on the device as a contiguous view at storage offset 1 (its
+    data_ptr not 16-byte aligned)."""
+    base = torch.zeros(x.size + 1, dtype=torch.uint8, device=device)
+    view = base[1:].view(x.shape)
+    view.copy_(torch.from_numpy(x))
+    assert view.is_contiguous() and view.data_ptr() % 16
+    return view
 
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("ksize, sigma", WIDE_BLURS)
 def test_blur_u8_kernel_matches_plain(cuda_device, ksize, sigma):
-    """K1b against gaussian_blur_u8 on every K1 shape: a tap reach wider
-    than the image (one row, one column, 7 x 5) reflects many times."""
-    for shape in K1_SHAPES:
+    """K1b against gaussian_blur_u8 on every K1 shape (a tap reach wider
+    than the image, one row, one column, 7 x 5: reflected many times; W not
+    a multiple of 4 or 16), aligned and at storage offset 1, one launch a
+    call."""
+    for shape in K1_SHAPES + [(2, 64, 272)]:
         frames, _ = scene(*shape, seed=12)
         ref = gaussian_blur_u8(torch.from_numpy(frames), ksize, sigma).to(torch.uint8)
-        before = blur_u8.launches
-        got = blur_u8(torch.from_numpy(frames).to(cuda_device), ksize, sigma)
+        for x in (torch.from_numpy(frames).to(cuda_device), unaligned(frames, cuda_device)):
+            before = blur_u8.launches
+            got = blur_u8(x, ksize, sigma)
+            torch.cuda.synchronize()
+            assert blur_u8.launches == before + 1
+            np.testing.assert_array_equal(got.cpu().numpy(), ref.numpy(), err_msg=f"{shape}")
+
+
+# K1b's instantiations and paths besides cv2's taps of at most 255:
+# asymmetric taps (__dp4a and __dp2a_lo; the window's columns at every
+# offset in their 16-byte chunk), a tap of 256 (a multiply-add a tap),
+# cv2's 65 taps at sigma 0.1 (a centre tap of 256), and 1001 taps, whose
+# window fits no tile (the two global passes)
+BLUR_INSTANTIATIONS = {
+    "asym_dp4a": ((1, 2, 5, 9, 3, 0, 7), 5), "asym21_dp4a": ((2,) * 9 + (3,) * 12, 6),
+    "asym_256": ((0, 256, 1), 8), "centre_256": blur_taps(65, 0.1), "global": blur_taps(1001, 0.0),
+}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", sorted(BLUR_INSTANTIATIONS))
+def test_blur_u8_kernel_instantiations(cuda_device, name):
+    """K1b's other instantiations against the integer correlation they
+    compute, as blur_plan picks them."""
+    from tpuva_torch.ops.filters import _conv_axis_int
+    from tpuva_torch.ops.wide import _blur_cuda, blur_plan
+
+    taps, shift = BLUR_INSTANTIATIONS[name]
+    for shape in K1_SHAPES + [(2, 64, 272)]:
+        frames, _ = scene(*shape, seed=14)
+        x = torch.from_numpy(frames)
+        y = _conv_axis_int(_conv_axis_int(x.to(torch.int32), taps, 2), taps, 1)
+        ref = ((y + (1 << (shift - 1))) >> shift).to(torch.uint8)
+        plan = blur_plan(*shape[1:], taps)
+        assert plan.dp == (max(taps) <= 255)
+        assert (plan.kernel == "global") == (name == "global")
+        got = _blur_cuda(x.to(cuda_device), taps, shift)
         torch.cuda.synchronize()
-        assert blur_u8.launches == before + 1
         np.testing.assert_array_equal(got.cpu().numpy(), ref.numpy(), err_msg=f"{shape}")
 
 
@@ -244,19 +290,20 @@ def test_blur_u8_kernel_matches_plain(cuda_device, ksize, sigma):
 @pytest.mark.parametrize("ksize", [1, 3, 7, 33, 45])
 def test_morph_u8_kernel_matches_plain(cuda_device, shape_name, ksize):
     """K1m, one erode and one dilate step, against filters._morph on every
-    K1 shape, on 0/255 masks and on arbitrary bytes (the early exit at 0
-    or 255 must not change a result); SEs wider than the image included,
-    and random ones with several runs a row."""
+    K1 shape, on 0/255 masks (the AND/OR path) and on arbitrary bytes
+    (__vminu4/__vmaxu4); SEs wider than the image included, and random
+    ones with several runs a row, without their anchor too (no skip of
+    all-zero tiles then); one launch a step."""
     rng = np.random.default_rng(ksize)
     if shape_name == "random":
         se = rng.random((ksize, ksize)) < 0.5
-        se[ksize // 2, ksize // 2] = True
+        se[ksize // 2, ksize // 2] = ksize != 45
     else:
         se = structuring_element(shape_name, ksize)
     for shape in K1_SHAPES:
         frames, _ = scene(*shape, seed=13)
         for x in (np.where(frames > 100, 255, 0).astype(np.uint8),
-                  rng.integers(0, 256, shape, dtype=np.uint8)):
+                  rng.integers(0, 256, shape, dtype=np.uint8), np.zeros(shape, np.uint8)):
             for erode in (True, False):
                 ref = _morph(torch.from_numpy(x), se, erode)
                 before = morph_u8.launches
@@ -267,14 +314,78 @@ def test_morph_u8_kernel_matches_plain(cuda_device, shape_name, ksize):
                                               err_msg=f"{shape}, erode={erode}")
 
 
+def mixed_steps(n, seed):
+    """n erode and dilate steps in a random order over rect, ellipse and
+    random SEs (several runs a row) of a few sizes."""
+    rng = np.random.default_rng(seed)
+    ses = [structuring_element("rect", 3), structuring_element("rect", 7),
+           structuring_element("ellipse", 7), structuring_element("ellipse", 5),
+           rng.random((5, 9)) < 0.5, np.ones((1, 5), bool)]
+    ses[4][2, 4] = True
+    return [(ses[int(rng.integers(len(ses)))], bool(rng.integers(2))) for _ in range(n)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n", range(1, 13))
+def test_morph_steps_kernel_matches_plain(cuda_device, n):
+    """K1m's grouped launches: n mixed erode and dilate steps against the
+    chain of _morph steps, one launch a group of morph_plan, on every K1
+    shape (the group's halo wider and taller than the image) and a 1080p
+    crop, aligned and at storage offset 1, masks and arbitrary bytes; with
+    pad_to, the last group's padded mask and occ128 against pad_occ_plain."""
+    from tpuva_torch.ops.wide import morph_plan, morph_steps, pad_occ_plain
+
+    steps = mixed_steps(n, seed=n)
+    for shape in K1_SHAPES + [(1, 1, 1), (1, 1, 333), (2, 270, 480)]:
+        frames, _ = scene(*shape, seed=15)
+        masks = np.where(frames > 100, 255, 0).astype(np.uint8)
+        plan = morph_plan(*shape[1:], steps)
+        for x in (masks, np.random.default_rng(n).integers(0, 256, shape, dtype=np.uint8)):
+            ref = torch.from_numpy(x)
+            for se, erode in steps:
+                ref = _morph(ref, se, erode)
+            for dev_x in (torch.from_numpy(x).to(cuda_device), unaligned(x, cuda_device)):
+                before = morph_u8.launches
+                got = morph_steps(dev_x, steps)
+                torch.cuda.synchronize()
+                assert morph_u8.launches == before + len(plan)
+                np.testing.assert_array_equal(got.cpu().numpy(), ref.numpy(), err_msg=f"{shape}")
+        pad_to = (-(-shape[1] // 2) * 2, -(-shape[2] // 128) * 128 + 128)
+        ref_p, ref_o = pad_occ_plain(ref, pad_to)
+        got_p, got_o = morph_steps(unaligned(x, cuda_device), steps, pad_to=pad_to)
+        torch.cuda.synchronize()
+        np.testing.assert_array_equal(got_p.cpu().numpy(), ref_p.numpy(), err_msg=f"{shape}")
+        np.testing.assert_array_equal(got_o.cpu().numpy(), ref_o.numpy(), err_msg=f"{shape}")
+
+
+@pytest.mark.gpu
+def test_morph_step_kernel_past_every_tile(cuda_device):
+    """An SE whose single step no tile's buffers hold (1 x 8001) takes the
+    one-step global kernel, as morph_plan says, between tiled groups."""
+    from tpuva_torch.ops.wide import morph_plan, morph_steps
+
+    wide_se = np.ones((1, 8001), bool)
+    steps = [(wide_se, True), (structuring_element("rect", 3), False), (wide_se, False)]
+    assert [g.kernel for g in morph_plan(3, 50, steps)] == ["step", "tiled", "step"]
+    for x in (np.random.default_rng(5).integers(0, 256, (2, 3, 50), dtype=np.uint8),
+              np.random.default_rng(6).integers(0, 256, (2, 3, 9000), dtype=np.uint8)):
+        ref = torch.from_numpy(x)
+        for se, erode in steps:
+            ref = _morph(ref, se, erode)
+        got = morph_steps(torch.from_numpy(x).to(cuda_device), steps)
+        torch.cuda.synchronize()
+        np.testing.assert_array_equal(got.cpu().numpy(), ref.numpy())
+
+
 # options one K1 launch does not take: (options, blur_u8 and morph_u8
-# launches a call on a (N, 100, 160) batch)
+# launches a call on a (N, 100, 160) batch; K1m's are morph_plan's groups,
+# tests/test_torch_wide.py)
 SPLIT_CONFIGS = {
     "reach120": (dict(BENCH, open_ksize=7, open_iters=10, close_ksize=7, close_iters=10),
-                 0, 40),
-    "se33_median3": (dict(BENCH, median_ksize=3, close_shape="ellipse", close_ksize=33), 0, 4),
+                 0, 4),
+    "se33_median3": (dict(BENCH, median_ksize=3, close_shape="ellipse", close_ksize=33), 0, 2),
     "blur65": (dict(BENCH, blur_ksize=65), 1, 0),
-    "blur65_se33": (dict(BENCH, blur_ksize=65, close_ksize=33), 1, 4),
+    "blur65_se33": (dict(BENCH, blur_ksize=65, close_ksize=33), 1, 2),
     "blur101_diff": (dict(alpha=0.02, threshold=0.0, blur_ksize=101, blur_sigma=30.0,
                           median_ksize=3, emit="diff"), 1, 0),
 }
@@ -626,10 +737,12 @@ def test_track_scan_kernel_global_scratch_matches_plain(cuda_device, assigner):
 def test_configs_k1_refuses_run_on_the_card(cuda_device, name):
     """process_batch (through process_clip) and process_clip(use_pallas=True)
     on the card, one K5 launch a batch, and the CPU run's rows and masks:
-    K1 a batch with K1b or K1m beside it where k1_split takes the blur or
-    the morphology out of its launch; no K1 launch for a median k > 3
-    (the torch front end, as tpuva's jnp branch)."""
+    K1 a batch with K1b (one launch) or K1m (morph_plan's launches) beside
+    it where k1_split takes the blur or the morphology out of its launch;
+    no K1 launch for a median k > 3 (the torch front end, as tpuva's jnp
+    branch)."""
     from tpuva_torch.ops.fused_segment import k1_split
+    from tpuva_torch.ops.wide import morph_plan, open_close_steps
     from refimpl.synthetic import multi_blob_clip
     from tpuva_torch.graph.pipeline import _front_end_kwargs, process_clip
 
@@ -648,8 +761,11 @@ def test_configs_k1_refuses_run_on_the_card(cuda_device, name):
                        device="cpu")
     assert len(ref[0]) > 10
     median_k1 = cfg.median is None or cfg.median.ksize <= 3
-    blur_apart, morph_apart = (k1_split(160, 240, **_front_end_kwargs(cfg)) if median_k1
-                               else (False, False))
+    kw = _front_end_kwargs(cfg)
+    blur_apart, morph_apart = k1_split(160, 240, **kw) if median_k1 else (False, False)
+    steps = open_close_steps(((kw["open_shape"], kw["open_ksize"], kw["open_iters"]),
+                              (kw["close_shape"], kw["close_ksize"], kw["close_iters"])))
+    n_morph = len(morph_plan(160, 240, steps)) if morph_apart else 0
     for use_pallas in (False, True):
         k1, k5 = fused_segment.launches, track_scan.launches
         wide = blur_u8.launches, morph_u8.launches
@@ -657,8 +773,8 @@ def test_configs_k1_refuses_run_on_the_card(cuda_device, name):
                                           return_masks=True, use_pallas=use_pallas, device="cuda")
         assert fused_segment.launches == k1 + (2 if median_k1 else 0)
         assert track_scan.launches == k5 + 2
-        assert (blur_u8.launches > wide[0]) == blur_apart
-        assert (morph_u8.launches > wide[1]) == morph_apart
+        assert blur_u8.launches - wide[0] == 2 * blur_apart  # a launch a batch
+        assert morph_u8.launches - wide[1] == 2 * n_morph
         assert rows == ref[0]
         np.testing.assert_array_equal(masks, ref[2])
         assert torch.equal(carry.bg.cpu(), ref[1].bg)

@@ -77,14 +77,28 @@ _SIGNATURES = {
         _P,  # stream
     ],
     "tpuva_blur_u8": [
+        _P, _P, _I, _I, _I,  # x, out, N, H, W
+        _P, _I, _I,  # taps (device), ntaps, shift
+        _I, _I, _I, _I,  # tile_h, tile_w, dp, smem_bytes (ops/wide.py::blur_plan)
+        _P,  # stream
+    ],
+    "tpuva_blur_u8_global": [
         _P, _P, _P, _I, _I, _I,  # x, rows, out, N, H, W
         _P, _I, _I,  # taps (device), ntaps, shift
         _P,  # stream
     ],
     "tpuva_morph_u8": [
         _P, _P, _I, _I, _I,  # x, out, N, H, W
+        _P, _I, _I,  # table (device), table_len, nsteps
+        _I, _I, _I,  # Ry, Rx, skip_ok
+        _I, _I, _I, _I,  # tile_h, tile_w, nbuf, smem_bytes (ops/wide.py::morph_plan)
+        _I, _I, _P,  # Hp, Wp, occ (padded_occ's last group; H, W, null otherwise)
+        _P,  # stream
+    ],
+    "tpuva_morph_step_u8": [
+        _P, _P, _I, _I, _I,  # x, out, N, H, W
         _P, _I, _I,  # runs (device), n, erode
-        _I, _I, _P,  # Hp, Wp, occ (padded_occ's last step; H, W, null otherwise)
+        _I, _I, _P,  # Hp, Wp, occ
         _P,  # stream
     ],
     "tpuva_track_scan_scratch": [

@@ -61,7 +61,7 @@ from tpuva_torch.ops.filters import (
     structuring_element,
     threshold as threshold_op,
 )
-from tpuva_torch.ops.wide import blur_u8, open_close_u8, pad_occ_plain
+from tpuva_torch.ops.wide import SMEM_LIMIT, blur_u8, open_close_u8, pad_occ_plain
 
 # limits of csrc/fused_segment.cu's parameter block
 MAX_TAPS = 63
@@ -73,7 +73,6 @@ UNROLLED_TAPS = (1, 3, 5, 7)
 # widths 32, 64 and 128 (its output stores split a row over the threads)
 TILES = ((64, 64), (32, 128), (32, 64), (64, 128), (16, 128), (16, 64),
          (16, 32), (8, 32), (4, 32), (2, 32), (1, 32))
-SMEM_LIMIT = 232_448  # dynamic shared memory a CTA may use on an H100
 SMS = 132  # streaming multiprocessors of an H100 SXM
 THREADS = 256  # threads per CTA
 
