@@ -4,6 +4,8 @@
     python3 chip_smoke.py          # every phase below
     python3 chip_smoke.py --k1     # phases 1-3b, then K1's timings only
     python3 chip_smoke.py --k2     # phases 1-2, then K2's, K3's and K6's timings only
+                                   # (CUDA events; device ms and launches a call)
+    python3 chip_smoke.py --k5     # phases 1-2, then K5's timings only
     python3 chip_smoke.py --wide   # phases 1-2, then K1m's and K1b's timings only
     python3 chip_smoke.py --probes # phases 1-2, then phase 9 (the micro-probes) only
 
@@ -15,7 +17,8 @@ raises, so the exit code is non-zero:
 1. card: nvidia-smi's name and power limit (on a line of their own), the
    torch and CUDA versions;
 2. build: nvcc compiles tpuva_torch/csrc/*.cu (registers and spills of
-   K1's and the micro-probes' instantiations in the build line);
+   K1's, K1b's, K1m's, K2's, K5's and the micro-probes' kernels in the
+   build line);
 3. K1 (fused_segment) against its plain version on the card, at
    (16, 1080, 1920), a ragged (5, 250, 333) and a one-column (4, 120, 1),
    over six configs (blur 3, 5, 7 and 9 taps: the unrolled and the
@@ -29,8 +32,10 @@ raises, so the exit code is non-zero:
    (16, 1080, 1920), a ragged (5, 250, 333) and on phase 5c's 160 x 240
    clip for the configs one K1 launch does not take (K1m's last step
    writing the padded mask and occ128 where the open and close leave K1);
-4. K2 (CCL + stats) against its plain version on the card, on K1's masks
-   and random masks of density 0.05 and 0.3: every stats field bit-equal;
+4. K2 (CCL + stats, one cooperative launch with its stats epilogue)
+   against its plain version (label_sums_plain, then _assemble_stats) on
+   the card, on K1's masks and random masks of density 0.05 and 0.3: every
+   stats field bit-equal, overflow included;
    K2 given the strip occupancy (from K1's occ128 on K1's padded masks, of
    the mask padded to 64 x 256 on the random ones, and on an all-empty
    batch) against K2 deriving it and against the plain version;
@@ -57,7 +62,10 @@ raises, so the exit code is non-zero:
    second from the state the first leaves) and on the synthetic streams of
    tpuva_torch.scenes.det_sequence (churn, empty, contested, crowd, cloud)
    at three table shapes, both assigners, frames near 2^24, and one table
-   too large for shared memory (the global-scratch instantiation);
+   too large for shared memory (the global-scratch instantiation); each
+   launch took the kernel scan_plan names (the register kernel up to
+   32 x 32; 64 x 16 and 600 x 100 the kept table kernel, in shared memory
+   and in global scratch);
 5c. configs one K1 launch does not take (open and close 7 x 10, median 3
    with 5 x 10, a 33-wide close, a 65-tap blur, median 5, median 7 with
    Otsu) through process_clip on both use_pallas values and
@@ -112,8 +120,12 @@ raises, so the exit code is non-zero:
    plan (tile, grid, CTAs resident per SM from the occupancy query,
    waves), K4 against torch.bincount over
    frame-offset keys, K5 against its plain version on the route's
-   batch-256 detections, the whole tracker stage (_finish_batch:
-   extract_detections and K5), BatchStager's pinned staging per batch
+   batch-256 detections and, on the bench's 16 x 8 table, on 256 frames
+   of the contested and crowd streams and of an all-empty stream (the
+   chain's fixed cost a frame), each bit-equal first, the whole tracker
+   stage (_finish_batch: extract_detections and K5), K2's launches a call
+   and device time (torch.profiler) given its occupancy, deriving it and
+   on density 0.3, and its cooperative grid, BatchStager's pinned staging per batch
    beside a pageable copy, and frames/s of process_clip, of both streamed
    routes (in turns, twice each) and of both Otsu routes, with the peak
    device memory of each streamed route;
@@ -489,6 +501,7 @@ def k5_ops(T, D, N):
 
 
 STAT_KEYS = ("count", "area", "centroid", "centroid_sum")
+K2_KEYS = STAT_KEYS + ("overflow",)  # K2 writes the stats dict's overflow too
 CC_KEYS = ("labels", "count", "area", "bbox", "centroid", "centroid_sum", "overflow")
 
 
@@ -526,23 +539,35 @@ def check_track_scan(err, state, dets, valid, frame0, where, **kw):
     return got
 
 
+def ptxas_kernel(entry, probes=False):
+    """The short name of a mangled kernel of the ptxas report that
+    ptxas_summary keeps, or None."""
+    if probes:
+        k = re.search(r"\d(repos|roll|i16|cell)6kernelILi(\d+)E", entry)
+        return f"{k.group(1)}_probe<{k.group(2)}>" if k else None
+    patterns = ((r"fused_segment_kernelILi(\d+)ELi(\d+)ELi(\d+)E", "fused_segment_kernel"),
+                (r"blur_tile_kernelILb([01])E", "blur_tile_kernel"),
+                (r"track_scan_regsILi(\d+)E", "track_scan_regs"),
+                (r"track_scan_kernelILb([01])E", "track_scan_kernel"),
+                (r"morph_group_kernel()", "morph_group_kernel"),
+                (r"ccl_stats_persistent()", "ccl_stats_persistent"))
+    for pattern, name in patterns:
+        k = re.search(pattern, entry)
+        if k:
+            return f"{name}<{', '.join(k.groups())}>" if k.group(1) else name
+    return None
+
+
 def ptxas_summary(log, probes=False):
     """{kernel: {"registers": n, "spill_stores": b, "spill_loads": b}} of the
-    K1 instantiations and K1m's and K1b's tiled kernels (probes: of the
-    micro-probes' cases, csrc/probes.cu) in nvcc's -Xptxas -v report."""
+    K1 instantiations, K1m's and K1b's tiled kernels, K2's persistent kernel
+    and K5's kernels (probes: of the micro-probes' cases, csrc/probes.cu)
+    in nvcc's -Xptxas -v report."""
     out, name = {}, None
     for line in log.splitlines():
         m = re.search(r"Compiling entry function '([^']+)'", line)
         if m:
-            if probes:
-                k = re.search(r"\d(repos|roll|i16|cell)6kernelILi(\d+)E", m.group(1))
-                name = f"{k.group(1)}_probe<{k.group(2)}>" if k else None
-            else:
-                k = re.search(r"fused_segment_kernelILi(\d+)ELi(\d+)ELi(\d+)E", m.group(1))
-                w = re.search(r"(morph_group_kernel|blur_tile_kernelILb([01])E)", m.group(1))
-                name = (f"fused_segment_kernel<{', '.join(k.groups())}>" if k
-                        else "morph_group_kernel" if w and w.group(2) is None
-                        else f"blur_tile_kernel<{w.group(2)}>" if w else None)
+            name = ptxas_kernel(m.group(1), probes)
             continue
         if name is None:
             continue
@@ -604,8 +629,8 @@ def k1_timing(clip, plate, card):
 
 
 def kernel_breakdown(fn, reps=3):
-    """{CUDA kernel name: mean device ms a call} of fn() under
-    torch.profiler (empty where the profiler sees no device time)."""
+    """{CUDA kernel name: [mean device ms a call, launches a call]} of fn()
+    under torch.profiler (empty where the profiler sees no device time)."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -618,8 +643,31 @@ def kernel_breakdown(fn, reps=3):
     for ev in prof.key_averages():
         ms = getattr(ev, "device_time_total", getattr(ev, "cuda_time_total", 0)) / 1e3 / reps
         if ms > 0:
-            out[ev.key[:60]] = round(ms, 4)
-    return dict(sorted(out.items(), key=lambda kv: -kv[1]))
+            out[ev.key[:60]] = [round(ms, 4), ev.count / reps]
+    return dict(sorted(out.items(), key=lambda kv: -kv[1][0]))
+
+
+def device_summary(breakdown):
+    """(device ms a call, kernel launches a call) of a kernel_breakdown."""
+    return (round(sum(ms for ms, _n in breakdown.values()), 4),
+            sum(n for _ms, n in breakdown.values()))
+
+
+def k2_phases(mask, strip_occ, H, W, reps=5):
+    """{phase: mean µs} of K2's persistent kernel (ops.ccl.K2_PHASES, the
+    epilogue left out) from CTA 0's clock after each grid barrier, over
+    reps calls after a warm-up, and the tiles it visited."""
+    from tpuva_torch.ops.ccl import K2_PHASES, _label_stats_cuda
+
+    ns = torch.zeros(9, dtype=torch.int64, device=mask.device)
+    total = np.zeros(7)
+    for i in range(reps + 1):
+        _label_stats_cuda(mask, MAX_COMPONENTS, strip_occ, H, W, phase_ns=ns)
+        torch.cuda.synchronize()
+        if i:
+            total += np.diff(ns[:8].cpu().numpy())
+    out = {phase: round(float(us), 2) for phase, us in zip(K2_PHASES, total / reps / 1e3)}
+    return dict(out, tiles=int(ns[8]))
 
 
 def k2_timing(clip, plate, card):
@@ -688,7 +736,78 @@ def k2_timing(clip, plate, card):
     for name, fn in calls.items():
         t[f"{name}_ms"] = cuda_ms(fn, 10)
         t[f"{name}_kernels"] = kernel_breakdown(fn)
+        t[f"{name}_device_ms"], t[f"{name}_launches"] = device_summary(t[f"{name}_kernels"])
+    if hasattr(ccl, "K2_PHASES"):  # K2's persistent kernel: its phases' times
+        t["k2_phases_us"] = {
+            "occ_clip": k2_phases(padded, strip_occ, 1080, 1920),
+            "clip": k2_phases(masks, None, 1080, 1920),
+            "occ_dense": k2_phases(dense_padded, dense_occ, 1080, 1920)}
     say("k2_timing", card=card, batch=256, shape=[1080, 1920], **t)
+    return 0
+
+
+def time_k5(cfg, masks, bg_last, plate, route_dets, err, reps):
+    """K5 (track_scan) at batch N = len(masks) on cfg's table, CUDA events:
+    the whole tracker stage (_finish_batch: extract_detections and K5) on
+    the masks' stats; K5 on the route's detections and its plain version
+    (the loop of torch ops the route ran before K5); K5 on N frames of the
+    contested and crowd streams (Jonker-Volgenant frames, births at
+    capacity) and of an all-empty stream (the chain's fixed cost a frame),
+    each bit-equal to the plain version first. Every call here exists in
+    earlier checkouts too (--k5 runs it there)."""
+    from tpuva_torch.graph.pipeline import _finish_batch, init_carry
+    from tpuva_torch.ops.ccl import label_stats
+    from tpuva_torch.scenes import det_sequence
+    from tpuva_torch.track.scan import track_scan, track_scan_plain
+    from tpuva_torch.track.table import init_track_state
+
+    dev = masks.device
+    N = masks.shape[0]
+    t_kw = dict(max_dist=cfg.track.max_dist, death_patience=cfg.track.death_patience,
+                assigner=cfg.track.assigner)
+    t = {}
+    carry0 = init_carry(cfg, *masks.shape[1:], plate, device=dev)
+    stats = label_stats(masks, MAX_COMPONENTS)
+    t["tracker_ms"] = cuda_ms(
+        lambda: _finish_batch(cfg, carry0, stats, masks, bg_last, False), reps)
+    k5_args = (carry0.track, *route_dets, carry0.frame_idx)
+    check_track_scan(err, *k5_args, f"route detections, batch {N}", **t_kw)
+    t["k5_ms"] = cuda_ms(lambda: track_scan(*k5_args, **t_kw), reps)
+    t["k5_us_per_frame"] = 1e3 * t["k5_ms"] / N
+    t["k5_plain_ms"] = cuda_ms(lambda: track_scan_plain(*k5_args, **t_kw), 2)
+    T5, D5 = cfg.track.max_tracks, cfg.segment.max_blobs
+    streams = {kind: det_sequence(kind, D5, frames=N, seed=5) for kind in ("contested", "crowd")}
+    streams["empty"] = (np.zeros((N, D5, 3), np.float32), np.zeros((N, D5), bool))
+    for kind, (d, v) in streams.items():
+        args = (init_track_state(T5, dev), torch.from_numpy(d).to(dev),
+                torch.from_numpy(v).to(dev), torch.zeros((), dtype=torch.int32, device=dev))
+        check_track_scan(err, *args, f"{kind} stream, batch {N}", **t_kw)
+        t[f"k5_{kind}_ms"] = cuda_ms(lambda: track_scan(*args, **t_kw), reps)
+        t[f"k5_{kind}_us_per_frame"] = 1e3 * t[f"k5_{kind}_ms"] / N
+    return t
+
+
+def k5_timing(clip, plate, card):
+    """--k5: time_k5 at batch 256 and 1080p on the bench config, the route's
+    detections from K1 and K2 on the clip's first batch; one JSON line.
+    Copied into an earlier checkout, the same file times that checkout's
+    K5."""
+    from tpuva_torch.graph import config
+    from tpuva_torch.graph.pipeline import _front_end_kwargs
+    from tpuva_torch.ops.ccl import label_stats
+    from tpuva_torch.ops.fused_segment import fused_segment
+    from tpuva_torch.ops.label import extract_detections
+
+    dev = torch.device("cuda")
+    cfg = bench_cfg(config, 256)
+    masks, bg_last = fused_segment(torch.from_numpy(clip[:256]).to(dev),
+                                   torch.from_numpy(plate.astype(np.float32)).to(dev),
+                                   **_front_end_kwargs(cfg))
+    dets, _n, valid, _s = extract_detections(label_stats(masks, MAX_COMPONENTS),
+                                             cfg.segment.min_area, cfg.segment.max_blobs)
+    err = {"track_scan": 0.0}
+    t = time_k5(cfg, masks, bg_last, plate, (dets, valid), err, 10)
+    say("k5_timing", card=card, batch=256, shape=[1080, 1920], bit_equal=True, **t)
     return 0
 
 
@@ -801,11 +920,11 @@ def wide_timing(clip, plate, card):
 
 
 def main():
-    mode = (sys.argv[1] if sys.argv[1:] in (["--k1"], ["--k2"], ["--wide"], ["--probes"])
-            else None)
+    mode = (sys.argv[1] if sys.argv[1:] in (["--k1"], ["--k2"], ["--k5"], ["--wide"],
+                                             ["--probes"]) else None)
     k1_only = mode == "--k1"
     if sys.argv[1:] and mode is None:
-        print("usage: chip_smoke.py [--k1 | --k2 | --wide | --probes]", file=sys.stderr)
+        print("usage: chip_smoke.py [--k1 | --k2 | --k5 | --wide | --probes]", file=sys.stderr)
         return 2
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)",
@@ -854,18 +973,20 @@ def main():
     with open(os.path.join(OUT_DIR, "ptxas.txt"), "w") as fh:
         fh.write(log)
     say("build", seconds=round(time.time() - t0, 2), library=str(lib_path.name),
-        k1_ptxas=ptxas_summary(log), probes_ptxas=ptxas_summary(log, probes=True))
+        ptxas=ptxas_summary(log), probes_ptxas=ptxas_summary(log, probes=True))
     if mode == "--probes":
         probes_phase(card)
         return 0
-    if mode in ("--k2", "--wide"):
+    if mode in ("--k2", "--k5", "--wide"):
         clip, _alive, _truth, plate = multi_blob_clip(1080, 1920, 256, n_blobs=6, radius=16,
                                                       births_deaths=False, noise_sigma=2.0)
-        return (k2_timing if mode == "--k2" else wide_timing)(clip, plate, card)
-    # after --k2 and --wide: a copy of this file in an earlier checkout
-    # times K2, K3, the dense stats, K1m and K1b with the names that
-    # checkout has
-    from tpuva_torch.ops.ccl import root_labels, root_occupancy_plain, root_stats
+        return {"--k2": k2_timing, "--k5": k5_timing, "--wide": wide_timing}[mode](
+            clip, plate, card)
+    # after --k2, --k5 and --wide: a copy of this file in an earlier
+    # checkout times K2, K3, the dense stats, K5, K1m and K1b with the
+    # names that checkout has
+    from tpuva_torch.ops.ccl import k2_grid, root_labels, root_occupancy_plain, root_stats
+    from tpuva_torch.track.scan import scan_plan
     from tpuva_torch.ops.wide import blur_plan, morph_plan, morph_steps, open_close_steps
     from tpuva_torch.ops.label import _stats_from_root, _stats_from_root_plain, root_stats_plain
     from tpuva_torch.scenes import ROOT_STATS_OPTIONS, edge_strip_scene
@@ -991,10 +1112,13 @@ def main():
         m = (torch.rand((16, 1080, 1920), generator=torch.Generator().manual_seed(int(p * 100)))
              < p).to(torch.uint8) * 255
         masks_k2.append((f"random_{p}", m.to(dev)))
+    def k2_plain(m):  # K2's plain version: the sums, then the shared epilogue
+        ref = _assemble_stats(*label_sums_plain(m, MAX_COMPONENTS), *m.shape[1:])
+        return dict(ref, overflow=torch.zeros_like(ref["count"]))
+
     for name, m in masks_k2:
         got = label_stats(m, MAX_COMPONENTS)
-        ref = _assemble_stats(*label_sums_plain(m, MAX_COMPONENTS), 1080, 1920)
-        check_equal(err, "ccl_stats", ((k, got[k], ref[k]) for k in STAT_KEYS), name)
+        check_equal(err, "ccl_stats", ((k, got[k], k2_plain(m)[k]) for k in K2_KEYS), name)
     # K2 given the strip occupancy: of K1's padded masks from occ128 (the
     # staged route's handoff), of the random masks padded to 64 x 256, and
     # of an all-empty batch; against K2 deriving it and the plain version
@@ -1006,10 +1130,10 @@ def main():
     for name, padded, occ, m in occ_cases:
         got = label_stats(padded, MAX_COMPONENTS, strip_occ=occ, H=1080, W=1920)
         derived = label_stats(m, MAX_COMPONENTS)
-        ref = _assemble_stats(*label_sums_plain(m, MAX_COMPONENTS), 1080, 1920)
-        check_equal(err, "ccl_stats_occ", ((k, got[k], ref[k]) for k in STAT_KEYS), name)
-        check_equal(err, "ccl_stats_occ", ((f"{k} vs derived", got[k], derived[k])
-                                           for k in STAT_KEYS), name)
+        ref = k2_plain(m)
+        check_equal(err, "ccl_stats_occ", ((k, got[k], ref[k]) for k in K2_KEYS), name)
+        check_equal(err, "ccl_stats", ((k, derived[k], ref[k]) for k in K2_KEYS),
+                    f"{name}, derived")
     say("k2_vs_plain", scenes=[n for n, _ in masks_k2], bit_equal=True,
         strip_occ_scenes=[n for n, *_ in occ_cases],
         strip_occ_occupied=[round(float(o.float().mean()), 4) for _n, _p, o, _m in occ_cases])
@@ -1118,20 +1242,33 @@ def main():
         route_rows += int(rv.sum())
     del masks_b, bg
     n_k5 = 0
+    k5_kernels = {}  # (T, D) -> [scan_plan's kernel, launches, launches of the table kernel]
     for kind in DET_KINDS:
         shapes = K5_SHAPES + ((K5_GLOBAL_SHAPE,) if kind == "cloud" else ())
         for T, D in shapes:
             n = 8 if (T, D) == K5_GLOBAL_SHAPE else 48
             dets, valid = det_sequence(kind, D, frames=n, seed=T + D)
             for assigner in ("greedy", "hungarian"):
+                kept = track_scan.kept_launches
                 check_track_scan(err, init_track_state(T, "cpu"), torch.from_numpy(dets),
                                  torch.from_numpy(valid), torch.tensor(2**24 - 20, dtype=torch.int32),
                                  f"{kind}, T={T}, D={D}, {assigner}", max_dist=40.0,
                                  death_patience=3, assigner=assigner)
+                rec = k5_kernels.setdefault(f"{T}x{D}", [scan_plan(T, D).kernel, 0, 0])
+                rec[1] += 1
+                rec[2] += track_scan.kept_launches - kept
                 n_k5 += 1
+    # the tables past the register kernel launched the kept table kernel,
+    # in shared memory (64 x 16) and in global scratch (600 x 100), every time
+    for shape, (kernel, n, kept) in k5_kernels.items():
+        if kept != (0 if kernel == "registers" else n):
+            raise AssertionError(f"K5 at {shape}: {kept} of {n} launches took the table kernel, "
+                                 f"scan_plan says {kernel}")
+    if (k5_kernels["64x16"][0], k5_kernels["600x100"][0]) != ("shared", "global"):
+        raise AssertionError(f"K5's large tables: {k5_kernels}")
     say("k5_vs_plain", route_batches=clip.shape[0] // 256, route_rows=route_rows,
         synthetic_scans=n_k5, kinds=list(DET_KINDS), shapes=[list(x) for x in K5_SHAPES],
-        global_scratch_shape=list(K5_GLOBAL_SHAPE), bit_equal=True)
+        global_scratch_shape=list(K5_GLOBAL_SHAPE), kernels=k5_kernels, bit_equal=True)
 
     # 5c. configs K1 does not take: the torch front end on the card, against
     # the CPU; then a 1080p batch with median 7
@@ -1412,8 +1549,8 @@ def main():
                 zip(("masks", "bg"), (masks, bg_last), fused_segment_plain(frames, bg0, **kw)),
                 "main path, batch 256")
     got = label_stats(masks, MAX_COMPONENTS)
-    ref = _assemble_stats(*label_sums_plain(masks, MAX_COMPONENTS), 1080, 1920)
-    check_equal(err, "ccl_stats", ((k, got[k], ref[k]) for k in STAT_KEYS), "main path, batch 256")
+    ref = k2_plain(masks)
+    check_equal(err, "ccl_stats", ((k, got[k], ref[k]) for k in K2_KEYS), "main path, batch 256")
     # the padded handoff at batch 256: K1's padded masks and occ128, K2 on
     # their strips; a random mask of density 0.3 (every strip occupied)
     padded, bg_padded, occ128 = fused_segment(frames, bg0, padded_occ=True, **kw)
@@ -1424,7 +1561,7 @@ def main():
     strip_occ = occ128.reshape(N, 576, 8, 2).amax(dim=3)
     check_equal(err, "ccl_stats_occ",
                 ((k, label_stats(padded, MAX_COMPONENTS, strip_occ=strip_occ, H=1080,
-                                 W=1920)[k], ref[k]) for k in STAT_KEYS), "main path, batch 256")
+                                 W=1920)[k], ref[k]) for k in K2_KEYS), "main path, batch 256")
     dense = torch.rand((N, 1080, 1920), device=dev,
                        generator=torch.Generator(device=dev).manual_seed(30)) < 0.3
     dense = dense.to(torch.uint8) * 255
@@ -1437,7 +1574,7 @@ def main():
             ("every strip", label_stats(padded, MAX_COMPONENTS, strip_occ=every_strip, H=1080,
                                         W=1920))):
         base = dense_ref if what == "given" else ref
-        check_equal(err, "ccl_stats_occ", ((k, got[k], base[k]) for k in STAT_KEYS),
+        check_equal(err, "ccl_stats_occ", ((k, got[k], base[k]) for k in K2_KEYS),
                     f"density 0.3 / clip, batch 256, strips {what}")
     diff_kw = _diff_kwargs(otsu_cfg)
     du8, bg_diff = fused_segment(frames, bg0, **diff_kw)
@@ -1469,6 +1606,16 @@ def main():
         lambda: _assemble_stats(*label_sums_plain(masks, MAX_COMPONENTS), 1080, 1920), 2)
     t["k2_dense_occ_ms"] = cuda_ms(lambda: label_stats(
         dense_padded, MAX_COMPONENTS, strip_occ=dense_occ, H=1080, W=1920), reps)
+    # K2's launches a call and device time (torch.profiler), and its grid
+    for name, fn in (("k2_occ", lambda: label_stats(padded, MAX_COMPONENTS, strip_occ=strip_occ,
+                                                     H=1080, W=1920)),
+                     ("k2", lambda: label_stats(masks, MAX_COMPONENTS)),
+                     ("k2_dense_occ", lambda: label_stats(dense_padded, MAX_COMPONENTS,
+                                                          strip_occ=dense_occ, H=1080, W=1920))):
+        kernels = kernel_breakdown(fn)
+        t[f"{name}_device_ms"], t[f"{name}_launches"] = device_summary(kernels)
+        t[f"{name}_kernels"] = kernels
+    t["k2_grid"] = dict(zip(("blocks_per_sm", "sms"), k2_grid()))
     t["k2_dense_ms"] = cuda_ms(lambda: label_stats(dense, MAX_COMPONENTS), reps)
     t["k2_dense_every_strip_ms"] = cuda_ms(lambda: label_stats(
         dense_padded, MAX_COMPONENTS, strip_occ=torch.ones_like(dense_occ), H=1080, W=1920),
@@ -1514,16 +1661,8 @@ def main():
         raise AssertionError("torch.bincount over frame-offset keys differs from K4")
     t["k4_library_ms"] = cuda_ms(lambda: torch.bincount(keys, minlength=256 * N), reps)
     del keys
-    carry0 = init_carry(cfg, 1080, 1920, plate, device=dev)
-    stats = label_stats(masks, MAX_COMPONENTS)
-    t["tracker_ms"] = cuda_ms(
-        lambda: _finish_batch(cfg, carry0, stats, masks, bg_last, False), reps)
-    # K5 on the route's first batch of detections (phase 5b), from the
-    # empty table, against the loop of torch ops the route ran before it
-    k5_args = (carry0.track, *route_dets, carry0.frame_idx)
-    t["k5_ms"] = cuda_ms(lambda: track_scan(*k5_args, **t_kw), reps)
-    t["k5_us_per_frame"] = 1e3 * t["k5_ms"] / N
-    t["k5_plain_ms"] = cuda_ms(lambda: track_scan_plain(*k5_args, **t_kw), 2)
+    t.update(time_k5(cfg, masks, bg_last, plate, route_dets, err, reps))
+    t["k5_kernel"] = scan_plan(cfg.track.max_tracks, cfg.segment.max_blobs)._asdict()
     # K1m and K1b: wide_calls (--wide times them too), each checked bit for
     # bit first; beside them the plan, the 10-step group's launches, the
     # plain versions and max_pool2d against the 7 x 7 rect dilate

@@ -180,3 +180,76 @@ def test_label_stats_strip_occ_matches_tpuva(shape, p, ref_kind):
         label_stats(torch.from_numpy(padded), C, strip_occ=torch.from_numpy(occ[:, :1]), H=H, W=W)
     with pytest.raises(ValueError):
         label_stats(torch.from_numpy(padded), C, strip_occ=torch.from_numpy(occ))
+
+
+def tpuva_limbs(sums):
+    """(N, C, 3) int64 (area, sum x, sum y) -> tpuva's (N, C, 7) float32
+    exact-integer limbs (area; x and y as 6-bit, 6-bit and high limbs) that
+    its _assemble_stats recombines in int32 to the same value mod 2^32."""
+    a, sx, sy = (sums[..., k] for k in range(3))
+    cols = [a]
+    for v in (sx, sy):
+        cols += [v & 63, (v >> 6) & 63, v >> 12]
+    limbs = np.stack(cols, axis=-1)
+    assert (np.abs(limbs) < 2**24).all()  # float32 holds each limb exactly
+    return limbs.astype(np.float32)
+
+
+@pytest.mark.parametrize("N,C,H,W", [(4, 1, 1080, 1920), (5, 64, 40000, 50000),
+                                     (3, 8, 7, 9), (2, 64, 1088, 2048)])
+def test_assemble_stats_matches_tpuva_on_extreme_sums(N, C, H, W):
+    """The port's _assemble_stats (on the CPU; K2's epilogue holds it on the
+    card) against tpuva/ops/label.py's on the same integer sums, every
+    field bit for bit: component sums that wrap int32 (each and in the
+    totals), a background row whose coordinate sums pass 2^31 (clamped),
+    zero-area rows, components past the count, C = 1 and 64."""
+    from tpuva.ops.label import _assemble_stats as jax_assemble
+    from tpuva_torch.ops.label import _assemble_stats
+
+    rng = np.random.default_rng(N * 100 + C)
+    area = rng.integers(0, 2**20, (N, C))
+    area[:, ::3] = 0  # zero-area rows
+    sx = rng.integers(0, 2**35, (N, C))  # past int32: wraps
+    sy = rng.integers(0, 2**33, (N, C))
+    sx[0, 0], sy[-1, -1] = 2**31 - 1, 2**32 - 5  # the edges of the wrap
+    sums = np.stack([area, sx, sy], axis=-1).astype(np.int64)
+    roots = rng.integers(0, 2 * C + 2, N).astype(np.int32)
+    count = np.minimum(roots, C).astype(np.int32)
+    got = _assemble_stats(torch.from_numpy(count), torch.from_numpy(sums), H, W)
+    ref = jax_assemble(jnp.asarray(tpuva_limbs(sums)), jnp.asarray(roots), H, W, C)
+    for k, r in zip(("count", "area", "centroid", "centroid_sum"), ref[:4]):
+        np.testing.assert_array_equal(got[k].numpy().view(np.int32),
+                                      np.asarray(r).view(np.int32), err_msg=k)
+    assert (got["area"][:, 1:] == 0).any()
+    if H * W > 2**30:  # the background's coordinate sums clamped at 2^31 - 128
+        assert (got["centroid_sum"][:, 0] == 2**31 - 128).all()
+
+
+def test_k2_workspace_layout():
+    """K2's scratch arrays: 16-byte aligned, disjoint, in the order given,
+    each of its size (a block, a strip, a tile, a component); the stats
+    views cover their tensor once."""
+    from tpuva_torch.ops.ccl import STATS_FIELDS, k2_workspace, stats_views
+
+    for (N, Hm, Wm, C) in ((256, 1088, 2048, 32), (3, 7, 9, 1), (2, 250, 333, 1024)):
+        Hb, Wb = (Hm + 1) // 2, (Wm + 1) // 2
+        R, S = strip_shape(Hm, Wm)
+        layout, total = k2_workspace(N, Hm, Wm, C)
+        tiles = -(-Hb // 16) * -(-Wb // 32)
+        want = {"parent": 4 * N * Hb * Wb, "rc": 4 * N * R * S, "list": 8 * N * tiles,
+                "table": 4 * N * C, "sums": 12 * N * C, "nlist": 4, "bits": N * Hb * Wb,
+                "fine": N * R * S}
+        assert {k: n for k, (_o, n) in layout.items()} == want
+        end = 0
+        for name in want:
+            off, n = layout[name]
+            assert off % 16 == 0 and off >= end
+            end = off + n
+        assert end <= total < end + 16
+        out = torch.arange(N * (2 + 5 * (C + 1)), dtype=torch.int32)
+        views = stats_views(out, N, C)
+        assert tuple(views) == STATS_FIELDS
+        words = torch.cat([v.reshape(-1).view(torch.int32) for v in views.values()])
+        assert torch.equal(words, out)
+        assert views["centroid"].dtype == torch.float32
+        assert views["area"].shape == (N, C + 1) and views["centroid_sum"].shape == (N, C + 1, 2)

@@ -55,7 +55,7 @@ from tpuva_torch.scenes import (
     DET_KINDS, K1_REFUSED, ROOT_STATS_OPTIONS, det_sequence, edge_strip_scene, k1_refused_config,
     mixed_scene, u_shape,
 )
-from tpuva_torch.track.scan import track_scan, track_scan_plain
+from tpuva_torch.track.scan import scan_plan, track_scan, track_scan_plain
 from tpuva_torch.track.table import TrackState, init_track_state
 
 BENCH = dict(
@@ -511,6 +511,27 @@ def test_ccl_strip_occ_kernel_matches_plain(cuda_device):
 
 
 @pytest.mark.gpu
+def test_ccl_kernel_components_past_c(cuda_device):
+    """K2's epilogue and root table at the ends of C: one component kept
+    of many, the kernel's largest C (1024, past the frames' components),
+    on random masks deriving the occupancy and given it; every stats field
+    bit for bit, each call one launch."""
+    rng = np.random.default_rng(11)
+    mask = ((rng.random((3, 250, 333)) < 0.3) * 255).astype(np.uint8)
+    occ = strip_occupancy_plain(torch.from_numpy(mask)).to(cuda_device)
+    m_gpu = torch.from_numpy(mask).to(cuda_device)
+    for C in (1, 1024):
+        ref = label_stats(torch.from_numpy(mask), C)
+        before = label_stats.launches
+        for what, got in (("derived", label_stats(m_gpu, C)),
+                          ("given", label_stats(m_gpu, C, strip_occ=occ.bool(), H=250, W=333))):
+            for k in ("count", "area", "centroid", "centroid_sum", "overflow"):
+                np.testing.assert_array_equal(got[k].cpu().numpy(), ref[k].numpy(),
+                                              err_msg=f"C={C}, {what}, {k}")
+        assert label_stats.launches == before + 2
+
+
+@pytest.mark.gpu
 def test_histogram_kernel_matches_plain(cuda_device):
     """Odd sizes (frames that start off 16-byte alignment), a single
     pixel, a frame spanning several CTAs, one heavy bin, leading dims."""
@@ -682,16 +703,20 @@ def _bits(x):
 
 def check_track_scan(state, dets, valid, frame0, device, **kw):
     """K5 on the card against track_scan_plain on the CPU, bit for bit;
-    the input state stays as it was. Returns the plain run's outputs."""
+    the input state stays as it was, and the launch took the kernel that
+    scan_plan names for the table's shape. Returns the plain run's
+    outputs."""
     ref = track_scan_plain(TrackState(*(x.cpu() for x in state)), torch.from_numpy(dets),
                            torch.from_numpy(valid), torch.tensor(frame0, dtype=torch.int32), **kw)
     gpu_state = TrackState(*(x.to(device) for x in state))
     before = [x.clone() for x in gpu_state]
-    launches = track_scan.launches
+    launches, kept = track_scan.launches, track_scan.kept_launches
     got = track_scan(gpu_state, torch.from_numpy(dets).to(device), torch.from_numpy(valid).to(device),
                      torch.tensor(frame0, dtype=torch.int32, device=device), **kw)
     torch.cuda.synchronize()
     assert track_scan.launches == launches + 1
+    T, D = state.pos.shape[0], dets.shape[1]
+    assert track_scan.kept_launches == kept + (scan_plan(T, D).kernel != "registers")
     for name, g, r in zip(TrackState._fields, got[0], ref[0]):
         np.testing.assert_array_equal(_bits(g).numpy(), _bits(r).numpy(), err_msg=name)
     np.testing.assert_array_equal(_bits(got[1]).numpy(), _bits(ref[1]).numpy(), err_msg="rows")
@@ -717,6 +742,28 @@ def test_track_scan_kernel_matches_plain(cuda_device, kind, assigner):
             _ts, _rows, rv2 = check_track_scan(ts, dets[48:], valid[48:], 2**24 - 20, cuda_device,
                                                **kw)
             assert int(rv.sum()) + int(rv2.sum()) > 0 or not valid.any(), where
+
+
+# the register kernel's edges (T and D of 32 fit a lane each, 33 do not)
+# and its array extents (D 8, 16 and 32)
+K5_EDGES = [(32, 32), (32, 1), (1, 32), (33, 8), (16, 33), (33, 33), (2, 9), (31, 17)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("assigner", ["greedy", "hungarian"])
+@pytest.mark.parametrize("T,D", K5_EDGES, ids=[f"T{t}-D{d}" for t, d in K5_EDGES])
+def test_track_scan_kernel_dispatch_edges(cuda_device, T, D, assigner):
+    """Both kernels at the edges of the register kernel's shapes, each
+    launch the one scan_plan names: a crowd (births at capacity where T <
+    D), a contested stream (the Jonker-Volgenant search) and a cloud, 40
+    frames from an empty table and 40 more near 2^24."""
+    kw = dict(max_dist=40.0, death_patience=3, assigner=assigner)
+    for kind in ("crowd", "contested", "cloud"):
+        dets, valid = det_sequence(kind, D, frames=80, seed=T * 3 + D)
+        ts, _rows, rv = check_track_scan(init_track_state(T, "cpu"), dets[:40], valid[:40], 0,
+                                         cuda_device, **kw)
+        check_track_scan(ts, dets[40:], valid[40:], 2**24 - 20, cuda_device, **kw)
+        assert int(rv.sum()) > 0
 
 
 @pytest.mark.gpu

@@ -81,9 +81,14 @@ def test_track_update_matches_tpuva(kind, assigner):
 
 # (kind, T, D): T > D and T < D; "crowd" with a small table fills it, so
 # births are refused for want of a slot; "contested" and "cloud" take the
-# Hungarian search's slow path on both sides of the square
+# Hungarian search's slow path on both sides of the square. Then the edges
+# of K5's register kernel (scan_plan): T and D of 1, 8, 16 and 32 take it,
+# 33 the table kernel; the crowd fills its table (births at capacity), the
+# contested streams and the clouds take Jonker-Volgenant
 SCAN_CASES = [("churn", 6, 4), ("empty", 3, 8), ("contested", 6, 4), ("contested", 3, 8),
-              ("crowd", 3, 8), ("crowd", 6, 4), ("cloud", 8, 5), ("cloud", 4, 7)]
+              ("crowd", 3, 8), ("crowd", 6, 4), ("cloud", 8, 5), ("cloud", 4, 7),
+              ("contested", 1, 1), ("contested", 16, 8), ("crowd", 16, 32), ("cloud", 32, 32),
+              ("contested", 33, 8), ("cloud", 33, 33)]
 
 
 @pytest.mark.parametrize("assigner", ["greedy", "hungarian"])
@@ -140,3 +145,32 @@ def test_track_scan_plain_matches_tpuva_finish_batch(kind, T, D, assigner):
     assert torch.equal(w_rows, rows) and torch.equal(w_rv, rv)
     assert all(torch.equal(a, b) for a, b in zip(w_ts, got_ts))
     assert all(torch.equal(a, b) for a, b in zip(ts, before))
+
+
+def test_scan_plan():
+    """K5's shape dispatch: the register kernel (array extent 8, 16 or 32)
+    up to 32 x 32, then the table kernel in shared memory, then in global
+    scratch past a CTA's shared memory; the register kernel's shared memory
+    holds the Jonker-Volgenant arrays, two staged chunks of detections and
+    a chunk of rows, each 16-byte aligned."""
+    from tpuva_torch.track.scan import CHUNK_FRAMES, SMEM_LIMIT, scan_plan
+
+    F = CHUNK_FRAMES
+    assert F % 16 == 0  # a chunk's rows and flags start 16-byte aligned
+    for T in (1, 16, 32):
+        for D, kd in ((1, 8), (8, 8), (9, 16), (16, 16), (17, 32), (32, 32)):
+            p = scan_plan(T, D)
+            table = 4 * (10 * T + T * D + 3 * D + 7 * (max(T, D) + 1))
+            up = lambda x: -(-x // 16) * 16  # noqa: E731
+            assert p == ("registers", kd, up(table) + 2 * up(12 * F * D) + 2 * up(F * D)
+                         + up(20 * F * D) + up(F * D), 0), (T, D)
+            assert p.smem_bytes <= SMEM_LIMIT
+    assert scan_plan(16, 8).smem_bytes == 13760  # the bench's table
+    for T, D in ((33, 8), (16, 33), (64, 16), (33, 33), (200, 200)):
+        p = scan_plan(T, D)
+        assert p.kernel == "shared" and p.kd == 0 and p.scratch_bytes == 0
+        assert p.smem_bytes == 4 * (10 * T + T * D + 3 * D + 7 * (max(T, D) + 1))
+    p = scan_plan(600, 100)
+    assert p.kernel == "global" and p.smem_bytes == 0 and p.scratch_bytes > SMEM_LIMIT
+    with pytest.raises(ValueError):
+        scan_plan(0, 4)

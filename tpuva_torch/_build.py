@@ -11,7 +11,9 @@ concurrent processes build it once.
 
 Flags: ``--fmad=false`` keeps nvcc from contracting ``a*b + c`` into an
 FMA (the kernels also use ``__fmul_rn``/``__fadd_rn`` where rounding is
-pinned); fast math is never used. If nvcc is missing the build raises.
+pinned); fast math is never used. A call from device code to a host-only
+function fails the build (nvcc drops the kernel's body otherwise). If
+nvcc is missing the build raises.
 """
 
 from __future__ import annotations
@@ -29,7 +31,7 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "tpuva_torch"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "--fmad=false", "-Xcompiler", "-fPIC",
+    "--fmad=false", "-Werror", "cross-execution-space-call", "-Xcompiler", "-fPIC",
 )
 
 _P = ctypes.c_void_p
@@ -55,10 +57,14 @@ _SIGNATURES = {
         _P, _P,  # smem_bytes, blocks_per_sm (int32 out)
     ],
     "tpuva_ccl_stats": [
-        _P, _I, _I, _I, _I,  # mask, N, H, W, C
-        _P, _I, _P, _P,  # strip_occ, derive, tiles, ntiles
-        _P, _P, _P, _P, _P,  # parent, bits, table, count, sums
-        _P,  # stream
+        _P, _I, _I, _I, _I, _I, _I,  # mask, N, Hm, Wm, H, W, C
+        _P, _P, _P, _P,  # strip_occ (null: derived), fine, bits, parent
+        _P, _P, _P, _P, _P,  # list, nlist, rc, table, sums
+        _P, _P, _P, _P, _P,  # count, area, centroid, centroid_sum, overflow
+        _P, _P,  # phase_ns (may be null), stream
+    ],
+    "tpuva_ccl_stats_grid": [
+        _P, _P,  # blocks_per_sm, sms (int32 out)
     ],
     "tpuva_ccl_labels": [
         _P, _I, _I, _I, _I,  # mask, N, H, W, connectivity
@@ -101,8 +107,8 @@ _SIGNATURES = {
         _I, _I, _P,  # Hp, Wp, occ
         _P,  # stream
     ],
-    "tpuva_track_scan_scratch": [
-        _I, _I, _P,  # T, D, bytes (int64 out)
+    "tpuva_track_scan_plan": [
+        _I, _I, _P, _P, _P, _P,  # T, D, kind, kd (int32 out), smem, scratch (int64 out)
     ],
     "tpuva_track_scan": [
         _P, _P, _I, _I, _I,  # dets, det_valid, N, T, D

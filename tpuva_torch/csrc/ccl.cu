@@ -3,8 +3,10 @@
 //
 // Replaces the Pallas TPU kernel tpuva/ops/pallas/ccl.py::
 // label_components_tiled_raw together with the XLA stats step
-// tpuva/ops/label.py::_stats_from_compact. The plain PyTorch version is
-// tpuva_torch/ops/ccl.py::label_sums_plain; the two are bit-equal.
+// tpuva/ops/label.py::_stats_from_compact and the epilogue :494
+// _assemble_stats. The plain PyTorch version is tpuva_torch/ops/ccl.py::
+// label_sums_plain followed by tpuva_torch/ops/label.py::_assemble_stats;
+// the two are bit-equal. Entry point tpuva_ccl_stats.
 //
 // Algorithm. The Pallas kernel is correct only because TPU grid steps run
 // one after another in raster order (ccl.py:4-10); CUDA blocks run in no
@@ -20,44 +22,60 @@
 // only occupied strips: a strip is one block row x 128 blocks (2 rows x
 // 256 pixels), and strip_occ (N, Hb, S) u8, S = ceil(Wb / 128), says which
 // hold foreground. The caller passes it (the staged route takes it from
-// K1's padded_occ emit) or ccl_occ derives it from the mask. Tiles are
-// 16 x 32 blocks, so a tile's row lies in one strip; ccl_tiles lists each
-// frame's tiles that touch an occupied strip, and the per-tile kernels
-// walk that list (each CTA every gridDim.x-th entry; the grid, sized on
-// the host without reading the lists, gives a CTA kTilesPerCta entries
-// where every tile is listed, and the CTAs past a frame's list return at
-// once), skipping the rows of empty strips inside a tile: no mask byte,
-// parent or flag of an empty strip is read or written. A block of an
-// empty strip has no foreground, so every read of a neighbour's flags
-// first checks the neighbour's strip. K3 (8-connected) takes the same
-// route: ccl_occ derives the occupancy, ccl_tiles lists the tiles.
+// K1's padded_occ emit) or K2 derives it from the mask. K2 refines it to
+// segments (a strip's four quarters of 32 blocks, the width of a tile):
+// it reads the mask of the occupied strips only (of every strip where it
+// derives the occupancy) and keeps, for each strip, which of its segments
+// hold foreground. Tiles are 16 x 32 blocks, so a tile's row is one
+// segment; only the tiles with foreground are visited, and inside a tile
+// only its rows whose segment holds foreground: no other mask byte, parent
+// or flag is read or written. Every read of a neighbour's flags first
+// checks the neighbour's segment.
 //
-// Kernels, in launch order, all on the caller's stream:
-//   ccl_occ     (strip_occ not given) one warp a strip: any foreground;
-//   ccl_tiles   one CTA a frame: the frame's occupied tiles, in order;
-//   ccl_local   a tile's block flags from the mask, union inside the tile
-//               in shared memory (path splitting in its finds), flattened
-//               parents written as global block indices;
-//   ccl_border  union across tile borders in global memory (the tile's
-//               top row and its first and last columns);
-//   ccl_flatten_tiles every foreground block points at its root;
-//   ccl_roots   one CTA per frame walks the occupied strips in block order
-//               (ballot + warp scan), records the first C roots ascending
-//               and zeroes the frame's sums;
-//   ccl_stats   each foreground block finds its root's rank by binary
-//               search in that table and adds its area, sum x and sum y,
-//               first into 32-bit shared-memory sums, then once per CTA
-//               and component into int64 sums. Integer atomics make the
-//               result independent of their order.
+// K2 is one persistent kernel, ccl_stats_persistent, launched once a call
+// with cudaLaunchCooperativeKernel on as many CTAs as the card holds at
+// once (the occupancy query x the SMs); its phases are joined by
+// grid.sync() and each CTA takes every gridDim.x-th item of a phase:
+//   A  the segment occupancy: a warp a strip reads its 512 mask bytes (16
+//      a lane), only for the strips strip_occ calls occupied where it is
+//      given; the list's count zeroed;
+//   B  a thread a group of 16 strips of one strip column: the root counts
+//      of its strips with foreground zeroed, and each of its tiles (up to
+//      four) that holds foreground appended to one batch-wide list, with
+//      its live rows;
+//   C  a CTA a listed tile: its block flags from the mask, union inside the
+//      tile in shared memory (path splitting in its finds), flattened
+//      parents of its foreground blocks written as frame-global block
+//      indices (local_union);
+//   D  union across the listed tiles' borders in global memory (the top
+//      row and the first and last columns; border_item), eight tiles a CTA;
+//   E  every foreground block points at its root; each tile row (a warp)
+//      adds its roots to its strip's count;
+//   F  a CTA a frame: a block scan of the occupied strips' root counts in
+//      strip order gives each strip's first rank; the strips holding one of
+//      the first C roots write them ascending into the frame's table (a
+//      warp a strip); count = min(roots, C); the frame's sums zeroed;
+//   G  a CTA a listed tile: each foreground block's root's rank by binary
+//      search in the table, its area, sum x and sum y summed over the
+//      warp's blocks of that rank, one atomic add each into wrapping 32-bit
+//      sums (the epilogue wraps them to int32 anyway). Integer atomics make
+//      the result independent of their order;
+//   H  a warp a frame: the stats epilogue, writing the stats dict's
+//      tensors (count, area, centroid, centroid_sum, overflow).
+// No CTA is launched for an empty tile, and no torch op runs besides the
+// wrapper's two allocations. K3 (8-connected, below) runs the same
+// union-find (border_item; local_union is ccl_local's with runs) as its own
+// launch sequence.
+// Where the caller asks (phase_ns), CTA 0 records %globaltimer after each
+// phase's barrier: chip_smoke.py --k2 prints the phases' times from it.
 //
 // What bounds it on an H100: memory — the mask read (1 B/px) and the
 // parent/flag arrays (1.25 B/px written, read three or four times), of
-// the occupied strips only; where the occupancy is derived, ccl_occ reads
-// the whole mask once. On a sparse frame (the bench clip: about 3% of the
-// strips occupied) what is left is the latency of the tiles that hold
-// foreground (union-find chains in shared memory, shortened by path
-// splitting), the CTAs past the lists, and ccl_roots' chain of barriers
-// (one CTA a frame).
+// the segments with foreground only; where the occupancy is derived, phase
+// A reads the whole mask once. On a sparse frame (the bench clip: about 3%
+// of the strips occupied) what is left is the latency of the phases'
+// chains (a tile's union-find in shared memory, a frame's root scan) and of
+// the seven grid barriers.
 //
 // Dense root-key labels (kernel K3), entry point tpuva_ccl_labels.
 //
@@ -129,8 +147,11 @@
 // of the labels (2.12 GB a 256-frame 1080p batch, 0.634 ms at 3.35
 // TB/s); with labels, the 2.12 GB write besides. No host sync anywhere.
 
+#include <cooperative_groups.h>
 #include <cstdint>
 #include <cuda_runtime.h>
+
+namespace cg = cooperative_groups;
 
 namespace {
 
@@ -219,6 +240,17 @@ __device__ __forceinline__ bool strip_occupied(const uint8_t* occ, const Geom& g
   return occ == nullptr || occ[by * g.S + bx / SW] != 0;
 }
 
+// K2's segment occupancy: a strip's byte holds bit k where its segment k
+// (blocks 32k .. 32k + 31 of the strip, tile column 4 * sx + k) holds
+// foreground.
+__device__ __forceinline__ bool seg_occupied(const uint8_t* fine, const Geom& g, int by, int bx) {
+  return (fine[by * g.S + bx / SW] >> ((bx % SW) / TBX)) & 1;
+}
+template <bool kSeg>
+__device__ __forceinline__ bool occupied(const uint8_t* o, const Geom& g, int by, int bx) {
+  return kSeg ? seg_occupied(o, g, by, bx) : strip_occupied(o, g, by, bx);
+}
+
 // Exclusive rank of flag among the CTA's threads in thread order, and the
 // number of flags set; every thread of the CTA calls it (barriers inside).
 __device__ int2 block_rank(bool flag, int* warp_incl) {
@@ -252,13 +284,11 @@ struct TileWalk {
   __device__ int tile(int k) const { return list ? list[k] : k; }
 };
 
-// Strip occupancy from the mask: one warp a strip (2 rows x 256 pixels,
-// 16 bytes a lane).
-__global__ void __launch_bounds__(32 * kOccWarps)
-ccl_occ(const uint8_t* __restrict__ mask, int N, Geom g, uint8_t* __restrict__ occ) {
-  const size_t strips = size_t(N) * g.Hb * g.S;
-  const size_t s = size_t(blockIdx.x) * kOccWarps + (threadIdx.x >> 5);
-  if (s >= strips) return;
+// This lane's 16 bytes of strip s (of the flattened N x Hb x S) of the
+// mask, 2 rows x 256 pixels a warp (lanes 0-15 the first row): whether
+// they hold foreground.
+__device__ __forceinline__ bool strip_lane_fg(const uint8_t* __restrict__ mask, const Geom& g,
+                                              size_t s) {
   const int lane = threadIdx.x & 31;
   const int n = int(s / (size_t(g.Hb) * g.S));
   const int r = int(s % (size_t(g.Hb) * g.S));
@@ -273,8 +303,33 @@ ccl_occ(const uint8_t* __restrict__ mask, int N, Geom g, uint8_t* __restrict__ o
       for (int i = 0; i < 16 && x + i < g.W; ++i) fg |= p[i] != 0;
     }
   }
-  fg = __any_sync(0xffffffffu, fg);
-  if (lane == 0) occ[s] = fg;
+  return fg;
+}
+
+// Strip s of the occupancy from the mask: a warp; every lane calls it.
+__device__ __forceinline__ void occ_strip(const uint8_t* __restrict__ mask, const Geom& g,
+                                          uint8_t* __restrict__ occ, size_t s) {
+  const bool fg = __any_sync(0xffffffffu, strip_lane_fg(mask, g, s));
+  if ((threadIdx.x & 31) == 0) occ[s] = fg;
+}
+
+// Strip s's segment occupancy (seg_occupied's byte) from the mask: a warp;
+// every lane calls it and gets it. Segment k is 64 pixels of both rows,
+// lanes 4k .. 4k + 3 and 16 + 4k .. 16 + 4k + 3.
+__device__ __forceinline__ unsigned strip_segments(const uint8_t* __restrict__ mask,
+                                                   const Geom& g, size_t s) {
+  const unsigned m = __ballot_sync(0xffffffffu, strip_lane_fg(mask, g, s));
+  const unsigned rows = m | (m >> 16);
+  unsigned seg = 0;
+  for (int k = 0; k < SW / TBX; ++k) seg |= ((rows >> (4 * k)) & 0xFu) ? 1u << k : 0u;
+  return seg;
+}
+
+// Strip occupancy from the mask: one warp a strip.
+__global__ void __launch_bounds__(32 * kOccWarps)
+ccl_occ(const uint8_t* __restrict__ mask, int N, Geom g, uint8_t* __restrict__ occ) {
+  const size_t s = size_t(blockIdx.x) * kOccWarps + (threadIdx.x >> 5);
+  if (s < size_t(N) * g.Hb * g.S) occ_strip(mask, g, occ, s);
 }
 
 // Each frame's tiles holding an occupied strip, ascending: tiles (N, TY*S),
@@ -299,6 +354,48 @@ ccl_tiles(Geom g, const uint8_t* __restrict__ occ, int* __restrict__ tiles,
     running += r.y;
   }
   if (threadIdx.x == 0) ntiles[n] = running;
+}
+
+// K2's union inside tile t of frame n, given this thread's block (by, bx),
+// whether it is live (inside the frame, its segment holding foreground) and
+// its flags bb: in shared memory (par, bits: kTileThreads each; path
+// splitting in its finds), the foreground blocks' flattened parents
+// written as frame-global block indices (no phase of K2 reads a background
+// block's parent). A tile row is a warp, and each run of blocks linked to
+// their left neighbours points at its first block at once (a ballot), so
+// that the unions link runs and no chain grows along a row (ccl_local's
+// unions, one a link, leave chains as long as a row). Every thread of the
+// CTA calls it (barriers inside); par and bits are free again when it
+// returns.
+__device__ __forceinline__ void local_union(const Geom& g, int n, int by, int bx, bool live,
+                                            int bb, int* __restrict__ parent,
+                                            uint8_t* __restrict__ bits_g, int* par,
+                                            uint8_t* bits) {
+  static_assert(TBX == 32, "a tile row is a warp");
+  const int li = threadIdx.x;
+  const int ty = li / TBX, tx = li % TBX;
+  bits[li] = (uint8_t)bb;
+  const int left = __shfl_up_sync(0xffffffffu, bb, 1);
+  const unsigned starts = __ballot_sync(0xffffffffu, !(tx > 0 && link_left(left, bb)));
+  const unsigned upto = tx == TBX - 1 ? 0xffffffffu : (2u << tx) - 1u;
+  par[li] = ty * TBX + 31 - __clz(starts & upto);
+  __syncthreads();
+  if (bb && ty > 0) {
+    const int u = li - TBX;
+    if (link_up(bits[u], bb)) unite<true>(par, li, u);
+    if (tx > 0 && link_upleft(bits[u - 1], bb)) unite<true>(par, li, u - 1);
+    if (tx < TBX - 1 && link_upright(bits[u + 1], bb)) unite<true>(par, li, u + 1);
+  }
+  __syncthreads();
+  if (live) {
+    const size_t gi = size_t(n) * g.Hb * g.Wb + size_t(by) * g.Wb + bx;
+    if (bb) {
+      const int lr = find_compress(par, li);
+      parent[gi] = (by - ty + lr / TBX) * g.Wb + bx - tx + lr % TBX;
+    }
+    bits_g[gi] = (uint8_t)bb;
+  }
+  __syncthreads();  // par and bits are the next tile's
 }
 
 __global__ void __launch_bounds__(kTileThreads)
@@ -355,6 +452,46 @@ ccl_local(const uint8_t* __restrict__ mask, Geom g, const uint8_t* __restrict__ 
   }
 }
 
+// Border item i (0..kBorderThreads-1) of tile t of frame n: i < TBX the
+// top row, then the first column and the last column below it. occ is the
+// frames' strip occupancy, or with kSeg K2's segment occupancy.
+template <bool kSeg>
+__device__ __forceinline__ void border_item(const Geom& g, const uint8_t* __restrict__ occ,
+                                            int n, int t, int i, int* __restrict__ parent,
+                                            const uint8_t* __restrict__ bits_g) {
+  const uint8_t* o = occ ? occ + size_t(n) * g.Hb * g.S : nullptr;
+  int* par = parent + size_t(n) * g.Hb * g.Wb;
+  const uint8_t* bits = bits_g + size_t(n) * g.Hb * g.Wb;
+  const int by0 = (t / g.TX) * TBY, bx0 = (t % g.TX) * TBX;
+  int by, bx;
+  if (i < TBX) {
+    by = by0; bx = bx0 + i;
+  } else if (i < TBX + TBY - 1) {
+    by = by0 + 1 + i - TBX; bx = bx0;
+  } else if (i < TBX + 2 * (TBY - 1)) {
+    by = by0 + 1 + i - TBX - (TBY - 1); bx = bx0 + TBX - 1;
+  } else {
+    return;
+  }
+  if (by >= g.Hb || bx >= g.Wb || !occupied<kSeg>(o, g, by, bx)) return;
+  const int b = by * g.Wb + bx;
+  const int bb = bits[b];
+  if (!bb) return;
+  const bool left = bx == bx0, top = by == by0, right = bx == bx0 + TBX - 1;
+  if (left && bx > 0 && occupied<kSeg>(o, g, by, bx - 1) && link_left(bits[b - 1], bb))
+    unite<false>(par, b, b - 1);
+  if (by > 0) {
+    const int u = b - g.Wb;
+    if (top && occupied<kSeg>(o, g, by - 1, bx) && link_up(bits[u], bb)) unite<false>(par, b, u);
+    if ((top || left) && bx > 0 && occupied<kSeg>(o, g, by - 1, bx - 1) &&
+        link_upleft(bits[u - 1], bb))
+      unite<false>(par, b, u - 1);
+    if ((top || right) && bx + 1 < g.Wb && occupied<kSeg>(o, g, by - 1, bx + 1) &&
+        link_upright(bits[u + 1], bb))
+      unite<false>(par, b, u + 1);
+  }
+}
+
 // Union across tile borders: the tile's top row, and its first and last
 // columns below it (the last column's up-right neighbour lies in the next
 // tile). A neighbour's flags are read only where its strip is occupied.
@@ -364,41 +501,8 @@ ccl_border(Geom g, const uint8_t* __restrict__ occ, const int* __restrict__ tile
            const uint8_t* __restrict__ bits_g) {
   const int n = blockIdx.y;
   const TileWalk walk(tiles, ntiles, g, n);
-  const uint8_t* o = occ ? occ + size_t(n) * g.Hb * g.S : nullptr;
-  int* par = parent + size_t(n) * g.Hb * g.Wb;
-  const uint8_t* bits = bits_g + size_t(n) * g.Hb * g.Wb;
-  const int i = threadIdx.x;
-  for (int k = blockIdx.x; k < walk.n; k += gridDim.x) {
-    const int t = walk.tile(k);
-    const int by0 = (t / g.TX) * TBY, bx0 = (t % g.TX) * TBX;
-    int by, bx;
-    if (i < TBX) {
-      by = by0; bx = bx0 + i;
-    } else if (i < TBX + TBY - 1) {
-      by = by0 + 1 + i - TBX; bx = bx0;
-    } else if (i < TBX + 2 * (TBY - 1)) {
-      by = by0 + 1 + i - TBX - (TBY - 1); bx = bx0 + TBX - 1;
-    } else {
-      continue;
-    }
-    if (by >= g.Hb || bx >= g.Wb || !strip_occupied(o, g, by, bx)) continue;
-    const int b = by * g.Wb + bx;
-    const int bb = bits[b];
-    if (!bb) continue;
-    const bool left = bx == bx0, top = by == by0, right = bx == bx0 + TBX - 1;
-    if (left && bx > 0 && strip_occupied(o, g, by, bx - 1) && link_left(bits[b - 1], bb))
-      unite<false>(par, b, b - 1);
-    if (by > 0) {
-      const int u = b - g.Wb;
-      if (top && strip_occupied(o, g, by - 1, bx) && link_up(bits[u], bb)) unite<false>(par, b, u);
-      if ((top || left) && bx > 0 && strip_occupied(o, g, by - 1, bx - 1) &&
-          link_upleft(bits[u - 1], bb))
-        unite<false>(par, b, u - 1);
-      if ((top || right) && bx + 1 < g.Wb && strip_occupied(o, g, by - 1, bx + 1) &&
-          link_upright(bits[u + 1], bb))
-        unite<false>(par, b, u + 1);
-    }
-  }
+  for (int k = blockIdx.x; k < walk.n; k += gridDim.x)
+    border_item<false>(g, occ, n, walk.tile(k), threadIdx.x, parent, bits_g);
 }
 
 // Every foreground block of the listed tiles' occupied strips points
@@ -420,96 +524,6 @@ ccl_flatten_tiles(Geom g, const uint8_t* __restrict__ occ, const int* __restrict
     const int b = by * g.Wb + bx;
     if (bits[b]) par[b] = find_root(par, b);
   }
-}
-
-// The first C roots of frame blockIdx.x in block order: the occupied
-// strips in order, 1024 at a time into shared memory, then their blocks,
-// eight strips (1024 blocks) a step, ranked by a block-wide scan.
-__global__ void __launch_bounds__(kScanThreads)
-ccl_roots(Geom g, int C, const uint8_t* __restrict__ occ, const int* __restrict__ parent,
-          const uint8_t* __restrict__ bits_g, int* __restrict__ table,
-          int* __restrict__ count, long long* __restrict__ sums) {
-  constexpr int kStrips = kScanThreads / SW;  // strips a step
-  __shared__ int warp_incl[32];
-  __shared__ int strips[kScanThreads];
-  const int n = blockIdx.x;
-  const int ns = g.Hb * g.S;
-  const uint8_t* o = occ + size_t(n) * ns;
-  const int* par = parent + size_t(n) * g.Hb * g.Wb;
-  const uint8_t* bits = bits_g + size_t(n) * g.Hb * g.Wb;
-  for (int i = threadIdx.x; i < 3 * C; i += blockDim.x) sums[size_t(n) * 3 * C + i] = 0;
-  int running = 0;
-  for (int base = 0; base < ns && running < C; base += kScanThreads) {
-    const int s = base + threadIdx.x;
-    const bool occupied = s < ns && o[s];
-    const int2 r = block_rank(occupied, warp_incl);
-    if (occupied) strips[r.x] = s;
-    __syncthreads();
-    for (int k0 = 0; k0 < r.y && running < C; k0 += kStrips) {
-      const int k = k0 + threadIdx.x / SW;
-      bool flag = false;
-      int b = 0;
-      if (k < r.y) {
-        const int st = strips[k];
-        const int by = st / g.S, bx = (st % g.S) * SW + threadIdx.x % SW;
-        b = by * g.Wb + bx;
-        flag = bx < g.Wb && bits[b] && par[b] == b;
-      }
-      const int2 q = block_rank(flag, warp_incl);
-      if (flag && running + q.x < C) table[size_t(n) * C + running + q.x] = b;
-      running += q.y;  // block-uniform: later roots are cut anyway
-    }
-    __syncthreads();  // strips is the next chunk's
-  }
-  if (threadIdx.x == 0) count[n] = min(running, C);
-}
-
-__global__ void __launch_bounds__(kTileThreads)
-ccl_stats(Geom g, int C, const uint8_t* __restrict__ occ, const int* __restrict__ tiles,
-          const int* __restrict__ ntiles, const int* __restrict__ parent,
-          const uint8_t* __restrict__ bits_g, const int* __restrict__ table,
-          const int* __restrict__ count, unsigned long long* __restrict__ sums) {
-  extern __shared__ unsigned acc[];  // 3*C sums, then C table entries
-  int* tab = reinterpret_cast<int*>(acc + 3 * C);
-  const int n = blockIdx.y;
-  const int cnt = count[n];
-  const TileWalk walk(tiles, ntiles, g, n);
-  if (cnt == 0 || int(blockIdx.x) >= walk.n) return;
-  for (int i = threadIdx.x; i < 3 * cnt; i += blockDim.x) acc[i] = 0;
-  for (int i = threadIdx.x; i < cnt; i += blockDim.x) tab[i] = table[size_t(n) * C + i];
-  __syncthreads();
-  const uint8_t* o = occ + size_t(n) * g.Hb * g.S;
-  const int* par = parent + size_t(n) * g.Hb * g.Wb;
-  const uint8_t* bits = bits_g + size_t(n) * g.Hb * g.Wb;
-  for (int k = blockIdx.x; k < walk.n; k += gridDim.x) {
-    const int t = walk.tile(k);
-    for (int j = threadIdx.x; j < kTileThreads; j += blockDim.x) {
-      const int by = (t / g.TX) * TBY + j / TBX, bx = (t % g.TX) * TBX + j % TBX;
-      if (by >= g.Hb || bx >= g.Wb || !strip_occupied(o, g, by, bx)) continue;
-      const int b = by * g.Wb + bx;
-      const int bb = bits[b];
-      if (!bb) continue;
-      const int r = par[b];
-      int lo = 0, hi = cnt;
-      while (lo < hi) {
-        const int mid = (lo + hi) >> 1;
-        if (tab[mid] < r) lo = mid + 1; else hi = mid;
-      }
-      if (lo == cnt || tab[lo] != r) continue;  // rank >= C: cut
-      const unsigned x = 2u * unsigned(bx), y = 2u * unsigned(by);
-      const unsigned area = __popc(bb);
-      const unsigned sx = ((bb & 1) ? x : 0) + ((bb & 2) ? x + 1 : 0) +
-                          ((bb & 4) ? x : 0) + ((bb & 8) ? x + 1 : 0);
-      const unsigned sy = ((bb & 1) ? y : 0) + ((bb & 2) ? y : 0) +
-                          ((bb & 4) ? y + 1 : 0) + ((bb & 8) ? y + 1 : 0);
-      atomicAdd(&acc[3 * lo], area);
-      atomicAdd(&acc[3 * lo + 1], sx);
-      atomicAdd(&acc[3 * lo + 2], sy);
-    }
-  }
-  __syncthreads();
-  for (int i = threadIdx.x; i < 3 * cnt; i += blockDim.x)
-    if (acc[i]) atomicAdd(&sums[size_t(n) * 3 * C + i], (unsigned long long)acc[i]);
 }
 
 // One thread a 2 x 4 pixel group, blocks (by, 2q) and (by, 2q + 1) of
@@ -1012,6 +1026,394 @@ k6_labels(const int* __restrict__ root, SGeom g, int C, const uint8_t* __restric
   store_strip<kConn>(labels + size_t(n) * g.H * g.W, g, r, c, lane, v);
 }
 
+
+// ---- K2: one persistent cooperative launch a call ----
+
+constexpr int kK2Blocks = 4;          // CTAs an SM the persistent kernel is built for
+constexpr int kBorderTiles = kTileThreads / kBorderThreads;  // tiles a CTA a border step
+constexpr int kRootStrips = 8;        // strips a thread of the roots phase scans a step
+constexpr int kMaxC = 1024;           // components the kernel takes (the roots phase's list)
+constexpr float kImax = 2147483520.0f;  // 2^31 - 128, the largest float32 below 2^31
+
+struct K2Params {
+  const uint8_t* mask;  // (N, g.H, g.W)
+  Geom g;
+  int N, C;
+  int H, W;             // the image inside the mask (the stats' totals)
+  float cx0, cy0;       // float32 of the image's sums of x and of y
+  const uint8_t* occ;   // (N, Hb, S) the caller's strip occupancy, or null: derived
+  uint8_t* fine;        // (N, Hb, S) the segment occupancy (seg_occupied), phase A's
+  uint8_t* bits;        // (N, Hb * Wb) block flags
+  int* parent;          // (N, Hb * Wb)
+  int2* list;           // the batch's tiles with foreground (item()), *nlist of them
+  int* nlist;
+  int* rc;              // (N, Hb * S) roots in each occupied strip
+  int* table;           // (N, C) the first C roots, ascending
+  unsigned* sums;       // (N, C, 3) area, sum x, sum y, wrapping 32-bit
+  int* count;           // (N,)  the outputs: the stats dict's tensors
+  int* area;            // (N, C + 1)
+  float* centroid;      // (N, C + 1, 2)
+  int* csum;            // (N, C + 1, 2)
+  int* overflow;        // (N,)
+  long long* phase_ns;  // null, or (9,): %globaltimer of CTA 0 at the start and after
+                        // phases A-G, then the list's length
+};
+
+// An item of K2's tile list: x = frame | (the tile's live block rows << 16:
+// bit r where the tile's segment of row r holds foreground), y = the tile.
+__device__ __forceinline__ int2 item(int n, unsigned rows, int t) {
+  return make_int2(int(unsigned(n) | rows << 16), t);
+}
+__device__ __forceinline__ int item_frame(int2 it) { return it.x & 0xffff; }
+
+// This thread's block (by, bx) of an item's tile, and whether it is live:
+// inside the frame, its row's segment of the tile holding foreground.
+__device__ __forceinline__ bool item_block(const Geom& g, int2 it, int* by, int* bx) {
+  const int ty = threadIdx.x / TBX;
+  *by = (it.y / g.TX) * TBY + ty;
+  *bx = (it.y % g.TX) * TBX + threadIdx.x % TBX;
+  return *by < g.Hb && *bx < g.Wb && ((unsigned(it.x) >> (16 + ty)) & 1u);
+}
+
+__device__ __forceinline__ long long globaltimer() {
+  long long t;
+  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
+  return t;
+}
+
+// The roots phase for frame n: the root counts of the strips with
+// foreground scanned in strip (= block) order, kRootStrips strips a thread
+// a step, until C roots are passed; the strips that hold one of the first C
+// roots go to a list, and a warp a listed strip writes its roots' block
+// indices into the table at the strip's offset (a lane's blocks are read
+// only where their segment holds foreground). count = min(roots, C); the
+// frame's sums are zeroed.
+__device__ void k2_roots(const K2Params& P, int n, int* warp_incl, int* slist, int* soff,
+                         int* scount) {
+  const Geom& g = P.g;
+  const int C = P.C, ns = g.Hb * g.S;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, nw = blockDim.x >> 5;
+  const uint8_t* o = P.fine + size_t(n) * ns;
+  const int* rc = P.rc + size_t(n) * ns;
+  const uint8_t* bits = P.bits + size_t(n) * g.Hb * g.Wb;
+  const int* par = P.parent + size_t(n) * g.Hb * g.Wb;
+  int* table = P.table + size_t(n) * C;
+  for (int i = threadIdx.x; i < 3 * C; i += blockDim.x) P.sums[size_t(n) * 3 * C + i] = 0u;
+  int running = 0;  // roots of the strips before this step (CTA-uniform)
+  for (int base = 0; base < ns && running < C; base += kRootStrips * blockDim.x) {
+    const int s0 = base + kRootStrips * threadIdx.x;
+    // a strip's roots: its count where it holds foreground (read twice, not kept)
+    auto roots = [&](int s) { return s < ns && o[s] ? rc[s] : 0; };
+    int sum = 0;
+#pragma unroll
+    for (int q = 0; q < kRootStrips; ++q) sum += roots(s0 + q);
+    if (threadIdx.x == 0) *scount = 0;
+    const int2 r = block_scan(sum, warp_incl);  // its barriers also order scount
+    int off = running + r.x;
+#pragma unroll
+    for (int q = 0; q < kRootStrips; ++q) {
+      const int v = roots(s0 + q);
+      if (v > 0 && off < C) {
+        const int i = atomicAdd(scount, 1);
+        slist[i] = s0 + q;
+        soff[i] = off;
+      }
+      off += v;
+    }
+    __syncthreads();
+    const int nl = *scount;
+    for (int i = warp; i < nl; i += nw) {  // a warp a listed strip, 4 blocks a lane
+      const int st = slist[i];
+      const int by = st / g.S, bx0 = (st % g.S) * SW + 4 * lane;
+      const bool seg = (o[st] >> (4 * lane / TBX)) & 1;
+      unsigned m4 = 0;
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        const int b = by * g.Wb + bx0 + k;
+        if (seg && bx0 + k < g.Wb && bits[b] && par[b] == b) m4 |= 1u << k;
+      }
+      const int c = __popc(m4);
+      int incl = c;
+      for (int d = 1; d < 32; d <<= 1) {
+        const int t = __shfl_up_sync(0xffffffffu, incl, d);
+        if (lane >= d) incl += t;
+      }
+      int at = soff[i] + incl - c;
+#pragma unroll
+      for (int k = 0; k < 4; ++k)
+        if ((m4 >> k) & 1u) {
+          if (at < C) table[at] = by * g.Wb + bx0 + k;
+          ++at;
+        }
+    }
+    running += r.y;
+    __syncthreads();  // slist, soff and scount are the next step's
+  }
+  if (threadIdx.x == 0) P.count[n] = min(running, C);
+}
+
+// The stats of an item's tile: each foreground block's rank in the
+// frame's table (binary search), its area, sum x and sum y summed over the
+// warp's blocks of one rank (a tile row is a warp), one atomic add each a
+// rank and warp into the wrapping 32-bit sums. Integer sums: any order
+// gives the same bits.
+__device__ __forceinline__ void k2_stats_tile(const K2Params& P, int2 it) {
+  const Geom& g = P.g;
+  const int n = item_frame(it);
+  const int cnt = P.count[n];
+  if (cnt == 0) return;
+  const int lane = threadIdx.x & 31;
+  int by, bx;
+  int rank = -1;
+  unsigned area = 0, sx = 0, sy = 0;
+  if (item_block(g, it, &by, &bx)) {
+    const int b = by * g.Wb + bx;
+    const int bb = P.bits[size_t(n) * g.Hb * g.Wb + b];
+    if (bb) {
+      rank = rank_of(P.table + size_t(n) * P.C, cnt,
+                     P.parent[size_t(n) * g.Hb * g.Wb + b]);
+      const unsigned x = 2u * unsigned(bx), y = 2u * unsigned(by);
+      area = __popc(bb);
+      sx = ((bb & 1) ? x : 0) + ((bb & 2) ? x + 1 : 0) + ((bb & 4) ? x : 0) +
+           ((bb & 8) ? x + 1 : 0);
+      sy = ((bb & 1) ? y : 0) + ((bb & 2) ? y : 0) + ((bb & 4) ? y + 1 : 0) +
+           ((bb & 8) ? y + 1 : 0);
+    }
+  }
+  unsigned pend = __ballot_sync(0xffffffffu, rank >= 0);
+  while (pend) {  // one rank at a time: the leader's
+    const int leader = __ffs(pend) - 1;
+    const int rk = __shfl_sync(0xffffffffu, rank, leader);
+    const bool mine = rank == rk;
+    const unsigned a = __reduce_add_sync(0xffffffffu, mine ? area : 0u);
+    const unsigned x = __reduce_add_sync(0xffffffffu, mine ? sx : 0u);
+    const unsigned y = __reduce_add_sync(0xffffffffu, mine ? sy : 0u);
+    if (lane == leader) {
+      unsigned* e = P.sums + (size_t(n) * P.C + rk) * 3;
+      atomicAdd(e, a);
+      atomicAdd(e + 1, x);
+      atomicAdd(e + 2, y);
+    }
+    pend &= ~__ballot_sync(0xffffffffu, mine);
+  }
+}
+
+// The stats epilogue of frame n, a warp (tpuva_torch/ops/label.py::
+// _assemble_stats, bit for bit): the wrapping int32 totals over the C
+// components, the background row by subtraction from the image's totals
+// (area in int32, x and y in float32), centroid = float32 sum / float32
+// area (0 where the area is 0), centroid_sum the int32 sums (the
+// background's clamped to +-(2^31 - 128) and cut toward zero), 0 where the
+// area is 0.
+__device__ __forceinline__ void k2_epilogue(const K2Params& P, int n) {
+  const int lane = threadIdx.x & 31, C = P.C;
+  const unsigned* sn = P.sums + size_t(n) * 3 * C;
+  unsigned ta = 0, tx = 0, ty = 0;
+  for (int c = lane; c < C; c += 32) {
+    ta += sn[3 * c];
+    tx += sn[3 * c + 1];
+    ty += sn[3 * c + 2];
+  }
+  ta = __reduce_add_sync(0xffffffffu, ta);
+  tx = __reduce_add_sync(0xffffffffu, tx);
+  ty = __reduce_add_sync(0xffffffffu, ty);
+  for (int row = lane; row <= C; row += 32) {
+    int a, ix, iy;
+    float fx, fy;
+    if (row == 0) {
+      a = int(unsigned(P.H) * unsigned(P.W) - ta);
+      fx = __fsub_rn(P.cx0, __int2float_rn(int(tx)));
+      fy = __fsub_rn(P.cy0, __int2float_rn(int(ty)));
+      ix = __float2int_rz(fminf(fmaxf(fx, -kImax), kImax));
+      iy = __float2int_rz(fminf(fmaxf(fy, -kImax), kImax));
+    } else {
+      const unsigned* e = sn + 3 * (row - 1);
+      a = int(e[0]);
+      ix = int(e[1]);
+      iy = int(e[2]);
+      fx = __int2float_rn(ix);
+      fy = __int2float_rn(iy);
+    }
+    const bool present = a > 0;
+    const float fa = __int2float_rn(a > 1 ? a : 1);
+    const size_t i = size_t(n) * (C + 1) + row;
+    P.area[i] = a;
+    P.centroid[2 * i] = present ? __fdiv_rn(fx, fa) : 0.0f;
+    P.centroid[2 * i + 1] = present ? __fdiv_rn(fy, fa) : 0.0f;
+    P.csum[2 * i] = present ? ix : 0;
+    P.csum[2 * i + 1] = present ? iy : 0;
+  }
+  if (lane == 0) P.overflow[n] = 0;
+}
+
+// K2 in one cooperative launch: the phases of the six-kernel sequence
+// K3 still runs, over a batch-wide list of occupied tiles, joined by
+// grid.sync(), with the stats epilogue last. Each CTA takes every
+// gridDim.x-th item of a phase; no CTA is launched for an empty tile.
+__global__ void __launch_bounds__(kTileThreads, kK2Blocks)
+ccl_stats_persistent(K2Params P) {
+  __shared__ int par[kTileThreads];
+  __shared__ uint8_t bits[kTileThreads];
+  __shared__ int warp_incl[32];
+  __shared__ int slist[kMaxC], soff[kMaxC];
+  __shared__ int scount;
+  cg::grid_group grid = cg::this_grid();
+  const Geom& g = P.g;
+  const int lane = threadIdx.x & 31;
+  const size_t nthreads = size_t(gridDim.x) * blockDim.x;
+  const size_t gtid = size_t(blockIdx.x) * blockDim.x + threadIdx.x;
+  const int ns = g.Hb * g.S;
+
+  // CTA 0's clock at the start and after each phase's barrier (timing only)
+  auto stamp = [&](int i) {
+    if (P.phase_ns && gtid == 0) P.phase_ns[i] = globaltimer();
+  };
+  stamp(0);
+
+  // A. the segment occupancy, a warp a strip: from the mask where it is
+  // derived; else from the mask of the caller's occupied strips only, a
+  // warp 32 strips, 0 for an empty one. The list starts empty.
+  if (gtid == 0) *P.nlist = 0;
+  const size_t strips = size_t(P.N) * ns;
+  if (P.occ == nullptr) {
+    for (size_t s = gtid / 32; s < strips; s += nthreads / 32) {
+      const unsigned seg = strip_segments(P.mask, g, s);
+      if (lane == 0) P.fine[s] = seg;
+    }
+  } else {
+    for (size_t s0 = gtid / 32 * 32; s0 < strips; s0 += nthreads) {
+      const size_t s = s0 + lane;
+      unsigned occupied = __ballot_sync(0xffffffffu, s < strips && P.occ[s]), seg = 0;
+      while (occupied) {
+        const int k = __ffs(occupied) - 1;
+        const unsigned sk = strip_segments(P.mask, g, s0 + k);
+        if (lane == k) seg = sk;
+        occupied &= occupied - 1;
+      }
+      if (s < strips) P.fine[s] = seg;
+    }
+  }
+  grid.sync();
+  stamp(1);
+
+  // B. a thread a group of TBY strips of one strip column (up to SW / TBX
+  // tiles): the root counts of its strips with foreground zeroed, and each
+  // tile with foreground appended to the list with its live rows
+  // (warp-aggregated)
+  const int gpf = g.TY * g.S;  // groups a frame
+  for (size_t base = size_t(blockIdx.x) * blockDim.x; base < size_t(P.N) * gpf;
+       base += nthreads) {
+    const size_t q = base + threadIdx.x;
+    int n = 0, ty = 0, sx = 0;
+    unsigned rows[SW / TBX] = {};  // each tile's live rows
+    if (q < size_t(P.N) * gpf) {
+      n = int(q / gpf);
+      const int r = int(q % gpf);
+      ty = r / g.S;
+      sx = r % g.S;
+      const uint8_t* f = P.fine + size_t(n) * ns + ty * TBY * g.S + sx;
+      unsigned seg[TBY];  // the group's strips, loaded before any store
+#pragma unroll
+      for (int r = 0; r < TBY; ++r) seg[r] = ty * TBY + r < g.Hb ? f[r * g.S] : 0u;
+#pragma unroll
+      for (int r = 0; r < TBY; ++r) {
+        if (seg[r]) P.rc[size_t(n) * ns + (ty * TBY + r) * g.S + sx] = 0;
+#pragma unroll
+        for (int k = 0; k < SW / TBX; ++k) rows[k] |= ((seg[r] >> k) & 1u) << r;
+      }
+    }
+    int nt = 0;
+#pragma unroll
+    for (int k = 0; k < SW / TBX; ++k) nt += rows[k] != 0;
+    int incl = nt;
+    for (int d = 1; d < 32; d <<= 1) {
+      const int v = __shfl_up_sync(0xffffffffu, incl, d);
+      if (lane >= d) incl += v;
+    }
+    int at = 0;
+    if (lane == 31 && incl) at = atomicAdd(P.nlist, incl);
+    at = __shfl_sync(0xffffffffu, at, 31) + incl - nt;
+#pragma unroll
+    for (int k = 0; k < SW / TBX; ++k)
+      if (rows[k]) P.list[at++] = item(n, rows[k], ty * g.TX + sx * (SW / TBX) + k);
+  }
+  grid.sync();
+  stamp(2);
+  const int L = *reinterpret_cast<volatile int*>(P.nlist);
+  const uint8_t* fine = P.fine;
+
+  // C. union inside each listed tile
+  for (int k = blockIdx.x; k < L; k += gridDim.x) {
+    const int2 it = P.list[k];
+    const int n = item_frame(it);
+    int by, bx;
+    const bool live = item_block(g, it, &by, &bx);
+    int bb = 0;
+    if (live) {
+      const int y = 2 * by, x = 2 * bx;
+      const uint8_t* row = P.mask + (size_t(n) * g.H + y) * g.W;
+      bb |= row[x] != 0;
+      if (x + 1 < g.W) bb |= (row[x + 1] != 0) << 1;
+      if (y + 1 < g.H) {
+        bb |= (row[g.W + x] != 0) << 2;
+        if (x + 1 < g.W) bb |= (row[g.W + x + 1] != 0) << 3;
+      }
+    }
+    local_union(g, n, by, bx, live, bb, P.parent, P.bits, par, bits);
+  }
+  grid.sync();
+  stamp(3);
+
+  // D. union across the listed tiles' borders, kBorderTiles tiles a CTA a
+  // step
+  for (int k0 = blockIdx.x * kBorderTiles; k0 < L; k0 += gridDim.x * kBorderTiles) {
+    const int k = k0 + threadIdx.x / kBorderThreads;
+    if (k < L) {
+      const int2 it = P.list[k];
+      border_item<true>(g, fine, item_frame(it), it.y, threadIdx.x % kBorderThreads, P.parent,
+                        P.bits);
+    }
+  }
+  grid.sync();
+  stamp(4);
+
+  // E. every foreground block points at its root; each tile row (a warp,
+  // inside one strip) adds its roots to the strip's count
+  for (int k = blockIdx.x; k < L; k += gridDim.x) {
+    const int2 it = P.list[k];
+    const int n = item_frame(it);
+    int by, bx;
+    bool root = false;
+    if (item_block(g, it, &by, &bx)) {
+      int* par_n = P.parent + size_t(n) * g.Hb * g.Wb;
+      const int b = by * g.Wb + bx;
+      if (P.bits[size_t(n) * g.Hb * g.Wb + b]) {
+        const int r = find_root(par_n, b);
+        par_n[b] = r;
+        root = r == b;
+      }
+    }
+    const unsigned rb = __ballot_sync(0xffffffffu, root);
+    if (lane == 0 && rb) atomicAdd(&P.rc[size_t(n) * ns + by * g.S + bx / SW], __popc(rb));
+  }
+  grid.sync();
+  stamp(5);
+
+  // F. each frame's first C roots in block order, its count; sums zeroed
+  for (int n = blockIdx.x; n < P.N; n += gridDim.x) k2_roots(P, n, warp_incl, slist, soff, &scount);
+  grid.sync();
+  stamp(6);
+
+  // G. the listed tiles' stats
+  for (int k = blockIdx.x; k < L; k += gridDim.x) k2_stats_tile(P, P.list[k]);
+  grid.sync();
+  stamp(7);
+  if (P.phase_ns && gtid == 0) P.phase_ns[8] = L;
+
+  // H. the stats dict's tensors, a warp a frame
+  for (size_t n = gtid / 32; n < size_t(P.N); n += nthreads / 32) k2_epilogue(P, int(n));
+}
+
 }  // namespace
 
 // mask (N,H,W) u8 (nonzero = foreground) -> labels (N,H,W) int32 root-key
@@ -1069,47 +1471,75 @@ extern "C" int tpuva_ccl_labels(const uint8_t* mask, int N, int H, int W, int co
   return static_cast<int>(cudaGetLastError());
 }
 
-// mask (N,H,W) u8 -> count (N,) int32 = min(#components, C) and
-// sums (N,C,3) int64 of (area, sum x, sum y) in cv2 id order, visiting
-// only the occupied strips of strip_occ (N, Hb, S) u8, S = ceil(Wb / 128):
-// with derive != 0 ccl_occ writes it from the mask first, else the caller
-// gives it, and a strip it calls empty must hold no foreground.
-// Scratch: tiles (N, ceil(Hb/16) * ceil(Wb/32)) int32, ntiles (N,) int32, parent
-// (N, Hb*Wb) int32, bits (N, Hb*Wb) u8, table (N, C) int32, with
-// Hb = ceil(H/2), Wb = ceil(W/2). Needs H, W < 65536 (the 32-bit per-CTA
-// sums), N < 65536 and 1 <= C <= 1024. Returns cudaGetLastError() after
-// the launches (0 = launched).
-extern "C" int tpuva_ccl_stats(const uint8_t* mask, int N, int H, int W, int C,
-                               uint8_t* strip_occ, int derive, int* tiles, int* ntiles,
-                               int* parent, uint8_t* bits, int* table,
-                               int* count, long long* sums, void* stream) {
-  if (N <= 0 || N >= 65536 || H <= 0 || W <= 0 || H >= 65536 || W >= 65536 || C < 1 ||
-      C > 1024 || strip_occ == nullptr)
-    return static_cast<int>(cudaErrorInvalidValue);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const Geom g = geom(H, W);
+namespace {
+
+// The persistent kernel's grid: CTAs resident an SM (the occupancy query)
+// and the card's SMs, 0 CTAs where the card has no cooperative launch.
+cudaError_t k2_grid(int* blocks_per_sm, int* sms) {
+  int dev, coop;
   cudaError_t err;
-  if (derive) {
-    const size_t strips = size_t(N) * g.Hb * g.S;
-    ccl_occ<<<unsigned((strips + kOccWarps - 1) / kOccWarps), 32 * kOccWarps, 0, s>>>(
-        mask, N, g, strip_occ);
-    if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
-  }
-  ccl_tiles<<<N, kScanThreads, 0, s>>>(g, strip_occ, tiles, ntiles);
-  if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
-  // kTilesPerCta listed tiles a CTA at most; CTAs past the frame's list return
-  const dim3 g_list((g.tiles() + kTilesPerCta - 1) / kTilesPerCta, N);
-  ccl_local<<<g_list, kTileThreads, 0, s>>>(mask, g, strip_occ, tiles, ntiles, parent, bits);
-  if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
-  ccl_border<<<g_list, kBorderThreads, 0, s>>>(g, strip_occ, tiles, ntiles, parent, bits);
-  if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
-  ccl_flatten_tiles<<<g_list, kTileThreads, 0, s>>>(g, strip_occ, tiles, ntiles, parent, bits);
-  if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
-  ccl_roots<<<N, kScanThreads, 0, s>>>(g, C, strip_occ, parent, bits, table, count, sums);
-  if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
-  ccl_stats<<<g_list, kTileThreads, 16 * C, s>>>(
-      g, C, strip_occ, tiles, ntiles, parent, bits, table, count,
-      reinterpret_cast<unsigned long long*>(sums));
+  if ((err = cudaGetDevice(&dev)) != cudaSuccess) return err;
+  if ((err = cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, dev)) != cudaSuccess)
+    return err;
+  if ((err = cudaDeviceGetAttribute(sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess)
+    return err;
+  if ((err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks_per_sm, ccl_stats_persistent,
+                                                           kTileThreads, 0)) != cudaSuccess)
+    return err;
+  if (!coop) *blocks_per_sm = 0;
+  return cudaSuccess;
+}
+
+}  // namespace
+
+// K2's launch: CTAs an SM and SMs of the cooperative grid (the grid is
+// their product; 0 CTAs an SM where the card cannot launch it).
+extern "C" int tpuva_ccl_stats_grid(int* blocks_per_sm, int* sms) {
+  return static_cast<int>(k2_grid(blocks_per_sm, sms));
+}
+
+// K2: mask (N, Hm, Wm) u8, zero outside its (H, W) image -> the stats dict
+// of the image's 8-connected components, first C in cv2 id order: count
+// (N,) int32 = min(#components, C), area (N, C+1) int32, centroid
+// (N, C+1, 2) float32, centroid_sum (N, C+1, 2) int32, overflow (N,) int32
+// (zeros), row 0 the background; bit-equal to tpuva_torch/ops/label.py::
+// _assemble_stats on the plain version's sums. One cooperative launch
+// visits only the occupied strips of strip_occ (N, Hb, S) u8, Hb =
+// ceil(Hm/2), S = ceil(ceil(Wm/2) / 128), where the caller gives it (a
+// strip it calls empty must hold no foreground); with strip_occ null it
+// reads every strip. Scratch (tpuva_torch/ops/ccl.py::k2_workspace):
+// fine (N, Hb, S) u8, bits (N, Hb*Wb) u8, parent (N, Hb*Wb) int32, list
+// (N * tiles) int2 with tiles = ceil(Hb/16) * ceil(Wb/32), nlist (1) int32,
+// rc (N, Hb*S) int32, table (N, C) int32, sums (N, C, 3) uint32. phase_ns:
+// null, or 9 int64 that receive CTA 0's %globaltimer at the start and after
+// each of the phases A-G (a breakdown for timing), then the list's length.
+// Needs N, Hm, Wm < 65536, N * tiles < 2^31, H * W < 2^31 and
+// 1 <= C <= 1024. Returns cudaErrorNotSupported where the card has no
+// cooperative launch, else the launch's error (0 = launched).
+extern "C" int tpuva_ccl_stats(const uint8_t* mask, int N, int Hm, int Wm, int H, int W, int C,
+                               const uint8_t* strip_occ, uint8_t* fine, uint8_t* bits,
+                               int* parent, int* list, int* nlist, int* rc, int* table,
+                               unsigned* sums, int* count, int* area, float* centroid, int* csum,
+                               int* overflow, long long* phase_ns, void* stream) {
+  const Geom g = geom(Hm, Wm);
+  if (N <= 0 || N >= 65536 || Hm <= 0 || Wm <= 0 || Hm >= 65536 || Wm >= 65536 || H <= 0 ||
+      W <= 0 || H > Hm || W > Wm || (long long)H * W >= (1LL << 31) || C < 1 || C > kMaxC ||
+      (long long)N * g.tiles() >= (1LL << 31) || fine == nullptr)
+    return static_cast<int>(cudaErrorInvalidValue);
+  int per_sm, sms;
+  cudaError_t err = k2_grid(&per_sm, &sms);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (per_sm < 1) return static_cast<int>(cudaErrorNotSupported);
+  K2Params P{mask, g, N, C, H, W,
+             static_cast<float>(double(H) * (W - 1) * W / 2.0),
+             static_cast<float>(double(W) * (H - 1) * H / 2.0),
+             strip_occ, fine, bits, parent, reinterpret_cast<int2*>(list), nlist, rc, table,
+             sums, count, area, centroid, csum, overflow, phase_ns};
+  void* args[] = {&P};
+  err = cudaLaunchCooperativeKernel(reinterpret_cast<const void*>(ccl_stats_persistent),
+                                    dim3(per_sm * sms), dim3(kTileThreads), args, 0,
+                                    static_cast<cudaStream_t>(stream));
+  if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -26,19 +26,46 @@
 // scalar operations; but each frame's table depends on the one before, so
 // the kernel is a chain of N frames, each a chain of dependent steps
 // (cost, reductions, assignment, prefix counts, compaction). Latency bounds
-// it. The design keeps every step of that chain on chip and short:
-// - one CTA of one warp walks the N frames. The track table (double
-//   buffered), the T x D cost matrix and the Jonker-Volgenant arrays live in
-//   shared memory; lanes stride over the T x D, T and D elementwise steps,
-//   warp shuffles do the reductions (min, max, first-index argmin), ballots
-//   the prefix counts of the compaction and the births, and __syncwarp
-//   orders the steps (no CTA barrier);
-// - the host reads nothing: frame_idx0 is read on the card, and the slow
-//   path (Jonker-Volgenant) runs inside the kernel, so a batch is one
-//   launch;
-// - where the arrays exceed a CTA's shared memory (T x D beyond ~56k), the
-//   same kernel keeps them in a global scratch buffer that the wrapper
-//   passes (the kGlobal instantiation), so no table size is refused.
+// it. One CTA of one warp walks the N frames, the slow path
+// (Jonker-Volgenant) included, and the host reads nothing (frame_idx0 is
+// read on the card): a batch is one launch. Two kernels, chosen by the
+// table's shape in tpuva_track_scan (tpuva_track_scan_plan says which, and
+// tpuva_torch/track/scan.py::scan_plan is its pure mirror):
+// - track_scan_regs, where T <= 32 and D <= 32 (the bench: 16 x 8). A
+//   frame's chain stays in registers and shared memory, with no global
+//   load on it:
+//   - lane s holds slot s of the table (pos, tid, missed, active) and lane j
+//     detection j of the frame; survivors are compacted and births appended
+//     by ballots, __popc and a lane reading its source slot with
+//     __shfl_sync (nth_set finds the source), with no table in memory;
+//   - the T x D cost matrix is spread over the whole warp, entry
+//     e = lane + 32 q to a lane (so T x D = 128 takes four square roots a
+//     lane, not eight on 16 lanes), and written to shared memory row-major
+//     (consecutive lanes, consecutive words); lane j then scans column j
+//     once for its first minimum in torch.argmin's order and the rows that
+//     hold it. The fast path's tests are one __all_sync (every valid
+//     column's minimum strict), one __reduce_or_sync of the minima's rows
+//     (no two valid columns on one row) and one ballot; greedy's rounds
+//     are a minimum over a lane's entries and two __reduce_min_sync over
+//     the costs' bits (every cost is +0 or more, so the unsigned order of
+//     the bits is the float order; a NaN fails every round's gate);
+//   - the batch's dets and det_valid are staged into shared memory in
+//     chunks of kChunk frames by cp.async, double-buffered: the next chunk
+//     loads while the warp works through the current one, so no frame's
+//     chain waits on a global load and each detection is read from global
+//     memory once;
+//   - a chunk's rows and row_valid are built in shared memory and written
+//     as 16-byte stores, coalesced;
+//   - a frame that the fast path refuses runs Jonker-Volgenant
+//     (hungarian_regs) on the matrix in shared memory with its arrays in
+//     registers, a column and a row of the search a lane;
+// - track_scan_kernel, every other shape: the table double-buffered in
+//   shared memory, lanes striding over the T x D, T and D elementwise
+//   steps, warp shuffles for the reductions and __syncwarp ordering the
+//   steps; where its arrays exceed a CTA's shared memory (T x D beyond
+//   ~56k), the same kernel keeps them in a global scratch buffer that the
+//   wrapper passes (the kGlobal instantiation), so no table size is
+//   refused.
 
 #include <climits>
 #include <cstdint>
@@ -104,7 +131,7 @@ struct Layout {
     cnt = o; o += n1;
     words = o;
   }
-  long long bytes() const { return 4 * words; }
+  __host__ __device__ long long bytes() const { return 4 * words; }
 };
 
 __device__ __forceinline__ int warp_sum(int x) {
@@ -257,6 +284,91 @@ __device__ void hungarian_slow(const Params& P, const Layout& L, float* mem, int
     }
   }
   __syncwarp();
+}
+
+// hungarian_slow for the register kernel (max(T, D) <= 32): the same float
+// operations in the same order, with the search's column j (1..nn) in lane
+// j - 1 and its row i (1..m) in lane i - 1, so that a step of the search is
+// a few shuffles and one warp argmin instead of strided passes over shared
+// arrays. Column 0 only holds the row being inserted (its v and minv are
+// never read), and row 0's potential never changes (every used column is
+// assigned). cm: the T x D cost matrix in shared memory; slot: D ints of
+// shared memory. Returns the row for this lane's detection column (-1 =
+// none) where lane < D.
+__device__ int hungarian_regs(const Params& P, const float* cm, int* slot, int lane) {
+  const int T = P.T, D = P.D;
+  float mx = 0.0f;  // cap = maxv * (n + 1) + 1 over the valid entries, as hungarian_slow
+  for (int e = lane; e < T * D; e += 32) {
+    const float c = cm[e];
+    mx = fmaxf(mx, c < kHalfBig ? c : 0.0f);
+  }
+  mx = warp_max(mx);
+  const int n = T > D ? T : D;
+  const float cap = __fadd_rn(__fmul_rn(mx, static_cast<float>(n + 1)), 1.0f);
+  const bool tr = T > D;  // T <= D: rows are tracks, columns detections; else the transpose
+  const int m = tr ? D : T, nn = tr ? T : D;
+  const bool col = lane < nn, row = lane < m;
+  float v = 0.0f, u = 0.0f, minv = kInf;  // column lane + 1's v, minv; row lane + 1's u
+  int p = 0, way = 0;                     // column lane + 1's row (0 = none) and way
+  bool used = false;
+  for (int i = 1; i <= m; ++i) {
+    minv = kInf;
+    way = 0;
+    used = false;
+    int j0 = 0, pj0 = i;  // p[0] = i
+    while (true) {
+      if (lane == j0 - 1) used = true;
+      const float ui0 = __shfl_sync(kFull, u, pj0 - 1);
+      // cur = a[i0 - 1, :] - u[i0] - v[1:]; better = unused & cur < minv;
+      // then the first argmin over mv = used ? INF : minv
+      float mv = __int_as_float(0x7f800000);
+      int bj = INT_MAX;
+      if (col) {
+        mv = kInf;
+        if (!used) {
+          const float x = tr ? cm[lane * D + pj0 - 1] : cm[(pj0 - 1) * D + lane];
+          const float cur = __fsub_rn(__fsub_rn(x < kHalfBig ? x : cap, ui0), v);
+          if (cur < minv) {
+            minv = cur;
+            way = j0;
+          }
+          mv = minv;
+        }
+        bj = lane + 1;
+      }
+      warp_argmin(mv, bj);
+      const int j1 = bj;
+      const float delta = mv;
+      // the used columns' rows, column 0's (i) among them: each row at most
+      // once (p is a matching), so cnt[r] is bit r - 1
+      const unsigned rows = __reduce_or_sync(kFull, col && used && p > 0 ? 1u << (p - 1) : 0u) |
+                            1u << (i - 1);
+      if (row) u = __fadd_rn(u, __fmul_rn(delta, static_cast<float>((rows >> lane) & 1u)));
+      if (col) {
+        v = __fsub_rn(v, used ? delta : 0.0f);
+        minv = __fsub_rn(minv, used ? 0.0f : delta);
+      }
+      j0 = j1;
+      pj0 = __shfl_sync(kFull, p, j0 - 1);
+      if (pj0 == 0) break;
+    }
+    while (j0 != 0) {  // augment along way
+      const int j1 = __shfl_sync(kFull, way, j0 - 1);
+      const int pj1 = j1 == 0 ? i : __shfl_sync(kFull, p, (j1 - 1) & 31);
+      if (lane == j0 - 1) p = pj1;
+      j0 = j1;
+    }
+  }
+  if (!tr) return lane < D ? p - 1 : -1;
+  // det_for_track[t] = p[t + 1] - 1; each detection takes the track that
+  // holds it (p is a matching: at most one), or -1
+  if (lane < D) slot[lane] = -1;
+  __syncwarp();
+  if (col && p > 0) slot[p - 1] = lane;
+  __syncwarp();
+  const int r = lane < D ? slot[lane] : -1;
+  __syncwarp();
+  return r;
 }
 
 // hungarian_assign (tpuva_torch/track/assign.py): the fast path, else
@@ -497,23 +609,413 @@ track_scan_kernel(Params P, float* scratch) {
   if (lane == 0) *P.next_id1 = static_cast<int>(next_id);
 }
 
+// ---- track_scan_regs: the table in registers (T <= 32, D <= 32) ----
+
+constexpr int kRegMax = 32;  // T and D the register kernel takes: a lane each
+constexpr int kChunk = 32;   // frames staged a chunk: chunk offsets stay 16-byte aligned
+
+__host__ __device__ inline long long up16(long long x) { return (x + 15) / 16 * 16; }
+
+// The register kernel's shared memory, in bytes from the base: the
+// Jonker-Volgenant region (Layout(T, D); its two tables are unused), two
+// staging buffers of a chunk's dets and det_valid, and a chunk's rows and
+// row_valid.
+struct RegLayout {
+  long long dets[2], valid[2], rows, rvalid, bytes;
+  __host__ __device__ RegLayout(int T, int D) {
+    long long o = up16(Layout(T, D).bytes());
+    for (int b = 0; b < 2; ++b) {
+      dets[b] = o;
+      o += up16(12LL * kChunk * D);
+    }
+    for (int b = 0; b < 2; ++b) {
+      valid[b] = o;
+      o += up16(1LL * kChunk * D);
+    }
+    rows = o;
+    o += up16(20LL * kChunk * D);
+    rvalid = o;
+    o += up16(1LL * kChunk * D);
+    bytes = o;
+  }
+};
+
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(gmem) : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int kPending>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(kPending) : "memory");
+}
+
+// nbytes from global src to shared dst: 16-byte cp.async where vec (both
+// 16-byte aligned), plain byte copies for the rest (a tail under 16 bytes,
+// or everything where not vec).
+__device__ __forceinline__ void stage_bytes(uint8_t* dst, const uint8_t* src, int nbytes,
+                                            bool vec, int lane) {
+  int done = 0;
+  if (vec) {
+    const int n16 = nbytes >> 4;
+    for (int i = lane; i < n16; i += 32) cp_async16(dst + 16 * i, src + 16 * i);
+    done = n16 << 4;
+  }
+  for (int i = done + lane; i < nbytes; i += 32) dst[i] = src[i];
+}
+
+// nbytes from shared src to global dst: 16-byte stores where vec, bytes
+// for the rest.
+__device__ __forceinline__ void flush_bytes(uint8_t* dst, const uint8_t* src, int nbytes,
+                                            bool vec, int lane) {
+  int done = 0;
+  if (vec) {
+    const int n16 = nbytes >> 4;
+    for (int i = lane; i < n16; i += 32)
+      reinterpret_cast<uint4*>(dst)[i] = reinterpret_cast<const uint4*>(src)[i];
+    done = n16 << 4;
+  }
+  for (int i = done + lane; i < nbytes; i += 32) dst[i] = src[i];
+}
+
+// Position of the k-th set bit of m (1-based; k <= __popc(m)): the largest
+// p with fewer than k set bits below it.
+__device__ __forceinline__ int nth_set(unsigned m, int k) {
+  int p = 0;
+  for (int s = 16; s; s >>= 1)
+    if (__popc(m & ((1u << (p + s)) - 1u)) < k) p += s;
+  return p;
+}
+
+// Chunk c of the batch's dets and det_valid into staging buffer b.
+__device__ __forceinline__ void stage_chunk(const Params& P, const RegLayout& R, uint8_t* smem,
+                                            int c, int b, bool vec, int lane) {
+  const int nf = min(kChunk, P.N - c * kChunk);
+  const long long f0 = static_cast<long long>(c) * kChunk * P.D;
+  stage_bytes(smem + R.dets[b], reinterpret_cast<const uint8_t*>(P.dets + 3 * f0),
+              12 * nf * P.D, vec, lane);
+  stage_bytes(smem + R.valid[b], P.det_valid + f0, nf * P.D, vec, lane);
+}
+
+// One warp walks the N frames with the table in registers (see the top of
+// the file). kD >= D is the extent of the per-lane register arrays (a cost
+// row, the detections' x and y), so that every index into them is a
+// constant of an unrolled loop.
+template <int kD>
+__global__ void __launch_bounds__(32)
+track_scan_regs(Params P) {
+  extern __shared__ __align__(16) uint8_t smem8[];
+  float* mem = reinterpret_cast<float*>(smem8);  // the Jonker-Volgenant region
+  const int T = P.T, D = P.D;
+  const Layout L(T, D);
+  const RegLayout R(T, D);
+  const int lane = threadIdx.x;
+  const unsigned below = (1u << lane) - 1u;  // lanes before this one
+  const bool in_t = lane < T, in_d = lane < D;
+  // this lane's first cost entry (lane = row i0 * D + column j0) and the
+  // step to its next (32 = di * D + dj)
+  const int TD = T * D, i0 = lane / D, j0 = lane - i0 * D, di = 32 / D, dj = 32 - di * D;
+
+  // slot `lane` of the table
+  float px = 0.0f, py = 0.0f;
+  int tid = 0, missed = 0;
+  bool act = false;
+  if (in_t) {
+    px = P.pos0[2 * lane];
+    py = P.pos0[2 * lane + 1];
+    tid = P.tid0[lane];
+    missed = P.missed0[lane];
+    act = P.active0[lane] != 0;
+  }
+  unsigned next_id = static_cast<unsigned>(*P.next_id0);
+  const unsigned frame0 = static_cast<unsigned>(*P.frame0);
+  const bool vec_in =
+      ((reinterpret_cast<uintptr_t>(P.dets) | reinterpret_cast<uintptr_t>(P.det_valid)) & 15) == 0;
+  const bool vec_out =
+      ((reinterpret_cast<uintptr_t>(P.rows) | reinterpret_cast<uintptr_t>(P.row_valid)) & 15) == 0;
+  float* rs = reinterpret_cast<float*>(smem8 + R.rows);
+  uint8_t* rvs = smem8 + R.rvalid;
+
+  const int nchunks = (P.N + kChunk - 1) / kChunk;
+  stage_chunk(P, R, smem8, 0, 0, vec_in, lane);
+  cp_async_commit();
+  for (int c = 0; c < nchunks; ++c) {
+    const int b = c & 1;
+    if (c + 1 < nchunks) {  // the next chunk loads while this one runs
+      stage_chunk(P, R, smem8, c + 1, b ^ 1, vec_in, lane);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncwarp();
+    const float* ds = reinterpret_cast<const float*>(smem8 + R.dets[b]);
+    const uint8_t* vs = smem8 + R.valid[b];
+    const int nf = min(kChunk, P.N - c * kChunk);
+    for (int f = 0; f < nf; ++f) {
+      const int t = c * kChunk + f;
+      // detection `lane` of frame t
+      float dxj = 0.0f, dyj = 0.0f, daj = 0.0f;
+      bool vj = false;
+      if (in_d) {
+        dxj = ds[3 * (f * D + lane)];
+        dyj = ds[3 * (f * D + lane) + 1];
+        daj = ds[3 * (f * D + lane) + 2];
+        vj = vs[f * D + lane] != 0;
+      }
+      const unsigned vmask = __ballot_sync(kFull, vj);
+
+      // the cost matrix: its T x D entries spread over the lanes (entry
+      // e = lane + 32 q is row e / D, column e % D), kept in registers and
+      // written to shared memory in row-major order (consecutive lanes,
+      // consecutive words) for the column scans and Jonker-Volgenant
+      const unsigned amask = __ballot_sync(kFull, act);
+      float* cm = mem + L.cost;
+      float ce[kD];  // this lane's entries (greedy's rounds read them)
+      bool nan_e = false;
+      __syncwarp();  // the previous frame's reads of cm are done
+      {
+        int i = i0, j = j0;  // this lane's entry
+#pragma unroll
+        for (int q = 0; q < kD; ++q) {
+          if (32 * q >= TD) break;
+          const int e = lane + 32 * q;
+          const float xi = __shfl_sync(kFull, px, i & 31), yi = __shfl_sync(kFull, py, i & 31);
+          const float xj = __shfl_sync(kFull, dxj, j & 31), yj = __shfl_sync(kFull, dyj, j & 31);
+          float cc = kBig;
+          if (e < TD && ((amask >> i) & 1u) && ((vmask >> j) & 1u)) {
+            const float dx = __fsub_rn(xi, xj);
+            const float dy = __fsub_rn(yi, yj);
+            cc = __fsqrt_rn(__fadd_rn(__fmul_rn(dx, dx), __fmul_rn(dy, dy)));
+          }
+          ce[q] = cc;
+          if (e < TD) {
+            cm[e] = cc;
+            nan_e |= cc != cc;
+          }
+          i += di;
+          j += dj;
+          if (j >= D) {
+            j -= D;
+            ++i;
+          }
+        }
+      }
+      __syncwarp();
+
+      // the assignment: sfd, the slot of detection `lane`, -1 = none
+      int sfd = -1;
+      if (P.hungarian) {
+        // column `lane`: its first minimum in torch.argmin's order (NaN
+        // first) and how many rows hold it, in one pass over the rows
+        float mn = 0.0f;
+        int am = 0, eq = 0;
+        if (in_d) {
+          mn = cm[lane];
+          eq = mn == mn;
+          for (int i = 1; i < T; ++i) {
+            const float c = cm[i * D + lane];
+            if (before(c, i, mn, am)) {
+              mn = c;
+              am = i;
+              eq = c == c;
+            } else if (c == mn) {
+              ++eq;
+            }
+          }
+        }
+        // the fast path: every valid column's minimum strict, no two valid
+        // columns on one row, at most T valid columns
+        const bool valid = in_d && mn < kHalfBig;
+        const bool ok = __all_sync(kFull, !valid || eq == 1);
+        const unsigned rows_hit = __reduce_or_sync(kFull, valid ? 1u << am : 0u);
+        const int nvalid = __popc(__ballot_sync(kFull, valid));
+        float picked = mn;
+        if (ok && __popc(rows_hit) == nvalid && nvalid <= T) {
+          sfd = in_d ? am : -1;
+        } else {  // Jonker-Volgenant on the matrix in shared memory
+          sfd = hungarian_regs(P, cm, reinterpret_cast<int*>(mem + L.sfd), lane);
+          if (in_d) {
+            const int rc = sfd < 0 ? 0 : (sfd > T - 1 ? T - 1 : sfd);
+            picked = cm[rc * D + lane];
+          }
+        }
+        const bool keep = sfd >= 0 && sfd < T && picked < kHalfBig && picked <= P.max_dist;
+        sfd = keep ? sfd : -1;
+      } else if (!__any_sync(kFull, nan_e)) {
+        // greedy: min(T, D) rounds of the first global minimum in flat
+        // order (a NaN anywhere is that minimum in every round and fails
+        // the gate). Every cost is +0 or more, so the unsigned order of its
+        // bits is the float order.
+        const int rounds = T < D ? T : D;
+        for (int r = 0; r < rounds; ++r) {
+          unsigned best = 0xffffffffu, be = 0xffffffffu;  // this lane's first minimum
+#pragma unroll
+          for (int q = 0; q < kD; ++q) {
+            if (32 * q >= TD) break;
+            const unsigned k = __float_as_uint(ce[q]);
+            if (lane + 32 * q < TD && k < best) {
+              best = k;
+              be = lane + 32 * q;
+            }
+          }
+          const unsigned mn = __reduce_min_sync(kFull, best);
+          if (!(__uint_as_float(mn) <= P.max_dist)) break;
+          const int ew = static_cast<int>(__reduce_min_sync(kFull, best == mn ? be : 0xffffffffu));
+          const int wi = ew / D, wj = ew - wi * D;
+          if (lane == wj) sfd = wi;
+          int i = i0, j = j0;
+#pragma unroll
+          for (int q = 0; q < kD; ++q) {
+            if (32 * q >= TD) break;
+            if (i == wi || j == wj) ce[q] = kBig;
+            i += di;
+            j += dj;
+            if (j >= D) {
+              j -= D;
+              ++i;
+            }
+          }
+        }
+      }
+
+      // matched updates (the masked sum over detections, as the plain
+      // version takes it) and missed
+      bool matched = false;
+      float mxs = 0.0f, mys = 0.0f;
+#pragma unroll
+      for (int j = 0; j < kD; ++j) {
+        const int r = __shfl_sync(kFull, sfd, j);
+        if (j < D && r == lane) {
+          matched = true;
+          mxs = __fadd_rn(mxs, ds[3 * (f * D + j)]);
+          mys = __fadd_rn(mys, ds[3 * (f * D + j) + 1]);
+        }
+      }
+      const int m_new =
+          matched ? 0 : (act ? static_cast<int>(static_cast<unsigned>(missed) + 1u) : missed);
+      const float nx = matched ? mxs : px, ny = matched ? mys : py;
+      const bool still = act && m_new < P.death_patience;
+      const unsigned sm = __ballot_sync(kFull, still);
+      const int n_still = __popc(sm);
+      // a row's track id is the old table's
+      const int row_tid = __shfl_sync(kFull, tid, sfd < 0 ? 0 : sfd);
+      // survivors compacted down in slot order: slot r reads the r-th
+      const int src = lane < n_still ? nth_set(sm, lane + 1) : lane;
+      const float sx = __shfl_sync(kFull, nx, src), sy = __shfl_sync(kFull, ny, src);
+      const int stid = __shfl_sync(kFull, tid, src), smiss = __shfl_sync(kFull, m_new, src);
+      // births: the r-th valid unmatched detection appends at n_still + r - 1
+      // while capacity remains
+      const bool bd = vj && sfd < 0;
+      const unsigned bm = __ballot_sync(kFull, bd);
+      const int rank = __popc(bm & below) + 1;  // inclusive, 1-based
+      const bool cb = bd && n_still + rank <= T;
+      const int new_tid = cb ? static_cast<int>(next_id - 1u + static_cast<unsigned>(rank)) : 0;
+      const int n_births = __popc(__ballot_sync(kFull, cb));
+      const int k = lane - n_still + 1;  // this slot's birth rank
+      const bool born = lane >= n_still && k <= n_births;
+      const int bsrc = born ? nth_set(bm, k) : lane;
+      const float bx = __shfl_sync(kFull, dxj, bsrc), by = __shfl_sync(kFull, dyj, bsrc);
+      if (lane < n_still) {
+        px = __fadd_rn(0.0f, sx);
+        py = __fadd_rn(0.0f, sy);
+        tid = stid;
+        missed = smiss;
+      } else if (born) {
+        px = __fadd_rn(0.0f, bx);
+        py = __fadd_rn(0.0f, by);
+        tid = static_cast<int>(next_id - 1u + static_cast<unsigned>(k));
+        missed = 0;
+      } else {
+        px = 0.0f;
+        py = 0.0f;
+        tid = 0;
+        missed = 0;
+      }
+      act = lane < n_still + n_births;
+      next_id += static_cast<unsigned>(n_births);
+
+      // the detection's row, into the chunk's rows
+      if (in_d) {
+        float* row = rs + 5 * (f * D + lane);
+        row[0] = __int2float_rn(sfd >= 0 ? row_tid : new_tid);
+        row[1] = __int2float_rn(static_cast<int>(frame0 + static_cast<unsigned>(t)));
+        row[2] = dxj;
+        row[3] = dyj;
+        row[4] = daj;
+        rvs[f * D + lane] = (sfd >= 0 || cb) ? 1 : 0;
+      }
+    }
+    __syncwarp();
+    const long long f0 = static_cast<long long>(c) * kChunk * D;
+    flush_bytes(reinterpret_cast<uint8_t*>(P.rows + 5 * f0), reinterpret_cast<uint8_t*>(rs),
+                20 * nf * D, vec_out, lane);
+    flush_bytes(P.row_valid + f0, rvs, nf * D, vec_out, lane);
+    __syncwarp();  // the next chunk's rows overwrite these
+  }
+
+  if (in_t) {
+    P.pos1[2 * lane] = px;
+    P.pos1[2 * lane + 1] = py;
+    P.tid1[lane] = tid;
+    P.missed1[lane] = missed;
+    P.active1[lane] = act ? 1 : 0;
+  }
+  if (lane == 0) *P.next_id1 = static_cast<int>(next_id);
+}
+
+enum ScanKernel { kRegs = 0, kShared = 1, kGlobalTable = 2 };
+
+// Which kernel takes a (T, D) table, its dynamic shared memory and its
+// global scratch, in bytes (tpuva_torch/track/scan.py::scan_plan mirrors it).
+void plan(int T, int D, int* kind, int* kd, long long* smem, long long* scratch) {
+  const long long table = Layout(T, D).bytes();
+  *kd = 0;
+  *scratch = 0;
+  if (T <= kRegMax && D <= kRegMax) {
+    *kind = kRegs;
+    *kd = D <= 8 ? 8 : (D <= 16 ? 16 : 32);
+    *smem = RegLayout(T, D).bytes;
+  } else if (table <= kSmemLimit) {
+    *kind = kShared;
+    *smem = table;
+  } else {
+    *kind = kGlobalTable;
+    *smem = 0;
+    *scratch = table;
+  }
+}
+
+template <int kD>
+cudaError_t launch_regs(const Params& P, long long smem, cudaStream_t s) {
+  const cudaError_t err = cudaFuncSetAttribute(
+      track_scan_regs<kD>, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+  if (err != cudaSuccess) return err;
+  track_scan_regs<kD><<<1, 32, static_cast<size_t>(smem), s>>>(P);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
-// Bytes of the global scratch buffer the kernel needs for a (T, D) table:
-// 0 where its arrays fit in a CTA's shared memory.
-extern "C" int tpuva_track_scan_scratch(int T, int D, long long* bytes) {
+// The kernel that takes a (T, D) table: kind 0 the register kernel
+// (track_scan_regs<kd>), 1 the table kernel in shared memory, 2 the table
+// kernel in a global scratch buffer of `scratch` bytes; smem its dynamic
+// shared memory in bytes.
+extern "C" int tpuva_track_scan_plan(int T, int D, int* kind, int* kd, long long* smem,
+                                     long long* scratch) {
   if (T < 1 || D < 1) return static_cast<int>(cudaErrorInvalidValue);
-  const long long need = Layout(T, D).bytes();
-  *bytes = need > kSmemLimit ? need : 0;
+  plan(T, D, kind, kd, smem, scratch);
   return 0;
 }
 
 // One launch for the batch: dets (N, D, 3) f32, det_valid (N, D) bool, the
 // state (pos0, tid0, missed0, active0, next_id0) and frame0 () int32, all
 // on the card -> the new state (pos1 ..., next_id1), rows (N, D, 5) f32,
-// row_valid (N, D) bool. scratch: tpuva_track_scan_scratch's bytes, or null
-// where that is 0. Returns cudaGetLastError() after the launch (0 =
-// launched).
+// row_valid (N, D) bool. The kernel is the one tpuva_track_scan_plan names
+// for (T, D); scratch holds its scratch bytes, or is null where that is 0.
+// Returns cudaGetLastError() after the launch (0 = launched).
 extern "C" int tpuva_track_scan(
     const float* dets, const uint8_t* det_valid, int N, int T, int D,
     const float* pos0, const int* tid0, const int* missed0, const uint8_t* active0,
@@ -526,17 +1028,25 @@ extern "C" int tpuva_track_scan(
   const Params P{dets, det_valid, N, T, D, pos0, tid0, missed0, active0, next_id0, frame0,
                  pos1, tid1, missed1, active1, next_id1, rows, row_valid,
                  max_dist, death_patience, hungarian};
-  const long long need = Layout(T, D).bytes();
+  int kind, kd;
+  long long smem, need;
+  plan(T, D, &kind, &kd, &smem, &need);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (need > kSmemLimit) {
+  if (kind == kRegs) {
+    const cudaError_t err = kd == 8    ? launch_regs<8>(P, smem, s)
+                            : kd == 16 ? launch_regs<16>(P, smem, s)
+                                       : launch_regs<32>(P, smem, s);
+    return static_cast<int>(err);
+  }
+  if (kind == kGlobalTable) {
     if (scratch == nullptr || scratch_bytes < need) return static_cast<int>(cudaErrorInvalidValue);
     track_scan_kernel<true><<<1, 32, 0, s>>>(P, static_cast<float*>(scratch));
   } else {
     const cudaError_t err = cudaFuncSetAttribute(
         track_scan_kernel<false>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(need));
+        static_cast<int>(smem));
     if (err != cudaSuccess) return static_cast<int>(err);
-    track_scan_kernel<false><<<1, 32, static_cast<size_t>(need), s>>>(P, nullptr);
+    track_scan_kernel<false><<<1, 32, static_cast<size_t>(smem), s>>>(P, nullptr);
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -7,21 +7,26 @@ label_components_tiled_raw`` together with the XLA stats step
 ``tpuva/ops/label.py::_stats_from_compact``. Its interface is the stats
 dict that the pipeline's ``_finish_batch`` reads, not a label buffer.
 
-- CUDA tensors launch ``csrc/ccl.cu``: block-based union-find over 2x2
-  blocks with min-index roots (root order == cv2's id order), a per-frame
-  root scan, integer atomics of area / sum x / sum y (see the source).
-  Every stage visits only the occupied strips (1 block row x 128 blocks,
-  2 x 256 pixels) of a strip occupancy: the caller's ``strip_occ``, as
-  the Pallas kernel takes it (the staged route's, from K1's
-  ``padded_occ`` emit), or one the kernels derive from the mask.
+- CUDA tensors make one cooperative launch of ``csrc/ccl.cu``'s
+  persistent kernel: block-based union-find over 2x2 blocks with
+  min-index roots (root order == cv2's id order), a per-frame root scan,
+  integer atomics of area / sum x / sum y, and the stats epilogue (see the
+  source), its phases joined by grid-wide barriers. It reads the mask of
+  the occupied strips (1 block row x 128 blocks, 2 x 256 pixels) of a
+  strip occupancy — the caller's ``strip_occ``, as the Pallas kernel
+  takes it (the staged route's, from K1's ``padded_occ`` emit), or every
+  strip where none is given — for which of their quarters (a tile's
+  width) hold foreground, and visits only those tiles. It writes the stats dict's tensors
+  itself, into one output tensor; its scratch is one workspace tensor
+  (``k2_workspace``). No other torch op runs.
 - CPU tensors take the plain version: ``ops.label.label_components``
   (iterated 3x3 neighbour-min) + ``ops.label.component_sums`` over the
-  whole image, whatever the occupancy says.
+  whole image, whatever the occupancy says, then ``_assemble_stats``.
 
-Both give (count, int64 sums) and share the ``_assemble_stats`` epilogue.
-``overflow`` is all zeros (no slot capacity here: components past
-``max_components`` are cut exactly as ``_assemble_stats`` cuts them) and
-``ccl_converged`` is always True (union-find has no round cap).
+Both give the same bits. ``overflow`` is all zeros (no slot capacity
+here: components past ``max_components`` are cut exactly as
+``_assemble_stats`` cuts them) and ``ccl_converged`` is always True
+(union-find has no round cap).
 
 K3, ``label_components_tiled``: dense root-key labels, 4- or 8-connected
 (see its docstring); 8-connected it visits only the occupied strips, and
@@ -38,6 +43,8 @@ occupancy, and shares the stats epilogue with the plain path.
 """
 
 from __future__ import annotations
+
+import ctypes
 
 import torch
 
@@ -75,40 +82,93 @@ def label_sums_plain(mask: torch.Tensor, max_components: int):
     return component_sums(label_components(mask), max_components)
 
 
-def _label_sums_cuda(mask: torch.Tensor, max_components: int, strip_occ=None):
-    """The launch sequence of tpuva_ccl_stats on an (N, Hm, Wm) mask, over
-    the occupied strips of strip_occ (N, *strip_shape(Hm, Wm)) uint8, or of
-    the occupancy its first kernel derives from the mask."""
-    N, H, W = mask.shape
+def k2_workspace(N: int, Hm: int, Wm: int, C: int):
+    """K2's scratch in one workspace tensor: ({name: (byte offset, bytes)},
+    total bytes), each array 16-byte aligned, for an (N, Hm, Wm) mask and
+    C components: parent and bits (a 2x2 block each), rc (a strip's roots),
+    list (the batch's tiles with foreground, an int2 each), table (each
+    frame's first C roots), sums (32-bit area, sum x, sum y), nlist (the
+    list's length) and fine (a strip's segments with foreground, a byte)."""
+    Hb, Wb = (Hm + 1) // 2, (Wm + 1) // 2
+    R, S = strip_shape(Hm, Wm)
+    tiles = -(-Hb // 16) * -(-Wb // 32)
+    sizes = {"parent": 4 * N * Hb * Wb, "rc": 4 * N * R * S, "list": 8 * N * tiles,
+             "table": 4 * N * C, "sums": 12 * N * C, "nlist": 4, "bits": N * Hb * Wb,
+             "fine": N * R * S}
+    layout, o = {}, 0
+    for name, nbytes in sizes.items():
+        layout[name] = (o, nbytes)
+        o += -(-nbytes // 16) * 16
+    return layout, o
+
+
+STATS_FIELDS = ("count", "area", "centroid", "centroid_sum", "overflow")
+# the persistent kernel's phases (csrc/ccl.cu), in order
+K2_PHASES = ("occupancy", "list", "local", "border", "flatten", "roots", "stats", "epilogue")
+
+
+def stats_views(out: torch.Tensor, N: int, C: int) -> dict:
+    """The stats dict's tensors as views of one int32 tensor of
+    N * (2 + 5 * (C + 1)) words, in STATS_FIELDS order: count (N,), area
+    (N, C+1), centroid (N, C+1, 2) float32 (its words' bits), centroid_sum
+    (N, C+1, 2), overflow (N,)."""
+    shapes = {"count": (N,), "area": (N, C + 1), "centroid": (N, C + 1, 2),
+              "centroid_sum": (N, C + 1, 2), "overflow": (N,)}
+    views, o = {}, 0
+    for name in STATS_FIELDS:
+        n = 1
+        for d in shapes[name]:
+            n *= d
+        v = out[o:o + n].view(shapes[name])
+        views[name] = v.view(torch.float32) if name == "centroid" else v
+        o += n
+    return views
+
+
+def _label_stats_cuda(mask: torch.Tensor, max_components: int, strip_occ, H: int, W: int,
+                      phase_ns=None):
+    """K2's one cooperative launch on an (N, Hm, Wm) mask (zero outside its
+    (H, W) image), over the occupied strips of strip_occ (N,
+    *strip_shape(Hm, Wm)) uint8 or bool, or of the occupancy it derives
+    from the mask: the stats dict's tensors (stats_views). phase_ns, a
+    (9,) int64 CUDA tensor, receives the kernel's clock (ns) at its start
+    and after each of its phases A-G (K2_PHASES), then the number of tiles
+    it visited."""
+    N, Hm, Wm = mask.shape
     C = max_components
     if not 1 <= C <= MAX_COMPONENTS_KERNEL:
         raise ValueError(f"max_components must be in [1, {MAX_COMPONENTS_KERNEL}]")
-    if H >= 1 << 16 or W >= 1 << 16 or N >= 1 << 16:
-        raise ValueError("ccl kernel: N, H and W must be < 65536")
+    if Hm >= 1 << 16 or Wm >= 1 << 16 or N >= 1 << 16 or H * W >= 1 << 31:
+        raise ValueError("ccl kernel: N, H and W must be < 65536, and H * W < 2^31")
     dev = mask.device
-    Hb, Wb = (H + 1) // 2, (W + 1) // 2
-    R, S = strip_shape(H, W)
     derive = strip_occ is None
-    occ = torch.empty((N, R, S), dtype=torch.uint8, device=dev) if derive else strip_occ
-    tiles = torch.empty((N, -(-Hb // 16) * -(-Wb // 32)), dtype=torch.int32, device=dev)
-    ntiles = torch.empty((N,), dtype=torch.int32, device=dev)
-    parent = torch.empty((N, Hb * Wb), dtype=torch.int32, device=dev)
-    bits = torch.empty((N, Hb * Wb), dtype=torch.uint8, device=dev)
-    table = torch.empty((N, C), dtype=torch.int32, device=dev)
-    count = torch.empty((N,), dtype=torch.int32, device=dev)
-    sums = torch.empty((N, C, 3), dtype=torch.int64, device=dev)
+    layout, total = k2_workspace(N, Hm, Wm, C)
+    ws = torch.empty((total,), dtype=torch.uint8, device=dev)
+    out = torch.empty((N * (2 + 5 * (C + 1)),), dtype=torch.int32, device=dev)
+    views = stats_views(out, N, C)
+    at = {name: ws.data_ptr() + off for name, (off, _n) in layout.items()}
     lib = _build.load()
     err = lib.tpuva_ccl_stats(
-        mask.data_ptr(), N, H, W, C,
-        occ.data_ptr(), int(derive), tiles.data_ptr(), ntiles.data_ptr(),
-        parent.data_ptr(), bits.data_ptr(), table.data_ptr(),
-        count.data_ptr(), sums.data_ptr(),
+        mask.data_ptr(), N, Hm, Wm, H, W, C, None if derive else strip_occ.data_ptr(),
+        *(at[k] for k in ("fine", "bits", "parent", "list", "nlist", "rc", "table", "sums")),
+        *(views[k].data_ptr() for k in STATS_FIELDS),
+        None if phase_ns is None else phase_ns.data_ptr(),
         torch.cuda.current_stream(dev).cuda_stream,
     )
     _build.check(lib, err, "ccl kernel")
     label_stats.launches += 1
     label_stats.occ_launches += not derive
-    return count, sums
+    return views
+
+
+def k2_grid() -> tuple:
+    """(CTAs an SM, SMs) of K2's cooperative grid on the current card; 0 CTAs
+    an SM where the card cannot launch it (K2 then raises)."""
+    lib = _build.load()
+    per_sm, sms = ctypes.c_int(0), ctypes.c_int(0)
+    _build.check(lib, lib.tpuva_ccl_stats_grid(ctypes.addressof(per_sm), ctypes.addressof(sms)),
+                 "ccl kernel grid")
+    return per_sm.value, sms.value
 
 
 def label_stats(mask: torch.Tensor, max_components: int = 64, strip_occ=None,
@@ -144,22 +204,21 @@ def label_stats(mask: torch.Tensor, max_components: int = 64, strip_occ=None,
                              "uint8 or bool on the mask's device")
     if mask.device.type == "cpu":
         count, sums = label_sums_plain(mask[:, :H, :W], max_components)
+        stats = _assemble_stats(count, sums, H, W)
+        stats["overflow"] = torch.zeros((N,), dtype=torch.int32, device=mask.device)
+    elif mask.device.type == "cuda" and N == 0:
+        stats = stats_views(torch.empty((0,), dtype=torch.int32, device=mask.device), 0,
+                            max_components)
     elif mask.device.type == "cuda":
-        if N == 0:
-            count = torch.zeros((0,), dtype=torch.int32, device=mask.device)
-            sums = torch.zeros((0, max_components, 3), dtype=torch.int64, device=mask.device)
-        else:
-            occ = None if strip_occ is None else strip_occ.to(torch.uint8).contiguous()
-            count, sums = _label_sums_cuda(mask.contiguous(), max_components, occ)
+        occ = None if strip_occ is None else strip_occ.contiguous()
+        stats = _label_stats_cuda(mask.contiguous(), max_components, occ, H, W)
     else:
         raise ValueError(f"label_stats: unsupported device {mask.device}")
-    stats = _assemble_stats(count, sums, H, W)
-    stats["overflow"] = torch.zeros((N,), dtype=torch.int32, device=mask.device)
     stats["ccl_converged"] = True
     return stats
 
 
-label_stats.launches = 0  # every K2 launch sequence
+label_stats.launches = 0  # every K2 launch
 label_stats.occ_launches = 0  # those given the caller's strip_occ
 
 

@@ -7,10 +7,14 @@ between the table's tracks and the frame's detections, the assignment, the
 matched updates, deaths compacted down, births appended, and one row per
 matched or born detection.
 
-- CUDA tensors launch ``csrc/track.cu``: one CTA walks the N frames in
-  order with the table in shared memory (or in a global scratch buffer
-  where a large table does not fit), the Hungarian search included, so a
-  batch is one launch and no frame is read on the host.
+- CUDA tensors launch ``csrc/track.cu``: one warp walks the N frames in
+  order, the Hungarian search included, so a batch is one launch and no
+  frame is read on the host. ``scan_plan`` says which kernel takes a
+  (max_tracks, max_blobs) table: up to 32 x 32 the table and the cost
+  matrix live in registers, a lane a slot and a detection, with the
+  detections staged into shared memory a chunk of frames ahead; a larger
+  table takes the kernel that keeps it in shared memory (or in a global
+  scratch buffer where it does not fit).
 - CPU tensors take the plain version, ``track_scan_plain``: one
   ``track_update`` a frame, the loop ``_finish_batch`` ran before the
   kernel.
@@ -22,6 +26,7 @@ input state is left untouched.
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -30,6 +35,49 @@ from tpuva_torch import _build
 from tpuva_torch.track.table import TrackState, track_update
 
 ASSIGNERS = ("greedy", "hungarian")
+KERNELS = ("registers", "shared", "global")  # scan_plan's kernels, csrc/track.cu's kinds
+REGISTER_MAX = 32  # max_tracks and max_blobs the register kernel takes: a lane each
+CHUNK_FRAMES = 32  # frames of detections the register kernel stages a chunk
+SMEM_LIMIT = 232448  # dynamic shared memory a CTA may use
+
+
+class ScanPlan(NamedTuple):
+    kernel: str  # one of KERNELS
+    kd: int  # the register kernel's array extent (8, 16 or 32), 0 for the others
+    smem_bytes: int  # dynamic shared memory of the launch
+    scratch_bytes: int  # global scratch the wrapper allocates (the "global" kernel)
+
+
+def _up16(x: int) -> int:
+    return -(-x // 16) * 16
+
+
+def scan_plan(T: int, D: int) -> ScanPlan:
+    """Which of csrc/track.cu's kernels takes a table of T slots and D
+    detections a frame, and its memory: the pure mirror of
+    tpuva_track_scan_plan, which the wrapper holds it to at every launch.
+
+    - "registers" (T <= 32 and D <= 32): a lane a slot and a detection;
+      shared memory for the Jonker-Volgenant arrays, two staging buffers
+      of CHUNK_FRAMES frames of dets (12 B each) and det_valid, and a
+      chunk's rows (20 B) and row_valid, each 16-byte aligned;
+    - "shared": the table kernel with its arrays in shared memory;
+    - "global": the same kernel with them in a global scratch buffer,
+      where they exceed SMEM_LIMIT."""
+    if T < 1 or D < 1:
+        raise ValueError("scan_plan: the kernels need max_tracks >= 1 and max_blobs >= 1")
+    # the table kernel's arrays, in 4-byte words: two tables (pos 2T, tid,
+    # missed, active), the cost matrix, three per-detection arrays and
+    # seven Jonker-Volgenant arrays of max(T, D) + 1
+    table = 4 * (2 * 5 * T + T * D + 3 * D + 7 * (max(T, D) + 1))
+    if T <= REGISTER_MAX and D <= REGISTER_MAX:
+        F = CHUNK_FRAMES
+        smem = (_up16(table) + 2 * _up16(12 * F * D) + 2 * _up16(F * D) + _up16(20 * F * D)
+                + _up16(F * D))
+        return ScanPlan("registers", 8 if D <= 8 else 16 if D <= 16 else 32, smem, 0)
+    if table <= SMEM_LIMIT:
+        return ScanPlan("shared", 0, table, 0)
+    return ScanPlan("global", 0, 0, table)
 
 
 def track_scan_plain(state: TrackState, dets: torch.Tensor, det_valid: torch.Tensor,
@@ -77,8 +125,10 @@ def track_scan(state: TrackState, dets: torch.Tensor, det_valid: torch.Tensor, f
         return track_scan_plain(state, dets, det_valid, frame_idx0, **kw)
     if dev.type != "cuda":
         raise ValueError(f"track_scan: unsupported device {dev}")
-    out = _track_scan_cuda(state, dets.contiguous(), det_valid.contiguous(), frame_idx0, **kw)
+    out, plan = _track_scan_cuda(state, dets.contiguous(), det_valid.contiguous(), frame_idx0,
+                                 **kw)
     track_scan.launches += 1
+    track_scan.kept_launches += plan.kernel != "registers"
     return out
 
 
@@ -99,9 +149,15 @@ def _track_scan_cuda(state, dets, det_valid, frame_idx0, *, max_dist, death_pati
     if T < 1 or D < 1:
         raise ValueError("track_scan: the kernel needs max_tracks >= 1 and max_blobs >= 1")
     lib = _build.load()
-    need = ctypes.c_longlong(0)
-    _build.check(lib, lib.tpuva_track_scan_scratch(T, D, ctypes.addressof(need)),
-                 "track_scan scratch")
+    kind, kd = ctypes.c_int(0), ctypes.c_int(0)
+    smem, need = ctypes.c_longlong(0), ctypes.c_longlong(0)
+    _build.check(lib, lib.tpuva_track_scan_plan(
+        T, D, *map(ctypes.addressof, (kind, kd, smem, need))), "track_scan plan")
+    plan = scan_plan(T, D)
+    card = (KERNELS[kind.value], kd.value, smem.value, need.value)
+    if card != plan:
+        raise RuntimeError(f"track_scan: csrc/track.cu plans {card} for ({T}, {D}), "
+                           f"scan_plan {plan}")
     scratch = torch.empty(need.value, dtype=torch.uint8, device=dev) if need.value else None
     src = [x.contiguous() for x in state]
     new = TrackState(*(torch.empty_like(x) for x in src))
@@ -116,7 +172,8 @@ def _track_scan_cuda(state, dets, det_valid, frame_idx0, *, max_dist, death_pati
         torch.cuda.current_stream(dev).cuda_stream,
     )
     _build.check(lib, err, "track_scan kernel")
-    return new, rows, row_valid
+    return (new, rows, row_valid), plan
 
 
-track_scan.launches = 0
+track_scan.launches = 0  # every K5 launch
+track_scan.kept_launches = 0  # those of the table kernel (scan_plan: "shared" or "global")
