@@ -17,8 +17,8 @@ raises, so the exit code is non-zero:
 1. card: nvidia-smi's name and power limit (on a line of their own), the
    torch and CUDA versions;
 2. build: nvcc compiles tpuva_torch/csrc/*.cu (registers and spills of
-   K1's, K1b's, K1m's, K2's, K5's and the micro-probes' kernels in the
-   build line);
+   K1's, K1b's, K1m's, K2's, K3 4-connected's, K6's, K5's and the
+   micro-probes' kernels in the build line);
 3. K1 (fused_segment) against its plain version on the card, at
    (16, 1080, 1920), a ragged (5, 250, 333) and a one-column (4, 120, 1),
    over six configs (blur 3, 5, 7 and 9 taps: the unrolled and the
@@ -41,21 +41,26 @@ raises, so the exit code is non-zero:
    batch) against K2 deriving it and against the plain version;
 5. K3 (dense root-key labels) against its plain version on the card, bit
    for bit, 8- and 4-connected, on the masks of phase 4, the U shape and
-   mixed scene of tpuva_torch.scenes, odd sizes and the edge-strip scenes
+   mixed scene of tpuva_torch.scenes, odd sizes, the edge-strip scenes
    (one occupied strip at each ragged edge, components across tile and
-   strip borders, every pixel, none), with the strip occupancy K3 hands
-   back equal to the labels'; then connected_components_with_stats
-   (labels, bbox, every field) on the card against the CPU on a
-   (2, 1080, 1920) batch;
-5a. K6 (root_stats, the dense stats of root-key labels) against its plain
-   version on the card, bit for bit (count, sums, bbox extremes, dense
-   ids), on phase 5's labels, 8- and 4-connected, at every option (sums;
-   with the bbox; with the ids; both; the ids alone, as relabel_dense),
-   given the occupancy (K3's, or the labels' for 4-connectivity) and
-   deriving it, C = 1, 32, 2000 and 13000 (the global-memory paths) on the
-   small scenes, 32 at 1080p; process_batch_staged(return_labels=True)
-   launches K3 and K6 given K3's occupancy once, its ids equal to the
-   plain version's;
+   strip borders, every pixel, none) and the 4-connected segment scenes
+   (conn4_scene: tile and strip borders, diagonal contacts across a tile
+   corner, ragged H and W), each scene and connectivity with the strip
+   occupancy K3 hands K6 equal to the labels'; then
+   connected_components_with_stats (labels, bbox, every field) on the
+   card against the CPU on a (2, 1080, 1920) batch, each connectivity one
+   K3 and one K6 launch given K3's occupancy (the 4-connected run's K3
+   launches are the kernels line's);
+5a. K6 against its plain version on the card, bit for bit: the raw
+   outputs (root_stats: count, sums, bbox extremes, dense ids) at every
+   option (sums; with the bbox; with the ids; both; the ids alone, as
+   relabel_dense) and the whole stats dict (root_stats_dict against
+   root_stats_plain then _stats_dict: every key, the centroid's float bits,
+   bbox and labels each way), on phase 5's labels, 8- and 4-connected,
+   given K3's occupancy and deriving it, C = 1, 32, 2000 and 13000 (the
+   global-memory paths) on the small scenes, 32 at 1080p;
+   process_batch_staged(return_labels=True) launches K3 and K6 given K3's
+   occupancy once, its ids equal to the plain version's;
 5b. K5 (track_scan) against its plain version (on the CPU), bit for bit
    (rows, row_valid, every state tensor): on the route's own batch-256
    detections (the bench front end and K2 on the clip's two batches, the
@@ -107,10 +112,12 @@ raises, so the exit code is non-zero:
    in padded_occ mode, K2 given K1's occupancy, deriving it and given
    every strip (the walk of every strip the kernels made before they
    skipped), on the clip's masks and on a random mask of density 0.3, K3
-   (8- and 4-connected; 8 on density 0.3 too), K6 alone on K3's labels
-   (given K3's occupancy, deriving it, with the dense ids, and its plain
-   version, the torch ops the route ran before K6),
-   connected_components_with_stats (the route's K3 + K6), K1's diff
+   (8- and 4-connected, each on density 0.3 too, 4-connected bit-equal
+   first), K6 alone on K3's labels (given K3's occupancy, deriving it,
+   with the dense ids, and its plain version, the torch ops the route ran
+   before K6; its device time and launches a call, its own kernel's and
+   any torch op's, from torch.profiler), connected_components_with_stats
+   (the route's K3 + K6, and 4-connected), K1's diff
    emit and K4 against their plain versions (K1's plain version runs on
    no route: it is the kernels' yardstick of correctness), K1b (65 taps,
    its plan) and K1m (7 x 7 rect and ellipse steps, erode and dilate, the
@@ -179,6 +186,9 @@ REPLACES = {
                       "tpuva/ops/pallas/ccl.py:623"),
     "ccl_labels": ("tpuva_torch/csrc/ccl.cu",
                    "tpuva/ops/pallas/ccl.py:220"),
+    # K3 4-connected (the ops API; no route selects it)
+    "ccl_labels_conn4": ("tpuva_torch/csrc/ccl.cu",
+                         "tpuva/ops/pallas/ccl.py:220"),
     # K6, the dense stats of K3's labels, given K3's strip occupancy
     "root_stats": ("tpuva_torch/csrc/ccl.cu",
                    "tpuva/ops/label.py:554"),
@@ -550,9 +560,13 @@ def ptxas_kernel(entry, probes=False):
                 (r"track_scan_regsILi(\d+)E", "track_scan_regs"),
                 (r"track_scan_kernelILb([01])E", "track_scan_kernel"),
                 (r"morph_group_kernel()", "morph_group_kernel"),
-                (r"ccl_stats_persistent()", "ccl_stats_persistent"))
+                (r"ccl_stats_persistent()", "ccl_stats_persistent"),
+                (r"k6_frameILi(\d+)ELb([01])E", "k6_frame"),
+                (r"\d(ccl4_(?:occ|tiles|local|border|labels))E", None))
     for pattern, name in patterns:
         k = re.search(pattern, entry)
+        if k and name is None:  # the name is the match
+            return k.group(1)
         if k:
             return f"{name}<{', '.join(k.groups())}>" if k.group(1) else name
     return None
@@ -560,9 +574,9 @@ def ptxas_kernel(entry, probes=False):
 
 def ptxas_summary(log, probes=False):
     """{kernel: {"registers": n, "spill_stores": b, "spill_loads": b}} of the
-    K1 instantiations, K1m's and K1b's tiled kernels, K2's persistent kernel
-    and K5's kernels (probes: of the micro-probes' cases, csrc/probes.cu)
-    in nvcc's -Xptxas -v report."""
+    K1 instantiations, K1m's and K1b's tiled kernels, K2's persistent kernel,
+    K3 4-connected's kernels, K6's and K5's kernels (probes: of the
+    micro-probes' cases, csrc/probes.cu) in nvcc's -Xptxas -v report."""
     out, name = {}, None
     for line in log.splitlines():
         m = re.search(r"Compiling entry function '([^']+)'", line)
@@ -630,21 +644,40 @@ def k1_timing(clip, plate, card):
 
 def kernel_breakdown(fn, reps=3):
     """{CUDA kernel name: [mean device ms a call, launches a call]} of fn()
-    under torch.profiler (empty where the profiler sees no device time)."""
+    under torch.profiler, one profiling session a call; a session that saw
+    no kernel at all is run again, up to twice (on the card the profiler
+    now and then dropped one kernel of a session, or all of them); empty
+    where it never saw device time."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
     out = {}
-    for ev in prof.key_averages():
-        ms = getattr(ev, "device_time_total", getattr(ev, "cuda_time_total", 0)) / 1e3 / reps
-        if ms > 0:
-            out[ev.key[:60]] = [round(ms, 4), ev.count / reps]
+    for _ in range(reps):
+        for _attempt in range(3):
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                fn()
+                torch.cuda.synchronize()
+            seen = [(ev.key[:60], getattr(ev, "device_time_total",
+                                          getattr(ev, "cuda_time_total", 0)), ev.count)
+                    for ev in prof.key_averages()]
+            seen = [x for x in seen if x[1] > 0]
+            if seen:
+                break
+        for name, us, count in seen:
+            ms_n = out.setdefault(name, [0.0, 0])
+            ms_n[0] += us / 1e3 / reps
+            ms_n[1] += count / reps
+    out = {k: [round(ms, 4), n] for k, (ms, n) in out.items()}
     return dict(sorted(out.items(), key=lambda kv: -kv[1][0]))
+
+
+def k6_launches(breakdown):
+    """(K6's kernel launches, other kernel launches) a call of a
+    kernel_breakdown: K6's kernels are named k6_*, any other kernel is a
+    torch op's."""
+    k6 = sum(n for name, (_ms, n) in breakdown.items() if "k6_" in name)
+    return k6, sum(n for _ms, n in breakdown.values()) - k6
 
 
 def device_summary(breakdown):
@@ -671,17 +704,19 @@ def k2_phases(mask, strip_occ, H, W, reps=5):
 
 
 def k2_timing(clip, plate, card):
-    """--k2: K2 (label_stats), K3 (label_components_tiled), K6 (the dense
-    stats, ops.label._stats_from_root, on K3's labels) and the default
-    route's call of both (connected_components_with_stats, no bbox, no
-    labels) at batch 256 and 1080p on the clip's K1 masks and a random mask
-    of density 0.3, CUDA events, with each call's kernels by name
-    (torch.profiler); one JSON line. The calls that exist in both this tree
-    and its parent run first, so that this file, copied into a checkout of
-    the parent, times the parent's kernels the same way (there K6 is the
-    torch ops); then those only this tree has: K2 with the caller's strip
-    occupancy (K1's occ128, every strip), K6 given K3's occupancy, with the
-    dense ids, and its plain version."""
+    """--k2: K2 (label_stats), K3 (label_components_tiled, 8- and
+    4-connected), K6 (the dense stats, ops.label._stats_from_root, on K3's
+    labels) and the default route's call of both (connected_components_
+    with_stats, no bbox, no labels; and its 4-connected call) at batch 256
+    and 1080p on the clip's K1 masks and a random mask of density 0.3, CUDA
+    events, with each call's kernels by name, device time and launches
+    (torch.profiler; for K6, its own kernels' launches and any other
+    kernel's, a torch op's); one JSON line. The calls that exist in both
+    this tree and its parent run first, so that this file, copied into a
+    checkout of the parent, times the parent's kernels the same way; then
+    those only this tree has: K2 with the caller's strip occupancy (K1's
+    occ128, every strip), K6 given K3's occupancy (8- and 4-connected),
+    with the dense ids, and its plain version."""
     import inspect
 
     from tpuva_torch.ops import ccl
@@ -698,6 +733,7 @@ def k2_timing(clip, plate, card):
     dense = dense.to(torch.uint8) * 255
     root = label_components_tiled(masks, 8)
     root_dense = label_components_tiled(dense, 8)
+    root4 = label_components_tiled(masks, 4)
     k6_kw = dict(compute_bbox=False, compute_labels=False)
     calls = {"k2_clip": lambda: label_stats(masks, MAX_COMPONENTS),
              "k2_dense": lambda: label_stats(dense, MAX_COMPONENTS),
@@ -706,7 +742,12 @@ def k2_timing(clip, plate, card):
              "k6_clip": lambda: lb._stats_from_root(root, MAX_COMPONENTS, 8, **k6_kw),
              "k6_dense": lambda: lb._stats_from_root(root_dense, MAX_COMPONENTS, 8, **k6_kw),
              "cc_stats_clip": lambda: lb.connected_components_with_stats(
-                 masks, MAX_COMPONENTS, **k6_kw)}
+                 masks, MAX_COMPONENTS, **k6_kw),
+             "k3_conn4_clip": lambda: label_components_tiled(masks, 4),
+             "k3_conn4_dense": lambda: label_components_tiled(dense, 4),
+             "k6_conn4_clip": lambda: lb._stats_from_root(root4, MAX_COMPONENTS, 4, **k6_kw),
+             "cc_stats_conn4_clip": lambda: lb.connected_components_with_stats(
+                 masks, MAX_COMPONENTS, 4, **k6_kw)}
     if "strip_occ" in inspect.signature(label_stats).parameters:
         padded, _bg, occ128 = fused_segment(frames, bg0, padded_occ=True, **BENCH_KW)
         strip_occ = occ128.reshape(256, 576, 8, 2).amax(dim=3)
@@ -732,11 +773,18 @@ def k2_timing(clip, plate, card):
                 strip_occ=root_occ),
             "k6_plain_clip": lambda: lb._stats_from_root_plain(root, MAX_COMPONENTS, 8,
                                                                **k6_kw)})
+        root4_occ = ccl.root_labels(masks, 4)[1]
+        if root4_occ is not None:  # K3 4-connected hands K6 its occupancy
+            calls["k6_occ_conn4_clip"] = lambda: lb._stats_from_root(
+                root4, MAX_COMPONENTS, 4, strip_occ=root4_occ, **k6_kw)
     t = {}
     for name, fn in calls.items():
         t[f"{name}_ms"] = cuda_ms(fn, 10)
         t[f"{name}_kernels"] = kernel_breakdown(fn)
         t[f"{name}_device_ms"], t[f"{name}_launches"] = device_summary(t[f"{name}_kernels"])
+        if name.startswith("k6_") and "plain" not in name:
+            t[f"{name}_k6_launches"], t[f"{name}_torch_op_launches"] = k6_launches(
+                t[f"{name}_kernels"])
     if hasattr(ccl, "K2_PHASES"):  # K2's persistent kernel: its phases' times
         t["k2_phases_us"] = {
             "occ_clip": k2_phases(padded, strip_occ, 1080, 1920),
@@ -985,11 +1033,15 @@ def main():
     # after --k2, --k5 and --wide: a copy of this file in an earlier
     # checkout times K2, K3, the dense stats, K5, K1m and K1b with the
     # names that checkout has
-    from tpuva_torch.ops.ccl import k2_grid, root_labels, root_occupancy_plain, root_stats
+    from tpuva_torch.ops.ccl import (
+        k2_grid, root_labels, root_occupancy_plain, root_stats, root_stats_dict,
+    )
     from tpuva_torch.track.scan import scan_plan
     from tpuva_torch.ops.wide import blur_plan, morph_plan, morph_steps, open_close_steps
-    from tpuva_torch.ops.label import _stats_from_root, _stats_from_root_plain, root_stats_plain
-    from tpuva_torch.scenes import ROOT_STATS_OPTIONS, edge_strip_scene
+    from tpuva_torch.ops.label import (
+        _stats_dict, _stats_from_root, _stats_from_root_plain, root_stats_plain,
+    )
+    from tpuva_torch.scenes import ROOT_STATS_OPTIONS, conn4_scene, edge_strip_scene
 
     # the slice's clip, made once (its first frames also feed phases 3-5)
     t0 = time.time()
@@ -1003,6 +1055,7 @@ def main():
                 "ccl_stats": (label_stats, "launches"),
                 "ccl_stats_occ": (label_stats, "occ_launches"),
                 "ccl_labels": (label_components_tiled, "launches"),
+                "ccl_labels_conn4": (label_components_tiled, "conn4_launches"),
                 "root_stats": (root_stats, "launches"),
                 "root_stats_occ": (root_stats, "occ_launches"),
                 "histogram_u8": (histogram_u8, "launches"),
@@ -1149,56 +1202,80 @@ def main():
         ("odd_2x7x9", torch.from_numpy(((rng.random((2, 7, 9)) < 0.5) * 255)
                                        .astype(np.uint8)).to(dev)),
     ]
+    # K3's occupancy skip: one occupied strip at each ragged edge,
+    # components across tile and strip borders, every pixel, none; 4-
+    # connected, components across segments and the strip border, diagonal
+    # contacts across a tile corner, ragged H and W
+    for H, W in ((71, 601), (70, 600)):
+        masks_k3.append((f"edge_strips_{H}x{W}", torch.from_numpy(edge_strip_scene(H, W)).to(dev)))
+    for H, W in ((45, 601), (48, 1024)):
+        masks_k3.append((f"conn4_{H}x{W}", torch.from_numpy(conn4_scene(H, W)).to(dev)))
+    # each scene, 8- and 4-connected: the labels, and the occupancy K3 hands
+    # K6 equal to the labels'
     for name, m in masks_k3:
         for conn in (8, 4):
-            got = label_components_tiled(m, conn)
-            check_equal(err, "ccl_labels", [("labels", got, label_components(m, conn))],
+            got, occ = root_labels(m, conn)
+            check_equal(err, "ccl_labels" if conn == 8 else "ccl_labels_conn4",
+                        [("labels", got, label_components(m, conn)),
+                         ("occupancy", occ, root_occupancy_plain(got, conn))],
                         f"{name}, connectivity {conn}")
-    # K3's occupancy skip: one occupied strip at each ragged edge,
-    # components across tile and strip borders, every pixel, none
-    for H, W in ((71, 601), (70, 600)):
-        m = torch.from_numpy(edge_strip_scene(H, W)).to(dev)
-        masks_k3.append((f"edge_strips_{H}x{W}", m))
-        for conn in (8, 4):
-            check_equal(err, "ccl_labels", [("labels", label_components_tiled(m, conn),
-                                             label_components(m, conn))],
-                        f"edge strips {H}x{W}, connectivity {conn}")
-        got, occ = root_labels(m, 8)
-        check_equal(err, "ccl_labels", [("occupancy", occ, root_occupancy_plain(got, 8))],
-                    f"edge strips {H}x{W}")
+    # K3 then K6 given K3's occupancy (connected_components_with_stats) on
+    # the card against the CPU; the 4-connected run is the ops API's path
+    # of K3 4-connected, whose launches the kernels line reports
     cc_batch = k1_masks[:2]
     for conn in (8, 4):
+        reset_counts()
         got = connected_components_with_stats(cc_batch, MAX_COMPONENTS, conn)
+        torch.cuda.synchronize()
+        counts = read_counts()
+        if (counts["ccl_labels"], counts["root_stats"], counts["root_stats_occ"],
+                counts["ccl_labels_conn4"]) != (1, 1, 1, int(conn == 4)):
+            raise AssertionError(f"connected_components_with_stats({conn}) launches: {counts}")
+        if conn == 4:
+            conn4_counts = counts
         ref = connected_components_with_stats(cc_batch.cpu(), MAX_COMPONENTS, conn)
         for k in CC_KEYS:
             if not torch.equal(got[k].cpu(), ref[k]):
                 raise AssertionError(f"connected_components_with_stats {k} differs "
                                      f"between card and CPU (connectivity {conn})")
     say("k3_vs_plain", scenes=[n for n, _ in masks_k3], connectivity=[8, 4], bit_equal=True,
-        cc_stats_cuda_equals_cpu=list(CC_KEYS), cc_stats_shape=list(cc_batch.shape))
+        occupancy_handed_to_k6_equal=True, cc_stats_cuda_equals_cpu=list(CC_KEYS),
+        cc_stats_shape=list(cc_batch.shape), cc_stats_conn4_launches=conn4_counts)
 
-    # 5a. K6 (root_stats) against its plain version, bit for bit: every
-    # option (sums, with the bbox, with the dense ids, the ids alone as
-    # relabel_dense), both connectivities, given K3's occupancy (8) or the
-    # labels' (4) and deriving it; C = 1, 32 and past shared memory on the
-    # small scenes, 32 on the 1080p ones
+    # 5a. K6 against its plain version, bit for bit: the raw outputs
+    # (root_stats) at every option (sums, with the bbox, with the dense ids,
+    # the ids alone as relabel_dense), and the whole stats dict
+    # (root_stats_dict: bbox and labels each way, against root_stats_plain
+    # then _stats_dict, the centroid's float bits included); both
+    # connectivities, given K3's occupancy and deriving it; C = 1, 32 and
+    # past shared memory on the small scenes, 32 on the 1080p ones
     n_k6 = 0
     for name, m in masks_k3:
-        small_scene = m.shape[-1] < 1000
+        small_scene = m.shape[-1] < 1100
         for conn in (8, 4):
             root, occ = root_labels(m, conn)
-            if occ is None:
-                occ = root_occupancy_plain(root, conn)
             for C in ((1, MAX_COMPONENTS, 2000, 13000) if small_scene else (MAX_COMPONENTS,)):
-                for sums, bbox, labels in ROOT_STATS_OPTIONS:
-                    ref = root_stats_plain(root, C, conn, sums, bbox, labels)
-                    for given in (occ, None):
+                for given in (occ, None):
+                    where = (f"{name}, connectivity {conn}, C={C}, "
+                             f"{'given' if given is not None else 'deriving'} the occupancy")
+                    for sums, bbox, labels in ROOT_STATS_OPTIONS:
+                        ref = root_stats_plain(root, C, conn, sums, bbox, labels)
                         got = root_stats(root, C, conn, sums, bbox, labels, strip_occ=given)
                         check_equal(err, "root_stats", ((k, g, r) for k, g, r in zip(
                             ("count", "sums", "bbox extremes", "dense ids"), got, ref)
-                            if r is not None),
-                            f"{name}, connectivity {conn}, C={C}, options {(sums, bbox, labels)}, "
-                            f"{'given' if given is not None else 'deriving'} the occupancy")
+                            if r is not None), f"{where}, options {(sums, bbox, labels)}")
+                        n_k6 += 1
+                    for bbox, labels in ((False, False), (True, False), (False, True),
+                                         (True, True)):
+                        ref = _stats_dict(*root_stats_plain(root, C, conn, True, bbox, labels),
+                                          *m.shape[1:])
+                        got = root_stats_dict(root, C, conn, bbox, labels, strip_occ=given)
+                        check_equal(err, "root_stats", ((k, got[k].view(torch.int32)
+                                                         if k == "centroid" else got[k],
+                                                         ref[k].view(torch.int32)
+                                                         if k == "centroid" else ref[k])
+                                                        for k in CC_KEYS),
+                                    f"{where}, stats dict, bbox={bbox}, labels={labels}")
                         n_k6 += 1
     # the staged route's return_labels: K3's labels and occupancy through
     # relabel_dense (K6)
@@ -1615,6 +1692,22 @@ def main():
         kernels = kernel_breakdown(fn)
         t[f"{name}_device_ms"], t[f"{name}_launches"] = device_summary(kernels)
         t[f"{name}_kernels"] = kernels
+    # K6's launches a call (its kernel, and any other kernel: a torch op)
+    # and device time, given K3's occupancy and deriving it (torch.profiler;
+    # here, beside K2's, where the profiler saw them: after the timings
+    # below it saw no kernel of K6's calls in one run)
+    root, root_occ = root_labels(masks, 8)
+    k6_kw = dict(compute_bbox=False, compute_labels=False)
+    for name, fn in (("k6_occ", lambda: _stats_from_root(root, MAX_COMPONENTS, 8,
+                                                         strip_occ=root_occ, **k6_kw)),
+                     ("k6", lambda: _stats_from_root(root, MAX_COMPONENTS, 8, **k6_kw))):
+        kernels = kernel_breakdown(fn)
+        t[f"{name}_device_ms"], _n = device_summary(kernels)
+        t[f"{name}_kernel_launches"], t[f"{name}_torch_op_launches"] = k6_launches(kernels)
+        before = root_stats.launches
+        fn()
+        t[f"{name}_counted_launches"] = root_stats.launches - before  # the wrapper's count
+    del root
     t["k2_grid"] = dict(zip(("blocks_per_sm", "sms"), k2_grid()))
     t["k2_dense_ms"] = cuda_ms(lambda: label_stats(dense, MAX_COMPONENTS), reps)
     t["k2_dense_every_strip_ms"] = cuda_ms(lambda: label_stats(
@@ -1623,13 +1716,23 @@ def main():
     t["clip_strips_occupied"] = float(strip_occ.float().mean())
     t["dense_strips_occupied"] = float(dense_occ.float().mean())
     t["k3_dense_ms"] = cuda_ms(lambda: label_components_tiled(dense, 8), reps)
+    # K3 4-connected on density 0.3, bit-equal first
+    check_equal(err, "ccl_labels_conn4", [("labels", label_components_tiled(dense[:16], 4),
+                                           label_components(dense[:16], 4))],
+                "density 0.3, 16 frames")
+    t["k3_conn4_dense_ms"] = cuda_ms(lambda: label_components_tiled(dense, 4), reps)
     del dense, dense_padded
     t["k3_ms"] = cuda_ms(lambda: label_components_tiled(masks, 8), reps)
     t["k3_plain_ms"] = cuda_ms(lambda: label_components(masks, 8), 2)
+    check_equal(err, "ccl_labels_conn4", [("labels", label_components_tiled(masks, 4),
+                                           label_components(masks, 4))], "main path, batch 256")
     t["k3_conn4_ms"] = cuda_ms(lambda: label_components_tiled(masks, 4), reps)
     t["k3_conn4_plain_ms"] = cuda_ms(lambda: label_components(masks, 4), 2)
+    cc_kw = dict(compute_bbox=False, compute_labels=False)
     t["cc_stats_ms"] = cuda_ms(lambda: connected_components_with_stats(
-        masks, MAX_COMPONENTS, compute_bbox=False, compute_labels=False), reps)
+        masks, MAX_COMPONENTS, **cc_kw), reps)
+    t["cc_stats_conn4_ms"] = cuda_ms(lambda: connected_components_with_stats(
+        masks, MAX_COMPONENTS, 4, **cc_kw), reps)
     # K6 alone on K3's root-key labels, as the route calls it (no bbox, no
     # labels): given K3's occupancy, deriving it, with the dense ids, and
     # its plain version (the torch ops the route ran before K6)
@@ -1743,6 +1846,7 @@ def main():
         "ccl_stats_occ": bound(strip_occ.numel() + occupied_px, CCL_OPS_PER_PX * occupied_px),
         # the mask read and the int32 labels written
         "ccl_labels": bound(px + 4 * px, CCL_OPS_PER_PX * px),
+        "ccl_labels_conn4": bound(px + 4 * px, CCL_OPS_PER_PX * px),
         # frames read, magnitudes written, background read and written once
         "fused_segment_diff": bound(frames.numel() + du8.numel() + 2 * 4 * bg0.numel(),
                                     k1_ops_per_px(diff_kw) * du8.numel()),
@@ -1792,6 +1896,7 @@ def main():
              "fused_segment_padded_occ": ("k1_padded_occ_ms", "k1_padded_occ_plain_ms"),
              "ccl_stats_occ": ("k2_occ_ms", "k2_plain_ms"),
              "ccl_labels": ("k3_ms", "k3_plain_ms"),
+             "ccl_labels_conn4": ("k3_conn4_ms", "k3_conn4_plain_ms"),
              "root_stats": ("k6_occ_ms", "k6_plain_ms"),
              "fused_segment_diff": ("k1_diff_ms", "k1_diff_plain_ms"),
              "histogram_u8": ("k4_ms", "k4_plain_ms"),
@@ -1806,6 +1911,9 @@ def main():
                 "ccl_stats": otsu_staged_counts["ccl_stats"] - otsu_staged_counts["ccl_stats_occ"],
                 "ccl_stats_occ": staged_counts["ccl_stats_occ"],
                 "ccl_labels": default_counts["ccl_labels"],
+                # K3 4-connected: no route; connected_components_with_stats(
+                # connectivity=4), the ops API, in phase 5
+                "ccl_labels_conn4": conn4_counts["ccl_labels_conn4"],
                 # K6 given K3's occupancy: the streamed default route
                 "root_stats": default_counts["root_stats_occ"],
                 # the staged Otsu run launches K1 only with emit="diff"

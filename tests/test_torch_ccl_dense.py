@@ -4,7 +4,12 @@ tpuva_torch.ops.label.label_components (the plain version of K3, which
 ops.ccl.label_components_tiled takes for CPU tensors) is held against both
 tpuva.ops.label.label_components (XLA) and the Pallas kernel
 tpuva.ops.pallas.ccl.label_components_tiled (interpret mode, as
-tests/test_ccl_raw.py runs it), for 4- and 8-connectivity. relabel_dense
+tests/test_ccl_raw.py runs it), for 4- and 8-connectivity, and on the
+scenes of K3 4-connected's occupancy skip (tpuva_torch.scenes.conn4_scene:
+components across 16 x 32 tiles and the 512-column strip border, diagonal
+contacts across a tile corner beside empty tiles, H % 16 != 0 and
+W % 4 != 0, empty and full frames), whose labels' strip occupancy
+(root_occupancy_plain, what K3 hands K6) is the mask's own. relabel_dense
 and connected_components_with_stats (labels, bbox and every stats field)
 are held against tpuva's. Tolerance: exact everywhere. Labels, areas,
 boxes and coordinate sums are integers, and the float32 centroid is the
@@ -23,10 +28,10 @@ import jax.numpy as jnp
 from tpuva.ops import label as jl
 from tpuva.ops.pallas.ccl import label_components_tiled as pallas_labels
 from tpuva_torch.ops import connected_components_with_stats
-from tpuva_torch.ops.ccl import label_components_tiled
+from tpuva_torch.ops.ccl import label_components_tiled, root_labels, root_occupancy_plain
 from tpuva_torch.ops.label import label_components, relabel_dense
 from test_torch_kernels import one_torch_thread  # noqa: F401
-from tpuva_torch.scenes import mixed_scene, u_shape
+from tpuva_torch.scenes import conn4_scene, mixed_scene, u_shape
 
 STATS = ("labels", "count", "area", "bbox", "centroid", "centroid_sum", "overflow")
 
@@ -139,3 +144,34 @@ def test_stats_without_labels_and_bbox_and_2d_input():
     for k in STATS:
         assert got2[k].shape == np.asarray(ref2[k]).shape, k
         np.testing.assert_array_equal(got2[k].numpy(), np.asarray(ref2[k]), err_msg=k)
+
+
+@pytest.mark.parametrize("H,W,reference", [(45, 601, "xla"), (45, 601, "pallas"),
+                                           (48, 1024, "xla")])
+def test_conn4_scenes_match_tpuva(H, W, reference):
+    """The segment-skip scenes, 4-connected (and 8-connected against XLA):
+    the plain labels and K3's CPU entry point equal tpuva's XLA and Pallas
+    (interpret mode) labels; two components that touch only diagonally
+    stay apart; the labels' strip occupancy equals the mask's."""
+    mask = conn4_scene(H, W)
+    conns = (4,) if reference == "pallas" else (4, 8)
+    for conn in conns:
+        if reference == "pallas":
+            ref = np.asarray(pallas_labels(jnp.asarray(mask), connectivity=conn))
+        else:
+            ref = np.asarray(jl.label_components(jnp.asarray(mask), connectivity=conn))
+        got = label_components(torch.from_numpy(mask), conn)
+        np.testing.assert_array_equal(got.numpy(), ref, err_msg=f"connectivity {conn}")
+        lab, occ = root_labels(torch.from_numpy(mask), conn)
+        assert occ is None  # the CPU: no kernel hands an occupancy on
+        np.testing.assert_array_equal(lab.numpy(), ref)
+        if conn == 4:
+            # the two blocks of frame 1 meet only at a tile corner: apart
+            assert ref[1, 15, 31] != ref[1, 16, 32] and ref[1, 31, 511] != ref[1, 32, 512]
+            S = -(-W // 512)
+            padded = np.zeros((mask.shape[0], H, 512 * S), bool)
+            padded[:, :, :W] = mask != 0
+            np.testing.assert_array_equal(root_occupancy_plain(got, 4).numpy(),
+                                          padded.reshape(-1, H, S, 512).any(-1))
+        else:
+            assert ref[1, 15, 31] == ref[1, 16, 32]  # 8-connected: one component

@@ -16,9 +16,11 @@ morph_u8) and the split fused_segment runs with them likewise, and K1's
 padded_occ emit (padded mask, zero padding, occ128) with and without the
 split. K2 given the strip occupancy against K2 deriving it and against
 its plain version, on sparse, dense and empty masks. K3's occupancy skip
-on masks with one occupied strip at each ragged edge. K6 (root_stats, the
-dense stats) at every option, given K3's occupancy and deriving it, in
-shared and in global memory. Also
+on masks with one occupied strip at each ragged edge, 4-connected on the
+segment-skip scenes at N = 1 and 256, with the occupancy it hands K6. K6
+(root_stats and root_stats_dict, the dense stats and the stats dict) at
+every option, given K3's occupancy and deriving it, in shared and in
+global memory, one kernel launch a call (torch.profiler). Also
 the micro-probes' kernels (tpuva_torch.probes, csrc/probes.cu) bit for
 bit on every case at the probe's tile shape, and their time grows with
 the reps. Also BatchStager's pinned-buffer copies to the card, byte for byte, and configs
@@ -35,7 +37,7 @@ from tpuva_torch.io.staging import BatchStager
 from tpuva_torch.ops import connected_components_with_stats
 from tpuva_torch.ops.ccl import (
     label_components_tiled, label_stats, root_labels, root_occupancy_plain, root_stats,
-    strip_occupancy_plain, strip_shape,
+    root_stats_dict, strip_occupancy_plain, strip_shape,
 )
 from tpuva_torch.ops.filters import (
     _morph, blur_taps, gaussian_blur_u8, histogram_u8, histogram_u8_plain, structuring_element,
@@ -47,13 +49,13 @@ from tpuva_torch.ops.fused_segment import (
     fused_segment_plain,
     fused_tile,
 )
-from tpuva_torch.ops.label import label_components, relabel_dense, root_stats_plain
+from tpuva_torch.ops.label import _stats_dict, label_components, relabel_dense, root_stats_plain
 from tpuva_torch.ops.wide import blur_u8, morph_u8
 from tpuva_torch.probes import cell_probe, i16_probe, repos_probe, roll_probe
 from tpuva_torch.probes._timing import timeit
 from tpuva_torch.scenes import (
-    DET_KINDS, K1_REFUSED, ROOT_STATS_OPTIONS, det_sequence, edge_strip_scene, k1_refused_config,
-    mixed_scene, u_shape,
+    DET_KINDS, K1_REFUSED, ROOT_STATS_OPTIONS, conn4_scene, det_sequence, edge_strip_scene,
+    k1_refused_config, mixed_scene, u_shape,
 )
 from tpuva_torch.track.scan import scan_plan, track_scan, track_scan_plain
 from tpuva_torch.track.table import TrackState, init_track_state
@@ -618,24 +620,65 @@ def test_dense_label_kernel_skips_empty_strips(cuda_device):
                                       strip_occupancy_plain(torch.from_numpy(mask)).numpy())
 
 
+STATS_KEYS = ("labels", "count", "area", "bbox", "centroid", "centroid_sum", "overflow")
+
+
+def assert_stats_equal(got, ref, where):
+    """Every key of two stats dicts bit for bit (the float32 centroid's
+    bits too)."""
+    for k in STATS_KEYS:
+        g, r = got[k].cpu(), ref[k]
+        if g.dtype == torch.float32:
+            g, r = g.view(torch.int32), r.view(torch.int32)
+        np.testing.assert_array_equal(g.numpy(), r.numpy(), err_msg=f"{where}, {k}")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("N", [1, 256])
+def test_dense_label_kernel_4_skips_empty_segments(cuda_device, N):
+    """K3 4-connected visits only the occupied strips' segments: on
+    conn4_scene (tile and strip borders, diagonal contacts across a tile
+    corner next to empty tiles, H % 16 != 0 and W % 4 != 0, empty and full
+    frames) and at W % 4 == 0 (16-byte stores), batches of N frames (the
+    scene's frames repeated), bit-equal to its plain version; the
+    occupancy it hands back is root_occupancy_plain's."""
+    for H, W in ((45, 601), (48, 1024)):
+        scene = conn4_scene(H, W)
+        mask = np.concatenate([scene] * -(-N // len(scene)))[:N]
+        ref = label_components(torch.from_numpy(scene), 4).numpy()
+        before = label_components_tiled.launches, label_components_tiled.conn4_launches
+        got, occ = root_labels(torch.from_numpy(mask).to(cuda_device), 4)
+        torch.cuda.synchronize()
+        assert (label_components_tiled.launches, label_components_tiled.conn4_launches) == (
+            before[0] + 1, before[1] + 1)
+        got = got.cpu().numpy()
+        for i in range(N):
+            np.testing.assert_array_equal(got[i], ref[i % len(scene)], err_msg=f"{(H, W)}, {i}")
+        np.testing.assert_array_equal(
+            occ.cpu().numpy(), root_occupancy_plain(torch.from_numpy(mask), 4).numpy())
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("connectivity", [4, 8])
 def test_root_stats_kernel_matches_plain(cuda_device, connectivity):
     """K6 against its plain version, bit for bit, at every option, C = 1,
-    8 and 64 (frames with more components than C), 2000 (the sums with a
-    bbox past shared memory) and 13000 (the table too), deriving the
-    occupancy and given one (K3's for 8-connectivity): count, sums, bbox
-    extremes and dense ids."""
-    for mask in (edge_strip_scene(), edge_strip_scene(70, 600), mixed_scene(), label_scenes()[5]):
+    8, 32 and 64 (frames with more components than C), 2000 (the sums with
+    a bbox past shared memory) and 13000 (the table too), deriving the
+    occupancy and given K3's: the raw outputs (count, sums, bbox extremes,
+    dense ids) and the stats dict (every key: root_stats_dict against
+    root_stats_plain and _stats_dict), one launch each."""
+    for mask in (edge_strip_scene(), edge_strip_scene(70, 600), mixed_scene(), label_scenes()[5],
+                 conn4_scene()):
         root_cpu = label_components(torch.from_numpy(mask), connectivity)
         root, occ = root_labels(torch.from_numpy(mask).to(cuda_device), connectivity)
-        if connectivity == 4:
-            occ = root_occupancy_plain(root, 4)
         np.testing.assert_array_equal(root.cpu().numpy(), root_cpu.numpy())
-        for C in (1, 8, 64, 2000, 13000):
-            for sums, bbox, labels in ROOT_STATS_OPTIONS:
-                ref = root_stats_plain(root_cpu, C, connectivity, sums, bbox, labels)
-                for given in (None, occ):
+        np.testing.assert_array_equal(occ.cpu().numpy(),
+                                      root_occupancy_plain(root_cpu, connectivity).numpy())
+        for C in (1, 8, 32, 64, 2000, 13000):
+            for given in (None, occ):
+                where = f"{mask.shape}, C={C}, given={given is not None}"
+                for sums, bbox, labels in ROOT_STATS_OPTIONS:
+                    ref = root_stats_plain(root_cpu, C, connectivity, sums, bbox, labels)
                     before = root_stats.launches, root_stats.occ_launches
                     got = root_stats(root, C, connectivity, sums, bbox, labels, strip_occ=given)
                     torch.cuda.synchronize()
@@ -646,17 +689,54 @@ def test_root_stats_kernel_matches_plain(cuda_device, connectivity):
                         if g is not None:
                             np.testing.assert_array_equal(
                                 g.cpu().numpy(), r.numpy(),
-                                err_msg=f"{mask.shape}, C={C}, {(sums, bbox, labels)}, "
-                                        f"given={given is not None}, {name}")
+                                err_msg=f"{where}, {(sums, bbox, labels)}, {name}")
+                for bbox, labels in ((False, False), (True, False), (False, True), (True, True)):
+                    ref = _stats_dict(*root_stats_plain(root_cpu, C, connectivity, True, bbox,
+                                                        labels), *mask.shape[1:])
+                    before = root_stats.launches
+                    got = root_stats_dict(root, C, connectivity, bbox, labels, strip_occ=given)
+                    torch.cuda.synchronize()
+                    assert root_stats.launches == before + 1
+                    assert_stats_equal(got, ref, f"{where}, bbox={bbox}, labels={labels}")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("connectivity", [4, 8])
+def test_root_stats_kernel_is_one_launch(cuda_device, connectivity):
+    """K6 makes one kernel launch a call, for the stats dict (every option,
+    given K3's occupancy and deriving it) and the raw outputs, and no other
+    kernel runs on the card for it (torch.profiler's CUDA kernels)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    mask = torch.from_numpy(conn4_scene()).to(cuda_device)
+    root, occ = root_labels(mask, connectivity)
+    calls = [lambda b=b, lab=lab, o=o: root_stats_dict(root, 32, connectivity, b, lab,
+                                                       strip_occ=o)
+             for b in (False, True) for lab in (False, True) for o in (None, occ)]
+    calls += [lambda o=o: root_stats(root, 32, connectivity, True, True, True, strip_occ=o)
+              for o in (None, occ)]
+    for fn in calls:
+        fn()
+        torch.cuda.synchronize()
+        for _attempt in range(3):  # the profiler now and then records no kernel at all
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                fn()
+                torch.cuda.synchronize()
+            kernels = {e.key: e.count for e in prof.key_averages()
+                       if getattr(e, "device_time_total", getattr(e, "cuda_time_total", 0)) > 0}
+            if kernels:
+                break
+        assert list(kernels.values()) == [1] and "k6_frame" in next(iter(kernels)), kernels
 
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("connectivity", [4, 8])
 def test_connected_components_with_stats_cuda_matches_cpu(cuda_device, connectivity):
-    """K3 then K6 (given K3's occupancy, 8-connected) on the card against
-    the plain versions on the CPU: every field at every option; and
-    relabel_dense likewise."""
-    for mask in (mixed_scene(), label_scenes()[5], u_shape(64, 96), edge_strip_scene()):
+    """K3 then K6 (given K3's occupancy) on the card against the plain
+    versions on the CPU: every field at every option; and relabel_dense
+    likewise."""
+    for mask in (mixed_scene(), label_scenes()[5], u_shape(64, 96), edge_strip_scene(),
+                 conn4_scene()):
         for C in (8, 64):
             for bbox, labels in ((True, True), (False, False), (True, False), (False, True)):
                 ref = connected_components_with_stats(torch.from_numpy(mask), C, connectivity,
@@ -666,7 +746,7 @@ def test_connected_components_with_stats_cuda_matches_cpu(cuda_device, connectiv
                                                       connectivity, compute_bbox=bbox,
                                                       compute_labels=labels)
                 assert (root_stats.launches, root_stats.occ_launches) == (
-                    before[0] + 1, before[1] + (connectivity == 8))
+                    before[0] + 1, before[1] + 1)
                 assert got["ccl_converged"] is True
                 for k in ("labels", "count", "area", "bbox", "centroid", "centroid_sum",
                           "overflow"):

@@ -68,14 +68,18 @@ _SIGNATURES = {
     ],
     "tpuva_ccl_labels": [
         _P, _I, _I, _I, _I,  # mask, N, H, W, connectivity
-        _P, _P, _P,  # strip_occ, tiles, ntiles
-        _P, _P, _P,  # parent, bits, labels
+        _P, _P, _P, _P,  # strip_occ, seg (4-connected), tiles, ntiles
+        _P, _P, _P,  # parent, bits (8-connected), labels
         _P,  # stream
     ],
     "tpuva_root_stats": [
         _P, _I, _I, _I, _I, _I,  # root, N, H, W, connectivity, C
-        _P, _I, _P, _P, _P,  # strip_occ, derive, rcnt, list, nlist
-        _P, _P, _P, _P, _P,  # table, count, sums, bbox, labels (the last three may be null)
+        _P,  # strip_occ (null: derived)
+        _P, _P, _P, _P, _P,  # scratch: docc, rcs, list, lrc, loff
+        _P, _P, _P,  # scratch past shared memory: table, sums, extremes
+        _P, _P, _P, _P,  # count, sums, lohi, labels
+        _P, _P, _P, _P, _P, _P,  # the stats dict: area, centroid, csum, overflow, bbox; zero
+        _I,  # with_bbox
         _P,  # stream
     ],
     "tpuva_histogram_u8": [

@@ -98,54 +98,56 @@
 //     component, so its lowest set bit is the minimum key. The occupancy
 //     is handed back to the caller: K6 (below) reads only its strips.
 //   4-connectivity: diagonal pixels of a 2x2 block are not 4-adjacent, so
-//     union-find runs on pixels: ccl4_local (a 16x32-pixel tile in shared
-//     memory), ccl4_border (tile borders in global memory), ccl4_flatten
-//     (each pixel's root, the minimum raster index = the 4-conn scan key),
-//     with the labels buffer itself as the parent array; ccl4_finish then
-//     turns it into root + 1 or 0 in place.
+//     union-find runs on pixels, by the same route over K6's 4-connected
+//     strips (one row x 512 pixels) and their segments (32 pixels, a tile
+//     row's width). ccl4_occ derives the strip occupancy (handed back, as
+//     8-connected) and each strip's segments with foreground (one read of
+//     the mask); ccl4_tiles lists each frame's 16 x 32-pixel tiles with
+//     foreground and their live rows; ccl4_local runs the union inside the
+//     listed tiles only (a row's runs linked by a ballot, up links in
+//     shared memory), ccl4_border on their top rows and first columns only,
+//     both with the labels buffer as the parent array (an entry is the
+//     parent's raster index + 1, so a root's entry is already its label);
+//     ccl4_labels (a thread 4 pixels) writes every label as 16-byte stores:
+//     zeros for a segment without foreground, with no other read, else each
+//     foreground pixel's root + 1 (its walk ends at the root while others
+//     rewrite entries to their roots' labels). Roots are each component's minimum raster index,
+//     the 4-connected scan key, linked by atomicMin; no link is ever made
+//     across a diagonal.
 // What bounds it on an H100: memory. The floor is the mask read (1 B/px)
 // and the int32 label write (4 B/px), 2.65 GB per 256-frame 1080p batch,
-// 0.79 ms at 3.35 TB/s; the label write dominates. 8-connected, ccl_occ's
-// read is that mask read, the union-find touches only occupied strips,
-// and the label write is 16-byte stores, coalesced along each row. The
-// 4-connected kernels read and write the labels three or four times and
-// ccl4_border launches a thread a pixel (later work).
+// 0.79 ms at 3.35 TB/s; the label write dominates. ccl_occ's and ccl4_occ's
+// read is that mask read, the union-find touches only occupied strips (4-
+// connected: segments), and the label write is 16-byte stores, coalesced
+// along each row.
 //
 // Dense stats of root-key labels (kernel K6), entry point tpuva_root_stats.
 //
 // Replaces tpuva/ops/label.py::_stats_from_root (its dense branch; its
-// sparse_strips branch already gates the stats on strip occupancy) and
-// relabel_dense, XLA on the TPU. The plain PyTorch version is
-// tpuva_torch/ops/label.py::root_stats_plain (a root compare, nonzero,
-// searchsorted and index_add_/scatter_reduce_); the two are bit-equal.
-// Input: root-key labels (N, H, W) int32, as K3 or label_components give
-// them. Strips follow the scan-key order, 512 keys each: 8-connected a
-// strip is 2 rows x 256 columns (128 blocks, K3's strips), 4-connected
-// 512 columns of one row. A warp takes a strip, 16 labels a lane (16-byte
-// loads where W % 4 == 0), in key order. The kernels:
-//   k6_count   a warp 32 strips, one at a time: a strip's roots (label ==
-//              key + 1, the key from (y, x), no key map read) and,
-//              deriving the occupancy, whether it holds foreground; given
-//              the occupancy (K3's), one ballot picks the occupied strips
-//              and an empty strip is not read;
-//   k6_roots   one CTA a frame: the occupied strips in order (a list for
-//              k6_sums), a block scan of their root counts, and the first C
-//              root keys + 1, ascending, from only the strips that hold
-//              them; count = min(roots, C); zeroes the sums, seeds the bbox;
-//   k6_sums    over the listed strips only: each foreground pixel's rank by
-//              binary search in the table (shared memory), runs of one
-//              label summed in registers, then area, sum x, sum y (and with
-//              a bbox min/max x and y) into 32-bit shared sums, once a CTA
-//              and component into the int64 sums. Components past C are
-//              cut. Where the table and sums do not fit 48 KB of shared
-//              memory the same kernel adds straight into global memory;
-//   k6_labels  (labels asked for) every strip: rank + 1 or 0 in 16-byte
-//              stores, zeros for an empty strip without a read.
-// Integer atomics make every sum independent of its order. What bounds it
-// on an H100: memory. Given K3's occupancy, the labels of the occupied
-// strips (3% of the bench clip's) and the outputs; deriving it, one read
-// of the labels (2.12 GB a 256-frame 1080p batch, 0.634 ms at 3.35
-// TB/s); with labels, the 2.12 GB write besides. No host sync anywhere.
+// sparse_strips branch already gates the stats on strip occupancy),
+// relabel_dense and the stats epilogue (:494 _assemble_stats and the
+// bbox), XLA on the TPU. The plain PyTorch version is tpuva_torch/ops/
+// label.py::root_stats_plain (a root compare, nonzero, searchsorted and
+// index_add_/scatter_reduce_) followed by _stats_dict; the two are
+// bit-equal. Input: root-key labels (N, H, W) int32, as K3 or
+// label_components give them. Strips follow the scan-key order, 512 keys
+// each: 8-connected a strip is 2 rows x 256 columns (128 blocks, K3's
+// strips), 4-connected 512 columns of one row (K3's too). A warp takes a
+// strip, 16 labels a lane (16-byte loads where W % 4 == 0), in key order.
+// One launch a call, k6_frame, a CTA a frame, for every option (the stats
+// dict with or without its bbox and dense ids; the raw sums, extremes and
+// ids): the occupied strips (given, or read from the labels), their roots
+// (label == key + 1, the key from (y, x), no key map read) scanned in strip
+// order into a table of the first C root keys, the sums and extremes added
+// over the occupied strips, then the stats epilogue it shares with K2
+// (stats_epilogue), all joined by the CTA's barriers. The table and the
+// sums (32-bit words and their carries) live in shared memory where they
+// fit 48 KB, else in global scratch, in the same launch. Integer atomics
+// make every sum independent of their order. What bounds it on an H100:
+// memory. Given K3's occupancy, the labels of the occupied strips (3% of
+// the bench clip's) and the outputs; deriving it, one read of the labels
+// (2.12 GB a 256-frame 1080p batch, 0.634 ms at 3.35 TB/s); with labels,
+// the 2.12 GB write besides. No host sync anywhere.
 
 #include <cooperative_groups.h>
 #include <cstdint>
@@ -160,7 +162,7 @@ constexpr int TBY = 16, TBX = 32;  // a tile, in 2x2 blocks: a quarter of 16 str
 constexpr int kTileThreads = TBY * TBX;
 constexpr int kBorderThreads = 64;  // a tile's top row, first and last columns (62)
 constexpr int kTilesPerCta = 16;   // listed tiles a CTA of the listed kernels takes at most
-constexpr int T4Y = 16, T4X = 32;  // ccl4_local tile, in pixels
+constexpr int T4Y = 16, T4X = 32;  // a K3 4-connected tile, in pixels: a row is a warp
 constexpr int kFlatThreads = 256;
 constexpr int kScanThreads = 1024;
 constexpr int kOccWarps = 8;       // ccl_occ: strips a CTA
@@ -171,12 +173,15 @@ __device__ __forceinline__ bool link_up(int u, int b) { return (u & 0xC) && (b &
 __device__ __forceinline__ bool link_upleft(int ul, int b) { return (ul & 0x8) && (b & 0x1); }
 __device__ __forceinline__ bool link_upright(int ur, int b) { return (ur & 0x4) && (b & 0x2); }
 
+// The root of i, where par[i] holds i's parent + kOff (kOff = 1: K3
+// 4-connected's labels buffer, whose entries are labels).
+template <int kOff = 0>
 __device__ __forceinline__ int find_root(const int* par, int i) {
   const volatile int* vp = par;
-  int p = vp[i];
+  int p = vp[i] - kOff;
   while (p != i) {
     i = p;
-    p = vp[i];
+    p = vp[i] - kOff;
   }
   return i;
 }
@@ -200,19 +205,21 @@ __device__ __forceinline__ int find_compress(int* par, int i) {
 }
 
 // Link the roots of a and b, the larger under the smaller (with path
-// splitting in the finds where kCompress: a tile's union in shared memory).
-template <bool kCompress>
+// splitting in the finds where kCompress: a tile's union in shared memory;
+// par's entries parents + kOff, as find_root's).
+template <bool kCompress, int kOff = 0>
 __device__ void unite(int* par, int a, int b) {
+  static_assert(!(kCompress && kOff), "path splitting stores plain parents");
   while (true) {
-    a = kCompress ? find_compress(par, a) : find_root(par, a);
-    b = kCompress ? find_compress(par, b) : find_root(par, b);
+    a = kCompress ? find_compress(par, a) : find_root<kOff>(par, a);
+    b = kCompress ? find_compress(par, b) : find_root<kOff>(par, b);
     if (a == b) return;
     if (a < b) {
-      const int old = atomicMin(&par[b], a);
+      const int old = atomicMin(&par[b], a + kOff) - kOff;
       if (old == b) return;
       b = old;
     } else {
-      const int old = atomicMin(&par[a], b);
+      const int old = atomicMin(&par[a], b + kOff) - kOff;
       if (old == a) return;
       a = old;
     }
@@ -284,6 +291,18 @@ struct TileWalk {
   __device__ int tile(int k) const { return list ? list[k] : k; }
 };
 
+// Whether the first min(16, avail) bytes at p hold a nonzero one: one
+// 16-byte load where they are 16 and p is 16-byte aligned.
+__device__ __forceinline__ bool any16(const uint8_t* p, int avail) {
+  if (avail >= 16 && (reinterpret_cast<uintptr_t>(p) & 15) == 0) {
+    const uint4 v = *reinterpret_cast<const uint4*>(p);
+    return (v.x | v.y | v.z | v.w) != 0;
+  }
+  bool fg = false;
+  for (int i = 0; i < 16 && i < avail; ++i) fg |= p[i] != 0;
+  return fg;
+}
+
 // This lane's 16 bytes of strip s (of the flattened N x Hb x S) of the
 // mask, 2 rows x 256 pixels a warp (lanes 0-15 the first row): whether
 // they hold foreground.
@@ -293,17 +312,7 @@ __device__ __forceinline__ bool strip_lane_fg(const uint8_t* __restrict__ mask, 
   const int n = int(s / (size_t(g.Hb) * g.S));
   const int r = int(s % (size_t(g.Hb) * g.S));
   const int y = 2 * (r / g.S) + (lane >> 4), x = (r % g.S) * 2 * SW + 16 * (lane & 15);
-  bool fg = false;
-  if (y < g.H && x < g.W) {
-    const uint8_t* p = mask + (size_t(n) * g.H + y) * g.W + x;
-    if (x + 16 <= g.W && (reinterpret_cast<uintptr_t>(p) & 15) == 0) {
-      const uint4 v = *reinterpret_cast<const uint4*>(p);
-      fg = (v.x | v.y | v.z | v.w) != 0;
-    } else {
-      for (int i = 0; i < 16 && x + i < g.W; ++i) fg |= p[i] != 0;
-    }
-  }
-  return fg;
+  return y < g.H && x < g.W && any16(mask + (size_t(n) * g.H + y) * g.W + x, g.W - x);
 }
 
 // Strip s of the occupancy from the mask: a warp; every lane calls it.
@@ -570,74 +579,210 @@ ccl_labels8(Geom g, const uint8_t* __restrict__ occ, const int* __restrict__ par
   }
 }
 
-// Pixel-level union-find inside one T4Y x T4X tile; every pixel's parent
-// is written as a frame-global raster index (background: itself).
-__global__ void __launch_bounds__(T4Y * T4X)
-ccl4_local(const uint8_t* __restrict__ mask, int H, int W, int* __restrict__ par_g) {
-  __shared__ int par[T4Y * T4X];
-  __shared__ uint8_t fg[T4Y * T4X];
-  const int li = threadIdx.x;
-  const int ty = li / T4X, tx = li % T4X;
-  const int y = blockIdx.y * T4Y + ty, x = blockIdx.x * T4X + tx;
-  const bool inside = y < H && x < W;
-  const size_t frame = size_t(blockIdx.z) * H * W;
-  const uint8_t f = inside && mask[frame + size_t(y) * W + x] != 0;
-  fg[li] = f;
-  par[li] = li;
-  __syncthreads();
-  if (f) {
-    if (tx > 0 && fg[li - 1]) unite<false>(par, li, li - 1);
-    if (ty > 0 && fg[li - T4X]) unite<false>(par, li, li - T4X);
+// ---- K3, 4-connected: pixel union-find over the segments with foreground ----
+
+// A frame's 4-connected strips (K6's: 512 pixels of one row, S a row), their
+// segments (sixteen runs of 32 pixels, a tile row's width) and its T4Y x T4X
+// tiles, TY x TX of them.
+constexpr int kStrip4 = 512;
+constexpr int kSeg4 = kStrip4 / T4X;  // segments a strip
+constexpr int kBorder4 = 64;          // a tile's top row and first column (48 items)
+
+struct Geom4 {
+  int H, W, S, TY, TX;
+  __host__ __device__ int tiles() const { return TY * TX; }
+};
+
+Geom4 geom4(int H, int W) {
+  Geom4 g;
+  g.H = H; g.W = W;
+  g.S = (W + kStrip4 - 1) / kStrip4;
+  g.TY = (H + T4Y - 1) / T4Y;
+  g.TX = (W + T4X - 1) / T4X;
+  return g;
+}
+
+// The strip occupancy and segments of the mask, a warp a strip (16 pixels a
+// lane; segment k is lanes 2k and 2k + 1): occ (N, H, S) u8, 1 where the
+// strip holds foreground (K6's occupancy); seg (N, H, S) u16, bit k where
+// its segment k does.
+__global__ void __launch_bounds__(32 * kOccWarps)
+ccl4_occ(const uint8_t* __restrict__ mask, int N, Geom4 g, uint8_t* __restrict__ occ,
+         uint16_t* __restrict__ seg) {
+  const size_t s = size_t(blockIdx.x) * kOccWarps + (threadIdx.x >> 5);
+  if (s >= size_t(N) * g.H * g.S) return;
+  const int lane = threadIdx.x & 31;
+  const size_t row = s / g.S;  // n * H + y
+  const int x = int(s % g.S) * kStrip4 + 16 * lane;
+  const unsigned m = __ballot_sync(0xffffffffu, x < g.W && any16(mask + row * g.W + x, g.W - x));
+  unsigned bits = 0;
+#pragma unroll
+  for (int k = 0; k < kSeg4; ++k) bits |= ((m >> (2 * k)) & 3u) ? 1u << k : 0u;
+  if (lane == 0) {
+    occ[s] = bits != 0;
+    seg[s] = static_cast<uint16_t>(bits);
   }
-  __syncthreads();
-  if (inside) {
-    int root = y * W + x;
-    if (f) {
-      const int lr = find_root(par, li);
-      root = (blockIdx.y * T4Y + lr / T4X) * W + blockIdx.x * T4X + lr % T4X;
+}
+
+// Each frame's tiles with foreground, ascending, each with its live rows:
+// tiles (N, TY * TX) of t | rows << 16 (bit r where the tile's segment of
+// its row r holds foreground), ntiles (N,).
+__global__ void __launch_bounds__(kScanThreads)
+ccl4_tiles(Geom4 g, const uint16_t* __restrict__ seg, int* __restrict__ tiles,
+           int* __restrict__ ntiles) {
+  __shared__ int warp_incl[32];
+  const int n = blockIdx.x, T = g.tiles();
+  const uint16_t* sg = seg + size_t(n) * g.H * g.S;
+  int running = 0;
+  for (int base = 0; base < T; base += kScanThreads) {
+    const int t = base + threadIdx.x;
+    unsigned rows = 0;
+    if (t < T) {
+      const int y0 = (t / g.TX) * T4Y, tx = t % g.TX;
+      const int c = tx / kSeg4, b = tx % kSeg4;
+      for (int r = 0; r < T4Y && y0 + r < g.H; ++r)
+        rows |= ((unsigned(sg[(y0 + r) * g.S + c]) >> b) & 1u) << r;
     }
-    par_g[frame + size_t(y) * W + x] = root;
+    const int2 k = block_rank(rows != 0, warp_incl);
+    if (rows) tiles[size_t(n) * T + running + k.x] = int(unsigned(t) | rows << 16);
+    running += k.y;
+  }
+  if (threadIdx.x == 0) ntiles[n] = running;
+}
+
+// This thread's pixel (y, x) of a listed tile (item: t | rows << 16) and
+// whether it is live: inside the frame, its row's segment holding
+// foreground.
+__device__ __forceinline__ bool tile4_px(const Geom4& g, int item, int* y, int* x) {
+  const int t = item & 0xffff, ty = threadIdx.x / T4X;
+  *y = (t / g.TX) * T4Y + ty;
+  *x = (t % g.TX) * T4X + threadIdx.x % T4X;
+  return *y < g.H && *x < g.W && ((unsigned(item) >> (16 + ty)) & 1u);
+}
+
+// The union inside each listed tile of frame blockIdx.y (the CTA takes every
+// gridDim.x-th), a thread a pixel: a tile row is a warp, each run of
+// foreground pixels points at its first pixel at once (a ballot), then the
+// up links are united in shared memory (path splitting in the finds). Each
+// pixel of a live row gets its tile-local root's frame raster index + 1, 0
+// for background: the labels buffer is the parent array, each entry the
+// parent's index + 1. The next tile's list entry and mask byte are loaded
+// before this tile's barriers.
+__global__ void __launch_bounds__(T4Y * T4X)
+ccl4_local(const uint8_t* __restrict__ mask, Geom4 g, const int* __restrict__ tiles,
+           const int* __restrict__ ntiles, int* __restrict__ labels) {
+  __shared__ int par[T4Y * T4X];
+  __shared__ uint8_t fgs[T4Y * T4X];
+  const int n = blockIdx.y, nt = ntiles[n];
+  int k = blockIdx.x;
+  if (k >= nt) return;  // CTA-uniform
+  const int* list = tiles + size_t(n) * g.tiles();
+  const uint8_t* m = mask + size_t(n) * g.H * g.W;
+  int* lab = labels + size_t(n) * g.H * g.W;
+  const int li = threadIdx.x, ty = li / T4X, tx = li % T4X;
+  // the mask byte of this thread's pixel of an item, 0 where it is not live
+  auto byte_of = [&](int item) -> uint8_t {
+    int y, x;
+    return tile4_px(g, item, &y, &x) ? m[y * g.W + x] : 0;
+  };
+  int item = list[k];
+  uint8_t mv = byte_of(item);
+  int item_next = k + int(gridDim.x) < nt ? list[k + gridDim.x] : 0;
+  for (; k < nt; k += gridDim.x) {
+    int y, x;
+    const bool live = tile4_px(g, item, &y, &x);
+    const bool fg = live && mv;
+    const int kn = k + gridDim.x;
+    const uint8_t mv_next = kn < nt ? byte_of(item_next) : 0;
+    const int item_after = kn + int(gridDim.x) < nt ? list[kn + gridDim.x] : 0;
+    fgs[li] = fg;
+    const int left = __shfl_up_sync(0xffffffffu, int(fg), 1);
+    const unsigned starts = __ballot_sync(0xffffffffu, !(tx > 0 && left && fg));
+    const unsigned upto = tx == T4X - 1 ? 0xffffffffu : (2u << tx) - 1u;
+    par[li] = ty * T4X + 31 - __clz(starts & upto);
+    __syncthreads();
+    if (fg && ty > 0 && fgs[li - T4X]) unite<true>(par, li, li - T4X);
+    __syncthreads();
+    if (live) {
+      int v = 0;
+      if (fg) {
+        const int lr = find_compress(par, li);
+        v = (y - ty + lr / T4X) * g.W + x - tx + lr % T4X + 1;
+      }
+      lab[y * g.W + x] = v;
+    }
+    __syncthreads();  // par and fgs are the next tile's
+    item = item_next;
+    item_next = item_after;
+    mv = mv_next;
   }
 }
 
-__global__ void __launch_bounds__(kFlatThreads)
-ccl4_border(const uint8_t* __restrict__ mask, int H, int W, int* __restrict__ par_g) {
-  const int p = blockIdx.x * blockDim.x + threadIdx.x;
-  if (p >= H * W) return;
-  const size_t frame = size_t(blockIdx.y) * H * W;
-  const uint8_t* m = mask + frame;
-  if (!m[p]) return;
-  int* par = par_g + frame;
-  const int y = p / W, x = p - y * W;
-  if (x > 0 && x % T4X == 0 && m[p - 1]) unite<false>(par, p, p - 1);
-  if (y > 0 && y % T4Y == 0 && m[p - W]) unite<false>(par, p, p - W);
+// Union across the listed tiles' top rows and first columns in the labels
+// buffer (each entry a parent's index + 1), kTileThreads / kBorder4 tiles a
+// CTA a step: a pixel and its neighbour above (top row) or to its left
+// (first column) are united where both are foreground. A foreground pixel's
+// row is live, so its entry holds a parent.
+__global__ void __launch_bounds__(kTileThreads)
+ccl4_border(const uint8_t* __restrict__ mask, Geom4 g, const int* __restrict__ tiles,
+            const int* __restrict__ ntiles, int* __restrict__ labels) {
+  constexpr int kPer = kTileThreads / kBorder4;
+  const int n = blockIdx.y, nt = ntiles[n];
+  const int* list = tiles + size_t(n) * g.tiles();
+  const uint8_t* m = mask + size_t(n) * g.H * g.W;
+  int* lab = labels + size_t(n) * g.H * g.W;
+  const int i = threadIdx.x % kBorder4;
+  for (int k = blockIdx.x * kPer + threadIdx.x / kBorder4; k < nt; k += gridDim.x * kPer) {
+    const int t = list[k] & 0xffff;
+    const int y0 = (t / g.TX) * T4Y, x0 = (t % g.TX) * T4X;
+    int y, x, d;
+    if (i < T4X) {
+      y = y0; x = x0 + i; d = g.W;
+      if (y == 0) continue;
+    } else if (i < T4X + T4Y) {
+      y = y0 + i - T4X; x = x0; d = 1;
+      if (x == 0) continue;
+    } else {
+      continue;
+    }
+    if (y >= g.H || x >= g.W) continue;
+    const int p = y * g.W + x;
+    if (m[p] && m[p - d]) unite<false, 1>(lab, p, p - d);
+  }
 }
 
+// One thread a 4-pixel group of one row of frame blockIdx.y, written as one
+// 16-byte store (scalar stores where W % 4 != 0): zeros where the group's
+// segment holds no foreground, with no other read; else each foreground
+// pixel's root (its chain of entries, each an ancestor's index + 1) + 1, 0
+// for background. An entry changes only to its root's encoding while other
+// threads walk it, so every walk ends at the root. (A thread a group keeps
+// more walks in flight on a dense mask than a warp a strip, which measured
+// slower.)
 __global__ void __launch_bounds__(kFlatThreads)
-ccl4_flatten(const uint8_t* __restrict__ mask, int HW, int* __restrict__ par_g) {
-  const int p = blockIdx.x * blockDim.x + threadIdx.x;
-  if (p >= HW) return;
-  const size_t frame = size_t(blockIdx.y) * HW;
-  if (mask[frame + p]) par_g[frame + p] = find_root(par_g + frame, p);
+ccl4_labels(const uint8_t* __restrict__ mask, Geom4 g, const uint16_t* __restrict__ seg,
+            int* __restrict__ labels) {
+  const int Q = (g.W + 3) / 4;  // groups a row
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= g.H * Q) return;
+  const int n = blockIdx.y, y = i / Q, x = 4 * (i - y * Q);
+  const size_t f = size_t(n) * g.H * g.W;
+  int v[4] = {0, 0, 0, 0};
+  const unsigned live = seg[(size_t(n) * g.H + y) * g.S + x / kStrip4];
+  if ((live >> ((x % kStrip4) / T4X)) & 1u) {
+    const uint8_t* row = mask + f + size_t(y) * g.W;
+    for (int j = 0; j < 4 && x + j < g.W; ++j)
+      if (row[x + j]) v[j] = find_root<1>(labels + f, y * g.W + x + j) + 1;
+  }
+  int* p = labels + f + size_t(y) * g.W + x;
+  if ((g.W & 3) == 0) {  // x + 4 <= W, and the row starts 16-byte aligned
+    *reinterpret_cast<int4*>(p) = make_int4(v[0], v[1], v[2], v[3]);
+  } else {
+    for (int j = 0; j < 4 && x + j < g.W; ++j) p[j] = v[j];
+  }
 }
 
-// In place, after ccl4_flatten: root + 1 for foreground, 0 for background.
-__global__ void __launch_bounds__(kFlatThreads)
-ccl4_finish(const uint8_t* __restrict__ mask, int HW, int* __restrict__ labels) {
-  const int p = blockIdx.x * blockDim.x + threadIdx.x;
-  if (p >= HW) return;
-  const size_t g = size_t(blockIdx.y) * HW + p;
-  labels[g] = mask[g] ? labels[g] + 1 : 0;
-}
-
-// ---- K6: the dense stats of root-key labels ----
-
-constexpr int kK6Warps = 8;          // strips a CTA of k6_count, k6_sums, k6_labels
-// listed strips a warp of k6_sums takes at most: a CTA sums at most 64 x 512
-// pixels, so its 32-bit x and y sums hold for H, W < 65536
-constexpr int kK6StripsPerWarp = 8;
-constexpr int kK6Big = 1 << 30;      // a bbox minimum not yet set (the plain version's)
-constexpr int kSmemBytes = 48 * 1024;
+// ---- K6: the dense stats of root-key labels: strips and helpers ----
 
 // K6's strips: R rows of S strips, 512 scan keys each, in key order.
 // 8-connected: rows 2r, 2r + 1 x columns 256c .. 256c + 255 (K3's strips);
@@ -777,253 +922,417 @@ __device__ int2 block_scan(int v, int* warp_incl) {
   return r;
 }
 
-// A: a warp takes 32 consecutive strips (of the flattened N x R x S),
-// one at a time: rcnt = its roots; deriving, occ = any foreground. Given
-// the occupancy, one ballot over the 32 strips' bytes picks the occupied
-// ones; an empty strip is not read (nor its count written: k6_roots reads
-// the counts of occupied strips only).
+// Bit e: the lane's label e of strip (r, c) is a root (its key + 1).
 template <int kConn>
-__global__ void __launch_bounds__(32 * kK6Warps)
-k6_count(const int* __restrict__ root, int N, SGeom g, uint8_t* __restrict__ occ, int derive,
-         int* __restrict__ rcnt) {
-  const int Q = g.strips();
+__device__ __forceinline__ unsigned lane_roots(const SGeom& g, int r, int c, int lane,
+                                               const int* v) {
+  unsigned m = 0;
+#pragma unroll
+  for (int e = 0; e < 16; ++e) {
+    int x, y, key;
+    strip_px<kConn>(g, r, c, lane, e, x, y, key);
+    m |= unsigned(v[e] == key + 1) << e;
+  }
+  return m;
+}
+
+// ---- The stats epilogue, shared by K2 and K6 ----
+
+constexpr float kImax = 2147483520.0f;  // 2^31 - 128, the largest float32 below 2^31
+
+// The stats dict's rows of one frame, a warp (tpuva_torch/ops/label.py::
+// _assemble_stats and _stats_dict, bit for bit). sums: 3C (area, sum x,
+// sum y of the frame's first C components in cv2 order, zero past its
+// count), wrapping 32-bit words. The wrapping int32 totals; row 0,
+// the background, by subtraction from the image's totals (area in int32;
+// x and y in float32: cx0, cy0 are the image's); centroid = float32 sum /
+// float32 area, 0 where the area is 0; centroid_sum the int32 sums (the
+// background's clamped to +-(2^31 - 128) and cut toward zero), 0 where the
+// area is 0. Where bbox is given (rows of 4): (x, y, w, h) where box, the
+// extremes (4C: min x, min y, max x, max y), is given too, the
+// background's (0, 0, W, H), a component's from its extremes, zeros where
+// the area is 0; all zeros where box is null.
+__device__ void stats_epilogue(const unsigned* sums, const int* box, int C, int H, int W,
+                               float cx0, float cy0, int* area, float* centroid, int* csum,
+                               int* bbox) {
   const int lane = threadIdx.x & 31;
-  const int s0 = 32 * (blockIdx.x * kK6Warps + (threadIdx.x >> 5));
-  if (s0 >= N * Q) return;
-  const int mine = s0 + lane;
-  unsigned todo = __ballot_sync(0xffffffffu, mine < N * Q && (derive || occ[mine]));
-  while (todo) {
-    const int s = s0 + __ffs(todo) - 1;
-    todo &= todo - 1;
-    const int n = s / Q, q = s - n * Q, r = q / g.S, c = q - r * g.S;
-    int v[16];
-    load_strip<kConn>(root + size_t(n) * g.H * g.W, g, r, c, lane, v);
-    int cnt = 0;
-    bool fg = false;
-    for (int e = 0; e < 16; ++e) {
-      int x, y, key;
-      strip_px<kConn>(g, r, c, lane, e, x, y, key);
-      fg |= v[e] != 0;
-      cnt += v[e] == key + 1;
+  unsigned ta = 0, tx = 0, ty = 0;
+  for (int c = lane; c < C; c += 32) {
+    ta += sums[3 * c];
+    tx += sums[3 * c + 1];
+    ty += sums[3 * c + 2];
+  }
+  ta = __reduce_add_sync(0xffffffffu, ta);
+  tx = __reduce_add_sync(0xffffffffu, tx);
+  ty = __reduce_add_sync(0xffffffffu, ty);
+  for (int row = lane; row <= C; row += 32) {
+    int a, ix, iy;
+    float fx, fy;
+    if (row == 0) {
+      a = int(unsigned(H) * unsigned(W) - ta);
+      fx = __fsub_rn(cx0, __int2float_rn(int(tx)));
+      fy = __fsub_rn(cy0, __int2float_rn(int(ty)));
+      ix = __float2int_rz(fminf(fmaxf(fx, -kImax), kImax));
+      iy = __float2int_rz(fminf(fmaxf(fy, -kImax), kImax));
+    } else {
+      const unsigned* e = sums + 3 * (row - 1);
+      a = int(e[0]);
+      ix = int(e[1]);
+      iy = int(e[2]);
+      fx = __int2float_rn(ix);
+      fy = __int2float_rn(iy);
     }
-    cnt = __reduce_add_sync(0xffffffffu, cnt);
-    fg = __any_sync(0xffffffffu, fg);
-    if (lane == 0) {
-      rcnt[s] = cnt;
-      if (derive) occ[s] = fg;
+    const bool present = a > 0;
+    const float fa = __int2float_rn(a > 1 ? a : 1);
+    area[row] = a;
+    centroid[2 * row] = present ? __fdiv_rn(fx, fa) : 0.0f;
+    centroid[2 * row + 1] = present ? __fdiv_rn(fy, fa) : 0.0f;
+    csum[2 * row] = present ? ix : 0;
+    csum[2 * row + 1] = present ? iy : 0;
+    if (bbox) {
+      int b[4] = {0, 0, 0, 0};
+      if (present && box && row == 0) {
+        b[2] = W;
+        b[3] = H;
+      } else if (present && box) {
+        const int* e = box + 4 * (row - 1);
+        b[0] = e[0];
+        b[1] = e[1];
+        b[2] = e[2] - e[0] + 1;
+        b[3] = e[3] - e[1] + 1;
+      }
+      for (int j = 0; j < 4; ++j) bbox[4 * row + j] = b[j];
     }
   }
 }
 
-// B: one CTA a frame. The occupied strips in order into list (N, Q) and
-// nlist; their root counts scanned in order, and each strip that holds one
-// of the first C roots read by a warp, which writes those roots' keys + 1
-// to table (N, C) in key order; count = min(roots, C). Zeroes the sums
-// (N, C, 3) and seeds the bbox (N, C, 4) of (min x, min y, max x, max y).
+// ---- K6: the dense stats of root-key labels, one CTA a frame ----
+
+constexpr int kK6Threads = 512;
+constexpr int kK6Warps = kK6Threads / 32;
+constexpr int kListStrips = 16;  // strips a thread of K6's listing takes a step
+constexpr int kK6Big = 1 << 30;  // a bbox minimum not yet set (the plain version's)
+constexpr int kSmemBytes = 48 * 1024;
+
+// Bytes of a frame's table (C int32), sums (3C low and 3C high words,
+// where summed) and extremes (4C int32, where kept): in shared memory where
+// they fit kSmemBytes (tpuva_torch/ops/ccl.py::k6_frame_bytes).
+__host__ __device__ inline size_t k6_frame_bytes(int C, bool sums, bool box) {
+  return size_t(C) * ((sums ? 24 : 0) + (box ? 16 : 0) + 4);
+}
+
+struct K6Params {
+  const int* root;         // (N, H, W) root-key labels
+  SGeom g;
+  int N, C;
+  const uint8_t* occ;      // (N, Q) the caller's strip occupancy, or null: derived
+  // scratch (tpuva_torch/ops/ccl.py::k6_workspace), Q = g.strips()
+  uint8_t* docc;           // (N, Q) the derived occupancy (deriving only)
+  int* rcs;                // (N, Q) each strip's roots (deriving only)
+  int* list;               // (N, Q) the occupied strips, ascending
+  int* lrc;                // (N, Q) their roots
+  int* loff;               // (N, Q) the rank of their first root
+  int* gtable;             // (N, C)    the table, where not in shared memory
+  unsigned* gacc;          // (N, 2, C, 3) the sums' low and high words, likewise
+  int* gbox;               // (N, C, 4) the extremes, likewise
+  // outputs; each but count null where not asked for
+  int* count;              // (N,)
+  long long* sums;         // (N, C, 3) area, sum x, sum y
+  int* lohi;               // (N, C, 4) min x, min y, max x, max y
+  int* labels;             // (N, H, W) dense ids
+  int* area;               // the stats dict (ops/ccl.py::stats_views with its bbox):
+  float* centroid;         //   area (N, C+1), centroid (N, C+1, 2), centroid_sum
+  int* csum;               //   (N, C+1, 2), overflow (N,), bbox (N, C+1, 4); null
+  int* overflow;           //   area: no dict
+  int* bbox;
+  int* zero;               // one word set to 0 (the dict's broadcast labels), or null
+  int acc_sums, acc_box;   // sum area, x and y / keep the extremes
+  float cx0, cy0;          // float32 of the image's sums of x and of y (the dict)
+};
+
+// Add x to the 64-bit sum of words lo and lo[hi]: 32-bit atomics (native
+// in shared memory, where 64-bit adds loop on a compare-and-swap), the
+// carry counted into the high word; exact in any order.
+__device__ __forceinline__ void add64(unsigned* lo, int hi, unsigned x) {
+  const unsigned old = atomicAdd(lo, x);
+  if (old + x < old) atomicAdd(lo + hi, 1u);
+}
+
+// Add a run of a lane's pixels of component i into the sums (acc: 3C low
+// words, then 3C high words) and extremes.
+__device__ __forceinline__ void k6_flush(int i, unsigned area, unsigned sx, unsigned sy, int x0,
+                                         int y0, int x1, int y1, unsigned* acc, int C,
+                                         int* box) {
+  if (acc) {
+    add64(&acc[3 * i], 3 * C, area);
+    add64(&acc[3 * i + 1], 3 * C, sx);
+    add64(&acc[3 * i + 2], 3 * C, sy);
+  }
+  if (box) {
+    atomicMin(&box[4 * i], x0);
+    atomicMin(&box[4 * i + 1], y0);
+    atomicMax(&box[4 * i + 2], x1);
+    atomicMax(&box[4 * i + 3], y1);
+  }
+}
+
+// The lane's 16 labels v of strip (r, c): each one's rank in the table
+// (ascending tab[0, cnt), its last entry tmax; a label in [1, tmax] is in
+// it, a lane without one is done at once), runs of one rank summed in
+// registers and added once into acc and box where they are given (a lane's
+// sums are at most 16 x 65535); with ids, each label replaced by its rank +
+// 1 (0 for background and for a component past C).
 template <int kConn>
-__global__ void __launch_bounds__(kScanThreads)
-k6_roots(const int* __restrict__ root, SGeom g, int C, const uint8_t* __restrict__ occ,
-         const int* __restrict__ rcnt, int* __restrict__ list, int* __restrict__ nlist,
-         int* __restrict__ table, int* __restrict__ count, long long* __restrict__ sums,
-         int* __restrict__ bbox) {
-  __shared__ int warp_incl[32];
-  __shared__ int work[kScanThreads], work_rank[kScanThreads];
-  const int n = blockIdx.x, Q = g.strips();
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const uint8_t* o = occ + size_t(n) * Q;
-  const int* frame = root + size_t(n) * g.H * g.W;
-  if (sums)
-    for (int i = threadIdx.x; i < 3 * C; i += blockDim.x) sums[size_t(n) * 3 * C + i] = 0;
-  if (bbox)
-    for (int i = threadIdx.x; i < 4 * C; i += blockDim.x)
-      bbox[size_t(n) * 4 * C + i] = (i & 3) < 2 ? kK6Big : -1;
-  int running = 0, listed = 0;
-  for (int base = 0; base < Q; base += kScanThreads) {
-    const int s = base + threadIdx.x;
-    const bool occupied = s < Q && o[s];
-    const int2 l = block_rank(occupied, warp_incl);
-    if (occupied) list[size_t(n) * Q + listed + l.x] = s;
-    listed += l.y;
-    if (running >= C) continue;  // block-uniform: later roots are cut
-    const int cnt = occupied ? rcnt[size_t(n) * Q + s] : 0;
-    const int2 p = block_scan(cnt, warp_incl);
-    const bool holds = cnt > 0 && running + p.x < C;
-    const int2 w = block_rank(holds, warp_incl);
-    if (holds) {
-      work[w.x] = s;
-      work_rank[w.x] = running + p.x;
-    }
-    __syncthreads();
-    for (int k = warp; k < w.y; k += kScanThreads / 32) {
-      const int st = work[k], r = st / g.S, c = st - r * g.S;
-      int v[16];
-      load_strip<kConn>(frame, g, r, c, lane, v);
-      unsigned roots = 0;
-      for (int e = 0; e < 16; ++e) {
-        int x, y, key;
-        strip_px<kConn>(g, r, c, lane, e, x, y, key);
-        roots |= unsigned(v[e] == key + 1) << e;
-      }
-      int pos = __popc(roots);  // this lane's rank: a warp scan of the counts
-      for (int d = 1; d < 32; d <<= 1) {
-        const int t = __shfl_up_sync(0xffffffffu, pos, d);
-        if (lane >= d) pos += t;
-      }
-      pos = work_rank[k] + pos - __popc(roots);
-      for (int e = 0; e < 16 && pos < C; ++e) {
-        if (!(roots >> e & 1)) continue;
-        int x, y, key;
-        strip_px<kConn>(g, r, c, lane, e, x, y, key);
-        table[size_t(n) * C + pos++] = key + 1;
-      }
-    }
-    __syncthreads();  // work is the next chunk's
-    running += p.y;
+__device__ __forceinline__ void k6_strip(const SGeom& g, int r, int c, int lane, int* v,
+                                         const int* tab, int cnt, int tmax,
+                                         unsigned* acc, int C, int* box, bool ids) {
+  bool any = false;
+#pragma unroll
+  for (int e = 0; e < 16; ++e) any |= unsigned(v[e] - 1) < unsigned(tmax);
+  if (!any) {  // background and components past C only
+    if (ids)
+#pragma unroll
+      for (int e = 0; e < 16; ++e) v[e] = 0;
+    return;
   }
-  if (threadIdx.x == 0) {
-    count[n] = min(running, C);
-    nlist[n] = listed;
+  const bool sum = acc || box;
+  int last_v = 0, last_i = -1, cur = -1;
+  unsigned area = 0, sx = 0, sy = 0;
+  int x0 = kK6Big, y0 = kK6Big, x1 = -1, y1 = -1;
+#pragma unroll
+  for (int e = 0; e < 16; ++e) {
+    if (!v[e]) continue;
+    if (v[e] != last_v) {
+      last_v = v[e];
+      last_i = v[e] > tmax ? -1 : rank_of(tab, cnt, v[e]);
+    }
+    if (ids) v[e] = last_i + 1;
+    if (last_i < 0 || !sum) continue;
+    if (last_i != cur) {
+      if (cur >= 0) k6_flush(cur, area, sx, sy, x0, y0, x1, y1, acc, C, box);
+      cur = last_i;
+      area = sx = sy = 0;
+      x0 = y0 = kK6Big;
+      x1 = y1 = -1;
+    }
+    int x, y, key;
+    strip_px<kConn>(g, r, c, lane, e, x, y, key);
+    area += 1;
+    sx += unsigned(x);
+    sy += unsigned(y);
+    x0 = min(x0, x); y0 = min(y0, y); x1 = max(x1, x); y1 = max(y1, y);
+  }
+  if (cur >= 0) k6_flush(cur, area, sx, sy, x0, y0, x1, y1, acc, C, box);
+}
+
+// The warp's strips s = list[k] (k itself where list is null) for k =
+// first, first + step, ... < end, two at a time: both strips' labels are
+// loaded before f(k, s, r, c, v) runs on the first, so that each warp keeps
+// two strips' loads in flight.
+template <int kConn, typename F>
+__device__ __forceinline__ void strip_pairs(const int* frame, const SGeom& g, int lane, int first,
+                                            int end, int step, const int* list, F f) {
+  for (int k = first; k < end; k += 2 * step) {
+    const int k2 = k + step;
+    const bool two = k2 < end;  // warp-uniform
+    const int s = list ? list[k] : k, s2 = two ? (list ? list[k2] : k2) : s;
+    const int r = s / g.S, c = s - r * g.S, r2 = s2 / g.S, c2 = s2 - r2 * g.S;
+    int v[16], w[16];
+    load_strip<kConn>(frame, g, r, c, lane, v);
+    if (two) load_strip<kConn>(frame, g, r2, c2, lane, w);
+    f(k, s, r, c, v);
+    if (two) f(k2, s2, r2, c2, w);
   }
 }
 
-// Add one run of pixels of component i into the sums (and the bbox).
-template <bool kShared>
-__device__ __forceinline__ void k6_flush(int i, unsigned area, unsigned sx, unsigned sy,
-                                         int x0, int y0, int x1, int y1, unsigned* acc,
-                                         int* box, unsigned long long* gsums, int* gbox,
-                                         bool with_bbox) {
-  if (kShared) {
-    atomicAdd(&acc[3 * i], area);
-    atomicAdd(&acc[3 * i + 1], sx);
-    atomicAdd(&acc[3 * i + 2], sy);
-  } else {
-    atomicAdd(&gsums[3 * i], (unsigned long long)area);
-    atomicAdd(&gsums[3 * i + 1], (unsigned long long)sx);
-    atomicAdd(&gsums[3 * i + 2], (unsigned long long)sy);
-  }
-  if (with_bbox) {
-    int* b = kShared ? box : gbox;
-    atomicMin(&b[4 * i], x0);
-    atomicMin(&b[4 * i + 1], y0);
-    atomicMax(&b[4 * i + 2], x1);
-    atomicMax(&b[4 * i + 3], y1);
-  }
-}
-
-// C: the sums over the listed (occupied) strips of frame blockIdx.y, a warp
-// a strip, strip k = blockIdx.x * kK6Warps + warp, + gridDim.x * kK6Warps.
-// kShared: the table and 32-bit sums (and bbox) in shared memory, added
-// once a CTA and component into global memory; else straight into it.
+// K6 in one launch, a CTA a frame (blockIdx.x), its phases joined by the
+// CTA's barriers:
+//   A  deriving the occupancy: a warp a strip, all strips (two strips'
+//      loads in flight, as in B and D): whether it holds foreground and its
+//      roots (label == key + 1, the key from (y, x));
+//   B  the occupied strips listed in order (a block scan over the occupancy
+//      bytes, a thread 16 strips a step); given the occupancy, each listed
+//      strip's roots counted by a warp; a block scan of the roots in strip
+//      order gives each listed strip the rank of its first root;
+//   C  the table: each listed strip holding one of the first C roots writes
+//      their keys + 1 ascending (a warp a strip); the sums zeroed, the
+//      extremes seeded;
+//   D  the sums (and extremes) over the listed strips, a warp a strip: each
+//      label's rank by binary search in the table (a lane without a label
+//      up to its last entry skips the search), runs of one rank summed in
+//      registers, one 32-bit atomic add a run and sum, its carry into a high
+//      word; with the dense ids every strip
+//      instead, rank + 1 written in 16-byte stores, zeros for an empty strip
+//      without a read;
+//   E  the outputs: count; the raw sums and extremes; the stats dict's rows
+//      (stats_epilogue, warp 0).
+// kShared: the table, sums and extremes in shared memory; else in the
+// frame's global scratch. Integer atomics make every sum independent of
+// their order.
 template <int kConn, bool kShared>
-__global__ void __launch_bounds__(32 * kK6Warps)
-k6_sums(const int* __restrict__ root, SGeom g, int C, const int* __restrict__ list,
-        const int* __restrict__ nlist, const int* __restrict__ table,
-        const int* __restrict__ count, unsigned long long* __restrict__ sums,
-        int* __restrict__ bbox) {
-  extern __shared__ int smem[];  // table[C], sums[3C], bbox[4C]
-  const int n = blockIdx.y, Q = g.strips();
-  const int nl = nlist[n], cnt = count[n];
-  if (cnt == 0 || int(blockIdx.x) * kK6Warps >= nl) return;  // CTA-uniform
-  const bool with_bbox = bbox != nullptr;
-  const int* tab = table + size_t(n) * C;
-  unsigned* acc = reinterpret_cast<unsigned*>(smem + C);
-  int* box = smem + 4 * C;
-  unsigned long long* gsums = sums + size_t(n) * 3 * C;
-  int* gbox = with_bbox ? bbox + size_t(n) * 4 * C : nullptr;
-  if (kShared) {
-    for (int i = threadIdx.x; i < cnt; i += blockDim.x) smem[i] = tab[i];
-    for (int i = threadIdx.x; i < 3 * cnt; i += blockDim.x) acc[i] = 0;
-    if (with_bbox)
-      for (int i = threadIdx.x; i < 4 * cnt; i += blockDim.x) box[i] = (i & 3) < 2 ? kK6Big : -1;
-    __syncthreads();
-    tab = smem;
-  }
+__global__ void __launch_bounds__(kK6Threads, 2) k6_frame(K6Params P) {
+  extern __shared__ unsigned k6_smem[];  // sums[2][3C], extremes[4C], table[C]
+  __shared__ int warp_incl[32];
+  const SGeom& g = P.g;
+  const int n = blockIdx.x, Q = g.strips(), C = P.C;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int* frame = root + size_t(n) * g.H * g.W;
-  for (int k = blockIdx.x * kK6Warps + warp; k < nl; k += gridDim.x * kK6Warps) {
-    const int s = list[size_t(n) * Q + k], r = s / g.S, c = s - r * g.S;
+  const bool derive = P.occ == nullptr;
+  const size_t fq = size_t(n) * Q;
+  const int* frame = P.root + size_t(n) * g.H * g.W;
+  const uint8_t* occ = derive ? P.docc + fq : P.occ + fq;
+  int* list = P.list + fq;
+  int* lrc = P.lrc + fq;
+  int* loff = P.loff + fq;
+
+  // A. deriving: every strip's foreground and roots
+  if (derive) {
+    strip_pairs<kConn>(frame, g, lane, warp, Q, kK6Warps, nullptr,
+                       [&](int, int s, int r, int c, const int* v) {
+      bool fg = false;
+#pragma unroll
+      for (int e = 0; e < 16; ++e) fg |= v[e] != 0;
+      const int rc = __reduce_add_sync(0xffffffffu, __popc(lane_roots<kConn>(g, r, c, lane, v)));
+      fg = __any_sync(0xffffffffu, fg);
+      if (lane == 0) {
+        P.docc[fq + s] = fg;
+        P.rcs[fq + s] = rc;
+      }
+    });
+    __syncthreads();
+  }
+
+  // B. the occupied strips in order, their roots and first ranks: a thread
+  // kListStrips consecutive strips a step, their occupancy bytes (and
+  // roots) loaded at once
+  int nl = 0, total = 0;
+  for (int base = 0; base < Q; base += kK6Threads * kListStrips) {
+    const int s0 = base + int(threadIdx.x) * kListStrips;
+    const int* rcs = derive ? P.rcs + fq + s0 : nullptr;
+    unsigned bits = 0;  // bit i: strip s0 + i occupied
+#pragma unroll
+    for (int i = 0; i < kListStrips; ++i) bits |= unsigned(s0 + i < Q && occ[s0 + i]) << i;
+    int nroots = 0;
+    if (derive) {
+#pragma unroll
+      for (int i = 0; i < kListStrips; ++i) nroots += (bits >> i) & 1u ? rcs[i] : 0;
+    }
+    const int2 at = block_scan(__popc(bits), warp_incl);
+    const int2 ro = derive ? block_scan(nroots, warp_incl) : make_int2(0, 0);  // CTA-uniform
+    int k = nl + at.x, off = total + ro.x;
+    for (int i = 0; i < kListStrips; ++i) {
+      if (!((bits >> i) & 1u)) continue;
+      list[k] = s0 + i;
+      if (derive) {
+        lrc[k] = rcs[i];
+        loff[k] = off;
+        off += rcs[i];
+      }
+      ++k;
+    }
+    nl += at.y;
+    total += ro.y;
+  }
+  __syncthreads();
+  if (!derive) {
+    strip_pairs<kConn>(frame, g, lane, warp, nl, kK6Warps, list,
+                       [&](int k, int, int r, int c, const int* v) {
+      const int rc = __reduce_add_sync(0xffffffffu, __popc(lane_roots<kConn>(g, r, c, lane, v)));
+      if (lane == 0) lrc[k] = rc;
+    });
+    __syncthreads();
+    const int per = (nl + kK6Threads - 1) / kK6Threads;
+    const int k0 = min(nl, int(threadIdx.x) * per), k1 = min(nl, k0 + per);
+    int sum = 0;
+    for (int k = k0; k < k1; ++k) sum += lrc[k];
+    const int2 p = block_scan(sum, warp_incl);
+    int off = p.x;
+    for (int k = k0; k < k1; ++k) {
+      loff[k] = off;
+      off += lrc[k];
+    }
+    total = p.y;
+    __syncthreads();
+  }
+  const int cnt = min(total, C);
+
+  // C. the table of the first cnt roots; sums zeroed, extremes seeded
+  unsigned* acc;
+  int *box, *tab;
+  if (kShared) {
+    unsigned char* base = reinterpret_cast<unsigned char*>(k6_smem);
+    const size_t sums_bytes = P.acc_sums ? size_t(24) * C : 0;
+    acc = P.acc_sums ? k6_smem : nullptr;
+    box = P.acc_box ? reinterpret_cast<int*>(base + sums_bytes) : nullptr;
+    tab = reinterpret_cast<int*>(base + sums_bytes + (P.acc_box ? size_t(16) * C : 0));
+  } else {
+    acc = P.acc_sums ? P.gacc + size_t(n) * 6 * C : nullptr;
+    box = P.acc_box ? P.gbox + size_t(n) * 4 * C : nullptr;
+    tab = P.gtable + size_t(n) * C;
+  }
+  if (acc)
+    for (int i = threadIdx.x; i < 6 * C; i += kK6Threads) acc[i] = 0;
+  if (box)
+    for (int i = threadIdx.x; i < 4 * C; i += kK6Threads) box[i] = (i & 3) < 2 ? kK6Big : -1;
+  for (int k = warp; k < nl; k += kK6Warps) {
+    const int off = loff[k];
+    if (off >= cnt) break;  // warp-uniform: the ranks ascend with k
+    if (lrc[k] == 0) continue;
+    const int s = list[k], r = s / g.S, c = s - r * g.S;
     int v[16];
     load_strip<kConn>(frame, g, r, c, lane, v);
-    int last_v = 0, last_i = -1, cur = -1;
-    unsigned area = 0, sx = 0, sy = 0;
-    int x0 = kK6Big, y0 = kK6Big, x1 = -1, y1 = -1;
-    for (int e = 0; e < 16; ++e) {
-      if (!v[e]) continue;
-      if (v[e] != last_v) {
-        last_v = v[e];
-        last_i = rank_of(tab, cnt, v[e]);
-      }
-      if (last_i < 0) continue;
-      if (last_i != cur) {
-        if (cur >= 0)
-          k6_flush<kShared>(cur, area, sx, sy, x0, y0, x1, y1, acc, box, gsums, gbox, with_bbox);
-        cur = last_i;
-        area = sx = sy = 0;
-        x0 = y0 = kK6Big;
-        x1 = y1 = -1;
-      }
+    const unsigned roots = lane_roots<kConn>(g, r, c, lane, v);
+    int pos = __popc(roots);  // this lane's rank: a warp scan of the counts
+    for (int d = 1; d < 32; d <<= 1) {
+      const int t = __shfl_up_sync(0xffffffffu, pos, d);
+      if (lane >= d) pos += t;
+    }
+    pos += off - __popc(roots);
+    for (int e = 0; e < 16 && pos < cnt; ++e) {
+      if (!((roots >> e) & 1u)) continue;
       int x, y, key;
       strip_px<kConn>(g, r, c, lane, e, x, y, key);
-      area += 1;
-      sx += unsigned(x);
-      sy += unsigned(y);
-      x0 = min(x0, x); y0 = min(y0, y); x1 = max(x1, x); y1 = max(y1, y);
+      tab[pos++] = key + 1;
     }
-    if (cur >= 0)
-      k6_flush<kShared>(cur, area, sx, sy, x0, y0, x1, y1, acc, box, gsums, gbox, with_bbox);
   }
-  if (kShared) {
-    __syncthreads();
-    for (int i = threadIdx.x; i < 3 * cnt; i += blockDim.x)
-      if (acc[i]) atomicAdd(&gsums[i], (unsigned long long)acc[i]);
-    if (with_bbox)
-      for (int i = threadIdx.x; i < 4 * cnt; i += blockDim.x) {
-        if ((i & 3) < 2) {
-          if (box[i] != kK6Big) atomicMin(&gbox[i], box[i]);
-        } else if (box[i] != -1) {
-          atomicMax(&gbox[i], box[i]);
-        }
-      }
-  }
-}
+  __syncthreads();
+  const int tmax = cnt ? tab[cnt - 1] : 0;
 
-// D: dense ids, every strip of frame blockIdx.y, a warp a strip: rank + 1
-// or 0 for each label of an occupied strip, zeros for an empty one (not
-// read); 16-byte stores.
-template <int kConn, bool kShared>
-__global__ void __launch_bounds__(32 * kK6Warps)
-k6_labels(const int* __restrict__ root, SGeom g, int C, const uint8_t* __restrict__ occ,
-          const int* __restrict__ table, const int* __restrict__ count,
-          int* __restrict__ labels) {
-  extern __shared__ int smem[];  // table[C]
-  const int n = blockIdx.y, Q = g.strips();
-  const int s = blockIdx.x * kK6Warps + (threadIdx.x >> 5);
-  const bool occupied = s < Q && occ[size_t(n) * Q + s];
-  const int cnt = count[n];
-  const int* tab = table + size_t(n) * C;
-  if (kShared) {
-    if (__syncthreads_or(occupied)) {
-      for (int i = threadIdx.x; i < cnt; i += blockDim.x) smem[i] = tab[i];
-      __syncthreads();
-    }
-    tab = smem;
-  }
-  if (s >= Q) return;
-  const int lane = threadIdx.x & 31, r = s / g.S, c = s - r * g.S;
-  int v[16] = {};
-  if (occupied) {
-    load_strip<kConn>(root + size_t(n) * g.H * g.W, g, r, c, lane, v);
-    int last_v = 0, last_i = -1;
-    for (int e = 0; e < 16; ++e) {
-      if (!v[e]) continue;
-      if (v[e] != last_v) {
-        last_v = v[e];
-        last_i = rank_of(tab, cnt, v[e]);
+  // D. the sums over the listed strips; with the dense ids, every strip
+  if (P.labels) {
+    int* out = P.labels + size_t(n) * g.H * g.W;
+    for (int s = warp; s < Q; s += kK6Warps) {
+      const int r = s / g.S, c = s - r * g.S;
+      int v[16] = {};
+      if (occ[s]) {
+        load_strip<kConn>(frame, g, r, c, lane, v);
+        k6_strip<kConn>(g, r, c, lane, v, tab, cnt, tmax, acc, C, box, true);
       }
-      v[e] = last_i + 1;  // 0 for a component past C
+      store_strip<kConn>(out, g, r, c, lane, v);
     }
+  } else if ((acc || box) && cnt > 0) {
+    strip_pairs<kConn>(frame, g, lane, warp, nl, kK6Warps, list,
+                       [&](int, int, int r, int c, int* v) {
+      k6_strip<kConn>(g, r, c, lane, v, tab, cnt, tmax, acc, C, box, false);
+    });
   }
-  store_strip<kConn>(labels + size_t(n) * g.H * g.W, g, r, c, lane, v);
+  __syncthreads();
+
+  // E. the outputs
+  if (threadIdx.x == 0) {
+    P.count[n] = cnt;
+    if (P.overflow) P.overflow[n] = 0;
+    if (P.zero && n == 0) *P.zero = 0;
+  }
+  if (P.sums)
+    for (int i = threadIdx.x; i < 3 * C; i += kK6Threads)
+      P.sums[size_t(n) * 3 * C + i] = (long long)(acc[i] | (unsigned long long)acc[3 * C + i] << 32);
+  if (P.lohi)
+    for (int i = threadIdx.x; i < 4 * C; i += kK6Threads) P.lohi[size_t(n) * 4 * C + i] = box[i];
+  if (P.area && warp == 0) {
+    const size_t row = size_t(n) * (C + 1);
+    stats_epilogue(acc, P.acc_box ? box : nullptr, C, g.H, g.W, P.cx0, P.cy0, P.area + row,
+                   P.centroid + 2 * row, P.csum + 2 * row, P.bbox + 4 * row);
+  }
 }
 
 
@@ -1033,7 +1342,6 @@ constexpr int kK2Blocks = 4;          // CTAs an SM the persistent kernel is bui
 constexpr int kBorderTiles = kTileThreads / kBorderThreads;  // tiles a CTA a border step
 constexpr int kRootStrips = 8;        // strips a thread of the roots phase scans a step
 constexpr int kMaxC = 1024;           // components the kernel takes (the roots phase's list)
-constexpr float kImax = 2147483520.0f;  // 2^31 - 128, the largest float32 below 2^31
 
 struct K2Params {
   const uint8_t* mask;  // (N, g.H, g.W)
@@ -1198,52 +1506,14 @@ __device__ __forceinline__ void k2_stats_tile(const K2Params& P, int2 it) {
   }
 }
 
-// The stats epilogue of frame n, a warp (tpuva_torch/ops/label.py::
-// _assemble_stats, bit for bit): the wrapping int32 totals over the C
-// components, the background row by subtraction from the image's totals
-// (area in int32, x and y in float32), centroid = float32 sum / float32
-// area (0 where the area is 0), centroid_sum the int32 sums (the
-// background's clamped to +-(2^31 - 128) and cut toward zero), 0 where the
-// area is 0.
+// The stats epilogue of frame n, a warp: stats_epilogue on the frame's
+// 32-bit sums, no bbox; overflow 0.
 __device__ __forceinline__ void k2_epilogue(const K2Params& P, int n) {
-  const int lane = threadIdx.x & 31, C = P.C;
-  const unsigned* sn = P.sums + size_t(n) * 3 * C;
-  unsigned ta = 0, tx = 0, ty = 0;
-  for (int c = lane; c < C; c += 32) {
-    ta += sn[3 * c];
-    tx += sn[3 * c + 1];
-    ty += sn[3 * c + 2];
-  }
-  ta = __reduce_add_sync(0xffffffffu, ta);
-  tx = __reduce_add_sync(0xffffffffu, tx);
-  ty = __reduce_add_sync(0xffffffffu, ty);
-  for (int row = lane; row <= C; row += 32) {
-    int a, ix, iy;
-    float fx, fy;
-    if (row == 0) {
-      a = int(unsigned(P.H) * unsigned(P.W) - ta);
-      fx = __fsub_rn(P.cx0, __int2float_rn(int(tx)));
-      fy = __fsub_rn(P.cy0, __int2float_rn(int(ty)));
-      ix = __float2int_rz(fminf(fmaxf(fx, -kImax), kImax));
-      iy = __float2int_rz(fminf(fmaxf(fy, -kImax), kImax));
-    } else {
-      const unsigned* e = sn + 3 * (row - 1);
-      a = int(e[0]);
-      ix = int(e[1]);
-      iy = int(e[2]);
-      fx = __int2float_rn(ix);
-      fy = __int2float_rn(iy);
-    }
-    const bool present = a > 0;
-    const float fa = __int2float_rn(a > 1 ? a : 1);
-    const size_t i = size_t(n) * (C + 1) + row;
-    P.area[i] = a;
-    P.centroid[2 * i] = present ? __fdiv_rn(fx, fa) : 0.0f;
-    P.centroid[2 * i + 1] = present ? __fdiv_rn(fy, fa) : 0.0f;
-    P.csum[2 * i] = present ? ix : 0;
-    P.csum[2 * i + 1] = present ? iy : 0;
-  }
-  if (lane == 0) P.overflow[n] = 0;
+  const size_t row = size_t(n) * (P.C + 1);
+  stats_epilogue(P.sums + size_t(n) * 3 * P.C, static_cast<const int*>(nullptr), P.C, P.H, P.W,
+                 P.cx0, P.cy0, P.area + row, P.centroid + 2 * row, P.csum + 2 * row,
+                 static_cast<int*>(nullptr));
+  if ((threadIdx.x & 31) == 0) P.overflow[n] = 0;
 }
 
 // K2 in one cooperative launch: the phases of the six-kernel sequence
@@ -1416,29 +1686,47 @@ ccl_stats_persistent(K2Params P) {
 
 }  // namespace
 
+namespace {
+
+// CTAs a frame of K3 4-connected's walks over a frame's listed tiles: about
+// 16 CTAs an SM over the batch (four resident), at least one a frame.
+cudaError_t walk_ctas(int N, int* ctas) {
+  int dev, sms;
+  cudaError_t err;
+  if ((err = cudaGetDevice(&dev)) != cudaSuccess) return err;
+  if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess)
+    return err;
+  *ctas = (16 * sms + N - 1) / N;
+  return cudaSuccess;
+}
+
+}  // namespace
+
 // mask (N,H,W) u8 (nonzero = foreground) -> labels (N,H,W) int32 root-key
 // labels: the component's minimum scan key + 1, 0 for background, for
-// connectivity 8 or 4. Connectivity 8 writes the strip occupancy it
-// derives to strip_occ (N, Hb, S) u8 and takes scratch tiles
-// (N, ceil(Hb/16) * ceil(Wb/32)) int32, ntiles (N,) int32, parent
-// (N, Hb*Wb) int32 and bits (N, Hb*Wb) u8, with Hb = ceil(H/2),
-// Wb = ceil(W/2), S = ceil(Wb/128); connectivity 4 uses the labels buffer
-// as its parent array and takes none of them (they may be null). labels
-// must be 16-byte aligned. Needs N < 65536 and 4*Hb*Wb < 2^31. Returns
-// cudaGetLastError() after the launches (0 = launched).
+// connectivity 8 or 4, and the strip occupancy strip_occ (N, R, S) u8 of
+// K6's strips (ops/ccl.py::root_strip_shape). Connectivity 8: R = Hb,
+// S = ceil(Wb/128), and scratch tiles (N, ceil(Hb/16) * ceil(Wb/32)) int32,
+// ntiles (N,) int32, parent (N, Hb*Wb) int32 and bits (N, Hb*Wb) u8, with
+// Hb = ceil(H/2), Wb = ceil(W/2). Connectivity 4: R = H, S = ceil(W/512),
+// and scratch seg (N, H, S) u16, tiles (N, ceil(H/16) * ceil(W/32)) int32,
+// ntiles (N,) int32; the labels buffer is its parent array. Scratch a
+// connectivity does not take may be null. labels must be 16-byte aligned.
+// Needs N < 65536 and 4*Hb*Wb < 2^31, and for connectivity 4 fewer than
+// 65536 tiles a frame. Returns cudaGetLastError() after the launches
+// (0 = launched).
 extern "C" int tpuva_ccl_labels(const uint8_t* mask, int N, int H, int W, int connectivity,
-                                uint8_t* strip_occ, int* tiles, int* ntiles, int* parent,
-                                uint8_t* bits, int* labels, void* stream) {
+                                uint8_t* strip_occ, uint16_t* seg, int* tiles, int* ntiles,
+                                int* parent, uint8_t* bits, int* labels, void* stream) {
   if (N <= 0 || N >= 65536 || H <= 0 || W <= 0 ||
       4LL * ((H + 1) / 2) * ((W + 1) / 2) >= (1LL << 31) ||
       (connectivity != 4 && connectivity != 8) ||
-      (reinterpret_cast<uintptr_t>(labels) & 15) != 0 ||
-      (connectivity == 8 && (strip_occ == nullptr || tiles == nullptr || ntiles == nullptr ||
-                             parent == nullptr || bits == nullptr)))
+      (reinterpret_cast<uintptr_t>(labels) & 15) != 0 || strip_occ == nullptr ||
+      tiles == nullptr || ntiles == nullptr ||
+      (connectivity == 8 && (parent == nullptr || bits == nullptr)) ||
+      (connectivity == 4 && (seg == nullptr || geom4(H, W).tiles() >= 65536)))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int HW = H * W;
-  const dim3 g_px((HW + kFlatThreads - 1) / kFlatThreads, N);
   cudaError_t err;
   if (connectivity == 8) {  // K2's route: the occupancy, then only occupied strips' tiles
     const Geom g = geom(H, W);
@@ -1460,14 +1748,25 @@ extern "C" int tpuva_ccl_labels(const uint8_t* mask, int N, int H, int W, int co
         g, strip_occ, parent, bits, labels);
     return static_cast<int>(cudaGetLastError());
   }
-  const dim3 g_local((W + T4X - 1) / T4X, (H + T4Y - 1) / T4Y, N);
-  ccl4_local<<<g_local, T4Y * T4X, 0, s>>>(mask, H, W, labels);
+  // the same route over pixels: the occupancy and segments, the tiles with
+  // foreground, their unions, their borders, then every label
+  const Geom4 g = geom4(H, W);
+  int ctas;
+  if ((err = walk_ctas(N, &ctas)) != cudaSuccess) return static_cast<int>(err);
+  const size_t strips = size_t(N) * H * g.S;
+  ccl4_occ<<<unsigned((strips + kOccWarps - 1) / kOccWarps), 32 * kOccWarps, 0, s>>>(
+      mask, N, g, strip_occ, seg);
   if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
-  ccl4_border<<<g_px, kFlatThreads, 0, s>>>(mask, H, W, labels);
+  ccl4_tiles<<<N, kScanThreads, 0, s>>>(g, seg, tiles, ntiles);
   if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
-  ccl4_flatten<<<g_px, kFlatThreads, 0, s>>>(mask, HW, labels);
+  const dim3 walk(ctas, N);
+  ccl4_local<<<walk, T4Y * T4X, 0, s>>>(mask, g, tiles, ntiles, labels);
   if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
-  ccl4_finish<<<g_px, kFlatThreads, 0, s>>>(mask, HW, labels);
+  ccl4_border<<<walk, kTileThreads, 0, s>>>(mask, g, tiles, ntiles, labels);
+  if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
+  const int groups = H * ((W + 3) / 4);
+  ccl4_labels<<<dim3((groups + kFlatThreads - 1) / kFlatThreads, N), kFlatThreads, 0, s>>>(
+      mask, g, seg, labels);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -1543,82 +1842,61 @@ extern "C" int tpuva_ccl_stats(const uint8_t* mask, int N, int Hm, int Wm, int H
   return static_cast<int>(cudaGetLastError());
 }
 
-namespace {
-
-template <int kConn>
-cudaError_t root_stats_launch(const int* root, int N, const SGeom& g, int C, uint8_t* occ,
-                              int derive, int* rcnt, int* list, int* nlist, int* table,
-                              int* count, long long* sums, int* bbox, int* labels,
-                              cudaStream_t s) {
-  cudaError_t err;
-  const int Q = g.strips();
-  k6_count<kConn><<<(N * Q + 32 * kK6Warps - 1) / (32 * kK6Warps), 32 * kK6Warps, 0, s>>>(
-      root, N, g, occ, derive, rcnt);
-  if ((err = cudaGetLastError()) != cudaSuccess) return err;
-  k6_roots<kConn><<<N, kScanThreads, 0, s>>>(root, g, C, occ, rcnt, list, nlist, table, count,
-                                             sums, bbox);
-  if ((err = cudaGetLastError()) != cudaSuccess) return err;
-  if (sums) {
-    // kK6StripsPerWarp listed strips a warp at most; CTAs past a frame's list return
-    const dim3 grid((Q + kK6Warps * kK6StripsPerWarp - 1) / (kK6Warps * kK6StripsPerWarp), N);
-    const size_t smem = size_t(4) * C * (bbox ? 8 : 4);
-    auto* usums = reinterpret_cast<unsigned long long*>(sums);
-    if (smem <= kSmemBytes)
-      k6_sums<kConn, true><<<grid, 32 * kK6Warps, smem, s>>>(root, g, C, list, nlist, table,
-                                                             count, usums, bbox);
-    else
-      k6_sums<kConn, false><<<grid, 32 * kK6Warps, 0, s>>>(root, g, C, list, nlist, table,
-                                                           count, usums, bbox);
-    if ((err = cudaGetLastError()) != cudaSuccess) return err;
-  }
-  if (labels) {
-    const dim3 grid((Q + kK6Warps - 1) / kK6Warps, N);
-    const size_t smem = size_t(4) * C;
-    if (smem <= kSmemBytes)
-      k6_labels<kConn, true><<<grid, 32 * kK6Warps, smem, s>>>(root, g, C, occ, table, count,
-                                                               labels);
-    else
-      k6_labels<kConn, false><<<grid, 32 * kK6Warps, 0, s>>>(root, g, C, occ, table, count,
-                                                             labels);
-    if ((err = cudaGetLastError()) != cudaSuccess) return err;
-  }
-  return cudaSuccess;
-}
-
-}  // namespace
-
 // K6: root-key labels root (N,H,W) int32 (K3's, or label_components') ->
-// count (N,) int32 = min(#components, C); with sums non-null, sums (N,C,3)
-// int64 of (area, sum x, sum y) in cv2 id order, and with bbox non-null
-// too, bbox (N,C,4) int32 of (min x, min y, max x, max y) (2^30, 2^30, -1,
-// -1 for an absent component); with labels non-null, labels (N,H,W) int32
-// dense ids 1..C, 0 for background and later components. strip_occ
-// (N, R, S) u8 is K6's strips' occupancy (8-connected R = ceil(H/2),
-// S = ceil(ceil(W/2)/128), K3's; 4-connected R = H, S = ceil(W/512)):
-// with derive != 0 k6_count writes it, else the caller gives it and a strip
-// it calls empty must hold no foreground. Scratch: rcnt and list (N, R*S)
-// int32, nlist (N,) int32, table (N, C) int32. 16-byte loads and stores
-// where W % 4 == 0 and root and labels are 16-byte aligned. Needs N < 65536, H, W < 65536 (the 32-bit per-CTA
-// sums), N*R*S < 2^31 and C >= 0. Returns cudaGetLastError() after the
-// launches (0 = launched).
+// the dense stats of each frame's first C components in cv2 id order, in
+// one launch (k6_frame), for connectivity 8 or 4. Outputs, each but count
+// null where not asked for: count (N,) int32 = min(#components, C); sums
+// (N,C,3) int64 of (area, sum x, sum y); lohi (N,C,4) int32 of (min x,
+// min y, max x, max y) (2^30, 2^30, -1, -1 for an absent component);
+// labels (N,H,W) int32 dense ids 1..C, 0 for background and later
+// components; the stats dict (tpuva_torch/ops/ccl.py::stats_views with its
+// bbox): area (N,C+1) int32, centroid (N,C+1,2) float32, csum (N,C+1,2)
+// int32, overflow (N,) int32 (zeros) and bbox (N,C+1,4) int32, (x, y, w, h)
+// from the extremes where with_bbox, else zeros, bit-equal to tpuva_torch/
+// ops/label.py::_stats_dict; zero, one int32 set to 0. strip_occ (N, R, S)
+// u8 is K6's strips' occupancy (8-connected R = ceil(H/2),
+// S = ceil(ceil(W/2)/128), K3's; 4-connected R = H, S = ceil(W/512), K3's
+// too): only its strips are read, and a strip it calls empty must hold no
+// foreground; null derives it. Scratch (ops/ccl.py::k6_workspace), Q = R*S:
+// list, lrc, loff (N, Q) int32; deriving docc (N, Q) u8 and rcs (N, Q)
+// int32; where the frame's arrays pass shared memory (k6_frame_bytes),
+// gtable (N, C) int32, gacc (N, 2, C, 3) uint32 (the sums' low and high
+// words) where sums or the dict are asked for, gbox (N, C, 4) int32 where
+// the extremes are. 16-byte loads and
+// stores where W % 4 == 0 and root and labels are 16-byte aligned. Needs
+// N < 65536, H, W < 65536 and N*R*S < 2^31. Returns cudaGetLastError()
+// after the launch (0 = launched).
 extern "C" int tpuva_root_stats(const int* root, int N, int H, int W, int connectivity, int C,
-                                uint8_t* strip_occ, int derive, int* rcnt, int* list,
-                                int* nlist, int* table, int* count, long long* sums,
-                                int* bbox, int* labels, void* stream) {
-  if (N <= 0 || N >= 65536 || H <= 0 || W <= 0 || H >= 65536 || W >= 65536 || C < 0 ||
-      (connectivity != 4 && connectivity != 8) || strip_occ == nullptr || rcnt == nullptr ||
-      list == nullptr || nlist == nullptr || count == nullptr || (bbox && !sums))
+                                const uint8_t* strip_occ, uint8_t* docc, int* rcs, int* list,
+                                int* lrc, int* loff, int* gtable, unsigned* gacc,
+                                int* gbox, int* count, long long* sums, int* lohi, int* labels,
+                                int* area, float* centroid, int* csum, int* overflow, int* bbox,
+                                int* zero, int with_bbox, void* stream) {
+  const bool derive = strip_occ == nullptr, dict = area != nullptr;
+  const bool acc_sums = sums || dict, acc_box = lohi || (dict && with_bbox);
+  const bool shared = k6_frame_bytes(C, acc_sums, acc_box) <= kSmemBytes;
+  if (N <= 0 || N >= 65536 || H < 0 || W < 0 || H >= 65536 || W >= 65536 || C < 0 ||
+      (connectivity != 4 && connectivity != 8) || count == nullptr || list == nullptr ||
+      lrc == nullptr || loff == nullptr || (derive && (docc == nullptr || rcs == nullptr)) ||
+      (dict && (centroid == nullptr || csum == nullptr || overflow == nullptr ||
+                bbox == nullptr)) ||
+      (!shared && (gtable == nullptr || (acc_sums && gacc == nullptr) ||
+                   (acc_box && gbox == nullptr))))
     return static_cast<int>(cudaErrorInvalidValue);
   const bool aligned = ((reinterpret_cast<uintptr_t>(root) |
                          reinterpret_cast<uintptr_t>(labels)) & 15) == 0;
   const SGeom g = sgeom(H, W, connectivity, aligned);
   if (size_t(N) * g.strips() >= (size_t(1) << 31)) return static_cast<int>(cudaErrorInvalidValue);
+  K6Params P{root, g, N, C, strip_occ, docc, rcs, list, lrc, loff, gtable, gacc, gbox,
+             count, sums, lohi, labels, area, centroid, csum, overflow, bbox, zero,
+             acc_sums, acc_box,
+             static_cast<float>(double(H) * (W - 1) * W / 2.0),
+             static_cast<float>(double(W) * (H - 1) * H / 2.0)};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const cudaError_t err =
-      connectivity == 8
-          ? root_stats_launch<8>(root, N, g, C, strip_occ, derive, rcnt, list, nlist, table,
-                                 count, sums, bbox, labels, s)
-          : root_stats_launch<4>(root, N, g, C, strip_occ, derive, rcnt, list, nlist, table,
-                                 count, sums, bbox, labels, s);
-  return static_cast<int>(err);
+  const size_t smem = shared ? k6_frame_bytes(C, acc_sums, acc_box) : 0;
+  if (connectivity == 8 && shared) k6_frame<8, true><<<N, kK6Threads, smem, s>>>(P);
+  else if (connectivity == 8) k6_frame<8, false><<<N, kK6Threads, 0, s>>>(P);
+  else if (shared) k6_frame<4, true><<<N, kK6Threads, smem, s>>>(P);
+  else k6_frame<4, false><<<N, kK6Threads, 0, s>>>(P);
+  return static_cast<int>(cudaGetLastError());
 }

@@ -29,17 +29,19 @@ here: components past ``max_components`` are cut exactly as
 (union-find has no round cap).
 
 K3, ``label_components_tiled``: dense root-key labels, 4- or 8-connected
-(see its docstring); 8-connected it visits only the occupied strips, and
+(see its docstring); either way it visits only the occupied strips, and
 ``root_labels`` hands that occupancy on with the labels.
 
-K6, ``root_stats``: the dense stats of root-key labels — counts, integer
-sums, bbox extremes and dense cv2 ids — replacing the XLA
-``tpuva/ops/label.py::_stats_from_root`` and ``relabel_dense``. CUDA
-tensors launch ``tpuva_root_stats`` (``csrc/ccl.cu``), given K3's strip
-occupancy or deriving one; CPU tensors take its plain version
-``ops.label.root_stats_plain``, the torch ops the port ran before.
-``ops.label.connected_components_with_stats`` runs K3, then K6 with K3's
-occupancy, and shares the stats epilogue with the plain path.
+K6: the dense stats of root-key labels — counts, integer sums, bbox
+extremes, dense cv2 ids and the stats dict — replacing the XLA
+``tpuva/ops/label.py::_stats_from_root``, ``relabel_dense`` and its
+stats epilogue. CUDA tensors make one launch of ``tpuva_root_stats``
+(``csrc/ccl.cu``) a call, given K3's strip occupancy or deriving one:
+``root_stats`` for the raw outputs, ``root_stats_dict`` for the stats
+dict, which the kernel writes itself (the epilogue it shares with K2). CPU tensors take its plain version ``ops.label.root_stats_plain``
+(then ``ops.label._stats_dict`` for the dict), the torch ops the port ran
+before. ``ops.label.connected_components_with_stats`` runs K3, then K6
+with K3's occupancy.
 """
 
 from __future__ import annotations
@@ -50,7 +52,8 @@ import torch
 
 from tpuva_torch import _build
 from tpuva_torch.ops.label import (
-    _assemble_stats, _check_connectivity, component_sums, label_components, root_stats_plain,
+    _assemble_stats, _check_connectivity, _stats_dict, component_sums, label_components,
+    root_stats_plain,
 )
 
 MAX_COMPONENTS_KERNEL = 1024  # per-CTA shared-memory accumulators in ccl.cu
@@ -92,9 +95,15 @@ def k2_workspace(N: int, Hm: int, Wm: int, C: int):
     Hb, Wb = (Hm + 1) // 2, (Wm + 1) // 2
     R, S = strip_shape(Hm, Wm)
     tiles = -(-Hb // 16) * -(-Wb // 32)
-    sizes = {"parent": 4 * N * Hb * Wb, "rc": 4 * N * R * S, "list": 8 * N * tiles,
-             "table": 4 * N * C, "sums": 12 * N * C, "nlist": 4, "bits": N * Hb * Wb,
-             "fine": N * R * S}
+    return _aligned_layout({
+        "parent": 4 * N * Hb * Wb, "rc": 4 * N * R * S, "list": 8 * N * tiles,
+        "table": 4 * N * C, "sums": 12 * N * C, "nlist": 4, "bits": N * Hb * Wb,
+        "fine": N * R * S})
+
+
+def _aligned_layout(sizes: dict):
+    """({name: (byte offset, bytes)}, total bytes) of the arrays of sizes,
+    in order, each 16-byte aligned in one workspace tensor."""
     layout, o = {}, 0
     for name, nbytes in sizes.items():
         layout[name] = (o, nbytes)
@@ -107,15 +116,20 @@ STATS_FIELDS = ("count", "area", "centroid", "centroid_sum", "overflow")
 K2_PHASES = ("occupancy", "list", "local", "border", "flatten", "roots", "stats", "epilogue")
 
 
-def stats_views(out: torch.Tensor, N: int, C: int) -> dict:
+def stats_words(N: int, C: int, bbox: bool = False) -> int:
+    """int32 words of stats_views' tensor."""
+    return N * (2 + (9 if bbox else 5) * (C + 1))
+
+
+def stats_views(out: torch.Tensor, N: int, C: int, bbox: bool = False) -> dict:
     """The stats dict's tensors as views of one int32 tensor of
-    N * (2 + 5 * (C + 1)) words, in STATS_FIELDS order: count (N,), area
+    stats_words(N, C, bbox) words, in STATS_FIELDS order: count (N,), area
     (N, C+1), centroid (N, C+1, 2) float32 (its words' bits), centroid_sum
-    (N, C+1, 2), overflow (N,)."""
+    (N, C+1, 2), overflow (N,); then, with bbox, bbox (N, C+1, 4)."""
     shapes = {"count": (N,), "area": (N, C + 1), "centroid": (N, C + 1, 2),
-              "centroid_sum": (N, C + 1, 2), "overflow": (N,)}
+              "centroid_sum": (N, C + 1, 2), "overflow": (N,), "bbox": (N, C + 1, 4)}
     views, o = {}, 0
-    for name in STATS_FIELDS:
+    for name in STATS_FIELDS + (("bbox",) if bbox else ()):
         n = 1
         for d in shapes[name]:
             n *= d
@@ -235,7 +249,8 @@ def label_components_tiled(mask: torch.Tensor, connectivity: int = 8,
 
     CUDA tensors launch ``tpuva_ccl_labels`` in ``csrc/ccl.cu`` (2x2-block
     union-find over the occupied strips for 8-connectivity, pixel
-    union-find for 4); CPU tensors take the plain ``label_components``. The
+    union-find over the occupied segments for 4); CPU tensors take the
+    plain ``label_components``. The
     Pallas knobs ``tile``, ``max_rounds``, ``frames_per_step`` and
     ``max_run`` size TPU grid steps and VMEM windows; the kernel here has
     none of those to size."""
@@ -245,9 +260,9 @@ def label_components_tiled(mask: torch.Tensor, connectivity: int = 8,
 
 def root_labels(mask: torch.Tensor, connectivity: int = 8):
     """K3 with its strip occupancy: (labels, strip_occ). labels as
-    label_components_tiled returns them; strip_occ the (N, *strip_shape(H,
-    W)) uint8 occupancy that K3 derived on the card for 8-connectivity (K6
-    reads only its strips), None for 4-connectivity and on the CPU."""
+    label_components_tiled returns them; strip_occ the (N,
+    *root_strip_shape(H, W, connectivity)) uint8 occupancy that K3 derived
+    on the card (K6 reads only its strips), None on the CPU."""
     _check_connectivity(connectivity)
     squeeze = mask.dim() == 2
     if squeeze:
@@ -267,36 +282,45 @@ def root_labels(mask: torch.Tensor, connectivity: int = 8):
 
 def _labels_cuda(mask: torch.Tensor, connectivity: int):
     """The launch sequence of tpuva_ccl_labels: (labels, the strip
-    occupancy it derived for 8-connectivity, else None)."""
+    occupancy it derived, (N, *root_strip_shape(H, W, connectivity)))."""
     N, H, W = mask.shape
     dev = mask.device
     labels = torch.empty((N, H, W), dtype=torch.int32, device=dev)
+    occ_shape = (N, *root_strip_shape(H, W, connectivity))
     if N == 0 or H == 0 or W == 0:
-        occ = None if connectivity == 4 else torch.zeros(
-            (N, *strip_shape(H, W)), dtype=torch.uint8, device=dev)
-        return labels, occ
+        return labels, torch.zeros(occ_shape, dtype=torch.uint8, device=dev)
+    occ = torch.empty(occ_shape, dtype=torch.uint8, device=dev)
     Hb, Wb = (H + 1) // 2, (W + 1) // 2
     if N >= 1 << 16 or 4 * Hb * Wb >= 1 << 31:
         raise ValueError("label_components_tiled kernel: N < 65536 and 4*ceil(H/2)*ceil(W/2) < 2^31")
-    occ = tiles = ntiles = parent = bits = None
+    seg = parent = bits = None
     if connectivity == 8:
-        occ = torch.empty((N, *strip_shape(H, W)), dtype=torch.uint8, device=dev)
         tiles = torch.empty((N, -(-Hb // 16) * -(-Wb // 32)), dtype=torch.int32, device=dev)
-        ntiles = torch.empty((N,), dtype=torch.int32, device=dev)
         parent = torch.empty((N, Hb * Wb), dtype=torch.int32, device=dev)
         bits = torch.empty((N, Hb * Wb), dtype=torch.uint8, device=dev)
+    else:
+        T = -(-H // 16) * -(-W // 32)
+        if T >= 1 << 16:
+            raise ValueError("label_components_tiled kernel, 4-connected: fewer than 65536 "
+                             "16 x 32 tiles a frame")
+        seg = torch.empty(occ.shape, dtype=torch.int16, device=dev)
+        tiles = torch.empty((N, T), dtype=torch.int32, device=dev)
+    ntiles = torch.empty((N,), dtype=torch.int32, device=dev)
     ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
     lib = _build.load()
     err = lib.tpuva_ccl_labels(
-        mask.data_ptr(), N, H, W, connectivity, ptr(occ), ptr(tiles), ptr(ntiles),
-        ptr(parent), ptr(bits), labels.data_ptr(), torch.cuda.current_stream(dev).cuda_stream,
+        mask.data_ptr(), N, H, W, connectivity, occ.data_ptr(), ptr(seg), tiles.data_ptr(),
+        ntiles.data_ptr(), ptr(parent), ptr(bits), labels.data_ptr(),
+        torch.cuda.current_stream(dev).cuda_stream,
     )
     _build.check(lib, err, "ccl labels kernel")
     label_components_tiled.launches += 1
+    label_components_tiled.conn4_launches += connectivity == 4
     return labels, occ
 
 
-label_components_tiled.launches = 0
+label_components_tiled.launches = 0  # every K3 launch sequence
+label_components_tiled.conn4_launches = 0  # those 4-connected
 
 
 def root_strip_shape(H: int, W: int, connectivity: int) -> tuple:
@@ -318,11 +342,36 @@ def root_occupancy_plain(root: torch.Tensor, connectivity: int = 8) -> torch.Ten
     return fg.reshape(N, H, S, 512).amax(dim=3)
 
 
+def _root_input(root: torch.Tensor, C: int, connectivity: int, strip_occ, what: str):
+    """Check K6's input: root (N, H, W) int32, C >= 0, strip_occ None or
+    (N, *root_strip_shape(H, W, connectivity)) uint8/bool on root's device.
+    Returns strip_occ as uint8, contiguous on a card."""
+    _check_connectivity(connectivity)
+    if root.dim() != 3 or root.dtype != torch.int32:
+        raise ValueError(f"{what}: root must be (N, H, W) int32")
+    if C < 0:
+        raise ValueError(f"{what}: max_components must be >= 0")
+    N, H, W = root.shape
+    if strip_occ is not None and (
+            tuple(strip_occ.shape) != (N, *root_strip_shape(H, W, connectivity))
+            or strip_occ.dtype not in (torch.uint8, torch.bool)
+            or strip_occ.device != root.device):
+        raise ValueError(f"{what}: strip_occ must be (N, {root_strip_shape(H, W, connectivity)}) "
+                         "uint8 or bool on the labels' device")
+    if root.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"{what}: unsupported device {root.device}")
+    if root.device.type == "cuda" and (N >= 1 << 16 or H >= 1 << 16 or W >= 1 << 16):
+        raise ValueError(f"{what} kernel: N, H and W must be < 65536")
+    if strip_occ is None or root.device.type == "cpu":
+        return strip_occ
+    return strip_occ.to(torch.uint8).contiguous()
+
+
 def root_stats(root: torch.Tensor, max_components: int, connectivity: int = 8,
                sums: bool = True, bbox: bool = False, labels: bool = False,
                strip_occ=None):
-    """Kernel K6: the dense stats of root-key labels (N, H, W) int32, as
-    K3 or label_components gives them.
+    """Kernel K6's raw outputs: the dense stats of root-key labels (N, H,
+    W) int32, as K3 or label_components gives them.
 
     Returns (count (N,) int32 = min(components, C), sums (N, C, 3) int64 of
     (area, sum x, sum y), lohi (N, C, 4) int32 of (min x, min y, max x,
@@ -330,73 +379,127 @@ def root_stats(root: torch.Tensor, max_components: int, connectivity: int = 8,
     components), C = max_components, the first C components in cv2 id
     order; an output not asked for (sums, bbox, labels) is None, and bbox
     needs sums. strip_occ, (N, *root_strip_shape(H, W, connectivity))
-    uint8 or bool (K3's for 8-connectivity), says which strips hold
-    foreground: on the card only those are read (a strip it calls empty
-    must hold none); without it the kernel derives it from the labels.
+    uint8 or bool (K3's), says which strips hold foreground: on the card
+    only those are read (a strip it calls empty must hold none); without it
+    the kernel derives it from the labels.
 
     CUDA tensors launch tpuva_root_stats (csrc/ccl.cu) once, with no host
     sync; CPU tensors take the plain version ops.label.root_stats_plain
     (whatever strip_occ says); both are bit-equal."""
-    _check_connectivity(connectivity)
-    if root.dim() != 3 or root.dtype != torch.int32:
-        raise ValueError("root_stats: root must be (N, H, W) int32")
+    strip_occ = _root_input(root, max_components, connectivity, strip_occ, "root_stats")
     if bbox and not sums:
         raise ValueError("root_stats: bbox needs sums")
-    N, H, W = root.shape
-    if strip_occ is not None and (
-            tuple(strip_occ.shape) != (N, *root_strip_shape(H, W, connectivity))
-            or strip_occ.dtype not in (torch.uint8, torch.bool)
-            or strip_occ.device != root.device):
-        raise ValueError(f"root_stats: strip_occ must be (N, {root_strip_shape(H, W, connectivity)}) "
-                         "uint8 or bool on the labels' device")
     if root.device.type == "cpu":
         return root_stats_plain(root, max_components, connectivity, sums, bbox, labels)
-    if root.device.type != "cuda":
-        raise ValueError(f"root_stats: unsupported device {root.device}")
-    return _root_stats_cuda(root.contiguous(), max_components, connectivity, sums, bbox, labels,
-                            None if strip_occ is None else strip_occ.to(torch.uint8).contiguous())
-
-
-def _root_stats_cuda(root, C, connectivity, sums, bbox, labels, strip_occ):
     N, H, W = root.shape
-    dev = root.device
-    if C < 0:
-        raise ValueError("root_stats: max_components must be >= 0")
-    if N == 0 or H == 0 or W == 0:
-        lohi = torch.tensor([1 << 30, 1 << 30, -1, -1], dtype=torch.int32, device=dev)
-        return (torch.zeros((N,), dtype=torch.int32, device=dev),
-                torch.zeros((N, C, 3), dtype=torch.int64, device=dev) if sums else None,
-                lohi.repeat(N, C, 1) if bbox else None,
-                torch.zeros((N, H, W), dtype=torch.int32, device=dev) if labels else None)
-    # every output is written by the kernels: k6_roots the count and the
-    # zeroed sums and seeded bbox, k6_labels every pixel
-    if N >= 1 << 16 or H >= 1 << 16 or W >= 1 << 16:
-        raise ValueError("root_stats kernel: N, H and W must be < 65536")
+    C, dev = max_components, root.device
+    count = torch.empty((N,), dtype=torch.int32, device=dev)
     out_sums = torch.empty((N, C, 3), dtype=torch.int64, device=dev) if sums else None
     lohi = torch.empty((N, C, 4), dtype=torch.int32, device=dev) if bbox else None
     dense = torch.empty((N, H, W), dtype=torch.int32, device=dev) if labels else None
+    if N:
+        _root_stats_launch(root.contiguous(), C, connectivity, strip_occ, count, out_sums, lohi,
+                           dense)
+    return count, out_sums, lohi, dense
+
+
+def root_stats_dict(root: torch.Tensor, max_components: int, connectivity: int = 8,
+                    compute_bbox: bool = True, compute_labels: bool = True,
+                    strip_occ=None) -> dict:
+    """Kernel K6's stats dict of root-key labels (N, H, W) int32: count,
+    area, centroid, centroid_sum, overflow, bbox and labels, as
+    ops.label.connected_components_with_stats documents them. strip_occ as
+    root_stats takes it.
+
+    CUDA tensors make one launch of tpuva_root_stats, which writes the
+    whole dict (the epilogue it shares with K2): the dict's tensors are
+    views of one int32 tensor (stats_views with its bbox, then one word
+    the kernel sets to 0), labels (N, H, W) int32 where compute_labels,
+    else that word broadcast (read-only); bbox zeros without compute_bbox.
+    No torch op runs on the card besides the allocations. CPU tensors take
+    the plain version, root_stats_plain then ops.label._stats_dict; both
+    are bit-equal."""
+    strip_occ = _root_input(root, max_components, connectivity, strip_occ, "root_stats_dict")
+    N, H, W = root.shape
+    C, dev = max_components, root.device
+    if root.device.type == "cpu":
+        return _stats_dict(*root_stats_plain(root, C, connectivity, True, compute_bbox,
+                                             compute_labels), H, W)
+    words = stats_words(N, C, bbox=True)
+    out = torch.empty((words + 1,), dtype=torch.int32, device=dev)
+    stats = stats_views(out, N, C, bbox=True)
+    dense = torch.empty((N, H, W), dtype=torch.int32, device=dev) if compute_labels else None
+    if N:
+        _root_stats_launch(root.contiguous(), C, connectivity, strip_occ, stats["count"],
+                           labels=dense, stats=stats, with_bbox=compute_bbox, zero=out[words:])
+    stats["labels"] = dense if compute_labels else out[words].expand(N, H, W)
+    return stats
+
+
+K6_SMEM_BYTES = 48 * 1024  # csrc/ccl.cu kSmemBytes
+
+
+def k6_frame_bytes(C: int, sums: bool, box: bool) -> int:
+    """Bytes of one frame's K6 table (C int32), sums (3C uint32 low and 3C
+    high words, where summed) and extremes (4C int32, where kept): the
+    kernel keeps them in shared memory where they fit K6_SMEM_BYTES, else
+    in k6_workspace's global arrays (csrc/ccl.cu k6_frame_bytes)."""
+    return C * ((24 if sums else 0) + (16 if box else 0) + 4)
+
+
+def k6_workspace(N: int, H: int, W: int, connectivity: int, C: int, derive: bool,
+                 sums: bool, box: bool):
+    """K6's scratch in one workspace tensor: ({name: (byte offset, bytes)},
+    total bytes), each array 16-byte aligned, for root-key labels (N, H, W)
+    and C components: list, lrc and loff (a strip each: the occupied strips
+    in order, their roots, the rank of their first root); deriving the
+    occupancy, rcs (each strip's roots) and docc (its foreground, a byte);
+    where a frame's arrays pass shared memory (k6_frame_bytes), table, acc
+    (the sums, where summed: 3 uint32 low words a component, then 3 high
+    words) and box (the extremes, where kept, 4 int32)."""
     R, S = root_strip_shape(H, W, connectivity)
-    Q, Ct = R * S, max(C, 1)
+    Q = R * S
+    sizes = {"list": 4 * N * Q, "lrc": 4 * N * Q, "loff": 4 * N * Q}
+    if derive:
+        sizes.update(rcs=4 * N * Q, docc=N * Q)
+    if k6_frame_bytes(C, sums, box) > K6_SMEM_BYTES:
+        sizes["table"] = 4 * N * C
+        if sums:
+            sizes["acc"] = 24 * N * C
+        if box:
+            sizes["box"] = 16 * N * C
+    return _aligned_layout(sizes)
+
+
+def _root_stats_launch(root, C, connectivity, strip_occ, count, sums=None, lohi=None,
+                       labels=None, stats=None, with_bbox=False, zero=None):
+    """One launch of tpuva_root_stats on root (N, H, W) int32, N > 0,
+    contiguous on the card, over strip_occ's strips or deriving them: the
+    count into count, the raw sums, extremes and ids into the tensors given,
+    and with stats (stats_views with its bbox) the stats dict, its bbox
+    computed where with_bbox; zero, a word set to 0."""
+    N, H, W = root.shape
+    dev = root.device
     derive = strip_occ is None
-    occ = torch.empty((N, R, S), dtype=torch.uint8, device=dev) if derive else strip_occ
-    # one int32 buffer (each allocation is host time): count (N), the
-    # scratch nlist (N), rcnt and list (N, Q), table (N, C)
-    buf = torch.empty((N * (2 + 2 * Q + Ct),), dtype=torch.int32, device=dev)
-    count = buf[:N]
+    acc_sums = sums is not None or stats is not None
+    acc_box = lohi is not None or (stats is not None and with_bbox)
+    layout, total = k6_workspace(N, H, W, connectivity, C, derive, acc_sums, acc_box)
+    ws = torch.empty((max(total, 16),), dtype=torch.uint8, device=dev)  # H * W == 0: no strips
+    at = lambda name: ws.data_ptr() + layout[name][0] if name in layout else None  # noqa: E731
     ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
-    at = lambda i: buf.data_ptr() + 4 * i  # noqa: E731
+    st = stats or {}
     lib = _build.load()
     err = lib.tpuva_root_stats(
-        root.data_ptr(), N, H, W, connectivity, C, occ.data_ptr(), int(derive),
-        at(2 * N), at(2 * N + N * Q), at(N), at(2 * N + 2 * N * Q),
-        count.data_ptr(), ptr(out_sums), ptr(lohi), ptr(dense),
-        torch.cuda.current_stream(dev).cuda_stream,
+        root.data_ptr(), N, H, W, connectivity, C, ptr(strip_occ),
+        *(at(k) for k in ("docc", "rcs", "list", "lrc", "loff", "table", "acc", "box")),
+        count.data_ptr(), ptr(sums), ptr(lohi), ptr(labels),
+        *(ptr(st.get(k)) for k in ("area", "centroid", "centroid_sum", "overflow", "bbox")),
+        ptr(zero), int(with_bbox), torch.cuda.current_stream(dev).cuda_stream,
     )
     _build.check(lib, err, "root stats kernel")
     root_stats.launches += 1
     root_stats.occ_launches += not derive
-    return count, out_sums, lohi, dense
 
 
-root_stats.launches = 0  # every K6 launch sequence
+root_stats.launches = 0  # every K6 launch (root_stats and root_stats_dict)
 root_stats.occ_launches = 0  # those given the caller's strip_occ (K3's)

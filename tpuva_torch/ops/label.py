@@ -12,10 +12,10 @@ This module holds the plain pieces: ``label_components`` (iterated 3x3 or
 kernels K2 and K3 are held against), the root table (``_root_table``: the
 first C root keys per frame, ascending = cv2 id order), integer sums,
 ``root_stats_plain`` (the plain version of kernel K6), the stats epilogue
-``_assemble_stats``, and the entry points ``relabel_dense``,
-``_stats_from_root``, ``connected_components_with_stats`` (K3, then K6 on
-a CUDA tensor) and ``extract_detections``. The kernels live in
-``ops/ccl.py``.
+``_assemble_stats`` and ``_stats_dict``, and the entry points
+``relabel_dense``, ``_stats_from_root``, ``connected_components_with_stats``
+(K3, then K6 on a CUDA tensor) and ``extract_detections``. The kernels
+live in ``ops/ccl.py``.
 
 tpuva contracts bf16 6-bit limbs of a (N, H*W, C) one-hot on the MXU; the
 plain version finds each foreground pixel's component by a sorted search
@@ -234,8 +234,9 @@ def _assemble_stats(count: torch.Tensor, sums: torch.Tensor, H: int, W: int):
     """Stats epilogue of tpuva/ops/label.py::_assemble_stats on the integer
     sums: background row by subtraction from static image totals, float32
     centroid = float32 sum / float32 area, int32 centroid_sum. The three
-    columns go through each op together: about 20 torch ops a call (each a
-    launch on the card).
+    columns go through each op together: about 20 torch ops a call. On the
+    card K2 and K6 compute it in their kernels (csrc/ccl.cu
+    stats_epilogue), held to this bit for bit.
 
     count: (N,) int32; sums: (N, C, 3) int64 (area, sum x, sum y).
     Returns the stats dict {count, area (N,C+1) int32, centroid
@@ -271,10 +272,10 @@ def _assemble_stats(count: torch.Tensor, sums: torch.Tensor, H: int, W: int):
 
 
 def _stats_dict(count, sums, lohi, dense, H: int, W: int) -> dict:
-    """The stats dict of _stats_from_root from K6's outputs (the kernel's
-    or the plain version's): _assemble_stats, then the bbox (x, y, w, h)
-    from the extremes, the labels (a broadcast zero where dense is None),
-    overflow."""
+    """The stats dict of _stats_from_root from the outputs of K6's plain
+    version: _assemble_stats, then the bbox (x, y, w, h) from the extremes,
+    the labels (a broadcast zero where dense is None), overflow. Kernel K6
+    computes the same dict on the card (csrc/ccl.cu stats_epilogue)."""
     N, C = sums.shape[:2]
     dev = sums.device
     out = _assemble_stats(count, sums, H, W)
@@ -301,14 +302,13 @@ def _stats_from_root(root: torch.Tensor, max_components: int = 64,
                      compute_labels: bool = True, strip_occ=None) -> dict:
     """Stats of root-key labels (N, H, W) int32 — the dense branch of
     tpuva.ops.label._stats_from_root; see connected_components_with_stats
-    for the output contract. Kernel K6 (ops.ccl.root_stats) on a CUDA
-    tensor, given strip_occ (K3's) or deriving it; its plain version on a
-    CPU tensor."""
-    from tpuva_torch.ops.ccl import root_stats
+    for the output contract. Kernel K6 (ops.ccl.root_stats_dict, one
+    launch that writes the whole dict) on a CUDA tensor, given strip_occ
+    (K3's) or deriving it; its plain version on a CPU tensor."""
+    from tpuva_torch.ops.ccl import root_stats_dict
 
-    H, W = root.shape[1:]
-    return _stats_dict(*root_stats(root, max_components, connectivity, True, compute_bbox,
-                                   compute_labels, strip_occ), H, W)
+    return root_stats_dict(root, max_components, connectivity, compute_bbox, compute_labels,
+                           strip_occ)
 
 
 def _stats_from_root_plain(root: torch.Tensor, max_components: int = 64,
@@ -344,12 +344,11 @@ def connected_components_with_stats(
       overflow     (N,) int32 — zeros (no capacity but C)
       ccl_converged bool
     C = max_components. On a CUDA tensor kernel K3 (ops.ccl.root_labels)
-    gives the root-key labels and, 8-connected, its strip occupancy, and
-    kernel K6 (ops.ccl.root_stats) the stats from them, reading only that
-    occupancy's strips (4-connected it derives its own); on a CPU tensor
-    their plain versions. Union-find has no round cap, so ccl_converged is
-    always True and strict (raise if not converged, as tpuva) never
-    fires."""
+    gives the root-key labels and its strip occupancy, and kernel K6
+    (ops.ccl.root_stats_dict, one launch) the stats dict from them,
+    reading only that occupancy's strips; on a CPU tensor their plain
+    versions. Union-find has no round cap, so ccl_converged is always True
+    and strict (raise if not converged, as tpuva) never fires."""
     from tpuva_torch.ops.ccl import root_labels
 
     squeeze = mask.dim() == 2

@@ -2,7 +2,8 @@
 kernels against their plain versions on; numpy only:
 
 - (H, W) and (N, H, W) uint8 masks (0/255) that exercise the CCL
-  kernels' tile borders, ragged edges and component caps;
+  kernels' tile borders, ragged edges, occupancy skips (``edge_strip_scene``
+  8- and 4-connected, ``conn4_scene``) and component caps;
 - detection streams for the tracker (``det_sequence``): churn, empty
   frames, contested frames (the Hungarian search's slow path), more
   detections than free slots, and random clouds;
@@ -63,6 +64,37 @@ def edge_strip_scene(H=71, W=601):
     m[3, 63, 511] = m[3, 64, 512] = 255  # touching only at a strip corner
     m[4] = 255
     m[6] = (rng.random((H, W)) < 0.3) * 255
+    return m
+
+
+def conn4_scene(H=45, W=601):
+    """One batch for K3 4-connected's occupancy skip (strips of one row x
+    512 pixels, segments of 32; tiles of 16 x 32 pixels). H = 45 and
+    W = 601 by default: H % 16 != 0, W % 4 != 0, a ragged last strip.
+    Frames: a snake crossing tile rows, tile columns and the 512-column
+    strip border, whose minimum pixel is reached only backwards; two
+    components touching only diagonally across a tile corner next to
+    empty tiles (and across the strip border's corner), plus a pixel in
+    the last row and column; empty; every pixel; a random mask of density
+    0.3; a comb of vertical teeth joined along the bottom row across
+    tiles; diagonal dots (every pair 8-adjacent, none 4-adjacent) over
+    the strip border."""
+    m = np.zeros((7, H, W), np.uint8)
+    m[0, 30:34, 470:560] = 255  # along a tile row, over the strip border
+    m[0, 3:34, 556:560] = 255  # up the right end, across tile rows
+    m[0, 3:6, 500:560] = 255  # back left along the top
+    m[0, 3:20, 500:503] = 255  # and down: its minimum pixel is reached backwards
+    m[0, 8, 20:40] = 255  # a separate bar across a tile column
+    m[1, 10:16, 20:32] = 255  # ends at the corner (15, 31) of tile (0, 0)
+    m[1, 16:22, 32:44] = 255  # starts at (16, 32): tile (1, 1), a diagonal away
+    m[1, 31, 511] = m[1, 32, 512] = 255  # a diagonal across the strip corner
+    m[1, H - 1, W - 1] = 255
+    m[3] = 255
+    m[4] = (np.random.default_rng(13).random((H, W)) < 0.3) * 255
+    m[5, 2:H - 1, 5:200:9] = 255  # teeth
+    m[5, H - 1, 5:200] = 255  # joined along the last row
+    for k in range(min(H, 40)):
+        m[6, k, 490 + k] = 255
     return m
 
 
