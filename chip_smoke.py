@@ -8,6 +8,8 @@
     python3 chip_smoke.py --k5     # phases 1-2, then K5's timings only
     python3 chip_smoke.py --wide   # phases 1-2, then K1m's and K1b's timings only
     python3 chip_smoke.py --probes # phases 1-2, then phase 9 (the micro-probes) only
+    python3 chip_smoke.py --staging # phases 1-2, then the staging line only (copied
+                                    # into an earlier checkout: that checkout's stager)
 
 Run from the repository root on a machine with one CUDA card and nvcc; it
 builds the kernels into build/tpuva_torch/ first. It imports no JAX and
@@ -18,7 +20,8 @@ raises, so the exit code is non-zero:
    torch and CUDA versions;
 2. build: nvcc compiles tpuva_torch/csrc/*.cu (registers and spills of
    K1's, K1b's, K1m's, K2's, K3 4-connected's, K6's, K5's and the
-   micro-probes' kernels in the build line);
+   micro-probes' kernels in the build line); the host compiler builds
+   csrc/batcher.cpp, the staging ring (build_host line);
 3. K1 (fused_segment) against its plain version on the card, at
    (16, 1080, 1920), a ragged (5, 250, 333) and a one-column (4, 120, 1),
    over six configs (blur 3, 5, 7 and 9 taps: the unrolled and the
@@ -101,6 +104,16 @@ raises, so the exit code is non-zero:
    no K3); a run stopped after its first
    checkpointed batch and resumed on the whole clip gives the same bytes;
    K3 against its plain version on the route's own batch-256 masks;
+7c. staging: the streamed default route fed by a decoder stand-in of
+   the clip (frames only through get_frame), which BatchStager sends
+   through its native feeder (the C++ ring of csrc/batcher.cpp), its CSV
+   sha256 == REF_CSV_SHA256 and the route's launches; every batch both
+   feeders stage on the card (a 300-frame clip: a full batch and a padded
+   one, queue depth 1, a slow consumer) bit-equal to the CPU's; the route
+   fed by a ParallelVideoReader of 4 workers over a callable that returns
+   the clip's VideoMemory, through the ring too, the same sha256
+   (process_clip, which stages through the Python feeder's pinned slots,
+   is held to it in phase 6);
 7b. the Otsu routes: the bench config with threshold="otsu" on the same
    clip through process_clip(use_pallas=True) (K1's diff emit, K4, K2
    deriving its occupancy; no K3, no padded K1) and the streamed default
@@ -132,10 +145,16 @@ raises, so the exit code is non-zero:
    chain's fixed cost a frame), each bit-equal first, the whole tracker
    stage (_finish_batch: extract_detections and K5), K2's launches a call
    and device time (torch.profiler) given its occupancy, deriving it and
-   on density 0.3, and its cooperative grid, BatchStager's pinned staging per batch
-   beside a pageable copy, and frames/s of process_clip, of both streamed
-   routes (in turns, twice each) and of both Otsu routes, with the peak
-   device memory of each streamed route;
+   on density 0.3, and its cooperative grid, and frames/s of both
+   streamed routes (in turns, twice each) and of both Otsu routes, with
+   the peak device memory of each streamed route;
+   then the staging line (staging_timing): ms per 256-frame batch of the
+   Python feeder, the native feeder and a pageable copy, in turns, 3
+   repeats of 6 batches each, from the clip in memory and from a
+   decoder stand-in (min, median, max), and frames/s of
+   process_clip(use_pallas=True), of the streamed default route over the
+   clip in memory with each feeder and over the decoder stand-in (the
+   feeder the stager picks), each once untimed, then in turns, twice each;
 9. the micro-probes P1-P4 (tpuva_torch.probes, the counterparts of
    bench/{repos,roll,i16,cell}_probe.py; kernels in csrc/probes.cu): every
    case's kernel bit-equal to its plain version at the probe's own tile
@@ -967,12 +986,207 @@ def wide_timing(clip, plate, card):
     return 0
 
 
+STAGING_BATCHES = 6  # batches a timed staging run moves
+STAGING_REPEATS = 3
+
+
+def cycled(VideoBase, clip, frames):
+    """A decoder stand-in: a VideoBase of `frames` frames whose get_frame
+    returns clip[i % T] (VideoBase passed in: the checkout's own)."""
+    class Cycled(VideoBase):
+        def __init__(self):
+            super().__init__(frames, (clip.shape[2], clip.shape[1]), 25.0, False)
+
+        def get_frame(self, index):
+            return clip[index % clip.shape[0]]
+
+    return Cycled()
+
+
+def record_feeders(sp):
+    """Whether each BatchStager that StreamingPipeline sp makes takes the
+    native feeder: a list that grows as sp.run makes them."""
+    natives, make = [], sp._make_stager
+
+    def record(source):
+        stager = make(source)
+        natives.append(stager.native)
+        return stager
+
+    sp._make_stager = record
+    return natives
+
+
+def spread(xs):
+    """{min, median, max} of a list of numbers, unrounded."""
+    return {"min": float(min(xs)), "median": float(np.median(xs)), "max": float(max(xs))}
+
+
+def staging_timing(clip, plate, card, cfg):
+    """Staging per 256-frame 1080p batch and the routes' frames/s, in turns.
+
+    Per batch: BatchStager's Python feeder, its native feeder (the C++
+    ring) and a pageable copy (torch.from_numpy(chunk).to(card), what
+    process_clip did before it staged through the ring), each moving
+    STAGING_BATCHES batches, STAGING_REPEATS times in turns, on two
+    sources: the clip in memory (VideoMemory over three copies of it) and
+    a decoder stand-in whose get_frame returns a frame (Cycled). A run's
+    ms per batch is the time from the stager's construction to the last
+    batch ready on the card (the consumer's stream synchronised on every
+    batch), over its batches; one warm-up run of each first. Then one
+    batch's host copy alone into a pinned slot (a block copy, a numpy copy
+    a frame, the native ring's push a frame; 3 after a warm-up). Then
+    frames/s of process_clip(use_pallas=True), of the streamed default
+    route over the clip in memory with each feeder (the ring forced
+    through StreamingPipeline._make_stager) and over a decoder stand-in of
+    the clip (the feeder the stager picks): each route once untimed, then
+    in turns, twice each, each run's CSV held to REF_CSV_SHA256. In a
+    checkout whose stager has no native feeder, its
+    entries are null. Returns the staging line's fields."""
+    from tpuva_torch.export.csvio import format_rows
+    from tpuva_torch.graph.pipeline import process_clip
+    from tpuva_torch.graph.streaming import StreamingPipeline
+    from tpuva_torch.io.base import VideoBase
+    from tpuva_torch.io.memory import VideoMemory
+    from tpuva_torch.io.staging import BatchStager
+
+    dev = torch.device("cuda")
+    N = cfg.batch
+    frames = STAGING_BATCHES * N
+    sources = {"memory": VideoMemory(np.concatenate([clip] * -(-frames // clip.shape[0]))[:frames]),
+               "decoder": cycled(VideoBase, clip, frames)}
+    try:
+        BatchStager(sources["memory"], N, device=dev, use_native=True).close()
+        native = True
+    except NotImplementedError:
+        native = False
+
+    def stager_run(video, use_native):
+        t0 = time.perf_counter()
+        stager = BatchStager(video, N, queue_depth=3, device=dev, use_native=use_native)
+        ready = []
+        try:
+            for _n, _b in stager:
+                torch.cuda.current_stream().synchronize()
+                ready.append(time.perf_counter())
+        finally:
+            stager.close()
+        if len(ready) != STAGING_BATCHES:
+            raise AssertionError(f"the stager gave {len(ready)} batches")
+        return 1e3 * (ready[-1] - t0) / len(ready), [1e3 * (b - a) for a, b in zip(ready, ready[1:])]
+
+    def pageable_run(video):
+        t0 = time.perf_counter()
+        for start in range(0, frames, N):
+            chunk = np.stack([video.get_frame(start + i) for i in range(N)]) \
+                if not isinstance(video, VideoMemory) else video.data[start:start + N]
+            torch.from_numpy(chunk).to(dev)
+            torch.cuda.synchronize()
+        return 1e3 * (time.perf_counter() - t0) / STAGING_BATCHES, []
+
+    methods = {"python": lambda v: stager_run(v, False), "pageable": pageable_run}
+    if native:
+        methods["native"] = lambda v: stager_run(v, True)
+    out = {"card": card, "batch": N, "shape": list(clip.shape[1:]),
+           "batches_a_run": STAGING_BATCHES, "repeats": STAGING_REPEATS,
+           "native_feeder": native}
+    for src, video in sources.items():
+        for run in methods.values():
+            run(video)  # warm-up: pinned buffers, threads, the host library
+        runs = {m: [] for m in methods}
+        intervals = {m: [] for m in methods}
+        order = list(methods)
+        for r in range(STAGING_REPEATS):
+            for m in (order if r % 2 == 0 else order[::-1]):
+                ms, iv = methods[m](video)
+                runs[m].append(ms)
+                intervals[m] += iv
+        for m in ("python", "native", "pageable"):
+            key = f"{src}_{m}_ms_per_batch"
+            out[key] = dict(spread(runs[m]), runs=runs[m]) if m in runs else None
+            if intervals.get(m):
+                out[f"{src}_{m}_interval_ms"] = spread(intervals[m])
+    # one batch's host copy alone, into a pinned slot (no copy to the card):
+    # one block copy, a numpy copy a frame, the native ring's push a frame
+    slot = torch.empty((N,) + clip.shape[1:], dtype=torch.uint8, pin_memory=True)
+    host = {"block": [], "numpy_per_frame": [], "native_per_frame": []}
+    ring = None
+    if native:
+        from tpuva_torch.io.native import NativeBatcher
+
+        ring = NativeBatcher(clip.shape[1:], N, [slot])
+    for _ in range(4):
+        t0 = time.perf_counter()
+        np.copyto(slot.numpy(), clip[:N])
+        host["block"].append(1e3 * (time.perf_counter() - t0))
+        t0 = time.perf_counter()
+        for i in range(N):
+            slot.numpy()[i] = clip[N + i]
+        host["numpy_per_frame"].append(1e3 * (time.perf_counter() - t0))
+        if ring is not None:
+            t0 = time.perf_counter()
+            for i in range(N):
+                ring.push(clip[i])
+            host["native_per_frame"].append(1e3 * (time.perf_counter() - t0))
+            s_, n_ = ring.pop()
+            ring.release(s_)
+    if ring is not None:
+        ring.close()
+        ring.destroy()
+    out["host_copy_ms"] = {k: (spread(v[1:]) if v else None) for k, v in host.items()}
+    del sources, slot
+
+    def force_native(sp):
+        sp._make_stager = lambda source: BatchStager(  # noqa: E731
+            source, N, queue_depth=sp.queue_depth, device=dev, use_native=True)
+        return sp
+
+    def route(name):
+        if name == "process_clip":
+            run = lambda: process_clip(clip, cfg, background0=plate,  # noqa: E731
+                                       max_components=MAX_COMPONENTS, use_pallas=True,
+                                       device="cuda")[0]
+        else:
+            sp = StreamingPipeline(cfg, max_components=MAX_COMPONENTS)
+            if name == "stream_native":
+                force_native(sp)
+            video = (cycled(VideoBase, clip, clip.shape[0]) if name == "stream_decoder"
+                     else VideoMemory(clip))
+            run = lambda: sp.run(video, background0=plate)  # noqa: E731
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        rows = run()
+        torch.cuda.synchronize()
+        s = time.perf_counter() - t0
+        if hashlib.sha256(format_rows(rows).encode()).hexdigest() != REF_CSV_SHA256:
+            raise AssertionError(f"{name} rows differ from the reference's")
+        return clip.shape[0] / s
+
+    names = (["process_clip", "stream_python"] + (["stream_native"] if native else [])
+             + ["stream_decoder"])
+    for name in names:
+        route(name)  # untimed: each route's first run of the call
+    fps = {n: [] for n in names}
+    for name in names + names[::-1]:
+        fps[name].append(route(name))
+    out["process_clip_use_pallas_fps"] = fps["process_clip"]
+    out["stream_default_python_fps"] = fps["stream_python"]
+    out["stream_default_native_fps"] = fps.get("stream_native")
+    out["stream_default_decoder_fps"] = fps["stream_decoder"]
+    probe = BatchStager(cycled(VideoBase, clip, clip.shape[0]), N, device=dev)
+    out["stream_decoder_feeder"] = "native" if getattr(probe, "native", False) else "python"
+    probe.close()
+    out["route_order"] = names + names[::-1]
+    return out
+
+
 def main():
     mode = (sys.argv[1] if sys.argv[1:] in (["--k1"], ["--k2"], ["--k5"], ["--wide"],
-                                             ["--probes"]) else None)
+                                             ["--probes"], ["--staging"]) else None)
     k1_only = mode == "--k1"
     if sys.argv[1:] and mode is None:
-        print("usage: chip_smoke.py [--k1 | --k2 | --k5 | --wide | --probes]", file=sys.stderr)
+        print("usage: chip_smoke.py [--k1 | --k2 | --k5 | --wide | --probes | --staging]",
+              file=sys.stderr)
         return 2
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)",
@@ -1025,6 +1239,11 @@ def main():
     if mode == "--probes":
         probes_phase(card)
         return 0
+    if mode == "--staging":
+        clip, _alive, _truth, plate = multi_blob_clip(1080, 1920, 512, n_blobs=6, radius=16,
+                                                      births_deaths=False, noise_sigma=2.0)
+        say("staging", **staging_timing(clip, plate, card, bench_cfg(config, 256)))
+        return 0
     if mode in ("--k2", "--k5", "--wide"):
         clip, _alive, _truth, plate = multi_blob_clip(1080, 1920, 256, n_blobs=6, radius=16,
                                                       births_deaths=False, noise_sigma=2.0)
@@ -1033,6 +1252,13 @@ def main():
     # after --k2, --k5 and --wide: a copy of this file in an earlier
     # checkout times K2, K3, the dense stats, K5, K1m and K1b with the
     # names that checkout has
+    # the host library (csrc/batcher.cpp, the staging ring) with the host
+    # compiler; a failed build fails the smoke
+    t0 = time.time()
+    host_lib = _build.build_host()
+    _build.load_host()
+    say("build_host", seconds=round(time.time() - t0, 2), library=host_lib.name,
+        compiler=_build.cxx())
     from tpuva_torch.ops.ccl import (
         k2_grid, root_labels, root_occupancy_plain, root_stats, root_stats_dict,
     )
@@ -1042,6 +1268,8 @@ def main():
         _stats_dict, _stats_from_root, _stats_from_root_plain, root_stats_plain,
     )
     from tpuva_torch.scenes import ROOT_STATS_OPTIONS, conn4_scene, edge_strip_scene
+    from tpuva_torch.io.base import VideoBase
+    from tpuva_torch.io.parallel_decode import ParallelVideoReader
 
     # the slice's clip, made once (its first frames also feed phases 3-5)
     t0 = time.time()
@@ -1489,18 +1717,23 @@ def main():
 
     # 7. the streamed default route (torch front end, K3, stats), the
     # streamed staged route, and a stopped-and-resumed run
-    def stream(what, **kw):
-        """One StreamingPipeline run of the whole clip on cuda: (CSV bytes,
-        seconds, launch counts read around it, peak device GiB)."""
+    def stream(what, video=None, natives=None, **kw):
+        """One StreamingPipeline run of the whole clip (video, else a
+        VideoMemory of it) on cuda: (CSV bytes, seconds, launch counts read
+        around it, peak device GiB); natives gets whether each of its
+        stagers took the native feeder."""
         sp = StreamingPipeline(cfg, max_components=MAX_COMPONENTS, **kw)
+        feeders = record_feeders(sp)
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         reset_counts()
         t0 = time.time()
-        out = sp.run(VideoMemory(clip), background0=plate)
+        out = sp.run(VideoMemory(clip) if video is None else video, background0=plate)
         torch.cuda.synchronize()
         s = time.time() - t0
         counts = read_counts()
+        if natives is not None:
+            natives += feeders
         peak = torch.cuda.max_memory_allocated() / 2**30
         data = format_rows(out).encode()
         if hashlib.sha256(data).hexdigest() != REF_CSV_SHA256:
@@ -1555,6 +1788,73 @@ def main():
         peak_device_gib=default_peak, staged_seconds=round(stream_staged_s, 3),
         staged_launches=stream_staged_counts, staged_peak_device_gib=staged_peak,
         resumed_csv_bytes_equal=True, k3_bit_equal_on_route_masks=True)
+
+    # 7c. staging: the streamed default route fed by the native feeder (the
+    # C++ ring), every staged batch of both feeders against the CPU's, and
+    # the route fed by a ParallelVideoReader of 4 workers
+    t0 = time.time()
+    native_feeders = []
+    _csv, native_s, native_counts, _peak = stream(
+        "default_native", video=cycled(VideoBase, clip, clip.shape[0]), natives=native_feeders)
+    if native_feeders != [True]:
+        raise AssertionError(f"a decoder's frames did not take the native feeder: {native_feeders}")
+    if (min(native_counts["ccl_labels"], native_counts["fused_segment"],
+            native_counts["root_stats_occ"], native_counts["track_scan"]) < 2
+            or native_counts["ccl_stats"]
+            or native_counts["root_stats"] != native_counts["ccl_labels"]):
+        raise AssertionError(f"streamed default route (native feeder) launches: {native_counts}")
+    tail = VideoMemory(clip[:300])  # a full batch, then 44 frames padded to 256
+    ref_batches = []
+    cpu_stager = BatchStager(tail, 256, device="cpu")
+    try:
+        ref_batches = [(n, b.numpy()) for n, b in cpu_stager]
+    finally:
+        cpu_stager.close()
+    staged_batches = {}
+    for feeder in ("python", "native"):
+        gpu_stager = BatchStager(tail, 256, queue_depth=1, device=dev,
+                                 use_native=feeder == "native")
+        got = []
+        try:
+            for n, b in gpu_stager:
+                time.sleep(0.05)  # a slow consumer: the producer refills the ring
+                got.append((n, b.cpu().numpy()))
+        finally:
+            gpu_stager.close()
+        if [n for n, _ in got] != [256, 44] or [n for n, _ in ref_batches] != [256, 44]:
+            raise AssertionError(f"{feeder} feeder batches: {[n for n, _ in got]}")
+        for (_, a), (_, r) in zip(got, ref_batches):
+            if not np.array_equal(a, r):
+                raise AssertionError(f"a batch of the {feeder} feeder differs from the CPU's")
+        staged_batches[feeder] = len(got)
+    del got, ref_batches
+    reader = ParallelVideoReader(lambda: VideoMemory(clip), workers=4, chunk=64)
+    try:
+        sp = StreamingPipeline(cfg, max_components=MAX_COMPONENTS)
+        pr_feeders = record_feeders(sp)
+        reset_counts()
+        pr_t0 = time.time()
+        pr_rows = sp.run(reader, background0=plate)
+        torch.cuda.synchronize()
+        pr_s = time.time() - pr_t0
+    finally:
+        reader.close()
+    pr_counts = read_counts()
+    if hashlib.sha256(format_rows(pr_rows).encode()).hexdigest() != REF_CSV_SHA256:
+        raise AssertionError("rows through ParallelVideoReader differ from the reference's")
+    if pr_feeders != [True]:
+        raise AssertionError(f"ParallelVideoReader's frames did not take the ring: {pr_feeders}")
+    if min(pr_counts["fused_segment"], pr_counts["ccl_labels"], pr_counts["root_stats_occ"],
+           pr_counts["track_scan"]) < 2:
+        raise AssertionError(f"streamed route through ParallelVideoReader launches: {pr_counts}")
+    say("staging_checks", route="StreamingPipeline.run -> process_batch: K1 + K3",
+        native_csv_sha256_equals_reference=True, native_seconds=round(native_s, 3),
+        native_launches=native_counts, batches_bit_equal_cpu=staged_batches,
+        parallel_reader_workers=4, parallel_reader_csv_sha256_equals_reference=True,
+        parallel_reader_seconds=round(pr_s, 3), parallel_reader_launches=pr_counts,
+        decoder_and_parallel_reader_took_native_feeder=True,
+        process_clip_through_ring_csv_sha256_equals_reference=True,  # phase 6
+        seconds=round(time.time() - t0, 1))
 
     # 7b. the Otsu routes: staged (K1's diff emit, K4, K2) and streamed
     # default (K1's diff emit, K4, K3)
@@ -1790,36 +2090,6 @@ def main():
     t["k1_split_reach120_parts"] = list(k1_split(1080, 1920, **reach120_kw))
     t["k1_split_reach120_k1m_launches"] = len(morph_plan(1080, 1920, reach120_steps))
     t["k1_split_blur65_parts"] = list(k1_split(1080, 1920, **dict(kw, blur_ksize=65)))
-    # staging: pinned ring + side stream (BatchStager) over six batches,
-    # the interval between consecutive batches ready on the card; and a
-    # pageable copy of one batch
-    long_clip = np.concatenate([clip] * 3)
-    stager = BatchStager(VideoMemory(long_clip), N, queue_depth=3, device=dev)
-    ready = [time.perf_counter()]
-    try:
-        for _n, _b in stager:
-            torch.cuda.current_stream().synchronize()
-            ready.append(time.perf_counter())
-    finally:
-        stager.close()
-    del long_clip
-    t["staging_pinned_ms_per_batch"] = [round(1e3 * (b - a), 3) for a, b in zip(ready, ready[1:])]
-    pageable = []
-    for _ in range(3):
-        t0 = time.perf_counter()
-        torch.from_numpy(clip[:N]).to(dev)
-        torch.cuda.synchronize()
-        pageable.append(round(1e3 * (time.perf_counter() - t0), 3))
-    t["staging_pageable_ms_per_batch"] = pageable
-    process_clip(clip, cfg, background0=plate, max_components=MAX_COMPONENTS,
-                 use_pallas=True, device="cuda")
-    torch.cuda.synchronize()
-    t0 = time.time()
-    process_clip(clip, cfg, background0=plate, max_components=MAX_COMPONENTS,
-                 use_pallas=True, device="cuda")
-    torch.cuda.synchronize()
-    t["slice_s"] = time.time() - t0
-    t["slice_fps"] = clip.shape[0] / t["slice_s"]
     # both streamed routes in turns: default, staged, staged, default
     t["stream_default_fps"], t["stream_staged_fps"] = [], []
     for route in ("default", "staged", "staged", "default"):
@@ -1888,6 +2158,9 @@ def main():
     t["k6_labels_occ_bound"] = bound(root_occ.numel() + 4 * root_occupied_px + k6_out + 4 * px,
                                      CCL_OPS_PER_PX * root_occupied_px)
     say("timing", card=card, batch=N, shape=[1080, 1920], kernels_bit_equal_at_batch_256=True, **t)
+    # staging per batch (Python feeder, native feeder, pageable copy) and
+    # the routes' frames/s with each feeder, in turns
+    say("staging", **staging_timing(clip, plate, card, cfg))
 
     # 9. the micro-probes
     probe_entries = probes_phase(card)

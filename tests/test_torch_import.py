@@ -1,5 +1,7 @@
-"""Importing the port (the micro-probes included) loads no JAX, nothing of
-bench/, does not initialise CUDA and builds no kernel (the twin of test_aux.py's import-purity test for tpuva)."""
+"""Importing the port (the micro-probes, io, export, app, compose and cli
+included) loads no JAX, nothing of bench/, no cv2 or h5py, does not
+initialise CUDA and builds nothing, kernels or host library (the twin of
+test_aux.py's import-purity test for tpuva)."""
 
 import json
 import os
@@ -20,14 +22,17 @@ import tpuva_torch.graph.streaming, tpuva_torch.io.staging, tpuva_torch.io.memor
 import tpuva_torch.ops.label, tpuva_torch.device, tpuva_torch.utils
 import tpuva_torch.probes, tpuva_torch.probes._timing, tpuva_torch.probes.repos_probe
 import tpuva_torch.probes.roll_probe, tpuva_torch.probes.i16_probe, tpuva_torch.probes.cell_probe
+import tpuva_torch.io, tpuva_torch.io.native, tpuva_torch.export, tpuva_torch.export.hdf5io
+import tpuva_torch.app, tpuva_torch.compose, tpuva_torch.analysis.curves, tpuva_torch.cli
 import torch
 after = sorted(p.name for p in _build.BUILD_DIR.glob("*")) if _build.BUILD_DIR.exists() else None
 print(json.dumps({
     "jax": any(m == "jax" or m.startswith("jax.") for m in sys.modules),
     "tpuva": sorted(m for m in sys.modules if m == "tpuva" or m.startswith("tpuva.")),
     "bench": sorted(m for m in sys.modules if m.split(".")[0] == "bench"),
+    "cv2_h5py": sorted(m for m in ("cv2", "h5py") if m in sys.modules),
     "cuda_initialized": torch.cuda.is_initialized(),
-    "loaded": _build.load.cache_info().currsize,
+    "loaded": _build.load.cache_info().currsize + _build.load_host.cache_info().currsize,
     "build_dir_unchanged": before == after,
 }))
 """
@@ -45,6 +50,7 @@ def test_import_is_pure():
         "jax": False,
         "tpuva": [],
         "bench": [],
+        "cv2_h5py": [],
         "cuda_initialized": False,
         "loaded": 0,
         "build_dir_unchanged": True,

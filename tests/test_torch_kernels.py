@@ -23,7 +23,9 @@ every option, given K3's occupancy and deriving it, in shared and in
 global memory, one kernel launch a call (torch.profiler). Also
 the micro-probes' kernels (tpuva_torch.probes, csrc/probes.cu) bit for
 bit on every case at the probe's tile shape, and their time grows with
-the reps. Also BatchStager's pinned-buffer copies to the card, byte for byte, and configs
+the reps. Also BatchStager's pinned-buffer copies to the card, byte for byte, from
+both feeders (a slow consumer at queue depth 1 included), the streamed route fed by
+the C++ ring, and configs
 one K1 launch does not take run on the card with the CPU's rows. The CCL scenes (tpuva_torch.scenes)
 are shared with the CPU tests that hold the plain versions against tpuva.
 """
@@ -760,10 +762,12 @@ def test_connected_components_with_stats_cuda_matches_cpu(cuda_device, connectiv
 
 
 @pytest.mark.gpu
-def test_batch_stager_cuda_yields_source_batches(cuda_device):
+@pytest.mark.parametrize("use_native", [False, True])
+def test_batch_stager_cuda_yields_source_batches(cuda_device, use_native):
     rng = np.random.default_rng(1)
     clip = rng.integers(0, 256, (37, 30, 50), dtype=np.uint8)
-    stager = BatchStager(VideoMemory(clip), 8, queue_depth=2, device=cuda_device)
+    stager = BatchStager(VideoMemory(clip), 8, queue_depth=2, device=cuda_device,
+                         use_native=use_native)
     try:
         got = [(n, b.clone()) for n, b in stager]
     finally:
@@ -773,6 +777,72 @@ def test_batch_stager_cuda_yields_source_batches(cuda_device):
         assert b.device.type == "cuda" and b.dtype == torch.uint8 and b.shape == (8, 30, 50)
         np.testing.assert_array_equal(b[:n].cpu().numpy(), clip[8 * k:8 * k + n])
     np.testing.assert_array_equal(got[-1][1][5:].cpu().numpy(), np.repeat(clip[-1:], 3, axis=0))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("use_native", [False, True])
+def test_batch_stager_cuda_slow_consumer_depth_one(cuda_device, use_native):
+    """Queue depth 1 (two pinned slots), 1080p frames, a consumer whose
+    stream is busy with other work before it reads each batch: a slot
+    refilled while its copy was in flight would show as a wrong frame."""
+    rng = np.random.default_rng(2)
+    base = rng.integers(0, 256, (8, 1080, 1920), dtype=np.uint8)
+
+    class Frames(VideoMemory):  # 61 distinct frames over 8 stored ones
+        def __init__(self):
+            super().__init__(base)
+            self._frame_count = 61
+
+        def get_frame(self, index):
+            f = base[index % 8].copy()
+            f[0, :8] = np.frombuffer(np.int64(index).tobytes(), np.uint8)
+            return f
+
+    src = Frames()
+    busy = torch.empty((4096, 4096), device=cuda_device)
+    stager = BatchStager(src, 8, queue_depth=1, device=cuda_device, use_native=use_native)
+    try:
+        for k, (n, b) in enumerate(stager):
+            busy = busy @ busy.T * 1e-4  # the consumer's stream is busy first
+            ref = np.stack([src.get_frame(min(8 * k + i, 60)) for i in range(8)])
+            assert n == min(8, 61 - 8 * k)
+            np.testing.assert_array_equal(b.cpu().numpy(), ref)
+    finally:
+        stager.close()
+    assert k == 7
+
+
+@pytest.mark.gpu
+def test_streaming_native_staging_on_card_equals_cpu(cuda_device):
+    """The streamed default route fed by the C++ ring on the card (a
+    decoder's source, which the stager sends through the ring): the CPU
+    run's rows (plain versions, the Python feeder over a VideoMemory)."""
+    from refimpl.synthetic import moving_disk_clip
+    from tpuva_torch.graph.config import (
+        BackgroundConfig, PipelineConfig, SegmentConfig, TrackConfig,
+    )
+    from tpuva_torch.graph.streaming import StreamingPipeline
+
+    clip, _, plate = moving_disk_clip(h=96, w=128, frames=64, radius=8, seed=11)
+    cfg = PipelineConfig(background=BackgroundConfig(alpha=0.03),
+                         segment=SegmentConfig(threshold=40.0, min_area=20, max_blobs=4),
+                         track=TrackConfig(max_dist=60.0, death_patience=5, max_tracks=8),
+                         batch=8)
+    from tpuva_torch.io.base import VideoBase
+
+    class Decoded(VideoBase):  # frames only through get_frame
+        def __init__(self):
+            super().__init__(clip.shape[0], (clip.shape[2], clip.shape[1]), 25.0, False)
+
+        def get_frame(self, index):
+            return clip[index]
+
+    ref = StreamingPipeline(cfg, device="cpu").run(VideoMemory(clip), background0=plate)
+    sp = StreamingPipeline(cfg, device=cuda_device)
+    stagers, make = [], sp._make_stager
+    sp._make_stager = lambda source: stagers.append(make(source)) or stagers[-1]
+    got = sp.run(Decoded(), background0=plate)
+    assert got == ref and len(ref) > 50 and [s.native for s in stagers] == [True]
 
 
 def _bits(x):

@@ -264,10 +264,11 @@ def test_port_checkpoint_resumes_in_tpuva(tmp_path, jax_full):
         assert {k: (z[k].dtype, z[k].shape) for k in z.files} == dict(fields, rows=(np.float64, (0, 5)))
 
 
-def test_batch_stager_cpu_yields_source_batches():
+@pytest.mark.parametrize("use_native", [False, True])
+def test_batch_stager_cpu_yields_source_batches(use_native):
     rng = np.random.default_rng(1)
     clip = rng.integers(0, 256, (21, 6, 10), dtype=np.uint8)
-    st = BatchStager(VideoMemory(clip), 8, **CPU)
+    st = BatchStager(VideoMemory(clip), 8, use_native=use_native, **CPU)
     got = list(st)
     st.close()
     assert [n for n, _ in got] == [8, 8, 5]
@@ -275,8 +276,47 @@ def test_batch_stager_cpu_yields_source_batches():
         assert b.dtype == torch.uint8 and b.shape == (8, 6, 10)
         np.testing.assert_array_equal(b[:n].numpy(), clip[start:start + n])
     np.testing.assert_array_equal(got[-1][1][5:].numpy(), np.repeat(clip[-1:], 3, axis=0))
-    with pytest.raises(NotImplementedError):
-        BatchStager(VideoMemory(clip), 8, use_native=True, **CPU)
+
+
+class Decoded(tio_base.VideoBase):
+    """A decoder's shape of source: frames only through get_frame."""
+
+    def __init__(self, data):
+        super().__init__(data.shape[0], (data.shape[2], data.shape[1]), 25.0, False)
+        self.data = data
+
+    def get_frame(self, index):
+        return self.data[index]
+
+
+def native_stagers(sp):
+    """Record whether each stager that sp makes took the C++ ring."""
+    seen, make = [], sp._make_stager
+
+    def record(source):
+        stager = make(source)
+        seen.append(stager.native)
+        return stager
+
+    sp._make_stager = record
+    return seen
+
+
+def test_streaming_native_staging_matches_tpuva(jax_full, tmp_path):
+    """A decoder's source goes through the C++ ring (the stager's own
+    choice): the same rows, and a stopped run resumes through it."""
+    clip, plate = clip_and_plate()
+    sp = StreamingPipeline(CFG, **CPU)
+    seen = native_stagers(sp)
+    assert sp.run(Decoded(clip), background0=plate) == jax_full and seen == [True]
+    ckpt = str(tmp_path / "state.npz")
+    StreamingPipeline(CFG, checkpoint_path=ckpt, **CPU).run(Decoded(clip[:24]), background0=plate)
+    sp = StreamingPipeline(CFG, checkpoint_path=ckpt, **CPU)
+    seen = native_stagers(sp)
+    assert sp.run(Decoded(clip), background0=plate) == jax_full and seen == [True]
+    sp = StreamingPipeline(CFG, **CPU)
+    seen = native_stagers(sp)
+    assert sp.run(VideoMemory(clip), background0=plate) == jax_full and seen == [False]
 
 
 def test_io_copies_match_originals():

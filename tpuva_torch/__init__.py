@@ -14,14 +14,22 @@ Layout (counterparts in ``tpuva/``):
   ops/ccl.py                         kernels K2 and K3 (csrc/ccl.cu)
   track/assign.py, track/table.py    the tracker
   graph/pipeline.py                  process_batch(_staged) / process_clip
-  graph/streaming.py, io/            StreamingPipeline, BatchStager
-  graph/config.py, export/csvio.py   pinned copies
+  graph/streaming.py                 StreamingPipeline
+  io/staging.py, io/native.py        BatchStager: pinned ring, one host copy
+                                     a frame (native: csrc/batcher.cpp)
+  io/                                video sources and host decode (cv2)
+  export/                            CSV and HDF5 (h5py) trajectories
+  app/, compose/, analysis/curves.py TrackingProject's passes, pass 4's movie
+  cli.py, __main__.py                python -m tpuva_torch
+  graph/config.py                    pinned copy
   probes/                            the micro-probes P1-P4 of bench/
                                      (csrc/probes.cu)
 
-Kernels are compiled by nvcc at the first call on a CUDA tensor
+Kernels are compiled by nvcc at the first call on a CUDA tensor, the host
+library (the staging ring) by the host C++ compiler at its first use
 (``tpuva_torch._build``). Importing the package neither initialises CUDA
-nor builds anything; CPU tensors take each kernel's plain version.
+nor builds anything, nor loads cv2 or h5py; CPU tensors take each
+kernel's plain version.
 """
 
 __version__ = "0.1.0"

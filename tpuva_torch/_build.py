@@ -14,6 +14,12 @@ FMA (the kernels also use ``__fmul_rn``/``__fadd_rn`` where rounding is
 pinned); fast math is never used. A call from device code to a host-only
 function fails the build (nvcc drops the kernel's body otherwise). If
 nvcc is missing the build raises.
+
+The host step (``build_host``/``load_host``) compiles ``csrc/batcher.cpp``,
+the staging ring, with the host C++ compiler (``$CXX``, else g++) into a
+library of its own in the same directory, under the same lock, named by a
+hash of the source, compiler and flags. It needs no nvcc and no card, so
+the CPU tests build and run it; it too runs at first use, never on import.
 """
 
 from __future__ import annotations
@@ -200,6 +206,69 @@ def load() -> ctypes.CDLL:
         fn.restype = _I
     lib.tpuva_error_string.argtypes = [_I]
     lib.tpuva_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+HOST_SOURCE = CSRC / "batcher.cpp"
+HOST_FLAGS = ("-O3", "-fPIC", "-std=c++17", "-pthread", "-shared")
+# C signatures of csrc/batcher.cpp (restype, argtypes)
+_HOST_SIGNATURES = {
+    "tvt_ring_create": (_P, [ctypes.c_size_t, _I, _I, ctypes.POINTER(_P)]),
+    "tvt_ring_push": (_I, [_P, _P]),
+    "tvt_ring_finish": (None, [_P]),
+    "tvt_ring_pop": (_I, [_P, ctypes.POINTER(_I)]),
+    "tvt_ring_release": (_I, [_P, _I]),
+    "tvt_ring_close": (None, [_P]),
+    "tvt_ring_depth": (_I, [_P]),
+    "tvt_ring_destroy": (None, [_P]),
+    "tvt_bgr2gray": (None, [_P, _P, ctypes.c_size_t]),
+}
+
+
+def cxx() -> str:
+    """The host C++ compiler: $CXX, else g++."""
+    return os.environ.get("CXX") or "g++"
+
+
+def host_library_path() -> Path:
+    h = hashlib.sha256(" ".join((cxx(), *HOST_FLAGS)).encode())
+    h.update(HOST_SOURCE.read_bytes())
+    return BUILD_DIR / f"libtpuva_torch_host_{h.hexdigest()[:16]}.so"
+
+
+def build_host() -> Path:
+    """Compile csrc/batcher.cpp (the staging ring, bgr2gray) with the host
+    compiler unless the library for this source exists; no nvcc, no card.
+    Same directory and file lock as build(). Raises if the compiler fails
+    or is missing."""
+    lib = host_library_path()
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    with open(BUILD_DIR / "build.lock", "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        if lib.exists():
+            return lib
+        tmp = lib.with_suffix(f".{os.getpid()}.tmp")
+        cmd = [cxx(), *HOST_FLAGS, "-o", str(tmp), str(HOST_SOURCE)]
+        try:
+            res = subprocess.run(cmd, capture_output=True, text=True)
+        except OSError as e:
+            raise RuntimeError(f"host compiler failed: {' '.join(cmd)}: {e}") from e
+        if res.returncode != 0:
+            tmp.unlink(missing_ok=True)
+            raise RuntimeError(f"host compiler failed ({res.returncode}):\n{' '.join(cmd)}\n"
+                               f"{res.stdout}{res.stderr}")
+        os.replace(tmp, lib)
+        return lib
+
+
+@functools.lru_cache(maxsize=1)
+def load_host() -> ctypes.CDLL:
+    """Build if needed and bind the host library (once per process)."""
+    lib = ctypes.CDLL(str(build_host()))
+    for name, (restype, argtypes) in _HOST_SIGNATURES.items():
+        fn = getattr(lib, name)
+        fn.restype = restype
+        fn.argtypes = argtypes
     return lib
 
 

@@ -1,4 +1,4 @@
-"""Trajectory CSV writer — a copy of ``tpuva/export/csvio.py``'s writer.
+"""Trajectory CSV writer and reader — a copy of ``tpuva/export/csvio.py``.
 
 Identical rows give identical bytes; ``tests/test_torch_pipeline.py``
 pins this copy to the original byte for byte.
@@ -7,6 +7,8 @@ by (track_id, frame).
 """
 
 from __future__ import annotations
+
+import numpy as np
 
 HEADER = "track_id,frame,x,y,area"
 
@@ -23,3 +25,11 @@ def format_rows(rows) -> str:
 def write_tracks_csv(path, rows) -> None:
     with open(path, "w") as fh:
         fh.write(format_rows(rows))
+
+
+def read_tracks_csv(path) -> np.ndarray:
+    """Returns (N, 5) float64 array of (track_id, frame, x, y, area)."""
+    data = np.loadtxt(path, delimiter=",", skiprows=1, ndmin=2, dtype=np.float64)
+    if data.size == 0:
+        return np.zeros((0, 5), np.float64)
+    return data

@@ -73,6 +73,8 @@ import numpy as np
 import torch
 
 from tpuva_torch.device import resolve_device
+from tpuva_torch.io.memory import VideoMemory
+from tpuva_torch.io.staging import BatchStager
 from tpuva_torch.ops.background import background_coeffs, background_update
 from tpuva_torch.ops.ccl import label_stats, root_labels
 from tpuva_torch.ops.filters import (
@@ -482,7 +484,9 @@ def process_clip(clip: np.ndarray, cfg, background0: Optional[np.ndarray] = None
     process_batch (K3, and K1 with use_pallas). The final partial batch is
     padded by repeating the last frame; padded frames' rows are dropped. A
     frame whose component stats overflowed, or a CCL that did not
-    converge, raises: accuracy is never lost silently.
+    converge, raises: accuracy is never lost silently. The batches reach
+    the device through BatchStager's ring (pinned slots on a card, one
+    host copy of each frame).
     """
     T, H, W = clip.shape
     N = cfg.batch
@@ -490,39 +494,38 @@ def process_clip(clip: np.ndarray, cfg, background0: Optional[np.ndarray] = None
     staged = use_pallas and _can_stage(cfg) and carry.bg.device.type == "cuda"
     all_rows = []
     masks = [] if return_masks else None
-    for start in range(0, T, N):
-        chunk = clip[start:start + N]
-        n = chunk.shape[0]
-        if n < N:
-            chunk = np.concatenate([chunk, np.repeat(chunk[-1:], N - n, axis=0)], axis=0)
-        frames = torch.from_numpy(np.ascontiguousarray(chunk)).to(carry.bg.device)
-        if staged:
-            carry, out = process_batch_staged(
-                cfg, carry, frames, return_masks=return_masks,
-                max_components=max_components, ccl_single_pass=ccl_single_pass,
+    stager = BatchStager(VideoMemory(clip), N, device=carry.bg.device)
+    try:
+        for n, frames in stager:
+            if staged:
+                carry, out = process_batch_staged(
+                    cfg, carry, frames, return_masks=return_masks,
+                    max_components=max_components, ccl_single_pass=ccl_single_pass,
+                )
+            else:
+                carry, out = process_batch(
+                    cfg, carry, frames, parallel_bg=parallel_bg, return_masks=return_masks,
+                    max_components=max_components, use_pallas=use_pallas,
+                    ccl_single_pass=ccl_single_pass,
+                )
+            ov = out["stats_overflow"][:n].cpu().numpy()
+            if (ov > 0).any():
+                raise RuntimeError(
+                    f"component stats overflow on {int((ov > 0).sum())} frame(s) "
+                    "— raise max_components for this workload"
+                )
+            if not out["ccl_converged"]:
+                raise RuntimeError("CCL did not converge")
+            all_rows.extend(
+                collect_rows(
+                    out["rows"].cpu().numpy(), out["row_valid"].cpu().numpy(),
+                    max_frame=T, row_sums=out["row_sums"].cpu().numpy(),
+                )
             )
-        else:
-            carry, out = process_batch(
-                cfg, carry, frames, parallel_bg=parallel_bg, return_masks=return_masks,
-                max_components=max_components, use_pallas=use_pallas,
-                ccl_single_pass=ccl_single_pass,
-            )
-        ov = out["stats_overflow"][:n].cpu().numpy()
-        if (ov > 0).any():
-            raise RuntimeError(
-                f"component stats overflow on {int((ov > 0).sum())} frame(s) "
-                "— raise max_components for this workload"
-            )
-        if not out["ccl_converged"]:
-            raise RuntimeError("CCL did not converge")
-        all_rows.extend(
-            collect_rows(
-                out["rows"].cpu().numpy(), out["row_valid"].cpu().numpy(),
-                max_frame=T, row_sums=out["row_sums"].cpu().numpy(),
-            )
-        )
-        if return_masks:
-            masks.append(out["masks"][:n].cpu().numpy())
+            if return_masks:
+                masks.append(out["masks"][:n].cpu().numpy())
+    finally:
+        stager.close()
     if return_masks:
         masks = np.concatenate(masks, axis=0)
     return all_rows, carry, masks

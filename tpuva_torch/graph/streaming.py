@@ -361,6 +361,10 @@ class StreamingPipeline:
         self.active_tracks = 0  # last drained end-of-batch count
         self.logger = BatchLogger(enabled=log)
 
+    def _make_stager(self, source):
+        return BatchStager(source, self.cfg.batch, queue_depth=self.queue_depth,
+                           device=self.device)
+
     def _step(self, cfg, carry, batch):
         if (
             self.use_pallas
@@ -431,7 +435,7 @@ class StreamingPipeline:
                 return out
             return _as_tuples(chunks)
         source = video[start_frame:] if start_frame else video
-        stager = BatchStager(source, cfg.batch, queue_depth=self.queue_depth, device=self.device)
+        stager = self._make_stager(source)
 
         def consume(rec, n):
             # runs on the drainer thread, in submission order

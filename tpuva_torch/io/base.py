@@ -1,7 +1,8 @@
 """The video abstraction: lazy iterators of uint8 frames — copy of
-``VideoBase`` and ``VideoSlice`` from ``tpuva/io/base.py`` (jax-free, but
-the port imports nothing of tpuva; ``tests/test_torch_streaming.py`` pins
-the copy to the original).
+``VideoBase``, ``VideoSlice`` and ``VideoImageStack`` from
+``tpuva/io/base.py`` (jax-free, but the port imports nothing of tpuva;
+``tests/test_torch_streaming.py`` and ``tests/test_torch_io.py`` pin the
+copy to the original).
 
 Everything downstream consumes "a video": frames are HxW (gray) or HxWx3
 (BGR) uint8 numpy arrays, and ``iter_batches(n)`` yields (n, H, W[, 3])
@@ -160,3 +161,32 @@ class VideoSlice(VideoBase):
         if not 0 <= index < self.frame_count:
             raise IndexError(index)
         return self._source.get_frame(self._start + index * self._step)
+
+
+class VideoImageStack(VideoBase):
+    """Video backed by a sequence of image files (reference:
+    VideoImageStackBase)."""
+
+    def __init__(self, paths, fps: float = 25.0):
+        import cv2
+
+        self._paths = [str(p) for p in paths]
+        if not self._paths:
+            raise ValueError("empty image stack")
+        first = cv2.imread(self._paths[0], cv2.IMREAD_UNCHANGED)
+        if first is None:
+            raise IOError(f"cannot read image {self._paths[0]}")
+        is_color = first.ndim == 3
+        h, w = first.shape[:2]
+        super().__init__(len(self._paths), (w, h), fps, is_color)
+        self._cache = {0: first}
+
+    def get_frame(self, index: int) -> np.ndarray:
+        import cv2
+
+        if index in self._cache:
+            return self._cache.pop(index)
+        frame = cv2.imread(self._paths[index], cv2.IMREAD_UNCHANGED)
+        if frame is None:
+            raise IOError(f"cannot read image {self._paths[index]}")
+        return frame

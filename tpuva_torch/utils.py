@@ -1,9 +1,12 @@
-"""Per-batch progress logging — copy of ``tpuva/utils.py::BatchLogger``
-(jax-free; pinned to the original by ``tests/test_torch_streaming.py``)."""
+"""Copies of ``tpuva/utils.py``'s jax-free helpers: ``BatchLogger``, per-batch
+progress logging (pinned to the original by
+``tests/test_torch_streaming.py``), and ``ensure_directory_exists``
+(``tests/test_torch_app.py``)."""
 
 from __future__ import annotations
 
 import json
+import os
 import sys
 import time
 
@@ -35,3 +38,10 @@ class BatchLogger:
         }
         self._out.write(json.dumps(rec) + "\n")
         self._out.flush()
+
+
+def ensure_directory_exists(path: str) -> str:
+    """Create the directory (and parents) if missing; returns the path."""
+    if path and not os.path.isdir(path):
+        os.makedirs(path, exist_ok=True)
+    return path
