@@ -10,6 +10,7 @@
     python3 chip_smoke.py --probes # phases 1-2, then phase 9 (the micro-probes) only
     python3 chip_smoke.py --staging # phases 1-2, then the staging line only (copied
                                     # into an earlier checkout: that checkout's stager)
+    python3 chip_smoke.py --multistream # phases 1-2, then phase 7d (config 5) only
 
 Run from the repository root on a machine with one CUDA card and nvcc; it
 builds the kernels into build/tpuva_torch/ first. It imports no JAX and
@@ -121,6 +122,26 @@ raises, so the exit code is non-zero:
    launch), K5 on both, each run's CSV sha256 equal to REF_OTSU_CSV_SHA256;
    a 48-frame sub-clip on the CPU (plain versions) and on the card gives
    identical rows, masks and background;
+7d. config 5, the multistream path: MS_STREAMS (8) streams of the clip
+   (stream 0 the clip in memory with its plate; stream s a decoder
+   stand-in of it shifted by 64 s frames, its plate its own first frame),
+   batch 256, through MultiStreamPipeline on cuda: K1 with the stream axis
+   against its plain version on the card (8 streams x 16 frames, distinct
+   plates, mask and diff emits, one seed flag and one a stream), K5 with
+   the stream axis against its plain version (a det_sequence stream each,
+   tables 16 x 8, 32 x 32 and 33 x 40); the run's launches (K1, K5, K3,
+   K6 once a step, for all streams; no K2); stream 0's CSV sha256 ==
+   REF_CSV_SHA256, every stream's rows equal the single-stream streamed
+   default route on it, merged equal merge_stream_rows of those, a run
+   stopped after its first step and resumed from its checkpoint equal to
+   the straight one; then frames/s of all streams (an untimed run, two
+   timed), one step's device ms on batches already on the card (its
+   launches: one K1, one K5), K1 and K5 at 8 streams against 8
+   single-stream launches (bit-equal first; each after an untimed run,
+   5 repeats in turns, min-max), their plain versions, and staging: one
+   stager alone and 8 at once (a consumer thread and CUDA stream each,
+   in turns), ms a batch each and GB/s, the pinned bytes and the peak
+   device memory of the run;
 8. timing with CUDA events after warm-up at batch 256 and 1080p: K1, K1
    in padded_occ mode, K2 given K1's occupancy, deriving it and given
    every strip (the walk of every strip the kernels made before they
@@ -169,7 +190,9 @@ raises, so the exit code is non-zero:
    cluster, and those rep loops' arithmetic.
 
 Then one JSON line of the kernels (each with its least time on the card,
-bound_ms, from the bytes and operations of this run's inputs), the card
+bound_ms, from the bytes and operations of this run's inputs, and
+stream_axis: whether it takes S streams a launch; fused_segment_streams
+and track_scan_streams are K1 and K5 at 8 streams, phase 7d), the card
 line again, and last {"ok": true, "device": {...}}. Long output (the
 compiler's register and shared-memory report, CSVs, checkpoints) goes to
 build/chip_smoke/.
@@ -217,6 +240,11 @@ REPLACES = {
                      "tpuva/ops/filters.py:268"),
     "track_scan": ("tpuva_torch/csrc/track.cu",
                    "tpuva/graph/pipeline.py:341"),
+    # K1 and K5 with the stream axis: S streams in one launch (phase 7d)
+    "fused_segment_streams": ("tpuva_torch/csrc/fused_segment.cu",
+                              "tpuva/ops/pallas/fused_segment.py:145"),
+    "track_scan_streams": ("tpuva_torch/csrc/track.cu",
+                           "tpuva/graph/pipeline.py:341"),
     # K1's blur and morphology where one K1 launch cannot hold them
     "blur_u8": ("tpuva_torch/csrc/wide.cu",
                 "tpuva/ops/pallas/fused_segment.py:145"),
@@ -546,10 +574,11 @@ def check_equal(err, kernel, pairs, where):
                 f"max abs err {e}")
 
 
-def check_track_scan(err, state, dets, valid, frame0, where, **kw):
+def check_track_scan(err, state, dets, valid, frame0, where, kernel="track_scan", **kw):
     """K5 on the card against track_scan_plain on the CPU from the same
-    state: rows, row_valid and every state tensor equal, float bits
-    included (so -0.0 is not +0.0). Returns the card's (state, rows,
+    state (with or without a stream axis): rows, row_valid and every state
+    tensor equal, float bits included (so -0.0 is not +0.0), the max abs
+    difference folded into err[kernel]. Returns the card's (state, rows,
     row_valid)."""
     from tpuva_torch.track.scan import track_scan, track_scan_plain
     from tpuva_torch.track.table import TrackState
@@ -561,10 +590,10 @@ def check_track_scan(err, state, dets, valid, frame0, where, **kw):
                      frame0.to(dev), **kw)
     pairs = [(f"state.{n}", g.cpu(), r) for n, g, r in zip(TrackState._fields, got[0], ref[0])]
     pairs += [("rows", got[1].cpu(), ref[1]), ("row_valid", got[2].cpu(), ref[2])]
-    check_equal(err, "track_scan", pairs, where)
+    check_equal(err, kernel, pairs, where)
     for what, g, r in pairs:
         if g.dtype == torch.float32 and not torch.equal(g.view(torch.int32), r.view(torch.int32)):
-            raise AssertionError(f"track_scan {what}: the sign of a zero differs ({where})")
+            raise AssertionError(f"{kernel} {what}: the sign of a zero differs ({where})")
     return got
 
 
@@ -990,15 +1019,15 @@ STAGING_BATCHES = 6  # batches a timed staging run moves
 STAGING_REPEATS = 3
 
 
-def cycled(VideoBase, clip, frames):
+def cycled(VideoBase, clip, frames, shift=0):
     """A decoder stand-in: a VideoBase of `frames` frames whose get_frame
-    returns clip[i % T] (VideoBase passed in: the checkout's own)."""
+    returns clip[(i + shift) % T] (VideoBase passed in: the checkout's own)."""
     class Cycled(VideoBase):
         def __init__(self):
             super().__init__(frames, (clip.shape[2], clip.shape[1]), 25.0, False)
 
         def get_frame(self, index):
-            return clip[index % clip.shape[0]]
+            return clip[(index + shift) % clip.shape[0]]
 
     return Cycled()
 
@@ -1180,13 +1209,325 @@ def staging_timing(clip, plate, card, cfg):
     return out
 
 
+# the kernels that take a stream axis (the kernels line marks them)
+STREAM_AXIS = ("fused_segment", "fused_segment_padded_occ", "fused_segment_diff",
+               "fused_segment_streams", "track_scan", "track_scan_streams")
+MS_STREAMS = 8  # config 5: concurrent camera streams
+MS_SHIFT = 64  # frames stream s's clip is shifted by, cyclically
+MS_K1_FRAMES = 16  # frames a stream in K1's stream-axis check
+MS_REPEATS = 5  # timed repeats of K1 and K5 at S streams and as S single launches
+
+
+def spread_runs(xs):
+    return dict(spread(xs), runs=[float(x) for x in xs])
+
+
+def multistream_phase(clip, plate, card, cfg, err):
+    """Phase 7d: config 5, MS_STREAMS streams of the 1080p bench clip
+    through MultiStreamPipeline on the card (stream s the clip shifted by
+    MS_SHIFT * s frames). Returns (the phase line's fields, the kernels
+    line's times, launches and bounds of K1's and K5's stream axis)."""
+    import threading
+
+    from tpuva_torch.dist import (
+        MultiStreamPipeline, init_multistream_carry, make_multistream_processor,
+        merge_stream_rows,
+    )
+    from tpuva_torch.export.csvio import format_rows
+    from tpuva_torch.graph.pipeline import _diff_kwargs, _front_end_kwargs
+    from tpuva_torch.graph.streaming import StreamingPipeline
+    from tpuva_torch.io.base import VideoBase
+    from tpuva_torch.io.memory import VideoMemory
+    from tpuva_torch.io.staging import BatchStager
+    from tpuva_torch.ops import connected_components_with_stats
+    from tpuva_torch.ops.ccl import label_components_tiled, label_stats, root_stats
+    from tpuva_torch.ops.fused_segment import fused_segment, fused_segment_plain
+    from tpuva_torch.ops.label import extract_detections
+    from tpuva_torch.scenes import DET_KINDS, det_sequence
+    from tpuva_torch.track.scan import track_scan, track_scan_plain
+    from tpuva_torch.track.table import TrackState, init_track_state
+
+    t_phase = time.time()
+    torch.cuda.empty_cache()
+    dev = torch.device("cuda")
+    S, N = MS_STREAMS, cfg.batch
+    T, H, W = clip.shape
+    kw, diff_kw = _front_end_kwargs(cfg), _diff_kwargs(cfg)
+    t_kw = dict(max_dist=cfg.track.max_dist, death_patience=cfg.track.death_patience,
+                assigner=cfg.track.assigner)
+    counters = {"k1": (fused_segment, "launches"), "k1_streams": (fused_segment, "stream_launches"),
+                "k5": (track_scan, "launches"), "k5_streams": (track_scan, "stream_launches"),
+                "k3": (label_components_tiled, "launches"),
+                "k6_occ": (root_stats, "occ_launches"), "k2": (label_stats, "launches")}
+
+    def reset():
+        for fn, attr in counters.values():
+            setattr(fn, attr, 0)
+
+    def counts():
+        return {k: getattr(fn, attr) for k, (fn, attr) in counters.items()}
+
+    def videos():
+        """Stream 0 the clip in memory, stream s >= 1 a decoder stand-in
+        of it shifted by MS_SHIFT * s frames."""
+        return [VideoMemory(clip)] + [cycled(VideoBase, clip, T, MS_SHIFT * s)
+                                      for s in range(1, S)]
+
+    # each stream its own plate: stream 0 the clip's (REF_CSV_SHA256 pins
+    # its rows), stream s >= 1 the first frame of its own sequence
+    plates = np.stack([plate.astype(np.float32)]
+                      + [clip[MS_SHIFT * s].astype(np.float32) for s in range(1, S)])
+    out = {"card": card, "streams": S, "shape": [H, W], "batch": N, "frames_a_stream": T,
+           "shift_frames": MS_SHIFT}
+
+    # K1 with the stream axis against its plain version on the card: S
+    # streams of MS_K1_FRAMES frames, distinct plates, both emits, one
+    # seed flag for all and one a stream
+    k1_frames = [torch.from_numpy(np.ascontiguousarray(
+        clip[MS_SHIFT * s:MS_SHIFT * s + MS_K1_FRAMES])).to(dev) for s in range(S)]
+    k1_bg = torch.from_numpy(plates).to(dev)
+    mixed = torch.tensor([s % 3 == 1 for s in range(S)], device=dev)
+    for emit, opts in (("mask", kw), ("diff", diff_kw)):
+        for seed in (False, mixed):
+            check_equal(err, "fused_segment_streams",
+                        zip(("masks", "bg"), fused_segment(k1_frames, k1_bg, seed_bg=seed, **opts),
+                            fused_segment_plain(k1_frames, k1_bg, seed_bg=seed, **opts)),
+                        f"{S} streams x {MS_K1_FRAMES} frames, {emit}, "
+                        f"seed {'mixed' if seed is mixed else seed}")
+    del k1_frames
+    # K5 with the stream axis against its plain version: a det_sequence
+    # stream each (kinds and seeds differ), tables at and past the
+    # register kernel's 32 x 32, from a fresh table and from its result
+    for T5, D5, F in ((16, 8, 128), (32, 32, 32), (33, 40, 32)):
+        seqs = [det_sequence(DET_KINDS[s % len(DET_KINDS)], D5, frames=2 * F, seed=s + T5)
+                for s in range(S)]
+        dets = torch.from_numpy(np.stack([d for d, _ in seqs]))
+        valid = torch.from_numpy(np.stack([v for _, v in seqs]))
+        state = TrackState(*(torch.stack(x) for x in zip(*[init_track_state(T5, "cpu")] * S)))
+        frame0 = torch.arange(S, dtype=torch.int32) * 1000
+        for half in range(2):
+            sl = slice(half * F, (half + 1) * F)
+            got = check_track_scan(err, state, dets[:, sl], valid[:, sl], frame0 + half * F,
+                                   f"{S} streams, table {T5} x {D5}, frames {sl}",
+                                   kernel="track_scan_streams", **t_kw)
+            state = TrackState(*(x.cpu() for x in got[0]))
+    out["k1_k5_streams_bit_equal"] = True
+
+    # MultiStreamPipeline: an untimed run (its launches counted), then two timed
+    msp_kw = dict(max_components=MAX_COMPONENTS)
+    queue_depth = 3  # MultiStreamPipeline's default
+    out["pinned_bytes"] = S * (queue_depth + 1) * N * H * W
+
+    def ms_run(**extra):
+        msp = MultiStreamPipeline(cfg, S, queue_depth=queue_depth, **msp_kw, **extra)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        rows, merged = msp.run(videos(), background0=plates)
+        torch.cuda.synchronize()
+        return rows, merged, time.perf_counter() - t0
+
+    torch.cuda.reset_peak_memory_stats()
+    reset()
+    rows, merged, first_s = ms_run()
+    run_counts = counts()
+    out["peak_device_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    steps = -(-T // N)
+    if (run_counts["k1"], run_counts["k1_streams"], run_counts["k5"], run_counts["k5_streams"],
+            run_counts["k3"], run_counts["k6_occ"], run_counts["k2"]) != (steps,) * 6 + (0,):
+        raise AssertionError(f"multistream run launches ({steps} steps): {run_counts}")
+    out["run_launches"] = run_counts
+    fps = [S * T / ms_run()[2] for _ in range(2)]
+    out["fps_all_streams"] = fps
+    out["first_run_fps"] = S * T / first_s
+    # every stream against the single-stream streamed default route on it
+    singles = [StreamingPipeline(cfg, **msp_kw).run(v, background0=plates[s])
+               for s, v in enumerate(videos())]
+    for s in range(S):
+        if rows[s] != singles[s]:
+            raise AssertionError(f"stream {s}: multistream rows differ from its single-stream run")
+    if hashlib.sha256(format_rows(rows[0]).encode()).hexdigest() != REF_CSV_SHA256:
+        raise AssertionError("stream 0's rows differ from the OpenCV reference's")
+    if merged != merge_stream_rows(singles, with_stream=True):
+        raise AssertionError("merged rows differ from merge_stream_rows of the single runs")
+    out["rows_a_stream"] = [len(r) for r in rows]
+    out["stream0_csv_sha256_equals_reference"] = True
+    out["streams_equal_single_stream_route"] = True
+    out["merged_equal"] = True
+    # stopped after its first step (a checkpoint each step), then resumed
+    ckpt = os.path.join(OUT_DIR, "ms_ckpt.npz")
+    if os.path.exists(ckpt):
+        os.unlink(ckpt)
+    MultiStreamPipeline(cfg, S, checkpoint_path=ckpt, checkpoint_every=1, **msp_kw).run(
+        [v[:N] for v in videos()], background0=plates)
+    resumed, resumed_merged = MultiStreamPipeline(
+        cfg, S, checkpoint_path=ckpt, checkpoint_every=1, **msp_kw).run(videos(),
+                                                                          background0=plates)
+    if resumed != rows or resumed_merged != merged:
+        raise AssertionError("the stopped-and-resumed multistream run differs")
+    out["resumed_equal"] = True
+    del singles, resumed, resumed_merged
+
+    # one step on batches already on the card: its launches, its device ms
+    batches = [torch.from_numpy(np.take(clip, (np.arange(N) + MS_SHIFT * s) % T, axis=0)).to(dev)
+               for s in range(S)]
+    fn = make_multistream_processor(cfg, S, **msp_kw)
+    carry0 = init_multistream_carry(cfg, H, W, S, background0=plates)
+    reset()
+    fn(carry0, batches)
+    torch.cuda.synchronize()
+    step_counts = counts()
+    if (step_counts["k1"], step_counts["k1_streams"], step_counts["k5"],
+            step_counts["k5_streams"], step_counts["k3"], step_counts["k6_occ"]) != (1,) * 6:
+        raise AssertionError(f"one multistream step's launches: {step_counts}")
+    out["step_launches"] = step_counts
+    out["step_device_ms"] = spread_runs([once_ms(lambda: fn(carry0, batches))
+                                         for _ in range(3)])
+    # K1 and K5 at S streams against S single-stream launches, in turns
+    # after one untimed run each, bit-equal first
+    one_k1 = lambda: [fused_segment(batches[s], carry0.bg[s], **kw) for s in range(S)]  # noqa: E731
+    all_k1 = lambda: fused_segment(batches, carry0.bg, **kw)  # noqa: E731
+    masks, bg_last = all_k1()
+    # against the plain version at this shape (S * N frames, offsets past
+    # 2^31), a stream at a time to keep check_equal's doubles small; then
+    # against each stream's own launch as a second witness
+    plain = []
+    out["k1_streams_plain_ms"] = once_ms(
+        lambda: plain.append(fused_segment_plain(batches, carry0.bg, **kw)))
+    for s in range(S):
+        check_equal(err, "fused_segment_streams",
+                    [("masks", masks[s], plain[0][0][s]), ("bg", bg_last[s], plain[0][1][s])],
+                    f"stream {s} of {S} against the plain version, batch {N}")
+    del plain
+    for s, (m1, b1) in enumerate(one_k1()):
+        check_equal(err, "fused_segment_streams", [("masks", masks[s], m1), ("bg", bg_last[s], b1)],
+                    f"stream {s} of {S} against its own launch, batch {N}")
+    stats = connected_components_with_stats(masks.flatten(0, 1), MAX_COMPONENTS,
+                                            compute_bbox=False, compute_labels=False)
+    del masks
+    dets, _n, valid, _sums = extract_detections(stats, cfg.segment.min_area, cfg.segment.max_blobs)
+    D = cfg.segment.max_blobs
+    dets, valid = dets.reshape(S, N, D, 3), valid.reshape(S, N, D)
+    check_track_scan(err, carry0.track, dets, valid, carry0.frame_idx,
+                     f"{S} streams, the step's detections, batch {N}",
+                     kernel="track_scan_streams", **t_kw)
+    one_k5 = lambda: [track_scan(TrackState(*(x[s] for x in carry0.track)), dets[s],  # noqa: E731
+                                 valid[s], carry0.frame_idx[s], **t_kw) for s in range(S)]
+    all_k5 = lambda: track_scan(carry0.track, dets, valid, carry0.frame_idx, **t_kw)  # noqa: E731
+    timed = {"k1_streams": all_k1, "k1_single_launches": one_k1,
+             "k5_streams": all_k5, "k5_single_launches": one_k5}
+    ms = {name: [] for name in timed}
+    for name, fn_t in timed.items():
+        once_ms(fn_t)  # untimed
+    order = list(timed)
+    for r in range(MS_REPEATS):
+        for name in (order if r % 2 == 0 else order[::-1]):
+            ms[name].append(once_ms(timed[name]))
+    for name, xs in ms.items():
+        out[f"{name}_ms"] = spread_runs(xs)
+    out["k5_streams_plain_ms"] = once_ms(lambda: track_scan_plain(
+        carry0.track, dets, valid, carry0.frame_idx, **t_kw))
+    px = S * N * H * W
+    bounds = {
+        # every stream's frames read, masks written, background read and
+        # written once
+        "fused_segment_streams": bound(2 * px + S * 2 * 4 * H * W, k1_ops_per_px(kw) * px),
+        # detections and flags read, rows and flags written, each table
+        # read and written once
+        "track_scan_streams": bound(dets.numel() * 4 + valid.numel() * (1 + 20 + 1)
+                                    + S * 2 * (cfg.track.max_tracks * 17 + 4),
+                                    S * k5_ops(cfg.track.max_tracks, D, N)),
+    }
+    del batches, carry0, dets, valid, stats, fn
+
+    # staging: one stager alone, then S at once (the pipeline's feeders, a
+    # consumer thread and CUDA stream each), in turns: ms a batch each
+    def stage(k):
+        res, errs = [None] * k, []
+
+        def drain(i):
+            try:
+                stream = torch.cuda.Stream(dev)
+                with torch.cuda.stream(stream):
+                    t0 = time.perf_counter()
+                    st = BatchStager(cycled(VideoBase, clip, STAGING_BATCHES * N, MS_SHIFT * i), N,
+                                     queue_depth=queue_depth, device=dev)
+                    n = 0
+                    try:
+                        for _n, _b in st:
+                            stream.synchronize()
+                            n += 1
+                    finally:
+                        st.close()
+                res[i] = 1e3 * (time.perf_counter() - t0) / n
+            except BaseException as e:  # noqa: BLE001 - raised below
+                errs.append(e)
+
+        threads = [threading.Thread(target=drain, args=(i,)) for i in range(k)]
+        t0 = time.perf_counter()
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join()
+        if errs:
+            raise errs[0]
+        return res, time.perf_counter() - t0
+
+    stage(1)
+    stage(S)  # warm-up: pinned slots, threads
+    alone, together, rates = [], [], []
+    for k in (1, S, S, 1):
+        res, wall = stage(k)
+        (alone if k == 1 else together).extend(res)
+        if k == S:
+            rates.append(S * STAGING_BATCHES * N * H * W / wall / 1e9)
+    out["staging_batches_a_run"] = STAGING_BATCHES
+    out["staging_one_stager_ms_a_batch"] = spread_runs(alone)
+    out["staging_each_of_s_stagers_ms_a_batch"] = spread_runs(together)
+    out["staging_s_stagers_gb_per_s"] = rates
+    # what sets that pace: the S host copies alone (a thread each, a batch
+    # of the clip into its own pinned slot, nothing sent to the card), and
+    # the link alone (S filled pinned slots to the card), 3 runs each
+    # after one untimed
+    slots = [torch.empty((N, H, W), dtype=torch.uint8, pin_memory=True) for _ in range(S)]
+    dst = [torch.empty((N, H, W), dtype=torch.uint8, device=dev) for _ in range(S)]
+    nbytes = S * N * H * W
+
+    def host_copies():
+        threads = [threading.Thread(target=np.copyto, args=(
+            slots[i].numpy(), clip[32 * i % (T - N):32 * i % (T - N) + N])) for i in range(S)]
+        t0 = time.perf_counter()
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join()
+        return nbytes / (time.perf_counter() - t0) / 1e9
+
+    def link():
+        return nbytes / once_ms(lambda: [d.copy_(h, non_blocking=True)
+                                         for d, h in zip(dst, slots)]) / 1e6
+
+    out["host_copies_alone_gb_per_s"] = [host_copies() for _ in range(4)][1:]
+    out["link_alone_gb_per_s"] = [link() for _ in range(4)][1:]
+    del slots, dst
+    out["seconds"] = round(time.time() - t_phase, 1)
+    kernels = {
+        "times": {"fused_segment_streams": (float(np.median(ms["k1_streams"])),
+                                            out["k1_streams_plain_ms"]),
+                  "track_scan_streams": (float(np.median(ms["k5_streams"])),
+                                         out["k5_streams_plain_ms"])},
+        "launches": {"fused_segment_streams": run_counts["k1_streams"],
+                     "track_scan_streams": run_counts["k5_streams"]},
+        "bounds": bounds,
+    }
+    return out, kernels
+
+
 def main():
-    mode = (sys.argv[1] if sys.argv[1:] in (["--k1"], ["--k2"], ["--k5"], ["--wide"],
-                                             ["--probes"], ["--staging"]) else None)
+    modes = ("--k1", "--k2", "--k5", "--wide", "--probes", "--staging", "--multistream")
+    mode = sys.argv[1] if len(sys.argv) == 2 and sys.argv[1] in modes else None
     k1_only = mode == "--k1"
     if sys.argv[1:] and mode is None:
-        print("usage: chip_smoke.py [--k1 | --k2 | --k5 | --wide | --probes | --staging]",
-              file=sys.stderr)
+        print(f"usage: chip_smoke.py [{' | '.join(modes)}]", file=sys.stderr)
         return 2
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)",
@@ -1259,6 +1600,12 @@ def main():
     _build.load_host()
     say("build_host", seconds=round(time.time() - t0, 2), library=host_lib.name,
         compiler=_build.cxx())
+    if mode == "--multistream":
+        clip, _alive, _truth, plate = multi_blob_clip(1080, 1920, 512, n_blobs=6, radius=16,
+                                                      births_deaths=False, noise_sigma=2.0)
+        err = {"fused_segment_streams": 0.0, "track_scan_streams": 0.0}
+        say("multistream", **multistream_phase(clip, plate, card, bench_cfg(config, 256), err)[0])
+        return 0
     from tpuva_torch.ops.ccl import (
         k2_grid, root_labels, root_occupancy_plain, root_stats, root_stats_dict,
     )
@@ -1918,6 +2265,12 @@ def main():
         stream_seconds=round(otsu_stream_s, 3), stream_launches=otsu_stream_counts,
         sub_clip_cpu_gpu_rows_masks_bg_equal=True, sub_clip_rows=len(rows_gpu))
 
+    # 7d. config 5: MS_STREAMS streams through MultiStreamPipeline, K1 and
+    # K5 a launch a step for all streams
+    ms_line, ms_kernels = multistream_phase(clip, plate, card, cfg, err)
+    say("multistream", **ms_line)
+    torch.cuda.empty_cache()
+
     # 8. at the main path's shapes (batch 256, 1080p): kernel vs plain
     # once more, then timing
     kw = _front_end_kwargs(cfg)
@@ -2197,16 +2550,23 @@ def main():
                 "blur_u8": split_launches["blur_u8"],
                 "morph_u8": split_launches["morph_u8"]}
     library = {"histogram_u8": t["k4_library_ms"], "morph_u8": t["k1m_library_ms"]}
+    # the multistream phase's K1 and K5 (S streams a launch)
+    for name, (ms, plain) in ms_kernels["times"].items():
+        t[f"{name}_ms"], t[f"{name}_plain_ms"] = ms, plain
+        timed[name] = (f"{name}_ms", f"{name}_plain_ms")
+    launches.update(ms_kernels["launches"])
+    bounds.update(ms_kernels["bounds"])
     kernels = []
     for name, (src, rep) in REPLACES.items():
         if name in probe_entries:
-            kernels.append(probe_entries[name])
+            kernels.append(dict(probe_entries[name], stream_axis=False))
             continue
         ms, plain = timed[name]
         kernels.append({"name": name, "route": "cuda", "source": src, "replaces": rep,
                         "launches": launches[name], "max_abs_err": err[name],
                         "ms": t[ms], "plain_ms": t[plain], "bound_ms": bounds[name][0],
-                        "bound_by": bounds[name][1], "library_ms": library.get(name)})
+                        "bound_by": bounds[name][1], "library_ms": library.get(name),
+                        "stream_axis": name in STREAM_AXIS})
     say("done", seconds=round(time.time() - t_all, 1))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)

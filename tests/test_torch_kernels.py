@@ -175,6 +175,54 @@ def test_fused_segment_kernel_tiles_match_plain(cuda_device, tile):
                                               err_msg=f"{shape}, {kw.get('emit', 'mask')}")
 
 
+# K1's stream axis: the emits (and padded_occ), and configs whose blur or
+# morphology leaves K1 (a stream at a time on the card)
+K1_STREAM_CASES = {
+    "mask": dict(BENCH),
+    "diff": dict(alpha=0.02, threshold=0.0, blur_ksize=5, emit="diff"),
+    "padded_occ": dict(BENCH, padded_occ=True),
+    "median3": dict(BENCH, median_ksize=3),
+    "split_reach": dict(BENCH, open_ksize=7, open_iters=10, close_ksize=7, close_iters=10),
+}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", sorted(K1_STREAM_CASES))
+def test_fused_segment_kernel_streams_match_plain(cuda_device, name):
+    """K1 with a stream axis against its plain version on the CPU, bit for
+    bit: S = 3 streams, each its own scene and plate, at a 16-byte (W = 256)
+    and a byte (W = 333) row pitch, as a stack and as a list of batches that
+    lie apart, with one seed flag for all and a mixed flag tensor on the
+    card; one launch for all streams where K1 takes the config, and each
+    stream's output equal to its own single-stream launch."""
+    kw = K1_STREAM_CASES[name]
+    split = name == "split_reach"
+    for shape in [(4, 64, 256), (3, 50, 333)]:
+        scenes = [scene(*shape, seed=10 + s) for s in range(3)]
+        frames = torch.from_numpy(np.stack([f for f, _ in scenes]))
+        bg0 = torch.from_numpy(np.stack([b + 3 * s for s, (_, b) in enumerate(scenes)]))
+        f_gpu, b_gpu = frames.to(cuda_device), bg0.to(cuda_device)
+        apart = [f.clone() for f in f_gpu]  # three allocations, read through pointers
+        for seed in (False, True, torch.tensor([True, False, True])):
+            seed_dev = seed.to(cuda_device) if isinstance(seed, torch.Tensor) else seed
+            ref = fused_segment_plain(frames, bg0, seed_bg=seed, **kw)
+            for what, got_frames in (("stack", f_gpu), ("list", apart)):
+                before = (fused_segment.launches, fused_segment.stream_launches)
+                got = fused_segment(got_frames, b_gpu, seed_bg=seed_dev, **kw)
+                torch.cuda.synchronize()
+                if not split:
+                    assert (fused_segment.launches, fused_segment.stream_launches) == (
+                        before[0] + 1, before[1] + 1)
+                for r, g in zip(ref, got):
+                    np.testing.assert_array_equal(g.cpu().numpy(), r.numpy(),
+                                                  err_msg=f"{shape}, {what}, seed {seed}")
+            one = fused_segment(apart[1], b_gpu[1],  # stream 1 alone
+                                seed_bg=seed_dev[1] if isinstance(seed, torch.Tensor) else seed,
+                                **kw)
+            for r, g in zip(ref, one):
+                np.testing.assert_array_equal(g.cpu().numpy(), r[1].numpy(), err_msg=f"{shape}")
+
+
 @pytest.mark.gpu
 def test_fused_segment_kernel_repeats_across_layouts(cuda_device):
     """Launches of different shared-memory layouts in turn, on 16-byte rows
@@ -927,6 +975,49 @@ def test_track_scan_kernel_global_scratch_matches_plain(cuda_device, assigner):
     dets, valid = det_sequence("cloud", 100, frames=8, seed=3)
     ts, _rows, rv = check_track_scan(init_track_state(600, "cpu"), dets, valid, 0, cuda_device, **kw)
     assert int(ts.active.sum()) > 100 and int(rv.sum()) > 100
+
+
+# tables at the bench's shape, at the register kernel's edge, past it (the
+# table kernel in shared memory) and past shared memory (global scratch)
+K5_STREAM_TABLES = [(16, 8), (32, 32), (33, 40), (600, 100)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("assigner", ["greedy", "hungarian"])
+@pytest.mark.parametrize("T,D", K5_STREAM_TABLES, ids=[f"T{t}-D{d}" for t, d in K5_STREAM_TABLES])
+def test_track_scan_kernel_streams_match_plain(cuda_device, T, D, assigner):
+    """K5 with a stream axis, one launch for all streams (a CTA a stream),
+    against its plain version on the CPU, bit for bit: each stream a
+    different det_sequence kind, its own frame index (one near 2^24), 40
+    frames from an empty table, then 40 from the states they leave."""
+    kinds = ("churn", "contested", "crowd", "cloud", "empty") if T < 600 else ("cloud", "crowd")
+    S, N = len(kinds), 40 if T < 600 else 8
+    seqs = [det_sequence(k, D, frames=2 * N, seed=T + 7 * s) for s, k in enumerate(kinds)]
+    dets = np.stack([d for d, _ in seqs])
+    valid = np.stack([v for _, v in seqs])
+    kw = dict(max_dist=40.0, death_patience=3, assigner=assigner)
+    state = TrackState(*(torch.stack(x) for x in zip(*[init_track_state(T, "cpu")] * S)))
+    frame0 = torch.tensor([5 + s for s in range(S - 1)] + [2**24 - N], dtype=torch.int32)
+    for half in range(2):
+        sl = slice(half * N, (half + 1) * N)
+        ref = track_scan_plain(state, torch.from_numpy(dets[:, sl]), torch.from_numpy(valid[:, sl]),
+                               frame0 + half * N, **kw)
+        gpu_state = TrackState(*(x.to(cuda_device) for x in state))
+        before = [x.clone() for x in gpu_state]
+        launches = (track_scan.launches, track_scan.stream_launches)
+        got = track_scan(gpu_state, torch.from_numpy(dets[:, sl]).to(cuda_device),
+                         torch.from_numpy(valid[:, sl]).to(cuda_device),
+                         (frame0 + half * N).to(cuda_device), **kw)
+        torch.cuda.synchronize()
+        assert (track_scan.launches, track_scan.stream_launches) == (launches[0] + 1,
+                                                                     launches[1] + 1)
+        for name, g, r in zip(TrackState._fields, got[0], ref[0]):
+            np.testing.assert_array_equal(_bits(g).numpy(), _bits(r).numpy(), err_msg=name)
+        np.testing.assert_array_equal(_bits(got[1]).numpy(), _bits(ref[1]).numpy(), err_msg="rows")
+        np.testing.assert_array_equal(got[2].cpu().numpy(), ref[2].numpy(), err_msg="row_valid")
+        assert all(torch.equal(a, b) for a, b in zip(gpu_state, before))
+        state = ref[0]
+    assert int(state.active.sum()) > 0
 
 
 @pytest.mark.gpu

@@ -15,6 +15,8 @@ Layout (counterparts in ``tpuva/``):
   track/assign.py, track/table.py    the tracker
   graph/pipeline.py                  process_batch(_staged) / process_clip
   graph/streaming.py                 StreamingPipeline
+  dist/                              MultiStreamPipeline: S streams on one
+                                     card, K1 and K5 a launch a step for all
   io/staging.py, io/native.py        BatchStager: pinned ring, one host copy
                                      a frame (native: csrc/batcher.cpp)
   io/                                video sources and host decode (cv2)

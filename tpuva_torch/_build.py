@@ -48,13 +48,15 @@ _LL = ctypes.c_longlong
 # C signatures of the entry points in csrc/*.cu
 _SIGNATURES = {
     "tpuva_fused_segment": [
-        _P, _P, _P, _P,  # frames, bg0, masks, bg_out
+        _P, _I,  # frames (a host array of S pointers), S
+        _P, _P, _P,  # bg0, masks, bg_out
         _I, _I, _I,  # N, H, W
         _F, _F, _F,  # c1, a, thr
         _P, _I, _I,  # taps, ntaps, shift
         _I,  # median
         _P, _P, _P,  # stage_k, stage_iters, stage_se
-        _I, _I, _I, _I,  # seed_bg, emit_diff, tile_h, tile_w
+        _I, _P,  # seed_bg, seed (S flags on the card, or null)
+        _I, _I, _I,  # emit_diff, tile_h, tile_w
         _I, _I, _P,  # Hp, Wp, occ (padded_occ; H, W, null otherwise)
         _P,  # stream
     ],
@@ -121,12 +123,12 @@ _SIGNATURES = {
         _I, _I, _P, _P, _P, _P,  # T, D, kind, kd (int32 out), smem, scratch (int64 out)
     ],
     "tpuva_track_scan": [
-        _P, _P, _I, _I, _I,  # dets, det_valid, N, T, D
+        _P, _P, _I, _I, _I, _I,  # dets, det_valid, S, N, T, D
         _P, _P, _P, _P, _P, _P,  # pos0, tid0, missed0, active0, next_id0, frame0
         _P, _P, _P, _P, _P,  # pos1, tid1, missed1, active1, next_id1
         _P, _P,  # rows, row_valid
         _F, _I, _I,  # max_dist, death_patience, hungarian
-        _P, _LL,  # scratch, scratch bytes
+        _P, _LL,  # scratch, scratch bytes (S streams' scratch)
         _P,  # stream
     ],
 }

@@ -29,6 +29,17 @@
 // columns, so two CTAs may set one byte; every writer stores the same
 // value, so no atomic is needed and no second pass reads the mask.
 //
+// Streams. One launch takes S independent camera streams, each with its
+// own N frames, background and outputs: the grid's z index is the stream.
+// A stream's frames are read where its stager left them, through an array
+// of S frame pointers in the kernel's parameters (no (S, N, H, W) stack is
+// copied on the card); its background, masks, background out and occ are
+// the s-th of S equal blocks of their buffers. Whether a stream seeds its
+// background from its first filtered frame is one flag for every stream or
+// one byte a stream read on the card (a carry's bg_valid, with no read on
+// the host). Tiles of different streams never share a CTA, so no
+// background is shared; S = 1 is the single-stream call.
+//
 // Order. The TPU kernel relies on a grid that runs in order on one core;
 // here one CTA owns a TH x TW tile and walks the N frames in order itself
 // (the background recurrence is the only sequential dependency), keeping
@@ -106,6 +117,7 @@ constexpr int kTY = 8;   // rows of threads
 constexpr int kThreads = kTX * kTY;
 constexpr int kMinBlocks = 4;  // CTAs an SM the register budget must allow (64 registers)
 constexpr int kMaxSmem = 227 * 1024;
+constexpr int kMaxStreams = 64;  // streams a launch takes (ops/fused_segment.py::MAX_STREAMS)
 
 __host__ __device__ constexpr size_t up16(size_t v) { return (v + 15) & ~size_t(15); }
 __host__ __device__ constexpr int cdiv(int a, int b) { return (a + b - 1) / b; }
@@ -154,6 +166,11 @@ struct Layout {
   }
 };
 
+// The streams' frame pointers, (N, H, W) each: a kernel parameter of its own.
+struct StreamFrames {
+  const uint8_t* frames[kMaxStreams];
+};
+
 struct SegParams {
   int N, H, W;
   float c1, a, thr;
@@ -164,7 +181,8 @@ struct SegParams {
   int stage_iters[4];
   unsigned stage_se[4][kMaxSE];   // per-row SE bitmask (bit dx)
   int P, Rm, TH, TW;
-  int seed_bg;
+  int seed_bg;                    // seed every stream (seed == nullptr)
+  const uint8_t* seed;            // or one flag a stream, on the card
   int emit_diff;                  // 1: write rint(|F - B|), not the mask
   int vec;                        // bytes per output store: 16, 4 or 1
   int vin;                        // bytes per cp.async of the window: 16 or 4; 1 = no cp.async
@@ -341,11 +359,9 @@ __device__ __forceinline__ void write_owned(uint8_t* out, uint8_t* occ, const ui
 // CX == 0, in shared memory.
 template <int NT, int CX, int SEG>
 __global__ void __launch_bounds__(kThreads, kMinBlocks)
-fused_segment_kernel(const uint8_t* __restrict__ frames,
-                     const float* __restrict__ bg0,
-                     uint8_t* __restrict__ masks,
-                     float* __restrict__ bg_out, uint8_t* __restrict__ occ,
-                     const SegParams p) {
+fused_segment_kernel(const StreamFrames src, const float* __restrict__ bg0_all,
+                     uint8_t* __restrict__ masks_all, float* __restrict__ bg_out_all,
+                     uint8_t* __restrict__ occ_all, const SegParams p) {
   extern __shared__ __align__(16) unsigned char smem[];
   const int H = p.H, W = p.W, P = p.P, Rm = p.Rm, rm = p.rm;
   const int TH = p.TH, TW = p.TW;
@@ -370,6 +386,14 @@ fused_segment_kernel(const uint8_t* __restrict__ frames,
   const bool diff = p.emit_diff;
   const size_t out_frame = size_t(p.Hp) * p.Wp;
   const size_t occ_frame = size_t(p.Hp / 2) * p.occ_w;
+  // stream blockIdx.z: its frames, its blocks of the other buffers
+  const int sidx = blockIdx.z;
+  const uint8_t* __restrict__ frames = src.frames[sidx];
+  const float* __restrict__ bg0 = bg0_all + size_t(sidx) * HW;
+  float* __restrict__ bg_out = bg_out_all + size_t(sidx) * HW;
+  uint8_t* __restrict__ masks = masks_all + size_t(sidx) * p.N * out_frame;
+  uint8_t* __restrict__ occ = occ_all ? occ_all + size_t(sidx) * p.N * occ_frame : nullptr;
+  const bool seed_bg = p.seed ? p.seed[sidx] != 0 : p.seed_bg != 0;
   const int ocols = TW / p.vec;  // stores per owned row; divides kThreads
   const int ocol = tid % ocols, orow = tid / ocols, ostep = kThreads / ocols;
   if (y0 >= H || x0 >= W) {  // a tile of the padding alone (padded_occ's grid)
@@ -413,7 +437,7 @@ fused_segment_kernel(const uint8_t* __restrict__ frames,
   const int segm = cdiv(L.MH, kTY);  // owned background rows a thread, over M
   const int mr0 = min(ty * segm, L.MH), mr1 = min(mr0 + segm, L.MH);
   float bgr[CX ? CX : 1][SEG ? SEG : 1];
-  if (!p.seed_bg) {
+  if (!seed_bg) {
     if constexpr (CX > 0) {
 #pragma unroll
       for (int j = 0; j < CX; ++j)
@@ -458,7 +482,7 @@ fused_segment_kernel(const uint8_t* __restrict__ frames,
   __syncthreads();
 
   for (int t = 0; t < p.N; ++t) {
-    const bool first = p.seed_bg && t == 0;
+    const bool first = seed_bg && t == 0;
     uint8_t* raw = raws[t & 1];
     // 1. u8 window: frame t's copies landed before the last frame's vote
     // barrier; frame t + 1's go out now, into the buffer frame t - 1 read
@@ -691,7 +715,7 @@ fused_segment_kernel(const uint8_t* __restrict__ frames,
   }
 }
 
-using KernelFn = void (*)(const uint8_t*, const float*, uint8_t*, float*, uint8_t*,
+using KernelFn = void (*)(const StreamFrames, const float*, uint8_t*, float*, uint8_t*,
                           const SegParams);
 
 template <int NT>
@@ -744,22 +768,25 @@ extern "C" int tpuva_fused_segment_occupancy(int ntaps, int median, int Rm,
   return static_cast<int>(err);
 }
 
-// frames (N,H,W) u8, bg0 (H,W) f32 -> masks (N,Hp,Wp) u8 0/255 (emit_diff:
-// the rounded magnitudes), bg_out (H,W). Unpadded, Hp = H and Wp = W and
+// S streams in one launch (1 <= S <= kMaxStreams): frames, a host array of
+// S pointers to (N,H,W) u8 on the card; bg0 (S,H,W) f32 -> masks
+// (S,N,Hp,Wp) u8 0/255 (emit_diff: the rounded magnitudes), bg_out (S,H,W).
+// seed: null (seed_bg for every stream) or S bytes on the card, nonzero
+// where that stream seeds its background. Unpadded, Hp = H and Wp = W and
 // occ is null; padded_occ (mask emit only) passes Hp >= H even, Wp >= W a
-// multiple of 128 and occ (N, Hp/2, Wp/128) u8, which the launch clears
+// multiple of 128 and occ (S, N, Hp/2, Wp/128) u8, which the launch clears
 // and the kernel sets (see the top of this file).
 // Host arrays: taps[ntaps]; stage_k[4], stage_iters[4], stage_se[4][31].
 // tile_w is 32, 64 or 128. Returns cudaGetLastError() after the launch
 // (0 = launched).
 extern "C" int tpuva_fused_segment(
-    const uint8_t* frames, const float* bg0, uint8_t* masks, float* bg_out,
+    const uint8_t* const* frames, int S, const float* bg0, uint8_t* masks, float* bg_out,
     int N, int H, int W, float c1, float a, float thr,
     const int* taps, int ntaps, int shift, int median,
     const int* stage_k, const int* stage_iters, const unsigned* stage_se,
-    int seed_bg, int emit_diff, int tile_h, int tile_w,
+    int seed_bg, const uint8_t* seed, int emit_diff, int tile_h, int tile_w,
     int Hp, int Wp, uint8_t* occ, void* stream) {
-  if (N <= 0 || H <= 0 || W <= 0 || ntaps < 1 || ntaps > kMaxTaps ||
+  if (S < 1 || S > kMaxStreams || N <= 0 || H <= 0 || W <= 0 || ntaps < 1 || ntaps > kMaxTaps ||
       ntaps % 2 == 0 || !tile_ok(tile_h, tile_w) || Hp < H || Wp < W ||
       (occ == nullptr && (Hp != H || Wp != W)) ||
       (occ != nullptr && (Hp % 2 || Wp % 128 || emit_diff)))
@@ -789,13 +816,20 @@ extern "C" int tpuva_fused_segment(
   p.P = ntaps / 2 + p.rm + p.Rm;  // blur + median + morphology reach
   p.TH = tile_h; p.TW = tile_w;
   p.seed_bg = seed_bg;
+  p.seed = seed;
   p.emit_diff = emit_diff ? 1 : 0;
   p.Hp = Hp; p.Wp = Wp;
   p.occ_w = occ ? Wp / 128 : 0;
   // widest stores and copies the rows' alignment allows
   const bool out16 = reinterpret_cast<uintptr_t>(masks) % 16 == 0;
   p.vec = (out16 && Wp % 16 == 0) ? 16 : (out16 && Wp % 4 == 0) ? 4 : 1;
-  const uintptr_t in_addr = reinterpret_cast<uintptr_t>(frames);
+  StreamFrames src{};
+  uintptr_t in_addr = 0;
+  for (int i = 0; i < S; ++i) {
+    if (frames[i] == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+    src.frames[i] = frames[i];
+    in_addr |= reinterpret_cast<uintptr_t>(frames[i]);  // every stream's alignment
+  }
   p.vin = (in_addr % 16 == 0 && W % 16 == 0) ? 16 : (in_addr % 4 == 0 && W % 4 == 0) ? 4 : 1;
   p.L = Layout(tile_h, tile_w, p.P, p.Rm, p.rm);
   const Layout& L = p.L;
@@ -806,9 +840,9 @@ extern "C" int tpuva_fused_segment(
   if (err != cudaSuccess) return static_cast<int>(err);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (occ != nullptr &&
-      (err = cudaMemsetAsync(occ, 0, size_t(N) * (Hp / 2) * (Wp / 128), s)) != cudaSuccess)
+      (err = cudaMemsetAsync(occ, 0, size_t(S) * N * (Hp / 2) * (Wp / 128), s)) != cudaSuccess)
     return static_cast<int>(err);
-  const dim3 grid((Wp + tile_w - 1) / tile_w, (Hp + tile_h - 1) / tile_h);
-  k<<<grid, dim3(kTX, kTY), L.total, s>>>(frames, bg0, masks, bg_out, occ, p);
+  const dim3 grid((Wp + tile_w - 1) / tile_w, (Hp + tile_h - 1) / tile_h, S);
+  k<<<grid, dim3(kTX, kTY), L.total, s>>>(src, bg0, masks, bg_out, occ, p);
   return static_cast<int>(cudaGetLastError());
 }

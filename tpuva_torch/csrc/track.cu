@@ -26,9 +26,9 @@
 // scalar operations; but each frame's table depends on the one before, so
 // the kernel is a chain of N frames, each a chain of dependent steps
 // (cost, reductions, assignment, prefix counts, compaction). Latency bounds
-// it. One CTA of one warp walks the N frames, the slow path
+// it. One CTA of one warp walks a stream's N frames, the slow path
 // (Jonker-Volgenant) included, and the host reads nothing (frame_idx0 is
-// read on the card): a batch is one launch. Two kernels, chosen by the
+// read on the card): a batch is one launch, for one stream or S. Two kernels, chosen by the
 // table's shape in tpuva_track_scan (tpuva_track_scan_plan says which, and
 // tpuva_torch/track/scan.py::scan_plan is its pure mirror):
 // - track_scan_regs, where T <= 32 and D <= 32 (the bench: 16 x 8). A
@@ -66,6 +66,11 @@
 //   ~56k), the same kernel keeps them in a global scratch buffer that the
 //   wrapper passes (the kGlobal instantiation), so no table size is
 //   refused.
+// Streams: one launch takes S independent streams, each with its own
+// table, N frames of detections, frame index and outputs (the s-th of S
+// equal blocks of every buffer, global scratch included): S CTAs of one
+// warp where one stream takes one, CTA s on stream s (stream_params). The
+// streams' chains run side by side on S SMs; S = 1 is the one-stream call.
 
 #include <climits>
 #include <cstdint>
@@ -100,6 +105,28 @@ struct Params {
   int death_patience;
   int hungarian;
 };
+
+// Stream s's view of the S streams' buffers: each field is the s-th of S
+// equal blocks (dets (S, N, D, 3), the tables (S, T, ...), frame0 (S,), ...).
+__device__ __forceinline__ Params stream_params(Params P, int s) {
+  const long long nd = static_cast<long long>(P.N) * P.D, t = P.T;
+  P.dets += 3 * nd * s;
+  P.det_valid += nd * s;
+  P.pos0 += 2 * t * s;
+  P.tid0 += t * s;
+  P.missed0 += t * s;
+  P.active0 += t * s;
+  P.next_id0 += s;
+  P.frame0 += s;
+  P.pos1 += 2 * t * s;
+  P.tid1 += t * s;
+  P.missed1 += t * s;
+  P.active1 += t * s;
+  P.next_id1 += s;
+  P.rows += 5 * nd * s;
+  P.row_valid += nd * s;
+  return P;
+}
 
 // The arrays, in 4-byte words from the base: two track tables (A, B), the
 // cost matrix, per-detection arrays, and the Jonker-Volgenant arrays over
@@ -465,10 +492,11 @@ __device__ __forceinline__ void swap_ptr(X*& x, X*& y) {
 
 template <bool kGlobal>
 __global__ void __launch_bounds__(32)
-track_scan_kernel(Params P, float* scratch) {
+track_scan_kernel(const Params P0, float* scratch) {
   extern __shared__ float smem[];
-  float* mem = kGlobal ? scratch : smem;
+  const Params P = stream_params(P0, blockIdx.x);
   const Layout L(P.T, P.D);
+  float* mem = kGlobal ? scratch + L.words * blockIdx.x : smem;
   const int lane = threadIdx.x;
   const int T = P.T, D = P.D;
   // the current table (a) and the one that receives the next frame's (b),
@@ -705,8 +733,9 @@ __device__ __forceinline__ void stage_chunk(const Params& P, const RegLayout& R,
 // constant of an unrolled loop.
 template <int kD>
 __global__ void __launch_bounds__(32)
-track_scan_regs(Params P) {
+track_scan_regs(const Params P0) {
   extern __shared__ __align__(16) uint8_t smem8[];
+  const Params P = stream_params(P0, blockIdx.x);
   float* mem = reinterpret_cast<float*>(smem8);  // the Jonker-Volgenant region
   const int T = P.T, D = P.D;
   const Layout L(T, D);
@@ -989,11 +1018,11 @@ void plan(int T, int D, int* kind, int* kd, long long* smem, long long* scratch)
 }
 
 template <int kD>
-cudaError_t launch_regs(const Params& P, long long smem, cudaStream_t s) {
+cudaError_t launch_regs(const Params& P, int S, long long smem, cudaStream_t s) {
   const cudaError_t err = cudaFuncSetAttribute(
       track_scan_regs<kD>, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (err != cudaSuccess) return err;
-  track_scan_regs<kD><<<1, 32, static_cast<size_t>(smem), s>>>(P);
+  track_scan_regs<kD><<<S, 32, static_cast<size_t>(smem), s>>>(P);
   return cudaGetLastError();
 }
 
@@ -1010,21 +1039,23 @@ extern "C" int tpuva_track_scan_plan(int T, int D, int* kind, int* kd, long long
   return 0;
 }
 
-// One launch for the batch: dets (N, D, 3) f32, det_valid (N, D) bool, the
-// state (pos0, tid0, missed0, active0, next_id0) and frame0 () int32, all
-// on the card -> the new state (pos1 ..., next_id1), rows (N, D, 5) f32,
-// row_valid (N, D) bool. The kernel is the one tpuva_track_scan_plan names
-// for (T, D); scratch holds its scratch bytes, or is null where that is 0.
-// Returns cudaGetLastError() after the launch (0 = launched).
+// One launch for the batch of S streams: dets (S, N, D, 3) f32, det_valid
+// (S, N, D) bool, the state (pos0 (S, T, 2), tid0, missed0, active0 (S, T),
+// next_id0 (S,)) and frame0 (S,) int32, all on the card -> the new state
+// (pos1 ..., next_id1), rows (S, N, D, 5) f32, row_valid (S, N, D) bool; a
+// CTA a stream. The kernel is the one tpuva_track_scan_plan names for
+// (T, D); scratch holds S times its scratch bytes, or is null where that is
+// 0. Returns cudaGetLastError() after the launch (0 = launched).
 extern "C" int tpuva_track_scan(
-    const float* dets, const uint8_t* det_valid, int N, int T, int D,
+    const float* dets, const uint8_t* det_valid, int S, int N, int T, int D,
     const float* pos0, const int* tid0, const int* missed0, const uint8_t* active0,
     const int* next_id0, const int* frame0,
     float* pos1, int* tid1, int* missed1, uint8_t* active1, int* next_id1,
     float* rows, uint8_t* row_valid,
     float max_dist, int death_patience, int hungarian,
     void* scratch, long long scratch_bytes, void* stream) {
-  if (N < 0 || T < 1 || D < 1) return static_cast<int>(cudaErrorInvalidValue);
+  if (S < 1 || S > 65535 || N < 0 || T < 1 || D < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
   const Params P{dets, det_valid, N, T, D, pos0, tid0, missed0, active0, next_id0, frame0,
                  pos1, tid1, missed1, active1, next_id1, rows, row_valid,
                  max_dist, death_patience, hungarian};
@@ -1033,20 +1064,21 @@ extern "C" int tpuva_track_scan(
   plan(T, D, &kind, &kd, &smem, &need);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (kind == kRegs) {
-    const cudaError_t err = kd == 8    ? launch_regs<8>(P, smem, s)
-                            : kd == 16 ? launch_regs<16>(P, smem, s)
-                                       : launch_regs<32>(P, smem, s);
+    const cudaError_t err = kd == 8    ? launch_regs<8>(P, S, smem, s)
+                            : kd == 16 ? launch_regs<16>(P, S, smem, s)
+                                       : launch_regs<32>(P, S, smem, s);
     return static_cast<int>(err);
   }
   if (kind == kGlobalTable) {
-    if (scratch == nullptr || scratch_bytes < need) return static_cast<int>(cudaErrorInvalidValue);
-    track_scan_kernel<true><<<1, 32, 0, s>>>(P, static_cast<float*>(scratch));
+    if (scratch == nullptr || scratch_bytes < need * S)
+      return static_cast<int>(cudaErrorInvalidValue);
+    track_scan_kernel<true><<<S, 32, 0, s>>>(P, static_cast<float*>(scratch));
   } else {
     const cudaError_t err = cudaFuncSetAttribute(
         track_scan_kernel<false>, cudaFuncAttributeMaxDynamicSharedMemorySize,
         static_cast<int>(smem));
     if (err != cudaSuccess) return static_cast<int>(err);
-    track_scan_kernel<false><<<1, 32, static_cast<size_t>(smem), s>>>(P, nullptr);
+    track_scan_kernel<false><<<S, 32, static_cast<size_t>(smem), s>>>(P, nullptr);
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -66,6 +66,7 @@ points run on the card unless they are given ``device="cpu"``.
 
 from __future__ import annotations
 
+import math
 import warnings
 from typing import NamedTuple, Optional
 
@@ -287,14 +288,26 @@ def torch_front_end(cfg, carry: PipelineCarry, frames: torch.Tensor,
     background (parallel_bg: tpuva's associative scan takes another float32
     order, which no kernel carries) and a median k > 3 are torch code here,
     as in tpuva's jnp branch, seeded as K1 is: from the filtered first
-    frame while the carry has no background."""
-    seed_bg = not bool(carry.bg_valid)
+    frame while the carry has no background.
+
+    With a stream axis (a carry of init_multistream_carry, frames
+    (S, N, H, W) or a sequence of S (N, H, W) batches) it returns the S·N
+    masks in stream order and the (S, H, W) backgrounds: K1 is one launch
+    for all streams, each seeded by its flag of ~bg_valid on the device;
+    the torch ops run once a stream, as tpuva's jnp branch under vmap."""
+    streams = carry.bg.dim() == 3
     otsu = cfg.segment.threshold == "otsu"
     if not parallel_bg and _can_stage(cfg):
-        if otsu:
-            du8, bg_last = fused_segment(frames, carry.bg, seed_bg=seed_bg, **_diff_kwargs(cfg))
-            return _otsu_mask(cfg, du8), bg_last
-        return fused_segment(frames, carry.bg, seed_bg=seed_bg, **_front_end_kwargs(cfg))
+        seed_bg = ~carry.bg_valid if streams else not bool(carry.bg_valid)
+        emit = _diff_kwargs(cfg) if otsu else _front_end_kwargs(cfg)
+        out, bg_last = fused_segment(frames, carry.bg, seed_bg=seed_bg, **emit)
+        out = out.flatten(0, out.dim() - 3)
+        return (_otsu_mask(cfg, out) if otsu else out), bg_last
+    if streams:
+        outs = [torch_front_end(cfg, _stream_carry(carry, s), frames[s], parallel_bg)
+                for s in range(len(frames))]
+        return torch.cat([m for m, _ in outs]), torch.stack([b for _, b in outs])
+    seed_bg = not bool(carry.bg_valid)
     f = filter_batch(cfg, frames.to(torch.float32))
     bgs = background_trajectory(f[0] if seed_bg else carry.bg, f, cfg.background.alpha,
                                 parallel=parallel_bg)
@@ -311,7 +324,11 @@ def process_batch(cfg, carry: PipelineCarry, frames: torch.Tensor,
                   max_components: int = 64, use_pallas: bool = False,
                   ccl_single_pass: bool = False, compact_slots: int = 48):
     """One N-frame batch through the one-dispatch route. frames: (N, H, W)
-    uint8 on the carry's device.
+    uint8 on the carry's device; or, with a carry of init_multistream_carry,
+    S streams' batches, (S, N, H, W) or a sequence of S (N, H, W), as one
+    step (torch_front_end's stream axis, the stats over the S·N frames as
+    one batch, one K5 launch), every field of out then leading with (S,)
+    and ccl_converged one flag.
 
     The front end is torch_front_end: kernel K1 for the sequential
     background (the mask emit, or for Otsu the diff emit), torch ops for
@@ -341,10 +358,7 @@ def process_batch(cfg, carry: PipelineCarry, frames: torch.Tensor,
         stats = connected_components_with_stats(
             mask, max_components=max_components, compute_bbox=False, compute_labels=False
         )
-    new_carry, out = _finish_batch(cfg, carry, stats, mask, bg_last, return_masks)
-    out["stats_overflow"] = stats["overflow"]
-    out["ccl_converged"] = stats["ccl_converged"]
-    return new_carry, out
+    return _finish_batch(cfg, carry, stats, mask, bg_last, return_masks)
 
 
 def padded_handoff(cfg, H: int, W: int) -> bool:
@@ -401,40 +415,52 @@ def process_batch_staged(cfg, carry: PipelineCarry, frames: torch.Tensor,
         masks, bg_last = torch_front_end(cfg, carry, frames)
         stats = label_stats(masks, max_components)
     new_carry, out = _finish_batch(cfg, carry, stats, masks, bg_last, return_masks)
-    out["stats_overflow"] = stats["overflow"]
-    out["ccl_converged"] = stats["ccl_converged"]
     if return_labels:
         root, occ = root_labels(masks, 8)
         out["labels"] = relabel_dense(root, max_components, strip_occ=occ)[0]
     return new_carry, out
 
 
+def _stream_carry(carry: PipelineCarry, s: int) -> PipelineCarry:
+    """Stream s's carry of a carry with a stream axis."""
+    return PipelineCarry(bg=carry.bg[s], bg_valid=carry.bg_valid[s],
+                         track=TrackState(*(x[s] for x in carry.track)),
+                         frame_idx=carry.frame_idx[s])
+
+
 def _finish_batch(cfg, carry: PipelineCarry, stats, mask, bg_last, return_masks):
-    dets, n_det, det_valid, det_sums = extract_detections(
-        stats, cfg.segment.min_area, cfg.segment.max_blobs
-    )
-    N = mask.shape[0]
+    """Detections, the tracker (K5) and the outputs of a batch. With a
+    stream axis (bg_last (S, H, W), mask and stats the S·N frames in
+    stream order) the tracker is one launch for all streams and every
+    output leads with (S,)."""
+    lead = tuple(bg_last.shape[:-2])  # (S,) with a stream axis, else ()
+    N = mask.shape[0] // math.prod(lead)
+    D = cfg.segment.max_blobs
+    dets, n_det, det_valid, det_sums = extract_detections(stats, cfg.segment.min_area, D)
     ts, rows, row_valid = track_scan(
-        carry.track, dets, det_valid, carry.frame_idx,
+        carry.track, dets.reshape(*lead, N, D, 3), det_valid.reshape(*lead, N, D),
+        carry.frame_idx,
         max_dist=cfg.track.max_dist,
         death_patience=cfg.track.death_patience,
         assigner=cfg.track.assigner,
     )
     new_carry = PipelineCarry(
         bg=bg_last,
-        bg_valid=torch.ones((), dtype=torch.bool, device=mask.device),
+        bg_valid=torch.ones(lead, dtype=torch.bool, device=mask.device),
         track=ts,
         frame_idx=(carry.frame_idx + N).to(torch.int32),
     )
     out = {
         "rows": rows,
         "row_valid": row_valid,
-        "n_det": n_det,
-        "row_sums": det_sums,
-        "active_tracks": ts.active.to(torch.int32).sum().to(torch.int32),
+        "n_det": n_det.reshape(*lead, N),
+        "row_sums": det_sums.reshape(*lead, N, D, 2),
+        "active_tracks": ts.active.to(torch.int32).sum(dim=-1).to(torch.int32),
+        "stats_overflow": stats["overflow"].reshape(*lead, N),
+        "ccl_converged": stats["ccl_converged"],
     }
     if return_masks:
-        out["masks"] = mask
+        out["masks"] = mask.reshape(*lead, N, *mask.shape[1:])
     return new_carry, out
 
 

@@ -218,15 +218,11 @@ class AsyncRowDrainer:
             raise exc
 
 
-def save_checkpoint(path: str, carry: PipelineCarry, rows, cfg) -> None:
-    """Atomic snapshot of the carry + rows so far (npz), with tpuva's
-    fields and dtypes.
-
-    rows: list of tuples or (k, 5) ndarray — embedded in the snapshot;
-    or an int — the durable row COUNT of an external RowLog (the
-    append-only mode; the snapshot then stays O(carry))."""
+def _carry_payload(carry: PipelineCarry, cfg) -> dict:
+    """The carry's fields and the config under tpuva's npz keys (a stream
+    axis, where the carry has one, leads every field)."""
     c = carry_to_numpy(carry)
-    payload = {
+    return {
         "bg": c.bg,
         "bg_valid": c.bg_valid,
         "frame_idx": c.frame_idx,
@@ -237,10 +233,10 @@ def save_checkpoint(path: str, carry: PipelineCarry, rows, cfg) -> None:
         "track_next_id": c.track.next_id,
         "config_json": np.frombuffer(cfg.to_json().encode(), dtype=np.uint8),
     }
-    if isinstance(rows, (int, np.integer)):
-        payload["row_count"] = np.int64(rows)
-    else:
-        payload["rows"] = np.asarray(rows, np.float64).reshape(-1, 5)
+
+
+def _atomic_savez(path: str, payload: dict) -> None:
+    """np.savez to a temporary file beside path, then renamed over it."""
     d = os.path.dirname(os.path.abspath(path)) or "."
     fd, tmp = tempfile.mkstemp(dir=d, suffix=".npz.tmp")
     try:
@@ -253,6 +249,41 @@ def save_checkpoint(path: str, carry: PipelineCarry, rows, cfg) -> None:
         raise
 
 
+def _load_carry(z, cfg, device) -> PipelineCarry:
+    """The carry of an open checkpoint on `device`, after checking that it
+    was written with cfg (compared as type(cfg), so either package's
+    config class works)."""
+    if type(cfg).from_json(bytes(z["config_json"]).decode()) != cfg:
+        raise ValueError("checkpoint was produced with a different PipelineConfig")
+    return carry_from_numpy(PipelineCarry(
+        bg=z["bg"],
+        bg_valid=z["bg_valid"],
+        track=TrackState(
+            pos=z["track_pos"],
+            tid=z["track_tid"],
+            missed=z["track_missed"],
+            active=z["track_active"],
+            next_id=z["track_next_id"],
+        ),
+        frame_idx=z["frame_idx"],
+    ), device)
+
+
+def save_checkpoint(path: str, carry: PipelineCarry, rows, cfg) -> None:
+    """Atomic snapshot of the carry + rows so far (npz), with tpuva's
+    fields and dtypes.
+
+    rows: list of tuples or (k, 5) ndarray — embedded in the snapshot;
+    or an int — the durable row COUNT of an external RowLog (the
+    append-only mode; the snapshot then stays O(carry))."""
+    payload = _carry_payload(carry, cfg)
+    if isinstance(rows, (int, np.integer)):
+        payload["row_count"] = np.int64(rows)
+    else:
+        payload["rows"] = np.asarray(rows, np.float64).reshape(-1, 5)
+    _atomic_savez(path, payload)
+
+
 def load_checkpoint(path: str, cfg, device="cuda"):
     """Returns (carry on `device`, rows) or raises. Validates that the
     config matches (compared as type(cfg), so either package's config
@@ -261,21 +292,7 @@ def load_checkpoint(path: str, cfg, device="cuda"):
     rows is a list of tuples (embedded-rows snapshots) or an int row
     count (append-only RowLog snapshots — truncate the log to it)."""
     with np.load(path) as z:
-        saved_cfg = bytes(z["config_json"]).decode()
-        if type(cfg).from_json(saved_cfg) != cfg:
-            raise ValueError("checkpoint was produced with a different PipelineConfig")
-        carry = carry_from_numpy(PipelineCarry(
-            bg=z["bg"],
-            bg_valid=z["bg_valid"],
-            track=TrackState(
-                pos=z["track_pos"],
-                tid=z["track_tid"],
-                missed=z["track_missed"],
-                active=z["track_active"],
-                next_id=z["track_next_id"],
-            ),
-            frame_idx=z["frame_idx"],
-        ), device)
+        carry = _load_carry(z, cfg, device)
         if "row_count" in z:
             return carry, int(z["row_count"])
         return carry, [tuple(r) for r in z["rows"]]

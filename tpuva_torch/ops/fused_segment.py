@@ -39,6 +39,16 @@ close out of K1, the last K1m step writes them.
 ``seed_bg=True`` starts the background from the filtered (blur, median)
 first frame instead of ``bg0`` — the pipeline's first batch without a
 background plate — so seeding runs through the kernel too.
+
+A stream axis: frames (S, N, H, W), or a sequence of S (N, H, W) batches
+wherever they lie, with bg0 (S, H, W), are S independent camera streams,
+each with its own background; every output then leads with (S,). One
+launch takes all of them, up to MAX_STREAMS (the grid's z index is the stream,
+each stream's frames read through an array of S pointers, so no batch is
+stacked on the card), and ``seed_bg`` is one flag for all streams or one a
+stream — an (S,) bool tensor on the frames' device, read by the kernel (a
+carry's ``~bg_valid``, with no read on the host). Where ``k1_split`` takes a stage out of K1's launch, the streams
+run one after another.
 """
 
 from __future__ import annotations
@@ -75,6 +85,7 @@ TILES = ((64, 64), (32, 128), (32, 64), (64, 128), (16, 128), (16, 64),
          (16, 32), (8, 32), (4, 32), (2, 32), (1, 32))
 SMS = 132  # streaming multiprocessors of an H100 SXM
 THREADS = 256  # threads per CTA
+MAX_STREAMS = 64  # streams one launch takes (csrc/fused_segment.cu's kMaxStreams)
 
 
 def _ceil_to(v: int, m: int) -> int:
@@ -148,9 +159,10 @@ class Plan(NamedTuple):
 
 def launch_plan(H: int, W: int, ntaps: int, median: bool, rm_reach: int,
                 blocks_per_sm: Optional[Callable[..., int]] = None,
-                sms: int = SMS) -> Plan:
-    """The tile for an (H, W) image: the least rounds x window area, then
-    the fewest CTAs.
+                sms: int = SMS, streams: int = 1) -> Plan:
+    """The tile for an (H, W) image of `streams` streams in one launch (the
+    grid's tiles of every stream share the waves): the least rounds x
+    window area, then the fewest CTAs.
 
     A CTA's frame loop is a chain of dependent steps behind barriers, so a
     wave lasts about as long as one CTA's window takes a frame, times the
@@ -174,7 +186,7 @@ def launch_plan(H: int, W: int, ntaps: int, median: bool, rm_reach: int,
         if bps < 1:
             continue
         grid = (-(-W // tw), -(-H // th))
-        ctas = grid[0] * grid[1]
+        ctas = grid[0] * grid[1] * streams
         waves = -(-ctas // (bps * sms))
         rounds = max(waves, 2 if rm_reach else 1)
         key = (rounds * (th + 2 * P) * (tw + 2 * P), ctas)
@@ -207,7 +219,7 @@ def card_blocks_per_sm(ntaps: int, median: bool, rm_reach: int, tile_h: int, til
 
 
 def fused_segment_plain(
-    frames: torch.Tensor,
+    frames,
     bg0: torch.Tensor,
     *,
     alpha: float,
@@ -226,13 +238,26 @@ def fused_segment_plain(
     padded_occ: bool = False,
 ):
     """Plain PyTorch version of the kernel (same arguments, same results;
-    N >= 1)."""
+    N >= 1). With a stream axis (frames (S, N, H, W) or a sequence of S
+    batches, bg0 (S, H, W)) each stream in turn, the results stacked."""
     _check_emit(emit, open_ksize, close_ksize, padded_occ)
+    kw = dict(alpha=alpha, threshold=threshold, blur_ksize=blur_ksize, blur_sigma=blur_sigma,
+              median_ksize=median_ksize, open_shape=open_shape, open_ksize=open_ksize,
+              open_iters=open_iters, close_shape=close_shape, close_ksize=close_ksize,
+              close_iters=close_iters, emit=emit, padded_occ=padded_occ)
+    if _has_streams(frames):
+        seeds = _stream_seeds(seed_bg, len(frames))
+        outs = [fused_segment_plain(frames[s], bg0[s], seed_bg=seeds[s], **kw)
+                for s in range(len(frames))]
+        return tuple(torch.stack(x) for x in zip(*outs))
     f = gaussian_blur_u8(frames, blur_ksize, blur_sigma) if blur_ksize else frames.to(torch.float32)
     if median_ksize:
         f = median_blur(f, median_ksize)
     N, H, W = frames.shape
-    bg = f[0] if seed_bg else bg0
+    if isinstance(seed_bg, torch.Tensor):  # a flag on the frames' device
+        bg = torch.where(seed_bg.to(torch.bool), f[0], bg0)
+    else:
+        bg = f[0] if seed_bg else bg0
     masks = torch.empty((N, H, W), dtype=torch.uint8, device=frames.device)
     for t in range(N):
         bg = background_update(bg, f[t], alpha)
@@ -249,6 +274,22 @@ def fused_segment_plain(
         padded, occ = pad_occ_plain(masks, fused_tile(H, W)[2:])
         return padded, bg, occ
     return masks, bg
+
+
+def _has_streams(frames) -> bool:
+    """Whether fused_segment's frames carry a stream axis: (S, N, H, W), or
+    a sequence of S (N, H, W) batches."""
+    return isinstance(frames, (list, tuple)) or frames.dim() == 4
+
+
+def _stream_seeds(seed_bg, S: int) -> list:
+    """seed_bg for each of S streams: a bool for all, or an (S,) tensor (its
+    elements, on its device)."""
+    if isinstance(seed_bg, torch.Tensor):
+        if seed_bg.shape != (S,):
+            raise ValueError(f"fused_segment: seed_bg must be ({S},), got {tuple(seed_bg.shape)}")
+        return list(seed_bg)
+    return [bool(seed_bg)] * S
 
 
 def _check_emit(emit: str, open_ksize: int, close_ksize: int, padded_occ: bool = False) -> None:
@@ -295,7 +336,11 @@ def fused_segment(
     blur_ksize 0 = no blur; median_ksize 0 or 3; open/close ksize 0 = off.
     CPU tensors run fused_segment_plain; CUDA tensors launch the kernel,
     with the blur or the morphology in kernels of their own where one
-    launch does not take them (k1_split)."""
+    launch does not take them (k1_split).
+
+    frames (S, N, H, W) or a sequence of S (N, H, W) batches, with bg0
+    (S, H, W), are S streams (the module's docstring): every output leads
+    with (S,), and seed_bg may be one flag a stream."""
     _check_emit(emit, open_ksize, close_ksize, padded_occ)
     kw = dict(
         alpha=alpha, threshold=threshold, blur_ksize=blur_ksize,
@@ -304,6 +349,8 @@ def fused_segment(
         close_shape=close_shape, close_ksize=close_ksize,
         close_iters=close_iters, seed_bg=seed_bg, emit=emit,
     )
+    if _has_streams(frames):
+        return _fused_segment_streams(frames, bg0, padded_occ, kw)
     if frames.dim() != 3 or frames.dtype != torch.uint8:
         raise ValueError("fused_segment: frames must be (N, H, W) uint8")
     N, H, W = frames.shape
@@ -326,10 +373,61 @@ def fused_segment(
                      _k1_launch, padded_occ=padded_occ, **kw)
 
 
+def _fused_segment_streams(frames, bg0, padded_occ: bool, kw: dict):
+    """fused_segment over S streams: the checks, then the plain version on
+    the CPU; on the card one launch for all streams, or, where k1_split
+    takes a stage out of K1, run_split a stream at a time."""
+    fr = list(frames)
+    S = len(fr)
+    if not 1 <= S <= MAX_STREAMS:
+        raise ValueError(f"fused_segment: a stream axis takes 1 to {MAX_STREAMS} streams, got {S}")
+    N, H, W = fr[0].shape if fr[0].dim() == 3 else (-1, -1, -1)
+    dev = fr[0].device
+    if any(f.dim() != 3 or f.shape != (N, H, W) or f.dtype != torch.uint8 or f.device != dev
+           for f in fr):
+        raise ValueError("fused_segment: every stream's frames must be (N, H, W) uint8, the "
+                         "same shape on one device")
+    if bg0.shape != (S, H, W) or bg0.dtype != torch.float32 or bg0.device != dev:
+        raise ValueError("fused_segment: bg0 must be (S, H, W) float32 on the frames' device")
+    if kw["median_ksize"] not in (0, 3):
+        raise NotImplementedError("fused_segment: median_ksize must be 0 or 3")
+    seed = kw["seed_bg"]
+    _stream_seeds(seed, S)  # checks a tensor's shape
+    if isinstance(seed, torch.Tensor) and seed.device != dev:
+        raise ValueError("fused_segment: seed_bg flags must lie on the frames' device")
+    if N == 0:
+        empty = [fused_segment(f, b, padded_occ=padded_occ, **dict(kw, seed_bg=False))
+                 for f, b in zip(fr, bg0)]
+        return tuple(torch.stack(x) for x in zip(*empty))
+    if dev.type == "cpu":
+        return fused_segment_plain(fr, bg0, padded_occ=padded_occ, **kw)
+    if dev.type != "cuda":
+        raise ValueError(f"fused_segment: unsupported device {dev}")
+    return run_streams([f.contiguous() for f in fr], bg0.contiguous(), k1_split(H, W, **kw),
+                       _k1_launch, padded_occ=padded_occ, **kw)
+
+
+def run_streams(frames: list, bg0, parts, k1, padded_occ=False, **kw):
+    """fused_segment's stream axis as the card runs it: frames a list of S
+    (N, H, W) batches, bg0 (S, H, W), S <= MAX_STREAMS. Where parts
+    (k1_split's) keeps every stage in K1, k1(frames, bg0, **options) once
+    (one launch on the card; the CPU tests pass fused_segment_plain);
+    otherwise run_split a stream at a time, each with its own seed flag.
+    Returns the outputs stacked along (S,)."""
+    if parts == (False, False):
+        return k1(frames, bg0, padded_occ=padded_occ, **kw)
+    S = len(frames)
+    seeds = _stream_seeds(kw["seed_bg"], S)
+    outs = [run_split(frames[s], bg0[s], parts, k1, padded_occ=padded_occ,
+                      **dict(kw, seed_bg=seeds[s])) for s in range(S)]
+    return tuple(torch.stack(x) for x in zip(*outs))
+
+
 def _k1_launch(frames, bg0, padded_occ=False, **kw):
     out = _fused_segment_cuda(frames, bg0, padded_occ=padded_occ, **kw)
     fused_segment.launches += 1
     fused_segment.padded_launches += bool(padded_occ)
+    fused_segment.stream_launches += _has_streams(frames)
     return out
 
 
@@ -428,26 +526,37 @@ def fused_segment_plan(H: int, W: int, *, blur_ksize: int = 0, blur_sigma: float
                        median_ksize: int = 0, open_ksize: int = 0, open_iters: int = 1,
                        close_ksize: int = 0, close_iters: int = 1,
                        blocks_per_sm: Optional[Callable[..., int]] = None, sms: int = SMS,
-                       **_unused) -> Plan:
-    """launch_plan for fused_segment's options on an (H, W) image; pass
-    blocks_per_sm=card_blocks_per_sm and the card's SM count for the card
-    (the wrapper does), or nothing for the shared-memory model of an H100
-    SXM. Options that do not shape the launch are ignored."""
+                       streams: int = 1, **_unused) -> Plan:
+    """launch_plan for fused_segment's options on an (H, W) image of
+    `streams` streams; pass blocks_per_sm=card_blocks_per_sm and the card's
+    SM count for the card (the wrapper does), or nothing for the
+    shared-memory model of an H100 SXM. Options that do not shape the
+    launch are ignored."""
     return launch_plan(H, W, _ntaps(blur_ksize, blur_sigma), bool(median_ksize),
                        _reach(open_ksize, open_iters, close_ksize, close_iters),
-                       blocks_per_sm, sms)
+                       blocks_per_sm, sms, streams)
 
 
 def _fused_segment_cuda(frames, bg0, *, alpha, threshold, blur_ksize=0, blur_sigma=0.0,
                         median_ksize=0, open_shape="rect", open_ksize=0, open_iters=1,
                         close_shape="rect", close_ksize=0, close_iters=1, seed_bg=False,
                         emit="mask", tile=None, padded_occ=False):
-    """The launch, on contiguous CUDA tensors that fused_segment checked;
-    tile (rows, cols) overrides launch_plan's (the tests and the smoke's
-    timing force each candidate). Does not count a launch of the main
-    path: fused_segment does, around it."""
+    """The launch, on contiguous CUDA tensors that fused_segment checked:
+    frames (N, H, W) and bg0 (H, W), or S <= MAX_STREAMS streams, frames a
+    sequence of S (N, H, W) batches (or (S, N, H, W)) and bg0 (S, H, W),
+    every output then leading with (S,); seed_bg a bool, or a tensor of
+    one flag a stream on the card. tile (rows, cols) overrides
+    launch_plan's (the tests and the smoke's timing force each candidate).
+    Does not count a launch of the main path: fused_segment does, around
+    it."""
     _check_emit(emit, open_ksize, close_ksize, padded_occ)
-    N, H, W = frames.shape
+    streams = _has_streams(frames)
+    fr = list(frames) if streams else [frames]
+    S = len(fr)
+    if not 1 <= S <= MAX_STREAMS:
+        raise ValueError(f"fused_segment kernel: 1 to {MAX_STREAMS} streams a launch, got {S}")
+    bgs = bg0 if streams else bg0[None]
+    N, H, W = fr[0].shape
     if not k1_takes(H, W, blur_ksize=blur_ksize, blur_sigma=blur_sigma,
                     median_ksize=median_ksize, open_ksize=open_ksize, open_iters=open_iters,
                     close_ksize=close_ksize, close_iters=close_iters):
@@ -460,7 +569,8 @@ def _fused_segment_cuda(frames, bg0, *, alpha, threshold, blur_ksize=0, blur_sig
             H, W, blur_ksize=blur_ksize, blur_sigma=blur_sigma, median_ksize=median_ksize,
             open_ksize=open_ksize, open_iters=open_iters, close_ksize=close_ksize,
             close_iters=close_iters, blocks_per_sm=card_blocks_per_sm,
-            sms=torch.cuda.get_device_properties(frames.device).multi_processor_count).tile
+            sms=torch.cuda.get_device_properties(fr[0].device).multi_processor_count,
+            streams=S).tile
     stage_k = np.array([k for _, k, _ in stages], np.int32)
     stage_iters = np.array([it if k else 0 for _, k, it in stages], np.int32)
     stage_se = np.zeros((4, MAX_SE), np.uint32)
@@ -469,24 +579,35 @@ def _fused_segment_cuda(frames, bg0, *, alpha, threshold, blur_ksize=0, blur_sig
             stage_se[s, :k] = _se_rows(shape, k)
     taps_np = np.array(taps, np.int32)
     c1, a = background_coeffs(alpha)
+    dev = fr[0].device
     Hp, Wp = fused_tile(H, W)[2:] if padded_occ else (H, W)
-    masks = torch.empty((N, Hp, Wp), dtype=torch.uint8, device=frames.device)
-    occ = (torch.empty((N, Hp // 2, Wp // 128), dtype=torch.uint8, device=frames.device)
+    masks = torch.empty((S, N, Hp, Wp), dtype=torch.uint8, device=dev)
+    occ = (torch.empty((S, N, Hp // 2, Wp // 128), dtype=torch.uint8, device=dev)
            if padded_occ else None)
-    bg_out = torch.empty((H, W), dtype=torch.float32, device=frames.device)
+    bg_out = torch.empty((S, H, W), dtype=torch.float32, device=dev)
+    seed = None  # one flag a stream on the card, else seed_bg for all
+    if isinstance(seed_bg, torch.Tensor):
+        seed = seed_bg.reshape(-1).to(torch.uint8).contiguous()
+        if seed.numel() != S or seed.device != dev:
+            raise ValueError(f"fused_segment kernel: seed_bg must be {S} flags on {dev}")
+    ptrs = (ctypes.c_void_p * S)(*(f.data_ptr() for f in fr))
     lib = _build.load()
     err = lib.tpuva_fused_segment(
-        frames.data_ptr(), bg0.data_ptr(), masks.data_ptr(), bg_out.data_ptr(),
+        ptrs, S, bgs.data_ptr(), masks.data_ptr(), bg_out.data_ptr(),
         N, H, W, c1, a, float(np.float32(threshold)),
         taps_np.ctypes.data, len(taps), shift, 1 if median_ksize else 0,
         stage_k.ctypes.data, stage_iters.ctypes.data, stage_se.ctypes.data,
-        1 if seed_bg else 0, 1 if emit == "diff" else 0, tile[0], tile[1],
+        0 if seed is not None or not seed_bg else 1,
+        None if seed is None else seed.data_ptr(),
+        1 if emit == "diff" else 0, tile[0], tile[1],
         Hp, Wp, None if occ is None else occ.data_ptr(),
-        torch.cuda.current_stream(frames.device).cuda_stream,
+        torch.cuda.current_stream(dev).cuda_stream,
     )
     _build.check(lib, err, "fused_segment kernel")
-    return (masks, bg_out, occ) if padded_occ else (masks, bg_out)
+    out = (masks, bg_out, occ) if padded_occ else (masks, bg_out)
+    return out if streams else tuple(x[0] for x in out)
 
 
 fused_segment.launches = 0  # every K1 launch
 fused_segment.padded_launches = 0  # those with padded_occ
+fused_segment.stream_launches = 0  # those with a stream axis

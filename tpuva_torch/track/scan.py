@@ -21,6 +21,11 @@ matched or born detection.
 
 Both return the same bits: rows, row_valid and every state tensor. The
 input state is left untouched.
+
+A stream axis: a state whose tensors lead with (S,), dets (S, N, D, 3),
+det_valid (S, N, D) and frame indices (S,) are S independent streams,
+each its own table; the kernel takes them in one launch (a CTA a stream),
+the plain version one stream after another.
 """
 
 from __future__ import annotations
@@ -84,7 +89,14 @@ def track_scan_plain(state: TrackState, dets: torch.Tensor, det_valid: torch.Ten
                      frame_idx0, *, max_dist: float, death_patience: int,
                      assigner: str = "greedy"):
     """Plain PyTorch version of the kernel: track_update for frames
-    frame_idx0 + t, t = 0..N-1, in order (N >= 1)."""
+    frame_idx0 + t, t = 0..N-1, in order (N >= 1); with a stream axis
+    (dets (S, N, D, 3)), each stream in turn, the results stacked."""
+    kw = dict(max_dist=max_dist, death_patience=death_patience, assigner=assigner)
+    if dets.dim() == 4:
+        outs = [track_scan_plain(TrackState(*(x[s] for x in state)), dets[s], det_valid[s],
+                                 frame_idx0[s], **kw) for s in range(dets.shape[0])]
+        return (TrackState(*(torch.stack(f) for f in zip(*(o[0] for o in outs)))),
+                torch.stack([o[1] for o in outs]), torch.stack([o[2] for o in outs]))
     ts = state
     rows, row_valid = [], []
     for t in range(dets.shape[0]):
@@ -105,21 +117,27 @@ def track_scan(state: TrackState, dets: torch.Tensor, det_valid: torch.Tensor, f
     frames' global index frame_idx0 + t from an int32 () tensor (or an
     int) -> (new_state, rows (N, D, 5) float32 of (track_id, frame, x, y,
     area), row_valid (N, D) bool). CPU tensors run track_scan_plain; CUDA
-    tensors launch the kernel, which reads frame_idx0 on the card."""
+    tensors launch the kernel, which reads frame_idx0 on the card.
+
+    With a stream axis — dets (S, N, D, 3), det_valid (S, N, D), a state
+    whose tensors lead with (S,) and frame_idx0 (S,) — the S streams are
+    scanned independently, in one launch on the card, and every output
+    leads with (S,)."""
     if assigner not in ASSIGNERS:
         raise ValueError(f"track_scan: assigner must be one of {ASSIGNERS}, got {assigner!r}")
-    if dets.dim() != 3 or dets.shape[2] != 3 or dets.dtype != torch.float32:
-        raise ValueError("track_scan: dets must be (N, D, 3) float32")
-    N, D, _ = dets.shape
-    if det_valid.shape != (N, D) or det_valid.dtype != torch.bool:
-        raise ValueError("track_scan: det_valid must be (N, D) bool")
+    if dets.dim() not in (3, 4) or dets.shape[-1] != 3 or dets.dtype != torch.float32:
+        raise ValueError("track_scan: dets must be (N, D, 3) or (S, N, D, 3) float32")
+    lead = tuple(dets.shape[:-3])  # (S,) with a stream axis
+    N, D, _ = dets.shape[-3:]
+    if det_valid.shape != lead + (N, D) or det_valid.dtype != torch.bool:
+        raise ValueError("track_scan: det_valid must be dets' (..., N, D) bool")
     dev = dets.device
     if not isinstance(frame_idx0, torch.Tensor):
         frame_idx0 = torch.tensor(frame_idx0, dtype=torch.int32, device=dev)
     if N == 0:
         return (TrackState(*(x.clone() for x in state)),
-                torch.empty((0, D, 5), dtype=torch.float32, device=dev),
-                torch.empty((0, D), dtype=torch.bool, device=dev))
+                torch.empty(lead + (0, D, 5), dtype=torch.float32, device=dev),
+                torch.empty(lead + (0, D), dtype=torch.bool, device=dev))
     kw = dict(max_dist=max_dist, death_patience=death_patience, assigner=assigner)
     if dev.type == "cpu":
         return track_scan_plain(state, dets, det_valid, frame_idx0, **kw)
@@ -129,23 +147,28 @@ def track_scan(state: TrackState, dets: torch.Tensor, det_valid: torch.Tensor, f
                                  **kw)
     track_scan.launches += 1
     track_scan.kept_launches += plan.kernel != "registers"
+    track_scan.stream_launches += bool(lead)
     return out
 
 
 def _track_scan_cuda(state, dets, det_valid, frame_idx0, *, max_dist, death_patience, assigner):
-    """The launch, on CUDA tensors that track_scan checked."""
-    N, D, _ = dets.shape
-    T = state.pos.shape[0]
+    """The launch, on CUDA tensors that track_scan checked (with or without
+    a stream axis)."""
+    lead = tuple(dets.shape[:-3])
+    S = lead[0] if lead else 1
+    N, D, _ = dets.shape[-3:]
+    T = state.pos.shape[-2]
     dev = dets.device
     want = {"pos": ((T, 2), torch.float32), "tid": ((T,), torch.int32),
             "missed": ((T,), torch.int32), "active": ((T,), torch.bool),
             "next_id": ((), torch.int32)}
     for name, (shape, dtype) in want.items():
         x = getattr(state, name)
-        if x.shape != shape or x.dtype != dtype or x.device != dev:
-            raise ValueError(f"track_scan: state.{name} must be {shape} {dtype} on {dev}")
-    if frame_idx0.shape != () or frame_idx0.dtype != torch.int32 or frame_idx0.device != dev:
-        raise ValueError("track_scan: frame_idx0 must be a () int32 tensor on the dets' device")
+        if x.shape != lead + shape or x.dtype != dtype or x.device != dev:
+            raise ValueError(f"track_scan: state.{name} must be {lead + shape} {dtype} on {dev}")
+    if frame_idx0.shape != lead or frame_idx0.dtype != torch.int32 or frame_idx0.device != dev:
+        raise ValueError(f"track_scan: frame_idx0 must be a {lead} int32 tensor on the dets' "
+                         "device")
     if T < 1 or D < 1:
         raise ValueError("track_scan: the kernel needs max_tracks >= 1 and max_blobs >= 1")
     lib = _build.load()
@@ -158,17 +181,19 @@ def _track_scan_cuda(state, dets, det_valid, frame_idx0, *, max_dist, death_pati
     if card != plan:
         raise RuntimeError(f"track_scan: csrc/track.cu plans {card} for ({T}, {D}), "
                            f"scan_plan {plan}")
-    scratch = torch.empty(need.value, dtype=torch.uint8, device=dev) if need.value else None
+    scratch = (torch.empty(S * need.value, dtype=torch.uint8, device=dev) if need.value
+               else None)
     src = [x.contiguous() for x in state]
+    frame0 = frame_idx0.contiguous()
     new = TrackState(*(torch.empty_like(x) for x in src))
-    rows = torch.empty((N, D, 5), dtype=torch.float32, device=dev)
-    row_valid = torch.empty((N, D), dtype=torch.bool, device=dev)
+    rows = torch.empty(lead + (N, D, 5), dtype=torch.float32, device=dev)
+    row_valid = torch.empty(lead + (N, D), dtype=torch.bool, device=dev)
     err = lib.tpuva_track_scan(
-        dets.data_ptr(), det_valid.data_ptr(), N, T, D,
-        *(x.data_ptr() for x in src), frame_idx0.data_ptr(),
+        dets.data_ptr(), det_valid.data_ptr(), S, N, T, D,
+        *(x.data_ptr() for x in src), frame0.data_ptr(),
         *(x.data_ptr() for x in new), rows.data_ptr(), row_valid.data_ptr(),
         float(np.float32(max_dist)), int(death_patience), int(assigner == "hungarian"),
-        scratch.data_ptr() if scratch is not None else None, need.value,
+        scratch.data_ptr() if scratch is not None else None, S * need.value,
         torch.cuda.current_stream(dev).cuda_stream,
     )
     _build.check(lib, err, "track_scan kernel")
@@ -177,3 +202,4 @@ def _track_scan_cuda(state, dets, det_valid, frame_idx0, *, max_dist, death_pati
 
 track_scan.launches = 0  # every K5 launch
 track_scan.kept_launches = 0  # those of the table kernel (scan_plan: "shared" or "global")
+track_scan.stream_launches = 0  # those with a stream axis (S streams in one launch)
