@@ -11,6 +11,7 @@
     python3 chip_smoke.py --staging # phases 1-2, then the staging line only (copied
                                     # into an earlier checkout: that checkout's stager)
     python3 chip_smoke.py --multistream # phases 1-2, then phase 7d (config 5) only
+    python3 chip_smoke.py --filters # phases 1-2, then phase 7e (the filter chain) only
 
 Run from the repository root on a machine with one CUDA card and nvcc; it
 builds the kernels into build/tpuva_torch/ first. It imports no JAX and
@@ -142,6 +143,23 @@ raises, so the exit code is non-zero:
    stager alone and 8 at once (a consumer thread and CUDA stream each,
    in turns), ms a batch each and GB/s, the pinned bytes and the peak
    device memory of the run;
+7e. the filter chain (tpuva_torch.filters): every filter at 1080p on 16
+   frames, gray and BGR, on the card against the CPU, bit for bit (K1b once
+   for FilterBlur on uint8, K1's diff emit once for FilterBackground, each
+   against its plain version on those inputs), with its program's device
+   ms; the EDT and its squared form on K1's masks against the CPU's (the
+   passes of each stage, the ms; an all-foreground frame +inf) and
+   analysis.regions.mask_boundary (one K1m launch, against its plain
+   version and the CPU); the chain route: the clip as BGR of three equal
+   channels through StreamingPipeline over FilterMonochrome on cuda, its
+   CSV sha256 == REF_CSV_SHA256, K1, K3, K6 and K5 once a batch and the
+   chain's program once a batch (BatchStager staging the BGR root and
+   running the chain on the card), frames/s beside the gray route's (in
+   turns), the stager's ms a batch of both and the chain program's device
+   ms; a stateful chain, FilterBackground(FilterBlur(FilterMonochrome(
+   VideoMemory(bgr)), 5), 0.02), through iter_batches(256): K1b and K1's
+   diff emit once a batch each, its first 48 frames equal to the CPU's,
+   frames/s. Its launch counts on a line of their own (filters_launches);
 8. timing with CUDA events after warm-up at batch 256 and 1080p: K1, K1
    in padded_occ mode, K2 given K1's occupancy, deriving it and given
    every strip (the walk of every strip the kernels made before they
@@ -1522,8 +1540,267 @@ def multistream_phase(clip, plate, card, cfg, err):
     return out, kernels
 
 
+FILTER_FRAMES = 16  # frames of each filter's 1080p check
+FILTER_STAGING_BATCHES = 4  # batches a timed stager run moves (phase 7e)
+
+
+def filter_cases(tf):
+    """(name, make(video, device) -> chain, colours) of phase 7e: every
+    filter of tpuva_torch.filters at 1080p."""
+    warp_m = [[0.96, 0.12, -40.0], [-0.1, 1.04, 25.5]]
+    return [
+        ("crop_rect", lambda v, d: tf.FilterCrop(v, (101, 37, 1601, 999), device=d), (0, 1)),
+        ("crop_quadrant", lambda v, d: tf.FilterCrop(v, "lower right", device=d), (0, 1)),
+        ("monochrome", lambda v, d: tf.FilterMonochrome(v, device=d), (0, 1)),
+        ("resize_960x540", lambda v, d: tf.FilterResize(v, (960, 540), device=d), (0, 1)),
+        ("resize_x1.5", lambda v, d: tf.FilterResize(v, (2880, 1620), device=d), (0, 1)),
+        ("blur_u8", lambda v, d: tf.FilterBlur(v, 0.0, 5, device=d), (0, 1)),
+        ("blur_float", lambda v, d: tf.FilterBlur(tf.FilterNormalize(v, device=d), 1.5, 9),
+         (0, 1)),
+        ("median_3", lambda v, d: tf.FilterMedian(v, 3, device=d), (0, 1)),
+        ("median_5", lambda v, d: tf.FilterMedian(v, 5, device=d), (0, 1)),
+        ("normalize", lambda v, d: tf.FilterNormalize(v, 10.0, 200.0, device=d), (0, 1)),
+        ("time_difference", lambda v, d: tf.FilterTimeDifference(v, device=d), (0, 1)),
+        ("rotate_turn", lambda v, d: tf.FilterRotate(v, turns=1, device=d), (0, 1)),
+        ("rotate_7.5", lambda v, d: tf.FilterRotate(v, angle=7.5, device=d), (0, 1)),
+        ("warp_affine", lambda v, d: tf.FilterWarpAffine(v, warp_m, out_size=(1600, 900),
+                                                         border_value=7.0, device=d), (0, 1)),
+        ("flip", lambda v, d: tf.FilterFlip(v, device=d), (0, 1)),
+        ("background", lambda v, d: tf.FilterBackground(v, 0.02, device=d), (0,)),
+        ("function", lambda v, d: tf.FilterFunction(v, lambda f: 255 - f, device=d), (0, 1)),
+    ]
+
+
+def filters_phase(clip, plate, card, cfg, err):
+    """Phase 7e, the filter chain (tpuva_torch.filters) on the card.
+
+    1. Each filter of filter_cases on FILTER_FRAMES frames of the clip at
+       1080p, gray and as BGR (three equal channels) where it takes both,
+       through iter_batches on the card against the same on the CPU, bit
+       for bit; its program's device ms on those frames (CUDA events, after
+       the checked run). FilterBlur on uint8 launched K1b once a batch,
+       FilterBackground on uint8 K1's diff emit once; K1b and K1's diff
+       emit against their plain versions on the card on those inputs.
+    2. distance_transform_edt and _sq on K1's masks of those frames (the
+       bench config) against the CPU's, the passes of each stage and the
+       ms; on one all-foreground frame (+inf everywhere) with its passes;
+       analysis.regions.mask_boundary on the masks: one K1m launch, equal
+       to its plain version on the card and to the CPU.
+    3. The chain route: the clip as BGR through StreamingPipeline(cfg,
+       max_components=32).run(FilterMonochrome(VideoMemory(bgr))) on cuda,
+       its CSV sha256 == REF_CSV_SHA256, launch counts read around it (K1,
+       K3, K6 given K3's occupancy, K5 once a batch, K2 never, the chain's
+       program once a batch); then frames/s of the gray route and the
+       chain route (each once untimed, then in turns, twice each), the
+       stager's ms a batch over FILTER_STAGING_BATCHES batches of each
+       (the clip in memory, gray and BGR through the chain; 3 runs each in
+       turns, after a warm-up), and the chain program's device ms on a
+       staged BGR batch.
+    4. A stateful chain, FilterBackground(FilterBlur(FilterMonochrome(
+       VideoMemory(bgr)), 5), 0.02), through iter_batches(batch) over the
+       clip on cuda: K1b and K1's diff emit once a batch each; its first
+       48 frames equal the CPU chain's on those frames; frames/s.
+    Returns (the phase line's fields, its launch counts)."""
+    from tpuva_torch import filters as tf
+    from tpuva_torch.analysis.regions import mask_boundary
+    from tpuva_torch.export.csvio import format_rows
+    from tpuva_torch.graph.streaming import StreamingPipeline
+    from tpuva_torch.io.memory import VideoMemory
+    from tpuva_torch.io.staging import BatchStager
+    from tpuva_torch.ops import distance_transform_edt, distance_transform_edt_sq
+    from tpuva_torch.ops.ccl import label_components_tiled, label_stats, root_stats
+    from tpuva_torch.ops.distance import edt_sq_passes
+    from tpuva_torch.ops.filters import erode, gaussian_blur_u8, structuring_element
+    from tpuva_torch.ops.fused_segment import fused_segment, fused_segment_plain
+    from tpuva_torch.ops.wide import blur_u8, morph_u8
+    from tpuva_torch.track.scan import track_scan
+
+    dev = torch.device("cuda")
+    t_phase = time.time()
+    counters = {"fused_segment": (fused_segment, "launches"), "blur_u8": (blur_u8, "launches"),
+                "morph_u8": (morph_u8, "launches"),
+                "ccl_labels": (label_components_tiled, "launches"),
+                "ccl_stats": (label_stats, "launches"),
+                "root_stats_occ": (root_stats, "occ_launches"),
+                "track_scan": (track_scan, "launches"), "chain_program": (tf.run_chain, "runs")}
+
+    def reset():
+        for fn, attr in counters.values():
+            setattr(fn, attr, 0)
+
+    def counts():
+        return {name: getattr(fn, attr) for name, (fn, attr) in counters.items()}
+
+    out = {"card": card, "frames": FILTER_FRAMES, "shape": list(clip.shape[1:])}
+    launches = {}
+    gray = clip[:FILTER_FRAMES]
+    bgr = np.repeat(gray[..., None], 3, axis=-1)
+
+    # 1. every filter on the card against the CPU, bit for bit
+    filter_ms = {}
+    for name, make, colours in filter_cases(tf):
+        for c in colours:
+            data = bgr if c else gray
+            key = f"{name}_{'bgr' if c else 'gray'}"
+            reset()
+            got = list(make(VideoMemory(data), dev).iter_batches(FILTER_FRAMES))
+            n = counts()
+            ref = list(make(VideoMemory(data), "cpu").iter_batches(FILTER_FRAMES))
+            if [k for k, _ in got] != [k for k, _ in ref] or any(
+                    a.dtype != b.dtype or not np.array_equal(a, b)
+                    for (_k, a), (_j, b) in zip(got, ref)):
+                raise AssertionError(f"filter {key}: the card's frames differ from the CPU's")
+            if name in ("blur_u8", "background"):
+                kernel = "blur_u8" if name == "blur_u8" else "fused_segment"
+                if n[kernel] != 1 or n["chain_program"] != 1:
+                    raise AssertionError(f"filter {key} launches: {n}")
+                launches[key] = {kernel: n[kernel]}
+            chain = make(VideoMemory(data), dev)
+            x = torch.from_numpy(data).to(dev)
+            carries = chain.init_carries()
+            filter_ms[key] = cuda_ms(lambda: tf.run_chain(chain, x, carries), 3)
+    out["filters_card_equal_cpu"] = sorted(filter_ms)
+    out["filter_card_ms"] = filter_ms
+    # K1b and K1's diff emit against their plain versions on the card, on
+    # the inputs of FilterBlur (gray, and BGR folded to (3N, H, W)) and
+    # FilterBackground (seeded from the first frame)
+    x = torch.from_numpy(gray).to(dev)
+    folded = torch.from_numpy(bgr).to(dev).permute(0, 3, 1, 2).reshape(-1, *gray.shape[1:])
+    for what, frames in (("gray", x), ("bgr folded", folded)):
+        check_equal(err, "blur_u8", [("blurred", blur_u8(frames, 5),
+                                      gaussian_blur_u8(frames, 5).to(torch.uint8))],
+                    f"FilterBlur's input, {what}")
+    zero = torch.zeros(gray.shape[1:], dtype=torch.float32, device=dev)
+    seed = torch.ones((), dtype=torch.bool, device=dev)
+    diff_kw = dict(alpha=0.02, threshold=0.0, emit="diff", seed_bg=seed)
+    check_equal(err, "fused_segment_diff",
+                zip(("magnitudes", "bg"), fused_segment(x, zero, **diff_kw),
+                    fused_segment_plain(x, zero, **diff_kw)), "FilterBackground's input")
+
+    # 2. the EDT on K1's masks, and mask_boundary
+    masks, _bg = fused_segment(x, torch.from_numpy(plate.astype(np.float32)).to(dev), **BENCH_KW)
+    masks_cpu = masks.cpu()
+    for fn in (distance_transform_edt, distance_transform_edt_sq):
+        if not torch.equal(fn(masks).cpu(), fn(masks_cpu)):
+            raise AssertionError(f"{fn.__name__}: the card's differs from the CPU's")
+    _sq, passes = edt_sq_passes(masks)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    distance_transform_edt(masks)
+    torch.cuda.synchronize()
+    edt_ms = 1e3 * (time.perf_counter() - t0)
+    full, full_passes = edt_sq_passes(torch.ones((1,) + gray.shape[1:], dtype=torch.uint8,
+                                                 device=dev))
+    if not torch.isinf(full).all():
+        raise AssertionError("the EDT of an all-foreground frame is not +inf everywhere")
+    out["edt"] = {"card_equal_cpu": True, "passes_cols_rows": list(passes), "ms": edt_ms,
+                  "foreground_px": int((masks > 0).sum()),
+                  "all_foreground_inf": True, "all_foreground_passes": list(full_passes)}
+    reset()
+    boundary = mask_boundary(masks)
+    k1m = counts()["morph_u8"]
+    if k1m != 1 or not torch.equal(boundary.cpu(), mask_boundary(masks_cpu)):
+        raise AssertionError(f"mask_boundary: {k1m} K1m launches, or it differs from the CPU's")
+    binary = (masks > 0).to(torch.uint8)  # K1m's input in mask_boundary
+    se3 = structuring_element("rect", 3)
+    check_equal(err, "morph_u8", [("eroded", morph_u8(binary, se3, True), erode(binary, se3))],
+                "mask_boundary's input")
+    launches["mask_boundary"] = {"morph_u8": k1m}
+    out["mask_boundary"] = {"k1m_launches": k1m, "equal_plain_and_cpu": True,
+                            "boundary_px": int(boundary.sum())}
+    del x, folded, masks, masks_cpu, full, boundary, binary
+
+    # 3. the chain route at full width
+    clip_bgr = np.repeat(clip[..., None], 3, axis=-1)
+
+    def route(chain_route):
+        video = (tf.FilterMonochrome(VideoMemory(clip_bgr), device=dev) if chain_route
+                 else VideoMemory(clip))
+        sp = StreamingPipeline(cfg, max_components=MAX_COMPONENTS)
+        torch.cuda.synchronize()
+        reset()
+        t0 = time.perf_counter()
+        rows = sp.run(video, background0=plate)
+        torch.cuda.synchronize()
+        s = time.perf_counter() - t0
+        if hashlib.sha256(format_rows(rows).encode()).hexdigest() != REF_CSV_SHA256:
+            raise AssertionError(f"{'chain' if chain_route else 'gray'} route rows differ "
+                                 "from the reference's")
+        return clip.shape[0] / s, counts()
+
+    _fps, chain_counts = route(True)  # checked and counted; untimed
+    nb = -(-clip.shape[0] // cfg.batch)
+    if (min(chain_counts["fused_segment"], chain_counts["ccl_labels"],
+            chain_counts["root_stats_occ"], chain_counts["track_scan"]) < nb
+            or chain_counts["ccl_stats"] or chain_counts["chain_program"] != nb):
+        raise AssertionError(f"chain route launches: {chain_counts}")
+    launches["chain_route"] = chain_counts
+    route(False)  # the gray route's first run of the phase: untimed
+    fps = {"gray": [], "chain": []}
+    for which in ("gray", "chain", "chain", "gray"):
+        fps[which].append(route(which == "chain")[0])
+    out["route_fps"] = fps
+    out["route_csv_sha256_equals_reference"] = True
+    frames = FILTER_STAGING_BATCHES * cfg.batch
+    reps = -(-frames // clip.shape[0])
+    sources = {"gray": lambda: VideoMemory(np.concatenate([clip] * reps)[:frames]),
+               "chain": lambda: tf.FilterMonochrome(
+                   VideoMemory(np.concatenate([clip_bgr] * reps)[:frames]), device=dev)}
+    stage_ms = {}
+    for which in ("gray", "chain"):
+        video = sources[which]()
+
+        def stager_run():
+            st = BatchStager(video, cfg.batch, queue_depth=3, device=dev)
+            ready = []
+            try:
+                for _n, _b in st:
+                    torch.cuda.current_stream().synchronize()
+                    ready.append(time.perf_counter())
+            finally:
+                st.close()
+            return 1e3 * (ready[-1] - ready[0]) / (len(ready) - 1)
+
+        stager_run()  # warm-up
+        stage_ms[which] = [stager_run() for _ in range(3)]
+        del video
+    out["stager_ms_per_batch"] = {k: dict(spread(v), runs=v) for k, v in stage_ms.items()}
+    out["staged_bytes_per_batch"] = {"gray": cfg.batch * int(np.prod(clip.shape[1:])),
+                                     "chain": cfg.batch * int(np.prod(clip_bgr.shape[1:]))}
+    chain = tf.FilterMonochrome(VideoMemory(clip_bgr), device=dev)
+    batch = torch.from_numpy(clip_bgr[:cfg.batch]).to(dev)
+    out["chain_program_ms"] = cuda_ms(lambda: tf.run_chain(chain, batch, (None,)), 3)
+    out["chain_program_bound_ms"] = bound(batch.numel() + batch.numel() // 3,
+                                          5 * batch.numel() // 3)[0]
+    del batch
+
+    # 4. a stateful chain through iter_batches
+    def stateful(data, device):
+        return tf.FilterBackground(tf.FilterBlur(tf.FilterMonochrome(
+            VideoMemory(data), device=device), 5), 0.02)
+
+    torch.cuda.synchronize()
+    reset()
+    t0 = time.perf_counter()
+    got = list(stateful(clip_bgr, dev).iter_batches(cfg.batch))
+    s = time.perf_counter() - t0
+    n = counts()
+    if n["blur_u8"] != nb or n["fused_segment"] != nb or n["chain_program"] != nb:
+        raise AssertionError(f"stateful chain launches: {n}")
+    launches["stateful_chain"] = {"blur_u8": n["blur_u8"], "fused_segment": n["fused_segment"],
+                                  "chain_program": n["chain_program"]}
+    ref = np.concatenate([o[:k] for k, o in stateful(clip_bgr[:48], "cpu").iter_batches(48)])
+    if not np.array_equal(got[0][1][:48], ref):
+        raise AssertionError("the stateful chain's first 48 frames differ from the CPU's")
+    out["stateful_chain"] = {"fps": clip.shape[0] / s, "first_48_equal_cpu": True,
+                             "ksize": stateful(clip_bgr[:1], "cpu").source.ksize}
+    out["seconds"] = round(time.time() - t_phase, 1)
+    return out, launches
+
+
 def main():
-    modes = ("--k1", "--k2", "--k5", "--wide", "--probes", "--staging", "--multistream")
+    modes = ("--k1", "--k2", "--k5", "--wide", "--probes", "--staging", "--multistream",
+             "--filters")
     mode = sys.argv[1] if len(sys.argv) == 2 and sys.argv[1] in modes else None
     k1_only = mode == "--k1"
     if sys.argv[1:] and mode is None:
@@ -1605,6 +1882,14 @@ def main():
                                                       births_deaths=False, noise_sigma=2.0)
         err = {"fused_segment_streams": 0.0, "track_scan_streams": 0.0}
         say("multistream", **multistream_phase(clip, plate, card, bench_cfg(config, 256), err)[0])
+        return 0
+    if mode == "--filters":
+        clip, _alive, _truth, plate = multi_blob_clip(1080, 1920, 512, n_blobs=6, radius=16,
+                                                      births_deaths=False, noise_sigma=2.0)
+        err = {"blur_u8": 0.0, "fused_segment_diff": 0.0, "morph_u8": 0.0}
+        line, launches = filters_phase(clip, plate, card, bench_cfg(config, 256), err)
+        say("filters", **line, max_abs_err=err)
+        say("filters_launches", **launches)
         return 0
     from tpuva_torch.ops.ccl import (
         k2_grid, root_labels, root_occupancy_plain, root_stats, root_stats_dict,
@@ -2269,6 +2554,13 @@ def main():
     # K5 a launch a step for all streams
     ms_line, ms_kernels = multistream_phase(clip, plate, card, cfg, err)
     say("multistream", **ms_line)
+    torch.cuda.empty_cache()
+
+    # 7e. the filter chain: every filter on the card against the CPU, the
+    # EDT and mask_boundary, the chain route at full width, a stateful chain
+    filters_line, filters_launches = filters_phase(clip, plate, card, cfg, err)
+    say("filters", **filters_line)
+    say("filters_launches", **filters_launches)
     torch.cuda.empty_cache()
 
     # 8. at the main path's shapes (batch 256, 1080p): kernel vs plain

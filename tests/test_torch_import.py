@@ -1,5 +1,5 @@
-"""Importing the port (the micro-probes, io, export, app, compose, cli and
-dist included) loads no JAX, nothing of bench/, no cv2 or h5py, does not
+"""Importing the port (the micro-probes, io, export, app, compose, cli,
+dist, filters, analysis and debug included) loads no JAX, nothing of bench/, no cv2 or h5py, does not
 initialise CUDA and builds nothing, kernels or host library (the twin of
 test_aux.py's import-purity test for tpuva)."""
 
@@ -25,6 +25,9 @@ import tpuva_torch.probes.roll_probe, tpuva_torch.probes.i16_probe, tpuva_torch.
 import tpuva_torch.io, tpuva_torch.io.native, tpuva_torch.export, tpuva_torch.export.hdf5io
 import tpuva_torch.app, tpuva_torch.compose, tpuva_torch.analysis.curves, tpuva_torch.cli
 import tpuva_torch.dist, tpuva_torch.dist.multistream, tpuva_torch.dist.pipeline
+import tpuva_torch.filters, tpuva_torch.ops.warp, tpuva_torch.ops.distance, tpuva_torch.debug
+import tpuva_torch.analysis, tpuva_torch.analysis.image, tpuva_torch.analysis.shapes
+import tpuva_torch.analysis.regions, tpuva_torch.analysis.active_contour
 import torch
 after = sorted(p.name for p in _build.BUILD_DIR.glob("*")) if _build.BUILD_DIR.exists() else None
 print(json.dumps({

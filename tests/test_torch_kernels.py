@@ -26,14 +26,21 @@ bit on every case at the probe's tile shape, and their time grows with
 the reps. Also BatchStager's pinned-buffer copies to the card, byte for byte, from
 both feeders (a slow consumer at queue depth 1 included), the streamed route fed by
 the C++ ring, and configs
-one K1 launch does not take run on the card with the CPU's rows. The CCL scenes (tpuva_torch.scenes)
-are shared with the CPU tests that hold the plain versions against tpuva.
+one K1 launch does not take run on the card with the CPU's rows. The filter
+chain (tpuva_torch.filters) on the card against the CPU: every kind of
+filter, FilterBlur on uint8 one K1b launch a batch, FilterBackground on
+uint8 one K1 diff-emit launch a batch, mask_boundary one K1m launch, and
+BatchStager running a BGR chain on the card once a batch. The CCL scenes
+(tpuva_torch.scenes) are shared with the CPU tests that hold the plain
+versions against tpuva.
 """
 
 import numpy as np
 import pytest
 import torch
 
+from tpuva_torch import filters as tf
+from tpuva_torch.analysis.regions import mask_boundary
 from tpuva_torch.io.memory import VideoMemory
 from tpuva_torch.io.staging import BatchStager
 from tpuva_torch.ops import connected_components_with_stats
@@ -1096,3 +1103,108 @@ def test_probe_kernel_time_grows_with_reps(cuda_device):
     t = {reps: timeit(lambda: roll_probe.run(x, "roll0 + add", reps), cuda_device)[0]
          for reps in (4096, 16384)}
     assert t[16384] > 2 * t[4096], t
+
+
+# ------------------------------------------------------------- the filter chain
+def filter_clip(T=9, H=67, W=131, color=False, seed=11):
+    shape = (T, H, W, 3) if color else (T, H, W)
+    return np.random.default_rng(seed).integers(0, 256, shape, dtype=np.uint8)
+
+
+# the filters of tpuva_torch.filters on the card (each against the CPU's)
+CARD_FILTERS = {
+    "crop": (lambda tf, v, d: tf.FilterCrop(v, (3, 5, 101, 47), device=d), (False, True)),
+    "monochrome": (lambda tf, v, d: tf.FilterMonochrome(v, device=d), (True,)),
+    "resize": (lambda tf, v, d: tf.FilterResize(v, (65, 100), device=d), (False, True)),
+    "blur_float": (lambda tf, v, d: tf.FilterBlur(tf.FilterNormalize(v, device=d), 1.5, 9),
+                   (False, True)),
+    "median_5": (lambda tf, v, d: tf.FilterMedian(v, 5, device=d), (False, True)),
+    "time_difference": (lambda tf, v, d: tf.FilterTimeDifference(v, device=d), (False, True)),
+    "rotate_angle": (lambda tf, v, d: tf.FilterRotate(v, angle=7.5, device=d), (False, True)),
+    "warp": (lambda tf, v, d: tf.FilterWarpAffine(
+        v, [[0.9, 0.1, 2.5], [-0.2, 1.1, -3.25]], out_size=(90, 50), border_value=9, device=d),
+             (False, True)),
+    "flip_turns": (lambda tf, v, d: tf.FilterFlip(tf.FilterRotate(v, turns=1, device=d)),
+                   (False, True)),
+    "background_float": (lambda tf, v, d: tf.FilterBackground(tf.FilterNormalize(v, device=d)),
+                         (False,)),
+}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", sorted(CARD_FILTERS))
+def test_filters_on_card_equal_cpu(cuda_device, name):
+    make, colors = CARD_FILTERS[name]
+    for color in colors:
+        data = filter_clip(color=color)
+        got = list(make(tf, VideoMemory(data), cuda_device).iter_batches(4, pad_last=True))
+        ref = list(make(tf, VideoMemory(data), "cpu").iter_batches(4, pad_last=True))
+        assert [n for n, _ in got] == [n for n, _ in ref]
+        for (_n, a), (_m, b) in zip(got, ref):
+            assert a.dtype == b.dtype
+            np.testing.assert_array_equal(a, b)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("color", [False, True], ids=["gray", "bgr"])
+def test_filter_blur_u8_launches_k1b(cuda_device, color):
+    """FilterBlur on uint8 launches K1b once a batch (a colour batch's
+    channels folded into the leading axis) and equals the CPU's."""
+    data = filter_clip(color=color)
+    before = blur_u8.launches
+    got = list(tf.FilterBlur(VideoMemory(data), 0.0, 7, device=cuda_device).iter_batches(4))
+    assert blur_u8.launches - before == 3
+    ref = list(tf.FilterBlur(VideoMemory(data), 0.0, 7, device="cpu").iter_batches(4))
+    for (_n, a), (_m, b) in zip(got, ref):
+        np.testing.assert_array_equal(a, b)
+
+
+@pytest.mark.gpu
+def test_filter_background_launches_k1_diff(cuda_device):
+    """FilterBackground on uint8 launches K1's diff emit once a batch, the
+    background carried on the card, and equals the CPU's."""
+    data = filter_clip(T=11)
+    before = fused_segment.launches
+    got = list(tf.FilterBackground(VideoMemory(data), 0.05, device=cuda_device).iter_batches(4))
+    assert fused_segment.launches - before == 3
+    ref = list(tf.FilterBackground(VideoMemory(data), 0.05, device="cpu").iter_batches(4))
+    for (_n, a), (_m, b) in zip(got, ref):
+        np.testing.assert_array_equal(a, b)
+
+
+@pytest.mark.gpu
+def test_mask_boundary_launches_k1m(cuda_device):
+    m = filter_clip(T=3) > 100
+    before = morph_u8.launches
+    got = mask_boundary(torch.from_numpy(m).to(cuda_device))
+    assert morph_u8.launches - before == 1
+    np.testing.assert_array_equal(got.cpu().numpy(), mask_boundary(torch.from_numpy(m)).numpy())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("use_native", [False, True])
+def test_batch_stager_runs_chain_on_card(cuda_device, use_native):
+    """A BGR chain staged by its root: the chain's program once a batch on
+    the card (K1b and K1's diff emit each once a batch), the CPU stager's
+    batches bit for bit."""
+    data = filter_clip(T=11, color=True)
+
+    def chain(d):
+        return tf.FilterBackground(tf.FilterBlur(tf.FilterMonochrome(
+            VideoMemory(data), device=d), 0.0, 5), 0.05)
+
+    def stage(d, native):
+        st = BatchStager(chain(d), 4, device=d, use_native=native)
+        try:
+            return [(n, b.cpu().numpy()) for n, b in st]
+        finally:
+            st.close()
+
+    k1, k1b, runs = fused_segment.launches, blur_u8.launches, tf.run_chain.runs
+    got = stage(cuda_device, use_native)
+    assert (fused_segment.launches - k1, blur_u8.launches - k1b, tf.run_chain.runs - runs) == (
+        3, 3, 3)
+    ref = stage("cpu", False)
+    assert [n for n, _ in got] == [n for n, _ in ref] == [4, 4, 3]
+    for (_n, a), (_m, b) in zip(got, ref):
+        np.testing.assert_array_equal(a, b)

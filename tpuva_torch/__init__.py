@@ -21,7 +21,12 @@ Layout (counterparts in ``tpuva/``):
                                      a frame (native: csrc/batcher.cpp)
   io/                                video sources and host decode (cv2)
   export/                            CSV and HDF5 (h5py) trajectories
-  app/, compose/, analysis/curves.py TrackingProject's passes, pass 4's movie
+  app/, compose/                     TrackingProject's passes, pass 4's movie
+  filters.py                         the filter chain: one program a batch
+                                     (BatchStager stages a chain by its root)
+  ops/warp.py, ops/distance.py       warp_affine, the exact EDT
+  analysis/, debug.py                numpy analysis copies (mask_boundary on
+                                     K1m), headless image dumps
   cli.py, __main__.py                python -m tpuva_torch
   graph/config.py                    pinned copy
   probes/                            the micro-probes P1-P4 of bench/

@@ -16,6 +16,15 @@ that pushes each frame through the C++ ring (``io/native.py::NativeBatcher``,
 copies each frame from ``get_frame``. A tail batch is padded by repeating
 its last frame. No batch is ever stacked on the host.
 
+A filter chain (``tpuva_torch.filters.FilterBase``) is staged by its root:
+the slots take the root's frames (a BGR root's (B, H, W, 3)), by the
+feeder the root picks, and the chain's program (``filters.run_chain``) then
+runs on each staged, padded batch on the device, with the carries kept
+there, so the consumer gets the chain's output, as tpuva's stager gets
+``FilterBase.iter_batches(pad_last=True)``'s; the first batch loses the
+chain's ``first_batch_drop`` valid rows. The chain is never read frame by
+frame.
+
 On a CUDA device the slots are pinned host buffers and the feeder issues
 ``non_blocking`` copies on a side stream, with an event recorded after
 each. The consumer's stream waits on that event before it touches the
@@ -53,13 +62,23 @@ class BatchStager:
     repeating the last frame). The batches are assembled in the C++ ring
     (built with the host compiler at first use; raises if it cannot be
     built or loaded) for any source but a VideoMemory; use_native=True or
-    False forces the ring or the Python feeder."""
+    False forces the ring or the Python feeder. A filter chain is staged by
+    its root and its program run on each batch on `device` (the module's
+    docstring): batch is then the chain's output, of its shape and dtype."""
 
     def __init__(self, video: VideoBase, batch: int, queue_depth: int = 2,
                  device="cuda", use_native: Optional[bool] = None):
+        from tpuva_torch.filters import FilterBase  # filters imports io, which imports this
+
+        self._device = resolve_device(device)
+        self._chain = video if isinstance(video, FilterBase) else None
+        if self._chain is not None:
+            video = self._chain.chain()[0]  # the root is what is staged
+            if self._chain.device != self._device:
+                raise ValueError(f"BatchStager on {self._device}: the filter chain runs "
+                                 f"on {self._chain.device}")
         self._video = video
         self._batch = batch
-        self._device = resolve_device(device)
         self._cuda = self._device.type == "cuda"
         self._queue: queue.Queue = queue.Queue(maxsize=queue_depth)
         self._nslots = queue_depth + 1
@@ -69,6 +88,7 @@ class BatchStager:
         self._ring = None  # the NativeBatcher, while the native feeder holds it
         self._ring_lock = threading.Lock()
         self._decoder: Optional[threading.Thread] = None
+        self._carries = None  # the chain's, on the device, from its first batch
         if self._cuda:
             self._copy_stream = torch.cuda.Stream(self._device)
         # a VideoMemory is one block copy a batch; a decoder's frames go
@@ -98,6 +118,32 @@ class BatchStager:
             event = torch.cuda.Event()
             event.record(self._copy_stream)
         return dev, event
+
+    def _filtered(self, n: int, item):
+        """(n, item) as the consumer gets it: without a chain as staged;
+        with one, the chain's program on the staged batch (on a card on the
+        copy stream, after the copy, with the event of its output recorded
+        after it), n less the chain's first-batch drop."""
+        if self._chain is None:
+            return n, item
+        if self._carries is None:  # the first batch
+            n -= self._chain.chain_drop
+        if not self._cuda:
+            out = self._run_chain(item)
+            return max(0, min(n, out.shape[0])), out
+        with torch.cuda.stream(self._copy_stream):
+            out = self._run_chain(item[0])
+            event = torch.cuda.Event()
+            event.record(self._copy_stream)
+        return max(0, min(n, out.shape[0])), (out, event)
+
+    def _run_chain(self, batch):
+        from tpuva_torch.filters import run_chain
+
+        if self._carries is None:
+            self._carries = self._chain.init_carries()
+        out, self._carries = run_chain(self._chain, batch, self._carries)
+        return out
 
     def _put(self, item) -> bool:
         """Queue an item for the consumer; False once close() stopped the
@@ -140,7 +186,7 @@ class BatchStager:
                 item = self._stage(slots[s])
                 if self._cuda:
                     events[s] = item[1]
-                if not self._put((n, item)):
+                if not self._put(self._filtered(n, item)):
                     return
             self._put(_SENTINEL)
         except BaseException as e:  # noqa: BLE001 - relayed to the consumer
@@ -187,7 +233,7 @@ class BatchStager:
                 if self._cuda:
                     item[1].synchronize()  # the copy has read the slot
                 ring.release(s)
-                if not self._put((n, item)):
+                if not self._put(self._filtered(n, item)):
                     return
             decoder.join()
             if self._decode_error is not None:

@@ -4,6 +4,12 @@ Plain PyTorch on ``(..., H, W)`` tensors. These are the ops the fused
 front-end kernel (``ops/fused_segment.py``) is held against, and the path
 CPU tensors take. Pinned semantics, as in the JAX package:
 
+- ``gaussian_blur``: cv2's float Gaussian on float32 (``FilterBlur`` on a
+  float batch): the binomial kernels (sigma <= 0, ksize 3 and 5) as tpuva's
+  box cascade of adjacent-pair sums, bit-equal to it; the others as its
+  REFLECT_101 correlation in cv2's symmetric-pair order, each product and
+  sum rounded on its own (tpuva's XLA:CPU run contracts
+  ``out + k * (a + b)`` into one FMA, ROADMAP Queue 3 R5).
 - ``gaussian_blur_u8``: cv2's uint8 fixed-point Gaussian, bit-exact, with
   REFLECT_101 borders. The JAX op's three regimes (binomial cascade for
   k=3/5, the sigma<=0 tables for k=7/9, the ``u8_gaussian_taps``
@@ -24,8 +30,9 @@ CPU tensors take. Pinned semantics, as in the JAX package:
   sums taken in XLA:CPU's order (``_cumsum256``).
 
 The numpy helpers ``_SMALL_GAUSSIAN``, ``_gaussian_kernel_1d_f64``,
-``u8_gaussian_taps``, ``is_binomial_blur`` and ``structuring_element`` are
-copies of the originals, pinned by ``tests/test_torch_filters.py``.
+``gaussian_kernel_1d``, ``u8_gaussian_taps``, ``is_binomial_blur`` and
+``structuring_element`` are copies of the originals, pinned by
+``tests/test_torch_filters.py`` and ``tests/test_torch_filter_chain.py``.
 """
 
 from __future__ import annotations
@@ -57,6 +64,11 @@ def _gaussian_kernel_1d_f64(ksize: int, sigma: float) -> np.ndarray:
     x = np.arange(ksize, dtype=np.float64) - (ksize - 1) / 2
     k = np.exp(-(x * x) / (2.0 * sigma * sigma))
     return k / k.sum()
+
+
+def gaussian_kernel_1d(ksize: int, sigma: float = 0.0) -> np.ndarray:
+    """Matches cv2.getGaussianKernel(ksize, sigma) for odd ksize."""
+    return _gaussian_kernel_1d_f64(ksize, sigma).astype(np.float32)
 
 
 def u8_gaussian_taps(ksize: int, sigma: float = 0.0) -> np.ndarray:
@@ -133,17 +145,62 @@ def reflect101_index(n: int, lo: int, hi: int) -> np.ndarray:
     return np.where(i >= n, period - i, i)
 
 
+def _reflect101_pad(x: torch.Tensor, r: int, dim: int) -> torch.Tensor:
+    """x padded by r on both sides of `dim` under REFLECT_101."""
+    n = x.shape[dim]
+    return x.index_select(dim, torch.from_numpy(reflect101_index(n, -r, n + r)).to(x.device))
+
+
 def _conv_axis_int(x: torch.Tensor, taps, dim: int) -> torch.Tensor:
     """Integer correlation along `dim` with REFLECT_101 borders."""
     n = x.shape[dim]
-    r = len(taps) // 2
-    idx = torch.from_numpy(reflect101_index(n, -r, n + r)).to(x.device)
-    xp = x.index_select(dim, idx)
+    xp = _reflect101_pad(x, len(taps) // 2, dim)
     acc = None
     for k, t in enumerate(taps):
         v = xp.narrow(dim, k, n) * t
         acc = v if acc is None else acc + v
     return acc
+
+
+def _conv_axis(x: torch.Tensor, kernel: np.ndarray, dim: int) -> torch.Tensor:
+    """Float32 correlation along `dim` with REFLECT_101 borders in cv2's
+    symmetric-pair order: k[r] * centre, then + k[r - i] * (left + right)
+    for i = 1..r, every product and sum rounded on its own."""
+    n = x.shape[dim]
+    r = len(kernel) // 2
+    xp = _reflect101_pad(x, r, dim)
+    out = xp.narrow(dim, r, n) * float(kernel[r])
+    for i in range(1, r + 1):
+        out = out + float(kernel[r - i]) * (xp.narrow(dim, r - i, n) + xp.narrow(dim, r + i, n))
+    return out
+
+
+def _box_cascade_axis(x: torch.Tensor, ksize: int, dim: int) -> torch.Tensor:
+    """Unnormalized binomial correlation along `dim` with REFLECT_101
+    borders: pad by r, then 2r passes of adjacent-pair sums, each shrinking
+    the axis by one (tpuva's cascade, the same sums in the same order)."""
+    y = _reflect101_pad(x, ksize // 2, dim)
+    for _ in range(2 * (ksize // 2)):
+        L = y.shape[dim]
+        y = y.narrow(dim, 0, L - 1) + y.narrow(dim, 1, L - 1)
+    return y
+
+
+def gaussian_blur(x: torch.Tensor, ksize: int, sigma: float = 0.0) -> torch.Tensor:
+    """cv2.GaussianBlur(x, (ksize, ksize), sigma) on float32 input x
+    (..., H, W): the row (W) pass, then the column (H) pass. Binomial
+    kernels (is_binomial_blur) run as the box cascade and one exact
+    power-of-two scaling; the others as _conv_axis with
+    gaussian_kernel_1d's taps."""
+    if ksize == 1:
+        return x
+    if is_binomial_blur(ksize, sigma):
+        x = _box_cascade_axis(x, ksize, x.dim() - 1)
+        x = _box_cascade_axis(x, ksize, x.dim() - 2)
+        return x * float(np.float32(2.0 ** (-2 * (ksize - 1))))
+    k = gaussian_kernel_1d(ksize, sigma)
+    x = _conv_axis(x, k, x.dim() - 1)
+    return _conv_axis(x, k, x.dim() - 2)
 
 
 def gaussian_blur_u8(x: torch.Tensor, ksize: int, sigma: float = 0.0) -> torch.Tensor:

@@ -1,0 +1,117 @@
+"""Affine warping (cv2.warpAffine, INTER_LINEAR) — port of
+``tpuva/ops/warp.py``.
+
+- ``M`` is the forward 2x3 map src->dst (cv2 inverts it unless
+  WARP_INVERSE_MAP; ``inverse=True`` mirrors that flag);
+- bilinear sampling at the pixel-centre convention: four clipped
+  flat-index gathers a sample;
+- BORDER_CONSTANT (an out-of-bounds corner of a sample contributes the
+  border value: each corner is masked on its own) and BORDER_REPLICATE.
+
+``invert_affine`` and ``rotation_matrix`` are host numpy in float64, copies
+of the originals. ``warp_affine`` runs torch ops on the image's device,
+every float32 product and sum rounded on its own in tpuva's source order
+(the sample coordinates, then the lerps ``a + f * (b - a)``); tpuva's
+XLA:CPU run contracts some of them into FMAs (ROADMAP Queue 3 R5).
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+
+def invert_affine(M) -> np.ndarray:
+    """Invert a 2x3 affine matrix (host-side, float64 like cv2's
+    invertAffineTransform)."""
+    M = np.asarray(M, np.float64).reshape(2, 3)
+    a, b, c = M[0]
+    d, e, f = M[1]
+    det = a * e - b * d
+    if det == 0:
+        raise ValueError("singular affine matrix")
+    ia, ib = e / det, -b / det
+    id_, ie = -d / det, a / det
+    return np.array(
+        [[ia, ib, -(ia * c + ib * f)], [id_, ie, -(id_ * c + ie * f)]],
+        np.float64,
+    )
+
+
+def rotation_matrix(center, angle_deg: float, scale: float = 1.0):
+    """cv2.getRotationMatrix2D: counterclockwise rotation about `center`
+    ((cx, cy) in pixel coords) with isotropic scaling."""
+    cx, cy = float(center[0]), float(center[1])
+    a = np.deg2rad(angle_deg)
+    al = scale * np.cos(a)
+    be = scale * np.sin(a)
+    return np.array(
+        [
+            [al, be, (1.0 - al) * cx - be * cy],
+            [-be, al, be * cx + (1.0 - al) * cy],
+        ],
+        np.float64,
+    )
+
+
+def _f32(v) -> float:
+    """v rounded to float32, as a Python float (the value a float32 op sees)."""
+    return float(np.float32(v))
+
+
+def warp_affine(img: torch.Tensor, M, out_size=None, inverse: bool = False,
+                border: str = "constant", border_value: float = 0.0) -> torch.Tensor:
+    """Batched cv2.warpAffine (INTER_LINEAR) on img (N, H, W), (H, W) or
+    (..., H, W, 3): the last two axes, or the two before a channel axis of
+    3, are spatial. M: the 2x3 forward src->dst matrix (numpy); out_size
+    (w, h) defaults to the input's. Returns img's dtype: uint8 rounded half
+    to even and clipped, others cast from float32."""
+    if border not in ("constant", "replicate"):
+        raise ValueError(border)
+    chan = img.shape[-1] == 3 and img.dim() >= 3
+    sp = img.dim() - (3 if chan else 2)  # the H axis
+    H, W = img.shape[sp], img.shape[sp + 1]
+    w_out, h_out = out_size if out_size is not None else (W, H)
+    Mi = np.asarray(M, np.float64).reshape(2, 3)
+    if not inverse:
+        Mi = invert_affine(Mi)
+    ia, ib, ic = (_f32(v) for v in Mi[0])
+    id_, ie, if_ = (_f32(v) for v in Mi[1])
+    dev = img.device
+    xs = torch.arange(w_out, dtype=torch.float32, device=dev)[None, :]
+    ys = torch.arange(h_out, dtype=torch.float32, device=dev)[:, None]
+    sx = ia * xs + ib * ys + ic  # (h_out, w_out)
+    sy = id_ * xs + ie * ys + if_
+    x0 = torch.floor(sx)
+    y0 = torch.floor(sy)
+    fx = sx - x0
+    fy = sy - y0
+    x0 = x0.to(torch.int64)
+    y0 = y0.to(torch.int64)
+
+    fimg = img.to(torch.float32)
+    if chan:  # the channel axis joins the leading ones
+        fimg = fimg.movedim(-1, 0)
+    lead = fimg.shape[:-2]
+    flat = fimg.reshape(lead + (H * W,))
+    bv = torch.tensor(_f32(border_value), dtype=torch.float32, device=dev)
+
+    def corner(xi, yi):
+        idx = (yi.clamp(0, H - 1) * W + xi.clamp(0, W - 1)).reshape(-1)
+        g = flat.index_select(-1, idx).reshape(lead + (h_out, w_out))
+        if border == "constant":
+            g = torch.where((xi >= 0) & (xi < W) & (yi >= 0) & (yi < H), g, bv)
+        return g
+
+    g00 = corner(x0, y0)
+    g01 = corner(x0 + 1, y0)
+    g10 = corner(x0, y0 + 1)
+    g11 = corner(x0 + 1, y0 + 1)
+    top = g00 + fx * (g01 - g00)
+    bot = g10 + fx * (g11 - g10)
+    out = top + fy * (bot - top)
+    if chan:
+        out = out.movedim(0, -1)
+    if img.dtype == torch.uint8:
+        return torch.clamp(torch.round(out), 0, 255).to(torch.uint8)
+    return out.to(img.dtype)
