@@ -12,6 +12,7 @@
                                     # into an earlier checkout: that checkout's stager)
     python3 chip_smoke.py --multistream # phases 1-2, then phase 7d (config 5) only
     python3 chip_smoke.py --filters # phases 1-2, then phase 7e (the filter chain) only
+    python3 chip_smoke.py --spatial # phases 1-2, then phase 7f (the meshes of dist/) only
 
 Run from the repository root on a machine with one CUDA card and nvcc; it
 builds the kernels into build/tpuva_torch/ first. It imports no JAX and
@@ -160,6 +161,26 @@ raises, so the exit code is non-zero:
    VideoMemory(bgr)), 5), 0.02), through iter_batches(256): K1b and K1's
    diff emit once a batch each, its first 48 frames equal to the CPU's,
    frames/s. Its launch counts on a line of their own (filters_launches);
+7f. the multi-card half of dist/ on the one card: K1's mask and diff
+   emits on one 256-frame batch of each band shape of four bands (an edge
+   band of 270 + 6 rows, an interior one of 270 + 12) and K4 on each
+   band's 270 interior rows of the diff emit (the strided slice the band
+   path histograms) against their plain versions, bit for bit;
+   SpatialStreamPipeline over a ('space',) mesh of
+   four bands that all lie on cuda:0 (make_space_mesh(4, [cuda:0] * 4))
+   through the clip with the bench config and with threshold="otsu", each
+   run's CSV sha256 equal to REF_CSV_SHA256 / REF_OTSU_CSV_SHA256, no
+   stats_overflow, its launches counted around it (K1 four a batch, one
+   per band, K4 four a batch for Otsu, K5 one a batch, no K2, K3 or K6:
+   the band CCL is torch ops), tp_recon_rounds of each batch; a checkpoint
+   written after the band run's first batch resumed on the single-card
+   StreamingPipeline to the same bytes; one batch's ms (CUDA events, the
+   reconciliation's host reads inside), its device ms, launches and
+   heaviest kernels (torch.profiler) and each run's seconds, labelled
+   "4 bands sharing one card": a correctness run, no speed is claimed;
+   MultiStreamPipeline over a ('stream',) mesh of two streams on cuda:0,
+   its rows and merged rows equal the stream-axis route's, stream 0 at
+   REF_CSV_SHA256, K1, K3 and K5 once a stream a step;
 8. timing with CUDA events after warm-up at batch 256 and 1080p: K1, K1
    in padded_occ mode, K2 given K1's occupancy, deriving it and given
    every strip (the walk of every strip the kernels made before they
@@ -883,7 +904,7 @@ def time_k5(cfg, masks, bg_last, plate, route_dets, err, reps):
     carry0 = init_carry(cfg, *masks.shape[1:], plate, device=dev)
     stats = label_stats(masks, MAX_COMPONENTS)
     t["tracker_ms"] = cuda_ms(
-        lambda: _finish_batch(cfg, carry0, stats, masks, bg_last, False), reps)
+        lambda: _finish_batch(cfg, carry0, stats, bg_last), reps)
     k5_args = (carry0.track, *route_dets, carry0.frame_idx)
     check_track_scan(err, *k5_args, f"route detections, batch {N}", **t_kw)
     t["k5_ms"] = cuda_ms(lambda: track_scan(*k5_args, **t_kw), reps)
@@ -1017,11 +1038,10 @@ def wide_timing(clip, plate, card):
 
         def k1b_forced(tile, dp):
             out = torch.empty_like(frames)
-            err = _build.load().tpuva_blur_u8(
-                frames.data_ptr(), out.data_ptr(), *frames.shape,
-                wide._device_ints(taps, dev).data_ptr(), len(taps), shift, *tile, dp,
-                wide.blur_smem(*tile, len(taps)), torch.cuda.current_stream().cuda_stream)
-            _build.check(_build.load(), err, "blur_u8 kernel")
+            _build.launch(dev, "tpuva_blur_u8", "blur_u8 kernel",
+                          frames.data_ptr(), out.data_ptr(), *frames.shape,
+                          wide._device_ints(taps, dev).data_ptr(), len(taps), shift, *tile, dp,
+                          wide.blur_smem(*tile, len(taps)))
             return out
 
         blurred = lambda: gaussian_blur_u8(frames, 65).to(torch.uint8)  # noqa: E731
@@ -1540,6 +1560,165 @@ def multistream_phase(clip, plate, card, cfg, err):
     return out, kernels
 
 
+SPATIAL_BANDS = 4  # phase 7f: the ('space',) mesh, four bands on the one card
+SPATIAL_STREAMS = 2  # phase 7f: the ('stream',) mesh on the one card
+
+
+def spatial_phase(clip, plate, card, cfg, err):
+    """Phase 7f: the multi-card half of dist/ on the one card. K1 on the
+    band shapes against its plain version; SpatialStreamPipeline on a mesh
+    of SPATIAL_BANDS bands that all lie on cuda:0 over the clip (fixed and
+    Otsu thresholds, launches counted around each run), a checkpoint of
+    the band run resumed on the single-card StreamingPipeline; the
+    ('stream',) mesh of SPATIAL_STREAMS streams on cuda:0 against the
+    stream-axis route. Returns the phase line's fields."""
+    from tpuva_torch.dist import (
+        MultiStreamPipeline, SpatialStreamPipeline, make_space_mesh, make_spatial_processor,
+        make_stream_mesh,
+    )
+    from tpuva_torch.dist.spatial import _halo_rows
+    from tpuva_torch.export.csvio import format_rows
+    from tpuva_torch.graph import config
+    from tpuva_torch.graph.pipeline import _diff_kwargs, _front_end_kwargs, init_carry
+    from tpuva_torch.graph.streaming import StreamingPipeline
+    from tpuva_torch.io.base import VideoBase
+    from tpuva_torch.io.memory import VideoMemory
+    from tpuva_torch.ops.ccl import label_components_tiled, label_stats, root_stats
+    from tpuva_torch.ops.filters import histogram_u8, histogram_u8_plain
+    from tpuva_torch.ops.fused_segment import fused_segment, fused_segment_plain
+    from tpuva_torch.track.scan import track_scan
+
+    t_phase = time.time()
+    torch.cuda.empty_cache()
+    dev = torch.device("cuda", 0)
+    T, H, W = clip.shape
+    n, N = SPATIAL_BANDS, cfg.batch
+    Hb, halo = H // n, _halo_rows(cfg)
+    otsu_cfg = bench_cfg(config, N, threshold="otsu")
+    counters = {"k1": (fused_segment, "launches"), "k4": (histogram_u8, "launches"),
+                "k5": (track_scan, "launches"), "k3": (label_components_tiled, "launches"),
+                "k6": (root_stats, "launches"), "k2": (label_stats, "launches")}
+
+    def reset():
+        for fn, attr in counters.values():
+            setattr(fn, attr, 0)
+
+    def counts():
+        return {k: getattr(fn, attr) for k, (fn, attr) in counters.items()}
+
+    out = {"card": card, "bands": n, "mesh": "4 bands sharing one card", "shape": [H, W],
+           "batch": N, "halo_rows": halo}
+    # the band path's kernels at the shapes it gives them, on the clip's
+    # first batch: K1 and K1-diff on an edge band (its rows and the halo
+    # on one side) and an interior one (the halo on both); K4 on the
+    # band's interior rows of K1-diff's magnitudes, the strided slice
+    # make_spatial_processor histograms
+    shapes = {"edge": (0, Hb + halo, 0), "interior": (Hb - halo, 2 * Hb + halo, halo)}
+    for name, (lo, hi, top) in shapes.items():
+        frames = torch.from_numpy(np.ascontiguousarray(clip[:N, lo:hi])).to(dev)
+        bg0 = torch.from_numpy(np.ascontiguousarray(plate[lo:hi], np.float32)).to(dev)
+        where = f"{name} band, {tuple(frames.shape)}"
+        kw = _front_end_kwargs(cfg)
+        check_equal(err, "fused_segment", zip(("masks", "bg"), fused_segment(frames, bg0, **kw),
+                                              fused_segment_plain(frames, bg0, **kw)), where)
+        kw = _diff_kwargs(otsu_cfg)
+        du8, bg_diff = fused_segment(frames, bg0, **kw)
+        check_equal(err, "fused_segment_diff", zip(("magnitudes", "bg"), (du8, bg_diff),
+                                                   fused_segment_plain(frames, bg0, **kw)), where)
+        rows = du8[:, top:top + Hb]
+        check_equal(err, "histogram_u8",
+                    [("counts", histogram_u8(rows), histogram_u8_plain(rows).to(torch.float32))],
+                    f"{name} band's interior rows, {tuple(rows.shape)}")
+        del frames, bg0, du8, bg_diff, rows
+    out["k1_band_shapes"] = {k: [N, hi - lo, W] for k, (lo, hi, _) in shapes.items()}
+    out["k4_band_shape"] = [N, Hb, W]
+    out["band_kernels_bit_equal"] = True
+
+    mesh = make_space_mesh(n, [dev] * n)
+    sp_kw = dict(max_components=MAX_COMPONENTS)
+    # the band runs, fixed threshold and Otsu: launches counted around each
+    for name, c, ref in (("fixed", cfg, REF_CSV_SHA256), ("otsu", otsu_cfg, REF_OTSU_CSV_SHA256)):
+        sp = SpatialStreamPipeline(c, n, mesh=mesh, **sp_kw)
+        torch.cuda.synchronize()
+        reset()
+        t0 = time.perf_counter()
+        rows = sp.run(VideoMemory(clip), background0=plate)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        got = counts()
+        batches = -(-T // N) + 1  # and the warm-up's zero batch
+        want_k4 = n * batches if name == "otsu" else 0
+        if (got["k1"], got["k4"], got["k5"], got["k3"], got["k6"], got["k2"]) != (
+                n * batches, want_k4, batches, 0, 0, 0):
+            raise AssertionError(f"band run ({name}) launches, {batches} batches: {got}")
+        if hashlib.sha256(format_rows(rows).encode()).hexdigest() != ref:
+            raise AssertionError(f"band run ({name}): CSV differs from the reference's")
+        if sp.overflow_frames:
+            raise AssertionError(f"band run ({name}): stats_overflow on {sp.overflow_frames} frames")
+        out[f"{name}_rows"] = len(rows)
+        out[f"{name}_csv_sha256_equals_reference"] = True
+        out[f"{name}_launches"] = got
+        out[f"{name}_tp_recon_rounds"] = list(sp.recon_rounds)
+        out[f"{name}_seconds_4_bands_sharing_one_card"] = seconds
+        out[f"{name}_stats_overflow_frames"] = sp.overflow_frames
+    # a checkpoint after the band run's first batch, resumed on one card
+    ckpt = os.path.join(OUT_DIR, "spatial_ckpt.npz")
+    if os.path.exists(ckpt):
+        os.unlink(ckpt)
+    SpatialStreamPipeline(cfg, n, mesh=mesh, checkpoint_path=ckpt, checkpoint_every=1,
+                          **sp_kw).run(VideoMemory(clip[:N]), background0=plate)
+    resumed = StreamingPipeline(cfg, checkpoint_path=ckpt, checkpoint_every=10**9, **sp_kw).run(
+        VideoMemory(clip), background0=plate)
+    if hashlib.sha256(format_rows(resumed).encode()).hexdigest() != REF_CSV_SHA256:
+        raise AssertionError("the band run's checkpoint resumed on one card: CSV differs")
+    out["checkpoint_resumed_on_one_card_equal"] = True
+    # one batch's ms between CUDA events (the reconciliation's host reads
+    # inside it), on a batch already on the card
+    fn = make_spatial_processor(cfg, H, W, n, mesh=mesh, **sp_kw)
+    batch = torch.from_numpy(clip[:N]).to(dev)
+    carry0 = init_carry(cfg, H, W, plate, device=dev)
+    fn(carry0, batch)  # untimed
+    out["batch_ms_4_bands_sharing_one_card"] = spread_runs(
+        [once_ms(lambda: fn(carry0, batch)) for _ in range(3)])
+    # where that batch's device time goes (torch.profiler, one profiled call):
+    # its total, its launches and the eight heaviest kernels
+    kernels = kernel_breakdown(lambda: fn(carry0, batch), reps=1)
+    out["batch_device_ms"], out["batch_launches"] = device_summary(kernels)
+    out["batch_top_kernels"] = dict(list(kernels.items())[:8])
+    del fn, batch, carry0
+
+    # the ('stream',) mesh on the one card against the stream axis
+    S = SPATIAL_STREAMS
+    plates = np.stack([plate.astype(np.float32)]
+                      + [clip[MS_SHIFT * s].astype(np.float32) for s in range(1, S)])
+
+    def videos():
+        return [VideoMemory(clip)] + [cycled(VideoBase, clip, T, MS_SHIFT * s)
+                                      for s in range(1, S)]
+
+    reset()
+    rows_mesh, merged_mesh = MultiStreamPipeline(
+        cfg, S, mesh=make_stream_mesh(S, [dev] * S), **sp_kw).run(videos(), background0=plates)
+    mesh_counts = counts()
+    steps = -(-T // N)
+    if (mesh_counts["k1"], mesh_counts["k5"], mesh_counts["k3"]) != (S * steps,) * 3:
+        raise AssertionError(f"stream mesh launches ({steps} steps): {mesh_counts}")
+    rows_axis, merged_axis = MultiStreamPipeline(cfg, S, mesh=None, **sp_kw).run(
+        videos(), background0=plates)
+    if rows_mesh != rows_axis or merged_mesh != merged_axis:
+        raise AssertionError("the stream mesh's rows differ from the stream axis's")
+    if hashlib.sha256(format_rows(rows_mesh[0]).encode()).hexdigest() != REF_CSV_SHA256:
+        raise AssertionError("stream mesh: stream 0's CSV differs from the reference's")
+    if MultiStreamPipeline(cfg, S, **sp_kw).mesh is not None and torch.cuda.device_count() < S:
+        raise AssertionError('mesh="auto" built a stream mesh without a card a stream')
+    out["stream_mesh_streams"] = S
+    out["stream_mesh_launches"] = mesh_counts
+    out["stream_mesh_rows_equal_stream_axis"] = True
+    out["stream_mesh_rows_a_stream"] = [len(r) for r in rows_mesh]
+    out["seconds"] = round(time.time() - t_phase, 1)
+    return out
+
+
 FILTER_FRAMES = 16  # frames of each filter's 1080p check
 FILTER_STAGING_BATCHES = 4  # batches a timed stager run moves (phase 7e)
 
@@ -1800,7 +1979,7 @@ def filters_phase(clip, plate, card, cfg, err):
 
 def main():
     modes = ("--k1", "--k2", "--k5", "--wide", "--probes", "--staging", "--multistream",
-             "--filters")
+             "--filters", "--spatial")
     mode = sys.argv[1] if len(sys.argv) == 2 and sys.argv[1] in modes else None
     k1_only = mode == "--k1"
     if sys.argv[1:] and mode is None:
@@ -1882,6 +2061,13 @@ def main():
                                                       births_deaths=False, noise_sigma=2.0)
         err = {"fused_segment_streams": 0.0, "track_scan_streams": 0.0}
         say("multistream", **multistream_phase(clip, plate, card, bench_cfg(config, 256), err)[0])
+        return 0
+    if mode == "--spatial":
+        clip, _alive, _truth, plate = multi_blob_clip(1080, 1920, 512, n_blobs=6, radius=16,
+                                                      births_deaths=False, noise_sigma=2.0)
+        err = {"fused_segment": 0.0, "fused_segment_diff": 0.0, "histogram_u8": 0.0}
+        say("spatial", **spatial_phase(clip, plate, card, bench_cfg(config, 256), err),
+            max_abs_err=err)
         return 0
     if mode == "--filters":
         clip, _alive, _truth, plate = multi_blob_clip(1080, 1920, 512, n_blobs=6, radius=16,
@@ -2561,6 +2747,11 @@ def main():
     filters_line, filters_launches = filters_phase(clip, plate, card, cfg, err)
     say("filters", **filters_line)
     say("filters_launches", **filters_launches)
+    torch.cuda.empty_cache()
+
+    # 7f. the multi-card half of dist/ on the one card: four bands of the
+    # ('space',) mesh, a checkpoint resumed on one card, the ('stream',) mesh
+    say("spatial", **spatial_phase(clip, plate, card, cfg, err))
     torch.cuda.empty_cache()
 
     # 8. at the main path's shapes (batch 256, 1080p): kernel vs plain

@@ -24,7 +24,7 @@ import tpuva_torch.probes, tpuva_torch.probes._timing, tpuva_torch.probes.repos_
 import tpuva_torch.probes.roll_probe, tpuva_torch.probes.i16_probe, tpuva_torch.probes.cell_probe
 import tpuva_torch.io, tpuva_torch.io.native, tpuva_torch.export, tpuva_torch.export.hdf5io
 import tpuva_torch.app, tpuva_torch.compose, tpuva_torch.analysis.curves, tpuva_torch.cli
-import tpuva_torch.dist, tpuva_torch.dist.multistream, tpuva_torch.dist.pipeline
+import tpuva_torch.dist, tpuva_torch.dist.multistream, tpuva_torch.dist.pipeline, tpuva_torch.dist.spatial
 import tpuva_torch.filters, tpuva_torch.ops.warp, tpuva_torch.ops.distance, tpuva_torch.debug
 import tpuva_torch.analysis, tpuva_torch.analysis.image, tpuva_torch.analysis.shapes
 import tpuva_torch.analysis.regions, tpuva_torch.analysis.active_contour

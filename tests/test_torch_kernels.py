@@ -949,6 +949,40 @@ def test_track_scan_kernel_matches_plain(cuda_device, kind, assigner):
             assert int(rv.sum()) + int(rv2.sum()) > 0 or not valid.any(), where
 
 
+@pytest.mark.gpu
+def test_kernels_launch_on_a_card_that_is_not_current(cuda_device):
+    """K1 (both emits) and K5 on cuda:1 while cuda:0 is the current
+    device: every launch enters its tensors' card (_build.launch), the
+    outputs stay there and equal the plain versions bit for bit."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA devices: the launch must enter a card that is not current")
+    other = torch.device("cuda", 1)
+    frames, bg0 = scene(4, 200, 333, seed=9)
+    diff_kw = dict(alpha=0.02, threshold=0.0, blur_ksize=5, emit="diff")
+    dets, valid = det_sequence("churn", 8, frames=48, seed=2)
+    kw = dict(max_dist=40.0, death_patience=3, assigner="hungarian")
+    with torch.cuda.device(0):
+        for opts in (BENCH, diff_kw):
+            ref = fused_segment_plain(torch.from_numpy(frames), torch.from_numpy(bg0), **opts)
+            got = fused_segment(torch.from_numpy(frames).to(other),
+                                torch.from_numpy(bg0).to(other), **opts)
+            torch.cuda.synchronize(other)
+            assert torch.cuda.current_device() == 0
+            for r, g in zip(ref, got):
+                assert g.device == other
+                np.testing.assert_array_equal(g.cpu().numpy(), r.numpy())
+        state = init_track_state(16, "cpu")
+        ref = track_scan_plain(state, torch.from_numpy(dets), torch.from_numpy(valid),
+                               torch.tensor(0, dtype=torch.int32), **kw)
+        got = track_scan(TrackState(*(x.to(other) for x in state)),
+                         torch.from_numpy(dets).to(other), torch.from_numpy(valid).to(other),
+                         torch.tensor(0, dtype=torch.int32, device=other), **kw)
+        torch.cuda.synchronize(other)
+        for g, r in zip((*got[0], got[1], got[2]), (*ref[0], ref[1], ref[2])):
+            assert g.device == other
+            np.testing.assert_array_equal(_bits(g.cpu()).numpy(), _bits(r).numpy())
+
+
 # the register kernel's edges (T and D of 32 fit a lane each, 33 do not)
 # and its array extents (D 8, 16 and 32)
 K5_EDGES = [(32, 32), (32, 1), (1, 32), (33, 8), (16, 33), (33, 33), (2, 9), (31, 17)]

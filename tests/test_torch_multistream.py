@@ -30,8 +30,10 @@ from tpuva_torch.dist import (
     init_multistream_carry,
     load_multistream_checkpoint,
     make_multistream_processor,
+    make_stream_mesh,
     merge_stream_rows,
 )
+from tpuva_torch.dist.multistream import stack_stream_carries
 from tpuva_torch.graph import config as tcfg
 from tpuva_torch.graph.pipeline import init_carry, process_batch
 from tpuva_torch.io.memory import VideoMemory
@@ -84,7 +86,8 @@ def run_tpuva(c, S, clips, plates, **kw):
 
 
 def run_port(c, S, clips, plates, as_list=False, **kw):
-    fn = make_multistream_processor(c, S, **kw, **CPU)
+    kw = dict(CPU, **kw)
+    fn = make_multistream_processor(c, S, **kw)
     carry = init_multistream_carry(c, clips.shape[2], clips.shape[3], S, background0=plates,
                                    **CPU)
     outs = []
@@ -448,3 +451,66 @@ def test_checkpoints_cross_packages(drive, tmp_path, writer):
     assert rows == rows_j and merged == merged_j
     with pytest.raises(ValueError, match="stream count"):
         load_multistream_checkpoint(ckpt, MS_CFG, S + 1, **CPU)
+
+
+# ------------------------------------------------------ the ('stream',) mesh
+
+def test_make_stream_mesh_and_auto():
+    """make_stream_mesh takes the first n devices and raises tpuva's error
+    on fewer (no CPU fallback); mesh="auto" builds none on the CPU."""
+    cpu = torch.device("cpu")
+    assert make_stream_mesh(2, ["cpu"] * 3) == (cpu, cpu)
+    with pytest.raises(ValueError, match=r"need 4 devices for a \('stream',\) mesh, have 3"):
+        make_stream_mesh(4, [cpu] * 3)
+    if not torch.cuda.is_available():
+        with pytest.raises(ValueError, match="have 0"):
+            make_stream_mesh(1)
+    assert MultiStreamPipeline(MS_CFG, 3, **CPU).mesh is None
+    with pytest.raises(ValueError, match="not n_streams=3"):
+        make_multistream_processor(MS_CFG, 3, mesh=make_stream_mesh(2, [cpu] * 2))
+
+
+@pytest.mark.parametrize("case", ["fixed", "otsu"])
+def test_mesh_processor_matches_stream_axis(case):
+    """Two steps of S streams, a stream a device of a CPU mesh: every
+    output field equals the stream axis's, and the per-stream carries it
+    returns, stacked, equal the stream axis's carry bit for bit."""
+    threshold, S, _kw, _plates = CASES[case]
+    clips, plates = make_streams(S, seed=7)
+    c = cfg(tcfg, threshold)
+    carry, outs = run_port(c, S, clips, plates)
+    carry_m, outs_m = run_port(c, S, clips, plates, as_list=True,
+                               mesh=make_stream_mesh(S, ["cpu"] * S))
+    assert isinstance(carry_m, tuple) and len(carry_m) == S
+    for step, (o, om) in enumerate(zip(outs, outs_m)):
+        for k in OUT_KEYS:
+            np.testing.assert_array_equal(om[k], o[k], err_msg=f"step {step}: {k}")
+    stacked = stack_stream_carries(carry_m, "cpu")
+    for a, b in zip(stacked, carry):
+        for x, y in (zip(a, b) if isinstance(a, TrackState) else [(a, b)]):
+            assert torch.equal(x, y)
+
+
+def test_pipeline_on_a_stream_mesh_matches_tpuva_mesh(drive, tmp_path):
+    """MultiStreamPipeline on a CPU mesh of S devices (each stream staged
+    and run on its own) gives the stream axis's rows and tpuva's on its
+    simulated ('stream',) mesh (its tests/test_multistream.py:92); its
+    checkpoint, the gathered stacked carry, resumes on the stream axis."""
+    clips, plates, rows_j, merged_j = drive
+    S = len(clips)
+    mesh = make_stream_mesh(S, ["cpu"] * S)
+    rows, merged = MultiStreamPipeline(MS_CFG, S, mesh=mesh, **CPU).run(
+        videos(clips, "port"), background0=plates)
+    assert rows == rows_j and merged == merged_j and all(rows)
+    rows_jm, merged_jm = jd.MultiStreamPipeline(MS_CFG_J, S, mesh=jd.make_stream_mesh(S)).run(
+        videos(clips, "tpuva"), background0=plates)
+    assert rows == rows_jm and merged == merged_jm
+    ckpt = str(tmp_path / "ms.npz")
+    MultiStreamPipeline(MS_CFG, S, mesh=mesh, checkpoint_path=ckpt, **CPU).run(
+        videos(clips[:, :8], "port"), background0=plates)
+    carry, _saved = load_multistream_checkpoint(ckpt, MS_CFG, S, **CPU)
+    assert tuple(carry.bg.shape) == (S,) + clips.shape[2:]
+    assert carry.frame_idx.tolist() == [8] * S
+    resumed, _m = MultiStreamPipeline(MS_CFG, S, checkpoint_path=ckpt, **CPU).run(
+        videos(clips, "port"), background0=plates)
+    assert resumed == rows

@@ -274,6 +274,21 @@ def load_host() -> ctypes.CDLL:
     return lib
 
 
+def launch(device, entry: str, what: str, *args) -> None:
+    """Call entry point `entry` of the library with `args` and, last, the
+    handle of CUDA device `device`'s current stream, with `device` made the
+    current device first; raise on a CUDA error. The entry points set kernel
+    attributes, size grids and launch on the current device, so a tensor on
+    another card than the current one must enter its own: every launch of
+    the port goes through here."""
+    import torch
+
+    lib = load()
+    with torch.cuda.device(device):
+        err = getattr(lib, entry)(*args, torch.cuda.current_stream(device).cuda_stream)
+    check(lib, err, what)
+
+
 def check(lib: ctypes.CDLL, err: int, what: str) -> None:
     """Raise if a launcher returned a CUDA error (cudaGetLastError)."""
     if err:

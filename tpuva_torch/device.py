@@ -2,6 +2,8 @@
 
 from __future__ import annotations
 
+import contextlib
+
 import torch
 
 
@@ -20,3 +22,24 @@ def resolve_device(device) -> torch.device:
         if dev.index is None:
             dev = torch.device("cuda", torch.cuda.current_device())
     return dev
+
+
+def on_device(dev: torch.device):
+    """A context that makes CUDA device `dev` the current device (nothing
+    for a CPU device): a stream or band's work on its own card enters it,
+    so that what it allocates and launches lands there."""
+    return torch.cuda.device(dev) if dev.type == "cuda" else contextlib.nullcontext()
+
+
+def mesh_devices(n: int, devices, what: str = "") -> tuple:
+    """The first n of `devices` (default: every visible card, cuda:0 ...
+    cuda:k-1) as a tuple of torch.devices, a mesh of tpuva's meshes: one
+    process drives it, a device may appear several times (devices=[cpu] * 4
+    puts four bands on the CPU). Raises tpuva's ValueError when fewer than
+    n are given; never falls back to the CPU."""
+    if devices is None:
+        devices = [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
+    devices = list(devices)
+    if len(devices) < n:
+        raise ValueError(f"need {n} devices{what}, have {len(devices)}")
+    return tuple(resolve_device(d) for d in devices[:n])

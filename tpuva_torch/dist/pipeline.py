@@ -1,18 +1,20 @@
-"""Config-5 host pipeline: S concurrent camera streams on one card with
-per-stream state and merged results — port of ``tpuva/dist/pipeline.py``'s
-``MultiStreamPipeline`` and its checkpoints.
+"""Host pipelines over several streams or bands — port of
+``tpuva/dist/pipeline.py``: ``MultiStreamPipeline`` (config 5, S concurrent
+camera streams with per-stream state and merged results) and its
+checkpoints, and ``SpatialStreamPipeline`` (config 4's long recording,
+each frame banded by rows across a ('space',) mesh).
 
     S videos -> S BatchStagers (each its own feeder thread and pinned ring,
     copying its stream's batches to the card) -> one multistream step over
     the S batches where they lie (K1 and K5 one launch each for all
-    streams) -> AsyncRowDrainer (per-stream row collection off the main
-    thread) -> periodic stacked-carry checkpoints -> merged export with
-    stream provenance.
+    streams; on a ('stream',) mesh, stream s's process_batch on its own
+    device, its stager staging there) -> AsyncRowDrainer (per-stream row
+    collection off the main thread) -> periodic stacked-carry checkpoints
+    -> merged export with stream provenance.
 
 Checkpoints are npz files with tpuva's keys and dtypes, so a checkpoint
-written by either package resumes in the other. Not carried over: the
-('stream',) mesh (one card runs every stream), ``SpatialStreamPipeline``
-(a frame banded across chips) and tpuva's transfer guard.
+written by either package resumes in the other; a mesh's carry is gathered
+into them. Not carried over: tpuva's transfer guard.
 """
 
 from __future__ import annotations
@@ -22,13 +24,18 @@ import warnings
 from typing import Optional, Sequence
 
 import numpy as np
+import torch
 
 from tpuva_torch.device import resolve_device
 from tpuva_torch.dist.multistream import (
     init_multistream_carry,
     make_multistream_processor,
+    make_stream_mesh,
     merge_stream_rows,
+    split_stream_carry,
+    stack_stream_carries,
 )
+from tpuva_torch.dist.spatial import make_space_mesh, make_spatial_processor
 from tpuva_torch.graph.pipeline import (
     PipelineCarry,
     carry_to_numpy,
@@ -38,6 +45,7 @@ from tpuva_torch.graph.pipeline import (
 from tpuva_torch.graph.streaming import (
     AsyncRowDrainer,
     RowLog,
+    StreamingPipeline,
     _atomic_savez,
     _carry_payload,
     _load_carry,
@@ -47,14 +55,91 @@ from tpuva_torch.io.staging import BatchStager
 from tpuva_torch.utils import BatchLogger
 
 
+class SpatialStreamPipeline(StreamingPipeline):
+    """The streamed pipeline on a ('space',) mesh: ONE long video, each
+    frame's rows banded across n_chips devices (make_spatial_processor).
+
+    It is StreamingPipeline — staging, AsyncRowDrainer, checkpoints, the
+    RowLog mode, resume — with tpuva's overrides:
+
+    - one BatchStager stages each batch, one host copy a frame, onto band
+      0's device (mesh[0]); each band takes its rows with their halo from
+      there, views where the bands share that device, a copy between
+      cards otherwise;
+    - the carry is placed on the mesh (the background's bands on their
+      devices, the tracker on mesh[0]); checkpoints hold the gathered
+      full-frame carry, so a band run's checkpoint resumes on the single
+      device StreamingPipeline, and the reverse, in either package;
+    - the step is make_spatial_processor's, built once per (H, W), its
+      first run warmed up before the stager starts.
+
+    H must divide by n_chips and the front end's halo fit one band
+    (make_spatial_processor validates). use_pallas and ccl_single_pass are
+    ignored, as in tpuva: the band program is its own device path.
+    recon_rounds lists each batch's tp_recon_rounds."""
+
+    def __init__(self, cfg, n_chips: int, mesh=None, **kw):
+        if "device" in kw:
+            raise TypeError("SpatialStreamPipeline runs on its mesh: pass mesh=, not device=")
+        self.mesh = make_space_mesh(n_chips, mesh)
+        super().__init__(cfg, device=self.mesh[0], **kw)
+        self.n_chips = n_chips
+        self._fns = {}  # (H, W) -> the band step
+        self._warm = set()  # shapes whose first step already ran
+        self.recon_rounds = []
+
+    def _place_carry(self, carry: PipelineCarry) -> PipelineCarry:
+        H = carry.bg.shape[0] if isinstance(carry.bg, torch.Tensor) else None
+        if H is None or H % self.n_chips:
+            return carry  # bands already, or a geometry the step rejects
+        Hb = H // self.n_chips
+        home = self.mesh[0]
+        return PipelineCarry(
+            bg=tuple(carry.bg[b * Hb:(b + 1) * Hb].to(d) for b, d in enumerate(self.mesh)),
+            bg_valid=carry.bg_valid.to(home),
+            track=type(carry.track)(*(x.to(home) for x in carry.track)),
+            frame_idx=carry.frame_idx.to(home),
+        )
+
+    def _make_stager(self, source):
+        W, H = source.size
+        if (H, W) not in self._warm:
+            self.warmup(H, W)
+            self._warm.add((H, W))
+            self.recon_rounds.clear()
+        return super()._make_stager(source)
+
+    def _step(self, cfg, carry, batch):
+        key = (int(batch.shape[1]), int(batch.shape[2]))
+        fn = self._fns.get(key)
+        if fn is None:
+            fn = make_spatial_processor(cfg, key[0], key[1], self.n_chips, mesh=self.mesh,
+                                        max_components=self.max_components)
+            self._fns[key] = fn
+        carry, out = fn(carry, batch)
+        self.recon_rounds.append(int(out["tp_recon_rounds"]))
+        return carry, out
+
+    def _overflow_message(self, bad: int, most: int) -> str:
+        """stats_overflow counts the component PIECES a band's table
+        (max_components entries) could not hold: their sums were dropped,
+        so those frames' areas and centroids are inexact. tpuva's message."""
+        return (f"spatial-TP band piece-table overflow on {bad} frame(s) "
+                f"(max {most} pieces dropped): raise "
+                f"max_components (={self.max_components}) for this workload")
+
+
 def save_multistream_checkpoint(path: str, carry: PipelineCarry, rows_state, cfg) -> None:
     """Atomic snapshot of the stacked per-stream carry + rows (npz), with
-    tpuva's keys and dtypes.
+    tpuva's keys and dtypes; a stream mesh's per-stream carries are
+    gathered first.
 
     rows_state is either rows_by_stream (list of per-stream row lists,
     embedded in the snapshot) or a 1-D int array of per-stream durable
     RowLog counts (row-log mode: O(carry) snapshots, rows live in the
     append-only logs)."""
+    if not isinstance(carry, PipelineCarry):
+        carry = stack_stream_carries(carry, "cpu")
     payload = _carry_payload(carry, cfg)
     if isinstance(rows_state, np.ndarray) and rows_state.ndim == 1:
         payload["row_counts"] = rows_state.astype(np.int64)
@@ -91,6 +176,12 @@ class MultiStreamPipeline:
     and K5 once for all streams. Rows drain off-thread through
     AsyncRowDrainer.
 
+    mesh="auto" builds a ('stream',) mesh (make_stream_mesh) when the
+    device is a card and at least n_streams cards are visible, else runs
+    every stream on `device` as above — tpuva's rule. With a mesh, stream
+    s is staged onto mesh[s] and runs there, one device a stream; mesh=None
+    never builds one.
+
     row_log_dir enables the unbounded-stream mode (the multi-stream
     analog of StreamingPipeline's row_log_path): drained rows stream to
     one append-only RowLog per stream instead of host RAM, and
@@ -105,6 +196,7 @@ class MultiStreamPipeline:
         self,
         cfg,
         n_streams: int,
+        mesh="auto",
         checkpoint_path: Optional[str] = None,
         checkpoint_every: int = 50,  # steps
         parallel_bg: bool = False,
@@ -125,16 +217,28 @@ class MultiStreamPipeline:
         self.queue_depth = queue_depth
         self.strict = strict
         self.device = resolve_device(device)
+        if isinstance(mesh, str) and mesh == "auto":
+            mesh = (make_stream_mesh(n_streams)
+                    if self.device.type == "cuda" and torch.cuda.device_count() >= n_streams
+                    else None)
+        self.mesh = None if mesh is None else tuple(mesh)
         self.overflow_frames = 0
         self.logger = BatchLogger(enabled=log)
         self._fn = make_multistream_processor(
-            cfg, n_streams, parallel_bg=parallel_bg, max_components=max_components,
-            use_pallas=use_pallas, ccl_single_pass=ccl_single_pass, device=self.device,
+            cfg, n_streams, mesh=self.mesh, parallel_bg=parallel_bg,
+            max_components=max_components, use_pallas=use_pallas,
+            ccl_single_pass=ccl_single_pass, device=self.device,
         )
 
     def _stagers(self, videos: Sequence[VideoBase]):
-        return [BatchStager(v, self.cfg.batch, queue_depth=self.queue_depth, device=self.device)
-                for v in videos]
+        devs = self.mesh if self.mesh is not None else [self.device] * self.n_streams
+        return [BatchStager(v, self.cfg.batch, queue_depth=self.queue_depth, device=d)
+                for v, d in zip(videos, devs)]
+
+    def _place_carry(self, carry: PipelineCarry):
+        """The stacked carry on the mesh, stream s's on mesh[s] (as it is
+        without a mesh)."""
+        return carry if self.mesh is None else split_stream_carry(carry, self.mesh)
 
     def run(
         self,
@@ -187,12 +291,14 @@ class MultiStreamPipeline:
                 return np.asarray([rl.count() for rl in rlogs], np.int64)
             return rows_by_stream
 
-        carry = init_multistream_carry(cfg, H, W, S, background0=background0,
-                                       device=self.device)
+        carry = self._place_carry(init_multistream_carry(cfg, H, W, S, background0=background0,
+                                                         device=self.device))
         start_frame = 0
         if resume and self.checkpoint_path and os.path.exists(self.checkpoint_path):
             carry, saved = load_multistream_checkpoint(self.checkpoint_path, cfg, S,
                                                        self.device)
+            fidx = carry_to_numpy(carry).frame_idx  # the frame indices, read on the host once
+            carry = self._place_carry(carry)
             if isinstance(saved, np.ndarray) and saved.ndim == 1:
                 if not use_log:
                     raise ValueError("checkpoint stores RowLog counts but no row_log_dir was given")
@@ -203,8 +309,6 @@ class MultiStreamPipeline:
                 if use_log:
                     raise ValueError("checkpoint embeds rows but row_log_dir is set")
                 rows_by_stream = saved
-            # the checkpoint's frame indices, read on the host once
-            fidx = carry_to_numpy(carry).frame_idx
             if not (fidx == fidx[0]).all():
                 raise ValueError(f"checkpoint streams out of lock-step: frame_idx {fidx}")
             start_frame = int(fidx[0])

@@ -143,12 +143,15 @@ def carry_from_numpy(carry, device="cuda") -> PipelineCarry:
 
 
 def carry_to_numpy(carry: PipelineCarry) -> PipelineCarry:
-    """The same carry with every field a numpy array on the host."""
+    """The same carry with every field a numpy array on the host; a
+    background held as row bands (a sequence of tensors, the spatial
+    processor's carry) is gathered into the full frame."""
     def a(x):
         return x.detach().cpu().numpy()
 
+    bands = isinstance(carry.bg, (list, tuple))
     return PipelineCarry(
-        bg=a(carry.bg),
+        bg=np.concatenate([a(b) for b in carry.bg], axis=-2) if bands else a(carry.bg),
         bg_valid=a(carry.bg_valid),
         track=TrackState(*(a(x) for x in carry.track)),
         frame_idx=a(carry.frame_idx),
@@ -266,10 +269,13 @@ def _morphology(cfg, mask: torch.Tensor) -> torch.Tensor:
     return mask
 
 
-def _otsu_mask(cfg, du8: torch.Tensor) -> torch.Tensor:
+def _otsu_mask(cfg, du8: torch.Tensor, thr: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Rounded magnitudes (N, H, W) uint8 -> mask: each frame's Otsu
-    threshold (K4's histogram), the strict integer compare, open, close."""
-    thr = otsu_threshold(du8)  # (N,) float32
+    threshold (K4's histogram; or thr (N,) float32 where the caller took
+    it, as the spatial processor does from every band's histogram), the
+    strict integer compare, open, close."""
+    if thr is None:
+        thr = otsu_threshold(du8)  # (N,) float32
     zero = torch.zeros((), dtype=torch.uint8, device=du8.device)
     mask = torch.where(du8.to(torch.int32) > thr.to(torch.int32)[:, None, None], zero + 255, zero)
     return _morphology(cfg, mask)
@@ -295,16 +301,23 @@ def torch_front_end(cfg, carry: PipelineCarry, frames: torch.Tensor,
     masks in stream order and the (S, H, W) backgrounds: K1 is one launch
     for all streams, each seeded by its flag of ~bg_valid on the device;
     the torch ops run once a stream, as tpuva's jnp branch under vmap."""
+    out, bg_last = _front_end_emit(cfg, carry, frames, parallel_bg)
+    return (_otsu_mask(cfg, out) if cfg.segment.threshold == "otsu" else out), bg_last
+
+
+def _front_end_emit(cfg, carry: PipelineCarry, frames: torch.Tensor, parallel_bg: bool = False):
+    """torch_front_end short of the Otsu tail: (the mask, or for Otsu the
+    rounded magnitudes clip(rint(|F - B|), 0, 255) uint8, post-batch
+    background), on the same routes."""
     streams = carry.bg.dim() == 3
     otsu = cfg.segment.threshold == "otsu"
     if not parallel_bg and _can_stage(cfg):
         seed_bg = ~carry.bg_valid if streams else not bool(carry.bg_valid)
         emit = _diff_kwargs(cfg) if otsu else _front_end_kwargs(cfg)
         out, bg_last = fused_segment(frames, carry.bg, seed_bg=seed_bg, **emit)
-        out = out.flatten(0, out.dim() - 3)
-        return (_otsu_mask(cfg, out) if otsu else out), bg_last
+        return out.flatten(0, out.dim() - 3), bg_last
     if streams:
-        outs = [torch_front_end(cfg, _stream_carry(carry, s), frames[s], parallel_bg)
+        outs = [_front_end_emit(cfg, _stream_carry(carry, s), frames[s], parallel_bg)
                 for s in range(len(frames))]
         return torch.cat([m for m, _ in outs]), torch.stack([b for _, b in outs])
     seed_bg = not bool(carry.bg_valid)
@@ -315,7 +328,7 @@ def torch_front_end(cfg, carry: PipelineCarry, frames: torch.Tensor,
     diff = (f - bgs).abs()
     del f, bgs
     if otsu:  # torch.round is rint: half to even
-        return _otsu_mask(cfg, torch.clamp(torch.round(diff), 0, 255).to(torch.uint8)), bg_last
+        return torch.clamp(torch.round(diff), 0, 255).to(torch.uint8), bg_last
     return _morphology(cfg, threshold(diff, cfg.segment.threshold)), bg_last
 
 
@@ -358,7 +371,7 @@ def process_batch(cfg, carry: PipelineCarry, frames: torch.Tensor,
         stats = connected_components_with_stats(
             mask, max_components=max_components, compute_bbox=False, compute_labels=False
         )
-    return _finish_batch(cfg, carry, stats, mask, bg_last, return_masks)
+    return _finish_batch(cfg, carry, stats, bg_last, mask if return_masks else None)
 
 
 def padded_handoff(cfg, H: int, W: int) -> bool:
@@ -414,7 +427,7 @@ def process_batch_staged(cfg, carry: PipelineCarry, frames: torch.Tensor,
     else:
         masks, bg_last = torch_front_end(cfg, carry, frames)
         stats = label_stats(masks, max_components)
-    new_carry, out = _finish_batch(cfg, carry, stats, masks, bg_last, return_masks)
+    new_carry, out = _finish_batch(cfg, carry, stats, bg_last, masks if return_masks else None)
     if return_labels:
         root, occ = root_labels(masks, 8)
         out["labels"] = relabel_dense(root, max_components, strip_occ=occ)[0]
@@ -428,13 +441,14 @@ def _stream_carry(carry: PipelineCarry, s: int) -> PipelineCarry:
                          frame_idx=carry.frame_idx[s])
 
 
-def _finish_batch(cfg, carry: PipelineCarry, stats, mask, bg_last, return_masks):
-    """Detections, the tracker (K5) and the outputs of a batch. With a
-    stream axis (bg_last (S, H, W), mask and stats the S·N frames in
-    stream order) the tracker is one launch for all streams and every
-    output leads with (S,)."""
+def _finish_batch(cfg, carry: PipelineCarry, stats, bg_last, masks=None):
+    """Detections, the tracker (K5) and the outputs of a batch, with
+    out["masks"] where the batch's masks are given. With a stream axis
+    (bg_last (S, H, W), stats and masks the S·N frames in stream order)
+    the tracker is one launch for all streams and every output leads
+    with (S,)."""
     lead = tuple(bg_last.shape[:-2])  # (S,) with a stream axis, else ()
-    N = mask.shape[0] // math.prod(lead)
+    N = stats["overflow"].shape[0] // math.prod(lead)
     D = cfg.segment.max_blobs
     dets, n_det, det_valid, det_sums = extract_detections(stats, cfg.segment.min_area, D)
     ts, rows, row_valid = track_scan(
@@ -446,7 +460,7 @@ def _finish_batch(cfg, carry: PipelineCarry, stats, mask, bg_last, return_masks)
     )
     new_carry = PipelineCarry(
         bg=bg_last,
-        bg_valid=torch.ones(lead, dtype=torch.bool, device=mask.device),
+        bg_valid=torch.ones(lead, dtype=torch.bool, device=bg_last.device),
         track=ts,
         frame_idx=(carry.frame_idx + N).to(torch.int32),
     )
@@ -459,8 +473,8 @@ def _finish_batch(cfg, carry: PipelineCarry, stats, mask, bg_last, return_masks)
         "stats_overflow": stats["overflow"].reshape(*lead, N),
         "ccl_converged": stats["ccl_converged"],
     }
-    if return_masks:
-        out["masks"] = mask.reshape(*lead, N, *mask.shape[1:])
+    if masks is not None:
+        out["masks"] = masks.reshape(*lead, N, *masks.shape[1:])
     return new_carry, out
 
 

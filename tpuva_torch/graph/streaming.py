@@ -15,10 +15,15 @@ written by either package resumes in the other.
 ``row_log_path`` streams rows to an append-only ``RowLog`` file instead of
 host memory; checkpoints then store only the durable row count.
 
+The placement hook ``_place_carry`` is tpuva's:
+``dist.pipeline.SpatialStreamPipeline`` overrides it to band the carry
+across its mesh (its frames need no hook: the stager stages them on the
+mesh's first device, where each band takes its rows).
+
 Not carried over: tpuva's ``jax.transfer_guard`` around the hot loop (it
 has no torch counterpart; the tracker still reads the device once per
-frame, ROADMAP.md), its mesh-placement hooks, and the drainer's packing of
-int32 sums into float32 halves (a TPU transport workaround).
+frame, ROADMAP.md) and the drainer's packing of int32 sums into float32
+halves (a TPU transport workaround).
 """
 
 from __future__ import annotations
@@ -378,6 +383,11 @@ class StreamingPipeline:
         self.active_tracks = 0  # last drained end-of-batch count
         self.logger = BatchLogger(enabled=log)
 
+    def _place_carry(self, carry: PipelineCarry) -> PipelineCarry:
+        """The carry as the step takes it (a subclass places it on its
+        devices, as tpuva's mesh pipelines do); here as it is."""
+        return carry
+
     def _make_stager(self, source):
         return BatchStager(source, self.cfg.batch, queue_depth=self.queue_depth,
                            device=self.device)
@@ -404,7 +414,7 @@ class StreamingPipeline:
         pipeline state is touched. The first kernel call otherwise builds
         the library with nvcc in the middle of the stream."""
         cfg = self.cfg
-        carry = init_carry(cfg, H, W, device=self.device)
+        carry = self._place_carry(init_carry(cfg, H, W, device=self.device))
         frames = torch.zeros((cfg.batch, H, W), dtype=torch.uint8, device=self.device)
         _carry, out = self._step(cfg, carry, frames)
         out["rows"].cpu()
@@ -419,10 +429,11 @@ class StreamingPipeline:
         W, H = video.size
         chunks: list = []  # (k, 5) float64 arrays
         rlog: Optional[RowLog] = None  # opened only after mode validation
-        carry = init_carry(cfg, H, W, background0, device=self.device)
+        carry = self._place_carry(init_carry(cfg, H, W, background0, device=self.device))
         start_frame = 0
         if resume and self.checkpoint_path and os.path.exists(self.checkpoint_path):
             carry, saved = load_checkpoint(self.checkpoint_path, cfg, self.device)
+            carry = self._place_carry(carry)
             if isinstance(saved, int):
                 if not self.row_log_path:
                     raise ValueError("checkpoint stores a RowLog count but no row_log_path was given")
@@ -506,6 +517,10 @@ class StreamingPipeline:
             return out
         return _as_tuples(chunks)
 
+    def _overflow_message(self, bad: int, most: int) -> str:
+        return (f"stats capacity overflow on {bad} frame(s) (max {most} "
+                "dropped): areas/centroids are inexact for those frames")
+
     def _check_capacity(self, out: dict, n: int) -> None:
         """Surface silent-accuracy-loss conditions (stats overflow, a CCL
         that did not converge)."""
@@ -514,8 +529,7 @@ class StreamingPipeline:
             bad = int((ov > 0).sum())
             if bad:
                 self.overflow_frames += bad
-                msg = (f"stats capacity overflow on {bad} frame(s) (max {int(ov.max())} "
-                       "dropped): areas/centroids are inexact for those frames")
+                msg = self._overflow_message(bad, int(ov.max()))
                 if self.strict:
                     raise RuntimeError(msg)
                 warnings.warn(msg)

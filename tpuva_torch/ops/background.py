@@ -26,3 +26,10 @@ def background_update(bg: torch.Tensor, frame: torch.Tensor, alpha) -> torch.Ten
     """One update step. bg, frame: (..., H, W) float32."""
     c1, a = background_coeffs(alpha)
     return c1 * bg + a * frame
+
+
+def background_update_masked(bg: torch.Tensor, frame: torch.Tensor, alpha,
+                             mask: torch.Tensor) -> torch.Tensor:
+    """cv2.accumulateWeighted's optional update mask: pixels where mask is
+    False keep the old background."""
+    return torch.where(mask, background_update(bg, frame, alpha), bg)

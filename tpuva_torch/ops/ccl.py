@@ -161,15 +161,13 @@ def _label_stats_cuda(mask: torch.Tensor, max_components: int, strip_occ, H: int
     out = torch.empty((N * (2 + 5 * (C + 1)),), dtype=torch.int32, device=dev)
     views = stats_views(out, N, C)
     at = {name: ws.data_ptr() + off for name, (off, _n) in layout.items()}
-    lib = _build.load()
-    err = lib.tpuva_ccl_stats(
+    _build.launch(
+        dev, "tpuva_ccl_stats", "ccl kernel",
         mask.data_ptr(), N, Hm, Wm, H, W, C, None if derive else strip_occ.data_ptr(),
         *(at[k] for k in ("fine", "bits", "parent", "list", "nlist", "rc", "table", "sums")),
         *(views[k].data_ptr() for k in STATS_FIELDS),
         None if phase_ns is None else phase_ns.data_ptr(),
-        torch.cuda.current_stream(dev).cuda_stream,
     )
-    _build.check(lib, err, "ccl kernel")
     label_stats.launches += 1
     label_stats.occ_launches += not derive
     return views
@@ -307,13 +305,11 @@ def _labels_cuda(mask: torch.Tensor, connectivity: int):
         tiles = torch.empty((N, T), dtype=torch.int32, device=dev)
     ntiles = torch.empty((N,), dtype=torch.int32, device=dev)
     ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
-    lib = _build.load()
-    err = lib.tpuva_ccl_labels(
+    _build.launch(
+        dev, "tpuva_ccl_labels", "ccl labels kernel",
         mask.data_ptr(), N, H, W, connectivity, occ.data_ptr(), ptr(seg), tiles.data_ptr(),
         ntiles.data_ptr(), ptr(parent), ptr(bits), labels.data_ptr(),
-        torch.cuda.current_stream(dev).cuda_stream,
     )
-    _build.check(lib, err, "ccl labels kernel")
     label_components_tiled.launches += 1
     label_components_tiled.conn4_launches += connectivity == 4
     return labels, occ
@@ -488,15 +484,13 @@ def _root_stats_launch(root, C, connectivity, strip_occ, count, sums=None, lohi=
     at = lambda name: ws.data_ptr() + layout[name][0] if name in layout else None  # noqa: E731
     ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
     st = stats or {}
-    lib = _build.load()
-    err = lib.tpuva_root_stats(
-        root.data_ptr(), N, H, W, connectivity, C, ptr(strip_occ),
+    _build.launch(
+        dev, "tpuva_root_stats", "root stats kernel", root.data_ptr(), N, H, W, connectivity, C, ptr(strip_occ),
         *(at(k) for k in ("docc", "rcs", "list", "lrc", "loff", "table", "acc", "box")),
         count.data_ptr(), ptr(sums), ptr(lohi), ptr(labels),
         *(ptr(st.get(k)) for k in ("area", "centroid", "centroid_sum", "overflow", "bbox")),
-        ptr(zero), int(with_bbox), torch.cuda.current_stream(dev).cuda_stream,
+        ptr(zero), int(with_bbox),
     )
-    _build.check(lib, err, "root stats kernel")
     root_stats.launches += 1
     root_stats.occ_launches += not derive
 

@@ -286,12 +286,8 @@ def _histogram_u8_cuda(x: torch.Tensor) -> torch.Tensor:
     if H * W >= 1 << 31 or L > 65535:
         raise ValueError("histogram kernel: H * W < 2^31 and at most 65535 images")
     hist = torch.zeros((L, 256), dtype=torch.int32, device=x.device)
-    lib = _build.load()
-    err = lib.tpuva_histogram_u8(
-        x.data_ptr(), L, H * W, hist.data_ptr(),
-        torch.cuda.current_stream(x.device).cuda_stream,
-    )
-    _build.check(lib, err, "histogram kernel")
+    _build.launch(x.device, "tpuva_histogram_u8", "histogram kernel",
+                  x.data_ptr(), L, H * W, hist.data_ptr())
     histogram_u8.launches += 1
     return hist
 

@@ -565,12 +565,13 @@ def _fused_segment_cuda(frames, bg0, *, alpha, threshold, blur_ksize=0, blur_sig
     taps, shift = blur_taps(blur_ksize, blur_sigma) if blur_ksize else ((1,), 0)
     stages = _stages(open_shape, open_ksize, open_iters, close_shape, close_ksize, close_iters)
     if tile is None:
-        tile = fused_segment_plan(
-            H, W, blur_ksize=blur_ksize, blur_sigma=blur_sigma, median_ksize=median_ksize,
-            open_ksize=open_ksize, open_iters=open_iters, close_ksize=close_ksize,
-            close_iters=close_iters, blocks_per_sm=card_blocks_per_sm,
-            sms=torch.cuda.get_device_properties(fr[0].device).multi_processor_count,
-            streams=S).tile
+        with torch.cuda.device(fr[0].device):  # the occupancy of this card
+            tile = fused_segment_plan(
+                H, W, blur_ksize=blur_ksize, blur_sigma=blur_sigma, median_ksize=median_ksize,
+                open_ksize=open_ksize, open_iters=open_iters, close_ksize=close_ksize,
+                close_iters=close_iters, blocks_per_sm=card_blocks_per_sm,
+                sms=torch.cuda.get_device_properties(fr[0].device).multi_processor_count,
+                streams=S).tile
     stage_k = np.array([k for _, k, _ in stages], np.int32)
     stage_iters = np.array([it if k else 0 for _, k, it in stages], np.int32)
     stage_se = np.zeros((4, MAX_SE), np.uint32)
@@ -591,8 +592,8 @@ def _fused_segment_cuda(frames, bg0, *, alpha, threshold, blur_ksize=0, blur_sig
         if seed.numel() != S or seed.device != dev:
             raise ValueError(f"fused_segment kernel: seed_bg must be {S} flags on {dev}")
     ptrs = (ctypes.c_void_p * S)(*(f.data_ptr() for f in fr))
-    lib = _build.load()
-    err = lib.tpuva_fused_segment(
+    _build.launch(
+        dev, "tpuva_fused_segment", "fused_segment kernel",
         ptrs, S, bgs.data_ptr(), masks.data_ptr(), bg_out.data_ptr(),
         N, H, W, c1, a, float(np.float32(threshold)),
         taps_np.ctypes.data, len(taps), shift, 1 if median_ksize else 0,
@@ -601,9 +602,7 @@ def _fused_segment_cuda(frames, bg0, *, alpha, threshold, blur_ksize=0, blur_sig
         None if seed is None else seed.data_ptr(),
         1 if emit == "diff" else 0, tile[0], tile[1],
         Hp, Wp, None if occ is None else occ.data_ptr(),
-        torch.cuda.current_stream(dev).cuda_stream,
     )
-    _build.check(lib, err, "fused_segment kernel")
     out = (masks, bg_out, occ) if padded_occ else (masks, bg_out)
     return out if streams else tuple(x[0] for x in out)
 

@@ -85,6 +85,33 @@ def _neighbor_min_4(label: torch.Tensor, sent: int) -> torch.Tensor:
     return out
 
 
+def _segmented_min_scan(v: torch.Tensor, mask: torch.Tensor, axis: int, sent=None,
+                        reverse: bool = False) -> torch.Tensor:
+    """Segmented running minimum along `axis` — tpuva's _segmented_min_scan
+    (prefix doubling there): each mask pixel takes the minimum of v over
+    its contiguous mask run from the run's start (its end, reversed) up to
+    itself; pixels off the mask keep v and block propagation. v int32;
+    sent, tpuva's fill, changes nothing here.
+
+    One torch.cummin over int64 keys: a run's number, counted from the far
+    end, in the high word, v + 2^31 in the low one, off-mask pixels the
+    largest key. A pixel's earlier runs have larger numbers, so the running
+    minimum at a mask pixel is the minimum of its own run so far."""
+    if reverse:
+        v, mask = v.flip(axis), mask.flip(axis)
+    n = v.shape[axis]
+    prev = mask.narrow(axis, 0, n - 1)
+    start = mask.clone()
+    start.narrow(axis, 1, n - 1).logical_and_(~prev)
+    run = torch.cumsum(start, axis, dtype=torch.int32)
+    key = torch.where(mask, ((n - run).long() << 32) | (v.long() + 2**31),
+                      torch.iinfo(torch.int64).max)
+    del run, start
+    low = (torch.cummin(key, axis).values & 0xFFFFFFFF) - 2**31
+    out = torch.where(mask, low.to(torch.int32), v)
+    return out.flip(axis) if reverse else out
+
+
 def _check_connectivity(connectivity: int) -> None:
     if connectivity not in (4, 8):
         raise ValueError(f"connectivity must be 4 or 8, got {connectivity}")

@@ -127,16 +127,15 @@ def _blur_cuda(x: torch.Tensor, taps: tuple, shift: int) -> torch.Tensor:
     plan = blur_plan(H, W, taps)
     out = torch.empty_like(x)
     dev_taps = _device_ints(tuple(taps), x.device)
-    stream = torch.cuda.current_stream(x.device).cuda_stream
-    lib = _build.load()
     if plan.kernel == "tiled":
-        err = lib.tpuva_blur_u8(x.data_ptr(), out.data_ptr(), N, H, W, dev_taps.data_ptr(),
-                                len(taps), shift, *plan.tile, int(plan.dp), plan.smem, stream)
+        _build.launch(x.device, "tpuva_blur_u8", "blur_u8 kernel", x.data_ptr(), out.data_ptr(),
+                      N, H, W, dev_taps.data_ptr(), len(taps), shift, *plan.tile, int(plan.dp),
+                      plan.smem)
     else:
         rows = torch.empty((N, H, W), dtype=torch.int16, device=x.device)  # uint16 sums
-        err = lib.tpuva_blur_u8_global(x.data_ptr(), rows.data_ptr(), out.data_ptr(), N, H, W,
-                                       dev_taps.data_ptr(), len(taps), shift, stream)
-    _build.check(lib, err, "blur_u8 kernel")
+        _build.launch(x.device, "tpuva_blur_u8_global", "blur_u8 kernel", x.data_ptr(),
+                      rows.data_ptr(), out.data_ptr(), N, H, W, dev_taps.data_ptr(), len(taps),
+                      shift)
     blur_u8.launches += 1
     return out
 
@@ -297,21 +296,22 @@ def pad_occ_plain(mask: torch.Tensor, pad_to: tuple) -> tuple:
     return padded, occ128_plain(padded)
 
 
-def _morph_launch(lib, x, out, occ, g: MorphGroup, erode: bool, stream) -> int:
+def _morph_launch(x, out, occ, g: MorphGroup, erode: bool) -> None:
     """One launch of plan group g on contiguous tensors: x (N, H, W) into
     out (N, Hp, Wp), occ (N, Hp/2, Wp/128) or None; erode is the step's
-    for a "step" group (a "tiled" one has its steps' in its table).
-    Returns the launcher's CUDA error."""
+    for a "step" group (a "tiled" one has its steps' in its table)."""
     N, H, W = x.shape
     Hp, Wp = out.shape[1:]
     table = _device_ints(g.table, x.device).data_ptr()
     occ_ptr = None if occ is None else occ.data_ptr()
     if g.kernel == "tiled":
-        return lib.tpuva_morph_u8(x.data_ptr(), out.data_ptr(), N, H, W, table, len(g.table),
-                                  g.stop - g.start, *g.reach, int(g.skip), *g.tile, g.nbuf,
-                                  g.smem, Hp, Wp, occ_ptr, stream)
-    return lib.tpuva_morph_step_u8(x.data_ptr(), out.data_ptr(), N, H, W, table,
-                                   len(g.table) // 3, int(erode), Hp, Wp, occ_ptr, stream)
+        _build.launch(x.device, "tpuva_morph_u8", "morph_u8 kernel", x.data_ptr(),
+                      out.data_ptr(), N, H, W, table, len(g.table), g.stop - g.start, *g.reach,
+                      int(g.skip), *g.tile, g.nbuf, g.smem, Hp, Wp, occ_ptr)
+    else:
+        _build.launch(x.device, "tpuva_morph_step_u8", "morph_u8 kernel", x.data_ptr(),
+                      out.data_ptr(), N, H, W, table, len(g.table) // 3, int(erode), Hp, Wp,
+                      occ_ptr)
 
 
 def morph_steps(x: torch.Tensor, steps, pad_to=None):
@@ -336,8 +336,6 @@ def morph_steps(x: torch.Tensor, steps, pad_to=None):
                 x = _morph(x, se, is_erode=erode)
         return x if pad_to is None else pad_occ_plain(x, pad_to)
     x = x.contiguous()
-    lib = _build.load()
-    stream = torch.cuda.current_stream(x.device).cuda_stream
     occ = None
     for k, g in enumerate(plan):
         last = pad_to is not None and k == len(plan) - 1
@@ -345,8 +343,7 @@ def morph_steps(x: torch.Tensor, steps, pad_to=None):
         out = torch.empty((N, Hp, Wp), dtype=torch.uint8, device=x.device)
         if last:
             occ = torch.empty((N, Hp // 2, Wp // 128), dtype=torch.uint8, device=x.device)
-        err = _morph_launch(lib, x, out, occ if last else None, g, steps[g.start][1], stream)
-        _build.check(lib, err, "morph_u8 kernel")
+        _morph_launch(x, out, occ if last else None, g, steps[g.start][1])
         morph_u8.launches += 1
         x = out
     return x if pad_to is None else (x, occ)

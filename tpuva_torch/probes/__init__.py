@@ -73,8 +73,5 @@ def launch(entry: str, x: torch.Tensor, which: int, reps: int) -> torch.Tensor:
         raise ValueError(f"{entry}: reps must be >= 0")
     x = x.contiguous()
     out = torch.empty_like(x)
-    lib = _build.load()
-    err = getattr(lib, entry)(x.data_ptr(), out.data_ptr(), reps, which,
-                              torch.cuda.current_stream(x.device).cuda_stream)
-    _build.check(lib, err, f"{entry} kernel")
+    _build.launch(x.device, entry, f"{entry} kernel", x.data_ptr(), out.data_ptr(), reps, which)
     return out

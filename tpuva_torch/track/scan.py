@@ -188,15 +188,14 @@ def _track_scan_cuda(state, dets, det_valid, frame_idx0, *, max_dist, death_pati
     new = TrackState(*(torch.empty_like(x) for x in src))
     rows = torch.empty(lead + (N, D, 5), dtype=torch.float32, device=dev)
     row_valid = torch.empty(lead + (N, D), dtype=torch.bool, device=dev)
-    err = lib.tpuva_track_scan(
+    _build.launch(
+        dev, "tpuva_track_scan", "track_scan kernel",
         dets.data_ptr(), det_valid.data_ptr(), S, N, T, D,
         *(x.data_ptr() for x in src), frame0.data_ptr(),
         *(x.data_ptr() for x in new), rows.data_ptr(), row_valid.data_ptr(),
         float(np.float32(max_dist)), int(death_patience), int(assigner == "hungarian"),
         scratch.data_ptr() if scratch is not None else None, S * need.value,
-        torch.cuda.current_stream(dev).cuda_stream,
     )
-    _build.check(lib, err, "track_scan kernel")
     return (new, rows, row_valid), plan
 
 

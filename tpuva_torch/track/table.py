@@ -126,3 +126,12 @@ def track_update(
         dim=-1,
     )
     return new_state, rows, row_valid
+
+
+def track_update_straightline(state, dets, det_valid, frame_idx, max_dist, death_patience,
+                              assigner: str = "greedy"):
+    """tpuva's track_update with its death-compaction cond replaced by an
+    unconditional compact. The port's track_update always compacts (the
+    compact of no deaths is the identity, bit for bit), so this is it."""
+    return track_update(state, dets, det_valid, frame_idx, max_dist, death_patience,
+                        assigner=assigner)
