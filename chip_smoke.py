@@ -7,6 +7,7 @@
                                    # (CUDA events; device ms and launches a call)
     python3 chip_smoke.py --k5     # phases 1-2, then K5's timings only
     python3 chip_smoke.py --wide   # phases 1-2, then K1m's and K1b's timings only
+    python3 chip_smoke.py --median # phases 1-2, then K7's checks and timings only
     python3 chip_smoke.py --probes # phases 1-2, then phase 9 (the micro-probes) only
     python3 chip_smoke.py --staging # phases 1-2, then the staging line only (copied
                                     # into an earlier checkout: that checkout's stager)
@@ -22,7 +23,7 @@ raises, so the exit code is non-zero:
 1. card: nvidia-smi's name and power limit (on a line of their own), the
    torch and CUDA versions;
 2. build: nvcc compiles tpuva_torch/csrc/*.cu (registers and spills of
-   K1's, K1b's, K1m's, K2's, K3 4-connected's, K6's, K5's and the
+   K1's, K1b's, K1m's, K7's, K2's, K3 4-connected's, K6's, K5's and the
    micro-probes' kernels in the build line); the host compiler builds
    csrc/batcher.cpp, the staging ring (build_host line);
 3. K1 (fused_segment) against its plain version on the card, at
@@ -38,6 +39,13 @@ raises, so the exit code is non-zero:
    (16, 1080, 1920), a ragged (5, 250, 333) and on phase 5c's 160 x 240
    clip for the configs one K1 launch does not take (K1m's last step
    writing the padded mask and occ128 where the open and close leave K1);
+3d. K7 (median_u8, the exact k x k median of uint8 frames) against its
+   plain version (median_u8_plain) on the card, bit for bit: k = 3, 5 and 7
+   on a (256, 1080, 1920) batch of the clip, 9 and 25 on phase 5c's
+   160 x 240 clip, and 3 to 255 on random bytes of edge shapes (8 x 300 and
+   300 x 8, H or W below the window; one row; one pixel; 5 x 7; 40 x 70),
+   435 and 437 on three of them: the register kernels, the shared-memory
+   one up to k = 435 and the global-memory one past it;
 4. K2 (CCL + stats, one cooperative launch with its stats epilogue)
    against its plain version (label_sums_plain, then _assemble_stats) on
    the card, on K1's masks and random masks of density 0.05 and 0.3: every
@@ -82,13 +90,14 @@ raises, so the exit code is non-zero:
    Otsu) through process_clip on both use_pallas values and
    StreamingPipeline on the card: K1 a batch with K1b (blur_u8, one launch)
    or K1m (morph_u8, a launch a morph_plan group) where k1_split takes the
-   blur or the morphology out of its launch, no K1 launch for a median
-   k > 3, one K5 launch a batch, rows,
+   blur or the morphology out of its launch; for a median k > 3 the
+   median route, exactly one K1b, one K7 and one K1 launch a batch, no
+   K1m for median 5 and the Otsu tail's morph_plan groups and one K4 for
+   median 7 with Otsu; one K5 launch a batch, rows,
    masks and background equal to the CPU run; K1b and K1m against their
    plain versions on that path's frames and masks; then a 1080p batch of
-   64 frames with median 7 through process_batch on the card (the chunked
-   median's sort), timed, its filtered frames on either side of a chunk
-   boundary equal to the CPU's;
+   64 frames with median 7 through process_batch on the card (the median
+   route), timed, its filtered frames (K1b, K7) equal to the CPU's;
 6. the staged route: bench config at 1080p, batch 256, max_components 32,
    a 512-frame six-blob clip through process_clip(use_pallas=True) on
    cuda (K1 + K2 + K5), with the launch counts read around it; its CSV bytes
@@ -121,9 +130,15 @@ raises, so the exit code is non-zero:
    clip through process_clip(use_pallas=True) (K1's diff emit, K4, K2
    deriving its occupancy; no K3, no padded K1) and the streamed default
    route (K1's diff emit, K4, K3, K6; no K2
-   launch), K5 on both, each run's CSV sha256 equal to REF_OTSU_CSV_SHA256;
-   a 48-frame sub-clip on the CPU (plain versions) and on the card gives
-   identical rows, masks and background;
+   launch), K5 on both, the Otsu tail's open and close on K1m (exactly
+   its morph_plan groups a batch), each run's CSV sha256 equal to
+   REF_OTSU_CSV_SHA256; a 48-frame sub-clip on the CPU (plain versions)
+   and on the card gives identical rows, masks and background;
+7g. the median route at full width: the bench config with median 5 on
+   the same clip through process_clip and StreamingPipeline (twice), each
+   run's CSV sha256 equal to REF_MEDIAN5_CSV_SHA256, K1b, K7, K1 and K5
+   exactly once a batch, no K1m and no torch morphology step (_morph
+   counted around each run), each run's seconds and frames/s;
 7d. config 5, the multistream path: MS_STREAMS (8) streams of the clip
    (stream 0 the clip in memory with its plate; stream s a decoder
    stand-in of it shifted by 64 s frames, its plate its own first frame),
@@ -146,8 +161,9 @@ raises, so the exit code is non-zero:
    device memory of the run;
 7e. the filter chain (tpuva_torch.filters): every filter at 1080p on 16
    frames, gray and BGR, on the card against the CPU, bit for bit (K1b once
-   for FilterBlur on uint8, K1's diff emit once for FilterBackground, each
-   against its plain version on those inputs), with its program's device
+   for FilterBlur on uint8, K7 once for FilterMedian on uint8, K1's diff
+   emit once for FilterBackground, each against its plain version on
+   those inputs), with its program's device
    ms; the EDT and its squared form on K1's masks against the CPU's (the
    passes of each stage, the ms; an all-foreground frame +inf) and
    analysis.regions.mask_boundary (one K1m launch, against its plain
@@ -171,8 +187,9 @@ raises, so the exit code is non-zero:
    through the clip with the bench config and with threshold="otsu", each
    run's CSV sha256 equal to REF_CSV_SHA256 / REF_OTSU_CSV_SHA256, no
    stats_overflow, its launches counted around it (K1 four a batch, one
-   per band, K4 four a batch for Otsu, K5 one a batch, no K2, K3 or K6:
-   the band CCL is torch ops), tp_recon_rounds of each batch; a checkpoint
+   per band, K4 four a batch for Otsu and K1m the Otsu tail's morph_plan
+   groups a band a batch, K5 one a batch, no K2, K3 or K6: the band CCL
+   is torch ops), tp_recon_rounds of each batch; a checkpoint
    written after the band run's first batch resumed on the single-card
    StreamingPipeline to the same bytes; one batch's ms (CUDA events, the
    reconciliation's host reads inside), its device ms, launches and
@@ -192,7 +209,12 @@ raises, so the exit code is non-zero:
    any torch op's, from torch.profiler), connected_components_with_stats
    (the route's K3 + K6, and 4-connected), K1's diff
    emit and K4 against their plain versions (K1's plain version runs on
-   no route: it is the kernels' yardstick of correctness), K1b (65 taps,
+   no route: it is the kernels' yardstick of correctness), the Otsu tail
+   on the batch's Otsu masks as K1m (open_close_u8) and as the torch ops
+   it replaced (morph_steps_plain), bit-equal first, K7 at k = 5 and 7
+   against its plain version and at k = 5 against torch.median over the
+   unfolded windows (equal first), with its bound and the time its radix
+   design's operations take at the peak rate, K1b (65 taps,
    its plan) and K1m (7 x 7 rect and ellipse steps, erode and dilate, the
    rect dilate beside max_pool2d and on density 0.3; a 10-step group, one
    launch) against theirs, the split front ends of open and close 7 x 10
@@ -289,6 +311,8 @@ REPLACES = {
                 "tpuva/ops/pallas/fused_segment.py:145"),
     "morph_u8": ("tpuva_torch/csrc/wide.cu",
                  "tpuva/ops/pallas/fused_segment.py:145"),
+    # the exact k x k median of uint8 frames (a median k > 3; tpuva's jnp)
+    "median_u8": ("tpuva_torch/csrc/median.cu", "tpuva/ops/filters.py:208"),
     # the micro-probes P1-P4, phase 9
     "repos_probe": ("tpuva_torch/csrc/probes.cu", "bench/repos_probe.py:51"),
     "roll_probe": ("tpuva_torch/csrc/probes.cu", "bench/roll_probe.py:50"),
@@ -331,6 +355,9 @@ REF_CSV_SHA256 = "192715d242a4867c8ac98eb277c4e9d8f5d7abebdcf4b41b21740e540c131d
 # frames, and tpuva's own run differs by its FMA-contracted background;
 # both are ROADMAP Queue 3 faults of the reference. Recipe: README.md.
 REF_OTSU_CSV_SHA256 = "cab7f8b6247d373a23eb8f50831221d025ee95866fc75ae197b76b9045867ed9"
+# The same for the bench config with median=MedianConfig(5) (cv2.medianBlur
+# after the blur): 3117 rows, 17 track ids. Recipe: README.md.
+REF_MEDIAN5_CSV_SHA256 = "fdbc3baf72c239fa2bb06c830f9d7b72718e15232191a8a9c36cf4db605360b1"
 
 # Published H100 SXM peaks (NVIDIA's data sheet): HBM3 bytes/s, and the
 # float32 rate outside the tensor cores, taken for the scalar integer and
@@ -647,6 +674,9 @@ def ptxas_kernel(entry, probes=False):
                 (r"track_scan_regsILi(\d+)E", "track_scan_regs"),
                 (r"track_scan_kernelILb([01])E", "track_scan_kernel"),
                 (r"morph_group_kernel()", "morph_group_kernel"),
+                (r"median_reg_kernelILi(\d+)E", "median_reg_kernel"),
+                (r"median_smem_kernel()", "median_smem_kernel"),
+                (r"median_global_kernel()", "median_global_kernel"),
                 (r"ccl_stats_persistent()", "ccl_stats_persistent"),
                 (r"k6_frameILi(\d+)ELb([01])E", "k6_frame"),
                 (r"\d(ccl4_(?:occ|tiles|local|border|labels))E", None))
@@ -1050,6 +1080,120 @@ def wide_timing(clip, plate, card):
                 "blur_u8", lambda tile=tile, dp=dp: k1b_forced(tile, dp), blurred)
     t = time_wide_calls(calls, {"morph_u8": 0.0, "blur_u8": 0.0}, 5)
     say("wide_timing", card=card, batch=256, shape=[1080, 1920], bit_equal=True, **t)
+    return 0
+
+
+# K7's checks: windows at 1080p (batch 256), on the 160 x 240 clip, and on
+# edge shapes (H or W below the window, one row, one pixel) for the
+# register kernels (k <= 9), the shared-memory kernel (to k = 435, its
+# halo's limit) and the global-memory one past it
+MEDIAN_K_1080P = (3, 5, 7)
+MEDIAN_K_CLIP = (9, 25)
+MEDIAN_K_EDGE = (3, 5, 9, 11, 25, 255)
+MEDIAN_EDGE_SHAPES = ((2, 8, 300), (2, 300, 8), (2, 1, 300), (1, 1, 1), (3, 5, 7), (2, 40, 70))
+# past k = 255 on three of them: the plain version's window stack is k*k
+# slices, seconds a call in Python
+MEDIAN_K_LARGE = (435, 437)
+MEDIAN_LARGE_SHAPES = ((2, 8, 300), (2, 300, 8), (2, 40, 70))
+# the median route's windows timed at 1080p, batch 256
+MEDIAN_K_TIMED = (5, 7)
+
+
+def median_ops_per_px(ksize):
+    """Least scalar operations a pixel of the k x k median: a sliding
+    window histogram (Huang) adds the k values that enter the window and
+    removes the k that leave it (its walk to the median is amortised)."""
+    return 2 * ksize
+
+
+def median_radix_ops_per_px(ksize):
+    """Operations a pixel of K7's design: 8 counts of the k*k window, a
+    compare and an add a value."""
+    return 8 * 2 * ksize * ksize
+
+
+def median_checks(frames, small, err):
+    """K7 (median_u8) against its plain version (median_u8_plain) on the
+    card, bit for bit: frames (batch 256, 1080p) at MEDIAN_K_1080P, the
+    small clip at MEDIAN_K_CLIP, random bytes of MEDIAN_EDGE_SHAPES at
+    MEDIAN_K_EDGE and of MEDIAN_LARGE_SHAPES at MEDIAN_K_LARGE (k = 255 and
+    up on small frames only: the plain sort of a 255 x 255 window stack at
+    1080p would take over 100 GB). Returns the phase line's fields."""
+    from tpuva_torch.ops.median import median_u8, median_u8_plain
+
+    dev = torch.device("cuda")
+    cases = [(f"k={k}, {list(frames.shape)}", frames, k) for k in MEDIAN_K_1080P]
+    f_small = torch.from_numpy(small).to(dev)
+    cases += [(f"k={k}, clip {list(small.shape)}", f_small, k) for k in MEDIAN_K_CLIP]
+    rng = np.random.default_rng(17)
+    for shape in MEDIAN_EDGE_SHAPES:
+        x = torch.from_numpy(rng.integers(0, 256, shape, dtype=np.uint8)).to(dev)
+        ks = MEDIAN_K_EDGE + (MEDIAN_K_LARGE if shape in MEDIAN_LARGE_SHAPES else ())
+        cases += [(f"k={k}, {list(shape)}", x, k) for k in ks]
+    for where, x, k in cases:
+        check_equal(err, "median_u8", [("median", median_u8(x, k), median_u8_plain(x, k))],
+                    where)
+    torch.cuda.synchronize()
+    return dict(comparisons=len(cases), k_1080p=list(MEDIAN_K_1080P),
+                k_clip=list(MEDIAN_K_CLIP), k_edge=list(MEDIAN_K_EDGE),
+                k_large=list(MEDIAN_K_LARGE), large_shapes=[list(s) for s in MEDIAN_LARGE_SHAPES],
+                edge_shapes=[list(s) for s in MEDIAN_EDGE_SHAPES], bit_equal=True)
+
+
+def median_library(x, ksize):
+    """The k x k median of x (N, H, W) uint8 by one torch.median over the
+    window axis of its unfolded, replicate-padded frames (the library
+    yardstick; the port never calls it). The window view is made
+    contiguous inside the call."""
+    N, H, W = x.shape
+    r = ksize // 2
+    ri = torch.clamp(torch.arange(-r, H + r, device=x.device), 0, H - 1)
+    ci = torch.clamp(torch.arange(-r, W + r, device=x.device), 0, W - 1)
+    win = x.index_select(1, ri).index_select(2, ci).unfold(1, ksize, 1).unfold(2, ksize, 1)
+    return lambda: torch.median(win.reshape(N, H, W, ksize * ksize), dim=-1).values
+
+
+def median_timing(frames, err, reps):
+    """K7 at MEDIAN_K_TIMED on frames (batch 256, 1080p), CUDA events: the
+    kernel, its plain version and the library call (median_library, checked
+    equal first; None where it raises for uint8 on the card), with the
+    bound (bytes against median_ops_per_px) and the time K7's radix design's
+    operations take at the peak rate. Returns ms and bounds by name."""
+    from tpuva_torch.ops.median import median_u8, median_u8_plain
+
+    t = {}
+    px = frames.numel()
+    for k in MEDIAN_K_TIMED:
+        t[f"k7_{k}_ms"] = cuda_ms(lambda: median_u8(frames, k), reps)
+        t[f"k7_{k}_plain_ms"] = cuda_ms(lambda: median_u8_plain(frames, k), 1)
+        t[f"k7_{k}_bound"] = bound(2 * px, median_ops_per_px(k) * px)
+        t[f"k7_{k}_radix_ops_ms"] = median_radix_ops_per_px(k) * px / PEAK_OPS_S * 1e3
+    try:
+        lib = median_library(frames, MEDIAN_K_TIMED[0])
+        check_equal(err, "median_u8", [("library", lib(), median_u8(frames, MEDIAN_K_TIMED[0]))],
+                    "torch.median over unfolded windows")
+        t[f"k7_{MEDIAN_K_TIMED[0]}_library_ms"] = cuda_ms(lib, 2)
+        del lib
+    except (RuntimeError, NotImplementedError) as e:  # the yardstick only, never the port
+        t[f"k7_{MEDIAN_K_TIMED[0]}_library_ms"] = None
+        t["k7_library_error"] = str(e)[:200]
+    torch.cuda.empty_cache()
+    return t
+
+
+def median_mode(card):
+    """--median: K7's checks and its timing (median_checks, median_timing)
+    on the slice's clip and the small clip; one JSON line."""
+    from refimpl.synthetic import multi_blob_clip
+
+    clip, _alive, _truth, _plate = multi_blob_clip(1080, 1920, 256, n_blobs=6, radius=16,
+                                                   births_deaths=False, noise_sigma=2.0)
+    small = multi_blob_clip(160, 240, 16, n_blobs=2, radius=46.0, noise_sigma=2.0, seed=7)[0]
+    frames = torch.from_numpy(clip).to("cuda")
+    err = {"median_u8": 0.0}
+    line = median_checks(frames, small, err)
+    line.update(median_timing(frames, err, 5))
+    say("median", card=card, max_abs_err=err, **line)
     return 0
 
 
@@ -1579,13 +1723,16 @@ def spatial_phase(clip, plate, card, cfg, err):
     from tpuva_torch.dist.spatial import _halo_rows
     from tpuva_torch.export.csvio import format_rows
     from tpuva_torch.graph import config
-    from tpuva_torch.graph.pipeline import _diff_kwargs, _front_end_kwargs, init_carry
+    from tpuva_torch.graph.pipeline import (
+        _diff_kwargs, _front_end_kwargs, _morph_stages, init_carry,
+    )
     from tpuva_torch.graph.streaming import StreamingPipeline
     from tpuva_torch.io.base import VideoBase
     from tpuva_torch.io.memory import VideoMemory
     from tpuva_torch.ops.ccl import label_components_tiled, label_stats, root_stats
     from tpuva_torch.ops.filters import histogram_u8, histogram_u8_plain
     from tpuva_torch.ops.fused_segment import fused_segment, fused_segment_plain
+    from tpuva_torch.ops.wide import morph_plan, morph_u8, open_close_steps
     from tpuva_torch.track.scan import track_scan
 
     t_phase = time.time()
@@ -1597,7 +1744,8 @@ def spatial_phase(clip, plate, card, cfg, err):
     otsu_cfg = bench_cfg(config, N, threshold="otsu")
     counters = {"k1": (fused_segment, "launches"), "k4": (histogram_u8, "launches"),
                 "k5": (track_scan, "launches"), "k3": (label_components_tiled, "launches"),
-                "k6": (root_stats, "launches"), "k2": (label_stats, "launches")}
+                "k6": (root_stats, "launches"), "k2": (label_stats, "launches"),
+                "k1m": (morph_u8, "launches")}
 
     def reset():
         for fn, attr in counters.values():
@@ -1648,8 +1796,11 @@ def spatial_phase(clip, plate, card, cfg, err):
         got = counts()
         batches = -(-T // N) + 1  # and the warm-up's zero batch
         want_k4 = n * batches if name == "otsu" else 0
-        if (got["k1"], got["k4"], got["k5"], got["k3"], got["k6"], got["k2"]) != (
-                n * batches, want_k4, batches, 0, 0, 0):
+        # the Otsu tail on each band: K1m, a launch a morph_plan group
+        tail_groups = len(morph_plan(Hb, W, open_close_steps(_morph_stages(c))))
+        want_k1m = n * batches * tail_groups if name == "otsu" else 0
+        if (got["k1"], got["k4"], got["k5"], got["k3"], got["k6"], got["k2"], got["k1m"]) != (
+                n * batches, want_k4, batches, 0, 0, 0, want_k1m):
             raise AssertionError(f"band run ({name}) launches, {batches} batches: {got}")
         if hashlib.sha256(format_rows(rows).encode()).hexdigest() != ref:
             raise AssertionError(f"band run ({name}): CSV differs from the reference's")
@@ -1658,6 +1809,7 @@ def spatial_phase(clip, plate, card, cfg, err):
         out[f"{name}_rows"] = len(rows)
         out[f"{name}_csv_sha256_equals_reference"] = True
         out[f"{name}_launches"] = got
+        out[f"{name}_k1m_launches_a_band_a_batch"] = tail_groups if name == "otsu" else 0
         out[f"{name}_tp_recon_rounds"] = list(sp.recon_rounds)
         out[f"{name}_seconds_4_bands_sharing_one_card"] = seconds
         out[f"{name}_stats_overflow_frames"] = sp.overflow_frames
@@ -1791,13 +1943,14 @@ def filters_phase(clip, plate, card, cfg, err):
     from tpuva_torch.ops.distance import edt_sq_passes
     from tpuva_torch.ops.filters import erode, gaussian_blur_u8, structuring_element
     from tpuva_torch.ops.fused_segment import fused_segment, fused_segment_plain
+    from tpuva_torch.ops.median import median_u8
     from tpuva_torch.ops.wide import blur_u8, morph_u8
     from tpuva_torch.track.scan import track_scan
 
     dev = torch.device("cuda")
     t_phase = time.time()
     counters = {"fused_segment": (fused_segment, "launches"), "blur_u8": (blur_u8, "launches"),
-                "morph_u8": (morph_u8, "launches"),
+                "morph_u8": (morph_u8, "launches"), "median_u8": (median_u8, "launches"),
                 "ccl_labels": (label_components_tiled, "launches"),
                 "ccl_stats": (label_stats, "launches"),
                 "root_stats_occ": (root_stats, "occ_launches"),
@@ -1829,8 +1982,9 @@ def filters_phase(clip, plate, card, cfg, err):
                     a.dtype != b.dtype or not np.array_equal(a, b)
                     for (_k, a), (_j, b) in zip(got, ref)):
                 raise AssertionError(f"filter {key}: the card's frames differ from the CPU's")
-            if name in ("blur_u8", "background"):
-                kernel = "blur_u8" if name == "blur_u8" else "fused_segment"
+            if name in ("blur_u8", "background", "median_3", "median_5"):
+                kernel = {"blur_u8": "blur_u8", "background": "fused_segment"}.get(
+                    name, "median_u8")
                 if n[kernel] != 1 or n["chain_program"] != 1:
                     raise AssertionError(f"filter {key} launches: {n}")
                 launches[key] = {kernel: n[kernel]}
@@ -1978,8 +2132,8 @@ def filters_phase(clip, plate, card, cfg, err):
 
 
 def main():
-    modes = ("--k1", "--k2", "--k5", "--wide", "--probes", "--staging", "--multistream",
-             "--filters", "--spatial")
+    modes = ("--k1", "--k2", "--k5", "--wide", "--median", "--probes", "--staging",
+             "--multistream", "--filters", "--spatial")
     mode = sys.argv[1] if len(sys.argv) == 2 and sys.argv[1] in modes else None
     k1_only = mode == "--k1"
     if sys.argv[1:] and mode is None:
@@ -1994,8 +2148,8 @@ def main():
     from tpuva_torch.export.csvio import format_rows, write_tracks_csv
     from tpuva_torch.graph import config
     from tpuva_torch.graph.pipeline import (
-        _diff_kwargs, _finish_batch, _front_end_kwargs, filter_batch, init_carry, process_batch,
-        process_batch_staged, process_clip,
+        _diff_kwargs, _finish_batch, _front_end_kwargs, _morph_stages, filter_batch, init_carry,
+        process_batch, process_batch_staged, process_clip,
     )
     from tpuva_torch.graph.streaming import StreamingPipeline
     from tpuva_torch.io.memory import VideoMemory
@@ -2003,11 +2157,12 @@ def main():
     from tpuva_torch.ops import connected_components_with_stats
     from tpuva_torch.ops.ccl import label_components_tiled, label_stats, label_sums_plain
     from tpuva_torch.ops.filters import (
-        _morph, blur_taps, gaussian_blur_u8, histogram_u8, histogram_u8_plain,
-        structuring_element,
+        _morph, blur_taps, gaussian_blur_u8, histogram_u8, histogram_u8_plain, morph_steps_plain,
+        otsu_threshold, structuring_element,
     )
     from tpuva_torch.ops.fused_segment import fused_segment, fused_segment_plain, k1_split
     from tpuva_torch.ops.wide import blur_u8, morph_u8
+    from tpuva_torch.ops.median import median_u8
     from tpuva_torch.ops.label import _assemble_stats, extract_detections, label_components
     from tpuva_torch.scenes import (
         DET_KINDS, K1_REFUSED, det_sequence, k1_refused_config, mixed_scene, u_shape,
@@ -2036,6 +2191,8 @@ def main():
     if mode == "--probes":
         probes_phase(card)
         return 0
+    if mode == "--median":
+        return median_mode(card)
     if mode == "--staging":
         clip, _alive, _truth, plate = multi_blob_clip(1080, 1920, 512, n_blobs=6, radius=16,
                                                       births_deaths=False, noise_sigma=2.0)
@@ -2081,7 +2238,9 @@ def main():
         k2_grid, root_labels, root_occupancy_plain, root_stats, root_stats_dict,
     )
     from tpuva_torch.track.scan import scan_plan
-    from tpuva_torch.ops.wide import blur_plan, morph_plan, morph_steps, open_close_steps
+    from tpuva_torch.ops.wide import (
+        blur_plan, morph_plan, morph_steps, open_close_steps, open_close_u8,
+    )
     from tpuva_torch.ops.label import (
         _stats_dict, _stats_from_root, _stats_from_root_plain, root_stats_plain,
     )
@@ -2106,7 +2265,7 @@ def main():
                 "root_stats_occ": (root_stats, "occ_launches"),
                 "histogram_u8": (histogram_u8, "launches"),
                 "track_scan": (track_scan, "launches"), "blur_u8": (blur_u8, "launches"),
-                "morph_u8": (morph_u8, "launches")}
+                "morph_u8": (morph_u8, "launches"), "median_u8": (median_u8, "launches")}
 
     def reset_counts():
         for fn, attr in counters.values():
@@ -2204,6 +2363,12 @@ def main():
     say("k1_padded_occ_vs_plain", cases=[f"{n} {list(f.shape)}" for n, _k, f, _b in padded_cases],
         bit_equal=True, padded_shape=list(k1_padded[0].shape),
         occ128_shape=list(k1_padded[2].shape), occupied_blocks=int(k1_padded[2].sum()))
+
+    # 3d. K7 against its plain version, bit for bit: k = 3, 5, 7 at batch
+    # 256 and 1080p, 9 and 25 on the small clip, up to 437 on edge shapes
+    f256 = torch.from_numpy(clip[:256]).to(dev)
+    say("k7_vs_plain", **median_checks(f256, small, err))
+    del f256
 
     # 4. K2 against its plain version, every stats field bit for bit
     masks_k2 = [("k1_masks", k1_masks)]
@@ -2393,9 +2558,10 @@ def main():
         synthetic_scans=n_k5, kinds=list(DET_KINDS), shapes=[list(x) for x in K5_SHAPES],
         global_scratch_shape=list(K5_GLOBAL_SHAPE), kernels=k5_kernels, bit_equal=True)
 
-    # 5c. configs K1 does not take: the torch front end on the card, against
-    # the CPU; then a 1080p batch with median 7
-    refused, split_launches = {}, {"blur_u8": 0, "morph_u8": 0}
+    # 5c. configs K1 does not take: split around K1, or the median route
+    # (K1b, K7, K1), on the card against the CPU; then a 1080p batch with
+    # median 7
+    refused, split_launches = {}, {"blur_u8": 0, "morph_u8": 0, "median_u8": 0}
     for name in K1_REFUSED:
         fcfg = k1_refused_config(bench_cfg(config, 8), name)
         median_k1 = fcfg.median is None or fcfg.median.ksize <= 3
@@ -2427,15 +2593,21 @@ def main():
             if median_k1:  # K1 a batch, and K1b (one launch) or K1m where k1_split says
                 ok = (counts["fused_segment"] >= 2
                       and counts["blur_u8"] == n_batches * parts[0]
-                      and counts["morph_u8"] == n_batches * n_morph * parts[1])
-            else:  # the torch front end, as tpuva's jnp branch
-                ok = not (counts["fused_segment"] or counts["blur_u8"] or counts["morph_u8"])
+                      and counts["morph_u8"] == n_batches * n_morph * parts[1]
+                      and counts["median_u8"] == 0)
+            else:  # the median route: K1b, K7, K1 a batch; for Otsu K4 and the tail's K1m
+                otsu = fcfg.segment.threshold == "otsu"
+                ok = (counts["fused_segment"] == counts["blur_u8"] == counts["median_u8"]
+                      == n_batches
+                      and counts["morph_u8"] == n_batches * n_morph * otsu
+                      and counts["histogram_u8"] == n_batches * otsu)
             if not ok or counts["track_scan"] < 2:
                 raise AssertionError(f"{name} through {route}: launches {counts}")
             if not same:
                 raise AssertionError(f"{name} through {route}: the card's run differs from the CPU's")
         refused[name] = dict(rows=len(ref[0]), k1_split=parts,
-                             k1m_launches_a_batch=n_morph if parts and parts[1] else 0)
+                             k1m_launches_a_batch=n_morph if parts and parts[1] else 0,
+                             k7_launches_a_batch=int(not median_k1))
     # K1b and K1m against their plain versions on that path's inputs: the
     # small clip's frames at 65 taps, and its K1 masks under the 7 x 7 and
     # 33 SEs
@@ -2450,6 +2622,7 @@ def main():
             check_equal(err, "morph_u8", [("mask", morph_u8(m_small, se, erode),
                                            _morph(m_small, se, erode))],
                         f"{shape} {k}, erode={erode}")
+    # the median route at 1080p: K1b, K7 and K1 on a 64-frame batch
     med7 = dataclasses.replace(cfg, median=config.MedianConfig(7), batch=64)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -2462,8 +2635,8 @@ def main():
     med7_peak = torch.cuda.max_memory_allocated() / 2**30
     if not (out["rows"].shape == (64, 8, 5) and torch.isfinite(out["rows"]).all() and med7_rows):
         raise AssertionError("median 7 at 1080p: no rows, or rows not finite")
-    # the card's chunked sort against the CPU's on frames either side of a
-    # chunk boundary and the last frame
+    # the card's filter prefix (K1b, K7) against the CPU's on the first
+    # frames and the last
     med7_frames = [0, 1, 2, 3, 63]
     got = filter_batch(med7, f_med7.to(torch.float32))[med7_frames].cpu()
     if not torch.equal(got, filter_batch(med7, torch.from_numpy(clip[med7_frames]).to(torch.float32))):
@@ -2703,17 +2876,22 @@ def main():
         return StreamingPipeline(otsu_cfg, max_components=MAX_COMPONENTS).run(
             VideoMemory(clip), background0=plate)
 
+    # the Otsu tail's open and close: K1m, a launch a morph_plan group a batch
+    otsu_batches = -(-clip.shape[0] // otsu_cfg.batch)
+    otsu_tail_groups = len(morph_plan(1080, 1920, open_close_steps(_morph_stages(otsu_cfg))))
     otsu_rows, otsu_staged_s, otsu_staged_counts = otsu_run("otsu_staged", otsu_staged)
     if (min(otsu_staged_counts["fused_segment"], otsu_staged_counts["histogram_u8"],
             otsu_staged_counts["ccl_stats"], otsu_staged_counts["track_scan"]) < 2
             or otsu_staged_counts["ccl_labels"] or otsu_staged_counts["ccl_stats_occ"]
             or otsu_staged_counts["root_stats"]
-            or otsu_staged_counts["fused_segment_padded_occ"]):
+            or otsu_staged_counts["fused_segment_padded_occ"]
+            or otsu_staged_counts["morph_u8"] != otsu_batches * otsu_tail_groups):
         raise AssertionError(f"staged Otsu route launches: {otsu_staged_counts}")
     _rows, otsu_stream_s, otsu_stream_counts = otsu_run("otsu_stream", otsu_stream)
     if (min(otsu_stream_counts["fused_segment"], otsu_stream_counts["histogram_u8"],
             otsu_stream_counts["ccl_labels"], otsu_stream_counts["root_stats_occ"],
-            otsu_stream_counts["track_scan"]) < 2 or otsu_stream_counts["ccl_stats"]):
+            otsu_stream_counts["track_scan"]) < 2 or otsu_stream_counts["ccl_stats"]
+            or otsu_stream_counts["morph_u8"] != otsu_batches * otsu_tail_groups):
         raise AssertionError(f"streamed Otsu route launches: {otsu_stream_counts}")
     sub_otsu = bench_cfg(config, 16, "otsu")
     rows_cpu, carry_cpu, masks_cpu = process_clip(
@@ -2734,7 +2912,56 @@ def main():
         track_ids=len({int(r[0]) for r in otsu_rows}), csv_sha256_equals_reference=True,
         staged_seconds=round(otsu_staged_s, 3), staged_launches=otsu_staged_counts,
         stream_seconds=round(otsu_stream_s, 3), stream_launches=otsu_stream_counts,
+        k1m_launches_a_batch=otsu_tail_groups,
         sub_clip_cpu_gpu_rows_masks_bg_equal=True, sub_clip_rows=len(rows_gpu))
+
+    # 7g. the median route at full width: the bench config with median 5
+    # through process_clip and StreamingPipeline (twice), each run's CSV
+    # sha256 equal to REF_MEDIAN5_CSV_SHA256; K1b, K7, K1 and K5 once a
+    # batch, no K1m and no torch morphology (_morph counted around each run)
+    med5_cfg = dataclasses.replace(cfg, median=config.MedianConfig(5))
+    med5_batches = -(-clip.shape[0] // med5_cfg.batch)
+    from tpuva_torch.ops import filters as ops_filters
+
+    morph_calls = []  # every torch morphology step runs filters._morph
+
+    def counted_morph(*args, **kw):
+        morph_calls.append(1)
+        return _morph(*args, **kw)
+
+    med5_runs = {}
+    for route in ("process_clip", "StreamingPipeline", "StreamingPipeline_again"):
+        torch.cuda.synchronize()
+        reset_counts()
+        morph_calls.clear()
+        ops_filters._morph = counted_morph
+        try:
+            t0 = time.time()
+            if route == "process_clip":
+                rows = process_clip(clip, med5_cfg, background0=plate,
+                                    max_components=MAX_COMPONENTS, device="cuda")[0]
+            else:
+                rows = StreamingPipeline(med5_cfg, max_components=MAX_COMPONENTS).run(
+                    VideoMemory(clip), background0=plate)
+            torch.cuda.synchronize()
+            seconds = time.time() - t0
+        finally:
+            ops_filters._morph = _morph
+        counts = read_counts()
+        want = dict(fused_segment=med5_batches, blur_u8=med5_batches, median_u8=med5_batches,
+                    track_scan=med5_batches, morph_u8=0)
+        if any(counts[k] != v for k, v in want.items()) or morph_calls:
+            raise AssertionError(f"median route through {route}: launches {counts}, "
+                                 f"{len(morph_calls)} torch morphology steps")
+        data = format_rows(rows).encode()
+        if hashlib.sha256(data).hexdigest() != REF_MEDIAN5_CSV_SHA256:
+            with open(os.path.join(OUT_DIR, f"tracks_512_median5_{route}.csv"), "wb") as fh:
+                fh.write(data)
+            raise AssertionError(f"median route through {route}: rows differ from the reference's")
+        med5_runs[route] = dict(seconds=seconds, fps=clip.shape[0] / seconds, launches=counts)
+    say("median_route", config="bench + median 5", frames=int(clip.shape[0]), rows=len(rows),
+        track_ids=len({int(r[0]) for r in rows}), csv_sha256_equals_reference=True,
+        torch_morphology_steps=0, runs=med5_runs)
 
     # 7d. config 5: MS_STREAMS streams through MultiStreamPipeline, K1 and
     # K5 a launch a step for all streams
@@ -2900,6 +3127,22 @@ def main():
         raise AssertionError("torch.bincount over frame-offset keys differs from K4")
     t["k4_library_ms"] = cuda_ms(lambda: torch.bincount(keys, minlength=256 * N), reps)
     del keys
+    # the Otsu tail's open and close on the batch's Otsu masks: K1m
+    # (open_close_u8, the routes' call) against the torch ops the routes
+    # ran before (morph_steps_plain), bit-equal first
+    omask = torch.where(du8.to(torch.int32) > otsu_threshold(du8).to(torch.int32)[:, None, None],
+                        255, 0).to(torch.uint8)
+    tail_stages = _morph_stages(otsu_cfg)
+    check_equal(err, "morph_u8", [("otsu tail", open_close_u8(omask, tail_stages),
+                                   morph_steps_plain(omask, open_close_steps(tail_stages)))],
+                "the Otsu masks, batch 256")
+    t["otsu_tail_k1m_ms"] = cuda_ms(lambda: open_close_u8(omask, tail_stages), reps)
+    t["otsu_tail_torch_ms"] = cuda_ms(
+        lambda: morph_steps_plain(omask, open_close_steps(tail_stages)), 2)
+    t["otsu_tail_k1m_launches"] = otsu_tail_groups
+    del omask
+    # K7 at the median route's windows, its plain version and the library call
+    t.update(median_timing(frames, err, reps))
     t.update(time_k5(cfg, masks, bg_last, plate, route_dets, err, reps))
     t["k5_kernel"] = scan_plan(cfg.track.max_tracks, cfg.segment.max_blobs)._asdict()
     # K1m and K1b: wide_calls (--wide times them too), each checked bit for
@@ -3011,7 +3254,8 @@ def main():
              "histogram_u8": ("k4_ms", "k4_plain_ms"),
              "track_scan": ("k5_ms", "k5_plain_ms"),
              "blur_u8": ("k1b_65_ms", "k1b_plain_ms"),
-             "morph_u8": ("k1m_rect7_dilate_ms", "k1m_plain_ms")}
+             "morph_u8": ("k1m_rect7_dilate_ms", "k1m_plain_ms"),
+             "median_u8": (f"k7_{MEDIAN_K_TIMED[0]}_ms", f"k7_{MEDIAN_K_TIMED[0]}_plain_ms")}
     launches = {
                 # the streamed default route's K1 (the staged route's is padded)
                 "fused_segment": default_counts["fused_segment"],
@@ -3031,8 +3275,12 @@ def main():
                 "track_scan": staged_counts["track_scan"],
                 # the configs one K1 launch does not take (phase 5c)
                 "blur_u8": split_launches["blur_u8"],
-                "morph_u8": split_launches["morph_u8"]}
-    library = {"histogram_u8": t["k4_library_ms"], "morph_u8": t["k1m_library_ms"]}
+                "morph_u8": split_launches["morph_u8"],
+                # the median route at 1080p (phase 7g, process_clip)
+                "median_u8": med5_runs["process_clip"]["launches"]["median_u8"]}
+    library = {"histogram_u8": t["k4_library_ms"], "morph_u8": t["k1m_library_ms"],
+               "median_u8": t[f"k7_{MEDIAN_K_TIMED[0]}_library_ms"]}
+    bounds["median_u8"] = t[f"k7_{MEDIAN_K_TIMED[0]}_bound"]
     # the multistream phase's K1 and K5 (S streams a launch)
     for name, (ms, plain) in ms_kernels["times"].items():
         t[f"{name}_ms"], t[f"{name}_plain_ms"] = ms, plain

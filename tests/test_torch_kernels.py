@@ -1068,9 +1068,10 @@ def test_configs_k1_refuses_run_on_the_card(cuda_device, name):
     on the card, one K5 launch a batch, and the CPU run's rows and masks:
     K1 a batch with K1b (one launch) or K1m (morph_plan's launches) beside
     it where k1_split takes the blur or the morphology out of its launch;
-    no K1 launch for a median k > 3 (the torch front end, as tpuva's jnp
-    branch)."""
+    for a median k > 3 the median route, K1b, K7 and K1 a batch (and for
+    Otsu the tail's K1m)."""
     from tpuva_torch.ops.fused_segment import k1_split
+    from tpuva_torch.ops.median import median_u8
     from tpuva_torch.ops.wide import morph_plan, open_close_steps
     from refimpl.synthetic import multi_blob_clip
     from tpuva_torch.graph.pipeline import _front_end_kwargs, process_clip
@@ -1090,23 +1091,86 @@ def test_configs_k1_refuses_run_on_the_card(cuda_device, name):
                        device="cpu")
     assert len(ref[0]) > 10
     median_k1 = cfg.median is None or cfg.median.ksize <= 3
+    otsu_tail = cfg.segment.threshold == "otsu"
     kw = _front_end_kwargs(cfg)
-    blur_apart, morph_apart = k1_split(160, 240, **kw) if median_k1 else (False, False)
+    # the median route: K1b before K7, K1 with no blur, median or split
+    blur_apart, morph_apart = k1_split(160, 240, **kw) if median_k1 else (True, otsu_tail)
     steps = open_close_steps(((kw["open_shape"], kw["open_ksize"], kw["open_iters"]),
                               (kw["close_shape"], kw["close_ksize"], kw["close_iters"])))
     n_morph = len(morph_plan(160, 240, steps)) if morph_apart else 0
     for use_pallas in (False, True):
-        k1, k5 = fused_segment.launches, track_scan.launches
+        k1, k5, k7 = fused_segment.launches, track_scan.launches, median_u8.launches
         wide = blur_u8.launches, morph_u8.launches
         rows, carry, masks = process_clip(frames, cfg, background0=plate, max_components=32,
                                           return_masks=True, use_pallas=use_pallas, device="cuda")
-        assert fused_segment.launches == k1 + (2 if median_k1 else 0)
+        assert fused_segment.launches == k1 + 2
         assert track_scan.launches == k5 + 2
+        assert median_u8.launches - k7 == (0 if median_k1 else 2)
         assert blur_u8.launches - wide[0] == 2 * blur_apart  # a launch a batch
         assert morph_u8.launches - wide[1] == 2 * n_morph
         assert rows == ref[0]
         np.testing.assert_array_equal(masks, ref[2])
         assert torch.equal(carry.bg.cpu(), ref[1].bg)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("ksize", [3, 5, 7, 9, 11, 25, 255, 257, 437])
+def test_median_u8_kernel_matches_plain(cuda_device, ksize):
+    """K7 against median_u8_plain on the card, bit for bit, one launch a
+    call: the register kernels (k <= 9), the shared-memory one (to k = 435)
+    and the global-memory one (k = 437), on a ragged batch (k <= 255),
+    frames narrower or lower than the window, one row, one pixel, and a
+    clip of uneven content."""
+    from tpuva_torch.ops.median import median_u8, median_u8_plain
+
+    rng = np.random.default_rng(ksize)
+    shapes = [(2, 8, 300), (2, 300, 8), (2, 1, 50), (1, 1, 1)]
+    if ksize <= 255:
+        shapes.append((3, 70, 133))
+    if ksize <= 25:
+        shapes.append((4, 250, 333))
+    for shape in shapes:
+        x = torch.from_numpy(rng.integers(0, 256, shape, dtype=np.uint8)).to(cuda_device)
+        x[:, : shape[1] // 2] //= 8  # a dark half: many equal values in a window
+        before = median_u8.launches
+        got = median_u8(x, ksize)
+        torch.cuda.synchronize()
+        assert median_u8.launches == before + 1
+        assert torch.equal(got, median_u8_plain(x, ksize)), shape
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("color", [False, True], ids=["gray", "bgr"])
+def test_filter_median_launches_k7(cuda_device, color):
+    """FilterMedian on uint8 launches K7 once a batch (a colour batch's
+    channels folded into the leading axis) and equals the CPU's."""
+    from tpuva_torch.ops.median import median_u8
+
+    data = filter_clip(color=color)
+    before = median_u8.launches
+    got = list(tf.FilterMedian(VideoMemory(data), 7, device=cuda_device).iter_batches(4))
+    assert median_u8.launches - before == 3
+    ref = list(tf.FilterMedian(VideoMemory(data), 7, device="cpu").iter_batches(4))
+    for (_n, a), (_m, b) in zip(got, ref):
+        np.testing.assert_array_equal(a, b)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("ksize", [257, 437])
+def test_median_blur_large_ksize_launches_k7(cuda_device, ksize):
+    """median_blur on a uint8 tensor on the card launches K7 for a window
+    past k = 255 too (no torch sort on the card for any k), and equals the
+    CPU's."""
+    from tpuva_torch.ops.filters import median_blur
+    from tpuva_torch.ops.median import median_u8
+
+    x = np.random.default_rng(ksize).integers(0, 256, (2, 3, 9, 70), dtype=np.uint8)
+    before = median_u8.launches
+    got = median_blur(torch.from_numpy(x).to(cuda_device), ksize)
+    torch.cuda.synchronize()
+    assert median_u8.launches - before == 1
+    np.testing.assert_array_equal(got.cpu().numpy(),
+                                  median_blur(torch.from_numpy(x), ksize).numpy())
 
 
 PROBES = {m.__name__.rsplit(".", 1)[1]: m for m in (repos_probe, roll_probe, i16_probe, cell_probe)}

@@ -259,9 +259,11 @@ def test_configs_k1_refuses_match_tpuva(monkeypatch, name):
     through its jnp front end). Those with a median 0 or 3 take the K1
     wrapper, here made to run the card's split on the CPU (run_split with
     k1_split's parts: blur_u8, K1's plain version on the stages that stay,
-    open_close_u8); a median k > 3 runs the torch front end and never the
-    wrapper. median5 starts without a plate (the background seeded from
-    the filtered first frame). Both staged routes refuse a median k > 3."""
+    open_close_u8); a median k > 3 takes the median route (blur_u8 and
+    median_u8, then the wrapper once a batch with no blur and no median,
+    which one launch takes whole). median5 starts without a plate (the
+    background seeded from the filtered first frame). Both staged routes
+    refuse a median k > 3."""
     from tpuva_torch.ops import fused_segment as fs
 
     # blobs wide enough to survive an open that erodes 30 px deep
@@ -296,7 +298,7 @@ def test_configs_k1_refuses_match_tpuva(monkeypatch, name):
             _staged_rows(f1_cfg(name), frames, plate)
     else:
         assert _staged_rows(f1_cfg(name), frames, plate) == rows_j
-    assert set(calls) == ({F1_SPLITS[name]} if name in F1_SPLITS else set())
+    assert set(calls) == ({F1_SPLITS[name]} if name in F1_SPLITS else {(False, False)})
 
 
 @pytest.mark.parametrize("route", ["default", "staged"])

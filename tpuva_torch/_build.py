@@ -119,6 +119,10 @@ _SIGNATURES = {
         _I, _I, _P,  # Hp, Wp, occ
         _P,  # stream
     ],
+    "tpuva_median_u8": [
+        _P, _P, _I, _I, _I, _I,  # x, out, N, H, W, k
+        _P,  # stream
+    ],
     "tpuva_track_scan_plan": [
         _I, _I, _P, _P, _P, _P,  # T, D, kind, kd (int32 out), smem, scratch (int64 out)
     ],

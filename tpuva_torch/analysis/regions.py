@@ -211,18 +211,13 @@ def contour_to_mask(contour: np.ndarray, shape) -> np.ndarray:
 def mask_boundary(mask):
     """Boundary pixels of a mask (..., H, W) tensor (mask minus its 3 x 3
     rect erosion, cv2's constant border) as a bool tensor on its device.
-    On a CUDA tensor the erosion is one launch of kernel K1m
-    (ops.wide.morph_u8); on a CPU tensor ops.filters.erode."""
+    The erosion is ops.filters.erode over the frames: one launch of kernel
+    K1m on a CUDA tensor, _morph on a CPU one."""
     import torch
 
     from tpuva_torch.ops.filters import erode, structuring_element
-    from tpuva_torch.ops.wide import morph_u8
 
     m = mask > 0
     x = m.to(torch.uint8)
-    se = structuring_element("rect", 3)
-    if x.device.type == "cuda":
-        er = morph_u8(x.reshape((-1,) + x.shape[-2:]), se, True).reshape(x.shape)
-    else:
-        er = erode(x, se)
-    return m & (er == 0)
+    er = erode(x.reshape((-1,) + x.shape[-2:]), structuring_element("rect", 3))
+    return m & (er.reshape(x.shape) == 0)

@@ -11,8 +11,9 @@ stream lies on one card and a step is one batch program over all of them,
   (``ops.fused_segment.fused_segment`` with a stream axis: each stream's
   frames read where its stager left them, its own background, its own
   seeding flag read on the card), the mask emit, or the diff emit then the
-  Otsu tail on the S·N magnitudes; where tpuva takes its jnp branch (the
-  scanned background, a median k > 3) the torch front end once a stream;
+  Otsu tail on the S·N magnitudes; for a median k > 3, after one K1b and
+  one K7 launch over the S·N frames (the median route); for the scanned
+  background (tpuva's jnp branch) the torch front end once a stream;
 - the per-frame stages on the S·N frames as one batch: K3 + K6
   (``connected_components_with_stats``), or K2 with ``ccl_single_pass``,
   then ``extract_detections``;

@@ -12,8 +12,8 @@ its device (``device.on_device``). Per batch:
 
 1. the front end on the band's rows extended by ``_halo_rows`` rows on its
    interior sides only (``graph.pipeline._front_end_emit``: kernel K1
-   where it takes the config, K1b/K1m where ``k1_split`` says, torch ops
-   for a median k > 3). tpuva synthesises REFLECT_101 rows at the true
+   where it takes the config, K1b/K1m where ``k1_split`` says, K1b, K7 and
+   K1 for a median k > 3). tpuva synthesises REFLECT_101 rows at the true
    image borders and keeps cv2's identity border there for its
    morphology; K1 does both at its array's first and last rows, which
    are exactly the true borders, and the halo absorbs its array-edge

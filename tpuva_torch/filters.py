@@ -17,10 +17,12 @@ Every filter takes ``device`` (default ``"cuda"``, through
 ``resolve_device``; a filter over a filter inherits its source's); one
 chain runs on one device. The dtype and the device choose each filter's
 route, nothing else: on a CUDA tensor, ``FilterBlur`` on uint8 launches
-kernel K1b (``ops.wide.blur_u8``) once a batch, ``FilterBackground`` on a
-uint8 (N, H, W) batch kernel K1's diff emit (``ops.fused_segment``) once a
-batch; the other filters and the float routes are torch ops. CPU tensors
-run the plain versions of the same functions.
+kernel K1b (``ops.wide.blur_u8``) once a batch, ``FilterMedian`` on uint8
+kernel K7 (``ops.median.median_u8``, through ``ops.filters.median_blur``)
+once a batch, ``FilterBackground`` on a uint8 (N, H, W) batch kernel K1's
+diff emit (``ops.fused_segment``) once a batch; the other filters and the
+float routes are torch ops. CPU tensors run the plain versions of the same
+functions.
 
 Arithmetic: every float32 product and sum is rounded on its own, in
 tpuva's source order. Where tpuva's XLA:CPU run contracts one into an FMA
@@ -322,7 +324,9 @@ class FilterBlur(FilterBase):
 
 
 class FilterMedian(FilterBase):
-    """Median filter (cv2.medianBlur semantics, exact selection)."""
+    """Median filter (cv2.medianBlur semantics, exact selection): on a
+    uint8 CUDA batch kernel K7 once (ops.filters.median_blur folds a colour
+    batch's channels into the leading axis); the torch sort otherwise."""
 
     def __init__(self, source, ksize: int = 3, device=None):
         self.ksize = int(ksize)

@@ -29,10 +29,11 @@ one launch cannot hold more than 63 blur taps, a structuring element wider
 than 31 or a morphology reach whose tile overflows a CTA's shared memory
 (``ops.fused_segment.k1_takes``), ``fused_segment`` runs that blur or that
 open and close in kernels of their own around it (``k1_split``). A median
-k > 3 is where tpuva runs its jnp branch, and so does the port: the front
-end as torch ops on the frames' device (``filter_batch``, the sequential
-``background_trajectory``, |F - B|, the threshold or Otsu, ``_morphology``);
-the staged route refuses it, as tpuva's does.
+k > 3 is where tpuva runs its jnp branch; the port runs it as the median
+route (``_median_front_end``): kernel K1b's blur (``blur_u8``) and kernel
+K7's median (``ops.median.median_u8``) on the uint8 frames, then K1 without
+its blur and median, bit-equal to tpuva's order blur -> median ->
+background. The staged route refuses it, as tpuva's does.
 
 Otsu thresholding (``SegmentConfig(threshold="otsu")``) takes every route:
 the front end emits the rounded magnitudes ``clip(rint(|F - B|), 0, 255)``
@@ -40,7 +41,8 @@ the front end emits the rounded magnitudes ``clip(rint(|F - B|), 0, 255)``
 ``torch_front_end``, on both routes; the scanned background as torch
 ops), each frame's threshold comes from its 256-bin histogram (kernel K4 in
 ``ops.filters.histogram_u8``), then the strict integer compare and the
-torch open and close.
+open and close (``_morphology``: kernel K1m, a launch a ``morph_plan``
+group).
 
 ``ccl_single_pass`` exists in tpuva because its multi-pass TPU CCL pays
 for sequential grid passes. K2's union-find converges in one launch
@@ -78,21 +80,15 @@ from tpuva_torch.io.memory import VideoMemory
 from tpuva_torch.io.staging import BatchStager
 from tpuva_torch.ops.background import background_coeffs, background_update
 from tpuva_torch.ops.ccl import label_stats, root_labels
-from tpuva_torch.ops.filters import (
-    gaussian_blur_u8,
-    median_blur,
-    morph_close,
-    morph_open,
-    otsu_threshold,
-    structuring_element,
-    threshold,
-)
+from tpuva_torch.ops.filters import otsu_threshold, threshold
 from tpuva_torch.ops.fused_segment import fused_segment, fused_tile
 from tpuva_torch.ops.label import (
     connected_components_with_stats,
     extract_detections,
     relabel_dense,
 )
+from tpuva_torch.ops.median import median_u8
+from tpuva_torch.ops.wide import blur_u8, open_close_u8
 from tpuva_torch.track.scan import track_scan
 from tpuva_torch.track.table import TrackState, init_track_state
 
@@ -185,16 +181,23 @@ def _front_end_kwargs(cfg) -> dict:
     )
 
 
-def filter_batch(cfg, frames: torch.Tensor) -> torch.Tensor:
-    """The stateless filter prefix (blur, median) on a float32 batch of
-    integer values, as tpuva's filter_batch: the blur re-quantizes to u8
-    (cv2's fixed point), so the median sees the same values cv2's does."""
-    f = frames
+def _filter_u8(cfg, f: torch.Tensor) -> torch.Tensor:
+    """The filter prefix of uint8 frames (N, H, W) in tpuva's order, blur
+    then median: kernel K1b (blur_u8) and kernel K7 (median_u8) on the
+    card, their plain versions on the CPU; uint8 out."""
     if cfg.blur is not None:
-        f = gaussian_blur_u8(f, cfg.blur.ksize, cfg.blur.sigma)
-    if cfg.median is not None:  # u8 values: a k > 3 median sorts them as uint8
-        f = median_blur(f.to(torch.uint8), cfg.median.ksize).to(torch.float32)
+        f = blur_u8(f, cfg.blur.ksize, cfg.blur.sigma)
+    if cfg.median is not None:
+        f = median_u8(f, cfg.median.ksize)
     return f
+
+
+def filter_batch(cfg, frames: torch.Tensor) -> torch.Tensor:
+    """The stateless filter prefix (blur, median) of an (N, H, W) batch of
+    integer values in [0, 255] (uint8, or float32 as tpuva's) -> float32, as
+    tpuva's filter_batch: the blur re-quantizes to u8 (cv2's fixed point),
+    so the median sees the same values cv2's does (_filter_u8)."""
+    return _filter_u8(cfg, frames.to(torch.uint8)).to(torch.float32)
 
 
 def _affine_scan(s: torch.Tensor, o: torch.Tensor):
@@ -258,15 +261,18 @@ def _can_fuse(cfg) -> bool:
     return cfg.segment.threshold != "otsu" and _can_stage(cfg)
 
 
+def _morph_stages(cfg) -> tuple:
+    """The config's open and close as open_close_u8's stages, (shape,
+    ksize, iterations) each, ksize 0 where the config has none."""
+    kw = _front_end_kwargs(cfg)
+    return tuple((kw[f"{m}_shape"], kw[f"{m}_ksize"], kw[f"{m}_iters"]) for m in ("open", "close"))
+
+
 def _morphology(cfg, mask: torch.Tensor) -> torch.Tensor:
-    """The config's open, then close, as torch ops."""
-    if cfg.morph_open is not None:
-        se = structuring_element(cfg.morph_open.shape, cfg.morph_open.ksize)
-        mask = morph_open(mask, se, cfg.morph_open.iterations)
-    if cfg.morph_close is not None:
-        se = structuring_element(cfg.morph_close.shape, cfg.morph_close.ksize)
-        mask = morph_close(mask, se, cfg.morph_close.iterations)
-    return mask
+    """The config's open, then close, of an (N, H, W) uint8 mask:
+    open_close_u8, kernel K1m on the card (a launch a morph_plan group),
+    _morph steps on the CPU."""
+    return open_close_u8(mask, _morph_stages(cfg))
 
 
 def _otsu_mask(cfg, du8: torch.Tensor, thr: Optional[torch.Tensor] = None) -> torch.Tensor:
@@ -288,19 +294,22 @@ def torch_front_end(cfg, carry: PipelineCarry, frames: torch.Tensor,
     rounded magnitudes) -> open -> close.
     Returns (mask (N, H, W) uint8, post-batch background (H, W) float32).
 
-    The sequential background of a config K1 takes (_can_stage) is kernel
-    K1 (fused_segment; its plain version on CPU tensors): the mask emit for
-    a fixed threshold, the diff emit then _otsu_mask for Otsu. The scanned
-    background (parallel_bg: tpuva's associative scan takes another float32
-    order, which no kernel carries) and a median k > 3 are torch code here,
-    as in tpuva's jnp branch, seeded as K1 is: from the filtered first
-    frame while the carry has no background.
+    The sequential background is kernel K1 (fused_segment; its plain
+    version on CPU tensors): the mask emit for a fixed threshold, the diff
+    emit then _otsu_mask for Otsu; for a median k > 3 after K1b and K7
+    (_median_front_end). The scanned background (parallel_bg: tpuva's
+    associative scan takes another float32 order, which no kernel carries)
+    is torch code here, as in tpuva's jnp branch, with filter_batch's K1b
+    and K7 and _morphology's K1m on the card, seeded as K1 is: from the
+    filtered first frame while the carry has no background.
 
     With a stream axis (a carry of init_multistream_carry, frames
     (S, N, H, W) or a sequence of S (N, H, W) batches) it returns the S·N
     masks in stream order and the (S, H, W) backgrounds: K1 is one launch
-    for all streams, each seeded by its flag of ~bg_valid on the device;
-    the torch ops run once a stream, as tpuva's jnp branch under vmap."""
+    for all streams, each seeded by its flag of ~bg_valid on the device
+    (for a median k > 3 after one K1b and one K7 launch over the S·N
+    frames); the scanned background runs once a stream, as tpuva's jnp
+    branch under vmap."""
     out, bg_last = _front_end_emit(cfg, carry, frames, parallel_bg)
     return (_otsu_mask(cfg, out) if cfg.segment.threshold == "otsu" else out), bg_last
 
@@ -311,17 +320,20 @@ def _front_end_emit(cfg, carry: PipelineCarry, frames: torch.Tensor, parallel_bg
     background), on the same routes."""
     streams = carry.bg.dim() == 3
     otsu = cfg.segment.threshold == "otsu"
-    if not parallel_bg and _can_stage(cfg):
+    if not parallel_bg:
         seed_bg = ~carry.bg_valid if streams else not bool(carry.bg_valid)
         emit = _diff_kwargs(cfg) if otsu else _front_end_kwargs(cfg)
-        out, bg_last = fused_segment(frames, carry.bg, seed_bg=seed_bg, **emit)
+        if _can_stage(cfg):
+            out, bg_last = fused_segment(frames, carry.bg, seed_bg=seed_bg, **emit)
+        else:
+            out, bg_last = _median_front_end(cfg, frames, carry.bg, seed_bg, emit)
         return out.flatten(0, out.dim() - 3), bg_last
     if streams:
         outs = [_front_end_emit(cfg, _stream_carry(carry, s), frames[s], parallel_bg)
                 for s in range(len(frames))]
         return torch.cat([m for m, _ in outs]), torch.stack([b for _, b in outs])
     seed_bg = not bool(carry.bg_valid)
-    f = filter_batch(cfg, frames.to(torch.float32))
+    f = filter_batch(cfg, frames)
     bgs = background_trajectory(f[0] if seed_bg else carry.bg, f, cfg.background.alpha,
                                 parallel=parallel_bg)
     bg_last = bgs[-1].clone()  # not a view that keeps the batch alive
@@ -330,6 +342,26 @@ def _front_end_emit(cfg, carry: PipelineCarry, frames: torch.Tensor, parallel_bg
     if otsu:  # torch.round is rint: half to even
         return torch.clamp(torch.round(diff), 0, 255).to(torch.uint8), bg_last
     return _morphology(cfg, threshold(diff, cfg.segment.threshold)), bg_last
+
+
+def _median_front_end(cfg, frames, bg0: torch.Tensor, seed_bg, emit: dict):
+    """The sequential front end of a median k > 3 (the median route):
+    kernel K1b's blur (blur_u8) and kernel K7's median (median_u8) on the
+    uint8 frames, then kernel K1 (fused_segment) with emit's options less
+    its blur and median. Bit-equal to one pass in tpuva's order (blur ->
+    median -> background): K1b's output is u8 as the median sees it, and K1
+    seeds its background from its input, the filtered first frame. With a
+    stream axis (frames (S, N, H, W) or a sequence of S (N, H, W) batches)
+    the S·N frames take one K1b and one K7 launch, and K1 one launch for
+    all streams. CPU tensors take the plain versions of the same calls."""
+    listed = isinstance(frames, (list, tuple))
+    streams = listed or frames.dim() == 4
+    f = _filter_u8(cfg, torch.cat(list(frames)) if listed
+                   else frames.reshape((-1,) + frames.shape[-2:]))
+    if streams:
+        f = f.reshape(len(frames), -1, *f.shape[1:])
+    return fused_segment(f, bg0, seed_bg=seed_bg,
+                         **dict(emit, blur_ksize=0, blur_sigma=0.0, median_ksize=0))
 
 
 def process_batch(cfg, carry: PipelineCarry, frames: torch.Tensor,
@@ -344,8 +376,8 @@ def process_batch(cfg, carry: PipelineCarry, frames: torch.Tensor,
     and ccl_converged one flag.
 
     The front end is torch_front_end: kernel K1 for the sequential
-    background (the mask emit, or for Otsu the diff emit), torch ops for
-    the scanned one (parallel_bg) and for a median k > 3. With
+    background (the mask emit, or for Otsu the diff emit; after K1b and K7
+    for a median k > 3), torch ops for the scanned one (parallel_bg). With
     use_pallas and a config K1 covers in one pass (_can_fuse), the front
     end is K1 whatever parallel_bg says, as tpuva's fused stage. The CCL is
     connected_components_with_stats, whose root-key labels come from

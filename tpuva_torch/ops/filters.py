@@ -232,13 +232,14 @@ def _median9(p):
 MEDIAN_SORT_BYTES = 2 << 30
 
 
-def median_blur(x: torch.Tensor, ksize: int) -> torch.Tensor:
-    """cv2.medianBlur, BORDER_REPLICATE, for any odd ksize. k = 3 is the
-    19-op network; a larger k takes the middle element of the sorted
-    k*k window stack, as tpuva's, in x's dtype. That stack is k*k times the
-    input, so it is sorted over chunks of the leading axis that keep one
-    sort near MEDIAN_SORT_BYTES; filter_batch passes its u8 values as
-    uint8, the smallest stack."""
+def median_u8_plain(x: torch.Tensor, ksize: int) -> torch.Tensor:
+    """cv2.medianBlur, BORDER_REPLICATE, for any odd ksize, as torch ops:
+    kernel K7's plain version, and the path of every input K7 does not take
+    (median_blur). k = 3 is the 19-op network; a larger k takes the middle
+    element of the sorted k*k window stack, as tpuva's, in x's dtype. That
+    stack is k*k times the input, so it is sorted over chunks of the
+    leading axis that keep one sort near MEDIAN_SORT_BYTES; a uint8 input
+    makes the smallest stack."""
     if ksize == 1:
         return x
     if ksize < 1 or ksize % 2 == 0:
@@ -261,6 +262,19 @@ def median_blur(x: torch.Tensor, ksize: int) -> torch.Tensor:
         stack = torch.stack(windows(xp), dim=-1)
         out[i:i + step] = torch.sort(stack, dim=-1).values[..., ksize * ksize // 2]
     return out.reshape(x.shape)
+
+
+def median_blur(x: torch.Tensor, ksize: int) -> torch.Tensor:
+    """cv2.medianBlur, BORDER_REPLICATE, for any odd ksize, on (..., H, W).
+    A uint8 tensor on the card launches kernel K7 (ops.median.median_u8),
+    its leading axes folded into one; every other input (another dtype, the
+    CPU) takes median_u8_plain's torch ops."""
+    if x.device.type == "cuda" and x.dtype == torch.uint8 and x.dim() >= 2:
+        from tpuva_torch.ops.median import median_u8
+
+        H, W = x.shape[-2:]
+        return median_u8(x.reshape(-1, H, W), ksize).reshape(x.shape)
+    return median_u8_plain(x, ksize)
 
 
 def threshold(x: torch.Tensor, thresh: float, maxval: float = 255.0) -> torch.Tensor:
@@ -381,24 +395,44 @@ def _morph(x: torch.Tensor, se: np.ndarray, is_erode: bool) -> torch.Tensor:
     return out
 
 
-def erode(x: torch.Tensor, se: np.ndarray, iterations: int = 1) -> torch.Tensor:
-    """x: uint8 (..., H, W)."""
-    for _ in range(iterations):
-        x = _morph(x, se, is_erode=True)
+def morph_steps_plain(x: torch.Tensor, steps) -> torch.Tensor:
+    """Erode and dilate steps = [(se, erode), ...] in order, each a _morph:
+    the torch ops kernel K1m (ops.wide.morph_steps) is held to."""
+    for se, is_erode in steps:
+        x = _morph(x, se, is_erode=is_erode)
     return x
+
+
+def _morph_run(x: torch.Tensor, steps) -> torch.Tensor:
+    """steps on x: a uint8 (N, H, W) batch on the card launches kernel K1m
+    (ops.wide.morph_steps, a launch a morph_plan group); anything else
+    runs morph_steps_plain."""
+    if steps and x.device.type == "cuda" and x.dtype == torch.uint8 and x.dim() == 3:
+        from tpuva_torch.ops.wide import morph_steps
+
+        return morph_steps(x, steps)
+    return morph_steps_plain(x, steps)
+
+
+def erode(x: torch.Tensor, se: np.ndarray, iterations: int = 1) -> torch.Tensor:
+    """x: uint8 (..., H, W); K1m for a uint8 (N, H, W) batch on the card."""
+    return _morph_run(x, [(se, True)] * iterations)
 
 
 def dilate(x: torch.Tensor, se: np.ndarray, iterations: int = 1) -> torch.Tensor:
     """cv2.dilate reflects the SE about the anchor; structuring_element's
-    SEs are symmetric, so the reflection is a no-op."""
-    for _ in range(iterations):
-        x = _morph(x, se, is_erode=False)
-    return x
+    SEs are symmetric, so the reflection is a no-op. K1m for a uint8
+    (N, H, W) batch on the card."""
+    return _morph_run(x, [(se, False)] * iterations)
 
 
 def morph_open(x: torch.Tensor, se: np.ndarray, iterations: int = 1) -> torch.Tensor:
-    return dilate(erode(x, se, iterations), se, iterations)
+    """Erode then dilate, `iterations` steps each: one morph_steps call on
+    the card."""
+    return _morph_run(x, [(se, True)] * iterations + [(se, False)] * iterations)
 
 
 def morph_close(x: torch.Tensor, se: np.ndarray, iterations: int = 1) -> torch.Tensor:
-    return erode(dilate(x, se, iterations), se, iterations)
+    """Dilate then erode, `iterations` steps each: one morph_steps call on
+    the card."""
+    return _morph_run(x, [(se, False)] * iterations + [(se, True)] * iterations)

@@ -65,13 +65,18 @@ from tpuva_torch.ops.background import background_coeffs, background_update
 from tpuva_torch.ops.filters import (
     blur_taps,
     gaussian_blur_u8,
-    median_blur,
-    morph_close,
-    morph_open,
+    median_u8_plain,
+    morph_steps_plain,
     structuring_element,
     threshold as threshold_op,
 )
-from tpuva_torch.ops.wide import SMEM_LIMIT, blur_u8, open_close_u8, pad_occ_plain
+from tpuva_torch.ops.wide import (
+    SMEM_LIMIT,
+    blur_u8,
+    open_close_steps,
+    open_close_u8,
+    pad_occ_plain,
+)
 
 # limits of csrc/fused_segment.cu's parameter block
 MAX_TAPS = 63
@@ -238,8 +243,10 @@ def fused_segment_plain(
     padded_occ: bool = False,
 ):
     """Plain PyTorch version of the kernel (same arguments, same results;
-    N >= 1). With a stream axis (frames (S, N, H, W) or a sequence of S
-    batches, bg0 (S, H, W)) each stream in turn, the results stacked."""
+    N >= 1): the plain ops only (gaussian_blur_u8, median_u8_plain,
+    morph_steps_plain), never a kernel, on either device. With a stream
+    axis (frames (S, N, H, W) or a sequence of S batches, bg0 (S, H, W))
+    each stream in turn, the results stacked."""
     _check_emit(emit, open_ksize, close_ksize, padded_occ)
     kw = dict(alpha=alpha, threshold=threshold, blur_ksize=blur_ksize, blur_sigma=blur_sigma,
               median_ksize=median_ksize, open_shape=open_shape, open_ksize=open_ksize,
@@ -252,7 +259,7 @@ def fused_segment_plain(
         return tuple(torch.stack(x) for x in zip(*outs))
     f = gaussian_blur_u8(frames, blur_ksize, blur_sigma) if blur_ksize else frames.to(torch.float32)
     if median_ksize:
-        f = median_blur(f, median_ksize)
+        f = median_u8_plain(f, median_ksize)
     N, H, W = frames.shape
     if isinstance(seed_bg, torch.Tensor):  # a flag on the frames' device
         bg = torch.where(seed_bg.to(torch.bool), f[0], bg0)
@@ -266,10 +273,8 @@ def fused_segment_plain(
             masks[t] = torch.clamp(torch.round(d), 0, 255).to(torch.uint8)
         else:
             masks[t] = threshold_op(d, threshold)
-    if open_ksize:
-        masks = morph_open(masks, structuring_element(open_shape, open_ksize), open_iters)
-    if close_ksize:
-        masks = morph_close(masks, structuring_element(close_shape, close_ksize), close_iters)
+    masks = morph_steps_plain(masks, open_close_steps(
+        ((open_shape, open_ksize, open_iters), (close_shape, close_ksize, close_iters))))
     if padded_occ:
         padded, occ = pad_occ_plain(masks, fused_tile(H, W)[2:])
         return padded, bg, occ

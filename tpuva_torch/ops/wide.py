@@ -19,8 +19,8 @@ hand-written kernels (``csrc/wide.cu``) on CUDA tensors and the plain ops of
   steps into groups whose summed reach fits a tile's halo, and each group
   is one launch that runs its steps in shared memory; an SE whose single
   step fits no tile takes one launch of the global one-step kernel. Every
-  launch counts in ``morph_u8.launches``. On CPU tensors the same groups
-  run as ``_morph`` steps.
+  launch counts in ``morph_u8.launches``. On CPU tensors the steps run as
+  ``_morph`` steps (``filters.morph_steps_plain``).
 
 For K1's ``padded_occ`` mode the last K1m launch writes the padded mask and
 its occupancy (``pad_to``), so that they describe the final mask.
@@ -35,7 +35,12 @@ import numpy as np
 import torch
 
 from tpuva_torch import _build
-from tpuva_torch.ops.filters import _morph, blur_taps, gaussian_blur_u8, structuring_element
+from tpuva_torch.ops.filters import (
+    blur_taps,
+    gaussian_blur_u8,
+    morph_steps_plain,
+    structuring_element,
+)
 
 SMEM_LIMIT = 232_448  # dynamic shared memory a CTA may use on an H100
 SMEM_PER_SM = 228 * 1024  # an SM's shared memory, 1 KB of it reserved per CTA
@@ -320,7 +325,8 @@ def morph_steps(x: torch.Tensor, steps, pad_to=None):
     chain of filters._morph. With pad_to = (Hp, Wp) (Hp even, Wp a multiple
     of 128) it returns pad_occ_plain's (padded mask, occupancy) of the
     result instead. CUDA tensors launch kernel K1m once a group of
-    morph_plan; CPU tensors run the same groups as _morph steps."""
+    morph_plan; CPU tensors run the steps as _morph steps
+    (morph_steps_plain)."""
     _check_batch(x, "morph_u8")
     N, H, W = x.shape
     if pad_to is not None and (pad_to[0] < H or pad_to[1] < W or pad_to[0] % 2
@@ -331,9 +337,7 @@ def morph_steps(x: torch.Tensor, steps, pad_to=None):
         raise ValueError("morph_u8: no step")
     plan = morph_plan(H, W, steps)
     if x.device.type == "cpu" or x.numel() == 0:
-        for g in plan:
-            for se, erode in steps[g.start:g.stop]:
-                x = _morph(x, se, is_erode=erode)
+        x = morph_steps_plain(x, steps)
         return x if pad_to is None else pad_occ_plain(x, pad_to)
     x = x.contiguous()
     occ = None
