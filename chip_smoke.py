@@ -7,7 +7,8 @@
                                    # (CUDA events; device ms and launches a call)
     python3 chip_smoke.py --k5     # phases 1-2, then K5's timings only
     python3 chip_smoke.py --wide   # phases 1-2, then K1m's and K1b's timings only
-    python3 chip_smoke.py --median # phases 1-2, then K7's checks and timings only
+    python3 chip_smoke.py --median # phases 1-2, then K7's checks, timings and SASS only
+                                   # (copied into an earlier checkout: that checkout's K7)
     python3 chip_smoke.py --probes # phases 1-2, then phase 9 (the micro-probes) only
     python3 chip_smoke.py --staging # phases 1-2, then the staging line only (copied
                                     # into an earlier checkout: that checkout's stager)
@@ -43,9 +44,13 @@ raises, so the exit code is non-zero:
    plain version (median_u8_plain) on the card, bit for bit: k = 3, 5 and 7
    on a (256, 1080, 1920) batch of the clip, 9 and 25 on phase 5c's
    160 x 240 clip, and 3 to 255 on random bytes of edge shapes (8 x 300 and
-   300 x 8, H or W below the window; one row; one pixel; 5 x 7; 40 x 70),
-   435 and 437 on three of them: the register kernels, the shared-memory
-   one up to k = 435 and the global-memory one past it;
+   300 x 8, H or W below the window; one row; one pixel; 5 x 7; 40 x 70;
+   9 rows of the ragged widths 1, 2, 3, 5, 37), 435 and 437 on three of
+   them; k = 3, 5, 7, 9 on 1080-row frames of those widths and of 1917,
+   and on the adversarial frames at (2, 1080, 1920) (constant, two values,
+   0/255, ramps, outliers): the network kernels, the shared-memory one up
+   to k = 435 and the global-memory one past it; with the SASS of K7's
+   min/max forms and kernels and the forms' rates (median_sass);
 4. K2 (CCL + stats, one cooperative launch with its stats epilogue)
    against its plain version (label_sums_plain, then _assemble_stats) on
    the card, on K1's masks and random masks of density 0.05 and 0.3: every
@@ -213,8 +218,8 @@ raises, so the exit code is non-zero:
    on the batch's Otsu masks as K1m (open_close_u8) and as the torch ops
    it replaced (morph_steps_plain), bit-equal first, K7 at k = 5 and 7
    against its plain version and at k = 5 against torch.median over the
-   unfolded windows (equal first), with its bound and the time its radix
-   design's operations take at the peak rate, K1b (65 taps,
+   unfolded windows (equal first), with its bound, its design's
+   operations a pixel and their time at the INT32 rate, K1b (65 taps,
    its plan) and K1m (7 x 7 rect and ellipse steps, erode and dilate, the
    rect dilate beside max_pool2d and on density 0.3; a 10-step group, one
    launch) against theirs, the split front ends of open and close 7 x 10
@@ -674,6 +679,7 @@ def ptxas_kernel(entry, probes=False):
                 (r"track_scan_regsILi(\d+)E", "track_scan_regs"),
                 (r"track_scan_kernelILb([01])E", "track_scan_kernel"),
                 (r"morph_group_kernel()", "morph_group_kernel"),
+                (r"median_net_kernelILi(\d+)E", "median_net_kernel"),
                 (r"median_reg_kernelILi(\d+)E", "median_reg_kernel"),
                 (r"median_smem_kernel()", "median_smem_kernel"),
                 (r"median_global_kernel()", "median_global_kernel"),
@@ -1085,18 +1091,31 @@ def wide_timing(clip, plate, card):
 
 # K7's checks: windows at 1080p (batch 256), on the 160 x 240 clip, and on
 # edge shapes (H or W below the window, one row, one pixel) for the
-# register kernels (k <= 9), the shared-memory kernel (to k = 435, its
+# network kernels (k <= 9), the shared-memory kernel (to k = 435, its
 # halo's limit) and the global-memory one past it
 MEDIAN_K_1080P = (3, 5, 7)
 MEDIAN_K_CLIP = (9, 25)
-MEDIAN_K_EDGE = (3, 5, 9, 11, 25, 255)
-MEDIAN_EDGE_SHAPES = ((2, 8, 300), (2, 300, 8), (2, 1, 300), (1, 1, 1), (3, 5, 7), (2, 40, 70))
+MEDIAN_K_EDGE = (3, 5, 7, 9, 11, 25, 255)
+# the ragged widths: not a multiple of the 16-byte loads, the 4-byte
+# stores or a thread's 4 or 8 columns
+MEDIAN_RAGGED_W = (1, 2, 3, 5, 37)
+MEDIAN_EDGE_SHAPES = ((2, 8, 300), (2, 300, 8), (2, 1, 300), (1, 1, 1), (3, 5, 7), (2, 40, 70)) + \
+    tuple((2, 9, w) for w in MEDIAN_RAGGED_W)
 # past k = 255 on three of them: the plain version's window stack is k*k
 # slices, seconds a call in Python
 MEDIAN_K_LARGE = (435, 437)
 MEDIAN_LARGE_SHAPES = ((2, 8, 300), (2, 300, 8), (2, 40, 70))
+# the network kernels at 1080p rows: the ragged widths, a width no tile or
+# 16-byte load divides, and the adversarial frames
+# (tpuva_torch.scenes.median_adversarial)
+MEDIAN_K_NET = (3, 5, 7, 9)
+MEDIAN_RAGGED_1080P = tuple((2, 1080, w) for w in MEDIAN_RAGGED_W + (1917,))
+MEDIAN_ADVERSARIAL_SHAPE = (2, 1080, 1920)
 # the median route's windows timed at 1080p, batch 256
 MEDIAN_K_TIMED = (5, 7)
+# H100 SXM's INT32 rate: 64 INT32 lanes an SM (Hopper white paper) x 132 SMs
+# x the 1.98 GHz boost clock, for the integer min/max of K7's networks
+PEAK_INT32_S = 132 * 64 * 1.98e9
 
 
 def median_ops_per_px(ksize):
@@ -1107,9 +1126,24 @@ def median_ops_per_px(ksize):
 
 
 def median_radix_ops_per_px(ksize):
-    """Operations a pixel of K7's design: 8 counts of the k*k window, a
-    compare and an add a value."""
+    """Operations a pixel of the radix select (K7's design for k > 9, and
+    for every k before its networks): 8 counts of the k*k window, a compare
+    and an add a value."""
     return 8 * 2 * ksize * ksize
+
+
+def median_design_ops_per_px(ksize):
+    """(operations a pixel, design) of the kernel this tree runs for ksize:
+    its network's instructions over the lanes plus loads, staging and
+    stores (ops.median.network_ops_per_px), or the radix select's where the
+    tree has no network (an earlier checkout running this file)."""
+    try:
+        from tpuva_torch.ops.median import NET_BLOCKS, network_ops_per_px
+    except ImportError:
+        return median_radix_ops_per_px(ksize), "radix"
+    if ksize in NET_BLOCKS:
+        return network_ops_per_px(ksize)["total"], "network"
+    return median_radix_ops_per_px(ksize), "radix"
 
 
 def median_checks(frames, small, err):
@@ -1118,8 +1152,16 @@ def median_checks(frames, small, err):
     small clip at MEDIAN_K_CLIP, random bytes of MEDIAN_EDGE_SHAPES at
     MEDIAN_K_EDGE and of MEDIAN_LARGE_SHAPES at MEDIAN_K_LARGE (k = 255 and
     up on small frames only: the plain sort of a 255 x 255 window stack at
-    1080p would take over 100 GB). Returns the phase line's fields."""
+    1080p would take over 100 GB); at MEDIAN_K_NET, 1080-row frames of the
+    ragged widths (random bytes, a dark half) and the adversarial frames
+    (tpuva_torch.scenes.median_adversarial). Returns the phase line's
+    fields."""
     from tpuva_torch.ops.median import median_u8, median_u8_plain
+    try:
+        from tpuva_torch.scenes import median_adversarial
+    except ImportError:  # an earlier checkout running this file: no adversarial frames
+        def median_adversarial(shape, seed):
+            return {}
 
     dev = torch.device("cuda")
     cases = [(f"k={k}, {list(frames.shape)}", frames, k) for k in MEDIAN_K_1080P]
@@ -1130,6 +1172,15 @@ def median_checks(frames, small, err):
         x = torch.from_numpy(rng.integers(0, 256, shape, dtype=np.uint8)).to(dev)
         ks = MEDIAN_K_EDGE + (MEDIAN_K_LARGE if shape in MEDIAN_LARGE_SHAPES else ())
         cases += [(f"k={k}, {list(shape)}", x, k) for k in ks]
+    for shape in MEDIAN_RAGGED_1080P:
+        x = rng.integers(0, 256, shape, dtype=np.uint8)
+        x[:, : shape[1] // 2] //= 8
+        x = torch.from_numpy(x).to(dev)
+        cases += [(f"k={k}, {list(shape)}", x, k) for k in MEDIAN_K_NET]
+    adversarial = median_adversarial(MEDIAN_ADVERSARIAL_SHAPE, seed=17)
+    for name, x in adversarial.items():
+        x = torch.from_numpy(x).to(dev)
+        cases += [(f"k={k}, {name} {list(x.shape)}", x, k) for k in MEDIAN_K_NET]
     for where, x, k in cases:
         check_equal(err, "median_u8", [("median", median_u8(x, k), median_u8_plain(x, k))],
                     where)
@@ -1137,7 +1188,9 @@ def median_checks(frames, small, err):
     return dict(comparisons=len(cases), k_1080p=list(MEDIAN_K_1080P),
                 k_clip=list(MEDIAN_K_CLIP), k_edge=list(MEDIAN_K_EDGE),
                 k_large=list(MEDIAN_K_LARGE), large_shapes=[list(s) for s in MEDIAN_LARGE_SHAPES],
-                edge_shapes=[list(s) for s in MEDIAN_EDGE_SHAPES], bit_equal=True)
+                edge_shapes=[list(s) for s in MEDIAN_EDGE_SHAPES], k_net=list(MEDIAN_K_NET),
+                ragged_1080p=[list(s) for s in MEDIAN_RAGGED_1080P],
+                adversarial=list(adversarial), bit_equal=True)
 
 
 def median_library(x, ksize):
@@ -1157,8 +1210,9 @@ def median_timing(frames, err, reps):
     """K7 at MEDIAN_K_TIMED on frames (batch 256, 1080p), CUDA events: the
     kernel, its plain version and the library call (median_library, checked
     equal first; None where it raises for uint8 on the card), with the
-    bound (bytes against median_ops_per_px) and the time K7's radix design's
-    operations take at the peak rate. Returns ms and bounds by name."""
+    bound (bytes against median_ops_per_px), the operations a pixel of the
+    design this tree runs (median_design_ops_per_px) and their time at the
+    INT32 rate. Returns ms and bounds by name."""
     from tpuva_torch.ops.median import median_u8, median_u8_plain
 
     t = {}
@@ -1167,7 +1221,10 @@ def median_timing(frames, err, reps):
         t[f"k7_{k}_ms"] = cuda_ms(lambda: median_u8(frames, k), reps)
         t[f"k7_{k}_plain_ms"] = cuda_ms(lambda: median_u8_plain(frames, k), 1)
         t[f"k7_{k}_bound"] = bound(2 * px, median_ops_per_px(k) * px)
-        t[f"k7_{k}_radix_ops_ms"] = median_radix_ops_per_px(k) * px / PEAK_OPS_S * 1e3
+        ops, design = median_design_ops_per_px(k)
+        t[f"k7_{k}_design"] = design
+        t[f"k7_{k}_ops_per_px"] = ops
+        t[f"k7_{k}_int32_bound_ms"] = ops * px / PEAK_INT32_S * 1e3
     try:
         lib = median_library(frames, MEDIAN_K_TIMED[0])
         check_equal(err, "median_u8", [("library", lib(), median_u8(frames, MEDIAN_K_TIMED[0]))],
@@ -1181,9 +1238,160 @@ def median_timing(frames, err, reps):
     return t
 
 
-def median_mode(card):
-    """--median: K7's checks and its timing (median_checks, median_timing)
-    on the slice's clip and the small clip; one JSON line."""
+# One kernel a K7 min/max candidate, compiled alone for sm_90a so that the
+# SASS shows what each intrinsic costs, and one rate kernel a candidate:
+# eight independent chains of max(min(a, b), c) a thread, unrolled 4 times,
+# 64 min/max a rep (median_sass)
+MEDIAN_SASS_PROBE = r"""
+#include <cstdint>
+#include <cuda_fp16.h>
+#include <cuda_runtime.h>
+__device__ __forceinline__ uint32_t hmin2_u32(uint32_t a, uint32_t b) {
+  const __half2 z = __hmin2(*reinterpret_cast<const __half2*>(&a),
+                            *reinterpret_cast<const __half2*>(&b));
+  return *reinterpret_cast<const uint32_t*>(&z);
+}
+__device__ __forceinline__ uint32_t hmax2_u32(uint32_t a, uint32_t b) {
+  const __half2 z = __hmax2(*reinterpret_cast<const __half2*>(&a),
+                            *reinterpret_cast<const __half2*>(&b));
+  return *reinterpret_cast<const uint32_t*>(&z);
+}
+#define PROBE(name, expr) extern "C" __global__ void probe_##name(const uint32_t* p, uint32_t* o) { \
+    const uint32_t a = p[threadIdx.x], b = p[threadIdx.x + 32], c = p[threadIdx.x + 64]; \
+    (void)c; o[threadIdx.x] = (expr); }
+PROBE(xor, a ^ b)
+PROBE(vminu2, __vminu2(a, b))
+PROBE(vmaxu2, __vmaxu2(a, b))
+PROBE(vimin3_u16x2, __vimin3_u16x2(a, b, c))
+PROBE(vimax3_u16x2, __vimax3_u16x2(a, b, c))
+PROBE(vminu4, __vminu4(a, b))
+PROBE(vmaxu4, __vmaxu4(a, b))
+PROBE(hmin2, hmin2_u32(a, b))
+PROBE(min_u32, min(a, b))
+#define STEP(x) x = MX(MN(x, b), c);
+#define RATE(name, MN_, MX_) \
+  extern "C" __global__ void rate_##name(uint32_t* o, int reps) { \
+    auto MN = [](uint32_t u, uint32_t v) { return MN_(u, v); }; \
+    auto MX = [](uint32_t u, uint32_t v) { return MX_(u, v); }; \
+    uint32_t a0 = threadIdx.x, a1 = a0 * 3u, a2 = a0 * 5u, a3 = a0 * 7u, a4 = a0 * 11u, \
+             a5 = a0 * 13u, a6 = a0 * 17u, a7 = a0 * 19u; \
+    const uint32_t b = 0xe000e000u ^ blockIdx.x, c = 0x10001000u ^ (blockIdx.x << 3); \
+    for (int r = 0; r < reps; ++r) { \
+      _Pragma("unroll") for (int u = 0; u < 4; ++u) { \
+        STEP(a0) STEP(a1) STEP(a2) STEP(a3) STEP(a4) STEP(a5) STEP(a6) STEP(a7) } } \
+    o[blockIdx.x * blockDim.x + threadIdx.x] = a0 ^ a1 ^ a2 ^ a3 ^ a4 ^ a5 ^ a6 ^ a7; }
+__device__ __forceinline__ uint32_t min3u2(uint32_t a, uint32_t b) { return __vimin3_u16x2(a, b, a ^ 1u); }
+__device__ __forceinline__ uint32_t max3u2(uint32_t a, uint32_t b) { return __vimax3_u16x2(a, b, a ^ 1u); }
+__device__ __forceinline__ uint32_t minu32(uint32_t a, uint32_t b) { return min(a, b); }
+__device__ __forceinline__ uint32_t maxu32(uint32_t a, uint32_t b) { return max(a, b); }
+RATE(vminu2, __vminu2, __vmaxu2)
+RATE(vimin3_u16x2, min3u2, max3u2)
+RATE(hmin2, hmin2_u32, hmax2_u32)
+RATE(min_u32, minu32, maxu32)
+typedef void (*RateKernel)(uint32_t*, int);
+// which: 0 vminu2, 1 vimin3_u16x2, 2 hmin2, 3 min_u32; grid x 256 threads
+extern "C" int median_rate(int which, uint32_t* o, int grid, int reps, void* stream) {
+  const RateKernel k[] = {rate_vminu2, rate_vimin3_u16x2, rate_hmin2, rate_min_u32};
+  k[which]<<<grid, 256, 0, static_cast<cudaStream_t>(stream)>>>(o, reps);
+  return static_cast<int>(cudaGetLastError());
+}
+"""
+MEDIAN_RATES = ("vminu2", "vimin3_u16x2", "hmin2", "min_u32")
+
+
+def sass_functions(path):
+    """{function: [opcode, ...]} of cuobjdump -sass's listing of path."""
+    from tpuva_torch import _build
+
+    tool = os.path.join(os.path.dirname(_build.nvcc()), "cuobjdump")
+    text = subprocess.run([tool, "-sass", str(path)], capture_output=True, text=True,
+                          check=True).stdout
+    out, name = {}, None
+    for line in text.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            name = m.group(1)
+            out[name] = []
+            continue
+        m = re.match(r"\s+/\*[0-9a-f]{4}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]*)", line)
+        if name and m:
+            out[name].append(m.group(1))
+    return out
+
+
+def median_sass(lib_path):
+    """The SASS of K7's min/max forms and kernels: each candidate
+    intrinsic's instructions past the baseline's (MEDIAN_SASS_PROBE, nvcc
+    for sm_90a), each candidate's rate (min/max a clock an SM, the SM clock
+    read from nvidia-smi; CUDA events over 8 CTAs an SM), and for each
+    network kernel median_net_kernel<k> of the library its instruction
+    count, its opcodes, and its 16-bit-lane min/max instructions
+    (VIMNMX*.U16) against the network's ops (one instruction an op where
+    the form is native) and against its two-input comparisons on LANES
+    pixels each (a min3 or max3 is two)."""
+    import ctypes
+
+    from tpuva_torch import _build
+
+    os.makedirs(OUT_DIR, exist_ok=True)
+    src = os.path.join(OUT_DIR, "median_sass_probe.cu")
+    lib = os.path.join(OUT_DIR, "median_sass_probe.so")
+    with open(src, "w") as fh:
+        fh.write(MEDIAN_SASS_PROBE)
+    subprocess.run([_build.nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-O3", "-shared",
+                    "-Xcompiler", "-fPIC", "-o", lib, src], check=True, capture_output=True,
+                   text=True)
+    probe = sass_functions(lib)
+    base = len(probe["probe_xor"]) - 1  # the xor is one LOP3
+    intrinsics = {name[len("probe_"):]: dict(extra=len(ops) - base,
+                                             ops=[o for o in ops if o not in probe["probe_xor"]])
+                  for name, ops in probe.items() if name.startswith("probe_") and name != "probe_xor"}
+    rate_lib = ctypes.CDLL(lib)
+    rate_lib.median_rate.argtypes = [ctypes.c_int, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+                                     ctypes.c_void_p]
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    grid, reps = 8 * sms, 4096
+    o = torch.empty(grid * 256, dtype=torch.int32, device="cuda")
+    clock = float(subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm",
+                                  "--format=csv,noheader,nounits"], capture_output=True,
+                                 text=True).stdout.split()[0])
+    rates = {}
+    for i, name in enumerate(MEDIAN_RATES):
+        def run():
+            _build.check(_build.load(), rate_lib.median_rate(
+                i, o.data_ptr(), grid, reps, torch.cuda.current_stream().cuda_stream), name)
+        ms = cuda_ms(run, 3)
+        minmax = sum(1 for op in probe[f"rate_{name}"] if "MNMX" in op)
+        per_clock_sm = grid * 256 * reps * 64 / (ms * 1e-3) / (clock * 1e6) / sms
+        rates[name] = dict(ms=ms, sass_minmax=minmax, minmax_a_clock_an_sm=per_clock_sm)
+    kernels = {}
+    try:
+        from tpuva_torch.ops.median import LANES, median_network
+    except ImportError:
+        median_network = None
+    for name, ops in sass_functions(lib_path).items():
+        m = re.search(r"median_(net|reg)_kernelILi(\d+)E", name)
+        if not m:
+            continue
+        k = int(m.group(2))
+        hist = {}
+        for op in ops:
+            hist[op.split(".")[0]] = hist.get(op.split(".")[0], 0) + 1
+        entry = dict(instructions=len(ops), opcodes=dict(sorted(hist.items(), key=lambda x: -x[1])))
+        if m.group(1) == "net" and median_network is not None:
+            net = median_network(k)
+            minmax = sum(1 for op in ops if op.startswith("VIMNMX") and ".U16" in op)
+            entry.update(net_ops=len(net.ops), net_comparisons=net.comparisons,
+                         sass_minmax=minmax, sass_minmax_per_op=minmax / len(net.ops),
+                         sass_per_pixel_comparison=minmax / (net.comparisons * LANES))
+        kernels[f"median_{m.group(1)}_kernel<{k}>"] = entry
+    return dict(intrinsics=intrinsics, rates=rates, sm_clock_mhz=clock, kernels=kernels)
+
+
+def median_mode(card, lib_path):
+    """--median: K7's checks, its timing (median_checks, median_timing) on
+    the slice's clip and the small clip, and its SASS (median_sass); one
+    JSON line."""
     from refimpl.synthetic import multi_blob_clip
 
     clip, _alive, _truth, _plate = multi_blob_clip(1080, 1920, 256, n_blobs=6, radius=16,
@@ -1193,6 +1401,7 @@ def median_mode(card):
     err = {"median_u8": 0.0}
     line = median_checks(frames, small, err)
     line.update(median_timing(frames, err, 5))
+    line["sass"] = median_sass(lib_path)
     say("median", card=card, max_abs_err=err, **line)
     return 0
 
@@ -2192,7 +2401,7 @@ def main():
         probes_phase(card)
         return 0
     if mode == "--median":
-        return median_mode(card)
+        return median_mode(card, lib_path)
     if mode == "--staging":
         clip, _alive, _truth, plate = multi_blob_clip(1080, 1920, 512, n_blobs=6, radius=16,
                                                       births_deaths=False, noise_sigma=2.0)
@@ -2365,9 +2574,10 @@ def main():
         occ128_shape=list(k1_padded[2].shape), occupied_blocks=int(k1_padded[2].sum()))
 
     # 3d. K7 against its plain version, bit for bit: k = 3, 5, 7 at batch
-    # 256 and 1080p, 9 and 25 on the small clip, up to 437 on edge shapes
+    # 256 and 1080p, 9 and 25 on the small clip, up to 437 on edge shapes,
+    # 3-9 on ragged widths and adversarial frames; its SASS
     f256 = torch.from_numpy(clip[:256]).to(dev)
-    say("k7_vs_plain", **median_checks(f256, small, err))
+    say("k7_vs_plain", sass=median_sass(lib_path), **median_checks(f256, small, err))
     del f256
 
     # 4. K2 against its plain version, every stats field bit for bit

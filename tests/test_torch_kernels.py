@@ -64,7 +64,7 @@ from tpuva_torch.probes import cell_probe, i16_probe, repos_probe, roll_probe
 from tpuva_torch.probes._timing import timeit
 from tpuva_torch.scenes import (
     DET_KINDS, K1_REFUSED, ROOT_STATS_OPTIONS, conn4_scene, det_sequence, edge_strip_scene,
-    k1_refused_config, mixed_scene, u_shape,
+    k1_refused_config, median_adversarial, mixed_scene, u_shape,
 )
 from tpuva_torch.track.scan import scan_plan, track_scan, track_scan_plain
 from tpuva_torch.track.table import TrackState, init_track_state
@@ -1117,10 +1117,13 @@ def test_configs_k1_refuses_run_on_the_card(cuda_device, name):
 @pytest.mark.parametrize("ksize", [3, 5, 7, 9, 11, 25, 255, 257, 437])
 def test_median_u8_kernel_matches_plain(cuda_device, ksize):
     """K7 against median_u8_plain on the card, bit for bit, one launch a
-    call: the register kernels (k <= 9), the shared-memory one (to k = 435)
+    call: the network kernels (k <= 9), the shared-memory one (to k = 435)
     and the global-memory one (k = 437), on a ragged batch (k <= 255),
     frames narrower or lower than the window, one row, one pixel, and a
-    clip of uneven content."""
+    clip of uneven content; for k <= 9 also 1080-row frames of widths 1,
+    2, 3, 5, 37 and 1917 (no multiple of a block's columns or a 16-byte
+    load), the same widths on 9 rows, and the adversarial frames
+    (constant, two values, 0/255, ramps, outliers) at 1080p."""
     from tpuva_torch.ops.median import median_u8, median_u8_plain
 
     rng = np.random.default_rng(ksize)
@@ -1129,14 +1132,22 @@ def test_median_u8_kernel_matches_plain(cuda_device, ksize):
         shapes.append((3, 70, 133))
     if ksize <= 25:
         shapes.append((4, 250, 333))
+    if ksize <= 9:
+        shapes += [(2, h, w) for h in (9, 1080) for w in (1, 2, 3, 5, 37)] + [(1, 1080, 1917)]
+    frames = []
     for shape in shapes:
-        x = torch.from_numpy(rng.integers(0, 256, shape, dtype=np.uint8)).to(cuda_device)
+        x = rng.integers(0, 256, shape, dtype=np.uint8)
         x[:, : shape[1] // 2] //= 8  # a dark half: many equal values in a window
+        frames.append((shape, x))
+    if ksize <= 9:
+        frames += list(median_adversarial((2, 1080, 1920), seed=ksize).items())
+    for what, x in frames:
+        x = torch.from_numpy(x).to(cuda_device)
         before = median_u8.launches
         got = median_u8(x, ksize)
         torch.cuda.synchronize()
         assert median_u8.launches == before + 1
-        assert torch.equal(got, median_u8_plain(x, ksize)), shape
+        assert torch.equal(got, median_u8_plain(x, ksize)), what
 
 
 @pytest.mark.gpu

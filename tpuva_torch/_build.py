@@ -6,8 +6,11 @@ interface, loaded with ctypes: no ``torch/extension.h``, so a build takes
 seconds rather than minutes. It happens at the first kernel call (or an
 explicit ``build()``), never on import. The library lands in
 ``build/tpuva_torch/`` at the repository root (git-ignored), named by a
-hash of the sources and flags, and is built under a file lock so that
-concurrent processes build it once.
+hash of the sources, the generated headers and the flags, and is built
+under a file lock so that concurrent processes build it once. Generated
+headers (``generated_headers``: K7's selection networks, written by
+``ops/median.py::network_header``) go into ``build/tpuva_torch/gen/``,
+on nvcc's include path, before it runs.
 
 Flags: ``--fmad=false`` keeps nvcc from contracting ``a*b + c`` into an
 FMA (the kernels also use ``__fmul_rn``/``__fadd_rn`` where rounding is
@@ -159,11 +162,24 @@ def sources() -> list[Path]:
     return sorted(CSRC.glob("*.cu"))
 
 
+GEN_DIR = BUILD_DIR / "gen"
+
+
+def generated_headers() -> dict[str, str]:
+    """{file name: text} of the headers the sources include from GEN_DIR."""
+    from tpuva_torch.ops.median import network_header
+
+    return {"median_net.h": network_header()}
+
+
 def library_path() -> Path:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
     for src in sources():
         h.update(src.name.encode())
         h.update(src.read_bytes())
+    for name, text in sorted(generated_headers().items()):
+        h.update(name.encode())
+        h.update(text.encode())
     return BUILD_DIR / f"libtpuva_torch_{h.hexdigest()[:16]}.so"
 
 
@@ -178,9 +194,12 @@ def build(verbose: bool = False) -> tuple[Path, str]:
         if lib.exists():
             return lib, ""
         tmp = lib.with_suffix(f".{os.getpid()}.tmp")
+        GEN_DIR.mkdir(exist_ok=True)
+        for name, text in generated_headers().items():
+            (GEN_DIR / name).write_text(text)
         ptxas = ["-Xptxas", "-v"] if verbose else []
         objs = [tmp.with_name(f"{tmp.name}.{src.stem}.o") for src in sources()]
-        cmds = [[nvcc(), *NVCC_FLAGS, *ptxas, "-c", "-o", str(obj), str(src)]
+        cmds = [[nvcc(), *NVCC_FLAGS, *ptxas, "-I", str(GEN_DIR), "-c", "-o", str(obj), str(src)]
                 for src, obj in zip(sources(), objs)]
         cmds.append([nvcc(), *NVCC_FLAGS, "-shared", "-o", str(tmp), *map(str, objs)])
         log = []

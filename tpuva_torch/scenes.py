@@ -8,7 +8,9 @@ kernels against their plain versions on; numpy only:
   frames, contested frames (the Hungarian search's slow path), more
   detections than free slots, and random clouds;
 - configs that one launch of kernel K1 does not take (``k1_refused_config``);
-- kernel K6's options (``ROOT_STATS_OPTIONS``).
+- kernel K6's options (``ROOT_STATS_OPTIONS``);
+- uint8 frames that stress an exact median's ties and orders
+  (``median_adversarial``, kernel K7).
 """
 
 import dataclasses
@@ -186,3 +188,30 @@ def k1_refused_config(cfg, name, config=None):
             cfg, median=config.MedianConfig(7),
             segment=replace(cfg.segment, threshold="otsu")),
     }[name]()
+
+
+MEDIAN_ADVERSARIAL = ("constant", "two_values", "zero_255", "ramp_x", "ramp_y_down", "ramp_xy",
+                      "outliers")
+
+
+def median_adversarial(shape, seed=0):
+    """{name: (N, H, W) uint8 frames} for each of MEDIAN_ADVERSARIAL:
+    constant, two values, 0 and 255 only, a rising ramp along the rows, a
+    falling one down the columns, a diagonal one, and isolated outliers
+    (255 and 0) in a constant frame."""
+    N, H, W = shape
+    rng = np.random.default_rng(seed)
+    yy, xx = np.mgrid[:H, :W]
+    outliers = np.full((H, W), 100, np.uint8)
+    outliers[3::7, 2::9] = 255
+    outliers[6::11, 5::13] = 0
+    frames = {
+        "constant": np.full((H, W), 77, np.uint8),
+        "two_values": rng.choice(np.array([10, 200], np.uint8), (H, W)),
+        "zero_255": rng.choice(np.array([0, 255], np.uint8), (H, W)),
+        "ramp_x": (xx % 256).astype(np.uint8),
+        "ramp_y_down": (255 - yy % 256).astype(np.uint8),
+        "ramp_xy": ((xx + 3 * yy) % 256).astype(np.uint8),
+        "outliers": outliers,
+    }
+    return {name: np.broadcast_to(frames[name], shape).copy() for name in MEDIAN_ADVERSARIAL}
