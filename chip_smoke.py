@@ -7,8 +7,9 @@
                                    # (CUDA events; device ms and launches a call)
     python3 chip_smoke.py --k5     # phases 1-2, then K5's timings only
     python3 chip_smoke.py --wide   # phases 1-2, then K1m's and K1b's timings only
-    python3 chip_smoke.py --median # phases 1-2, then K7's checks, timings and SASS only
-                                   # (copied into an earlier checkout: that checkout's K7)
+    python3 chip_smoke.py --median # phases 1-2, then K7's checks, timings and SASS, and
+                                   # phase 7g (the median route at 5 and 15) only (copied
+                                   # into an earlier checkout: that checkout's K7)
     python3 chip_smoke.py --probes # phases 1-2, then phase 9 (the micro-probes) only
     python3 chip_smoke.py --staging # phases 1-2, then the staging line only (copied
                                     # into an earlier checkout: that checkout's stager)
@@ -41,16 +42,22 @@ raises, so the exit code is non-zero:
    clip for the configs one K1 launch does not take (K1m's last step
    writing the padded mask and occ128 where the open and close leave K1);
 3d. K7 (median_u8, the exact k x k median of uint8 frames) against its
-   plain version (median_u8_plain) on the card, bit for bit: k = 3, 5 and 7
-   on a (256, 1080, 1920) batch of the clip, 9 and 25 on phase 5c's
-   160 x 240 clip, and 3 to 255 on random bytes of edge shapes (8 x 300 and
-   300 x 8, H or W below the window; one row; one pixel; 5 x 7; 40 x 70;
-   9 rows of the ragged widths 1, 2, 3, 5, 37), 435 and 437 on three of
-   them; k = 3, 5, 7, 9 on 1080-row frames of those widths and of 1917,
-   and on the adversarial frames at (2, 1080, 1920) (constant, two values,
-   0/255, ramps, outliers): the network kernels, the shared-memory one up
-   to k = 435 and the global-memory one past it; with the SASS of K7's
-   min/max forms and kernels and the forms' rates (median_sass);
+   plain version (median_u8_plain) on the card, bit for bit: k = 3, 5, 7,
+   11 and 15 on a (256, 1080, 1920) batch of the clip, 9 and 25 on phase
+   5c's 160 x 240 clip, and 3 to 255 on random bytes of edge shapes (8 x
+   300 and 300 x 8, H or W below the window; one row; one pixel; 5 x 7;
+   40 x 70; 9 rows of the ragged widths 1, 2, 3, 5, 37), 435 and 437 on
+   three of them; k = 3, 5, 7, 9, 11, 15 on 1080-row frames of those
+   widths and of 1917, and on the adversarial frames at (2, 1080, 1920)
+   (constant, two values, 0/255, ramps, outliers); against
+   median_u8_counts_plain (memory that does not grow with k) k = 25, 51,
+   255, 257 and 437 on two frames of the clip, two random frames with a
+   dark half and the adversarial frames, all at 1080p: the network
+   kernels (k <= 9) and the sliding histogram (k >= 11; 8-, 16- and 32-bit
+   counts), the histogram tier forced at k = 7 and 9 against the
+   networks, its plan on the card (count bytes, threads, strip, shared
+   bytes, CTAs an SM) against ops/median.py::hist_plan; with the SASS of
+   K7's min/max forms and kernels and the forms' rates (median_sass);
 4. K2 (CCL + stats, one cooperative launch with its stats epilogue)
    against its plain version (label_sums_plain, then _assemble_stats) on
    the card, on K1's masks and random masks of density 0.05 and 0.3: every
@@ -139,10 +146,11 @@ raises, so the exit code is non-zero:
    its morph_plan groups a batch), each run's CSV sha256 equal to
    REF_OTSU_CSV_SHA256; a 48-frame sub-clip on the CPU (plain versions)
    and on the card gives identical rows, masks and background;
-7g. the median route at full width: the bench config with median 5 on
-   the same clip through process_clip and StreamingPipeline (twice), each
-   run's CSV sha256 equal to REF_MEDIAN5_CSV_SHA256, K1b, K7, K1 and K5
-   exactly once a batch, no K1m and no torch morphology step (_morph
+7g. the median route at full width: the bench config with median 5 and
+   with median 15 (K7's histogram tier) on the same clip through
+   process_clip and StreamingPipeline (twice), each run's CSV sha256 equal
+   to REF_MEDIAN5_CSV_SHA256 or REF_MEDIAN15_CSV_SHA256, K1b, K7, K1 and
+   K5 exactly once a batch, no K1m and no torch morphology step (_morph
    counted around each run), each run's seconds and frames/s;
 7d. config 5, the multistream path: MS_STREAMS (8) streams of the clip
    (stream 0 the clip in memory with its plate; stream s a decoder
@@ -216,8 +224,10 @@ raises, so the exit code is non-zero:
    emit and K4 against their plain versions (K1's plain version runs on
    no route: it is the kernels' yardstick of correctness), the Otsu tail
    on the batch's Otsu masks as K1m (open_close_u8) and as the torch ops
-   it replaced (morph_steps_plain), bit-equal first, K7 at k = 5 and 7
-   against its plain version and at k = 5 against torch.median over the
+   it replaced (morph_steps_plain), bit-equal first, K7 at k = 5, 7, 9,
+   11, 15 and 21 against its plain version, its histogram tier forced at k =
+   7 and 9 beside the networks, and at k = 5 (256 frames) and 11 (64
+   frames, the kernel on the same frames) against torch.median over the
    unfolded windows (equal first), with its bound, its design's
    operations a pixel and their time at the INT32 rate, K1b (65 taps,
    its plan) and K1m (7 x 7 rect and ellipse steps, erode and dilate, the
@@ -316,8 +326,10 @@ REPLACES = {
                 "tpuva/ops/pallas/fused_segment.py:145"),
     "morph_u8": ("tpuva_torch/csrc/wide.cu",
                  "tpuva/ops/pallas/fused_segment.py:145"),
-    # the exact k x k median of uint8 frames (a median k > 3; tpuva's jnp)
+    # the exact k x k median of uint8 frames (a median k > 3; tpuva's jnp):
+    # the selection networks (k <= 9) and the sliding histogram (k >= 11)
     "median_u8": ("tpuva_torch/csrc/median.cu", "tpuva/ops/filters.py:208"),
+    "median_u8_hist": ("tpuva_torch/csrc/median.cu", "tpuva/ops/filters.py:208"),
     # the micro-probes P1-P4, phase 9
     "repos_probe": ("tpuva_torch/csrc/probes.cu", "bench/repos_probe.py:51"),
     "roll_probe": ("tpuva_torch/csrc/probes.cu", "bench/roll_probe.py:50"),
@@ -363,6 +375,9 @@ REF_OTSU_CSV_SHA256 = "cab7f8b6247d373a23eb8f50831221d025ee95866fc75ae197b76b904
 # The same for the bench config with median=MedianConfig(5) (cv2.medianBlur
 # after the blur): 3117 rows, 17 track ids. Recipe: README.md.
 REF_MEDIAN5_CSV_SHA256 = "fdbc3baf72c239fa2bb06c830f9d7b72718e15232191a8a9c36cf4db605360b1"
+# The same with median=MedianConfig(15), K7's histogram tier on the route:
+# 3093 rows, 12 track ids. Recipe: README.md.
+REF_MEDIAN15_CSV_SHA256 = "0738bfd441e7dd4a3304b9e232c13c8469ca2993a45b000f4a22a076e609f4ae"
 
 # Published H100 SXM peaks (NVIDIA's data sheet): HBM3 bytes/s, and the
 # float32 rate outside the tensor cores, taken for the scalar integer and
@@ -400,9 +415,11 @@ def bench_cfg(config, batch, threshold=35.0):
     )
 
 
-def cuda_ms(fn, reps):
-    """Mean ms of fn() over reps launches, CUDA events, after one warm-up."""
-    fn()
+def cuda_ms(fn, reps, warm=True):
+    """Mean ms of fn() over reps launches, CUDA events, after one warm-up
+    (none when warm is False: a call of seconds, timed once)."""
+    if warm:
+        fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
@@ -680,9 +697,7 @@ def ptxas_kernel(entry, probes=False):
                 (r"track_scan_kernelILb([01])E", "track_scan_kernel"),
                 (r"morph_group_kernel()", "morph_group_kernel"),
                 (r"median_net_kernelILi(\d+)E", "median_net_kernel"),
-                (r"median_reg_kernelILi(\d+)E", "median_reg_kernel"),
-                (r"median_smem_kernel()", "median_smem_kernel"),
-                (r"median_global_kernel()", "median_global_kernel"),
+                (r"median_hist_kernelI([htj])Li(\d+)E", "median_hist_kernel"),
                 (r"ccl_stats_persistent()", "ccl_stats_persistent"),
                 (r"k6_frameILi(\d+)ELb([01])E", "k6_frame"),
                 (r"\d(ccl4_(?:occ|tiles|local|border|labels))E", None))
@@ -690,6 +705,8 @@ def ptxas_kernel(entry, probes=False):
         k = re.search(pattern, entry)
         if k and name is None:  # the name is the match
             return k.group(1)
+        if k and name == "median_hist_kernel":  # its count type, mangled
+            return f"{name}<{dict(h='u8', t='u16', j='u32')[k.group(1)]}, {k.group(2)}>"
         if k:
             return f"{name}<{', '.join(k.groups())}>" if k.group(1) else name
     return None
@@ -697,8 +714,9 @@ def ptxas_kernel(entry, probes=False):
 
 def ptxas_summary(log, probes=False):
     """{kernel: {"registers": n, "spill_stores": b, "spill_loads": b}} of the
-    K1 instantiations, K1m's and K1b's tiled kernels, K2's persistent kernel,
-    K3 4-connected's kernels, K6's and K5's kernels (probes: of the
+    K1 instantiations, K1m's and K1b's tiled kernels, K7's network and
+    histogram kernels, K2's persistent kernel, K3 4-connected's kernels,
+    K6's and K5's kernels (probes: of the
     micro-probes' cases, csrc/probes.cu) in nvcc's -Xptxas -v report."""
     out, name = {}, None
     for line in log.splitlines():
@@ -1091,9 +1109,9 @@ def wide_timing(clip, plate, card):
 
 # K7's checks: windows at 1080p (batch 256), on the 160 x 240 clip, and on
 # edge shapes (H or W below the window, one row, one pixel) for the
-# network kernels (k <= 9), the shared-memory kernel (to k = 435, its
-# halo's limit) and the global-memory one past it
-MEDIAN_K_1080P = (3, 5, 7)
+# network kernels (k <= 9) and the sliding histogram (k >= 11: 8-bit
+# counts to k = 15, 16-bit to 255, 32-bit past)
+MEDIAN_K_1080P = (3, 5, 7, 11, 15)
 MEDIAN_K_CLIP = (9, 25)
 MEDIAN_K_EDGE = (3, 5, 7, 9, 11, 25, 255)
 # the ragged widths: not a multiple of the 16-byte loads, the 4-byte
@@ -1105,17 +1123,43 @@ MEDIAN_EDGE_SHAPES = ((2, 8, 300), (2, 300, 8), (2, 1, 300), (1, 1, 1), (3, 5, 7
 # slices, seconds a call in Python
 MEDIAN_K_LARGE = (435, 437)
 MEDIAN_LARGE_SHAPES = ((2, 8, 300), (2, 300, 8), (2, 40, 70))
-# the network kernels at 1080p rows: the ragged widths, a width no tile or
-# 16-byte load divides, and the adversarial frames
-# (tpuva_torch.scenes.median_adversarial)
-MEDIAN_K_NET = (3, 5, 7, 9)
+# 1080-row frames: the ragged widths, a width no tile or 16-byte load
+# divides, and the adversarial frames (tpuva_torch.scenes.median_adversarial)
+MEDIAN_K_ROWS = (3, 5, 7, 9, 11, 15)
 MEDIAN_RAGGED_1080P = tuple((2, 1080, w) for w in MEDIAN_RAGGED_W + (1917,))
 MEDIAN_ADVERSARIAL_SHAPE = (2, 1080, 1920)
-# the median route's windows timed at 1080p, batch 256
-MEDIAN_K_TIMED = (5, 7)
+# windows whose sorted stack would not fit at 1080p, against
+# median_u8_counts_plain: two frames of the clip, two random frames with a
+# dark half, the adversarial frames
+MEDIAN_K_COUNTS = (25, 51, 255, 257, 437)
+# the windows timed at 1080p, batch 256: the median route's 5, the
+# networks' 7 and 9 (beside MEDIAN_K_CROSS), the histogram tier's 11, 15
+# (the median-15 route) and 21;
+# the sorted plain version at the first three (13 s a call at 15, more at 21)
+MEDIAN_K_TIMED = (5, 7, 9, 11, 15, 21)
+MEDIAN_K_PLAIN_TIMED = (5, 7, 11)
+# the histogram tier forced beside the networks: the crossover
+MEDIAN_K_CROSS = (7, 9)
+# torch.median over the unfolded windows at k = 11 on this many frames (a
+# 16 GB window copy), the kernel on the same frames
+MEDIAN_LIBRARY_K11_FRAMES = 64
+# the median route's windows (phase 7g) and their pinned CSVs
+MEDIAN_ROUTE_REFS = {5: REF_MEDIAN5_CSV_SHA256, 15: REF_MEDIAN15_CSV_SHA256}
 # H100 SXM's INT32 rate: 64 INT32 lanes an SM (Hopper white paper) x 132 SMs
 # x the 1.98 GHz boost clock, for the integer min/max of K7's networks
 PEAK_INT32_S = 132 * 64 * 1.98e9
+
+
+# the window and frames of K7's entries in the kernels line
+K7_AT = {"median_u8": {"at": "k=5, (256, 1080, 1920)"},
+         "median_u8_hist": {"at": "k=11, (64, 1080, 1920)"}}
+
+
+def k7_name(ksize, forced=False):
+    """K7's name in the kernels line for window ksize: its networks
+    (median_u8) or its sliding histogram (median_u8_hist, from k = 11 or
+    forced)."""
+    return "median_u8_hist" if forced or ksize >= 11 else "median_u8"
 
 
 def median_ops_per_px(ksize):
@@ -1126,36 +1170,74 @@ def median_ops_per_px(ksize):
 
 
 def median_radix_ops_per_px(ksize):
-    """Operations a pixel of the radix select (K7's design for k > 9, and
-    for every k before its networks): 8 counts of the k*k window, a compare
-    and an add a value."""
+    """Operations a pixel of the radix select (K7's design for k > 9 before
+    its sliding histogram, and for every k before its networks): 8 counts
+    of the k*k window, a compare and an add a value."""
     return 8 * 2 * ksize * ksize
 
 
 def median_design_ops_per_px(ksize):
     """(operations a pixel, design) of the kernel this tree runs for ksize:
     its network's instructions over the lanes plus loads, staging and
-    stores (ops.median.network_ops_per_px), or the radix select's where the
-    tree has no network (an earlier checkout running this file)."""
+    stores (ops.median.network_ops_per_px), its sliding histogram's
+    (ops.median.hist_ops_per_px), or the radix select's where the tree has
+    neither (an earlier checkout running this file)."""
     try:
         from tpuva_torch.ops.median import NET_BLOCKS, network_ops_per_px
     except ImportError:
         return median_radix_ops_per_px(ksize), "radix"
     if ksize in NET_BLOCKS:
         return network_ops_per_px(ksize)["total"], "network"
-    return median_radix_ops_per_px(ksize), "radix"
+    try:
+        from tpuva_torch.ops.median import hist_ops_per_px
+    except ImportError:
+        return median_radix_ops_per_px(ksize), "radix"
+    return hist_ops_per_px(ksize)["total"], "histogram"
+
+
+def median_hist_plans(sizes=((256, 1080, 1920), (1, 1080, 1920)), ks=(11, 15, 21, 255, 257)):
+    """The histogram tier's plan on the card (tpuva_median_hist_plan: count
+    bytes, threads, strip rows, shared bytes, SMs, CTAs an SM from the
+    occupancy query) for each size and k, held to ops/median.py::hist_plan
+    at the card's SM count; {} in a tree without the tier."""
+    import ctypes
+
+    from tpuva_torch import _build
+    try:
+        from tpuva_torch.ops.median import hist_plan
+    except ImportError:
+        return {}
+    lib = _build.load()
+    out, plans = (ctypes.c_int * 7)(), {}
+    for N, H, W in sizes:
+        for k in ks:
+            _build.check(lib, lib.tpuva_median_hist_plan(N, H, W, k, out), "median plan")
+            card = dict(zip(("count_bytes", "threads", "strip", "smem", "sms", "ctas_an_sm",
+                             "hist_min_k"), out))
+            want = hist_plan(N, H, W, k, sms=card["sms"])
+            if any(card[n] != want[n] for n in ("count_bytes", "threads", "strip", "smem")):
+                raise AssertionError(f"median plan at {N, H, W}, k = {k}: card {card}, {want}")
+            card["grid"] = list(want["grid"])
+            card["warps_an_sm"] = card["ctas_an_sm"] * card["threads"] // 32
+            plans[f"{N}x{H}x{W} k={k}"] = card
+    return plans
 
 
 def median_checks(frames, small, err):
     """K7 (median_u8) against its plain version (median_u8_plain) on the
     card, bit for bit: frames (batch 256, 1080p) at MEDIAN_K_1080P, the
     small clip at MEDIAN_K_CLIP, random bytes of MEDIAN_EDGE_SHAPES at
-    MEDIAN_K_EDGE and of MEDIAN_LARGE_SHAPES at MEDIAN_K_LARGE (k = 255 and
-    up on small frames only: the plain sort of a 255 x 255 window stack at
-    1080p would take over 100 GB); at MEDIAN_K_NET, 1080-row frames of the
-    ragged widths (random bytes, a dark half) and the adversarial frames
-    (tpuva_torch.scenes.median_adversarial). Returns the phase line's
-    fields."""
+    MEDIAN_K_EDGE and of MEDIAN_LARGE_SHAPES at MEDIAN_K_LARGE; at
+    MEDIAN_K_ROWS, 1080-row frames of the ragged widths (random bytes, a
+    dark half) and the adversarial frames (tpuva_torch.scenes.
+    median_adversarial); at MEDIAN_K_COUNTS, where the sort's window stack
+    would not fit at 1080p, against median_u8_counts_plain on two frames of
+    the clip, two random frames and the adversarial frames; the histogram
+    tier forced at MEDIAN_K_CROSS (median_hist_u8) on two frames and the
+    adversarial ones; its plan on the card (median_hist_plans). The checks
+    a tree lacks (an earlier checkout) are left out. Returns the phase
+    line's fields."""
+    from tpuva_torch.ops import median as om
     from tpuva_torch.ops.median import median_u8, median_u8_plain
     try:
         from tpuva_torch.scenes import median_adversarial
@@ -1164,33 +1246,52 @@ def median_checks(frames, small, err):
             return {}
 
     dev = torch.device("cuda")
-    cases = [(f"k={k}, {list(frames.shape)}", frames, k) for k in MEDIAN_K_1080P]
+    cases = [(f"k={k}, {list(frames.shape)}", frames, k, median_u8) for k in MEDIAN_K_1080P]
     f_small = torch.from_numpy(small).to(dev)
-    cases += [(f"k={k}, clip {list(small.shape)}", f_small, k) for k in MEDIAN_K_CLIP]
+    cases += [(f"k={k}, clip {list(small.shape)}", f_small, k, median_u8) for k in MEDIAN_K_CLIP]
     rng = np.random.default_rng(17)
     for shape in MEDIAN_EDGE_SHAPES:
         x = torch.from_numpy(rng.integers(0, 256, shape, dtype=np.uint8)).to(dev)
         ks = MEDIAN_K_EDGE + (MEDIAN_K_LARGE if shape in MEDIAN_LARGE_SHAPES else ())
-        cases += [(f"k={k}, {list(shape)}", x, k) for k in ks]
+        cases += [(f"k={k}, {list(shape)}", x, k, median_u8) for k in ks]
     for shape in MEDIAN_RAGGED_1080P:
         x = rng.integers(0, 256, shape, dtype=np.uint8)
         x[:, : shape[1] // 2] //= 8
         x = torch.from_numpy(x).to(dev)
-        cases += [(f"k={k}, {list(shape)}", x, k) for k in MEDIAN_K_NET]
-    adversarial = median_adversarial(MEDIAN_ADVERSARIAL_SHAPE, seed=17)
+        cases += [(f"k={k}, {list(shape)}", x, k, median_u8) for k in MEDIAN_K_ROWS]
+    adversarial = {name: torch.from_numpy(x).to(dev) for name, x in
+                   median_adversarial(MEDIAN_ADVERSARIAL_SHAPE, seed=17).items()}
     for name, x in adversarial.items():
-        x = torch.from_numpy(x).to(dev)
-        cases += [(f"k={k}, {name} {list(x.shape)}", x, k) for k in MEDIAN_K_NET]
-    for where, x, k in cases:
-        check_equal(err, "median_u8", [("median", median_u8(x, k), median_u8_plain(x, k))],
-                    where)
+        cases += [(f"k={k}, {name} {list(x.shape)}", x, k, median_u8) for k in MEDIAN_K_ROWS]
+    hist_u8 = getattr(om, "median_hist_u8", None)
+    if hist_u8 is not None:
+        for name, x in [("clip", frames[:2])] + list(adversarial.items()):
+            cases += [(f"histogram tier k={k}, {name}", x, k, hist_u8) for k in MEDIAN_K_CROSS]
+    for where, x, k, fn in cases:
+        check_equal(err, k7_name(k, fn is not median_u8), [("median", fn(x, k),
+                                                            median_u8_plain(x, k))], where)
+    n_counts = 0
+    counts_plain = getattr(om, "median_u8_counts_plain", None)
+    if counts_plain is not None:
+        noise = rng.integers(0, 256, (2,) + tuple(frames.shape[1:]), dtype=np.uint8)
+        noise[:, : frames.shape[1] // 2] //= 8
+        large = [("clip", frames[:2]), ("random, a dark half", torch.from_numpy(noise).to(dev))]
+        if adversarial:
+            large.append(("adversarial", torch.cat(list(adversarial.values()))))
+        for name, x in large:
+            for k in MEDIAN_K_COUNTS:
+                check_equal(err, k7_name(k), [("median", median_u8(x, k), counts_plain(x, k))],
+                            f"k={k}, {name} {list(x.shape)}, against the counts")
+                n_counts += 1
     torch.cuda.synchronize()
-    return dict(comparisons=len(cases), k_1080p=list(MEDIAN_K_1080P),
+    return dict(comparisons=len(cases) + n_counts, k_1080p=list(MEDIAN_K_1080P),
                 k_clip=list(MEDIAN_K_CLIP), k_edge=list(MEDIAN_K_EDGE),
                 k_large=list(MEDIAN_K_LARGE), large_shapes=[list(s) for s in MEDIAN_LARGE_SHAPES],
-                edge_shapes=[list(s) for s in MEDIAN_EDGE_SHAPES], k_net=list(MEDIAN_K_NET),
+                edge_shapes=[list(s) for s in MEDIAN_EDGE_SHAPES], k_rows=list(MEDIAN_K_ROWS),
                 ragged_1080p=[list(s) for s in MEDIAN_RAGGED_1080P],
-                adversarial=list(adversarial), bit_equal=True)
+                adversarial=list(adversarial), k_counts=list(MEDIAN_K_COUNTS) if n_counts else [],
+                k_hist_forced=list(MEDIAN_K_CROSS) if hist_u8 else [],
+                hist_plans=median_hist_plans(), bit_equal=True)
 
 
 def median_library(x, ksize):
@@ -1208,34 +1309,112 @@ def median_library(x, ksize):
 
 def median_timing(frames, err, reps):
     """K7 at MEDIAN_K_TIMED on frames (batch 256, 1080p), CUDA events: the
-    kernel, its plain version and the library call (median_library, checked
-    equal first; None where it raises for uint8 on the card), with the
-    bound (bytes against median_ops_per_px), the operations a pixel of the
-    design this tree runs (median_design_ops_per_px) and their time at the
-    INT32 rate. Returns ms and bounds by name."""
+    kernel, its plain version (at MEDIAN_K_PLAIN_TIMED; one call, no warm-up
+    past k = 7), its histogram tier forced at MEDIAN_K_CROSS, and the
+    library call (median_library, checked equal first; None where it
+    raises) at k = 5 on the batch and at 11 on MEDIAN_LIBRARY_K11_FRAMES
+    frames with the kernel and its plain version on the same frames, with
+    the bound (bytes against median_ops_per_px), the operations a pixel
+    of the design this tree runs (median_design_ops_per_px) and their time
+    at the INT32 rate. Returns ms and bounds by name."""
+    from tpuva_torch.ops import median as om
     from tpuva_torch.ops.median import median_u8, median_u8_plain
 
     t = {}
     px = frames.numel()
     for k in MEDIAN_K_TIMED:
         t[f"k7_{k}_ms"] = cuda_ms(lambda: median_u8(frames, k), reps)
-        t[f"k7_{k}_plain_ms"] = cuda_ms(lambda: median_u8_plain(frames, k), 1)
+        t[f"k7_{k}_plain_ms"] = (cuda_ms(lambda: median_u8_plain(frames, k), 1, warm=k <= 7)
+                                 if k in MEDIAN_K_PLAIN_TIMED else None)
         t[f"k7_{k}_bound"] = bound(2 * px, median_ops_per_px(k) * px)
         ops, design = median_design_ops_per_px(k)
         t[f"k7_{k}_design"] = design
         t[f"k7_{k}_ops_per_px"] = ops
         t[f"k7_{k}_int32_bound_ms"] = ops * px / PEAK_INT32_S * 1e3
-    try:
-        lib = median_library(frames, MEDIAN_K_TIMED[0])
-        check_equal(err, "median_u8", [("library", lib(), median_u8(frames, MEDIAN_K_TIMED[0]))],
-                    "torch.median over unfolded windows")
-        t[f"k7_{MEDIAN_K_TIMED[0]}_library_ms"] = cuda_ms(lib, 2)
-        del lib
-    except (RuntimeError, NotImplementedError) as e:  # the yardstick only, never the port
-        t[f"k7_{MEDIAN_K_TIMED[0]}_library_ms"] = None
-        t["k7_library_error"] = str(e)[:200]
-    torch.cuda.empty_cache()
+    if hasattr(om, "median_hist_u8"):
+        for k in MEDIAN_K_CROSS:
+            t[f"k7_hist_{k}_ms"] = cuda_ms(lambda: om.median_hist_u8(frames, k), reps)
+    f64 = frames[:MEDIAN_LIBRARY_K11_FRAMES]
+    px64 = f64.numel()
+    t["k7_11_64_ms"] = cuda_ms(lambda: median_u8(f64, 11), reps)
+    t["k7_11_64_plain_ms"] = cuda_ms(lambda: median_u8_plain(f64, 11), 1, warm=False)
+    t["k7_11_64_bound"] = bound(2 * px64, median_ops_per_px(11) * px64)
+    for k, x, key in ((MEDIAN_K_TIMED[0], frames, f"k7_{MEDIAN_K_TIMED[0]}_library_ms"),
+                      (11, f64, "k7_11_64_library_ms")):
+        try:
+            lib = median_library(x, k)
+            check_equal(err, k7_name(k), [("library", lib(), median_u8(x, k))],
+                        f"torch.median over unfolded windows, k = {k}")
+            t[key] = cuda_ms(lib, 2)
+            del lib
+        except (RuntimeError, NotImplementedError) as e:  # the yardstick only, never the port
+            t[key] = None
+            t[f"{key}_error"] = str(e)[:200]
+        torch.cuda.empty_cache()
     return t
+
+
+def median_route(clip, plate, cfg, counters):
+    """Phase 7g: the bench config cfg with median k for each k of
+    MEDIAN_ROUTE_REFS through process_clip and StreamingPipeline (twice),
+    each run's CSV sha256 equal to the pin, K1b, K7, K1 and K5 exactly once
+    a batch, no K1m and no torch morphology step (filters._morph counted
+    around each run). counters: {name: (function, attribute)} of those
+    kernels' launch counts. Returns each k's rows, track ids and runs
+    (seconds, frames/s, launches)."""
+    from tpuva_torch.export.csvio import format_rows
+    from tpuva_torch.graph import config
+    from tpuva_torch.graph.pipeline import process_clip
+    from tpuva_torch.graph.streaming import StreamingPipeline
+    from tpuva_torch.io.memory import VideoMemory
+    from tpuva_torch.ops import filters as ops_filters
+
+    morph, morph_calls = ops_filters._morph, []  # every torch morphology step runs _morph
+
+    def counted_morph(*args, **kw):
+        morph_calls.append(1)
+        return morph(*args, **kw)
+
+    out = {}
+    for k, ref in MEDIAN_ROUTE_REFS.items():
+        mcfg = dataclasses.replace(cfg, median=config.MedianConfig(k))
+        batches = -(-clip.shape[0] // mcfg.batch)
+        runs = {}
+        for route in ("process_clip", "StreamingPipeline", "StreamingPipeline_again"):
+            torch.cuda.synchronize()
+            for fn, attr in counters.values():
+                setattr(fn, attr, 0)
+            morph_calls.clear()
+            ops_filters._morph = counted_morph
+            try:
+                t0 = time.time()
+                if route == "process_clip":
+                    rows = process_clip(clip, mcfg, background0=plate,
+                                        max_components=MAX_COMPONENTS, device="cuda")[0]
+                else:
+                    rows = StreamingPipeline(mcfg, max_components=MAX_COMPONENTS).run(
+                        VideoMemory(clip), background0=plate)
+                torch.cuda.synchronize()
+                seconds = time.time() - t0
+            finally:
+                ops_filters._morph = morph
+            counts = {name: getattr(fn, attr) for name, (fn, attr) in counters.items()}
+            want = dict(fused_segment=batches, blur_u8=batches, median_u8=batches,
+                        track_scan=batches, morph_u8=0)
+            if any(counts[n] != v for n, v in want.items()) or morph_calls:
+                raise AssertionError(f"median {k} route through {route}: launches {counts}, "
+                                     f"{len(morph_calls)} torch morphology steps")
+            data = format_rows(rows).encode()
+            if hashlib.sha256(data).hexdigest() != ref:
+                with open(os.path.join(OUT_DIR, f"tracks_median{k}_{route}.csv"), "wb") as fh:
+                    fh.write(data)
+                raise AssertionError(f"median {k} route through {route}: rows differ from "
+                                     "the reference's")
+            runs[route] = dict(seconds=seconds, fps=clip.shape[0] / seconds, launches=counts)
+        out[f"median{k}"] = dict(rows=len(rows), track_ids=len({int(r[0]) for r in rows}),
+                                 csv_sha256_equals_reference=True, torch_morphology_steps=0,
+                                 runs=runs)
+    return out
 
 
 # One kernel a K7 min/max candidate, compiled alone for sm_90a so that the
@@ -1370,39 +1549,56 @@ def median_sass(lib_path):
     except ImportError:
         median_network = None
     for name, ops in sass_functions(lib_path).items():
-        m = re.search(r"median_(net|reg)_kernelILi(\d+)E", name)
+        m = re.search(r"median_(net)_kernelILi(\d+)E|median_(hist)_kernelI([htj])Li(\d+)E", name)
         if not m:
             continue
-        k = int(m.group(2))
         hist = {}
         for op in ops:
             hist[op.split(".")[0]] = hist.get(op.split(".")[0], 0) + 1
         entry = dict(instructions=len(ops), opcodes=dict(sorted(hist.items(), key=lambda x: -x[1])))
-        if m.group(1) == "net" and median_network is not None:
+        if m.group(3):  # the sliding histogram, by its count type
+            kernels[f"median_hist_kernel<{dict(h='u8', t='u16', j='u32')[m.group(4)]}, "
+                    f"{m.group(5)}>"] = entry
+            continue
+        k = int(m.group(2))
+        if median_network is not None:
             net = median_network(k)
             minmax = sum(1 for op in ops if op.startswith("VIMNMX") and ".U16" in op)
             entry.update(net_ops=len(net.ops), net_comparisons=net.comparisons,
                          sass_minmax=minmax, sass_minmax_per_op=minmax / len(net.ops),
                          sass_per_pixel_comparison=minmax / (net.comparisons * LANES))
-        kernels[f"median_{m.group(1)}_kernel<{k}>"] = entry
+        kernels[f"median_net_kernel<{k}>"] = entry
     return dict(intrinsics=intrinsics, rates=rates, sm_clock_mhz=clock, kernels=kernels)
 
 
 def median_mode(card, lib_path):
-    """--median: K7's checks, its timing (median_checks, median_timing) on
-    the slice's clip and the small clip, and its SASS (median_sass); one
-    JSON line."""
+    """--median: K7's checks and timing (median_checks, median_timing) on
+    the first 256 frames of the slice's clip and on the small clip, its
+    SASS (median_sass), one JSON line; then phase 7g (median_route) on the
+    512-frame clip, a second line."""
     from refimpl.synthetic import multi_blob_clip
+    from tpuva_torch.graph import config
+    from tpuva_torch.ops.fused_segment import fused_segment
+    from tpuva_torch.ops.median import median_u8
+    from tpuva_torch.ops.wide import blur_u8, morph_u8
+    from tpuva_torch.track.scan import track_scan
 
-    clip, _alive, _truth, _plate = multi_blob_clip(1080, 1920, 256, n_blobs=6, radius=16,
-                                                   births_deaths=False, noise_sigma=2.0)
+    clip, _alive, _truth, plate = multi_blob_clip(1080, 1920, 512, n_blobs=6, radius=16,
+                                                  births_deaths=False, noise_sigma=2.0)
     small = multi_blob_clip(160, 240, 16, n_blobs=2, radius=46.0, noise_sigma=2.0, seed=7)[0]
-    frames = torch.from_numpy(clip).to("cuda")
-    err = {"median_u8": 0.0}
+    frames = torch.from_numpy(clip[:256]).to("cuda")
+    err = {"median_u8": 0.0, "median_u8_hist": 0.0}
     line = median_checks(frames, small, err)
     line.update(median_timing(frames, err, 5))
     line["sass"] = median_sass(lib_path)
     say("median", card=card, max_abs_err=err, **line)
+    del frames
+    torch.cuda.empty_cache()
+    counters = {"fused_segment": (fused_segment, "launches"), "blur_u8": (blur_u8, "launches"),
+                "median_u8": (median_u8, "launches"), "track_scan": (track_scan, "launches"),
+                "morph_u8": (morph_u8, "launches")}
+    say("median_route", card=card, frames=int(clip.shape[0]),
+        **median_route(clip, plate, bench_cfg(config, 256), counters))
     return 0
 
 
@@ -3126,52 +3322,12 @@ def main():
         sub_clip_cpu_gpu_rows_masks_bg_equal=True, sub_clip_rows=len(rows_gpu))
 
     # 7g. the median route at full width: the bench config with median 5
-    # through process_clip and StreamingPipeline (twice), each run's CSV
-    # sha256 equal to REF_MEDIAN5_CSV_SHA256; K1b, K7, K1 and K5 once a
-    # batch, no K1m and no torch morphology (_morph counted around each run)
-    med5_cfg = dataclasses.replace(cfg, median=config.MedianConfig(5))
-    med5_batches = -(-clip.shape[0] // med5_cfg.batch)
-    from tpuva_torch.ops import filters as ops_filters
-
-    morph_calls = []  # every torch morphology step runs filters._morph
-
-    def counted_morph(*args, **kw):
-        morph_calls.append(1)
-        return _morph(*args, **kw)
-
-    med5_runs = {}
-    for route in ("process_clip", "StreamingPipeline", "StreamingPipeline_again"):
-        torch.cuda.synchronize()
-        reset_counts()
-        morph_calls.clear()
-        ops_filters._morph = counted_morph
-        try:
-            t0 = time.time()
-            if route == "process_clip":
-                rows = process_clip(clip, med5_cfg, background0=plate,
-                                    max_components=MAX_COMPONENTS, device="cuda")[0]
-            else:
-                rows = StreamingPipeline(med5_cfg, max_components=MAX_COMPONENTS).run(
-                    VideoMemory(clip), background0=plate)
-            torch.cuda.synchronize()
-            seconds = time.time() - t0
-        finally:
-            ops_filters._morph = _morph
-        counts = read_counts()
-        want = dict(fused_segment=med5_batches, blur_u8=med5_batches, median_u8=med5_batches,
-                    track_scan=med5_batches, morph_u8=0)
-        if any(counts[k] != v for k, v in want.items()) or morph_calls:
-            raise AssertionError(f"median route through {route}: launches {counts}, "
-                                 f"{len(morph_calls)} torch morphology steps")
-        data = format_rows(rows).encode()
-        if hashlib.sha256(data).hexdigest() != REF_MEDIAN5_CSV_SHA256:
-            with open(os.path.join(OUT_DIR, f"tracks_512_median5_{route}.csv"), "wb") as fh:
-                fh.write(data)
-            raise AssertionError(f"median route through {route}: rows differ from the reference's")
-        med5_runs[route] = dict(seconds=seconds, fps=clip.shape[0] / seconds, launches=counts)
-    say("median_route", config="bench + median 5", frames=int(clip.shape[0]), rows=len(rows),
-        track_ids=len({int(r[0]) for r in rows}), csv_sha256_equals_reference=True,
-        torch_morphology_steps=0, runs=med5_runs)
+    # and 15 through process_clip and StreamingPipeline (twice), each run's
+    # CSV sha256 equal to its pin; K1b, K7, K1 and K5 once a batch, no K1m
+    # and no torch morphology
+    med_runs = median_route(clip, plate, cfg, {n: counters[n] for n in (
+        "fused_segment", "blur_u8", "median_u8", "track_scan", "morph_u8")})
+    say("median_route", frames=int(clip.shape[0]), **med_runs)
 
     # 7d. config 5: MS_STREAMS streams through MultiStreamPipeline, K1 and
     # K5 a launch a step for all streams
@@ -3465,7 +3621,9 @@ def main():
              "track_scan": ("k5_ms", "k5_plain_ms"),
              "blur_u8": ("k1b_65_ms", "k1b_plain_ms"),
              "morph_u8": ("k1m_rect7_dilate_ms", "k1m_plain_ms"),
-             "median_u8": (f"k7_{MEDIAN_K_TIMED[0]}_ms", f"k7_{MEDIAN_K_TIMED[0]}_plain_ms")}
+             "median_u8": (f"k7_{MEDIAN_K_TIMED[0]}_ms", f"k7_{MEDIAN_K_TIMED[0]}_plain_ms"),
+             # the histogram tier at k = 11 on 64 frames, torch.median's frames
+             "median_u8_hist": ("k7_11_64_ms", "k7_11_64_plain_ms")}
     launches = {
                 # the streamed default route's K1 (the staged route's is padded)
                 "fused_segment": default_counts["fused_segment"],
@@ -3486,11 +3644,16 @@ def main():
                 # the configs one K1 launch does not take (phase 5c)
                 "blur_u8": split_launches["blur_u8"],
                 "morph_u8": split_launches["morph_u8"],
-                # the median route at 1080p (phase 7g, process_clip)
-                "median_u8": med5_runs["process_clip"]["launches"]["median_u8"]}
+                # the median routes at 1080p (phase 7g, process_clip): the
+                # networks at median 5, the histogram tier at 15
+                "median_u8": med_runs["median5"]["runs"]["process_clip"]["launches"]["median_u8"],
+                "median_u8_hist":
+                    med_runs["median15"]["runs"]["process_clip"]["launches"]["median_u8"]}
     library = {"histogram_u8": t["k4_library_ms"], "morph_u8": t["k1m_library_ms"],
-               "median_u8": t[f"k7_{MEDIAN_K_TIMED[0]}_library_ms"]}
+               "median_u8": t[f"k7_{MEDIAN_K_TIMED[0]}_library_ms"],
+               "median_u8_hist": t["k7_11_64_library_ms"]}
     bounds["median_u8"] = t[f"k7_{MEDIAN_K_TIMED[0]}_bound"]
+    bounds["median_u8_hist"] = t["k7_11_64_bound"]
     # the multistream phase's K1 and K5 (S streams a launch)
     for name, (ms, plain) in ms_kernels["times"].items():
         t[f"{name}_ms"], t[f"{name}_plain_ms"] = ms, plain
@@ -3507,7 +3670,7 @@ def main():
                         "launches": launches[name], "max_abs_err": err[name],
                         "ms": t[ms], "plain_ms": t[plain], "bound_ms": bounds[name][0],
                         "bound_by": bounds[name][1], "library_ms": library.get(name),
-                        "stream_axis": name in STREAM_AXIS})
+                        "stream_axis": name in STREAM_AXIS, **K7_AT.get(name, {})})
     say("done", seconds=round(time.time() - t_all, 1))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)

@@ -1114,17 +1114,19 @@ def test_configs_k1_refuses_run_on_the_card(cuda_device, name):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("ksize", [3, 5, 7, 9, 11, 25, 255, 257, 437])
+@pytest.mark.parametrize("ksize", [3, 5, 7, 9, 11, 13, 15, 21, 25, 51, 255, 257, 437])
 def test_median_u8_kernel_matches_plain(cuda_device, ksize):
-    """K7 against median_u8_plain on the card, bit for bit, one launch a
-    call: the network kernels (k <= 9), the shared-memory one (to k = 435)
-    and the global-memory one (k = 437), on a ragged batch (k <= 255),
-    frames narrower or lower than the window, one row, one pixel, and a
-    clip of uneven content; for k <= 9 also 1080-row frames of widths 1,
-    2, 3, 5, 37 and 1917 (no multiple of a block's columns or a 16-byte
-    load), the same widths on 9 rows, and the adversarial frames
-    (constant, two values, 0/255, ramps, outliers) at 1080p."""
-    from tpuva_torch.ops.median import median_u8, median_u8_plain
+    """K7 against its plain versions on the card, bit for bit, one launch a
+    call: the network kernels (k <= 9) and the sliding histogram (k >= 11;
+    8-bit counts to 15, 16-bit to 255, 32-bit past), on a ragged batch (k
+    <= 255), frames narrower or lower than the window, one row, one pixel,
+    and a clip of uneven content; for every k also 1080-row frames of
+    widths 1, 2, 3, 5, 37 and 1917 (no multiple of a block's columns or a
+    16-byte load), the same widths on 9 rows, and the adversarial frames
+    (constant, two values, 0/255, ramps, outliers) at 1080p. Those are
+    held to median_u8_plain up to k = 25 and to median_u8_counts_plain
+    past it, where the sort's window stack would not fit."""
+    from tpuva_torch.ops.median import median_u8, median_u8_counts_plain, median_u8_plain
 
     rng = np.random.default_rng(ksize)
     shapes = [(2, 8, 300), (2, 300, 8), (2, 1, 50), (1, 1, 1)]
@@ -1132,22 +1134,66 @@ def test_median_u8_kernel_matches_plain(cuda_device, ksize):
         shapes.append((3, 70, 133))
     if ksize <= 25:
         shapes.append((4, 250, 333))
-    if ksize <= 9:
-        shapes += [(2, h, w) for h in (9, 1080) for w in (1, 2, 3, 5, 37)] + [(1, 1080, 1917)]
+    wide = [(2, h, w) for h in (9, 1080) for w in (1, 2, 3, 5, 37)] + [(1, 1080, 1917)]
     frames = []
-    for shape in shapes:
+    for shape in shapes + wide:
         x = rng.integers(0, 256, shape, dtype=np.uint8)
         x[:, : shape[1] // 2] //= 8  # a dark half: many equal values in a window
-        frames.append((shape, x))
-    if ksize <= 9:
-        frames += list(median_adversarial((2, 1080, 1920), seed=ksize).items())
-    for what, x in frames:
+        frames.append((shape, x, shape in wide))
+    frames += [(name, x, True)
+               for name, x in median_adversarial((2, 1080, 1920), seed=ksize).items()]
+    for what, x, large in frames:
         x = torch.from_numpy(x).to(cuda_device)
         before = median_u8.launches
         got = median_u8(x, ksize)
         torch.cuda.synchronize()
         assert median_u8.launches == before + 1
-        assert torch.equal(got, median_u8_plain(x, ksize)), what
+        plain = median_u8_counts_plain if large and ksize > 25 else median_u8_plain
+        assert torch.equal(got, plain(x, ksize)), what
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("ksize", [3, 5, 7, 9, 11])
+def test_median_hist_u8_matches_networks(cuda_device, ksize):
+    """K7's histogram tier forced below its range (median_hist_u8, which
+    the crossover timing runs) equals the networks and the plain version
+    on a ragged batch, a one-row and a one-column frame, and the
+    adversarial frames at 1080p; one launch a call, none of median_u8's."""
+    from tpuva_torch.ops.median import median_hist_u8, median_u8, median_u8_plain
+
+    rng = np.random.default_rng(ksize + 100)
+    frames = [rng.integers(0, 256, shape, dtype=np.uint8)
+              for shape in ((3, 70, 133), (2, 1, 50), (2, 50, 1))]
+    frames += list(median_adversarial((2, 1080, 1920), seed=ksize).values())
+    for x in frames:
+        x = torch.from_numpy(x).to(cuda_device)
+        before = median_hist_u8.launches, median_u8.launches
+        got = median_hist_u8(x, ksize)
+        torch.cuda.synchronize()
+        assert (median_hist_u8.launches, median_u8.launches) == (before[0] + 1, before[1])
+        assert torch.equal(got, median_u8(x, ksize))
+        assert torch.equal(got, median_u8_plain(x, ksize))
+
+
+@pytest.mark.gpu
+def test_median_hist_plan_matches_python(cuda_device):
+    """csrc/median.cu's histogram plan (count bytes, threads, strip rows,
+    shared bytes) equals ops/median.py::hist_plan at the card's SM count,
+    from one frame to 256 at 1080p, on narrow and small frames, for k up
+    to 437; every CTA an SM count is at least one."""
+    import ctypes
+
+    from tpuva_torch import _build
+    from tpuva_torch.ops.median import HIST_MIN_K, hist_plan
+
+    lib = _build.load()
+    out = (ctypes.c_int * 7)()
+    for N, H, W in ((256, 1080, 1920), (1, 1080, 1920), (4, 1080, 1917), (2, 9, 37), (1, 1, 1)):
+        for k in (3, 11, 15, 17, 21, 255, 257, 437):
+            _build.check(lib, lib.tpuva_median_hist_plan(N, H, W, k, out), "plan")
+            plan = hist_plan(N, H, W, k, sms=out[4])
+            assert list(out[:4]) == [plan[n] for n in ("count_bytes", "threads", "strip", "smem")]
+            assert out[5] >= 1 and out[6] == HIST_MIN_K
 
 
 @pytest.mark.gpu

@@ -139,7 +139,7 @@ def torch_composition(cfg, frames, bg0):
     return tf.morph_steps_plain(mask, wide.open_close_steps(tp._morph_stages(cfg))), b
 
 
-@pytest.mark.parametrize("name", ["median5", "median7_otsu"])
+@pytest.mark.parametrize("name", ["median5", "median7_otsu", "median15"])
 def test_median_route_matches_tpuva(name):
     """process_batch with a median k > 3 on the CPU (blur_u8, median_u8,
     fused_segment: their plain versions) against tpuva's process_batch on
@@ -237,7 +237,8 @@ def test_morphology_equals_morph_steps(name):
 
 # the functions that launch a kernel on a CUDA tensor (or route to one)
 DISPATCHERS = [tf.median_blur, tf.erode, tf.dilate, tf.morph_open, tf.morph_close,
-               tf._morph_run, tf.histogram_u8, tm.median_u8, wide.blur_u8, wide.morph_steps,
+               tf._morph_run, tf.histogram_u8, tm.median_u8, tm.median_hist_u8, wide.blur_u8,
+               wide.morph_steps,
                wide.morph_u8, wide.open_close_u8, fs.fused_segment, fs.run_split,
                fs.run_streams]
 
@@ -279,6 +280,7 @@ def plain_calls():
             torch.stack([frames, frames]), torch.stack([bg0, bg0]), **kw),
         "median_u8_plain 3": lambda: tm.median_u8_plain(frames, 3),
         "median_u8_plain 5": lambda: tm.median_u8_plain(frames, 5),
+        "median_u8_counts_plain 11": lambda: tm.median_u8_counts_plain(frames, 11),
         "morph_steps_plain": lambda: tf.morph_steps_plain(mask, [(se, True), (se, False)]),
         "histogram_u8_plain": lambda: tf.histogram_u8_plain(frames),
         "pad_occ_plain": lambda: wide.pad_occ_plain(mask, (22, 128)),

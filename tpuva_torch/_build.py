@@ -126,6 +126,13 @@ _SIGNATURES = {
         _P, _P, _I, _I, _I, _I,  # x, out, N, H, W, k
         _P,  # stream
     ],
+    "tpuva_median_hist_u8": [
+        _P, _P, _I, _I, _I, _I,  # x, out, N, H, W, k
+        _P,  # stream
+    ],
+    "tpuva_median_hist_plan": [
+        _I, _I, _I, _I, _P,  # N, H, W, k, out (7 int32)
+    ],
     "tpuva_track_scan_plan": [
         _I, _I, _P, _P, _P, _P,  # T, D, kind, kd (int32 out), smem, scratch (int64 out)
     ],

@@ -6,7 +6,8 @@
 // (:208; the 19-op network _median9 for k = 3, :239). The port's plain
 // version, tpuva_torch/ops/filters.py::median_u8_plain, does the same with
 // torch.sort over chunks of frames; the kernel is bit-equal to it (a
-// median of integers has one answer). Every odd k from 3 up is taken.
+// median of integers has one answer). Every odd k from 3 up is taken (to
+// about 40,000, where a CTA's staged rows leave shared memory).
 //
 // k = 3, 5, 7, 9: median_net_kernel. A CTA owns 128 columns of two bands
 // of rows of one frame (blockIdx.z) and stages them with a halo of
@@ -49,14 +50,55 @@
 // kMinBlocks; the most that spill nothing), so that one CTA's staging
 // overlaps other CTAs' networks.
 //
-// k >= 11: a radix select a pixel, 8 counts of the k*k window (from the
-// top bit down, the candidate prefix | bit is kept while at most
-// rank = k*k / 2 window values lie below it); no pinned route uses them.
-// median_smem_kernel stages a 32 x 64 tile and its halo (bytes, clamped
-// indices) in shared memory: with k = 255's halo 286 x 318 bytes (89 KB),
-// under a CTA's 227 KB; the halo fits up to k = 435. Past that,
-// median_global_kernel stages nothing and counts each pixel's window from
-// global memory through the caches, its indices clamped the same way.
+// k >= 11: median_hist_kernel, Huang's vertical sliding histogram (IEEE
+// TASSP 27(1), 1979). A thread owns one output column of a strip of S rows
+// of one frame (a CTA 128 columns of a strip, 64 with 32-bit counts;
+// blockIdx.z the frame) and keeps its window's 256-bin histogram in shared
+// memory. Stepping down
+// a row it removes the k pixels of the row that leaves the window and adds
+// the k of the row that enters: 2k updates a pixel where the radix select
+// it replaced counted the k*k window 8 times (16 k^2 operations). Rows and
+// columns clamp into the frame (BORDER_REPLICATE, frames below the window
+// included); a strip starts by adding its first window's k rows.
+// - Counts: 8-bit up to k = 15 (k^2 <= 255), 16-bit up to k = 255, 32-bit
+//   past that. A value's removal precedes its successor's addition, so no
+//   count passes k^2 even mid-row. Bin b of the threads is laid out
+//   [b][word column][lane]: the 32 lanes of a warp in 32 distinct banks,
+//   whatever bins they hit; the counts of 4 / sizeof(count) warps share a
+//   word (never two lanes of one warp), updated by a 32-bit shared atomic
+//   add of the warp's count shifted into its place (red.shared: no
+//   returned value, so no wait; its address one shift-add from the pixel
+//   on the shared window), read by a narrow load.
+// - The median is tracked, not searched: m, lt = #(window < m), its
+//   16-bin coarse block c = m >> 4 and lc = #(window < 16 c); 16 coarse
+//   counts (one per 16 bins) beside the fine ones. lt and lc move by sums
+//   of absolute byte differences of the rows' words (VABSDIFF4, two a
+//   word and threshold), not by a compare an update. After a row, m
+//   walks: inside its block bin by bin, else block by block to the
+//   median's block, then bin by bin from its start: at most 15 + 15 moves
+//   whatever the frame (a 0/255 frame moves the median by 255 in a row).
+// - Rows staged once a CTA: a step's entering and leaving rows (the CTA's
+//   columns plus a halo rounded up to 16 bytes each side) in shared memory,
+//   16-byte loads where they lie inside an aligned row, bytes with clamped
+//   columns elsewhere; double buffered, the next step's pieces loaded into
+//   registers before the step's updates and stored after them, one
+//   barrier a step. A thread reads its k pixels of a row as words
+//   (funnel-shifted to its window's start): no halo in shared memory, so
+//   no k limit past shared memory's rows of 4 x (columns + k).
+// - Strips (ops/median.py::hist_plan): S = 8k rows, so that filling the
+//   first window (k^2 updates) adds 1/16 to a strip's 2k a row, but no
+//   more rows than leave every SM a CTA (132 on an H100) for the frames
+//   and column blocks of the call (N = 1 at 1080p included).
+// What bounds it: one byte read and one written a pixel, 0.317 ms a
+// 256-frame 1080p batch, against 2k updates a pixel; each update is four
+// integer instructions (a byte permute, the two addresses) and two shared
+// atomics (fine and coarse), plus 1.5 a value for lt and lc, so its issue,
+// not the bytes, is its limit, and with it the latency of its chains
+// (pixel load, address, atomic; a count read a walk step): the counts'
+// shared memory sets 24 warps an SM with 8-bit counts, 12 with 16-bit.
+// Giving a thread 2 or 4 adjacent columns (one atomic counting a pixel
+// into every window of the thread's that holds it) issues fewer
+// instructions but leaves 6-12 warps an SM, and ran slower.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -65,31 +107,11 @@
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kTileW = 64;                             // owned columns: a thread a column
-constexpr int kRowsPerThread = 8;                      // owned rows of a thread, consecutive
-constexpr int kTileH = kThreads / kTileW * kRowsPerThread;  // 32 owned rows a CTA
 constexpr int kMaxSmem = 227 * 1024;
+// the least k of the histogram tier; the networks take the odd k below it
+constexpr int kHistMinK = 11;
 
 constexpr int cdiv(int a, int b) { return (a + b - 1) / b; }
-
-// Shared memory of one CTA for window k: the tile plus its halo, one byte a
-// pixel, (kTileH + 2r) rows of kTileW + 2r.
-constexpr long long median_smem(int k) {
-  return (kTileH + 2LL * (k / 2)) * (kTileW + 2LL * (k / 2));
-}
-
-// The CTA's tile plus a halo of r into s, row pitch P: s[i * P + j] is the
-// frame's pixel (y0 - r + i, x0 - r + j), the indices clamped into it.
-__device__ __forceinline__ void stage(const uint8_t* __restrict__ frame, uint8_t* s, int H,
-                                      int W, int y0, int x0, int r, int P) {
-  const int rows = kTileH + 2 * r, total = rows * P;
-  for (int idx = threadIdx.x; idx < total; idx += kThreads) {
-    const int i = idx / P, j = idx - i * P;
-    const int y = min(max(y0 - r + i, 0), H - 1), x = min(max(x0 - r + j, 0), W - 1);
-    s[idx] = frame[(long long)y * W + x];
-  }
-}
 
 // ---- k = 3, 5, 7, 9: the selection network on packed pixels ----
 
@@ -247,67 +269,338 @@ median_net_kernel(const uint8_t* __restrict__ x, uint8_t* __restrict__ out, int 
     }
 }
 
-// ---- k >= 11: the radix select ----
+// ---- k >= 11: the sliding histogram ----
 
-// Any odd k: the counts read the window from shared memory.
-__global__ void __launch_bounds__(kThreads)
-median_smem_kernel(const uint8_t* __restrict__ x, uint8_t* __restrict__ out, int H, int W,
-                   int k) {
-  const int r = k / 2, P = kTileW + 2 * r, rank = k * k / 2;
-  extern __shared__ uint8_t s[];
-  const int x0 = blockIdx.x * kTileW, y0 = blockIdx.y * kTileH;
-  const long long plane = (long long)H * W;
-  stage(x + blockIdx.z * plane, s, H, W, y0, x0, r, P);
-  __syncthreads();
-  const int lx = threadIdx.x % kTileW, ly0 = threadIdx.x / kTileW * kRowsPerThread;
-  if (x0 + lx >= W) return;
-  uint8_t* o = out + blockIdx.z * plane + x0 + lx;
-  for (int p = 0; p < kRowsPerThread && y0 + ly0 + p < H; ++p) {
-    const uint8_t* win = s + (ly0 + p) * P + lx;
-    uint32_t m = 0;
-    for (int b = 7; b >= 0; --b) {
-      const uint32_t c = m | (1u << b);
-      int n = 0;
-      for (int dy = 0; dy < k; ++dy) {
-        const uint8_t* row = win + dy * P;
-        for (int dx = 0; dx < k; ++dx) n += row[dx] < c;
-      }
-      if (n <= rank) m = c;
-    }
-    o[(long long)(y0 + ly0 + p) * W] = static_cast<uint8_t>(m);
-  }
+// The histograms of a CTA of T threads, counts of type C: 256 fine bins
+// and 16 coarse ones (bin 256 + b counts the values of fine bins 16 b to
+// 16 b + 15), bin b's counts of every thread at b * kStride bytes, laid
+// out [word column][lane]: a word holds the counts of kPerWord warps, the
+// same lane of each, so a warp's 32 lanes touch 32 banks whatever bins
+// they hit.
+template <class C, int T>
+struct Hist {
+  static constexpr int kPerWord = 4 / sizeof(C);
+  static constexpr int kColumns = T / 32 / kPerWord;  // words a bin for each lane
+  static constexpr int kShift = kColumns == 1 ? 7 : kColumns == 2 ? 8 : kColumns == 4 ? 9 : 0;
+  static constexpr int kStride = 1 << kShift;         // bytes a bin
+  static constexpr int kBytes = 272 * kStride;
+  static_assert(kShift > 0 && kColumns * 128 == kStride, "word columns a power of two");
+};
+
+// threads a CTA for counts of `bytes` bytes (ops/median.py::hist_plan)
+constexpr int hist_threads(int bytes) { return bytes == 4 ? 64 : 128; }
+
+// A shared atomic add that returns nothing (ATOMS.ADD with no result),
+// at a shared-window address: the address is one multiply-add from a
+// pixel, with no generic pointer's base added to each.
+__device__ __forceinline__ void shared_add(uint32_t addr, uint32_t v) {
+#ifdef __CUDA_ARCH__
+  asm volatile("red.shared.add.u32 [%0], %1;" ::"r"(addr), "r"(v));
+#else
+  atomicAdd(static_cast<uint32_t*>(__cvta_shared_to_generic(addr)), v);
+#endif
 }
 
-// k whose halo no CTA holds: each pixel's window read from global memory,
-// the indices clamped into the frame. Counts in 64 bits: k * k passes int
-// from k = 46341.
-__global__ void __launch_bounds__(kThreads)
-median_global_kernel(const uint8_t* __restrict__ x, uint8_t* __restrict__ out, int H, int W,
-                     int k) {
-  const int r = k / 2;
-  const long long rank = (long long)k * k / 2;
-  const int lx = threadIdx.x % kTileW, ly0 = threadIdx.x / kTileW * kRowsPerThread;
-  const int px = blockIdx.x * kTileW + lx, y0 = blockIdx.y * kTileH + ly0;
-  if (px >= W) return;
+// p >> 4 as one shift that the compiler cannot fold into the shift-add of
+// a coarse address (it would make that a shift, a mask and an add)
+__device__ __forceinline__ uint32_t high_nibble(uint32_t p) {
+#ifdef __CUDA_ARCH__
+  uint32_t q;
+  asm("shr.b32 %0, %1, 4;" : "=r"(q) : "r"(p));
+  return q;
+#else
+  return p >> 4;
+#endif
+}
+
+// Orders the shared atomics before the count reads that follow it.
+__device__ __forceinline__ void compiler_fence() { asm volatile("" ::: "memory"); }
+
+// One thread's window: its counts in the CTA's histograms, the median m,
+// its coarse block c = m >> 4, lt = #(window < m) and lc = #(window < 16 c).
+template <class C, int T>
+struct Window {
+  using L = Hist<C, T>;
+  uint8_t* hist;
+  uint32_t fine0, coarse0;  // the thread's word in fine bin 0 and in coarse bin 0
+                            // (shared-window addresses)
+  uint32_t rb, inc;         // its count's byte in bin 0, its count's unit in a word
+  uint32_t m = 0, c = 0, lt = 0, lc = 0;
+  // m, m - 1, 16 c and 16 c - 1 (0 for 0) in every byte of a word
+  uint32_t m4 = 0, m4p = 0, c4 = 0, c4p = 0;
+
+  __device__ __forceinline__ Window(uint8_t* h, int warp, int lane) : hist(h) {
+    const uint32_t tb = ((warp / L::kPerWord) * 32 + lane) * 4;
+    fine0 = static_cast<uint32_t>(__cvta_generic_to_shared(h)) + tb;
+    coarse0 = fine0 + 256 * L::kStride;
+    rb = tb + (warp % L::kPerWord) * sizeof(C);
+    inc = 1u << (8 * sizeof(C) * (warp % L::kPerWord));
+  }
+  // byte B of v into (ADD) or out of the window: its fine and coarse
+  // counts, a shared atomic add each (a byte permute, a shift-add for
+  // the fine address, a shift and a shift-add for the coarse one)
+  template <int B, bool ADD>
+  __device__ __forceinline__ void update(uint32_t v) {
+    const uint32_t p = __byte_perm(v, 0u, 0x4440u + B);
+    const uint32_t d = ADD ? inc : 0u - inc;
+    shared_add(fine0 + (p << L::kShift), d);
+    shared_add(coarse0 + (high_nibble(p) << L::kShift), d);
+  }
+  template <bool REMOVE>
+  __device__ __forceinline__ void word(uint32_t out, uint32_t in) {
+    if (REMOVE) update<0, false>(out);
+    update<0, true>(in);
+    if (REMOVE) update<1, false>(out);
+    update<1, true>(in);
+    if (REMOVE) update<2, false>(out);
+    update<2, true>(in);
+    if (REMOVE) update<3, false>(out);
+    update<3, true>(in);
+  }
+  // a row step: the k pixels of the window's columns of the staged rows
+  // `in` and (REMOVE) `out`, from byte sh / 8 of their first words on. A
+  // word's bytes below t number (SAD(v, t) - SAD(v, t - 1) + 4) / 2 (SAD:
+  // the sum of the bytes' distances to t, __vsadu4), so lt and lc move
+  // by half the SADs of the entering words less the leaving words' at m
+  // and m - 1, 16 c and 16 c - 1. Filling a window (no REMOVE) leaves m
+  // and c at 0, and lt and lc at 0.
+  template <bool REMOVE>
+  __device__ __forceinline__ void step(const uint32_t* in, const uint32_t* out, int k,
+                                       uint32_t sh) {
+    uint32_t i0 = in[0], o0 = REMOVE ? out[0] : 0u;
+    uint32_t up = 0, down = 0, cup = 0, cdown = 0;
+    auto count = [&](uint32_t iv, uint32_t ov) {
+      up += __vsadu4(iv, m4) + __vsadu4(ov, m4p);
+      down += __vsadu4(iv, m4p) + __vsadu4(ov, m4);
+      cup += __vsadu4(iv, c4) + __vsadu4(ov, c4p);
+      cdown += __vsadu4(iv, c4p) + __vsadu4(ov, c4);
+    };
+    int j = 0;
+    for (; j + 4 <= k; j += 4) {
+      const uint32_t i1 = in[j / 4 + 1], o1 = REMOVE ? out[j / 4 + 1] : 0u;
+      const uint32_t iv = __funnelshift_r(i0, i1, sh), ov = __funnelshift_r(o0, o1, sh);
+      i0 = i1, o0 = o1;
+      word<REMOVE>(ov, iv);
+      if (REMOVE) count(iv, ov);
+    }
+    // k is odd: 1 or 3 bytes left, the others zero in both words
+    const uint32_t keep = k - j == 3 ? 0xffffffu : 0xffu;
+    const uint32_t iv = __funnelshift_r(i0, in[j / 4 + 1], sh) & keep;
+    const uint32_t ov = REMOVE ? __funnelshift_r(o0, out[j / 4 + 1], sh) & keep : 0u;
+    if (REMOVE) update<0, false>(ov);
+    update<0, true>(iv);
+    if (k - j == 3) {
+      if (REMOVE) update<1, false>(ov);
+      update<1, true>(iv);
+      if (REMOVE) update<2, false>(ov);
+      update<2, true>(iv);
+    }
+    if (REMOVE) {
+      count(iv, ov);
+      lt += static_cast<int>(up - down) / 2;
+      lc += static_cast<int>(cup - cdown) / 2;
+    }
+    compiler_fence();
+  }
+  __device__ __forceinline__ uint32_t fine(uint32_t b) const {
+    return *reinterpret_cast<const C*>(hist + (b << L::kShift) + rb);
+  }
+  __device__ __forceinline__ uint32_t coarse(uint32_t b) const {
+    return *reinterpret_cast<const C*>(hist + ((256u + b) << L::kShift) + rb);
+  }
+  // m to the window's median, the least m with #(< m) <= rank < #(<= m):
+  // inside m's block bin by bin; else block by block to the median's
+  // block, then bin by bin from its first bin (at most 15 + 15 moves)
+  __device__ __forceinline__ void walk(uint32_t rank) {
+    if (lt > rank) {
+      if (lc > rank) {
+        do {
+          --c;
+          lc -= coarse(c);
+        } while (lc > rank);
+        m = 16 * c, lt = lc;
+        for (uint32_t h; lt + (h = fine(m)) <= rank; ++m) lt += h;
+      } else {
+        do {
+          --m;
+          lt -= fine(m);
+        } while (lt > rank);
+      }
+    } else {
+      const uint32_t h = fine(m);
+      if (lt + h <= rank) {
+        const uint32_t hc = lc + coarse(c);
+        if (hc <= rank) {
+          lc = hc, ++c;
+          for (uint32_t g; lc + (g = coarse(c)) <= rank; ++c) lc += g;
+          m = 16 * c, lt = lc;
+        } else {
+          lt += h, ++m;
+        }
+        for (uint32_t g; lt + (g = fine(m)) <= rank; ++m) lt += g;
+      }
+    }
+    m4 = m * 0x01010101u, m4p = (m ? m - 1 : 0) * 0x01010101u;
+    c4 = 16 * c * 0x01010101u, c4p = (c ? 16 * c - 1 : 0) * 0x01010101u;
+  }
+};
+
+
+// 16 bytes of row y (clamped) from column gx on: one 16-byte load where the
+// piece lies inside a row that allows it, else bytes with clamped columns
+// (BORDER_REPLICATE)
+__device__ __forceinline__ uint4 row_piece(const uint8_t* __restrict__ frame, int H, int W,
+                                           int y, int gx, int load16) {
+  const uint8_t* row = frame + (long long)min(max(y, 0), H - 1) * W;
+  if (load16 && gx >= 0 && gx + 16 <= W) return __ldg(reinterpret_cast<const uint4*>(row + gx));
+  uint32_t w[4];
+#pragma unroll
+  for (int q = 0; q < 4; ++q) {
+    w[q] = 0;
+#pragma unroll
+    for (int b = 0; b < 4; ++b) w[q] |= uint32_t(row[min(max(gx + 4 * q + b, 0), W - 1)]) << (8 * b);
+  }
+  return make_uint4(w[0], w[1], w[2], w[3]);
+}
+
+// A CTA: T columns (x0 on) of a strip of S rows (y0 on) of frame
+// blockIdx.z. Step i adds row y0 - r + i and, from i = k on, removes row
+// y0 - r + i - k; after step k - 1 + s the window is output row y0 + s's.
+// Shared memory: the histograms, then two buffers of the staged entering
+// and leaving rows, BW bytes each: staged byte j is column x0 - R16 + j.
+template <class C, int T>
+__global__ void __launch_bounds__(T)
+median_hist_kernel(const uint8_t* __restrict__ x, uint8_t* __restrict__ out, int H, int W,
+                   int k, int S, int load16) {
+  using L = Hist<C, T>;
+  extern __shared__ __align__(16) uint8_t smem[];
+  const int r = k / 2, R16 = (r + 15) / 16 * 16, P = T / 16 + R16 / 8, BW = 16 * P + 16;
+  uint8_t* rows = smem + L::kBytes;
+  const int t = threadIdx.x;
+  const int x0 = blockIdx.x * T, y0 = blockIdx.y * S, y1 = min(y0 + S, H);
   const long long plane = (long long)H * W;
   const uint8_t* frame = x + blockIdx.z * plane;
-  uint8_t* o = out + blockIdx.z * plane + px;
-  for (int p = 0; p < kRowsPerThread && y0 + p < H; ++p) {
-    uint32_t m = 0;
-    for (int b = 7; b >= 0; --b) {
-      const uint32_t c = m | (1u << b);
-      long long n = 0;
-      for (int dy = -r; dy <= r; ++dy) {
-        const uint8_t* row = frame + (long long)min(max(y0 + p + dy, 0), H - 1) * W;
-        for (int dx = -r; dx <= r; ++dx) n += __ldg(row + min(max(px + dx, 0), W - 1)) < c;
+  uint8_t* oframe = out + blockIdx.z * plane;
+  const int nsteps = k + (y1 - y0) - 1;
+  // step i's pieces: P of the entering row, then P of the leaving one
+  auto items = [&](int i) { return i >= k ? 2 * P : P; };
+  auto piece = [&](int i, int j) {
+    return row_piece(frame, H, W, j < P ? y0 - r + i : y0 - r + i - k,
+                     x0 - R16 + 16 * (j < P ? j : j - P), load16);
+  };
+  auto put = [&](int i, int j, uint4 v) {
+    *reinterpret_cast<uint4*>(rows + ((i & 1) * 2 + (j >= P)) * BW + 16 * (j < P ? j : j - P)) = v;
+  };
+  for (int i = t; i < L::kBytes / 16; i += T)
+    reinterpret_cast<uint4*>(smem)[i] = make_uint4(0u, 0u, 0u, 0u);
+  for (int j = t; j < items(0); j += T) put(0, j, piece(0, j));
+  __syncthreads();
+  Window<C, T> win(smem, t / 32, t % 32);
+  const uint32_t rank = uint32_t(k) * uint32_t(k) / 2;
+  const int o = R16 - r + t;  // the thread's window's first byte in a staged row
+  const uint32_t sh = 8 * (o & 3);
+  const bool active = x0 + t < W;
+  for (int i = 0; i < nsteps; ++i) {
+    // the next step's first pieces in flight during this step's updates
+    const bool more = i + 1 < nsteps, pre = more && t < items(i + 1);
+    uint4 next;
+    if (pre) next = piece(i + 1, t);
+    if (active) {
+      const uint32_t* in = reinterpret_cast<const uint32_t*>(rows + (i & 1) * 2 * BW) + o / 4;
+      const uint32_t* leave = in + BW / 4;
+      if (i >= k) {
+        win.template step<true>(in, leave, k, sh);
+      } else {
+        win.template step<false>(in, leave, k, sh);
       }
-      if (n <= rank) m = c;
+      if (i >= k - 1) {
+        win.walk(rank);
+        oframe[(long long)(y0 + i - k + 1) * W + x0 + t] = static_cast<uint8_t>(win.m);
+      }
     }
-    o[(long long)(y0 + p) * W] = static_cast<uint8_t>(m);
+    if (more) {
+      if (pre) put(i + 1, t, next);
+      for (int j = t + T; j < items(i + 1); j += T) put(i + 1, j, piece(i + 1, j));
+    }
+    __syncthreads();
   }
 }
 
-using MedianKernel = void (*)(const uint8_t*, uint8_t*, int, int, int);
+// The histogram tier's launch for N frames of H x W, window k, on a card of
+// `sms` SMs: count bytes, threads a CTA, strip rows, shared bytes a CTA
+// (ops/median.py::hist_plan computes the same)
+struct HistPlan {
+  int bytes, threads, strip, smem;
+};
+
+HistPlan hist_plan(int N, int H, int W, int k, int sms) {
+  const long long kk = (long long)k * k;
+  HistPlan p;
+  p.bytes = kk <= 255 ? 1 : kk <= 65535 ? 2 : 4;
+  p.threads = hist_threads(p.bytes);
+  // strips a frame that leave every SM a CTA; no strip above 8k rows
+  const long long ctas = (long long)cdiv(W, p.threads) * (N < 65535 ? N : 65535);
+  const long long want = (sms + ctas - 1) / ctas;
+  const int strips = static_cast<int>(want < H ? want : H);
+  p.strip = max(1, min(8 * k, cdiv(H, strips)));
+  const int r16 = (k / 2 + 15) / 16 * 16;
+  p.smem = 272 * 128 * (p.bytes == 1 ? 1 : 2) + 4 * (p.threads + 2 * r16 + 16);
+  return p;
+}
+
+template <class C>
+cudaError_t launch_hist(const uint8_t* x, uint8_t* out, int N, int H, int W, int k,
+                        const HistPlan& p, cudaStream_t s) {
+  constexpr int T = hist_threads(sizeof(C));
+  static_assert(Hist<C, T>::kBytes == 272 * 128 * (sizeof(C) == 1 ? 1 : 2), "hist_plan's bytes");
+  if (p.smem > kMaxSmem || cdiv(H, p.strip) > 65535) return cudaErrorInvalidValue;
+  cudaError_t err = cudaFuncSetAttribute(median_hist_kernel<C, T>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, p.smem);
+  if (err != cudaSuccess) return err;
+  const int load16 = W % 16 == 0 && reinterpret_cast<uintptr_t>(x) % 16 == 0;
+  const long long plane = (long long)H * W;
+  for (int n0 = 0; n0 < N; n0 += 65535) {
+    const dim3 grid(cdiv(W, T), cdiv(H, p.strip), N - n0 < 65535 ? N - n0 : 65535);
+    median_hist_kernel<C, T><<<grid, T, p.smem, s>>>(x + n0 * plane, out + n0 * plane, H, W, k,
+                                                     p.strip, load16);
+    if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  }
+  return cudaSuccess;
+}
+
+// CTAs an SM of the kernel for counts C at plan p's shared memory
+template <class C>
+cudaError_t hist_occupancy(const HistPlan& p, int* blocks) {
+  const auto kernel = median_hist_kernel<C, hist_threads(sizeof(C))>;
+  const cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, p.smem);
+  if (err != cudaSuccess) return err;
+  return cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, kernel, p.threads, p.smem);
+}
+
+int sm_count() {
+  int dev = 0, sms = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess ||
+      cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess)
+    return 0;
+  return sms;
+}
+
+cudaError_t median_hist(const uint8_t* x, uint8_t* out, int N, int H, int W, int k,
+                        cudaStream_t s) {
+  const int sms = sm_count();
+  if (sms <= 0) return cudaErrorNoDevice;
+  const HistPlan p = hist_plan(N, H, W, k, sms);
+  switch (p.bytes) {
+    case 1: return launch_hist<uint8_t>(x, out, N, H, W, k, p, s);
+    case 2: return launch_hist<uint16_t>(x, out, N, H, W, k, p, s);
+    default: return launch_hist<uint32_t>(x, out, N, H, W, k, p, s);
+  }
+}
+
+bool valid(const uint8_t* x, const uint8_t* out, int N, int H, int W, int k) {
+  return N > 0 && H > 0 && W > 0 && k >= 3 && k % 2 == 1 && k <= 65535 && x != out;
+}
 
 // One launch of the network kernel for window K per 65535 frames.
 template <int K, int THREADS = MedianNet<K>::kThreads,
@@ -332,33 +625,46 @@ cudaError_t launch_net(const uint8_t* x, uint8_t* out, int N, int H, int W, cuda
 
 // x (N,H,W) u8 -> out (N,H,W) u8, the k x k median of every frame with
 // BORDER_REPLICATE; k odd, 3 or more: k <= 9 by the selection networks,
-// larger k by the radix select, the tile's halo in shared memory up to
-// k = 435, global memory past it. out must not alias x. Returns
+// larger k by the sliding histogram (up to the k whose staged rows fit
+// shared memory, about 40,000). out must not alias x. Returns
 // cudaGetLastError() after the launches (0 = launched): one launch, or one
 // a 65535 frames past that.
 extern "C" int tpuva_median_u8(const uint8_t* x, uint8_t* out, int N, int H, int W, int k,
                                void* stream) {
-  if (N <= 0 || H <= 0 || W <= 0 || cdiv(H, kTileH) > 65535 || k < 3 || k % 2 == 0 ||
-      x == out)
-    return static_cast<int>(cudaErrorInvalidValue);
+  if (!valid(x, out, N, H, W, k)) return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (k >= kHistMinK) return static_cast<int>(median_hist(x, out, N, H, W, k, s));
   switch (k) {
     case 3: return static_cast<int>(launch_net<3>(x, out, N, H, W, s));
     case 5: return static_cast<int>(launch_net<5>(x, out, N, H, W, s));
     case 7: return static_cast<int>(launch_net<7>(x, out, N, H, W, s));
     case 9: return static_cast<int>(launch_net<9>(x, out, N, H, W, s));
-    default: break;
+    default: return static_cast<int>(cudaErrorInvalidValue);
   }
-  const int smem = median_smem(k) <= kMaxSmem ? static_cast<int>(median_smem(k)) : 0;
-  MedianKernel kernel = smem ? median_smem_kernel : median_global_kernel;
-  cudaError_t err =
-      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const long long plane = (long long)H * W;
-  for (int n0 = 0; n0 < N; n0 += 65535) {
-    const dim3 grid(cdiv(W, kTileW), cdiv(H, kTileH), N - n0 < 65535 ? N - n0 : 65535);
-    kernel<<<grid, kThreads, smem, s>>>(x + n0 * plane, out + n0 * plane, H, W, k);
-    if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
-  }
-  return static_cast<int>(cudaSuccess);
+}
+
+// The histogram tier for any odd k from 3 (the crossover with the
+// networks is timed with it); otherwise as tpuva_median_u8.
+extern "C" int tpuva_median_hist_u8(const uint8_t* x, uint8_t* out, int N, int H, int W, int k,
+                                    void* stream) {
+  if (!valid(x, out, N, H, W, k)) return static_cast<int>(cudaErrorInvalidValue);
+  return static_cast<int>(median_hist(x, out, N, H, W, k, static_cast<cudaStream_t>(stream)));
+}
+
+// The histogram tier's plan on the current card, into out[7]: count
+// bytes, threads a CTA, strip rows, shared bytes a CTA, the card's SMs,
+// CTAs an SM (the occupancy calculator's, at that shared memory) and
+// kHistMinK. Returns a CUDA error code.
+extern "C" int tpuva_median_hist_plan(int N, int H, int W, int k, int* out) {
+  const int sms = sm_count();
+  if (sms <= 0) return static_cast<int>(cudaErrorNoDevice);
+  const HistPlan p = hist_plan(N, H, W, k, sms);
+  int blocks = 0;
+  const cudaError_t err = p.smem > kMaxSmem ? cudaErrorInvalidValue
+                          : p.bytes == 1  ? hist_occupancy<uint8_t>(p, &blocks)
+                          : p.bytes == 2  ? hist_occupancy<uint16_t>(p, &blocks)
+                                          : hist_occupancy<uint32_t>(p, &blocks);
+  const int v[7] = {p.bytes, p.threads, p.strip, p.smem, sms, blocks, kHistMinK};
+  for (int i = 0; i < 7; ++i) out[i] = v[i];
+  return static_cast<int>(err);
 }

@@ -264,6 +264,35 @@ def median_u8_plain(x: torch.Tensor, ksize: int) -> torch.Tensor:
     return out.reshape(x.shape)
 
 
+def median_u8_counts_plain(x: torch.Tensor, ksize: int) -> torch.Tensor:
+    """cv2.medianBlur, BORDER_REPLICATE, of integer frames (..., H, W) in
+    [0, 255], in memory that does not grow with k: the median is the
+    number of thresholds t in 1..255 with #(window < t) <= k*k // 2, each
+    count a box sum of the int32 cumulative sums of the replicate-padded
+    indicator (x < t). K7's yardstick where median_u8_plain's k*k window
+    stack cannot be held (k = 255 at 1080p); nothing on the main path
+    calls it."""
+    if ksize == 1:
+        return x
+    if ksize < 1 or ksize % 2 == 0:
+        raise ValueError(f"median_blur: ksize must be odd and positive, got {ksize}")
+    H, W = x.shape[-2], x.shape[-1]
+    r = ksize // 2
+    ri = torch.from_numpy(np.clip(np.arange(-r, H + r), 0, H - 1)).to(x.device)
+    ci = torch.from_numpy(np.clip(np.arange(-r, W + r), 0, W - 1)).to(x.device)
+    lead = x.reshape(-1, H, W)
+    xp = lead.index_select(1, ri).index_select(2, ci)
+    cs = torch.zeros((lead.shape[0], H + ksize, W + ksize), dtype=torch.int32, device=x.device)
+    med = torch.zeros(lead.shape, dtype=torch.int32, device=x.device)
+    k, rank = ksize, ksize * ksize // 2
+    for t in range(1, 256):
+        ind = (xp < t).to(torch.int32)
+        cs[:, 1:, 1:] = ind.cumsum(1, dtype=torch.int32).cumsum(2, dtype=torch.int32)
+        below = cs[:, k:, k:] - cs[:, :-k, k:] - cs[:, k:, :-k] + cs[:, :-k, :-k]
+        med += (below <= rank).to(torch.int32)
+    return med.to(x.dtype).reshape(x.shape)
+
+
 def median_blur(x: torch.Tensor, ksize: int) -> torch.Tensor:
     """cv2.medianBlur, BORDER_REPLICATE, for any odd ksize, on (..., H, W).
     A uint8 tensor on the card launches kernel K7 (ops.median.median_u8),

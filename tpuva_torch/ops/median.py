@@ -10,12 +10,16 @@ the TPU; no Pallas kernel carries it.
   thread computes a block of BX x BY outputs in each of two row bands at
   once (two pixels a 32-bit word, one in each 16-bit lane) by the min/max
   network ``median_network(k)`` below: Adams's separable sorting network
-  (ACM TOG 40(4), 2021), pruned to the median. Larger k take the radix
-  select over a halo in shared memory (to k = 435) or global memory. A
-  failed build or launch raises.
+  (ACM TOG 40(4), 2021), pruned to the median. From k = HIST_MIN_K on a
+  thread slides a column's 256-bin histogram down a strip of rows
+  (Huang's 2k updates a pixel), with a 16-bin coarse level that bounds
+  the median's walk; ``hist_plan`` is its launch. A failed build or
+  launch raises.
 - CPU tensors take the plain version, ``median_u8_plain`` (the torch ops
   of ``ops/filters.py``: the 19-op network for k = 3, the chunked sort of
-  the window stack for a larger k), which the kernel is bit-equal to.
+  the window stack for a larger k), which the kernel is bit-equal to;
+  ``median_u8_counts_plain`` gives the same medians in memory that does
+  not grow with k (the yardstick at large k and 1080p).
 
 The networks live here and only here: ``_build`` writes
 ``network_header()`` (each network as straight-line CUDA) into the build
@@ -36,10 +40,11 @@ from typing import NamedTuple
 import torch
 
 from tpuva_torch import _build
-from tpuva_torch.ops.filters import median_u8_plain
+from tpuva_torch.ops.filters import median_u8_counts_plain, median_u8_plain
 
-__all__ = ["median_u8", "median_u8_plain", "median_network", "net_tile", "network_header",
-           "network_ops_per_px", "NET_BLOCKS", "NET_LAUNCH"]
+__all__ = ["median_u8", "median_hist_u8", "median_u8_plain", "median_u8_counts_plain",
+           "median_network", "net_tile", "network_header", "network_ops_per_px", "hist_plan",
+           "hist_ops_per_px", "NET_BLOCKS", "NET_LAUNCH", "HIST_MIN_K"]
 
 # The output block (BX columns, BY rows) one thread computes in each lane,
 # for each k the network tier takes: the block shares its column sorts
@@ -52,6 +57,10 @@ NET_BLOCKS = {3: (8, 2), 5: (8, 2), 7: (8, 2), 9: (4, 2)}
 NET_LAUNCH = {3: (128, 10), 5: (128, 5), 7: (128, 2), 9: (128, 3)}
 NET_TILE_W = 128
 LANES = 2  # pixels a 32-bit word (16-bit lanes)
+# the least k of the histogram tier (csrc/median.cu's kHistMinK): the
+# networks take the odd k below it
+HIST_MIN_K = 11
+H100_SMS = 132
 
 
 class MedianNetwork(NamedTuple):
@@ -328,25 +337,90 @@ def network_header() -> str:
     return "\n".join(lines) + "\n"
 
 
-def median_u8(x: torch.Tensor, ksize: int) -> torch.Tensor:
-    """cv2.medianBlur of every frame of x (N, H, W) uint8 -> uint8, exact,
-    BORDER_REPLICATE; ksize odd and positive (1 is the identity). CUDA
-    tensors launch kernel K7 once; CPU tensors take median_u8_plain."""
+def hist_plan(N: int, H: int, W: int, k: int, sms: int = H100_SMS) -> dict:
+    """The histogram tier's launch for N frames of H x W and window k on a
+    card of `sms` SMs, as csrc/median.cu's hist_plan computes it: the
+    bytes of a count (1 while k*k <= 255, 2 while k*k <= 65535, else 4),
+    threads a CTA (a thread a column; 64 with 4-byte counts), the strip's
+    rows (8k, so that filling a strip's first window, k*k updates, adds at
+    most 1/16 to its 2k a row; fewer where the frames and column blocks
+    would leave an SM without a CTA), shared bytes a CTA (256 fine and 16
+    coarse bins a thread, then two buffers of the entering and leaving
+    rows, columns plus a halo rounded up to 16 bytes each side, and 16
+    bytes of slack) and the grid."""
+    count_bytes = 1 if k * k <= 255 else 2 if k * k <= 65535 else 4
+    threads = 64 if count_bytes == 4 else 128
+    cols = -(-W // threads)
+    strips = min(H, -(-sms // (cols * min(N, 65535))))
+    strip = max(1, min(8 * k, -(-H // strips)))
+    r16 = -(-(k // 2) // 16) * 16
+    hist_bytes = 272 * 128 * (1 if count_bytes == 1 else 2)
+    return dict(count_bytes=count_bytes, threads=threads, strip=strip,
+                smem=hist_bytes + 4 * (threads + 2 * r16 + 16), grid=(cols, -(-H // strip), N))
+
+
+def hist_ops_per_px(k: int) -> dict:
+    """Instructions a pixel of the histogram tier for window k, counted
+    from csrc/median.cu: 2k updates (k values leave, k enter), each a byte
+    permute, a shift-add to its fine count, a shift and a shift-add to its
+    coarse count, and two shared atomic adds; for lt and lc, 8 sums of
+    absolute byte differences and 4 adds a word of four pixels of each
+    row; a shared load and a funnel shift a word of each row; the walk
+    (about 4 counts read on natural frames, a compare and add each) and
+    the output store. "total" is their sum."""
+    words = k // 4 + 1
+    out = dict(address=2 * k * 4, atomics=2 * k * 2, sad=12 * words, loads=4 * words,
+               walk=8, store=1)
+    out["total"] = sum(out.values())
+    return out
+
+
+def _check(x: torch.Tensor, ksize: int, who: str) -> None:
     if x.dim() != 3 or x.dtype != torch.uint8:
-        raise ValueError("median_u8: x must be (N, H, W) uint8")
+        raise ValueError(f"{who}: x must be (N, H, W) uint8")
     if ksize < 1 or ksize % 2 == 0:
-        raise ValueError(f"median_u8: ksize must be odd and positive, got {ksize}")
-    if x.device.type == "cpu":
-        return median_u8_plain(x, ksize)
-    if x.device.type != "cuda":
-        raise ValueError(f"median_u8: unsupported device {x.device}")
-    if ksize == 1 or x.numel() == 0:
-        return x.clone()
+        raise ValueError(f"{who}: ksize must be odd and positive, got {ksize}")
+    if x.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"{who}: unsupported device {x.device}")
+
+
+def _launch(x: torch.Tensor, ksize: int, entry: str) -> torch.Tensor:
     x = x.contiguous()
     N, H, W = x.shape
     out = torch.empty_like(x)
-    _build.launch(x.device, "tpuva_median_u8", "median_u8 kernel", x.data_ptr(),
-                  out.data_ptr(), N, H, W, ksize)
+    _build.launch(x.device, entry, "median_u8 kernel", x.data_ptr(), out.data_ptr(), N, H, W,
+                  ksize)
+    return out
+
+
+def median_hist_u8(x: torch.Tensor, ksize: int) -> torch.Tensor:
+    """K7's histogram tier for any odd ksize >= 3, the networks' range
+    included (the crossover of the two tiers is timed with it); otherwise
+    as median_u8. No route calls it."""
+    _check(x, ksize, "median_hist_u8")
+    if x.device.type == "cpu":
+        return median_u8_plain(x, ksize)
+    if ksize == 1 or x.numel() == 0:
+        return x.clone()
+    out = _launch(x, ksize, "tpuva_median_hist_u8")
+    median_hist_u8.launches += 1
+    return out
+
+
+median_hist_u8.launches = 0
+
+
+def median_u8(x: torch.Tensor, ksize: int) -> torch.Tensor:
+    """cv2.medianBlur of every frame of x (N, H, W) uint8 -> uint8, exact,
+    BORDER_REPLICATE; ksize odd and positive (1 is the identity). CUDA
+    tensors launch kernel K7 once (its networks below HIST_MIN_K, its
+    sliding histogram from there); CPU tensors take median_u8_plain."""
+    _check(x, ksize, "median_u8")
+    if x.device.type == "cpu":
+        return median_u8_plain(x, ksize)
+    if ksize == 1 or x.numel() == 0:
+        return x.clone()
+    out = _launch(x, ksize, "tpuva_median_u8")
     median_u8.launches += 1
     return out
 

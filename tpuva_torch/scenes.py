@@ -169,8 +169,9 @@ def k1_refused_config(cfg, name, config=None):
     default) changed so that one launch of kernel K1 does not take it
     (k1_takes): open and close 7 x 10 (morphology reach 120), median 3 with
     open and close 5 x 10 (reach 80), a 33-wide close, a 65-tap blur (the
-    first four: fused_segment splits them, k1_split), median 5, or median 7
-    with Otsu (tpuva's jnp branch)."""
+    first four: fused_segment splits them, k1_split), median 5, median 7
+    with Otsu (tpuva's jnp branch), or median 15 (the median route with
+    K7's histogram tier; not in K1_REFUSED)."""
     if config is None:
         from tpuva_torch.graph import config
     M = config.MorphConfig
@@ -184,6 +185,7 @@ def k1_refused_config(cfg, name, config=None):
         "se33": lambda: replace(cfg, morph_close=M(ksize=33)),
         "blur65": lambda: replace(cfg, blur=config.BlurConfig(ksize=65)),
         "median5": lambda: replace(cfg, median=config.MedianConfig(5)),
+        "median15": lambda: replace(cfg, median=config.MedianConfig(15)),
         "median7_otsu": lambda: replace(
             cfg, median=config.MedianConfig(7),
             segment=replace(cfg.segment, threshold="otsu")),
