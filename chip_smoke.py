@@ -182,14 +182,26 @@ raises, so the exit code is non-zero:
    analysis.regions.mask_boundary (one K1m launch, against its plain
    version and the CPU); the chain route: the clip as BGR of three equal
    channels through StreamingPipeline over FilterMonochrome on cuda, its
-   CSV sha256 == REF_CSV_SHA256, K1, K3, K6 and K5 once a batch and the
+   CSV sha256 == REF_CSV_SHA256, K1, K3, K6, K5 and KM once a batch and the
    chain's program once a batch (BatchStager staging the BGR root and
    running the chain on the card), frames/s beside the gray route's (in
    turns), the stager's ms a batch of both and the chain program's device
    ms; a stateful chain, FilterBackground(FilterBlur(FilterMonochrome(
    VideoMemory(bgr)), 5), 0.02), through iter_batches(256): K1b and K1's
    diff emit once a batch each, its first 48 frames equal to the CPU's,
-   frames/s. Its launch counts on a line of their own (filters_launches);
+   frames/s. Its launch counts on a line of their own (filters_launches).
+   The filter chain's and the EDT's kernels: KM (bgr_to_gray, once for
+   FilterMonochrome on BGR), KR (resize_linear, once for FilterResize), KW
+   (warp_affine, once for FilterRotate(angle=) and FilterWarpAffine) and KE
+   (edt_kernel, once a distance_transform_edt call), each bit-equal to its
+   plain version on the card: KM on random 1080p BGR (uint8, float32, an
+   unaligned slice), KW on random gray and BGR frames under both borders,
+   an out_size and an inverse map, KR on random gray and BGR down, up and
+   with one axis kept, KE on K1's masks and on an all-foreground and an
+   all-background frame (its pass counts the plain loop's); then each
+   one's ms beside its plain version's, its library call's
+   (torch.matmul, F.grid_sample, F.interpolate; KE none) and its bound
+   (filter_kernels line);
 7f. the multi-card half of dist/ on the one card: K1's mask and diff
    emits on one 256-frame batch of each band shape of four bands (an edge
    band of 270 + 6 rows, an interior one of 270 + 12) and K4 on each
@@ -330,6 +342,11 @@ REPLACES = {
     # the selection networks (k <= 9) and the sliding histogram (k >= 11)
     "median_u8": ("tpuva_torch/csrc/median.cu", "tpuva/ops/filters.py:208"),
     "median_u8_hist": ("tpuva_torch/csrc/median.cu", "tpuva/ops/filters.py:208"),
+    # the filter chain's and the EDT's XLA stages (phase 7e): KM, KW, KR, KE
+    "bgr_to_gray": ("tpuva_torch/csrc/filters.cu", "tpuva/filters.py:202"),
+    "warp_affine": ("tpuva_torch/csrc/filters.cu", "tpuva/ops/warp.py:59"),
+    "resize_linear": ("tpuva_torch/csrc/filters.cu", "tpuva/filters.py:220"),
+    "edt": ("tpuva_torch/csrc/distance.cu", "tpuva/ops/distance.py:65"),
     # the micro-probes P1-P4, phase 9
     "repos_probe": ("tpuva_torch/csrc/probes.cu", "bench/repos_probe.py:51"),
     "roll_probe": ("tpuva_torch/csrc/probes.cu", "bench/roll_probe.py:50"),
@@ -700,7 +717,12 @@ def ptxas_kernel(entry, probes=False):
                 (r"median_hist_kernelI([htj])Li(\d+)E", "median_hist_kernel"),
                 (r"ccl_stats_persistent()", "ccl_stats_persistent"),
                 (r"k6_frameILi(\d+)ELb([01])E", "k6_frame"),
-                (r"\d(ccl4_(?:occ|tiles|local|border|labels))E", None))
+                (r"\d(ccl4_(?:occ|tiles|local|border|labels))E", None),
+                (r"\d(edt_(?:cols|rows)_kernel)", None),
+                (r"\d(bgr2gray_(?:u8|f32)_vec)", None),
+                (r"bgr2gray_pxI([hf])E", "bgr2gray_px"),
+                (r"warp_affine_kernelI([hf])Li(\d)ELb([01])E", "warp_affine_kernel"),
+                (r"resize_linear_kernelI([hf])Li(\d)E", "resize_linear_kernel"))
     for pattern, name in patterns:
         k = re.search(pattern, entry)
         if k and name is None:  # the name is the match
@@ -716,7 +738,7 @@ def ptxas_summary(log, probes=False):
     """{kernel: {"registers": n, "spill_stores": b, "spill_loads": b}} of the
     K1 instantiations, K1m's and K1b's tiled kernels, K7's network and
     histogram kernels, K2's persistent kernel, K3 4-connected's kernels,
-    K6's and K5's kernels (probes: of the
+    K6's and K5's kernels, KE's, KM's, KW's and KR's (probes: of the
     micro-probes' cases, csrc/probes.cu) in nvcc's -Xptxas -v report."""
     out, name = {}, None
     for line in log.splitlines():
@@ -2283,7 +2305,6 @@ FILTER_STAGING_BATCHES = 4  # batches a timed stager run moves (phase 7e)
 def filter_cases(tf):
     """(name, make(video, device) -> chain, colours) of phase 7e: every
     filter of tpuva_torch.filters at 1080p."""
-    warp_m = [[0.96, 0.12, -40.0], [-0.1, 1.04, 25.5]]
     return [
         ("crop_rect", lambda v, d: tf.FilterCrop(v, (101, 37, 1601, 999), device=d), (0, 1)),
         ("crop_quadrant", lambda v, d: tf.FilterCrop(v, "lower right", device=d), (0, 1)),
@@ -2299,7 +2320,7 @@ def filter_cases(tf):
         ("time_difference", lambda v, d: tf.FilterTimeDifference(v, device=d), (0, 1)),
         ("rotate_turn", lambda v, d: tf.FilterRotate(v, turns=1, device=d), (0, 1)),
         ("rotate_7.5", lambda v, d: tf.FilterRotate(v, angle=7.5, device=d), (0, 1)),
-        ("warp_affine", lambda v, d: tf.FilterWarpAffine(v, warp_m, out_size=(1600, 900),
+        ("warp_affine", lambda v, d: tf.FilterWarpAffine(v, WARP_M, out_size=(1600, 900),
                                                          border_value=7.0, device=d), (0, 1)),
         ("flip", lambda v, d: tf.FilterFlip(v, device=d), (0, 1)),
         ("background", lambda v, d: tf.FilterBackground(v, 0.02, device=d), (0,)),
@@ -2334,18 +2355,22 @@ def filters_phase(clip, plate, card, cfg, err):
        staged BGR batch.
     4. A stateful chain, FilterBackground(FilterBlur(FilterMonochrome(
        VideoMemory(bgr)), 5), 0.02), through iter_batches(batch) over the
-       clip on cuda: K1b and K1's diff emit once a batch each; its first
-       48 frames equal the CPU chain's on those frames; frames/s.
-    Returns (the phase line's fields, its launch counts)."""
+       clip on cuda: K1b, K1's diff emit and KM once a batch each; its
+       first 48 frames equal the CPU chain's on those frames; frames/s.
+    5. KM, KW, KR and KE against their plain versions on the card, bit for
+       bit (filter_kernel_checks), then timed (filter_kernel_timing).
+    Returns (the phase line's fields, its launch counts, the four kernels'
+    entries of the kernels line)."""
     from tpuva_torch import filters as tf
     from tpuva_torch.analysis.regions import mask_boundary
     from tpuva_torch.export.csvio import format_rows
     from tpuva_torch.graph.streaming import StreamingPipeline
     from tpuva_torch.io.memory import VideoMemory
     from tpuva_torch.io.staging import BatchStager
-    from tpuva_torch.ops import distance_transform_edt, distance_transform_edt_sq
+    from tpuva_torch.ops import color, distance_transform_edt, distance_transform_edt_sq
+    from tpuva_torch.ops import resize, warp
     from tpuva_torch.ops.ccl import label_components_tiled, label_stats, root_stats
-    from tpuva_torch.ops.distance import edt_sq_passes
+    from tpuva_torch.ops.distance import edt_kernel, edt_sq_passes
     from tpuva_torch.ops.filters import erode, gaussian_blur_u8, structuring_element
     from tpuva_torch.ops.fused_segment import fused_segment, fused_segment_plain
     from tpuva_torch.ops.median import median_u8
@@ -2359,7 +2384,10 @@ def filters_phase(clip, plate, card, cfg, err):
                 "ccl_labels": (label_components_tiled, "launches"),
                 "ccl_stats": (label_stats, "launches"),
                 "root_stats_occ": (root_stats, "occ_launches"),
-                "track_scan": (track_scan, "launches"), "chain_program": (tf.run_chain, "runs")}
+                "track_scan": (track_scan, "launches"), "chain_program": (tf.run_chain, "runs"),
+                "bgr_to_gray": (color.bgr_to_gray, "launches"),
+                "resize_linear": (resize.resize_linear, "launches"),
+                "warp_affine": (warp.warp_affine, "launches"), "edt": (edt_kernel, "launches")}
 
     def reset():
         for fn, attr in counters.values():
@@ -2387,10 +2415,10 @@ def filters_phase(clip, plate, card, cfg, err):
                     a.dtype != b.dtype or not np.array_equal(a, b)
                     for (_k, a), (_j, b) in zip(got, ref)):
                 raise AssertionError(f"filter {key}: the card's frames differ from the CPU's")
-            if name in ("blur_u8", "background", "median_3", "median_5"):
-                kernel = {"blur_u8": "blur_u8", "background": "fused_segment"}.get(
-                    name, "median_u8")
-                if n[kernel] != 1 or n["chain_program"] != 1:
+            kernel = FILTER_KERNELS.get(name)
+            if kernel:
+                want = 0 if name == "monochrome" and not c else 1  # gray passes through
+                if n[kernel] != want or n["chain_program"] != 1:
                     raise AssertionError(f"filter {key} launches: {n}")
                 launches[key] = {kernel: n[kernel]}
             chain = make(VideoMemory(data), dev)
@@ -2419,8 +2447,13 @@ def filters_phase(clip, plate, card, cfg, err):
     masks, _bg = fused_segment(x, torch.from_numpy(plate.astype(np.float32)).to(dev), **BENCH_KW)
     masks_cpu = masks.cpu()
     for fn in (distance_transform_edt, distance_transform_edt_sq):
-        if not torch.equal(fn(masks).cpu(), fn(masks_cpu)):
+        reset()
+        got = fn(masks)
+        if counts()["edt"] != 1:
+            raise AssertionError(f"{fn.__name__}: {counts()['edt']} KE launches")
+        if not torch.equal(got.cpu(), fn(masks_cpu)):
             raise AssertionError(f"{fn.__name__}: the card's differs from the CPU's")
+    launches["edt"] = {"edt": 1}
     _sq, passes = edt_sq_passes(masks)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -2470,7 +2503,8 @@ def filters_phase(clip, plate, card, cfg, err):
     nb = -(-clip.shape[0] // cfg.batch)
     if (min(chain_counts["fused_segment"], chain_counts["ccl_labels"],
             chain_counts["root_stats_occ"], chain_counts["track_scan"]) < nb
-            or chain_counts["ccl_stats"] or chain_counts["chain_program"] != nb):
+            or chain_counts["ccl_stats"] or chain_counts["chain_program"] != nb
+            or chain_counts["bgr_to_gray"] != nb):
         raise AssertionError(f"chain route launches: {chain_counts}")
     launches["chain_route"] = chain_counts
     route(False)  # the gray route's first run of the phase: untimed
@@ -2523,17 +2557,173 @@ def filters_phase(clip, plate, card, cfg, err):
     got = list(stateful(clip_bgr, dev).iter_batches(cfg.batch))
     s = time.perf_counter() - t0
     n = counts()
-    if n["blur_u8"] != nb or n["fused_segment"] != nb or n["chain_program"] != nb:
+    if (n["blur_u8"] != nb or n["fused_segment"] != nb or n["chain_program"] != nb
+            or n["bgr_to_gray"] != nb):
         raise AssertionError(f"stateful chain launches: {n}")
     launches["stateful_chain"] = {"blur_u8": n["blur_u8"], "fused_segment": n["fused_segment"],
-                                  "chain_program": n["chain_program"]}
+                                  "chain_program": n["chain_program"],
+                                  "bgr_to_gray": n["bgr_to_gray"]}
     ref = np.concatenate([o[:k] for k, o in stateful(clip_bgr[:48], "cpu").iter_batches(48)])
     if not np.array_equal(got[0][1][:48], ref):
         raise AssertionError("the stateful chain's first 48 frames differ from the CPU's")
     out["stateful_chain"] = {"fps": clip.shape[0] / s, "first_48_equal_cpu": True,
                              "ksize": stateful(clip_bgr[:1], "cpu").source.ksize}
+
+    # 5. KM, KW, KR and KE against their plain versions, then timed
+    masks, _bg = fused_segment(torch.from_numpy(gray).to(dev),
+                               torch.from_numpy(plate.astype(np.float32)).to(dev), **BENCH_KW)
+    out["kernel_checks"] = filter_kernel_checks(gray.shape, masks, err)
+    batch = torch.from_numpy(clip_bgr[:cfg.batch]).to(dev)
+    timing = filter_kernel_timing(gray.shape, batch, masks)
+    del masks, batch
+    kernels = {name: dict(timing[name], launches=launches[key][name]) for name, key in (
+        ("bgr_to_gray", "chain_route"), ("warp_affine", "rotate_7.5_gray"),
+        ("resize_linear", "resize_960x540_gray"), ("edt", "edt"))}
     out["seconds"] = round(time.time() - t_phase, 1)
-    return out, launches
+    return out, launches, kernels
+
+
+# the kernel each filter of filter_cases launches once a batch on the card
+FILTER_KERNELS = {"blur_u8": "blur_u8", "background": "fused_segment", "median_3": "median_u8",
+                  "median_5": "median_u8", "monochrome": "bgr_to_gray",
+                  "resize_960x540": "resize_linear", "resize_x1.5": "resize_linear",
+                  "rotate_7.5": "warp_affine", "warp_affine": "warp_affine"}
+# KW's and KR's cases of phase 7e at 1080p: FilterRotate(angle=7.5)'s map
+# (rotation_matrix((959.5, 539.5), 7.5)), filter_cases' warp with its
+# out_size and border value, the replicate border, an inverse map
+WARP_M = [[0.96, 0.12, -40.0], [-0.1, 1.04, 25.5]]
+KR_SIZES_1080 = ((960, 540), (2880, 1620), (1920, 540))
+
+
+def kw_cases_1080():
+    from tpuva_torch.ops.warp import rotation_matrix
+
+    return {"rotate_7.5": dict(M=rotation_matrix((959.5, 539.5), 7.5)),
+            "warp_out_size_border7": dict(M=WARP_M, out_size=(1600, 900), border_value=7.0),
+            "replicate": dict(M=WARP_M, border="replicate"),
+            "inverse": dict(M=WARP_M, inverse=True)}
+
+
+def finite(t):
+    """t with +inf as -1 (a value no distance takes): check_equal's
+    difference stays finite, equality is unchanged."""
+    return torch.nan_to_num(t, posinf=-1.0)
+
+
+def filter_kernel_checks(shape, masks, err):
+    """KM, KW, KR and KE against their plain versions on the card, bit for
+    bit, on random frames of shape (N, H, W) and BGR (three independent
+    channels: equal ones would hide a wrong weight order) and on K1's masks
+    of the phase's frames; the max abs differences folded into err."""
+    from tpuva_torch.ops import color, resize, warp
+    from tpuva_torch.ops.distance import (
+        distance_transform_edt, edt_sq_passes, edt_sq_passes_plain,
+    )
+
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(40)
+    gray = torch.from_numpy(rng.integers(0, 256, shape, dtype=np.uint8)).to(dev)
+    bgr = torch.from_numpy(rng.integers(0, 256, tuple(shape) + (3,), dtype=np.uint8)).to(dev)
+    unaligned = bgr.reshape(-1)[3:].reshape(-1, 3)[:-1]  # 3 bytes in: the pixel path
+    bgr_f = bgr.to(torch.float32)
+    check_equal(err, "bgr_to_gray", [
+        ("uint8", color.bgr_to_gray(bgr), color.bgr_to_gray_plain(bgr)),
+        ("float32", color.bgr_to_gray(bgr_f), color.bgr_to_gray_plain(bgr_f)),
+        ("unaligned", color.bgr_to_gray(unaligned), color.bgr_to_gray_plain(unaligned))],
+        "random 1080p BGR")
+    del bgr_f
+    for what, frames in (("gray", gray), ("bgr", bgr)):
+        for case, kw in kw_cases_1080().items():
+            check_equal(err, "warp_affine", [(f"{case} {what}", warp.warp_affine(frames, **kw),
+                                              warp.warp_affine_plain(frames, **kw))],
+                        "random 1080p frames")
+        for size in KR_SIZES_1080:
+            check_equal(err, "resize_linear", [
+                (f"{size} {what}", resize.resize_linear(frames, size),
+                 resize.resize_linear_plain(frames, size))], "random 1080p frames")
+    passes = {}
+    _N, H, W = shape
+    for what, m in (("K1's masks", masks),
+                    ("all foreground", torch.ones((1, H, W), dtype=torch.uint8, device=dev)),
+                    ("all background", torch.zeros((1, H, W), dtype=torch.uint8, device=dev))):
+        sq, p = edt_sq_passes(m)
+        ref, ref_p = edt_sq_passes_plain(m)
+        check_equal(err, "edt", [("squared", finite(sq), finite(ref)),
+                                 ("distance", finite(distance_transform_edt(m)),
+                                  finite(torch.sqrt(ref)))], what)
+        if p != ref_p:
+            raise AssertionError(f"KE's passes {p} differ from the plain loop's {ref_p} ({what})")
+        passes[what] = list(p)
+    return {"bit_equal": ["bgr_to_gray", "warp_affine", "resize_linear", "edt"],
+            "kw_cases": sorted(kw_cases_1080()), "kr_sizes": [list(v) for v in KR_SIZES_1080],
+            "edt_passes": passes}
+
+
+def filter_kernel_timing(shape, batch, masks, reps=5):
+    """Each of KM, KW, KR, KE: {ms, plain_ms, library_ms, bound_ms, bound_by}
+    (CUDA events, after a warm-up): KM on the chain route's staged BGR
+    batch (library: torch.matmul of its float32 copy with the weights); KW
+    (FilterRotate(angle=7.5)'s map, constant border) and KR (to 960 x 540)
+    on random BGR frames of shape (library: F.grid_sample and F.interpolate,
+    bilinear, on float32 copies, channels first); KE on K1's masks (no
+    library call computes an EDT)."""
+    from tpuva_torch.ops import color, resize, warp
+    from tpuva_torch.ops.distance import distance_transform_edt, edt_sq_passes_plain
+
+    F = torch.nn.functional
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(41)
+    bgr = torch.from_numpy(rng.integers(0, 256, tuple(shape) + (3,), dtype=np.uint8)).to(dev)
+    res = {}
+
+    def entry(fn, plain, library, nbytes, nops, frames):
+        b = bound(nbytes, nops)
+        return {"ms": cuda_ms(fn, reps), "plain_ms": cuda_ms(plain, 2),
+                "library_ms": None if library is None else cuda_ms(library, reps),
+                "bound_ms": b[0], "bound_by": b[1], "shape": list(frames.shape)}
+
+    # KM: 3 B read and 1 B written, 3 products and 2 sums a pixel
+    P = batch.numel() // 3
+    xf = batch.to(torch.float32)
+    w = torch.from_numpy(color.BGR_WEIGHTS).to(dev)
+    res["bgr_to_gray"] = entry(lambda: color.bgr_to_gray(batch),
+                               lambda: color.bgr_to_gray_plain(batch),
+                               lambda: torch.matmul(xf, w), 4 * P, 5 * P, batch)
+    del xf
+    # KW: the frames read and the output written once; 6 operations a
+    # pixel for the coordinates, 9 a channel for the lerps
+    kw = kw_cases_1080()["rotate_7.5"]
+    plan = warp.warp_plan(bgr.shape, kw["M"])
+    ia, ib, ic, id_, ie, if_ = plan.coeffs
+    xs = torch.arange(plan.wo, dtype=torch.float32, device=dev)[None, :]
+    ys = torch.arange(plan.ho, dtype=torch.float32, device=dev)[:, None]
+    sx, sy = ia * xs + ib * ys + ic, id_ * xs + ie * ys + if_
+    grid = torch.stack([(2 * sx + 1) / plan.W - 1, (2 * sy + 1) / plan.H - 1], dim=-1)
+    grid = grid.expand(plan.L, -1, -1, -1).contiguous()
+    xf = bgr.permute(0, 3, 1, 2).to(torch.float32)
+    out_px = plan.L * plan.ho * plan.wo
+    res["warp_affine"] = entry(
+        lambda: warp.warp_affine(bgr, **kw), lambda: warp.warp_affine_plain(bgr, **kw),
+        lambda: F.grid_sample(xf, grid, mode="bilinear", padding_mode="zeros",
+                              align_corners=False),
+        bgr.numel() + 3 * out_px, out_px * (6 + 9 * 3), bgr)
+    del grid
+    # KR: the frames read and the output written once; 3 operations a tap
+    # pass and channel (both axes resampled)
+    w_out, h_out = KR_SIZES_1080[0]
+    out_px = bgr.shape[0] * h_out * w_out
+    res["resize_linear"] = entry(
+        lambda: resize.resize_linear(bgr, (w_out, h_out)),
+        lambda: resize.resize_linear_plain(bgr, (w_out, h_out)),
+        lambda: F.interpolate(xf, size=(h_out, w_out), mode="bilinear", align_corners=False,
+                              antialias=False),
+        bgr.numel() + 3 * out_px, out_px * 3 * 9, bgr)
+    del xf
+    # KE: the masks read and the float32 distances written once
+    px = masks.numel()
+    res["edt"] = entry(lambda: distance_transform_edt(masks),
+                       lambda: torch.sqrt(edt_sq_passes_plain(masks)[0]), None, 5 * px, 0, masks)
+    return res
 
 
 def main():
@@ -2634,10 +2824,12 @@ def main():
     if mode == "--filters":
         clip, _alive, _truth, plate = multi_blob_clip(1080, 1920, 512, n_blobs=6, radius=16,
                                                       births_deaths=False, noise_sigma=2.0)
-        err = {"blur_u8": 0.0, "fused_segment_diff": 0.0, "morph_u8": 0.0}
-        line, launches = filters_phase(clip, plate, card, bench_cfg(config, 256), err)
+        err = {"blur_u8": 0.0, "fused_segment_diff": 0.0, "morph_u8": 0.0, "bgr_to_gray": 0.0,
+               "warp_affine": 0.0, "resize_linear": 0.0, "edt": 0.0}
+        line, launches, kernels = filters_phase(clip, plate, card, bench_cfg(config, 256), err)
         say("filters", **line, max_abs_err=err)
         say("filters_launches", **launches)
+        say("filter_kernels", card=card, **kernels)
         return 0
     from tpuva_torch.ops.ccl import (
         k2_grid, root_labels, root_occupancy_plain, root_stats, root_stats_dict,
@@ -3337,9 +3529,10 @@ def main():
 
     # 7e. the filter chain: every filter on the card against the CPU, the
     # EDT and mask_boundary, the chain route at full width, a stateful chain
-    filters_line, filters_launches = filters_phase(clip, plate, card, cfg, err)
+    filters_line, filters_launches, filter_kernels = filters_phase(clip, plate, card, cfg, err)
     say("filters", **filters_line)
     say("filters_launches", **filters_launches)
+    say("filter_kernels", card=card, **filter_kernels)
     torch.cuda.empty_cache()
 
     # 7f. the multi-card half of dist/ on the one card: four bands of the
@@ -3660,6 +3853,13 @@ def main():
         timed[name] = (f"{name}_ms", f"{name}_plain_ms")
     launches.update(ms_kernels["launches"])
     bounds.update(ms_kernels["bounds"])
+    # phase 7e's KM, KW, KR, KE
+    for name, k in filter_kernels.items():
+        t[f"{name}_ms"], t[f"{name}_plain_ms"] = k["ms"], k["plain_ms"]
+        timed[name] = (f"{name}_ms", f"{name}_plain_ms")
+        launches[name] = k["launches"]
+        bounds[name] = (k["bound_ms"], k["bound_by"])
+        library[name] = k["library_ms"]
     kernels = []
     for name, (src, rep) in REPLACES.items():
         if name in probe_entries:

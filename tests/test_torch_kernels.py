@@ -30,7 +30,13 @@ one K1 launch does not take run on the card with the CPU's rows. The filter
 chain (tpuva_torch.filters) on the card against the CPU: every kind of
 filter, FilterBlur on uint8 one K1b launch a batch, FilterBackground on
 uint8 one K1 diff-emit launch a batch, mask_boundary one K1m launch, and
-BatchStager running a BGR chain on the card once a batch. The CCL scenes
+BatchStager running a BGR chain on the card once a batch. The filter
+chain's and the EDT's kernels (csrc/filters.cu, csrc/distance.cu): KE on
+the CPU model's scenes and on 1080p masks (random densities, no zero, no
+foreground) with its pass counts, KM on random BGR (tails, unaligned
+slices, float32) and KR on random gray and BGR, KW under both borders with
+an out_size and an inverse map, each bit-equal to its plain version on the
+card, small and at 1080p, one launch a call. The CCL scenes
 (tpuva_torch.scenes) are shared with the CPU tests that hold the plain
 versions against tpuva.
 """
@@ -43,7 +49,7 @@ from tpuva_torch import filters as tf
 from tpuva_torch.analysis.regions import mask_boundary
 from tpuva_torch.io.memory import VideoMemory
 from tpuva_torch.io.staging import BatchStager
-from tpuva_torch.ops import connected_components_with_stats
+from tpuva_torch.ops import color, connected_components_with_stats, distance, resize, warp
 from tpuva_torch.ops.ccl import (
     label_components_tiled, label_stats, root_labels, root_occupancy_plain, root_stats,
     root_stats_dict, strip_occupancy_plain, strip_shape,
@@ -64,7 +70,7 @@ from tpuva_torch.probes import cell_probe, i16_probe, repos_probe, roll_probe
 from tpuva_torch.probes._timing import timeit
 from tpuva_torch.scenes import (
     DET_KINDS, K1_REFUSED, ROOT_STATS_OPTIONS, conn4_scene, det_sequence, edge_strip_scene,
-    k1_refused_config, median_adversarial, mixed_scene, u_shape,
+    edt_scenes, k1_refused_config, median_adversarial, mixed_scene, u_shape,
 )
 from tpuva_torch.track.scan import scan_plan, track_scan, track_scan_plain
 from tpuva_torch.track.table import TrackState, init_track_state
@@ -1363,3 +1369,150 @@ def test_batch_stager_runs_chain_on_card(cuda_device, use_native):
     assert [n for n, _ in got] == [n for n, _ in ref] == [4, 4, 3]
     for (_n, a), (_m, b) in zip(got, ref):
         np.testing.assert_array_equal(a, b)
+
+
+# ------------------------------------- KE, KM, KW, KR (csrc/distance.cu, csrc/filters.cu)
+def random_masks(shape, densities, seed):
+    rng = np.random.default_rng(seed)
+    return np.stack([(rng.random(shape) < d).astype(np.uint8) for d in densities])
+
+
+def check_edt(mask):
+    """KE's squared EDT, its EDT and its pass counts against the plain loop
+    on the card, one launch a call."""
+    before = distance.edt_kernel.launches
+    sq, passes = distance.edt_sq_passes(mask)
+    d = distance.distance_transform_edt(mask)
+    assert distance.edt_kernel.launches - before == 2
+    ref, ref_passes = distance.edt_sq_passes_plain(mask)
+    assert sq.dtype == d.dtype == torch.float32
+    assert torch.equal(sq, ref) and passes == ref_passes
+    assert torch.equal(d, torch.sqrt(ref))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", sorted(edt_scenes()))
+def test_edt_kernel_matches_plain_on_scenes(cuda_device, name):
+    m = torch.from_numpy(edt_scenes()[name]).to(cuda_device)
+    for x in (m, m.to(torch.bool), m.to(torch.float32)):
+        check_edt(x)
+
+
+@pytest.mark.gpu
+def test_edt_kernel_matches_plain_at_1080p(cuda_device):
+    """Random 1080p masks at densities 0.02 to 0.995, an all-foreground
+    (+inf) and an all-background frame."""
+    m = random_masks((1080, 1920), (0.02, 0.5, 0.9, 0.995), seed=21)
+    m = np.concatenate([m, np.ones((1, 1080, 1920), np.uint8), np.zeros((1, 1080, 1920),
+                                                                        np.uint8)])
+    x = torch.from_numpy(m).to(cuda_device)
+    check_edt(x)
+    assert torch.isinf(distance.distance_transform_edt_sq(x[4])).all()
+
+
+@pytest.mark.gpu
+def test_edt_kernel_refuses_past_4096(cuda_device):
+    with pytest.raises(ValueError):
+        distance.distance_transform_edt(torch.ones((1, 4097, 8), dtype=torch.uint8,
+                                                   device=cuda_device))
+
+
+def bgr_frames(shape, seed, dtype=np.uint8):
+    """Random BGR (three independent channels: equal ones would hide a
+    wrong weight order)."""
+    x = np.random.default_rng(seed).integers(0, 256, shape).astype(dtype)
+    if dtype == np.float32:
+        x += np.random.default_rng(seed + 1).random(shape, dtype=np.float32)
+    return x
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["uint8", "float32", "int16"])
+def test_bgr_to_gray_kernel_matches_plain(cuda_device, dtype):
+    """KM on random BGR: whole pieces with and without a tail, one pixel,
+    slices whose start is not 16-byte aligned (the pixel path), 1080p; one
+    launch a call."""
+    for shape in ((2, 7, 11, 3), (1, 4, 4, 3), (1, 1, 1, 3), (3, 33, 65, 3), (4, 1080, 1920, 3)):
+        x = torch.from_numpy(bgr_frames(shape, 4, np.dtype(dtype).type)).to(cuda_device)
+        views = [x, x.reshape(-1)[3:].reshape(-1, 3)[:-1]]  # 3 elements in
+        for v in views[: 1 if x.numel() <= 3 else 2]:
+            before = color.bgr_to_gray.launches
+            got = color.bgr_to_gray(v)
+            assert color.bgr_to_gray.launches - before == 1
+            ref = color.bgr_to_gray_plain(v)
+            assert got.dtype == ref.dtype and torch.equal(got, ref), (shape, dtype)
+
+
+KW_CASES = {
+    "rotate": dict(M=warp.rotation_matrix((26.0, 18.0), 7.5)),
+    "shear_out_size": dict(M=[[0.9, 0.1, 2.5], [-0.2, 1.1, -3.25]], out_size=(40, 30),
+                           border_value=17.0),
+    "inverse": dict(M=[[0.9, 0.1, 2.5], [-0.2, 1.1, -3.25]], inverse=True),
+    "replicate": dict(M=warp.rotation_matrix((20.0, 11.0), -33.0, 1.2), border="replicate"),
+    "upscale_replicate": dict(M=[[1.7, 0.0, -4.0], [0.0, 1.3, 2.0]], out_size=(71, 45),
+                              border="replicate"),
+    "far_out": dict(M=[[1e6, 0.0, -4e9], [0.0, -3e5, 2e9]], out_size=(20, 10), border_value=3.0),
+}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", sorted(KW_CASES))
+def test_warp_affine_kernel_matches_plain(cuda_device, name):
+    """KW on (N, H, W), (H, W), (N, H, W, 3), (H, W, 3), uint8 and float32,
+    against its plain version on the card; one launch a call."""
+    kw = KW_CASES[name]
+    for shape in ((4, 37, 53), (37, 53), (3, 37, 53, 3), (37, 53, 3)):
+        for dtype in (np.uint8, np.float32):
+            x = torch.from_numpy(bgr_frames(shape, 5, dtype)).to(cuda_device)
+            before = warp.warp_affine.launches
+            got = warp.warp_affine(x, **kw)
+            assert warp.warp_affine.launches - before == 1
+            ref = warp.warp_affine_plain(x, **kw)
+            assert got.dtype == ref.dtype and torch.equal(got, ref), (shape, dtype)
+
+
+@pytest.mark.gpu
+def test_warp_affine_kernel_matches_plain_at_1080p(cuda_device):
+    M = warp.rotation_matrix((959.5, 539.5), 7.5)
+    for shape in ((4, 1080, 1920), (2, 1080, 1920, 3)):
+        x = torch.from_numpy(bgr_frames(shape, 6)).to(cuda_device)
+        for kw in (dict(), dict(out_size=(1600, 900), border_value=7.0),
+                   dict(border="replicate")):
+            assert torch.equal(warp.warp_affine(x, M, **kw), warp.warp_affine_plain(x, M, **kw))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("size", [(26, 18), (80, 37), (53, 55), (53, 37), (1, 1),
+                                  (960, 540), (2880, 1620)])
+def test_resize_linear_kernel_matches_plain(cuda_device, size):
+    """KR on random gray and BGR, uint8 and float32, down, up, one axis
+    kept, both kept; 1080p for the phase's two sizes; one launch a call."""
+    shapes = ((3, 37, 53), (2, 37, 53, 3)) if size[0] < 100 else ((2, 1080, 1920),
+                                                                   (1, 1080, 1920, 3))
+    for shape in shapes:
+        for dtype in (np.uint8, np.float32):
+            x = torch.from_numpy(bgr_frames(shape, 7, dtype)).to(cuda_device)
+            before = resize.resize_linear.launches
+            got = resize.resize_linear(x, size)
+            assert resize.resize_linear.launches - before == 1
+            ref = resize.resize_linear_plain(x, size)
+            assert got.dtype == ref.dtype and torch.equal(got, ref), (shape, dtype)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", ["monochrome", "resize", "rotate_angle", "warp"])
+def test_filter_launches_its_kernel_once_a_batch(cuda_device, name):
+    """FilterMonochrome (KM), FilterResize (KR), FilterRotate(angle=) and
+    FilterWarpAffine (KW) launch their kernel once a batch on the card and
+    equal the CPU's."""
+    make, colors = CARD_FILTERS[name]
+    counter = {"monochrome": color.bgr_to_gray, "resize": resize.resize_linear}.get(
+        name, warp.warp_affine)
+    for c in colors:
+        data = filter_clip(color=c)
+        before = counter.launches
+        got = list(make(tf, VideoMemory(data), cuda_device).iter_batches(4))
+        assert counter.launches - before == 3
+        ref = list(make(tf, VideoMemory(data), "cpu").iter_batches(4))
+        for (_n, a), (_m, b) in zip(got, ref):
+            np.testing.assert_array_equal(a, b)

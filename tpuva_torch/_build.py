@@ -145,6 +145,28 @@ _SIGNATURES = {
         _P, _LL,  # scratch, scratch bytes (S streams' scratch)
         _P,  # stream
     ],
+    "tpuva_edt": [
+        _P, _P, _P, _P,  # mask (uint8), cols (uint16 scratch), out, passes (int32[2])
+        _I, _I, _I, _I,  # L, H, W, root
+        _P,  # stream
+    ],
+    "tpuva_bgr2gray": [
+        _P, _P, _LL, _LL, _LL,  # x, out, P (pixels), pieces, start (ops/color.py::mono_plan)
+        _I, _F, _F, _F,  # is_float, the BGR weights
+        _I, _I,  # vec_blocks, px_blocks
+        _P,  # stream
+    ],
+    "tpuva_warp_affine": [
+        _P, _P, _I, _I, _I, _I, _I, _I,  # x, out, L, H, W, C, ho, wo
+        _I, _I,  # is_float, constant
+        _F, _F, _F, _F, _F, _F, _F,  # the inverse map (ia, ib, ic, id, ie, if), border value
+        _P,  # stream
+    ],
+    "tpuva_resize_linear": [
+        _P, _P, _I, _I, _I, _I, _I, _I,  # x, out, N, H, W, C, h, w
+        _P, _P, _I,  # taps_h, taps_w (null: the axis keeps its size), is_float
+        _P,  # stream
+    ],
 }
 # the micro-probes P1-P4 (csrc/probes.cu): x, out, reps, case, stream
 _SIGNATURES.update({

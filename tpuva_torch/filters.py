@@ -20,9 +20,12 @@ route, nothing else: on a CUDA tensor, ``FilterBlur`` on uint8 launches
 kernel K1b (``ops.wide.blur_u8``) once a batch, ``FilterMedian`` on uint8
 kernel K7 (``ops.median.median_u8``, through ``ops.filters.median_blur``)
 once a batch, ``FilterBackground`` on a uint8 (N, H, W) batch kernel K1's
-diff emit (``ops.fused_segment``) once a batch; the other filters and the
-float routes are torch ops. CPU tensors run the plain versions of the same
-functions.
+diff emit (``ops.fused_segment``) once a batch, ``FilterMonochrome``
+kernel KM (``ops.color.bgr_to_gray``), ``FilterResize`` kernel KR
+(``ops.resize.resize_linear``), ``FilterRotate(angle=)`` and
+``FilterWarpAffine`` kernel KW (``ops.warp.warp_affine``) once a batch;
+the other filters and the float blur and background are torch ops. CPU
+tensors run the plain versions of the same functions.
 
 Arithmetic: every float32 product and sum is rounded on its own, in
 tpuva's source order. Where tpuva's XLA:CPU run contracts one into an FMA
@@ -31,13 +34,12 @@ blur's taps, the warp, the resize's taps) it can differ by a rounding
 step: ROADMAP Queue 3 R1 and R5. ``FilterNormalize`` multiplies by the
 float32 reciprocal of its range, as XLA rewrites tpuva's division by a
 constant, and ``FilterResize`` applies jax.image.resize's weights
-(computed on the host, ``resize_taps``) as two gathered taps an axis,
-H before W.
+(computed on the host, ``ops.resize.resize_taps``) as two gathered taps
+an axis, H before W.
 """
 
 from __future__ import annotations
 
-import functools
 from typing import Callable, Optional, Tuple
 
 import numpy as np
@@ -46,13 +48,13 @@ import torch
 from tpuva_torch.device import resolve_device
 from tpuva_torch.io.base import VideoBase
 from tpuva_torch.ops.background import background_update
+from tpuva_torch.ops.color import BGR_WEIGHTS as _BGR_WEIGHTS  # noqa: F401 (tpuva's name)
+from tpuva_torch.ops.color import bgr_to_gray
 from tpuva_torch.ops.filters import gaussian_blur, median_blur
 from tpuva_torch.ops.fused_segment import fused_segment
+from tpuva_torch.ops.resize import resize_linear, resize_taps  # noqa: F401 (re-exported)
 from tpuva_torch.ops.warp import rotation_matrix, warp_affine
 from tpuva_torch.ops.wide import blur_u8
-
-# BGR -> gray weights (OpenCV convention: x is BGR channel order)
-_BGR_WEIGHTS = np.array([0.114, 0.587, 0.299], np.float32)
 
 
 def _round_u8(x: torch.Tensor) -> torch.Tensor:
@@ -215,7 +217,8 @@ class FilterCrop(FilterBase):
 class FilterMonochrome(FilterBase):
     """BGR -> gray: (b w0 + g w1) + r w2 in float32 with OpenCV's BGR
     weights, rounded half to even and clipped to uint8 (a float batch stays
-    float). A gray batch passes through."""
+    float; ops.color.bgr_to_gray: kernel KM on a CUDA tensor). A gray batch
+    passes through."""
 
     def __init__(self, source, device=None):
         super().__init__(source, is_color=False, device=device)
@@ -223,77 +226,21 @@ class FilterMonochrome(FilterBase):
     def batch_transform(self, batch, carry):
         if batch.dim() == 3:
             return batch
-        w = [float(v) for v in _BGR_WEIGHTS]
-        gray = batch[..., 0].to(torch.float32) * w[0]  # a channel at a time: 4 B a pixel
-        gray += batch[..., 1].to(torch.float32) * w[1]
-        gray += batch[..., 2].to(torch.float32) * w[2]
-        if batch.dtype == torch.uint8:
-            return gray.round_().clamp_(0, 255).to(torch.uint8)
-        return gray
-
-
-@functools.lru_cache(maxsize=32)
-def resize_taps(m: int, n: int) -> tuple:
-    """jax.image.resize's "linear" weights (antialias off) from m to n
-    samples, as its compute_weight_mat takes them in float32, each op
-    rounded on its own: (lower index, upper index, their weights) per
-    output sample, numpy. Each output has at most two nonzero weights;
-    where it has one, the upper tap repeats the lower with weight 0."""
-    f32 = np.float32
-    scale = n / m
-    inv = f32(1.0 / scale)
-    sample = (np.arange(n, dtype=f32) + f32(0.5)) * inv - f32(0.0) - f32(0.5)
-    dist = np.abs(sample[None, :] - np.arange(m, dtype=f32)[:, None])
-    w = np.maximum(f32(0), f32(1) - dist)
-    total = w.sum(axis=0, keepdims=True, dtype=f32)
-    w = np.where(np.abs(total) > f32(1000.0 * float(np.finfo(np.float32).eps)),
-                 w / np.where(total != 0, total, f32(1)), f32(0)).astype(f32)
-    w = np.where(((sample >= -0.5) & (sample <= m - 0.5))[None, :], w, f32(0)).astype(f32)
-    lo = np.zeros(n, np.int64)
-    hi = np.zeros(n, np.int64)
-    wlo = np.zeros(n, f32)
-    whi = np.zeros(n, f32)
-    for o in range(n):
-        nz = np.flatnonzero(w[:, o])
-        if nz.size > 2:
-            raise AssertionError("a linear resize sample has at most two taps")
-        if nz.size:
-            lo[o] = hi[o] = nz[0]
-            wlo[o] = w[nz[0], o]
-        if nz.size == 2:
-            hi[o] = nz[1]
-            whi[o] = w[nz[1], o]
-    return lo, hi, wlo, whi
-
-
-def _resize_axis(x: torch.Tensor, dim: int, n: int) -> torch.Tensor:
-    """x resampled to n along dim: w_lo * x[lo] + w_hi * x[hi]."""
-    lo, hi, wlo, whi = (torch.from_numpy(a).to(x.device) for a in resize_taps(x.shape[dim], n))
-    shape = [1] * x.dim()
-    shape[dim] = n
-    return (x.index_select(dim, lo) * wlo.reshape(shape)
-            + x.index_select(dim, hi) * whi.reshape(shape))
+        return bgr_to_gray(batch)
 
 
 class FilterResize(FilterBase):
     """Bilinear resize to size (width, height): jax.image.resize "linear"
     without antialiasing (the pixel-centre convention of cv2.resize
-    INTER_LINEAR), H then W; uint8 rounded half to even and clipped."""
+    INTER_LINEAR), H then W; uint8 rounded half to even and clipped
+    (ops.resize.resize_linear: kernel KR on a CUDA tensor)."""
 
     def __init__(self, source, size, device=None):
         self.target = (int(size[0]), int(size[1]))
         super().__init__(source, size=self.target, device=device)
 
     def batch_transform(self, batch, carry):
-        w, h = self.target
-        out = batch.to(torch.float32)
-        if out.shape[1] != h:  # jax skips an axis whose size stays
-            out = _resize_axis(out, 1, h)
-        if out.shape[2] != w:
-            out = _resize_axis(out, 2, w)
-        if batch.dtype == torch.uint8:
-            return _round_u8(out)
-        return out
+        return resize_linear(batch, self.target)
 
 
 class FilterBlur(FilterBase):

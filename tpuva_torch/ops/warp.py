@@ -9,16 +9,24 @@
   border value: each corner is masked on its own) and BORDER_REPLICATE.
 
 ``invert_affine`` and ``rotation_matrix`` are host numpy in float64, copies
-of the originals. ``warp_affine`` runs torch ops on the image's device,
-every float32 product and sum rounded on its own in tpuva's source order
-(the sample coordinates, then the lerps ``a + f * (b - a)``); tpuva's
-XLA:CPU run contracts some of them into FMAs (ROADMAP Queue 3 R5).
+of the originals. ``warp_affine_plain`` runs torch ops on the image's
+device, every float32 product and sum rounded on its own in tpuva's
+source order (the sample coordinates, then the lerps ``a + f * (b - a)``);
+tpuva's XLA:CPU run contracts some of them into FMAs (ROADMAP Queue 3 R5).
+``warp_affine`` launches kernel KW (csrc/filters.cu ``tpuva_warp_affine``)
+once on a CUDA tensor, the same operations in the same order, and takes
+the plain version on a CPU one. ``warp_plan`` is the launch both share:
+the layout and the float32 inverse map.
 """
 
 from __future__ import annotations
 
+from typing import NamedTuple
+
 import numpy as np
 import torch
+
+from tpuva_torch import _build
 
 
 def invert_affine(M) -> np.ndarray:
@@ -59,24 +67,77 @@ def _f32(v) -> float:
     return float(np.float32(v))
 
 
-def warp_affine(img: torch.Tensor, M, out_size=None, inverse: bool = False,
-                border: str = "constant", border_value: float = 0.0) -> torch.Tensor:
-    """Batched cv2.warpAffine (INTER_LINEAR) on img (N, H, W), (H, W) or
-    (..., H, W, 3): the last two axes, or the two before a channel axis of
-    3, are spatial. M: the 2x3 forward src->dst matrix (numpy); out_size
-    (w, h) defaults to the input's. Returns img's dtype: uint8 rounded half
-    to even and clipped, others cast from float32."""
-    if border not in ("constant", "replicate"):
-        raise ValueError(border)
-    chan = img.shape[-1] == 3 and img.dim() >= 3
-    sp = img.dim() - (3 if chan else 2)  # the H axis
-    H, W = img.shape[sp], img.shape[sp + 1]
-    w_out, h_out = out_size if out_size is not None else (W, H)
+class WarpPlan(NamedTuple):
+    L: int  # images: the leading axes' product
+    H: int
+    W: int
+    C: int  # 3 for (..., H, W, 3), else 1
+    ho: int
+    wo: int
+    coeffs: tuple  # (ia, ib, ic, id, ie, if): the inverse map dst -> src, float32 values
+    out_shape: tuple
+
+
+def warp_plan(shape, M, out_size=None, inverse: bool = False) -> WarpPlan:
+    """The warp of an image of shape (N, H, W), (H, W) or (..., H, W, 3):
+    the last two axes, or the two before a channel axis of 3, are spatial;
+    out_size (w, h) defaults to the input's; M the 2x3 forward src->dst
+    matrix, inverted unless inverse, each coefficient rounded to float32."""
+    shape = tuple(shape)
+    chan = len(shape) >= 3 and shape[-1] == 3
+    sp = len(shape) - (3 if chan else 2)  # the H axis
+    H, W = shape[sp], shape[sp + 1]
+    wo, ho = out_size if out_size is not None else (W, H)
     Mi = np.asarray(M, np.float64).reshape(2, 3)
     if not inverse:
         Mi = invert_affine(Mi)
-    ia, ib, ic = (_f32(v) for v in Mi[0])
-    id_, ie, if_ = (_f32(v) for v in Mi[1])
+    coeffs = tuple(_f32(v) for v in Mi.reshape(-1))
+    L = int(np.prod(shape[:sp], dtype=np.int64))
+    return WarpPlan(L, H, W, 3 if chan else 1, int(ho), int(wo), coeffs,
+                    shape[:sp] + (int(ho), int(wo)) + ((3,) if chan else ()))
+
+
+def warp_affine(img: torch.Tensor, M, out_size=None, inverse: bool = False,
+                border: str = "constant", border_value: float = 0.0) -> torch.Tensor:
+    """Batched cv2.warpAffine (INTER_LINEAR) on img (N, H, W), (H, W) or
+    (..., H, W, 3) (warp_plan). Returns img's dtype: uint8 rounded half to
+    even and clipped, others cast from float32. CUDA tensors launch KW once
+    (warp_affine.launches counts them; another dtype than uint8 and float32
+    goes through float32); CPU tensors take warp_affine_plain."""
+    if border not in ("constant", "replicate"):
+        raise ValueError(border)
+    if img.device.type == "cpu":
+        return warp_affine_plain(img, M, out_size, inverse, border, border_value)
+    if img.device.type != "cuda":
+        raise ValueError(f"warp_affine: unsupported device {img.device}")
+    plan = warp_plan(img.shape, M, out_size, inverse)
+    x = img if img.dtype in (torch.uint8, torch.float32) else img.to(torch.float32)
+    x = x.contiguous()
+    out = torch.empty(plan.out_shape, dtype=x.dtype, device=x.device)
+    if out.numel() == 0:
+        return out.to(img.dtype)
+    if x.numel() == 0:
+        raise ValueError("warp_affine: an empty image has nothing to sample")
+    _build.launch(x.device, "tpuva_warp_affine", "warp_affine kernel", x.data_ptr(),
+                  out.data_ptr(), plan.L, plan.H, plan.W, plan.C, plan.ho, plan.wo,
+                  int(x.dtype == torch.float32), int(border == "constant"), *plan.coeffs,
+                  _f32(border_value))
+    warp_affine.launches += 1
+    return out if out.dtype == img.dtype else out.to(img.dtype)
+
+
+warp_affine.launches = 0
+
+
+def warp_affine_plain(img: torch.Tensor, M, out_size=None, inverse: bool = False,
+                      border: str = "constant", border_value: float = 0.0) -> torch.Tensor:
+    """KW's plain version: warp_affine as torch ops on img's device."""
+    if border not in ("constant", "replicate"):
+        raise ValueError(border)
+    plan = warp_plan(img.shape, M, out_size, inverse)
+    chan = plan.C == 3
+    H, W, h_out, w_out = plan.H, plan.W, plan.ho, plan.wo
+    ia, ib, ic, id_, ie, if_ = plan.coeffs
     dev = img.device
     xs = torch.arange(w_out, dtype=torch.float32, device=dev)[None, :]
     ys = torch.arange(h_out, dtype=torch.float32, device=dev)[:, None]

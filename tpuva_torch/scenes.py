@@ -10,7 +10,10 @@ kernels against their plain versions on; numpy only:
 - configs that one launch of kernel K1 does not take (``k1_refused_config``);
 - kernel K6's options (``ROOT_STATS_OPTIONS``);
 - uint8 frames that stress an exact median's ties and orders
-  (``median_adversarial``, kernel K7).
+  (``median_adversarial``, kernel K7);
+- uint8 masks for the exact distance transform (``edt_scenes``, kernel
+  KE): densities 0.01 to 0.9, zero-free columns and rows, no zero and no
+  foreground, 1-px lines, a lone corner zero, odd shapes, leading axes.
 """
 
 import dataclasses
@@ -217,3 +220,27 @@ def median_adversarial(shape, seed=0):
         "outliers": outliers,
     }
     return {name: np.broadcast_to(frames[name], shape).copy() for name in MEDIAN_ADVERSARIAL}
+
+
+def edt_scenes():
+    """{name: uint8 mask (..., H, W)} of the distance transform's checks,
+    from one seed (nonzero = foreground)."""
+    rng = np.random.default_rng(20)
+    scenes = {f"density_{d}": (rng.random((2, 37, 53)) < d).astype(np.uint8)
+              for d in (0.01, 0.05, 0.2, 0.5, 0.7, 0.9)}
+    m = (rng.random((37, 53)) < 0.3).astype(np.uint8)
+    m[:, 10:30] = 1  # columns with no zero
+    m[5:9, :] = 1  # rows with no zero (but zeros in their columns)
+    scenes["zero_free_columns_and_rows"] = m
+    scenes["all_foreground"] = np.ones((2, 19, 23), np.uint8)
+    scenes["all_background"] = np.zeros((2, 19, 23), np.uint8)
+    line = np.ones((3, 31, 41), np.uint8)
+    line[0, 15, :] = 0  # a row of zeros
+    line[1, :, 20] = 0  # a column of zeros
+    line[2, 0, 40] = 0  # one zero in a corner
+    scenes["lines_and_a_corner"] = line
+    scenes["odd_37x301"] = (rng.random((37, 301)) < 0.93).astype(np.uint8)
+    scenes["leading_axes"] = (rng.random((2, 3, 17, 29)) < 0.8).astype(np.uint8)
+    scenes["one_row"] = np.array([[1, 1, 0, 1, 1, 1, 1]], np.uint8)
+    scenes["one_column"] = np.array([[1], [0], [1], [1]], np.uint8)
+    return scenes
