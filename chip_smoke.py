@@ -197,8 +197,13 @@ raises, so the exit code is non-zero:
    plain version on the card: KM on random 1080p BGR (uint8, float32, an
    unaligned slice), KW on random gray and BGR frames under both borders,
    an out_size and an inverse map, KR on random gray and BGR down, up and
-   with one axis kept, KE on K1's masks and on an all-foreground and an
-   all-background frame (its pass counts the plain loop's); then each
+   with one axis kept, KW's two routes (a map whose tiles all stage their
+   footprint, a 4x down-scale whose tiles gather: warp_affine_routes), KE
+   on K1's masks, on an all-foreground and an all-background frame and on
+   scenes.edt_large_scenes (the single-zero 4096 x 94 and 2898 x 2898
+   masks whose sums pass 2^24, an 8K UHD motion-like mask, a 1 x 70,000
+   row, 65,536 masks in two launches; its pass counts the plain loop's
+   everywhere); then each
    one's ms beside its plain version's, its library call's
    (torch.matmul, F.grid_sample, F.interpolate; KE none) and its bound
    (filter_kernels line);
@@ -274,8 +279,13 @@ raises, so the exit code is non-zero:
    module's REPS, the slope positive; its heaviest case beside its plain
    version, one call each. The rep loop of each case that keeps its
    words in registers must do one add a word in the SASS (no rep folded
-   into another). One "probes" line: ns/op, Telem/s, Telem/s a SM, the
-   cluster, and those rep loops' arithmetic.
+   into another). Then the latency probe (probes/latency_probe.py: one
+   dependent float32 add, cast-hop, shared and DSMEM load, CTA and
+   cluster barrier, each bit-equal to its plain version, slope-timed)
+   and each probe's dependent-chain bound, its file's reps x its rep's
+   chain (PROBE_CHAINS), with its share of the heaviest case's time. One
+   "probes" line: ns/op, Telem/s, Telem/s a SM, the cluster, those rep
+   loops' arithmetic, latency_ns and chain_bounds.
 
 Then one JSON line of the kernels (each with its least time on the card,
 bound_ms, from the bytes and operations of this run's inputs, and
@@ -529,6 +539,55 @@ def probe_bounds():
     return out
 
 
+# Each probe's heaviest case as a chain of dependent operations a rep,
+# counted from csrc/probes.cu, each with its latency-probe case: P1's
+# cast-hop in registers; P2's and P3's k = 5 cascade, 8 band steps (4 in a
+# row: a shared load; 4 across CTAs: a DSMEM load), each an add, a
+# barrier after its reads and one after its writes (7 of the CTA, 9 of the
+# cluster), then the rescale (P2 a multiply and an add, P3 a multiply; a
+# float32 multiply counted at the add's latency); P4's baseline_sweepish,
+# 16 sweeps of 4 roll + min steps, each a shared load, a min and two CTA
+# barriers, the min left out (the latency probe has no min/max case).
+PROBE_CHAINS = {
+    "repos_probe": {"cast-hop f->i->f + 1": 1},
+    "roll_probe": {"shared load": 4, "DSMEM load": 4, "f32 add": 10, "CTA barrier": 7,
+                   "cluster barrier (4 CTAs)": 9},
+    "i16_probe": {"shared load": 4, "DSMEM load": 4, "f32 add": 9, "CTA barrier": 7,
+                  "cluster barrier (8 CTAs)": 9},
+    "cell_probe": {"shared load": 64, "CTA barrier": 128},
+}
+
+
+def probe_chain_bounds(entries):
+    """The latency probe's cases bit-equal to its plain version, their
+    latencies (ns, the slope between its REPS), and each micro-probe's
+    dependent-chain bound: the file's reps x the latencies of its rep's
+    chain (PROBE_CHAINS), with its share of the heaviest case's time in
+    entries. Returns (latencies, bounds)."""
+    from tpuva_torch.probes import latency_probe as lp
+
+    x = lp.make_tile().to("cuda")
+    for case in lp.CASES:
+        for reps in lp.CHECK_REPS:
+            if not torch.equal(lp.run(x, case.name, reps), lp.plain(x.cpu(), case.name, reps)
+                               .to("cuda")):
+                raise AssertionError(f"latency probe {case.name} at {reps} reps differs from "
+                                     "its plain version")
+    ns = lp.measure("cuda", iters=3)
+    if not all(v > 0 for v in ns.values()):
+        raise AssertionError(f"latency probe: a latency is not positive: {ns}")
+    mods, bounds = probe_modules(), {}
+    for name, chain in PROBE_CHAINS.items():
+        per_rep = sum(n * ns[op] for op, n in chain.items())
+        reps = mods[name].FILE_REPS
+        b = reps * per_rep / 1e6
+        bounds[name] = {"case": probe_heaviest(mods[name]).name, "reps": reps, "chain": chain,
+                        "ns_a_rep": per_rep, "bound_ms": b, "ms": entries[name]["ms"],
+                        "share": b / entries[name]["ms"],
+                        "operations_bound_ms": entries[name]["bound_ms"]}
+    return ns, bounds
+
+
 # the micro-probes' cases that keep their words in registers, and the
 # arithmetic one rep does to a word: "IADD" counts VIADD and IADD3
 PROBE_REGISTER_CASES = {
@@ -634,8 +693,10 @@ def probes_phase(card):
                        "cases": {r["case"]: {k: r[k] for k in (
                            "n_ops", "r1", "r2", "t1_ms", "t2_ms", "ns_per_op", "telem_s",
                            "telem_s_per_sm")} for r in rows}}
+    latency_ns, chain_bounds = probe_chain_bounds(entries)
     say("probes", card=card, bit_equal=True, seconds=round(time.time() - t_phase, 1),
-        probes=lines, register_rep_loops=probe_sass(), kernels=list(entries.values()))
+        probes=lines, register_rep_loops=probe_sass(), latency_ns=latency_ns,
+        chain_bounds=chain_bounds, kernels=list(entries.values()))
     return entries
 
 
@@ -718,7 +779,8 @@ def ptxas_kernel(entry, probes=False):
                 (r"ccl_stats_persistent()", "ccl_stats_persistent"),
                 (r"k6_frameILi(\d+)ELb([01])E", "k6_frame"),
                 (r"\d(ccl4_(?:occ|tiles|local|border|labels))E", None),
-                (r"\d(edt_(?:cols|rows)_kernel)", None),
+                (r"edt_band_kernelILb([01])ELb([01])E", "edt_band_kernel"),
+                (r"edt_round_rows_kernelILb([01])E", "edt_round_rows_kernel"),
                 (r"\d(bgr2gray_(?:u8|f32)_vec)", None),
                 (r"bgr2gray_pxI([hf])E", "bgr2gray_px"),
                 (r"warp_affine_kernelI([hf])Li(\d)ELb([01])E", "warp_affine_kernel"),
@@ -2614,11 +2676,16 @@ def filter_kernel_checks(shape, masks, err):
     """KM, KW, KR and KE against their plain versions on the card, bit for
     bit, on random frames of shape (N, H, W) and BGR (three independent
     channels: equal ones would hide a wrong weight order) and on K1's masks
-    of the phase's frames; the max abs differences folded into err."""
+    of the phase's frames; KW on a map of each of its routes (every tile
+    staged, some tiles gathering); KE also on scenes.edt_large_scenes (sums
+    past 2^24, 8K UHD, a row wider than shared memory, 65,536 masks in two
+    launches), its passes equal the loop's; the max abs differences folded
+    into err."""
     from tpuva_torch.ops import color, resize, warp
     from tpuva_torch.ops.distance import (
-        distance_transform_edt, edt_sq_passes, edt_sq_passes_plain,
+        distance_transform_edt, edt_kernel, edt_sq_passes, edt_sq_passes_plain,
     )
+    from tpuva_torch.scenes import edt_large_scenes
 
     dev = torch.device("cuda")
     rng = np.random.default_rng(40)
@@ -2641,22 +2708,40 @@ def filter_kernel_checks(shape, masks, err):
             check_equal(err, "resize_linear", [
                 (f"{size} {what}", resize.resize_linear(frames, size),
                  resize.resize_linear_plain(frames, size))], "random 1080p frames")
+    # KW's two routes at 1080p: FilterRotate's map stages every tile's
+    # footprint, a 4x down-scale gathers from global memory
+    routes = {}
+    for case, kw in (("rotate_7.5", kw_cases_1080()["rotate_7.5"]),
+                     ("down_4x", dict(M=[[0.25, 0.0, 3.0], [0.0, 0.25, 1.0]], out_size=(480, 270),
+                                      border_value=5.0))):
+        got, r = warp.warp_affine_routes(bgr, **kw)
+        ref = warp.warp_affine_plain(bgr, **kw)
+        check_equal(err, "warp_affine", [(f"{case} routes", got, ref)], "random 1080p BGR")
+        routes[case] = list(r)
+    if routes["rotate_7.5"][1] != 0 or routes["down_4x"][1] == 0:
+        raise AssertionError(f"KW's routes (shared, direct tiles): {routes}")
     passes = {}
     _N, H, W = shape
-    for what, m in (("K1's masks", masks),
-                    ("all foreground", torch.ones((1, H, W), dtype=torch.uint8, device=dev)),
-                    ("all background", torch.zeros((1, H, W), dtype=torch.uint8, device=dev))):
+    cases = [("K1's masks", masks),
+             ("all foreground", torch.ones((1, H, W), dtype=torch.uint8, device=dev)),
+             ("all background", torch.zeros((1, H, W), dtype=torch.uint8, device=dev))]
+    cases += [(name, torch.from_numpy(m).to(dev)) for name, m in edt_large_scenes().items()]
+    for what, m in cases:
+        before = edt_kernel.launches
         sq, p = edt_sq_passes(m)
+        n_launch = edt_kernel.launches - before
         ref, ref_p = edt_sq_passes_plain(m)
         check_equal(err, "edt", [("squared", finite(sq), finite(ref)),
                                  ("distance", finite(distance_transform_edt(m)),
                                   finite(torch.sqrt(ref)))], what)
         if p != ref_p:
             raise AssertionError(f"KE's passes {p} differ from the plain loop's {ref_p} ({what})")
-        passes[what] = list(p)
+        passes[what] = list(p) + [n_launch]
+    if passes["masks_65536x5x7"][2] != 2:
+        raise AssertionError("KE did not split 65,536 masks over two launches")
     return {"bit_equal": ["bgr_to_gray", "warp_affine", "resize_linear", "edt"],
             "kw_cases": sorted(kw_cases_1080()), "kr_sizes": [list(v) for v in KR_SIZES_1080],
-            "edt_passes": passes}
+            "kw_routes_shared_direct": routes, "edt_passes_cols_rows_launches": passes}
 
 
 def filter_kernel_timing(shape, batch, masks, reps=5):

@@ -85,7 +85,7 @@ def test_edt_model_pass_counts():
 def test_edt_cpu_calls_take_the_plain_loop():
     """distance_transform_edt(_sq) and edt_sq_passes on CPU tensors, any
     dtype, equal the plain loop and launch nothing; edt_kernel refuses a
-    CPU tensor and masks past 4096 px a side."""
+    CPU tensor."""
     m = EDT_CASES["density_0.2"]
     before = distance.edt_kernel.launches
     ref, passes = distance.edt_sq_passes_plain(torch.from_numpy(m))

@@ -66,11 +66,11 @@ from tpuva_torch.ops.fused_segment import (
 )
 from tpuva_torch.ops.label import _stats_dict, label_components, relabel_dense, root_stats_plain
 from tpuva_torch.ops.wide import blur_u8, morph_u8
-from tpuva_torch.probes import cell_probe, i16_probe, repos_probe, roll_probe
+from tpuva_torch.probes import cell_probe, i16_probe, latency_probe, repos_probe, roll_probe
 from tpuva_torch.probes._timing import timeit
 from tpuva_torch.scenes import (
     DET_KINDS, K1_REFUSED, ROOT_STATS_OPTIONS, conn4_scene, det_sequence, edge_strip_scene,
-    edt_scenes, k1_refused_config, median_adversarial, mixed_scene, u_shape,
+    edt_large_scenes, edt_scenes, k1_refused_config, median_adversarial, mixed_scene, u_shape,
 )
 from tpuva_torch.track.scan import scan_plan, track_scan, track_scan_plain
 from tpuva_torch.track.table import TrackState, init_track_state
@@ -1377,17 +1377,18 @@ def random_masks(shape, densities, seed):
     return np.stack([(rng.random(shape) < d).astype(np.uint8) for d in densities])
 
 
-def check_edt(mask):
+def check_edt(mask, launches=1):
     """KE's squared EDT, its EDT and its pass counts against the plain loop
-    on the card, one launch a call."""
+    on the card, `launches` launches a call."""
     before = distance.edt_kernel.launches
     sq, passes = distance.edt_sq_passes(mask)
     d = distance.distance_transform_edt(mask)
-    assert distance.edt_kernel.launches - before == 2
+    assert distance.edt_kernel.launches - before == 2 * launches
     ref, ref_passes = distance.edt_sq_passes_plain(mask)
     assert sq.dtype == d.dtype == torch.float32
     assert torch.equal(sq, ref) and passes == ref_passes
     assert torch.equal(d, torch.sqrt(ref))
+    return ref
 
 
 @pytest.mark.gpu
@@ -1411,10 +1412,26 @@ def test_edt_kernel_matches_plain_at_1080p(cuda_device):
 
 
 @pytest.mark.gpu
-def test_edt_kernel_refuses_past_4096(cuda_device):
-    with pytest.raises(ValueError):
-        distance.distance_transform_edt(torch.ones((1, 4097, 8), dtype=torch.uint8,
-                                                   device=cuda_device))
+@pytest.mark.parametrize("name", ["single_zero_4096x94", "single_zero_2898x2898", "tall_5000x3",
+                                  "motion_4320x7680", "rows_3x25600", "rows_3x28672",
+                                  "row_1x70000", "masks_65536x5x7"])
+def test_edt_kernel_matches_plain_past_4096(cuda_device, name):
+    """KE at sizes the parent refused or rounded differently: the F3 masks
+    (sums past 2^24: the row loop's rounding tier), column distances past
+    4096 (the f table), 8K UHD, the widest row in shared memory (a band of
+    one row: 9 W bytes) and rows past it (global rows), 65,536 masks (two
+    launches a call)."""
+    m = torch.from_numpy(edt_large_scenes()[name]).to(cuda_device)
+    ref = check_edt(m, launches=2 if name.startswith("masks_") else 1)
+    if name == "single_zero_4096x94":
+        assert ref[4095, 93].item() == 16_777_672
+    if name == "tall_5000x3":
+        f = distance.f_table(5000)[4999]
+        assert ref[4999, 1].item() == f and int(f) != 4999**2
+    if name == "rows_3x25600":
+        assert ref[0].max().item() >= 2**24
+    if name in ("single_zero_2898x2898", "row_1x70000"):
+        assert ref.max().item() >= 2**24
 
 
 def bgr_frames(shape, seed, dtype=np.uint8):
@@ -1479,6 +1496,46 @@ def test_warp_affine_kernel_matches_plain_at_1080p(cuda_device):
         for kw in (dict(), dict(out_size=(1600, 900), border_value=7.0),
                    dict(border="replicate")):
             assert torch.equal(warp.warp_affine(x, M, **kw), warp.warp_affine_plain(x, M, **kw))
+
+
+@pytest.mark.gpu
+def test_latency_probe_kernel_matches_plain(cuda_device):
+    """Each latency-probe case bit-equal to its plain version, one launch a
+    call, and its time grows with the reps."""
+    x = latency_probe.make_tile().to(cuda_device)
+    for case in latency_probe.CASES:
+        for reps in latency_probe.CHECK_REPS:
+            before = latency_probe.run.launches
+            got = latency_probe.run(x, case.name, reps)
+            assert latency_probe.run.launches - before == 1
+            assert torch.equal(got.cpu(), latency_probe.plain(x.cpu(), case.name, reps)), case
+    assert all(ns > 0 for ns in latency_probe.measure(cuda_device, iters=1).values())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("route", ["shared", "direct"])
+def test_warp_affine_kernel_routes(cuda_device, route):
+    """KW's two routes at 1080p, each bit-equal to the plain version: under
+    FilterRotate(angle=7.5)'s map every uint8 tile (and float32 gray tile)
+    stages its footprint in shared memory; under a 4x down-scale the tiles
+    gather from global memory (all but the short bottom row of tiles). The
+    routes cover the tiles once."""
+    if route == "shared":
+        kw = dict(M=warp.rotation_matrix((959.5, 539.5), 7.5))
+    else:
+        kw = dict(M=[[0.25, 0.0, 3.0], [0.0, 0.25, 1.0]], out_size=(480, 270), border_value=5.0)
+    for shape in ((3, 1080, 1920), (2, 1080, 1920, 3)):
+        for dtype in (np.uint8, np.float32):
+            x = torch.from_numpy(bgr_frames(shape, 8, dtype)).to(cuda_device)
+            got, (staged, direct) = warp.warp_affine_routes(x, **kw)
+            assert torch.equal(got, warp.warp_affine_plain(x, **kw)), (shape, dtype)
+            plan = warp.warp_plan(x.shape, kw["M"], kw.get("out_size"))
+            tw, th = warp.KW_TILE
+            assert staged + direct == -(-plan.wo // tw) * -(-plan.ho // th)
+            if route == "direct":
+                assert direct > 0
+            elif dtype == np.uint8 or len(shape) == 3:
+                assert direct == 0
 
 
 @pytest.mark.gpu

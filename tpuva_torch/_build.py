@@ -146,7 +146,8 @@ _SIGNATURES = {
         _P,  # stream
     ],
     "tpuva_edt": [
-        _P, _P, _P, _P,  # mask (uint8), cols (uint16 scratch), out, passes (int32[2])
+        _P, _P, _P,  # mask (uint8), out, ftab (float32[H] or null)
+        _P, _P, _P,  # scratch (or null), list (flagged rows, or null), passes (int32[2])
         _I, _I, _I, _I,  # L, H, W, root
         _P,  # stream
     ],
@@ -160,6 +161,7 @@ _SIGNATURES = {
         _P, _P, _I, _I, _I, _I, _I, _I,  # x, out, L, H, W, C, ho, wo
         _I, _I,  # is_float, constant
         _F, _F, _F, _F, _F, _F, _F,  # the inverse map (ia, ib, ic, id, ie, if), border value
+        _P,  # routes (int32[2] tiles a route, or null)
         _P,  # stream
     ],
     "tpuva_resize_linear": [
@@ -168,9 +170,10 @@ _SIGNATURES = {
         _P,  # stream
     ],
 }
-# the micro-probes P1-P4 (csrc/probes.cu): x, out, reps, case, stream
+# the micro-probes P1-P4 and the latency probe (csrc/probes.cu): x, out, reps, case, stream
 _SIGNATURES.update({
-    f"tpuva_probe_{name}": [_P, _P, _I, _I, _P] for name in ("repos", "roll", "i16", "cell")
+    f"tpuva_probe_{name}": [_P, _P, _I, _I, _P]
+    for name in ("repos", "roll", "i16", "cell", "latency")
 })
 
 

@@ -26,10 +26,20 @@
 //   not 16-byte aligned (a ring slot at any offset), or for the pixels
 //   past the last whole piece, a thread a pixel (ops/color.py::mono_plan
 //   splits the two).
-// - KW: a thread an output pixel (32 x 8 a CTA; grid z the images): the
-//   sample coordinates once, then the four corners of each image and
-//   channel gathered from the input (L2 holds the neighbourhood), each
-//   masked on its own under the constant border.
+// - KW: a CTA a 64 x 32 output tile across all the images, a thread 4 of
+//   its pixels. Each pixel's sample coordinates, clamped corners, border
+//   flags and weights are computed once, in tpuva's source order, and
+//   kept in registers; a tile whose corners all lie in the image skips the
+//   border value's selects. The tile's source footprint (the bounding box of
+//   its clamped corners, the same for every image) is staged per image
+//   into shared memory by 16-byte cp.async loads, double-buffered across
+//   the images; the corners are read from there and the results go
+//   through a shared output tile to 16-byte stores of consecutive output
+//   bytes. A tile whose footprint exceeds a buffer (strong down-scaling
+//   or shear, an out_size far from the input) gathers its corners from
+//   global memory instead, in the same kernel: a route chosen per tile
+//   from the map. Rows whose byte length is not a multiple of 16 take
+//   byte-wise copies.
 // - KR: a thread an output pixel: the H pass at the two columns that the
 //   W pass takes (four gathered inputs), rounded to float32 as the plain
 //   version's intermediate is, then the W pass; an axis whose size stays
@@ -38,6 +48,7 @@
 
 #include <cstdint>
 #include <cuda_runtime.h>
+#include <type_traits>
 
 namespace {
 
@@ -115,53 +126,237 @@ bgr2gray_px(const T* __restrict__ x, T* __restrict__ out, long long start, long 
   }
 }
 
+// KW: a 64 x 32 output tile, 4 pixels a thread, two CTAs an SM
+constexpr int kWarpTX = 64;
+constexpr int kWarpTY = 32;
+constexpr int kWarpThreads = 512;
+constexpr int kWarpPx = kWarpTX * kWarpTY / kWarpThreads;
+constexpr int kFootBytes = 16384;  // one image's footprint; two buffers
+
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
+  const unsigned dst = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(dst), "l"(gmem));
+}
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+// a uint8 or float32 sample as float32 (a byte exactly, without the
+// quarter-rate conversion: 2^23 + b less 2^23)
+__device__ __forceinline__ float sample(const uint8_t* p) {
+  return __fsub_rn(__uint_as_float(0x4b000000u | *p), 8388608.0f);
+}
+__device__ __forceinline__ float sample(const float* p) { return *p; }
+
+// the stored value: uint8 rounded half to even and clamped (clamped first,
+// then 2^23 added: the same byte as rintf then the clamp), or float32
+__device__ __forceinline__ void put(uint8_t* p, float v) {
+  *p = static_cast<uint8_t>(__float_as_uint(__fadd_rn(fminf(fmaxf(v, 0.0f), 255.0f), 8388608.0f)));
+}
+__device__ __forceinline__ void put(float* p, float v) { *p = v; }
+
+// a pixel's flags: valid, xb > xa, yb > ya, then the four corners inside
+// the image (00, 01, 10, 11)
+enum : uint32_t { kValid = 1, kDx = 2, kDy = 4, kOk00 = 8, kOk01 = 16, kOk10 = 32, kOk11 = 64 };
+
+// the lerps of one channel from its four corners, tpuva's order
+template <bool kConstant>
+__device__ __forceinline__ float lerp4(float g00, float g01, float g10, float g11, uint32_t bits,
+                                       float fx, float fy, float bv) {
+  if (kConstant) {
+    if (!(bits & kOk00)) g00 = bv;
+    if (!(bits & kOk01)) g01 = bv;
+    if (!(bits & kOk10)) g10 = bv;
+    if (!(bits & kOk11)) g11 = bv;
+  }
+  const float top = __fadd_rn(g00, __fmul_rn(fx, __fsub_rn(g01, g00)));
+  const float bot = __fadd_rn(g10, __fmul_rn(fx, __fsub_rn(g11, g10)));
+  return __fadd_rn(top, __fmul_rn(fy, __fsub_rn(bot, top)));
+}
+
 // KW: images (L, H, W, C) -> (L, ho, wo, C); (ia ib ic; id ie if_) the
-// inverse map dst -> src in float32
+// inverse map dst -> src in float32. vec_in: x and its rows 16-byte
+// aligned; vec_out: out and its rows likewise. routes (or null) counts
+// the tiles of each route: [shared footprint, direct gather].
 template <typename T, int C, bool kConstant>
-__global__ void __launch_bounds__(kTileX * kTileY)
+__global__ void __launch_bounds__(kWarpThreads, 2)
 warp_affine_kernel(const T* __restrict__ x, T* __restrict__ out, int L, int H, int W, int ho,
-                   int wo, float ia, float ib, float ic, float id, float ie, float if_,
-                   float bv) {
-  const int xo = blockIdx.x * kTileX + threadIdx.x;
-  const int yo = blockIdx.y * kTileY + threadIdx.y;
-  if (xo >= wo || yo >= ho) return;
-  const float fxo = static_cast<float>(xo), fyo = static_cast<float>(yo);
-  const float sx = __fadd_rn(__fadd_rn(__fmul_rn(ia, fxo), __fmul_rn(ib, fyo)), ic);
-  const float sy = __fadd_rn(__fadd_rn(__fmul_rn(id, fxo), __fmul_rn(ie, fyo)), if_);
-  const float x0f = floorf(sx), y0f = floorf(sy);
-  const float fx = __fsub_rn(sx, x0f), fy = __fsub_rn(sy, y0f);
-  // The floors clamped to [-2, W + 1] and [-2, H + 1] before the integer
-  // conversion: every corner outside the image stays outside (so the same
-  // border mask) and clamps to the same edge pixel as the plain version's
-  // int64 floor, and no conversion overflows.
-  const int x0 = static_cast<int>(fminf(fmaxf(x0f, -2.0f), static_cast<float>(W) + 1.0f));
-  const int y0 = static_cast<int>(fminf(fmaxf(y0f, -2.0f), static_cast<float>(H) + 1.0f));
-  const int xa = min(max(x0, 0), W - 1), xb = min(max(x0 + 1, 0), W - 1);
-  const int ya = min(max(y0, 0), H - 1), yb = min(max(y0 + 1, 0), H - 1);
-  const bool okx0 = x0 >= 0 && x0 < W, okx1 = x0 + 1 >= 0 && x0 + 1 < W;
-  const bool oky0 = y0 >= 0 && y0 < H, oky1 = y0 + 1 >= 0 && y0 + 1 < H;
-  const long long plane = static_cast<long long>(H) * W * C;
-  const long long i00 = (static_cast<long long>(ya) * W + xa) * C;
-  const long long i01 = (static_cast<long long>(ya) * W + xb) * C;
-  const long long i10 = (static_cast<long long>(yb) * W + xa) * C;
-  const long long i11 = (static_cast<long long>(yb) * W + xb) * C;
-  const long long o = (static_cast<long long>(yo) * wo + xo) * C;
-  const long long oplane = static_cast<long long>(ho) * wo * C;
-  for (int n = blockIdx.z; n < L; n += gridDim.z) {
-    const T* img = x + n * plane;
+                   int wo, float ia, float ib, float ic, float id, float ie, float if_, float bv,
+                   int vec_in, int vec_out, int* __restrict__ routes) {
+  constexpr int kPx = C * static_cast<int>(sizeof(T));  // bytes a pixel
+  extern __shared__ uint4 kw_smem[];
+  uint8_t* foot = reinterpret_cast<uint8_t*>(kw_smem);
+  T* otile = reinterpret_cast<T*>(foot + 2 * kFootBytes);
+  __shared__ int box[4];  // the footprint: min ya, max yb, min xa, max xb
+  if (threadIdx.x == 0) box[0] = box[2] = 0x7fffffff, box[1] = box[3] = -1;
+  const int tx0 = blockIdx.x * kWarpTX, ty0 = blockIdx.y * kWarpTY;
+
+  int xa[kWarpPx], ya[kWarpPx];
+  uint32_t bits[kWarpPx];
+  float fx[kWarpPx], fy[kWarpPx];
+  int lo_y = 0x7fffffff, hi_y = -1, lo_x = 0x7fffffff, hi_x = -1;
 #pragma unroll
-    for (int c = 0; c < C; ++c) {
-      float g00 = load_f(img + i00 + c), g01 = load_f(img + i01 + c);
-      float g10 = load_f(img + i10 + c), g11 = load_f(img + i11 + c);
-      if (kConstant) {
-        if (!(okx0 && oky0)) g00 = bv;
-        if (!(okx1 && oky0)) g01 = bv;
-        if (!(okx0 && oky1)) g10 = bv;
-        if (!(okx1 && oky1)) g11 = bv;
+  for (int k = 0; k < kWarpPx; ++k) {
+    const int p = threadIdx.x + k * kWarpThreads;
+    const int xo = tx0 + p % kWarpTX, yo = ty0 + p / kWarpTX;
+    bits[k] = 0;
+    xa[k] = ya[k] = 0;
+    fx[k] = fy[k] = 0.0f;
+    if (xo < wo && yo < ho) {
+      const float fxo = static_cast<float>(xo), fyo = static_cast<float>(yo);
+      const float sx = __fadd_rn(__fadd_rn(__fmul_rn(ia, fxo), __fmul_rn(ib, fyo)), ic);
+      const float sy = __fadd_rn(__fadd_rn(__fmul_rn(id, fxo), __fmul_rn(ie, fyo)), if_);
+      const float x0f = floorf(sx), y0f = floorf(sy);
+      fx[k] = __fsub_rn(sx, x0f);
+      fy[k] = __fsub_rn(sy, y0f);
+      // The floors clamped to [-2, W + 1] and [-2, H + 1] before the
+      // integer conversion: every corner outside the image stays outside
+      // (so the same border mask) and clamps to the same edge pixel as the
+      // plain version's int64 floor, and no conversion overflows.
+      const int x0 = static_cast<int>(fminf(fmaxf(x0f, -2.0f), static_cast<float>(W) + 1.0f));
+      const int y0 = static_cast<int>(fminf(fmaxf(y0f, -2.0f), static_cast<float>(H) + 1.0f));
+      const int a = min(max(x0, 0), W - 1), b = min(max(x0 + 1, 0), W - 1);
+      const int c = min(max(y0, 0), H - 1), d = min(max(y0 + 1, 0), H - 1);
+      const bool okx0 = x0 >= 0 && x0 < W, okx1 = x0 + 1 >= 0 && x0 + 1 < W;
+      const bool oky0 = y0 >= 0 && y0 < H, oky1 = y0 + 1 >= 0 && y0 + 1 < H;
+      xa[k] = a;
+      ya[k] = c;
+      bits[k] = kValid | (b > a ? kDx : 0u) | (d > c ? kDy : 0u) | (okx0 && oky0 ? kOk00 : 0u) |
+                (okx1 && oky0 ? kOk01 : 0u) | (okx0 && oky1 ? kOk10 : 0u) |
+                (okx1 && oky1 ? kOk11 : 0u);
+      lo_y = min(lo_y, c), hi_y = max(hi_y, d), lo_x = min(lo_x, a), hi_x = max(hi_x, b);
+    }
+  }
+  bool inside = true;  // every corner of this thread's pixels lies in the image
+#pragma unroll
+  for (int k = 0; k < kWarpPx; ++k)
+    inside &= !(bits[k] & kValid) || (bits[k] & (kOk00 | kOk01 | kOk10 | kOk11)) ==
+                                         (kOk00 | kOk01 | kOk10 | kOk11);
+  lo_y = __reduce_min_sync(0xffffffffu, lo_y);
+  hi_y = __reduce_max_sync(0xffffffffu, hi_y);
+  lo_x = __reduce_min_sync(0xffffffffu, lo_x);
+  hi_x = __reduce_max_sync(0xffffffffu, hi_x);
+  // a tile whose corners all lie in the image needs no border value (the
+  // barrier also orders thread 0's box before the atomics below)
+  const bool all_inside = __syncthreads_and(inside);
+  const bool select = kConstant && !all_inside;
+  if ((threadIdx.x & 31) == 0 && hi_y >= 0) {
+    atomicMin(&box[0], lo_y);
+    atomicMax(&box[1], hi_y);
+    atomicMin(&box[2], lo_x);
+    atomicMax(&box[3], hi_x);
+  }
+  __syncthreads();
+  const int fy0 = box[0], fh = box[1] - box[0] + 1;
+  // the footprint's bytes of a row: [a0, a0 + pitch), 16-byte aligned on vec_in
+  int a0 = box[2] * kPx, a1 = (box[3] + 1) * kPx;
+  if (vec_in) a0 &= ~15, a1 = (a1 + 15) & ~15;
+  const int pitch = a1 - a0;
+  const bool fits = static_cast<long long>(fh) * pitch <= kFootBytes;
+  if (routes && threadIdx.x == 0) atomicAdd(&routes[fits ? 0 : 1], 1);
+
+  const long long row_bytes = static_cast<long long>(W) * kPx;
+  const long long plane_bytes = row_bytes * H;
+  const long long oplane = static_cast<long long>(ho) * wo * C;
+  const uint8_t* xb = reinterpret_cast<const uint8_t*>(x);
+  const int nx = min(kWarpTX, wo - tx0), ny = min(kWarpTY, ho - ty0);
+
+  // image n's footprint into buffer buf (cp.async groups on vec_in)
+  auto stage = [&](int n, int buf) {
+    const uint8_t* src = xb + n * plane_bytes + fy0 * row_bytes + a0;
+    uint8_t* dst = foot + buf * kFootBytes;
+    if (vec_in) {
+      const int q = pitch / 16;
+      for (int i = threadIdx.x; i < fh * q; i += kWarpThreads) {
+        const int r = i / q, c = i - r * q;
+        cp_async16(dst + r * pitch + 16 * c, src + r * row_bytes + 16 * c);
       }
-      const float top = __fadd_rn(g00, __fmul_rn(fx, __fsub_rn(g01, g00)));
-      const float bot = __fadd_rn(g10, __fmul_rn(fx, __fsub_rn(g11, g10)));
-      store(out + n * oplane + o + c, __fadd_rn(top, __fmul_rn(fy, __fsub_rn(bot, top))));
+      cp_async_commit();
+    } else {
+      for (int r = 0; r < fh; ++r)
+        for (int c = threadIdx.x; c < pitch; c += kWarpThreads)
+          dst[r * pitch + c] = src[r * row_bytes + c];
+    }
+  };
+  // the output tile of image n to global memory
+  auto flush = [&](int n) {
+    uint8_t* ob = reinterpret_cast<uint8_t*>(out + n * oplane);
+    const uint8_t* tb = reinterpret_cast<const uint8_t*>(otile);
+    const int rb = nx * kPx;  // a multiple of 16 on vec_out
+    if (vec_out) {
+      const int q = rb / 16;
+      for (int i = threadIdx.x; i < ny * q; i += kWarpThreads) {
+        const int r = i / q, c = i - r * q;
+        *reinterpret_cast<uint4*>(ob + ((static_cast<long long>(ty0 + r) * wo + tx0) * kPx) +
+                                  16 * c) =
+            *reinterpret_cast<const uint4*>(tb + r * (kWarpTX * kPx) + 16 * c);
+      }
+    } else {
+      for (int r = 0; r < ny; ++r)
+        for (int c = threadIdx.x; c < rb; c += kWarpThreads)
+          ob[(static_cast<long long>(ty0 + r) * wo + tx0) * kPx + c] = tb[r * (kWarpTX * kPx) + c];
+    }
+  };
+
+  if (fits) {
+    stage(0, 0);
+    for (int n = 0; n < L; ++n) {
+      if (n + 1 < L) {
+        stage(n + 1, (n + 1) & 1);
+        if (vec_in) cp_async_wait<1>();
+      } else if (vec_in) {
+        cp_async_wait<0>();
+      }
+      __syncthreads();
+      const uint8_t* fb = foot + (n & 1) * kFootBytes;
+      auto frame = [&](auto sel) {
+#pragma unroll
+        for (int k = 0; k < kWarpPx; ++k) {
+          if (!(bits[k] & kValid)) continue;
+          const int p = threadIdx.x + k * kWarpThreads;
+          const uint8_t* q00 = fb + (ya[k] - fy0) * pitch + xa[k] * kPx - a0;
+          const int dx = bits[k] & kDx ? kPx : 0, dy = bits[k] & kDy ? pitch : 0;
+#pragma unroll
+          for (int c = 0; c < C; ++c) {
+            const float g00 = sample(reinterpret_cast<const T*>(q00) + c);
+            const float g01 = sample(reinterpret_cast<const T*>(q00 + dx) + c);
+            const float g10 = sample(reinterpret_cast<const T*>(q00 + dy) + c);
+            const float g11 = sample(reinterpret_cast<const T*>(q00 + dx + dy) + c);
+            put(otile + p * C + c,
+                lerp4<decltype(sel)::value>(g00, g01, g10, g11, bits[k], fx[k], fy[k], bv));
+          }
+        }
+      };
+      if (select) frame(std::true_type{});
+      else frame(std::false_type{});
+      __syncthreads();
+      flush(n);
+    }
+  } else {
+    for (int n = 0; n < L; ++n) {
+      const T* img = x + n * (plane_bytes / static_cast<long long>(sizeof(T)));
+#pragma unroll
+      for (int k = 0; k < kWarpPx; ++k) {
+        if (!(bits[k] & kValid)) continue;
+        const int p = threadIdx.x + k * kWarpThreads;
+        const long long i00 = (static_cast<long long>(ya[k]) * W + xa[k]) * C;
+        const long long dx = bits[k] & kDx ? C : 0;
+        const long long dy = bits[k] & kDy ? static_cast<long long>(W) * C : 0;
+#pragma unroll
+        for (int c = 0; c < C; ++c) {
+          const T* t00 = img + i00 + c;
+          const float g00 = sample(t00), g01 = sample(t00 + dx);
+          const float g10 = sample(t00 + dy), g11 = sample(t00 + dx + dy);
+          put(otile + p * C + c,
+              select ? lerp4<true>(g00, g01, g10, g11, bits[k], fx[k], fy[k], bv)
+                     : lerp4<false>(g00, g01, g10, g11, bits[k], fx[k], fy[k], bv));
+        }
+      }
+      __syncthreads();
+      flush(n);
+      __syncthreads();
     }
   }
 }
@@ -220,18 +415,23 @@ dim3 tile_grid(int w, int h, int L) {
 }
 
 template <typename T, int C>
-void launch_warp(const void* x, void* out, int L, int H, int W, int ho, int wo, int constant,
-                 float ia, float ib, float ic, float id, float ie, float if_, float bv,
-                 cudaStream_t s) {
-  const dim3 grid = tile_grid(wo, ho, L), block(kTileX, kTileY);
+cudaError_t launch_warp(const void* x, void* out, int L, int H, int W, int ho, int wo,
+                        int constant, float ia, float ib, float ic, float id, float ie, float if_,
+                        float bv, int* routes, cudaStream_t s) {
+  const dim3 grid((wo + kWarpTX - 1) / kWarpTX, (ho + kWarpTY - 1) / kWarpTY);
+  const int smem = 2 * kFootBytes + kWarpTX * kWarpTY * C * static_cast<int>(sizeof(T));
+  const long long px = C * static_cast<long long>(sizeof(T));
+  const int vec_in = (W * px) % 16 == 0 && reinterpret_cast<uintptr_t>(x) % 16 == 0;
+  const int vec_out = (wo * px) % 16 == 0 && reinterpret_cast<uintptr_t>(out) % 16 == 0;
   const T* xi = static_cast<const T*>(x);
   T* o = static_cast<T*>(out);
-  if (constant)
-    warp_affine_kernel<T, C, true><<<grid, block, 0, s>>>(xi, o, L, H, W, ho, wo, ia, ib, ic,
-                                                          id, ie, if_, bv);
-  else
-    warp_affine_kernel<T, C, false><<<grid, block, 0, s>>>(xi, o, L, H, W, ho, wo, ia, ib, ic,
-                                                           id, ie, if_, bv);
+  const auto k = constant ? warp_affine_kernel<T, C, true> : warp_affine_kernel<T, C, false>;
+  const cudaError_t err =
+      cudaFuncSetAttribute(k, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  k<<<grid, kWarpThreads, smem, s>>>(xi, o, L, H, W, ho, wo, ia, ib, ic, id, ie, if_, bv, vec_in,
+                                     vec_out, routes);
+  return cudaGetLastError();
 }
 
 template <typename T, int C>
@@ -275,23 +475,29 @@ extern "C" int tpuva_bgr2gray(const void* x, void* out, long long P, long long p
 
 // KW: x (L, H, W, C) -> out (L, ho, wo, C), C 1 or 3, uint8 or float32;
 // (ia ib ic; id ie if_) the float32 inverse map, constant (1, with
-// border value bv) or replicate (0) border. Returns cudaGetLastError().
+// border value bv) or replicate (0) border; routes int32[2] (or null)
+// receives the tiles that staged their footprint and those that gathered
+// directly. Returns cudaGetLastError().
 extern "C" int tpuva_warp_affine(const void* x, void* out, int L, int H, int W, int C, int ho,
                                  int wo, int is_float, int constant, float ia, float ib,
-                                 float ic, float id, float ie, float if_, float bv,
+                                 float ic, float id, float ie, float if_, float bv, int* routes,
                                  void* stream) {
   if (L <= 0 || H <= 0 || W <= 0 || ho <= 0 || wo <= 0 || (C != 1 && C != 3) ||
-      H >= (1 << 24) || W >= (1 << 24))
+      H >= (1 << 24) || W >= (1 << 24) || (ho + kWarpTY - 1) / kWarpTY > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (is_float) {
-    if (C == 3) launch_warp<float, 3>(x, out, L, H, W, ho, wo, constant, ia, ib, ic, id, ie, if_, bv, s);
-    else launch_warp<float, 1>(x, out, L, H, W, ho, wo, constant, ia, ib, ic, id, ie, if_, bv, s);
-  } else {
-    if (C == 3) launch_warp<uint8_t, 3>(x, out, L, H, W, ho, wo, constant, ia, ib, ic, id, ie, if_, bv, s);
-    else launch_warp<uint8_t, 1>(x, out, L, H, W, ho, wo, constant, ia, ib, ic, id, ie, if_, bv, s);
-  }
-  return static_cast<int>(cudaGetLastError());
+  cudaError_t err;
+  if (is_float)
+    err = C == 3 ? launch_warp<float, 3>(x, out, L, H, W, ho, wo, constant, ia, ib, ic, id, ie,
+                                         if_, bv, routes, s)
+                 : launch_warp<float, 1>(x, out, L, H, W, ho, wo, constant, ia, ib, ic, id, ie,
+                                         if_, bv, routes, s);
+  else
+    err = C == 3 ? launch_warp<uint8_t, 3>(x, out, L, H, W, ho, wo, constant, ia, ib, ic, id, ie,
+                                           if_, bv, routes, s)
+                 : launch_warp<uint8_t, 1>(x, out, L, H, W, ho, wo, constant, ia, ib, ic, id, ie,
+                                           if_, bv, routes, s);
+  return static_cast<int>(err);
 }
 
 // KR: x (N, H, W, C) -> out (N, h, w, C), C 1 or 3, uint8 or float32;

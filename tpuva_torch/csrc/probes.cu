@@ -453,6 +453,67 @@ kernel(const int* __restrict__ x, int* __restrict__ out, int reps) {
 }
 }  // namespace cell
 
+// ---------------------------------------------------------- latencies
+// The latency probe. It replaces no TPU kernel: PERF.md bounds each of
+// P1-P4 by the chain of dependent operations of its rep (reps x the
+// chain's latency), and this measures those latencies on the card. One
+// thread of CTA 0 runs `reps` dependent operations of a kind on x, an
+// int32[1024] single-cycle permutation (x[i] the next index of a chase):
+// a float32 add, the cast-hop f -> int32 -> f + 1, a shared-memory load,
+// a load from the other CTA's shared memory of a 2-CTA cluster; or every
+// thread of a CTA or a 4- or 8-CTA cluster `reps` barriers. out is x with
+// out[0] the chain's last value (reps for the barriers). Bound: the chain
+// itself, so no bound but its own latency. No min/max case: ptxas
+// regroups a chain of them against operands that do not depend on it
+// (the SASS showed min/max off the chain), so it times no latency.
+namespace lat {
+constexpr int kN = 1024;
+constexpr int kCtas[] = {1, 1, 1, 2, 1, 4, 8};
+
+template <int CASE>
+__global__ void __launch_bounds__(kThreads, 1)
+kernel(const int* __restrict__ x, int* __restrict__ out, int reps) {
+  __shared__ int s[kN];
+  for (int e = threadIdx.x; e < kN; e += kThreads) s[e] = x[e];
+  constexpr bool kCluster = kCtas[CASE] > 1;
+  if constexpr (kCluster) cg::this_cluster().sync();
+  else __syncthreads();
+  int v = reps;
+  if constexpr (CASE <= 3) {
+    // 16 dependent operations an iteration (a loop's own add, compare and
+    // branch would otherwise count in each operation's time), then the rest
+    if (blockIdx.x == 0 && threadIdx.x == 0) {
+      if constexpr (CASE <= 1) {
+        float f = static_cast<float>(s[0]);
+#pragma unroll 16
+        for (int r = 0; r < reps; ++r) {
+          if constexpr (CASE == 0) f = __fadd_rn(f, 1.0f);
+          else f = __fadd_rn(__int2float_rn(__float2int_rz(f)), 1.0f);
+          keep(f);
+        }
+        v = __float_as_int(f);
+      } else {
+        const int* t = s;
+        if constexpr (CASE == 3) t = cg::this_cluster().map_shared_rank(s, 1);
+        int i = 0;
+#pragma unroll 16
+        for (int r = 0; r < reps; ++r) i = t[i];
+        v = i;
+      }
+    }
+  } else {
+#pragma unroll 1
+    for (int r = 0; r < reps; ++r) {
+      if constexpr (kCluster) cg::this_cluster().sync();
+      else __syncthreads();
+    }
+  }
+  if constexpr (kCluster) cg::this_cluster().sync();  // the chased CTA stays until done
+  if (blockIdx.x != 0) return;
+  for (int e = threadIdx.x; e < kN; e += kThreads) out[e] = e == 0 ? v : x[e];
+}
+}  // namespace lat
+
 template <typename In, typename Out>
 using ProbeKernel = void (*)(const In*, Out*, int);
 
@@ -520,4 +581,15 @@ extern "C" int tpuva_probe_cell(const void* x, void* out, int reps, int which,
   static const ProbeKernel<int, int> ks[] = {kernel<0>, kernel<1>, kernel<2>, kernel<3>};
   if (which < 0 || which >= 4) return static_cast<int>(cudaErrorInvalidValue);
   return launch(ks[which], 1, kN * sizeof(int), x, out, reps, stream);
+}
+
+// The latency probe: `reps` dependent operations of kind `which`
+// (lat::kernel's cases, probes/latency_probe.py's CASES) on x, int32[1024].
+extern "C" int tpuva_probe_latency(const void* x, void* out, int reps, int which,
+                                   cudaStream_t stream) {
+  using namespace lat;
+  static const ProbeKernel<int, int> ks[] = {kernel<0>, kernel<1>, kernel<2>, kernel<3>,
+                                             kernel<4>, kernel<5>, kernel<6>};
+  if (which < 0 || which >= 7) return static_cast<int>(cudaErrorInvalidValue);
+  return launch(ks[which], kCtas[which], 0, x, out, reps, stream);
 }

@@ -16,7 +16,11 @@ tpuva's XLA:CPU run contracts some of them into FMAs (ROADMAP Queue 3 R5).
 ``warp_affine`` launches kernel KW (csrc/filters.cu ``tpuva_warp_affine``)
 once on a CUDA tensor, the same operations in the same order, and takes
 the plain version on a CPU one. ``warp_plan`` is the launch both share:
-the layout and the float32 inverse map.
+the layout and the float32 inverse map. KW takes a 64 x 32 output tile
+across all the images and reads its corners from the tile's source
+footprint staged in shared memory, or, where the footprint exceeds a
+16 KB buffer, gathers them from global memory: a route a tile,
+chosen on the card from the map; ``warp_affine_routes`` counts them.
 """
 
 from __future__ import annotations
@@ -97,6 +101,43 @@ def warp_plan(shape, M, out_size=None, inverse: bool = False) -> WarpPlan:
                     shape[:sp] + (int(ho), int(wo)) + ((3,) if chan else ()))
 
 
+KW_TILE = (64, 32)  # KW's output tile (w, h): a CTA (csrc/filters.cu kWarpTX, kWarpTY)
+
+
+def _warp_cuda(img: torch.Tensor, M, out_size, inverse: bool, border: str,
+               border_value: float, routes: torch.Tensor | None) -> torch.Tensor:
+    """KW's launch on a CUDA img; routes (int32[2] on the card, or None)
+    receives the tiles of each route."""
+    plan = warp_plan(img.shape, M, out_size, inverse)
+    x = img if img.dtype in (torch.uint8, torch.float32) else img.to(torch.float32)
+    x = x.contiguous()
+    out = torch.empty(plan.out_shape, dtype=x.dtype, device=x.device)
+    if out.numel() == 0:
+        return out.to(img.dtype)
+    if x.numel() == 0:
+        raise ValueError("warp_affine: an empty image has nothing to sample")
+    _build.launch(x.device, "tpuva_warp_affine", "warp_affine kernel", x.data_ptr(),
+                  out.data_ptr(), plan.L, plan.H, plan.W, plan.C, plan.ho, plan.wo,
+                  int(x.dtype == torch.float32), int(border == "constant"), *plan.coeffs,
+                  _f32(border_value), None if routes is None else routes.data_ptr())
+    warp_affine.launches += 1
+    return out if out.dtype == img.dtype else out.to(img.dtype)
+
+
+def warp_affine_routes(img: torch.Tensor, M, out_size=None, inverse: bool = False,
+                       border: str = "constant", border_value: float = 0.0):
+    """(warp_affine of a CUDA img, (the tiles that staged their footprint in
+    shared memory, the tiles that gathered from global memory)): one KW
+    launch, counted in warp_affine.launches."""
+    if border not in ("constant", "replicate"):
+        raise ValueError(border)
+    if img.device.type != "cuda":
+        raise ValueError(f"warp_affine_routes: a CUDA tensor is needed, got {img.device}")
+    routes = torch.zeros(2, dtype=torch.int32, device=img.device)
+    out = _warp_cuda(img, M, out_size, inverse, border, border_value, routes)
+    return out, tuple(routes.tolist())
+
+
 def warp_affine(img: torch.Tensor, M, out_size=None, inverse: bool = False,
                 border: str = "constant", border_value: float = 0.0) -> torch.Tensor:
     """Batched cv2.warpAffine (INTER_LINEAR) on img (N, H, W), (H, W) or
@@ -110,20 +151,7 @@ def warp_affine(img: torch.Tensor, M, out_size=None, inverse: bool = False,
         return warp_affine_plain(img, M, out_size, inverse, border, border_value)
     if img.device.type != "cuda":
         raise ValueError(f"warp_affine: unsupported device {img.device}")
-    plan = warp_plan(img.shape, M, out_size, inverse)
-    x = img if img.dtype in (torch.uint8, torch.float32) else img.to(torch.float32)
-    x = x.contiguous()
-    out = torch.empty(plan.out_shape, dtype=x.dtype, device=x.device)
-    if out.numel() == 0:
-        return out.to(img.dtype)
-    if x.numel() == 0:
-        raise ValueError("warp_affine: an empty image has nothing to sample")
-    _build.launch(x.device, "tpuva_warp_affine", "warp_affine kernel", x.data_ptr(),
-                  out.data_ptr(), plan.L, plan.H, plan.W, plan.C, plan.ho, plan.wo,
-                  int(x.dtype == torch.float32), int(border == "constant"), *plan.coeffs,
-                  _f32(border_value))
-    warp_affine.launches += 1
-    return out if out.dtype == img.dtype else out.to(img.dtype)
+    return _warp_cuda(img, M, out_size, inverse, border, border_value, None)
 
 
 warp_affine.launches = 0

@@ -244,3 +244,45 @@ def edt_scenes():
     scenes["one_row"] = np.array([[1, 1, 0, 1, 1, 1, 1]], np.uint8)
     scenes["one_column"] = np.array([[1], [0], [1], [1]], np.uint8)
     return scenes
+
+
+def edt_large_scenes():
+    """{name: uint8 mask (..., H, W)} of the distance transform's size
+    checks on the card, from one seed: the single-zero masks whose float32
+    sums round (4096 x 94 and 2898 x 2898, the zero at (0, 0)), a 5000 x 3
+    mask with one zero at (0, 1) (column distances past 4096: the rounded
+    f table), an 8K UHD motion-like mask (discs of foreground on
+    background), 3-row masks at the widest row KE keeps in shared memory
+    (25,600: zeros on its first row's ends and on its last row but for an
+    8400-px span, whose middle lies past 4096 px from every zero, so the
+    row loop runs there in shared memory) and past it (28,672: zeros all
+    along its last row), a 1 x 70,000 row with zeros only at its ends (sums
+    past 2^24), and 65,536 masks of 5 x 7 (more than one launch takes)."""
+    rng = np.random.default_rng(21)
+    scenes = {}
+    for H, W in ((4096, 94), (2898, 2898)):
+        m = np.ones((H, W), np.uint8)
+        m[0, 0] = 0
+        scenes[f"single_zero_{H}x{W}"] = m
+    m = np.ones((5000, 3), np.uint8)
+    m[0, 1] = 0
+    scenes["tall_5000x3"] = m
+    H, W = 4320, 7680
+    m = np.zeros((H, W), np.uint8)
+    for _ in range(60):
+        cy, cx, r = rng.integers(0, H), rng.integers(0, W), int(rng.integers(8, 240))
+        y0, y1, x0, x1 = max(cy - r, 0), min(cy + r + 1, H), max(cx - r, 0), min(cx + r + 1, W)
+        yy, xx = np.ogrid[y0:y1, x0:x1]
+        m[y0:y1, x0:x1] |= ((yy - cy) ** 2 + (xx - cx) ** 2 <= r * r).astype(np.uint8)
+    m[rng.random((H, W)) < 0.002] = 1  # speckle
+    scenes["motion_4320x7680"] = m
+    for W, span in ((25600, 8400), (28672, 0)):
+        m = np.ones((3, W), np.uint8)
+        m[0, 0] = m[0, -1] = 0
+        m[2, :W - span] = rng.random(W - span) < 0.9
+        scenes[f"rows_3x{W}"] = m
+    row = np.ones((1, 70000), np.uint8)
+    row[0, 0] = row[0, -1] = 0
+    scenes["row_1x70000"] = row
+    scenes["masks_65536x5x7"] = (rng.random((65536, 5, 7)) < 0.7).astype(np.uint8)
+    return scenes
