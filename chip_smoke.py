@@ -198,15 +198,18 @@ raises, so the exit code is non-zero:
    unaligned slice), KW on random gray and BGR frames under both borders,
    an out_size and an inverse map, KR on random gray and BGR down, up and
    with one axis kept, KW's two routes (a map whose tiles all stage their
-   footprint, a 4x down-scale whose tiles gather: warp_affine_routes), KE
+   footprint, a 4x down-scale whose tiles gather: warp_affine_routes) and
+   KR's (every tile staged to 960 x 540, tiles gathering to 61 wide, an
+   input at a byte offset of 1: resize_linear_routes, as resize_plan
+   counts them), KE
    on K1's masks, on an all-foreground and an all-background frame and on
    scenes.edt_large_scenes (the single-zero 4096 x 94 and 2898 x 2898
    masks whose sums pass 2^24, an 8K UHD motion-like mask, a 1 x 70,000
    row, 65,536 masks in two launches; its pass counts the plain loop's
    everywhere); then each
    one's ms beside its plain version's, its library call's
-   (torch.matmul, F.grid_sample, F.interpolate; KE none) and its bound
-   (filter_kernels line);
+   (torch.matmul, F.grid_sample, F.interpolate; KE none) and its bound,
+   KR also on gray frames and up to 2880 x 1620 (filter_kernels line);
 7f. the multi-card half of dist/ on the one card: K1's mask and diff
    emits on one 256-frame batch of each band shape of four bands (an edge
    band of 270 + 6 rows, an interior one of 270 + 12) and K4 on each
@@ -283,9 +286,11 @@ raises, so the exit code is non-zero:
    dependent float32 add, cast-hop, shared and DSMEM load, CTA and
    cluster barrier, each bit-equal to its plain version, slope-timed)
    and each probe's dependent-chain bound, its file's reps x its rep's
-   chain (PROBE_CHAINS), with its share of the heaviest case's time. One
-   "probes" line: ns/op, Telem/s, Telem/s a SM, the cluster, those rep
-   loops' arithmetic, latency_ns and chain_bounds.
+   chain (PROBE_CHAINS; P2's the larger of the chain its function needs,
+   one exchange a rep, and its operations at the rate of its 4 SMs), with
+   its share of the heaviest case's time. One "probes" line: ns/op,
+   Telem/s, Telem/s a SM, the cluster, those rep loops' arithmetic,
+   latency_ns, chain_bounds and the phase's seconds.
 
 Then one JSON line of the kernels (each with its least time on the card,
 bound_ms, from the bytes and operations of this run's inputs, and
@@ -541,29 +546,38 @@ def probe_bounds():
 
 # Each probe's heaviest case as a chain of dependent operations a rep,
 # counted from csrc/probes.cu, each with its latency-probe case: P1's
-# cast-hop in registers; P2's and P3's k = 5 cascade, 8 band steps (4 in a
-# row: a shared load; 4 across CTAs: a DSMEM load), each an add, a
-# barrier after its reads and one after its writes (7 of the CTA, 9 of the
-# cluster), then the rescale (P2 a multiply and an add, P3 a multiply; a
-# float32 multiply counted at the add's latency); P4's baseline_sweepish,
-# 16 sweeps of 4 roll + min steps, each a shared load, a min and two CTA
-# barriers, the min left out (the latency probe has no min/max case).
+# cast-hop in registers; P3's k = 5 cascade, 8 band steps (4 in a row: a
+# shared load; 4 across CTAs: a DSMEM load), each an add, a barrier after
+# its reads and one after its writes (7 of the CTA, 9 of the cluster),
+# then the rescale (a multiply, counted at the add's latency); P4's
+# baseline_sweepish, 16 sweeps of 4 roll + min steps, each a shared load,
+# a min and two CTA barriers, the min left out (the latency probe has no
+# min/max case). P2's is the chain its function needs, not a design's:
+# the band's halo crosses from the neighbouring CTA once a rep (a cluster
+# barrier and a DSMEM load), then the rep's 8 dependent adds, the
+# multiply and the last add.
 PROBE_CHAINS = {
     "repos_probe": {"cast-hop f->i->f + 1": 1},
-    "roll_probe": {"shared load": 4, "DSMEM load": 4, "f32 add": 10, "CTA barrier": 7,
-                   "cluster barrier (4 CTAs)": 9},
+    "roll_probe": {"cluster barrier (4 CTAs)": 1, "DSMEM load": 1, "f32 add": 10},
     "i16_probe": {"shared load": 4, "DSMEM load": 4, "f32 add": 9, "CTA barrier": 7,
                   "cluster barrier (8 CTAs)": 9},
     "cell_probe": {"shared load": 64, "CTA barrier": 128},
 }
+# the probes bounded by the larger of that chain and their operations at
+# the rate of the SMs they use (a CTA an SM: CTAS/SMS of the card's peak);
+# the others by their chain alone
+PROBE_SM_BOUND = ("roll_probe",)
+SMS = 132  # an H100 SXM's SMs
 
 
 def probe_chain_bounds(entries):
     """The latency probe's cases bit-equal to its plain version, their
     latencies (ns, the slope between its REPS), and each micro-probe's
-    dependent-chain bound: the file's reps x the latencies of its rep's
-    chain (PROBE_CHAINS), with its share of the heaviest case's time in
-    entries. Returns (latencies, bounds)."""
+    bound from them: the file's reps x the latencies of its rep's chain
+    (PROBE_CHAINS) and, for PROBE_SM_BOUND, the larger of that and the
+    heaviest case's operations on its CTAs' SMs (which binds is "binds"),
+    with its share of the heaviest case's time in entries and the
+    whole-card operations bound beside it. Returns (latencies, bounds)."""
     from tpuva_torch.probes import latency_probe as lp
 
     x = lp.make_tile().to("cuda")
@@ -578,12 +592,19 @@ def probe_chain_bounds(entries):
         raise AssertionError(f"latency probe: a latency is not positive: {ns}")
     mods, bounds = probe_modules(), {}
     for name, chain in PROBE_CHAINS.items():
+        mod = mods[name]
         per_rep = sum(n * ns[op] for op, n in chain.items())
-        reps = mods[name].FILE_REPS
-        b = reps * per_rep / 1e6
-        bounds[name] = {"case": probe_heaviest(mods[name]).name, "reps": reps, "chain": chain,
-                        "ns_a_rep": per_rep, "bound_ms": b, "ms": entries[name]["ms"],
-                        "share": b / entries[name]["ms"],
+        reps, heavy = mod.FILE_REPS, probe_heaviest(mod)
+        chain_ms = reps * per_rep / 1e6
+        sm_ms = mod.make_tile().numel() * reps * heavy.n_ops / (PEAK_OPS_S * mod.CTAS / SMS) * 1e3
+        b, binds = chain_ms, "chain"
+        if name in PROBE_SM_BOUND and sm_ms > chain_ms:
+            b, binds = sm_ms, "operations on its SMs"
+        bounds[name] = {"case": heavy.name, "reps": reps, "chain": chain,
+                        "ns_a_rep": per_rep, "chain_ms": chain_ms,
+                        "sm_operations_bound_ms": sm_ms, "bound_ms": b,
+                        "binds": binds if name in PROBE_SM_BOUND else "chain",
+                        "ms": entries[name]["ms"], "share": b / entries[name]["ms"],
                         "operations_bound_ms": entries[name]["bound_ms"]}
     return ns, bounds
 
@@ -2641,6 +2662,10 @@ def filters_phase(clip, plate, card, cfg, err):
     kernels = {name: dict(timing[name], launches=launches[key][name]) for name, key in (
         ("bgr_to_gray", "chain_route"), ("warp_affine", "rotate_7.5_gray"),
         ("resize_linear", "resize_960x540_gray"), ("edt", "edt"))}
+    # KR's other timed shapes (FilterResize's launches on them)
+    kernels.update({name: dict(timing[name], launches=launches[key]["resize_linear"])
+                    for name, key in (("resize_linear_gray", "resize_960x540_gray"),
+                                      ("resize_linear_x1.5", "resize_x1.5_bgr"))})
     out["seconds"] = round(time.time() - t_phase, 1)
     return out, launches, kernels
 
@@ -2720,6 +2745,25 @@ def filter_kernel_checks(shape, masks, err):
         routes[case] = list(r)
     if routes["rotate_7.5"][1] != 0 or routes["down_4x"][1] == 0:
         raise AssertionError(f"KW's routes (shared, direct tiles): {routes}")
+    # KR's two routes: every tile staged to 960 x 540 (also from an input
+    # one byte into its buffer: byte copies), tiles gathering to 61 wide
+    kr_routes = {}
+    shifted = torch.empty(bgr.numel() + 1, dtype=torch.uint8, device=dev)[1:]
+    shifted = shifted.view(bgr.shape).copy_(bgr)
+    for case, frames, size in (("960x540", bgr, (960, 540)), ("offset_1", shifted, (960, 540)),
+                               ("61x540", bgr, (61, 540))):
+        got, r = resize.resize_linear_routes(frames, size)
+        check_equal(err, "resize_linear", [(f"{case} routes", got,
+                                            resize.resize_linear_plain(frames, size))],
+                    "random 1080p BGR")
+        vec = frames.data_ptr() % 16 == 0
+        plan = resize.resize_plan(frames.shape[0], *frames.shape[1:3], 3, size, vec)
+        if list(r) != [int(plan.staged.sum()), int((~plan.staged).sum())]:
+            raise AssertionError(f"KR's routes {case}: {r}, the plan's {plan.staged.sum()}")
+        kr_routes[case] = list(r)
+    del shifted
+    if kr_routes["960x540"][1] or kr_routes["offset_1"][1] or not kr_routes["61x540"][1]:
+        raise AssertionError(f"KR's routes (staged, gathered tiles): {kr_routes}")
     passes = {}
     _N, H, W = shape
     cases = [("K1's masks", masks),
@@ -2741,7 +2785,8 @@ def filter_kernel_checks(shape, masks, err):
         raise AssertionError("KE did not split 65,536 masks over two launches")
     return {"bit_equal": ["bgr_to_gray", "warp_affine", "resize_linear", "edt"],
             "kw_cases": sorted(kw_cases_1080()), "kr_sizes": [list(v) for v in KR_SIZES_1080],
-            "kw_routes_shared_direct": routes, "edt_passes_cols_rows_launches": passes}
+            "kw_routes_shared_direct": routes, "kr_routes_staged_gathered": kr_routes,
+            "edt_passes_cols_rows_launches": passes}
 
 
 def filter_kernel_timing(shape, batch, masks, reps=5):
@@ -2794,16 +2839,22 @@ def filter_kernel_timing(shape, batch, masks, reps=5):
         bgr.numel() + 3 * out_px, out_px * (6 + 9 * 3), bgr)
     del grid
     # KR: the frames read and the output written once; 3 operations a tap
-    # pass and channel (both axes resampled)
-    w_out, h_out = KR_SIZES_1080[0]
-    out_px = bgr.shape[0] * h_out * w_out
-    res["resize_linear"] = entry(
-        lambda: resize.resize_linear(bgr, (w_out, h_out)),
-        lambda: resize.resize_linear_plain(bgr, (w_out, h_out)),
-        lambda: F.interpolate(xf, size=(h_out, w_out), mode="bilinear", align_corners=False,
-                              antialias=False),
-        bgr.numel() + 3 * out_px, out_px * 3 * 9, bgr)
-    del xf
+    # pass and channel (both axes resampled): BGR to 960 x 540 (the kernels
+    # line's), gray to 960 x 540 and BGR up to 2880 x 1620
+    gray = bgr[..., 0].contiguous()
+    for name, frames, ff, size in (
+            ("resize_linear", bgr, xf, KR_SIZES_1080[0]),
+            ("resize_linear_gray", gray, gray[:, None].to(torch.float32), KR_SIZES_1080[0]),
+            ("resize_linear_x1.5", bgr, xf, KR_SIZES_1080[1])):
+        C = frames.shape[3] if frames.dim() == 4 else 1
+        out_px = frames.shape[0] * size[0] * size[1]
+        res[name] = entry(
+            lambda f=frames, s=size: resize.resize_linear(f, s),
+            lambda f=frames, s=size: resize.resize_linear_plain(f, s),
+            lambda f=ff, s=size: F.interpolate(f, size=(s[1], s[0]), mode="bilinear",
+                                               align_corners=False, antialias=False),
+            frames.numel() + C * out_px, out_px * C * 9, frames)
+    del xf, gray
     # KE: the masks read and the float32 distances written once
     px = masks.numel()
     res["edt"] = entry(lambda: distance_transform_edt(masks),

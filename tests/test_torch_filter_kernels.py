@@ -12,7 +12,10 @@
   slots), ``warp_plan`` (layouts, the float32 inverse map of the plain
   version) and KW's clamped floors, which give the plain version's int64
   corner masks and clamped indices for far-out coordinates, and KR's tap
-  table and its cache on a device.
+  table and its cache on a device; KR's blocks (``tile_blocks``: every
+  tile's staged rows and span cover its outputs' taps), ``resize_plan``
+  (a tile gathers exactly where its footprint exceeds a buffer) and a
+  numpy model of its staged route equal to the plain version.
 - CPU calls of the public functions take the plain versions and leave
   every new kernel's counter at 0; the plain versions call no function
   that launches a kernel on a CUDA tensor.
@@ -224,6 +227,151 @@ def test_resize_linear_cpu_is_the_plain_version():
         np.testing.assert_array_equal(out, resize.resize_linear_plain(torch.from_numpy(x),
                                                                       (26, 18)).numpy())
     assert resize.resize_linear.launches == before
+
+
+KR_AXES = [(37, 18), (37, 55), (53, 80), (1080, 540), (1920, 960), (1080, 1620), (1920, 2880),
+           (1920, 61), (7, 3), (1, 7), (7, 1), (5, 5), (37, 37), (301, 301)]
+
+
+@pytest.mark.parametrize("m,n", KR_AXES, ids=[f"{m}to{n}" for m, n in KR_AXES])
+@pytest.mark.parametrize("T", [resize.KR_TILE[0], resize.KR_TILE[1]])
+def test_resize_tile_blocks_cover_every_tap(m, n, T):
+    """Each block of T outputs records its outputs' distinct taps in
+    ascending order, at most 2 T of them, and each output's slots name its
+    lower and upper taps there: the rows a tile stages (or the span of its
+    columns, first to last record) hold every tap of its outputs. Down, up
+    and kept axes, odd sizes."""
+    lo, hi = resize.resize_taps(m, n)[:2]
+    t = resize.tile_blocks(m, n, T)
+    nb = -(-n // T)
+    assert t.dtype == np.int32 and t.shape == (n + nb * (1 + 2 * T),)
+    recs = t[n:].reshape(nb, 1 + 2 * T)
+    for b in range(nb):
+        count, taps = recs[b, 0], recs[b, 1:1 + recs[b, 0]]
+        assert 1 <= count <= 2 * T and (np.diff(taps) > 0).all()
+        assert taps.min() >= 0 and taps.max() < m and not recs[b, 1 + count:].any()
+        outs = np.arange(b * T, min(n, (b + 1) * T))
+        np.testing.assert_array_equal(taps[t[outs] & 0xFFFF], lo[outs])
+        np.testing.assert_array_equal(taps[t[outs] >> 16], hi[outs])
+        assert set(taps) == set(lo[outs]) | set(hi[outs])
+    if m == n:  # the identity, which the kernel skips
+        np.testing.assert_array_equal(t[:n], np.arange(n) % T * 65537)
+
+
+KR_PLANS = [((1080, 1920), (960, 540)), ((1080, 1920), (2880, 1620)), ((1080, 1920), (61, 540)),
+            ((1080, 1920), (1920, 540)), ((1080, 1920), (960, 1080)), ((37, 53), (26, 18)),
+            ((37, 53), (80, 37)), ((45, 301), (7, 90)), ((3, 5000), (40, 2))]
+
+
+# (H, W), size, bytes a pixel, vec_in (only where the rows are 16-byte multiples)
+KR_PLAN_CASES = [(hw, size, px, vec) for hw, size in KR_PLANS for px in (1, 3, 4, 12)
+                 for vec in (True, False) if not vec or hw[1] * px % 16 == 0]
+
+
+@pytest.mark.parametrize("hw,size,px,vec_in", KR_PLAN_CASES, ids=[
+    f"{a[1]}x{a[0]}to{b[0]}x{b[1]}-{px}B-{'vec' if v else 'bytes'}"
+    for a, b, px, v in KR_PLAN_CASES])
+def test_resize_plan_routes(hw, size, px, vec_in):
+    """resize_plan's footprint a tile is its rows' count times its span's
+    bytes; the span holds every column tap's bytes (widened to 16-byte
+    bounds on vec_in); a tile stages exactly where its footprint fits
+    KR_BUF_MAX, and the buffer (a multiple of 16) is the largest such
+    footprint; the CTAs over the images fill KR_CTAS."""
+    H, W = hw
+    w, h = size
+    plan = resize.resize_plan(16, H, W, px, size, vec_in)
+    tw, th = resize.KR_TILE
+    assert plan.tiles == (-(-w // tw), -(-h // th))
+    lo, hi = resize.resize_taps(W, w)[:2]
+    for bx in range(plan.tiles[0]):
+        cols = np.arange(bx * tw, min(w, (bx + 1) * tw))
+        c0, c1 = min(lo[cols].min(), hi[cols].min()), max(lo[cols].max(), hi[cols].max())
+        a0 = c0 * px & ~15 if vec_in else c0 * px
+        assert a0 <= c0 * px and (c1 + 1) * px <= a0 + plan.pitch[bx] <= W * px
+        assert plan.pitch[bx] % 16 == 0 if vec_in else plan.pitch[bx] == (c1 + 1 - c0) * px
+    rows = resize.tile_blocks(H, h, th)[h:].reshape(-1, 1 + 2 * th)[:, 0]
+    np.testing.assert_array_equal(plan.rows, rows)
+    np.testing.assert_array_equal(plan.footprint, np.outer(rows, plan.pitch))
+    np.testing.assert_array_equal(plan.staged, plan.footprint <= resize.KR_BUF_MAX)
+    assert plan.buf % 16 == 0 and plan.buf <= resize.KR_BUF_MAX
+    fits = plan.footprint[plan.staged]
+    assert plan.buf == (-(-fits.max() // 16) * 16 if fits.size else 0)
+    assert plan.grid_z == min(16, max(1, -(-resize.KR_CTAS // (plan.tiles[0] * plan.tiles[1]))))
+    if size == (61, 540):  # a span of 64 columns is the whole row: 32 rows of it gather
+        assert plan.staged[plan.rows < 2 * th].all() == (px == 1)
+        assert not plan.staged[plan.rows == 2 * th].any()
+    if size in ((960, 540), (2880, 1620)) and px <= 3:
+        assert plan.staged.all()
+
+
+def kr_model(x: np.ndarray, size, vec_in: bool) -> np.ndarray:
+    """KR's staged route in numpy for a uint8 or float32 batch (N, H, W,
+    C): per tile and image the rows of its record staged as bytes over its
+    span, each output's two rows by its slots, its columns as byte
+    offsets from the span's start, the H pass at both columns then the W
+    pass, each float32 op rounded on its own; every tile stages."""
+    N, H, W, C = x.shape
+    w, h = size
+    px = C * x.itemsize
+    tw, th = resize.KR_TILE
+    taps_h, taps_w = resize.tap_table(H, h), resize.tap_table(W, w)
+    blocks_h = resize.tile_blocks(H, h, th)
+    blocks_w = resize.tile_blocks(W, w, tw)
+    xb = x.reshape(N, H, W * px).view(np.uint8) if x.itemsize == 1 else \
+        x.reshape(N, H, W * C).view(np.uint8)
+    out = np.zeros((N, h, w, C), np.float32)
+    for by in range(-(-h // th)):
+        rec_h = blocks_h[h + by * (1 + 2 * th):]
+        rows = rec_h[1:1 + rec_h[0]]
+        for bx in range(-(-w // tw)):
+            rec_w = blocks_w[w + bx * (1 + 2 * tw):]
+            a0, a1 = rec_w[1] * px, (rec_w[rec_w[0]] + 1) * px
+            if vec_in:
+                a0, a1 = a0 & ~15, (a1 + 15) & ~15
+            for n in range(N):
+                foot = xb[n, rows, a0:a1]  # (rows, pitch) bytes
+                for yo in range(by * th, min(h, (by + 1) * th)):
+                    slot = blocks_h[yo]
+                    rlo, rhi = foot[slot & 0xFFFF], foot[slot >> 16]
+                    wy = taps_h[2:, yo].view(f32)
+                    for xo in range(bx * tw, min(w, (bx + 1) * tw)):
+                        wx = taps_w[2:, xo].view(f32)
+                        for c in range(C):
+                            def at(row, col):
+                                b = col * px - a0 + c * x.itemsize
+                                return row[b:b + x.itemsize].view(x.dtype)[0].astype(f32)
+                            t = []
+                            for col in taps_w[:2, xo]:
+                                v = at(rlo, col)
+                                if h != H:
+                                    v = f32(f32(v * wy[0]) + f32(at(rhi, col) * wy[1]))
+                                t.append(v)
+                            v = t[0]
+                            if w != W:
+                                v = f32(f32(t[0] * wx[0]) + f32(t[1] * wx[1]))
+                            out[n, yo, xo, c] = v
+    if x.dtype == np.uint8:
+        return np.clip(np.rint(out), 0, 255).astype(np.uint8)
+    return out
+
+
+@pytest.mark.parametrize("size", [(26, 18), (80, 37), (53, 55), (53, 37), (70, 9)])
+@pytest.mark.parametrize("C", [1, 3])
+@pytest.mark.parametrize("dtype", [np.uint8, np.float32])
+def test_resize_staged_model_matches_plain(size, C, dtype):
+    """KR's staged route (kr_model: the records, slots and byte offsets the
+    kernel reads) equals resize_linear_plain bit for bit on 37 x 53 frames:
+    down, up, one axis kept; uint8 and float32; spans cut at 16-byte
+    bounds (rows of 16-byte multiples) and exactly."""
+    rng = np.random.default_rng(12)
+    W = 64 if C == 1 else 48  # 16-byte rows, so that both spans apply
+    x = rng.integers(0, 256, (2, 37, W, C)).astype(dtype)
+    if dtype == np.float32:
+        x += rng.random(x.shape, dtype=f32)
+    ref = resize.resize_linear_plain(torch.from_numpy(x[..., 0] if C == 1 else x), size).numpy()
+    for vec_in in (True, False):
+        got = kr_model(x, size, vec_in)
+        np.testing.assert_array_equal(got[..., 0] if C == 1 else got, ref)
 
 
 # ------------------------------------------------------- plain stays plain

@@ -34,7 +34,8 @@ BatchStager running a BGR chain on the card once a batch. The filter
 chain's and the EDT's kernels (csrc/filters.cu, csrc/distance.cu): KE on
 the CPU model's scenes and on 1080p masks (random densities, no zero, no
 foreground) with its pass counts, KM on random BGR (tails, unaligned
-slices, float32) and KR on random gray and BGR, KW under both borders with
+slices, float32) and KR on random gray and BGR (both routes, a view at a
+byte offset, rows not 16-byte multiples), KW under both borders with
 an out_size and an inverse map, each bit-equal to its plain version on the
 card, small and at 1080p, one launch a call. The CCL scenes
 (tpuva_torch.scenes) are shared with the CPU tests that hold the plain
@@ -1554,6 +1555,52 @@ def test_resize_linear_kernel_matches_plain(cuda_device, size):
             assert resize.resize_linear.launches - before == 1
             ref = resize.resize_linear_plain(x, size)
             assert got.dtype == ref.dtype and torch.equal(got, ref), (shape, dtype)
+
+
+# KR's routes: (shape, dtype, size, byte offset of the input view)
+KR_ROUTE_CASES = {
+    "gather_1920_to_61": ((2, 1080, 1920, 3), np.uint8, (61, 540), 0),
+    "gather_gray_float": ((2, 1080, 1920), np.float32, (61, 270), 0),
+    "offset_1_bgr": ((2, 1080, 1920, 3), np.uint8, (960, 540), 1),
+    "offset_1_gray_up": ((3, 37, 53), np.uint8, (80, 37), 1),
+    "rows_not_16_bytes": ((3, 37, 53, 3), np.uint8, (26, 18), 0),
+    "rows_not_16_bytes_gray": ((3, 45, 301), np.uint8, (7, 90), 0),
+    "float32_bgr_960x540": ((2, 1080, 1920, 3), np.float32, (960, 540), 0),
+    "float32_up": ((2, 37, 53, 3), np.float32, (80, 55), 0),
+    "staged_960x540": ((16, 1080, 1920, 3), np.uint8, (960, 540), 0),
+    "staged_gray_2880x1620": ((2, 1080, 1920), np.uint8, (2880, 1620), 0),
+}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", sorted(KR_ROUTE_CASES))
+def test_resize_linear_kernel_routes(cuda_device, name):
+    """KR's two routes bit-equal to the plain version, with the tiles of
+    each route as resize_plan counts them: tiles gathering where 64 output
+    columns span more than a buffer (1920 -> 61 wide), an input view at a
+    byte offset of 1 and rows that are not 16-byte multiples (byte copies,
+    byte stores), float32, every tile staged at the phase's sizes."""
+    shape, dtype, size, offset = KR_ROUTE_CASES[name]
+    data = torch.from_numpy(bgr_frames(shape, 9, dtype)).to(cuda_device)
+    if offset:  # uint8 cases: a contiguous view one byte into its buffer
+        x = torch.empty(data.numel() + offset, dtype=torch.uint8, device=cuda_device)[offset:]
+        x = x.view(shape).copy_(data)
+        assert x.data_ptr() % 16 == offset
+    else:
+        x = data
+    before = resize.resize_linear.launches
+    got, (staged, direct) = resize.resize_linear_routes(x, size)
+    assert resize.resize_linear.launches - before == 1
+    ref = resize.resize_linear_plain(x, size)
+    assert got.dtype == ref.dtype and torch.equal(got, ref)
+    px = (shape[3] if len(shape) == 4 else 1) * data.element_size()
+    vec_in = (shape[2] * px) % 16 == 0 and x.data_ptr() % 16 == 0
+    plan = resize.resize_plan(shape[0], shape[1], shape[2], px, size, vec_in)
+    assert (staged, direct) == (int(plan.staged.sum()), int((~plan.staged).sum()))
+    if name.startswith("gather"):
+        assert direct > 0
+    if name.startswith(("staged", "offset", "float32")):
+        assert direct == 0
 
 
 @pytest.mark.gpu

@@ -166,7 +166,9 @@ _SIGNATURES = {
     ],
     "tpuva_resize_linear": [
         _P, _P, _I, _I, _I, _I, _I, _I,  # x, out, N, H, W, C, h, w
-        _P, _P, _I,  # taps_h, taps_w (null: the axis keeps its size), is_float
+        _P, _P, _P, _P, _I,  # taps_h, taps_w, blocks_h, blocks_w, is_float
+        _I, _I, _I, _I,  # buf, vec_in, vec_out, grid_z (ops/resize.py::resize_plan)
+        _P,  # routes (int32[2] tiles a route, or null)
         _P,  # stream
     ],
 }

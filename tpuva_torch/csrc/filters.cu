@@ -40,11 +40,17 @@
 //   global memory instead, in the same kernel: a route chosen per tile
 //   from the map. Rows whose byte length is not a multiple of 16 take
 //   byte-wise copies.
-// - KR: a thread an output pixel: the H pass at the two columns that the
-//   W pass takes (four gathered inputs), rounded to float32 as the plain
-//   version's intermediate is, then the W pass; an axis whose size stays
-//   is skipped, as jax skips it. The taps (lower and upper index, their
-//   weights) come from a table that ops/resize.py uploads once a shape.
+// - KR: a CTA a 64 x 16 output tile across the images, a thread 4 pixels
+//   of one column, their taps read once. Per image the tile's distinct
+//   input rows (at most two an output row) are staged over the span of
+//   columns its taps name, by 16-byte cp.async, double-buffered; the H
+//   pass at the two columns that the W pass takes, rounded to float32 as
+//   the plain version's intermediate is, then the W pass, from shared
+//   memory; a shared output tile and 16-byte stores. An axis whose size
+//   stays is skipped, as jax skips it. A tile whose rows x span exceed a
+//   buffer (strong down-scaling in x) gathers from global memory: KW's
+//   two routes. The taps and each block's rows come from tables that
+//   ops/resize.py uploads once a shape.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -53,8 +59,6 @@
 namespace {
 
 constexpr int kThreads = 256;
-constexpr int kTileX = 32;
-constexpr int kTileY = 8;
 
 __device__ __forceinline__ float load_f(const uint8_t* p) { return static_cast<float>(*p); }
 __device__ __forceinline__ float load_f(const float* p) { return *p; }
@@ -361,57 +365,188 @@ warp_affine_kernel(const T* __restrict__ x, T* __restrict__ out, int L, int H, i
   }
 }
 
-// the resize taps of one output sample: rows lo, hi, w_lo bits, w_hi bits
-// of a (4, n) int32 table
-struct Tap {
-  int lo, hi;
-  float wlo, whi;
-};
+// KR: a CTA a 64 x 16 output tile across the images (blockIdx.y splits
+// them), a thread 4 pixels of one column. The tile's taps come from the
+// (4, n) tables once a CTA; its blocks' records (ops/resize.py::
+// tile_blocks) name the distinct input rows its outputs take (at most two
+// an output row) and, through the first and last column tap, the span of
+// input columns. Per image the rows' spans are staged into shared memory
+// by 16-byte cp.async, double-buffered across the images; the H pass runs
+// there at the two columns of each output's W pass, rounded to float32 as
+// the plain version's intermediate, then the W pass; the results go
+// through a shared output tile to 16-byte stores. A tile whose rows x span
+// exceed the buffer (ops/resize.py::resize_plan sizes it: the largest
+// footprint up to 48 KB) gathers its inputs from global memory in the same
+// kernel; routes counts the tiles of each route.
+constexpr int kResizeTX = 64;
+constexpr int kResizeTY = 16;
+constexpr int kResizeThreads = 256;
+constexpr int kResizePx = kResizeTX * kResizeTY / kResizeThreads;  // rows a thread, one column
+constexpr int kResizeRows = 2 * kResizeTY;  // distinct input rows a tile at most
+constexpr int kResizeBufMax = 49152;  // bytes of one staging buffer at most
+static_assert(kResizeThreads % kResizeTX == 0, "a thread keeps one output column");
 
-__device__ __forceinline__ Tap tap(const int* __restrict__ t, int n, int o) {
-  return {t[o], t[n + o], __int_as_float(t[2 * n + o]), __int_as_float(t[3 * n + o])};
-}
-
-// KR: images (N, H, W, C) -> (N, h, w, C). taps_h / taps_w: (4, h) and
-// (4, w) tables, or null where the axis keeps its size (then h == H or
-// w == W)
+// images (N, H, W, C) -> (N, h, w, C). taps_h, taps_w: (4, h) and (4, w)
+// tables (lo, hi, w_lo bits, w_hi bits; the identity where an axis keeps
+// its size, which is then skipped as jax skips it); blocks_h, blocks_w: a
+// slot an output (its lo's and hi's places in its block's record, hi's <<
+// 16; read for rows only), then each block's record (count, the distinct
+// taps in order). buf: bytes of one staging buffer; vec_in, vec_out as
+// KW's.
 template <typename T, int C>
-__global__ void __launch_bounds__(kTileX * kTileY)
+__global__ void __launch_bounds__(kResizeThreads, 4)
 resize_linear_kernel(const T* __restrict__ x, T* __restrict__ out, int N, int H, int W, int h,
-                     int w, const int* __restrict__ taps_h, const int* __restrict__ taps_w) {
-  const int xo = blockIdx.x * kTileX + threadIdx.x;
-  const int yo = blockIdx.y * kTileY + threadIdx.y;
-  if (xo >= w || yo >= h) return;
-  const Tap th = taps_h ? tap(taps_h, h, yo) : Tap{yo, yo, 1.0f, 0.0f};
-  const Tap tw = taps_w ? tap(taps_w, w, xo) : Tap{xo, xo, 1.0f, 0.0f};
-  const long long plane = static_cast<long long>(H) * W * C;
-  const long long oplane = static_cast<long long>(h) * w * C;
-  const long long rlo = static_cast<long long>(th.lo) * W, rhi = static_cast<long long>(th.hi) * W;
-  const long long o = (static_cast<long long>(yo) * w + xo) * C;
-  for (int n = blockIdx.z; n < N; n += gridDim.z) {
-    const T* img = x + n * plane;
+                     int w, const int* __restrict__ taps_h, const int* __restrict__ taps_w,
+                     const int* __restrict__ blocks_h, const int* __restrict__ blocks_w, int buf,
+                     int vec_in, int vec_out, int* __restrict__ routes) {
+  constexpr int kPx = C * static_cast<int>(sizeof(T));  // bytes a pixel
+  extern __shared__ uint4 kr_smem[];
+  uint8_t* foot = reinterpret_cast<uint8_t*>(kr_smem);
+  T* otile = reinterpret_cast<T*>(foot + 2 * buf);
+  __shared__ int rows[kResizeRows];
+  const int nbx = (w + kResizeTX - 1) / kResizeTX;
+  const int bx = blockIdx.x % nbx, by = blockIdx.x / nbx;
+  const int tx0 = bx * kResizeTX, ty0 = by * kResizeTY;
+  const int nx = min(kResizeTX, w - tx0), ny = min(kResizeTY, h - ty0);
+  const bool rh = h != H, rw = w != W;
+  const int* rec_h = blocks_h + h + by * (1 + kResizeRows);
+  const int* rec_w = blocks_w + w + bx * (1 + 2 * kResizeTX);
+  const int nr = rec_h[0];
+  if (threadIdx.x < nr) rows[threadIdx.x] = rec_h[1 + threadIdx.x];
+  // the span's bytes of a row: [a0, a0 + pitch), 16-byte aligned on vec_in
+  int a0 = rec_w[1] * kPx, a1 = (rec_w[rec_w[0]] + 1) * kPx;
+  if (vec_in) a0 &= ~15, a1 = (a1 + 15) & ~15;
+  const int pitch = a1 - a0;
+  const bool fits = static_cast<long long>(nr) * pitch <= buf;
+  if (routes && blockIdx.y == 0 && threadIdx.x == 0) atomicAdd(&routes[fits ? 0 : 1], 1);
+
+  // this thread's column (its two taps) and rows ty + 4 k (theirs)
+  const int px = threadIdx.x % kResizeTX, py = threadIdx.x / kResizeTX;
+  int clo = 0, chi = 0;
+  float wxlo = 1.0f, wxhi = 0.0f;
+  if (px < nx) {
+    const int o = tx0 + px;
+    clo = taps_w[o], chi = taps_w[w + o];
+    wxlo = __int_as_float(taps_w[2 * w + o]), wxhi = __int_as_float(taps_w[3 * w + o]);
+  }
+  int rlo[kResizePx], rhi[kResizePx], slo[kResizePx], shi[kResizePx];
+  float wylo[kResizePx], wyhi[kResizePx];
 #pragma unroll
-    for (int c = 0; c < C; ++c) {
-      // the H pass at columns tw.lo and tw.hi (w_lo x[lo] + w_hi x[hi])
-      float t[2];
-#pragma unroll
-      for (int k = 0; k < 2; ++k) {
-        const long long col = (k ? tw.hi : tw.lo);
-        const float a = load_f(img + (rlo + col) * C + c);
-        t[k] = taps_h ? __fadd_rn(__fmul_rn(a, th.wlo),
-                                  __fmul_rn(load_f(img + (rhi + col) * C + c), th.whi))
-                      : a;
-      }
-      const float v = taps_w ? __fadd_rn(__fmul_rn(t[0], tw.wlo), __fmul_rn(t[1], tw.whi)) : t[0];
-      store(out + n * oplane + o + c, v);
+  for (int k = 0; k < kResizePx; ++k) {
+    const int y = py + k * (kResizeThreads / kResizeTX);
+    rlo[k] = rhi[k] = slo[k] = shi[k] = 0;
+    wylo[k] = 1.0f, wyhi[k] = 0.0f;
+    if (y < ny) {
+      const int o = ty0 + y, slot = blocks_h[o];
+      rlo[k] = taps_h[o], rhi[k] = taps_h[h + o];
+      wylo[k] = __int_as_float(taps_h[2 * h + o]), wyhi[k] = __int_as_float(taps_h[3 * h + o]);
+      slo[k] = slot & 0xffff, shi[k] = slot >> 16;
     }
   }
-}
+  // one channel of pixel k: lo and hi point at its column tap clo in its
+  // two rows, d elements on to chi; the H pass at both columns (w_lo x[lo]
+  // + w_hi x[hi]), then the W pass
+  auto lerp = [&](const T* lo, const T* hi, int d, int k) {
+    float t0 = sample(lo);
+    if (rh) t0 = __fadd_rn(__fmul_rn(t0, wylo[k]), __fmul_rn(sample(hi), wyhi[k]));
+    if (rw) {
+      float t1 = sample(lo + d);
+      if (rh) t1 = __fadd_rn(__fmul_rn(t1, wylo[k]), __fmul_rn(sample(hi + d), wyhi[k]));
+      t0 = __fadd_rn(__fmul_rn(t0, wxlo), __fmul_rn(t1, wxhi));
+    }
+    return t0;
+  };
+  __syncthreads();  // rows[]
 
-// grid of a tiled kernel over (w, h) outputs and L images (z at most 65535;
-// the kernels loop over the rest)
-dim3 tile_grid(int w, int h, int L) {
-  return dim3((w + kTileX - 1) / kTileX, (h + kTileY - 1) / kTileY, L < 65535 ? L : 65535);
+  const long long row_bytes = static_cast<long long>(W) * kPx;
+  const long long plane_bytes = row_bytes * H;
+  const long long oplane = static_cast<long long>(h) * w * C;
+  const uint8_t* xb = reinterpret_cast<const uint8_t*>(x);
+
+  // image n's rows x span into buffer b (cp.async groups on vec_in)
+  auto stage = [&](int n, int b) {
+    const uint8_t* src = xb + n * plane_bytes + a0;
+    uint8_t* dst = foot + b * buf;
+    if (vec_in) {
+      const int q = pitch / 16;
+      for (int i = threadIdx.x; i < nr * q; i += kResizeThreads) {
+        const int r = i / q, c = i - r * q;
+        cp_async16(dst + r * pitch + 16 * c, src + rows[r] * row_bytes + 16 * c);
+      }
+      cp_async_commit();
+    } else {
+      for (int r = 0; r < nr; ++r)
+        for (int c = threadIdx.x; c < pitch; c += kResizeThreads)
+          dst[r * pitch + c] = src[rows[r] * row_bytes + c];
+    }
+  };
+  // the output tile of image n to global memory
+  auto flush = [&](int n) {
+    uint8_t* ob = reinterpret_cast<uint8_t*>(out + n * oplane);
+    const uint8_t* tb = reinterpret_cast<const uint8_t*>(otile);
+    const int rb = nx * kPx;  // a multiple of 16 on vec_out
+    if (vec_out) {
+      const int q = rb / 16;
+      for (int i = threadIdx.x; i < ny * q; i += kResizeThreads) {
+        const int r = i / q, c = i - r * q;
+        *reinterpret_cast<uint4*>(ob + ((static_cast<long long>(ty0 + r) * w + tx0) * kPx) +
+                                  16 * c) =
+            *reinterpret_cast<const uint4*>(tb + r * (kResizeTX * kPx) + 16 * c);
+      }
+    } else {
+      for (int r = 0; r < ny; ++r)
+        for (int c = threadIdx.x; c < rb; c += kResizeThreads)
+          ob[(static_cast<long long>(ty0 + r) * w + tx0) * kPx + c] =
+              tb[r * (kResizeTX * kPx) + c];
+    }
+  };
+  const bool col_ok = px < nx;
+  const int d = (chi - clo) * C;
+
+  if (fits) {
+    const int dlo = clo * kPx - a0;  // column clo's byte in a staged row
+    int n = blockIdx.y, b = 0;
+    if (n < N) stage(n, 0);
+    for (; n < N; n += gridDim.y, b ^= 1) {
+      if (n + static_cast<int>(gridDim.y) < N) {
+        stage(n + gridDim.y, b ^ 1);
+        if (vec_in) cp_async_wait<1>();
+      } else if (vec_in) {
+        cp_async_wait<0>();
+      }
+      __syncthreads();
+      const uint8_t* fb = foot + b * buf;
+#pragma unroll
+      for (int k = 0; k < kResizePx; ++k) {
+        const int y = py + k * (kResizeThreads / kResizeTX);
+        if (!col_ok || y >= ny) continue;
+        const T* lo = reinterpret_cast<const T*>(fb + slo[k] * pitch + dlo);
+        const T* hi = reinterpret_cast<const T*>(fb + shi[k] * pitch + dlo);
+#pragma unroll
+        for (int c = 0; c < C; ++c)
+          put(otile + (y * kResizeTX + px) * C + c, lerp(lo + c, hi + c, d, k));
+      }
+      __syncthreads();
+      flush(n);
+    }
+  } else {
+    for (int n = blockIdx.y; n < N; n += gridDim.y) {
+      const T* img = x + n * (plane_bytes / static_cast<long long>(sizeof(T)));
+#pragma unroll
+      for (int k = 0; k < kResizePx; ++k) {
+        const int y = py + k * (kResizeThreads / kResizeTX);
+        if (!col_ok || y >= ny) continue;
+        const T* lo = img + (static_cast<long long>(rlo[k]) * W + clo) * C;
+        const T* hi = img + (static_cast<long long>(rhi[k]) * W + clo) * C;
+#pragma unroll
+        for (int c = 0; c < C; ++c)
+          put(otile + (y * kResizeTX + px) * C + c, lerp(lo + c, hi + c, d, k));
+      }
+      __syncthreads();
+      flush(n);
+      __syncthreads();
+    }
+  }
 }
 
 template <typename T, int C>
@@ -435,10 +570,22 @@ cudaError_t launch_warp(const void* x, void* out, int L, int H, int W, int ho, i
 }
 
 template <typename T, int C>
-void launch_resize(const void* x, void* out, int N, int H, int W, int h, int w,
-                   const int* taps_h, const int* taps_w, cudaStream_t s) {
-  resize_linear_kernel<T, C><<<tile_grid(w, h, N), dim3(kTileX, kTileY), 0, s>>>(
-      static_cast<const T*>(x), static_cast<T*>(out), N, H, W, h, w, taps_h, taps_w);
+cudaError_t launch_resize(const void* x, void* out, int N, int H, int W, int h, int w,
+                          const int* taps_h, const int* taps_w, const int* blocks_h,
+                          const int* blocks_w, int buf, int vec_in, int vec_out, int grid_z,
+                          int* routes, cudaStream_t s) {
+  const long long tiles = static_cast<long long>((w + kResizeTX - 1) / kResizeTX) *
+                          ((h + kResizeTY - 1) / kResizeTY);
+  if (tiles > 0x7fffffffLL) return cudaErrorInvalidValue;
+  const int smem = 2 * buf + kResizeTX * kResizeTY * C * static_cast<int>(sizeof(T));
+  const auto k = resize_linear_kernel<T, C>;
+  const cudaError_t err =
+      cudaFuncSetAttribute(k, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  k<<<dim3(static_cast<unsigned>(tiles), grid_z), kResizeThreads, smem, s>>>(
+      static_cast<const T*>(x), static_cast<T*>(out), N, H, W, h, w, taps_h, taps_w, blocks_h,
+      blocks_w, buf, vec_in, vec_out, routes);
+  return cudaGetLastError();
 }
 
 }  // namespace
@@ -501,21 +648,33 @@ extern "C" int tpuva_warp_affine(const void* x, void* out, int L, int H, int W, 
 }
 
 // KR: x (N, H, W, C) -> out (N, h, w, C), C 1 or 3, uint8 or float32;
-// taps_h (4, h) / taps_w (4, w) int32 tables on the card, null where the
-// axis keeps its size. Returns cudaGetLastError().
+// taps_h (4, h) / taps_w (4, w) and blocks_h / blocks_w int32 tables on
+// the card (ops/resize.py::tap_table, tile_blocks); buf bytes of a staging
+// buffer (a multiple of 16, at most 48 KB), vec_in / vec_out whether x /
+// out and their rows are 16-byte aligned, grid_z CTAs over the images of
+// a tile (ops/resize.py::resize_plan); routes int32[2] (or null) receives
+// the tiles that staged their rows and those that gathered. Returns
+// cudaGetLastError().
 extern "C" int tpuva_resize_linear(const void* x, void* out, int N, int H, int W, int C, int h,
-                                   int w, const int* taps_h, const int* taps_w, int is_float,
+                                   int w, const int* taps_h, const int* taps_w,
+                                   const int* blocks_h, const int* blocks_w, int is_float,
+                                   int buf, int vec_in, int vec_out, int grid_z, int* routes,
                                    void* stream) {
-  if (N <= 0 || H <= 0 || W <= 0 || h <= 0 || w <= 0 || (C != 1 && C != 3) ||
-      (!taps_h && h != H) || (!taps_w && w != W))
+  if (N <= 0 || H <= 0 || W <= 0 || h <= 0 || w <= 0 || (C != 1 && C != 3) || !taps_h ||
+      !taps_w || !blocks_h || !blocks_w || buf < 0 || buf % 16 || buf > kResizeBufMax ||
+      grid_z <= 0 || grid_z > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (is_float) {
-    if (C == 3) launch_resize<float, 3>(x, out, N, H, W, h, w, taps_h, taps_w, s);
-    else launch_resize<float, 1>(x, out, N, H, W, h, w, taps_h, taps_w, s);
-  } else {
-    if (C == 3) launch_resize<uint8_t, 3>(x, out, N, H, W, h, w, taps_h, taps_w, s);
-    else launch_resize<uint8_t, 1>(x, out, N, H, W, h, w, taps_h, taps_w, s);
-  }
-  return static_cast<int>(cudaGetLastError());
+  cudaError_t err;
+  if (is_float)
+    err = C == 3 ? launch_resize<float, 3>(x, out, N, H, W, h, w, taps_h, taps_w, blocks_h,
+                                           blocks_w, buf, vec_in, vec_out, grid_z, routes, s)
+                 : launch_resize<float, 1>(x, out, N, H, W, h, w, taps_h, taps_w, blocks_h,
+                                           blocks_w, buf, vec_in, vec_out, grid_z, routes, s);
+  else
+    err = C == 3 ? launch_resize<uint8_t, 3>(x, out, N, H, W, h, w, taps_h, taps_w, blocks_h,
+                                             blocks_w, buf, vec_in, vec_out, grid_z, routes, s)
+                 : launch_resize<uint8_t, 1>(x, out, N, H, W, h, w, taps_h, taps_w, blocks_h,
+                                             blocks_w, buf, vec_in, vec_out, grid_z, routes, s);
+  return static_cast<int>(err);
 }

@@ -25,12 +25,14 @@
 // through an empty asm statement a rep, so the compiler cannot fold the
 // loop), and the tile stays on the chip across reps, as in the TPU's VMEM.
 // A tile of 32-bit words is too large for one CTA's 227 KB (P1 1,167,360
-// B, P2 and P3 516,096 B), so it lives in the distributed shared memory of
-// one thread-block cluster, its rows banded over the CTAs (8 for P1, the
-// portable maximum, 145,920 B each; 4 for P2, 129,024 B; 8 for P3, 64,512
-// B, or 32,256 B packed; P4's 163,840 B fit one CTA), one CTA an SM. An
-// axis-0 roll reads the neighbouring band through DSMEM; an axis-1 roll
-// stays in its row, so in its CTA. A step reads every word it needs into
+// B, P2 and P3 516,096 B), so its rows are banded over the CTAs of one
+// thread-block cluster (8 for P1, the portable maximum, 145,920 B each; 4
+// for P2, 129,024 B; 8 for P3, 64,512 B, or 32,256 B packed; P4's 163,840
+// B fit one CTA), one CTA an SM. P2 holds its bands in registers and
+// trades halo rows (its section below). P1 and P3 hold theirs in the
+// cluster's distributed shared memory: an axis-0 roll reads the
+// neighbouring band through DSMEM; an axis-1 roll stays in its row, so in
+// its CTA. A step reads every word it needs into
 // registers, waits at a barrier (no reader may see a new word), writes its
 // band and waits again (every writer done before the next reads): the
 // cluster's barrier for a step that reads across CTAs, the CTA's for one
@@ -53,8 +55,10 @@
 // spilling in the rep loop (P3's 32-bit and packed cascades, P4's sweeps),
 // so that a ratio of their times is one of words and barriers alone.
 //
-// Bound: the operations (reps x ops x elements) on 1-8 SMs; the time is
-// the steps' barriers and shared-memory traffic. PERF.md has the times.
+// Bound: the operations (reps x ops x elements) on 1-8 SMs, or the chain
+// of a rep's dependent operations and barriers (chip_smoke.py's
+// PROBE_CHAINS); the time is the steps' barriers and shared-memory
+// traffic. PERF.md has the times.
 
 #include <cooperative_groups.h>
 #include <cstdint>
@@ -278,10 +282,247 @@ kernel(const uint8_t* __restrict__ x, uint8_t* __restrict__ out, int reps) {
 }  // namespace repos
 
 // ---------------------------------------------------------------- P2
+// P2 keeps each CTA's band of 28 rows in registers: only rows that a
+// neighbouring CTA holds cross through DSMEM, as a halo copied once an
+// exchange into the CTA's own registers. The rows a CTA exports are
+// double-buffered in its shared memory, so an exchange costs one cluster
+// barrier, split into an arrive after the export and a wait before the
+// halo is read. Two layouts:
+// - rows (the axis-1 cases: roll by 1 and by 8, roll1 + add, the slice):
+//   warp w < 28 holds band row w, lane l its columns [36 l, 36 l + 36); a
+//   step takes the neighbouring lane's edge words by shuffles: no barrier
+//   and no exchange at all;
+// - blocks (the axis-0 cases and the cascade): a window of 32 rows, the
+//   band and its halo, over 8 groups of 4 warps, thread t of group g
+//   holding window rows 4 g .. 4 g + 3 at columns [9 t, 9 t + 9). An
+//   axis-1 step trades each row's edge word with the neighbouring thread
+//   through shared memory at the group's named barrier, an axis-0 step the
+//   edge row with the neighbouring group at the CTA's barrier, each
+//   double-buffered: one barrier a step. The window's edge rows take
+//   ghost values, and every step after an exchange leaves one more edge
+//   row wrong on the side it reads from. The cascade's 4 axis-0 steps read
+//   2 rows up and 2 down: a halo of 2 rows each side, one exchange a rep,
+//   whose wait the middle groups put after their axis-1 steps. The
+//   roll-only axis-0 cases (roll axis0, roll0 + add) read a row up a rep:
+//   a halo of 4 rows above, one exchange every 4 reps (4 ghost rows of
+//   32). probes/roll_probe.py::HALO holds these depths, and
+//   tests/test_torch_roll_bands.py models the exchanges on the CPU.
 namespace roll {
 constexpr int H = 112, W = 1152, C = 4;
+constexpr int kBandRows = H / C;
 using B = Band<H, W, C, float>;
 constexpr float kEps = 1e-7f;
+
+constexpr int kLane = W / 32;  // rows layout: words a lane
+constexpr int kGroups = 8;  // blocks layout: groups of 4 warps
+constexpr int kGT = kThreads / kGroups;  // a group's threads, across a row
+constexpr int kR = 4, kK = W / kGT;  // a thread's rows and words a row
+constexpr int kPeriod = 4;  // reps an exchange of the roll-only axis-0 cases
+static_assert(kLane * 32 == W && kK * kGT == W && kGroups * kR == kBandRows + 4 &&
+                  kPeriod == kR,
+              "the window is the band and a 4-row halo");
+
+// the blocks layout's shared memory, [buffer][...][thread]: an axis-0
+// step's edge rows a group, an axis-1 step's edge words a row, the rows
+// exported to the neighbouring CTAs
+struct Smem {
+  float v[2][kGroups][kK][kGT];
+  float h[2][kGroups][kR][kGT];
+  float e[2][kR][kK][kGT];
+};
+
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.release;\n" ::: "memory");
+}
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.acquire;\n" ::: "memory");
+}
+// the named barrier of group g's 128 threads (0 is __syncthreads')
+__device__ __forceinline__ void group_sync(int g) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(g + 1), "n"(kGT) : "memory");
+}
+
+// An axis-0 step of the blocks layout: each word becomes op(it, the word
+// above: roll(f, 1, axis=0), kUp) or op(it, the word below: roll(f, H - 1,
+// axis=0)). The first group reads the last one's row and the last group
+// the first one's: ghost values.
+template <bool kUp, typename Op>
+__device__ __forceinline__ void vstep(float (&v)[kR][kK], Smem& sm, int& buf, int g, int t,
+                                      Op op) {
+#pragma unroll
+  for (int k = 0; k < kK; ++k) sm.v[buf][g][k][t] = v[kUp ? kR - 1 : 0][k];
+  __syncthreads();
+  const int gn = kUp ? (g + kGroups - 1) % kGroups : (g + 1) % kGroups;
+#pragma unroll
+  for (int k = 0; k < kK; ++k) {
+    const float a = sm.v[buf][gn][k][t];
+    if constexpr (kUp) {
+#pragma unroll
+      for (int i = kR - 1; i > 0; --i) v[i][k] = op(v[i][k], v[i - 1][k]);
+      v[0][k] = op(v[0][k], a);
+    } else {
+#pragma unroll
+      for (int i = 0; i < kR - 1; ++i) v[i][k] = op(v[i][k], v[i + 1][k]);
+      v[kR - 1][k] = op(v[kR - 1][k], a);
+    }
+  }
+  buf ^= 1;
+}
+
+// An axis-1 step of the blocks layout: each word becomes op(it, the word
+// left of it: roll(f, 1, axis=1), kLeft) or op(it, the word right of it:
+// roll(f, W - 1, axis=1)); a row lies in its group, which alone meets.
+template <bool kLeft, typename Op>
+__device__ __forceinline__ void hstep(float (&v)[kR][kK], Smem& sm, int& buf, int g, int t,
+                                      Op op) {
+#pragma unroll
+  for (int i = 0; i < kR; ++i) sm.h[buf][g][i][t] = v[i][kLeft ? kK - 1 : 0];
+  group_sync(g);
+  const int tn = kLeft ? (t + kGT - 1) % kGT : (t + 1) % kGT;
+#pragma unroll
+  for (int i = 0; i < kR; ++i) {
+    const float a = sm.h[buf][g][i][tn];
+    if constexpr (kLeft) {
+#pragma unroll
+      for (int k = kK - 1; k > 0; --k) v[i][k] = op(v[i][k], v[i][k - 1]);
+      v[i][0] = op(v[i][0], a);
+    } else {
+#pragma unroll
+      for (int k = 0; k < kK - 1; ++k) v[i][k] = op(v[i][k], v[i][k + 1]);
+      v[i][kK - 1] = op(v[i][kK - 1], a);
+    }
+  }
+  buf ^= 1;
+}
+
+// rows [i0, i0 + n) of v to (kOut) or from export slots [j0, j0 + n) of e
+template <bool kOut>
+__device__ __forceinline__ void trade(float (&v)[kR][kK], float (*e)[kK][kGT], int i0, int j0,
+                                      int n, int t) {
+#pragma unroll
+  for (int i = 0; i < kR; ++i) {
+    if (i < i0 || i >= i0 + n) continue;
+#pragma unroll
+    for (int k = 0; k < kK; ++k) {
+      if constexpr (kOut) e[j0 + i - i0][k][t] = v[i][k];
+      else v[i][k] = e[j0 + i - i0][k][t];
+    }
+  }
+}
+
+// The axis-1 cases: 3 roll by 1, 4 roll by 8, 6 roll1 + add, 7 the slice
+template <int CASE>
+__device__ __forceinline__ void rows_case(const uint8_t* x, uint8_t* out, int reps) {
+  const int w = threadIdx.x / 32, l = threadIdx.x % 32;
+  if (w >= kBandRows) return;
+  const int base = (int(blockIdx.x) * kBandRows + w) * W + kLane * l;
+  constexpr unsigned kAll = 0xffffffffu;
+  float v[kLane];
+#pragma unroll
+  for (int k = 0; k < kLane; ++k) v[k] = __int2float_rn(x[base + k]);
+#pragma unroll 1
+  for (int r = 0; r < reps; ++r) {
+    if constexpr (CASE == 3 || CASE == 6) {  // the word left of each: lane l - 1's last
+      const float a = __shfl_sync(kAll, v[kLane - 1], (l + 31) & 31);
+#pragma unroll
+      for (int k = kLane - 1; k >= 0; --k) {
+        const float left = k ? v[k - 1] : a;
+        v[k] = __fadd_rn(CASE == 3 ? left : __fadd_rn(v[k], left), kEps);
+      }
+    } else if constexpr (CASE == 4) {  // 8 words left: lane l - 1's last 8 for the first 8
+      float a[8];
+#pragma unroll
+      for (int j = 0; j < 8; ++j) a[j] = __shfl_sync(kAll, v[kLane - 8 + j], (l + 31) & 31);
+#pragma unroll
+      for (int k = kLane - 1; k >= 0; --k) v[k] = __fadd_rn(k >= 8 ? v[k - 8] : a[k], kEps);
+    } else {  // f[:, j] + f[:, j + 1] for j < W - 128, else 0: lane l + 1's first word
+      const float a = __shfl_sync(kAll, v[0], (l + 1) & 31);
+#pragma unroll
+      for (int k = 0; k < kLane; ++k) {
+        const float s = kLane * l + k < W - 128 ? __fadd_rn(v[k], k + 1 < kLane ? v[k + 1] : a)
+                                                : 0.0f;
+        v[k] = __fadd_rn(s, kEps);
+      }
+    }
+  }
+#pragma unroll
+  for (int k = 0; k < kLane; ++k) out[base + k] = low_byte(v[k]);
+}
+
+// The axis-0 cases (2 roll axis0, 5 roll0 + add) and the cascade (8)
+template <int CASE>
+__device__ __forceinline__ void blocks_case(const uint8_t* x, uint8_t* out, int reps, Smem& sm) {
+  constexpr bool kCascade = CASE == 8;
+  constexpr int kTop = kCascade ? 2 : kR;  // halo rows above the band (the cascade: 2 below)
+  const int q = blockIdx.x, g = threadIdx.x / kGT, t = threadIdx.x % kGT;
+  const int first = q * kBandRows - kTop + kR * g;  // the tile row of v[0]
+  float v[kR][kK];
+#pragma unroll
+  for (int i = 0; i < kR; ++i) {
+    const int row = (first + i + H) % H;
+#pragma unroll
+    for (int k = 0; k < kK; ++k) v[i][k] = __int2float_rn(x[row * W + kK * t + k]);
+  }
+  cg::cluster_group cluster = cg::this_cluster();
+  Smem& up = *cluster.map_shared_rank(&sm, (q + C - 1) % C);
+  Smem& down = *cluster.map_shared_rank(&sm, (q + 1) % C);
+  int bv = 0, bh = 0;
+  if constexpr (kCascade) {
+    const auto add = [](float a, float c) { return __fadd_rn(a, c); };
+    const auto last = [](float a, float c) {  // the last add, then x 2^-8 and + 1e-7
+      return __fadd_rn(__fmul_rn(__fadd_rn(a, c), 0.00390625f), kEps);
+    };
+    const bool edge = g == 0 || g == kGroups - 1;
+#pragma unroll 1
+    for (int r = 0; r < reps; ++r) {
+      // the halo: the rows the neighbours exported at the end of rep r - 1
+      // (the CTA above its last two band rows, the one below its first two)
+      if (r > 0 && edge) {
+        cluster_wait();
+        if (g == 0) trade<false>(v, up.e[(r - 1) & 1], 0, 2, 2, t);
+        else trade<false>(v, down.e[(r - 1) & 1], 2, 0, 2, t);
+      }
+      hstep<true>(v, sm, bh, g, t, add);
+      hstep<true>(v, sm, bh, g, t, add);
+      hstep<false>(v, sm, bh, g, t, add);
+      hstep<false>(v, sm, bh, g, t, add);
+      if (r > 0 && !edge) cluster_wait();
+      vstep<true>(v, sm, bv, g, t, add);
+      vstep<true>(v, sm, bv, g, t, add);
+      vstep<false>(v, sm, bv, g, t, add);
+      vstep<false>(v, sm, bv, g, t, last);
+      if (r + 1 < reps) {  // the first two band rows, then the last two
+        if (g == 0) trade<true>(v, sm.e[r & 1], 2, 0, 2, t);
+        else if (g == kGroups - 1) trade<true>(v, sm.e[r & 1], 0, 2, 2, t);
+        cluster_arrive();
+      }
+    }
+  } else {
+    const auto op = [](float self, float above) {
+      if constexpr (CASE == 2) return __fadd_rn(above, kEps);
+      else return __fadd_rn(__fadd_rn(self, above), kEps);
+    };
+#pragma unroll 1
+    for (int r = 0; r < reps; ++r) {
+      if (r > 0 && r % kPeriod == 0) {  // the last 4 band rows to the CTA below's halo
+        const int p = (r / kPeriod) & 1;
+        if (g == kGroups - 1) trade<true>(v, sm.e[p], 0, 0, kR, t);
+        cluster_arrive();
+        cluster_wait();
+        if (g == 0) trade<false>(v, up.e[p], 0, 0, kR, t);
+      }
+      vstep<true>(v, sm, bv, g, t, op);
+    }
+  }
+  cluster.sync();  // no CTA leaves while a neighbour may read its exports
+#pragma unroll
+  for (int i = 0; i < kR; ++i) {
+    const int wrow = kR * g + i - kTop;  // the band row
+    if (wrow < 0 || wrow >= kBandRows) continue;
+#pragma unroll
+    for (int k = 0; k < kK; ++k) out[(first + i) * W + kK * t + k] = low_byte(v[i][k]);
+  }
+}
 
 template <int CASE>
 __global__ void __launch_bounds__(kThreads, 1)
@@ -292,35 +533,17 @@ kernel(const uint8_t* __restrict__ x, uint8_t* __restrict__ out, int reps) {
   } else if constexpr (CASE == 1) {  // mul f*c
     in_registers<B>(x, out, reps, ToFloat{},
                     [](float v) { return __fadd_rn(__fmul_rn(v, 1.0001f), kEps); });
-  } else {
+  } else if constexpr (CASE == 3 || CASE == 4 || CASE == 6 || CASE == 7) {
+    rows_case<CASE>(x, out, reps);
+  } else {  // 2 roll axis0, 5 roll0 + add, 8 the k = 5 cascade x 2^-8
     extern __shared__ __align__(16) unsigned char smem[];
-    B b(reinterpret_cast<float*>(smem));
-    load_band(b, x, ToFloat{});
-    for (int r = 0; r < reps; ++r) {
-      if constexpr (CASE == 2) {  // roll axis0
-        band_step(b, true, [&](int e) { return __fadd_rn(b.up(e, 1), kEps); });
-      } else if constexpr (CASE == 3 || CASE == 4) {  // roll axis1 by 1, by 8
-        band_step(b, false,
-                  [&](int e) { return __fadd_rn(b.left(e, CASE == 3 ? 1 : 8), kEps); });
-      } else if constexpr (CASE == 5) {  // roll0 + add
-        band_step(b, true, [&](int e) { return __fadd_rn(__fadd_rn(b.s[e], b.up(e, 1)), kEps); });
-      } else if constexpr (CASE == 6) {  // roll1 + add
-        band_step(b, false,
-                  [&](int e) { return __fadd_rn(__fadd_rn(b.s[e], b.left(e, 1)), kEps); });
-      } else if constexpr (CASE == 7) {  // f[:, j] + f[:, j + 1], 128 zero columns
-        band_step(b, false, [&](int e) {
-          const float s = e % W < W - 128 ? __fadd_rn(b.s[e], b.s[e + 1]) : 0.0f;
-          return __fadd_rn(s, kEps);
-        });
-      } else {  // the k = 5 cascade x 2^-8
-        cascade(
-            b, H, [](float a, float c) { return __fadd_rn(a, c); },
-            [&](int e) { return b.left(e, 1); }, [&](int e) { return b.left(e, W - 1); },
-            [](float v) { return __fadd_rn(__fmul_rn(v, 0.00390625f), kEps); });
-      }
-    }
-    store_band(b, out);
+    blocks_case<CASE>(x, out, reps, *reinterpret_cast<Smem*>(smem));
   }
+}
+
+// dynamic shared memory of case `which`
+constexpr size_t smem_bytes(int which) {
+  return which == 2 || which == 5 || which == 8 ? sizeof(Smem) : 0;
 }
 }  // namespace roll
 
@@ -563,7 +786,7 @@ extern "C" int tpuva_probe_roll(const void* x, void* out, int reps, int which,
                                                   kernel<3>, kernel<4>, kernel<5>,
                                                   kernel<6>, kernel<7>, kernel<8>};
   if (which < 0 || which >= 9) return static_cast<int>(cudaErrorInvalidValue);
-  return launch(ks[which], C, which < 2 ? 0 : B::kBytes, x, out, reps, stream);
+  return launch(ks[which], C, smem_bytes(which), x, out, reps, stream);
 }
 
 extern "C" int tpuva_probe_i16(const void* x, void* out, int reps, int which,

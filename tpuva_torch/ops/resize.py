@@ -10,14 +10,21 @@ rounded on its own (tpuva's XLA:CPU run contracts them into FMAs: ROADMAP
 Queue 3 R5), and skips an axis whose size stays, as jax does.
 ``resize_linear`` launches KR (csrc/filters.cu ``tpuva_resize_linear``)
 once on a CUDA tensor: both passes fused, the H pass's float32
-intermediate rounded as the plain version's is; the taps go to the card
-once a (size, size, device) (``device_taps``). CPU tensors take the plain
-version.
+intermediate rounded as the plain version's is. KR takes a 64 x 16 output
+tile (``KR_TILE``) across the images, stages the tile's distinct input
+rows over the span of columns its taps name into shared memory, or, where
+that footprint exceeds a buffer, gathers from global memory: a route a
+tile. ``resize_plan`` is that launch, computed here as the kernel computes
+it (the buffer, the routes, the CTAs over the images);
+``resize_linear_routes`` counts the routes on the card. The taps and the
+blocks' records go to the card once a (size, size, device)
+(``device_taps``, ``device_blocks``). CPU tensors take the plain version.
 """
 
 from __future__ import annotations
 
 import functools
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -93,8 +100,124 @@ def tap_table(m: int, n: int) -> np.ndarray:
 @functools.lru_cache(maxsize=64)
 def device_taps(m: int, n: int, device: torch.device) -> torch.Tensor:
     """tap_table(m, n) on device, uploaded once a (m, n, device) and kept:
-    KR reads it, nothing writes it."""
+    KR reads it, nothing writes it (m == n: the identity, which KR skips)."""
     return torch.from_numpy(tap_table(m, n)).to(device)
+
+
+KR_TILE = (64, 16)  # KR's output tile (w, h): a CTA (csrc/filters.cu kResizeTX, kResizeTY)
+KR_BUF_MAX = 49152  # bytes of one of KR's two staging buffers at most (kResizeBufMax)
+# CTAs KR aims for over the tiles and images, 8 an SM of an H100 (at 1080p,
+# 1 to 5 CTAs a tile took the same time)
+KR_CTAS = 1056
+
+
+@functools.lru_cache(maxsize=64)
+def tile_blocks(m: int, n: int, T: int) -> np.ndarray:
+    """KR's blocks of T outputs from m to n samples, one int32 array (kept
+    once a shape: read only): a slot an output (its lower tap's place in
+    its block's record, the upper tap's << 16), then a record a block of 1
+    + 2 T words: the count of distinct taps of its outputs, those taps in
+    ascending order, zeros."""
+    lo, hi = (a.astype(np.int64) for a in resize_taps(m, n)[:2])
+    nb = -(-n // T)
+    slots = np.zeros(n, np.int64)
+    recs = np.zeros((nb, 1 + 2 * T), np.int64)
+    for b in range(nb):
+        s = slice(b * T, min(n, (b + 1) * T))
+        taps = np.unique(np.concatenate([lo[s], hi[s]]))
+        recs[b, 0] = taps.size
+        recs[b, 1: 1 + taps.size] = taps
+        slots[s] = np.searchsorted(taps, lo[s]) | np.searchsorted(taps, hi[s]) << 16
+    return np.concatenate([slots, recs.reshape(-1)]).astype(np.int32)
+
+
+@functools.lru_cache(maxsize=64)
+def device_blocks(m: int, n: int, T: int, device: torch.device) -> torch.Tensor:
+    """tile_blocks(m, n, T) on device, uploaded once and kept."""
+    return torch.from_numpy(tile_blocks(m, n, T)).to(device)
+
+
+class ResizePlan(NamedTuple):
+    tiles: tuple  # (blocks of columns, blocks of rows)
+    rows: np.ndarray  # (blocks of rows,) distinct input rows a tile stages
+    pitch: np.ndarray  # (blocks of columns,) bytes of a staged row's span
+    footprint: np.ndarray  # (blocks of rows, blocks of columns) bytes of an image's rows x span
+    buf: int  # bytes of a staging buffer: the largest footprint up to KR_BUF_MAX
+    staged: np.ndarray  # (blocks of rows, blocks of columns) bool: the tile stages
+    grid_z: int  # CTAs over the images of a tile
+
+
+@functools.lru_cache(maxsize=64)
+def resize_plan(N: int, H: int, W: int, px_bytes: int, size: tuple, vec_in: bool) -> ResizePlan:
+    """KR's launch for N images (H, W) of px_bytes bytes a pixel to size
+    (width, height), as the kernel computes it: a tile's footprint is its
+    rows' count times its span's bytes (from its first column tap's first
+    byte to its last one's last, widened to 16-byte bounds where the rows
+    are 16-byte aligned, vec_in); a tile stages where its footprint fits
+    the buffer, the largest footprint of at most KR_BUF_MAX bytes, and
+    gathers from global memory where it does not. Kept once a launch
+    shape: the arrays are read only."""
+    w, h = (int(v) for v in size)
+    tw, th = KR_TILE
+    bw = tile_blocks(W, w, tw)[w:].reshape(-1, 1 + 2 * tw)
+    bh = tile_blocks(H, h, th)[h:].reshape(-1, 1 + 2 * th)
+    c0 = bw[:, 1].astype(np.int64)
+    c1 = bw[np.arange(len(bw)), bw[:, 0]].astype(np.int64)
+    a0, a1 = c0 * px_bytes, (c1 + 1) * px_bytes
+    if vec_in:
+        a0, a1 = a0 & ~15, (a1 + 15) & ~15
+    pitch = a1 - a0
+    rows = bh[:, 0].astype(np.int64)
+    footprint = rows[:, None] * pitch[None, :]
+    fitting = footprint[footprint <= KR_BUF_MAX]
+    buf = int(-(-fitting.max() // 16) * 16) if fitting.size else 0
+    tiles = (len(bw), len(bh))
+    grid_z = int(min(N, 65535, max(1, -(-KR_CTAS // (tiles[0] * tiles[1])))))
+    return ResizePlan(tiles, rows, pitch, footprint, buf, footprint <= buf, grid_z)
+
+
+def _resize_cuda(batch: torch.Tensor, size, routes: torch.Tensor | None) -> torch.Tensor:
+    """KR's launch on a CUDA batch; routes (int32[2] on the card, or None)
+    receives the tiles of each route."""
+    C = batch.shape[3] if batch.dim() == 4 else 1
+    if batch.dim() == 4 and C != 3:
+        raise ValueError(f"resize_linear: KR takes 1 or 3 channels, got {C}")
+    w, h = (int(v) for v in size)
+    x = batch if batch.dtype in (torch.uint8, torch.float32) else batch.to(torch.float32)
+    x = x.contiguous()
+    N, H, W = x.shape[:3]
+    out = torch.empty((N, h, w) + x.shape[3:], dtype=x.dtype, device=x.device)
+    if out.numel() == 0:
+        return out
+    if x.numel() == 0:
+        raise ValueError("resize_linear: an empty frame has nothing to sample")
+    dev = x.device
+    px = C * x.element_size()
+    vec_in = (W * px) % 16 == 0 and x.data_ptr() % 16 == 0
+    vec_out = (w * px) % 16 == 0 and out.data_ptr() % 16 == 0
+    plan = resize_plan(N, H, W, px, (w, h), vec_in)
+    tw, th = KR_TILE
+    _build.launch(dev, "tpuva_resize_linear", "resize_linear kernel", x.data_ptr(),
+                  out.data_ptr(), N, H, W, C, h, w, device_taps(H, h, dev).data_ptr(),
+                  device_taps(W, w, dev).data_ptr(), device_blocks(H, h, th, dev).data_ptr(),
+                  device_blocks(W, w, tw, dev).data_ptr(), int(x.dtype == torch.float32),
+                  plan.buf, int(vec_in), int(vec_out), plan.grid_z,
+                  None if routes is None else routes.data_ptr())
+    resize_linear.launches += 1
+    return out
+
+
+def resize_linear_routes(batch: torch.Tensor, size):
+    """(resize_linear of a CUDA batch, (the tiles that staged their rows in
+    shared memory, the tiles that gathered from global memory)): one KR
+    launch, counted in resize_linear.launches."""
+    if batch.dim() not in (3, 4):
+        raise ValueError("resize_linear: batch must be (N, H, W) or (N, H, W, C)")
+    if batch.device.type != "cuda":
+        raise ValueError(f"resize_linear_routes: a CUDA tensor is needed, got {batch.device}")
+    routes = torch.zeros(2, dtype=torch.int32, device=batch.device)
+    out = _resize_cuda(batch, size, routes)
+    return out, tuple(routes.tolist())
 
 
 def resize_linear(batch: torch.Tensor, size) -> torch.Tensor:
@@ -110,28 +233,7 @@ def resize_linear(batch: torch.Tensor, size) -> torch.Tensor:
         return resize_linear_plain(batch, size)
     if batch.device.type != "cuda":
         raise ValueError(f"resize_linear: unsupported device {batch.device}")
-    C = batch.shape[3] if batch.dim() == 4 else 1
-    if batch.dim() == 4 and C != 3:
-        raise ValueError(f"resize_linear: KR takes 1 or 3 channels, got {C}")
-    w, h = (int(v) for v in size)
-    x = batch if batch.dtype in (torch.uint8, torch.float32) else batch.to(torch.float32)
-    x = x.contiguous()
-    N, H, W = x.shape[:3]
-    out = torch.empty((N, h, w) + x.shape[3:], dtype=x.dtype, device=x.device)
-    if out.numel() == 0:
-        return out
-    if x.numel() == 0:
-        raise ValueError("resize_linear: an empty frame has nothing to sample")
-    dev = x.device
-    taps_h = device_taps(H, h, dev) if h != H else None
-    taps_w = device_taps(W, w, dev) if w != W else None
-    _build.launch(dev, "tpuva_resize_linear", "resize_linear kernel", x.data_ptr(),
-                  out.data_ptr(), N, H, W, C, h, w,
-                  None if taps_h is None else taps_h.data_ptr(),
-                  None if taps_w is None else taps_w.data_ptr(),
-                  int(x.dtype == torch.float32))
-    resize_linear.launches += 1
-    return out
+    return _resize_cuda(batch, size, None)
 
 
 resize_linear.launches = 0

@@ -5,9 +5,12 @@ shift, the k = 5 cascade) on the card (``bench/roll_probe.py``,
 
 Each case runs `reps` reps of ``body(f) + 1e-7`` in float32 on a (112,
 1152) tile, u8 in and the low byte of the saturating int32 conversion
-out. Kernel: ``csrc/probes.cu`` ``tpuva_probe_roll``, the tile in the
-distributed shared memory of a 4-CTA cluster (the rolls and shifts) or in
-registers (the add and the multiply).
+out. Kernel: ``csrc/probes.cu`` ``tpuva_probe_roll``, one cluster of 4
+CTAs, each holding its band of 28 rows in registers. The cases on axis 1
+keep a row in a warp and shift words by shuffles; the cases on axis 0 and
+the cascade hold the band with a halo of rows (``HALO``) that a
+neighbouring CTA exports through distributed shared memory, refreshed
+once an exchange, one cluster barrier each.
 
     python -m tpuva_torch.probes.roll_probe [--device cpu]
 """
@@ -38,6 +41,12 @@ FILE_REPS = REPS[1]  # the JAX file's heaviest call
 # float32 overflow in the doubling cases
 CHECK_REPS = (1, 3, 140)
 CTAS = 4  # the cluster: one CTA an SM, 28 rows each
+# The kernel's halo a band (case: (rows above, rows below, reps an
+# exchange)): the cascade's 4 axis-0 steps read 2 rows up and 2 down a
+# rep; a roll by one row on axis 0 reads one row up a rep, so 4 rows buy 4
+# reps. The other cases exchange nothing.
+HALO = {"roll axis0 (sublane)": (4, 0, 4), "roll0 + add": (4, 0, 4),
+        "k5 cascade (17 ops)": (2, 2, 1)}
 
 
 def make_tile() -> torch.Tensor:
