@@ -275,21 +275,25 @@ raises, so the exit code is non-zero:
 9. the micro-probes P1-P4 (tpuva_torch.probes, the counterparts of
    bench/{repos,roll,i16,cell}_probe.py; kernels in csrc/probes.cu): every
    case's kernel bit-equal to its plain version at the probe's own tile
-   (each module's CHECK_REPS: 1 and 3; 140 for P2, past float32
-   overflow; the file's own count for P3 and P4); then each probe's own
-   measuring path (measure(), what its main() prints) with its launch
-   count set to 0 before and read after: every case slope-timed at the
-   module's REPS, the slope positive; its heaviest case beside its plain
-   version, one call each. The rep loop of each case that keeps its
-   words in registers must do one add a word in the SASS (no rep folded
-   into another). Then the latency probe (probes/latency_probe.py: one
+   (each module's CHECK_REPS: 1 and 3; 160 for P1, every dynamic amount
+   r % 152 and its wrap; 140 for P2, past float32 overflow; the file's own
+   count for P3 and P4); then each probe's own measuring path (measure(),
+   what its main() prints) with its launch count set to 0 before and read
+   after: every case slope-timed at the module's REPS, the slope positive;
+   its heaviest case beside its plain version, one call each. The rep loop
+   of each case that keeps its words in registers must do one add a word
+   in the SASS (no rep folded into another), and P4's step loops their
+   mins, 40 a thread a full-tile step and 20 a cell step (no step
+   folded). Then the latency probe (probes/latency_probe.py: one
    dependent float32 add, cast-hop, shared and DSMEM load, CTA and
    cluster barrier, each bit-equal to its plain version, slope-timed)
-   and each probe's dependent-chain bound, its file's reps x its rep's
-   chain (PROBE_CHAINS; P2's the larger of the chain its function needs,
-   one exchange a rep, and its operations at the rate of its 4 SMs), with
-   its share of the heaviest case's time. One "probes" line: ns/op,
-   Telem/s, Telem/s a SM, the cluster, those rep loops' arithmetic,
+   and the bounds (PROBE_CHAINS): for every case of P1 and P4 and the
+   heaviest of P2 and P3, the file's reps x the chain its function needs
+   a rep, for P1, P2 and P4 the larger of that and its operations at the
+   rate of the SMs it uses, its share of the case's time, and beside it
+   the pipe or memory that limits the case at its rate on those SMs
+   (PROBE_PIPES). One "probes" line: each case's ns/op, Telem/s, Telem/s a
+   SM and its file's-reps time, the CTAs, the rep loops' arithmetic,
    latency_ns, chain_bounds and the phase's seconds.
 
 Then one JSON line of the kernels (each with its least time on the card,
@@ -544,40 +548,73 @@ def probe_bounds():
     return out
 
 
-# Each probe's heaviest case as a chain of dependent operations a rep,
-# counted from csrc/probes.cu, each with its latency-probe case: P1's
-# cast-hop in registers; P3's k = 5 cascade, 8 band steps (4 in a row: a
-# shared load; 4 across CTAs: a DSMEM load), each an add, a barrier after
-# its reads and one after its writes (7 of the CTA, 9 of the cluster),
-# then the rescale (a multiply, counted at the add's latency); P4's
-# baseline_sweepish, 16 sweeps of 4 roll + min steps, each a shared load,
-# a min and two CTA barriers, the min left out (the latency probe has no
-# min/max case). P2's is the chain its function needs, not a design's:
+# The chain of dependent operations a rep that each case's function needs
+# (P2's and P3's heaviest case only), counted from csrc/probes.cu, each with
+# its latency-probe case. P1: the i32 add one add (priced as the f32 add's:
+# the latency probe has no integer add), the cast-hop its own case, a roll
+# a shared load, the add and a CTA barrier (its words cross threads). P2:
 # the band's halo crosses from the neighbouring CTA once a rep (a cluster
-# barrier and a DSMEM load), then the rep's 8 dependent adds, the
-# multiply and the last add.
+# barrier and a DSMEM load), then the rep's 8 dependent adds, the multiply
+# and the last add. P3's k = 5 cascade, 8 band steps (4 in a row: a shared
+# load; 4 across CTAs: a DSMEM load), each an add, a barrier after its
+# reads and one after its writes (7 of the CTA, 9 of the cluster), then
+# the rescale (a multiply, counted at the add's latency). P4: a step an
+# exchange and a min, a CTA barrier where it crosses warps (an axis-1
+# step); the exchange priced as a shared load (a shuffle crosses the same
+# crossbar) and the min as an f32 add (the latency probe has neither: ptxas
+# regroups a chain of mins against operands that do not depend on it).
+_ROLL = {"shared load": 1, "f32 add": 1, "CTA barrier": 1}
 PROBE_CHAINS = {
-    "repos_probe": {"cast-hop f->i->f + 1": 1},
-    "roll_probe": {"cluster barrier (4 CTAs)": 1, "DSMEM load": 1, "f32 add": 10},
-    "i16_probe": {"shared load": 4, "DSMEM load": 4, "f32 add": 9, "CTA barrier": 7,
-                  "cluster barrier (8 CTAs)": 9},
-    "cell_probe": {"shared load": 64, "CTA barrier": 128},
+    "repos_probe": {"i32 add (baseline)": {"f32 add": 1}, "i32 static roll26 + add": _ROLL,
+                    "i32 dynamic roll + add": _ROLL, "i32 dyn-uniform roll + add": _ROLL,
+                    "f32 cast-hop f->i->f + add": {"cast-hop f->i->f + 1": 1},
+                    "f32 static roll + add": _ROLL},
+    "roll_probe": {"k5 cascade (17 ops)": {"cluster barrier (4 CTAs)": 1, "DSMEM load": 1,
+                                           "f32 add": 10}},
+    "i16_probe": {"float32": {"shared load": 4, "DSMEM load": 4, "f32 add": 9, "CTA barrier": 7,
+                              "cluster barrier (8 CTAs)": 9}},
+    "cell_probe": {"baseline_min": {"shared load": 8, "f32 add": 8},
+                   "extract_roundtrip": {"shared load": 4, "f32 add": 4},
+                   "baseline_sweepish": {"shared load": 64, "f32 add": 64, "CTA barrier": 32},
+                   "cell_sweepish": {"shared load": 64, "f32 add": 66, "CTA barrier": 32}},
 }
 # the probes bounded by the larger of that chain and their operations at
 # the rate of the SMs they use (a CTA an SM: CTAS/SMS of the card's peak);
-# the others by their chain alone
-PROBE_SM_BOUND = ("roll_probe",)
+# P3 by its chain alone
+PROBE_SM_BOUND = ("repos_probe", "roll_probe", "cell_probe")
 SMS = 132  # an H100 SXM's SMs
+SM_CLOCK_HZ = 1.98e9  # an H100 SXM's boost clock
+# The pipe or memory that limits a case on the SMs it uses, in clocks a
+# word a rep (the card's published rates an SM): P1's i32 add one IADD at
+# 64 integer lanes a clock; the cast-hop one F2I at 16 a clock; a roll 8 B
+# (a 4-byte shared load and store) at shared memory's 128 B a clock; P4 a
+# min a word a step at 64 a clock (cell_sweepish: half the words, and the
+# cell's min and max).
+_SHARED = ("shared memory, 8 B a word at 128 B a clock an SM", 8 / 128)
+PROBE_PIPES = {
+    ("repos_probe", "i32 add (baseline)"): ("IADD, 64 lanes a clock an SM", 1 / 64),
+    ("repos_probe", "i32 static roll26 + add"): _SHARED,
+    ("repos_probe", "i32 dynamic roll + add"): _SHARED,
+    ("repos_probe", "i32 dyn-uniform roll + add"): _SHARED,
+    ("repos_probe", "f32 cast-hop f->i->f + add"): ("F2I, 16 a clock an SM", 1 / 16),
+    ("repos_probe", "f32 static roll + add"): _SHARED,
+    ("cell_probe", "baseline_min"): ("mins, 64 a clock an SM", 8 / 64),
+    ("cell_probe", "extract_roundtrip"): ("mins, 64 a clock an SM", 4 / 64),
+    ("cell_probe", "baseline_sweepish"): ("mins, 64 a clock an SM", 64 / 64),
+    ("cell_probe", "cell_sweepish"): ("mins, 64 a clock an SM", 33 / 64),
+}
 
 
-def probe_chain_bounds(entries):
+def probe_chain_bounds(entries, lines):
     """The latency probe's cases bit-equal to its plain version, their
-    latencies (ns, the slope between its REPS), and each micro-probe's
-    bound from them: the file's reps x the latencies of its rep's chain
-    (PROBE_CHAINS) and, for PROBE_SM_BOUND, the larger of that and the
-    heaviest case's operations on its CTAs' SMs (which binds is "binds"),
-    with its share of the heaviest case's time in entries and the
-    whole-card operations bound beside it. Returns (latencies, bounds)."""
+    latencies (ns, the slope between its REPS), and the bound of each case
+    in PROBE_CHAINS at its file's reps: its chain (the reps x the
+    latencies) and, for PROBE_SM_BOUND, the larger of that and the case's
+    operations on its CTAs' SMs (which binds is "binds"), its share of the
+    case's time (lines: phase 9's rows), and the limiting pipe of
+    PROBE_PIPES at its rate on those SMs (pipe_ms) beside it; the
+    whole-card operations bound of the heaviest case (entries: the
+    kernels line) too. Returns (latencies, {probe: {case: bound}})."""
     from tpuva_torch.probes import latency_probe as lp
 
     x = lp.make_tile().to("cuda")
@@ -591,21 +628,31 @@ def probe_chain_bounds(entries):
     if not all(v > 0 for v in ns.values()):
         raise AssertionError(f"latency probe: a latency is not positive: {ns}")
     mods, bounds = probe_modules(), {}
-    for name, chain in PROBE_CHAINS.items():
-        mod = mods[name]
-        per_rep = sum(n * ns[op] for op, n in chain.items())
-        reps, heavy = mod.FILE_REPS, probe_heaviest(mod)
-        chain_ms = reps * per_rep / 1e6
-        sm_ms = mod.make_tile().numel() * reps * heavy.n_ops / (PEAK_OPS_S * mod.CTAS / SMS) * 1e3
-        b, binds = chain_ms, "chain"
-        if name in PROBE_SM_BOUND and sm_ms > chain_ms:
-            b, binds = sm_ms, "operations on its SMs"
-        bounds[name] = {"case": heavy.name, "reps": reps, "chain": chain,
-                        "ns_a_rep": per_rep, "chain_ms": chain_ms,
-                        "sm_operations_bound_ms": sm_ms, "bound_ms": b,
-                        "binds": binds if name in PROBE_SM_BOUND else "chain",
-                        "ms": entries[name]["ms"], "share": b / entries[name]["ms"],
-                        "operations_bound_ms": entries[name]["bound_ms"]}
+    for name, chains in PROBE_CHAINS.items():
+        mod, reps = mods[name], mods[name].FILE_REPS
+        words = mod.make_tile().numel()
+        bounds[name] = {}
+        for case in mod.CASES:
+            if case.name not in chains:
+                continue
+            chain = chains[case.name]
+            per_rep = sum(n * ns[op] for op, n in chain.items())
+            chain_ms = reps * per_rep / 1e6
+            sm_ms = words * reps * case.n_ops / (PEAK_OPS_S * mod.CTAS / SMS) * 1e3
+            b, binds = chain_ms, "chain"
+            if name in PROBE_SM_BOUND and sm_ms > chain_ms:
+                b, binds = sm_ms, "operations on its SMs"
+            ms = lines[name]["cases"][case.name]["file_reps_ms"]
+            row = {"reps": reps, "chain": chain, "ns_a_rep": per_rep, "chain_ms": chain_ms,
+                   "sm_operations_bound_ms": sm_ms, "bound_ms": b, "binds": binds, "ms": ms,
+                   "share": b / ms}
+            if (name, case.name) in PROBE_PIPES:
+                what, clocks = PROBE_PIPES[(name, case.name)]
+                pipe_ms = words / mod.CTAS * reps * clocks / SM_CLOCK_HZ * 1e3
+                row.update(pipe=what, pipe_ms=pipe_ms, pipe_share=pipe_ms / ms)
+            if case.name == lines[name]["heaviest"]:
+                row["operations_bound_ms"] = entries[name]["bound_ms"]
+            bounds[name][case.name] = row
     return ns, bounds
 
 
@@ -617,6 +664,14 @@ PROBE_REGISTER_CASES = {
     ("roll_probe", 0): {"FADD": 2},  # f + f + 1e-7
     ("roll_probe", 1): {"FMUL": 1, "FADD": 1},  # f * 1.0001 + 1e-7
 }
+# P4's loops, every case in registers: (the mins of an iteration of its
+# step loop, the innermost loop, and of its rep loop outside that one): a
+# full-tile step does 40 a thread, a cell step 20; baseline_min's and
+# extract_roundtrip's step loops run one step an iteration (8 and 4 times,
+# extract's on both row planes), the sweeps one sweep of 4 steps (16
+# times); cell_sweepish's rep loop also takes v = min(top, bottom) and
+# max(v, bottom) (20 + 20). "MNMX" counts IMNMX and VIMNMX, min or max.
+PROBE_SWEEP_LOOPS = {0: (40, 0), 1: (40, 0), 2: (4 * 40, 0), 3: (4 * 20, 2 * 20)}
 SASS_INSN = re.compile(r"/\*([0-9a-f]{4,})\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9]*)\S*\s*([^;]*);")
 
 
@@ -626,8 +681,11 @@ def probe_sass():
     the built library (cuobjdump): the one loop, a backward branch, does
     each word's operations once, so that no rep is folded into another
     (ptxas merged the adds of unrolled reps once, and such a case ran
-    faster than the SM's lanes allow). Returns {case: {opcode: count in
-    the loop}}; raises where a count is not words a thread x the rep's."""
+    faster than the SM's lanes allow). P4's cases the same way by their
+    mins (PROBE_SWEEP_LOOPS): its step loop inside its rep loop, each
+    step's mins there, none folded into the next. Returns {case: {opcode:
+    count in the loop}}; raises where a count is not words a thread x the
+    rep's (or P4's)."""
     from collections import Counter
 
     from tpuva_torch import _build
@@ -637,14 +695,31 @@ def probe_sass():
                           text=True, check=True).stdout
     mods, out = probe_modules(), {}
     for fn in re.split(r"\n\s*Function : ", text)[1:]:
-        k = re.search(r"\d(repos|roll)6kernelILi(\d)E", fn.split("\n", 1)[0])
-        per_rep = k and PROBE_REGISTER_CASES.get((f"{k.group(1)}_probe", int(k.group(2))))
-        if not per_rep:
+        k = re.search(r"\d(repos|roll|cell)6kernelILi(\d)E", fn.split("\n", 1)[0])
+        if not k:
             continue
-        name = f"{k.group(1)}_probe<{k.group(2)}>"
+        name, i = f"{k.group(1)}_probe<{k.group(2)}>", int(k.group(2))
         insns = [(int(a, 16), op, args) for a, op, args in SASS_INSN.findall(fn)]
         loops = [(int(to, 16), at) for at, op, args in insns if op == "BRA"
                  for to in re.findall(r"^0x([0-9a-f]+)", args.strip()) if int(to, 16) < at]
+        if k.group(1) == "cell":
+            if len(loops) != 2:
+                raise AssertionError(f"{name}: {len(loops)} loops in its SASS, not a step loop "
+                                     "in the rep loop")
+            inner, outer = sorted(loops, key=lambda lp: lp[1] - lp[0])
+            if not outer[0] <= inner[0] < inner[1] <= outer[1]:
+                raise AssertionError(f"{name}: its step loop is not inside its rep loop")
+            mins = [sum(1 for at, op, _ in insns if "MNMX" in op and a <= at <= b)
+                    for a, b in (inner, outer)]
+            out[name] = {"step_loop_mins": mins[0], "rep_loop_mins": mins[1] - mins[0]}
+            want = PROBE_SWEEP_LOOPS[i]
+            if (mins[0], mins[1] - mins[0]) != want:
+                raise AssertionError(f"{name}: its loops do {out[name]} mins, not {want}: steps "
+                                     "are folded or lost")
+            continue
+        per_rep = PROBE_REGISTER_CASES.get((f"{k.group(1)}_probe", i))
+        if not per_rep:
+            continue
         if len(loops) != 1:
             raise AssertionError(f"{name}: {len(loops)} loops in its SASS, not the rep loop alone")
         ops = Counter("IADD" if op in ("VIADD", "IADD3") else op for at, op, _ in insns
@@ -656,7 +731,7 @@ def probe_sass():
         if out[name] != want:
             raise AssertionError(f"{name}: its rep loop does {out[name]}, not {want} "
                                  f"({words} words a thread): reps are folded or lost")
-    if len(out) != len(PROBE_REGISTER_CASES):
+    if len(out) != len(PROBE_REGISTER_CASES) + len(PROBE_SWEEP_LOOPS):
         raise AssertionError(f"the SASS holds {sorted(out)} of the probes' register cases")
     return out
 
@@ -709,12 +784,13 @@ def probes_phase(card):
                          "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
                          "bound_ms": bounds[name][0], "bound_by": bounds[name][1],
                          "library_ms": None}
-        lines[name] = {"cluster": f"{mod.CTAS} CTA(s) x 1024 threads, one an SM",
+        lines[name] = {"ctas": f"{mod.CTAS} CTA(s) x 1024 threads, one an SM",
                        "heaviest": heavy.name, "heaviest_reps": reps,
-                       "cases": {r["case"]: {k: r[k] for k in (
+                       "cases": {r["case"]: dict({k: r[k] for k in (
                            "n_ops", "r1", "r2", "t1_ms", "t2_ms", "ns_per_op", "telem_s",
-                           "telem_s_per_sm")} for r in rows}}
-    latency_ns, chain_bounds = probe_chain_bounds(entries)
+                           "telem_s_per_sm")}, file_reps_ms=r["t1_ms"] if r["r1"] == reps
+                           else r["t2_ms"]) for r in rows}}
+    latency_ns, chain_bounds = probe_chain_bounds(entries, lines)
     say("probes", card=card, bit_equal=True, seconds=round(time.time() - t_phase, 1),
         probes=lines, register_rep_loops=probe_sass(), latency_ns=latency_ns,
         chain_bounds=chain_bounds, kernels=list(entries.values()))

@@ -25,21 +25,21 @@
 // through an empty asm statement a rep, so the compiler cannot fold the
 // loop), and the tile stays on the chip across reps, as in the TPU's VMEM.
 // A tile of 32-bit words is too large for one CTA's 227 KB (P1 1,167,360
-// B, P2 and P3 516,096 B), so its rows are banded over the CTAs of one
-// thread-block cluster (8 for P1, the portable maximum, 145,920 B each; 4
-// for P2, 129,024 B; 8 for P3, 64,512 B, or 32,256 B packed; P4's 163,840
-// B fit one CTA), one CTA an SM. P2 holds its bands in registers and
-// trades halo rows (its section below). P1 and P3 hold theirs in the
-// cluster's distributed shared memory: an axis-0 roll reads the
-// neighbouring band through DSMEM; an axis-1 roll stays in its row, so in
-// its CTA. A step reads every word it needs into
+// B, P2 and P3 516,096 B), so it is split over CTAs, one an SM. P1's roll
+// cases band it by columns (8 CTAs of 240 columns, 145,920 B each), so an
+// axis-0 roll stays in its CTA's shared memory (its section below). P2
+// holds row bands in registers and trades halo rows over a 4-CTA cluster
+// (its section below). P3 holds row bands in the distributed shared memory
+// of an 8-CTA cluster (64,512 B each, or 32,256 B packed): an axis-0 roll
+// reads the neighbouring band through DSMEM; an axis-1 roll stays in its
+// row, so in its CTA. A P3 step reads every word it needs into
 // registers, waits at a barrier (no reader may see a new word), writes its
 // band and waits again (every writer done before the next reads): the
 // cluster's barrier for a step that reads across CTAs, the CTA's for one
 // that does not; the last in-row step before a step across publishes its
 // writes at the cluster's barrier, since a CTA's own barrier does not hold
 // back a neighbour that would read its band. There is room for one
-// buffer only (P1 at 8 CTAs), so a step costs two barriers; a cooperative
+// buffer only, so a step costs two barriers; a cooperative
 // grid-wide sync instead would wait for the whole grid through global
 // memory, where the cluster's barrier is in hardware among its SMs. The
 // cases with no exchange (i32 add, the cast-hop, f+f, the multiply) keep
@@ -49,16 +49,18 @@
 // a funnel shift of two neighbouring words, and the rescale
 // (f.astype(int32) >> 8).astype(dtype) as one byte permute that takes each
 // halfword's high byte, sign-replicated for i16 and zero-filled for u16.
-// P4's 2-row cells are a change of index in shared memory, not a copy:
-// the top rows of the cells are the even rows of the tile. The compared
-// cases keep their words in registers across a step's barrier without
-// spilling in the rep loop (P3's 32-bit and packed cascades, P4's sweeps),
-// so that a ratio of their times is one of words and barriers alone.
+// P4's (80, 512) tile, 163,840 B, lies in the registers of one CTA, a
+// block of 10 x 4 words a thread, its 2-row cells inside a thread (its
+// section below). The compared cases keep their words in registers across
+// a step's barrier without spilling in the rep loop (P3's 32-bit and
+// packed cascades, P4's sweeps), so that a ratio of their times is one of
+// words, operations and exchanges alone.
 //
-// Bound: the operations (reps x ops x elements) on 1-8 SMs, or the chain
-// of a rep's dependent operations and barriers (chip_smoke.py's
-// PROBE_CHAINS); the time is the steps' barriers and shared-memory
-// traffic. PERF.md has the times.
+// Bound: the larger of the operations (reps x ops x elements) on the 1-8
+// SMs a probe uses and the chain of a rep's dependent operations and
+// barriers that its function needs (chip_smoke.py's PROBE_CHAINS); beside
+// it the pipe or memory that limits each case (PROBE_PIPES). PERF.md has
+// the times.
 
 #include <cooperative_groups.h>
 #include <cstdint>
@@ -95,8 +97,7 @@ __device__ __forceinline__ uint32_t permute(uint32_t a, uint32_t b, uint32_t sel
 // shared memory, whole rows. kMapa: read other CTAs' words through 32-bit
 // shared::cluster addresses (mapa), half the registers of the generic
 // pointers map_shared_rank gives, which the cascades need to hold their
-// words without spilling; P1's and P2's single steps spilled more with
-// it, so only P3 uses it (PERF.md).
+// words without spilling. P3 alone reads other CTAs' words through a Band.
 template <int H, int W, int C, typename T, bool kMapa = false>
 struct Band {
   static constexpr int kN = H * W;
@@ -150,7 +151,7 @@ struct Band {
 // across, so every CTA's writes must be done before any CTA goes on (a
 // CTA's own barrier does not hold the others back).
 //
-// A thread holds up to 36 words across the first barrier (P1), of the 64
+// A thread holds up to 16 words across the first barrier (P3), of the 64
 // registers 1024 threads have. The compiler hoists a step's addresses out
 // of the rep loop; where a rep has several steps (kRecompute: the
 // cascades) they do not fit beside the words and spilled to local memory,
@@ -177,11 +178,6 @@ __device__ __forceinline__ void band_step(B& b, bool across, Fn fn, bool publish
     if (B::kBand % kThreads == 0 || e < B::kBand) b.s[e] = v[k];
   }
   barrier(publish);
-}
-
-template <typename B, typename Fn>
-__device__ __forceinline__ void band_step(B& b, bool across, Fn fn) {
-  band_step(b, across, fn, across);
 }
 
 // The x of a case with no exchange, its words in registers for every rep:
@@ -249,8 +245,99 @@ __device__ __forceinline__ void cascade(B& b, int H, Add add, Left left, Right r
 }
 
 // ---------------------------------------------------------------- P1
+// The cases with no exchange (the i32 add, the cast-hop) keep their words
+// in registers for all reps (in_registers, over the rows of an 8-CTA
+// cluster's bands). The roll cases band the tile by columns instead: CTA q
+// holds columns [240 q, 240 q + 240) of all 152 rows in its own shared
+// memory (145,920 B), so an axis-0 roll never leaves the CTA: no DSMEM, no
+// cluster. Thread (g, c), 17 row groups of 60 threads (threads 1020-1023
+// idle), holds the 16-byte vector c (4 columns) of rows g + 17 k, k < 9
+// (8 for g = 16). A rep loads each vector from row (i - d) mod 152, waits
+// at the CTA's barrier, stores it + 1 at row i and waits again: one shared
+// load and one store a word, two CTA barriers. The source rows are
+// computed a row at a time, as byte offsets: (g - d) mod 152, then 17 rows
+// further a k, wrapped once (17 x 8 < 152), so the three amounts (26, r %
+// 152, 26 unseen) cost the same. Bound: shared memory, 8 B a word at 128 B
+// a clock an SM (PERF.md). probes/repos_probe.py::column_band_map is this
+// index map, tested against torch.roll on the CPU.
 namespace repos {
 constexpr int H = 152, W = 1920, C = 8;
+constexpr int kCols = W / C;  // the roll cases: a CTA's columns
+constexpr int kVecs = kCols / 4;  // 16-byte vectors a row
+constexpr int kGroups = kThreads / kVecs;  // row groups
+constexpr int kRows = (H + kGroups - 1) / kGroups;  // rows a group (the last one fewer)
+constexpr int kRowBytes = kCols * 4;
+static_assert(kCols % 4 == 0 && kGroups * (kRows - 1) < H && kGroups * kRows >= H &&
+                  size_t(H) * kRowBytes <= 232448,
+              "a group's rows wrap at most once; the band fits one CTA");
+
+template <typename T>
+using Vec = std::conditional_t<std::is_same_v<T, float>, float4, int4>;
+
+// The roll cases: 1 i32 roll26, 2 roll r % H, 3 opaque 26; 5 f32 roll26
+template <int CASE>
+__device__ __forceinline__ void column_band_case(const uint8_t* x, uint8_t* out, int reps) {
+  using T = std::conditional_t<CASE == 5, float, int>;
+  using V = Vec<T>;
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int g = threadIdx.x / kVecs, c = threadIdx.x % kVecs;
+  // the thread's rows: 0 for the idle threads, which still meet every barrier
+  const int rows = g >= kGroups ? 0 : g + kGroups * (kRows - 1) < H ? kRows : kRows - 1;
+  const int col = int(blockIdx.x) * kCols + 4 * c;  // the thread's first tile column
+  unsigned char* const mine = smem + g * kRowBytes + 16 * c;  // row g's vector
+  constexpr int kStep = kGroups * kRowBytes, kWrap = H * kRowBytes;
+#pragma unroll
+  for (int k = 0; k < kRows; ++k) {
+    if (k < rows) {
+      const uchar4 u = *reinterpret_cast<const uchar4*>(x + (g + kGroups * k) * W + col);
+      *reinterpret_cast<V*>(mine + k * kStep) = V{T(int(u.x)), T(int(u.y)), T(int(u.z)),
+                                                  T(int(u.w))};
+    }
+  }
+  __syncthreads();
+#pragma unroll 1
+  for (int r = 0; r < reps; ++r) {
+    int d = 26;
+    if constexpr (CASE == 2) d = r % H;
+    if constexpr (CASE == 3) asm volatile("" : "+r"(d));  // the same amount, not folded
+    int off = g - d;  // the source row of k = 0, then its byte offset
+    if (off < 0) off += H;
+    off = off * kRowBytes + 16 * c;
+    // every thread loads all kRows vectors (each offset is in the band; a
+    // row a thread lacks is not stored): a load under `k < rows` became a
+    // branch that recomputed the offsets from k = 0 where d was a constant.
+    // Each offset from the first, wrapped alone: no chain between them.
+    V v[kRows];
+#pragma unroll
+    for (int k = 0; k < kRows; ++k) {
+      const int o = off + k * kStep;
+      v[k] = *reinterpret_cast<const V*>(smem + (o >= kWrap ? o - kWrap : o));
+    }
+    __syncthreads();
+#pragma unroll
+    for (int k = 0; k < kRows; ++k) {
+      if (k < rows) {
+        V& a = v[k];
+        if constexpr (CASE == 5) {
+          a = V{__fadd_rn(a.x, 1.0f), __fadd_rn(a.y, 1.0f), __fadd_rn(a.z, 1.0f),
+                __fadd_rn(a.w, 1.0f)};
+        } else {
+          a = V{a.x + 1, a.y + 1, a.z + 1, a.w + 1};
+        }
+        *reinterpret_cast<V*>(mine + k * kStep) = a;
+      }
+    }
+    __syncthreads();
+  }
+#pragma unroll
+  for (int k = 0; k < kRows; ++k) {
+    if (k < rows) {
+      const V a = *reinterpret_cast<const V*>(mine + k * kStep);
+      *reinterpret_cast<uchar4*>(out + (g + kGroups * k) * W + col) =
+          make_uchar4(low_byte(a.x), low_byte(a.y), low_byte(a.z), low_byte(a.w));
+    }
+  }
+}
 
 template <int CASE>
 __global__ void __launch_bounds__(kThreads, 1)
@@ -263,22 +350,15 @@ kernel(const uint8_t* __restrict__ x, uint8_t* __restrict__ out, int reps) {
     in_registers<B>(x, out, reps, ToFloat{}, [](float v) {
       return __fadd_rn(__int2float_rn(__float2int_rz(v)), 1.0f);
     });
-  } else {  // 1, 2, 3: i32 roll26, roll r % H, opaque 26; 5: f32 roll26
-    extern __shared__ __align__(16) unsigned char smem[];
-    B b(reinterpret_cast<T*>(smem));
-    load_band(b, x, [](uint8_t u) { return T(int(u)); });
-    for (int r = 0; r < reps; ++r) {
-      int d = 26;
-      if constexpr (CASE == 2) d = r % H;
-      if constexpr (CASE == 3) asm volatile("" : "+r"(d));  // the same amount, not folded
-      band_step(b, true, [&](int e) {
-        if constexpr (CASE == 5) return __fadd_rn(b.up(e, d), 1.0f);
-        else return b.up(e, d) + 1;
-      });
-    }
-    store_band(b, out);
+  } else {
+    column_band_case<CASE>(x, out, reps);
   }
 }
+
+// the register cases run as a cluster, as before; the roll cases as 8
+// lone CTAs, one an SM by their shared memory
+constexpr bool in_cluster(int which) { return which == 0 || which == 4; }
+constexpr size_t smem_bytes(int which) { return in_cluster(which) ? 0 : size_t(H) * kRowBytes; }
 }  // namespace repos
 
 // ---------------------------------------------------------------- P2
@@ -604,75 +684,186 @@ kernel(const uint8_t* __restrict__ x, uint8_t* __restrict__ out, int reps) {
 }  // namespace i16
 
 // ---------------------------------------------------------------- P4
+// P4 keeps the tile in registers, one layout for every case: thread (w, l)
+// of the CTA's 32 warps holds a block of 10 rows x 4 columns, rows 10 rb
+// .. 10 rb + 9 and columns 16 w + 4 cb .. 16 w + 4 cb + 3, lane l = 8 cb
+// + rb. So a warp holds 16 whole columns, all 80 rows, its 8 lanes of one
+// cb a column group. An axis-0 roll by one row moves a word only to the
+// next row of its column: a step shifts the block's rows in registers and
+// takes the one edge row of the lane above or below by a shuffle inside the
+// column group (width 8), which also wraps row 79 to row 0. An axis-1 roll
+// by one column takes the edge column of the neighbouring lane by a
+// shuffle; at the warp's edge columns through shared memory, the writing
+// lanes' edge columns as 16-byte vectors, double-buffered, one CTA barrier
+// a step (warp 0's reads warp 31's: the wrap). Everything else is a
+// register rename: a step does one min a word and moves only edges. The
+// 2-row cells lie inside a thread (5 a column), so cell_sweepish's extract
+// and interleave cost nothing: the sweep runs on the 5 x 4 block of v =
+// min(top, bottom), its shuffles and exchanges a word each row. Every step
+// passes its words through keep(), so that no step is folded into the next
+// (chip_smoke.py's probe_sass counts each step's mins).
+// tests/test_torch_cell_registers.py models these exchanges on the CPU.
+// Bound: the mins, one a word a step at 64 a clock an SM (PERF.md).
 namespace cell {
-constexpr int H = 80, W = 512, kN = H * W;
-static_assert(kThreads == 2 * W && (W & (W - 1)) == 0, "two rows a pass, W a power of 2");
+constexpr int H = 80, W = 512;
+constexpr int kR = 10, kC = 4;  // a thread's block: rows x columns
+constexpr int kRB = H / kR;  // row blocks: the lanes of a column group
+constexpr int kCB = 32 / kRB;  // column groups a warp
+constexpr int kWarps = kThreads / 32;
+constexpr int kSlot = 12;  // a lane's edge column in shared memory: 10 rows, 16-byte vectors
+static_assert(kRB * kCB == 32 && kWarps * kCB * kC == W && kR % 2 == 0 && kSlot % 4 == 0 &&
+                  kSlot >= kR,
+              "whole columns a warp; a 2-row cell inside a thread");
+constexpr unsigned kAll = 0xffffffffu;
 
-// One roll + min step on a plane of R rows of the tile, plane row i at
-// tile row S * i (S = 1: the tile; S = 2: the top rows of the 2-row
-// cells): word (i, c) becomes min(it, word ((i - DR) mod R, (c - DC) mod
-// W)), i.e. min(f, roll(f, (DR, DC))). Thread (ty, tx) = (tid / W, tid % W)
-// holds rows ty + 2j of column tx, so every address is the thread's row
-// and column plus a constant and no step spills (through Band's flat
-// index, the sweeps' addresses spilled 332-556 B: PERF.md).
-template <int R, int S, int DR, int DC>
-__device__ __forceinline__ void roll_min(int* s) {
-  static_assert(R % 2 == 0 && S * R == H && 0 <= DR && DR < R && 0 <= DC && DC < W, "");
-  const unsigned tid = threadIdx.x;
-  const int ty = (tid / W) & 1, tx = tid & (W - 1);
-  const int cs = (tx - DC) & (W - 1);
-  int v[R / 2];
+// the warp-edge columns: [buffer][warp][row block][row]
+struct Smem {
+  int e[2][kWarps][kRB][kSlot];
+};
+
+template <int NR>
+__device__ __forceinline__ void keep_all(int (&v)[NR][kC]) {
 #pragma unroll
-  for (int j = 0; j < R / 2; ++j) {
-    const int i = ty + 2 * j;
-    const int is = i >= DR ? i - DR : i - DR + R;
-    v[j] = min(s[S * i * W + tx], s[S * is * W + cs]);
+  for (int i = 0; i < NR; ++i)
+#pragma unroll
+    for (int j = 0; j < kC; ++j) keep(v[i][j]);
+}
+
+// An axis-0 roll by one row + min on the plane of rows P, P + S, ... of
+// the block: each word becomes min(it, the word above: roll(f, 1), kUp) or
+// min(it, the word below: roll(f, R - 1)). The lane above or below in the
+// column group gives its edge row, 8 lanes wrapping as the plane's rows.
+template <bool kUp, int S, int P, int NR>
+__device__ __forceinline__ void vstep(int (&v)[NR][kC], int rb) {
+  constexpr int n = NR / S;  // the plane's rows in the block
+  const int src = (rb + (kUp ? kRB - 1 : 1)) % kRB;
+  const auto row = [&](int i, int j) -> int& { return v[P + S * i][j]; };
+#pragma unroll
+  for (int j = 0; j < kC; ++j) {
+    const int a = __shfl_sync(kAll, row(kUp ? n - 1 : 0, j), src, kRB);
+    if constexpr (kUp) {
+#pragma unroll
+      for (int i = n - 1; i > 0; --i) row(i, j) = min(row(i, j), row(i - 1, j));
+      row(0, j) = min(row(0, j), a);
+    } else {
+#pragma unroll
+      for (int i = 0; i < n - 1; ++i) row(i, j) = min(row(i, j), row(i + 1, j));
+      row(n - 1, j) = min(row(n - 1, j), a);
+    }
+  }
+}
+
+// An axis-1 roll by one column + min: each word becomes min(it, the word
+// left of it: roll(f, 1), kLeft) or min(it, the word right of it: roll(f,
+// W - 1)). The lane of the next column group gives its edge column by a
+// shuffle; the warp's first (kLeft) or last column group takes the
+// neighbouring warp's from shared memory, written before the barrier.
+template <bool kLeft, int NR>
+__device__ __forceinline__ void hstep(int (&v)[NR][kC], Smem& sm, int& buf, int w, int cb,
+                                      int rb) {
+  constexpr int kVecs = (NR + 3) / 4, kOut = kLeft ? kC - 1 : 0;
+  if (cb == (kLeft ? kCB - 1 : 0)) {  // the column the neighbouring warp reads
+#pragma unroll
+    for (int m = 0; m < kVecs; ++m) {
+      int q[4];
+#pragma unroll
+      for (int u = 0; u < 4; ++u) q[u] = 4 * m + u < NR ? v[4 * m + u][kOut] : 0;
+      *reinterpret_cast<int4*>(&sm.e[buf][w][rb][4 * m]) = make_int4(q[0], q[1], q[2], q[3]);
+    }
   }
   __syncthreads();
+  const bool reads = cb == (kLeft ? 0 : kCB - 1);
+  const int wn = (w + (kLeft ? kWarps - 1 : 1)) % kWarps;
 #pragma unroll
-  for (int j = 0; j < R / 2; ++j) s[S * (ty + 2 * j) * W + tx] = v[j];
-  __syncthreads();
+  for (int m = 0; m < kVecs; ++m) {
+    int4 e = make_int4(0, 0, 0, 0);
+    if (reads) e = *reinterpret_cast<const int4*>(&sm.e[buf][wn][rb][4 * m]);
+    const int ev[4] = {e.x, e.y, e.z, e.w};
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {
+      const int i = 4 * m + u;
+      if (i >= NR) break;
+      int a = kLeft ? __shfl_up_sync(kAll, v[i][kC - 1], kRB)
+                    : __shfl_down_sync(kAll, v[i][0], kRB);
+      if (reads) a = ev[u];
+      if constexpr (kLeft) {
+#pragma unroll
+        for (int j = kC - 1; j > 0; --j) v[i][j] = min(v[i][j], v[i][j - 1]);
+        v[i][0] = min(v[i][0], a);
+      } else {
+#pragma unroll
+        for (int j = 0; j < kC - 1; ++j) v[i][j] = min(v[i][j], v[i][j + 1]);
+        v[i][kC - 1] = min(v[i][kC - 1], a);
+      }
+    }
+  }
+  buf ^= 1;
 }
 
 // roll(f, 1) + min, roll(f, R - 1) + min on axis 0 and the same on axis 1
-template <int R, int S>
-__device__ __forceinline__ void sweep(int* s) {
-  roll_min<R, S, 1, 0>(s);
-  roll_min<R, S, R - 1, 0>(s);
-  roll_min<R, S, 0, 1>(s);
-  roll_min<R, S, 0, W - 1>(s);
+template <int NR>
+__device__ __forceinline__ void sweep(int (&v)[NR][kC], Smem& sm, int& buf, int w, int cb,
+                                      int rb) {
+  vstep<true, 1, 0>(v, rb);
+  keep_all(v);
+  vstep<false, 1, 0>(v, rb);
+  keep_all(v);
+  hstep<true>(v, sm, buf, w, cb, rb);
+  keep_all(v);
+  hstep<false>(v, sm, buf, w, cb, rb);
+  keep_all(v);
 }
 
 template <int CASE>
 __global__ void __launch_bounds__(kThreads, 1)
 kernel(const int* __restrict__ x, int* __restrict__ out, int reps) {
-  extern __shared__ __align__(16) int s[];
-  for (int e = threadIdx.x; e < kN; e += kThreads) s[e] = x[e];
-  __syncthreads();
+  __shared__ __align__(16) Smem sm;
+  const int w = threadIdx.x / 32, l = threadIdx.x % 32, cb = l / kRB, rb = l % kRB;
+  const int base = kR * rb * W + (w * kCB + cb) * kC;  // the block's first word
+  int v[kR][kC];
+#pragma unroll
+  for (int i = 0; i < kR; ++i) {
+    const int4 q = *reinterpret_cast<const int4*>(x + base + i * W);
+    v[i][0] = q.x, v[i][1] = q.y, v[i][2] = q.z, v[i][3] = q.w;
+  }
+  int buf = 0;
+#pragma unroll 1
   for (int r = 0; r < reps; ++r) {
     if constexpr (CASE == 0) {  // baseline_min: 8 x roll(1, axis 0) + min
-      for (int k = 0; k < 8; ++k) roll_min<H, 1, 1, 0>(s);
+#pragma unroll 1
+      for (int k = 0; k < 8; ++k) {
+        vstep<true, 1, 0>(v, rb);
+        keep_all(v);
+      }
     } else if constexpr (CASE == 1) {  // extract_roundtrip: each row plane
-      // rolled by one of its rows is the tile rolled by two
-      for (int k = 0; k < 4; ++k) roll_min<H, 1, 2, 0>(s);
+#pragma unroll 1
+      for (int k = 0; k < 4; ++k) {
+        vstep<true, 2, 0>(v, rb);
+        vstep<true, 2, 1>(v, rb);
+        keep_all(v);
+      }
     } else if constexpr (CASE == 2) {  // baseline_sweepish
-      for (int k = 0; k < 16; ++k) sweep<H, 1>(s);
-    } else {  // cell_sweepish: v = min(top, bottom) in the top rows
-      for (int e = threadIdx.x; e < kN / 2; e += kThreads) {
-        const int p = e + e / W * W;  // row 2 (e / W), column e % W
-        s[p] = min(s[p], s[p + W]);
-      }
-      __syncthreads();
-      for (int k = 0; k < 16; ++k) sweep<H / 2, 2>(s);
-      // the bottom rows become max(v, bottom); each thread its own words
-      for (int e = threadIdx.x; e < kN / 2; e += kThreads) {
-        const int p = e + e / W * W;
-        s[p + W] = max(s[p], s[p + W]);
-      }
+#pragma unroll 1
+      for (int k = 0; k < 16; ++k) sweep(v, sm, buf, w, cb, rb);
+    } else {  // cell_sweepish: v = min(top, bottom), the sweep, then v and max(v, bottom)
+      int c[kR / 2][kC], b[kR / 2][kC];
+#pragma unroll
+      for (int j = 0; j < kR / 2; ++j)
+#pragma unroll
+        for (int q = 0; q < kC; ++q) b[j][q] = v[2 * j + 1][q], c[j][q] = min(v[2 * j][q], b[j][q]);
+      keep_all(c);
+#pragma unroll 1
+      for (int k = 0; k < 16; ++k) sweep(c, sm, buf, w, cb, rb);
+#pragma unroll
+      for (int j = 0; j < kR / 2; ++j)
+#pragma unroll
+        for (int q = 0; q < kC; ++q) v[2 * j][q] = c[j][q], v[2 * j + 1][q] = max(c[j][q], b[j][q]);
+      keep_all(v);
     }
   }
-  __syncthreads();
-  for (int e = threadIdx.x; e < kN; e += kThreads) out[e] = s[e];
+#pragma unroll
+  for (int i = 0; i < kR; ++i)
+    *reinterpret_cast<int4*>(out + base + i * W) = make_int4(v[i][0], v[i][1], v[i][2], v[i][3]);
 }
 }  // namespace cell
 
@@ -742,7 +933,7 @@ using ProbeKernel = void (*)(const In*, Out*, int);
 
 template <typename In, typename Out>
 int launch(ProbeKernel<In, Out> k, int ctas, size_t smem, const void* x, void* out, int reps,
-           cudaStream_t stream) {
+           cudaStream_t stream, bool cluster = true) {
   cudaError_t err = cudaFuncSetAttribute(k, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
@@ -757,7 +948,7 @@ int launch(ProbeKernel<In, Out> k, int ctas, size_t smem, const void* x, void* o
   attr[0].val.clusterDim.y = 1;
   attr[0].val.clusterDim.z = 1;
   cfg.attrs = attr;
-  cfg.numAttrs = ctas > 1 ? 1 : 0;
+  cfg.numAttrs = cluster && ctas > 1 ? 1 : 0;
   err = cudaLaunchKernelEx(&cfg, k, static_cast<const In*>(x), static_cast<Out*>(out), reps);
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
@@ -767,16 +958,16 @@ int launch(ProbeKernel<In, Out> k, int ctas, size_t smem, const void* x, void* o
 
 // Each entry point runs `reps` reps of case `which` (the order of the
 // probe's CASES table) on x, the probe's tile (uint8; int32 for P4), into
-// out of the same shape. One cluster, one CTA an SM. Returns
-// cudaGetLastError() after the launch (0 = launched).
+// out of the same shape. One CTA an SM, in one cluster but for P1's roll
+// cases and P4's one CTA. Returns cudaGetLastError() after the launch (0 =
+// launched).
 extern "C" int tpuva_probe_repos(const void* x, void* out, int reps, int which,
                                  cudaStream_t stream) {
   using namespace repos;
   static const ProbeKernel<uint8_t, uint8_t> ks[] = {kernel<0>, kernel<1>, kernel<2>,
                                                   kernel<3>, kernel<4>, kernel<5>};
   if (which < 0 || which >= 6) return static_cast<int>(cudaErrorInvalidValue);
-  const size_t smem = which == 0 || which == 4 ? 0 : Band<H, W, C, int>::kBytes;
-  return launch(ks[which], C, smem, x, out, reps, stream);
+  return launch(ks[which], C, smem_bytes(which), x, out, reps, stream, in_cluster(which));
 }
 
 extern "C" int tpuva_probe_roll(const void* x, void* out, int reps, int which,
@@ -803,7 +994,7 @@ extern "C" int tpuva_probe_cell(const void* x, void* out, int reps, int which,
   using namespace cell;
   static const ProbeKernel<int, int> ks[] = {kernel<0>, kernel<1>, kernel<2>, kernel<3>};
   if (which < 0 || which >= 4) return static_cast<int>(cudaErrorInvalidValue);
-  return launch(ks[which], 1, kN * sizeof(int), x, out, reps, stream);
+  return launch(ks[which], 1, 0, x, out, reps, stream);
 }
 
 // The latency probe: `reps` dependent operations of kind `which`

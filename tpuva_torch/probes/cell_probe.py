@@ -7,8 +7,13 @@ even and odd row planes, 4 x roll + min each, interleaved back);
 ``baseline_sweepish`` (16 x roll + min along both axes, both ways);
 ``cell_sweepish`` (v = min(top, bottom) of the 2-row cells, the same sweep
 on v, then rows v and max(v, bottom)). Kernel: ``csrc/probes.cu``
-``tpuva_probe_cell``, the tile in one CTA's shared memory, where the
-stride-2 extract and the interleave are a change of index.
+``tpuva_probe_cell``, the tile in the registers of one CTA of 1024
+threads, a block of ``BLOCK`` (10 rows x 4 columns) a thread; a warp
+holds 16 whole columns, 8 row blocks down each of its 4 column groups. A
+step moves only edge rows (a shuffle inside a column group, which wraps
+row 79 to row 0) and edge columns (a shuffle inside the warp, through
+shared memory between warps); a 2-row cell lies inside a thread, so the
+stride-2 extract and the interleave cost nothing.
 
     python -m tpuva_torch.probes.cell_probe [--device cpu]
 
@@ -37,6 +42,12 @@ REPS = (256, 4096)  # the slope's rep counts: the JAX file's, and a second
 FILE_REPS = REPS[0]  # the JAX file's call
 CHECK_REPS = (1, 3, FILE_REPS)  # the reps a kernel is held at against its plain version
 CTAS = 1
+# the kernel's layout: a thread's block (rows, columns); ROW_BLOCKS lanes
+# down a column group, COL_GROUPS column groups a warp, WARPS warps
+BLOCK = (10, 4)
+ROW_BLOCKS = SH // BLOCK[0]
+COL_GROUPS = 32 // ROW_BLOCKS
+WARPS = SW // (COL_GROUPS * BLOCK[1])
 
 
 def make_tile() -> torch.Tensor:

@@ -6,14 +6,18 @@ in, int32 or float32 inside, the low byte of the int32 out: an i32 add;
 an axis-0 roll by 26, by ``r % 152`` (the rep's index) and by 26 as an
 amount the compiler cannot see, each + 1; the float32 cast-hop f -> int32
 -> f + 1; a float32 roll by 26 + 1. Kernel: ``csrc/probes.cu``
-``tpuva_probe_repos``, the tile in the distributed shared memory of an
-8-CTA cluster (the rolls) or in registers (the add and the cast-hop).
+``tpuva_probe_repos``, 8 CTAs, one an SM: the add and the cast-hop keep
+their words in registers; the rolls band the tile by columns, 240 a CTA
+in its own shared memory, so an axis-0 roll never leaves the CTA (no
+cluster): a rep loads each word from its rolled row and stores it + 1
+(``column_band_map``).
 
     python -m tpuva_torch.probes.repos_probe [--device cpu]
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from tpuva_torch.device import resolve_device
@@ -31,9 +35,41 @@ CASES = (
 )
 REPS = (4096, 65536)  # the slope's rep counts, the JAX file's two
 FILE_REPS = REPS[1]  # the JAX file's heaviest call
-CHECK_REPS = (1, 3)  # the reps a kernel is held at against its plain version
-CTAS = 8  # the cluster: one CTA an SM, 19 rows each
+# the reps a kernel is held at against its plain version: 160 takes the
+# dynamic amount r % 152 through every value and its wrap
+CHECK_REPS = (1, 3, 160)
+CTAS = 8  # one CTA an SM: 19 rows each (the register cases), 240 columns (the rolls)
 FLOAT_CASES = (4, 5)
+# the roll cases' column bands: a CTA's columns, 16-byte vectors of 4
+# words a row, row groups of VECS threads (17 x 60 of the CTA's 1024), and
+# a group's rows (g + GROUPS k)
+BAND_COLS = CL // CTAS
+VECS = BAND_COLS // 4
+GROUPS = 1024 // VECS
+GROUP_ROWS = -(-RL // GROUPS)
+ROW_BYTES = 4 * BAND_COLS
+
+
+def column_band_map(d: int):
+    """The roll cases' index map for amount d, as the kernel computes it:
+    thread (g, c) reads its k-th vector at the byte offset ((g - d) mod
+    152) x ROW_BYTES + 16 c, then one group of rows (GROUPS rows) further
+    a k, wrapped once past the band's last row, and writes it at row g +
+    GROUPS k. Returns (the rows read, the vectors read, the rows written),
+    each (GROUPS, GROUP_ROWS, VECS), -1 where a group has no k-th row."""
+    g = np.arange(GROUPS)[:, None]
+    off = (g - d) % RL * ROW_BYTES + 16 * np.arange(VECS)[None, :]
+    src_row = np.full((GROUPS, GROUP_ROWS, VECS), -1)
+    src_vec, dst_row = src_row.copy(), src_row.copy()
+    for k in range(GROUP_ROWS):
+        row = np.broadcast_to(g + GROUPS * k, off.shape)
+        has = row < RL
+        src_row[:, k] = np.where(has, off // ROW_BYTES, -1)
+        src_vec[:, k] = np.where(has, off % ROW_BYTES // 16, -1)
+        dst_row[:, k] = np.where(has, row, -1)
+        off = off + GROUPS * ROW_BYTES
+        off = np.where(off >= RL * ROW_BYTES, off - RL * ROW_BYTES, off)
+    return src_row, src_vec, dst_row
 
 
 def make_tile() -> torch.Tensor:
