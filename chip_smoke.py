@@ -282,16 +282,18 @@ raises, so the exit code is non-zero:
    after: every case slope-timed at the module's REPS, the slope positive;
    its heaviest case beside its plain version, one call each. The rep loop
    of each case that keeps its words in registers must do one add a word
-   in the SASS (no rep folded into another), and P4's step loops their
+   in the SASS (no rep folded into another), P3's cascades their adds,
+   shifts and rescale, and no local-memory access, P4's step loops their
    mins, 40 a thread a full-tile step and 20 a cell step (no step
-   folded). Then the latency probe (probes/latency_probe.py: one
+   folded), and the latency probe's add chains 16 adds an unrolled
+   iteration. Then the latency probe (probes/latency_probe.py: one
    dependent float32 add, cast-hop, shared and DSMEM load, CTA and
-   cluster barrier, each bit-equal to its plain version, slope-timed)
-   and the bounds (PROBE_CHAINS): for every case of P1 and P4 and the
-   heaviest of P2 and P3, the file's reps x the chain its function needs
-   a rep, for P1, P2 and P4 the larger of that and its operations at the
-   rate of the SMs it uses, its share of the case's time, and beside it
-   the pipe or memory that limits the case at its rate on those SMs
+   cluster barrier, int32 add and packed int16 add, each bit-equal to its
+   plain version, slope-timed) and the bounds (PROBE_CHAINS): for every
+   case of P1, P3 and P4 and P2's heaviest, the file's reps x the chain
+   its function needs a rep, the larger of that and its operations at
+   the rate of the SMs it uses, its share of the case's time, and beside
+   it the pipe or memory that limits the case at its rate on those SMs
    (PROBE_PIPES). One "probes" line: each case's ns/op, Telem/s, Telem/s a
    SM and its file's-reps time, the CTAs, the rep loops' arithmetic,
    latency_ns, chain_bounds and the phase's seconds.
@@ -549,47 +551,57 @@ def probe_bounds():
 
 
 # The chain of dependent operations a rep that each case's function needs
-# (P2's and P3's heaviest case only), counted from csrc/probes.cu, each with
-# its latency-probe case. P1: the i32 add one add (priced as the f32 add's:
-# the latency probe has no integer add), the cast-hop its own case, a roll
-# a shared load, the add and a CTA barrier (its words cross threads). P2:
-# the band's halo crosses from the neighbouring CTA once a rep (a cluster
-# barrier and a DSMEM load), then the rep's 8 dependent adds, the multiply
-# and the last add. P3's k = 5 cascade, 8 band steps (4 in a row: a shared
-# load; 4 across CTAs: a DSMEM load), each an add, a barrier after its
-# reads and one after its writes (7 of the CTA, 9 of the cluster), then
-# the rescale (a multiply, counted at the add's latency). P4: a step an
-# exchange and a min, a CTA barrier where it crosses warps (an axis-1
-# step); the exchange priced as a shared load (a shuffle crosses the same
-# crossbar) and the min as an f32 add (the latency probe has neither: ptxas
-# regroups a chain of mins against operands that do not depend on it).
+# (P2's heaviest case only), counted from csrc/probes.cu, each with its
+# latency-probe case. P1: the i32 add one add, the cast-hop its own case, a
+# roll a shared load, the add and a CTA barrier (its words cross threads).
+# P2's cascade and P3's four cases, on the same code: the band's halo
+# crosses from the neighbouring CTA once a rep (a cluster barrier and a
+# DSMEM load), then the rep's 8 dependent adds and the rescale: P2 the
+# multiply and the last add (10 f32 adds in all); P3's float32 the
+# multiply (9 f32 adds), int32 the shift (9 i32 adds); the packed cases
+# their 8 adds and the rescale's permute, priced as an i32 add: int16 the
+# packed add and 4 funnel shifts (the axis-0 steps) beside it, uint16 the
+# i32 add, each axis-0 step's shift and add one LEA.HI (its SASS). P4: a step an exchange and a min, a CTA barrier where it
+# crosses warps (an axis-1 step); the exchange priced as a shared load (a
+# shuffle crosses the same crossbar) and the min as an f32 add (the
+# latency probe has neither: ptxas regroups a chain of mins against
+# operands that do not depend on it).
 _ROLL = {"shared load": 1, "f32 add": 1, "CTA barrier": 1}
+_HALO = {"cluster barrier (4 CTAs)": 1, "DSMEM load": 1}
 PROBE_CHAINS = {
-    "repos_probe": {"i32 add (baseline)": {"f32 add": 1}, "i32 static roll26 + add": _ROLL,
+    "repos_probe": {"i32 add (baseline)": {"i32 add": 1}, "i32 static roll26 + add": _ROLL,
                     "i32 dynamic roll + add": _ROLL, "i32 dyn-uniform roll + add": _ROLL,
                     "f32 cast-hop f->i->f + add": {"cast-hop f->i->f + 1": 1},
                     "f32 static roll + add": _ROLL},
-    "roll_probe": {"k5 cascade (17 ops)": {"cluster barrier (4 CTAs)": 1, "DSMEM load": 1,
-                                           "f32 add": 10}},
-    "i16_probe": {"float32": {"shared load": 4, "DSMEM load": 4, "f32 add": 9, "CTA barrier": 7,
-                              "cluster barrier (8 CTAs)": 9}},
+    "roll_probe": {"k5 cascade (17 ops)": dict(_HALO, **{"f32 add": 10})},
+    "i16_probe": {"float32": dict(_HALO, **{"f32 add": 9}), "int32": dict(_HALO, **{"i32 add": 9}),
+                  "int16": dict(_HALO, **{"packed add (int16)": 8, "i32 add": 5}),
+                  "uint16": dict(_HALO, **{"i32 add": 9})},
     "cell_probe": {"baseline_min": {"shared load": 8, "f32 add": 8},
                    "extract_roundtrip": {"shared load": 4, "f32 add": 4},
                    "baseline_sweepish": {"shared load": 64, "f32 add": 64, "CTA barrier": 32},
                    "cell_sweepish": {"shared load": 64, "f32 add": 66, "CTA barrier": 32}},
 }
 # the probes bounded by the larger of that chain and their operations at
-# the rate of the SMs they use (a CTA an SM: CTAS/SMS of the card's peak);
-# P3 by its chain alone
-PROBE_SM_BOUND = ("repos_probe", "roll_probe", "cell_probe")
+# the rate of the SMs they use (a CTA an SM: CTAS/SMS of the card's peak)
+PROBE_SM_BOUND = ("repos_probe", "roll_probe", "i16_probe", "cell_probe")
 SMS = 132  # an H100 SXM's SMs
 SM_CLOCK_HZ = 1.98e9  # an H100 SXM's boost clock
 # The pipe or memory that limits a case on the SMs it uses, in clocks a
 # word a rep (the card's published rates an SM): P1's i32 add one IADD at
 # 64 integer lanes a clock; the cast-hop one F2I at 16 a clock; a roll 8 B
-# (a 4-byte shared load and store) at shared memory's 128 B a clock; P4 a
-# min a word a step at 64 a clock (cell_sweepish: half the words, and the
-# cell's min and max).
+# (a 4-byte shared load and store) at shared memory's 128 B a clock; P3's
+# cases a tile element a rep, without the halo rows the window adds (32
+# rows for 28), from the rep loop's SASS: float32 8 FADD and the rescale's
+# FMUL at 128 a clock; int32 8 adds and a SHF, ptxas's adds split between
+# IADD3 (the ALU's 64 lanes) and IMAD.IADD (the FMA pipe's 64), so 128 a
+# clock at best; the packed cases a word of two elements, int16 8
+# VIADD.16x2, 4 funnel shifts (SHF) and the rescale's PRMT at the ALU's 64,
+# uint16 4 adds, 4 LEA.HI (an axis-0 step's shift and add) and the PRMT at
+# 128 at best; P4 a min a word a step at 64 a clock (cell_sweepish: half
+# the words, and the cell's min and max). Beside P3's rows the issue bound
+# (probe_issue): the rep loop's instructions at one warp instruction a clock
+# an SM sub-partition.
 _SHARED = ("shared memory, 8 B a word at 128 B a clock an SM", 8 / 128)
 PROBE_PIPES = {
     ("repos_probe", "i32 add (baseline)"): ("IADD, 64 lanes a clock an SM", 1 / 64),
@@ -598,6 +610,12 @@ PROBE_PIPES = {
     ("repos_probe", "i32 dyn-uniform roll + add"): _SHARED,
     ("repos_probe", "f32 cast-hop f->i->f + add"): ("F2I, 16 a clock an SM", 1 / 16),
     ("repos_probe", "f32 static roll + add"): _SHARED,
+    ("i16_probe", "float32"): ("FADD and FMUL, 128 lanes a clock an SM", 9 / 128),
+    ("i16_probe", "int32"): ("IADD3 or IMAD.IADD and SHF, 128 integer lanes a clock an SM",
+                             9 / 128),
+    ("i16_probe", "int16"): ("VIADD.16x2, SHF and PRMT, 64 lanes a clock an SM", 13 / 2 / 64),
+    ("i16_probe", "uint16"): ("IMAD.IADD, LEA.HI and PRMT, 128 integer lanes a clock an SM",
+                              9 / 2 / 128),
     ("cell_probe", "baseline_min"): ("mins, 64 a clock an SM", 8 / 64),
     ("cell_probe", "extract_roundtrip"): ("mins, 64 a clock an SM", 4 / 64),
     ("cell_probe", "baseline_sweepish"): ("mins, 64 a clock an SM", 64 / 64),
@@ -657,13 +675,27 @@ def probe_chain_bounds(entries, lines):
 
 
 # the micro-probes' cases that keep their words in registers, and the
-# arithmetic one rep does to a word: "IADD" counts VIADD and IADD3
+# arithmetic one rep does to a word: "IADD" counts VIADD, IADD3 and
+# IMAD.IADD (sass_op)
 PROBE_REGISTER_CASES = {
     ("repos_probe", 0): {"IADD": 1},  # i32 add
     ("repos_probe", 4): {"F2I": 1, "I2FP": 1, "FADD": 1},  # the cast-hop
     ("roll_probe", 0): {"FADD": 2},  # f + f + 1e-7
     ("roll_probe", 1): {"FMUL": 1, "FADD": 1},  # f * 1.0001 + 1e-7
 }
+# P3's cascades (P2's code): a thread's 4 x 9 tile elements, 36 words at 32
+# bits and 18 packed; a rep's 8 adds a word (the 16 ops are 8 rolls and 8
+# adds), the axis-0 steps' 4 funnel shifts a packed word, the rescale (an
+# FMUL, a SHF, a PRMT) a word; at least these (the loop's own address and
+# count arithmetic adds IADDs): uint16's shift and add are one LEA.HI
+PROBE_CASCADE_LOOPS = {
+    0: {"FADD": 8 * 36, "FMUL": 36},  # float32
+    1: {"IADD": 8 * 36, "SHF": 36},  # int32
+    2: {"VIADD.16x2": 8 * 18, "SHF": 4 * 18, "PRMT": 18},  # int16
+    3: {"IADD+LEA": 8 * 18, "PRMT": 18},  # uint16
+}
+# the latency probe's add chains: 16 adds an iteration of the unrolled loop
+LATENCY_ADD_LOOPS = {6: "IADD", 7: "VIADD.16x2"}
 # P4's loops, every case in registers: (the mins of an iteration of its
 # step loop, the innermost loop, and of its rep loop outside that one): a
 # full-tile step does 40 a thread, a cell step 20; baseline_min's and
@@ -672,7 +704,18 @@ PROBE_REGISTER_CASES = {
 # times); cell_sweepish's rep loop also takes v = min(top, bottom) and
 # max(v, bottom) (20 + 20). "MNMX" counts IMNMX and VIMNMX, min or max.
 PROBE_SWEEP_LOOPS = {0: (40, 0), 1: (40, 0), 2: (4 * 40, 0), 3: (4 * 20, 2 * 20)}
-SASS_INSN = re.compile(r"/\*([0-9a-f]{4,})\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9]*)\S*\s*([^;]*);")
+SASS_INSN = re.compile(r"/\*([0-9a-f]{4,})\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Za-z0-9_.]*)\s*([^;]*);")
+
+
+def sass_op(op):
+    """An opcode of probe_sass's counts: the 32-bit adds (VIADD, IADD3,
+    IMAD.IADD) as IADD, the packed add as VIADD.16x2, else the opcode
+    without its modifiers."""
+    if op.startswith("VIADD.16x2"):
+        return "VIADD.16x2"
+    if op.split(".")[0] in ("VIADD", "IADD3") or op.startswith("IMAD.IADD"):
+        return "IADD"
+    return op.split(".")[0]
 
 
 def probe_sass():
@@ -681,11 +724,13 @@ def probe_sass():
     the built library (cuobjdump): the one loop, a backward branch, does
     each word's operations once, so that no rep is folded into another
     (ptxas merged the adds of unrolled reps once, and such a case ran
-    faster than the SM's lanes allow). P4's cases the same way by their
-    mins (PROBE_SWEEP_LOOPS): its step loop inside its rep loop, each
-    step's mins there, none folded into the next. Returns {case: {opcode:
-    count in the loop}}; raises where a count is not words a thread x the
-    rep's (or P4's)."""
+    faster than the SM's lanes allow). P3's cascades the same way
+    (PROBE_CASCADE_LOOPS), and no local-memory load or store in their
+    loops. P4's cases by their mins (PROBE_SWEEP_LOOPS): its step loop
+    inside its rep loop, each step's mins there, none folded into the next.
+    The latency probe's add chains: 16 adds in their unrolled loop
+    (LATENCY_ADD_LOOPS), none merged. Returns {case: {opcode: count in the
+    loop}}; raises where a count is not the case's."""
     from collections import Counter
 
     from tpuva_torch import _build
@@ -695,13 +740,19 @@ def probe_sass():
                           text=True, check=True).stdout
     mods, out = probe_modules(), {}
     for fn in re.split(r"\n\s*Function : ", text)[1:]:
-        k = re.search(r"\d(repos|roll|cell)6kernelILi(\d)E", fn.split("\n", 1)[0])
+        k = re.search(r"\d(repos|roll|i16|cell|lat)6kernelILi(\d)E", fn.split("\n", 1)[0])
         if not k:
             continue
         name, i = f"{k.group(1)}_probe<{k.group(2)}>", int(k.group(2))
+        if k.group(1) == "lat":
+            name = f"latency_probe<{i}>"
         insns = [(int(a, 16), op, args) for a, op, args in SASS_INSN.findall(fn)]
-        loops = [(int(to, 16), at) for at, op, args in insns if op == "BRA"
+        loops = [(int(to, 16), at) for at, op, args in insns if op.split(".")[0] == "BRA"
                  for to in re.findall(r"^0x([0-9a-f]+)", args.strip()) if int(to, 16) < at]
+
+        def count(loop):
+            return Counter(sass_op(op) for at, op, _ in insns if loop[0] <= at <= loop[1])
+
         if k.group(1) == "cell":
             if len(loops) != 2:
                 raise AssertionError(f"{name}: {len(loops)} loops in its SASS, not a step loop "
@@ -709,31 +760,65 @@ def probe_sass():
             inner, outer = sorted(loops, key=lambda lp: lp[1] - lp[0])
             if not outer[0] <= inner[0] < inner[1] <= outer[1]:
                 raise AssertionError(f"{name}: its step loop is not inside its rep loop")
-            mins = [sum(1 for at, op, _ in insns if "MNMX" in op and a <= at <= b)
-                    for a, b in (inner, outer)]
+            mins = [sum(n for op, n in count(lp).items() if "MNMX" in op) for lp in (inner, outer)]
             out[name] = {"step_loop_mins": mins[0], "rep_loop_mins": mins[1] - mins[0]}
             want = PROBE_SWEEP_LOOPS[i]
             if (mins[0], mins[1] - mins[0]) != want:
                 raise AssertionError(f"{name}: its loops do {out[name]} mins, not {want}: steps "
                                      "are folded or lost")
             continue
-        per_rep = PROBE_REGISTER_CASES.get((f"{k.group(1)}_probe", i))
-        if not per_rep:
+        if k.group(1) == "lat":
+            if i not in LATENCY_ADD_LOOPS:
+                continue
+            op = LATENCY_ADD_LOOPS[i]
+            out[name] = {op: max((count(lp)[op] for lp in loops), default=0)}
+            if out[name][op] < 16:  # the loop's count is one more IADD
+                raise AssertionError(f"{name}: its unrolled loop does {out[name]}, not 16 {op}: "
+                                     "adds are merged or lost")
             continue
+        if k.group(1) == "i16":
+            want = PROBE_CASCADE_LOOPS[i]
+        else:
+            per_rep = PROBE_REGISTER_CASES.get((f"{k.group(1)}_probe", i))
+            if not per_rep:
+                continue
+            mod = mods[f"{k.group(1)}_probe"]
+            words = -(-mod.make_tile().numel() // (mod.CTAS * 1024))  # a thread, 1024 a CTA
+            want = {op: words * n for op, n in per_rep.items()}
         if len(loops) != 1:
             raise AssertionError(f"{name}: {len(loops)} loops in its SASS, not the rep loop alone")
-        ops = Counter("IADD" if op in ("VIADD", "IADD3") else op for at, op, _ in insns
-                      if loops[0][0] <= at <= loops[0][1])
-        mod = mods[f"{k.group(1)}_probe"]
-        words = -(-mod.make_tile().numel() // (mod.CTAS * 1024))  # a thread, 1024 a CTA
-        out[name] = {op: ops[op] for op in per_rep}
-        want = {op: words * n for op, n in per_rep.items()}
-        if out[name] != want:
-            raise AssertionError(f"{name}: its rep loop does {out[name]}, not {want} "
-                                 f"({words} words a thread): reps are folded or lost")
-    if len(out) != len(PROBE_REGISTER_CASES) + len(PROBE_SWEEP_LOOPS):
+        ops = count(loops[0])
+        out[name] = {op: sum(ops[o] for o in op.split("+")) for op in want}
+        if k.group(1) == "i16":
+            short = any(out[name][op] < n for op, n in want.items())
+            out[name]["instructions"] = sum(ops.values())  # the loop's, for probe_issue
+        else:
+            short = out[name] != want
+        if short:
+            raise AssertionError(f"{name}: its rep loop does {out[name]}, not {want}: reps are "
+                                 "folded or lost")
+        if ops["LDL"] or ops["STL"]:
+            raise AssertionError(f"{name}: its rep loop loads or stores local memory (spills)")
+    want = (len(PROBE_REGISTER_CASES) + len(PROBE_CASCADE_LOOPS) + len(PROBE_SWEEP_LOOPS)
+            + len(LATENCY_ADD_LOOPS))
+    if len(out) != want:
         raise AssertionError(f"the SASS holds {sorted(out)} of the probes' register cases")
     return out
+
+
+def probe_issue(bounds, loops):
+    """Beside each P3 case's bound (bounds: probe_chain_bounds's rows) the
+    time its rep loop's instructions take to issue (loops: probe_sass's
+    counts, the loop's static instructions, edge groups' branches
+    included): 1024 threads, one warp instruction a clock on each of an
+    SM's 4 sub-partitions, at SM_CLOCK_HZ."""
+    from tpuva_torch.probes import i16_probe
+
+    for i, case in enumerate(i16_probe.CASES):
+        row = bounds[case.name]
+        n = loops[f"i16_probe<{i}>"]["instructions"]
+        issue_ms = row["reps"] * n * 1024 / 128 / SM_CLOCK_HZ * 1e3
+        row.update(loop_instructions=n, issue_ms=issue_ms, issue_share=issue_ms / row["ms"])
 
 
 def once_ms(fn):
@@ -791,8 +876,12 @@ def probes_phase(card):
                            "telem_s_per_sm")}, file_reps_ms=r["t1_ms"] if r["r1"] == reps
                            else r["t2_ms"]) for r in rows}}
     latency_ns, chain_bounds = probe_chain_bounds(entries, lines)
+    loops = probe_sass()
+    p3 = lines["i16_probe"]["cases"]  # P3's question: each case's time a rep against int32's
+    lines["i16_probe"]["per_int32"] = {c: p3[c]["ns_per_op"] / p3["int32"]["ns_per_op"] for c in p3}
+    probe_issue(chain_bounds["i16_probe"], loops)
     say("probes", card=card, bit_equal=True, seconds=round(time.time() - t_phase, 1),
-        probes=lines, register_rep_loops=probe_sass(), latency_ns=latency_ns,
+        probes=lines, register_rep_loops=loops, latency_ns=latency_ns,
         chain_bounds=chain_bounds, kernels=list(entries.values()))
     return entries
 

@@ -40,5 +40,29 @@ def test_plain_chains(case, reps):
         for _ in range(reps):
             j = int(x[j])
         assert v == j
+    elif case in ("i32 add", "packed add (int16)"):
+        assert np.int32(v).view(np.uint32) == add_loop(x, reps, case != "i32 add")
     else:
         assert v == reps
+
+
+def add_loop(x, reps, packed):
+    """The add chains a sum at a time: the xor of v_0 = x[0] and every v_j =
+    v_(j-1) + w, w = x[1] | x[2] << 16 (packed: each halfword wrapped)."""
+    u, w = int(x[0]), int(x[1]) | int(x[2]) << 16
+    out = u
+    for _ in range(reps):
+        if packed:
+            u = ((u + w) & 0xFFFF) | (((u >> 16) + (w >> 16)) & 0xFFFF) << 16
+        else:
+            u = (u + w) & 0xFFFFFFFF
+        out ^= u
+    return out
+
+
+def test_packed_add_wraps_each_halfword():
+    """At 1000 reps the low halfword's sum passes 2^16: a plain 32-bit add
+    would carry into the high half, the packed add does not."""
+    x = lp.make_tile()
+    assert int(x[0]) + 1000 * int(x[1]) >= 1 << 16
+    assert not torch.equal(lp.run(x, "packed add (int16)", 1000), lp.run(x, "i32 add", 1000))

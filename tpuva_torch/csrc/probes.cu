@@ -27,32 +27,14 @@
 // A tile of 32-bit words is too large for one CTA's 227 KB (P1 1,167,360
 // B, P2 and P3 516,096 B), so it is split over CTAs, one an SM. P1's roll
 // cases band it by columns (8 CTAs of 240 columns, 145,920 B each), so an
-// axis-0 roll stays in its CTA's shared memory (its section below). P2
-// holds row bands in registers and trades halo rows over a 4-CTA cluster
-// (its section below). P3 holds row bands in the distributed shared memory
-// of an 8-CTA cluster (64,512 B each, or 32,256 B packed): an axis-0 roll
-// reads the neighbouring band through DSMEM; an axis-1 roll stays in its
-// row, so in its CTA. A P3 step reads every word it needs into
-// registers, waits at a barrier (no reader may see a new word), writes its
-// band and waits again (every writer done before the next reads): the
-// cluster's barrier for a step that reads across CTAs, the CTA's for one
-// that does not; the last in-row step before a step across publishes its
-// writes at the cluster's barrier, since a CTA's own barrier does not hold
-// back a neighbour that would read its band. There is room for one
-// buffer only, so a step costs two barriers; a cooperative
-// grid-wide sync instead would wait for the whole grid through global
-// memory, where the cluster's barrier is in hardware among its SMs. The
-// cases with no exchange (i32 add, the cast-hop, f+f, the multiply) keep
-// their words in registers for all reps.
-// The 16-bit cases of P3 run packed, two halfwords a 32-bit register:
-// wrapping per-halfword adds (__vadd2), an axis-1 roll by one element as
-// a funnel shift of two neighbouring words, and the rescale
-// (f.astype(int32) >> 8).astype(dtype) as one byte permute that takes each
-// halfword's high byte, sign-replicated for i16 and zero-filled for u16.
-// P4's (80, 512) tile, 163,840 B, lies in the registers of one CTA, a
-// block of 10 x 4 words a thread, its 2-row cells inside a thread (its
-// section below). The compared cases keep their words in registers across
-// a step's barrier without spilling in the rep loop (P3's 32-bit and
+// axis-0 roll stays in its CTA's shared memory (its section below). P2 and
+// P3 hold row bands in registers and trade halo rows over a 4-CTA cluster,
+// P3's four cases on P2's cascade code (their sections below). The cases
+// with no exchange (i32 add, the cast-hop, f+f, the multiply) keep their
+// words in registers for all reps. P4's (80, 512) tile, 163,840 B, lies in
+// the registers of one CTA, a block of 10 x 4 words a thread, its 2-row
+// cells inside a thread (its section below). The compared cases keep their
+// words in registers without spilling in the rep loop (P3's 32-bit and
 // packed cascades, P4's sweeps), so that a ratio of their times is one of
 // words, operations and exchanges alone.
 //
@@ -79,6 +61,7 @@ constexpr int kThreads = 1024;
 // does not see the asm, and would merge the adds of unrolled reps.
 __device__ __forceinline__ void keep(int& v) { asm volatile("" : "+r"(v)); }
 __device__ __forceinline__ void keep(float& v) { asm volatile("" : "+f"(v)); }
+__device__ __forceinline__ void keep(uint32_t& v) { asm volatile("" : "+r"(v)); }
 
 __device__ __forceinline__ uint8_t low_byte(int v) { return static_cast<uint8_t>(v); }
 // XLA's f32 -> int32: toward zero, saturating, NaN -> 0 (cvt.rzi.s32.f32)
@@ -92,93 +75,16 @@ __device__ __forceinline__ uint32_t permute(uint32_t a, uint32_t b, uint32_t sel
   return r;
 }
 
-// An H x W tile of 32-bit words banded over the C CTAs of a cluster: CTA
-// q holds the words [q * kBand, (q + 1) * kBand) of the flat tile in its
-// shared memory, whole rows. kMapa: read other CTAs' words through 32-bit
-// shared::cluster addresses (mapa), half the registers of the generic
-// pointers map_shared_rank gives, which the cascades need to hold their
-// words without spilling. P3 alone reads other CTAs' words through a Band.
-template <int H, int W, int C, typename T, bool kMapa = false>
+// An H x W tile of 32-bit words banded over C CTAs: CTA q holds the
+// words [q * kBand, (q + 1) * kBand) of the flat tile, whole rows, kPer
+// words a thread at most.
+template <int H, int W, int C>
 struct Band {
   static constexpr int kN = H * W;
   static constexpr int kBand = kN / C;
   static constexpr int kPer = (kBand + kThreads - 1) / kThreads;
-  static constexpr size_t kBytes = size_t(kBand) * sizeof(T);
   static_assert(kN % C == 0 && kBand % W == 0, "whole rows a CTA");
-  T* s;
-  int base;
-
-  __device__ explicit Band(T* smem) : s(smem), base(int(blockIdx.x) * kBand) {}
-
-  // word g of the tile, through DSMEM from the CTA that holds it (its own
-  // rows too: a branch to read those locally made the steps 1.3-2.7x
-  // slower, PERF.md)
-  __device__ __forceinline__ T at(int g) const {
-    if constexpr (kMapa) {
-      const int q = g / kBand;
-      const uint32_t a = static_cast<uint32_t>(__cvta_generic_to_shared(s + (g - q * kBand)));
-      uint32_t r, v;
-      asm("mapa.shared::cluster.u32 %0, %1, %2;" : "=r"(r) : "r"(a), "r"(q));
-      // volatile: kept in order with the cluster's barriers
-      asm volatile("ld.shared::cluster.b32 %0, [%1];" : "=r"(v) : "r"(r));
-      if constexpr (std::is_same_v<T, float>) return __uint_as_float(v);
-      else return static_cast<T>(v);
-    } else {
-      const int q = g / kBand;
-      return cg::this_cluster().map_shared_rank(s, q)[g - q * kBand];
-    }
-  }
-  // roll(f, d, axis=0) at this band's word e, 0 <= d < H
-  __device__ __forceinline__ T up(int e, int d) const {
-    int g = base + e - d * W;
-    if (g < 0) g += kN;
-    return at(g);
-  }
-  // roll(f, d, axis=1) at this band's word e, 0 <= d < W
-  __device__ __forceinline__ T left(int e, int d) const {
-    const int row = e / W * W;
-    int c = e - row - d;
-    if (c < 0) c += W;
-    return s[row + c];
-  }
-  __device__ __forceinline__ void sync_cluster() const { cg::this_cluster().sync(); }
 };
-
-// A step of the band in place: word e becomes fn(e), computed from the
-// tile as it stood. The first barrier keeps every read ahead of the
-// writes: `across`, fn reads other CTAs' bands, so no CTA may write before
-// all have read. The second publishes them: `publish`, the next step reads
-// across, so every CTA's writes must be done before any CTA goes on (a
-// CTA's own barrier does not hold the others back).
-//
-// A thread holds up to 16 words across the first barrier (P3), of the 64
-// registers 1024 threads have. The compiler hoists a step's addresses out
-// of the rep loop; where a rep has several steps (kRecompute: the
-// cascades) they do not fit beside the words and spilled to local memory,
-// so there the thread's index is made opaque each step and the addresses
-// are recomputed instead (PERF.md has both).
-template <bool kRecompute = false, typename B, typename Fn>
-__device__ __forceinline__ void band_step(B& b, bool across, Fn fn, bool publish) {
-  auto barrier = [&](bool cluster) {
-    if (cluster) b.sync_cluster();
-    else __syncthreads();
-  };
-  int tid = threadIdx.x;
-  if constexpr (kRecompute) asm volatile("" : "+r"(tid));
-  decltype(fn(0)) v[B::kPer];
-#pragma unroll
-  for (int k = 0; k < B::kPer; ++k) {
-    const int e = tid + k * kThreads;
-    if (B::kBand % kThreads == 0 || e < B::kBand) v[k] = fn(e);
-  }
-  barrier(across);
-#pragma unroll
-  for (int k = 0; k < B::kPer; ++k) {
-    const int e = tid + k * kThreads;
-    if (B::kBand % kThreads == 0 || e < B::kBand) b.s[e] = v[k];
-  }
-  barrier(publish);
-}
 
 // The x of a case with no exchange, its words in registers for every rep:
 // v = op(v) a rep, then the low bytes out.
@@ -208,17 +114,6 @@ __device__ __forceinline__ void in_registers(const uint8_t* x, uint8_t* out, int
   }
 }
 
-template <typename B, typename Load>
-__device__ __forceinline__ void load_band(B& b, const uint8_t* x, Load load) {
-  for (int e = threadIdx.x; e < B::kBand; e += kThreads) b.s[e] = load(x[b.base + e]);
-  b.sync_cluster();
-}
-
-template <typename B>
-__device__ __forceinline__ void store_band(const B& b, uint8_t* out) {
-  for (int e = threadIdx.x; e < B::kBand; e += kThreads) out[b.base + e] = low_byte(b.s[e]);
-}
-
 // u8 -> int32 -> the probe's type
 struct ToInt {
   __device__ int operator()(uint8_t u) const { return u; }
@@ -226,23 +121,6 @@ struct ToInt {
 struct ToFloat {
   __device__ float operator()(uint8_t u) const { return __int2float_rn(u); }
 };
-
-// The k = 5 two-axis cascade of roll_probe.py and i16_probe.py: for axis
-// 1 then 0, two f = f + roll(f, 1) and two f = f + roll(f, n - 1); the
-// last step's sum goes through rescale. left(e) and right(e) give roll(f,
-// 1, axis=1) and roll(f, W - 1, axis=1) at word e.
-template <typename B, typename Add, typename Left, typename Right, typename Rescale>
-__device__ __forceinline__ void cascade(B& b, int H, Add add, Left left, Right right,
-                                        Rescale rescale) {
-  for (int d = 0; d < 2; ++d)
-    band_step<true>(b, false, [&](int e) { return add(b.s[e], left(e)); }, false);
-  for (int d = 0; d < 2; ++d)
-    band_step<true>(b, false, [&](int e) { return add(b.s[e], right(e)); }, d == 1);
-  for (int d = 0; d < 2; ++d)
-    band_step<true>(b, true, [&](int e) { return add(b.s[e], b.up(e, 1)); }, true);
-  band_step<true>(b, true, [&](int e) { return add(b.s[e], b.up(e, H - 1)); }, true);
-  band_step<true>(b, true, [&](int e) { return rescale(add(b.s[e], b.up(e, H - 1))); }, true);
-}
 
 // ---------------------------------------------------------------- P1
 // The cases with no exchange (the i32 add, the cast-hop) keep their words
@@ -342,8 +220,7 @@ __device__ __forceinline__ void column_band_case(const uint8_t* x, uint8_t* out,
 template <int CASE>
 __global__ void __launch_bounds__(kThreads, 1)
 kernel(const uint8_t* __restrict__ x, uint8_t* __restrict__ out, int reps) {
-  using T = std::conditional_t<(CASE >= 4), float, int>;
-  using B = Band<H, W, C, T>;
+  using B = Band<H, W, C>;
   if constexpr (CASE == 0) {  // i32 add
     in_registers<B>(x, out, reps, ToInt{}, [](int v) { return v + 1; });
   } else if constexpr (CASE == 4) {  // f32 cast-hop f -> i32 -> f + 1
@@ -387,28 +264,36 @@ constexpr size_t smem_bytes(int which) { return in_cluster(which) ? 0 : size_t(H
 //   a halo of 4 rows above, one exchange every 4 reps (4 ghost rows of
 //   32). probes/roll_probe.py::HALO holds these depths, and
 //   tests/test_torch_roll_bands.py models the exchanges on the CPU.
+// The blocks layout's steps and the cascade take the word type T and P,
+// the tile rows a word holds: 1, or 2 for P3's packed 16-bit cases (rows
+// 2 i and 2 i + 1 of a column, the low and the high halfword). A thread's
+// 4 rows are then kR / P word rows; an axis-1 roll moves whole words, an
+// axis-0 roll is a funnel shift of a word and the one above or below.
 namespace roll {
 constexpr int H = 112, W = 1152, C = 4;
 constexpr int kBandRows = H / C;
-using B = Band<H, W, C, float>;
+using B = Band<H, W, C>;
 constexpr float kEps = 1e-7f;
 
 constexpr int kLane = W / 32;  // rows layout: words a lane
 constexpr int kGroups = 8;  // blocks layout: groups of 4 warps
 constexpr int kGT = kThreads / kGroups;  // a group's threads, across a row
-constexpr int kR = 4, kK = W / kGT;  // a thread's rows and words a row
+constexpr int kR = 4, kK = W / kGT;  // a thread's tile rows and words a row
+constexpr int kHalo = 2;  // the cascade's halo rows each side
 constexpr int kPeriod = 4;  // reps an exchange of the roll-only axis-0 cases
-static_assert(kLane * 32 == W && kK * kGT == W && kGroups * kR == kBandRows + 4 &&
-                  kPeriod == kR,
-              "the window is the band and a 4-row halo");
+static_assert(kLane * 32 == W && kK * kGT == W && kGroups * kR == kBandRows + 2 * kHalo &&
+                  kPeriod == kR && kBandRows % 2 == 0 && kHalo % 2 == 0,
+              "the window is the band and a 2-row halo each side (or 4 rows above); a "
+              "packed word's two rows lie in one band");
 
-// the blocks layout's shared memory, [buffer][...][thread]: an axis-0
-// step's edge rows a group, an axis-1 step's edge words a row, the rows
-// exported to the neighbouring CTAs
+// the blocks layout's shared memory for R word rows a thread, [buffer][...]
+// [thread]: an axis-0 step's edge words a group, an axis-1 step's edge
+// words a row, the rows exported to the neighbouring CTAs
+template <typename T, int R>
 struct Smem {
-  float v[2][kGroups][kK][kGT];
-  float h[2][kGroups][kR][kGT];
-  float e[2][kR][kK][kGT];
+  T v[2][kGroups][kK][kGT];
+  T h[2][kGroups][R][kGT];
+  T e[2][R][kK][kGT];
 };
 
 __device__ __forceinline__ void cluster_arrive() {
@@ -422,28 +307,42 @@ __device__ __forceinline__ void group_sync(int g) {
   asm volatile("bar.sync %0, %1;\n" ::"r"(g + 1), "n"(kGT) : "memory");
 }
 
-// An axis-0 step of the blocks layout: each word becomes op(it, the word
-// above: roll(f, 1, axis=0), kUp) or op(it, the word below: roll(f, H - 1,
-// axis=0)). The first group reads the last one's row and the last group
-// the first one's: ghost values.
-template <bool kUp, typename Op>
-__device__ __forceinline__ void vstep(float (&v)[kR][kK], Smem& sm, int& buf, int g, int t,
+// roll(f, 1, axis=0) at a word, from it and the word above it, and
+// roll(f, H - 1, axis=0) from it and the word below: P = 2, (the above's
+// high half, its low half) and (its high half, the below's low half)
+template <int P, typename T>
+__device__ __forceinline__ T from_above(T above, T self) {
+  if constexpr (P == 1) return above;
+  else return __funnelshift_r(above, self, 16);
+}
+template <int P, typename T>
+__device__ __forceinline__ T from_below(T self, T below) {
+  if constexpr (P == 1) return below;
+  else return __funnelshift_r(self, below, 16);
+}
+
+// An axis-0 step of the blocks layout: each word becomes op(it, roll(f, 1,
+// axis=0) there, kUp) or op(it, roll(f, H - 1, axis=0) there). The first
+// group reads the last one's row and the last group the first one's: ghost
+// values.
+template <bool kUp, int P, typename T, int R, typename Op>
+__device__ __forceinline__ void vstep(T (&v)[R][kK], Smem<T, R>& sm, int& buf, int g, int t,
                                       Op op) {
 #pragma unroll
-  for (int k = 0; k < kK; ++k) sm.v[buf][g][k][t] = v[kUp ? kR - 1 : 0][k];
+  for (int k = 0; k < kK; ++k) sm.v[buf][g][k][t] = v[kUp ? R - 1 : 0][k];
   __syncthreads();
   const int gn = kUp ? (g + kGroups - 1) % kGroups : (g + 1) % kGroups;
 #pragma unroll
   for (int k = 0; k < kK; ++k) {
-    const float a = sm.v[buf][gn][k][t];
+    const T a = sm.v[buf][gn][k][t];
     if constexpr (kUp) {
 #pragma unroll
-      for (int i = kR - 1; i > 0; --i) v[i][k] = op(v[i][k], v[i - 1][k]);
-      v[0][k] = op(v[0][k], a);
+      for (int i = R - 1; i > 0; --i) v[i][k] = op(v[i][k], from_above<P>(v[i - 1][k], v[i][k]));
+      v[0][k] = op(v[0][k], from_above<P>(a, v[0][k]));
     } else {
 #pragma unroll
-      for (int i = 0; i < kR - 1; ++i) v[i][k] = op(v[i][k], v[i + 1][k]);
-      v[kR - 1][k] = op(v[kR - 1][k], a);
+      for (int i = 0; i < R - 1; ++i) v[i][k] = op(v[i][k], from_below<P>(v[i][k], v[i + 1][k]));
+      v[R - 1][k] = op(v[R - 1][k], from_below<P>(v[R - 1][k], a));
     }
   }
   buf ^= 1;
@@ -452,16 +351,16 @@ __device__ __forceinline__ void vstep(float (&v)[kR][kK], Smem& sm, int& buf, in
 // An axis-1 step of the blocks layout: each word becomes op(it, the word
 // left of it: roll(f, 1, axis=1), kLeft) or op(it, the word right of it:
 // roll(f, W - 1, axis=1)); a row lies in its group, which alone meets.
-template <bool kLeft, typename Op>
-__device__ __forceinline__ void hstep(float (&v)[kR][kK], Smem& sm, int& buf, int g, int t,
+template <bool kLeft, typename T, int R, typename Op>
+__device__ __forceinline__ void hstep(T (&v)[R][kK], Smem<T, R>& sm, int& buf, int g, int t,
                                       Op op) {
 #pragma unroll
-  for (int i = 0; i < kR; ++i) sm.h[buf][g][i][t] = v[i][kLeft ? kK - 1 : 0];
+  for (int i = 0; i < R; ++i) sm.h[buf][g][i][t] = v[i][kLeft ? kK - 1 : 0];
   group_sync(g);
   const int tn = kLeft ? (t + kGT - 1) % kGT : (t + 1) % kGT;
 #pragma unroll
-  for (int i = 0; i < kR; ++i) {
-    const float a = sm.h[buf][g][i][tn];
+  for (int i = 0; i < R; ++i) {
+    const T a = sm.h[buf][g][i][tn];
     if constexpr (kLeft) {
 #pragma unroll
       for (int k = kK - 1; k > 0; --k) v[i][k] = op(v[i][k], v[i][k - 1]);
@@ -475,17 +374,55 @@ __device__ __forceinline__ void hstep(float (&v)[kR][kK], Smem& sm, int& buf, in
   buf ^= 1;
 }
 
-// rows [i0, i0 + n) of v to (kOut) or from export slots [j0, j0 + n) of e
-template <bool kOut>
-__device__ __forceinline__ void trade(float (&v)[kR][kK], float (*e)[kK][kGT], int i0, int j0,
-                                      int n, int t) {
+// word rows [i0, i0 + n) of v to (kOut) or from export slots [j0, j0 + n) of e
+template <bool kOut, typename T, int R>
+__device__ __forceinline__ void trade(T (&v)[R][kK], T (*e)[kK][kGT], int i0, int j0, int n,
+                                      int t) {
 #pragma unroll
-  for (int i = 0; i < kR; ++i) {
+  for (int i = 0; i < R; ++i) {
     if (i < i0 || i >= i0 + n) continue;
 #pragma unroll
     for (int k = 0; k < kK; ++k) {
       if constexpr (kOut) e[j0 + i - i0][k][t] = v[i][k];
       else v[i][k] = e[j0 + i - i0][k][t];
+    }
+  }
+}
+
+// The k = 5 two-axis cascade, `reps` reps on thread (g, t)'s words of the
+// window: for axis 1 then 0, two f = add(f, roll(f, 1)) and two f = add(f,
+// roll(f, n - 1)), the last step `last` (the add, then the case's rescale).
+// The halo, kHalo rows each side (n word rows), is what the neighbours
+// exported at the end of the last rep: the CTA above its last band rows,
+// the one below its first. P2's cascade and P3's four cases.
+template <int P, typename T, int R, typename Add, typename Last>
+__device__ __forceinline__ void cascade(T (&v)[R][kK], Smem<T, R>& sm, Smem<T, R>& up,
+                                        Smem<T, R>& down, int reps, int g, int t, Add add,
+                                        Last last) {
+  constexpr int n = kHalo / P;
+  static_assert(R == 2 * n, "a thread's word rows: a halo's and as many band rows");
+  const bool edge = g == 0 || g == kGroups - 1;
+  int bv = 0, bh = 0;
+#pragma unroll 1
+  for (int r = 0; r < reps; ++r) {
+    if (r > 0 && edge) {
+      cluster_wait();
+      if (g == 0) trade<false>(v, up.e[(r - 1) & 1], 0, n, n, t);
+      else trade<false>(v, down.e[(r - 1) & 1], n, 0, n, t);
+    }
+    hstep<true>(v, sm, bh, g, t, add);
+    hstep<true>(v, sm, bh, g, t, add);
+    hstep<false>(v, sm, bh, g, t, add);
+    hstep<false>(v, sm, bh, g, t, add);
+    if (r > 0 && !edge) cluster_wait();
+    vstep<true, P>(v, sm, bv, g, t, add);
+    vstep<true, P>(v, sm, bv, g, t, add);
+    vstep<false, P>(v, sm, bv, g, t, add);
+    vstep<false, P>(v, sm, bv, g, t, last);
+    if (r + 1 < reps) {  // the first band rows, then the last ones
+      if (g == 0) trade<true>(v, sm.e[r & 1], n, 0, n, t);
+      else if (g == kGroups - 1) trade<true>(v, sm.e[r & 1], 0, n, n, t);
+      cluster_arrive();
     }
   }
 }
@@ -529,78 +466,62 @@ __device__ __forceinline__ void rows_case(const uint8_t* x, uint8_t* out, int re
   for (int k = 0; k < kLane; ++k) out[base + k] = low_byte(v[k]);
 }
 
-// The axis-0 cases (2 roll axis0, 5 roll0 + add) and the cascade (8)
-template <int CASE>
-__device__ __forceinline__ void blocks_case(const uint8_t* x, uint8_t* out, int reps, Smem& sm) {
-  constexpr bool kCascade = CASE == 8;
-  constexpr int kTop = kCascade ? 2 : kR;  // halo rows above the band (the cascade: 2 below)
+// Thread (g, t) of CTA q on the blocks layout, P tile rows a word of type
+// T: its words of the window (kTop halo rows above the band), each byte
+// by load; `reps` reps of the case (kTop = kHalo: the cascade with op and
+// last; else a roll by one row and op(the word, the word above) a rep, 4
+// reps an exchange); then its band rows' low bytes (P = 2: each half's).
+template <int P, int kTop, typename T, typename Load, typename Op, typename Last>
+__device__ __forceinline__ void blocks_case(const uint8_t* x, uint8_t* out, int reps,
+                                            Smem<T, kR / P>& sm, Load load, Op op, Last last) {
+  constexpr int R = kR / P;
   const int q = blockIdx.x, g = threadIdx.x / kGT, t = threadIdx.x % kGT;
-  const int first = q * kBandRows - kTop + kR * g;  // the tile row of v[0]
-  float v[kR][kK];
+  const int first = q * kBandRows - kTop + kR * g;  // the tile row of v[0]'s first row
+  T v[R][kK];
 #pragma unroll
-  for (int i = 0; i < kR; ++i) {
-    const int row = (first + i + H) % H;
+  for (int i = 0; i < R; ++i) {
+    const int row = (first + P * i + H) % H;
 #pragma unroll
-    for (int k = 0; k < kK; ++k) v[i][k] = __int2float_rn(x[row * W + kK * t + k]);
+    for (int k = 0; k < kK; ++k) {
+      const uint8_t* p = x + row * W + kK * t + k;
+      if constexpr (P == 1) v[i][k] = load(*p);
+      else v[i][k] = T(load(p[0])) | T(load(p[W])) << 16;  // rows 2 i, 2 i + 1
+    }
   }
   cg::cluster_group cluster = cg::this_cluster();
-  Smem& up = *cluster.map_shared_rank(&sm, (q + C - 1) % C);
-  Smem& down = *cluster.map_shared_rank(&sm, (q + 1) % C);
-  int bv = 0, bh = 0;
-  if constexpr (kCascade) {
-    const auto add = [](float a, float c) { return __fadd_rn(a, c); };
-    const auto last = [](float a, float c) {  // the last add, then x 2^-8 and + 1e-7
-      return __fadd_rn(__fmul_rn(__fadd_rn(a, c), 0.00390625f), kEps);
-    };
-    const bool edge = g == 0 || g == kGroups - 1;
-#pragma unroll 1
-    for (int r = 0; r < reps; ++r) {
-      // the halo: the rows the neighbours exported at the end of rep r - 1
-      // (the CTA above its last two band rows, the one below its first two)
-      if (r > 0 && edge) {
-        cluster_wait();
-        if (g == 0) trade<false>(v, up.e[(r - 1) & 1], 0, 2, 2, t);
-        else trade<false>(v, down.e[(r - 1) & 1], 2, 0, 2, t);
-      }
-      hstep<true>(v, sm, bh, g, t, add);
-      hstep<true>(v, sm, bh, g, t, add);
-      hstep<false>(v, sm, bh, g, t, add);
-      hstep<false>(v, sm, bh, g, t, add);
-      if (r > 0 && !edge) cluster_wait();
-      vstep<true>(v, sm, bv, g, t, add);
-      vstep<true>(v, sm, bv, g, t, add);
-      vstep<false>(v, sm, bv, g, t, add);
-      vstep<false>(v, sm, bv, g, t, last);
-      if (r + 1 < reps) {  // the first two band rows, then the last two
-        if (g == 0) trade<true>(v, sm.e[r & 1], 2, 0, 2, t);
-        else if (g == kGroups - 1) trade<true>(v, sm.e[r & 1], 0, 2, 2, t);
-        cluster_arrive();
-      }
-    }
+  Smem<T, R>& up = *cluster.map_shared_rank(&sm, (q + C - 1) % C);
+  Smem<T, R>& down = *cluster.map_shared_rank(&sm, (q + 1) % C);
+  if constexpr (kTop == kHalo) {
+    cascade<P>(v, sm, up, down, reps, g, t, op, last);
   } else {
-    const auto op = [](float self, float above) {
-      if constexpr (CASE == 2) return __fadd_rn(above, kEps);
-      else return __fadd_rn(__fadd_rn(self, above), kEps);
-    };
+    int bv = 0;
 #pragma unroll 1
     for (int r = 0; r < reps; ++r) {
       if (r > 0 && r % kPeriod == 0) {  // the last 4 band rows to the CTA below's halo
         const int p = (r / kPeriod) & 1;
-        if (g == kGroups - 1) trade<true>(v, sm.e[p], 0, 0, kR, t);
+        if (g == kGroups - 1) trade<true>(v, sm.e[p], 0, 0, R, t);
         cluster_arrive();
         cluster_wait();
-        if (g == 0) trade<false>(v, up.e[p], 0, 0, kR, t);
+        if (g == 0) trade<false>(v, up.e[p], 0, 0, R, t);
       }
-      vstep<true>(v, sm, bv, g, t, op);
+      vstep<true, P>(v, sm, bv, g, t, op);
     }
   }
   cluster.sync();  // no CTA leaves while a neighbour may read its exports
 #pragma unroll
-  for (int i = 0; i < kR; ++i) {
-    const int wrow = kR * g + i - kTop;  // the band row
+  for (int i = 0; i < R; ++i) {
+    const int wrow = kR * g + P * i - kTop;  // the band row
     if (wrow < 0 || wrow >= kBandRows) continue;
 #pragma unroll
-    for (int k = 0; k < kK; ++k) out[(first + i) * W + kK * t + k] = low_byte(v[i][k]);
+    for (int k = 0; k < kK; ++k) {
+      uint8_t* p = out + (first + P * i) * W + kK * t + k;
+      if constexpr (P == 1) {
+        *p = low_byte(v[i][k]);
+      } else {
+        p[0] = uint8_t(v[i][k]);
+        p[W] = uint8_t(v[i][k] >> 16);
+      }
+    }
   }
 }
 
@@ -617,69 +538,91 @@ kernel(const uint8_t* __restrict__ x, uint8_t* __restrict__ out, int reps) {
     rows_case<CASE>(x, out, reps);
   } else {  // 2 roll axis0, 5 roll0 + add, 8 the k = 5 cascade x 2^-8
     extern __shared__ __align__(16) unsigned char smem[];
-    blocks_case<CASE>(x, out, reps, *reinterpret_cast<Smem*>(smem));
+    Smem<float, kR>& sm = *reinterpret_cast<Smem<float, kR>*>(smem);
+    if constexpr (CASE == 8) {
+      blocks_case<1, kHalo>(
+          x, out, reps, sm, ToFloat{}, [](float a, float c) { return __fadd_rn(a, c); },
+          [](float a, float c) {  // the last add, then x 2^-8 and + 1e-7
+            return __fadd_rn(__fmul_rn(__fadd_rn(a, c), 0.00390625f), kEps);
+          });
+    } else {
+      blocks_case<1, kR>(
+          x, out, reps, sm, ToFloat{},
+          [](float self, float above) {
+            if constexpr (CASE == 2) return __fadd_rn(above, kEps);
+            else return __fadd_rn(__fadd_rn(self, above), kEps);
+          },
+          nullptr);
+    }
   }
 }
 
 // dynamic shared memory of case `which`
 constexpr size_t smem_bytes(int which) {
-  return which == 2 || which == 5 || which == 8 ? sizeof(Smem) : 0;
+  return which == 2 || which == 5 || which == 8 ? sizeof(Smem<float, kR>) : 0;
 }
 }  // namespace roll
 
 // ---------------------------------------------------------------- P3
+// P3 runs its four cases on P2's cascade (the blocks layout, the same 4
+// CTAs of 28 rows, a thread's 4 x 9 tile elements, one halo exchange a
+// rep), so that the cases differ only in words, operations and exchanges:
+// float32 and int32 a word an element, 4 x 9 words a thread; int16 and
+// uint16 packed, the rows 2 i and 2 i + 1 of a column in one 32-bit word,
+// 2 x 9 words a thread, the 2-row halo one word row. Rows and not columns:
+// a pair of columns would make a row 576 words, which does not split over
+// a group's 128 threads, while a pair of rows keeps P2's geometry, and an
+// axis-0 roll by a row is then one funnel shift (an axis-1 roll moves
+// whole words). The adds: float32 FADD; int32 IADD3 or IMAD.IADD (ptxas
+// puts about 3 in 5 on the FMA pipe); uint16 one plain 32-bit add a word,
+// exact because no halfword sum passes 255 x 2^8 = 65,280 (the rescale
+// brings every value back to 255 or less), so no carry crosses into the
+// high half, and ptxas fuses an axis-0 step's funnel shift and add into
+// one LEA.HI; int16 a halfword-safe add, __vadd2, since its rescale
+// sign-extends into the high byte (0xFFxx from the second rep) and a plain
+// add would carry across: on sm_90a __vadd2 is one instruction,
+// VIADD.16x2. The rescale of the packed cases is one byte permute: each
+// halfword's high byte, sign-replicated (int16) or zero-filled (uint16).
+// 4 CTAs and not 8: 8 bands of 14 rows would take a window of 18 rows (14
+// and 2 x 2 halo), which does not split over 8 groups of 4 rows, and the
+// halo's share would grow from 4/28 to 4/14 of a band. Bound (PERF.md):
+// on 4 SMs the rep loop's instructions issue in 0.77 (uint16) to 1.26 ms
+// (the 32-bit cases) at 512 reps, above every case's operations and chain.
 namespace i16 {
-// 8 CTAs: 16 words a thread at 32 bits, 8 packed, so that the two spill
-// alike (8 B and 0 B a thread; at 4 CTAs, 32 and 16 words a thread, they
-// spilled 108 B and 28 B: PERF.md)
-constexpr int H = 112, W = 1152, C = 8;
-template <typename T>
-using Tile = Band<H, W, C, T, true>;
+using roll::C;
+using roll::kHalo;
+using roll::kR;
+using roll::Smem;
 
 template <int CASE>
 __global__ void __launch_bounds__(kThreads, 1)
 kernel(const uint8_t* __restrict__ x, uint8_t* __restrict__ out, int reps) {
   extern __shared__ __align__(16) unsigned char smem[];
   if constexpr (CASE == 0) {  // float32
-    Tile<float> b(reinterpret_cast<float*>(smem));
-    load_band(b, x, ToFloat{});
-    for (int r = 0; r < reps; ++r)
-      cascade(
-          b, H, [](float a, float c) { return __fadd_rn(a, c); },
-          [&](int e) { return b.left(e, 1); }, [&](int e) { return b.left(e, W - 1); },
-          [](float v) { return __fmul_rn(v, 0.00390625f); });
-    store_band(b, out);
+    roll::blocks_case<1, kHalo>(
+        x, out, reps, *reinterpret_cast<Smem<float, kR>*>(smem), ToFloat{},
+        [](float a, float c) { return __fadd_rn(a, c); },
+        [](float a, float c) { return __fmul_rn(__fadd_rn(a, c), 0.00390625f); });
   } else if constexpr (CASE == 1) {  // int32
-    Tile<int> b(reinterpret_cast<int*>(smem));
-    load_band(b, x, ToInt{});
-    for (int r = 0; r < reps; ++r)
-      cascade(
-          b, H, [](int a, int c) { return a + c; }, [&](int e) { return b.left(e, 1); },
-          [&](int e) { return b.left(e, W - 1); }, [](int v) { return v >> 8; });
-    store_band(b, out);
-  } else {  // int16 (2), uint16 (3): word w holds columns 2w (low) and 2w + 1
-    using B = Band<H, W / 2, C, uint32_t, true>;
-    B b(reinterpret_cast<uint32_t*>(smem));
-    const uint8_t* x2 = x + 2 * b.base;
-    for (int e = threadIdx.x; e < B::kBand; e += kThreads)
-      b.s[e] = uint32_t(x2[2 * e]) | uint32_t(x2[2 * e + 1]) << 16;
-    b.sync_cluster();
-    // the high byte of each halfword, sign-replicated (i16) or zero (u16)
+    roll::blocks_case<1, kHalo>(
+        x, out, reps, *reinterpret_cast<Smem<int, kR>*>(smem), ToInt{},
+        [](int a, int c) { return a + c; }, [](int a, int c) { return (a + c) >> 8; });
+  } else {  // int16 (2), uint16 (3)
+    // the high byte of each halfword, sign-replicated (int16) or zero (uint16)
     constexpr uint32_t kSel = CASE == 2 ? 0xB391u : 0x4341u;
-    for (int r = 0; r < reps; ++r)
-      cascade(
-          b, H, [](uint32_t a, uint32_t c) { return __vadd2(a, c); },
-          // roll by 1: (the left word's high half, this word's low half)
-          [&](int e) { return __funnelshift_r(b.left(e, 1), b.s[e], 16); },
-          // roll by W - 1: (this word's high half, the right word's low half)
-          [&](int e) { return __funnelshift_r(b.s[e], b.left(e, B::kN / H - 1), 16); },
-          [](uint32_t v) { return permute(v, 0u, kSel); });
-    uint8_t* o2 = out + 2 * b.base;
-    for (int e = threadIdx.x; e < B::kBand; e += kThreads) {
-      o2[2 * e] = uint8_t(b.s[e]);
-      o2[2 * e + 1] = uint8_t(b.s[e] >> 16);
-    }
+    const auto add = [](uint32_t a, uint32_t c) {
+      if constexpr (CASE == 2) return __vadd2(a, c);
+      else return a + c;
+    };
+    roll::blocks_case<2, kHalo>(
+        x, out, reps, *reinterpret_cast<Smem<uint32_t, kR / 2>*>(smem), ToInt{}, add,
+        [add](uint32_t a, uint32_t c) { return permute(add(a, c), 0u, kSel); });
   }
+}
+
+// dynamic shared memory of case `which`
+constexpr size_t smem_bytes(int which) {
+  return which < 2 ? sizeof(Smem<int, kR>) : sizeof(Smem<uint32_t, kR / 2>);
 }
 }  // namespace i16
 
@@ -875,14 +818,21 @@ kernel(const int* __restrict__ x, int* __restrict__ out, int reps) {
 // int32[1024] single-cycle permutation (x[i] the next index of a chase):
 // a float32 add, the cast-hop f -> int32 -> f + 1, a shared-memory load,
 // a load from the other CTA's shared memory of a 2-CTA cluster; or every
-// thread of a CTA or a 4- or 8-CTA cluster `reps` barriers. out is x with
-// out[0] the chain's last value (reps for the barriers). Bound: the chain
-// itself, so no bound but its own latency. No min/max case: ptxas
-// regroups a chain of them against operands that do not depend on it
-// (the SASS showed min/max off the chain), so it times no latency.
+// thread of a CTA or a 4-CTA cluster `reps` barriers; or an int32
+// add v + w, or P3's packed int16 add __vadd2(v, w) (VIADD.16x2), w = x[1]
+// | x[2] << 16 from memory, so unknown to the compiler. out is x with
+// out[0] the chain's last value (reps for the barriers; the adds: the xor
+// of every sum, x[0] the first). ptxas merges two dependent adds into one
+// IADD3 even across keep() (its SASS), so each sum is also xored into a
+// second register off the chain: a sum with two uses is not merged, and
+// chip_smoke.py's probe_sass holds each add's loop to 16 adds an
+// iteration. Bound: the chain itself, so no bound but its own latency. No
+// min/max case: ptxas regroups a chain of them against operands that do
+// not depend on it (the SASS showed min/max off the chain), so it times no
+// latency.
 namespace lat {
 constexpr int kN = 1024;
-constexpr int kCtas[] = {1, 1, 1, 2, 1, 4, 8};
+constexpr int kCtas[] = {1, 1, 1, 2, 1, 4, 1, 1};
 
 template <int CASE>
 __global__ void __launch_bounds__(kThreads, 1)
@@ -893,7 +843,20 @@ kernel(const int* __restrict__ x, int* __restrict__ out, int reps) {
   if constexpr (kCluster) cg::this_cluster().sync();
   else __syncthreads();
   int v = reps;
-  if constexpr (CASE <= 3) {
+  if constexpr (CASE >= 6) {
+    if (blockIdx.x == 0 && threadIdx.x == 0) {
+      uint32_t u = s[0], all = u;
+      const uint32_t w = uint32_t(s[1]) | uint32_t(s[2]) << 16;
+#pragma unroll 16
+      for (int r = 0; r < reps; ++r) {
+        if constexpr (CASE == 6) u += w;
+        else u = __vadd2(u, w);
+        keep(u);
+        all ^= u;
+      }
+      v = int(all);
+    }
+  } else if constexpr (CASE <= 3) {
     // 16 dependent operations an iteration (a loop's own add, compare and
     // branch would otherwise count in each operation's time), then the rest
     if (blockIdx.x == 0 && threadIdx.x == 0) {
@@ -985,8 +948,7 @@ extern "C" int tpuva_probe_i16(const void* x, void* out, int reps, int which,
   using namespace i16;
   static const ProbeKernel<uint8_t, uint8_t> ks[] = {kernel<0>, kernel<1>, kernel<2>, kernel<3>};
   if (which < 0 || which >= 4) return static_cast<int>(cudaErrorInvalidValue);
-  const size_t smem = which < 2 ? Tile<int>::kBytes : Band<H, W / 2, C, uint32_t, true>::kBytes;
-  return launch(ks[which], C, smem, x, out, reps, stream);
+  return launch(ks[which], C, smem_bytes(which), x, out, reps, stream);
 }
 
 extern "C" int tpuva_probe_cell(const void* x, void* out, int reps, int which,
@@ -1003,7 +965,7 @@ extern "C" int tpuva_probe_latency(const void* x, void* out, int reps, int which
                                    cudaStream_t stream) {
   using namespace lat;
   static const ProbeKernel<int, int> ks[] = {kernel<0>, kernel<1>, kernel<2>, kernel<3>,
-                                             kernel<4>, kernel<5>, kernel<6>};
-  if (which < 0 || which >= 7) return static_cast<int>(cudaErrorInvalidValue);
+                                             kernel<4>, kernel<5>, kernel<6>, kernel<7>};
+  if (which < 0 || which >= 8) return static_cast<int>(cudaErrorInvalidValue);
   return launch(ks[which], kCtas[which], 0, x, out, reps, stream);
 }

@@ -7,9 +7,14 @@ Each case runs `reps` reps of the 16-op cascade (for axis 1 then 0, two f
 2^-8; the integer types: ``(f.astype(int32) >> 8).astype(dtype)``) on a
 (112, 1152) tile, u8 in and the low byte out. The 16-bit types wrap: the
 int16 column pass overflows (255 * 256 > 32767), as on the TPU. Kernel:
-``csrc/probes.cu`` ``tpuva_probe_i16``, the tile in the distributed shared
-memory of an 8-CTA cluster; int16 and uint16 run packed, two halfwords a
-32-bit word.
+``csrc/probes.cu`` ``tpuva_probe_i16``, every case on P2's cascade code
+(``roll_probe``): a cluster of 4 CTAs, each holding its band of 28 rows
+and a halo of 2 rows each side (``HALO``) in registers, the halo exported
+by the neighbouring CTAs once a rep. int16 and uint16 run packed, rows 2 i
+and 2 i + 1 of a column in one 32-bit word: an axis-0 roll is a funnel
+shift, the uint16 add one plain 32-bit add (no halfword sum passes 65,280,
+so no carry crosses), the int16 add ``__vadd2`` (its rescale sign-extends,
+so a plain add would carry across), the rescale one byte permute.
 
     python -m tpuva_torch.probes.i16_probe [--device cpu]
 
@@ -31,7 +36,11 @@ CASES = (Case("float32", 16), Case("int32", 16), Case("int16", 16), Case("uint16
 REPS = (512, 8192)  # the slope's rep counts: the JAX file's, and a second
 FILE_REPS = REPS[0]  # the JAX file's call
 CHECK_REPS = (1, 3, FILE_REPS)  # the reps a kernel is held at against its plain version
-CTAS = 8  # the cluster: one CTA an SM, 14 rows each
+CTAS = 4  # the cluster: one CTA an SM, 28 rows each
+# The kernel's halo a band, as roll_probe.HALO: the cascade's 4 axis-0
+# steps read 2 rows up and 2 down a rep, in every case (one word row of a
+# packed case).
+HALO = {c.name: (2, 2, 1) for c in CASES}
 # int32 sums wrapped to the 16-bit type after every op
 WRAP = {
     "int16": lambda v: ((v + 0x8000) & 0xFFFF) - 0x8000,

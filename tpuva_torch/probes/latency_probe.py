@@ -10,7 +10,9 @@ float32 add, the cast-hop f -> int32 -> f + 1, a load from
 shared memory and one from another CTA's shared memory (chases through a
 single-cycle permutation of 1024 indices), each 16 to an iteration of
 the rep loop; a CTA barrier (1024 threads) and a cluster barrier of 4
-and of 8 CTAs (1024 threads each). There is no integer min/max case:
+CTAs (1024 threads each); an int32 add and P3's packed int16 add
+(``__vadd2``), each sum also xored into a second register so that ptxas
+cannot merge two adds into one. There is no integer min/max case:
 ptxas regroups such a chain when its operands do not depend on it, so
 it would time no latency. Kernel: ``csrc/probes.cu``
 ``tpuva_probe_latency``.
@@ -35,9 +37,10 @@ CASES = (
     Case("DSMEM load", 1),
     Case("CTA barrier", 1),
     Case("cluster barrier (4 CTAs)", 1),
-    Case("cluster barrier (8 CTAs)", 1),
+    Case("i32 add", 1),
+    Case("packed add (int16)", 1),
 )
-CTAS = (1, 1, 1, 2, 1, 4, 8)  # csrc/probes.cu lat::kCtas
+CTAS = (1, 1, 1, 2, 1, 4, 1, 1)  # csrc/probes.cu lat::kCtas
 REPS = (4096, 65536)  # the slope's rep counts
 CHECK_REPS = (0, 1, 3, 1000)
 
@@ -50,14 +53,29 @@ def make_tile() -> torch.Tensor:
     return torch.from_numpy(x)
 
 
+def add_chain(x: torch.Tensor, reps: int, packed: bool) -> int:
+    """The xor of the sums v_0 = x[0], v_j = v_(j-1) + w, w = x[1] | x[2] <<
+    16, as uint32 (packed: each halfword wrapped alone)."""
+    x0, w = int(x[0]), int(x[1]) | int(x[2]) << 16
+    j = np.arange(reps + 1, dtype=np.uint64)
+    if packed:
+        lo = (x0 + j * (w & 0xFFFF)) & 0xFFFF
+        v = lo | (((x0 >> 16) + j * (w >> 16)) & 0xFFFF) << 16
+    else:
+        v = (x0 + j * w) & 0xFFFFFFFF
+    return int(np.bitwise_xor.reduce(v))
+
+
 def plain(x: torch.Tensor, case: str, reps: int) -> torch.Tensor:
     """The kernel's output as torch ops: x with out[0] the chain's last
-    value. The float chains add 1 to an integer below 2^24, so each sum is
-    exact."""
+    value (the adds: the xor of every sum). The float chains add 1 to an
+    integer below 2^24, so each sum is exact."""
     i = case_index(CASES, case)
     out = x.clone()
     x0 = int(x[0])
-    if i in (0, 1):
+    if i >= 6:
+        out[0] = int(np.uint32(add_chain(x, reps, i == 7)).view(np.int32))
+    elif i in (0, 1):
         out[0] = torch.tensor(float(x0 + reps), dtype=torch.float32).view(torch.int32)
     elif i in (2, 3):
         j = 0
