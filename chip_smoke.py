@@ -16,6 +16,9 @@
     python3 chip_smoke.py --multistream # phases 1-2, then phase 7d (config 5) only
     python3 chip_smoke.py --filters # phases 1-2, then phase 7e (the filter chain) only
     python3 chip_smoke.py --spatial # phases 1-2, then phase 7f (the meshes of dist/) only
+    python3 chip_smoke.py --configs # phases 1-2, then phase 7h (BASELINE configs 1-3, Otsu
+                                    # at 480p, 4K UHD) only
+    python3 chip_smoke.py --soak    # phases 1-2, then phase 7i (the soak) only
 
 Run from the repository root on a machine with one CUDA card and nvcc; it
 builds the kernels into build/tpuva_torch/ first. It imports no JAX and
@@ -231,6 +234,32 @@ raises, so the exit code is non-zero:
    MultiStreamPipeline over a ('stream',) mesh of two streams on cuda:0,
    its rows and merged rows equal the stream-axis route's, stream 0 at
    REF_CSV_SHA256, K1, K3 and K5 once a stream a step;
+7h. tpuva's chip checks (bench/tpu_smoke.py) and BASELINE configs 1-3, the
+   cases of tpuva_torch.scenes.BASELINE_CASES: config 1 (640 x 480, 300
+   frames, threshold only, greedy, batch 128: K1 with no blur, a ragged
+   last batch of 44), config 2 (720p, blur 5, median 3, open and close,
+   Hungarian: K1's median emit and the padded handoff with 768 columns of
+   padding), config 3 (the bench config on eight blobs born and dying at
+   1080p), Otsu at 480p (greedy) and 4K UHD (the bench config at batch 64),
+   their clips made by refimpl.synthetic in worker processes spawned at the
+   start; each through process_clip(use_pallas=True) and StreamingPipeline
+   over VideoMemory, its launches counted around the first run (K1 padded
+   and K2 given its occupancy exactly where padded_handoff holds, else K2
+   deriving it; K3 and K6 on the streamed route; K4 for Otsu; K5 a batch),
+   each run's CSV sha256 equal to REF_CONFIG_CSV_SHA256's, frames/s from a
+   second run (an observation, not a claim);
+7i. the soak (tpuva_torch.probes.soak_100k, the counterpart of
+   bench/soak_100k.py): SOAK_FRAMES (100,352) 1080p frames rendered on the
+   card through process_batch_staged (K1 padded, K2 given its occupancy,
+   K5: each exactly once a step, the runs' batches, the warm-up and the
+   calibration, counted around the phase) with RowLog, AsyncRowDrainer and
+   checkpoints; its RSS growth over the second half
+   under 512 MB, a second run killed at half its batches and resumed with
+   its RowLog and CSV byte-identical, the centroid median under 1 px, the
+   float32-vs-float64 background drift on a 64 x 64 crop, and its rows of
+   the first 2048 frames equal to the OpenCV reference's
+   (REF_SOAK_PREFIX_CSV_SHA256); frames/s, the RSS and the render/step
+   split on its line;
 8. timing with CUDA events after warm-up at batch 256 and 1080p: K1, K1
    in padded_occ mode, K2 given K1's occupancy, deriving it and given
    every strip (the walk of every strip the kernels made before they
@@ -416,6 +445,28 @@ REF_MEDIAN5_CSV_SHA256 = "fdbc3baf72c239fa2bb06c830f9d7b72718e15232191a8a9c36cf4
 # The same with median=MedianConfig(15), K7's histogram tier on the route:
 # 3093 rows, 12 track ids. Recipe: README.md.
 REF_MEDIAN15_CSV_SHA256 = "0738bfd441e7dd4a3304b9e232c13c8469ca2993a45b000f4a22a076e609f4ae"
+# Phase 7h: the OpenCV reference (refimpl.pipeline.run_pipeline) on each
+# case of tpuva_torch.scenes.BASELINE_CASES, its clip from its plate; the
+# rows and track ids of each reference beside it. otsu_480p's reference
+# takes each frame's threshold by tpuva's float32 rule, as
+# REF_OTSU_CSV_SHA256 does (ROADMAP Queue 3, R2). Recipe: README.md.
+REF_CONFIG_CSV_SHA256 = {
+    "config1_480p": "9696f1c21459d0df8f095ddc766658e505b05e25a610fe40d37ae954b3d1109f",  # 324, 3
+    "config2_720p": "25d067a6d8f12598b04bd38e10ad9a1c3a5d9b46514ad85be6520d29420bdd9e",  # 581, 13
+    "config3_births": "1972a1974f0ef0d8c090730807ed7edc8f944c50964f40fc5cdcb95efede9b46",  # 2541, 27
+    "otsu_480p": "0c0bddc5d4470e72c95cb21505b1e2c348e272c23d7f2ee029c7c9394659bca7",  # 775, 6
+    "uhd_4k": "328aa5edcd4da9f8bd35eddf8d6b83d5edc301a5b5c626288970da19dad49c90",  # 774, 7
+}
+# Phase 7i: the OpenCV reference on the soak's first 2048 frames
+# (soak_100k.PREFIX_FRAMES) at 1080p (tpuva_torch.probes.soak_100k.
+# render_frames_np, build_cfg, background0 None: both sides seed the
+# background from the first filtered frame): 12344 rows, 22 track ids.
+# Rows are causal, so the soak's rows of those frames give these bytes.
+# Recipe: README.md.
+REF_SOAK_PREFIX_CSV_SHA256 = "6e03ec7f0016de4aef4820885dafe569f759b5bfbf014d3515513986a274e5b4"
+# the soak's frames: BASELINE config 4's 100k, 392 batches of 256 (the
+# phase takes ~1 min, so the default run and --soak both run it whole)
+SOAK_FRAMES = 100_352
 
 # Published H100 SXM peaks (NVIDIA's data sheet): HBM3 bytes/s, and the
 # float32 rate outside the tensor cores, taken for the scalar integer and
@@ -1685,6 +1736,149 @@ def median_route(clip, plate, cfg, counters):
                                  csv_sha256_equals_reference=True, torch_morphology_steps=0,
                                  runs=runs)
     return out
+
+
+def write_baseline_clip(name):
+    """Make the clip and plate of BASELINE case `name` (refimpl.synthetic,
+    numpy only) and save them under OUT_DIR; run in a worker process, so
+    that the clips are made while the earlier phases use the card. Returns
+    the two .npy paths."""
+    from refimpl import synthetic
+    from tpuva_torch.scenes import baseline_case, baseline_clip
+
+    clip, plate = baseline_clip(baseline_case(name), synthetic)
+    paths = [os.path.join(OUT_DIR, f"clip_{name}_{what}.npy") for what in ("frames", "plate")]
+    for path, arr in zip(paths, (clip, plate)):
+        np.save(path, arr)
+    return paths
+
+
+def start_baseline_clips():
+    """(executor, {name: future of write_baseline_clip}): a process for
+    each BASELINE case, spawned before the card is touched."""
+    import concurrent.futures
+    import multiprocessing
+    from tpuva_torch.scenes import BASELINE_CASES
+
+    os.makedirs(OUT_DIR, exist_ok=True)
+    pool = concurrent.futures.ProcessPoolExecutor(
+        max_workers=len(BASELINE_CASES), mp_context=multiprocessing.get_context("spawn"))
+    return pool, {name: pool.submit(write_baseline_clip, name) for name in BASELINE_CASES}
+
+
+def configs_phase(clip_futures, counters):
+    """Phase 7h: each BASELINE case (tpuva_torch.scenes.BASELINE_CASES, its
+    clip from clip_futures) through the staged route, process_clip(
+    use_pallas=True) (K1, K2 given K1's occupancy where padded_handoff
+    holds, else deriving it; for Otsu K1's diff emit and K4; K5), and the
+    streamed default route, StreamingPipeline over VideoMemory (K1, K3,
+    K6 given K3's occupancy, K5; for Otsu the diff emit and K4). Each
+    route's launches are counted around its first run (counters: {name:
+    (function, attribute)}), and each run's CSV sha256 is held to the
+    case's REF_CONFIG_CSV_SHA256; frames/s from a second run. Returns
+    {case: line}, with K1's launch plan at the case's size and each route's
+    peak device memory."""
+    from tpuva_torch.export.csvio import format_rows
+    from tpuva_torch.graph.pipeline import (
+        _diff_kwargs, _front_end_kwargs, _morph_stages, process_clip,
+    )
+    from tpuva_torch.graph.streaming import StreamingPipeline
+    from tpuva_torch.io.memory import VideoMemory
+    from tpuva_torch.ops.wide import morph_plan, open_close_steps
+    from tpuva_torch.scenes import baseline_case
+
+    def counts():
+        return {name: getattr(fn, attr) for name, (fn, attr) in counters.items()}
+
+    out = {}
+    for name, fut in clip_futures.items():
+        case = baseline_case(name)
+        cfg = case.cfg
+        paths = fut.result()
+        clip, plate = (np.load(p) for p in paths)
+        for p in paths:
+            os.unlink(p)
+        T, H, W = clip.shape
+        batches = -(-T // cfg.batch)
+        otsu = cfg.segment.threshold == "otsu"
+        tail = len(morph_plan(H, W, open_close_steps(_morph_stages(cfg)))) if otsu else 0
+        routes = {
+            "staged": lambda: process_clip(clip, cfg, background0=plate,
+                                           max_components=MAX_COMPONENTS, use_pallas=True,
+                                           device="cuda")[0],
+            "stream": lambda: StreamingPipeline(cfg, max_components=MAX_COMPONENTS).run(
+                VideoMemory(clip), background0=plate)}
+        line = dict(frames=T, shape=[H, W], batch=cfg.batch, ragged_last_batch=T % cfg.batch,
+                    assigner=cfg.track.assigner, max_blobs=cfg.segment.max_blobs,
+                    padded_handoff=case.padded,
+                    k1_plan=k1_plans(H, W, [("diff" if otsu else "mask",
+                                             (_diff_kwargs if otsu else _front_end_kwargs)(cfg))]))
+        for route, run in routes.items():
+            secs = []
+            for rep in range(2):  # the first run counts the launches; the second is timed
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                for fn, attr in counters.values():
+                    setattr(fn, attr, 0)
+                t0 = time.time()
+                rows = run()
+                torch.cuda.synchronize()
+                secs.append(time.time() - t0)
+                if rep == 0:
+                    c = counts()
+                    peak = torch.cuda.max_memory_allocated() / 2**30
+                data = format_rows(rows).encode()
+                if hashlib.sha256(data).hexdigest() != REF_CONFIG_CSV_SHA256[name]:
+                    with open(os.path.join(OUT_DIR, f"tracks_{name}_{route}.csv"), "wb") as fh:
+                        fh.write(data)
+                    raise AssertionError(f"{name} through the {route} route: rows differ from "
+                                         "the OpenCV reference's")
+            staged = route == "staged"
+            padded = staged and case.padded
+            want = dict(fused_segment=batches, fused_segment_padded_occ=batches * padded,
+                        ccl_stats=batches * staged, ccl_stats_occ=batches * padded,
+                        ccl_labels=batches * (not staged), root_stats=batches * (not staged),
+                        root_stats_occ=batches * (not staged), histogram_u8=batches * otsu,
+                        morph_u8=batches * tail, track_scan=batches, blur_u8=0, median_u8=0)
+            if any(c[k] != v for k, v in want.items()):
+                raise AssertionError(f"{name} through the {route} route: launches {c}, "
+                                     f"expected {want}")
+            line[route] = dict(
+                rows=len(rows), track_ids=len({int(r[0]) for r in rows}),
+                csv_sha256_equals_reference=True, padded_handoff_taken=bool(padded),
+                k2_deriving_occupancy=c["ccl_stats"] - c["ccl_stats_occ"],
+                launches={k: v for k, v in c.items() if v}, peak_device_gib=peak,
+                seconds=secs, fps=T / secs[1])
+        out[name] = line
+        del clip
+    return out
+
+
+def soak_phase(counters):
+    """Phase 7i: tpuva_torch.probes.soak_100k.soak over SOAK_FRAMES 1080p
+    frames rendered on the card (the staged route: K1 padded, K2 given its
+    occupancy, K5, each launched exactly once a step the soak reports,
+    counted around the phase; counters: {name: (function, attribute)}),
+    killed at half and resumed; its rows of the first
+    soak_100k.PREFIX_FRAMES frames held to REF_SOAK_PREFIX_CSV_SHA256.
+    Returns its line."""
+    from tpuva_torch.probes import soak_100k
+
+    torch.cuda.synchronize()
+    for fn, attr in counters.values():
+        setattr(fn, attr, 0)
+    t0 = time.time()
+    res = soak_100k.soak(SOAK_FRAMES, workdir=os.path.join(OUT_DIR, "soak"))
+    torch.cuda.synchronize()
+    c = {name: getattr(fn, attr) for name, (fn, attr) in counters.items()}
+    # one launch each a step: the soak's every process_batch_staged call
+    if not (res["steps"] == c["fused_segment"] == c["fused_segment_padded_occ"]
+            == c["ccl_stats"] == c["ccl_stats_occ"] == c["track_scan"]):
+        raise AssertionError(f"the soak's launches: {c}")
+    if res["prefix_csv_sha256"] != REF_SOAK_PREFIX_CSV_SHA256:
+        raise AssertionError(f"the soak's rows of its first {soak_100k.PREFIX_FRAMES} frames "
+                             "differ from the OpenCV reference's")
+    return dict(res, prefix_csv_sha256_equals_reference=True, launches={k: v for k, v in c.items() if v}, phase_seconds=time.time() - t0)
 
 
 # One kernel a K7 min/max candidate, compiled alone for sm_90a so that the
@@ -3029,9 +3223,8 @@ def filter_kernel_timing(shape, batch, masks, reps=5):
 
 def main():
     modes = ("--k1", "--k2", "--k5", "--wide", "--median", "--probes", "--staging",
-             "--multistream", "--filters", "--spatial")
+             "--multistream", "--filters", "--spatial", "--configs", "--soak")
     mode = sys.argv[1] if len(sys.argv) == 2 and sys.argv[1] in modes else None
-    k1_only = mode == "--k1"
     if sys.argv[1:] and mode is None:
         print(f"usage: chip_smoke.py [{' | '.join(modes)}]", file=sys.stderr)
         return 2
@@ -3039,6 +3232,18 @@ def main():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)",
               file=sys.stderr)
         return 2
+    clip_pool = clip_futures = None
+    if mode in (None, "--configs"):  # phase 7h's clips, made while the card works
+        clip_pool, clip_futures = start_baseline_clips()
+    try:
+        return run_phases(mode, clip_futures)
+    finally:
+        if clip_pool is not None:
+            clip_pool.shutdown(wait=True, cancel_futures=True)
+
+
+def run_phases(mode, clip_futures):
+    k1_only = mode == "--k1"
     from refimpl.synthetic import multi_blob_clip
     from tpuva_torch import _build
     from tpuva_torch.export.csvio import format_rows, write_tracks_csv
@@ -3109,6 +3314,24 @@ def main():
     _build.load_host()
     say("build_host", seconds=round(time.time() - t0, 2), library=host_lib.name,
         compiler=_build.cxx())
+    from tpuva_torch.ops.ccl import root_stats
+    counters = {"fused_segment": (fused_segment, "launches"),
+                "fused_segment_padded_occ": (fused_segment, "padded_launches"),
+                "ccl_stats": (label_stats, "launches"),
+                "ccl_stats_occ": (label_stats, "occ_launches"),
+                "ccl_labels": (label_components_tiled, "launches"),
+                "ccl_labels_conn4": (label_components_tiled, "conn4_launches"),
+                "root_stats": (root_stats, "launches"),
+                "root_stats_occ": (root_stats, "occ_launches"),
+                "histogram_u8": (histogram_u8, "launches"),
+                "track_scan": (track_scan, "launches"), "blur_u8": (blur_u8, "launches"),
+                "morph_u8": (morph_u8, "launches"), "median_u8": (median_u8, "launches")}
+    if mode == "--configs":
+        say("configs", cases=configs_phase(clip_futures, counters), card=card)
+        return 0
+    if mode == "--soak":
+        say("soak", card=card, **soak_phase(counters))
+        return 0
     if mode == "--multistream":
         clip, _alive, _truth, plate = multi_blob_clip(1080, 1920, 512, n_blobs=6, radius=16,
                                                       births_deaths=False, noise_sigma=2.0)
@@ -3153,17 +3376,6 @@ def main():
         noise_sigma=2.0)
     say("clip", seconds=round(time.time() - t0, 2), shape=list(clip.shape))
     err = {name: 0.0 for name in REPLACES}
-    counters = {"fused_segment": (fused_segment, "launches"),
-                "fused_segment_padded_occ": (fused_segment, "padded_launches"),
-                "ccl_stats": (label_stats, "launches"),
-                "ccl_stats_occ": (label_stats, "occ_launches"),
-                "ccl_labels": (label_components_tiled, "launches"),
-                "ccl_labels_conn4": (label_components_tiled, "conn4_launches"),
-                "root_stats": (root_stats, "launches"),
-                "root_stats_occ": (root_stats, "occ_launches"),
-                "histogram_u8": (histogram_u8, "launches"),
-                "track_scan": (track_scan, "launches"), "blur_u8": (blur_u8, "launches"),
-                "morph_u8": (morph_u8, "launches"), "median_u8": (median_u8, "launches")}
 
     def reset_counts():
         for fn, attr in counters.values():
@@ -3839,6 +4051,17 @@ def main():
     # 7f. the multi-card half of dist/ on the one card: four bands of the
     # ('space',) mesh, a checkpoint resumed on one card, the ('stream',) mesh
     say("spatial", **spatial_phase(clip, plate, card, cfg, err))
+    torch.cuda.empty_cache()
+
+    # 7h. tpuva's chip checks and BASELINE configs 1-3: each case through
+    # the staged and the streamed default routes at its pinned CSV bytes
+    t0 = time.time()
+    say("configs", cases=configs_phase(clip_futures, counters), card=card,
+        seconds=round(time.time() - t0, 1))
+    torch.cuda.empty_cache()
+
+    # 7i. BASELINE config 4 at 100k frames: the soak, killed and resumed
+    say("soak", card=card, **soak_phase(counters))
     torch.cuda.empty_cache()
 
     # 8. at the main path's shapes (batch 256, 1080p): kernel vs plain

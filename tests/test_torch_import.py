@@ -1,4 +1,4 @@
-"""Importing the port (the micro-probes, io, export, app, compose, cli,
+"""Importing the port (the micro-probes, the soak, io, export, app, compose, cli,
 dist, filters, analysis and debug included) loads no JAX, nothing of bench/, no cv2 or h5py, does not
 initialise CUDA and builds nothing, kernels or host library (the twin of
 test_aux.py's import-purity test for tpuva)."""
@@ -22,6 +22,7 @@ import tpuva_torch.graph.streaming, tpuva_torch.io.staging, tpuva_torch.io.memor
 import tpuva_torch.ops.label, tpuva_torch.device, tpuva_torch.utils
 import tpuva_torch.probes, tpuva_torch.probes._timing, tpuva_torch.probes.repos_probe
 import tpuva_torch.probes.roll_probe, tpuva_torch.probes.i16_probe, tpuva_torch.probes.cell_probe
+import tpuva_torch.probes.soak_100k, tpuva_torch.scenes
 import tpuva_torch.io, tpuva_torch.io.native, tpuva_torch.export, tpuva_torch.export.hdf5io
 import tpuva_torch.app, tpuva_torch.compose, tpuva_torch.analysis.curves, tpuva_torch.cli
 import tpuva_torch.dist, tpuva_torch.dist.multistream, tpuva_torch.dist.pipeline, tpuva_torch.dist.spatial

@@ -8,6 +8,9 @@ kernels against their plain versions on; numpy only:
   frames, contested frames (the Hungarian search's slow path), more
   detections than free slots, and random clouds;
 - configs that one launch of kernel K1 does not take (``k1_refused_config``);
+- the chip checks of tpuva's ``bench/tpu_smoke.py`` and BASELINE configs
+  1-3 (``baseline_case``): each case's clip recipe, config and whether
+  the staged route takes the padded handoff at the clip's size;
 - kernel K6's options (``ROOT_STATS_OPTIONS``);
 - uint8 frames that stress an exact median's ties and orders
   (``median_adversarial``, kernel K7);
@@ -17,6 +20,7 @@ kernels against their plain versions on; numpy only:
 """
 
 import dataclasses
+from typing import NamedTuple
 
 import numpy as np
 
@@ -193,6 +197,88 @@ def k1_refused_config(cfg, name, config=None):
             cfg, median=config.MedianConfig(7),
             segment=replace(cfg.segment, threshold="otsu")),
     }[name]()
+
+
+BASELINE_CASES = ("config1_480p", "config2_720p", "config3_births", "otsu_480p", "uhd_4k")
+
+
+class BaselineCase(NamedTuple):
+    name: str
+    clip: str  # the refimpl.synthetic generator that makes the clip
+    clip_kw: dict  # its arguments (h, w, frames, ...)
+    cfg: object  # PipelineConfig, batch included
+    padded: bool  # padded_handoff(cfg, h, w): K1's padded mask goes to K2
+
+
+def baseline_case(name, config=None, **clip_kw):
+    """The case `name` of BASELINE_CASES: tpuva's chip checks
+    (bench/tpu_smoke.py's config 1, config 2, Otsu at 480p and 4K UHD) and
+    BASELINE config 3's births and deaths, at the size the card runs them.
+    Keyword arguments replace the clip's (h, w, frames, ...) for a smaller
+    run; `config` is the config module (the port's by default). The clip
+    starts from its plate (background0), as every pinned route does."""
+    if config is None:
+        from tpuva_torch.graph import config
+    from tpuva_torch.graph.pipeline import padded_handoff
+
+    C = config
+    greedy = C.TrackConfig(max_dist=60.0, death_patience=5, max_tracks=8)
+    bench = C.PipelineConfig(
+        background=C.BackgroundConfig(alpha=0.02), blur=C.BlurConfig(ksize=5, sigma=0.0),
+        morph_open=C.MorphConfig(ksize=3, shape="rect"),
+        morph_close=C.MorphConfig(ksize=3, shape="ellipse"),
+        segment=C.SegmentConfig(threshold=35.0, min_area=50, max_blobs=8),
+        track=C.TrackConfig(max_dist=80.0, death_patience=5, max_tracks=16,
+                            assigner="hungarian"),
+        batch=256)
+    blobs = dict(births_deaths=False, noise_sigma=2.0)
+    clip, kw, cfg = {
+        # 640 x 480, threshold only, greedy: one K1 launch with no blur
+        # and no morphology; 300 frames leave a ragged batch of 44
+        "config1_480p": ("moving_disk_clip", dict(h=480, w=640, frames=300, noise_sigma=2.0),
+                         C.PipelineConfig(
+                             background=C.BackgroundConfig(alpha=0.05),
+                             segment=C.SegmentConfig(threshold=40.0, min_area=30, max_blobs=4),
+                             track=greedy, batch=128)),
+        # 720p, blur 5 + median 3 + open 3 rect + close 3 ellipse, Hungarian
+        "config2_720p": ("moving_disk_clip",
+                         dict(h=720, w=1280, frames=512, radius=24.0, noise_sigma=2.0),
+                         C.PipelineConfig(
+                             background=C.BackgroundConfig(alpha=0.05),
+                             blur=C.BlurConfig(ksize=5, sigma=0.0),
+                             median=C.MedianConfig(ksize=3),
+                             morph_open=C.MorphConfig(ksize=3, shape="rect"),
+                             morph_close=C.MorphConfig(ksize=3, shape="ellipse"),
+                             segment=C.SegmentConfig(threshold=35.0, min_area=40, max_blobs=4),
+                             track=dataclasses.replace(greedy, assigner="hungarian"),
+                             batch=256)),
+        # BASELINE config 3: the bench config on blobs that are born and die
+        "config3_births": ("multi_blob_clip",
+                           dict(h=1080, w=1920, frames=512, n_blobs=8, radius=16.0,
+                                births_deaths=True, noise_sigma=2.0),
+                           bench),
+        # 480p, blur 5 + Otsu, greedy
+        "otsu_480p": ("multi_blob_clip",
+                      dict(h=480, w=640, frames=256, n_blobs=3, radius=12.0, **blobs),
+                      C.PipelineConfig(
+                          background=C.BackgroundConfig(alpha=0.05),
+                          blur=C.BlurConfig(ksize=5, sigma=0.0),
+                          segment=C.SegmentConfig(threshold="otsu", min_area=30, max_blobs=4),
+                          track=greedy, batch=128)),
+        # 4K UHD, the bench config at batch 64 (531 MB a batch, as at 1080p)
+        "uhd_4k": ("multi_blob_clip",
+                   dict(h=2160, w=3840, frames=128, n_blobs=6, radius=32.0, **blobs),
+                   dataclasses.replace(bench, batch=64)),
+    }[name]
+    kw = dict(kw, **clip_kw)
+    return BaselineCase(name, clip, kw, cfg, padded_handoff(cfg, kw["h"], kw["w"]))
+
+
+def baseline_clip(case, synthetic):
+    """(clip (T, H, W) uint8, plate (H, W) uint8) of a BaselineCase, made
+    by `synthetic` (the refimpl.synthetic module)."""
+    out = getattr(synthetic, case.clip)(**case.clip_kw)
+    return out[0], out[-1]
 
 
 MEDIAN_ADVERSARIAL = ("constant", "two_values", "zero_255", "ramp_x", "ramp_y_down", "ramp_xy",
