@@ -19,6 +19,7 @@
     python3 chip_smoke.py --configs # phases 1-2, then phase 7h (BASELINE configs 1-3, Otsu
                                     # at 480p, 4K UHD) only
     python3 chip_smoke.py --soak    # phases 1-2, then phase 7i (the soak) only
+    python3 chip_smoke.py --scanned # phases 1-2, then phase 7j (the scanned background) only
 
 Run from the repository root on a machine with one CUDA card and nvcc; it
 builds the kernels into build/tpuva_torch/ first. It imports no JAX and
@@ -213,6 +214,14 @@ raises, so the exit code is non-zero:
    one's ms beside its plain version's, its library call's
    (torch.matmul, F.grid_sample, F.interpolate; KE none) and its bound,
    KR also on gray frames and up to 2880 x 1620 (filter_kernels line);
+   KG (gaussian_blur on float32: FilterBlur after FilterNormalize) once a
+   batch gray and BGR (the channels interleaved), KS's sequential order
+   (FilterBackground after FilterNormalize) once a batch, both bit-equal to
+   their plain versions: KG on normalized 16-frame 1080p gray and random
+   BGR at k = 3 and 5 (the cascade on non-integer input), 7, 9 sigma 1.5
+   and 31, and on one column, H below the radius and a window no tile
+   holds (its direct route); each timed beside its plain version, its
+   bound and, for KG, two F.conv2d calls over a reflect pad (TF32 off);
 7f. the multi-card half of dist/ on the one card: K1's mask and diff
    emits on one 256-frame batch of each band shape of four bands (an edge
    band of 270 + 6 rows, an interior one of 270 + 12) and K4 on each
@@ -260,6 +269,23 @@ raises, so the exit code is non-zero:
    the first 2048 frames equal to the OpenCV reference's
    (REF_SOAK_PREFIX_CSV_SHA256); frames/s, the RSS and the render/step
    split on its line;
+7j. the scanned background (parallel_bg, scanned_phase): KS
+   (ops.background.background_scan, csrc/background.cu) against its plain
+   version on the card, bit for bit (the emit and the post-batch
+   background): the clip's two 256-frame batches after the filter prefix,
+   from the plate, seeded, and the second carried from the first, both
+   emits; N = 1, 2, 3, 7, 255, 256, 257 on (N, 120, 160) random bytes;
+   (5, 250, 333), (4, 120, 1), and N = 1024 (32 pixels a CTA) and 2000
+   (the global scratch) on small frames; its sequential order on FilterNormalize's
+   float frames; then process_clip(parallel_bg=True) and
+   StreamingPipeline(parallel_bg=True) over the clip, and process_clip
+   with the plain version in KS's place, each run's CSV sha256 equal to
+   REF_SCANNED_CSV_SHA256, KS, K1b, K3, K6 and K5 exactly once a batch, K1m
+   its morph_plan groups, K1 never; each run's rows, track ids, rows that
+   differ from the sequential route's, peak device memory, and frames/s
+   after the checked run in turns with the sequential route; the front
+   end's device ms on one batch on KS and on the plain version, and KS
+   alone beside its plain version, bound and shared-memory estimate;
 8. timing with CUDA events after warm-up at batch 256 and 1080p: K1, K1
    in padded_occ mode, K2 given K1's occupancy, deriving it and given
    every strip (the walk of every strip the kernels made before they
@@ -397,6 +423,13 @@ REPLACES = {
     "warp_affine": ("tpuva_torch/csrc/filters.cu", "tpuva/ops/warp.py:59"),
     "resize_linear": ("tpuva_torch/csrc/filters.cu", "tpuva/filters.py:220"),
     "edt": ("tpuva_torch/csrc/distance.cu", "tpuva/ops/distance.py:65"),
+    # the float Gaussian blur (KG), FilterBlur on float frames (phase 7e)
+    "gaussian_blur_f32": ("tpuva_torch/csrc/filters.cu", "tpuva/ops/filters.py:148"),
+    # the float background (KS): the scanned order of every parallel_bg
+    # route (phase 7j), the sequential order of FilterBackground on float
+    # frames (phase 7e)
+    "background_scan": ("tpuva_torch/csrc/background.cu", "tpuva/graph/pipeline.py:85"),
+    "background_scan_sequential": ("tpuva_torch/csrc/background.cu", "tpuva/filters.py:403"),
     # the micro-probes P1-P4, phase 9
     "repos_probe": ("tpuva_torch/csrc/probes.cu", "bench/repos_probe.py:51"),
     "roll_probe": ("tpuva_torch/csrc/probes.cu", "bench/roll_probe.py:50"),
@@ -445,6 +478,14 @@ REF_MEDIAN5_CSV_SHA256 = "fdbc3baf72c239fa2bb06c830f9d7b72718e15232191a8a9c36cf4
 # The same with median=MedianConfig(15), K7's histogram tier on the route:
 # 3093 rows, 12 track ids. Recipe: README.md.
 REF_MEDIAN15_CSV_SHA256 = "0738bfd441e7dd4a3304b9e232c13c8469ca2993a45b000f4a22a076e609f4ae"
+# Phase 7j: the bench config with parallel_bg=True (tpuva's associative
+# scan of the background, another float32 order than the sequential
+# update) through process_clip on the card with KS's plain version
+# (ops/background.py::background_scan_plain, the torch ops the route ran
+# before KS): 3115 rows, 17 track ids; one row differs from
+# REF_CSV_SHA256's (frame 355, a blob's area 1851 against 1852). The CPU
+# tests hold the route to tpuva's row for row at 96 x 256.
+REF_SCANNED_CSV_SHA256 = "b1454d20328167a9d5399124dcb53b07a65da7e5e752d116aa0362a518f031c5"
 # Phase 7h: the OpenCV reference (refimpl.pipeline.run_pipeline) on each
 # case of tpuva_torch.scenes.BASELINE_CASES, its clip from its plate; the
 # rows and track ids of each reference beside it. otsu_480p's reference
@@ -2766,6 +2807,8 @@ def filter_cases(tf):
                                                          border_value=7.0, device=d), (0, 1)),
         ("flip", lambda v, d: tf.FilterFlip(v, device=d), (0, 1)),
         ("background", lambda v, d: tf.FilterBackground(v, 0.02, device=d), (0,)),
+        ("background_float", lambda v, d: tf.FilterBackground(tf.FilterNormalize(v, device=d),
+                                                              0.02), (0,)),
         ("function", lambda v, d: tf.FilterFunction(v, lambda f: 255 - f, device=d), (0, 1)),
     ]
 
@@ -2778,8 +2821,10 @@ def filters_phase(clip, plate, card, cfg, err):
        through iter_batches on the card against the same on the CPU, bit
        for bit; its program's device ms on those frames (CUDA events, after
        the checked run). FilterBlur on uint8 launched K1b once a batch,
-       FilterBackground on uint8 K1's diff emit once; K1b and K1's diff
-       emit against their plain versions on the card on those inputs.
+       FilterBackground on uint8 K1's diff emit once, FilterBlur on float32
+       KG once, FilterBackground on float32 KS's sequential order once; K1b
+       and K1's diff emit against their plain versions on the card on those
+       inputs.
     2. distance_transform_edt and _sq on K1's masks of those frames (the
        bench config) against the CPU's, the passes of each stage and the
        ms; on one all-foreground frame (+inf everywhere) with its passes;
@@ -2800,8 +2845,10 @@ def filters_phase(clip, plate, card, cfg, err):
        clip on cuda: K1b, K1's diff emit and KM once a batch each; its
        first 48 frames equal the CPU chain's on those frames; frames/s.
     5. KM, KW, KR and KE against their plain versions on the card, bit for
-       bit (filter_kernel_checks), then timed (filter_kernel_timing).
-    Returns (the phase line's fields, its launch counts, the four kernels'
+       bit (filter_kernel_checks), KG and KS's sequential order likewise
+       (float_kernel_checks), then timed (filter_kernel_timing,
+       float_kernel_timing).
+    Returns (the phase line's fields, its launch counts, the kernels'
     entries of the kernels line)."""
     from tpuva_torch import filters as tf
     from tpuva_torch.analysis.regions import mask_boundary
@@ -2813,7 +2860,8 @@ def filters_phase(clip, plate, card, cfg, err):
     from tpuva_torch.ops import resize, warp
     from tpuva_torch.ops.ccl import label_components_tiled, label_stats, root_stats
     from tpuva_torch.ops.distance import edt_kernel, edt_sq_passes
-    from tpuva_torch.ops.filters import erode, gaussian_blur_u8, structuring_element
+    from tpuva_torch.ops.background import background_scan
+    from tpuva_torch.ops.filters import erode, gaussian_blur, gaussian_blur_u8, structuring_element
     from tpuva_torch.ops.fused_segment import fused_segment, fused_segment_plain
     from tpuva_torch.ops.median import median_u8
     from tpuva_torch.ops.wide import blur_u8, morph_u8
@@ -2829,7 +2877,9 @@ def filters_phase(clip, plate, card, cfg, err):
                 "track_scan": (track_scan, "launches"), "chain_program": (tf.run_chain, "runs"),
                 "bgr_to_gray": (color.bgr_to_gray, "launches"),
                 "resize_linear": (resize.resize_linear, "launches"),
-                "warp_affine": (warp.warp_affine, "launches"), "edt": (edt_kernel, "launches")}
+                "warp_affine": (warp.warp_affine, "launches"), "edt": (edt_kernel, "launches"),
+                "gaussian_blur_f32": (gaussian_blur, "launches"),
+                "background_scan_sequential": (background_scan, "sequential_launches")}
 
     def reset():
         for fn, attr in counters.values():
@@ -3015,12 +3065,18 @@ def filters_phase(clip, plate, card, cfg, err):
     masks, _bg = fused_segment(torch.from_numpy(gray).to(dev),
                                torch.from_numpy(plate.astype(np.float32)).to(dev), **BENCH_KW)
     out["kernel_checks"] = filter_kernel_checks(gray.shape, masks, err)
+    out["kernel_checks"]["float"] = float_kernel_checks(gray, err)
     batch = torch.from_numpy(clip_bgr[:cfg.batch]).to(dev)
     timing = filter_kernel_timing(gray.shape, batch, masks)
+    timing.update(float_kernel_timing(gray))
     del masks, batch
-    kernels = {name: dict(timing[name], launches=launches[key][name]) for name, key in (
-        ("bgr_to_gray", "chain_route"), ("warp_affine", "rotate_7.5_gray"),
-        ("resize_linear", "resize_960x540_gray"), ("edt", "edt"))}
+    kernels = {name: dict(timing[name], launches=launches[key][kernel]) for name, key, kernel in (
+        ("bgr_to_gray", "chain_route", "bgr_to_gray"),
+        ("warp_affine", "rotate_7.5_gray", "warp_affine"),
+        ("resize_linear", "resize_960x540_gray", "resize_linear"), ("edt", "edt", "edt"),
+        ("gaussian_blur_f32", "blur_float_gray", "gaussian_blur_f32"),
+        ("gaussian_blur_f32_bgr", "blur_float_bgr", "gaussian_blur_f32"),
+        ("background_scan_sequential", "background_float_gray", "background_scan_sequential"))}
     # KR's other timed shapes (FilterResize's launches on them)
     kernels.update({name: dict(timing[name], launches=launches[key]["resize_linear"])
                     for name, key in (("resize_linear_gray", "resize_960x540_gray"),
@@ -3031,6 +3087,8 @@ def filters_phase(clip, plate, card, cfg, err):
 
 # the kernel each filter of filter_cases launches once a batch on the card
 FILTER_KERNELS = {"blur_u8": "blur_u8", "background": "fused_segment", "median_3": "median_u8",
+                  "blur_float": "gaussian_blur_f32",
+                  "background_float": "background_scan_sequential",
                   "median_5": "median_u8", "monochrome": "bgr_to_gray",
                   "resize_960x540": "resize_linear", "resize_x1.5": "resize_linear",
                   "rotate_7.5": "warp_affine", "warp_affine": "warp_affine"}
@@ -3221,9 +3279,337 @@ def filter_kernel_timing(shape, batch, masks, reps=5):
     return res
 
 
+# KG's cases of phase 7e at 1080p: the cascade (3, 5; non-integer input),
+# cv2's sigma <= 0 table (7), FilterBlur's sigma 1.5 case (9), a wide one
+KG_CASES = ((3, 0.0), (5, 0.0), (7, 0.0), (9, 1.5), (31, 0.0))
+# edge shapes: one column; H below the radius (31 taps on 5 rows, gray and
+# BGR); a window no tile holds (the direct route)
+KG_EDGE_CASES = (((4, 120, 1), 9, False), ((4, 120, 1), 31, False), ((3, 5, 40), 31, False),
+                 ((2, 5, 40, 3), 31, True), ((2, 9, 7, 3), 121, True))
+
+
+def normalized(frames):
+    """FilterNormalize's float32 output of uint8 frames on the card: (x -
+    0) times float32(1/255), clipped; none of its values is an integer but
+    0 and 1."""
+    from tpuva_torch import filters as tf
+    from tpuva_torch.io.memory import VideoMemory
+
+    x = torch.from_numpy(frames).to("cuda")
+    return tf.FilterNormalize(VideoMemory(frames[:1]), device="cuda").batch_transform(x, None)
+
+
+def float_kernel_checks(gray, err):
+    """KG (gaussian_blur) and KS's sequential order against their plain
+    versions on the card, bit for bit: KG at KG_CASES on FilterNormalize's
+    output of the phase's gray frames and of random BGR frames (16 at
+    1080p, the channels interleaved), and on KG_EDGE_CASES; KS's
+    sequential order on the normalized gray frames (check_ks_sequential).
+    The max abs differences folded into err."""
+    from tpuva_torch.ops.filters import blur_float_plan, gaussian_blur, gaussian_blur_plain
+
+    rng = np.random.default_rng(42)
+    x = normalized(gray)
+    xb = normalized(rng.integers(0, 256, gray.shape + (3,), dtype=np.uint8))
+    plans = {}
+    for ksize, sigma in KG_CASES:
+        for what, frames, cl in (("gray", x, False), ("bgr", xb, True)):
+            check_equal(err, "gaussian_blur_f32", [
+                (f"k {ksize} sigma {sigma} {what}", gaussian_blur(frames, ksize, sigma, cl),
+                 gaussian_blur_plain(frames, ksize, sigma, cl))], "normalized 1080p frames")
+            plans[f"{ksize}_{what}"] = list(blur_float_plan(3 if cl else 1, ksize))
+    for shape, ksize, cl in KG_EDGE_CASES:
+        frames = torch.from_numpy(rng.random(shape, dtype=np.float32)).to("cuda")
+        check_equal(err, "gaussian_blur_f32", [
+            (f"{list(shape)} k {ksize}", gaussian_blur(frames, ksize, 0.0, cl),
+             gaussian_blur_plain(frames, ksize, 0.0, cl))], "edge shapes")
+        plans[f"{ksize}_{'x'.join(map(str, shape))}"] = list(
+            blur_float_plan(3 if cl else 1, ksize))
+    del xb
+    check_ks_sequential(err, x, "FilterNormalize's 1080p frames")
+    return {"kg_bit_equal": [list(c) for c in KG_CASES],
+            "kg_edge_cases": [[list(s), k] for s, k, _c in KG_EDGE_CASES],
+            "kg_plans_th_tw_smem": plans, "ks_sequential_bit_equal": True}
+
+
+def float_kernel_timing(gray, reps=5):
+    """KG at FilterBlur's k = 9, sigma 1.5 on FilterNormalize's output of
+    the gray frames and of their BGR (three equal channels, interleaved);
+    KS's sequential order on the normalized gray frames from a random
+    background (FilterBackground's float batch). Each {ms, plain_ms,
+    library_ms, bound_ms, bound_by}, CUDA events after a warm-up; KG's
+    library time is two calls, F.conv2d with the row taps and then the
+    column taps, each over an F.pad(mode="reflect") (REFLECT_101), float32
+    with cuDNN's TF32 off; KS has none."""
+    from tpuva_torch.ops.background import background_scan, background_scan_plain
+    from tpuva_torch.ops.filters import gaussian_blur, gaussian_blur_plain, gaussian_kernel_1d
+
+    F = torch.nn.functional
+    x = normalized(gray)
+    xb = x[..., None].expand(-1, -1, -1, 3).contiguous()
+    ksize, sigma = 9, 1.5
+    r = ksize // 2
+    k = torch.from_numpy(gaussian_kernel_1d(ksize, sigma)).to("cuda")
+    res = {}
+    tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        for name, frames, cl in (("gaussian_blur_f32", x, False),
+                                 ("gaussian_blur_f32_bgr", xb, True)):
+            planes = (frames.permute(0, 3, 1, 2) if cl else frames[:, None]).reshape(
+                -1, 1, *frames.shape[1:3]).contiguous()
+
+            def library(p=planes):
+                y = F.conv2d(F.pad(p, (r, r, 0, 0), mode="reflect"), k.view(1, 1, 1, -1))
+                return F.conv2d(F.pad(y, (0, 0, r, r), mode="reflect"), k.view(1, 1, -1, 1))
+
+            b = bound(8 * frames.numel(), 2 * (3 * r + 1) * frames.numel())
+            res[name] = {"ms": cuda_ms(lambda f=frames, c=cl: gaussian_blur(f, ksize, sigma, c),
+                                       reps),
+                         "plain_ms": cuda_ms(lambda f=frames, c=cl: gaussian_blur_plain(
+                             f, ksize, sigma, c), 2),
+                         "library_ms": cuda_ms(library, reps),
+                         "library": "2 calls: F.conv2d over F.pad(reflect), row then column",
+                         "bound_ms": b[0], "bound_by": b[1], "shape": list(frames.shape),
+                         "ksize": ksize, "sigma": sigma}
+            del planes
+    finally:
+        torch.backends.cudnn.allow_tf32 = tf32
+    bg0 = torch.rand(x.shape[1:], device="cuda")
+    N, P = x.shape[0], x[0].numel()
+    b = bound(5 * N * P + 8 * P, 6 * N * P)
+    res["background_scan_sequential"] = {
+        "ms": cuda_ms(lambda: background_scan(x, bg0, 0.02, False, "sequential", "diff"), reps),
+        "plain_ms": cuda_ms(lambda: background_scan_plain(x, bg0, 0.02, False, "sequential",
+                                                          "diff"), 2),
+        "library_ms": None, "bound_ms": b[0], "bound_by": b[1], "shape": list(x.shape)}
+    return res
+
+
+# Phase 7j: KS's checks at the route's shapes and edge shapes
+KS_N = (1, 2, 3, 7, 255, 256, 257)
+# ragged frames, one column, and N past a CTA's 224 pixels: 32 pixels a
+# CTA at 1024, the global scratch at 2000 (ops/background.py::scan_plan)
+KS_EDGE_SHAPES = ((5, 250, 333), (4, 120, 1), (1024, 24, 32), (2000, 12, 16))
+
+
+def ks_ops_per_px(N, ops):
+    """Least float32 operations a pixel of KS's scanned order: o_t = a F_t
+    (N), two a combine (ops of them), B_t = S_t B_0 + O_t (2N), the emit's
+    difference, abs and compare or rounding (3N)."""
+    return 6 * N + 2 * ops
+
+
+def ks_scan_bound(N, P):
+    """(least ms, what bounds it, shared-memory ms) of KS's scan on N
+    uint8 frames of P pixels: the frames read and the emit written once,
+    the background read and written once; the operations at 67 T/s; and
+    beside them the shared memory it moves (each o value written once and
+    read once for B, three accesses a combine) at 128 B a clock an SM."""
+    from tpuva_torch.ops.background import scan_tables
+
+    ops = scan_tables(N, 0.02).size - N
+    b = bound(2 * N * P + 8 * P, ks_ops_per_px(N, ops) * P)
+    smem = 4 * (2 * N + 3 * ops) * P / (128 * SMS * SM_CLOCK_HZ) * 1e3
+    return b[0], b[1], smem
+
+
+def check_ks_sequential(err, frames, where):
+    """KS's sequential order against its plain version on float frames,
+    unseeded from a random background and seeded by a flag on the card,
+    both emits, bit for bit."""
+    from tpuva_torch.ops.background import background_scan, background_scan_plain
+
+    dev = frames.device
+    bg0 = torch.rand(frames.shape[1:], device=dev)
+    seed = torch.ones((), dtype=torch.bool, device=dev)
+    for seed_bg in (False, seed):
+        for emit, thr in (("diff", None), ("mask", 0.05)):
+            got = background_scan(frames, bg0, 0.02, seed_bg, "sequential", emit, thr)
+            ref = background_scan_plain(frames, bg0, 0.02, seed_bg, "sequential", emit, thr)
+            check_equal(err, "background_scan_sequential", zip(("out", "bg_last"), got, ref),
+                        f"{where}, {emit}, seeded {seed_bg is not False}")
+
+
+def scanned_phase(clip, plate, card, cfg, err, counters):
+    """Phase 7j, the scanned background (parallel_bg) on the card.
+
+    1. KS (ops.background.background_scan, order "scan") against its plain
+       version on the card, bit for bit, the emit and the post-batch
+       background: the bench clip's two 256-frame batches after the filter
+       prefix (K1b), from the plate and seeded, then the second carried
+       from the first, both emits; N in KS_N on (N, 120, 160) random bytes
+       (seeded by a flag on the card at odd N); KS_EDGE_SHAPES; KS's
+       sequential order on float frames out of FilterNormalize.
+    2. The scanned route over the clip: process_clip(parallel_bg=True) and
+       StreamingPipeline(parallel_bg=True) over VideoMemory, each run's
+       CSV sha256 equal to REF_SCANNED_CSV_SHA256, KS, K1b, K3, K6 and K5
+       once a batch, K1m its morph_plan groups a batch, K1 never; the same
+       process_clip with background_scan_plain in KS's place on the card
+       (the torch ops the route ran before KS) at the same pin; the rows
+       that differ from the sequential route's (REF_CSV_SHA256); peak
+       device memory of each; frames/s of each after its checked run, and
+       of the sequential route, in turns.
+    3. The front end (_front_end_emit with parallel_bg) on one 256-frame
+       batch on KS and on the plain version (CUDA events), and KS alone
+       beside its plain version and its bound.
+    Returns (the phase line's fields, KS's entry of the kernels line)."""
+    import tpuva_torch.graph.pipeline as tpp
+    from tpuva_torch.export.csvio import format_rows
+    from tpuva_torch.graph.pipeline import process_clip
+    from tpuva_torch.graph.streaming import StreamingPipeline
+    from tpuva_torch.io.memory import VideoMemory
+    from tpuva_torch.ops.background import background_scan, background_scan_plain, scan_plan
+    from tpuva_torch.ops.wide import morph_plan, open_close_steps
+
+    dev = torch.device("cuda")
+    t_phase = time.time()
+    out = {"card": card}
+    H, W = clip.shape[1:]
+    N = cfg.batch
+    alpha, thr = cfg.background.alpha, cfg.segment.threshold
+
+    def ks_pair(frames, bg0, seed_bg, emit, where):
+        th = thr if emit == "mask" else None
+        got = background_scan(frames, bg0, alpha, seed_bg, "scan", emit, th)
+        ref = background_scan_plain(frames, bg0, alpha, seed_bg, "scan", emit, th)
+        check_equal(err, "background_scan", zip(("out", "bg_last"), got, ref), where)
+        return got
+
+    # 1. KS against its plain version
+    plate_t = torch.from_numpy(plate.astype(np.float32)).to(dev)
+    f1 = tpp._filter_u8(cfg, torch.from_numpy(clip[:N]).to(dev))
+    f2 = tpp._filter_u8(cfg, torch.from_numpy(clip[N:2 * N]).to(dev))
+    n_cmp = 0
+    for emit in ("mask", "diff"):
+        ks_pair(f1, plate_t, False, emit, f"clip batch 1 from the plate, {emit}")
+        _o, carried = ks_pair(f1, plate_t, True, emit, f"clip batch 1 seeded, {emit}")
+        ks_pair(f2, carried, False, emit, f"clip batch 2 carried, {emit}")
+        n_cmp += 3
+    del f2, carried
+    rng = np.random.default_rng(26)
+    seed = torch.ones((), dtype=torch.bool, device=dev)
+    shapes = [(n, 120, 160) for n in KS_N] + list(KS_EDGE_SHAPES)
+    for shape in shapes:
+        frames = torch.from_numpy(rng.integers(0, 256, shape, dtype=np.uint8)).to(dev)
+        bg0 = torch.from_numpy(rng.uniform(0, 255, shape[1:]).astype(np.float32)).to(dev)
+        for emit in ("mask", "diff"):
+            for seed_bg in (False, seed if shape[0] % 2 else True):
+                ks_pair(frames, bg0, seed_bg, emit, f"random {list(shape)}, {emit}")
+                n_cmp += 1
+    check_ks_sequential(err, normalized(clip[:FILTER_FRAMES]), "FilterNormalize's 1080p frames")
+    out["ks_vs_plain"] = {"comparisons": n_cmp, "bit_equal": True, "N": list(KS_N),
+                          "edge_shapes": [list(s) for s in KS_EDGE_SHAPES],
+                          "plan_256": scan_plan(N, H * W)._asdict(),
+                          "plan_1024": scan_plan(1024, H * W)._asdict(),
+                          "plan_2048": scan_plan(2048, H * W)._asdict(),
+                          "sequential_bit_equal": True}
+
+    # 2. the scanned route
+    nb = -(-clip.shape[0] // N)
+    groups = len(morph_plan(H, W, open_close_steps(tpp._morph_stages(cfg))))
+    names = ("background_scan", "background_scan_sequential", "blur_u8", "morph_u8",
+             "fused_segment", "ccl_labels", "root_stats_occ", "track_scan")
+
+    def run(route, parallel_bg=True):
+        """One run of the clip on cuda: (rows, seconds, launches, peak GiB)."""
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        for name in names:
+            fn, attr = counters[name]
+            setattr(fn, attr, 0)
+        t0 = time.perf_counter()
+        if route == "stream":
+            rows = StreamingPipeline(cfg, max_components=MAX_COMPONENTS,
+                                     parallel_bg=parallel_bg).run(VideoMemory(clip),
+                                                                  background0=plate)
+        else:
+            rows = process_clip(clip, cfg, background0=plate, max_components=MAX_COMPONENTS,
+                                parallel_bg=parallel_bg, device="cuda")[0]
+        torch.cuda.synchronize()
+        s = time.perf_counter() - t0
+        counts = {name: getattr(*counters[name]) for name in names}
+        return rows, s, counts, torch.cuda.max_memory_allocated() / 2**30
+
+    def held(route, rows, ref):
+        data = format_rows(rows).encode()
+        if hashlib.sha256(data).hexdigest() != ref:
+            with open(os.path.join(OUT_DIR, f"tracks_512_scanned_{route}.csv"), "wb") as fh:
+                fh.write(data)
+            raise AssertionError(f"scanned route {route}: rows differ from the pin")
+
+    seq_rows, _s, _c, _p = run("process_clip", parallel_bg=False)
+    held("sequential", seq_rows, REF_CSV_SHA256)
+    routes = {}
+    for route in ("process_clip", "stream", "process_clip_plain"):
+        plain = route.endswith("_plain")
+        if plain:  # the route with the torch ops KS replaced, on the card
+            tpp.background_scan = background_scan_plain
+        try:
+            rows, s, counts, peak = run(route.replace("_plain", ""))
+        finally:
+            tpp.background_scan = background_scan
+        held(route, rows, REF_SCANNED_CSV_SHA256)
+        want = dict(background_scan=0 if plain else nb, background_scan_sequential=0,
+                    blur_u8=nb, morph_u8=nb * groups, fused_segment=0, ccl_labels=nb,
+                    root_stats_occ=nb, track_scan=nb)
+        if counts != want:
+            raise AssertionError(f"scanned route {route} launches {counts}, want {want}")
+        only_scan = len(set(map(tuple, rows)) - set(map(tuple, seq_rows)))
+        only_seq = len(set(map(tuple, seq_rows)) - set(map(tuple, rows)))
+        routes[route] = dict(rows=len(rows), track_ids=len({int(r[0]) for r in rows}),
+                             rows_not_in_sequential=only_scan,
+                             sequential_rows_not_here=only_seq,
+                             launches=counts,
+                             peak_device_gib=peak, checked_run_seconds=s)
+    # frames/s after the checked runs, in turns with the sequential route
+    fps = {"process_clip": [], "stream": [], "sequential": []}
+    for which in ("process_clip", "sequential", "stream", "stream", "sequential", "process_clip"):
+        _r, s, _c, _p = run("process_clip" if which == "sequential" else which,
+                            parallel_bg=which != "sequential")
+        fps[which].append(clip.shape[0] / s)
+    out["batches"] = nb
+    out["routes"] = routes
+    out["fps"] = fps
+    out["csv_sha256_equals_pin"] = True
+
+    # 3. the front end on one batch, and KS alone, on the card
+    frames = torch.from_numpy(clip[:N]).to(dev)
+    carry = tpp.init_carry(cfg, H, W, plate, device=dev)
+
+    def front_end_plain():
+        tpp.background_scan = background_scan_plain
+        try:
+            return tpp._front_end_emit(cfg, carry, frames, True)
+        finally:
+            tpp.background_scan = background_scan
+
+    out["front_end_ms"] = cuda_ms(lambda: tpp._front_end_emit(cfg, carry, frames, True), 5)
+    out["front_end_plain_ms"] = cuda_ms(front_end_plain, 3)
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    tpp._front_end_emit(cfg, carry, frames, True)
+    out["front_end_peak_extra_gib"] = (torch.cuda.max_memory_allocated() - base) / 2**30
+    torch.cuda.reset_peak_memory_stats()
+    front_end_plain()
+    out["front_end_plain_peak_extra_gib"] = (torch.cuda.max_memory_allocated() - base) / 2**30
+    b_ms, b_by, smem_ms = ks_scan_bound(N, H * W)
+    kernel = {"ms": cuda_ms(lambda: background_scan(f1, plate_t, alpha, False, "scan", "mask",
+                                                    thr), 5),
+              "plain_ms": cuda_ms(lambda: background_scan_plain(f1, plate_t, alpha, False,
+                                                                "scan", "mask", thr), 3),
+              "library_ms": None, "bound_ms": b_ms, "bound_by": b_by,
+              "smem_bound_ms": smem_ms,
+              "launches": routes["process_clip"]["launches"]["background_scan"]}
+    out["ks"] = kernel
+    del f1, frames
+    out["seconds"] = round(time.time() - t_phase, 1)
+    return out, kernel
+
+
 def main():
     modes = ("--k1", "--k2", "--k5", "--wide", "--median", "--probes", "--staging",
-             "--multistream", "--filters", "--spatial", "--configs", "--soak")
+             "--multistream", "--filters", "--spatial", "--configs", "--soak", "--scanned")
     mode = sys.argv[1] if len(sys.argv) == 2 and sys.argv[1] in modes else None
     if sys.argv[1:] and mode is None:
         print(f"usage: chip_smoke.py [{' | '.join(modes)}]", file=sys.stderr)
@@ -3314,6 +3700,7 @@ def run_phases(mode, clip_futures):
     _build.load_host()
     say("build_host", seconds=round(time.time() - t0, 2), library=host_lib.name,
         compiler=_build.cxx())
+    from tpuva_torch.ops.background import background_scan
     from tpuva_torch.ops.ccl import root_stats
     counters = {"fused_segment": (fused_segment, "launches"),
                 "fused_segment_padded_occ": (fused_segment, "padded_launches"),
@@ -3325,7 +3712,9 @@ def run_phases(mode, clip_futures):
                 "root_stats_occ": (root_stats, "occ_launches"),
                 "histogram_u8": (histogram_u8, "launches"),
                 "track_scan": (track_scan, "launches"), "blur_u8": (blur_u8, "launches"),
-                "morph_u8": (morph_u8, "launches"), "median_u8": (median_u8, "launches")}
+                "morph_u8": (morph_u8, "launches"), "median_u8": (median_u8, "launches"),
+                "background_scan": (background_scan, "launches"),
+                "background_scan_sequential": (background_scan, "sequential_launches")}
     if mode == "--configs":
         say("configs", cases=configs_phase(clip_futures, counters), card=card)
         return 0
@@ -3345,11 +3734,19 @@ def run_phases(mode, clip_futures):
         say("spatial", **spatial_phase(clip, plate, card, bench_cfg(config, 256), err),
             max_abs_err=err)
         return 0
+    if mode == "--scanned":
+        clip, _alive, _truth, plate = multi_blob_clip(1080, 1920, 512, n_blobs=6, radius=16,
+                                                      births_deaths=False, noise_sigma=2.0)
+        err = {"background_scan": 0.0, "background_scan_sequential": 0.0}
+        line, _kernel = scanned_phase(clip, plate, card, bench_cfg(config, 256), err, counters)
+        say("scanned", **line, max_abs_err=err)
+        return 0
     if mode == "--filters":
         clip, _alive, _truth, plate = multi_blob_clip(1080, 1920, 512, n_blobs=6, radius=16,
                                                       births_deaths=False, noise_sigma=2.0)
         err = {"blur_u8": 0.0, "fused_segment_diff": 0.0, "morph_u8": 0.0, "bgr_to_gray": 0.0,
-               "warp_affine": 0.0, "resize_linear": 0.0, "edt": 0.0}
+               "warp_affine": 0.0, "resize_linear": 0.0, "edt": 0.0, "gaussian_blur_f32": 0.0,
+               "background_scan_sequential": 0.0}
         line, launches, kernels = filters_phase(clip, plate, card, bench_cfg(config, 256), err)
         say("filters", **line, max_abs_err=err)
         say("filters_launches", **launches)
@@ -4064,6 +4461,12 @@ def run_phases(mode, clip_futures):
     say("soak", card=card, **soak_phase(counters))
     torch.cuda.empty_cache()
 
+    # 7j. the scanned background (parallel_bg): KS against its plain
+    # version, the scanned routes at REF_SCANNED_CSV_SHA256, the front end
+    scanned_line, ks_kernel = scanned_phase(clip, plate, card, cfg, err, counters)
+    say("scanned", **scanned_line)
+    torch.cuda.empty_cache()
+
     # 8. at the main path's shapes (batch 256, 1080p): kernel vs plain
     # once more, then timing
     kw = _front_end_kwargs(cfg)
@@ -4377,8 +4780,8 @@ def run_phases(mode, clip_futures):
         timed[name] = (f"{name}_ms", f"{name}_plain_ms")
     launches.update(ms_kernels["launches"])
     bounds.update(ms_kernels["bounds"])
-    # phase 7e's KM, KW, KR, KE
-    for name, k in filter_kernels.items():
+    # phase 7e's KM, KW, KR, KE, KG and KS's sequential order; 7j's KS
+    for name, k in dict(filter_kernels, background_scan=ks_kernel).items():
         t[f"{name}_ms"], t[f"{name}_plain_ms"] = k["ms"], k["plain_ms"]
         timed[name] = (f"{name}_ms", f"{name}_plain_ms")
         launches[name] = k["launches"]

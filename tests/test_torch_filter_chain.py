@@ -37,7 +37,7 @@ from tpuva_torch.graph.streaming import StreamingPipeline
 from tpuva_torch.io.base import VideoBase
 from tpuva_torch.io.memory import VideoMemory
 from tpuva_torch.io.staging import BatchStager
-from tpuva_torch.ops.filters import gaussian_kernel_1d
+from tpuva_torch.ops.filters import gaussian_blur_plain, gaussian_kernel_1d
 from test_torch_kernels import one_torch_thread  # noqa: F401
 
 f32 = np.float32
@@ -179,10 +179,27 @@ def np_conv_axis(x, kernel, axis):
     return out
 
 
+def np_cascade_axis(x, ksize, axis):
+    """tpuva's box cascade along axis: reflect-pad by r, then 2r levels of
+    adjacent-pair sums, each rounded (the binomial kernels, unscaled)."""
+    r = ksize // 2
+    pad = [(0, 0)] * x.ndim
+    pad[axis] = (r, r)
+    y = np.pad(x, pad, mode="reflect")
+    for _ in range(2 * r):
+        n = y.shape[axis]
+        y = np.take(y, np.arange(n - 1), axis=axis) + np.take(y, np.arange(1, n), axis=axis)
+    return y
+
+
 def np_blur_float(x, ksize, sigma):
-    k = jops.gaussian_kernel_1d(ksize, sigma)
     y = np.moveaxis(x, -1, 1) if x.ndim == 4 else x
-    y = np_conv_axis(np_conv_axis(y, k, y.ndim - 1), k, y.ndim - 2)
+    if jops.is_binomial_blur(ksize, sigma):
+        y = np_cascade_axis(np_cascade_axis(y, ksize, y.ndim - 1), ksize, y.ndim - 2)
+        y = y * f32(2.0 ** (-2 * (ksize - 1)))
+    else:
+        k = jops.gaussian_kernel_1d(ksize, sigma)
+        y = np_conv_axis(np_conv_axis(y, k, y.ndim - 1), k, y.ndim - 2)
     return np.moveaxis(y, 1, -1) if x.ndim == 4 else y
 
 
@@ -288,26 +305,37 @@ def test_contracting_filters_source_order_and_tolerance(name, batch):
         assert_u8_close(valid(got), valid(ref), (name, color))
 
 
-BLUR_FLOAT = [(7, 0.0), (9, 0.0), (11, 0.0), (5, 1.3)]
+BLUR_FLOAT = [(7, 0.0), (9, 0.0), (11, 0.0), (5, 1.3), (3, 0.0), (5, 0.0)]
 
 
 @pytest.mark.parametrize("ksize,sigma", BLUR_FLOAT)
 def test_float_blur_source_order_and_tolerance(ksize, sigma):
-    """FilterBlur on float frames with a non-binomial kernel: bit-equal to
-    numpy's source order; against tpuva within the r = ksize // 2 FMAs an
-    axis that its XLA:CPU run contracts, each at most half an ulp of the
-    largest magnitude (the frames lie in [0, 1], the taps sum to 1)."""
+    """FilterBlur on float frames: bit-equal to numpy's source order (the
+    weighted taps, or for ksize 3 and 5 with sigma <= 0 tpuva's box cascade
+    on the non-integer frames FilterNormalize gives); against tpuva within
+    the r = ksize // 2 FMAs an axis that its XLA:CPU run contracts, each at
+    most half an ulp of the largest magnitude (the frames lie in [0, 1], the
+    taps sum to 1; the cascade has none). Gray and BGR, the BGR batch as
+    FilterBlur hands it to gaussian_blur, (N, H, W, 3) with the channels
+    interleaved; at 37 x 53 and with H equal to the radius (a radius past
+    the last row: repeated reflection; one row at ksize 3)."""
+    r = ksize // 2
     for color in (False, True):
-        data = clip(color, seed=2)
+        for h in (H, max(1, r)):
+            data = clip(color, seed=2, h=h)
 
-        def make(M, v, **d):
-            return M.FilterBlur(M.FilterNormalize(v, **d), sigma, ksize)
+            def make(M, v, **d):
+                return M.FilterBlur(M.FilterNormalize(v, **d), sigma, ksize)
 
-        got, ref = run_both(make, data, 4)
-        x = np.clip((data.astype(f32) - f32(0)) * (f32(1) / f32(255)), 0, 1)
-        np.testing.assert_array_equal(valid(got), np_blur_float(x, ksize, sigma))
-        tol = (ksize // 2) * np.spacing(f32(1.0))
-        np.testing.assert_allclose(valid(got), valid(ref), rtol=0, atol=tol)
+            got, ref = run_both(make, data, 4)
+            x = np.clip((data.astype(f32) - f32(0)) * (f32(1) / f32(255)), 0, 1)
+            assert (x != np.rint(x)).any()
+            want = np_blur_float(x, ksize, sigma)
+            np.testing.assert_array_equal(valid(got), want)
+            direct = gaussian_blur_plain(torch.from_numpy(x), ksize, sigma, channels_last=color)
+            np.testing.assert_array_equal(direct.numpy(), want)
+            tol = r * np.spacing(f32(1.0))
+            np.testing.assert_allclose(valid(got), valid(ref), rtol=0, atol=tol)
 
 
 def test_monochrome_equal_channels_is_exact():

@@ -37,7 +37,12 @@ foreground) with its pass counts, KM on random BGR (tails, unaligned
 slices, float32) and KR on random gray and BGR (both routes, a view at a
 byte offset, rows not 16-byte multiples), KW under both borders with
 an out_size and an inverse map, each bit-equal to its plain version on the
-card, small and at 1080p, one launch a call. The CCL scenes
+card, small and at 1080p, one launch a call. KS (csrc/background.cu, the
+float background) in both orders and KG (the float blur, csrc/filters.cu)
+bit-equal to their plain versions at odd and even N, past shared memory,
+edge shapes and both layouts, one launch a call; the scanned route
+(parallel_bg) and FilterBlur and FilterBackground on float frames launch
+them and equal the CPU. The CCL scenes
 (tpuva_torch.scenes) are shared with the CPU tests that hold the plain
 versions against tpuva.
 """
@@ -55,8 +60,10 @@ from tpuva_torch.ops.ccl import (
     label_components_tiled, label_stats, root_labels, root_occupancy_plain, root_stats,
     root_stats_dict, strip_occupancy_plain, strip_shape,
 )
+from tpuva_torch.ops import background as bgo
 from tpuva_torch.ops.filters import (
-    _morph, blur_taps, gaussian_blur_u8, histogram_u8, histogram_u8_plain, structuring_element,
+    _morph, blur_taps, gaussian_blur, gaussian_blur_plain, gaussian_blur_u8, histogram_u8,
+    histogram_u8_plain, structuring_element,
 )
 from tpuva_torch.ops.fused_segment import (
     TILES,
@@ -1620,3 +1627,137 @@ def test_filter_launches_its_kernel_once_a_batch(cuda_device, name):
         ref = list(make(tf, VideoMemory(data), "cpu").iter_batches(4))
         for (_n, a), (_m, b) in zip(got, ref):
             np.testing.assert_array_equal(a, b)
+
+
+# ----------------------------------------------- KS (the float background)
+KS_SHAPES = [(n, 37, 53) for n in (1, 2, 3, 7, 16, 255, 256, 257)] + [(5, 250, 333), (4, 120, 1),
+                                                                       (1024, 5, 7), (2000, 3, 5)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", KS_SHAPES, ids=["x".join(map(str, s)) for s in KS_SHAPES])
+def test_background_scan_kernel_matches_plain(cuda_device, shape):
+    """KS's scanned order (background_scan, order "scan") against its plain
+    version, bit for bit, on uint8 and float32 frames, both emits, from a
+    background and seeded (a bool, and a flag on the card): N odd and even,
+    past a CTA's shared memory at 2000 (the global scratch)."""
+    rng = np.random.default_rng(shape[0])
+    u8 = rng.integers(0, 256, shape, dtype=np.uint8)
+    bg0 = torch.from_numpy(rng.uniform(0, 255, shape[1:]).astype(np.float32)).to(cuda_device)
+    flag = torch.ones((), dtype=torch.bool, device=cuda_device)
+    for frames in (u8, u8.astype(np.float32) + rng.random(shape, dtype=np.float32)):
+        f = torch.from_numpy(frames).to(cuda_device)
+        for emit, thr in (("mask", 35.0), ("diff", None)):
+            for seed in (False, True, flag):
+                before = bgo.background_scan.launches
+                got = bgo.background_scan(f, bg0, 0.02, seed, "scan", emit, thr)
+                assert bgo.background_scan.launches - before == 1
+                ref = bgo.background_scan_plain(f, bg0, 0.02, seed, "scan", emit, thr)
+                assert torch.equal(got[0], ref[0]) and torch.equal(got[1], ref[1])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("alpha", [0.02, 0.3])
+def test_background_scan_sequential_kernel_matches_plain(cuda_device, alpha):
+    """KS's sequential order against its plain version, bit for bit, on
+    float frames in [0, 1] and uint8, both emits, seeded by a flag."""
+    rng = np.random.default_rng(5)
+    flag = torch.ones((), dtype=torch.bool, device=cuda_device)
+    bg0 = torch.rand((67, 131), device=cuda_device)
+    for f in (torch.rand((9, 67, 131), device=cuda_device),
+              torch.from_numpy(rng.integers(0, 256, (9, 67, 131), dtype=np.uint8)).to(cuda_device)):
+        for emit, thr in (("mask", 0.25), ("diff", None)):
+            for seed in (False, flag):
+                before = bgo.background_scan.sequential_launches
+                got = bgo.background_scan(f, bg0, alpha, seed, "sequential", emit, thr)
+                assert bgo.background_scan.sequential_launches - before == 1
+                ref = bgo.background_scan_plain(f, bg0, alpha, seed, "sequential", emit, thr)
+                assert torch.equal(got[0], ref[0]) and torch.equal(got[1], ref[1])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("threshold", [35.0, "otsu"], ids=["fixed", "otsu"])
+def test_scanned_route_on_card_equals_cpu(cuda_device, threshold):
+    """process_batch(parallel_bg=True) on the card: KS once a batch, K1
+    never; its masks, rows and background equal the CPU's, seeded and
+    carried over three batches."""
+    from tpuva_torch.graph import config as c
+    from tpuva_torch.graph.pipeline import init_carry, process_batch
+
+    frames, _bg0 = scene(48, 64, 96, 26)
+    cfg = c.PipelineConfig(
+        background=c.BackgroundConfig(alpha=0.02), blur=c.BlurConfig(ksize=5, sigma=0.0),
+        morph_open=c.MorphConfig(ksize=3, shape="rect"),
+        morph_close=c.MorphConfig(ksize=3, shape="ellipse"),
+        segment=c.SegmentConfig(threshold=threshold, min_area=20, max_blobs=8),
+        track=c.TrackConfig(max_dist=80.0, death_patience=5, max_tracks=16, assigner="hungarian"),
+        batch=16)
+    carries = {d: init_carry(cfg, 64, 96, device=d) for d in (cuda_device, "cpu")}
+    for start in range(0, 48, 16):
+        outs = {}
+        before = (bgo.background_scan.launches, fused_segment.launches)
+        for d in (cuda_device, "cpu"):
+            carries[d], outs[d] = process_batch(cfg, carries[d],
+                                                torch.from_numpy(frames[start:start + 16]).to(d),
+                                                parallel_bg=True, return_masks=True)
+        assert bgo.background_scan.launches - before[0] == 1
+        assert fused_segment.launches == before[1]
+        for k in ("masks", "rows", "row_valid", "n_det"):
+            assert torch.equal(outs[cuda_device][k].cpu(), outs["cpu"][k]), k
+        assert torch.equal(carries[cuda_device].bg.cpu(), carries["cpu"].bg)
+
+
+# ------------------------------------------------------ KG (the float blur)
+KG_CASES = [(3, 0.0), (5, 0.0), (7, 0.0), (9, 1.5), (11, 0.0), (31, 0.0), (121, 0.0), (231, 0.0)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("ksize,sigma", KG_CASES)
+def test_gaussian_blur_kernel_matches_plain(cuda_device, ksize, sigma):
+    """KG against gaussian_blur_plain, bit for bit, on non-integer frames:
+    (N, H, W) and (N, H, W, 3) with the channels interleaved, tiles cut at
+    the edges, one column, one row, H below the radius; past shared memory
+    (121 BGR, 231 gray) the direct route. One launch a call."""
+    rng = np.random.default_rng(ksize)
+    for shape in ((3, 67, 131), (2, 5, 1), (2, 1, 40), (2, 4, 70), (1, 300, 9)):
+        for channels_last in (False, True):
+            x = rng.random(shape + ((3,) if channels_last else ()), dtype=np.float32)
+            xt = torch.from_numpy(x).to(cuda_device)
+            before = gaussian_blur.launches
+            got = gaussian_blur(xt, ksize, sigma, channels_last)
+            assert gaussian_blur.launches - before == 1
+            ref = gaussian_blur_plain(xt, ksize, sigma, channels_last)
+            assert torch.equal(got, ref), (shape, channels_last)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("color", [False, True], ids=["gray", "bgr"])
+def test_filter_blur_float_launches_kg(cuda_device, color):
+    """FilterBlur on float frames (after FilterNormalize) launches KG once a
+    batch, the colour batch as it lies, and equals the CPU's."""
+    data = filter_clip(color=color)
+    before = gaussian_blur.launches
+
+    def chain(device):
+        return tf.FilterBlur(tf.FilterNormalize(VideoMemory(data), device=device), 1.5, 9)
+
+    got = list(chain(cuda_device).iter_batches(4))
+    assert gaussian_blur.launches - before == 3
+    for (_n, a), (_m, b) in zip(got, list(chain("cpu").iter_batches(4))):
+        np.testing.assert_array_equal(a, b)
+
+
+@pytest.mark.gpu
+def test_filter_background_float_launches_ks(cuda_device):
+    """FilterBackground on float frames launches KS's sequential order once
+    a batch, the background carried on the card, and equals the CPU's."""
+    data = filter_clip(T=11)
+    before = bgo.background_scan.sequential_launches
+
+    def chain(device):
+        return tf.FilterBackground(tf.FilterNormalize(VideoMemory(data), device=device), 0.05)
+
+    got = list(chain(cuda_device).iter_batches(4))
+    assert bgo.background_scan.sequential_launches - before == 3
+    for (_n, a), (_m, b) in zip(got, list(chain("cpu").iter_batches(4))):
+        np.testing.assert_array_equal(a, b)

@@ -8,7 +8,11 @@ are copies that those tests pin to their originals.
 
 Layout (counterparts in ``tpuva/``):
   ops/background.py, ops/filters.py  plain front-end ops, Otsu threshold,
-                                     kernel K4 (csrc/otsu.cu: histogram)
+                                     kernel K4 (csrc/otsu.cu: histogram),
+                                     kernel KS (csrc/background.cu: the
+                                     float background, scanned or
+                                     sequential), kernel KG (csrc/filters.cu:
+                                     the float blur)
   ops/fused_segment.py               kernel K1 (csrc/fused_segment.cu)
   ops/label.py                       scan keys, plain CCL, stats epilogue
   ops/ccl.py                         kernels K2 and K3 (csrc/ccl.cu)

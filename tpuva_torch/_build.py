@@ -171,6 +171,21 @@ _SIGNATURES = {
         _P,  # routes (int32[2] tiles a route, or null)
         _P,  # stream
     ],
+    "tpuva_gaussian_blur_f32": [
+        _P, _P, _I, _I, _I, _I,  # x, out, L, H, W, C
+        _P, _I, _I, _F,  # taps (device, or null), r, binomial, scale
+        _I, _I, _I,  # th, tw, smem (ops/filters.py::blur_float_plan; smem 0: direct)
+        _P,  # stream
+    ],
+    "tpuva_background_scan": [
+        _P, _I, _P, _P, _P,  # frames, is_float, bg0, out, bg_last
+        _LL, _I, _I,  # P (pixels a frame), N, order (0 scan, 1 sequential)
+        _P, _I,  # tables (ops/background.py::scan_tables, on the card), ops
+        _F, _F, _F, _I,  # c1, a, thr, emit_diff
+        _I, _P,  # seed_bg, seed (a flag on the card, or null)
+        _I, _I, _I, _P,  # px, shared, grid, scratch (ops/background.py::scan_plan)
+        _P,  # stream
+    ],
 }
 # the micro-probes P1-P4 and the latency probe (csrc/probes.cu): x, out, reps, case, stream
 _SIGNATURES.update({

@@ -1,5 +1,6 @@
 // The filter chain's pixel kernels for Hopper, sm_90a: BGR -> gray (KM),
-// the affine warp (KW) and the linear resize (KR).
+// the affine warp (KW), the linear resize (KR) and the float Gaussian
+// blur (KG).
 //
 // On the TPU none is a Pallas kernel: each is one XLA program a batch of
 // tpuva's filter chain. KM replaces tpuva/filters.py:202
@@ -7,9 +8,12 @@
 // weights), KW tpuva/ops/warp.py:59 warp_affine (cv2.warpAffine,
 // INTER_LINEAR, under FilterRotate(angle=) and FilterWarpAffine), KR
 // tpuva/filters.py:220 FilterResize.batch_transform (jax.image.resize
-// "linear" without antialiasing). Their plain versions are torch ops in
-// the port: tpuva_torch/ops/color.py::bgr_to_gray_plain,
-// ops/warp.py::warp_affine_plain and ops/resize.py::resize_linear_plain.
+// "linear" without antialiasing), KG tpuva/ops/filters.py:148
+// gaussian_blur (cv2.GaussianBlur on float32, under FilterBlur on a float
+// batch). Their plain versions are torch ops in the port:
+// tpuva_torch/ops/color.py::bgr_to_gray_plain, ops/warp.py::
+// warp_affine_plain, ops/resize.py::resize_linear_plain and
+// ops/filters.py::gaussian_blur_plain.
 // Each kernel computes the same float32 operations in the same order,
 // every product and sum rounded on its own (__fmul_rn, __fadd_rn,
 // __fsub_rn; the library is built with --fmad=false besides), uint8
@@ -51,6 +55,22 @@
 //   buffer (strong down-scaling in x) gathers from global memory: KW's
 //   two routes. The taps and each block's rows come from tables that
 //   ops/resize.py uploads once a shape.
+// - KG: 4 B read and 4 B written a float (0.079 ms for 16 gray 1080p
+//   frames, 0.238 BGR); its 3r + 1 operations an output and pass are far
+//   below the card's rate. A CTA a th x tw tile of one image, all its
+//   interleaved channels (a BGR frame's stride of 3 read as it lies): the
+//   tile's rows and columns with their REFLECT_101 halo (repeated
+//   reflection, so a radius past H or W and a one-pixel axis work) staged
+//   into shared memory, the row pass of every staged row into shared
+//   memory, its float32 results the column pass's inputs, as the plain
+//   version's; ksize 3 and 5 with sigma <= 0 as tpuva's box cascade (2r
+//   levels of adjacent-pair sums an axis, then one multiply by 2^-2(k-1):
+//   the frames after FilterNormalize are not integers, so the cascade's
+//   sums round and a weighted binomial sum would differ), the others with
+//   cv2's symmetric-pair order. ops/filters.py::blur_float_plan picks the
+//   tile from the radius and the channels; where even a 1 x 32 tile
+//   exceeds shared memory (weighted taps past ksize ~110) each output
+//   computes its rows' row pass from global memory, the same values.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -588,6 +608,160 @@ cudaError_t launch_resize(const void* x, void* out, int N, int H, int W, int h, 
   return cudaGetLastError();
 }
 
+// ---------------------------------------------------------------- KG
+// REFLECT_101 source index of position i on an axis of n, repeated for
+// any offset (ops/filters.py::reflect101_index)
+__device__ __forceinline__ int reflect101(int i, int n) {
+  if (n == 1) return 0;
+  const int period = 2 * (n - 1);
+  i %= period;
+  if (i < 0) i += period;
+  return i >= n ? period - i : i;
+}
+
+// the binomial cascade of 2R + 1 values v (strided by step): 2R levels of
+// adjacent-pair sums, each shrinking the row by one (tpuva's order)
+template <int R>
+__device__ __forceinline__ float cascade(const float* v, int step) {
+  float y[2 * R + 1];
+#pragma unroll
+  for (int j = 0; j <= 2 * R; ++j) y[j] = v[j * step];
+#pragma unroll
+  for (int lvl = 0; lvl < 2 * R; ++lvl)
+#pragma unroll
+    for (int j = 0; j < 2 * R - lvl; ++j) y[j] = __fadd_rn(y[j], y[j + 1]);
+  return y[0];
+}
+
+// the weighted taps around v[r * step]: k[r] centre, then
+// + k[r - i] (left + right) for i = 1..r, every op rounded alone
+__device__ __forceinline__ float weighted(const float* v, int step, const float* k, int r) {
+  float acc = __fmul_rn(v[r * step], k[r]);
+  for (int i = 1; i <= r; ++i)
+    acc = __fadd_rn(acc, __fmul_rn(k[r - i], __fadd_rn(v[(r - i) * step], v[(r + i) * step])));
+  return acc;
+}
+
+// KB 0: the weighted taps (k[0..r], k[r] the centre); KB 1 or 2: the
+// binomial cascade of radius KB, then one multiply by scale
+template <int C, int KB>
+__device__ __forceinline__ float blur_taps(const float* v, int step, const float* k, int r) {
+  if constexpr (KB == 0)
+    return weighted(v, step, k, r);
+  else
+    return cascade<KB>(v, step);
+}
+
+// KG, staged: a CTA a th x tw tile of one image, all C channels; the
+// tile's rows and columns with their halo (reflected) staged into shared
+// memory I, the row pass of every staged row into R, then the column pass
+// from R, each in the plain version's order; a grid-stride loop over the
+// images in z
+template <int C, int KB>
+__global__ void __launch_bounds__(kThreads)
+    blur_f32_staged(const float* __restrict__ x, float* __restrict__ out, int L, int H, int W,
+                    const float* __restrict__ taps, int r, float scale, int th, int tw) {
+  extern __shared__ float smem[];
+  float* k = smem;                      // r + 1 taps
+  float* I = k + r + 1;                 // (th + 2r) x (tw + 2r) C
+  const int iw = (tw + 2 * r) * C;      // a staged row's floats
+  float* R = I + (th + 2 * r) * iw;     // (th + 2r) x tw C
+  const int rw = tw * C;
+  const int y0 = blockIdx.y * th, x0 = blockIdx.x * tw;
+  const int rows = th + 2 * r;
+  if (KB == 0)
+    for (int i = threadIdx.x; i <= r; i += blockDim.x) k[i] = taps[i];
+  const int ow = min(tw, W - x0) * C;  // the tile's output floats a row
+  const int oh = min(th, H - y0);
+  // a tile whose halo lies inside the image reads it without reflection
+  const bool inside = x0 >= r && x0 + tw + r <= W && y0 >= r && y0 + th + r <= H;
+  for (int l = blockIdx.z; l < L; l += gridDim.z) {
+    const float* img = x + static_cast<long long>(l) * H * W * C;
+    for (int i = threadIdx.x; i < rows * iw; i += blockDim.x) {
+      const int yy = i / iw, e = i - yy * iw;
+      if (inside) {
+        I[i] = img[(static_cast<long long>(y0 - r + yy) * W + x0 - r) * C + e];
+      } else {
+        const int col = reflect101(x0 - r + e / C, W);
+        I[i] = img[(static_cast<long long>(reflect101(y0 - r + yy, H)) * W + col) * C + e % C];
+      }
+    }
+    __syncthreads();
+    for (int i = threadIdx.x; i < rows * rw; i += blockDim.x) {
+      const int yy = i / rw, e = i - yy * rw;
+      R[i] = blur_taps<C, KB>(I + yy * iw + e, C, k, r);
+    }
+    __syncthreads();
+    float* dst = out + static_cast<long long>(l) * H * W * C;
+    for (int i = threadIdx.x; i < oh * rw; i += blockDim.x) {
+      const int y = i / rw, e = i - y * rw;
+      if (e >= ow) continue;
+      float v = blur_taps<C, KB>(R + y * rw + e, rw, k, r);
+      if (KB != 0) v = __fmul_rn(v, scale);
+      dst[(static_cast<long long>(y0 + y) * W + x0) * C + e] = v;
+    }
+    __syncthreads();  // I and R are refilled for the next image
+  }
+}
+
+// the row pass at source row y (already reflected), output column xo,
+// channel c, straight from global memory (weighted taps)
+template <int C>
+__device__ __forceinline__ float row_direct(const float* img, int y, int xo, int c, int W,
+                                            const float* k, int r) {
+  const float* row = img + static_cast<long long>(y) * W * C + c;
+  float acc = __fmul_rn(row[static_cast<long long>(xo) * C], k[r]);
+  for (int i = 1; i <= r; ++i)
+    acc = __fadd_rn(acc, __fmul_rn(k[r - i], __fadd_rn(row[reflect101(xo - i, W) * C],
+                                                        row[reflect101(xo + i, W) * C])));
+  return acc;
+}
+
+// KG, direct: where no tile fits shared memory (the weighted taps only,
+// ksize past ~110): each output's column pass over the row pass of its
+// 2r + 1 rows, each computed from global memory, the same values in the
+// same order as the staged route
+template <int C>
+__global__ void __launch_bounds__(kThreads)
+    blur_f32_direct(const float* __restrict__ x, float* __restrict__ out, long long total, int H,
+                    int W, const float* __restrict__ k, int r) {
+  for (long long o = blockIdx.x * static_cast<long long>(blockDim.x) + threadIdx.x; o < total;
+       o += static_cast<long long>(gridDim.x) * blockDim.x) {
+    const int c = static_cast<int>(o % C);
+    const long long px = o / C;
+    const int xo = static_cast<int>(px % W);
+    const long long ly = px / W;
+    const int y = static_cast<int>(ly % H);
+    const float* img = x + (ly / H) * H * W * C;
+    float acc = __fmul_rn(row_direct<C>(img, y, xo, c, W, k, r), k[r]);
+    for (int i = 1; i <= r; ++i)
+      acc = __fadd_rn(acc, __fmul_rn(k[r - i],
+                                     __fadd_rn(row_direct<C>(img, reflect101(y - i, H), xo, c, W, k, r),
+                                               row_direct<C>(img, reflect101(y + i, H), xo, c, W, k, r))));
+    out[o] = acc;
+  }
+}
+
+template <int C>
+cudaError_t launch_blur_f32(const float* x, float* out, int L, int H, int W, const float* taps,
+                            int r, int binomial, float scale, int th, int tw, int smem,
+                            cudaStream_t s) {
+  if (smem == 0) {
+    const long long total = static_cast<long long>(L) * H * W * C;
+    const long long blocks = (total + kThreads - 1) / kThreads;
+    blur_f32_direct<C><<<static_cast<int>(blocks < 65536 ? blocks : 65536), kThreads, 0, s>>>(
+        x, out, total, H, W, taps, r);
+    return cudaGetLastError();
+  }
+  const dim3 grid((W + tw - 1) / tw, (H + th - 1) / th, L < 65535 ? L : 65535);
+  auto kernel = !binomial ? blur_f32_staged<C, 0> : r == 1 ? blur_f32_staged<C, 1>
+                                                           : blur_f32_staged<C, 2>;
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  kernel<<<grid, kThreads, smem, s>>>(x, out, L, H, W, taps, r, scale, th, tw);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 // KM: x (P, 3) interleaved B, G, R -> out (P), uint8 (is_float 0) or
@@ -677,4 +851,24 @@ extern "C" int tpuva_resize_linear(const void* x, void* out, int N, int H, int W
                  : launch_resize<uint8_t, 1>(x, out, N, H, W, h, w, taps_h, taps_w, blocks_h,
                                              blocks_w, buf, vec_in, vec_out, grid_z, routes, s);
   return static_cast<int>(err);
+}
+
+// KG: x (L, H, W, C) float32, C 1 or 3 interleaved -> out, the same
+// shape: cv2.GaussianBlur's row pass, then its column pass, REFLECT_101.
+// binomial 1 (ksize 3 or 5, sigma <= 0): the box cascade of radius r an
+// axis, then one multiply by scale; 0: the weighted taps (r + 1 floats on
+// the card, the centre last). smem > 0: the staged route, a th x tw tile
+// a CTA in smem bytes of shared memory (ops/filters.py::blur_float_plan);
+// 0: the direct route. Returns cudaGetLastError().
+extern "C" int tpuva_gaussian_blur_f32(const float* x, float* out, int L, int H, int W, int C,
+                                       const float* taps, int r, int binomial, float scale,
+                                       int th, int tw, int smem, void* stream) {
+  if (L <= 0 || H <= 0 || W <= 0 || (C != 1 && C != 3) || r < 1 ||
+      (binomial && (r > 2 || smem == 0)) || (!binomial && !taps) || smem < 0 ||
+      (smem > 0 && (th <= 0 || tw <= 0 || (H + th - 1) / th > 65535)))
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return static_cast<int>(
+      C == 3 ? launch_blur_f32<3>(x, out, L, H, W, taps, r, binomial, scale, th, tw, smem, s)
+             : launch_blur_f32<1>(x, out, L, H, W, taps, r, binomial, scale, th, tw, smem, s));
 }

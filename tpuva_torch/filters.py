@@ -24,8 +24,10 @@ diff emit (``ops.fused_segment``) once a batch, ``FilterMonochrome``
 kernel KM (``ops.color.bgr_to_gray``), ``FilterResize`` kernel KR
 (``ops.resize.resize_linear``), ``FilterRotate(angle=)`` and
 ``FilterWarpAffine`` kernel KW (``ops.warp.warp_affine``) once a batch;
-the other filters and the float blur and background are torch ops. CPU
-tensors run the plain versions of the same functions.
+on float32, ``FilterBlur`` kernel KG (``ops.filters.gaussian_blur``) and
+``FilterBackground`` kernel KS in its sequential order
+(``ops.background.background_scan``) once a batch; the other filters are
+torch ops. CPU tensors run the plain versions of the same functions.
 
 Arithmetic: every float32 product and sum is rounded on its own, in
 tpuva's source order. Where tpuva's XLA:CPU run contracts one into an FMA
@@ -47,7 +49,7 @@ import torch
 
 from tpuva_torch.device import resolve_device
 from tpuva_torch.io.base import VideoBase
-from tpuva_torch.ops.background import background_update
+from tpuva_torch.ops.background import background_scan
 from tpuva_torch.ops.color import BGR_WEIGHTS as _BGR_WEIGHTS  # noqa: F401 (tpuva's name)
 from tpuva_torch.ops.color import bgr_to_gray
 from tpuva_torch.ops.filters import gaussian_blur, median_blur
@@ -55,10 +57,6 @@ from tpuva_torch.ops.fused_segment import fused_segment
 from tpuva_torch.ops.resize import resize_linear, resize_taps  # noqa: F401 (re-exported)
 from tpuva_torch.ops.warp import rotation_matrix, warp_affine
 from tpuva_torch.ops.wide import blur_u8
-
-
-def _round_u8(x: torch.Tensor) -> torch.Tensor:
-    return torch.clamp(torch.round(x), 0, 255).to(torch.uint8)
 
 
 def _flag(value: bool, device) -> torch.Tensor:
@@ -247,7 +245,8 @@ class FilterBlur(FilterBase):
     """Gaussian blur (cv2.GaussianBlur semantics): uint8 input through
     cv2's fixed-point path, bit-exact (ops.wide.blur_u8: kernel K1b on a
     CUDA tensor, a colour batch's channels folded into the leading axis);
-    float input through ops.filters.gaussian_blur."""
+    float input through ops.filters.gaussian_blur (kernel KG on a CUDA
+    tensor, a colour batch as it lies)."""
 
     def __init__(self, source, sigma: float = 0.0, ksize: Optional[int] = None, device=None):
         if ksize is None:
@@ -264,10 +263,8 @@ class FilterBlur(FilterBase):
                 y = blur_u8(x, self.ksize, self.sigma)
                 return y.reshape(N, C, H, W).permute(0, 2, 3, 1)
             return blur_u8(batch, self.ksize, self.sigma)
-        x = batch.to(torch.float32)
-        if x.dim() == 4:  # colour: blur per channel
-            return gaussian_blur(x.movedim(-1, 1), self.ksize, self.sigma).movedim(1, -1)
-        return gaussian_blur(x, self.ksize, self.sigma)
+        x = batch.to(torch.float32)  # colour: (N, H, W, 3), the channels interleaved
+        return gaussian_blur(x, self.ksize, self.sigma, channels_last=x.dim() == 4)
 
 
 class FilterMedian(FilterBase):
@@ -390,7 +387,8 @@ class FilterBackground(FilterBase):
     model seeded from the first frame seen. Sequential-only (the output at
     t depends on the whole history). A uint8 (N, H, W) batch runs K1's
     diff emit (ops.fused_segment, no blur, no median, seed_bg the carry's
-    ~valid), one launch a batch on a card; a float batch the torch ops."""
+    ~valid), one launch a batch on a card; a float batch kernel KS in its
+    sequential order (ops.background.background_scan), one launch a batch."""
 
     sequential_only = True
 
@@ -411,10 +409,6 @@ class FilterBackground(FilterBase):
             diffs, bg = fused_segment(batch, bg, alpha=self.alpha, threshold=0.0,
                                       emit="diff", seed_bg=~valid)
             return diffs, (bg, _flag(True, bg.device))
-        f = batch.to(torch.float32)
-        b = torch.where(valid, bg, f[0])
-        diffs = torch.empty_like(f)
-        for t in range(f.shape[0]):
-            b = background_update(b, f[t], self.alpha)
-            diffs[t] = (f[t] - b).abs()
-        return _round_u8(diffs), (b, _flag(True, b.device))
+        diffs, bg = background_scan(batch.to(torch.float32), bg, self.alpha, seed_bg=~valid,
+                                    order="sequential", emit="diff")
+        return diffs, (bg, _flag(True, bg.device))

@@ -7,8 +7,9 @@ JAX package's names:
 - ``process_batch`` — the default, one-dispatch route: the front end
   (``torch_front_end``: blur, median, background, |F - B| > threshold,
   open, close — kernel K1, ``fused_segment``, for the sequential
-  background, ``background_trajectory``'s scan as torch ops for
-  ``parallel_bg``); then
+  background; for ``parallel_bg`` kernel KS, ``ops.background.
+  background_scan``, tpuva's associative scan in its combination order,
+  between K1b/K7 and K1m); then
   ``connected_components_with_stats`` (kernel K3 + integer stats), or
   kernel K2 with ``ccl_single_pass``; then ``_finish_batch``.
 - ``process_batch_staged`` — kernel K1, then kernel K2 (``label_stats``:
@@ -38,8 +39,8 @@ background. The staged route refuses it, as tpuva's does.
 Otsu thresholding (``SegmentConfig(threshold="otsu")``) takes every route:
 the front end emits the rounded magnitudes ``clip(rint(|F - B|), 0, 255)``
 (K1 with ``emit="diff"`` for the sequential background of
-``torch_front_end``, on both routes; the scanned background as torch
-ops), each frame's threshold comes from its 256-bin histogram (kernel K4 in
+``torch_front_end``, on both routes; KS's diff emit for the scanned
+background), each frame's threshold comes from its 256-bin histogram (kernel K4 in
 ``ops.filters.histogram_u8``), then the strict integer compare and the
 open and close (``_morphology``: kernel K1m, a launch a ``morph_plan``
 group).
@@ -78,9 +79,9 @@ import torch
 from tpuva_torch.device import resolve_device
 from tpuva_torch.io.memory import VideoMemory
 from tpuva_torch.io.staging import BatchStager
-from tpuva_torch.ops.background import background_coeffs, background_update
+from tpuva_torch.ops.background import background_scan, background_update, scan_trajectory
 from tpuva_torch.ops.ccl import label_stats, root_labels
-from tpuva_torch.ops.filters import otsu_threshold, threshold
+from tpuva_torch.ops.filters import otsu_threshold
 from tpuva_torch.ops.fused_segment import fused_segment, fused_tile
 from tpuva_torch.ops.label import (
     connected_components_with_stats,
@@ -200,40 +201,15 @@ def filter_batch(cfg, frames: torch.Tensor) -> torch.Tensor:
     return _filter_u8(cfg, frames.to(torch.uint8)).to(torch.float32)
 
 
-def _affine_scan(s: torch.Tensor, o: torch.Tensor):
-    """Inclusive scan of the affine maps x -> s_t x + o_t along axis 0, in
-    the combination tree of jax.lax.associative_scan (pairs, recursion on
-    the odd elements, then the even ones), so that the float32 products
-    and sums are taken in the reference's order."""
-    n = s.shape[0]
-    if n < 2:
-        return s, o
-
-    def combine(s1, o1, s2, o2):  # apply (s1, o1) first, then (s2, o2)
-        return s1 * s2, s2 * o1 + o2
-
-    odd_s, odd_o = _affine_scan(*combine(s[0:-1:2], o[0:-1:2], s[1::2], o[1::2]))
-    if n % 2 == 0:
-        ev_s, ev_o = combine(odd_s[:-1], odd_o[:-1], s[2::2], o[2::2])
-    else:
-        ev_s, ev_o = combine(odd_s, odd_o, s[2::2], o[2::2])
-    out = []
-    for first, ev, od in ((s, ev_s, odd_s), (o, ev_o, odd_o)):
-        x = torch.empty_like(first)
-        x[0::2] = torch.cat([first[:1], ev])
-        x[1::2] = od
-        out.append(x)
-    return out[0], out[1]
-
-
 def background_trajectory(bg0: torch.Tensor, frames: torch.Tensor, alpha: float,
                           parallel: bool = False) -> torch.Tensor:
     """All post-update backgrounds B_1..B_N of a batch, (N, H, W) float32.
 
     sequential: one background_update per frame, refimpl's two roundings.
     parallel: an associative scan over the affine maps (s, o) with
-    B_t = s_t * B_0 + o_t, O(log N) depth; it reorders the float32 work,
-    so it is not bit-equal to the sequential form."""
+    B_t = s_t * B_0 + o_t, O(log N) depth (ops.background.scan_trajectory,
+    KS's plain version's); it reorders the float32 work, so it is not
+    bit-equal to the sequential form."""
     if not parallel:
         bgs = torch.empty_like(frames)
         b = bg0
@@ -241,10 +217,7 @@ def background_trajectory(bg0: torch.Tensor, frames: torch.Tensor, alpha: float,
             b = background_update(b, frames[t], alpha)
             bgs[t] = b
         return bgs
-    c1, a = background_coeffs(alpha)
-    s = torch.full((frames.shape[0], 1, 1), c1, dtype=torch.float32, device=frames.device)
-    S, O = _affine_scan(s, a * frames)
-    return S * bg0[None] + O
+    return scan_trajectory(bg0, frames, alpha)
 
 
 def _can_stage(cfg) -> bool:
@@ -298,18 +271,20 @@ def torch_front_end(cfg, carry: PipelineCarry, frames: torch.Tensor,
     version on CPU tensors): the mask emit for a fixed threshold, the diff
     emit then _otsu_mask for Otsu; for a median k > 3 after K1b and K7
     (_median_front_end). The scanned background (parallel_bg: tpuva's
-    associative scan takes another float32 order, which no kernel carries)
-    is torch code here, as in tpuva's jnp branch, with filter_batch's K1b
-    and K7 and _morphology's K1m on the card, seeded as K1 is: from the
-    filtered first frame while the carry has no background.
+    associative scan, another float32 order than K1's) is kernel KS
+    (ops.background.background_scan, order "scan": its mask emit, or its
+    diff emit for Otsu; background_scan_plain on CPU tensors) on the
+    uint8 frames of _filter_u8 (K1b, K7), then _morphology's K1m, seeded
+    as K1 is: from the filtered first frame while the carry has no
+    background.
 
     With a stream axis (a carry of init_multistream_carry, frames
     (S, N, H, W) or a sequence of S (N, H, W) batches) it returns the S·N
     masks in stream order and the (S, H, W) backgrounds: K1 is one launch
     for all streams, each seeded by its flag of ~bg_valid on the device
     (for a median k > 3 after one K1b and one K7 launch over the S·N
-    frames); the scanned background runs once a stream, as tpuva's jnp
-    branch under vmap."""
+    frames); the scanned background runs once a stream (a KS launch a
+    stream), as tpuva's jnp branch under vmap."""
     out, bg_last = _front_end_emit(cfg, carry, frames, parallel_bg)
     return (_otsu_mask(cfg, out) if cfg.segment.threshold == "otsu" else out), bg_last
 
@@ -332,16 +307,12 @@ def _front_end_emit(cfg, carry: PipelineCarry, frames: torch.Tensor, parallel_bg
         outs = [_front_end_emit(cfg, _stream_carry(carry, s), frames[s], parallel_bg)
                 for s in range(len(frames))]
         return torch.cat([m for m, _ in outs]), torch.stack([b for _, b in outs])
-    seed_bg = not bool(carry.bg_valid)
-    f = filter_batch(cfg, frames)
-    bgs = background_trajectory(f[0] if seed_bg else carry.bg, f, cfg.background.alpha,
-                                parallel=parallel_bg)
-    bg_last = bgs[-1].clone()  # not a view that keeps the batch alive
-    diff = (f - bgs).abs()
-    del f, bgs
-    if otsu:  # torch.round is rint: half to even
-        return torch.clamp(torch.round(diff), 0, 255).to(torch.uint8), bg_last
-    return _morphology(cfg, threshold(diff, cfg.segment.threshold)), bg_last
+    f = _filter_u8(cfg, frames.to(torch.uint8))
+    out, bg_last = background_scan(f, carry.bg, cfg.background.alpha,
+                                   seed_bg=not bool(carry.bg_valid), order="scan",
+                                   emit="diff" if otsu else "mask",
+                                   threshold=None if otsu else cfg.segment.threshold)
+    return (out if otsu else _morphology(cfg, out)), bg_last
 
 
 def _median_front_end(cfg, frames, bg0: torch.Tensor, seed_bg, emit: dict):
@@ -377,7 +348,7 @@ def process_batch(cfg, carry: PipelineCarry, frames: torch.Tensor,
 
     The front end is torch_front_end: kernel K1 for the sequential
     background (the mask emit, or for Otsu the diff emit; after K1b and K7
-    for a median k > 3), torch ops for the scanned one (parallel_bg). With
+    for a median k > 3), kernel KS for the scanned one (parallel_bg). With
     use_pallas and a config K1 covers in one pass (_can_fuse), the front
     end is K1 whatever parallel_bg says, as tpuva's fused stage. The CCL is
     connected_components_with_stats, whose root-key labels come from

@@ -9,7 +9,10 @@ CPU tensors take. Pinned semantics, as in the JAX package:
   box cascade of adjacent-pair sums, bit-equal to it; the others as its
   REFLECT_101 correlation in cv2's symmetric-pair order, each product and
   sum rounded on its own (tpuva's XLA:CPU run contracts
-  ``out + k * (a + b)`` into one FMA, ROADMAP Queue 3 R5).
+  ``out + k * (a + b)`` into one FMA, ROADMAP Queue 3 R5). Kernel KG
+  (``csrc/filters.cu``) on a float32 CUDA tensor, ``gaussian_blur_plain``
+  on a CPU one; both take FilterBlur's colour layout (..., H, W, C)
+  directly (``channels_last``).
 - ``gaussian_blur_u8``: cv2's uint8 fixed-point Gaussian, bit-exact, with
   REFLECT_101 borders. The JAX op's three regimes (binomial cascade for
   k=3/5, the sigma<=0 tables for k=7/9, the ``u8_gaussian_taps``
@@ -38,6 +41,7 @@ The numpy helpers ``_SMALL_GAUSSIAN``, ``_gaussian_kernel_1d_f64``,
 from __future__ import annotations
 
 import functools
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -186,12 +190,16 @@ def _box_cascade_axis(x: torch.Tensor, ksize: int, dim: int) -> torch.Tensor:
     return y
 
 
-def gaussian_blur(x: torch.Tensor, ksize: int, sigma: float = 0.0) -> torch.Tensor:
-    """cv2.GaussianBlur(x, (ksize, ksize), sigma) on float32 input x
-    (..., H, W): the row (W) pass, then the column (H) pass. Binomial
+def gaussian_blur_plain(x: torch.Tensor, ksize: int, sigma: float = 0.0,
+                        channels_last: bool = False) -> torch.Tensor:
+    """Kernel KG's plain version: cv2.GaussianBlur(x, (ksize, ksize),
+    sigma) on float32 input x (..., H, W), or (..., H, W, C) with
+    channels_last: the row (W) pass, then the column (H) pass. Binomial
     kernels (is_binomial_blur) run as the box cascade and one exact
     power-of-two scaling; the others as _conv_axis with
     gaussian_kernel_1d's taps."""
+    if channels_last:
+        return gaussian_blur_plain(x.movedim(-1, -3), ksize, sigma).movedim(-3, -1)
     if ksize == 1:
         return x
     if is_binomial_blur(ksize, sigma):
@@ -201,6 +209,93 @@ def gaussian_blur(x: torch.Tensor, ksize: int, sigma: float = 0.0) -> torch.Tens
     k = gaussian_kernel_1d(ksize, sigma)
     x = _conv_axis(x, k, x.dim() - 1)
     return _conv_axis(x, k, x.dim() - 2)
+
+
+# bytes of shared memory a CTA can have on an H100 (227 KB), and the most
+# KG's plan gives a tile while a smaller one fits (four CTAs an SM)
+KG_SMEM_MAX = 232448
+KG_SMEM_TARGET = 49152
+# KG's tiles (rows, columns), largest first
+KG_TILES = ((32, 64), (16, 64), (8, 64), (8, 32), (4, 32), (2, 32), (1, 32))
+
+
+class BlurPlan(NamedTuple):
+    th: int  # output rows a CTA (0 on the direct route)
+    tw: int  # output columns a CTA
+    smem: int  # dynamic shared memory bytes a CTA (0: the direct route)
+
+
+def blur_float_plan(C: int, ksize: int) -> BlurPlan:
+    """KG's launch for C channels and ksize taps (r = ksize // 2): a tile
+    stages (th + 2r) x (tw + 2r) C inputs and (th + 2r) x tw C row-pass
+    values, and the r + 1 taps, in shared memory. The first of KG_TILES
+    within KG_SMEM_TARGET, else the first within KG_SMEM_MAX, else the
+    direct route (the weighted taps only: ksize past ~110)."""
+    r = ksize // 2
+    sizes = [(th, tw, 4 * (r + 1 + (th + 2 * r) * (tw + 2 * r) * C + (th + 2 * r) * tw * C))
+             for th, tw in KG_TILES]
+    for limit in (KG_SMEM_TARGET, KG_SMEM_MAX):
+        for th, tw, smem in sizes:
+            if smem <= limit:
+                return BlurPlan(th, tw, smem)
+    return BlurPlan(0, 0, 0)
+
+
+@functools.lru_cache(maxsize=64)
+def device_blur_taps(ksize: int, sigma: float, device: torch.device) -> torch.Tensor:
+    """gaussian_kernel_1d's first r + 1 taps (the centre last) on device,
+    uploaded once a (ksize, sigma, device) and kept."""
+    k = gaussian_kernel_1d(ksize, sigma)[: ksize // 2 + 1]
+    return torch.from_numpy(np.ascontiguousarray(k)).to(device)
+
+
+def _gaussian_blur_cuda(x: torch.Tensor, ksize: int, sigma: float,
+                        channels_last: bool) -> torch.Tensor:
+    if x.dtype != torch.float32:
+        raise ValueError(f"gaussian_blur: KG takes float32, got {x.dtype}")
+    if ksize < 1 or ksize % 2 == 0:
+        raise ValueError(f"gaussian_blur: ksize must be odd and positive, got {ksize}")
+    if x.dim() < (3 if channels_last else 2):
+        raise ValueError("gaussian_blur: x must be (..., H, W), or (..., H, W, C) channels last")
+    if ksize == 1:
+        return x
+    C = x.shape[-1] if channels_last else 1
+    if C not in (1, 3):
+        raise ValueError(f"gaussian_blur: KG takes 1 or 3 channels, got {C}")
+    H, W = x.shape[-3:-1] if channels_last else x.shape[-2:]
+    x = x.contiguous()
+    out = torch.empty_like(x)
+    if out.numel() == 0:
+        return out
+    L = x.numel() // (H * W * C)
+    r = ksize // 2
+    binomial = is_binomial_blur(ksize, sigma)
+    plan = blur_float_plan(C, ksize)
+    taps = None if binomial else device_blur_taps(ksize, float(sigma), x.device)
+    _build.launch(x.device, "tpuva_gaussian_blur_f32", "gaussian_blur kernel", x.data_ptr(),
+                  out.data_ptr(), L, H, W, C, None if taps is None else taps.data_ptr(), r,
+                  int(binomial), float(np.float32(2.0 ** (-2 * (ksize - 1)))), plan.th, plan.tw,
+                  plan.smem)
+    gaussian_blur.launches += 1
+    return out
+
+
+def gaussian_blur(x: torch.Tensor, ksize: int, sigma: float = 0.0,
+                  channels_last: bool = False) -> torch.Tensor:
+    """cv2.GaussianBlur(x, (ksize, ksize), sigma) on float32 x (..., H, W),
+    or (..., H, W, C) with channels_last (FilterBlur's colour layout). A
+    CUDA tensor launches kernel KG (csrc/filters.cu
+    ``tpuva_gaussian_blur_f32``) once (gaussian_blur.launches counts them;
+    it takes float32 and 1 or 3 channels, and ksize 1 returns x); a CPU
+    tensor takes gaussian_blur_plain."""
+    if x.device.type == "cpu":
+        return gaussian_blur_plain(x, ksize, sigma, channels_last)
+    if x.device.type != "cuda":
+        raise ValueError(f"gaussian_blur: unsupported device {x.device}")
+    return _gaussian_blur_cuda(x, ksize, sigma, channels_last)
+
+
+gaussian_blur.launches = 0
 
 
 def gaussian_blur_u8(x: torch.Tensor, ksize: int, sigma: float = 0.0) -> torch.Tensor:
