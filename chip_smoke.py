@@ -364,6 +364,7 @@ build/chip_smoke/.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import hashlib
 import json
@@ -430,6 +431,14 @@ REPLACES = {
     # frames (phase 7e)
     "background_scan": ("tpuva_torch/csrc/background.cu", "tpuva/graph/pipeline.py:85"),
     "background_scan_sequential": ("tpuva_torch/csrc/background.cu", "tpuva/filters.py:403"),
+    # the band path's CCL (KB, phase 7f): the band labels on global scan
+    # keys, a reconciliation round (its snapshot and its minimum), the
+    # piece table and its sums
+    "band_labels": ("tpuva_torch/csrc/ccl.cu", "tpuva/dist/spatial.py:191"),
+    "recon_edges": ("tpuva_torch/csrc/spatial.cu", "tpuva/dist/spatial.py:229"),
+    "recon_min": ("tpuva_torch/csrc/spatial.cu", "tpuva/dist/spatial.py:229"),
+    "piece_table": ("tpuva_torch/csrc/spatial.cu", "tpuva/dist/spatial.py:289"),
+    "piece_sums": ("tpuva_torch/csrc/spatial.cu", "tpuva/dist/spatial.py:308"),
     # the micro-probes P1-P4, phase 9
     "repos_probe": ("tpuva_torch/csrc/probes.cu", "bench/repos_probe.py:51"),
     "roll_probe": ("tpuva_torch/csrc/probes.cu", "bench/roll_probe.py:50"),
@@ -521,8 +530,13 @@ CCL_OPS_PER_PX = 5
 STRIP_PX = 512
 
 
+T_START = time.monotonic()
+
+
 def say(phase, **kv):
-    print(json.dumps({"phase": phase, **kv}), flush=True)
+    """Print a phase's line, with the script's seconds so far (at_s)."""
+    print(json.dumps({"phase": phase, "at_s": round(time.monotonic() - T_START, 1), **kv}),
+          flush=True)
 
 
 def card_line():
@@ -2615,22 +2629,141 @@ def multistream_phase(clip, plate, card, cfg, err):
 
 
 SPATIAL_BANDS = 4  # phase 7f: the ('space',) mesh, four bands on the one card
+SPATIAL_BANDS_ODD = 8  # and eight: 135 rows, odd bands' first rows odd
 SPATIAL_STREAMS = 2  # phase 7f: the ('stream',) mesh on the one card
+KB_KERNELS = ("band_labels", "recon_edges", "recon_min", "piece_table", "piece_sums")
+
+
+def kb_against_plain(err, mask, n, C, where):
+    """KB on the n row bands of mask (N, H, W) uint8 on the card, each band
+    read in place, against the plain versions on the same card, round by
+    round until no band changes: labels, the root lists (sorted), piece
+    values at the roots, snapshots, flags, tables and sums bit-equal, the
+    max abs difference folded into err. Returns (kernel pieces, plain
+    pieces, the last round's kernel snapshots, rounds)."""
+    from tpuva_torch.ops import band_ccl as bc
+
+    N, H, W = mask.shape
+    Hb = H // n
+    sent = ((H + 1) // 2) * ((W + 1) // 2) * 4
+
+    def same(name, k, p, what):
+        pairs = [("labels", k.lab, p.lab), ("nroots", k.nroots, p.nroots)]
+        for f in range(N):
+            r = int(p.nroots[f])
+            kr = k.roots[f, :r].sort().values
+            pairs += [(f"roots {f}", kr, p.roots[f, :r]),
+                      (f"values {f}", k.val[f, kr.long()], p.val[f, kr.long()])]
+        check_equal(err, name, pairs, f"{where}, {what}")
+
+    K = [bc.band_labels(mask, b * Hb, Hb, b * Hb, sent) for b in range(n)]
+    P = [bc.band_labels_plain(mask[:, b * Hb:(b + 1) * Hb], b * Hb, sent) for b in range(n)]
+    for b in range(n):
+        same("band_labels", K[b], P[b], f"band {b}")
+    rounds = 0
+    while True:
+        rounds += 1
+        ek = [bc.recon_edges(k) for k in K]
+        ep = [bc.recon_edges_plain(p) for p in P]
+        flags = []
+        for b in range(n):
+            check_equal(err, "recon_edges", [("snapshot", ek[b], ep[b])],
+                        f"{where}, round {rounds}, band {b}")
+            fk = bc.recon_min(K[b], ek[b], ek[b - 1][:, 1] if b else None,
+                              ek[b + 1][:, 0] if b < n - 1 else None)
+            fp = bc.recon_min_plain(P[b], ep[b], ep[b - 1][:, 1] if b else None,
+                                    ep[b + 1][:, 0] if b < n - 1 else None)
+            check_equal(err, "recon_min", [("flag", fk, fp)], f"{where}, round {rounds}")
+            same("recon_min", K[b], P[b], f"round {rounds}, band {b}")
+            flags.append(int(fk))
+        if not any(flags):
+            break
+    for b in range(n):
+        t = bc.piece_table(K[b], C)
+        check_equal(err, "piece_table", [("table", t, bc.piece_table_plain(P[b], C))],
+                    f"{where}, band {b}")
+        check_equal(err, "piece_sums", [("sums", bc.piece_sums(K[b], t),
+                                         bc.piece_sums_plain(P[b], t))], f"{where}, band {b}")
+    return K, P, ek, rounds
+
+
+def kb_timing(mask, n, C, K, P, ek):
+    """Each KB kernel's ms and its plain version's (CUDA events) on band 1
+    of n (an interior band, as the main path gives it), with its bound
+    from this run's data: {name: {ms, plain_ms, bound_ms, bound_by,
+    library_ms}}. The round is the last one (no piece falls: the confirm
+    round every batch ends with)."""
+    from tpuva_torch.ops import band_ccl as bc
+
+    N, H, W = mask.shape
+    Hb = H // n
+    k, p = K[1], P[1]
+    sent, y0 = k.sent, k.y0
+    px = N * Hb * W
+    roots = int(k.nroots.sum())
+    edge_fg = int((k.lab[:, [0, -1]] != sent).sum())
+    hits = sum(int(((k.lab[:, e] != sent) & (bc._adj(nb, sent) < ek[1][:, e])).sum())
+               for e, nb in ((0, ek[0][:, 1]), (-1, ek[2][:, 0])))
+    table = bc.piece_table(k, C)
+    # the band's pixels in K3's occupied strips (2 rows x 256 columns)
+    Hbk, S = k.occ.shape[1:]
+    rows = torch.tensor([sum(0 <= y - k.r0 < Hb for y in (2 * r, 2 * r + 1)) for r in range(Hbk)])
+    cols = torch.tensor([min(256, W - 256 * s) for s in range(S)])
+    occ_px = int((k.occ.cpu().long() * rows[:, None] * cols[None, :]).sum())
+    runs = {
+        # the mask read, the int32 labels written, a root's value and list
+        # entry; K3's operations a pixel
+        "band_labels": (lambda: bc.band_labels(mask, Hb, Hb, y0, sent),
+                        lambda: bc.band_labels_plain(mask[:, Hb:2 * Hb], y0, sent),
+                        5 * px + 8 * roots + 4 * N, CCL_OPS_PER_PX * px, 5),
+        # two label rows read, the foreground ones' values, two rows written
+        "recon_edges": (lambda: bc.recon_edges(k), lambda: bc.recon_edges_plain(p),
+                        16 * N * W + 4 * edge_fg, 2 * N * W, 50),
+        # two label rows, the band's two snapshot rows, the row above it
+        # and the row below it read; a value written a hit
+        "recon_min": (lambda: bc.recon_min(k, ek[1], ek[0][:, 1], ek[2][:, 0]),
+                      lambda: bc.recon_min_plain(p, ek[1], ek[0][:, 1], ek[2][:, 0]),
+                      24 * N * W + 4 * hits, 4 * edge_fg, 50),
+        # the root list and their values read, the table written
+        "piece_table": (lambda: bc.piece_table(k, C), lambda: bc.piece_table_plain(p, C),
+                        4 * N + 8 * roots + 4 * N * C, 4 * roots, 50),
+        # the occupancy, the occupied strips' labels and their pieces'
+        # values read, the table read and the sums written
+        "piece_sums": (lambda: bc.piece_sums(k, table), lambda: bc.piece_sums_plain(p, table),
+                       k.occ.numel() + 4 * occ_px + 4 * roots + 4 * N * C + 24 * N * C,
+                       CCL_OPS_PER_PX * occ_px, 20),
+    }
+    out = {}
+    for name, (fn, plain, nbytes, nops, reps) in runs.items():
+        b = bound(nbytes, nops)
+        out[name] = {"ms": cuda_ms(fn, reps), "plain_ms": cuda_ms(plain, 1, warm=False),
+                     "bound_ms": b[0], "bound_by": b[1], "library_ms": None}
+    out["shape"] = {"band": 1, "bands": n, "frames": N, "rows": Hb, "W": W, "roots": roots,
+                    "occupied_px": occ_px, "edge_fg_px": edge_fg, "recon_hits": hits, "C": C}
+    return out
 
 
 def spatial_phase(clip, plate, card, cfg, err):
     """Phase 7f: the multi-card half of dist/ on the one card. K1 on the
-    band shapes against its plain version; SpatialStreamPipeline on a mesh
-    of SPATIAL_BANDS bands that all lie on cuda:0 over the clip (fixed and
-    Otsu thresholds, launches counted around each run), a checkpoint of
-    the band run resumed on the single-card StreamingPipeline; the
-    ('stream',) mesh of SPATIAL_STREAMS streams on cuda:0 against the
-    stream-axis route. Returns the phase line's fields."""
+    band shapes against its plain version; the band CCL's kernels KB
+    against their plain versions on the clip's first batch at the 4- and
+    8-band shapes (270 and 135 rows), round by round, and each one timed;
+    SpatialStreamPipeline on a mesh of SPATIAL_BANDS bands that all lie on
+    cuda:0 over the clip (fixed and Otsu thresholds, launches counted
+    around each run: KB-labels and KB-table a band a batch, KB-recon's two
+    launches a band a round), the fixed run again with KB's plain versions
+    in the processor (the same rows and rounds), an eight-band run, a
+    checkpoint of the band run resumed on the single-card
+    StreamingPipeline; the ('stream',) mesh of SPATIAL_STREAMS streams on
+    cuda:0 against the stream-axis route. Returns (the phase line's
+    fields, KB's entries of the kernels line)."""
+    import tpuva_torch.dist.spatial as dsp
     from tpuva_torch.dist import (
         MultiStreamPipeline, SpatialStreamPipeline, make_space_mesh, make_spatial_processor,
         make_stream_mesh,
     )
     from tpuva_torch.dist.spatial import _halo_rows
+    from tpuva_torch.ops import band_ccl as bc
     from tpuva_torch.export.csvio import format_rows
     from tpuva_torch.graph import config
     from tpuva_torch.graph.pipeline import (
@@ -2655,7 +2788,8 @@ def spatial_phase(clip, plate, card, cfg, err):
     counters = {"k1": (fused_segment, "launches"), "k4": (histogram_u8, "launches"),
                 "k5": (track_scan, "launches"), "k3": (label_components_tiled, "launches"),
                 "k6": (root_stats, "launches"), "k2": (label_stats, "launches"),
-                "k1m": (morph_u8, "launches")}
+                "k1m": (morph_u8, "launches"),
+                **{name: (getattr(bc, name), "launches") for name in KB_KERNELS}}
 
     def reset():
         for fn, attr in counters.values():
@@ -2692,36 +2826,92 @@ def spatial_phase(clip, plate, card, cfg, err):
     out["k4_band_shape"] = [N, Hb, W]
     out["band_kernels_bit_equal"] = True
 
+    # KB against its plain versions on the clip's first batch's masks (the
+    # single-card front end's: each band's rows of them), read in place at
+    # the 4- and 8-band shapes, then each kernel timed on band 1 of 4
+    frames = torch.from_numpy(np.ascontiguousarray(clip[:N])).to(dev)
+    bg0 = torch.from_numpy(plate.astype(np.float32)).to(dev)
+    masks, _bg = fused_segment(frames, bg0, **_front_end_kwargs(cfg))
+    del frames, bg0, _bg
+    kb = {}
+    for bands in (n, SPATIAL_BANDS_ODD):
+        K, P, ek, rounds = kb_against_plain(err, masks, bands, MAX_COMPONENTS,
+                                            f"the clip's first batch on {bands} bands")
+        out[f"kb_bit_equal_{bands}_bands"] = {"rows": H // bands, "rounds": rounds,
+                                              "pieces": [int(k.nroots.sum()) for k in K]}
+        if bands == n:
+            kb = kb_timing(masks, n, MAX_COMPONENTS, K, P, ek)
+        del K, P, ek
+    out["kb_timing"] = kb
+    del masks
+    torch.cuda.empty_cache()
+
     mesh = make_space_mesh(n, [dev] * n)
     sp_kw = dict(max_components=MAX_COMPONENTS)
-    # the band runs, fixed threshold and Otsu: launches counted around each
-    for name, c, ref in (("fixed", cfg, REF_CSV_SHA256), ("otsu", otsu_cfg, REF_OTSU_CSV_SHA256)):
-        sp = SpatialStreamPipeline(c, n, mesh=mesh, **sp_kw)
-        torch.cuda.synchronize()
-        reset()
-        t0 = time.perf_counter()
-        rows = sp.run(VideoMemory(clip), background0=plate)
-        torch.cuda.synchronize()
-        seconds = time.perf_counter() - t0
+    plain_kb = dict(band_labels=lambda m, row0, rows, y0, sent: bc.band_labels_plain(
+        m[:, row0:row0 + rows], y0, sent), recon_edges=bc.recon_edges_plain,
+        recon_min=bc.recon_min_plain, piece_table=bc.piece_table_plain,
+        piece_sums=bc.piece_sums_plain)
+
+    @contextlib.contextmanager
+    def on_plain_kb(plain=True):
+        """The band processor with KB's plain versions on the card in its
+        kernels' place (plain=False: as it is)."""
+        saved = {k: getattr(dsp, k) for k in plain_kb}
+        if plain:
+            for k, f in plain_kb.items():
+                setattr(dsp, k, f)
+        try:
+            yield
+        finally:
+            for k, f in saved.items():
+                setattr(dsp, k, f)
+
+    # the band runs, fixed threshold and Otsu on 4 bands, the fixed one
+    # again on KB's plain versions and on 8 bands: launches counted around
+    # each
+    runs = (("fixed", cfg, REF_CSV_SHA256, n, False),
+            ("otsu", otsu_cfg, REF_OTSU_CSV_SHA256, n, False),
+            ("fixed_plain_kb", cfg, REF_CSV_SHA256, n, True),
+            ("fixed_8_bands", cfg, REF_CSV_SHA256, SPATIAL_BANDS_ODD, False))
+    for name, c, ref, bands, plain in runs:
+        sp = SpatialStreamPipeline(c, bands, mesh=[dev] * bands, **sp_kw)
+        with on_plain_kb(plain):
+            torch.cuda.synchronize()
+            reset()
+            t0 = time.perf_counter()
+            rows = sp.run(VideoMemory(clip), background0=plate)
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
         got = counts()
         batches = -(-T // N) + 1  # and the warm-up's zero batch
-        want_k4 = n * batches if name == "otsu" else 0
+        rounds = sum(sp.recon_rounds) + 1  # the warm-up's zero batch: one round
+        otsu = c is otsu_cfg
         # the Otsu tail on each band: K1m, a launch a morph_plan group
-        tail_groups = len(morph_plan(Hb, W, open_close_steps(_morph_stages(c))))
-        want_k1m = n * batches * tail_groups if name == "otsu" else 0
-        if (got["k1"], got["k4"], got["k5"], got["k3"], got["k6"], got["k2"], got["k1m"]) != (
-                n * batches, want_k4, batches, 0, 0, 0, want_k1m):
-            raise AssertionError(f"band run ({name}) launches, {batches} batches: {got}")
+        tail_groups = len(morph_plan(H // bands, W, open_close_steps(_morph_stages(c))))
+        want = dict(k1=bands * batches, k4=bands * batches if otsu else 0, k5=batches, k3=0,
+                    k6=0, k2=0, k1m=bands * batches * tail_groups if otsu else 0,
+                    band_labels=bands * batches, recon_edges=bands * rounds,
+                    recon_min=bands * rounds, piece_table=bands * batches,
+                    piece_sums=bands * batches)
+        if plain:
+            want.update({k: 0 for k in KB_KERNELS})
+        if got != want:
+            raise AssertionError(f"band run ({name}) launches, {batches} batches: {got}, "
+                                 f"want {want}")
         if hashlib.sha256(format_rows(rows).encode()).hexdigest() != ref:
             raise AssertionError(f"band run ({name}): CSV differs from the reference's")
         if sp.overflow_frames:
             raise AssertionError(f"band run ({name}): stats_overflow on {sp.overflow_frames} frames")
+        if plain and list(sp.recon_rounds) != out["fixed_tp_recon_rounds"]:
+            raise AssertionError(f"band run ({name}): tp_recon_rounds {sp.recon_rounds}, on KB "
+                                 f"{out['fixed_tp_recon_rounds']}")
         out[f"{name}_rows"] = len(rows)
         out[f"{name}_csv_sha256_equals_reference"] = True
         out[f"{name}_launches"] = got
-        out[f"{name}_k1m_launches_a_band_a_batch"] = tail_groups if name == "otsu" else 0
+        out[f"{name}_k1m_launches_a_band_a_batch"] = tail_groups if otsu else 0
         out[f"{name}_tp_recon_rounds"] = list(sp.recon_rounds)
-        out[f"{name}_seconds_4_bands_sharing_one_card"] = seconds
+        out[f"{name}_seconds_{bands}_bands_sharing_one_card"] = seconds
         out[f"{name}_stats_overflow_frames"] = sp.overflow_frames
     # a checkpoint after the band run's first batch, resumed on one card
     ckpt = os.path.join(OUT_DIR, "spatial_ckpt.npz")
@@ -2735,10 +2925,20 @@ def spatial_phase(clip, plate, card, cfg, err):
         raise AssertionError("the band run's checkpoint resumed on one card: CSV differs")
     out["checkpoint_resumed_on_one_card_equal"] = True
     # one batch's ms between CUDA events (the reconciliation's host reads
-    # inside it), on a batch already on the card
-    fn = make_spatial_processor(cfg, H, W, n, mesh=mesh, **sp_kw)
+    # inside it), on a batch already on the card: 4 bands, on KB and on
+    # its plain versions, and 8 bands
     batch = torch.from_numpy(clip[:N]).to(dev)
     carry0 = init_carry(cfg, H, W, plate, device=dev)
+    fn8 = make_spatial_processor(cfg, H, W, SPATIAL_BANDS_ODD, mesh=[dev] * SPATIAL_BANDS_ODD,
+                                 **sp_kw)
+    fn8(carry0, batch)  # untimed
+    out["batch_ms_8_bands_sharing_one_card"] = spread_runs(
+        [once_ms(lambda: fn8(carry0, batch)) for _ in range(3)])
+    fn = make_spatial_processor(cfg, H, W, n, mesh=mesh, **sp_kw)
+    with on_plain_kb():
+        fn(carry0, batch)  # untimed
+        out["batch_ms_4_bands_plain_kb"] = spread_runs(
+            [once_ms(lambda: fn(carry0, batch)) for _ in range(2)])
     fn(carry0, batch)  # untimed
     out["batch_ms_4_bands_sharing_one_card"] = spread_runs(
         [once_ms(lambda: fn(carry0, batch)) for _ in range(3)])
@@ -2747,7 +2947,7 @@ def spatial_phase(clip, plate, card, cfg, err):
     kernels = kernel_breakdown(lambda: fn(carry0, batch), reps=1)
     out["batch_device_ms"], out["batch_launches"] = device_summary(kernels)
     out["batch_top_kernels"] = dict(list(kernels.items())[:8])
-    del fn, batch, carry0
+    del fn, fn8, batch, carry0
 
     # the ('stream',) mesh on the one card against the stream axis
     S = SPATIAL_STREAMS
@@ -2778,7 +2978,8 @@ def spatial_phase(clip, plate, card, cfg, err):
     out["stream_mesh_rows_equal_stream_axis"] = True
     out["stream_mesh_rows_a_stream"] = [len(r) for r in rows_mesh]
     out["seconds"] = round(time.time() - t_phase, 1)
-    return out
+    entries = {name: dict(kb[name], launches=out["fixed_launches"][name]) for name in KB_KERNELS}
+    return out, entries
 
 
 FILTER_FRAMES = 16  # frames of each filter's 1080p check
@@ -3730,9 +3931,11 @@ def run_phases(mode, clip_futures):
     if mode == "--spatial":
         clip, _alive, _truth, plate = multi_blob_clip(1080, 1920, 512, n_blobs=6, radius=16,
                                                       births_deaths=False, noise_sigma=2.0)
-        err = {"fused_segment": 0.0, "fused_segment_diff": 0.0, "histogram_u8": 0.0}
-        say("spatial", **spatial_phase(clip, plate, card, bench_cfg(config, 256), err),
-            max_abs_err=err)
+        err = {"fused_segment": 0.0, "fused_segment_diff": 0.0, "histogram_u8": 0.0,
+               **{name: 0.0 for name in KB_KERNELS}}
+        line, kb_kernels = spatial_phase(clip, plate, card, bench_cfg(config, 256), err)
+        say("spatial", **line, max_abs_err=err)
+        say("kb_kernels", card=card, **kb_kernels)
         return 0
     if mode == "--scanned":
         clip, _alive, _truth, plate = multi_blob_clip(1080, 1920, 512, n_blobs=6, radius=16,
@@ -4447,7 +4650,8 @@ def run_phases(mode, clip_futures):
 
     # 7f. the multi-card half of dist/ on the one card: four bands of the
     # ('space',) mesh, a checkpoint resumed on one card, the ('stream',) mesh
-    say("spatial", **spatial_phase(clip, plate, card, cfg, err))
+    spatial_line, kb_kernels = spatial_phase(clip, plate, card, cfg, err)
+    say("spatial", **spatial_line)
     torch.cuda.empty_cache()
 
     # 7h. tpuva's chip checks and BASELINE configs 1-3: each case through
@@ -4780,8 +4984,9 @@ def run_phases(mode, clip_futures):
         timed[name] = (f"{name}_ms", f"{name}_plain_ms")
     launches.update(ms_kernels["launches"])
     bounds.update(ms_kernels["bounds"])
-    # phase 7e's KM, KW, KR, KE, KG and KS's sequential order; 7j's KS
-    for name, k in dict(filter_kernels, background_scan=ks_kernel).items():
+    # phase 7e's KM, KW, KR, KE, KG and KS's sequential order; 7j's KS;
+    # 7f's KB
+    for name, k in dict(filter_kernels, background_scan=ks_kernel, **kb_kernels).items():
         t[f"{name}_ms"], t[f"{name}_plain_ms"] = k["ms"], k["plain_ms"]
         timed[name] = (f"{name}_ms", f"{name}_plain_ms")
         launches[name] = k["launches"]

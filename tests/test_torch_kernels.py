@@ -42,7 +42,11 @@ float background) in both orders and KG (the float blur, csrc/filters.cu)
 bit-equal to their plain versions at odd and even N, past shared memory,
 edge shapes and both layouts, one launch a call; the scanned route
 (parallel_bg) and FilterBlur and FilterBackground on float frames launch
-them and equal the CPU. The CCL scenes
+them and equal the CPU. The band path's CCL kernels (KB: band_labels,
+recon_edges, recon_min, piece_table, piece_sums; csrc/ccl.cu and
+csrc/spatial.cu) bit-equal to their plain versions on bands of 270 rows
+(even first rows) and 135 rows (odd) of a 1080p mask batch and round by
+round on the serpentine scene, one launch a call. The CCL scenes
 (tpuva_torch.scenes) are shared with the CPU tests that hold the plain
 versions against tpuva.
 """
@@ -78,8 +82,10 @@ from tpuva_torch.probes import cell_probe, i16_probe, latency_probe, repos_probe
 from tpuva_torch.probes._timing import timeit
 from tpuva_torch.scenes import (
     DET_KINDS, K1_REFUSED, ROOT_STATS_OPTIONS, conn4_scene, det_sequence, edge_strip_scene,
-    edt_large_scenes, edt_scenes, k1_refused_config, median_adversarial, mixed_scene, u_shape,
+    edt_large_scenes, edt_scenes, k1_refused_config, median_adversarial, mixed_scene,
+    piece_overflow_clip, serpentine_clip, u_shape,
 )
+from tpuva_torch.ops import band_ccl
 from tpuva_torch.track.scan import scan_plan, track_scan, track_scan_plain
 from tpuva_torch.track.table import TrackState, init_track_state
 
@@ -963,11 +969,69 @@ def test_track_scan_kernel_matches_plain(cuda_device, kind, assigner):
             assert int(rv.sum()) + int(rv2.sum()) > 0 or not valid.any(), where
 
 
+def band_mask(N, H, W, seed):
+    """(N, H, W) uint8 0/255: specks, disks of radius 3-40 and lines across
+    the rows, so that pieces cross band edges and bands hold many."""
+    rng = np.random.default_rng(seed)
+    m = rng.random((N, H, W)) < 0.002
+    yy, xx = np.mgrid[:H, :W]
+    for f in m:
+        for _ in range(30):
+            y, x, r = rng.integers(0, H), rng.integers(0, W), rng.integers(3, 41)
+            f |= (yy - y) ** 2 + (xx - x) ** 2 <= r * r
+        for _ in range(4):
+            x = rng.integers(0, W - 2)
+            f[rng.integers(0, H // 2):rng.integers(H // 2, H), x:x + 2] = True
+    return m.astype(np.uint8) * 255
+
+
+def check_band_ccl(mask, n, C, where):
+    """KB's kernels on the n row bands of mask (N, H, W) uint8 on the card,
+    read in place, against their plain versions on the same inputs, round
+    by round (chip_smoke.py's kb_against_plain, which phase 7f runs: labels,
+    piece values at the roots, root lists, snapshots, flags, tables and
+    sums bit-equal), each kernel launched as often as the rounds ask.
+    Returns the rounds."""
+    from chip_smoke import KB_KERNELS, kb_against_plain
+
+    before = {k: getattr(band_ccl, k).launches for k in KB_KERNELS}
+    rounds = kb_against_plain(dict.fromkeys(KB_KERNELS, 0.0), mask, n, C, where)[3]
+    torch.cuda.synchronize()
+    got = {k: getattr(band_ccl, k).launches - v for k, v in before.items()}
+    assert got == dict(band_labels=n, recon_edges=n * rounds, recon_min=n * rounds,
+                       piece_table=n, piece_sums=n), got
+    return rounds
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n", [4, 8], ids=["270_rows", "135_rows"])
+@pytest.mark.parametrize("C", [32, 1500, 9000])
+def test_band_ccl_kernels_match_plain(cuda_device, n, C):
+    """KB on the bands of a 1080p mask batch, 270 rows (first rows even) or
+    135 (odd first rows: labelled as a frame with one blank row above),
+    C 32, past kb_sums's shared table (1500) and past kb_table's shared
+    sort (9000)."""
+    mask = torch.from_numpy(band_mask(3, 1080, 1920, seed=n + C)).to(cuda_device)
+    assert check_band_ccl(mask, n, C, f"1080p, {n} bands, C {C}") >= 2
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("scene", ["serpentine", "overflow"])
+def test_band_ccl_kernels_scenes(cuda_device, scene):
+    """The serpentine round by round (22 rounds) and the overflowing
+    band (40 pieces, a table of 31 at C = 32) on 4 bands."""
+    clip = serpentine_clip() if scene == "serpentine" else piece_overflow_clip()
+    mask = torch.from_numpy((clip > 40).astype(np.uint8) * 255).to(cuda_device)
+    rounds = check_band_ccl(mask, 4, 32, scene)
+    assert rounds >= 15 if scene == "serpentine" else rounds >= 2
+
+
 @pytest.mark.gpu
 def test_kernels_launch_on_a_card_that_is_not_current(cuda_device):
-    """K1 (both emits) and K5 on cuda:1 while cuda:0 is the current
-    device: every launch enters its tensors' card (_build.launch), the
-    outputs stay there and equal the plain versions bit for bit."""
+    """K1 (both emits), K5 and the band CCL's KB on cuda:1 while cuda:0
+    is the current device: every launch enters its tensors' card
+    (_build.launch), the outputs stay there and equal the plain versions
+    bit for bit."""
     if torch.cuda.device_count() < 2:
         pytest.skip("needs two CUDA devices: the launch must enter a card that is not current")
     other = torch.device("cuda", 1)
@@ -995,6 +1059,9 @@ def test_kernels_launch_on_a_card_that_is_not_current(cuda_device):
         for g, r in zip((*got[0], got[1], got[2]), (*ref[0], ref[1], ref[2])):
             assert g.device == other
             np.testing.assert_array_equal(_bits(g.cpu()).numpy(), _bits(r).numpy())
+        mask = torch.from_numpy(band_mask(2, 270, 333, seed=4)).to(other)
+        check_band_ccl(mask, 3, 16, "cuda:1")
+        assert torch.cuda.current_device() == 0
 
 
 # the register kernel's edges (T and D of 32 fit a lane each, 33 do not)

@@ -9,9 +9,18 @@ each band's rows plus an interior halo, the band CCL and merge give the
 single-device stats. Against tpuva the rows, sums, stats_overflow and
 tp_recon_rounds are equal and the background within rtol 1e-5 (XLA:CPU
 FMA-contracts tpuva's update, ROADMAP Queue 3, R1). The scenes are tpuva's
-three (tests/test_spatial_tp.py) and an odd band height (H = 90 on 2
-bands: a 2 x 2 block of the global scan keys straddles the bands); each
-tpuva program runs once a module, through the `tpuva_runs` fixture.
+three (tests/test_spatial_tp.py), an odd band height (H = 90 on 2
+bands: a 2 x 2 block of the global scan keys straddles the bands), a
+serpentine through all four bands that takes 22 reconciliation
+rounds (tpuva's Jacobi order: a band reads its neighbours' edges from
+before the round) and a band with more pieces than its table, duplicates
+among its largest values (stats_overflow > 0, the table shorter than C);
+each tpuva program runs once a module, through the `tpuva_runs` fixture.
+
+The band CCL's plain versions (ops.band_ccl: KB-labels, KB-recon,
+KB-table) are held to transcriptions of tpuva's stages on tpuva's own
+helpers: band_sweep's fixed point at even and odd first rows, the
+reconciliation round by round, the table and its limb sums.
 """
 
 import numpy as np
@@ -24,11 +33,16 @@ import tpuva.dist.spatial as jsp
 import tpuva.graph.config as jcfg
 import tpuva.graph.pipeline as jpl
 from refimpl.synthetic import moving_disk_clip
+from jax import lax
+from tpuva.ops.label import _neighbor_min_8 as j_neighbor_min_8
+from tpuva.ops.label import _scan_key as j_scan_key
 from tpuva.ops.label import _segmented_min_scan as j_segmented_min_scan
 from tpuva_torch.dist.spatial import _halo_rows, make_space_mesh, make_spatial_processor
 from tpuva_torch.graph import config as tcfg
 from tpuva_torch.graph.pipeline import _front_end_emit, init_carry, process_batch, torch_front_end
+from tpuva_torch.ops import band_ccl
 from tpuva_torch.ops.label import _segmented_min_scan
+from tpuva_torch.scenes import piece_overflow_clip, serpentine_clip
 from tpuva_torch.track.table import TrackState
 from test_torch_kernels import one_torch_thread  # noqa: F401
 
@@ -80,6 +94,12 @@ def disk_clip(H, W, T, seed):
     return clip, plate.astype(np.float32)
 
 
+def bare_clip(make):
+    """A scene's frames with the zero plate of the "bare" config."""
+    clip = make()
+    return clip, np.zeros(clip.shape[1:], np.float32)
+
+
 # name: (config kind, bands, max_components, clip)
 SCENES = {
     "disk_4": ("fixed", 4, 64, lambda: disk_clip(128, 160, 24, 6)),
@@ -87,6 +107,8 @@ SCENES = {
     "otsu_4": ("otsu", 4, 64, lambda: disk_clip(128, 160, 16, 13)),
     "disk_3": ("fixed", 3, 64, lambda: disk_clip(96, 128, 16, 4)),
     "odd_2": ("fixed", 2, 64, lambda: disk_clip(90, 96, 16, 2)),
+    "serpentine_4": ("bare", 4, 32, lambda: bare_clip(serpentine_clip)),
+    "overflow_4": ("bare", 4, 32, lambda: bare_clip(piece_overflow_clip)),
 }
 
 
@@ -138,10 +160,16 @@ def test_spatial_matches_single_device_and_tpuva(scene, tpuva_runs):
     the background within R1's rtol."""
     kind, n, C, _make = SCENES[scene]
     (clip, plate), (carry_j, outs_j) = tpuva_runs[scene]
+    kb = ("band_labels", "recon_edges", "recon_min", "piece_table", "piece_sums")
+    before = {name: getattr(band_ccl, name).launches for name in kb}
     carry_sp, outs_sp, carry_1, outs_1 = run_port(kind, n, C, clip, plate,
                                                   bands_in=scene == "disk_3")
+    assert {name: getattr(band_ccl, name).launches for name in kb} == before, \
+        "KB launched on the CPU"
     for step, (o, o1, oj) in enumerate(zip(outs_sp, outs_1, outs_j)):
         for k in OUT_KEYS:
+            if k == "stats_overflow" and scene == "overflow_4":
+                continue  # a band's table overflows; one device has no band tables
             assert torch.equal(o[k], o1[k]), f"step {step}: {k} against process_batch"
         for k in ("rows", "row_valid", "row_sums", "stats_overflow", "tp_recon_rounds"):
             np.testing.assert_array_equal(o[k].numpy(), oj[k], err_msg=f"step {step}: {k}")
@@ -158,6 +186,12 @@ def test_spatial_matches_single_device_and_tpuva(scene, tpuva_runs):
     if scene == "adversarial_4":  # components through 2-4 bands take > 1 round
         assert all(int(o["tp_recon_rounds"]) > 1 for o in outs_sp)
         assert all(int(o["stats_overflow"].max()) == 0 for o in outs_sp)
+    if scene == "serpentine_4":  # the line's minimum crosses a band a round
+        assert all(int(o["tp_recon_rounds"]) >= 3 for o in outs_sp)
+    if scene == "overflow_4":  # band 1: 40 pieces, a table of 32 slots
+        assert all(torch.equal(o["stats_overflow"], torch.full_like(o["stats_overflow"], 8))
+                   for o in outs_sp)
+        assert all(int(o1["stats_overflow"].max()) == 0 for o1 in outs_1)
 
 
 @pytest.mark.parametrize("kind,n", [("fixed", 4), ("otsu", 4), ("fixed", 2)])
@@ -227,3 +261,208 @@ def test_bad_geometry_raises_tpuva_errors(H, n, kind, match):
     if not torch.cuda.is_available():
         with pytest.raises(ValueError, match="need 2 devices, have 0"):
             make_space_mesh(2)
+
+
+# ---- the band CCL's plain versions against tpuva's stages, transcribed
+# from tpuva/dist/spatial.py on tpuva's own helpers (:180-310)
+
+def j_band_sweep(l, m, sent, precheck=False):
+    """tpuva's band_sweep (:191)."""
+    def sweep(label):
+        label = jnp.where(m, jnp.minimum(label, j_neighbor_min_8(label, sent)), sent)
+        label = j_segmented_min_scan(label, m, 2, sent)
+        label = j_segmented_min_scan(label, m, 2, sent, reverse=True)
+        label = j_segmented_min_scan(label, m, 1, sent)
+        label = j_segmented_min_scan(label, m, 1, sent, reverse=True)
+        return label
+
+    def body(s):
+        cur, _ = s
+        new = sweep(cur)
+        return new, jnp.any(new != cur)
+
+    if precheck:
+        nb = jnp.where(m, jnp.minimum(l, j_neighbor_min_8(l, sent)), sent)
+        ch0 = jnp.any(nb != l)
+    else:
+        ch0 = jnp.bool_(True)
+    l, _ = lax.while_loop(lambda s: s[1], body, (l, ch0))
+    return l
+
+
+j_band_sweep_jit = jax.jit(j_band_sweep, static_argnums=(2, 3))
+
+
+def j_recon_round(labs, ms, sent):
+    """tpuva's recon_body (:229) on every band at once: each band's edges
+    against its neighbours' edges from before the round, the band
+    re-swept; returns (labels, changed a band)."""
+    n = len(labs)
+
+    def adj(nb):
+        le = jnp.pad(nb, ((0, 0), (1, 0)), constant_values=sent)[:, :-1]
+        ri = jnp.pad(nb, ((0, 0), (0, 1)), constant_values=sent)[:, 1:]
+        return jnp.minimum(nb, jnp.minimum(le, ri))
+
+    out, changed = [], []
+    for b, (l, m) in enumerate(zip(labs, ms)):
+        none = jnp.full_like(l[:, 0], sent)
+        from_above = labs[b - 1][:, -1] if b > 0 else none
+        from_below = labs[b + 1][:, 0] if b < n - 1 else none
+        new_top = jnp.where(m[:, 0], jnp.minimum(l[:, 0], adj(from_above)), jnp.int32(sent))
+        new_bot = jnp.where(m[:, -1], jnp.minimum(l[:, -1], adj(from_below)), jnp.int32(sent))
+        l2 = jnp.concatenate([new_top[:, None], l[:, 1:-1], new_bot[:, None]], axis=1)
+        changed.append(bool(jnp.any(l2 != l)))
+        out.append(j_band_sweep_jit(l2, m, sent, True))
+    return out, changed
+
+
+def j_band_start(mask_band, y0, W, sent):
+    """tpuva's lab0 and keys of the band (:180-190)."""
+    Hb = mask_band.shape[1]
+    Wb2 = (W + 1) // 2
+    rr = jnp.arange(Hb, dtype=jnp.int32)[:, None] + y0
+    cc = jnp.arange(W, dtype=jnp.int32)[None, :]
+    kv = ((rr >> 1) * Wb2 + (cc >> 1)) * 4 + (rr & 1) * 2 + (cc & 1)
+    m = jnp.asarray(mask_band) > 0
+    return jnp.where(m, kv[None], jnp.int32(sent)), m, kv
+
+
+def port_values(p):
+    """The piece form's labels as tpuva's per-pixel labels."""
+    fg = p.lab != p.sent
+    blk = torch.where(fg, (p.lab - p.kbase) >> 2, 0).long()
+    v = p.val.gather(1, blk.reshape(p.lab.shape[0], -1)).reshape(p.lab.shape)
+    return torch.where(fg, v, p.sent)
+
+
+def random_bands(seed, N=3, H=48, W=70, density=0.35):
+    return (np.random.default_rng(seed).random((N, H, W)) < density).astype(np.uint8) * 255
+
+
+@pytest.mark.parametrize("y0", [0, 10, 11, 45], ids=lambda y: f"y0_{y}")
+def test_band_labels_plain_is_tpuvas_band_sweep(y0):
+    """KB-labels' plain version = tpuva's band_sweep from lab0 on a band
+    whose first row y0 is even and odd, with its sentinel background; each
+    piece's root block holds its key, nroots the pieces (scipy's count)."""
+    from scipy import ndimage
+
+    mask = random_bands(y0)
+    N, Hb, W = mask.shape
+    H = y0 + Hb + 3
+    sent = j_scan_key(H, W, 8)[2]
+    l0, m, kv = j_band_start(mask, y0, W, sent)
+    want = np.asarray(j_band_sweep(l0, m, sent))
+    p = band_ccl.band_labels(torch.from_numpy(mask), 0, Hb, y0, sent)
+    np.testing.assert_array_equal(p.lab.numpy(), want)
+    np.testing.assert_array_equal(port_values(p).numpy(), want)
+    pieces = [ndimage.label(f, np.ones((3, 3)))[1] for f in mask > 0]
+    assert p.nroots.tolist() == pieces
+    roots = (np.asarray(m) & (want == np.asarray(kv)[None]))
+    assert p.nroots.tolist() == roots.reshape(N, -1).sum(1).tolist()
+
+
+@pytest.mark.parametrize("scene", ["serpentine", "random_odd"])
+def test_recon_rounds_plain_are_tpuvas(scene):
+    """KB-recon's plain versions, every band's recon_edges then every
+    band's recon_min, round by round equal to tpuva's recon_body on every
+    band: the labels after each round (the piece values on each pixel) and
+    which bands changed, and so the number of rounds."""
+    if scene == "serpentine":
+        mask, n = serpentine_clip(T=2), 4
+    else:
+        mask, n = random_bands(7, N=2, H=90, W=64, density=0.5), 6  # bands of 15 rows
+    N, H, W = mask.shape
+    Hb = H // n
+    sent = j_scan_key(H, W, 8)[2]
+    labs, ms, pieces = [], [], []
+    for b in range(n):
+        l0, m, _kv = j_band_start(mask[:, b * Hb:(b + 1) * Hb], b * Hb, W, sent)
+        labs.append(j_band_sweep_jit(l0, m, sent, False))
+        ms.append(m)
+        pieces.append(band_ccl.band_labels(torch.from_numpy(mask), b * Hb, Hb, b * Hb, sent))
+    rounds = 0
+    while True:
+        rounds += 1
+        labs, want = j_recon_round(labs, ms, sent)
+        edges = [band_ccl.recon_edges(p) for p in pieces]
+        got = [bool(band_ccl.recon_min(p, edges[b], edges[b - 1][:, 1] if b > 0 else None,
+                                       edges[b + 1][:, 0] if b < n - 1 else None))
+               for b, p in enumerate(pieces)]
+        assert got == want, f"round {rounds}: changed bands"
+        for b in range(n):
+            np.testing.assert_array_equal(port_values(pieces[b]).numpy(), np.asarray(labs[b]),
+                                          err_msg=f"round {rounds}, band {b}")
+        if not any(want):
+            break
+    assert rounds >= (15 if scene == "serpentine" else 2)
+
+
+def j_table_sums(lab, lab_local, m, kv, y0, C, sent):
+    """tpuva's piece table and its limb sums (:276-312) on one band: (the
+    table sorted ascending, its sums (N, C, 3) in that order, n_loc)."""
+    N, Hb, W = lab.shape
+    root = jnp.where(m, lab + 1, 0)
+    is_piece_root = m & (lab_local == kv[None])
+    rootv = jnp.where(is_piece_root, lab + 1, 0).reshape(N, Hb * W)
+    vals, _idx2 = lax.top_k(rootv, C)
+    dup = jnp.concatenate([jnp.zeros((N, 1), bool), vals[:, 1:] == vals[:, :-1]], axis=1)
+    n_loc = jnp.sum((rootv > 0).astype(jnp.int32), axis=1)
+    table = jnp.where((vals > 0) & ~dup, vals, jnp.int32(sent + 2))
+    flat = root.reshape(N, Hb * W)
+    eq = (flat[:, :, None] == table[:, None, :]).astype(jnp.bfloat16)
+    lin = jax.lax.broadcasted_iota(jnp.int32, (Hb * W, 1), 0)[:, 0]
+    x = lin % W
+    y = lin // W + y0
+    payload = jnp.stack([jnp.ones_like(x), x & 63, (x >> 6) & 63, x >> 12,
+                         y & 63, (y >> 6) & 63, y >> 12], axis=-1).astype(jnp.bfloat16)
+    sums = np.asarray(jnp.einsum("npc,pk->nck", eq, payload,
+                                 preferred_element_type=jnp.float32)).astype(np.int64)
+    sums = np.stack([sums[..., 0], sums[..., 1] + 64 * sums[..., 2] + 4096 * sums[..., 3],
+                     sums[..., 4] + 64 * sums[..., 5] + 4096 * sums[..., 6]], axis=-1)
+    table = np.asarray(table)
+    order = np.argsort(table, axis=1, kind="stable")
+    return (np.take_along_axis(table, order, 1), np.take_along_axis(sums, order[..., None], 1),
+            np.asarray(n_loc))
+
+
+@pytest.mark.parametrize("case", ["overflow_band_1", "random_odd_C3", "random_C64"])
+def test_piece_table_and_sums_plain_are_tpuvas(case):
+    """KB-table's plain versions on a band after the reconciliation equal
+    tpuva's selection (top_k with multiplicity, adjacent duplicates
+    dropped, sent + 2; sorted here as the merge sorts it) and its bf16
+    limb sums, entry by entry; nroots is tpuva's n_loc. The overflow band
+    holds 40 pieces for 32 slots and its table only 31 entries."""
+    if case == "overflow_band_1":
+        mask, n, b, C = piece_overflow_clip(T=2), 4, 1, 32
+    elif case == "random_odd_C3":
+        mask, n, b, C = random_bands(3, N=2, H=90, W=64), 2, 1, 3  # rows 45..89
+    else:
+        mask, n, b, C = random_bands(4, N=2, H=96, W=80, density=0.3), 3, 1, 64
+    N, H, W = mask.shape
+    Hb = H // n
+    sent = j_scan_key(H, W, 8)[2]
+    labs, ms, locs, keys, pieces = [], [], [], [], []
+    for k in range(n):
+        l0, m, kv = j_band_start(mask[:, k * Hb:(k + 1) * Hb], k * Hb, W, sent)
+        locs.append(j_band_sweep_jit(l0, m, sent, False))
+        ms.append(m)
+        keys.append(kv)
+        pieces.append(band_ccl.band_labels(torch.from_numpy(mask), k * Hb, Hb, k * Hb, sent))
+    labs = list(locs)
+    while True:
+        labs, changed = j_recon_round(labs, ms, sent)
+        edges = [band_ccl.recon_edges(p) for p in pieces]
+        for k, p in enumerate(pieces):
+            band_ccl.recon_min(p, edges[k], edges[k - 1][:, 1] if k > 0 else None,
+                               edges[k + 1][:, 0] if k < n - 1 else None)
+        if not any(changed):
+            break
+    table, sums, n_loc = j_table_sums(labs[b], locs[b], ms[b], keys[b], b * Hb, C, sent)
+    got_table = band_ccl.piece_table(pieces[b], C)
+    np.testing.assert_array_equal(got_table.numpy(), table)
+    np.testing.assert_array_equal(band_ccl.piece_sums(pieces[b], got_table).numpy(), sums)
+    np.testing.assert_array_equal(pieces[b].nroots.numpy(), n_loc)
+    if case == "overflow_band_1":
+        assert n_loc.tolist() == [40, 40]
+        assert ((table <= sent).sum(1) == 31).all()

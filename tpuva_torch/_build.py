@@ -83,6 +83,33 @@ _SIGNATURES = {
         _P, _P, _P,  # parent, bits (8-connected), labels
         _P,  # stream
     ],
+    "tpuva_band_labels": [
+        _P, _LL, _I, _I, _I,  # mask (the band's first row), frame stride, N, Hb, W
+        _I, _I, _I,  # r0, kbase, sent
+        _P, _P, _P, _P, _P,  # strip_occ, tiles, ntiles, parent, bits
+        _P, _P, _P, _P,  # labels, val, roots, nroots
+        _P,  # stream
+    ],
+    # KB-recon and KB-table (csrc/spatial.cu); the band: N, Hb, W, r0, y0, kbase, sent
+    "tpuva_kb_edges": [_P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P],
+    "tpuva_kb_recon_min": [
+        _P, _P, _P,  # lab, val, edges
+        _P, _LL, _P, _LL,  # above, its frame stride, below, its frame stride
+        _I, _I, _I, _I, _I, _I, _I,  # the band
+        _P, _P,  # flag, stream
+    ],
+    "tpuva_kb_table": [
+        _P, _P, _P,  # val, roots, nroots
+        _I, _I, _I, _I, _I, _I, _I,  # the band
+        _I, _P, _P,  # C, scratch, table
+        _P,  # stream
+    ],
+    "tpuva_kb_sums": [
+        _P, _P, _P,  # lab, val, strip_occ
+        _I, _I, _I, _I, _I, _I, _I,  # the band
+        _P, _I, _P,  # table, C, sums
+        _P,  # stream
+    ],
     "tpuva_root_stats": [
         _P, _I, _I, _I, _I, _I,  # root, N, H, W, connectivity, C
         _P,  # strip_occ (null: derived)

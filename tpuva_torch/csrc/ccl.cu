@@ -227,9 +227,14 @@ __device__ void unite(int* par, int a, int b) {
 }
 
 // Frame geometry in blocks and strips; occ is the frame's (Hb, S) strip
-// occupancy, or null for "every strip occupied".
+// occupancy, or null for "every strip occupied". The mask's frames lie fs
+// bytes apart, and its row y is the frame's row y + r0: rows 0 .. r0 - 1
+// of the frame are blank (KB-labels, below, labels a band whose first row
+// is odd in the image as a frame with one blank row above it, r0 = 1).
 struct Geom {
   int H, W, Hb, Wb, S, TY, TX;  // S: strips a block row; TY, TX: tiles
+  int r0;
+  long long fs;
   __host__ __device__ int tiles() const { return TY * TX; }
 };
 
@@ -240,7 +245,15 @@ Geom geom(int H, int W) {
   g.S = (g.Wb + SW - 1) / SW;
   g.TY = (g.Hb + TBY - 1) / TBY;
   g.TX = (g.Wb + TBX - 1) / TBX;
+  g.r0 = 0;
+  g.fs = (long long)H * W;
   return g;
+}
+
+// Row y of frame n of the mask (y >= g.r0).
+__device__ __forceinline__ const uint8_t* mask_row(const uint8_t* mask, const Geom& g, int n,
+                                                   int y) {
+  return mask + size_t(n) * g.fs + size_t(y - g.r0) * g.W;
 }
 
 __device__ __forceinline__ bool strip_occupied(const uint8_t* occ, const Geom& g, int by, int bx) {
@@ -312,7 +325,7 @@ __device__ __forceinline__ bool strip_lane_fg(const uint8_t* __restrict__ mask, 
   const int n = int(s / (size_t(g.Hb) * g.S));
   const int r = int(s % (size_t(g.Hb) * g.S));
   const int y = 2 * (r / g.S) + (lane >> 4), x = (r % g.S) * 2 * SW + 16 * (lane & 15);
-  return y < g.H && x < g.W && any16(mask + (size_t(n) * g.H + y) * g.W + x, g.W - x);
+  return y < g.H && y >= g.r0 && x < g.W && any16(mask_row(mask, g, n, y) + x, g.W - x);
 }
 
 // Strip s of the occupancy from the mask: a warp; every lane calls it.
@@ -416,7 +429,6 @@ ccl_local(const uint8_t* __restrict__ mask, Geom g, const uint8_t* __restrict__ 
   const int n = blockIdx.y;
   const TileWalk walk(tiles, ntiles, g, n);
   const uint8_t* o = occ ? occ + size_t(n) * g.Hb * g.S : nullptr;
-  const uint8_t* m = mask + size_t(n) * g.H * g.W;
   const int li = threadIdx.x;
   const int ty = li / TBX, tx = li % TBX;
   for (int k = blockIdx.x; k < walk.n; k += gridDim.x) {
@@ -426,12 +438,15 @@ ccl_local(const uint8_t* __restrict__ mask, Geom g, const uint8_t* __restrict__ 
     int bb = 0;
     if (live) {
       const int y = 2 * by, x = 2 * bx;
-      const uint8_t* row = m + size_t(y) * g.W;
-      bb |= row[x] != 0;
-      if (x + 1 < g.W) bb |= (row[x + 1] != 0) << 1;
+      if (y >= g.r0) {
+        const uint8_t* row = mask_row(mask, g, n, y);
+        bb |= row[x] != 0;
+        if (x + 1 < g.W) bb |= (row[x + 1] != 0) << 1;
+      }
       if (y + 1 < g.H) {
-        bb |= (row[g.W + x] != 0) << 2;
-        if (x + 1 < g.W) bb |= (row[g.W + x + 1] != 0) << 3;
+        const uint8_t* row = mask_row(mask, g, n, y + 1);
+        bb |= (row[x] != 0) << 2;
+        if (x + 1 < g.W) bb |= (row[x + 1] != 0) << 3;
       }
     }
     bits[li] = (uint8_t)bb;
@@ -542,34 +557,54 @@ ccl_flatten_tiles(Geom g, const uint8_t* __restrict__ occ, const int* __restrict
 // of an empty strip is written as zeros with no other read; in an occupied
 // strip the blocks' flags (their mask bits) say which pixels are set, and
 // a foreground block reads its parent and its root's flags.
+// Band mode (KB-labels, kBand): each set pixel 4 * root block + lowest set
+// bit + B.add (its piece's minimum global scan key), background B.bg, the
+// frame's rows r0 .. H - 1 written as rows 0 .. H - r0 - 1 of labels; each
+// root block (its parent itself) appends itself to its frame's root list
+// and writes its label into val, the piece's value.
+struct BandOut {
+  int add, bg;       // label = 4 * root + ffs(root flags) + add; background bg
+  int* val;          // (N, Hb * Wb): a piece's value at its root block
+  int* roots;        // (N, Hb * Wb): each frame's root blocks, nroots[n] of them
+  int* nroots;       // (N,), zero before the launch
+};
+
+template <bool kBand>
 __global__ void __launch_bounds__(kFlatThreads)
 ccl_labels8(Geom g, const uint8_t* __restrict__ occ, const int* __restrict__ parent,
-            const uint8_t* __restrict__ bits_g, int* __restrict__ labels) {
+            const uint8_t* __restrict__ bits_g, int* __restrict__ labels, BandOut B) {
   const int Q = (g.W + 3) / 4;  // groups a block row
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= g.Hb * Q) return;
   const int n = blockIdx.y, by = i / Q, q = i - by * Q;
   const int x = 4 * q, y = 2 * by, bx = 2 * q;
-  int4 row[2] = {make_int4(0, 0, 0, 0), make_int4(0, 0, 0, 0)};
+  const int add = kBand ? B.add : 0, bg = kBand ? B.bg : 0;
+  int4 row[2] = {make_int4(bg, bg, bg, bg), make_int4(bg, bg, bg, bg)};
   if (occ[(size_t(n) * g.Hb + by) * g.S + bx / SW]) {
     const size_t f = size_t(n) * g.Hb * g.Wb;
-    int lab[2][4] = {};
+    int lab[2][4] = {{bg, bg, bg, bg}, {bg, bg, bg, bg}};
     for (int k = 0; k < 2 && bx + k < g.Wb; ++k) {
       const int b = by * g.Wb + bx + k;
       const int bb = bits_g[f + b];
       if (!bb) continue;
       const int r = parent[f + b];
-      const int v = 4 * r + __ffs(bits_g[f + r]);  // 4 * r + ctz + 1
-      lab[0][2 * k] = (bb & 1) ? v : 0;
-      lab[0][2 * k + 1] = (bb & 2) ? v : 0;
-      lab[1][2 * k] = (bb & 4) ? v : 0;
-      lab[1][2 * k + 1] = (bb & 8) ? v : 0;
+      const int v = 4 * r + __ffs(bits_g[f + r]) + add;  // 4 * r + ctz + 1 + add
+      if (kBand && r == b) {
+        B.val[f + b] = v;
+        B.roots[f + atomicAdd(&B.nroots[n], 1)] = b;
+      }
+      lab[0][2 * k] = (bb & 1) ? v : bg;
+      lab[0][2 * k + 1] = (bb & 2) ? v : bg;
+      lab[1][2 * k] = (bb & 4) ? v : bg;
+      lab[1][2 * k + 1] = (bb & 8) ? v : bg;
     }
     row[0] = make_int4(lab[0][0], lab[0][1], lab[0][2], lab[0][3]);
     row[1] = make_int4(lab[1][0], lab[1][1], lab[1][2], lab[1][3]);
   }
+  const int r0 = kBand ? g.r0 : 0, Ho = g.H - r0;  // the rows labels holds
   for (int k = 0; k < 2 && y + k < g.H; ++k) {
-    int* p = labels + (size_t(n) * g.H + y + k) * g.W + x;
+    if (y + k < r0) continue;
+    int* p = labels + (size_t(n) * Ho + y + k - r0) * g.W + x;
     if ((g.W & 3) == 0) {  // x + 4 <= W, and the row starts 16-byte aligned
       *reinterpret_cast<int4*>(p) = row[k];
     } else {
@@ -1744,8 +1779,8 @@ extern "C" int tpuva_ccl_labels(const uint8_t* mask, int N, int H, int W, int co
     ccl_flatten_tiles<<<g_list, kTileThreads, 0, s>>>(g, strip_occ, tiles, ntiles, parent, bits);
     if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
     const int groups = g.Hb * ((W + 3) / 4);
-    ccl_labels8<<<dim3((groups + kFlatThreads - 1) / kFlatThreads, N), kFlatThreads, 0, s>>>(
-        g, strip_occ, parent, bits, labels);
+    ccl_labels8<false><<<dim3((groups + kFlatThreads - 1) / kFlatThreads, N), kFlatThreads, 0,
+                         s>>>(g, strip_occ, parent, bits, labels, BandOut{});
     return static_cast<int>(cudaGetLastError());
   }
   // the same route over pixels: the occupancy and segments, the tiles with
@@ -1767,6 +1802,57 @@ extern "C" int tpuva_ccl_labels(const uint8_t* mask, int N, int H, int W, int co
   const int groups = H * ((W + 3) / 4);
   ccl4_labels<<<dim3((groups + kFlatThreads - 1) / kFlatThreads, N), kFlatThreads, 0, s>>>(
       mask, g, seg, labels);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// KB-labels: K3's 8-connected sequence on one row band of a frame, labels
+// on the image's global scan keys. mask: the band's first row of frame 0,
+// frames frame_stride bytes apart, Hb rows of W (a view of a larger mask:
+// the band inside its front end's halo rows). The band's first row y0 is
+// row r0 of K3's frame, r0 = y0 & 1, so that the frame's 2 x 2 blocks are
+// the image's (a blank row above an odd band); kbase = 2 * (y0 - r0) * Wb
+// is the global key of the frame's key 0. Out: labels (N, Hb, W) int32,
+// each foreground pixel its band piece's minimum global key, background
+// sent (tpuva's band_sweep fixed point); val (N, Hbk * Wb) int32, at each
+// piece's root block the piece's key, other entries untouched; roots
+// (N, Hbk * Wb) int32, each frame's root blocks in no order, nroots (N,)
+// of them; strip_occ (N, Hbk, S) u8 and scratch tiles, ntiles, parent and
+// bits as tpuva_ccl_labels's for an (Hb + r0, W) frame, Hbk = ceil((Hb +
+// r0) / 2). Needs N < 65536 and labels 16-byte aligned. Returns
+// cudaGetLastError() after the launches (0 = launched).
+extern "C" int tpuva_band_labels(const uint8_t* mask, long long frame_stride, int N, int Hb,
+                                 int W, int r0, int kbase, int sent, uint8_t* strip_occ,
+                                 int* tiles, int* ntiles, int* parent, uint8_t* bits, int* labels,
+                                 int* val, int* roots, int* nroots, void* stream) {
+  if (N <= 0 || N >= 65536 || Hb <= 0 || W <= 0 || (r0 != 0 && r0 != 1) ||
+      frame_stride < (long long)Hb * W || 4LL * ((Hb + r0 + 1) / 2) * ((W + 1) / 2) >= (1LL << 31) ||
+      (reinterpret_cast<uintptr_t>(labels) & 15) != 0 || !mask || !strip_occ || !tiles ||
+      !ntiles || !parent || !bits || !val || !roots || !nroots)
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  cudaError_t err;
+  Geom g = geom(Hb + r0, W);
+  g.r0 = r0;
+  g.fs = frame_stride;
+  const size_t strips = size_t(N) * g.Hb * g.S;
+  ccl_occ<<<unsigned((strips + kOccWarps - 1) / kOccWarps), 32 * kOccWarps, 0, s>>>(
+      mask, N, g, strip_occ);
+  if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
+  ccl_tiles<<<N, kScanThreads, 0, s>>>(g, strip_occ, tiles, ntiles);
+  if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
+  const dim3 g_list((g.tiles() + kTilesPerCta - 1) / kTilesPerCta, N);
+  ccl_local<<<g_list, kTileThreads, 0, s>>>(mask, g, strip_occ, tiles, ntiles, parent, bits);
+  if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
+  ccl_border<<<g_list, kBorderThreads, 0, s>>>(g, strip_occ, tiles, ntiles, parent, bits);
+  if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
+  ccl_flatten_tiles<<<g_list, kTileThreads, 0, s>>>(g, strip_occ, tiles, ntiles, parent, bits);
+  if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
+  if ((err = cudaMemsetAsync(nroots, 0, sizeof(int) * size_t(N), s)) != cudaSuccess)
+    return static_cast<int>(err);
+  const int groups = g.Hb * ((W + 3) / 4);
+  ccl_labels8<true><<<dim3((groups + kFlatThreads - 1) / kFlatThreads, N), kFlatThreads, 0,
+                      s>>>(g, strip_occ, parent, bits, labels,
+                           BandOut{kbase - 1, sent, val, roots, nroots});
   return static_cast<int>(cudaGetLastError());
 }
 

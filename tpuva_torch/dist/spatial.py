@@ -20,23 +20,29 @@ its device (``device.on_device``). Per batch:
    effects at interior edges. For Otsu each band histograms its interior
    rows (kernel K4), the histograms are summed, and every band takes the
    frame's threshold, compare and morphology;
-2. band CCL on GLOBAL 8-connected block-raster scan keys: the
-   neighbour-min and four segmented min-scans to a fixed point
-   (``_band_sweep``, torch ops as in tpuva, which has no kernel here);
-3. reconciliation: the 1-row band edges are exchanged and the bands
-   re-swept until no band changes, one host read a round;
-   ``tp_recon_rounds`` counts the rounds;
+2. band CCL on GLOBAL 8-connected block-raster scan keys: each piece of
+   a band its minimum global key (kernel KB-labels,
+   ``ops.band_ccl.band_labels``, read in place from the band's mask;
+   tpuva's fixed point of the neighbour min and four segmented min-scans),
+   a piece's value kept once, at its root block;
+3. reconciliation: each round snapshots every band's two edge rows as
+   their values (KB-recon ``recon_edges``), then lowers each piece by its
+   neighbours' snapshot rows (``recon_min``), until no band changes, one
+   host read a round; ``tp_recon_rounds`` counts the rounds;
 4. per band the table of piece values (tpuva's selection: the C largest,
-   adjacent duplicates dropped) and each piece's exact int64 sums of
-   (1, x, y) in global coordinates (tpuva contracts a bf16 one-hot on the
-   MXU; at 1080p that tensor would take GBs a band);
+   adjacent duplicates dropped; KB-table ``piece_table``) and each
+   piece's exact int64 sums of (1, x, y) in global coordinates
+   (``piece_sums``; tpuva contracts a bf16 one-hot on the MXU, at 1080p a
+   tensor of GBs a band);
 5. the tables merged by ascending key (cv2's id order, the first C
    kept), ``_assemble_stats``, the overflow summed over bands;
 6. the tracker tail ``_finish_batch`` (kernel K5) on band 0's device.
 
 Bit-identical to the single-device ``process_batch``
 (``tests/test_torch_spatial.py``), so the rows, the carried background and
-the track table are those of one device.
+the track table are those of one device; ``stats_overflow`` differs where
+a band holds more pieces than its table (tpuva's count, summed over the
+bands).
 """
 
 from __future__ import annotations
@@ -44,7 +50,6 @@ from __future__ import annotations
 from typing import Optional, Sequence
 
 import torch
-import torch.nn.functional as F
 
 from tpuva_torch.device import mesh_devices, on_device
 from tpuva_torch.graph.pipeline import (
@@ -53,16 +58,15 @@ from tpuva_torch.graph.pipeline import (
     _front_end_emit,
     _otsu_mask,
 )
-from tpuva_torch.ops.filters import histogram_u8, otsu_from_histogram
-from tpuva_torch.ops.label import (
-    _assemble_stats,
-    _neighbor_min_8,
-    _pixel_sums,
-    _segmented_min_scan,
+from tpuva_torch.ops.band_ccl import (
+    band_labels,
+    piece_sums,
+    piece_table,
+    recon_edges,
+    recon_min,
 )
-
-# pixels a band sweep takes at once: its int64 scan keys stay ~256 MB
-SWEEP_PX = 1 << 25
+from tpuva_torch.ops.filters import histogram_u8, otsu_from_histogram
+from tpuva_torch.ops.label import _assemble_stats
 
 
 def make_space_mesh(n_chips: int, devices: Optional[Sequence] = None) -> tuple:
@@ -86,82 +90,6 @@ def _halo_rows(cfg) -> int:
         else 0
     )
     return max(1, rb + rm + ro + rc)
-
-
-def _sweep(label: torch.Tensor, m: torch.Tensor, sent: int) -> torch.Tensor:
-    """One sweep: the 8-neighbour min, then the four segmented min-scans."""
-    label = torch.where(m, torch.minimum(label, _neighbor_min_8(label, sent)), sent)
-    label = _segmented_min_scan(label, m, 2, sent)
-    label = _segmented_min_scan(label, m, 2, sent, reverse=True)
-    label = _segmented_min_scan(label, m, 1, sent)
-    return _segmented_min_scan(label, m, 1, sent, reverse=True)
-
-
-def _band_sweep(lab: torch.Tensor, m: torch.Tensor, sent: int, precheck: bool = False) -> None:
-    """Sweep the band's labels (N, Hb, W) int32 in place to their fixed
-    point, SWEEP_PX pixels of frames at a time (frames are independent, so
-    each reaches the fixed point tpuva's whole-band loop gives it).
-
-    precheck: a fixed point of the 8-neighbour min is one of the run scans
-    too (each scan is an iterated neighbour min along one axis), so frames
-    whose neighbour min changes nothing are left as they are — a
-    reconciliation round that changed nothing costs one compare."""
-    N, Hb, W = lab.shape
-    step = max(1, SWEEP_PX // max(1, Hb * W))
-    for s in range(0, N, step):
-        cur, mc = lab[s:s + step], m[s:s + step]
-        if precheck:
-            nb = torch.where(mc, torch.minimum(cur, _neighbor_min_8(cur, sent)), sent)
-            if torch.equal(nb, cur):
-                continue
-        while True:
-            new = _sweep(cur, mc, sent)
-            if torch.equal(new, cur):
-                break
-            cur = new
-        lab[s:s + step] = cur
-
-
-def _adj(nb: torch.Tensor, sent: int) -> torch.Tensor:
-    """8-connected partners of an edge row (N, W): itself and its left and
-    right neighbours, sent outside."""
-    p = F.pad(nb, (1, 1), value=sent)
-    return torch.minimum(nb, torch.minimum(p[:, :-2], p[:, 2:]))
-
-
-def _piece_table(lab: torch.Tensor, is_root: torch.Tensor, sent: int, C: int):
-    """A band's table: the C largest piece values (the reconciled label + 1
-    at each pre-reconciliation piece root; tpuva's top_k), adjacent
-    duplicates and absent entries sent + 2, sorted ascending. Returns
-    (table (N, C) int64, pieces (N,) int64: the band's piece roots)."""
-    N = lab.shape[0]
-    rootv = torch.where(is_root, lab + 1, 0).reshape(N, -1)
-    k = min(C, rootv.shape[1])
-    vals = torch.topk(rootv, k, dim=1).values.long()  # descending, dupes adjacent
-    if k < C:
-        vals = F.pad(vals, (0, C - k))
-    dup = torch.zeros_like(vals, dtype=torch.bool)
-    dup[:, 1:] = vals[:, 1:] == vals[:, :-1]
-    table = torch.where((vals > 0) & ~dup, vals, sent + 2)
-    return table.sort(dim=1).values, (rootv > 0).sum(1)
-
-
-def _table_sums(lab: torch.Tensor, m: torch.Tensor, table: torch.Tensor, y0: int):
-    """(N, C, 3) int64 sums of (1, x, y + y0) over the band's pixels whose
-    label + 1 is in their frame's sorted table (pixels of pieces past the
-    table are dropped, as tpuva drops them)."""
-    N, _Hb, _W = lab.shape
-    C = table.shape[1]
-    n_idx, p_idx = m.reshape(N, -1).nonzero(as_tuple=True)
-    stride = 1 << 33  # above every label and the sentinel: frames stay sorted
-    flat_table = (table + torch.arange(N, device=lab.device)[:, None] * stride).reshape(-1)
-    q = lab.reshape(N, -1)[n_idx, p_idx].long() + 1 + n_idx * stride
-    pos = torch.searchsorted(flat_table, q).clamp(max=N * C - 1)
-    hit = flat_table[pos] == q
-    n_idx = n_idx[hit]
-    sums = _pixel_sums(lab.shape, C, n_idx, p_idx[hit], pos[hit] - n_idx * C)
-    sums[..., 2] += y0 * sums[..., 0]  # the band's rows in global coordinates
-    return sums
 
 
 def _merge(tables: torch.Tensor, sums: torch.Tensor, sent: int, C: int):
@@ -210,7 +138,6 @@ def make_spatial_processor(cfg, H: int, W: int, n_chips: int, mesh: Optional[Seq
     home = mesh[0]
     C = max_components
     sent = ((H + 1) // 2) * ((W + 1) // 2) * 4  # _scan_key(H, W, 8)'s sentinel
-    Wb2 = (W + 1) // 2
     top = [halo if b > 0 else 0 for b in range(n_chips)]
     bot = [halo if b < n_chips - 1 else 0 for b in range(n_chips)]
     otsu = cfg.segment.threshold == "otsu"
@@ -227,11 +154,6 @@ def make_spatial_processor(cfg, H: int, W: int, n_chips: int, mesh: Optional[Seq
         if bot[b]:
             parts.append(x[b + 1][..., :halo, :].to(dev))
         return torch.cat(parts, dim=-2) if len(parts) > 1 else parts[0]
-
-    def band_keys(b):
-        rr = torch.arange(Hb, dtype=torch.int32, device=mesh[b])[:, None] + b * Hb
-        cc = torch.arange(W, dtype=torch.int32, device=mesh[b])[None, :]
-        return ((rr >> 1) * Wb2 + (cc >> 1)) * 4 + (rr & 1) * 2 + (cc & 1)
 
     def fn(carry: PipelineCarry, frames):
         bands_in = not isinstance(frames, torch.Tensor)
@@ -269,61 +191,47 @@ def make_spatial_processor(cfg, H: int, W: int, n_chips: int, mesh: Optional[Seq
                     masks.append(_otsu_mask(cfg, dus[b], thr.to(mesh[b])))
             del dus
 
-        # 2. band CCL on global scan keys
-        fg, labs, roots = [], [], []
+        # 2. band CCL on global scan keys, each band read in place
+        pieces = []
         for b in range(n_chips):
             with on_device(mesh[b]):
-                m = masks[b][:, top[b]:top[b] + Hb] > 0
-                kv = band_keys(b)
-                lab = torch.where(m, kv[None], sent)
-                _band_sweep(lab, m, sent)
-                fg.append(m)
-                labs.append(lab)
-                roots.append(m & (lab == kv[None]))  # each piece's local root
+                pieces.append(band_labels(masks[b], top[b], Hb, b * Hb, sent))
         del masks
 
-        # 3. reconciliation: exchange 1-row edges until no band changes
+        # 3. reconciliation: every band's edge snapshot, then every band's
+        # minimum, until no band changes (one host read a round)
         rounds = 0
         while True:
             rounds += 1
-            edges, flags = [], []
+            edges = []
             for b in range(n_chips):
                 with on_device(mesh[b]):
-                    lab, m = labs[b], fg[b]
-                    none = torch.full((N, W), sent, dtype=torch.int32, device=mesh[b])
-                    above = labs[b - 1][:, -1].to(mesh[b]) if b > 0 else none
-                    below = labs[b + 1][:, 0].to(mesh[b]) if b < n_chips - 1 else none
-                    new_top = torch.where(m[:, 0], torch.minimum(lab[:, 0], _adj(above, sent)),
-                                          sent)
-                    new_bot = torch.where(m[:, -1], torch.minimum(lab[:, -1], _adj(below, sent)),
-                                          sent)
-                    edges.append((new_top, new_bot))
-                    flags.append(torch.any(new_top != lab[:, 0]) | torch.any(new_bot != lab[:, -1]))
-            changed = torch.stack([f.to(home) for f in flags]).tolist()  # one host read
-            if not any(changed):
-                break
+                    edges.append(recon_edges(pieces[b]))
+            flags = []
             for b in range(n_chips):
-                if changed[b]:
-                    with on_device(mesh[b]):
-                        labs[b][:, 0], labs[b][:, -1] = edges[b]
-                        _band_sweep(labs[b], fg[b], sent, precheck=True)
+                with on_device(mesh[b]):
+                    above = edges[b - 1][:, 1].to(mesh[b]) if b > 0 else None
+                    below = edges[b + 1][:, 0].to(mesh[b]) if b < n_chips - 1 else None
+                    flags.append(recon_min(pieces[b], edges[b], above, below).to(home))
             del edges
+            if not any(torch.cat(flags).tolist()):
+                break
 
         # 4. per band: the piece table and its exact sums
-        tables, sums, pieces = [], [], []
+        tables, sums, n_pieces = [], [], []
         for b in range(n_chips):
             with on_device(mesh[b]):
-                table, n_loc = _piece_table(labs[b], roots[b], sent, C)
-                sums.append(_table_sums(labs[b], fg[b], table, b * Hb).to(home))
+                table = piece_table(pieces[b], C)
+                sums.append(piece_sums(pieces[b], table).to(home))
                 tables.append(table.to(home))
-                pieces.append(n_loc.to(home))
-        del labs, roots, fg
+                n_pieces.append(pieces[b].nroots.to(home))
+        del pieces
 
         # 5. merge on band 0's device, 6. the tracker tail there
         with on_device(home):
             count, out_sums = _merge(torch.cat(tables, 1), torch.cat(sums, 1), sent, C)
             stats = _assemble_stats(count, out_sums, H, W)
-            stats["overflow"] = sum(torch.clamp(p - C, min=0) for p in pieces).to(torch.int32)
+            stats["overflow"] = sum(torch.clamp(p - C, min=0) for p in n_pieces).to(torch.int32)
             stats["ccl_converged"] = True
             rep = PipelineCarry(bg=None, bg_valid=bg_valid, track=type(carry.track)(
                 *(x.to(home) for x in carry.track)), frame_idx=carry.frame_idx.to(home))

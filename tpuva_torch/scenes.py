@@ -16,7 +16,11 @@ kernels against their plain versions on; numpy only:
   (``median_adversarial``, kernel K7);
 - uint8 masks for the exact distance transform (``edt_scenes``, kernel
   KE): densities 0.01 to 0.9, zero-free columns and rows, no zero and no
-  foreground, 1-px lines, a lone corner zero, odd shapes, leading axes.
+  foreground, 1-px lines, a lone corner zero, odd shapes, leading axes;
+- frames for the band path's CCL (kernels KB): a serpentine that crosses
+  every band several times (``serpentine_clip``: many reconciliation
+  rounds) and a band with more pieces than its table holds, duplicates
+  among its largest (``piece_overflow_clip``).
 """
 
 import dataclasses
@@ -372,3 +376,45 @@ def edt_large_scenes():
     scenes["row_1x70000"] = row
     scenes["masks_65536x5x7"] = (rng.random((65536, 5, 7)) < 0.7).astype(np.uint8)
     return scenes
+
+
+def serpentine_clip(H=96, W=128, T=8, level=200):
+    """(T, H, W) uint8: one line, 2 px wide, down and up the frame through
+    columns 16 apart, joined alternately at the bottom and at the top, with
+    a disk beside it; frame t shifted t px right. On 4 bands its minimum
+    key (top left) reaches the last column's pieces one band a
+    reconciliation round: 22 rounds."""
+    clip = np.zeros((T, H, W), np.uint8)
+    yy, xx = np.mgrid[:H, :W]
+    for t in range(T):
+        f = clip[t]
+        cols = [8 + t + 16 * k for k in range(7) if 8 + t + 16 * k + 1 < W - 8]
+        for c in cols:
+            f[2:H - 2, c:c + 2] = level
+        for k in range(len(cols) - 1):
+            r = slice(H - 4, H - 2) if k % 2 == 0 else slice(2, 4)
+            f[r, cols[k]:cols[k + 1] + 2] = level
+        f[(yy - H // 2) ** 2 + (xx - (W - 5 - t % 3)) ** 2 <= 9] = level
+    return clip
+
+
+def piece_overflow_clip(H=96, W=128, T=8, level=200):
+    """(T, H, W) uint8 for 4 bands and 32 components a frame: a comb whose
+    bar lies in band 0 and whose 10 teeth reach into band 1, 30 one-pixel
+    specks lower in band 1, and a disk moving through bands 2 and 3. Band
+    1 holds 40 pieces: its top 32 values are the 30 specks' and two of the
+    teeth's one value (duplicates), so its table holds 31 entries and 8
+    pieces overflow it (none of the comb's pixels is lost: its value is in
+    the table)."""
+    Hb = H // 4
+    clip = np.zeros((T, H, W), np.uint8)
+    yy, xx = np.mgrid[:H, :W]
+    for t in range(T):
+        f = clip[t]
+        f[Hb - 6:Hb - 2, 8:W - 8] = level
+        for k in range(10):
+            f[Hb - 2:Hb + 10, 8 + 12 * k:10 + 12 * k] = level
+        for r in (Hb + 14, Hb + 18, Hb + 22):
+            f[r, 6:6 + 12 * 10:12] = level
+        f[(yy - (2 * Hb + 12 + t)) ** 2 + (xx - (20 + 6 * t)) ** 2 <= 36] = level
+    return clip
